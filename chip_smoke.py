@@ -1,24 +1,39 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's serving path once on one CUDA card and check it.
+"""Run the PyTorch port's serving paths once on one CUDA card and check them.
 
     python3 chip_smoke.py [--profile]
 
 Phases (any failure raises and the script exits non-zero):
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build: compile the table-gather kernel from kaldi_tpu_torch/csrc;
-  3. kernel vs plain: bit-exact against torch.gather at the decoder's
-     shapes and at the edges, with CUDA-event timings of both;
-  4. decoder on the card vs the same port on the CPU, on small graphs:
+  2. build: compile every kernel in kaldi_tpu_torch/csrc (one nvcc each,
+     all at once) and print ptxas' registers / spills;
+  3. table-gather kernel vs plain: bit-exact against torch.gather at the
+     decoder's shapes and at the edges, with CUDA-graph timings;
+  4. qaffine kernel vs plain (`qaffine_ref`) at the int8 TDNN's shapes and
+     at the edges, with timings of the kernel, the plain version and
+     torch.addmm over pre-dequantized weights;
+  5. decoder on the card vs the same port on the CPU, on small graphs:
      identical words, tids and counters, cost within 1e-2;
-  5. full-width slice: the 60k-word / 1.05M-state HCLG and the 2048-pdf
+  6. int8 decode on the card vs on the CPU (small QuantizedTdnn behind
+     `Recognizer`): identical words and tids, cost within 1e-2;
+  7. full-width slice: the 60k-word / 1.05M-state HCLG and the 2048-pdf
      relu TDNN (random weights from a seed) behind `Recognizer`, answering
      three requests of 8 x 10 s utterances in bf16 at beam 13,
      max_active 7000, expand_budget 16384, then one request split by
      layer; --profile adds one decode under torch.profiler (device busy
-     share and the kernels that take the device time).
+     share and the kernels that take the device time);
+  8. full-width int8 slice: the same graph and corpus behind
+     `Recognizer(QuantizedTdnn)`, three requests, 6 qaffine launches each,
+     then bf16 and int8 requests in turns;
+  9. streaming, small: `FusedStreamingServer` on the card vs on the CPU,
+     and each stream vs the offline decode on the card;
+ 10. streaming, full width: 16 streams of 10 s fed 160 ms per step into
+     the server over the 60k-word HCLG and the 2048-pdf f32 TDNN behind
+     `AmNnet`; every stream equals its offline decode on the card;
+     --profile adds six steady steps under torch.profiler.
 
 The line before the last is a JSON object with each kernel's launches on
-the main path, error against its plain version and times; the last line
+its path, error against its plain version, times and bound; the last line
 is {"ok": true, "device": {...}}. There is no CPU fallback: without CUDA
 the script fails.
 """
@@ -36,6 +51,21 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 GATHER_SHAPES = [(8, 2048, 30384),   # fused acoustic lookup, per frame
                  (8, 7000, 4096)]    # frontier-score lookup, per frame
+# published H100 SXM peaks (NVIDIA data sheet), at the 700 W power limit
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+# (M, K, N) of the int8 TDNN's qaffine calls at B = 8, T = 998 (M = 7984),
+# with how many of the 6 calls of one request have that shape
+QAFFINE_SHAPES = [((7984, 200, 1024), 1), ((7984, 2048, 1024), 3),
+                  ((7984, 1024, 1024), 1), ((7984, 1024, 2048), 1)]
+QAFFINE_EDGES = [(40, 128, 128),      # tests/test_quantized.py's shape
+                 (1, 200, 1024),      # M = 1
+                 (37, 72, 48),        # M, K, N all ragged
+                 (300, 72, 1024),     # K = 72
+                 (130, 1024, 48),     # N = 48
+                 (200, 33, 1000),     # K % 4 != 0 (scalar loads), N ragged
+                 (129, 256, 130)]     # one row and two columns past a tile
 GATHER_EDGES = [(3, 200, 1000),      # P not a multiple of 128
                 (2, 16384, 5000),    # widest staged row
                 (2, 20000, 3000),    # global-memory path
@@ -115,6 +145,22 @@ def cuda_ms(fn, reps: int = 20, per: int = 100) -> float:
     return float(np.median(ts))
 
 
+def gather_bound_ms(B: int, P: int, N: int) -> float:
+    """Least time for one gather: the index read and the output write (4 B
+    each per element) and the table read once, over the HBM rate. It does
+    no arithmetic, so bytes bound it."""
+    return (8 * B * N + 4 * B * P) / HBM_BYTES_PER_S * 1e3
+
+
+def qaffine_bound_ms(M: int, K: int, N: int) -> tuple[float, str]:
+    """Least time for one qaffine call: the larger of its 2MNK f32 FLOPs
+    over the FP32 rate (true f32: no tensor cores) and its bytes (x, int8
+    weights, scale and bias read once, y written once) over the HBM rate."""
+    t_ops = 2 * M * K * N / FP32_FLOP_PER_S * 1e3
+    t_bytes = (4 * M * K + N * K + 8 * N + 4 * M * N) / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def phase_kernel(tg) -> dict:
     import torch
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -150,11 +196,117 @@ def phase_kernel(tg) -> dict:
         log(f"  gather tab [{B}, {P}] idx [{B}, {N}]: kernel "
             f"{times[(B, P, N)][0]:.6f} ms, plain version "
             f"{times[(B, P, N)][1]:.6f} ms, torch.gather alone "
-            f"{times[(B, P, N)][2]:.6f} ms (device time per call: CUDA graph "
-            f"of 100 calls, median of 20 replays)")
+            f"{times[(B, P, N)][2]:.6f} ms, bound "
+            f"{gather_bound_ms(B, P, N):.6f} ms by bytes (device time per "
+            f"call: CUDA graph of 100 calls, median of 20 replays)")
     log(f"  kernel bit-exact at {len(GATHER_SHAPES + GATHER_EDGES)} shapes "
         f"and out-of-range indices")
     return {"max_abs_err": err, "times": times}
+
+
+def _qaffine_case(M: int, K: int, N: int, g):
+    """x [M, K] and bias [N] from the card's generator; int8 weights
+    quantized (numpy) from seeded normal weights of stddev 1/sqrt(K)."""
+    import torch
+    from kaldi_tpu_torch.nnet.quantized import quantize_weights
+    rng = np.random.default_rng(7 * M + 3 * K + N)
+    wq, sc = quantize_weights(rng.standard_normal((N, K)).astype(np.float32)
+                              / np.sqrt(K))
+    x = torch.randn(M, K, device="cuda", generator=g)
+    b = torch.randn(N, device="cuda", generator=g)
+    return x, torch.from_numpy(wq).cuda(), torch.from_numpy(sc).cuda(), b
+
+
+def phase_qaffine(q) -> dict:
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(1)
+    worst_abs = worst_rel = 0.0
+    for (M, K, N) in [sh for sh, _n in QAFFINE_SHAPES] + QAFFINE_EDGES:
+        x, wq, sc, b = _qaffine_case(M, K, N, g)
+        got = q.qaffine_cuda(x, wq, sc, b)
+        torch.cuda.synchronize()
+        want = q.qaffine_ref(x, wq, sc, b)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        top = float(want.abs().max())
+        # the f32 sums run in another order over K <= 2048: 1e-5 of the
+        # output's scale; at the JAX test's shape atol 1e-4, as
+        # tests/test_quantized.py:53 holds the Pallas kernel
+        lim = 1e-4 if (M, K, N) == (40, 128, 128) else 1e-5 * top
+        if not err <= lim:
+            raise AssertionError(f"qaffine kernel vs plain at {(M, K, N)}: "
+                                 f"max abs err {err} > {lim}")
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, err / top)
+    log(f"  kernel within tolerance at {len(QAFFINE_SHAPES)} path shapes and "
+        f"{len(QAFFINE_EDGES)} edges: max abs err {worst_abs:.3e}, max "
+        f"err / max|y| {worst_rel:.3e}")
+    times = {}
+    for (M, K, N), _n in QAFFINE_SHAPES:
+        x, wq, sc, b = _qaffine_case(M, K, N, g)
+        w_deq_t = (wq.to(torch.float32) * sc[:, None]).T    # [K, N] f32
+        times[(M, K, N)] = (
+            cuda_ms(lambda: q.qaffine_cuda(x, wq, sc, b), per=10),
+            cuda_ms(lambda: q.qaffine_ref(x, wq, sc, b), per=10),
+            cuda_ms(lambda: torch.addmm(b, x, w_deq_t), per=10))
+        bound, by = qaffine_bound_ms(M, K, N)
+        k_ms, p_ms, l_ms = times[(M, K, N)]
+        log(f"  qaffine x [{M}, {K}] wq [{N}, {K}]: kernel {k_ms:.6f} ms "
+            f"({2 * M * K * N / k_ms / 1e9:.1f} TFLOP/s), plain version "
+            f"{p_ms:.6f} ms, torch.addmm on f32 weights {l_ms:.6f} ms, bound "
+            f"{bound:.6f} ms by {by} (device time per call: CUDA graph of 10 "
+            f"calls, median of 20 replays)")
+    per_req = [sum(n * times[sh][i] for sh, n in QAFFINE_SHAPES)
+               for i in range(3)]
+    bound_req = sum(n * qaffine_bound_ms(*sh)[0] for sh, n in QAFFINE_SHAPES)
+    log(f"  per request (6 calls): kernel {per_req[0]:.6f} ms, plain "
+        f"{per_req[1]:.6f} ms, torch.addmm {per_req[2]:.6f} ms (it reads "
+        f"f32 weights: 4x the int8 bytes), bound {bound_req:.6f} ms by "
+        f"operations = {100 * bound_req / per_req[0]:.1f}% of the kernel's "
+        f"time")
+    return {"max_abs_err": worst_abs, "max_rel_err": worst_rel,
+            "ms": per_req[0], "plain_ms": per_req[1],
+            "library_ms": per_req[2], "bound_ms": bound_req}
+
+
+def _same_results(name: str, got: list, want: list, what: str):
+    """Identical words and tids, cost within 1e-2, per utterance."""
+    for b, (g, w) in enumerate(zip(got, want)):
+        if (g is None) != (w is None):
+            raise AssertionError(f"{name}: utt {b} hypothesis presence")
+        if g is None:
+            continue
+        if list(g[0]) != list(w[0]) or list(g[1]) != list(w[1]) \
+                or abs(g[2] - w[2]) > 1e-2:
+            raise AssertionError(f"{name}: utt {b} differs: {what} {g} "
+                                 f"reference {w}")
+
+
+def phase_int8_parity():
+    from kaldi_tpu_torch.decoder.biggraph import BigGraphConfig, make_big_hclg
+    from kaldi_tpu_torch.decoder.csr_beam import CsrBeamOpts
+    from kaldi_tpu_torch.decoder.simulate import make_corpus
+    from kaldi_tpu_torch.nnet.quantized import QuantizedTdnn, quantize_tdnn
+    from kaldi_tpu_torch.nnet.tdnn import TdnnConfig
+    from kaldi_tpu_torch.params import random_tdnn_params
+    from kaldi_tpu_torch.recognize import Recognizer
+    graph, _ = make_big_hclg(BigGraphConfig(vocab=300, avg_bigram_succ=20,
+                                            num_pdfs=64, seed=1))
+    cfg = TdnnConfig(feat_dim=40, num_pdfs=64, hidden_dim=64,
+                     nonlinearity="relu")
+    qtree = quantize_tdnn(random_tdnn_params(cfg, np.random.default_rng(0)))
+    waves, _segs, _words = make_corpus(graph, 2, 200,
+                                       np.random.default_rng(0), noise=0.25)
+    opts = CsrBeamOpts(beam=13.0, max_active=512, acoustic_scale=0.1,
+                       expand_budget=4096, eps_budget=1024)
+    res = {dev: Recognizer(QuantizedTdnn(cfg).load_jax_qparams(qtree), graph,
+                           opts, device=dev, compute_dtype=None
+                           ).recognize(waves)
+           for dev in ("cuda", "cpu")}
+    if any(r is None for r in res["cuda"]):
+        raise AssertionError("int8 decode: an utterance has no hypothesis")
+    _same_results("int8 decode", res["cuda"], res["cpu"], "cuda")
+    log(f"  int8 decode cuda == cpu (words, tids; cost within 1e-2): "
+        f"{[len(r[0]) for r in res['cuda']]} words")
 
 
 def phase_decoder_parity():
@@ -276,38 +428,287 @@ def phase_slice(tg, card: str, profile: bool = False) -> dict:
         f"one copy + parse {t3 - t2:.4f} s")
     if profile:
         profile_decode(dec, ll, 200, (t2 - t1) / T)
+    return {"launches": launches, "graph": graph, "waves": waves,
+            "ref_words": ref_words, "decoder": dec, "cfg": cfg, "rec": rec}
+
+
+def phase_int8_slice(q, tg, sl: dict, card: str) -> dict:
+    import torch
+    from kaldi_tpu_torch.decoder.csr_beam import CsrBeamOpts
+    from kaldi_tpu_torch.nnet.quantized import QuantizedTdnn, quantize_tdnn
+    from kaldi_tpu_torch.params import random_tdnn_params
+    from kaldi_tpu_torch.recognize import Recognizer
+
+    cfg, waves = sl["cfg"], sl["waves"]
+    qmodel = QuantizedTdnn(cfg).load_jax_qparams(
+        quantize_tdnn(random_tdnn_params(cfg, np.random.default_rng(0))))
+    rec = Recognizer(qmodel, sl["graph"], CsrBeamOpts(
+        beam=13.0, max_active=7000, acoustic_scale=0.1,
+        expand_budget=16384, eps_budget=2048), device="cuda",
+        compute_dtype=None)
+    ll = rec.loglikes(waves)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ll = rec.loglikes(waves)
+    torch.cuda.synchronize()
+    tdnn_s = time.perf_counter() - t
+    B, T, P = ll.shape
+    if (B, P) != (8, 2048) or not bool(torch.isfinite(ll).all()):
+        raise AssertionError(f"int8 loglikes {tuple(ll.shape)} not "
+                             f"finite/shaped")
+
+    q.launches = tg.launches = 0          # count the int8 path only
+    answers, secs = [], []
+    for _ in range(3):
+        t = time.perf_counter()
+        answers.append(rec.recognize(waves))
+        secs.append(time.perf_counter() - t)
+    launches, g_launches = q.launches, tg.launches
+    if launches != 6 * 3:
+        raise AssertionError(f"{launches} qaffine launches in 3 requests, "
+                             f"want 6 per request")
+    if g_launches < 2 * T * 3:
+        raise AssertionError(f"{g_launches} gather launches for 3 x {T} "
+                             f"frames")
+    if any(a != answers[0] for a in answers[1:]):
+        raise AssertionError("repeated int8 requests gave different answers")
+    res = answers[0]
+    if any(r is None for r in res):
+        raise AssertionError("an utterance has no hypothesis (int8)")
+    dec = rec.decoder
+    audio = B * waves.shape[1] / 16000.0
+    steady = float(np.median(secs[1:]))
+    corpus_wer = wer([list(w) for w in sl["ref_words"]], [r[0] for r in res])
+    log(f"  int8 slice: {audio / steady:.3f} audio-sec/s (median of requests "
+        f"2-3), per-request s {[round(s_, 4) for s_ in secs]}, fbank+CMVN+"
+        f"int8 TDNN {tdnn_s:.4f} s, qaffine launches {launches} "
+        f"({launches // 3}/request), gather launches {g_launches} "
+        f"({g_launches / (3 * T):.1f}/frame), overflow sum "
+        f"{int(dec.last_overflow.sum())}, active tokens mean "
+        f"{dec.last_active_sum.sum() / (B * T):.1f} peak "
+        f"{int(dec.last_active_max.max())}, corpus WER {corpus_wer:.2f}% "
+        f"(untrained random-weight AM: not a quality number) | card: {card}")
+    # the host loop sets both paths' request time and its speed drifts
+    # within a call, so the two are compared in turns
+    turns = {"bf16": [], "int8": []}
+    for name in ("bf16", "int8", "int8", "bf16"):
+        r = sl["rec"] if name == "bf16" else rec
+        t = time.perf_counter()
+        r.recognize(waves)
+        turns[name].append(time.perf_counter() - t)
+    log(f"  in turns (bf16, int8, int8, bf16): request s bf16 "
+        f"{[round(x, 4) for x in turns['bf16']]} int8 "
+        f"{[round(x, 4) for x in turns['int8']]}")
     return {"launches": launches}
 
 
-def profile_decode(dec, ll, frames: int, host_s_per_frame: float):
-    """One decode of the first `frames` frames under torch.profiler: the
-    device's busy time (sum of kernel, memcpy and memset durations; one
-    stream, so they do not overlap) against the unprofiled host time per
-    frame, and the kernels that take the device time."""
+def _stream_all(srv, waves: list, sizes: list) -> tuple[list, list]:
+    """Open one slot per wave, feed each `sizes[i]` samples per step until
+    all is fed, flush, and read every stream's best path. -> (results,
+    host seconds of each step, each ending in a device sync)."""
+    slots = [srv.open() for _ in waves]
+    pos = [0] * len(waves)
+    step_s = []
+
+    def step():
+        t = time.perf_counter()
+        srv.step()
+        srv.sync()
+        step_s.append(time.perf_counter() - t)
+
+    while any(p < len(w) for p, w in zip(pos, waves)):
+        for i, w in enumerate(waves):
+            if pos[i] < len(w):
+                srv.feed(slots[i], w[pos[i]: pos[i] + sizes[i]])
+                pos[i] += sizes[i]
+        step()
+    for s in slots:
+        srv.input_finished(s)
+    while not all(srv.finished(s) for s in slots):
+        step()
+    out = [srv.best_path(s) for s in slots]
+    for s in slots:
+        srv.close(s)
+    return out, step_s
+
+
+def _offline(am, dec, waves: list, fb) -> list:
+    """The offline decode of each wave on the decoder's device: fbank ->
+    AmNnet.loglikes -> CsrBeamDecoder.decode, one batch if the waves are
+    all of one length."""
+    import torch
+    from kaldi_tpu_torch.ops.features import fbank
+    if len({len(w) for w in waves}) > 1:
+        return [r for w in waves for r in _offline(am, dec, [w], fb)]
+    feats = fbank(torch.as_tensor(np.stack(waves), device=dec.device), fb)
+    ll = am.loglikes(feats)
+    return dec.decode(ll, np.full(len(waves), feats.shape[1], np.int32))
+
+
+def phase_stream_small():
+    from kaldi_tpu_torch.decoder.biggraph import BigGraphConfig, make_big_hclg
+    from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder, CsrBeamOpts
+    from kaldi_tpu_torch.nnet.am_nnet import AmNnet
+    from kaldi_tpu_torch.nnet.tdnn import Tdnn, TdnnConfig
+    from kaldi_tpu_torch.online.serving import FusedStreamingServer
+    from kaldi_tpu_torch.ops.features import FbankOpts
+    from kaldi_tpu_torch.ops.mel import MelOpts
+    from kaldi_tpu_torch.ops.window import FrameOpts
+    from kaldi_tpu_torch.params import random_tdnn_params
+    # tests/test_fused_serving.py's fixture, with seeded weights and priors
+    fb = FbankOpts(frame_opts=FrameOpts(dither=0.0),
+                   mel_opts=MelOpts(num_bins=24))
+    graph, _ = make_big_hclg(BigGraphConfig(vocab=40, avg_bigram_succ=6,
+                                            num_pdfs=16, seed=3))
+    cfg = TdnnConfig(feat_dim=24, num_pdfs=16, hidden_dim=64,
+                     pnorm_output_dim=32, nonlinearity="relu",
+                     splice_indexes=((-2, -1, 0, 1, 2), (-1, 2), (0,)))
+    params = random_tdnn_params(cfg, np.random.default_rng(0))
+    priors = np.random.default_rng(1).dirichlet(np.ones(16))
+    opts = CsrBeamOpts(beam=11.0, max_active=128, acoustic_scale=0.1,
+                       expand_budget=2048, eps_budget=512, hub_threshold=64)
+    rng = np.random.default_rng(21)
+    waves = [rng.standard_normal(L).astype(np.float32) * 4000
+             for L in (9000, 17000, 30000, 12345)]
+    res = {}
+    for dev in ("cuda", "cpu"):
+        am = AmNnet(Tdnn(cfg).load_jax_params(params), priors=priors)
+        dec = CsrBeamDecoder(graph, opts, device=dev)
+        srv = FusedStreamingServer(am, dec, fb, n_streams=4,
+                                   chunk_samples=2560, t_max=256)
+        res[dev], _ = _stream_all(srv, waves, [2560, 1300, 5000, 2000])
+        if dev == "cuda":
+            offline = _offline(am, dec, waves, fb)
+    if any(r is None for r in res["cuda"]):
+        raise AssertionError("small streaming: a stream has no hypothesis")
+    _same_results("small streaming", res["cuda"], res["cpu"], "cuda server")
+    _same_results("small streaming", res["cuda"], offline, "cuda server")
+    log(f"  4 streams, mixed lengths and feed sizes: card == CPU (words, "
+        f"tids; cost within 1e-2) and card == offline decode on the card; "
+        f"{[len(r[0]) for r in res['cuda']]} words")
+
+
+def phase_stream_full(tg, sl: dict, card: str,
+                      profile: bool = False) -> dict:
+    import torch
+    from kaldi_tpu_torch.decoder.simulate import make_corpus
+    from kaldi_tpu_torch.nnet.am_nnet import AmNnet
+    from kaldi_tpu_torch.nnet.tdnn import Tdnn
+    from kaldi_tpu_torch.online.serving import FusedStreamingServer
+    from kaldi_tpu_torch.params import random_tdnn_params
+    from kaldi_tpu_torch.recognize import SERVING_FBANK
+
+    cfg, dec = sl["cfg"], sl["decoder"]
+    n, chunk = 16, 2560
+    am = AmNnet(Tdnn(cfg).load_jax_params(
+        random_tdnn_params(cfg, np.random.default_rng(0))),
+        priors=np.random.default_rng(2).dirichlet(np.ones(cfg.num_pdfs)))
+    waves, _segs, ref_words = make_corpus(sl["graph"], n, 1000,
+                                          np.random.default_rng(1),
+                                          noise=0.25)
+    srv = FusedStreamingServer(am, dec, SERVING_FBANK, n_streams=n,
+                               chunk_samples=chunk, t_max=1024)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tg.launches = 0                       # count the streaming path only
+    t0 = time.perf_counter()
+    res, step_s = _stream_all(srv, list(waves), [chunk] * n)
+    wall = time.perf_counter() - t0
+    launches = tg.launches
+    frames = int(srv._decoded.max())
+    if launches < 2 * frames:
+        raise AssertionError(f"{launches} gather launches for {frames} "
+                             f"lockstep frames")
+    in_use = torch.cuda.memory_allocated() / 2**30
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t = time.perf_counter()
+    offline = _offline(am, dec, list(waves), SERVING_FBANK)
+    off_s = time.perf_counter() - t
+    if any(r is None for r in res):
+        raise AssertionError("full-width streaming: a stream has no "
+                             "hypothesis")
+    _same_results("full-width streaming", res, offline, "server")
+    ms = np.asarray(step_s) * 1e3
+    p50, p95 = float(np.percentile(ms, 50)), float(np.percentile(ms, 95))
+    n = len(res)
+    audio = n * waves.shape[1] / 16000.0
+    chunk_ms = 1e3 * chunk / 16000.0
+    corpus_wer = wer([list(w) for w in ref_words], [r[0] for r in res])
+    log(f"  streaming: {n} streams x {waves.shape[1] / 16000.0:.1f} s, "
+        f"{len(step_s)} steps of {chunk_ms:.0f} ms chunks, {frames} frames; "
+        f"step ms p50 {p50:.3f} p95 {p95:.3f} max {ms.max():.3f} "
+        f"(p95 < {chunk_ms:.0f} ms: {p95 < chunk_ms}); {audio / wall:.3f} "
+        f"audio-sec/s aggregate over {wall:.3f} s (feeding, steps and "
+        f"best_path); gather launches {launches} "
+        f"({launches / frames:.1f}/frame step); device memory in use "
+        f"{in_use:.3f} GiB, peak {peak:.3f} GiB; all {n} streams == offline "
+        f"decode on the card (words, tids; offline took {off_s:.3f} s); "
+        f"corpus WER {corpus_wer:.2f}% (untrained random-weight AM: not a "
+        f"quality number) | card: {card}")
+    if profile:
+        profile_stream(srv, list(waves), chunk, p50 / 1e3)
+    return {"launches": launches}
+
+
+def device_time(fn) -> tuple[float, int, dict]:
+    """Run fn under torch.profiler. -> (device busy seconds: the sum of
+    kernel, memcpy and memset durations, which do not overlap on one
+    stream; device op count; {name: [us, count]})."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    ll = ll[:, :frames].contiguous()
-    B = ll.shape[0]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        dec.decode(ll, np.full(B, frames, np.int32))
+        fn()
         torch.cuda.synchronize()
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e6
     by_name: dict[str, list] = {}
     for e in dev:
         acc = by_name.setdefault(e.name, [0.0, 0])
         acc[0] += e.time_range.elapsed_us()
         acc[1] += 1
-    per_frame = busy / frames
-    log(f"  profile ({frames} frames x {B} utts): device busy "
-        f"{per_frame * 1e3:.4f} ms/frame in {len(dev) / frames:.1f} device "
-        f"ops/frame; unprofiled host loop {host_s_per_frame * 1e3:.4f} "
-        f"ms/frame -> device idle {100 * (1 - per_frame / host_s_per_frame):.1f}%")
-    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]:
-        log(f"    {us / frames:9.2f} us/frame {n / frames:6.1f}/frame  {name[:80]}")
+    return sum(e.time_range.elapsed_us() for e in dev) / 1e6, len(dev), by_name
+
+
+def log_profile(what: str, per: str, n: int, busy: float, n_ops: int,
+                by_name: dict, host_s_per: float, top: int):
+    """Device busy time per unit against the unprofiled host time per unit,
+    and the device ops that take the time."""
+    log(f"  profile ({what}): device busy {busy / n * 1e3:.4f} ms/{per} in "
+        f"{n_ops / n:.1f} device ops/{per}; unprofiled host "
+        f"{host_s_per * 1e3:.4f} ms/{per} -> device idle "
+        f"{100 * (1 - busy / n / host_s_per):.1f}%")
+    for name, (us, k) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:top]:
+        log(f"    {us / n:9.2f} us/{per} {k / n:6.1f}/{per}  {name[:80]}")
+
+
+def profile_decode(dec, ll, frames: int, host_s_per_frame: float):
+    """One decode of the first `frames` frames under torch.profiler."""
+    ll = ll[:, :frames].contiguous()
+    B = ll.shape[0]
+    busy, n_ops, by_name = device_time(
+        lambda: dec.decode(ll, np.full(B, frames, np.int32)))
+    log_profile(f"{frames} frames x {B} utts", "frame", frames, busy, n_ops,
+                by_name, host_s_per_frame, 25)
+
+
+def profile_stream(srv, waves, chunk: int, host_s_per_step: float):
+    """Six steady streaming steps (all slots fed, past the first chunks)
+    under torch.profiler."""
+    slots = [srv.open() for _ in waves]
+    for s, w in zip(slots, waves):
+        srv.feed(s, w[:10 * chunk])
+    for _ in range(4):
+        srv.step()
+    n = 6
+    busy, n_ops, by_name = device_time(
+        lambda: [srv.step() for _ in range(n)])
+    for s in slots:
+        srv.close(s)
+    log_profile(f"{n} steady steps x {len(slots)} streams", "step", n, busy,
+                n_ops, by_name, host_s_per_step, 12)
 
 
 def main() -> int:
@@ -317,36 +718,66 @@ def main() -> int:
               "a card", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from kaldi_tpu_torch import cuda_build
     from kaldi_tpu_torch.device import card_info, resolve_device
+    from kaldi_tpu_torch.nnet import quantized as q
     from kaldi_tpu_torch.ops import table_gather as tg
 
     resolve_device("cuda")                # also turns TF32 off
     card = card_info()
-    log(f"[1/5] card: {card} | torch {torch.__version__} CUDA "
+    log(f"[1/10] card: {card} | torch {torch.__version__} CUDA "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
 
     t = time.perf_counter()
-    so = tg.build()
-    tg._load()
-    log(f"[2/5] build: {os.path.relpath(so, ROOT)} in "
-        f"{time.perf_counter() - t:.3f} s")
+    libs = cuda_build.build()
+    log(f"[2/10] build: {len(libs)} kernels in {time.perf_counter() - t:.3f} "
+        f"s (one nvcc each, in parallel)")
+    for name, so in libs.items():
+        with open(os.path.join(os.path.dirname(so), "nvcc.log")) as f:
+            regs = [ln.split("info    : ")[-1] for ln in f
+                    if "registers" in ln or "spill" in ln]
+        log(f"  {os.path.relpath(so, ROOT)}: {' | '.join(regs)}")
 
-    log("[3/5] table-gather kernel vs plain version")
+    log("[3/10] table-gather kernel vs plain version")
     k = phase_kernel(tg)
-    log("[4/5] decoder on the card vs on the CPU")
+    log("[4/10] qaffine kernel vs plain version")
+    qk = phase_qaffine(q)
+    log("[5/10] decoder on the card vs on the CPU")
     phase_decoder_parity()
-    log("[5/5] full-width serving slice")
-    s = phase_slice(tg, card, profile="--profile" in sys.argv[1:])
+    log("[6/10] int8 decode on the card vs on the CPU")
+    phase_int8_parity()
+    log("[7/10] full-width serving slice (bf16 TDNN)")
+    sl = phase_slice(tg, card, profile="--profile" in sys.argv[1:])
+    log("[8/10] full-width int8 serving slice")
+    s8 = phase_int8_slice(q, tg, sl, card)
+    log("[9/10] streaming server, small: card vs CPU vs offline")
+    phase_stream_small()
+    log("[10/10] streaming server, full width")
+    st = phase_stream_full(tg, sl, card, profile="--profile" in sys.argv[1:])
 
-    ms, plain_ms, _ = k["times"][GATHER_SHAPES[0]]
+    g_shape = GATHER_SHAPES[0]
+    ms, plain_ms, library_ms = k["times"][g_shape]
+    log(f"launches: gather {sl['launches']} on the bf16 slice, "
+        f"{st['launches']} on the streaming path; qaffine {s8['launches']} "
+        f"on the int8 slice")
     log(card)
     log(json.dumps({"kernels": [{
         "name": "batched_table_gather", "route": "cuda",
         "source": "kaldi_tpu_torch/csrc/table_gather.cu",
         "replaces": "kaldi_tpu/ops/table_gather.py:50",
-        "launches": s["launches"], "max_abs_err": k["max_abs_err"],
-        "ms": ms, "plain_ms": plain_ms}]}))
+        "launches": sl["launches"], "max_abs_err": k["max_abs_err"],
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": gather_bound_ms(*g_shape), "bound_by": "bytes",
+        "library_ms": library_ms}, {
+        "name": "qaffine", "route": "cuda",
+        "source": "kaldi_tpu_torch/csrc/qaffine.cu",
+        "replaces": "kaldi_tpu/nnet/quantized.py:46",
+        "launches": s8["launches"], "max_abs_err": qk["max_abs_err"],
+        "max_rel_err": qk["max_rel_err"],
+        "ms": qk["ms"], "plain_ms": qk["plain_ms"],
+        "bound_ms": qk["bound_ms"], "bound_by": "operations",
+        "library_ms": qk["library_ms"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -107,13 +107,13 @@ def _pack_rows(cols: list[np.ndarray], width: int) -> np.ndarray:
 
 def build_tier_tables(csr: SplitCsr, hub_threshold: int,
                       force_triple: bool = False,
-                      device="cpu") -> TierTables:
+                      device="cuda") -> TierTables:
     """Vectorized tier partition + row packing (numpy, runs once), copied
-    from kaldi_tpu; the tables land on `device`.
+    from kaldi_tpu; the tables land on `device` (the card by default).
 
     force_triple pins the tier-B fallback layout (3 arcs x 5 lanes) even
     when the quad layout applies."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     S = csr.num_states
     e_deg = np.diff(csr.estart).astype(np.int64)
     z_deg = np.diff(csr.zstart).astype(np.int64)
@@ -687,11 +687,11 @@ def resolve_eps_rounds(graph: PackedGraph, requested: int | None) -> int:
 
 
 class CsrBeamDecoder:
-    """Host wrapper: tier-pack the graph once onto `device`, decode
-    utterance batches there."""
+    """Host wrapper: tier-pack the graph once onto `device` (the card
+    unless the caller asks for "cpu"), decode utterance batches there."""
 
     def __init__(self, graph: PackedGraph, opts: CsrBeamOpts = CsrBeamOpts(),
-                 device="cpu"):
+                 device="cuda"):
         if graph.pdf is None:
             raise ValueError("PackedGraph has no tid->pdf mapping: the graph "
                              "must carry per-arc pdfs for decoding")

@@ -1,6 +1,7 @@
 """Device resolution and numerics settings for the port.
 
-Every entry point takes an explicit `device`. Asking for CUDA where there is
+Every entry point takes a `device` and runs on the card ("cuda") unless the
+caller asks for "cpu", as the CPU tests do. Asking for CUDA where there is
 none raises: nothing on the serving path falls back to the CPU.
 """
 

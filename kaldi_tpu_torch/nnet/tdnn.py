@@ -52,7 +52,7 @@ class Affine(nn.Module):
 class Tdnn(nn.Module):
     """forward(feats [..., T, D]) -> log posteriors [..., T(out), num_pdfs]."""
 
-    def __init__(self, config: TdnnConfig, device="cpu"):
+    def __init__(self, config: TdnnConfig, device=None):
         super().__init__()
         self.config = config
         in_dim = config.feat_dim

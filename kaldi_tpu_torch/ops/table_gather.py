@@ -25,73 +25,14 @@ only for CPU tensors; for CUDA tensors it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
 
 import torch
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    "csrc", "table_gather.cu")
-_BUILD_ROOT = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "build", "kaldi_tpu_torch")
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC")
+from kaldi_tpu_torch import cuda_build
 
 launches = 0          # kernel launches since the last reset
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the table-gather kernel is built "
-                           "from csrc/table_gather.cu at first use")
-    return path
-
-
-def build() -> str:
-    """Compile csrc/table_gather.cu unless a build of this source exists
-    (builds are keyed by a hash of the source and flags).
-    -> the shared library's path."""
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-    so = os.path.join(_BUILD_ROOT, digest, "libtable_gather.so")
-    if os.path.exists(so):
-        return so
-    os.makedirs(os.path.dirname(so), exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(so))
-    os.close(fd)
-    try:
-        subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, _SRC], check=True,
-                       capture_output=True, text=True)
-        os.replace(tmp, so)
-    except subprocess.CalledProcessError as e:
-        raise RuntimeError(f"nvcc failed on {_SRC}:\n{e.stderr}") from e
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return so
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            fn = lib.kaldi_table_gather_f32
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def batched_table_gather_ref(tab: torch.Tensor, idx: torch.Tensor
@@ -128,11 +69,11 @@ def gather_cuda(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty((B, N), dtype=torch.float32, device=tab.device)
     if B == 0 or N == 0:
         return out
-    lib = _load()
+    fn = cuda_build.load("table_gather", "kaldi_table_gather_f32", _ARGTYPES)
     with torch.cuda.device(tab.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.kaldi_table_gather_f32(tab.data_ptr(), idx.data_ptr(),
-                                        out.data_ptr(), B, P, N, stream)
+        rc = fn(tab.data_ptr(), idx.data_ptr(), out.data_ptr(), B, P, N,
+                stream)
     if rc != 0:
         raise RuntimeError(f"table-gather kernel launch failed: cudaError {rc}")
     launches += 1

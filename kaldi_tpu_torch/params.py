@@ -2,8 +2,9 @@
 
 The JAX `Tdnn` keeps its weights as a pytree
 `{"layers": [{"w": [in, out], "b": [out]}, ...], "final": {"w", "b"}}`
-(kaldi_tpu/nnet/tdnn.py `Tdnn.init`). The port keeps the same [in, out]
-layout, so conversion copies leaf for leaf. Leaves are numpy arrays (or
+(kaldi_tpu/nnet/tdnn.py `Tdnn.init`), and `quantize_tdnn` makes the int8
+tree `{"layers": [{"wq": [out, in], "scale", "b"}], "final": {...}}`. The
+port keeps the same layouts, so conversion copies leaf for leaf. Leaves are numpy arrays (or
 anything `np.asarray` takes); this module never imports jax.
 """
 
@@ -24,6 +25,20 @@ def tdnn_params_from_jax(tree) -> dict[str, torch.Tensor]:
             np.array(layer["b"], np.float32))
     out["final.w"] = torch.from_numpy(np.array(tree["final"]["w"], np.float32))
     out["final.b"] = torch.from_numpy(np.array(tree["final"]["b"], np.float32))
+    return out
+
+
+def tdnn_qparams_from_jax(qtree) -> dict[str, torch.Tensor]:
+    """`quantize_tdnn` pytree {"layers": [{"wq", "scale", "b"}], "final"}
+    -> state dict of `kaldi_tpu_torch.nnet.quantized.QuantizedTdnn` (CPU
+    tensors: wq int8 [out, in], scale and b f32 [out])."""
+    out = {}
+    named = [(f"layers.{i}", l) for i, l in enumerate(qtree["layers"])]
+    for name, leaf in named + [("final", qtree["final"])]:
+        out[f"{name}.wq"] = torch.from_numpy(np.array(leaf["wq"], np.int8))
+        out[f"{name}.scale"] = torch.from_numpy(
+            np.array(leaf["scale"], np.float32))
+        out[f"{name}.b"] = torch.from_numpy(np.array(leaf["b"], np.float32))
     return out
 
 

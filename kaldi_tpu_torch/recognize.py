@@ -2,9 +2,12 @@
 
 `Recognizer` composes exactly what the JAX benchmark composes for its
 decode (bench.py: `feats_of`, `am_scores`, `CsrBeamDecoder.decode`):
-fbank -> per-utterance CMVN -> TDNN log-posteriors (bf16 GEMMs by
-default) -> degree-tiered CSR beam search. Everything after the waveform
-upload runs on `device`; the decoder's finisher makes the one
+fbank -> per-utterance CMVN -> TDNN log-posteriors -> degree-tiered CSR
+beam search. The AM is a `Tdnn` (bf16 GEMMs by default, f32 with
+compute_dtype=None) or, for int8 weight-only serving, a `QuantizedTdnn`
+(`tdnn_apply_quantized`: the qaffine kernel in every layer, compute_dtype
+None). Everything after the waveform upload runs on `device`, the card
+unless the caller asks for "cpu"; the decoder's finisher makes the one
 device->host copy.
 """
 
@@ -16,6 +19,7 @@ import torch
 from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder, CsrBeamOpts
 from kaldi_tpu_torch.decoder.graph_pack import PackedGraph
 from kaldi_tpu_torch.device import resolve_device
+from kaldi_tpu_torch.nnet.quantized import QuantizedTdnn
 from kaldi_tpu_torch.nnet.tdnn import Tdnn
 from kaldi_tpu_torch.ops.features import FbankOpts, cmvn, fbank
 from kaldi_tpu_torch.ops.mel import MelOpts
@@ -30,10 +34,11 @@ class Recognizer:
     """recognize(waves [B, S]) -> per utterance (words, tids, cost) or None.
 
     `tdnn` is moved to `device`; the graph is tier-packed there once.
-    compute_dtype=None runs the TDNN in f32 (the parity tests' setting)."""
+    compute_dtype=None runs a `Tdnn` in f32 (the parity tests' setting) and
+    is the only setting a `QuantizedTdnn` takes."""
 
-    def __init__(self, tdnn: Tdnn, graph: PackedGraph,
-                 opts: CsrBeamOpts = CsrBeamOpts(), device="cpu",
+    def __init__(self, tdnn: Tdnn | QuantizedTdnn, graph: PackedGraph,
+                 opts: CsrBeamOpts = CsrBeamOpts(), device="cuda",
                  compute_dtype: torch.dtype | None = torch.bfloat16):
         self.device = resolve_device(device)
         self.tdnn = tdnn.to(self.device).eval()

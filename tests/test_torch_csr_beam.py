@@ -80,7 +80,7 @@ def _bridge_graph():
 
 def _check(graph, ll, nf, **kw):
     jd = JDecoder(graph, JOpts(**kw))
-    td = CsrBeamDecoder(graph, CsrBeamOpts(**kw))
+    td = CsrBeamDecoder(graph, CsrBeamOpts(**kw), device="cpu")
     assert td.opts.eps_expansions == jd.opts.eps_expansions
     rj, rt = jd.decode(ll, nf), td.decode(ll, nf)
     for b in range(len(nf)):
@@ -175,7 +175,8 @@ def test_all_costs_tied(small_big_graph):
 
 def test_lattice_options_rejected(small_big_graph):
     with pytest.raises(ValueError, match="rec_"):
-        CsrBeamDecoder(small_big_graph, CsrBeamOpts(rec_cap=16))
+        CsrBeamDecoder(small_big_graph, CsrBeamOpts(rec_cap=16),
+                       device="cpu")
 
 
 def test_segment_map_matches_jax():

@@ -1,5 +1,5 @@
-"""Card-only checks of the port: the table-gather kernel and the decoder on
-a CUDA device. Each test skips without a card. This file imports no jax,
+"""Card-only checks of the port: the table-gather and qaffine kernels, the
+decoder and the int8 decode on a CUDA device. Each test skips without a card. This file imports no jax,
 so it runs on a machine that has only torch:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -13,7 +13,12 @@ import torch
 
 from kaldi_tpu_torch.decoder.biggraph import BigGraphConfig, make_big_hclg
 from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder, CsrBeamOpts
+from kaldi_tpu_torch.decoder.simulate import make_corpus
+from kaldi_tpu_torch.nnet import quantized as tq
+from kaldi_tpu_torch.nnet.tdnn import TdnnConfig
 from kaldi_tpu_torch.ops import table_gather as tg
+from kaldi_tpu_torch.params import random_tdnn_params
+from kaldi_tpu_torch.recognize import Recognizer
 
 pytestmark = pytest.mark.cuda
 
@@ -22,7 +27,8 @@ pytestmark = pytest.mark.cuda
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    return torch.device("cuda")
+    from kaldi_tpu_torch.device import resolve_device
+    return resolve_device("cuda")         # TF32 off for the plain versions
 
 
 @pytest.mark.parametrize("B,P,N", [(8, 2048, 30384), (8, 7000, 4096),
@@ -68,3 +74,43 @@ def test_decoder_card_equals_cpu(card, kw):
     for attr in ("last_overflow", "last_saturated", "last_active_sum",
                  "last_active_max"):
         np.testing.assert_array_equal(getattr(dg, attr), getattr(dc, attr))
+
+
+@pytest.mark.parametrize("M,K,N", [(7984, 200, 1024), (7984, 2048, 1024),
+                                   (7984, 1024, 1024), (7984, 1024, 2048),
+                                   (40, 128, 128), (1, 200, 1024),
+                                   (37, 72, 48), (200, 33, 1000)])
+def test_qaffine_kernel_matches_plain(card, M, K, N):
+    rng = np.random.default_rng(M + K + N)
+    wq, sc = tq.quantize_weights(
+        rng.standard_normal((N, K)).astype(np.float32) / np.sqrt(K))
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    b = rng.standard_normal(N).astype(np.float32)
+    args = [torch.from_numpy(a).to(card) for a in (x, wq, sc, b)]
+    before = tq.launches
+    got = tq.qaffine(*args)
+    torch.cuda.synchronize()
+    assert tq.launches == before + 1
+    want = tq.qaffine_ref(*args)
+    # f32 sums over K in another order: 1e-5 of the output's scale
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+
+
+def test_int8_decode_card_equals_cpu(card):
+    g, _ = make_big_hclg(BigGraphConfig(vocab=300, avg_bigram_succ=20,
+                                        num_pdfs=64, seed=1))
+    cfg = TdnnConfig(feat_dim=40, num_pdfs=64, hidden_dim=64,
+                     nonlinearity="relu")
+    qtree = tq.quantize_tdnn(random_tdnn_params(cfg, np.random.default_rng(0)))
+    waves, _segs, _words = make_corpus(g, 2, 200, np.random.default_rng(0),
+                                       noise=0.25)
+    opts = CsrBeamOpts(beam=13.0, max_active=512, acoustic_scale=0.1,
+                       expand_budget=4096, eps_budget=1024)
+    res = [Recognizer(tq.QuantizedTdnn(cfg).load_jax_qparams(qtree), g, opts,
+                      device=dev, compute_dtype=None).recognize(waves)
+           for dev in (card, "cpu")]
+    for rg, rc in zip(*res):
+        assert rg is not None and rc is not None
+        assert rg[0] == rc[0] and rg[1] == rc[1]
+        assert abs(rg[2] - rc[2]) < 1e-2

@@ -83,7 +83,7 @@ def test_build_tier_tables_equal(graphs, force_triple, hub_threshold, fold):
     jt = jcsr.build_tier_tables(jgp.split_csr(jg), hub_threshold,
                                 force_triple=force_triple)
     tt = tcsr.build_tier_tables(tgp.split_csr(tg), hub_threshold,
-                                force_triple=force_triple)
+                                force_triple=force_triple, device="cpu")
     assert tt.b_apr == jt.b_apr == (3 if force_triple else 4)
     for f in dataclasses.fields(jt):
         x, y = getattr(jt, f.name), getattr(tt, f.name)
@@ -110,7 +110,7 @@ def test_one_row_tier_b_is_padded_to_two_rows():
         nextstate=np.array([1, 2, 3, 0, 0, 0], np.int32),
         final=np.zeros(4, np.float32), start=0,
         pdf=np.array([0, 1, 2, 0, 1, 2], np.int32))
-    tt = tcsr.build_tier_tables(tgp.split_csr(g), 1024)
+    tt = tcsr.build_tier_tables(tgp.split_csr(g), 1024, device="cpu")
     jt = jcsr.build_tier_tables(jgp.split_csr(g), 1024)
     assert tuple(tt.brow.shape) == (2, 16)
     np.testing.assert_array_equal(tt.brow.numpy(), np.asarray(jt.brow))

@@ -1,8 +1,9 @@
 """The port runs where jax is not installed.
 
 In a fresh interpreter whose import system refuses `jax` and `jaxlib`,
-every kaldi_tpu_torch module and chip_smoke.py's helpers import, and a
-small decode runs on the CPU. (kaldi_tpu/decoder/__init__.py imports the
+every kaldi_tpu_torch module (the int8 path, AmNnet and the streaming
+server among them) and chip_smoke.py's helpers import, and a small decode
+runs on the CPU. (kaldi_tpu/decoder/__init__.py imports the
 jax decoders, so reaching into kaldi_tpu.decoder from the port would fail
 here.)
 """
@@ -31,11 +32,16 @@ names = [m.name for m in pkgutil.walk_packages(kaldi_tpu_torch.__path__,
                                                "kaldi_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
+for n in ("kaldi_tpu_torch.cuda_build", "kaldi_tpu_torch.nnet.quantized",
+          "kaldi_tpu_torch.nnet.am_nnet", "kaldi_tpu_torch.nnet.combine",
+          "kaldi_tpu_torch.online.serving"):
+    assert n in names, n
 import chip_smoke
 from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder, CsrBeamOpts
 g = chip_smoke.star_hub_graph(40)
 dec = CsrBeamDecoder(g, CsrBeamOpts(beam=1e9, max_active=32,
-                                    expand_budget=256, hub_threshold=8))
+                                    expand_budget=256, hub_threshold=8),
+                     device="cpu")
 ll = np.random.RandomState(0).randn(2, 10, 41).astype(np.float32)
 res = dec.decode(ll, np.array([10, 6], np.int32))
 assert all(r is not None and r[1] for r in res), res
@@ -53,4 +59,4 @@ def test_port_imports_and_decodes_without_jax():
     r = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split("modules")[-1]) >= 15, r.stdout
+    assert int(r.stdout.split("modules")[-1]) >= 22, r.stdout

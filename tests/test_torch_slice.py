@@ -5,7 +5,10 @@ bench.py decodes with (fbank -> per-utterance CMVN -> Tdnn.apply ->
 CsrBeamDecoder.decode), with the same numpy weights and waveforms: a relu
 TDNN of width 64 over 64 pdfs, the 300-word synthetic HCLG, 2 x 2 s of
 synthesized audio. f32 must give identical words; bf16 identical words on
-this fixture, i.e. a WER difference of 0 (test_bf16_parity.py's bar).
+this fixture, i.e. a WER difference of 0 (test_bf16_parity.py's bar). The
+int8 path (`QuantizedTdnn` behind the same `Recognizer`) is held to the
+JAX composition with `tdnn_apply_quantized` in place of `Tdnn.apply`:
+identical words and tids.
 """
 
 import numpy as np
@@ -19,10 +22,12 @@ from kaldi_tpu.decoder.biggraph import (BigGraphConfig as JBigGraphConfig,
 from kaldi_tpu.decoder.csr_beam import (CsrBeamDecoder as JDecoder,
                                         CsrBeamOpts as JOpts)
 from kaldi_tpu.decoder.simulate import make_corpus
+from kaldi_tpu.nnet.quantized import tdnn_apply_quantized
 from kaldi_tpu.nnet.tdnn import Tdnn as JTdnn, TdnnConfig as JTdnnConfig
 from kaldi_tpu.ops import FbankOpts, FrameOpts, MelOpts, fbank
 from kaldi_tpu_torch.decoder.biggraph import BigGraphConfig, make_big_hclg
 from kaldi_tpu_torch.decoder.csr_beam import CsrBeamOpts
+from kaldi_tpu_torch.nnet.quantized import QuantizedTdnn, quantize_tdnn
 from kaldi_tpu_torch.nnet.tdnn import Tdnn, TdnnConfig
 from kaldi_tpu_torch.params import random_tdnn_params
 from kaldi_tpu_torch.recognize import Recognizer
@@ -54,7 +59,8 @@ def fixture():
     tgraph, _ = make_big_hclg(BigGraphConfig(**GRAPH))
     tdnn = Tdnn(TdnnConfig(**TDNN)).load_jax_params(params)
     return dict(waves=waves, words=words, feats=feats, jparams=jparams,
-                jdec=jdec, tgraph=tgraph, tdnn=tdnn)
+                jdec=jdec, tgraph=tgraph, tdnn=tdnn,
+                qtree=quantize_tdnn(params))
 
 
 def _jax_decode(fx, dtype):
@@ -86,3 +92,23 @@ def test_recognizer_matches_jax_composition(fixture, dtype):
             assert abs(got[b][2] - want[b][2]) < 1e-2, b
     np.testing.assert_array_equal(rec.decoder.last_overflow,
                                   fx["jdec"].last_overflow)
+
+
+def test_int8_recognizer_matches_jax_composition(fixture):
+    fx = fixture
+    post = np.asarray(tdnn_apply_quantized(
+        JTdnn(JTdnnConfig(**TDNN)), fx["qtree"], fx["feats"],
+        pad_context=True, force_xla=True))
+    B, T, _P = post.shape
+    want = fx["jdec"].decode(post, np.full(B, T, np.int32))
+    model = QuantizedTdnn(TdnnConfig(**TDNN)).load_jax_qparams(fx["qtree"])
+    rec = Recognizer(model, fx["tgraph"], CsrBeamOpts(**DECODE),
+                     device="cpu", compute_dtype=None)
+    ll = rec.loglikes(fx["waves"]).numpy()
+    np.testing.assert_allclose(ll, post, atol=1e-4, rtol=1e-4)
+    got = rec.recognize(fx["waves"])
+    for b in range(B):
+        assert got[b] is not None and want[b] is not None
+        assert got[b][0] == want[b][0], b
+        assert got[b][1] == want[b][1], b
+        assert abs(got[b][2] - want[b][2]) < 1e-2, b
