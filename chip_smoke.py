@@ -8,10 +8,12 @@ Phases (any failure raises and the script exits non-zero):
   2. build: compile every kernel in kaldi_tpu_torch/csrc (one nvcc each,
      all at once) and print ptxas' registers / spills;
   3. table-gather kernel vs plain: bit-exact against torch.gather at the
-     decoder's shapes and at the edges, with CUDA-graph timings;
+     decoder's shapes and at the edges, with CUDA-graph timings beside an
+     empty kernel at the same grid (the launch floor);
   4. qaffine kernel vs plain (`qaffine_ref`) at the int8 TDNN's shapes and
      at the edges, with timings of the kernel, the plain version and
-     torch.addmm over pre-dequantized weights;
+     torch.addmm over pre-dequantized weights; its bound is three bf16
+     tensor-core passes, printed beside the FP32-FMA bound;
   5. decoder on the card vs the same port on the CPU, on small graphs:
      identical words, tids and counters, cost within 1e-2;
   6. int8 decode on the card vs on the CPU (small QuantizedTdnn behind
@@ -54,6 +56,7 @@ GATHER_SHAPES = [(8, 2048, 30384),   # fused acoustic lookup, per frame
 # published H100 SXM peaks (NVIDIA data sheet), at the 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12             # dense tensor cores
 
 # (M, K, N) of the int8 TDNN's qaffine calls at B = 8, T = 998 (M = 7984),
 # with how many of the 6 calls of one request have that shape
@@ -67,9 +70,12 @@ QAFFINE_EDGES = [(40, 128, 128),      # tests/test_quantized.py's shape
                  (200, 33, 1000),     # K % 4 != 0 (scalar loads), N ragged
                  (129, 256, 130)]     # one row and two columns past a tile
 GATHER_EDGES = [(3, 200, 1000),      # P not a multiple of 128
-                (2, 16384, 5000),    # widest staged row
-                (2, 20000, 3000),    # global-memory path
+                (2, 4096, 5000),     # widest staged row
+                (2, 4097, 3001),     # narrowest direct row, N % 4 != 0
+                (2, 16384, 5000),    # wide direct rows
+                (2, 20000, 3000),
                 (4, 7000, 1),        # N = 1
+                (3, 2048, 1001),     # staged, N % 4 != 0
                 (1, 2048, 30384)]    # B = 1
 
 
@@ -153,12 +159,36 @@ def gather_bound_ms(B: int, P: int, N: int) -> float:
 
 
 def qaffine_bound_ms(M: int, K: int, N: int) -> tuple[float, str]:
-    """Least time for one qaffine call: the larger of its 2MNK f32 FLOPs
-    over the FP32 rate (true f32: no tensor cores) and its bytes (x, int8
-    weights, scale and bias read once, y written once) over the HBM rate."""
-    t_ops = 2 * M * K * N / FP32_FLOP_PER_S * 1e3
+    """Least time for one qaffine call as the kernel computes it: the
+    larger of three bf16 tensor-core passes (x split exactly into three
+    bf16 planes, 3 x 2MNK FLOPs) over the dense bf16 rate and its bytes
+    (x, int8 weights, scale and bias read once, y written once) over the
+    HBM rate."""
+    t_ops = 3 * 2 * M * K * N / BF16_FLOP_PER_S * 1e3
     t_bytes = (4 * M * K + N * K + 8 * N + 4 * M * N) / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def qaffine_fp32_bound_ms(M: int, K: int, N: int) -> float:
+    """The same call's 2MNK FLOPs over the FP32 rate of the CUDA cores:
+    the ceiling of a true-f32 design without tensor cores."""
+    return 2 * M * K * N / FP32_FLOP_PER_S * 1e3
+
+
+def gather_floor_fn():
+    """An empty kernel launched with the gather's grid and block for a
+    shape: the per-launch floor under the gather's device time."""
+    import ctypes
+    import torch
+    from kaldi_tpu_torch import cuda_build
+    fn = cuda_build.load("table_gather", "kaldi_table_gather_floor",
+                         [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+    def launch(B: int, P: int, N: int):
+        rc = fn(B, P, N, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"empty kernel launch failed: cudaError {rc}")
+    return launch
 
 
 def phase_kernel(tg) -> dict:
@@ -169,12 +199,20 @@ def phase_kernel(tg) -> dict:
         tab = torch.randn(B, P, device="cuda", generator=g)
         idx = torch.randint(0, P, (B, N), device="cuda", generator=g,
                             dtype=torch.int32)
-        got = tg.gather_cuda(tab, idx)
-        torch.cuda.synchronize()
+        # and the same indices one int32 past a 16-byte boundary (scalar
+        # loads and stores)
+        moved = torch.empty(B * N + 1, dtype=torch.int32,
+                            device="cuda")[1:].view(B, N)
+        moved.copy_(idx)
         want = torch.gather(tab, 1, idx.long())
-        if not torch.equal(got, want):
-            raise AssertionError(f"kernel != torch.gather at {(B, P, N)}")
-        err = max(err, float((got - want).abs().max()))
+        for i in (idx, moved):
+            got = tg.gather_cuda(tab, i)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"kernel != torch.gather at "
+                                     f"{(B, P, N)}, index base "
+                                     f"{i.data_ptr() % 16} mod 16")
+            err = max(err, float((got - want).abs().max()))
     # out-of-range indices give 0.0, as in the TPU kernel
     tab = torch.randn(2, 100, device="cuda", generator=g)
     idx = torch.tensor([[-1, 0, 99, 100], [5, 1000, -7, 3]],
@@ -183,6 +221,7 @@ def phase_kernel(tg) -> dict:
                        tg.batched_table_gather_ref(tab, idx)):
         raise AssertionError("kernel != plain version on out-of-range indices")
     torch.cuda.synchronize()
+    floor = gather_floor_fn()
     times = {}
     for (B, P, N) in GATHER_SHAPES:
         tab = torch.randn(B, P, device="cuda", generator=g)
@@ -192,15 +231,17 @@ def phase_kernel(tg) -> dict:
         times[(B, P, N)] = (cuda_ms(lambda: tg.gather_cuda(tab, idx)),
                             cuda_ms(lambda: tg.batched_table_gather_ref(tab,
                                                                         idx)),
-                            cuda_ms(lambda: torch.gather(tab, 1, il)))
-        log(f"  gather tab [{B}, {P}] idx [{B}, {N}]: kernel "
-            f"{times[(B, P, N)][0]:.6f} ms, plain version "
-            f"{times[(B, P, N)][1]:.6f} ms, torch.gather alone "
-            f"{times[(B, P, N)][2]:.6f} ms, bound "
-            f"{gather_bound_ms(B, P, N):.6f} ms by bytes (device time per "
-            f"call: CUDA graph of 100 calls, median of 20 replays)")
-    log(f"  kernel bit-exact at {len(GATHER_SHAPES + GATHER_EDGES)} shapes "
-        f"and out-of-range indices")
+                            cuda_ms(lambda: torch.gather(tab, 1, il)),
+                            cuda_ms(lambda: floor(B, P, N)))
+        k_ms, p_ms, l_ms, f_ms = times[(B, P, N)]
+        log(f"  gather tab [{B}, {P}] idx [{B}, {N}]: kernel {k_ms:.6f} ms, "
+            f"plain version {p_ms:.6f} ms, torch.gather alone {l_ms:.6f} "
+            f"ms, empty kernel at the same grid (launch floor) {f_ms:.6f} "
+            f"ms, bound {gather_bound_ms(B, P, N):.6f} ms by bytes (device "
+            f"time per call: CUDA graph of 100 calls, median of 20 replays)")
+    log(f"  kernel bit-exact at {len(GATHER_SHAPES + GATHER_EDGES)} shapes, "
+        f"each with an aligned and a misaligned index base, and on "
+        f"out-of-range indices")
     return {"max_abs_err": err, "times": times}
 
 
@@ -251,21 +292,37 @@ def phase_qaffine(q) -> dict:
         bound, by = qaffine_bound_ms(M, K, N)
         k_ms, p_ms, l_ms = times[(M, K, N)]
         log(f"  qaffine x [{M}, {K}] wq [{N}, {K}]: kernel {k_ms:.6f} ms "
-            f"({2 * M * K * N / k_ms / 1e9:.1f} TFLOP/s), plain version "
-            f"{p_ms:.6f} ms, torch.addmm on f32 weights {l_ms:.6f} ms, bound "
-            f"{bound:.6f} ms by {by} (device time per call: CUDA graph of 10 "
-            f"calls, median of 20 replays)")
+            f"({2 * M * K * N / k_ms / 1e9:.1f} TFLOP/s of products, "
+            f"{6 * M * K * N / k_ms / 1e9:.1f} as three bf16 passes), plain "
+            f"version {p_ms:.6f} ms, torch.addmm on f32 weights {l_ms:.6f} "
+            f"ms, bound {bound:.6f} ms by {by} (three bf16 passes; FP32 "
+            f"FMAs would take {qaffine_fp32_bound_ms(M, K, N):.6f} ms) "
+            f"(device time per call: CUDA graph of 10 calls, median of 20 "
+            f"replays)")
     per_req = [sum(n * times[sh][i] for sh, n in QAFFINE_SHAPES)
                for i in range(3)]
-    bound_req = sum(n * qaffine_bound_ms(*sh)[0] for sh, n in QAFFINE_SHAPES)
+    bounds = [(n * b, kind) for (b, kind), (_sh, n) in
+              zip((qaffine_bound_ms(*sh) for sh, _n in QAFFINE_SHAPES),
+                  QAFFINE_SHAPES)]
+    bound_req = sum(b for b, _kind in bounds)
+    # the kind that holds most of the request's bound (the K = 200 call
+    # alone is bound by bytes)
+    by = max(("operations", "bytes"),
+             key=lambda kind: sum(b for b, k in bounds if k == kind))
+    fp32_req = sum(n * qaffine_fp32_bound_ms(*sh) for sh, n in QAFFINE_SHAPES)
     log(f"  per request (6 calls): kernel {per_req[0]:.6f} ms, plain "
         f"{per_req[1]:.6f} ms, torch.addmm {per_req[2]:.6f} ms (it reads "
         f"f32 weights: 4x the int8 bytes), bound {bound_req:.6f} ms by "
-        f"operations = {100 * bound_req / per_req[0]:.1f}% of the kernel's "
-        f"time")
+        f"{by} (three bf16 passes at {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s) "
+        f"= {100 * bound_req / per_req[0]:.1f}% of the kernel's time; the "
+        f"FP32-FMA bound of a true-f32 design {fp32_req:.6f} ms")
+    if not per_req[0] < per_req[2]:
+        raise AssertionError(f"qaffine {per_req[0]:.6f} ms per request is "
+                             f"not below torch.addmm's {per_req[2]:.6f} ms")
     return {"max_abs_err": worst_abs, "max_rel_err": worst_rel,
             "ms": per_req[0], "plain_ms": per_req[1],
-            "library_ms": per_req[2], "bound_ms": bound_req}
+            "library_ms": per_req[2], "bound_ms": bound_req, "bound_by": by,
+            "fp32_bound_ms": fp32_req}
 
 
 def _same_results(name: str, got: list, want: list, what: str):
@@ -757,7 +814,7 @@ def main() -> int:
     st = phase_stream_full(tg, sl, card, profile="--profile" in sys.argv[1:])
 
     g_shape = GATHER_SHAPES[0]
-    ms, plain_ms, library_ms = k["times"][g_shape]
+    ms, plain_ms, library_ms, floor_ms = k["times"][g_shape]
     log(f"launches: gather {sl['launches']} on the bf16 slice, "
         f"{st['launches']} on the streaming path; qaffine {s8['launches']} "
         f"on the int8 slice")
@@ -769,14 +826,15 @@ def main() -> int:
         "launches": sl["launches"], "max_abs_err": k["max_abs_err"],
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": gather_bound_ms(*g_shape), "bound_by": "bytes",
-        "library_ms": library_ms}, {
+        "library_ms": library_ms, "floor_ms": floor_ms}, {
         "name": "qaffine", "route": "cuda",
         "source": "kaldi_tpu_torch/csrc/qaffine.cu",
         "replaces": "kaldi_tpu/nnet/quantized.py:46",
         "launches": s8["launches"], "max_abs_err": qk["max_abs_err"],
         "max_rel_err": qk["max_rel_err"],
         "ms": qk["ms"], "plain_ms": qk["plain_ms"],
-        "bound_ms": qk["bound_ms"], "bound_by": "operations",
+        "bound_ms": qk["bound_ms"], "bound_by": qk["bound_by"],
+        "fp32_bound_ms": qk["fp32_bound_ms"],
         "library_ms": qk["library_ms"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,7 +26,7 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "kaldi_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_fns: dict[str, ctypes._CFuncPtr] = {}
+_fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 _lock = threading.Lock()
 
 
@@ -95,11 +95,11 @@ def load(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
     """The C entry point `symbol` of csrc/<name>.cu (built if needed), with
     its argument types set and an int (cudaError_t) result."""
     with _lock:
-        fn = _fns.get(name)
+        fn = _fns.get((name, symbol))
         if fn is None:
             lib = ctypes.CDLL(build([name])[name])
             fn = getattr(lib, symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _fns[name] = fn
+            _fns[(name, symbol)] = fn
     return fn

@@ -12,6 +12,13 @@ raises; it takes the plain version `qaffine_ref` only for CPU tensors.
 `launches` counts kernel launches. The kernel sums over K in f32 first
 and applies the scale and bias to the accumulator, as the Pallas kernel
 does; `qaffine_ref` computes in the same order.
+
+The kernel runs on the bf16 tensor cores and still gives the f32 sum:
+an int8 code is exact in bf16, x splits exactly into three bf16 planes
+(`split_bf16x3`), and each bf16 product is exact in f32, so three
+products against the same weight tile, summed in f32, are the f32
+product. The weights stay int8 in device memory; the kernel widens each
+tile in shared memory.
 """
 
 from __future__ import annotations
@@ -49,6 +56,22 @@ def quantize_tdnn(params) -> dict:
         return {"wq": wq, "scale": sc, "b": np.asarray(layer["b"])}
     return {"layers": [q(l) for l in params["layers"]],
             "final": q(params["final"])}
+
+
+def split_bf16x3(x: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel's split of x: f32 -> (hi, mid, lo), three bf16 tensors
+    with hi + mid + lo == x exactly (for finite x within bf16's range).
+    hi = bf16_rn(x), mid = bf16_rn(x - hi), lo = bf16_rn(x - hi - mid);
+    each residual is exact in f32, and after two roundings to 8
+    significant bits at most 8 of x's 24 remain, so lo is exact too."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"split_bf16x3 takes f32, got {x.dtype}")
+    hi = x.to(torch.bfloat16)
+    r = x - hi.to(torch.float32)
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.to(torch.float32)).to(torch.bfloat16)
+    return hi, mid, lo
 
 
 def _check(x, wq, scale, bias):

@@ -4,16 +4,19 @@ Counterpart of kaldi_tpu/ops/table_gather.py. The decoder's acoustic
 lookup (pdf -> scaled log-likelihood) and its frontier-score lookup are
 element-wise random gathers from a small per-utterance table ([B, P],
 P a few thousand). On the TPU the Pallas kernel `_pallas_gather` kept the
-table in VMEM; here `csrc/table_gather.cu` keeps the row in shared memory.
+table in VMEM; here `csrc/table_gather.cu` does the lookup in one memory
+round trip after the index load.
 
-On this card the kernel is bound by bytes: the index reads and output
-writes (8 bytes per element) plus the staging of the row, which every
-block serving the same utterance re-reads (from L2 after the first). The
-design stages the row once per block with 16-byte loads, so the random
-reads stay inside the SM; see the source for details. Tables wider than
-16384 f32 entries read from global memory in a second path of the same
-kernel. The TPU-only parts of the Pallas kernel (1024-index alignment,
-the [RB, 128] reshape, the 128-lane chunk loop) have no counterpart.
+On this card the kernel is bound by bytes, and at the decoder's sizes by
+the launch and the dependent memory round trips. Each thread loads its 4
+indices first, as one int4, and stores 4 outputs as one float4; blocks
+are small enough to put over 132 blocks on the card at both decoder
+shapes. A block stages its row in shared memory only when the row has no
+more 32-byte sectors than the block has lookups (P <= 4096); wider rows,
+such as the [8, 7000] frontier table, are read directly through the
+read-only path. See the source for details. The TPU-only parts of the
+Pallas kernel (1024-index alignment, the [RB, 128] reshape, the 128-lane
+chunk loop) have no counterpart.
 
 An index outside [0, P) yields 0.0, as in the Pallas kernel.
 

@@ -34,7 +34,11 @@ def card():
 @pytest.mark.parametrize("B,P,N", [(8, 2048, 30384), (8, 7000, 4096),
                                    (3, 200, 1000), (2, 16384, 5000),
                                    (2, 20000, 3000), (4, 7000, 1),
-                                   (1, 2048, 30384)])
+                                   (1, 2048, 30384),
+                                   # N % 4 != 0: scalar index loads and
+                                   # stores, staged and direct rows
+                                   (3, 200, 1001), (2, 4096, 4099),
+                                   (2, 4097, 3001), (8, 7000, 4094)])
 def test_kernel_bit_exact(card, B, P, N):
     rng = np.random.default_rng(P + N)
     tab = torch.from_numpy(rng.standard_normal((B, P)).astype(np.float32))
@@ -45,6 +49,23 @@ def test_kernel_bit_exact(card, B, P, N):
     torch.cuda.synchronize()
     assert tg.launches == before + 1
     assert torch.equal(got, torch.gather(t, 1, i.long()))
+    assert torch.equal(got.cpu(), tg.batched_table_gather(tab, idx))
+
+
+@pytest.mark.parametrize("B,P,N", [(8, 2048, 30384), (8, 7000, 4096),
+                                   (3, 200, 1003)])
+def test_kernel_bit_exact_misaligned_index(card, B, P, N):
+    rng = np.random.default_rng(P * N)
+    tab = torch.from_numpy(rng.standard_normal((B, P)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(-2, P + 2, (B, N)).astype(np.int32))
+    t = tab.to(card)
+    # the same indices one int32 past a 16-byte boundary
+    moved = torch.empty(B * N + 1, dtype=torch.int32, device=card)[1:]
+    moved = moved.view(B, N)
+    moved.copy_(idx.to(card))
+    assert moved.is_contiguous() and moved.data_ptr() % 16 == 4
+    got = tg.batched_table_gather(t, moved)
+    torch.cuda.synchronize()
     assert torch.equal(got.cpu(), tg.batched_table_gather(tab, idx))
 
 
@@ -76,10 +97,13 @@ def test_decoder_card_equals_cpu(card, kw):
         np.testing.assert_array_equal(getattr(dg, attr), getattr(dc, attr))
 
 
+# the path's shapes, then edges; (300, 72, 1024) has K % 16 != 0 and
+# (129, 256, 130) is one row and one column past a tile
 @pytest.mark.parametrize("M,K,N", [(7984, 200, 1024), (7984, 2048, 1024),
                                    (7984, 1024, 1024), (7984, 1024, 2048),
                                    (40, 128, 128), (1, 200, 1024),
-                                   (37, 72, 48), (200, 33, 1000)])
+                                   (37, 72, 48), (200, 33, 1000),
+                                   (300, 72, 1024), (129, 256, 130)])
 def test_qaffine_kernel_matches_plain(card, M, K, N):
     rng = np.random.default_rng(M + K + N)
     wq, sc = tq.quantize_weights(
@@ -92,7 +116,8 @@ def test_qaffine_kernel_matches_plain(card, M, K, N):
     torch.cuda.synchronize()
     assert tq.launches == before + 1
     want = tq.qaffine_ref(*args)
-    # f32 sums over K in another order: 1e-5 of the output's scale
+    # three bf16 passes summed in f32 by the tensor cores, in another
+    # order than the plain f32 matmul: 1e-5 of the output's scale
     err = float((got - want).abs().max())
     assert err <= 1e-5 * float(want.abs().max()), err
 

@@ -88,6 +88,47 @@ def test_plain_version_matches_xla_route(M, K, N):
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("mag", [1e-3, 1e-1, 1.0, 37.0, 1e3, 1e4])
+def test_split_bf16x3_is_exact(mag):
+    rng = np.random.default_rng(int(mag * 1000) % 9973)
+    x = (rng.standard_normal(4096) * mag).astype(np.float32)
+    x[:4] = [0.0, -0.0, -mag, mag]
+    x[4:8] = np.nextafter(np.float32(mag), np.float32(0)) * np.array(
+        [1, -1, 3, -3], np.float32)
+    xt = torch.from_numpy(x)
+    planes = tq.split_bf16x3(xt)
+    assert all(p.dtype == torch.bfloat16 for p in planes)
+    total = sum(p.double() for p in planes)
+    np.testing.assert_array_equal(total.numpy(), x.astype(np.float64))
+    # every int8 code is a bf16 value: the kernel widens codes exactly
+    codes = torch.arange(-127, 128, dtype=torch.int8)
+    assert codes.numel() == 255
+    assert torch.equal(codes.to(torch.bfloat16).to(torch.int8), codes)
+    assert torch.equal(codes.to(torch.bfloat16).double(), codes.double())
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 200, 16), (6, 1024, 24),
+                                   (5, 2048, 16), (3, 72, 130)])
+def test_three_bf16_passes_match_jax(M, K, N):
+    """The kernel's arithmetic on the CPU: three products of bf16-valued
+    planes with the int8 codes, summed in f32, then scale and bias; held
+    to both JAX routes as the plain version is."""
+    rng = np.random.default_rng(M * K + N)
+    w = rng.standard_normal((N, K)).astype(np.float32) / np.sqrt(K)
+    wq, sc = tq.quantize_weights(w)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    b = rng.standard_normal(N).astype(np.float32)
+    wf = torch.from_numpy(wq).float().T
+    acc = sum(p.float() @ wf for p in tq.split_bf16x3(torch.from_numpy(x)))
+    got = (acc * torch.from_numpy(sc) + torch.from_numpy(b)).numpy()
+    xla = np.asarray(jq.qaffine(jnp.asarray(x), wq, sc, b, force_xla=True))
+    pallas = np.asarray(jq.qaffine_pallas(jnp.asarray(x), jnp.asarray(wq.T),
+                                          jnp.asarray(sc), jnp.asarray(b),
+                                          interpret=True))
+    np.testing.assert_allclose(got, xla, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got, pallas, atol=1e-4, rtol=0)
+
+
 def test_wrapper_keeps_leading_dims():
     x, wq, sc, b = _case(24, 40, 16, seed=5)
     flat = _ref(x, wq, sc, b)
