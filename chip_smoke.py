@@ -11,9 +11,11 @@ Phases (any failure raises and the script exits non-zero):
      decoder's shapes and at the edges, with CUDA-graph timings beside an
      empty kernel at the same grid (the launch floor);
   4. qaffine kernel vs plain (`qaffine_ref`) at the int8 TDNN's shapes and
-     at the edges, with timings of the kernel, the plain version and
-     torch.addmm over pre-dequantized weights; its bound is three bf16
-     tensor-core passes, printed beside the FP32-FMA bound;
+     at the edges; both against an f64 product, and the kernel at small K
+     held to a limit that a kernel without the lo pass of x fails; timings
+     of the kernel, the plain version and torch.addmm over pre-dequantized
+     weights; its bound is 2MNK on the bf16 tensor cores or its bytes,
+     printed beside the design's three-pass ceiling and the FP32-FMA bound;
   5. decoder on the card vs the same port on the CPU, on small graphs:
      identical words, tids and counters, cost within 1e-2;
   6. int8 decode on the card vs on the CPU (small QuantizedTdnn behind
@@ -158,13 +160,14 @@ def gather_bound_ms(B: int, P: int, N: int) -> float:
     return (8 * B * N + 4 * B * P) / HBM_BYTES_PER_S * 1e3
 
 
-def qaffine_bound_ms(M: int, K: int, N: int) -> tuple[float, str]:
-    """Least time for one qaffine call as the kernel computes it: the
-    larger of three bf16 tensor-core passes (x split exactly into three
-    bf16 planes, 3 x 2MNK FLOPs) over the dense bf16 rate and its bytes
-    (x, int8 weights, scale and bias read once, y written once) over the
-    HBM rate."""
-    t_ops = 3 * 2 * M * K * N / BF16_FLOP_PER_S * 1e3
+def qaffine_bound_ms(M: int, K: int, N: int,
+                     passes: int = 1) -> tuple[float, str]:
+    """Least time for one qaffine call: the larger of its 2MNK FLOPs over
+    the dense bf16 tensor-core rate and its bytes (x, int8 weights, scale
+    and bias read once, y written once) over the HBM rate. passes=3 gives
+    the ceiling of the kernel's design, which multiplies three bf16 planes
+    of x (3 x 2MNK FLOPs)."""
+    t_ops = passes * 2 * M * K * N / BF16_FLOP_PER_S * 1e3
     t_bytes = (4 * M * K + N * K + 8 * N + 4 * M * N) / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -270,8 +273,9 @@ def phase_qaffine(q) -> dict:
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         top = float(want.abs().max())
-        # the f32 sums run in another order over K <= 2048: 1e-5 of the
-        # output's scale; at the JAX test's shape atol 1e-4, as
+        # the tensor cores' f32 sums truncate and run in another order
+        # over K <= 2048: 1e-5 of the output's scale; at the JAX test's
+        # shape atol 1e-4, as
         # tests/test_quantized.py:53 holds the Pallas kernel
         lim = 1e-4 if (M, K, N) == (40, 128, 128) else 1e-5 * top
         if not err <= lim:
@@ -281,6 +285,7 @@ def phase_qaffine(q) -> dict:
     log(f"  kernel within tolerance at {len(QAFFINE_SHAPES)} path shapes and "
         f"{len(QAFFINE_EDGES)} edges: max abs err {worst_abs:.3e}, max "
         f"err / max|y| {worst_rel:.3e}")
+    f64 = qaffine_f64_errors(q, g)
     times = {}
     for (M, K, N), _n in QAFFINE_SHAPES:
         x, wq, sc, b = _qaffine_case(M, K, N, g)
@@ -289,40 +294,84 @@ def phase_qaffine(q) -> dict:
             cuda_ms(lambda: q.qaffine_cuda(x, wq, sc, b), per=10),
             cuda_ms(lambda: q.qaffine_ref(x, wq, sc, b), per=10),
             cuda_ms(lambda: torch.addmm(b, x, w_deq_t), per=10))
-        bound, by = qaffine_bound_ms(M, K, N)
+        (bound, by), (ceil, _) = (qaffine_bound_ms(M, K, N),
+                                  qaffine_bound_ms(M, K, N, passes=3))
         k_ms, p_ms, l_ms = times[(M, K, N)]
         log(f"  qaffine x [{M}, {K}] wq [{N}, {K}]: kernel {k_ms:.6f} ms "
             f"({2 * M * K * N / k_ms / 1e9:.1f} TFLOP/s of products, "
             f"{6 * M * K * N / k_ms / 1e9:.1f} as three bf16 passes), plain "
             f"version {p_ms:.6f} ms, torch.addmm on f32 weights {l_ms:.6f} "
-            f"ms, bound {bound:.6f} ms by {by} (three bf16 passes; FP32 "
-            f"FMAs would take {qaffine_fp32_bound_ms(M, K, N):.6f} ms) "
-            f"(device time per call: CUDA graph of 10 calls, median of 20 "
-            f"replays)")
+            f"ms, bound {bound:.6f} ms by {by} (three bf16 passes would "
+            f"take {ceil:.6f} ms; FP32 FMAs "
+            f"{qaffine_fp32_bound_ms(M, K, N):.6f} ms) (device time per "
+            f"call: CUDA graph of 10 calls, median of 20 replays)")
     per_req = [sum(n * times[sh][i] for sh, n in QAFFINE_SHAPES)
                for i in range(3)]
-    bounds = [(n * b, kind) for (b, kind), (_sh, n) in
-              zip((qaffine_bound_ms(*sh) for sh, _n in QAFFINE_SHAPES),
-                  QAFFINE_SHAPES)]
-    bound_req = sum(b for b, _kind in bounds)
-    # the kind that holds most of the request's bound (the K = 200 call
-    # alone is bound by bytes)
-    by = max(("operations", "bytes"),
-             key=lambda kind: sum(b for b, k in bounds if k == kind))
+
+    def per_request(passes: int) -> tuple[float, str]:
+        """A request's bound, summed over its calls, and the kind that
+        holds most of it (the K = 200 call alone is bound by bytes)."""
+        parts = [(n * b, kind) for (b, kind), n in
+                 ((qaffine_bound_ms(*sh, passes=passes), n)
+                  for sh, n in QAFFINE_SHAPES)]
+        return (sum(b for b, _k in parts),
+                max(("operations", "bytes"),
+                    key=lambda kind: sum(b for b, k in parts if k == kind)))
+    (bound_req, by), (ceil_req, ceil_by) = per_request(1), per_request(3)
     fp32_req = sum(n * qaffine_fp32_bound_ms(*sh) for sh, n in QAFFINE_SHAPES)
     log(f"  per request (6 calls): kernel {per_req[0]:.6f} ms, plain "
         f"{per_req[1]:.6f} ms, torch.addmm {per_req[2]:.6f} ms (it reads "
         f"f32 weights: 4x the int8 bytes), bound {bound_req:.6f} ms by "
-        f"{by} (three bf16 passes at {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s) "
-        f"= {100 * bound_req / per_req[0]:.1f}% of the kernel's time; the "
-        f"FP32-FMA bound of a true-f32 design {fp32_req:.6f} ms")
+        f"{by} (2MNK at {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s, or bytes) = "
+        f"{100 * bound_req / per_req[0]:.1f}% of the kernel's time; the "
+        f"design's ceiling, three bf16 passes, {ceil_req:.6f} ms by "
+        f"{ceil_by} = {100 * ceil_req / per_req[0]:.1f}%; the FP32-FMA "
+        f"bound of a true-f32 design {fp32_req:.6f} ms")
     if not per_req[0] < per_req[2]:
         raise AssertionError(f"qaffine {per_req[0]:.6f} ms per request is "
                              f"not below torch.addmm's {per_req[2]:.6f} ms")
     return {"max_abs_err": worst_abs, "max_rel_err": worst_rel,
             "ms": per_req[0], "plain_ms": per_req[1],
             "library_ms": per_req[2], "bound_ms": bound_req, "bound_by": by,
-            "fp32_bound_ms": fp32_req}
+            "three_pass_bound_ms": ceil_req, "fp32_bound_ms": fp32_req,
+            **f64}
+
+
+# x with full 24-bit mantissas at small K, where the accumulation adds
+# little error: a kernel that drops the lo plane of x (2^-17 of each x)
+# lands near 2e-6 of max|y| against the f64 product, a three-pass one
+# near 1e-7 (as tests/test_torch_cuda.py holds it)
+QAFFINE_ALL_OF_X = [(256, 16, 256), (512, 64, 512)]
+QAFFINE_ALL_OF_X_LIM = 1e-6
+
+
+def qaffine_f64_errors(q, g) -> dict:
+    """Kernel and plain version against the product in f64: err / max|y|
+    at each path shape, and the kernel at QAFFINE_ALL_OF_X held to
+    QAFFINE_ALL_OF_X_LIM."""
+    import torch
+
+    def rel(M, K, N):
+        x, wq, sc, b = _qaffine_case(M, K, N, g)
+        want = ((x.double() @ wq.double().T) * sc.double() + b.double())
+        top = float(want.abs().max())
+        return [float((f(x, wq, sc, b).double() - want).abs().max()) / top
+                for f in (q.qaffine_cuda, q.qaffine_ref)]
+    for sh in QAFFINE_ALL_OF_X:
+        k_rel, _p = rel(*sh)
+        if not k_rel <= QAFFINE_ALL_OF_X_LIM:
+            raise AssertionError(f"qaffine vs f64 at {sh}: err / max|y| "
+                                 f"{k_rel:.3e} > {QAFFINE_ALL_OF_X_LIM}")
+        log(f"  kernel vs f64 at {sh} (full-mantissa x): err / max|y| "
+            f"{k_rel:.3e} <= {QAFFINE_ALL_OF_X_LIM}")
+    worst = [0.0, 0.0]
+    for sh, _n in QAFFINE_SHAPES:
+        k_rel, p_rel = rel(*sh)
+        torch.cuda.synchronize()
+        worst = [max(worst[0], k_rel), max(worst[1], p_rel)]
+        log(f"  vs f64 at {sh}: err / max|y| kernel {k_rel:.3e}, plain f32 "
+            f"version {p_rel:.3e}")
+    return {"max_rel_err_f64": worst[0], "plain_max_rel_err_f64": worst[1]}
 
 
 def _same_results(name: str, got: list, want: list, what: str):
@@ -833,7 +882,11 @@ def main() -> int:
         "launches": s8["launches"], "max_abs_err": qk["max_abs_err"],
         "max_rel_err": qk["max_rel_err"],
         "ms": qk["ms"], "plain_ms": qk["plain_ms"],
+        "max_rel_err_f64": qk["max_rel_err_f64"],
+        "plain_max_rel_err_f64": qk["plain_max_rel_err_f64"],
+        "ms": qk["ms"], "plain_ms": qk["plain_ms"],
         "bound_ms": qk["bound_ms"], "bound_by": qk["bound_by"],
+        "three_pass_bound_ms": qk["three_pass_bound_ms"],
         "fp32_bound_ms": qk["fp32_bound_ms"],
         "library_ms": qk["library_ms"]}]}))
     log(json.dumps({"ok": True, "device": {

@@ -8,21 +8,29 @@
 // keep the JAX layout [N, K] (K contiguous, like x): a TN product, the
 // canonical layout of `wgmma`, so nothing is transposed per call.
 //
-// Numerics: f32 accuracy from bf16 tensor cores, with no rounding of the
-// inputs. An int8 code is exact in bf16 (8 significant bits). Any f32 x is
-// exactly hi + mid + lo, three bf16 values: hi = bf16_rn(x),
-// mid = bf16_rn(x - hi), lo = bf16_rn(x - hi - mid), each residual exact
-// in f32 (`split_bf16x3` in nnet/quantized.py states it in torch). Each
-// bf16 x bf16 product is exact in f32, so three products against the same
-// weight tile, accumulated in f32 registers, give the f32 sum.
+// Numerics: bf16 tensor cores with no rounding of the inputs. An int8 code
+// is exact in bf16 (8 significant bits). Any f32 x is exactly
+// hi + mid + lo, three bf16 values: hi = bf16_rn(x), mid = bf16_rn(x - hi),
+// lo = bf16_rn(x - hi - mid), each residual exact in f32 (`split_bf16x3`
+// in nnet/quantized.py states it in torch). Each bf16 x bf16 product is
+// exact, so three products against the same weight tile carry every bit
+// of x into the sum. The sum itself is the tensor cores' f32
+// accumulation, which truncates: its error grows with the number of
+// wgmma that add into one accumulator (3 per k16 step). On an H100 at
+// K = 2048 it came to 3.7e-6 of max|y| against an f64 product, where
+// cuBLAS's f32 matmul gave 1.5e-6; the port's tolerance is 1e-5.
+// chip_smoke.py phase 4 measures both, and holds the kernel at small K,
+// where the accumulation adds little, to a limit that a kernel without
+// the third (lo) pass fails.
 //
 // What bounds it on this card: tensor-core operations. A request (6 calls
 // at M = 7984 frames, K = 200..2048, N = 1024..2048) is 154 GFLOP of
-// products, 462 GFLOP as three bf16 passes, against ~0.5 GB of traffic:
-// 0.47 ms at 989 TFLOP/s dense, where bytes take 0.15 ms. (As true-f32
-// FMAs on the CUDA cores, the old design's ceiling, it was 2.30 ms.)
-// Besides the products, each x element takes ~11 instructions to split
-// and each weight ~3 to widen, on the CUDA cores beside the tensor cores.
+// products against ~0.5 GB of traffic: 0.16 ms at 989 TFLOP/s dense, about
+// what its bytes take. The three bf16 passes make it 462 GFLOP, so this
+// design cannot go below 0.47 ms. (As true-f32 FMAs on the CUDA cores, the
+// old design's ceiling, it was 2.30 ms.) Besides the products, each x
+// element takes ~11 instructions to split and each weight ~3 to widen, on
+// the CUDA cores beside the tensor cores.
 //
 // Design, the usual Hopper GEMM shape: one block of three warpgroups
 // computes a 128 x 256 output tile through a ring of 3 shared-memory
@@ -98,10 +106,13 @@ __device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
                    bar), "r"(bytes) : "memory");
 }
 
-// Waits for the phase of `parity` to complete. A wait of more than ~2 s
-// (a lost arrival) traps, so the launch fails instead of hanging the card.
+// Waits for the phase of `parity` to complete. A wait that lasts 20 s of
+// wall time (a whole call takes well under a millisecond, so only a lost
+// arrival gets there) traps: the launch fails instead of hanging the card.
+// %globaltimer is one clock for the whole card, so a block that moves to
+// another SM or a time-sliced card cannot make the wait look longer.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  long long start = 0;
+  uint64_t start = 0;
   for (;;) {
     uint32_t done;
     asm volatile(
@@ -110,9 +121,11 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         "selp.u32 %0, 1, 0, p;\n\t}"
         : "=r"(done) : "r"(bar), "r"(parity) : "memory");
     if (done) return;
+    uint64_t now;   // ns
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
     if (start == 0) {
-      start = clock64();
-    } else if (clock64() - start > (1ll << 32)) {
+      start = now;
+    } else if (now - start > 20000000000ull) {
       __trap();
     }
   }

@@ -13,12 +13,15 @@ raises; it takes the plain version `qaffine_ref` only for CPU tensors.
 and applies the scale and bias to the accumulator, as the Pallas kernel
 does; `qaffine_ref` computes in the same order.
 
-The kernel runs on the bf16 tensor cores and still gives the f32 sum:
+The kernel runs on the bf16 tensor cores without rounding its inputs:
 an int8 code is exact in bf16, x splits exactly into three bf16 planes
-(`split_bf16x3`), and each bf16 product is exact in f32, so three
-products against the same weight tile, summed in f32, are the f32
-product. The weights stay int8 in device memory; the kernel widens each
-tile in shared memory.
+(`split_bf16x3`), and each bf16 product is exact, so three products
+against the same weight tile carry every bit of x. They are summed by
+the tensor cores' f32 accumulation, which truncates and so adds more
+error than a plain f32 matmul as K grows (chip_smoke.py phase 4 prints
+both against f64); it stays inside the port's 1e-5 x max|y| tolerance.
+The weights stay int8 in device memory; the kernel widens each tile in
+shared memory.
 """
 
 from __future__ import annotations

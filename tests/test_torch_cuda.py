@@ -122,6 +122,24 @@ def test_qaffine_kernel_matches_plain(card, M, K, N):
     assert err <= 1e-5 * float(want.abs().max()), err
 
 
+# x with full 24-bit mantissas at small K, against the product in f64. The
+# split carries every bit of x, so the error is the accumulation's, near
+# 1e-7 of max|y| here; a kernel without the lo pass loses 2^-17 of each x
+# and lands near 2e-6.
+@pytest.mark.parametrize("M,K,N", [(256, 16, 256), (512, 64, 512)])
+def test_qaffine_kernel_keeps_all_of_x(card, M, K, N):
+    rng = np.random.default_rng(K)
+    wq, sc = tq.quantize_weights(
+        rng.standard_normal((N, K)).astype(np.float32) / np.sqrt(K))
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    b = rng.standard_normal(N).astype(np.float32)
+    got = tq.qaffine(*[torch.from_numpy(a).to(card) for a in (x, wq, sc, b)])
+    want = ((x.astype(np.float64) @ wq.astype(np.float64).T)
+            * sc.astype(np.float64) + b.astype(np.float64))
+    err = np.abs(got.cpu().numpy().astype(np.float64) - want).max()
+    assert err <= 1e-6 * np.abs(want).max(), err / np.abs(want).max()
+
+
 def test_int8_decode_card_equals_cpu(card):
     g, _ = make_big_hclg(BigGraphConfig(vocab=300, avg_bigram_succ=20,
                                         num_pdfs=64, seed=1))

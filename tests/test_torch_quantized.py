@@ -129,6 +129,26 @@ def test_three_bf16_passes_match_jax(M, K, N):
     np.testing.assert_allclose(got, pallas, atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("M,K,N", [(256, 16, 256), (512, 64, 512)])
+def test_all_of_x_limit_needs_the_lo_pass(M, K, N):
+    """The card test `test_qaffine_kernel_keeps_all_of_x` holds the kernel
+    to 1e-6 of max|y| against f64 at these shapes. With exact sums, three
+    passes land far inside that limit and two (no lo plane) outside it."""
+    rng = np.random.default_rng(K)
+    wq, sc = tq.quantize_weights(
+        rng.standard_normal((N, K)).astype(np.float32) / np.sqrt(K))
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    b = rng.standard_normal(N).astype(np.float32)
+    w64 = wq.astype(np.float64).T
+    want = (x.astype(np.float64) @ w64) * sc + b
+    planes = [p.double().numpy() for p in tq.split_bf16x3(torch.from_numpy(x))]
+    rel = {}
+    for n in (2, 3):
+        acc = (sum(planes[:n]) @ w64).astype(np.float32)
+        rel[n] = np.abs(acc * sc + b - want).max() / np.abs(want).max()
+    assert rel[3] <= 1e-6 / 4 and rel[2] >= 1e-6 * 1.5, rel
+
+
 def test_wrapper_keeps_leading_dims():
     x, wq, sc, b = _case(24, 40, 16, seed=5)
     flat = _ref(x, wq, sc, b)
