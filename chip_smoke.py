@@ -34,7 +34,24 @@ Phases (any failure raises and the script exits non-zero):
  10. streaming, full width: 16 streams of 10 s fed 160 ms per step into
      the server over the 60k-word HCLG and the 2048-pdf f32 TDNN behind
      `AmNnet`; every stream equals its offline decode on the card;
-     --profile adds six steady steps under torch.profiler.
+     --profile adds six steady steps under torch.profiler;
+ 11. lattice path, small: `decode_raw` on the small graphs in dense, f16
+     and flat modes (and with init rounds) on the card equals the CPU;
+     native lattices equal numpy ones; chunked equals one-shot and
+     adaptive equals full on the card; a keep-loglikes server's
+     `get_lattice` equals the offline lattice on the card;
+ 12. lattice path, full width, at the bench's latgen point (max_active
+     7000, beam 13, expand_budget 16384, eps_budget 2048, rec_cap 3072,
+     rec_beam = lattice_beam = 8, rec_f16, rec_flat, rec_flat_cap 512),
+     on the bench's corpus with its AM trained on the card as the bench
+     trains it (16 x 10 s, 400 steps; 8 test utterances):
+     `decode_to_lattices_stream` over 3 batches of 8 x 10 s on 8
+     extraction threads, twice, then one batch split into record decode,
+     copy and extraction; the rec_trunc share of shipped slots must stay
+     under 5%; untruncated records, whose excess over rec_cap must be
+     rec_trunc exactly; records with nothing masked, whose lattice best
+     paths equal the bf16 `Recognizer`'s words; one adaptive decode
+     (small_max_active 1024) against one full decode.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error against its plain version, times and bound; the last line
@@ -651,37 +668,55 @@ def _offline(am, dec, waves: list, fb) -> list:
     return dec.decode(ll, np.full(len(waves), feats.shape[1], np.int32))
 
 
-def phase_stream_small():
+def small_stream_setup() -> dict:
+    """tests/test_fused_serving.py's fixture, with seeded weights and
+    priors: 24-bin fbank, the 40-word HCLG, a relu TDNN of width 64 over
+    16 pdfs."""
     from kaldi_tpu_torch.decoder.biggraph import BigGraphConfig, make_big_hclg
-    from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder, CsrBeamOpts
-    from kaldi_tpu_torch.nnet.am_nnet import AmNnet
-    from kaldi_tpu_torch.nnet.tdnn import Tdnn, TdnnConfig
-    from kaldi_tpu_torch.online.serving import FusedStreamingServer
+    from kaldi_tpu_torch.decoder.csr_beam import CsrBeamOpts
+    from kaldi_tpu_torch.nnet.tdnn import TdnnConfig
     from kaldi_tpu_torch.ops.features import FbankOpts
     from kaldi_tpu_torch.ops.mel import MelOpts
     from kaldi_tpu_torch.ops.window import FrameOpts
     from kaldi_tpu_torch.params import random_tdnn_params
-    # tests/test_fused_serving.py's fixture, with seeded weights and priors
-    fb = FbankOpts(frame_opts=FrameOpts(dither=0.0),
-                   mel_opts=MelOpts(num_bins=24))
     graph, _ = make_big_hclg(BigGraphConfig(vocab=40, avg_bigram_succ=6,
                                             num_pdfs=16, seed=3))
     cfg = TdnnConfig(feat_dim=24, num_pdfs=16, hidden_dim=64,
                      pnorm_output_dim=32, nonlinearity="relu",
                      splice_indexes=((-2, -1, 0, 1, 2), (-1, 2), (0,)))
-    params = random_tdnn_params(cfg, np.random.default_rng(0))
-    priors = np.random.default_rng(1).dirichlet(np.ones(16))
-    opts = CsrBeamOpts(beam=11.0, max_active=128, acoustic_scale=0.1,
-                       expand_budget=2048, eps_budget=512, hub_threshold=64)
+    return dict(
+        fb=FbankOpts(frame_opts=FrameOpts(dither=0.0),
+                     mel_opts=MelOpts(num_bins=24)),
+        graph=graph, cfg=cfg,
+        params=random_tdnn_params(cfg, np.random.default_rng(0)),
+        priors=np.random.default_rng(1).dirichlet(np.ones(16)),
+        opts=CsrBeamOpts(beam=11.0, max_active=128, acoustic_scale=0.1,
+                         expand_budget=2048, eps_budget=512,
+                         hub_threshold=64))
+
+
+def small_stream_server(su: dict, dev: str, **kw):
+    """The small fixture's AmNnet, decoder and server on `dev`."""
+    from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder
+    from kaldi_tpu_torch.nnet.am_nnet import AmNnet
+    from kaldi_tpu_torch.nnet.tdnn import Tdnn
+    from kaldi_tpu_torch.online.serving import FusedStreamingServer
+    am = AmNnet(Tdnn(su["cfg"]).load_jax_params(su["params"]),
+                priors=su["priors"])
+    dec = CsrBeamDecoder(su["graph"], su["opts"], device=dev)
+    return am, dec, FusedStreamingServer(am, dec, su["fb"],
+                                         chunk_samples=2560, t_max=256, **kw)
+
+
+def phase_stream_small():
+    su = small_stream_setup()
+    fb = su["fb"]
     rng = np.random.default_rng(21)
     waves = [rng.standard_normal(L).astype(np.float32) * 4000
              for L in (9000, 17000, 30000, 12345)]
     res = {}
     for dev in ("cuda", "cpu"):
-        am = AmNnet(Tdnn(cfg).load_jax_params(params), priors=priors)
-        dec = CsrBeamDecoder(graph, opts, device=dev)
-        srv = FusedStreamingServer(am, dec, fb, n_streams=4,
-                                   chunk_samples=2560, t_max=256)
+        am, dec, srv = small_stream_server(su, dev, n_streams=4)
         res[dev], _ = _stream_all(srv, waves, [2560, 1300, 5000, 2000])
         if dev == "cuda":
             offline = _offline(am, dec, waves, fb)
@@ -754,6 +789,411 @@ def phase_stream_full(tg, sl: dict, card: str,
     if profile:
         profile_stream(srv, list(waves), chunk, p50 / 1e3)
     return {"launches": launches}
+
+
+def _same_records(name: str, got: dict, want: dict, f16: bool):
+    """decode_raw results: the same keys, shapes and dtypes; ints and
+    scores rebuilt from float16 identical, other floats within 1e-5."""
+    if list(got) != list(want):
+        raise AssertionError(f"{name}: record keys {list(got)}")
+    for key in want:
+        w, g = np.asarray(want[key]), np.asarray(got[key])
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name}: {key} {g.shape} {g.dtype} vs "
+                                 f"{w.shape} {w.dtype}")
+        exact = w.dtype.kind != "f" or (f16 and key in ("scores",
+                                                       "init_scores"))
+        if exact and not np.array_equal(g, w):
+            raise AssertionError(f"{name}: {key} differs")
+        if not exact and np.abs(g - w).max(initial=0) > 1e-5:
+            raise AssertionError(f"{name}: {key} off by "
+                                 f"{np.abs(g - w).max()}")
+
+
+def lattice_form(lat) -> tuple:
+    """A lattice without its node numbering: node and arc counts and the
+    sorted (ilabel, olabel, graph cost, acoustic cost) of its arcs."""
+    n, _src, il, ol, gc, ac, _dst = lat.to_arrays()
+    return n, sorted(zip(np.asarray(il).tolist(), np.asarray(ol).tolist(),
+                         np.asarray(gc).tolist(), np.asarray(ac).tolist()))
+
+
+def phase_lattice_small():
+    import torch
+    from kaldi_tpu_torch.decoder.biggraph import BigGraphConfig, make_big_hclg
+    from kaldi_tpu_torch.decoder.csr_beam import (AdaptiveCsrBeamDecoder,
+                                                  ChunkedCsrBeamDecoder,
+                                                  CsrBeamDecoder, CsrBeamOpts)
+    from kaldi_tpu_torch.lat.functions import lattice_best_path
+    from kaldi_tpu_torch.lat.generate import (decode_to_lattices,
+                                              raw_lattice_from_decode)
+    from kaldi_tpu_torch.ops.features import fbank
+    small, _ = make_big_hclg(BigGraphConfig(vocab=300, avg_bigram_succ=20,
+                                            num_pdfs=64, seed=1))
+    base = dict(beam=10.0, max_active=256, acoustic_scale=0.1,
+                expand_budget=8192, eps_budget=2048)
+    rec = dict(base, rec_cap=128, rec_beam=6.0)
+    cases = [("dense", small, 64, base),
+             ("f16", small, 64, dict(rec, rec_f16=True)),
+             ("flat", small, 64, dict(rec, rec_f16=True, rec_flat=True,
+                                      rec_flat_cap=128)),
+             ("init rounds", small, 64, dict(rec, fold_eps=False)),
+             ("star hub G>128, flat", star_hub_graph(300), 301,
+              dict(base, max_active=128, hub_threshold=32, rec_cap=96,
+                   rec_beam=8.0, rec_f16=True, rec_flat=True,
+                   rec_flat_cap=96))]
+    rng = np.random.RandomState(1)
+    for name, graph, P, kw in cases:
+        ll = (rng.randn(2, 25, P) * 3).astype(np.float32)
+        nf = np.array([25, 19], np.int32)
+        opts = CsrBeamOpts(**kw)
+        dg = CsrBeamDecoder(graph, opts, device="cuda")
+        dc = CsrBeamDecoder(graph, opts, device="cpu")
+        rg, rc = dg.decode_raw(ll, nf), dc.decode_raw(ll, nf)
+        _same_records(name, rg, rc, bool(kw.get("rec_f16")))
+        for attr in ("last_overflow", "last_saturated", "last_rec_trunc",
+                     "last_active_sum", "last_active_max",
+                     "last_flat_fallbacks"):
+            if not np.array_equal(getattr(dg, attr), getattr(dc, attr)):
+                raise AssertionError(f"{name}: {attr} differs")
+        sizes = []
+        for b in range(2):
+            lats = {(d, native): raw_lattice_from_decode(
+                        dec, r, nf, b, 6.0, use_native=native)
+                    for d, dec, r in (("cuda", dg, rg), ("cpu", dc, rc))
+                    for native in (True, False)}
+            form = lattice_form(lats["cuda", True])
+            best = lattice_best_path(lats["cuda", True])
+            for key, lat in lats.items():
+                if lattice_form(lat) != form:
+                    raise AssertionError(f"{name}: utt {b} lattice {key} "
+                                         f"differs from the card's native")
+                if lattice_best_path(lat)[:2] != best[:2]:
+                    raise AssertionError(f"{name}: utt {b} best path {key}")
+            sizes.append((form[0], len(form[1])))
+        log(f"  decode_raw {name}: card == CPU (states, counters, f16 bits; "
+            f"f32 within 1e-5); lattices card native == card numpy == CPU "
+            f"native == CPU numpy; (states, arcs) {sizes}"
+            + (f", {rg['rec_wire_slots']} wire slots" if "rec_wire_slots"
+               in rg else ""))
+
+    ll = (rng.randn(3, 50, 64) * 3).astype(np.float32)
+    nf = np.array([50, 41, 23], np.int32)
+    opts = CsrBeamOpts(beam=9.0, max_active=128, acoustic_scale=0.1,
+                       expand_budget=4096, eps_budget=1024, hub_threshold=64)
+    ref = CsrBeamDecoder(small, opts, device="cuda")
+    want = ref.decode(ll, nf)
+    for tc in (7, 16, 50):
+        ch = ChunkedCsrBeamDecoder(small, opts, chunk_frames=tc,
+                                   device="cuda")
+        _same_results(f"chunked {tc}", ch.decode(ll, nf), want, "chunked")
+        for attr in ("last_overflow", "last_saturated", "last_active_sum",
+                     "last_active_max"):
+            if not np.array_equal(getattr(ch, attr), getattr(ref, attr)):
+                raise AssertionError(f"chunked {tc}: {attr} differs")
+    full = CsrBeamOpts(beam=8.0, max_active=512, acoustic_scale=0.1,
+                       expand_budget=16384, eps_budget=2048)
+    ll = (rng.randn(3, 40, 64) * 3).astype(np.float32)
+    nf = np.full(3, 40, np.int32)
+    ad = AdaptiveCsrBeamDecoder(small, full, small_max_active=64,
+                                small_expand_budget=2048, device="cuda")
+    _same_results("adaptive", ad.decode(ll, nf), ad.full.decode(ll, nf),
+                  "adaptive")
+    log(f"  chunked (7, 16, 50 frames) == one-shot on the card; adaptive == "
+        f"full on the card, escalated {ad.last_escalated.tolist()}, small "
+        f"chunks {ad.last_small_chunks}")
+
+    su = small_stream_setup()
+    am, dec, srv = small_stream_server(su, "cuda", n_streams=2,
+                                       keep_loglikes=True)
+    rng2 = np.random.default_rng(51)
+    waves = [rng2.standard_normal(L).astype(np.float32) * 4000
+             for L in (12000, 9000)]
+    slots = []
+    for w in waves:
+        s = srv.open()
+        srv.feed(s, w)
+        srv.input_finished(s)
+        slots.append(s)
+    for s in slots:
+        srv.drain(s)
+    for i, (s, w) in enumerate(zip(slots, waves)):
+        lat = srv.get_lattice(s, 6.0)
+        feats = fbank(torch.as_tensor(w, device="cuda"), su["fb"])
+        off = decode_to_lattices(dec, am.loglikes(feats[None]),
+                                 np.array([feats.shape[0]], np.int32),
+                                 6.0)[0]
+        if lat is None or off is None:
+            raise AssertionError(f"get_lattice stream {i}: no lattice")
+        g_n, g_arcs = lattice_form(lat)
+        o_n, o_arcs = lattice_form(off)
+        gb, ob = lattice_best_path(lat), lattice_best_path(off)
+        if (g_n != o_n or [a[:2] for a in g_arcs] != [a[:2] for a in o_arcs]
+                or gb[:2] != ob[:2] or abs(gb[2] - ob[2]) > 1e-2):
+            raise AssertionError(f"get_lattice stream {i} differs from the "
+                                 f"offline lattice")
+        log(f"  keep-loglikes server, stream {i}: get_lattice == offline "
+            f"lattice on the card ({g_n} states, {len(g_arcs)} arcs, best "
+            f"path {len(gb[0])} words, cost {gb[2]:.4f} vs {ob[2]:.4f})")
+
+
+LATTICE_BEAM = 8.0
+LATGEN_BATCHES = 3
+
+
+def _sizes(lats) -> list:
+    """(states, arcs) of each lattice, None where there is none."""
+    return [None if x is None else (x.num_states, x.num_arcs) for x in lats]
+TRAIN_UTTS, TEST_UTTS, TRAIN_STEPS = 16, 8, 400     # bench.py:60-62
+
+
+def train_am(tdnn, waves, segs, steps: int) -> tuple[float, float]:
+    """The bench's AM training (bench.py:155-185) in plain torch: full-batch
+    cross-entropy on the corpus's own frame targets (fbank_targets), bf16
+    products over f32 weights, SGD whose rate decays exponentially from
+    0.1 to 0.02 over the run, gradients clipped to a global norm of 5.
+    The port has no train step yet (ROADMAP §3); this gives the lattice
+    point the peaky posteriors of a trained AM, on which the bench set its
+    rec_cap and rec_flat_cap (bench.py:403-420). -> (loss, frame accuracy)
+    of the last step."""
+    import torch
+    from kaldi_tpu_torch.decoder.simulate import fbank_targets
+    from kaldi_tpu_torch.ops.features import cmvn, fbank
+    from kaldi_tpu_torch.recognize import SERVING_FBANK
+    dev = tdnn.final.w.device
+    cfg = tdnn.config
+    with torch.no_grad():
+        feats = cmvn(fbank(torch.as_tensor(waves, device=dev),
+                           SERVING_FBANK))
+    Tf = feats.shape[1]
+    tgt = np.stack([fbank_targets(s, Tf) for s in segs])
+    tgt = torch.as_tensor(tgt[:, cfg.left_context:Tf - cfg.right_context],
+                          dtype=torch.long, device=dev).reshape(-1)
+    params = list(tdnn.parameters())
+    for p in params:
+        p.requires_grad_(True)
+    for i in range(steps):
+        log_post = tdnn(feats, pad_context=False,
+                        compute_dtype=torch.bfloat16)
+        log_post = log_post.reshape(-1, log_post.shape[-1])
+        loss = torch.nn.functional.nll_loss(log_post, tgt)
+        grads = torch.autograd.grad(loss, params)
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        step = 0.1 * (0.02 / 0.1) ** (i / steps) * torch.clamp(5.0 / norm,
+                                                                max=1.0)
+        with torch.no_grad():
+            for p, g in zip(params, grads):
+                p.sub_(step * g)
+    for p in params:
+        p.requires_grad_(False)
+    acc = torch.mean((torch.argmax(log_post, dim=-1) == tgt).float())
+    return float(loss.detach()), float(acc)
+
+
+def phase_lattice_full(tg, sl: dict, card: str) -> dict:
+    import copy
+    import dataclasses
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    from kaldi_tpu_torch.decoder.csr_beam import (AdaptiveCsrBeamDecoder,
+                                                  CsrBeamDecoder, CsrBeamOpts)
+    from kaldi_tpu_torch.decoder.simulate import make_corpus
+    from kaldi_tpu_torch.lat import native_gen
+    from kaldi_tpu_torch.lat.functions import lattice_best_path
+    from kaldi_tpu_torch.lat.generate import (decode_to_lattices,
+                                              decode_to_lattices_stream,
+                                              raw_lattice_from_decode)
+    from kaldi_tpu_torch.nnet.tdnn import Tdnn
+    from kaldi_tpu_torch.params import random_tdnn_params
+    from kaldi_tpu_torch.recognize import Recognizer
+
+    # the bench's corpus (16 training and 8 test utterances of 10 s) and
+    # its AM, trained on the card as the bench trains it
+    graph = sl["graph"]
+    t = time.perf_counter()
+    waves_all, segs, ref_all = make_corpus(graph, TRAIN_UTTS + TEST_UTTS,
+                                           1000, np.random.default_rng(0),
+                                           noise=0.25)
+    t_corpus = time.perf_counter() - t
+    tdnn = Tdnn(sl["cfg"]).load_jax_params(
+        random_tdnn_params(sl["cfg"], np.random.default_rng(0))).cuda()
+    t = time.perf_counter()
+    loss, acc = train_am(tdnn, waves_all[:TRAIN_UTTS], segs[:TRAIN_UTTS],
+                         TRAIN_STEPS)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t
+    search = dict(beam=13.0, max_active=7000, acoustic_scale=0.1,
+                  expand_budget=16384, eps_budget=2048)
+    rec = Recognizer(tdnn, graph, CsrBeamOpts(**search), device="cuda")
+    waves = waves_all[TRAIN_UTTS:]
+    answers = rec.recognize(waves)
+    if any(a is None for a in answers):
+        raise AssertionError("trained AM: an utterance has no best path")
+    log(f"  AM trained on {TRAIN_UTTS} x 10 s in {TRAIN_STEPS} steps "
+        f"({t_train:.3f} s; corpus {t_corpus:.3f} s on the host): loss "
+        f"{loss:.4f}, frame accuracy {acc:.4f}; best-path WER on the "
+        f"{TEST_UTTS} test utterances "
+        f"{wer(ref_all[TRAIN_UTTS:], [a[0] for a in answers]):.2f}%")
+    # the bench's latgen point (bench.py:415-425)
+    t = time.perf_counter()
+    dec = CsrBeamDecoder(graph, CsrBeamOpts(
+        **search, rec_cap=3072, rec_beam=LATTICE_BEAM, rec_f16=True,
+        rec_flat=True, rec_flat_cap=512), device="cuda")
+    setup_s = time.perf_counter() - t
+    ll_np = rec.loglikes(waves).float().cpu().numpy()   # bf16 TDNN's
+    B, T, P = ll_np.shape
+    nf = np.full(B, T, np.int32)
+    audio = B * waves.shape[1] / 16000.0
+    o = dec.opts
+    R, Kc = 1 + int(o.eps_expansions), min(o.rec_cap, o.max_active)
+
+    native_gen.extractions = 0
+    t = time.perf_counter()
+    list(decode_to_lattices_stream(dec, [(ll_np, nf)], LATTICE_BEAM,
+                                   num_threads=8))
+    warm_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tg.launches = 0                       # count the latgen path only
+    rates, fallbacks0 = [], dec.last_flat_fallbacks
+    for _ in range(2):
+        t = time.perf_counter()
+        outs = list(decode_to_lattices_stream(
+            dec, [(ll_np, nf)] * LATGEN_BATCHES, LATTICE_BEAM,
+            num_threads=8))
+        rates.append(LATGEN_BATCHES * audio / (time.perf_counter() - t))
+    launches = tg.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if launches < 2 * T * LATGEN_BATCHES * 2:
+        raise AssertionError(f"{launches} gather launches for "
+                             f"{2 * LATGEN_BATCHES} batches of {T} frames")
+    lats = outs[-1]
+    if len(outs) != LATGEN_BATCHES:
+        raise AssertionError(f"latgen: {len(outs)} batches came out")
+    # one more batch, split by stage (host clock)
+    t0 = time.perf_counter()
+    fin = dec.decode_raw_async(ll_np, nf)
+    t1 = time.perf_counter()
+    raw = fin()
+    t2 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=8) as ex:
+        lats1 = list(ex.map(lambda b: raw_lattice_from_decode(
+            dec, raw, nf, b, LATTICE_BEAM), range(B)))
+    t3 = time.perf_counter()
+    if _sizes(lats1) != _sizes(lats):
+        raise AssertionError("latgen: the split batch's lattices differ from "
+                             "the stream's")
+    shipped = B * T * R * Kc
+    trunc = int(dec.last_rec_trunc.sum())
+    wire = raw.get("rec_wire_slots", float("nan"))
+    share = 100.0 * trunc / shipped
+    log(f"  latgen: {[round(r, 3) for r in rates]} audio-sec/s per run of "
+        f"{LATGEN_BATCHES} batches x {B} x {waves.shape[1] / 16000.0:.1f} s "
+        f"(decode_to_lattices_stream, 8 extraction threads; warm-up batch "
+        f"{warm_s:.3f} s, decoder set-up {setup_s:.3f} s); gather launches "
+        f"{launches} ({launches / (2 * LATGEN_BATCHES * T):.1f}/frame); "
+        f"peak device memory {peak:.3f} GiB | card: {card}")
+    log(f"  one batch: record decode enqueue {t1 - t0:.4f} s, device drain + "
+        f"one copy + dense rebuild {t2 - t1:.4f} s, native extraction of "
+        f"{B} utts on 8 threads {t3 - t2:.4f} s")
+    log(f"  records: rec_trunc {trunc} of {shipped} shipped slots = "
+        f"{share:.3f}% (bench.py:445 fails at 5%); rec_wire_slots "
+        f"{wire} ({wire / (B * T * R):.1f}/frame; nan after a dense "
+        f"fallback); flat fallbacks {dec.last_flat_fallbacks - fallbacks0} in "
+        f"the timed runs, {dec.last_flat_fallbacks} in all; dense view width "
+        f"{raw['states'].shape[-1]}; active tokens mean "
+        f"{dec.last_active_sum.sum() / (B * T):.1f} peak "
+        f"{int(dec.last_active_max.max())}; (lattice states, arcs) per utt "
+        f"{_sizes(lats)} (None: no path survived the records)")
+    failed = []
+    if not share < 5.0:
+        failed.append(f"record compaction truncated {share:.3f}% of shipped "
+                      f"slots (rec_cap={Kc})")
+
+    # untruncated records (bench.py:494-498), the same search: their
+    # occupancy within rec_beam is what rec_cap cuts, so the capped run's
+    # rec_trunc must be exactly its excess over Kc
+    unc = copy.copy(dec)              # shares the tier tables
+    unc.opts = dataclasses.replace(dec.opts, rec_cap=None,
+                                   rec_flat_cap=1024)
+    t = time.perf_counter()
+    raw_u = unc.decode_raw(ll_np, nf)
+    with ThreadPoolExecutor(max_workers=8) as ex:
+        lats_u = list(ex.map(lambda b: raw_lattice_from_decode(
+            unc, raw_u, nf, b, LATTICE_BEAM), range(B)))
+    t_u = time.perf_counter() - t
+    occ = np.sum(raw_u["scores"] < 5e9, axis=-1)          # [B, T, R]
+    if not np.array_equal(np.maximum(occ - Kc, 0).sum(axis=(1, 2)),
+                          dec.last_rec_trunc):
+        failed.append("rec_trunc is not the untruncated records' excess "
+                      "over rec_cap")
+    # rec_beam may drop slots of the best path (ROADMAP §5): count the
+    # lattices that still hold the decoder's best cost
+    held = sum(lat is not None and abs(lattice_best_path(lat)[2] - want[2])
+               <= 1e-3 * abs(want[2]) for lat, want in zip(lats_u, answers))
+    log(f"  untruncated batch (rec_cap None, rec_flat_cap 1024): {t_u:.3f} "
+        f"s, rec_trunc {int(unc.last_rec_trunc.sum())}, flat fallbacks "
+        f"{unc.last_flat_fallbacks - dec.last_flat_fallbacks}; slots within "
+        f"rec_beam per frame: mean {occ.mean():.1f}, p50 "
+        f"{np.percentile(occ, 50):.0f}, p99 {np.percentile(occ, 99):.0f}, "
+        f"max {occ.max()}, over rec_cap in {np.mean(occ > Kc):.4f} of frames, "
+        f"their excess == rec_trunc exactly; lattices holding the "
+        f"Recognizer's best cost {held}/{B}; (states, arcs) "
+        f"{_sizes(lats_u)}")
+
+    # records with nothing masked (rec_beam = beam, dense): every lattice's
+    # best path is the decoder's, held against the bf16 Recognizer's words
+    whole = copy.copy(dec)
+    whole.opts = dataclasses.replace(dec.opts, rec_cap=None, rec_beam=None,
+                                     rec_flat=False)
+    t = time.perf_counter()
+    lats_w = decode_to_lattices(whole, ll_np, nf, LATTICE_BEAM,
+                                num_threads=8)
+    t_w = time.perf_counter() - t
+    ties = 0
+    for b, (lat, want) in enumerate(zip(lats_w, answers)):
+        if lat is None:
+            failed.append(f"unmasked records, utt {b}: no lattice")
+            continue
+        got = lattice_best_path(lat)
+        rel = abs(got[2] - want[2]) / max(abs(want[2]), 1e-9)
+        if got[0] != want[0]:
+            ties += 1
+            log(f"  utt {b}: lattice best path differs from the Recognizer's "
+                f"words: cost {got[2]:.6f} vs {want[2]:.6f} (rel {rel:.2e})")
+        if rel > 1e-3:
+            failed.append(f"unmasked records, utt {b}: lattice best cost "
+                          f"{got[2]} vs the Recognizer's {want[2]}")
+    log(f"  unmasked batch (rec_cap None, rec_beam = beam 13, dense): "
+        f"{t_w:.3f} s; best paths of {B} lattices == the bf16 Recognizer's "
+        f"words for {B - ties}/{B}, the rest ties within 1e-3; (states, "
+        f"arcs) {_sizes(lats_w)}")
+
+    # adaptive decode: a chunked small-frontier program, then escalation
+    t = time.perf_counter()
+    ad = AdaptiveCsrBeamDecoder(graph, CsrBeamOpts(**search),
+                                small_max_active=1024, device="cuda")
+    ad_setup = time.perf_counter() - t
+    ll_dev = torch.as_tensor(ll_np, device="cuda")
+    tg.launches = 0
+    t = time.perf_counter()
+    res_a = ad.decode(ll_dev, nf)
+    t_a = time.perf_counter() - t
+    a_launches = tg.launches
+    t = time.perf_counter()
+    res_f = ad.full.decode(ll_dev, nf)
+    t_f = time.perf_counter() - t
+    _same_results("adaptive full width", res_a, res_f, "adaptive")
+    log(f"  adaptive (small_max_active 1024, 128-frame chunks): "
+        f"{t_a:.4f} s against one full decode {t_f:.4f} s; escalated "
+        f"{int(ad.last_escalated.sum())}/{B}, small chunks "
+        f"{ad.last_small_chunks} of {-(-T // 128)}, gather launches "
+        f"{a_launches}; set-up {ad_setup:.3f} s; words == full decode")
+    if native_gen.extractions < B * (2 * LATGEN_BATCHES + 4):
+        failed.append(f"native extractor ran {native_gen.extractions} times")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return {"launches": launches, "adaptive_launches": a_launches}
 
 
 def device_time(fn) -> tuple[float, int, dict]:
@@ -831,13 +1271,13 @@ def main() -> int:
 
     resolve_device("cuda")                # also turns TF32 off
     card = card_info()
-    log(f"[1/10] card: {card} | torch {torch.__version__} CUDA "
+    log(f"[1/12] card: {card} | torch {torch.__version__} CUDA "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
 
     t = time.perf_counter()
     libs = cuda_build.build()
-    log(f"[2/10] build: {len(libs)} kernels in {time.perf_counter() - t:.3f} "
+    log(f"[2/12] build: {len(libs)} kernels in {time.perf_counter() - t:.3f} "
         f"s (one nvcc each, in parallel)")
     for name, so in libs.items():
         with open(os.path.join(os.path.dirname(so), "nvcc.log")) as f:
@@ -845,35 +1285,40 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]
         log(f"  {os.path.relpath(so, ROOT)}: {' | '.join(regs)}")
 
-    log("[3/10] table-gather kernel vs plain version")
+    log("[3/12] table-gather kernel vs plain version")
     k = phase_kernel(tg)
-    log("[4/10] qaffine kernel vs plain version")
+    log("[4/12] qaffine kernel vs plain version")
     qk = phase_qaffine(q)
-    log("[5/10] decoder on the card vs on the CPU")
+    log("[5/12] decoder on the card vs on the CPU")
     phase_decoder_parity()
-    log("[6/10] int8 decode on the card vs on the CPU")
+    log("[6/12] int8 decode on the card vs on the CPU")
     phase_int8_parity()
-    log("[7/10] full-width serving slice (bf16 TDNN)")
+    log("[7/12] full-width serving slice (bf16 TDNN)")
     sl = phase_slice(tg, card, profile="--profile" in sys.argv[1:])
-    log("[8/10] full-width int8 serving slice")
+    log("[8/12] full-width int8 serving slice")
     s8 = phase_int8_slice(q, tg, sl, card)
-    log("[9/10] streaming server, small: card vs CPU vs offline")
+    log("[9/12] streaming server, small: card vs CPU vs offline")
     phase_stream_small()
-    log("[10/10] streaming server, full width")
+    log("[10/12] streaming server, full width")
     st = phase_stream_full(tg, sl, card, profile="--profile" in sys.argv[1:])
+    log("[11/12] lattice path, small: card vs CPU, native vs numpy")
+    phase_lattice_small()
+    log("[12/12] lattice path, full width (latgen at the bench's point)")
+    lt = phase_lattice_full(tg, sl, card)
 
     g_shape = GATHER_SHAPES[0]
     ms, plain_ms, library_ms, floor_ms = k["times"][g_shape]
     log(f"launches: gather {sl['launches']} on the bf16 slice, "
-        f"{st['launches']} on the streaming path; qaffine {s8['launches']} "
-        f"on the int8 slice")
+        f"{st['launches']} on the streaming path, {lt['launches']} on the "
+        f"latgen path, {lt['adaptive_launches']} in the adaptive decode; "
+        f"qaffine {s8['launches']} on the int8 slice")
     log(card)
     log(json.dumps({"kernels": [{
         "name": "batched_table_gather", "route": "cuda",
         "source": "kaldi_tpu_torch/csrc/table_gather.cu",
         "replaces": "kaldi_tpu/ops/table_gather.py:50",
-        "launches": sl["launches"], "max_abs_err": k["max_abs_err"],
-        "ms": ms, "plain_ms": plain_ms,
+        "launches": sl["launches"], "lattice_launches": lt["launches"],
+        "max_abs_err": k["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
         "bound_ms": gather_bound_ms(*g_shape), "bound_by": "bytes",
         "library_ms": library_ms, "floor_ms": floor_ms}, {
         "name": "qaffine", "route": "cuda",

@@ -3,9 +3,9 @@ single device->host copy of a decode's outputs, and the label parse.
 
 `parse_label_seqs` is kaldi_tpu/decoder/dense.py `_parse_label_seqs`;
 `device_mask` is `_device_mask` (without its cache: building a [B, T]
-mask is one small host->device copy); `fetch_int32` replaces
+mask is one small host->device copy); `fetch_host` replaces
 kaldi_tpu/decoder/hostpack.py `pack4`/`fetch_tree_async`: the outputs are
-packed into one int32 buffer on the device and copied once.
+packed into one byte buffer on the device and copied once.
 """
 
 from __future__ import annotations
@@ -15,6 +15,10 @@ import torch
 
 BIG = np.float32(1e10)
 
+_NP_DTYPE = {torch.float32: np.float32, torch.float16: np.float16,
+             torch.int32: np.int32, torch.int64: np.int64,
+             torch.uint8: np.uint8, torch.bool: np.bool_}
+
 
 def device_mask(num_frames: np.ndarray, T: int, device) -> torch.Tensor:
     """[B, T] bool frame-validity mask on `device`."""
@@ -22,28 +26,29 @@ def device_mask(num_frames: np.ndarray, T: int, device) -> torch.Tensor:
     return torch.as_tensor(m, device=device)
 
 
-def fetch_int32(tensors: list[torch.Tensor]) -> list[np.ndarray]:
-    """Copy a list of int32 / f32 / bool device tensors to the host with ONE
-    transfer. -> numpy arrays with the original shapes and dtypes."""
-    parts = []
-    for x in tensors:
-        flat = x.reshape(-1)
-        if flat.dtype == torch.float32:
-            flat = flat.view(torch.int32)
-        else:
-            flat = flat.to(torch.int32)
-        parts.append(flat)
-    buf = torch.cat(parts).cpu().numpy()
-    out = []
+def fetch_host(tensors: list[torch.Tensor]) -> list[np.ndarray]:
+    """Copy a list of device tensors (f32, f16, int32, int64, uint8, bool;
+    any shapes, mixed) to the host with ONE transfer: each is viewed as
+    bytes, padded to a multiple of 8, and the parts are concatenated on
+    the device. -> numpy arrays with the original shapes and dtypes."""
+    parts, spans = [], []
     pos = 0
     for x in tensors:
-        n = x.numel()
-        chunk = buf[pos: pos + n]
-        pos += n
-        if x.dtype == torch.float32:
-            chunk = chunk.view(np.float32)
-        elif x.dtype == torch.bool:
-            chunk = chunk.astype(bool)
+        flat = x.reshape(-1)
+        if flat.dtype == torch.bool:
+            flat = flat.to(torch.uint8)
+        raw = flat.contiguous().view(torch.uint8)
+        n = raw.numel()
+        pad = -n % 8
+        parts.append(raw)
+        if pad:
+            parts.append(torch.zeros(pad, dtype=torch.uint8, device=x.device))
+        spans.append((pos, n))
+        pos += n + pad
+    buf = torch.cat(parts).cpu().numpy() if parts else np.zeros(0, np.uint8)
+    out = []
+    for x, (p, n) in zip(tensors, spans):
+        chunk = buf[p: p + n].view(_NP_DTYPE[x.dtype])
         out.append(chunk.reshape(tuple(x.shape)))
     return out
 

@@ -20,9 +20,11 @@ read). Slot resets and the arena / il-array writes at each slot's d0
 update the device-resident carry in place. The host keeps the per-slot
 counters (v0, nf, nd, d0, total) exactly as the JAX server computes them.
 
-Not in this port yet: `mesh` (stream sharding over devices) and the
-lattice path (`keep_loglikes`, `get_lattice`); asking for either raises
-NotImplementedError.
+With keep_loglikes=True the server also keeps each stream's unscaled
+log-likelihoods in a device ring, written at each slot's d0 like the
+arena, and `get_lattice` runs the offline latgen (lat.generate) over
+them. Not in this port yet: `mesh` (stream sharding over devices); asking
+for it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ import torch
 
 from kaldi_tpu_torch.decoder.csr_beam import (_HALF_BIG, BIG,
                                               CsrBeamDecoder, _make_rounds)
-from kaldi_tpu_torch.decoder.hostpack import fetch_int32
+from kaldi_tpu_torch.decoder.hostpack import fetch_host
+from kaldi_tpu_torch.lat.generate import decode_to_lattices
 from kaldi_tpu_torch.ops.features import FbankOpts, fbank
 from kaldi_tpu_torch.ops.window import num_frames
 
@@ -60,9 +63,6 @@ class FusedStreamingServer:
         if mesh is not None:
             raise NotImplementedError("stream sharding over a device mesh is "
                                       "not ported yet")
-        if keep_loglikes:
-            raise NotImplementedError("keep_loglikes serves get_lattice, the "
-                                      "lattice path, which is not ported yet")
         if not isinstance(dec, CsrBeamDecoder):
             raise TypeError(f"dec must be a CsrBeamDecoder, got {type(dec)}")
         fo = feat_opts.frame_opts
@@ -93,6 +93,7 @@ class FusedStreamingServer:
         self.M = self.F + self.lc + self.rc
         self.Mw = self.ndmax + self.lc + self.rc
         self.t_max = t_max
+        self._keep_ll = bool(keep_loglikes)
         o = dec.opts
         self.K = int(o.max_active)
         self.R = 1 + int(o.eps_expansions)
@@ -137,7 +138,7 @@ class FusedStreamingServer:
             recs.append(rec[0])
         self._init_st, self._init_sc = st[0], sc[0]
         self._init_records = [(r & self._kmask, r >> self._kbits)
-                              for r in (fetch_int32(recs) if recs else [])]
+                              for r in (fetch_host(recs) if recs else [])]
 
     def _reset_all(self):
         N, D, K, dev = self.N, self._feat_dim, self.K, self.device
@@ -156,6 +157,10 @@ class FusedStreamingServer:
         self._arena = torch.zeros((N, rows, self.R, K), dtype=torch.int32,
                                   device=dev)
         self._ilar = torch.zeros((N, rows, K), dtype=torch.int32, device=dev)
+        # unscaled loglikes for get_lattice, padded like the arena
+        self._llar = torch.zeros((N, rows if self._keep_ll else 1,
+                                  self.am.num_pdfs), dtype=torch.float32,
+                                 device=dev)
         self._free = list(range(N))
         self._stage = [np.zeros(0, np.float32) for _ in range(N)]
         self._samples = np.zeros(N, np.int64)
@@ -206,7 +211,8 @@ class FusedStreamingServer:
         window = torch.gather(self._fifo, 1,
                               fidx[:, :, None].expand(N, Mw, D))
         log_post = self.model(window, pad_context=False)     # [N, ndmax, P]
-        ll = (log_post - self._log_prior) * float(self.dec.opts.acoustic_scale)
+        ll_raw = log_post - self._log_prior
+        ll = ll_raw * float(self.dec.opts.acoustic_scale)
 
         # lockstep token passing: stream n decodes its j-th new frame at
         # loop step j; the mask gates slots whose nd is smaller
@@ -236,6 +242,8 @@ class FusedStreamingServer:
         slot = torch.arange(N, device=dev)[:, None].expand(N, n_frames)
         self._arena.index_put_((slot, rows), recs.permute(2, 0, 1, 3))
         self._ilar.index_put_((slot, rows), ils.permute(1, 0, 2))
+        if self._keep_ll:
+            self._llar.index_put_((slot, rows), ll_raw[:, :n_frames])
 
     # ------------------------------------------------------------- slots
 
@@ -374,7 +382,7 @@ class FusedStreamingServer:
             torch.index_select(ilar[tt], 0, slot, out=ils[tt:tt + 1])
             torch.index_select(arena[tt, 0], 0, slot, out=prs[tt, 0:1])
             slot = prs[tt, 0:1] & self._kmask
-        ols, ils, slot_end, cost, alive = fetch_int32(
+        ols, ils, slot_end, cost, alive = fetch_host(
             [prs >> self._kbits, ils, slot, cost0, alive])
         if not bool(alive):
             return None
@@ -390,5 +398,15 @@ class FusedStreamingServer:
         return init_words[::-1] + words, tids, float(cost)
 
     def get_lattice(self, s: int, lattice_beam: float = 8.0):
-        raise NotImplementedError("get_lattice belongs to the lattice path, "
-                                  "which is not ported yet")
+        """Raw lattice of stream s: the offline latgen (decode_to_lattices)
+        over its kept log-likelihoods, so it equals the offline lattice of
+        the same audio. Needs keep_loglikes=True."""
+        if not self._keep_ll:
+            raise ValueError("get_lattice needs a server built with "
+                             "keep_loglikes=True")
+        n = int(self._decoded[s])
+        if n == 0:
+            return None
+        ll = self._llar[s, :n].cpu().numpy()
+        return decode_to_lattices(self.dec, ll[None], np.array([n], np.int32),
+                                  lattice_beam)[0]

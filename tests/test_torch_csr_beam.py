@@ -173,10 +173,28 @@ def test_all_costs_tied(small_big_graph):
     assert td.last_saturated.all()
 
 
-def test_lattice_options_rejected(small_big_graph):
-    with pytest.raises(ValueError, match="rec_"):
-        CsrBeamDecoder(small_big_graph, CsrBeamOpts(rec_cap=16),
-                       device="cpu")
+@pytest.mark.parametrize("flat", [False, True])
+def test_lattice_options_reach_decode_raw(small_big_graph, flat):
+    """The rec_* options are accepted and shape decode_raw's records: a
+    16-slot cap truncates (counted), f16 scores come back as f32, flat
+    records report their wire slots. The best-path decode ignores them."""
+    kw = dict(beam=10.0, max_active=128, acoustic_scale=0.1,
+              expand_budget=4096, eps_budget=1024)
+    rec = dict(rec_cap=16, rec_beam=6.0, rec_f16=True, rec_flat=flat,
+               rec_flat_cap=16)
+    ll, nf = _ll(4, 2, 20, 64), np.array([20, 14], np.int32)
+    dec = CsrBeamDecoder(small_big_graph, CsrBeamOpts(**kw, **rec),
+                         device="cpu")
+    assert all(getattr(dec.opts, k) == v for k, v in rec.items())
+    raw = dec.decode_raw(ll, nf)
+    assert raw["states"].shape[:3] == (2, 20, 1)
+    assert raw["states"].shape[3] <= 16 if flat else \
+        raw["states"].shape[3] == 16
+    assert raw["scores"].dtype == np.float32
+    assert dec.last_rec_trunc.sum() > 0
+    assert ("rec_wire_slots" in raw) == flat
+    plain = CsrBeamDecoder(small_big_graph, CsrBeamOpts(**kw), device="cpu")
+    assert dec.decode(ll, nf) == plain.decode(ll, nf)
 
 
 def test_segment_map_matches_jax():

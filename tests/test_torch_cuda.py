@@ -1,5 +1,7 @@
 """Card-only checks of the port: the table-gather and qaffine kernels, the
-decoder and the int8 decode on a CUDA device. Each test skips without a card. This file imports no jax,
+decoder, the int8 decode, the record decode with its lattices, and the
+chunked and adaptive decoders on a CUDA device. Each test skips without a
+card. This file imports no jax,
 so it runs on a machine that has only torch:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -12,8 +14,11 @@ import pytest
 import torch
 
 from kaldi_tpu_torch.decoder.biggraph import BigGraphConfig, make_big_hclg
-from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder, CsrBeamOpts
+from kaldi_tpu_torch.decoder.csr_beam import (AdaptiveCsrBeamDecoder,
+                                              ChunkedCsrBeamDecoder,
+                                              CsrBeamDecoder, CsrBeamOpts)
 from kaldi_tpu_torch.decoder.simulate import make_corpus
+from kaldi_tpu_torch.lat.generate import raw_lattice_from_decode
 from kaldi_tpu_torch.nnet import quantized as tq
 from kaldi_tpu_torch.nnet.tdnn import TdnnConfig
 from kaldi_tpu_torch.ops import table_gather as tg
@@ -157,3 +162,83 @@ def test_int8_decode_card_equals_cpu(card):
         assert rg is not None and rc is not None
         assert rg[0] == rc[0] and rg[1] == rc[1]
         assert abs(rg[2] - rc[2]) < 1e-2
+
+
+def _small_graph():
+    g, _ = make_big_hclg(BigGraphConfig(vocab=300, avg_bigram_succ=20,
+                                        num_pdfs=64, seed=1))
+    return g
+
+
+REC = dict(rec_cap=128, rec_beam=6.0)
+
+
+@pytest.mark.parametrize("rec", [dict(), dict(REC, rec_f16=True),
+                                 dict(REC, rec_f16=True, rec_flat=True,
+                                      rec_flat_cap=128),
+                                 dict(REC, fold_eps=False)],
+                         ids=["dense", "f16", "flat", "init_rounds"])
+def test_decode_raw_card_equals_cpu(card, rec):
+    g = _small_graph()
+    opts = CsrBeamOpts(beam=10.0, max_active=256, acoustic_scale=0.1,
+                       expand_budget=8192, eps_budget=2048, **rec)
+    ll = (np.random.RandomState(11).randn(2, 25, 64) * 3).astype(np.float32)
+    nf = np.array([25, 20], np.int32)
+    dg = CsrBeamDecoder(g, opts, device=card)
+    dc = CsrBeamDecoder(g, opts, device="cpu")
+    rg, rc = dg.decode_raw(ll, nf), dc.decode_raw(ll, nf)
+    assert list(rg) == list(rc)
+    for key in rc:
+        want, got = np.asarray(rc[key]), np.asarray(rg[key])
+        assert got.shape == want.shape and got.dtype == want.dtype, key
+        if want.dtype.kind == "f" and not (rec.get("rec_f16")
+                                           and key == "scores"):
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-5,
+                                       err_msg=key)
+        else:   # ints, and scores rebuilt from the same float16 bits
+            np.testing.assert_array_equal(got, want, err_msg=key)
+    for attr in ("last_overflow", "last_saturated", "last_rec_trunc",
+                 "last_active_sum", "last_active_max",
+                 "last_flat_fallbacks"):
+        np.testing.assert_array_equal(getattr(dg, attr), getattr(dc, attr))
+    for b in range(2):
+        for native in (True, False):
+            lg = raw_lattice_from_decode(dg, rg, nf, b, 6.0,
+                                         use_native=native)
+            lc = raw_lattice_from_decode(dc, rc, nf, b, 6.0,
+                                         use_native=native)
+            ag, ac = lg.to_arrays(), lc.to_arrays()
+            assert ag[0] == ac[0]
+            for x, y in zip(ag[1:], ac[1:]):
+                np.testing.assert_allclose(x, y, rtol=0, atol=1e-5)
+            assert sorted(lg.finals) == sorted(lc.finals)
+
+
+@pytest.mark.parametrize("tc", [7, 50])
+def test_chunked_card_equals_one_shot(card, tc):
+    g = _small_graph()
+    opts = CsrBeamOpts(beam=9.0, max_active=128, acoustic_scale=0.1,
+                       expand_budget=4096, eps_budget=1024, hub_threshold=64)
+    ll = (np.random.RandomState(5).randn(3, 50, 64) * 3).astype(np.float32)
+    nf = np.array([50, 41, 23], np.int32)
+    ref = CsrBeamDecoder(g, opts, device=card)
+    ch = ChunkedCsrBeamDecoder(g, opts, chunk_frames=tc, device=card)
+    r_ref, r_ch = ref.decode(ll, nf), ch.decode(ll, nf)
+    assert r_ch == r_ref
+    for attr in ("last_overflow", "last_saturated", "last_active_sum",
+                 "last_active_max"):
+        np.testing.assert_array_equal(getattr(ch, attr), getattr(ref, attr))
+
+
+def test_adaptive_card_equals_full(card):
+    g = _small_graph()
+    opts = CsrBeamOpts(beam=8.0, max_active=512, acoustic_scale=0.1,
+                       expand_budget=16384, eps_budget=2048)
+    ll = (np.random.RandomState(9).randn(3, 40, 64) * 3).astype(np.float32)
+    nf = np.full(3, 40, np.int32)
+    ad = AdaptiveCsrBeamDecoder(g, opts, small_max_active=64,
+                                small_expand_budget=2048, device=card)
+    res, full = ad.decode(ll, nf), ad.full.decode(ll, nf)
+    assert ad.last_escalated.any()
+    for r, f in zip(res, full):
+        assert r[:2] == f[:2] and abs(r[2] - f[2]) < 1e-3

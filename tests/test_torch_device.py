@@ -1,6 +1,7 @@
 """The port's entry points run on the card unless the caller asks for the
-CPU: `Recognizer`, `CsrBeamDecoder` and `build_tier_tables` default to
-"cuda", and with no card that default raises instead of falling back.
+CPU: `Recognizer`, `CsrBeamDecoder`, `ChunkedCsrBeamDecoder`,
+`AdaptiveCsrBeamDecoder` and `build_tier_tables` default to "cuda", and
+with no card that default raises instead of falling back.
 `FusedStreamingServer` takes no device: it runs where its decoder runs
 (tests/test_torch_serving.py)."""
 
@@ -10,7 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from kaldi_tpu_torch.decoder.csr_beam import (CsrBeamDecoder, CsrBeamOpts,
+from kaldi_tpu_torch.decoder.csr_beam import (AdaptiveCsrBeamDecoder,
+                                              ChunkedCsrBeamDecoder,
+                                              CsrBeamDecoder, CsrBeamOpts,
                                               build_tier_tables)
 from kaldi_tpu_torch.decoder.graph_pack import PackedGraph, split_csr
 from kaldi_tpu_torch.nnet.tdnn import Tdnn, TdnnConfig
@@ -19,6 +22,8 @@ from kaldi_tpu_torch.recognize import Recognizer
 
 ENTRY_POINTS = {"Recognizer": Recognizer.__init__,
                 "CsrBeamDecoder": CsrBeamDecoder.__init__,
+                "ChunkedCsrBeamDecoder": ChunkedCsrBeamDecoder.__init__,
+                "AdaptiveCsrBeamDecoder": AdaptiveCsrBeamDecoder.__init__,
                 "build_tier_tables": build_tier_tables}
 
 
@@ -54,6 +59,10 @@ def test_default_device_raises_without_a_card(name):
                  feat_dim=40, num_pdfs=2, hidden_dim=8,
                  nonlinearity="relu")), g),
              "CsrBeamDecoder": lambda: CsrBeamDecoder(g, CsrBeamOpts()),
+             "ChunkedCsrBeamDecoder": lambda: ChunkedCsrBeamDecoder(
+                 g, CsrBeamOpts()),
+             "AdaptiveCsrBeamDecoder": lambda: AdaptiveCsrBeamDecoder(
+                 g, CsrBeamOpts()),
              "build_tier_tables": lambda: build_tier_tables(split_csr(g),
                                                             1024)}[name]
     with pytest.raises(RuntimeError, match="CUDA is not available"):

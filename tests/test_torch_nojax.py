@@ -1,9 +1,10 @@
 """The port runs where jax is not installed.
 
 In a fresh interpreter whose import system refuses `jax` and `jaxlib`,
-every kaldi_tpu_torch module (the int8 path, AmNnet and the streaming
-server among them) and chip_smoke.py's helpers import, and a small decode
-runs on the CPU. (kaldi_tpu/decoder/__init__.py imports the
+every kaldi_tpu_torch module (the int8 path, AmNnet, the streaming
+server and the lattice modules among them) and chip_smoke.py's helpers
+import, and a small decode, a record decode and its lattices (native and
+numpy) run on the CPU. (kaldi_tpu/decoder/__init__.py imports the
 jax decoders, so reaching into kaldi_tpu.decoder from the port would fail
 here.)
 """
@@ -34,7 +35,9 @@ for n in names:
     importlib.import_module(n)
 for n in ("kaldi_tpu_torch.cuda_build", "kaldi_tpu_torch.nnet.quantized",
           "kaldi_tpu_torch.nnet.am_nnet", "kaldi_tpu_torch.nnet.combine",
-          "kaldi_tpu_torch.online.serving"):
+          "kaldi_tpu_torch.online.serving", "kaldi_tpu_torch.lat.lattice",
+          "kaldi_tpu_torch.lat.functions", "kaldi_tpu_torch.lat.io",
+          "kaldi_tpu_torch.lat.native_gen", "kaldi_tpu_torch.lat.generate"):
     assert n in names, n
 import chip_smoke
 from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder, CsrBeamOpts
@@ -45,6 +48,18 @@ dec = CsrBeamDecoder(g, CsrBeamOpts(beam=1e9, max_active=32,
 ll = np.random.RandomState(0).randn(2, 10, 41).astype(np.float32)
 res = dec.decode(ll, np.array([10, 6], np.int32))
 assert all(r is not None and r[1] for r in res), res
+from kaldi_tpu_torch.lat.functions import lattice_best_path
+from kaldi_tpu_torch.lat.generate import raw_lattice_from_decode
+ldec = CsrBeamDecoder(g, CsrBeamOpts(beam=1e9, max_active=32,
+                                     expand_budget=256, hub_threshold=8,
+                                     rec_cap=16, rec_f16=True),
+                      device="cpu")
+nf = np.array([10, 6], np.int32)
+raw = ldec.decode_raw(ll, nf)
+for b in range(2):
+    lats = [raw_lattice_from_decode(ldec, raw, nf, b, 6.0, use_native=n)
+            for n in (True, False)]
+    assert lattice_best_path(lats[0])[:2] == lattice_best_path(lats[1])[:2]
 assert chip_smoke.wer([[1, 2, 3]], [[1, 3]]) == 100.0 / 3
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
        or m.startswith("kaldi_tpu.")]
@@ -59,4 +74,4 @@ def test_port_imports_and_decodes_without_jax():
     r = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split("modules")[-1]) >= 22, r.stdout
+    assert int(r.stdout.split("modules")[-1]) >= 28, r.stdout

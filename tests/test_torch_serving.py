@@ -209,13 +209,62 @@ def test_runs_on_its_decoders_device(fx):
                (srv._buf, srv._fifo, srv._st, srv._arena, srv._ilar))
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()),
-                                dict(keep_loglikes=True)])
+@pytest.mark.parametrize("kw", [dict(mesh=object())])
 def test_unported_options_raise(fx, kw):
     with pytest.raises(NotImplementedError):
         FusedStreamingServer(fx["am"], fx["dec"], fx["fb"], **SERVE, **kw)
 
 
-def test_get_lattice_raises(fx):
-    with pytest.raises(NotImplementedError):
+def _close_paths(got, want, what):
+    """The same (words, tids) paths, each cost within 1e-2."""
+    assert (got is None) == (want is None), what
+    if want is None:
+        return
+    pg = {(w, t): c for (w, t, c) in got.paths(max_paths=100000)}
+    pw = {(w, t): c for (w, t, c) in want.paths(max_paths=100000)}
+    assert sorted(pg) == sorted(pw), what
+    assert max(abs(pg[k] - pw[k]) for k in pw) < 1e-2, what
+
+
+def _lattice_session(srv, waves):
+    """Feed each wave whole into its own slot, drain, and take the
+    lattices (test_fused_serving.py's test_serving_get_lattice)."""
+    slots = []
+    for w in waves:
+        s = srv.open()
+        srv.feed(s, w)
+        srv.input_finished(s)
+        slots.append(s)
+    for s in slots:
+        srv.drain(s)
+    out = [srv.get_lattice(s, 6.0) for s in slots]
+    for s in slots:
+        srv.close(s)
+    return out
+
+
+def test_get_lattice_matches_jax_and_offline(fx):
+    """keep_loglikes keeps each stream's unscaled loglikes on the device;
+    get_lattice over them equals JAX's server and the port's offline
+    latgen of the same audio. A server without the ring refuses."""
+    from kaldi_tpu_torch.lat.functions import lattice_best_path
+    from kaldi_tpu_torch.lat.generate import decode_to_lattices
+    kw = dict(n_streams=2, chunk_samples=2560, t_max=256, keep_loglikes=True)
+    rng = np.random.default_rng(51)
+    waves = [rng.standard_normal(L).astype(np.float32) * 4000
+             for L in (12000, 9000)]
+    want = _lattice_session(JServer(fx["jam"], fx["jdec"], fx["jfb"], **kw),
+                            waves)
+    srv = FusedStreamingServer(fx["am"], fx["dec"], fx["fb"], **kw)
+    got = _lattice_session(srv, waves)
+    assert srv._llar.shape == (2, 256 + srv.ndmax, 16)
+    for i, (g, w, wave) in enumerate(zip(got, want, waves)):
+        assert g is not None
+        _close_paths(g, w, f"stream {i} vs the JAX server")
+        feats = fbank(torch.from_numpy(wave), fx["fb"])
+        off = decode_to_lattices(fx["dec"], fx["am"].loglikes(feats[None]),
+                                 np.array([feats.shape[0]], np.int32), 6.0)[0]
+        _close_paths(g, off, f"stream {i} vs the offline latgen")
+        assert lattice_best_path(g)[:2] == lattice_best_path(w)[:2]
+    with pytest.raises(ValueError, match="keep_loglikes"):
         fx["srv"].get_lattice(0)
