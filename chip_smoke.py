@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's serving paths once on one CUDA card and check them.
+"""Run the PyTorch port's serving and training paths once on one CUDA card
+and check them.
 
     python3 chip_smoke.py [--profile]
 
@@ -40,11 +41,24 @@ Phases (any failure raises and the script exits non-zero):
      native lattices equal numpy ones; chunked equals one-shot and
      adaptive equals full on the card; a keep-loglikes server's
      `get_lattice` equals the offline lattice on the card;
- 12. lattice path, full width, at the bench's latgen point (max_active
+ 12. training, small, at the CPU tests' shapes: 8 f32 and 8 bf16 steps
+     of `make_train_step` over `make_optimizer` with clip, l2 and
+     momentum on, 12 `ng_sgd` steps across a refresh, `train_progressive`
+     through its three stages, each on the card against the same on the
+     CPU (limits in TRAIN_LIMITS), and a checkpoint of card params read
+     back equal;
+ 13. training, full width: the bench's AM (the relu TDNN above) trained
+     on the bench's corpus (16 x 10 s, full batch, bf16) with the port's
+     `make_optimizer` and `make_train_step` for 400 steps, as bench.py
+     trains it, then 10 steps between CUDA events: ms/step, frames/s,
+     TFLOP/s and train_mfu by the bench's count (6 x GEMM weights x output
+     frames), peak memory, final loss and frame accuracy; 20 `ng_sgd`
+     steps (two refreshes) and one f32 step at the same width; --profile
+     adds three train steps under torch.profiler;
+ 14. lattice path, full width, at the bench's latgen point (max_active
      7000, beam 13, expand_budget 16384, eps_budget 2048, rec_cap 3072,
      rec_beam = lattice_beam = 8, rec_f16, rec_flat, rec_flat_cap 512),
-     on the bench's corpus with its AM trained on the card as the bench
-     trains it (16 x 10 s, 400 steps; 8 test utterances):
+     on the bench's 8 test utterances with phase 13's AM:
      `decode_to_lattices_stream` over 3 batches of 8 x 10 s on 8
      extraction threads, twice, then one batch split into record decode,
      copy and extraction; the rec_trunc share of shipped slots must stay
@@ -944,96 +958,283 @@ LATGEN_BATCHES = 3
 def _sizes(lats) -> list:
     """(states, arcs) of each lattice, None where there is none."""
     return [None if x is None else (x.num_states, x.num_arcs) for x in lats]
-TRAIN_UTTS, TEST_UTTS, TRAIN_STEPS = 16, 8, 400     # bench.py:60-62
 
 
-def train_am(tdnn, waves, segs, steps: int) -> tuple[float, float]:
-    """The bench's AM training (bench.py:155-185) in plain torch: full-batch
-    cross-entropy on the corpus's own frame targets (fbank_targets), bf16
-    products over f32 weights, SGD whose rate decays exponentially from
-    0.1 to 0.02 over the run, gradients clipped to a global norm of 5.
-    The port has no train step yet (ROADMAP §3); this gives the lattice
-    point the peaky posteriors of a trained AM, on which the bench set its
-    rec_cap and rec_flat_cap (bench.py:403-420). -> (loss, frame accuracy)
-    of the last step."""
+# bench.py:60-63: the AM's training corpus and steps
+TRAIN_UTTS, TEST_UTTS, TRAIN_STEPS, TIMED_TRAIN_STEPS = 16, 8, 400, 10
+NG_STEPS = 20                  # two refreshes at update_period 10
+SMALL_TDNN = dict(feat_dim=8, num_pdfs=12, hidden_dim=16, pnorm_output_dim=4,
+                  nonlinearity="relu",
+                  splice_indexes=((-2, -1, 0, 1, 2), (-1, 2), (0,)))
+# card vs CPU limits of the small training phase, relative to each leaf's
+# max |p| and to the loss. f32 (TF32 off): cuBLAS and the CPU sum the same
+# products in another order, as the port and JAX do on the CPU, so the
+# bar PARITY.md pins for the train step. bf16: a sum that lands on the
+# other side of a bf16 rounding boundary moves that element by 2^-8, and
+# a weight that rounds differently moves its products (measured against
+# JAX on the CPU after 6 steps: leaves 5.9e-3, loss 3.5e-4). NG-SGD and
+# Adam: eigh (cuSOLVER against LAPACK) and Adam's division by sqrt(nu)
+# each add f32 rounding on top of f32's.
+TRAIN_LIMITS = {"f32": (1e-5, 1e-5), "bf16": (2e-2, 1e-3),
+                "ng_sgd": (1e-4, 1e-5), "progressive": (1e-4, 1e-5)}
+
+
+def _small_train_case(seed: int, nonlinearity: str = "relu"):
+    """tests/test_torch_train.py's shapes: a 3-layer TDNN of width 16 over
+    12 pdfs, a batch of 3 x 10 frames with uneven frame weights."""
+    from kaldi_tpu_torch.nnet.tdnn import TdnnConfig
+    from kaldi_tpu_torch.params import random_tdnn_params
+    cfg = TdnnConfig(**dict(SMALL_TDNN, nonlinearity=nonlinearity))
+    rng = np.random.default_rng(seed)
+    tree = random_tdnn_params(cfg, rng)
+    batch = (rng.standard_normal((3, 17, 8)).astype(np.float32),
+             rng.integers(0, 12, (3, 10)).astype(np.int32),
+             rng.uniform(0.5, 1.5, (3, 10)).astype(np.float32))
+    return cfg, tree, batch
+
+
+def _train_small_on(dev: str, cfg, tree, batch, opt, steps: int,
+                    compute_dtype=None) -> tuple[dict, list]:
+    """`steps` train steps on `dev` from the numpy tree. -> (params on the
+    CPU, losses)."""
     import torch
-    from kaldi_tpu_torch.decoder.simulate import fbank_targets
+    from kaldi_tpu_torch.nnet.tdnn import Tdnn
+    from kaldi_tpu_torch.nnet.train import make_train_step
+    from kaldi_tpu_torch.params import tdnn_params_from_jax
+    params = {k: v.to(dev) for k, v in tdnn_params_from_jax(tree).items()}
+    state = opt.init(params)
+    step = make_train_step(Tdnn(cfg), opt, compute_dtype=compute_dtype)
+    b = [torch.as_tensor(a, device=dev) for a in batch]
+    losses = []
+    for _ in range(steps):
+        params, state, loss, _acc = step(params, state, *b)
+        losses.append(float(loss))
+    if params["final.w"].device.type != torch.device(dev).type:
+        raise AssertionError(f"train step left {dev}")
+    return {k: v.cpu() for k, v in params.items()}, losses
+
+
+def _train_errors(name: str, got: tuple, want: tuple) -> tuple[float, float]:
+    """Card against CPU: the worst leaf error over the leaf's max |p| and
+    the worst loss error over |loss|, held to TRAIN_LIMITS[name]."""
+    (gp, gl), (wp, wl) = got, want
+    leaf = max(float((gp[k] - wp[k]).abs().max()) /
+               max(float(wp[k].abs().max()), 1e-30) for k in wp)
+    loss = max(abs(a - b) / abs(b) for a, b in zip(gl, wl))
+    lim_leaf, lim_loss = TRAIN_LIMITS[name]
+    if not (leaf <= lim_leaf and loss <= lim_loss):
+        raise AssertionError(f"{name} training, card vs CPU: leaves "
+                             f"{leaf:.3e} (limit {lim_leaf}), loss "
+                             f"{loss:.3e} (limit {lim_loss})")
+    return leaf, loss
+
+
+def phase_train_small():
+    """The train step, NG-SGD, progressive training and a checkpoint on
+    the card against the same on the CPU, at the CPU tests' shapes."""
+    import tempfile
+    import torch
+    from kaldi_tpu_torch.nnet.natural_gradient import ng_sgd
+    from kaldi_tpu_torch.nnet.tdnn import Tdnn
+    from kaldi_tpu_torch.nnet.train import (NnetTrainOpts, make_optimizer,
+                                            train_progressive)
+    from kaldi_tpu_torch.params import tdnn_params_from_jax
+    from kaldi_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    opt = make_optimizer(NnetTrainOpts(initial_lr=0.2, final_lr=0.05,
+                                       max_grad_norm=0.5, l2_regularize=1e-2,
+                                       momentum=0.9), 8)
+    cases = [("f32", "clip 0.5, l2 1e-2, momentum 0.9", opt, 8, None, 3),
+             ("bf16", "the same in bf16", opt, 8, torch.bfloat16, 4),
+             ("ng_sgd", "NG-SGD, momentum 0.9, refresh at step 10",
+              ng_sgd(0.05, alpha=0.5, update_period=10, momentum=0.9), 12,
+              None, 1)]
+    for name, what, o, steps, dt, seed in cases:
+        cfg, tree, batch = _small_train_case(seed)
+        runs = [_train_small_on(d, cfg, tree, batch, o, steps, dt)
+                for d in ("cuda", "cpu")]
+        leaf, loss = _train_errors(name, *runs)
+        log(f"  {name}: {steps} steps ({what}), card vs CPU: leaves within "
+            f"{leaf:.3e} of their max |p|, losses within {loss:.3e} (limits "
+            f"{TRAIN_LIMITS[name]})")
+    cfg, tree, (x, t, w) = _small_train_case(5, "pnorm")
+    tree["final"]["w"][:] = 0.0
+    prog = {d: train_progressive(Tdnn(cfg), tdnn_params_from_jax(tree), x, t,
+                                 w, steps_per_stage=4, final_steps=6, device=d)
+            for d in ("cuda", "cpu")}
+    (gp, gh), (wp, wh) = prog["cuda"], prog["cpu"]
+    if [h[0] for h in gh] != [1, 2, 3]:
+        raise AssertionError(f"progressive stages {gh}")
+    leaf, loss = _train_errors(
+        "progressive", ({k: v.cpu() for k, v in gp.items()}, [h[1] for h in gh]),
+        (wp, [h[1] for h in wh]))
+    log(f"  train_progressive, 3 p-norm stages (Adam, 4/4/6 steps), card vs "
+        f"CPU: leaves within {leaf:.3e}, stage losses within {loss:.3e}")
+    with tempfile.TemporaryDirectory() as d:
+        save_checkpoint(d, 12, gp, extra={"loss": gh[-1][1]})
+        step, back, extra = load_checkpoint(d, like=gp)
+        if step != 12 or extra["loss"] != gh[-1][1] or any(
+                back[k].device != gp[k].device or not torch.equal(back[k], gp[k])
+                for k in gp):
+            raise AssertionError("checkpoint of card tensors did not read back")
+    log(f"  checkpoint of card params written and read back equal, on the "
+        f"card ({len(gp)} leaves)")
+
+
+def train_flops_per_step(cfg, frames: int) -> float:
+    """The bench's count (bench.py:213-216): 6 FLOPs (forward 2, backward
+    4) per GEMM weight per output frame."""
+    from kaldi_tpu_torch.nnet.tdnn import Tdnn
+    w = sum(p.numel() for n, p in Tdnn(cfg).named_parameters()
+            if n.endswith(".w"))
+    return 6.0 * w * frames
+
+
+def _event_ms(fn, n: int) -> float:
+    """Device time of n calls between two CUDA events, per call."""
+    import torch
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(n):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / n
+
+
+def phase_train_full(sl: dict, card: str, profile: bool = False) -> dict:
+    """The bench's AM training on the card with the port's train step:
+    the bench's corpus (16 x 10 s, full batch), bf16 products, SGD from
+    0.1 to 0.02 over 400 steps with gradients clipped at a global norm of
+    5 (bench.py:173-217); then 10 timed steps, 20 NG-SGD steps and one
+    f32 step at the same width. -> the corpus and the trained Tdnn."""
+    import torch
+    from kaldi_tpu_torch.decoder.simulate import fbank_targets, make_corpus
+    from kaldi_tpu_torch.nnet.natural_gradient import ng_sgd
+    from kaldi_tpu_torch.nnet.tdnn import Tdnn
+    from kaldi_tpu_torch.nnet.train import (NnetTrainOpts, make_optimizer,
+                                            make_train_step)
     from kaldi_tpu_torch.ops.features import cmvn, fbank
+    from kaldi_tpu_torch.params import random_tdnn_params, tdnn_params_from_jax
     from kaldi_tpu_torch.recognize import SERVING_FBANK
-    dev = tdnn.final.w.device
-    cfg = tdnn.config
+
+    cfg, graph = sl["cfg"], sl["graph"]
+    t = time.perf_counter()
+    waves_all, segs, ref_all = make_corpus(graph, TRAIN_UTTS + TEST_UTTS,
+                                           1000, np.random.default_rng(0),
+                                           noise=0.25)
+    t_corpus = time.perf_counter() - t
     with torch.no_grad():
-        feats = cmvn(fbank(torch.as_tensor(waves, device=dev),
-                           SERVING_FBANK))
+        feats = cmvn(fbank(torch.as_tensor(waves_all[:TRAIN_UTTS],
+                                           device="cuda"), SERVING_FBANK))
     Tf = feats.shape[1]
-    tgt = np.stack([fbank_targets(s, Tf) for s in segs])
+    tgt = np.stack([fbank_targets(s, Tf) for s in segs[:TRAIN_UTTS]])
     tgt = torch.as_tensor(tgt[:, cfg.left_context:Tf - cfg.right_context],
-                          dtype=torch.long, device=dev).reshape(-1)
-    params = list(tdnn.parameters())
-    for p in params:
-        p.requires_grad_(True)
-    for i in range(steps):
-        log_post = tdnn(feats, pad_context=False,
-                        compute_dtype=torch.bfloat16)
-        log_post = log_post.reshape(-1, log_post.shape[-1])
-        loss = torch.nn.functional.nll_loss(log_post, tgt)
-        grads = torch.autograd.grad(loss, params)
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        step = 0.1 * (0.02 / 0.1) ** (i / steps) * torch.clamp(5.0 / norm,
-                                                                max=1.0)
-        with torch.no_grad():
-            for p, g in zip(params, grads):
-                p.sub_(step * g)
-    for p in params:
-        p.requires_grad_(False)
-    acc = torch.mean((torch.argmax(log_post, dim=-1) == tgt).float())
-    return float(loss.detach()), float(acc)
+                          device="cuda")
+    w = torch.ones(tgt.shape, device="cuda")
+    tdnn = Tdnn(cfg, device="cuda")
+    init = {k: v.cuda() for k, v in tdnn_params_from_jax(
+        random_tdnn_params(cfg, np.random.default_rng(0))).items()}
+    opt = make_optimizer(NnetTrainOpts(initial_lr=0.1, final_lr=0.02,
+                                       max_grad_norm=5.0), TRAIN_STEPS)
+    step = make_train_step(tdnn, opt, compute_dtype=torch.bfloat16)
+    params, state = init, opt.init(init)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        params, state, loss, acc = step(params, state, feats, tgt, w)
+    loss, acc = float(loss), float(acc)
+    t_train = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not (np.isfinite(loss) and acc > 0.5):
+        raise AssertionError(f"training did not converge: loss {loss}, "
+                             f"frame accuracy {acc}")
+    run = {"p": params, "s": state}
+
+    def one():
+        run["p"], run["s"], run["loss"], _ = step(run["p"], run["s"], feats,
+                                                  tgt, w)
+    ms = _event_ms(one, TIMED_TRAIN_STEPS)
+    frames = tgt.numel()
+    flops = train_flops_per_step(cfg, frames)
+    tflops = flops / ms / 1e9
+    bound_ms = flops / BF16_FLOP_PER_S * 1e3
+    log(f"  AM trained on {TRAIN_UTTS} x 10 s ({frames} output frames per "
+        f"step) in {TRAIN_STEPS} steps: {t_train:.3f} s on the host clock "
+        f"({1e3 * t_train / TRAIN_STEPS:.3f} ms/step); loss {loss:.4f}, frame "
+        f"accuracy {acc:.4f}; peak device memory {peak:.3f} GiB (corpus "
+        f"{t_corpus:.3f} s on the host) | card: {card}")
+    log(f"  train step (bf16, clip + SGD), {TIMED_TRAIN_STEPS} steps between "
+        f"CUDA events: {ms:.4f} ms/step, {frames / ms * 1e3:.1f} frames/s, "
+        f"{tflops:.2f} TFLOP/s by the bench's count (6 x {flops / 6 / frames:.0f}"
+        f" GEMM weights x frames = {flops:.4e} FLOP/step), train_mfu "
+        f"{tflops * 1e12 / BF16_FLOP_PER_S:.4f} of {BF16_FLOP_PER_S / 1e12:.0f}"
+        f" TFLOP/s (bound {bound_ms:.4f} ms/step) | card: {card}")
+    if profile:
+        busy, n_ops, by_name = device_time(lambda: [one() for _ in range(3)])
+        log_profile("3 bf16 train steps", "step", 3, busy, n_ops, by_name,
+                    ms / 1e3, 20)
+        log_by_kind(by_name, 3, "step")
+    tdnn.load_state_dict(run["p"])
+
+    ng = ng_sgd(0.02, update_period=10)
+    nrun = {"p": init, "s": ng.init(init)}
+    ng_step = make_train_step(tdnn, ng, compute_dtype=torch.bfloat16)
+    per = []
+    for _ in range(NG_STEPS):
+        per.append(_event_ms(lambda: nrun.update(zip(
+            ("p", "s", "loss", "acc"),
+            ng_step(nrun["p"], nrun["s"], feats, tgt, w))), 1))
+    if not np.isfinite(float(nrun["loss"])):
+        raise AssertionError("NG-SGD loss is not finite")
+    refresh = [per[i - 1] for i in range(10, NG_STEPS + 1, 10)]
+    plain = [x for i, x in enumerate(per, 1) if i % 10]
+    log(f"  NG-SGD (bf16, update_period 10, {len(nrun['s'][0].factors)} "
+        f"factored weights), {NG_STEPS} steps: {float(np.mean(per)):.4f} "
+        f"ms/step mean; steps without a refresh median "
+        f"{float(np.median(plain)):.4f} ms; refresh steps (eigh of every "
+        f"factor, up to 2048 x 2048) {[round(x, 4) for x in refresh]} ms; "
+        f"loss after {NG_STEPS} steps {float(nrun['loss']):.4f} | card: {card}")
+    f32_step = make_train_step(tdnn, opt)
+    frun = {"p": init, "s": opt.init(init)}
+    f32_ms = [_event_ms(lambda: frun.update(zip(
+        ("p", "s", "loss", "acc"),
+        f32_step(frun["p"], frun["s"], feats, tgt, w))), 1) for _ in range(2)]
+    log(f"  one f32 train step (TF32 off): {f32_ms[1]:.4f} ms (first call "
+        f"{f32_ms[0]:.4f} ms), {flops / f32_ms[1] / 1e9:.2f} TFLOP/s; the "
+        f"FP32 bound {flops / FP32_FLOP_PER_S * 1e3:.4f} ms | card: {card}")
+    return {"tdnn": tdnn, "waves": waves_all, "segs": segs, "ref": ref_all,
+            "loss": loss, "acc": acc, "t_train": t_train, "ms": ms}
 
 
-def phase_lattice_full(tg, sl: dict, card: str) -> dict:
+def phase_lattice_full(tg, sl: dict, tr: dict, card: str) -> dict:
     import copy
     import dataclasses
     from concurrent.futures import ThreadPoolExecutor
     import torch
     from kaldi_tpu_torch.decoder.csr_beam import (AdaptiveCsrBeamDecoder,
                                                   CsrBeamDecoder, CsrBeamOpts)
-    from kaldi_tpu_torch.decoder.simulate import make_corpus
     from kaldi_tpu_torch.lat import native_gen
     from kaldi_tpu_torch.lat.functions import lattice_best_path
     from kaldi_tpu_torch.lat.generate import (decode_to_lattices,
                                               decode_to_lattices_stream,
                                               raw_lattice_from_decode)
-    from kaldi_tpu_torch.nnet.tdnn import Tdnn
-    from kaldi_tpu_torch.params import random_tdnn_params
     from kaldi_tpu_torch.recognize import Recognizer
 
-    # the bench's corpus (16 training and 8 test utterances of 10 s) and
-    # its AM, trained on the card as the bench trains it
-    graph = sl["graph"]
-    t = time.perf_counter()
-    waves_all, segs, ref_all = make_corpus(graph, TRAIN_UTTS + TEST_UTTS,
-                                           1000, np.random.default_rng(0),
-                                           noise=0.25)
-    t_corpus = time.perf_counter() - t
-    tdnn = Tdnn(sl["cfg"]).load_jax_params(
-        random_tdnn_params(sl["cfg"], np.random.default_rng(0))).cuda()
-    t = time.perf_counter()
-    loss, acc = train_am(tdnn, waves_all[:TRAIN_UTTS], segs[:TRAIN_UTTS],
-                         TRAIN_STEPS)
-    torch.cuda.synchronize()
-    t_train = time.perf_counter() - t
+    # the bench's 8 test utterances, decoded with the AM that the train
+    # phase trained on its 16 training utterances
+    graph, tdnn = sl["graph"], tr["tdnn"]
     search = dict(beam=13.0, max_active=7000, acoustic_scale=0.1,
                   expand_budget=16384, eps_budget=2048)
     rec = Recognizer(tdnn, graph, CsrBeamOpts(**search), device="cuda")
-    waves = waves_all[TRAIN_UTTS:]
+    waves = tr["waves"][TRAIN_UTTS:]
     answers = rec.recognize(waves)
     if any(a is None for a in answers):
         raise AssertionError("trained AM: an utterance has no best path")
-    log(f"  AM trained on {TRAIN_UTTS} x 10 s in {TRAIN_STEPS} steps "
-        f"({t_train:.3f} s; corpus {t_corpus:.3f} s on the host): loss "
-        f"{loss:.4f}, frame accuracy {acc:.4f}; best-path WER on the "
-        f"{TEST_UTTS} test utterances "
-        f"{wer(ref_all[TRAIN_UTTS:], [a[0] for a in answers]):.2f}%")
+    log(f"  trained AM (loss {tr['loss']:.4f}, frame accuracy "
+        f"{tr['acc']:.4f}): best-path WER on the {TEST_UTTS} test "
+        f"utterances {wer(tr['ref'][TRAIN_UTTS:], [a[0] for a in answers]):.2f}%")
     # the bench's latgen point (bench.py:415-425)
     t = time.perf_counter()
     dec = CsrBeamDecoder(graph, CsrBeamOpts(
@@ -1230,6 +1431,28 @@ def log_profile(what: str, per: str, n: int, busy: float, n_ops: int,
         log(f"    {us / n:9.2f} us/{per} {k / n:6.1f}/{per}  {name[:80]}")
 
 
+# device kernels by kind, by a substring of the kernel's name
+KERNEL_KINDS = (("GEMM", ("nvjet", "gemm", "cutlass", "xmma")),
+                ("copy and cast", ("copy", "Memcpy", "Memset")),
+                ("reduction", ("reduce",)))
+
+
+def log_by_kind(by_name: dict, n: int, per: str):
+    """Device time per unit summed by KERNEL_KINDS; the rest is
+    elementwise and other kernels."""
+    kinds: dict[str, list] = {}
+    for name, (us, k) in by_name.items():
+        kind = next((kind for kind, keys in KERNEL_KINDS
+                     if any(key in name for key in keys)),
+                    "elementwise and other")
+        acc = kinds.setdefault(kind, [0.0, 0])
+        acc[0] += us
+        acc[1] += k
+    log("  by kind: " + "; ".join(
+        f"{kind} {us / n / 1e3:.4f} ms/{per} in {k / n:.1f} ops"
+        for kind, (us, k) in sorted(kinds.items(), key=lambda kv: -kv[1][0])))
+
+
 def profile_decode(dec, ll, frames: int, host_s_per_frame: float):
     """One decode of the first `frames` frames under torch.profiler."""
     ll = ll[:, :frames].contiguous()
@@ -1271,13 +1494,13 @@ def main() -> int:
 
     resolve_device("cuda")                # also turns TF32 off
     card = card_info()
-    log(f"[1/12] card: {card} | torch {torch.__version__} CUDA "
+    log(f"[1/14] card: {card} | torch {torch.__version__} CUDA "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
 
     t = time.perf_counter()
     libs = cuda_build.build()
-    log(f"[2/12] build: {len(libs)} kernels in {time.perf_counter() - t:.3f} "
+    log(f"[2/14] build: {len(libs)} kernels in {time.perf_counter() - t:.3f} "
         f"s (one nvcc each, in parallel)")
     for name, so in libs.items():
         with open(os.path.join(os.path.dirname(so), "nvcc.log")) as f:
@@ -1285,26 +1508,31 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]
         log(f"  {os.path.relpath(so, ROOT)}: {' | '.join(regs)}")
 
-    log("[3/12] table-gather kernel vs plain version")
+    log("[3/14] table-gather kernel vs plain version")
     k = phase_kernel(tg)
-    log("[4/12] qaffine kernel vs plain version")
+    log("[4/14] qaffine kernel vs plain version")
     qk = phase_qaffine(q)
-    log("[5/12] decoder on the card vs on the CPU")
+    log("[5/14] decoder on the card vs on the CPU")
     phase_decoder_parity()
-    log("[6/12] int8 decode on the card vs on the CPU")
+    log("[6/14] int8 decode on the card vs on the CPU")
     phase_int8_parity()
-    log("[7/12] full-width serving slice (bf16 TDNN)")
+    log("[7/14] full-width serving slice (bf16 TDNN)")
     sl = phase_slice(tg, card, profile="--profile" in sys.argv[1:])
-    log("[8/12] full-width int8 serving slice")
+    log("[8/14] full-width int8 serving slice")
     s8 = phase_int8_slice(q, tg, sl, card)
-    log("[9/12] streaming server, small: card vs CPU vs offline")
+    log("[9/14] streaming server, small: card vs CPU vs offline")
     phase_stream_small()
-    log("[10/12] streaming server, full width")
+    log("[10/14] streaming server, full width")
     st = phase_stream_full(tg, sl, card, profile="--profile" in sys.argv[1:])
-    log("[11/12] lattice path, small: card vs CPU, native vs numpy")
+    log("[11/14] lattice path, small: card vs CPU, native vs numpy")
     phase_lattice_small()
-    log("[12/12] lattice path, full width (latgen at the bench's point)")
-    lt = phase_lattice_full(tg, sl, card)
+    log("[12/14] training, small: card vs CPU")
+    phase_train_small()
+    log("[13/14] training, full width: the bench's AM with the port's "
+        "train step")
+    tr = phase_train_full(sl, card, profile="--profile" in sys.argv[1:])
+    log("[14/14] lattice path, full width (latgen at the bench's point)")
+    lt = phase_lattice_full(tg, sl, tr, card)
 
     g_shape = GATHER_SHAPES[0]
     ms, plain_ms, library_ms, floor_ms = k["times"][g_shape]

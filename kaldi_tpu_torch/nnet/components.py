@@ -7,6 +7,8 @@ Splicing over time offsets is a clamped gather along T.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -25,6 +27,22 @@ def splice_valid(x: torch.Tensor, context: tuple[int, ...]) -> torch.Tensor:
     Tout = x.shape[-2] - (hi - lo)
     outs = [x.narrow(-2, off - lo, Tout) for off in context]
     return torch.cat(outs, dim=-1)
+
+
+def affine_init(generator: torch.Generator | None, in_dim: int, out_dim: int,
+                param_stddev: float | None = None, bias_stddev: float = 1.0,
+                device=None) -> dict[str, torch.Tensor]:
+    """{"w": [in, out], "b": [out]} drawn from N(0, stddev^2) on the
+    generator's device, then moved to `device` (ref: nnet2
+    AffineComponent init: weight stddev 1/sqrt(in_dim), bias stddev 1).
+    The draws are torch's, not jax.random's: only the stddevs match."""
+    if param_stddev is None:
+        param_stddev = 1.0 / math.sqrt(in_dim)
+    gdev = generator.device if generator is not None else None
+    w = torch.randn(in_dim, out_dim, generator=generator, device=gdev)
+    b = torch.randn(out_dim, generator=generator, device=gdev)
+    return {"w": (param_stddev * w).to(device or w.device),
+            "b": (bias_stddev * b).to(device or b.device)}
 
 
 def pnorm(x: torch.Tensor, output_dim: int, p: float = 2.0) -> torch.Tensor:

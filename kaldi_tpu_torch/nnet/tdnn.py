@@ -1,10 +1,15 @@
 """Multisplice TDNN acoustic model as an nn.Module.
 
-Counterpart of kaldi_tpu/nnet/tdnn.py `Tdnn.apply` (ref: the nnet2 online
+Counterpart of kaldi_tpu/nnet/tdnn.py `Tdnn` (ref: the nnet2 online
 multisplice system, steps/nnet2/train_multisplice_accel2.sh). Weights keep
 the JAX layout, [in, out], so a params pytree converts leaf for leaf
-(kaldi_tpu_torch.params). Weights are never initialised here from a random
-generator: they come from the JAX tree or from the caller.
+(kaldi_tpu_torch.params). They come from the JAX tree, from the caller, or
+from `init`, which draws them with torch's generator (the stddevs of the
+JAX init, not its draws).
+
+The parameters do not require gradients: inference builds no autograd
+graph. Training is functional (nnet/train.py): it passes a params dict,
+named as `state_dict()` names it, through `torch.func.functional_call`.
 """
 
 from __future__ import annotations
@@ -14,8 +19,9 @@ import dataclasses
 import torch
 from torch import nn
 
-from kaldi_tpu_torch.nnet.components import (ACTIVATIONS, normalize, pnorm,
-                                             splice, splice_valid)
+from kaldi_tpu_torch.nnet.components import (ACTIVATIONS, affine_init,
+                                             normalize, pnorm, splice,
+                                             splice_valid)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +76,39 @@ class Tdnn(nn.Module):
         self.load_state_dict(tdnn_params_from_jax(tree))
         return self
 
+    def params(self) -> dict[str, torch.Tensor]:
+        """A copy of the weights as a params dict, named as `state_dict()`
+        names them (what the train step takes)."""
+        return {k: v.detach().clone() for k, v in self.state_dict().items()}
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator | None = None
+             ) -> dict[str, torch.Tensor]:
+        """Draw the weights in place, as `Tdnn.init` does in JAX: hidden
+        layers with `affine_init`'s stddevs, the final affine all zeros.
+        -> `params()`."""
+        dev = self.final.w.device
+        for layer in self.layers:
+            new = affine_init(generator, *layer.w.shape, device=dev)
+            layer.w.copy_(new["w"])
+            layer.b.copy_(new["b"])
+        self.final.w.zero_()
+        self.final.b.zero_()
+        return self.params()
+
+    def context_of(self, num_layers: int) -> tuple[int, int]:
+        """(left, right) context of the first `num_layers` layers."""
+        sp = self.config.splice_indexes[:num_layers]
+        lc = -sum(min(c) for c in sp if min(c) < 0)
+        rc = sum(max(c) for c in sp if max(c) > 0)
+        return lc, rc
+
+    def num_params(self, params: dict | None = None) -> int:
+        """Parameter count of `params` (default: the module's own)."""
+        leaves = (params.values() if params is not None
+                  else self.parameters())
+        return sum(p.numel() for p in leaves)
+
     def _nonlin(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.config
         if cfg.nonlinearity == "pnorm":
@@ -79,25 +118,32 @@ class Tdnn(nn.Module):
         return normalize(x)
 
     def forward(self, feats: torch.Tensor, pad_context: bool = True,
-                compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+                compute_dtype: torch.dtype | None = None,
+                num_layers: int | None = None) -> torch.Tensor:
         """pad_context=True clamps at utterance edges (output T == input T);
         False uses valid frames only.
 
-        compute_dtype=torch.bfloat16 is the serving path: each layer's
-        splice is folded into one bf16 matmul per offset, the partial
-        products are summed in bf16 (as the JAX code's bf16 `acc + part`
-        does), then cast to f32 for the bias. Activations, normalize and
-        log-softmax stay f32."""
+        compute_dtype=torch.bfloat16 is the serving and training fast path:
+        each layer's splice is folded into one bf16 matmul per offset, the
+        partial products are summed in bf16 (as the JAX code's bf16
+        `acc + part` does), then cast to f32 for the bias. Activations,
+        normalize and log-softmax stay f32. Under autograd the gradients
+        flow back through the same bf16 products and are cast to f32 at
+        the weights' `.to`, as JAX's `astype` does.
+
+        num_layers runs only the first k hidden layers before the final
+        affine (layer-wise pretraining, `train_progressive`)."""
         cfg = self.config
+        ctxs = cfg.splice_indexes[:num_layers]
+        layers = list(self.layers)[:num_layers]
         x = feats
         if compute_dtype is None:
             sp = splice if pad_context else splice_valid
-            for ctx, layer in zip(cfg.splice_indexes, self.layers):
-                x = torch.matmul(sp(x, ctx), layer.w) + layer.b
-                x = self._nonlin(x)
+            for ctx, layer in zip(ctxs, layers):
+                x = self._nonlin(torch.matmul(sp(x, ctx), layer.w) + layer.b)
             logits = torch.matmul(x, self.final.w) + self.final.b
             return torch.log_softmax(logits, dim=-1)
-        for ctx, layer in zip(cfg.splice_indexes, self.layers):
+        for ctx, layer in zip(ctxs, layers):
             w = layer.w.to(compute_dtype)
             xc = x.to(compute_dtype)
             lo, hi = min(ctx), max(ctx)
@@ -121,3 +167,33 @@ class Tdnn(nn.Module):
                               self.final.w.to(compute_dtype)
                               ).to(torch.float32) + self.final.b
         return torch.log_softmax(logits, dim=-1)
+
+    def apply_logits(self, feats: torch.Tensor,
+                     pad_context: bool = True) -> torch.Tensor:
+        """The f32 net without the log-softmax: [..., T(out), num_pdfs]."""
+        sp = splice if pad_context else splice_valid
+        x = feats
+        for ctx, layer in zip(self.config.splice_indexes, self.layers):
+            x = self._nonlin(torch.matmul(sp(x, ctx), layer.w) + layer.b)
+        return torch.matmul(x, self.final.w) + self.final.b
+
+    def hidden_mean_abs(self, feats: torch.Tensor,
+                        pad_context: bool = True) -> list[torch.Tensor]:
+        """Per-layer mean |activation| of each hidden unit: of the affine
+        output before a pnorm, of the relu output before normalize (the
+        statistic nnet-am-fix thresholds; ref: nnet2/nnet-fix.h FixNnet).
+        -> list of [hidden_dim] tensors, one per hidden layer."""
+        cfg = self.config
+        sp = splice if pad_context else splice_valid
+        x = feats
+        stats = []
+        for ctx, layer in zip(cfg.splice_indexes, self.layers):
+            x = torch.matmul(sp(x, ctx), layer.w) + layer.b
+            if cfg.nonlinearity == "pnorm":
+                stats.append(x.abs().reshape(-1, x.shape[-1]).mean(dim=0))
+                x = pnorm(x, cfg.pnorm_output_dim)
+            else:
+                x = ACTIVATIONS["relu"](x)
+                stats.append(x.abs().reshape(-1, x.shape[-1]).mean(dim=0))
+            x = normalize(x)
+        return stats

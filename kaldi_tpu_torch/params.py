@@ -6,9 +6,16 @@ The JAX `Tdnn` keeps its weights as a pytree
 tree `{"layers": [{"wq": [out, in], "scale", "b"}], "final": {...}}`. The
 port keeps the same layouts, so conversion copies leaf for leaf. Leaves are numpy arrays (or
 anything `np.asarray` takes); this module never imports jax.
+
+The port's params dicts are named as `state_dict()` names them
+("layers.0.w"); `name_to_keystr` and `keystr_to_name` map such a name to
+and from the `jax.tree_util.keystr` of the same leaf ("['layers'][0]['w']"),
+which keys checkpoints and NG-SGD's `param_filter` in the JAX package.
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -66,7 +73,52 @@ def random_tdnn_params(config, rng: np.random.Generator) -> dict:
 
 def tdnn_params_to_jax(model) -> dict:
     """The inverse: a port Tdnn -> JAX-layout pytree with numpy leaves."""
-    def leaf(t):
-        return t.detach().cpu().numpy().astype(np.float32)
-    return {"layers": [{"w": leaf(l.w), "b": leaf(l.b)} for l in model.layers],
-            "final": {"w": leaf(model.final.w), "b": leaf(model.final.b)}}
+    return params_to_jax(model.state_dict())
+
+
+def params_to_jax(params: dict) -> dict:
+    """A params dict named as `state_dict()` names it ("layers.0.w") ->
+    the equivalent JAX pytree with numpy leaves (a numeric part indexes a
+    list: {"layers": [{"w": ...}], ...}). bf16 leaves become f32."""
+    root: dict = {}
+    for name, t in params.items():
+        parts = name.split(".")
+        node = root
+        for part, nxt in zip(parts[:-1], parts[1:]):
+            key = int(part) if part.isdigit() else part
+            child = [] if nxt.isdigit() else {}
+            if isinstance(node, list):
+                while len(node) <= key:
+                    node.append(None)
+                if node[key] is None:
+                    node[key] = child
+                node = node[key]
+            else:
+                node = node.setdefault(key, child)
+        leaf = t.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            leaf = leaf.float()
+        node[parts[-1]] = leaf.numpy()
+    return root
+
+
+def name_to_keystr(name: str) -> str:
+    """"layers.0.w" -> "['layers'][0]['w']", the `jax.tree_util.keystr`
+    of the same leaf in the JAX pytree."""
+    return "".join(f"[{p}]" if p.isdigit() else f"['{p}']"
+                   for p in name.split("."))
+
+
+_KEY_PART = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
+
+
+def keystr_to_name(key: str) -> str:
+    """The inverse of `name_to_keystr`."""
+    parts, pos = [], 0
+    while pos < len(key):
+        m = _KEY_PART.match(key, pos)
+        if m is None:
+            raise ValueError(f"not a keystr: {key!r}")
+        parts.append(next(g for g in m.groups() if g is not None))
+        pos = m.end()
+    return ".".join(parts)

@@ -1,7 +1,7 @@
 """Card-only checks of the port: the table-gather and qaffine kernels, the
-decoder, the int8 decode, the record decode with its lattices, and the
-chunked and adaptive decoders on a CUDA device. Each test skips without a
-card. This file imports no jax,
+decoder, the int8 decode, the record decode with its lattices, the
+chunked and adaptive decoders, the train steps, NG-SGD and checkpoints on
+a CUDA device. Each test skips without a card. This file imports no jax,
 so it runs on a machine that has only torch:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -242,3 +242,76 @@ def test_adaptive_card_equals_full(card):
     assert ad.last_escalated.any()
     for r, f in zip(res, full):
         assert r[:2] == f[:2] and abs(r[2] - f[2]) < 1e-3
+
+
+TRAIN_TDNN = TdnnConfig(feat_dim=8, num_pdfs=12, hidden_dim=16,
+                        pnorm_output_dim=4, nonlinearity="relu",
+                        splice_indexes=((-2, -1, 0, 1, 2), (-1, 2), (0,)))
+
+
+def _train_on(dev, opt, steps, compute_dtype=None, seed=3):
+    """`steps` train steps of the small TDNN on `dev` from seeded params
+    and a batch with uneven frame weights. -> (params on the CPU,
+    losses)."""
+    from kaldi_tpu_torch.nnet.tdnn import Tdnn
+    from kaldi_tpu_torch.nnet.train import make_train_step
+    from kaldi_tpu_torch.params import tdnn_params_from_jax
+    rng = np.random.default_rng(seed)
+    tree = random_tdnn_params(TRAIN_TDNN, rng)
+    batch = [torch.as_tensor(a, device=dev) for a in (
+        rng.standard_normal((3, 17, 8)).astype(np.float32),
+        rng.integers(0, 12, (3, 10)).astype(np.int32),
+        rng.uniform(0.5, 1.5, (3, 10)).astype(np.float32))]
+    params = {k: v.to(dev) for k, v in tdnn_params_from_jax(tree).items()}
+    state = opt.init(params)
+    step = make_train_step(Tdnn(TRAIN_TDNN), opt, compute_dtype=compute_dtype)
+    losses = []
+    for _ in range(steps):
+        params, state, loss, _ = step(params, state, *batch)
+        assert loss.device.type == torch.device(dev).type
+        losses.append(float(loss))
+    return {k: v.cpu() for k, v in params.items()}, losses
+
+
+def _assert_train_close(got, want, leaf_rel, loss_rel):
+    (gp, gl), (wp, wl) = got, want
+    for k in wp:
+        err = float((gp[k] - wp[k]).abs().max())
+        assert err <= leaf_rel * float(wp[k].abs().max()), (k, err)
+    np.testing.assert_allclose(gl, wl, rtol=loss_rel)
+
+
+@pytest.mark.parametrize("dtype,leaf_rel,loss_rel",
+                         [(None, 1e-5, 1e-5), (torch.bfloat16, 2e-2, 1e-3)])
+def test_train_steps_card_equal_cpu(card, dtype, leaf_rel, loss_rel):
+    """8 steps with clip, l2 and momentum on: f32 at the train step's 1e-5
+    bar; bf16 at the limits tests/test_torch_train.py states."""
+    from kaldi_tpu_torch.nnet.train import NnetTrainOpts, make_optimizer
+    opt = make_optimizer(NnetTrainOpts(initial_lr=0.2, final_lr=0.05,
+                                       max_grad_norm=0.5, l2_regularize=1e-2,
+                                       momentum=0.9), 8)
+    _assert_train_close(_train_on(card, opt, 8, dtype),
+                        _train_on("cpu", opt, 8, dtype), leaf_rel, loss_rel)
+
+
+def test_ng_sgd_card_equals_cpu_across_a_refresh(card):
+    """12 steps at update_period 10: eigh by cuSOLVER against LAPACK."""
+    from kaldi_tpu_torch.nnet.natural_gradient import ng_sgd
+    opt = ng_sgd(0.05, alpha=0.5, update_period=10, momentum=0.9)
+    _assert_train_close(_train_on(card, opt, 12, seed=1),
+                        _train_on("cpu", opt, 12, seed=1), 1e-4, 1e-5)
+
+
+def test_checkpoint_of_card_tensors(card, tmp_path):
+    from kaldi_tpu_torch.params import tdnn_params_from_jax
+    from kaldi_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                  save_checkpoint)
+    params = {k: v.to(card) for k, v in tdnn_params_from_jax(
+        random_tdnn_params(TRAIN_TDNN, np.random.default_rng(0))).items()}
+    params["final.b"] = params["final.b"].to(torch.bfloat16)
+    save_checkpoint(str(tmp_path), 5, params)
+    step, back, _ = load_checkpoint(str(tmp_path), like=params)
+    assert step == 5
+    for k, v in params.items():
+        assert back[k].device == v.device and back[k].dtype == v.dtype
+        assert torch.equal(back[k], v)

@@ -2,9 +2,10 @@
 
 In a fresh interpreter whose import system refuses `jax` and `jaxlib`,
 every kaldi_tpu_torch module (the int8 path, AmNnet, the streaming
-server and the lattice modules among them) and chip_smoke.py's helpers
-import, and a small decode, a record decode and its lattices (native and
-numpy) run on the CPU. (kaldi_tpu/decoder/__init__.py imports the
+server, the lattice modules and the training modules among them) and
+chip_smoke.py's helpers import, and a small decode, a record decode and
+its lattices (native and numpy), and two train steps of a tiny TDNN with
+clipping, momentum and NG-SGD, run on the CPU. (kaldi_tpu/decoder/__init__.py imports the
 jax decoders, so reaching into kaldi_tpu.decoder from the port would fail
 here.)
 """
@@ -37,7 +38,10 @@ for n in ("kaldi_tpu_torch.cuda_build", "kaldi_tpu_torch.nnet.quantized",
           "kaldi_tpu_torch.nnet.am_nnet", "kaldi_tpu_torch.nnet.combine",
           "kaldi_tpu_torch.online.serving", "kaldi_tpu_torch.lat.lattice",
           "kaldi_tpu_torch.lat.functions", "kaldi_tpu_torch.lat.io",
-          "kaldi_tpu_torch.lat.native_gen", "kaldi_tpu_torch.lat.generate"):
+          "kaldi_tpu_torch.lat.native_gen", "kaldi_tpu_torch.lat.generate",
+          "kaldi_tpu_torch.nnet.optim", "kaldi_tpu_torch.nnet.train",
+          "kaldi_tpu_torch.nnet.natural_gradient",
+          "kaldi_tpu_torch.nnet.surgery", "kaldi_tpu_torch.utils.checkpoint"):
     assert n in names, n
 import chip_smoke
 from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder, CsrBeamOpts
@@ -61,6 +65,22 @@ for b in range(2):
             for n in (True, False)]
     assert lattice_best_path(lats[0])[:2] == lattice_best_path(lats[1])[:2]
 assert chip_smoke.wer([[1, 2, 3]], [[1, 3]]) == 100.0 / 3
+from kaldi_tpu_torch.nnet import train
+from kaldi_tpu_torch.nnet.natural_gradient import ng_sgd
+from kaldi_tpu_torch.nnet.tdnn import Tdnn, TdnnConfig
+model = Tdnn(TdnnConfig(feat_dim=4, num_pdfs=3, hidden_dim=8,
+                        nonlinearity="relu", splice_indexes=((-1, 0, 1), (0,))))
+g = torch.Generator().manual_seed(0)
+batch = (torch.randn(2, 7, 4, generator=g), torch.tensor([[0, 1, 2, 0, 1]] * 2),
+         torch.ones(2, 5))
+for opt in (train.make_optimizer(train.NnetTrainOpts(momentum=0.9), 2),
+            ng_sgd(0.01, update_period=2)):
+    params = model.init(g)
+    state = opt.init(params)
+    step = train.make_train_step(model, opt, compute_dtype=torch.bfloat16)
+    for _ in range(2):
+        params, state, loss, acc = step(params, state, *batch)
+    assert bool(torch.isfinite(loss)), loss
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
        or m.startswith("kaldi_tpu.")]
 assert not bad, bad
@@ -74,4 +94,4 @@ def test_port_imports_and_decodes_without_jax():
     r = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split("modules")[-1]) >= 28, r.stdout
+    assert int(r.stdout.split("modules")[-1]) >= 34, r.stdout

@@ -8,10 +8,13 @@ log-posteriors on >= 99% of frames), as test_bf16_parity.py holds the JAX
 bf16 path at the WER level.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from kaldi_tpu.nnet import components as jc
@@ -115,3 +118,67 @@ def test_param_converter_round_trip():
     import jax
     jtree = JTdnn(JTdnnConfig(**CONFIGS["pnorm"])).init(jax.random.PRNGKey(0))
     Tdnn(cfg).load_jax_params(jax.tree_util.tree_map(np.asarray, jtree))
+
+
+@pytest.mark.parametrize("name", ["relu", "pnorm"])
+@pytest.mark.parametrize("num_layers", [1, 3])
+def test_num_layers_matches_jax(name, num_layers):
+    """The first k hidden layers under the final affine, f32 within 1e-5
+    and bf16 at its decision level, as the full net."""
+    jm, jparams, tm = _models(name)
+    x = _feats(seed=4, B=2, T=60)
+    for jdt, tdt in ((None, None), (jnp.bfloat16, torch.bfloat16)):
+        want = np.asarray(jm.apply(jparams, jnp.asarray(x), pad_context=False,
+                                   compute_dtype=jdt, num_layers=num_layers))
+        with torch.no_grad():
+            got = tm(torch.from_numpy(x), pad_context=False, compute_dtype=tdt,
+                     num_layers=num_layers).numpy()
+        assert got.shape == want.shape
+        if tdt is None:
+            np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+        else:
+            assert np.mean(got.argmax(-1) == want.argmax(-1)) >= 0.99
+
+
+@pytest.mark.parametrize("name", ["relu", "pnorm"])
+def test_apply_logits_and_hidden_mean_abs_match_jax(name):
+    jm, jparams, tm = _models(name)
+    x = _feats(seed=5)
+    for pad in (True, False):
+        want = np.asarray(jm.apply_logits(jparams, jnp.asarray(x),
+                                          pad_context=pad))
+        got = tm.apply_logits(torch.from_numpy(x), pad_context=pad).numpy()
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+        wstats = jm.hidden_mean_abs(jparams, jnp.asarray(x), pad_context=pad)
+        tstats = tm.hidden_mean_abs(torch.from_numpy(x), pad_context=pad)
+        assert len(tstats) == len(wstats) == 5
+        for g, w in zip(tstats, wstats):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                       rtol=1e-5)
+
+
+def test_init_context_of_and_num_params():
+    """The port draws with torch, so init is held by its stddevs: hidden
+    weights 1/sqrt(in), biases 1, the final affine all zeros."""
+    cfg = TdnnConfig(feat_dim=40, num_pdfs=64, hidden_dim=256,
+                     pnorm_output_dim=32)
+    tm = Tdnn(cfg)
+    params = tm.init(torch.Generator().manual_seed(0))
+    assert list(params) == list(tm.state_dict())
+    for i, ctx in enumerate(cfg.splice_indexes):
+        w, b = params[f"layers.{i}.w"], params[f"layers.{i}.b"]
+        assert float(w.std()) == pytest.approx(1 / np.sqrt(w.shape[0]),
+                                               rel=0.05)
+        assert float(b.std()) == pytest.approx(1.0, rel=0.25)
+    assert float(params["final.w"].abs().max()) == 0.0
+    assert float(params["final.b"].abs().max()) == 0.0
+    assert torch.equal(tm.layers[0].w, params["layers.0.w"])
+    assert not any(p.requires_grad for p in tm.parameters())
+    again = Tdnn(cfg).init(torch.Generator().manual_seed(0))
+    assert all(torch.equal(again[k], params[k]) for k in params)
+    jm = JTdnn(JTdnnConfig(**dataclasses.asdict(cfg)))
+    jtree = jm.init(jax.random.PRNGKey(0))
+    assert tm.num_params() == tm.num_params(params) == jm.num_params(jtree)
+    for k in range(1, 6):
+        assert tm.context_of(k) == jm.context_of(k)
+    assert tm.context_of(5) == (cfg.left_context, cfg.right_context)
