@@ -65,7 +65,22 @@ Phases (any failure raises and the script exits non-zero):
      under 5%; untruncated records, whose excess over rec_cap must be
      rec_trunc exactly; records with nothing masked, whose lattice best
      paths equal the bf16 `Recognizer`'s words; one adaptive decode
-     (small_max_active 1024) against one full decode.
+     (small_max_active 1024) against one full decode;
+ 15. online path, small: mfcc, plp and deltas, the padded
+     `BeamSearchDecoder`, both `FusedOnlineDecoder` engines (each stream
+     also against the offline decode on the card) and
+     `SingleUtteranceNnet2Decoder` with online i-vectors, each on the card
+     against the CPU; the mixed-up AM's group sum: two card runs
+     bit-equal, the card within 1e-6 relative of the CPU;
+ 16. online path, full width, at scripts/bench_streaming.py's
+     configuration (the 300-word HCLG, a relu TDNN of width 512 over 64
+     pdfs trained 300 bf16 steps on the card, 160 ms chunks): the fused
+     path (`FusedOnlineDecoder` on the CSR engine, with `get_lattice`)
+     over 6 utterances and the generic path (`SingleUtteranceNnet2Decoder`
+     over the padded engine) over 3: online RTF, chunk latency p50 / p95,
+     finalize and get_lattice ms, max delay, and hypothesis mismatches
+     against the offline decode on the card, which must be 0; then the
+     gather kernel timed at the fused path's B = 1 shapes.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error against its plain version, times and bound; the last line
@@ -75,6 +90,7 @@ the script fails.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import sys
@@ -1397,6 +1413,397 @@ def phase_lattice_full(tg, sl: dict, tr: dict, card: str) -> dict:
     return {"launches": launches, "adaptive_launches": a_launches}
 
 
+# --------------------------------------------- the single-stream online path
+
+ONLINE_FB = dict(samp_freq=16000.0, dither=0.0)
+
+
+def _online_fused_stream(fused, wave, chunk: int):
+    fused.reset()
+    for pos in range(0, len(wave), chunk):
+        fused.accept_waveform(wave[pos:pos + chunk])
+    fused.input_finished()
+    return fused.best_path()
+
+
+def _online_generic(am, dec, fb, wave, chunk: int, ivec=None, tm=None):
+    """SingleUtteranceNnet2Decoder over OnlineMfcc(fbank) (+ i-vectors) on
+    the decoder's device, fed `chunk` samples at a time."""
+    from kaldi_tpu_torch.online.features import OnlineMfcc
+    from kaldi_tpu_torch.online.nnet2_decoding import (
+        OnlineNnet2FeaturePipeline, SingleUtteranceNnet2Decoder)
+    from kaldi_tpu_torch.ops.features import fbank
+    pipe = OnlineNnet2FeaturePipeline(
+        OnlineMfcc(fb, computer=fbank, device=dec.device), ivec)
+    d = SingleUtteranceNnet2Decoder(am, tm or _TmShim, dec, pipe,
+                                    chunk_frames=16, silence_phones={0})
+    for pos in range(0, len(wave), chunk):
+        d.pipeline.accept_waveform(wave[pos:pos + chunk])
+        d.advance_decoding()
+    d.finalize_decoding()
+    return d.best_path()
+
+
+class _TmShim:
+    """scripts/bench_streaming.py:97-104: the online decoder needs only a
+    phone per transition id for its trailing-silence checks."""
+
+    @staticmethod
+    def transition_id_to_phone(tid):
+        return 0
+
+
+class _TmMod3:
+    """Phone = tid % 3, phone 0 silence: the i-vector's silence weighting
+    then reweights some frames."""
+
+    @staticmethod
+    def transition_id_to_phone(tid):
+        return int(tid) % 3
+
+
+def phase_online_small():
+    """Card vs CPU on small shapes: mfcc, plp and deltas; the padded
+    BeamSearchDecoder; both FusedOnlineDecoder engines (and each stream vs
+    the offline decode on the card); SingleUtteranceNnet2Decoder with
+    i-vectors; the mixed-up AM's group sum (two card runs bit-equal, the
+    card within 1e-6 relative of the CPU)."""
+    import torch
+    from kaldi_tpu_torch.decoder.beam_search import (BeamSearchDecoder,
+                                                     BeamSearchOpts)
+    from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder
+    from kaldi_tpu_torch.gmm.diag_gmm import DiagGmm
+    from kaldi_tpu_torch.ivector.extractor import IvectorExtractor
+    from kaldi_tpu_torch.nnet.am_nnet import AmNnet
+    from kaldi_tpu_torch.nnet.combine import sum_group_log_posteriors
+    from kaldi_tpu_torch.nnet.tdnn import Tdnn, TdnnConfig
+    from kaldi_tpu_torch.online.fused import FusedOnlineDecoder
+    from kaldi_tpu_torch.online.ivector import (OnlineIvectorConfig,
+                                                OnlineIvectorFeature)
+    from kaldi_tpu_torch.ops.delta import add_deltas
+    from kaldi_tpu_torch.ops.features import (MfccOpts, PlpOpts, fbank, mfcc,
+                                              plp)
+    from kaldi_tpu_torch.ops.window import FrameOpts
+    from kaldi_tpu_torch.params import random_tdnn_params
+
+    rng = np.random.default_rng(31)
+    wave = torch.from_numpy(rng.standard_normal((2, 16000))
+                            .astype(np.float32) * 1000)
+    fo = FrameOpts(**ONLINE_FB)
+    worst = 0.0
+    for fn, opts in ((mfcc, MfccOpts(frame_opts=fo)),
+                     (plp, PlpOpts(frame_opts=fo))):
+        got, want = fn(wave.cuda(), opts), fn(wave, opts)
+        for g, w in ((got, want), (add_deltas(got), add_deltas(want))):
+            g = g.cpu()
+            if not torch.allclose(g, w, rtol=2e-4, atol=2e-3):
+                raise AssertionError(f"{fn.__name__}: card != CPU, max "
+                                     f"{float((g - w).abs().max())}")
+            worst = max(worst, float((g - w).abs().max()))
+    log(f"  mfcc, plp and their deltas: card == CPU within rtol 2e-4 / "
+        f"atol 2e-3 (max |diff| {worst:.3e})")
+
+    su = small_stream_setup()
+    fb = su["fb"]
+    am = AmNnet(Tdnn(su["cfg"]).load_jax_params(su["params"]),
+                priors=su["priors"])
+    ll = (np.random.RandomState(3).randn(2, 40, 16) * 3).astype(np.float32)
+    nf = np.array([40, 27], np.int32)
+    bopts = BeamSearchOpts(beam=11.0, max_active=128, acoustic_scale=0.1)
+    bd = {dev: BeamSearchDecoder(su["graph"], bopts, device=dev)
+          for dev in ("cuda", "cpu")}
+    _same_results("padded decode", bd["cuda"].decode(ll, nf),
+                  bd["cpu"].decode(ll, nf), "cuda")
+    rg, rc = bd["cuda"].decode_raw(ll, nf), bd["cpu"].decode_raw(ll, nf)
+    for key in rc:
+        if rc[key].dtype.kind != "f" and not np.array_equal(rg[key], rc[key]):
+            raise AssertionError(f"padded decode_raw: {key} differs")
+    log(f"  BeamSearchDecoder (padded, E = {bd['cuda'].E}): decode and "
+        f"decode_raw's states equal on the card and the CPU")
+
+    waves = [rng.standard_normal(n).astype(np.float32) * 4000
+             for n in (9000, 23456, 17000)]
+    for engine in ("padded", "csr"):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            dec = (BeamSearchDecoder(su["graph"], bopts, device=dev)
+                   if engine == "padded"
+                   else CsrBeamDecoder(su["graph"], su["opts"], device=dev))
+            fused = FusedOnlineDecoder(am, dec, fb, t_max=256)
+            res[dev] = [_online_fused_stream(fused, w, c)
+                        for w, c in zip(waves, (2560, 1000, 7000))]
+            if dev == "cuda":
+                offline = _offline(am, dec, waves, fb)
+        if any(r is None for r in res["cuda"]):
+            raise AssertionError(f"fused {engine}: a stream has no "
+                                 f"hypothesis")
+        _same_results(f"fused {engine}", res["cuda"], res["cpu"], "cuda")
+        _same_results(f"fused {engine}", res["cuda"], offline, "streamed")
+        log(f"  FusedOnlineDecoder ({engine}), 3 streams fed 2560/1000/7000 "
+            f"samples per call: card == CPU == offline decode on the card "
+            f"(words, tids; cost within 1e-2); "
+            f"{[len(r[0]) for r in res['cuda']]} words")
+
+    ubm_frames = fbank(torch.from_numpy(waves[1]), fb).numpy()
+    pick = np.random.default_rng(1).choice(len(ubm_frames), 4, replace=False)
+    ubm = DiagGmm(np.full(4, 0.25), ubm_frames[pick],
+                  np.tile(ubm_frames.var(axis=0) + 0.5, (4, 1)))
+    ext = IvectorExtractor(ubm, 4, seed=1)
+    ext.M *= 5.0
+    icfg = dataclasses.replace(su["cfg"], feat_dim=28)
+    iam_params = random_tdnn_params(icfg, np.random.default_rng(5))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        iam = AmNnet(Tdnn(icfg).load_jax_params(iam_params),
+                     priors=su["priors"])
+        dec = BeamSearchDecoder(su["graph"], bopts, device=dev)
+        res[dev] = [_online_generic(
+            iam, dec, fb, w, 1600, tm=_TmMod3,
+            ivec=OnlineIvectorFeature(ext, OnlineIvectorConfig(
+                num_gselect=3, silence_weight=0.1))) for w in waves[:2]]
+    _same_results("nnet2 + i-vectors", res["cuda"], res["cpu"], "cuda")
+    log(f"  SingleUtteranceNnet2Decoder with 4-dim online i-vectors, 2 "
+        f"streams: card == CPU; {[len(r[0]) for r in res['cuda']]} words")
+
+    gid = np.random.default_rng(4).permutation(np.repeat(np.arange(64), 3))
+    mcfg = TdnnConfig(feat_dim=40, num_pdfs=192, hidden_dim=256,
+                      nonlinearity="relu",
+                      splice_indexes=((-2, -1, 0, 1, 2), (-1, 2), (0,)))
+    mam = AmNnet(Tdnn(mcfg, device="cuda").load_jax_params(
+        random_tdnn_params(mcfg, np.random.default_rng(3))), group_ids=gid)
+    x = torch.from_numpy(rng.standard_normal((4, 300, 40))
+                         .astype(np.float32)).cuda()
+    a, b = mam.loglikes(x), mam.loglikes(x)
+    if not torch.equal(a, b):
+        raise AssertionError("mixed-up AM: two card runs differ")
+    lp = torch.log_softmax(torch.from_numpy(rng.standard_normal(
+        (4, 300, 192)).astype(np.float32)), dim=-1)
+    got = sum_group_log_posteriors(lp.cuda(), gid, 64).cpu()
+    want = sum_group_log_posteriors(lp, gid, 64)
+    rel = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
+    if rel > 1e-6:
+        raise AssertionError(f"group sum: card vs CPU {rel:.3e} relative")
+    log(f"  mixed-up AM (192 rows -> 64 pdfs): two card runs bit-equal; "
+        f"group sum card vs CPU {rel:.3e} relative (limit 1e-6)")
+
+
+def _pcts(ms: list) -> tuple:
+    return float(np.percentile(ms, 50)), float(np.percentile(ms, 95))
+
+
+def profile_online(what: str, wave, chunk: int, host_s_per_chunk: float,
+                   feed):
+    """Ten steady chunks of one stream (past its first four) under
+    torch.profiler; `feed` takes a piece of the waveform."""
+    feed(wave[:4 * chunk])
+    n = 10
+    busy, n_ops, by_name = device_time(
+        lambda: [feed(wave[(4 + i) * chunk:(5 + i) * chunk])
+                 for i in range(n)])
+    log_profile(f"{what}, {n} chunks of one stream", "chunk", n, busy, n_ops,
+                by_name, host_s_per_chunk, 12)
+
+
+def phase_online_full(tg, card: str, profile: bool = False) -> dict:
+    """scripts/bench_streaming.py's configuration on the card: 16 kHz,
+    40-bin fbank, the 300-word HCLG, 18 x 6 s utterances, the relu TDNN of
+    width 512 over 64 pdfs trained 300 bf16 steps with the port's train
+    step, priors from alignment counts; the fused path (FusedOnlineDecoder
+    on the CSR engine, keep_loglikes) over the 6 test utterances and the
+    generic path (SingleUtteranceNnet2Decoder over OnlineMfcc(fbank), the
+    padded decoder) over 3, each fed 160 ms per call, after a warm-up
+    pass over one utterance; every hypothesis must equal the offline
+    decode on the card and every lattice exist."""
+    import torch
+    from kaldi_tpu_torch.decoder.beam_search import (BeamSearchDecoder,
+                                                     BeamSearchOpts)
+    from kaldi_tpu_torch.decoder.biggraph import BigGraphConfig, make_big_hclg
+    from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder, CsrBeamOpts
+    from kaldi_tpu_torch.decoder.simulate import fbank_targets, make_corpus
+    from kaldi_tpu_torch.nnet.am_nnet import AmNnet
+    from kaldi_tpu_torch.nnet.tdnn import Tdnn, TdnnConfig
+    from kaldi_tpu_torch.nnet.train import (NnetTrainOpts, make_optimizer,
+                                            make_train_step)
+    from kaldi_tpu_torch.online.features import OnlineMfcc
+    from kaldi_tpu_torch.online.fused import FusedOnlineDecoder
+    from kaldi_tpu_torch.online.nnet2_decoding import (
+        OnlineNnet2FeaturePipeline, SingleUtteranceNnet2Decoder)
+    from kaldi_tpu_torch.online.timing import OnlineTimer, OnlineTimingStats
+    from kaldi_tpu_torch.ops.features import FbankOpts, fbank
+    from kaldi_tpu_torch.ops.mel import MelOpts
+    from kaldi_tpu_torch.ops.window import FrameOpts
+
+    SR, chunk = 16000.0, 2560
+    n_train, n_test, T = 12, 6, 600
+    fb = FbankOpts(frame_opts=FrameOpts(**ONLINE_FB),
+                   mel_opts=MelOpts(num_bins=40))
+    t = time.perf_counter()
+    graph, _ = make_big_hclg(BigGraphConfig(vocab=300, avg_bigram_succ=20,
+                                            num_pdfs=64, seed=1))
+    waves, segs, _words = make_corpus(graph, n_train + n_test, T,
+                                      np.random.default_rng(0), noise=0.25)
+    with torch.no_grad():
+        feats = fbank(torch.as_tensor(waves, device="cuda"), fb)
+    Tf = feats.shape[1]
+    tgt = np.stack([fbank_targets(s, Tf) for s in segs])
+    cfg = TdnnConfig(feat_dim=40, num_pdfs=64, hidden_dim=512,
+                     pnorm_output_dim=128, nonlinearity="relu",
+                     splice_indexes=((-2, -1, 0, 1, 2), (-1, 2), (0,)))
+    tdnn = Tdnn(cfg, device="cuda")
+    params = tdnn.init(torch.Generator(device="cuda").manual_seed(0))
+    opt = make_optimizer(NnetTrainOpts(initial_lr=0.1, final_lr=0.02), 300)
+    state = opt.init(params)
+    step = make_train_step(tdnn, opt, compute_dtype=torch.bfloat16)
+    tt = torch.as_tensor(tgt[:n_train, cfg.left_context:Tf - cfg.right_context],
+                         device="cuda")
+    wt = torch.ones(tt.shape, device="cuda")
+    for _ in range(300):
+        params, state, loss, acc = step(params, state, feats[:n_train], tt, wt)
+    tdnn.load_state_dict(params)
+    am = AmNnet(tdnn)
+    am.set_priors_from_alignment_counts(
+        np.bincount(tgt[:n_train].ravel(), minlength=64) + 1.0)
+    t_setup = time.perf_counter() - t
+    base_dec = BeamSearchDecoder(graph, BeamSearchOpts(
+        beam=13.0, max_active=512, acoustic_scale=0.1), device="cuda")
+    csr_dec = CsrBeamDecoder(graph, CsrBeamOpts(
+        beam=13.0, max_active=512, acoustic_scale=0.1, expand_budget=8192,
+        eps_budget=1024), device="cuda")
+    ll_off = am.loglikes(feats[n_train:])
+    nf = np.full(n_test, Tf, np.int32)
+    off, off_csr = base_dec.decode(ll_off, nf), csr_dec.decode(ll_off, nf)
+    log(f"  graph {graph.num_states} states / {graph.num_arcs} arcs (max "
+        f"out-degree {base_dec.E}); AM trained 300 bf16 steps on {n_train} x "
+        f"{waves.shape[1] / SR:.2f} s: loss {float(loss):.4f}, frame "
+        f"accuracy {float(acc):.4f}; set-up {t_setup:.3f} s | card: {card}")
+
+    fused = FusedOnlineDecoder(am, csr_dec, fb, chunk_samples=chunk,
+                               t_max=1024, keep_loglikes=True)
+    for pass_ in range(2):                # pass 0 warms up on one utt
+        if pass_ == 1:
+            tg.launches = 0               # count the fused path only
+        f_stats, f_lat, fin_ms, lat_ms, f_mism = OnlineTimingStats(), [], \
+            [], [], 0
+        lat_launches = 0
+        for u in range(n_test if pass_ else 1):
+            wave = waves[n_train + u]
+            fused.reset()
+            timer = OnlineTimer(f"u{u}")
+            for pos in range(0, len(wave), chunk):
+                t0 = time.perf_counter()
+                fused.accept_waveform(wave[pos:pos + chunk])
+                fused.sync()
+                f_lat.append((time.perf_counter() - t0) * 1e3)
+                timer.wait_until(min(pos + chunk, len(wave)) / SR)
+            t0 = time.perf_counter()
+            fused.input_finished()
+            res = fused.best_path()
+            fin_ms.append((time.perf_counter() - t0) * 1e3)
+            timer.finish(f_stats)
+            t0, n0 = time.perf_counter(), tg.launches
+            lat = fused.get_lattice(8.0)
+            lat_ms.append((time.perf_counter() - t0) * 1e3)
+            lat_launches += tg.launches - n0
+            if res is None or list(res[0]) != list(off_csr[u][0]):
+                f_mism += 1
+            if lat is None:
+                f_mism += 1
+    launches = tg.launches - lat_launches     # streaming only
+    frames = n_test * Tf
+    if launches < frames:
+        raise AssertionError(f"{launches} gather launches for {frames} "
+                             f"fused frames")
+    fp50, fp95 = _pcts(f_lat)
+    log(f"  fused path (CSR engine, B = 1): online RTF "
+        f"{f_stats.real_time_factor:.4f} over {f_stats.total_audio:.2f} s "
+        f"of audio ({n_test} utts); chunk latency (accept + sync, 160 ms "
+        f"chunks) p50 {fp50:.3f} ms p95 {fp95:.3f} ms; finalize "
+        f"(input_finished + best_path) median {np.median(fin_ms):.3f} ms; "
+        f"get_lattice median {np.median(lat_ms):.3f} ms; max delay "
+        f"{f_stats.max_delay:.4f} s; hypothesis mismatches vs offline "
+        f"{f_mism} (None lattices counted); gather launches {launches} "
+        f"streaming ({launches / frames:.2f}/frame) and {lat_launches} in "
+        f"get_lattice's record decodes | card: {card}")
+    if f_mism:
+        raise AssertionError(f"fused path: {f_mism} mismatches")
+    if profile:
+        wave = waves[n_train]
+        fused.reset()
+        profile_online("fused path", wave, chunk, fp50 / 1e3,
+                       fused.accept_waveform)
+
+    for pass_ in range(2):                # pass 0 warms up on one utt
+        g_stats, g_lat, g_mism = OnlineTimingStats(), [], 0
+        for u in range(3 if pass_ else 1):
+            wave = waves[n_train + u]
+            d = SingleUtteranceNnet2Decoder(
+                am, _TmShim, base_dec, OnlineNnet2FeaturePipeline(
+                    OnlineMfcc(fb, computer=fbank, device="cuda")),
+                chunk_frames=16)
+            timer = OnlineTimer(f"u{u}")
+            for pos in range(0, len(wave), chunk):
+                t0 = time.perf_counter()
+                d.pipeline.accept_waveform(wave[pos:pos + chunk])
+                d.advance_decoding()
+                torch.cuda.synchronize()
+                g_lat.append((time.perf_counter() - t0) * 1e3)
+                timer.wait_until(min(pos + chunk, len(wave)) / SR)
+            d.finalize_decoding()
+            timer.finish(g_stats)
+            res = d.best_path()
+            if res is None or list(res[0]) != list(off[u][0]):
+                g_mism += 1
+    gp50, gp95 = _pcts(g_lat)
+    log(f"  generic path (SingleUtteranceNnet2Decoder, padded engine at "
+        f"E = {base_dec.E}, K = 512: {512 * base_dec.E} candidates per "
+        f"emitting round): online RTF {g_stats.real_time_factor:.4f} over "
+        f"{g_stats.total_audio:.2f} s (3 utts); chunk latency p50 "
+        f"{gp50:.3f} ms p95 {gp95:.3f} ms; max delay "
+        f"{g_stats.max_delay:.4f} s; hypothesis mismatches vs offline "
+        f"{g_mism} | card: {card}")
+    if g_mism:
+        raise AssertionError(f"generic path: {g_mism} mismatches")
+    if profile:
+        d = SingleUtteranceNnet2Decoder(
+            am, _TmShim, base_dec, OnlineNnet2FeaturePipeline(
+                OnlineMfcc(fb, computer=fbank, device="cuda")),
+            chunk_frames=16)
+
+        def feed(w):
+            d.pipeline.accept_waveform(w)
+            d.advance_decoding()
+        profile_online("generic path", waves[n_train], chunk, gp50 / 1e3,
+                       feed)
+
+    # the gather kernel at the fused CSR path's B = 1 shapes
+    o, tabs = csr_dec.opts, csr_dec.tabs
+    K = int(o.max_active)
+    cbr = -(-int(o.expand_budget) // tabs.b_apr)
+    shapes = [(1, 64, 2 * K + (tabs.b_apr * cbr if tabs.brow.shape[0] > 1
+                               else 0)), (1, K, cbr)]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    times = {}
+    for (B, P, N) in shapes:
+        tab = torch.randn(B, P, device="cuda", generator=g)
+        idx = torch.randint(0, P, (B, N), device="cuda", generator=g,
+                            dtype=torch.int32)
+        if not torch.equal(tg.gather_cuda(tab, idx),
+                           tg.batched_table_gather_ref(tab, idx)):
+            raise AssertionError(f"gather != plain at {(B, P, N)}")
+        times[(B, P, N)] = (cuda_ms(lambda: tg.gather_cuda(tab, idx)),
+                            cuda_ms(lambda: tg.batched_table_gather_ref(
+                                tab, idx)),
+                            cuda_ms(lambda: torch.gather(tab, 1,
+                                                         idx.long())))
+        k_ms, p_ms, l_ms = times[(B, P, N)]
+        log(f"  gather at the fused path's shape tab [{B}, {P}] idx [{B}, "
+            f"{N}]: kernel {k_ms:.6f} ms, plain version {p_ms:.6f} ms, "
+            f"torch.gather {l_ms:.6f} ms, bound "
+            f"{gather_bound_ms(B, P, N):.6f} ms by bytes")
+    return {"launches": launches, "shape": shapes[0],
+            "times": times[shapes[0]]}
+
+
 def device_time(fn) -> tuple[float, int, dict]:
     """Run fn under torch.profiler. -> (device busy seconds: the sum of
     kernel, memcpy and memset durations, which do not overlap on one
@@ -1494,13 +1901,13 @@ def main() -> int:
 
     resolve_device("cuda")                # also turns TF32 off
     card = card_info()
-    log(f"[1/14] card: {card} | torch {torch.__version__} CUDA "
+    log(f"[1/16] card: {card} | torch {torch.__version__} CUDA "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
 
     t = time.perf_counter()
     libs = cuda_build.build()
-    log(f"[2/14] build: {len(libs)} kernels in {time.perf_counter() - t:.3f} "
+    log(f"[2/16] build: {len(libs)} kernels in {time.perf_counter() - t:.3f} "
         f"s (one nvcc each, in parallel)")
     for name, so in libs.items():
         with open(os.path.join(os.path.dirname(so), "nvcc.log")) as f:
@@ -1508,47 +1915,58 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]
         log(f"  {os.path.relpath(so, ROOT)}: {' | '.join(regs)}")
 
-    log("[3/14] table-gather kernel vs plain version")
+    log("[3/16] table-gather kernel vs plain version")
     k = phase_kernel(tg)
-    log("[4/14] qaffine kernel vs plain version")
+    log("[4/16] qaffine kernel vs plain version")
     qk = phase_qaffine(q)
-    log("[5/14] decoder on the card vs on the CPU")
+    log("[5/16] decoder on the card vs on the CPU")
     phase_decoder_parity()
-    log("[6/14] int8 decode on the card vs on the CPU")
+    log("[6/16] int8 decode on the card vs on the CPU")
     phase_int8_parity()
-    log("[7/14] full-width serving slice (bf16 TDNN)")
+    log("[7/16] full-width serving slice (bf16 TDNN)")
     sl = phase_slice(tg, card, profile="--profile" in sys.argv[1:])
-    log("[8/14] full-width int8 serving slice")
+    log("[8/16] full-width int8 serving slice")
     s8 = phase_int8_slice(q, tg, sl, card)
-    log("[9/14] streaming server, small: card vs CPU vs offline")
+    log("[9/16] streaming server, small: card vs CPU vs offline")
     phase_stream_small()
-    log("[10/14] streaming server, full width")
+    log("[10/16] streaming server, full width")
     st = phase_stream_full(tg, sl, card, profile="--profile" in sys.argv[1:])
-    log("[11/14] lattice path, small: card vs CPU, native vs numpy")
+    log("[11/16] lattice path, small: card vs CPU, native vs numpy")
     phase_lattice_small()
-    log("[12/14] training, small: card vs CPU")
+    log("[12/16] training, small: card vs CPU")
     phase_train_small()
-    log("[13/14] training, full width: the bench's AM with the port's "
+    log("[13/16] training, full width: the bench's AM with the port's "
         "train step")
     tr = phase_train_full(sl, card, profile="--profile" in sys.argv[1:])
-    log("[14/14] lattice path, full width (latgen at the bench's point)")
+    log("[14/16] lattice path, full width (latgen at the bench's point)")
     lt = phase_lattice_full(tg, sl, tr, card)
+    log("[15/16] online path, small: card vs CPU vs offline")
+    phase_online_small()
+    log("[16/16] online path, full width (scripts/bench_streaming.py's "
+        "configuration)")
+    on = phase_online_full(tg, card, profile="--profile" in sys.argv[1:])
 
     g_shape = GATHER_SHAPES[0]
     ms, plain_ms, library_ms, floor_ms = k["times"][g_shape]
     log(f"launches: gather {sl['launches']} on the bf16 slice, "
         f"{st['launches']} on the streaming path, {lt['launches']} on the "
-        f"latgen path, {lt['adaptive_launches']} in the adaptive decode; "
-        f"qaffine {s8['launches']} on the int8 slice")
+        f"latgen path, {lt['adaptive_launches']} in the adaptive decode, "
+        f"{on['launches']} on the fused online path; qaffine "
+        f"{s8['launches']} on the int8 slice")
     log(card)
     log(json.dumps({"kernels": [{
         "name": "batched_table_gather", "route": "cuda",
         "source": "kaldi_tpu_torch/csrc/table_gather.cu",
         "replaces": "kaldi_tpu/ops/table_gather.py:50",
         "launches": sl["launches"], "lattice_launches": lt["launches"],
+        "online_launches": on["launches"],
         "max_abs_err": k["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
         "bound_ms": gather_bound_ms(*g_shape), "bound_by": "bytes",
-        "library_ms": library_ms, "floor_ms": floor_ms}, {
+        "library_ms": library_ms, "floor_ms": floor_ms,
+        "online_shape": on["shape"], "online_ms": on["times"][0],
+        "online_plain_ms": on["times"][1],
+        "online_library_ms": on["times"][2],
+        "online_bound_ms": gather_bound_ms(*on["shape"])}, {
         "name": "qaffine", "route": "cuda",
         "source": "kaldi_tpu_torch/csrc/qaffine.cu",
         "replaces": "kaldi_tpu/nnet/quantized.py:46",
@@ -1557,7 +1975,6 @@ def main() -> int:
         "ms": qk["ms"], "plain_ms": qk["plain_ms"],
         "max_rel_err_f64": qk["max_rel_err_f64"],
         "plain_max_rel_err_f64": qk["plain_max_rel_err_f64"],
-        "ms": qk["ms"], "plain_ms": qk["plain_ms"],
         "bound_ms": qk["bound_ms"], "bound_by": qk["bound_by"],
         "three_pass_bound_ms": qk["three_pass_bound_ms"],
         "fp32_bound_ms": qk["fp32_bound_ms"],

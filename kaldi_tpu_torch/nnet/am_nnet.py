@@ -4,19 +4,19 @@ Counterpart of kaldi_tpu/nnet/am_nnet.py (ref: nnet2/am-nnet.h AmNnet —
 pseudo-loglikes = log p(pdf|x) - log prior; nnet2bin/nnet-adjust-priors.cc
 computes priors from average posteriors). The JAX class keeps a model and
 a params pytree apart; here the `Tdnn` module holds its weights, and
-`replace_params` takes a JAX-layout pytree. The TDNN runs in f32 on the
-module's device; priors stay numpy on the host, as in the JAX class.
+`replace_params` builds a new module from the params it is given. The TDNN
+runs in f32 on the module's device; priors stay numpy on the host, as in
+the JAX class.
 """
 
 from __future__ import annotations
-
-import copy
 
 import numpy as np
 import torch
 
 from kaldi_tpu_torch.nnet.combine import sum_group_log_posteriors
 from kaldi_tpu_torch.nnet.tdnn import Tdnn
+from kaldi_tpu_torch.params import tdnn_params_from_jax
 
 
 class AmNnet:
@@ -79,10 +79,15 @@ class AmNnet:
         self.priors = (acc / max(n, 1)).astype(np.float64)
 
     def replace_params(self, params) -> "AmNnet":
-        """A new AmNnet over a copy of the model holding `params` (a JAX
-        Tdnn pytree with numpy leaves); priors, group_ids and lr_scales are
-        shared and meta starts empty, as in the JAX class."""
-        model = copy.deepcopy(self.model).load_jax_params(params)
+        """A new AmNnet over a new model holding `params`: a JAX Tdnn
+        pytree with numpy leaves, or the port's own params dict ("layers.0.w"
+        -> tensor). The model takes its widths from the params, so they may
+        differ from this one's (widened, mixed up, a new output layer), as
+        in the JAX class; priors, group_ids and lr_scales are shared and
+        meta starts empty."""
+        flat = tdnn_params_from_jax(params) if "layers" in params else params
+        model = Tdnn.from_params(self.model.config, flat,
+                                 device=self.model.final.w.device)
         return AmNnet(model, self.priors, group_ids=self.group_ids,
                       lr_scales=self.lr_scales)
 

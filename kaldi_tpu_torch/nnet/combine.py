@@ -76,18 +76,35 @@ def mixup_softmax_layer(w: np.ndarray, b: np.ndarray, num_mixtures: int,
     return np.stack(w_new), np.asarray(b_new), np.asarray(gid)
 
 
+def _group_table(group_ids: np.ndarray, num_groups: int) -> np.ndarray:
+    """[C, G] column indices of each group's members in ascending order (G
+    = the largest group), padded with M, the index of a pad column."""
+    gid = np.asarray(group_ids, np.int64)
+    counts = np.bincount(gid, minlength=num_groups)
+    table = np.full((num_groups, max(int(counts.max(initial=0)), 1)),
+                    len(gid), np.int64)
+    order = np.argsort(gid, kind="stable")
+    pos = np.arange(len(gid)) - np.repeat(np.cumsum(counts) - counts, counts)
+    table[gid[order], pos] = order
+    return table
+
+
 def sum_group_log_posteriors(log_post: torch.Tensor, group_ids,
                              num_groups: int) -> torch.Tensor:
     """[..., M] mixed-up log-posteriors -> [..., C] by log-sum-exp over
-    each group: a segment max shift, then a segment sum of exp."""
+    each group: a segment max shift, then a segment sum of exp.
+
+    Both segment reductions gather each group's members into a padded
+    [..., C, G] block and reduce its last dim, so the order of the sum is
+    fixed (an `index_add` would use atomics on CUDA, whose order can change
+    from run to run). An empty group gives -inf."""
+    dev = log_post.device
     gid = torch.as_tensor(np.asarray(group_ids), dtype=torch.int64,
-                          device=log_post.device)
-    shape = log_post.shape[:-1] + (num_groups,)
-    idx = gid.expand_as(log_post)
-    m = torch.full(shape, float("-inf"), dtype=log_post.dtype,
-                   device=log_post.device)
-    m = m.scatter_reduce(-1, idx, log_post, reduce="amax", include_self=True)
+                          device=dev)
+    table = torch.as_tensor(_group_table(group_ids, num_groups), device=dev)
+    pad = log_post.new_full(log_post.shape[:-1] + (1,), float("-inf"))
+    m = torch.amax(torch.cat([log_post, pad], dim=-1)[..., table], dim=-1)
     shifted = torch.exp(log_post - m.index_select(-1, gid))
-    s = torch.zeros(shape, dtype=log_post.dtype, device=log_post.device)
-    s = s.index_add(-1, gid, shifted)
+    s = torch.sum(torch.cat([shifted, torch.zeros_like(pad)], dim=-1)
+                  [..., table], dim=-1)
     return m + torch.log(torch.clamp(s, min=1e-37))

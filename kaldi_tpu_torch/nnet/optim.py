@@ -9,6 +9,10 @@ optax 0.2.6's formulas:
   (updates, state)`; `apply_updates` adds the updates to the params;
 - step counts stay host ints in the state, so an update never reads a
   device scalar and a schedule's rate is a host number;
+- a state has optax's structure (`TraceState`, `ScaleByScheduleState`,
+  `ScaleByAdamState`, `PartitionState` of `MaskedState`s, tuples for a
+  chain, None where optax keeps an empty state), so a checkpoint of it has
+  the leaf paths that optax's state of the same transform has;
 - where optax computes a scalar in float32 from a weakly typed Python
   number (a schedule's rate, adam's bias corrections), the port does the
   same in numpy float32, so the scalars round as optax's do.
@@ -119,17 +123,25 @@ def add_decayed_weights(weight_decay: float) -> GradientTransformation:
     return GradientTransformation(lambda params: None, update)
 
 
+class TraceState(NamedTuple):
+    trace: Params
+
+
 def trace(decay: float) -> GradientTransformation:
     """Heavy-ball momentum: t = g + decay * t; the update is t."""
 
     def init(params):
-        return {k: torch.zeros_like(p) for k, p in params.items()}
+        return TraceState({k: torch.zeros_like(p) for k, p in params.items()})
 
     def update(updates, state, params=None):
-        new = {k: g + decay * state[k] for k, g in updates.items()}
-        return new, new
+        new = {k: g + decay * state.trace[k] for k, g in updates.items()}
+        return new, TraceState(new)
 
     return GradientTransformation(init, update)
+
+
+class ScaleByScheduleState(NamedTuple):
+    count: int
 
 
 def scale_by_learning_rate(learning_rate) -> GradientTransformation:
@@ -142,11 +154,13 @@ def scale_by_learning_rate(learning_rate) -> GradientTransformation:
             lambda updates, state, params=None: (
                 {k: g * step for k, g in updates.items()}, state))
 
-    def update(updates, count, params=None):
-        step = -learning_rate(count)
-        return {k: g * step for k, g in updates.items()}, count + 1
+    def update(updates, state, params=None):
+        step = -learning_rate(state.count)
+        return ({k: g * step for k, g in updates.items()},
+                ScaleByScheduleState(state.count + 1))
 
-    return GradientTransformation(lambda params: 0, update)
+    return GradientTransformation(lambda params: ScaleByScheduleState(0),
+                                  update)
 
 
 def sgd(learning_rate, momentum: float | None = None
@@ -156,7 +170,7 @@ def sgd(learning_rate, momentum: float | None = None
                  scale_by_learning_rate(learning_rate))
 
 
-class AdamState(NamedTuple):
+class ScaleByAdamState(NamedTuple):
     count: int
     mu: Params
     nu: Params
@@ -168,8 +182,9 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
     eps) with the bias corrections 1 - b ** (count + 1) in float32."""
 
     def init(params):
-        return AdamState(0, {k: torch.zeros_like(p) for k, p in params.items()},
-                         {k: torch.zeros_like(p) for k, p in params.items()})
+        return ScaleByAdamState(
+            0, {k: torch.zeros_like(p) for k, p in params.items()},
+            {k: torch.zeros_like(p) for k, p in params.items()})
 
     def update(updates, state, params=None):
         mu = {k: (1 - b1) * g + b1 * state.mu[k] for k, g in updates.items()}
@@ -180,7 +195,7 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
         c2 = float(_f32(1) - _f32(b2) ** _f32(count))
         out = {k: (mu[k] / c1) / (torch.sqrt(nu[k] / c2) + eps)
                for k in updates}
-        return out, AdamState(count, mu, nu)
+        return out, ScaleByAdamState(count, mu, nu)
 
     return GradientTransformation(init, update)
 
@@ -189,6 +204,14 @@ def adam(learning_rate, b1: float = 0.9, b2: float = 0.999,
          eps: float = 1e-8) -> GradientTransformation:
     return chain(scale_by_adam(b1, b2, eps),
                  scale_by_learning_rate(learning_rate))
+
+
+class MaskedState(NamedTuple):
+    inner_state: object
+
+
+class PartitionState(NamedTuple):
+    inner_states: dict
 
 
 def multi_transform(transforms: dict[str, GradientTransformation],
@@ -200,15 +223,17 @@ def multi_transform(transforms: dict[str, GradientTransformation],
             k: v for k, v in tree.items() if param_labels[k] == label}
 
     def init(params):
-        return {label: tx.init(pick(params, label))
-                for label, tx in transforms.items()}
+        return PartitionState({label: MaskedState(tx.init(pick(params, label)))
+                               for label, tx in transforms.items()})
 
     def update(updates, state, params=None):
         out, new = {}, {}
         for label, tx in transforms.items():
-            u, new[label] = tx.update(pick(updates, label), state[label],
-                                      pick(params, label))
+            u, inner = tx.update(pick(updates, label),
+                                 state.inner_states[label].inner_state,
+                                 pick(params, label))
+            new[label] = MaskedState(inner)
             out.update(u)
-        return {k: out[k] for k in updates}, new
+        return {k: out[k] for k in updates}, PartitionState(new)
 
     return GradientTransformation(init, update)

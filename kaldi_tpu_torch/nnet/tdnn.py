@@ -76,6 +76,24 @@ class Tdnn(nn.Module):
         self.load_state_dict(tdnn_params_from_jax(tree))
         return self
 
+    @classmethod
+    def from_params(cls, config: TdnnConfig, params: dict,
+                    device=None) -> "Tdnn":
+        """A Tdnn shaped by a params dict (named as `state_dict()` names
+        it) and holding it: the input, hidden and output widths and the
+        number of hidden layers come from the params, the rest from
+        `config`, as JAX's `apply` reads the widths from its params (after
+        `surgery.widen`, `replace_last_layers` or a mixup)."""
+        n = len({k.split(".")[1] for k in params if k.startswith("layers.")})
+        w0 = params["layers.0.w"]
+        cfg = dataclasses.replace(
+            config, splice_indexes=tuple(config.splice_indexes[:n]),
+            feat_dim=w0.shape[0] // len(config.splice_indexes[0]),
+            hidden_dim=w0.shape[1], num_pdfs=params["final.w"].shape[1])
+        model = cls(cfg, device=device)
+        model.load_state_dict(params)
+        return model
+
     def params(self) -> dict[str, torch.Tensor]:
         """A copy of the weights as a params dict, named as `state_dict()`
         names them (what the train step takes)."""

@@ -11,6 +11,9 @@ The port's params dicts are named as `state_dict()` names them
 ("layers.0.w"); `name_to_keystr` and `keystr_to_name` map such a name to
 and from the `jax.tree_util.keystr` of the same leaf ("['layers'][0]['w']"),
 which keys checkpoints and NG-SGD's `param_filter` in the JAX package.
+
+The GMMs and the i-vector extractor are numpy objects in both packages;
+their converters copy the arrays into the port's classes.
 """
 
 from __future__ import annotations
@@ -19,6 +22,10 @@ import re
 
 import numpy as np
 import torch
+
+from kaldi_tpu_torch.gmm.diag_gmm import DiagGmm
+from kaldi_tpu_torch.gmm.full_gmm import FullGmm
+from kaldi_tpu_torch.ivector.extractor import IvectorExtractor
 
 
 def tdnn_params_from_jax(tree) -> dict[str, torch.Tensor]:
@@ -109,11 +116,12 @@ def name_to_keystr(name: str) -> str:
                    for p in name.split("."))
 
 
-_KEY_PART = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
+_KEY_PART = re.compile(r"\['([^']*)'\]|\[(\d+)\]|\.(\w+)")
 
 
 def keystr_to_name(key: str) -> str:
-    """The inverse of `name_to_keystr`."""
+    """The inverse of `name_to_keystr`; an attribute part (".trace", of a
+    NamedTuple field) becomes a name part too."""
     parts, pos = [], 0
     while pos < len(key):
         m = _KEY_PART.match(key, pos)
@@ -122,3 +130,20 @@ def keystr_to_name(key: str) -> str:
         parts.append(next(g for g in m.groups() if g is not None))
         pos = m.end()
     return ".".join(parts)
+
+
+def diag_gmm_from_jax(gmm):
+    """A kaldi_tpu `DiagGmm` (numpy weights, means, vars) -> the port's."""
+    return DiagGmm(gmm.weights, gmm.means, gmm.vars)
+
+
+def full_gmm_from_jax(gmm):
+    """A kaldi_tpu `FullGmm` (numpy weights, means, covars) -> the port's."""
+    return FullGmm(gmm.weights, gmm.means, gmm.covars)
+
+
+def ivector_extractor_from_jax(ext):
+    """A kaldi_tpu `IvectorExtractor` (numpy means, inv_covars, weights, M,
+    prior_offset) -> the port's, with the same parameters."""
+    return IvectorExtractor.from_arrays(ext.means, ext.inv_covars,
+                                        ext.weights, ext.M, ext.prior_offset)

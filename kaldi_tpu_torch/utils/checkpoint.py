@@ -8,8 +8,15 @@ and `meta.json` with the step, the sorted keys and `extra`. A checkpoint
 is written into a temporary directory and renamed into place; the
 directory is then pruned to the newest `keep`.
 
-The port's trees are flat dicts named as `state_dict()` names them
-("layers.0.w"); `params.name_to_keystr` maps the names.
+A tree is any nest of dicts, lists, tuples and NamedTuples over tensors,
+numpy arrays and Python numbers (None holds nothing, as an empty optax
+state). It is flattened to the paths `jax.tree_util.keystr` gives the
+equivalent JAX tree: a dict key keyed by a params name ("layers.0.w")
+expands to that name's path (`params.name_to_keystr`: "['layers'][0]['w']"),
+a list or tuple item is "[i]" and a NamedTuple field ".field". So the
+port's params and optimizer states (kaldi_tpu_torch.nnet.optim, which keeps
+optax's state structure) write the paths JAX writes for its params and the
+optax state of the same transform.
 """
 
 from __future__ import annotations
@@ -37,12 +44,64 @@ def _savable(t) -> np.ndarray:
     return np.asarray(t)
 
 
-def save_checkpoint(ckpt_dir: str, step: int, tree: dict, keep: int = 3,
+def _key(k) -> str:
+    return name_to_keystr(k) if isinstance(k, str) else f"[{k!r}]"
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _children(tree) -> list[tuple[str, object]]:
+    """(path part, child) of a container, or [] for a leaf or None."""
+    if isinstance(tree, dict):
+        return [(_key(k), v) for k, v in tree.items()]
+    if _is_namedtuple(tree):
+        return [(f".{f}", getattr(tree, f)) for f in tree._fields]
+    if isinstance(tree, (list, tuple)):
+        return [(f"[{i}]", v) for i, v in enumerate(tree)]
+    return []
+
+
+def _is_leaf(x) -> bool:
+    return x is not None and not isinstance(x, (dict, list, tuple))
+
+
+def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
+    if _is_leaf(tree):
+        return {prefix: _savable(tree)}
+    flat = {}
+    for part, child in _children(tree):
+        flat.update(_flatten(child, prefix + part))
+    return flat
+
+
+def _unflatten(like, flat: dict, prefix: str = ""):
+    """A tree shaped like `like` with the leaves of `flat`, each cast to
+    its like leaf's type (and device)."""
+    if like is None:
+        return None
+    if _is_leaf(like):
+        arr = flat[prefix]
+        if torch.is_tensor(like):
+            return torch.from_numpy(np.asarray(arr)).to(device=like.device,
+                                                        dtype=like.dtype)
+        if isinstance(like, np.ndarray):
+            return np.asarray(arr).astype(like.dtype)
+        return type(like)(np.asarray(arr).item())
+    vals = [_unflatten(child, flat, prefix + part)
+            for part, child in _children(like)]
+    if isinstance(like, dict):
+        return dict(zip(like, vals))
+    return type(like)(*vals) if _is_namedtuple(like) else type(like)(vals)
+
+
+def save_checkpoint(ckpt_dir: str, step: int, tree, keep: int = 3,
                     extra: dict | None = None) -> str:
-    """Atomically write checkpoint `step` of the dict `tree`; prune to the
-    newest `keep`. -> the checkpoint's directory."""
+    """Atomically write checkpoint `step` of `tree`; prune to the newest
+    `keep`. -> the checkpoint's directory."""
     os.makedirs(ckpt_dir, exist_ok=True)
-    flat = {name_to_keystr(k): _savable(v) for k, v in tree.items()}
+    flat = _flatten(tree)
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_")
     try:
         np.savez(os.path.join(tmp, "arrays.npz"),
@@ -78,8 +137,9 @@ def list_checkpoints(ckpt_dir: str) -> list[int]:
 
 def load_checkpoint(ckpt_dir: str, step: int | None = None, like=None):
     """-> (step, tree, extra); step=None loads the newest. The tree is a
-    dict name -> CPU tensor, or, with `like` (a dict name -> tensor), one
-    with like's keys, each leaf in its like's dtype and on its device."""
+    flat dict name -> CPU tensor (the name of "[0].trace['layers'][0]['w']"
+    is "0.trace.layers.0.w"), or, with `like`, a tree of like's structure,
+    each leaf of like's type, dtype and device."""
     steps = list_checkpoints(ckpt_dir)
     if not steps:
         raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
@@ -88,9 +148,8 @@ def load_checkpoint(ckpt_dir: str, step: int | None = None, like=None):
     with open(os.path.join(d, "meta.json")) as f:
         meta = json.load(f)
     with np.load(os.path.join(d, "arrays.npz")) as arrs:
-        flat = {keystr_to_name(k.replace("╱", "/")): torch.from_numpy(arrs[k])
-                for k in arrs.files}
+        flat = {k.replace("╱", "/"): arrs[k] for k in arrs.files}
     if like is not None:
-        flat = {k: flat[k].to(device=v.device, dtype=v.dtype)
-                for k, v in like.items()}
-    return step, flat, meta.get("extra", {})
+        return step, _unflatten(like, flat), meta.get("extra", {})
+    return step, {keystr_to_name(k): torch.from_numpy(v)
+                  for k, v in flat.items()}, meta.get("extra", {})

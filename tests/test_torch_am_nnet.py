@@ -108,3 +108,66 @@ def test_replace_params_matches_jax():
     # the original keeps its weights
     np.testing.assert_allclose(am.loglikes(x).numpy(),
                                np.asarray(jam.loglikes(x)), **TOL)
+
+
+RELU = TdnnConfig(feat_dim=12, num_pdfs=10, hidden_dim=8,
+                  nonlinearity="relu",
+                  splice_indexes=((-1, 0, 1), (-2, 2), (0,)))
+
+
+def _surgery(kind: str, params: dict):
+    """JAX surgery on a numpy params tree -> (new tree, group_ids)."""
+    import jax
+    from kaldi_tpu.nnet import surgery as jsurgery
+    from kaldi_tpu.nnet.combine import mixup_softmax_layer as jmixup
+    jcfg = JTdnnConfig(**{f: getattr(RELU, f) for f in (
+        "feat_dim", "num_pdfs", "hidden_dim", "nonlinearity",
+        "splice_indexes")})
+    key = jax.random.PRNGKey(3)
+    if kind == "widen":
+        new = jsurgery.widen(_jparams(params), jcfg, 12, key,
+                             new_unit_stddev_scale=0.5)
+        return jax.tree.map(np.asarray, new), None
+    if kind == "replace_last_layers":
+        new = jsurgery.replace_last_layers(_jparams(params), jcfg, 7, key)
+        new = jax.tree.map(np.asarray, new)
+        rng = np.random.default_rng(4)         # a trained-looking output
+        new["final"] = {"w": rng.standard_normal(new["final"]["w"].shape)
+                        .astype(np.float32),
+                        "b": rng.standard_normal(7).astype(np.float32)}
+        return new, None
+    w, b, gid = jmixup(params["final"]["w"].T, params["final"]["b"], 25,
+                       perturb=0.3, seed=2)
+    return ({"layers": params["layers"],
+             "final": {"w": w.T.astype(np.float32),
+                       "b": b.astype(np.float32)}}, gid)
+
+
+@pytest.mark.parametrize("form", ["jax_tree", "port_dict"])
+@pytest.mark.parametrize("kind", ["widen", "replace_last_layers", "mixup"])
+def test_replace_params_of_another_shape_matches_jax(kind, form):
+    """After surgery the params' widths differ from the model's: JAX's
+    replace_params reads them from the params, and so must the port's."""
+    from kaldi_tpu_torch.params import tdnn_params_from_jax
+    params = random_tdnn_params(RELU, np.random.default_rng(11))
+    new, gid = _surgery(kind, params)
+    jcfg = JTdnnConfig(**{f: getattr(RELU, f) for f in (
+        "feat_dim", "num_pdfs", "hidden_dim", "nonlinearity",
+        "splice_indexes")})
+    jam = JAmNnet(JTdnn(jcfg), _jparams(params), group_ids=gid)
+    am = AmNnet(Tdnn(RELU).load_jax_params(params), group_ids=gid)
+    jam2 = jam.replace_params(_jparams(new))
+    am2 = am.replace_params(new if form == "jax_tree"
+                            else tdnn_params_from_jax(new))
+    if kind == "replace_last_layers":            # a new pdf inventory
+        for a in (jam2, am2):
+            a.set_priors_from_alignment_counts(np.arange(7))
+    x = _feats(12)
+    got, want = am2.loglikes(x).numpy(), np.asarray(jam2.loglikes(x))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, **TOL)
+    # the original keeps its model (a mixed-up AM's group_ids need the
+    # mixed-up output layer, so its original is not a model to score)
+    if kind != "mixup":
+        np.testing.assert_allclose(am.loglikes(x).numpy(),
+                                   np.asarray(jam.loglikes(x)), **TOL)

@@ -98,3 +98,94 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
         assert torch.equal(got[k], params[k])
     step, flat, _ = jck.load_checkpoint(d)
     assert sorted(flat) == sorted(name_to_keystr(k) for k in params)
+
+
+def _grads(seed):
+    rng = np.random.default_rng(seed)
+    return {k: torch.from_numpy(rng.standard_normal(v.shape)
+                                .astype(np.float32))
+            for k, v in _params().items()}
+
+
+def _port_state(name, steps=2):
+    from kaldi_tpu_torch.nnet import optim
+    tx = {"sgd_momentum": lambda: optim.sgd(0.1, momentum=0.9),
+          "adam": lambda: optim.adam(1e-2),
+          "sgd_schedule": lambda: optim.sgd(
+              optim.exponential_decay(0.1, 5, 0.5), momentum=0.9)}[name]()
+    state = tx.init(_params())
+    for i in range(steps):
+        _, state = tx.update(_grads(i), state, _params())
+    return state
+
+
+def _optax_state(name, steps=2):
+    import optax
+    tx = {"sgd_momentum": lambda: optax.sgd(0.1, momentum=0.9),
+          "adam": lambda: optax.adam(1e-2),
+          "sgd_schedule": lambda: optax.sgd(
+              optax.exponential_decay(0.1, 5, 0.5), momentum=0.9)}[name]()
+    tree = jax.tree.map(jnp.asarray, params_to_jax(_params()))
+    state = tx.init(tree)
+    for i in range(steps):
+        g = jax.tree.map(jnp.asarray, params_to_jax(_grads(i)))
+        _, state = tx.update(g, state, tree)
+    return state
+
+
+def _paths(tree) -> dict:
+    return {jax.tree_util.keystr(p): np.asarray(leaf)
+            for p, leaf in jax.tree_util.tree_leaves_with_path(tree)}
+
+
+OPT_STATES = ["sgd_momentum", "adam", "sgd_schedule"]
+
+
+@pytest.mark.parametrize("name", OPT_STATES)
+def test_optimizer_state_round_trips_in_the_port(tmp_path, name):
+    """A momentum or Adam state (tuples and NamedTuples over dicts, with
+    host-int counts) saves and loads back equal with `like`."""
+    state = _port_state(name)
+    tck.save_checkpoint(str(tmp_path), 5, state)
+    _step, got, _ = tck.load_checkpoint(str(tmp_path), like=_port_state(name, 0))
+    assert type(got) is type(state)
+    flat_got, flat_want = tck._flatten(got), tck._flatten(state)
+    assert sorted(flat_got) == sorted(flat_want)
+    for k in flat_want:
+        np.testing.assert_array_equal(flat_got[k], flat_want[k])
+    assert isinstance(got[0], type(state[0]))
+
+
+@pytest.mark.parametrize("name", OPT_STATES)
+def test_optimizer_state_paths_are_optax_paths(name):
+    assert sorted(tck._flatten(_port_state(name))) == \
+        sorted(_paths(_optax_state(name)))
+
+
+@pytest.mark.parametrize("name", OPT_STATES)
+def test_optax_state_checkpoint_loads_into_the_port(tmp_path, name):
+    d = str(tmp_path / "j")
+    want = _optax_state(name)
+    jck.save_checkpoint(d, 9, want)
+    _step, got, _ = tck.load_checkpoint(d, like=_port_state(name, 0))
+    flat = tck._flatten(got)
+    for k, v in _paths(want).items():
+        np.testing.assert_array_equal(flat[k], v, err_msg=k)
+    # and the port continues from it as optax does
+    np.testing.assert_allclose(
+        tck._flatten(_port_state(name))["[0]" + (".mu['final']['w']"
+                                                if name == "adam" else
+                                                ".trace['final']['w']")],
+        flat["[0]" + (".mu['final']['w']" if name == "adam"
+                      else ".trace['final']['w']")], rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("name", OPT_STATES)
+def test_port_state_checkpoint_loads_in_jax(tmp_path, name):
+    d = str(tmp_path / "t")
+    state = _port_state(name)
+    tck.save_checkpoint(d, 4, state)
+    _step, got, _ = jck.load_checkpoint(d, like=_optax_state(name, 0))
+    want = tck._flatten(state)
+    for k, v in _paths(got).items():
+        np.testing.assert_array_equal(v, want[k].astype(v.dtype), err_msg=k)

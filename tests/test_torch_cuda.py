@@ -1,7 +1,9 @@
 """Card-only checks of the port: the table-gather and qaffine kernels, the
 decoder, the int8 decode, the record decode with its lattices, the
-chunked and adaptive decoders, the train steps, NG-SGD and checkpoints on
-a CUDA device. Each test skips without a card. This file imports no jax,
+chunked and adaptive decoders, the train steps, NG-SGD and checkpoints,
+the mixed-up AM's group sum, and the online path (features, the padded
+decoder, both fused engines, the nnet2 decoder with i-vectors) on a CUDA
+device. Each test skips without a card. This file imports no jax,
 so it runs on a machine that has only torch:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -315,3 +317,125 @@ def test_checkpoint_of_card_tensors(card, tmp_path):
     for k, v in params.items():
         assert back[k].device == v.device and back[k].dtype == v.dtype
         assert torch.equal(back[k], v)
+
+
+# ------------------------------------------------------- the online path
+
+def _mixed_am(dev):
+    from kaldi_tpu_torch.nnet.am_nnet import AmNnet
+    from kaldi_tpu_torch.nnet.tdnn import Tdnn
+    cfg = TdnnConfig(feat_dim=40, num_pdfs=192, hidden_dim=256,
+                     nonlinearity="relu",
+                     splice_indexes=((-2, -1, 0, 1, 2), (-1, 2), (0,)))
+    gid = np.random.default_rng(4).permutation(np.repeat(np.arange(64), 3))
+    model = Tdnn(cfg, device=dev).load_jax_params(
+        random_tdnn_params(cfg, np.random.default_rng(3)))
+    return AmNnet(model, group_ids=gid)
+
+
+def test_group_sum_is_deterministic_and_equals_cpu(card):
+    """The mixed-up AM's segment sums have a fixed order: two card runs are
+    bit-equal, and the group sum of the same log-posteriors on the card
+    equals the CPU's within 1e-6 relative."""
+    from kaldi_tpu_torch.nnet.combine import sum_group_log_posteriors
+    am = _mixed_am(card)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (4, 300, 40)).astype(np.float32)).to(card)
+    a, b = am.loglikes(x), am.loglikes(x)
+    assert torch.equal(a, b)
+    lp = torch.log_softmax(torch.from_numpy(np.random.default_rng(6)
+                                            .standard_normal((4, 300, 192))
+                                            .astype(np.float32)), dim=-1)
+    got = sum_group_log_posteriors(lp.to(card), am.group_ids, 64).cpu()
+    want = sum_group_log_posteriors(lp, am.group_ids, 64)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+def test_online_features_card_equal_cpu(card):
+    from kaldi_tpu_torch.ops.delta import add_deltas, sliding_cmvn
+    from kaldi_tpu_torch.ops.features import MfccOpts, PlpOpts, mfcc, plp
+    from kaldi_tpu_torch.ops.window import FrameOpts
+    wave = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (2, 16000)).astype(np.float32) * 1000)
+    fo = FrameOpts(dither=0.0)
+    for fn, opts in ((mfcc, MfccOpts(frame_opts=fo)),
+                     (plp, PlpOpts(frame_opts=fo))):
+        got, want = fn(wave.to(card), opts), fn(wave, opts)
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-3)
+        torch.testing.assert_close(add_deltas(got).cpu(), add_deltas(want),
+                                   rtol=2e-4, atol=2e-3)
+        torch.testing.assert_close(sliding_cmvn(got).cpu(),
+                                   sliding_cmvn(want), rtol=2e-4, atol=2e-3)
+
+
+def test_beam_search_card_equals_cpu(card):
+    from kaldi_tpu_torch.decoder.beam_search import (BeamSearchDecoder,
+                                                     BeamSearchOpts)
+    g = _small_graph()
+    opts = BeamSearchOpts(beam=11.0, max_active=128)
+    ll = (np.random.RandomState(8).randn(2, 30, 64) * 3).astype(np.float32)
+    nf = np.array([30, 22], np.int32)
+    dg = BeamSearchDecoder(g, opts, device=card)
+    dc = BeamSearchDecoder(g, opts, device="cpu")
+    for rg, rc in zip(dg.decode(ll, nf), dc.decode(ll, nf)):
+        assert rg[0] == rc[0] and rg[1] == rc[1]
+        assert abs(rg[2] - rc[2]) < 1e-2
+    rg, rc = dg.decode_raw(ll, nf), dc.decode_raw(ll, nf)
+    for key in rc:
+        if rc[key].dtype.kind == "f":
+            np.testing.assert_allclose(rg[key], rc[key], rtol=0, atol=1e-4,
+                                       err_msg=key)
+        else:
+            np.testing.assert_array_equal(rg[key], rc[key], err_msg=key)
+
+
+def _stream(fused, wave, chunk=2560):
+    fused.reset()
+    for pos in range(0, len(wave), chunk):
+        fused.accept_waveform(wave[pos:pos + chunk])
+    fused.input_finished()
+    return fused.best_path()
+
+
+@pytest.mark.parametrize("engine", ["padded", "csr"])
+def test_fused_card_equals_cpu(card, engine):
+    """Both engines of FusedOnlineDecoder stream the same words and tids on
+    the card as on the CPU; the CSR engine's emitting rounds launch the
+    gather kernel."""
+    from kaldi_tpu_torch.decoder.beam_search import (BeamSearchDecoder,
+                                                     BeamSearchOpts)
+    from kaldi_tpu_torch.nnet.am_nnet import AmNnet
+    from kaldi_tpu_torch.nnet.tdnn import Tdnn
+    from kaldi_tpu_torch.online.fused import FusedOnlineDecoder
+    from kaldi_tpu_torch.ops.features import FbankOpts
+    from kaldi_tpu_torch.ops.mel import MelOpts
+    from kaldi_tpu_torch.ops.window import FrameOpts
+    g = _small_graph()
+    fb = FbankOpts(frame_opts=FrameOpts(dither=0.0),
+                   mel_opts=MelOpts(num_bins=40))
+    cfg = TdnnConfig(feat_dim=40, num_pdfs=64, hidden_dim=128,
+                     nonlinearity="relu",
+                     splice_indexes=((-2, -1, 0, 1, 2), (-1, 2), (0,)))
+    params = random_tdnn_params(cfg, np.random.default_rng(0))
+    waves = [np.random.default_rng(s).standard_normal(n).astype(np.float32)
+             * 4000 for s, n in ((1, 20000), (2, 9999))]
+    res = {}
+    for dev in (card, "cpu"):
+        am = AmNnet(Tdnn(cfg).load_jax_params(params))
+        if engine == "padded":
+            dec = BeamSearchDecoder(g, BeamSearchOpts(beam=11.0,
+                                                      max_active=128),
+                                    device=dev)
+        else:
+            dec = CsrBeamDecoder(g, CsrBeamOpts(
+                beam=11.0, max_active=128, expand_budget=4096,
+                eps_budget=1024), device=dev)
+        fused = FusedOnlineDecoder(am, dec, fb, t_max=256)
+        before = tg.launches
+        res[str(dev)] = [_stream(fused, w) for w in waves]
+        if engine == "csr" and dev == card:
+            assert tg.launches > before
+    for rg, rc in zip(res[str(card)], res["cpu"]):
+        assert rg is not None and rc is not None
+        assert rg[0] == rc[0] and rg[1] == rc[1]
+        assert abs(rg[2] - rc[2]) < 1e-2

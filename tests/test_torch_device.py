@@ -1,9 +1,11 @@
 """The port's entry points run on the card unless the caller asks for the
 CPU: `Recognizer`, `CsrBeamDecoder`, `ChunkedCsrBeamDecoder`,
-`AdaptiveCsrBeamDecoder`, `build_tier_tables`, `train_epochs` and
-`train_progressive` default to "cuda", and with no card that default
-raises instead of falling back. `FusedStreamingServer` takes no device:
-it runs where its decoder runs (tests/test_torch_serving.py); nor does
+`AdaptiveCsrBeamDecoder`, `BeamSearchDecoder`, `build_tier_tables`,
+`train_epochs`, `train_progressive`, `OnlineMfcc` and
+`OnlineFeaturePipeline` default to "cuda", and with no card that default
+raises instead of falling back. `FusedStreamingServer`,
+`FusedOnlineDecoder`, `OnlineDecoder` and `SingleUtteranceNnet2Decoder`
+take no device: they run where their decoder runs; nor does
 `make_train_step`'s step, which runs where its tensors are. Inference
 builds no autograd graph."""
 
@@ -17,11 +19,16 @@ from kaldi_tpu_torch.decoder.csr_beam import (AdaptiveCsrBeamDecoder,
                                               ChunkedCsrBeamDecoder,
                                               CsrBeamDecoder, CsrBeamOpts,
                                               build_tier_tables)
+from kaldi_tpu_torch.decoder.beam_search import BeamSearchDecoder
 from kaldi_tpu_torch.decoder.graph_pack import PackedGraph, split_csr
 from kaldi_tpu_torch.nnet.am_nnet import AmNnet
 from kaldi_tpu_torch.nnet.tdnn import Tdnn, TdnnConfig
 from kaldi_tpu_torch.nnet.train import (NnetTrainOpts, train_epochs,
                                         train_progressive)
+from kaldi_tpu_torch.online.decoder import OnlineDecoder
+from kaldi_tpu_torch.online.features import OnlineFeaturePipeline, OnlineMfcc
+from kaldi_tpu_torch.online.fused import FusedOnlineDecoder
+from kaldi_tpu_torch.online.nnet2_decoding import SingleUtteranceNnet2Decoder
 from kaldi_tpu_torch.online.serving import FusedStreamingServer
 from kaldi_tpu_torch.recognize import Recognizer
 
@@ -29,6 +36,9 @@ ENTRY_POINTS = {"Recognizer": Recognizer.__init__,
                 "CsrBeamDecoder": CsrBeamDecoder.__init__,
                 "ChunkedCsrBeamDecoder": ChunkedCsrBeamDecoder.__init__,
                 "AdaptiveCsrBeamDecoder": AdaptiveCsrBeamDecoder.__init__,
+                "BeamSearchDecoder": BeamSearchDecoder.__init__,
+                "OnlineMfcc": OnlineMfcc.__init__,
+                "OnlineFeaturePipeline": OnlineFeaturePipeline.__init__,
                 "build_tier_tables": build_tier_tables,
                 "train_epochs": train_epochs,
                 "train_progressive": train_progressive}
@@ -57,6 +67,13 @@ def test_server_takes_no_device():
         FusedStreamingServer.__init__).parameters
 
 
+@pytest.mark.parametrize("cls", [FusedOnlineDecoder, OnlineDecoder,
+                                 SingleUtteranceNnet2Decoder],
+                         ids=lambda c: c.__name__)
+def test_decoder_bound_classes_take_no_device(cls):
+    assert "device" not in inspect.signature(cls.__init__).parameters
+
+
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
 def test_default_device_raises_without_a_card(name):
     if torch.cuda.is_available():
@@ -74,6 +91,9 @@ def test_default_device_raises_without_a_card(name):
                  g, CsrBeamOpts()),
              "AdaptiveCsrBeamDecoder": lambda: AdaptiveCsrBeamDecoder(
                  g, CsrBeamOpts()),
+             "BeamSearchDecoder": lambda: BeamSearchDecoder(g),
+             "OnlineMfcc": lambda: OnlineMfcc(),
+             "OnlineFeaturePipeline": lambda: OnlineFeaturePipeline(),
              "build_tier_tables": lambda: build_tier_tables(split_csr(g),
                                                             1024),
              "train_epochs": lambda: train_epochs(

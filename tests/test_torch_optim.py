@@ -169,7 +169,7 @@ def test_steps_keep_host_counts_and_do_not_write_their_inputs():
     state = ttx.init(params)
     for _ in range(3):
         _, state = ttx.update(grads, state, params)
-    assert state[1][1] == 3 and isinstance(state[1][1], int)
+    assert state[1][1].count == 3 and isinstance(state[1][1].count, int)
     assert state[2][0].count == 3
     assert all(torch.equal(params[k], keep[k]) for k in params)
     assert all(torch.equal(g, torch.ones_like(g)) for g in grads.values())
