@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's serving and training paths once on one CUDA card
-and check them.
+"""Run the PyTorch port's serving, training and GMM-HMM paths once on one
+CUDA card and check them.
 
     python3 chip_smoke.py [--profile]
 
@@ -80,7 +80,24 @@ Phases (any failure raises and the script exits non-zero):
      over the padded engine) over 3: online RTF, chunk latency p50 / p95,
      finalize and get_lattice ms, max delay, and hypothesis mismatches
      against the offline decode on the card, which must be 0; then the
-     gather kernel timed at the fused path's B = 1 shapes.
+     gather kernel timed at the fused path's B = 1 shapes;
+ 17. GMM path, small: `AmDiagGmm.loglikes` on the card vs the CPU;
+     `equal_align`, `viterbi_align` and one EM iteration on yesno and
+     rm-like training graphs (identical alignments; parameters within
+     1e-5, loglikes within 1e-5 of their GEMM terms' magnitude); the
+     dense decoder's associative, sequential and checkpointed paths and
+     its hub branch (identical words and tids, cost within 1e-4);
+     `recipe-yesno` on the card (WER 0);
+ 18. GMM path, full width: (a) `train_mono` at `MonoTrainOpts()` (40
+     iterations, totgauss 1000) on 250 rm-like utterances with MFCC +
+     deltas on the card, ms per iteration by phase, then the test WER of
+     50 more through `make_decoder` (limit 12.0); (b) bench.py's
+     small-graph serving line (yesno HCLG, dense associative path, 128 x
+     10 s of noise through phase 13's AM, 8 pipelined launches); (c) the
+     same shape of 25-word rm-like utterances through the rm-like HCLG's
+     sequential path from (a)'s loglikes; the gather and qaffine must not
+     launch; --profile adds one profiled realignment and one launch of
+     (b) and of (c).
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error against its plain version, times and bound; the last line
@@ -133,18 +150,175 @@ def log(*a):
 
 
 def wer(refs: list[list], hyps: list[list]) -> float:
-    """Corpus word error rate in percent (Levenshtein over words)."""
-    errs = total = 0
-    for r, h in zip(refs, hyps):
-        d = list(range(len(h) + 1))
-        for i, rw in enumerate(r, 1):
-            prev, d[0] = d[0], i
-            for j, hw in enumerate(h, 1):
-                prev, d[j] = d[j], min(d[j] + 1, d[j - 1] + 1,
-                                       prev + (rw != hw))
-        errs += d[-1]
-        total += len(r)
-    return 100.0 * errs / max(total, 1)
+    """Corpus word error rate in percent, by the port's copy of
+    utils/wer.py (Levenshtein over words)."""
+    from kaldi_tpu_torch.utils.wer import compute_wer
+    return compute_wer(dict(enumerate(refs)), dict(enumerate(hyps))).wer
+
+
+# the GMM path's corpora: tests/test_yesno_e2e.py's yesno tones and
+# tests/test_rm_like_recipe.py's 12-word, 20-tone-phone corpus (8 kHz)
+GMM_SR = 8000.0
+YESNO_LEXICON = "YES Y1 Y2\nNO N1 N2"
+YESNO_ARPA = ("\\data\\\nngram 1=4\n\n\\1-grams:\n-1\tNO\n-1\tYES\n"
+              "-99\t<s>\n-1\t</s>\n\n\\end\\\n")
+YESNO_TONES = {"YES": 440.0, "NO": 1320.0}
+RM_PHONE_FREQS = {f"P{i}": 260.0 * (1.13 ** i) for i in range(20)}
+RM_WORDS = {
+    "ONE": "P0 P5", "TWO": "P1 P6", "THREE": "P2 P7 P12",
+    "FOUR": "P3 P8", "FIVE": "P4 P9 P13", "SIX": "P10 P14",
+    "SEVEN": "P11 P15 P0", "EIGHT": "P16 P1", "NINE": "P17 P2",
+    "ZERO": "P18 P3 P8", "OH": "P19 P4", "STOP": "P5 P10 P15",
+}
+RM_LEXICON = "\n".join(f"{w} {p}" for w, p in RM_WORDS.items())
+
+
+def yesno_synth(words, rng) -> np.ndarray:
+    """One yesno utterance: a tone per word between silences, light noise
+    (tests/test_yesno_e2e.py `synth_utterance`)."""
+    sr = GMM_SR
+    chunks = [np.zeros(int(sr * rng.uniform(0.08, 0.15)))]
+    for w in words:
+        dur = rng.uniform(0.25, 0.4)
+        t = np.arange(int(sr * dur)) / sr
+        freq = YESNO_TONES[w] * rng.uniform(0.98, 1.02)
+        tone = np.sin(2 * np.pi * freq * t) * 3000 * rng.uniform(0.7, 1.0)
+        env = np.minimum(1.0, np.minimum(
+            np.arange(len(t)), len(t) - np.arange(len(t))) / (0.02 * sr))
+        chunks.append(tone * env)
+        chunks.append(np.zeros(int(sr * rng.uniform(0.1, 0.2))))
+    wave = np.concatenate(chunks)
+    wave += rng.randn(len(wave)) * 20.0
+    return wave.astype(np.float32)
+
+
+def rm_synth(words, rng) -> np.ndarray:
+    """One rm-like utterance: a tone per phone, silences between words,
+    noise (tests/test_rm_like_recipe.py `synth`)."""
+    sr = GMM_SR
+    chunks = [np.zeros(int(sr * rng.uniform(0.05, 0.1)))]
+    for w in words:
+        for ph in RM_WORDS[w].split():
+            dur = rng.uniform(0.09, 0.16)
+            t = np.arange(int(sr * dur)) / sr
+            f = RM_PHONE_FREQS[ph] * rng.uniform(0.99, 1.01)
+            env = np.minimum(1.0, np.minimum(
+                np.arange(len(t)), len(t) - np.arange(len(t)))
+                / (0.012 * sr))
+            chunks.append(np.sin(2 * np.pi * f * t) * 2500
+                          * rng.uniform(0.75, 1.0) * env)
+        chunks.append(np.zeros(int(sr * rng.uniform(0.06, 0.14))))
+    w = np.concatenate(chunks)
+    w = w + rng.randn(len(w)) * 60.0
+    return w.astype(np.float32)
+
+
+def rm_corpus(rng, n: int, lo: int = 3, hi: int = 6) -> list:
+    """n (words, wave) pairs of lo..hi-1 words drawn as
+    tests/test_rm_like_recipe.py draws them."""
+    vocab = list(RM_WORDS)
+    out = []
+    for _ in range(n):
+        ws = [vocab[rng.randint(len(vocab))]
+              for _ in range(rng.randint(lo, hi))]
+        out.append((ws, rm_synth(ws, rng)))
+    return out
+
+
+def rm_unigram_arpa() -> str:
+    """The unigram LM over RM_WORDS of tests/test_rm_like_recipe.py."""
+    vocab = list(RM_WORDS)
+    lines = [f"-{np.log10(len(vocab)):.4f}\t{w}" for w in vocab]
+    return ("\\data\\\nngram 1=%d\n\n\\1-grams:\n%s\n-99\t<s>\n-1\t</s>\n"
+            "\n\\end\\\n" % (len(vocab) + 2, "\n".join(lines)))
+
+
+def mfcc_deltas(wave, device) -> np.ndarray:
+    """39-dim MFCC + delta + delta-delta of one 8 kHz wave on `device`
+    (the recipes' features), as a host array."""
+    import torch
+    from kaldi_tpu_torch.ops.delta import add_deltas
+    from kaldi_tpu_torch.ops.features import MfccOpts, mfcc
+    from kaldi_tpu_torch.ops.window import FrameOpts
+    fo = MfccOpts(frame_opts=FrameOpts(samp_freq=GMM_SR, dither=0.0))
+    x = torch.as_tensor(wave, device=device)
+    return add_deltas(mfcc(x, fo), order=2, window=2).cpu().numpy()
+
+
+def pad_batch(feats_list: list) -> tuple:
+    """[T_b, D] arrays -> (feats [B, T, D] zero-padded, num_frames [B])."""
+    B = len(feats_list)
+    T = max(f.shape[0] for f in feats_list)
+    feats = np.zeros((B, T, feats_list[0].shape[1]), np.float32)
+    nf = np.zeros(B, np.int32)
+    for b, f in enumerate(feats_list):
+        feats[b, : f.shape[0]] = f
+        nf[b] = f.shape[0]
+    return feats, nf
+
+
+def gmm_hclg(lang, arpa: str, tm, ctx):
+    """The HCLG of `lang` and an ARPA LM for a transition model, by the
+    port's copies of the graph stack (self-loop scale 0.1), packed."""
+    from kaldi_tpu_torch.decoder.graph_pack import pack_graph
+    from kaldi_tpu_torch.fst.graph import make_hclg
+    from kaldi_tpu_torch.lm.arpa import ArpaLm, arpa_to_g
+    g = arpa_to_g(ArpaLm.parse(arpa), lang.words)
+    hclg = make_hclg(lang, g, tm, ctx, self_loop_scale=0.1)
+    return pack_graph(hclg.fst, tm.id2pdf_array)
+
+
+def gmm_stack(lexicon: str, arpa: str):
+    """A lexicon's lang (SIL with 3 states), its monophone context and
+    flat-start transition model, and their HCLG -> (lang, ctx, tm,
+    packed HCLG)."""
+    from kaldi_tpu_torch.fst.lang import Lexicon, prepare_lang
+    from kaldi_tpu_torch.hmm.transition_model import TransitionModel
+    from kaldi_tpu_torch.tree.context_dep import MonophoneContextDependency
+    lang = prepare_lang(Lexicon.parse(lexicon), ["SIL"], "SIL",
+                        num_sil_states=3)
+    ctx = MonophoneContextDependency.from_topo(lang.topo)
+    tm = TransitionModel(lang.topo, lambda ph, pc: ctx.compute([ph], pc))
+    return lang, ctx, tm, gmm_hclg(lang, arpa, tm, ctx)
+
+
+def random_am(counts, dim: int, seed: int, device):
+    """An AmDiagGmm with counts[i] gaussians in pdf i, drawn from a seed."""
+    from kaldi_tpu_torch.gmm.am_gmm import AmDiagGmm
+    from kaldi_tpu_torch.gmm.diag_gmm import DiagGmm
+    rng = np.random.RandomState(seed)
+    return AmDiagGmm([DiagGmm(rng.dirichlet(np.ones(m)),
+                              rng.randn(m, dim) * 2.0,
+                              rng.uniform(0.3, 2.0, (m, dim)))
+                      for m in counts], device)
+
+
+def dense_hub_graph(n_words: int = 100, P: int = 7):
+    """State 0 enters n_words word states (word w: ilabel w, olabel w);
+    each word state returns to 0 and loops; one eps arc from state 1 to
+    0. State 0's in-degree n_words + 1 > 64 puts it in the dense
+    decoder's hub table. Integer costs: paths tie."""
+    from kaldi_tpu_torch.decoder.graph_pack import PackedGraph
+    rng = np.random.RandomState(4)
+    arcs = []
+    for w in range(1, n_words + 1):
+        arcs.append((0, w, w, w, float(rng.randint(0, 3)), w % P))
+        arcs.append((w, 0, n_words + w, 0, float(rng.randint(0, 2)),
+                     (w + 1) % P))
+        arcs.append((w, w, 2 * n_words + w, 0, 1.0, w % P))
+    arcs.append((1, 0, 0, 0, 0.0, -1))
+    arcs.sort(key=lambda a: (a[0], -(a[2] > 0)))
+    src = np.array([a[0] for a in arcs])
+    final = np.full(n_words + 1, np.inf, np.float32)
+    final[0] = 0.0
+    return PackedGraph(
+        arc_start=np.searchsorted(src, np.arange(n_words + 2)).astype(
+            np.int32),
+        ilabel=np.array([a[2] for a in arcs], np.int32),
+        olabel=np.array([a[3] for a in arcs], np.int32),
+        cost=np.array([a[4] for a in arcs], np.float32),
+        nextstate=np.array([a[1] for a in arcs], np.int32),
+        final=final, start=0, pdf=np.array([a[5] for a in arcs], np.int32))
 
 
 def star_hub_graph(n_words=300):
@@ -1804,6 +1978,359 @@ def phase_online_full(tg, card: str, profile: bool = False) -> dict:
             "times": times[shapes[0]]}
 
 
+GMM_TRAIN_UTTS, GMM_TEST_UTTS = 250, 50   # phase 18 (a)'s corpus
+DENSE_B, DENSE_SECS = 128, 10.0            # bench.py's small-graph line
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| / max(|want|, 1), elementwise."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1.0),
+                        initial=0.0))
+
+
+def gmm_term_scale(am, feats) -> np.ndarray:
+    """[..., T, P] the largest sum of absolute terms in the GEMM of any
+    gaussian of each pdf, |[x, -x^2/2, 1]| @ |packed| in f64: an f32
+    loglike can be off by some 1e-7 of it (the terms cancel), so card and
+    CPU are held to a share of it."""
+    packed, seg = am.pack()
+    x = np.abs(np.asarray(feats, np.float64))
+    aug = np.concatenate([x, 0.5 * x * x, np.ones(x.shape[:-1] + (1,))],
+                         axis=-1)
+    mag = aug @ np.abs(packed.astype(np.float64))
+    starts = np.searchsorted(seg, np.arange(am.num_pdfs))
+    return np.maximum.reduceat(mag, starts, axis=-1)
+
+
+def _same_alignments(name: str, got: list, want: list):
+    for b, (g, w) in enumerate(zip(got, want)):
+        if (g is None) != (w is None) or (w is not None and (
+                not np.array_equal(g[0], w[0]) or g[1] != w[1])):
+            raise AssertionError(f"{name}: utterance {b} aligns differently")
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} results, {len(want)} wanted")
+
+
+def _same_gmm_models(name: str, got, want, rel: float) -> float:
+    """Weights and means within rel; each variance within rel of its
+    second moment (var + mean^2: the variance's own cancellation)."""
+    worst = 0.0
+    for a, b in zip(want.am.pdfs, got.am.pdfs):
+        if a.num_gauss != b.num_gauss:
+            raise AssertionError(f"{name}: gaussian counts differ")
+        worst = max(worst, _rel_err(b.weights, a.weights),
+                    _rel_err(b.means, a.means),
+                    float(np.max(np.abs(b.vars - a.vars)
+                                 / (a.vars + a.means ** 2))))
+    if not worst <= rel:
+        raise AssertionError(f"{name}: parameters differ by {worst:.3e} "
+                             f"(limit {rel})")
+    return worst
+
+
+def _gmm_corpus_small(name: str):
+    """6 utterances of the yesno or rm-like corpus, features on the CPU."""
+    rng = np.random.RandomState(5)
+    if name == "yesno":
+        words = [[str(rng.choice(["YES", "NO"]))
+                  for _ in range(rng.randint(2, 5))] for _ in range(6)]
+        waves = [yesno_synth(ws, rng) for ws in words]
+    else:
+        words, waves = zip(*rm_corpus(rng, 6))
+    return [(f"u{i}", mfcc_deltas(w, "cpu"), list(ws))
+            for i, (ws, w) in enumerate(zip(words, waves))]
+
+
+def phase_gmm_small():
+    """Card vs CPU at small shapes: GMM log-likelihoods; equal and Viterbi
+    alignment and one EM iteration on yesno and rm-like training graphs;
+    the dense decoder's three forward paths and its hub branch;
+    recipe-yesno on the card."""
+    from kaldi_tpu_torch import cli
+    from kaldi_tpu_torch.decoder.dense import (DenseDecoderOpts,
+                                               DenseViterbiDecoder)
+    from kaldi_tpu_torch.decoder.graph_pack import pack_graphs
+    from kaldi_tpu_torch.decoder.viterbi import equal_align, viterbi_align
+    from kaldi_tpu_torch.fst.graph import TrainingGraphCompiler
+    from kaldi_tpu_torch.steps import mono
+
+    rng = np.random.RandomState(0)
+    counts = [1, 40] + [int(c) for c in rng.randint(1, 17, 61)]
+    feats = (rng.randn(4, 300, 39) * 3.0).astype(np.float32)
+    want = random_am(counts, 39, 1, "cpu").loglikes(feats).numpy()
+    got = random_am(counts, 39, 1, "cuda").loglikes(feats).cpu().numpy()
+    err = _rel_err(got, want)
+    if not err <= 1e-5:
+        raise AssertionError(f"GMM loglikes: card vs CPU {err:.3e}")
+    log(f"  AmDiagGmm.loglikes [4, 300, 39] over {sum(counts)} gaussians in "
+        f"{len(counts)} pdfs (1 to 40 each): card vs CPU {err:.3e} "
+        f"(limit 1e-5)")
+
+    for name, lex, arpa in (("yesno", YESNO_LEXICON, YESNO_ARPA),
+                            ("rm-like", RM_LEXICON, rm_unigram_arpa())):
+        utts = _gmm_corpus_small(name)
+        fl = [f for _u, f, _w in utts]
+        feats, nf = pad_batch(fl)
+        lang = gmm_stack(lex, arpa)[0]
+        models = {d: mono.flat_start(lang, fl, d) for d in ("cpu", "cuda")}
+        m = models["cpu"]
+        comp = TrainingGraphCompiler(m.lang, m.trans_model, m.ctx_dep, 1.0,
+                                     0.1)
+        batch = pack_graphs([comp.compile_transcript(w)
+                             for _u, _f, w in utts],
+                            m.trans_model.id2pdf_array)
+        eq = {d: equal_align(batch, nf, device=d) for d in models}
+        _same_alignments(f"{name} equal_align", eq["cuda"], eq["cpu"])
+        errs, ll_errs = [], []
+        for it in range(2):          # the equal-align pass, then one EM
+            # the loglikes' and tot_like's errors, as shares of the sums
+            # of absolute GEMM terms behind them
+            scale = gmm_term_scale(models["cpu"].am, feats)
+            real = np.arange(feats.shape[1])[None, :] < nf[:, None]
+            if it:
+                lls = {d: models[d].am.loglikes(feats) for d in models}
+                ll_errs.append(float(np.max(np.abs(
+                    lls["cuda"].cpu().numpy() - lls["cpu"].numpy()) / scale)))
+                al = {d: viterbi_align(batch, lls[d], nf, 0.1, device=d)
+                      for d in models}
+                _same_alignments(f"{name} viterbi_align", al["cuda"],
+                                 al["cpu"])
+            else:
+                al = eq
+            accs = {}
+            for d, md in models.items():
+                acc, tc, _n = mono._accumulate(md, feats, nf, al[d])
+                mono._update(md, acc, tc, mono.MonoTrainOpts(),
+                             md.am.total_gauss + 8 if it else None)
+                accs[d] = acc
+            ll_errs.append(abs(accs["cuda"].tot_like - accs["cpu"].tot_like)
+                           / float(scale.max(axis=-1)[real].sum()))
+            errs.append(_same_gmm_models(f"{name} EM iteration {it}",
+                                         models["cuda"], models["cpu"], 1e-5))
+        if not max(errs + ll_errs) <= 1e-5:
+            raise AssertionError(f"{name} EM: card vs CPU statistics "
+                                 f"{max(errs):.3e}, loglikes {max(ll_errs):.3e}")
+        log(f"  {name}: {len(utts)} training graphs ({batch.src.shape[1]} "
+            f"arcs padded): equal_align and viterbi_align identical; one EM "
+            f"iteration card vs CPU: parameters {max(errs):.3e}, loglikes "
+            f"and tot_like {max(ll_errs):.3e} of their GEMM terms' "
+            f"magnitude (limits 1e-5), {models['cuda'].am.total_gauss} "
+            f"gaussians")
+
+    def card_vs_cpu(what, graph, ll, nf, **opts):
+        res = [DenseViterbiDecoder(graph, DenseDecoderOpts(**opts),
+                                   device=d).decode(ll, nf)
+               for d in ("cuda", "cpu")]
+        worst = 0.0
+        for b, (g, w) in enumerate(zip(*res)):
+            if (g is None) != (w is None) or (w is not None and (
+                    g[0] != w[0] or g[1] != w[1])):
+                raise AssertionError(f"dense {what}: utterance {b} differs")
+            if w is not None:
+                worst = max(worst, abs(g[2] - w[2]) / max(abs(w[2]), 1.0))
+        if not worst <= 1e-4:
+            raise AssertionError(f"dense {what}: cost {worst:.3e}")
+        log(f"  dense {what}: words and tids identical, cost {worst:.3e} "
+            f"(limit 1e-4)")
+
+    rng = np.random.RandomState(1)
+    nf = np.array([120, 97, 64], np.int32)
+    _l, _c, tm_y, yes = gmm_stack(YESNO_LEXICON, YESNO_ARPA)
+    _l, _c, tm_r, rm = gmm_stack(RM_LEXICON, rm_unigram_arpa())
+    for what, graph, P, opts in (
+            ("assoc (yesno, 17 states)", yes, tm_y.num_pdfs, {}),
+            ("sequential (rm-like, 86 states)", rm, tm_r.num_pdfs, {}),
+            ("checkpointed (rm-like, chunk 16)", rm, tm_r.num_pdfs,
+             dict(traceback_chunk=16))):
+        ll = (rng.randn(3, 120, P) * 5.0).astype(np.float32)
+        card_vs_cpu(what, graph, ll, nf, **opts)
+    card_vs_cpu("hub branch (in-degree 101), integer ties",
+                dense_hub_graph(), rng.randint(-20, 1, (3, 40, 7)).astype(
+                    np.float32), np.array([40, 33, 12], np.int32),
+                acoustic_scale=1.0)
+
+    t = time.perf_counter()
+    cli.main(["recipe-yesno"])               # exits non-zero unless WER 0
+    log(f"  recipe-yesno on the card: WER 0 in "
+        f"{time.perf_counter() - t:.3f} s")
+
+
+def _pipelined(launch, audio_s: float, n_iter: int = 8):
+    """bench.py's serving loop: a warm-up, then n_iter launches, each
+    finishing the one before. -> (audio-sec/s, s per launch, results of
+    the last)."""
+    launch()()
+    t0 = time.perf_counter()
+    pending = launch()
+    for _ in range(n_iter - 1):
+        nxt = launch()
+        pending()
+        pending = nxt
+    out = pending()
+    dt = (time.perf_counter() - t0) / n_iter
+    return audio_s / dt, dt, out
+
+
+def phase_gmm_full(tr: dict, card: str, profile: bool = False) -> dict:
+    """(a) Flat-start monophone training at steps/train_mono.sh's defaults
+    on the rm-like corpus, decoded through make_decoder; (b) bench.py's
+    small-graph serving line (yesno HCLG, dense assoc path, phase 13's
+    AM); (c) the same shape through the rm-like HCLG's sequential path
+    from the GMM's log-likelihoods."""
+    import torch
+    from kaldi_tpu_torch.decoder.beam_search import BeamSearchOpts
+    from kaldi_tpu_torch.decoder.dense import DenseViterbiDecoder, make_decoder
+    from kaldi_tpu_torch.decoder.graph_pack import pack_graphs
+    from kaldi_tpu_torch.decoder.viterbi import viterbi_align
+    from kaldi_tpu_torch.fst.graph import TrainingGraphCompiler
+    from kaldi_tpu_torch.nnet import quantized as q
+    from kaldi_tpu_torch.ops import table_gather as tg
+    from kaldi_tpu_torch.ops.features import cmvn, fbank
+    from kaldi_tpu_torch.recognize import SERVING_FBANK
+    from kaldi_tpu_torch.steps.mono import MonoTrainOpts, train_mono
+
+    q.launches = tg.launches = 0              # count the GMM path only
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(17)
+    train = rm_corpus(rng, GMM_TRAIN_UTTS)
+    test = rm_corpus(rng, GMM_TEST_UTTS)
+    t = time.perf_counter()
+    utts = [(f"tr{i}", mfcc_deltas(w, "cuda"), ws)
+            for i, (ws, w) in enumerate(train)]
+    test_feats, test_nf = pad_batch([mfcc_deltas(w, "cuda")
+                                     for _ws, w in test])
+    t_feat = time.perf_counter() - t
+    lang, _ctx, _tm, _g = gmm_stack(RM_LEXICON, rm_unigram_arpa())
+    opts = MonoTrainOpts()
+    stats: list = []
+    t = time.perf_counter()
+    model = train_mono(lang, utts, opts, device="cuda", iter_stats=stats)
+    t_train = time.perf_counter() - t
+    n_frames = sum(f.shape[0] for _u, f, _w in utts)
+    log(f"  (a) corpus: {GMM_TRAIN_UTTS} training utterances "
+        f"({n_frames} frames, {n_frames / 100:.1f} s), {GMM_TEST_UTTS} "
+        f"test; 39-dim MFCC + deltas on the card in {t_feat:.3f} s")
+    for st in stats:
+        log("    iter %2d: %s; aligned %d, loglike/frame %.4f" % (
+            st["iter"], ", ".join(
+                f"{k} {st[k] * 1e3:.2f} ms" for k in
+                ("loglikes", "align", "accumulate", "update") if k in st),
+            st["aligned"], st["loglike_per_frame"]))
+    per = {k: [st[k] * 1e3 for st in stats if k in st]
+           for k in ("loglikes", "align", "accumulate", "update")}
+    packed = gmm_hclg(lang, rm_unigram_arpa(), model.trans_model,
+                      model.ctx_dep)
+    dec = make_decoder(packed, BeamSearchOpts(beam=14.0, max_active=1024,
+                                              acoustic_scale=0.1),
+                       device="cuda")
+    res = dec.decode(model.am.loglikes(test_feats), test_nf)
+    hyps = [[lang.words.sym(w) for w in r[0]] if r else [] for r in res]
+    corpus_wer = wer([ws for ws, _w in test], hyps)
+    log(f"  (a) train_mono({opts.num_iters} iterations, totgauss "
+        f"{opts.totgauss}, {len(opts.realign_iters)} realignments): "
+        f"{t_train:.3f} s; mean ms per iteration: " + ", ".join(
+            f"{k} {np.mean(v):.2f} (x{len(v)})" for k, v in per.items())
+        + f"; final loglike/frame {stats[-1]['loglike_per_frame']:.4f}; "
+        f"total_gauss {model.am.total_gauss}; HCLG {packed.num_states} "
+        f"states, {packed.num_arcs} arcs; test WER {corpus_wer:.2f}% "
+        f"(limit 12.00) through {type(dec).__name__} | card: {card}")
+    if not corpus_wer <= 12.0:
+        raise AssertionError(f"mono WER {corpus_wer:.2f} > 12.00")
+
+    # (b) bench.py:75-118: the yesno HCLG, 128 x 10 s of seeded noise
+    # through the bench's AM (phase 13's), sliced to the graph's pdfs
+    lang_y, _c, tm_y, yes = gmm_stack(YESNO_LEXICON, YESNO_ARPA)
+    dec_y = make_decoder(yes, BeamSearchOpts(beam=16.0, max_active=128,
+                                             acoustic_scale=0.1),
+                         device="cuda")
+    if not (isinstance(dec_y, DenseViterbiDecoder)
+            and yes.num_states <= dec_y.opts.assoc_max_states):
+        raise AssertionError(f"toy line: make_decoder picked {dec_y}")
+    waves = torch.as_tensor((np.random.RandomState(0).randn(
+        DENSE_B, int(16000 * DENSE_SECS)) * 1000).astype(np.float32),
+        device="cuda")
+    tdnn = tr["tdnn"].eval()
+
+    def am_apply():
+        with torch.inference_mode():
+            return tdnn(cmvn(fbank(waves, SERVING_FBANK)), pad_context=True,
+                        compute_dtype=torch.bfloat16)
+
+    nf_b = np.full(DENSE_B, am_apply().shape[1], np.int32)
+
+    def launch_b():
+        return dec_y.decode_async(am_apply()[..., :tm_y.num_pdfs], nf_b)
+
+    rate_b, dt_b, out_b = _pipelined(launch_b, DENSE_B * DENSE_SECS)
+    if any(r is None for r in out_b):
+        raise AssertionError("toy line: an utterance has no path")
+    log(f"  (b) small-graph serving line: yesno HCLG {yes.num_states} "
+        f"states, {yes.num_arcs} arcs, {tm_y.num_pdfs} pdfs -> "
+        f"DenseViterbiDecoder, associative-scan path (S <= "
+        f"{dec_y.opts.assoc_max_states}), {dec_y.opts.eps_expansions} eps "
+        f"round(s); B = {DENSE_B} x {DENSE_SECS:.0f} s ({nf_b[0]} frames) "
+        f"through fbank + CMVN + bf16 TDNN: {dt_b * 1e3:.3f} ms per launch, "
+        f"{rate_b:.1f} audio-sec/s | card: {card}")
+
+    # (c) the same shape through the rm-like HCLG's sequential path
+    rng = np.random.RandomState(18)
+    long = rm_corpus(rng, DENSE_B, 25, 26)
+    feats_c, nf_c = pad_batch([mfcc_deltas(w, "cuda") for _ws, w in long])
+    feats_c = torch.as_tensor(feats_c, device="cuda")
+    audio_c = sum(len(w) for _ws, w in long) / GMM_SR
+    if dec.graph.num_states <= dec.opts.assoc_max_states:
+        raise AssertionError("rm-like HCLG should take the sequential path")
+
+    def launch_c():
+        return dec.decode_async(model.am.loglikes(feats_c), nf_c)
+
+    rate_c, dt_c, out_c = _pipelined(launch_c, audio_c)
+    long_wer = wer([ws for ws, _w in long],
+                   [[lang.words.sym(w) for w in r[0]] if r else []
+                    for r in out_c])
+    log(f"  (c) rm-like HCLG ({packed.num_states} states) -> "
+        f"DenseViterbiDecoder, sequential path, {dec.opts.eps_expansions} "
+        f"eps round(s); B = {DENSE_B} x {audio_c / DENSE_B:.2f} s mean "
+        f"({feats_c.shape[1]} frames padded) of 25-word utterances from the "
+        f"GMM's loglikes: {dt_c * 1e3:.3f} ms per launch, {rate_c:.1f} "
+        f"audio-sec/s; WER {long_wer:.2f}% | card: {card}")
+    if tg.launches or q.launches:
+        raise AssertionError(f"the GMM path launched gather {tg.launches} "
+                             f"and qaffine {q.launches} times")
+    log(f"  launches on the GMM path: gather {tg.launches}, qaffine "
+        f"{q.launches}; phase 18 took {time.perf_counter() - t0:.3f} s")
+
+    if profile:
+        comp = TrainingGraphCompiler(lang, model.trans_model, model.ctx_dep,
+                                     opts.transition_scale,
+                                     opts.self_loop_scale)
+        batch = pack_graphs([comp.compile_transcript(w)
+                             for _u, _f, w in utts],
+                            model.trans_model.id2pdf_array)
+        feats_a, nf_a = pad_batch([f for _u, f, _w in utts])
+        ll_a = model.am.loglikes(feats_a)
+
+        def align():
+            viterbi_align(batch, ll_a, nf_a, opts.acoustic_scale,
+                          device="cuda")
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        align()
+        host_a = time.perf_counter() - t
+        for what, fn, host_s in (
+                (f"(a) viterbi_align of {GMM_TRAIN_UTTS} utterances, "
+                 f"{ll_a.shape[1]} frames", align, host_a),
+                ("(b) one toy-line launch + finish", lambda: launch_b()(),
+                 dt_b),
+                ("(c) one rm-like launch + finish", lambda: launch_c()(),
+                 dt_c)):
+            busy, n_ops, by_name = device_time(fn)
+            log_profile(what, "call", 1, busy, n_ops, by_name, host_s, 12)
+    return {"rate_toy": rate_b, "rate_rm": rate_c, "wer": corpus_wer}
+
+
 def device_time(fn) -> tuple[float, int, dict]:
     """Run fn under torch.profiler. -> (device busy seconds: the sum of
     kernel, memcpy and memset durations, which do not overlap on one
@@ -1901,13 +2428,13 @@ def main() -> int:
 
     resolve_device("cuda")                # also turns TF32 off
     card = card_info()
-    log(f"[1/16] card: {card} | torch {torch.__version__} CUDA "
+    log(f"[1/18] card: {card} | torch {torch.__version__} CUDA "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
 
     t = time.perf_counter()
     libs = cuda_build.build()
-    log(f"[2/16] build: {len(libs)} kernels in {time.perf_counter() - t:.3f} "
+    log(f"[2/18] build: {len(libs)} kernels in {time.perf_counter() - t:.3f} "
         f"s (one nvcc each, in parallel)")
     for name, so in libs.items():
         with open(os.path.join(os.path.dirname(so), "nvcc.log")) as f:
@@ -1915,36 +2442,41 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]
         log(f"  {os.path.relpath(so, ROOT)}: {' | '.join(regs)}")
 
-    log("[3/16] table-gather kernel vs plain version")
+    log("[3/18] table-gather kernel vs plain version")
     k = phase_kernel(tg)
-    log("[4/16] qaffine kernel vs plain version")
+    log("[4/18] qaffine kernel vs plain version")
     qk = phase_qaffine(q)
-    log("[5/16] decoder on the card vs on the CPU")
+    log("[5/18] decoder on the card vs on the CPU")
     phase_decoder_parity()
-    log("[6/16] int8 decode on the card vs on the CPU")
+    log("[6/18] int8 decode on the card vs on the CPU")
     phase_int8_parity()
-    log("[7/16] full-width serving slice (bf16 TDNN)")
+    log("[7/18] full-width serving slice (bf16 TDNN)")
     sl = phase_slice(tg, card, profile="--profile" in sys.argv[1:])
-    log("[8/16] full-width int8 serving slice")
+    log("[8/18] full-width int8 serving slice")
     s8 = phase_int8_slice(q, tg, sl, card)
-    log("[9/16] streaming server, small: card vs CPU vs offline")
+    log("[9/18] streaming server, small: card vs CPU vs offline")
     phase_stream_small()
-    log("[10/16] streaming server, full width")
+    log("[10/18] streaming server, full width")
     st = phase_stream_full(tg, sl, card, profile="--profile" in sys.argv[1:])
-    log("[11/16] lattice path, small: card vs CPU, native vs numpy")
+    log("[11/18] lattice path, small: card vs CPU, native vs numpy")
     phase_lattice_small()
-    log("[12/16] training, small: card vs CPU")
+    log("[12/18] training, small: card vs CPU")
     phase_train_small()
-    log("[13/16] training, full width: the bench's AM with the port's "
+    log("[13/18] training, full width: the bench's AM with the port's "
         "train step")
     tr = phase_train_full(sl, card, profile="--profile" in sys.argv[1:])
-    log("[14/16] lattice path, full width (latgen at the bench's point)")
+    log("[14/18] lattice path, full width (latgen at the bench's point)")
     lt = phase_lattice_full(tg, sl, tr, card)
-    log("[15/16] online path, small: card vs CPU vs offline")
+    log("[15/18] online path, small: card vs CPU vs offline")
     phase_online_small()
-    log("[16/16] online path, full width (scripts/bench_streaming.py's "
+    log("[16/18] online path, full width (scripts/bench_streaming.py's "
         "configuration)")
     on = phase_online_full(tg, card, profile="--profile" in sys.argv[1:])
+    log("[17/18] GMM path, small: card vs CPU")
+    phase_gmm_small()
+    log("[18/18] GMM path, full width: monophone training, the dense "
+        "decoder's serving lines")
+    phase_gmm_full(tr, card, profile="--profile" in sys.argv[1:])
 
     g_shape = GATHER_SHAPES[0]
     ms, plain_ms, library_ms, floor_ms = k["times"][g_shape]

@@ -20,7 +20,7 @@ loop that enqueues device work without synchronising, its `vmap` over
 utterances a batch dimension [B, ...]; the two stable argsorts of
 `_dedup_prune` are one stable sort of an int64 (state, score) key and its
 `lax.top_k` a stable ascending sort cut to K (ties to the lowest index,
-signed zeros made equal), as in the port's CSR decoder. The tables live on
+-0.0 before +0.0), as in the port's CSR hub. The tables live on
 the decoder's device (the card unless the caller asks for "cpu"); the
 acoustic lookup indexes the frame's log-likelihoods plainly, as in JAX.
 """
@@ -33,7 +33,8 @@ import numpy as np
 import torch
 
 from kaldi_tpu_torch.decoder.csr_beam import (_HALF_BIG, BIG, _f32_sort_key,
-                                              _sort_order, resolve_eps_rounds)
+                                              _f32_total_key, _sort_order,
+                                              resolve_eps_rounds)
 from kaldi_tpu_torch.decoder.graph_pack import PackedGraph, split_csr
 from kaldi_tpu_torch.decoder.hostpack import (device_mask, fetch_host,
                                               parse_label_seqs)
@@ -77,13 +78,6 @@ def _pad_csr(graph: PackedGraph):
         pdf[rows, cols] = np.maximum(graph.pdf, 0)
     return dict(ilabel=ilabel, olabel=olabel, cost=cost, nxt=nxt, pdf=pdf,
                 max_deg=E)
-
-
-def _f32_total_key(x: torch.Tensor) -> torch.Tensor:
-    """An int64 key in [0, 2^32) that orders f32 values with -0.0 below
-    +0.0, as XLA's TopK compares them."""
-    u = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    return torch.where(u >= 0x80000000, 0xFFFFFFFF - u, u + 0x80000000)
 
 
 def _dedup_prune(states, scores, prevs, olabels, ilabels, K: int):

@@ -312,6 +312,13 @@ def _f32_sort_key(x: torch.Tensor) -> torch.Tensor:
     return torch.where(u >= 0x80000000, 0xFFFFFFFF - u, u + 0x80000000)
 
 
+def _f32_total_key(x: torch.Tensor) -> torch.Tensor:
+    """An int64 key in [0, 2^32) that orders f32 values with -0.0 below
+    +0.0, as XLA's TopK compares them."""
+    u = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(u >= 0x80000000, 0xFFFFFFFF - u, u + 0x80000000)
+
+
 def _segment_map(off, deg, C: int, K: int, B: int, base=None):
     """Load-balanced slot->token mapping for the budgeted tier: slot j of
     utterance b belongs to the token whose [off, off+deg) range contains j.
@@ -478,9 +485,10 @@ def _make_rounds(srow, zrow, brow, zbrow,
             am_flat = -take_ll(ll_t, hub_pdf[None, :].expand(
                 B, hub_pdf.shape[0]).contiguous())
         sc_flat = base + hub_cost[None, :] + am_flat
-        # exact HC-best hub candidates, ties to the lowest arc index
-        # (lax.top_k's rule): a stable ascending sort cut to HC
-        idx = _sort_order(sc_flat + 0.0)[:, :HC]          # [B, HC]
+        # exact HC-best hub candidates, ties to the lowest arc index and
+        # -0.0 before +0.0 (lax.top_k's rule): a stable ascending sort of
+        # the uncanonicalised key, cut to HC
+        idx = _sort_order(_f32_total_key(sc_flat))[:, :HC]  # [B, HC]
         sc = torch.clamp(torch.gather(sc_flat, 1, idx), max=float(BIG))
         if HC >= K:
             hov = torch.zeros(B, dtype=torch.int32, device=dev)

@@ -1,11 +1,11 @@
 """CSR packing of decoding graphs into flat arc arrays (host code, numpy).
 
-Copy of the parts of kaldi_tpu/decoder/graph_pack.py that the serving path
-needs: `PackedGraph`, `SplitCsr`, `split_csr`, `eps_depth`,
-`fold_epsilons`. The original cannot be imported without jax (importing
-anything under kaldi_tpu.decoder runs its __init__, which imports the jax
-decoders), so it is carried here verbatim; tests hold the two equal array
-for array.
+Copy of kaldi_tpu/decoder/graph_pack.py: `PackedGraph`, `pack_graph`,
+`SplitCsr`, `split_csr`, `eps_depth`, `fold_epsilons`, and the padded
+alignment batch `PackedGraphBatch` / `pack_graphs`. The original cannot be
+imported without jax (importing anything under kaldi_tpu.decoder runs its
+__init__, which imports the jax decoders), so it is carried here verbatim;
+tests hold the two equal array for array.
 """
 
 from __future__ import annotations
@@ -13,6 +13,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from kaldi_tpu_torch.fst.fst import Fst
 
 
 @dataclasses.dataclass
@@ -39,6 +41,37 @@ class PackedGraph:
     @property
     def max_out_degree(self):
         return int(np.max(np.diff(self.arc_start))) if self.num_states else 0
+
+
+def pack_graph(fst: Fst, tid_to_pdf: np.ndarray | None = None) -> PackedGraph:
+    n = fst.num_states
+    arc_start = np.zeros(n + 1, np.int32)
+    ilabels, olabels, costs, nexts = [], [], [], []
+    for s in range(n):
+        arcs = sorted(fst.arcs[s], key=lambda a: (a[0] == 0, a[0]))
+        arc_start[s + 1] = arc_start[s] + len(arcs)
+        for (i, o, w, d) in arcs:
+            ilabels.append(i)
+            olabels.append(o)
+            costs.append(w)
+            nexts.append(d)
+    ilabel = np.asarray(ilabels, np.int32)
+    final = np.full(n, np.float32(np.inf), np.float32)
+    for s, w in fst.finals.items():
+        final[s] = w
+    pdf = None
+    if tid_to_pdf is not None:
+        pdf = np.where(ilabel > 0, tid_to_pdf[np.maximum(ilabel, 0)], -1).astype(np.int32)
+    return PackedGraph(
+        arc_start=arc_start,
+        ilabel=ilabel,
+        olabel=np.asarray(olabels, np.int32),
+        cost=np.asarray(costs, np.float32),
+        nextstate=np.asarray(nexts, np.int32),
+        final=final,
+        start=fst.start,
+        pdf=pdf,
+    )
 
 
 @dataclasses.dataclass
@@ -335,3 +368,62 @@ def fold_epsilons(graph: PackedGraph,
         start=int(graph.start),
         pdf=f_pdf,
     )
+
+
+@dataclasses.dataclass
+class PackedGraphBatch:
+    """A batch of graphs padded to common [S, A] so one jit program serves all.
+
+    Padding arcs are self-loops on a dead state with +inf cost; padding
+    states have no arcs and +inf final.
+    """
+
+    arc_start: np.ndarray  # [B, S+1]
+    ilabel: np.ndarray     # [B, A]
+    olabel: np.ndarray     # [B, A]
+    cost: np.ndarray       # [B, A]
+    nextstate: np.ndarray  # [B, A]
+    src: np.ndarray        # [B, A] source state of each arc (for scatter-free DP)
+    pdf: np.ndarray        # [B, A]
+    final: np.ndarray      # [B, S]
+    start: np.ndarray      # [B]
+    num_states: np.ndarray  # [B]
+    num_arcs: np.ndarray    # [B]
+
+
+def pack_graphs(fsts: list[Fst], tid_to_pdf: np.ndarray,
+                pad_states: int | None = None,
+                pad_arcs: int | None = None) -> PackedGraphBatch:
+    packed = [pack_graph(f, tid_to_pdf) for f in fsts]
+    S = pad_states or max(p.num_states for p in packed)
+    A = pad_arcs or max(p.num_arcs for p in packed)
+    B = len(packed)
+    arc_start = np.zeros((B, S + 1), np.int32)
+    ilabel = np.zeros((B, A), np.int32)
+    olabel = np.zeros((B, A), np.int32)
+    cost = np.full((B, A), np.float32(1e10), np.float32)
+    nextstate = np.zeros((B, A), np.int32)
+    src = np.zeros((B, A), np.int32)
+    pdf = np.zeros((B, A), np.int32)
+    final = np.full((B, S), np.float32(np.inf), np.float32)
+    start = np.zeros(B, np.int32)
+    ns = np.zeros(B, np.int32)
+    na = np.zeros(B, np.int32)
+    for b, p in enumerate(packed):
+        n, a = p.num_states, p.num_arcs
+        assert n <= S and a <= A
+        arc_start[b, : n + 1] = p.arc_start
+        arc_start[b, n + 1:] = p.arc_start[n]
+        ilabel[b, :a] = p.ilabel
+        olabel[b, :a] = p.olabel
+        cost[b, :a] = p.cost
+        nextstate[b, :a] = p.nextstate
+        pdf[b, :a] = np.maximum(p.pdf, 0)
+        final[b, :n] = p.final
+        start[b] = p.start
+        ns[b] = n
+        na[b] = a
+        for s in range(n):
+            src[b, p.arc_start[s]: p.arc_start[s + 1]] = s
+    return PackedGraphBatch(arc_start, ilabel, olabel, cost, nextstate, src,
+                            pdf, final, start, ns, na)

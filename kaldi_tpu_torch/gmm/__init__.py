@@ -1,1 +1,3 @@
-"""Host copies of kaldi_tpu.gmm (numpy): the UBMs the i-vector extractor uses."""
+"""Counterpart of kaldi_tpu.gmm: host copies of the GMMs (numpy), and the
+acoustic model (`am_gmm.py`) and statistics (`estimation.py`) with their
+device parts in torch."""

@@ -24,7 +24,8 @@ With keep_loglikes=True the server also keeps each stream's unscaled
 log-likelihoods in a device ring, written at each slot's d0 like the
 arena, and `get_lattice` runs the offline latgen (lat.generate) over
 them. Not in this port yet: `mesh` (stream sharding over devices); asking
-for it raises NotImplementedError.
+for it raises NotImplementedError. `mesh_axis` (the mesh axis the streams
+would be sharded over) is accepted, as JAX's server takes it.
 """
 
 from __future__ import annotations
@@ -59,7 +60,8 @@ class FusedStreamingServer:
     def __init__(self, am, dec: CsrBeamDecoder, feat_opts: FbankOpts,
                  n_streams: int = 8, chunk_samples: int = 2560,
                  t_max: int = 1024, computer=fbank,
-                 keep_loglikes: bool = False, mesh=None):
+                 keep_loglikes: bool = False, mesh=None,
+                 mesh_axis: str = "data"):
         if mesh is not None:
             raise NotImplementedError("stream sharding over a device mesh is "
                                       "not ported yet")

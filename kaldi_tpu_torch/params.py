@@ -13,7 +13,9 @@ and from the `jax.tree_util.keystr` of the same leaf ("['layers'][0]['w']"),
 which keys checkpoints and NG-SGD's `param_filter` in the JAX package.
 
 The GMMs and the i-vector extractor are numpy objects in both packages;
-their converters copy the arrays into the port's classes.
+their converters copy the arrays into the port's classes. A monophone
+GMM-HMM (`mono_model_from_jax`) is copied pdf by pdf, with its transition
+log-probs.
 """
 
 from __future__ import annotations
@@ -23,9 +25,13 @@ import re
 import numpy as np
 import torch
 
+from kaldi_tpu_torch.gmm.am_gmm import AmDiagGmm
 from kaldi_tpu_torch.gmm.diag_gmm import DiagGmm
 from kaldi_tpu_torch.gmm.full_gmm import FullGmm
+from kaldi_tpu_torch.hmm.transition_model import TransitionModel
 from kaldi_tpu_torch.ivector.extractor import IvectorExtractor
+from kaldi_tpu_torch.steps.mono import MonoModel
+from kaldi_tpu_torch.tree.context_dep import MonophoneContextDependency
 
 
 def tdnn_params_from_jax(tree) -> dict[str, torch.Tensor]:
@@ -147,3 +153,21 @@ def ivector_extractor_from_jax(ext):
     prior_offset) -> the port's, with the same parameters."""
     return IvectorExtractor.from_arrays(ext.means, ext.inv_covars,
                                         ext.weights, ext.M, ext.prior_offset)
+
+
+def mono_model_from_jax(model, lang, device="cuda"):
+    """A kaldi_tpu `MonoModel` -> the port's `MonoModel` over `lang`, the
+    port's own Lang of the same lexicon: each pdf's DiagGmm copied into an
+    `AmDiagGmm` on `device`, and the transition log-probs (through
+    `state_dict` / `load_log_probs`) into a `TransitionModel` built from
+    `lang`'s topology, whose tuples must equal the JAX model's."""
+    ctx = MonophoneContextDependency.from_topo(lang.topo)
+    tm = TransitionModel(lang.topo, lambda ph, pc: ctx.compute([ph], pc))
+    sd = model.trans_model.state_dict()
+    if not np.array_equal(np.asarray(tm.tuples, np.int32).reshape(-1, 3),
+                          np.asarray(sd["tuples"]).reshape(-1, 3)):
+        raise ValueError("the JAX model's transition tuples differ from "
+                         "the ones `lang` gives")
+    tm.load_log_probs(np.asarray(sd["log_probs"]))
+    am = AmDiagGmm([diag_gmm_from_jax(p) for p in model.am.pdfs], device)
+    return MonoModel(am, tm, ctx, lang)

@@ -18,10 +18,12 @@ from kaldi_tpu.decoder.biggraph import BigGraphConfig, make_big_hclg
 from kaldi_tpu.decoder.csr_beam import (CsrBeamDecoder as JDecoder,
                                         CsrBeamOpts as JOpts,
                                         _dedup_topk as j_dedup,
+                                        _make_rounds as j_make_rounds,
                                         _segment_map as j_segmap)
 from kaldi_tpu.decoder.graph_pack import PackedGraph
 from kaldi_tpu_torch.decoder.csr_beam import (BIG, CsrBeamDecoder, CsrBeamOpts,
-                                              _dedup_topk, _segment_map)
+                                              _dedup_topk, _rounds_for,
+                                              _segment_map)
 
 torch.set_num_threads(2)
 
@@ -231,3 +233,39 @@ def test_dedup_topk_matches_jax_with_ties(state_sort):
                       state_sort=state_sort)
     for g_, w_ in zip(got, want):
         np.testing.assert_array_equal(g_.numpy(), np.asarray(w_))
+
+
+def test_hub_signed_zero_tie_matches_jax():
+    """Two hub candidates score exactly -0.0 and +0.0, the -0.0 one on the
+    later arc. lax.top_k ranks -0.0 first, so with hub_cap 1 only that arc
+    enters the merge; one emit round's slots, scores, records, tids and
+    overflow equal JAX's."""
+    g = _star_hub_graph(300)
+    g.cost[:300] = 1.0
+    g.cost[3] = 0.0                           # +0.0 on the earlier arc
+    g.cost[7] = -0.0                          # -0.0 on the later one
+    kw = dict(beam=1e9, max_active=8, acoustic_scale=1.0, expand_budget=256,
+              eps_budget=256, hub_threshold=32, hub_cap=1)
+    jd = JDecoder(g, JOpts(**kw))
+    td = CsrBeamDecoder(g, CsrBeamOpts(**kw), device="cpu")
+    assert td.tabs.hub_onehot is None         # am = -ll gathered: -0.0
+    o = td.opts
+    K = o.max_active
+    st = np.zeros((1, K), np.int32)           # the hub (state 0) in slot 0
+    sc = np.full((1, K), BIG, np.float32)
+    sc[0, 0] = -0.0
+    ll = np.zeros((1, 301), np.float32)
+    t = jd.tabs
+    j_emit, _ = j_make_rounds(
+        t.srow, t.zrow, t.brow, t.zbrow, jd._hub_state_arr, t.hub_rows,
+        t.hub_cost, t.hub_onehot, t.hub_gpdf, t.hub_pdf, t.hub_bounds, 1, K,
+        o.expand_budget, o.eps_budget, o.beam, 1, t.b_apr)
+    t_emit, _ = _rounds_for(td.tabs, td._hub_state_arr, 1, K,
+                            o.expand_budget, o.eps_budget, o.beam, 1, True)
+    want = j_emit(jnp.asarray(st), jnp.asarray(sc), jnp.asarray(ll))
+    got = t_emit(torch.from_numpy(st), torch.from_numpy(sc),
+                 torch.from_numpy(ll))
+    for g_, w_ in zip(got, want):
+        np.testing.assert_array_equal(g_.numpy(), np.asarray(w_))
+    assert got[0][0, 0] == 8                  # arc 7's target won the tie
+    assert np.signbit(got[1][0, 0].item())

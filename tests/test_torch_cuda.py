@@ -1,9 +1,10 @@
 """Card-only checks of the port: the table-gather and qaffine kernels, the
 decoder, the int8 decode, the record decode with its lattices, the
 chunked and adaptive decoders, the train steps, NG-SGD and checkpoints,
-the mixed-up AM's group sum, and the online path (features, the padded
-decoder, both fused engines, the nnet2 decoder with i-vectors) on a CUDA
-device. Each test skips without a card. This file imports no jax,
+the mixed-up AM's group sum, the online path (features, the padded
+decoder, both fused engines, the nnet2 decoder with i-vectors) and the GMM
+path (GMM log-likelihoods, Viterbi alignment, the dense decoder's three
+forward paths) on a CUDA device. Each test skips without a card. This file imports no jax,
 so it runs on a machine that has only torch:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -439,3 +440,63 @@ def test_fused_card_equals_cpu(card, engine):
         assert rg is not None and rc is not None
         assert rg[0] == rc[0] and rg[1] == rc[1]
         assert abs(rg[2] - rc[2]) < 1e-2
+
+
+def test_gmm_loglikes_card_equal_cpu(card):
+    import chip_smoke as cs
+    rng = np.random.RandomState(0)
+    counts = [1, 40] + [int(c) for c in rng.randint(1, 17, 20)]
+    feats = (rng.randn(3, 200, 39) * 3.0).astype(np.float32)
+    got = cs.random_am(counts, 39, 1, card).loglikes(feats).cpu().numpy()
+    want = cs.random_am(counts, 39, 1, "cpu").loglikes(feats).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_viterbi_align_card_equals_cpu(card):
+    import chip_smoke as cs
+    from kaldi_tpu_torch.decoder.graph_pack import pack_graphs
+    from kaldi_tpu_torch.decoder.viterbi import equal_align, viterbi_align
+    from kaldi_tpu_torch.fst.graph import TrainingGraphCompiler
+    lang, ctx, tm, _g = cs.gmm_stack(cs.RM_LEXICON, cs.rm_unigram_arpa())
+    comp = TrainingGraphCompiler(lang, tm, ctx, 1.0, 0.1)
+    batch = pack_graphs([comp.compile_transcript(w) for w in
+                         (["ONE", "TWO"], ["STOP", "OH", "NINE"], ["SIX"])],
+                        tm.id2pdf_array)
+    nf = np.array([70, 90, 4], np.int32)        # the last has no path
+    ll = (np.random.RandomState(1).randn(3, 90, tm.num_pdfs) * 4.0).astype(
+        np.float32)
+    for fn in (lambda d: viterbi_align(batch, ll, nf, 0.1, device=d),
+               lambda d: equal_align(batch, nf, device=d)):
+        got, want = fn(card), fn("cpu")
+        assert got[2] is None and want[2] is None
+        for g, w in zip(got[:2], want[:2]):
+            np.testing.assert_array_equal(g[0], w[0])
+            assert g[1] == w[1] and abs(g[2] - w[2]) <= 1e-5 * abs(w[2])
+
+
+@pytest.mark.parametrize("which,opts", [
+    ("yesno", {}), ("rm_like", {}), ("rm_like", {"traceback_chunk": 16}),
+    ("hub", {"acoustic_scale": 1.0})],
+    ids=["assoc", "sequential", "checkpointed", "hub"])
+def test_dense_paths_card_equal_cpu(card, which, opts):
+    import chip_smoke as cs
+    from kaldi_tpu_torch.decoder.dense import (DenseDecoderOpts,
+                                               DenseViterbiDecoder)
+    rng = np.random.RandomState(2)
+    if which == "hub":
+        g, P = cs.dense_hub_graph(), 7
+        ll = rng.randint(-20, 1, (3, 50, P)).astype(np.float32)
+    else:
+        lex, arpa = ((cs.YESNO_LEXICON, cs.YESNO_ARPA) if which == "yesno"
+                     else (cs.RM_LEXICON, cs.rm_unigram_arpa()))
+        _l, _c, tm, g = cs.gmm_stack(lex, arpa)
+        ll = (rng.randn(3, 50, tm.num_pdfs) * 5.0).astype(np.float32)
+    nf = np.array([50, 37, 9], np.int32)
+    got, want = (DenseViterbiDecoder(g, DenseDecoderOpts(**opts),
+                                     device=d).decode(ll, nf)
+                 for d in (card, "cpu"))
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if b is not None:
+            assert a[0] == b[0] and a[1] == b[1]
+            assert abs(a[2] - b[2]) <= 1e-4 * max(abs(b[2]), 1.0)

@@ -1,9 +1,11 @@
 """The port's entry points run on the card unless the caller asks for the
 CPU: `Recognizer`, `CsrBeamDecoder`, `ChunkedCsrBeamDecoder`,
 `AdaptiveCsrBeamDecoder`, `BeamSearchDecoder`, `build_tier_tables`,
-`train_epochs`, `train_progressive`, `OnlineMfcc` and
-`OnlineFeaturePipeline` default to "cuda", and with no card that default
-raises instead of falling back. `FusedStreamingServer`,
+`train_epochs`, `train_progressive`, `OnlineMfcc`,
+`OnlineFeaturePipeline` and the GMM path's `AmDiagGmm`, `viterbi_align`,
+`equal_align`, `flat_start`, `train_mono`, `DenseViterbiDecoder` and
+`make_decoder` default to "cuda", and with no card that default raises
+instead of falling back. `FusedStreamingServer`,
 `FusedOnlineDecoder`, `OnlineDecoder` and `SingleUtteranceNnet2Decoder`
 take no device: they run where their decoder runs; nor does
 `make_train_step`'s step, which runs where its tensors are. Inference
@@ -20,7 +22,13 @@ from kaldi_tpu_torch.decoder.csr_beam import (AdaptiveCsrBeamDecoder,
                                               CsrBeamDecoder, CsrBeamOpts,
                                               build_tier_tables)
 from kaldi_tpu_torch.decoder.beam_search import BeamSearchDecoder
-from kaldi_tpu_torch.decoder.graph_pack import PackedGraph, split_csr
+from kaldi_tpu_torch.decoder.dense import DenseViterbiDecoder, make_decoder
+from kaldi_tpu_torch.decoder.graph_pack import (PackedGraph,
+                                                PackedGraphBatch, split_csr)
+from kaldi_tpu_torch.decoder.viterbi import equal_align, viterbi_align
+from kaldi_tpu_torch.fst.lang import Lexicon, prepare_lang
+from kaldi_tpu_torch.gmm.am_gmm import AmDiagGmm
+from kaldi_tpu_torch.gmm.diag_gmm import DiagGmm
 from kaldi_tpu_torch.nnet.am_nnet import AmNnet
 from kaldi_tpu_torch.nnet.tdnn import Tdnn, TdnnConfig
 from kaldi_tpu_torch.nnet.train import (NnetTrainOpts, train_epochs,
@@ -31,6 +39,7 @@ from kaldi_tpu_torch.online.fused import FusedOnlineDecoder
 from kaldi_tpu_torch.online.nnet2_decoding import SingleUtteranceNnet2Decoder
 from kaldi_tpu_torch.online.serving import FusedStreamingServer
 from kaldi_tpu_torch.recognize import Recognizer
+from kaldi_tpu_torch.steps.mono import flat_start, train_mono
 
 ENTRY_POINTS = {"Recognizer": Recognizer.__init__,
                 "CsrBeamDecoder": CsrBeamDecoder.__init__,
@@ -41,7 +50,14 @@ ENTRY_POINTS = {"Recognizer": Recognizer.__init__,
                 "OnlineFeaturePipeline": OnlineFeaturePipeline.__init__,
                 "build_tier_tables": build_tier_tables,
                 "train_epochs": train_epochs,
-                "train_progressive": train_progressive}
+                "train_progressive": train_progressive,
+                "AmDiagGmm": AmDiagGmm.__init__,
+                "viterbi_align": viterbi_align,
+                "equal_align": equal_align,
+                "flat_start": flat_start,
+                "train_mono": train_mono,
+                "DenseViterbiDecoder": DenseViterbiDecoder.__init__,
+                "make_decoder": make_decoder}
 
 
 def _graph():
@@ -53,6 +69,19 @@ def _graph():
         nextstate=np.array([1, 0, 0], np.int32),
         final=np.array([0.0, np.inf], np.float32),
         pdf=np.array([0, 1, 0], np.int32))
+
+
+def _batch():
+    """A one-graph alignment batch of _graph()."""
+    g = _graph()
+    return PackedGraphBatch(
+        g.arc_start[None], g.ilabel[None], g.olabel[None], g.cost[None],
+        g.nextstate[None], np.array([[0, 0, 1]], np.int32), g.pdf[None],
+        g.final[None], np.zeros(1, np.int32), np.array([2]), np.array([3]))
+
+
+def _lang():
+    return prepare_lang(Lexicon.parse("A P1"), ["SIL"], "SIL")
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
@@ -100,7 +129,16 @@ def test_default_device_raises_without_a_card(name):
                  tdnn, tdnn.params(), {"feats": x, "targets": t,
                                        "weights": w}, NnetTrainOpts()),
              "train_progressive": lambda: train_progressive(
-                 tdnn, tdnn.params(), x, t, w)}[name]
+                 tdnn, tdnn.params(), x, t, w),
+             "AmDiagGmm": lambda: AmDiagGmm([DiagGmm.from_stats(
+                 np.zeros(4), np.ones(4))]),
+             "viterbi_align": lambda: viterbi_align(
+                 _batch(), np.zeros((1, 3, 2), np.float32), np.array([3])),
+             "equal_align": lambda: equal_align(_batch(), np.array([3])),
+             "flat_start": lambda: flat_start(_lang(), [x[0]]),
+             "train_mono": lambda: train_mono(_lang(), [("u", x[0], ["A"])]),
+             "DenseViterbiDecoder": lambda: DenseViterbiDecoder(g),
+             "make_decoder": lambda: make_decoder(g)}[name]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build()
 

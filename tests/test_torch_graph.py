@@ -1,6 +1,9 @@
 """Port parity: the port's numpy copies of the decoder's host code produce
 arrays equal to kaldi_tpu's (graph build, CSR split, eps folding, corpus
-synthesis, tier-table packing)."""
+synthesis, tier-table packing), and so do its copies of the GMM path's
+graph stack (prepare_lang, arpa_to_g, make_hclg, TrainingGraphCompiler,
+the transition model, pack_graph and pack_graphs) for the yesno and
+rm-like lexicons."""
 
 import dataclasses
 
@@ -8,14 +11,27 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 from kaldi_tpu.decoder import biggraph as jbig
 from kaldi_tpu.decoder import csr_beam as jcsr
 from kaldi_tpu.decoder import graph_pack as jgp
 from kaldi_tpu.decoder import simulate as jsim
+from kaldi_tpu.fst import graph as jgraph
+from kaldi_tpu.fst import lang as jlang
+from kaldi_tpu.hmm import transition_model as jtm
+from kaldi_tpu.lm import arpa as jarpa
+from kaldi_tpu.tree import context_dep as jctx
+from kaldi_tpu.utils import wer as jwer
 from kaldi_tpu_torch.decoder import biggraph as tbig
 from kaldi_tpu_torch.decoder import csr_beam as tcsr
 from kaldi_tpu_torch.decoder import graph_pack as tgp
 from kaldi_tpu_torch.decoder import simulate as tsim
+from kaldi_tpu_torch.fst import graph as tgraph
+from kaldi_tpu_torch.fst import lang as tlang
+from kaldi_tpu_torch.hmm import transition_model as ttm
+from kaldi_tpu_torch.lm import arpa as tarpa
+from kaldi_tpu_torch.tree import context_dep as tctx
+from kaldi_tpu_torch.utils import wer as twer
 
 torch.set_num_threads(2)
 
@@ -114,3 +130,143 @@ def test_one_row_tier_b_is_padded_to_two_rows():
     jt = jcsr.build_tier_tables(jgp.split_csr(g), 1024)
     assert tuple(tt.brow.shape) == (2, 16)
     np.testing.assert_array_equal(tt.brow.numpy(), np.asarray(jt.brow))
+
+
+# --- the GMM path's graph stack (kaldi_tpu/fst, hmm, tree, lm copies) ---
+
+# a bigram LM with backoffs over the yesno words: arpa_to_g's history
+# states and #0 backoff arcs
+YESNO_BIGRAM = """\\data\\
+ngram 1=4
+ngram 2=4
+
+\\1-grams:
+-0.5\t</s>
+-99\t<s>\t-0.3
+-0.4\tYES\t-0.2
+-0.6\tNO\t-0.25
+
+\\2-grams:
+-0.2\t<s> YES
+-0.3\tYES NO
+-0.1\tNO </s>
+-0.4\tNO YES
+
+\\end\\
+"""
+LEXICONS = {"yesno": (cs.YESNO_LEXICON, cs.YESNO_ARPA),
+            "yesno_bigram": (cs.YESNO_LEXICON, YESNO_BIGRAM),
+            "rm_like": (cs.RM_LEXICON, cs.rm_unigram_arpa())}
+TRANSCRIPTS = {"yesno": [["YES"], ["NO", "YES"], ["YES", "YES", "NO"],
+                         ["NO", "NO", "NO", "YES"], ["YES", "NO"]],
+               "rm_like": [["ONE", "TWO"], ["THREE", "STOP", "OH"],
+                           ["SEVEN"], ["ZERO", "EIGHT", "NINE", "FOUR"],
+                           ["FIVE", "SIX", "ONE", "ONE", "TWO"]]}
+
+
+def _fst_equal(a, b):
+    assert a.start == b.start
+    assert a.arcs == b.arcs
+    assert a.finals == b.finals
+
+
+def _syms_equal(a, b):
+    assert a._i2s == b._i2s and a._s2i == b._s2i
+
+
+def _gmm_stack(mod_lang, mod_arpa, mod_graph, mod_tm, mod_ctx, name):
+    lex_text, arpa = LEXICONS[name]
+    lang = mod_lang.prepare_lang(mod_lang.Lexicon.parse(lex_text), ["SIL"],
+                                 "SIL", num_sil_states=3)
+    ctx = mod_ctx.MonophoneContextDependency.from_topo(lang.topo)
+    tm = mod_tm.TransitionModel(lang.topo,
+                                lambda ph, pc: ctx.compute([ph], pc))
+    g = mod_arpa.arpa_to_g(mod_arpa.ArpaLm.parse(arpa), lang.words)
+    hclg = mod_graph.make_hclg(lang, g, tm, ctx, self_loop_scale=0.1)
+    return lang, ctx, tm, g, hclg
+
+
+@pytest.fixture(scope="module", params=list(LEXICONS))
+def gmm_stacks(request):
+    j = _gmm_stack(jlang, jarpa, jgraph, jtm, jctx, request.param)
+    t = _gmm_stack(tlang, tarpa, tgraph, ttm, tctx, request.param)
+    return request.param, j, t
+
+
+def test_lang_and_g_equal(gmm_stacks):
+    _name, (jl, _jc, _jt, jg, _jh), (tl, _tc, _tt, tg, _th) = gmm_stacks
+    _syms_equal(jl.phones, tl.phones)
+    _syms_equal(jl.words, tl.words)
+    _fst_equal(jl.L, tl.L)
+    _fst_equal(jl.L_disambig, tl.L_disambig)
+    assert jl.num_disambig == tl.num_disambig
+    assert jl.disambig_phone_ids == tl.disambig_phone_ids
+    _fst_equal(jg, tg)
+
+
+def test_transition_model_equal(gmm_stacks):
+    _name, (_jl, jc, jt, _jg, _jh), (_tl, tc, tt, _tg, _th) = gmm_stacks
+    assert jc.num_pdfs == tc.num_pdfs == jt.num_pdfs == tt.num_pdfs
+    assert jt.tuples == tt.tuples
+    np.testing.assert_array_equal(jt.id2pdf_array, tt.id2pdf_array)
+    np.testing.assert_array_equal(jt.log_probs, tt.log_probs)
+    counts = np.random.RandomState(0).randint(0, 40, jt.num_transition_ids + 1)
+    assert jt.mle_update(counts) == tt.mle_update(counts)
+    np.testing.assert_array_equal(jt.log_probs, tt.log_probs)
+    assert tt.log_probs.dtype == jt.log_probs.dtype == np.float32
+
+
+def test_hclg_and_pack_graph_equal(gmm_stacks):
+    name, (_jl, _jc, jt, _jg, jh), (_tl, _tc, tt, _tg, th) = gmm_stacks
+    _fst_equal(jh.fst, th.fst)
+    _assert_fields_equal(jgp.pack_graph(jh.fst, jt.id2pdf_array),
+                         tgp.pack_graph(th.fst, tt.id2pdf_array))
+    want = {"yesno": 17, "rm_like": 86}.get(name)
+    assert want is None or th.fst.num_states == want
+
+
+@pytest.mark.parametrize("name", list(TRANSCRIPTS))
+def test_training_graphs_and_pack_graphs_equal(name):
+    stacks = []
+    for mods in ((jlang, jarpa, jgraph, jtm, jctx),
+                 (tlang, tarpa, tgraph, ttm, tctx)):
+        lang, ctx, tm, _g, _h = _gmm_stack(*mods, name)
+        comp = mods[2].TrainingGraphCompiler(lang, tm, ctx, 1.0, 0.1)
+        stacks.append((tm, [comp.compile_transcript(w)
+                            for w in TRANSCRIPTS[name]]))
+    (jt, jfs), (tt, tfs) = stacks
+    for a, b in zip(jfs, tfs):
+        _fst_equal(a, b)
+    _assert_fields_equal(jgp.pack_graphs(jfs, jt.id2pdf_array),
+                         tgp.pack_graphs(tfs, tt.id2pdf_array))
+
+
+def test_nphone_context_is_not_ported():
+    lang, _ctx, tm, g, _h = _gmm_stack(tlang, tarpa, tgraph, ttm, tctx,
+                                       "yesno")
+
+    class Tri(tctx.ContextDependency):
+        context_width, central_position = 3, 1
+
+    with pytest.raises(NotImplementedError):
+        tgraph.make_hclg(lang, g, tm, Tri())
+
+
+def test_compute_wer_equals_jax():
+    """The copy of utils/wer.py scores as JAX's, and chip_smoke's corpus
+    WER is its percentage."""
+    rng = np.random.RandomState(0)
+    for _ in range(50):
+        n = rng.randint(1, 5)
+        refs = {i: list(rng.randint(0, 4, rng.randint(0, 7)))
+                for i in range(n)}
+        hyps = {i: list(rng.randint(0, 4, rng.randint(0, 7)))
+                for i in range(n) if rng.rand() > 0.2}
+        j, t = jwer.compute_wer(refs, hyps), twer.compute_wer(refs, hyps)
+        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+        assert str(t) == str(j)
+        assert cs.wer(list(refs.values()),
+                      [hyps.get(i, []) for i in refs]) == j.wer
+        r, h = refs[0], hyps.get(0, [])
+        assert twer.levenshtein_alignment(r, h) == \
+            jwer.levenshtein_alignment(r, h)

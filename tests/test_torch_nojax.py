@@ -5,9 +5,10 @@ every kaldi_tpu_torch module (the int8 path, AmNnet, the streaming
 server, the lattice modules, the training modules and the online path
 among them) and chip_smoke.py's helpers import, and a small decode, a
 record decode and its lattices (native and numpy), two train steps of a
-tiny TDNN with clipping, momentum and NG-SGD, and the online path (MFCC
+tiny TDNN with clipping, momentum and NG-SGD, the online path (MFCC
 and deltas, the padded decoder, both fused engines, the nnet2 decoder
-with i-vectors) run on the CPU. (kaldi_tpu/decoder/__init__.py imports the
+with i-vectors), the dense decoder on the yesno HCLG and the port's
+`recipe-yesno` (the GMM path end to end) run on the CPU. (kaldi_tpu/decoder/__init__.py imports the
 jax decoders, so reaching into kaldi_tpu.decoder from the port would fail
 here.)
 """
@@ -52,7 +53,19 @@ for n in ("kaldi_tpu_torch.cuda_build", "kaldi_tpu_torch.nnet.quantized",
           "kaldi_tpu_torch.gmm.diag_gmm", "kaldi_tpu_torch.gmm.full_gmm",
           "kaldi_tpu_torch.ivector.extractor",
           "kaldi_tpu_torch.online.ivector",
-          "kaldi_tpu_torch.online.nnet2_decoding"):
+          "kaldi_tpu_torch.online.nnet2_decoding",
+          "kaldi_tpu_torch.fst.fst", "kaldi_tpu_torch.fst.compose",
+          "kaldi_tpu_torch.fst.determinize", "kaldi_tpu_torch.fst.minimize",
+          "kaldi_tpu_torch.fst.epsilon", "kaldi_tpu_torch.fst.hmm_graph",
+          "kaldi_tpu_torch.fst.lang", "kaldi_tpu_torch.fst.graph",
+          "kaldi_tpu_torch.hmm.topology",
+          "kaldi_tpu_torch.hmm.transition_model",
+          "kaldi_tpu_torch.tree.context_dep", "kaldi_tpu_torch.lm.arpa",
+          "kaldi_tpu_torch.utils.wer", "kaldi_tpu_torch.gmm.am_gmm",
+          "kaldi_tpu_torch.gmm.estimation",
+          "kaldi_tpu_torch.decoder.decodable",
+          "kaldi_tpu_torch.decoder.viterbi", "kaldi_tpu_torch.decoder.dense",
+          "kaldi_tpu_torch.steps.mono", "kaldi_tpu_torch.cli"):
     assert n in names, n
 import chip_smoke
 from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder, CsrBeamOpts
@@ -142,6 +155,15 @@ dec = SingleUtteranceNnet2Decoder(
 dec.pipeline.accept_waveform(wave)
 dec.finalize_decoding()
 assert dec.best_path() is not None
+from kaldi_tpu_torch import cli
+from kaldi_tpu_torch.decoder.dense import DenseDecoderOpts, make_decoder
+_lang, _ctx, tm, yes = chip_smoke.gmm_stack(chip_smoke.YESNO_LEXICON,
+                                            chip_smoke.YESNO_ARPA)
+llg = np.random.RandomState(2).randn(2, 30, tm.num_pdfs).astype(np.float32)
+d = make_decoder(yes, device="cpu")
+assert d.opts == DenseDecoderOpts(eps_expansions=1), d.opts
+assert all(r is not None for r in d.decode(llg, np.array([30, 20])))
+assert cli.main(["recipe-yesno", "--device", "cpu"]) == 0
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
        or m.startswith("kaldi_tpu.")]
 assert not bad, bad
@@ -155,4 +177,4 @@ def test_port_imports_and_decodes_without_jax():
     r = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split("modules")[-1]) >= 34, r.stdout
+    assert int(r.stdout.split("modules")[-1]) >= 60, r.stdout

@@ -215,6 +215,16 @@ def test_unported_options_raise(fx, kw):
         FusedStreamingServer(fx["am"], fx["dec"], fx["fb"], **SERVE, **kw)
 
 
+def test_mesh_axis_keyword_is_accepted(fx):
+    """JAX's server takes `mesh_axis`; with mesh=None the port's server
+    takes it too and serves as without it."""
+    srv = FusedStreamingServer(fx["am"], fx["dec"], fx["fb"], **SERVE,
+                               mesh=None, mesh_axis="data")
+    wave = _waves(51, (9000,))[0]
+    (got,) = _reuse(srv, [wave])
+    _same(got, _offline(fx, wave), "mesh_axis server vs the offline decode")
+
+
 def _close_paths(got, want, what):
     """The same (words, tids) paths, each cost within 1e-2."""
     assert (got is None) == (want is None), what
