@@ -97,7 +97,30 @@ Phases (any failure raises and the script exits non-zero):
      same shape of 25-word rm-like utterances through the rm-like HCLG's
      sequential path from (a)'s loglikes; the gather and qaffine must not
      launch; --profile adds one profiled realignment and one launch of
-     (b) and of (c).
+     (b) and of (c);
+ 19. triphone ladder, small, at tests/test_triphone_e2e.py's and
+     test_sat_lda.py's sizes and options, card vs CPU: the tree from card
+     and CPU alignments (identical), train_deltas' first EM iteration
+     from its init (parameters within 1e-5, loglikes within 1e-5 of their
+     GEMM terms' magnitude), train_deltas on the card with its N-phone HCLG by
+     make_hclg and make_hclg_flat decoding alike (WER 0); LDA from card
+     and CPU statistics (1e-5), MLLT's G (1e-4 of its terms' magnitude:
+     near-tied gaussians amplify the loglikes' f32 error in the
+     posteriors) and the objective each device's MLLT reaches (1e-5),
+     train_lda_mllt on the card (WER 0); fMLLR statistics and transforms
+     (1e-4), their auxiliary function and apply_affine_transform (1e-5),
+     train_sat on the card and decode_fmllr giving the same words on card
+     and CPU (SAT <= SI < 25);
+ 20. triphone ladder, full width: tests/test_ladder_full.py's corpus (120
+     words over 30 phones, 5 speakers, 200 training and 40 test
+     utterances) and options on the card: train_mono -> train_deltas ->
+     train_lda_mllt -> train_tdnn, each decoded through make_hclg_flat +
+     CsrBeamDecoder (beam 14, max_active 1024, expand_budget 16384), with
+     seconds and ms per iteration by phase; PARITY.md's rungs (tri < mono
+     - 8, lda <= tri, tdnn <= lda + 1) and bars (35 / 12 / 7 / 7) must
+     hold; then train_sat from tri and decode_fmllr, SAT <= SI; both graph
+     pipelines timed on tri's HCLG; qaffine must not launch; --profile
+     adds one profiled realignment and one accumulation pass.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error against its plain version, times and bound; the last line
@@ -225,6 +248,133 @@ def rm_corpus(rng, n: int, lo: int = 3, hi: int = 6) -> list:
     return out
 
 
+# tests/test_triphone_e2e.py's corpus: three tone phones shared by four
+# two-phone words (real triphone contexts)
+TRI_PHONE_FREQS = {"A": 400.0, "B": 900.0, "C": 1800.0}
+TRI_LEXICON = "AB A B\nAC A C\nBC B C\nCA C A"
+TRI_WORDS = ["AB", "AC", "BC", "CA"]
+TRI_ARPA = ("\\data\\\nngram 1=6\n\n\\1-grams:\n-1\tAB\n-1\tAC\n-1\tBC\n"
+            "-1\tCA\n-99\t<s>\n-1\t</s>\n\n\\end\\\n")
+
+
+def tri_synth(words, rng) -> np.ndarray:
+    """One utterance of tests/test_triphone_e2e.py's corpus (`synth`): a
+    tone per phone, silences between words, light noise."""
+    sr = GMM_SR
+    chunks = [np.zeros(int(sr * rng.uniform(0.08, 0.12)))]
+    for w in words:
+        for ph in w:  # one char per phone
+            dur = rng.uniform(0.12, 0.2)
+            t = np.arange(int(sr * dur)) / sr
+            f = TRI_PHONE_FREQS[ph] * rng.uniform(0.98, 1.02)
+            tone = np.sin(2 * np.pi * f * t) * 3000 * rng.uniform(0.7, 1.0)
+            env = np.minimum(1.0, np.minimum(
+                np.arange(len(t)), len(t) - np.arange(len(t))) / (0.015 * sr))
+            chunks.append(tone * env)
+        chunks.append(np.zeros(int(sr * rng.uniform(0.08, 0.15))))
+    wave = np.concatenate(chunks)
+    wave += rng.randn(len(wave)) * 20.0
+    return wave.astype(np.float32)
+
+
+def tri_corpus(rng, n: int, featize) -> list:
+    """n (utt, featize(wave), words) of tests/test_triphone_e2e.py's
+    corpus, drawn as its `corpus` draws them."""
+    out = []
+    for i in range(n):
+        words = [TRI_WORDS[rng.randint(len(TRI_WORDS))]
+                 for _ in range(rng.randint(2, 5))]
+        out.append((f"u{i}", featize(tri_synth(words, rng)), words))
+    return out
+
+
+# tests/test_ladder_full.py's corpus (tests/ladder_corpus.py with the
+# vocabulary of test_ladder_full._mv): coarticulated tones over 30 phones,
+# 120 words of 3-5 phones, speakers with fixed frequency warps and
+# amplitude tilts, noise
+LADDER = dict(seed=19, n_words=120, speakers=5, train_per_spk=40,
+              test_per_spk=8, noise=70.0, coart=0.6)
+
+
+def ladder_vocab(rng, n_words: int, n_phones: int = 30):
+    """-> (lexicon text, words): words of 3-5 phones
+    (tests/test_ladder_full.py `_mv`)."""
+    words = [f"W{k:03d}" for k in range(n_words)]
+    lines = []
+    for w in words:
+        L = int(rng.randint(3, 6))
+        seq = " ".join(f"P{rng.randint(n_phones)}" for _ in range(L))
+        lines.append(f"{w} {seq}")
+    return "\n".join(lines), words
+
+
+def ladder_synth(phones, freqs, rng, warp, noise, coart, amp_tilt):
+    """tests/ladder_corpus.py `synth_utt` over a phone-id sequence: each
+    phone a raised-cosine glide between its neighbours' targets."""
+    sr = GMM_SR
+    targets = np.array([freqs[p] for p in phones]) * warp
+    segs = [np.zeros(int(sr * rng.uniform(0.05, 0.1)))]
+    n = len(targets)
+    for i, f0 in enumerate(targets):
+        dur = int(sr * rng.uniform(0.07, 0.14))
+        prev_f = targets[i - 1] if i > 0 else f0
+        next_f = targets[i + 1] if i + 1 < n else f0
+        t = np.arange(dur) / dur
+        a = coart / 2
+        f_in = 0.5 * (prev_f + f0)
+        f_out = 0.5 * (next_f + f0)
+        freq = np.where(
+            t < a, f_in + (f0 - f_in) * 0.5 * (1 - np.cos(np.pi * t / a)),
+            np.where(t > 1 - a,
+                     f0 + (f_out - f0) * 0.5 *
+                     (1 - np.cos(np.pi * (t - (1 - a)) / a)),
+                     f0))
+        ph = np.cumsum(2 * np.pi * freq / sr)
+        amp = 2200.0 * (1.0 + amp_tilt * (f0 / 3400.0 - 0.5))
+        env = np.minimum(1.0, np.minimum(np.arange(dur), dur -
+                                         np.arange(dur)) / (0.010 * sr))
+        segs.append(np.sin(ph) * amp * env * rng.uniform(0.8, 1.0))
+    segs.append(np.zeros(int(sr * rng.uniform(0.05, 0.1))))
+    w = np.concatenate(segs)
+    return (w + rng.randn(len(w)) * noise).astype(np.float32)
+
+
+def ladder_corpus(seed: int, n_words: int, speakers: int,
+                  train_per_spk: int, test_per_spk: int, noise: float,
+                  coart: float, n_phones: int = 30,
+                  words_per_utt=(4, 8)) -> dict:
+    """tests/ladder_corpus.py `build_corpus(RandomState(seed), ...)` with
+    `ladder_vocab`: -> dict(lex_text, words, train, test), the lists of
+    (utt_id, wave, words, spk)."""
+    rng = np.random.RandomState(seed)
+    lex_text, words = ladder_vocab(rng, n_words, n_phones)
+    lexicon = {}
+    for line in lex_text.splitlines():
+        parts = line.split()
+        lexicon[parts[0]] = [int(p[1:]) for p in parts[1:]]
+    mel = 1127.0 * np.log1p(np.array([300.0, 3400.0]) / 700.0)
+    freqs = 700.0 * np.expm1(np.linspace(mel[0], mel[1], n_phones) / 1127.0)
+    warps = {f"s{k}": rng.uniform(0.88, 1.12) for k in range(speakers)}
+    tilts = {f"s{k}": rng.uniform(-0.5, 0.5) for k in range(speakers)}
+
+    def gen(spk, n, tag):
+        out = []
+        for i in range(n):
+            ws = [words[rng.randint(n_words)]
+                  for _ in range(rng.randint(*words_per_utt))]
+            phones = [p for w in ws for p in lexicon[w]]
+            wav = ladder_synth(phones, freqs, rng, warps[spk], noise, coart,
+                               tilts[spk])
+            out.append((f"{tag}_{spk}_{i}", wav, ws, spk))
+        return out
+
+    train, test = [], []
+    for spk in warps:
+        train.extend(gen(spk, train_per_spk, "tr"))
+        test.extend(gen(spk, test_per_spk, "te"))
+    return dict(lex_text=lex_text, words=words, train=train, test=test)
+
+
 def rm_unigram_arpa() -> str:
     """The unigram LM over RM_WORDS of tests/test_rm_like_recipe.py."""
     vocab = list(RM_WORDS)
@@ -233,16 +383,93 @@ def rm_unigram_arpa() -> str:
             "\n\\end\\\n" % (len(vocab) + 2, "\n".join(lines)))
 
 
-def mfcc_deltas(wave, device) -> np.ndarray:
-    """39-dim MFCC + delta + delta-delta of one 8 kHz wave on `device`
-    (the recipes' features), as a host array."""
+def _mfcc(waves, device):
+    """13-dim MFCC of 8 kHz waves ([S] or [B, S]) on `device`, a tensor
+    there (the recipes' options: no dither)."""
     import torch
-    from kaldi_tpu_torch.ops.delta import add_deltas
     from kaldi_tpu_torch.ops.features import MfccOpts, mfcc
     from kaldi_tpu_torch.ops.window import FrameOpts
     fo = MfccOpts(frame_opts=FrameOpts(samp_freq=GMM_SR, dither=0.0))
-    x = torch.as_tensor(wave, device=device)
-    return add_deltas(mfcc(x, fo), order=2, window=2).cpu().numpy()
+    return mfcc(torch.as_tensor(waves, device=device), fo)
+
+
+def mfcc_deltas(wave, device) -> np.ndarray:
+    """39-dim MFCC + delta + delta-delta of one 8 kHz wave on `device`
+    (the recipes' features), as a host array."""
+    from kaldi_tpu_torch.ops.delta import add_deltas
+    return add_deltas(_mfcc(wave, device), order=2, window=2).cpu().numpy()
+
+
+def mfcc_raw(wave, device) -> np.ndarray:
+    """13-dim MFCC of one 8 kHz wave on `device` (the LDA recipes' input,
+    spliced before projection), as a host array."""
+    return _mfcc(wave, device).cpu().numpy()
+
+
+# tests/test_sat_lda.py's corpora and options (yesno tones)
+SAT_LDA_MONO = dict(num_iters=8, totgauss=40, max_iter_inc=6,
+                    realign_iters=tuple(range(1, 8)))
+LDA_SMALL = dict(num_iters=10, totgauss=60, max_iter_inc=8, num_leaves=20,
+                 lda_dim=20, realign_iters=tuple(range(1, 10)),
+                 mllt_iters=(3, 6))
+SAT_SMALL = dict(num_iters=10, totgauss=60, max_iter_inc=8, num_leaves=20,
+                 realign_iters=tuple(range(1, 10)), fmllr_iters=(3, 6),
+                 fmllr_min_count=50.0)
+
+
+def _yesno_words(rng) -> list:
+    return [rng.choice(["YES", "NO"]) for _ in range(rng.randint(2, 5))]
+
+
+def lda_corpus(device) -> tuple:
+    """test_train_lda_mllt_pipeline's data: 20 training utterances from
+    RandomState(5) featurized with deltas (for the monophone) and raw (for
+    LDA), then 6 test utterances, raw. -> (train_delta, train_raw, test),
+    lists of (utt, feats, words)."""
+    rng = np.random.RandomState(5)
+    waves = []
+    for i in range(20):
+        ws = _yesno_words(rng)
+        waves.append((f"u{i}", yesno_synth(ws, rng), ws))
+    test = []
+    for i in range(6):
+        ws = _yesno_words(rng)
+        test.append((f"t{i}", mfcc_raw(yesno_synth(ws, rng), device), ws))
+    return ([(u, mfcc_deltas(w, device), ws) for u, w, ws in waves],
+            [(u, mfcc_raw(w, device), ws) for u, w, ws in waves], test)
+
+
+def sat_corpus(device) -> tuple:
+    """test_train_sat_beats_si_on_warped_speakers's data: 3 speakers, each
+    a fixed affine distortion of the 39-dim features, 7 training
+    utterances each from RandomState(6) and 3 test utterances each from
+    RandomState(100 + k). -> (train [(utt, feats, words, spk)], test
+    [(utt, feats, spk)], refs {utt: words})."""
+    rng = np.random.RandomState(6)
+    D = 39
+    warps = {}
+    for s in range(3):
+        warps[f"s{s}"] = (np.eye(D) + rng.randn(D, D) * 0.05,
+                          rng.randn(D) * 1.5)
+
+    def corpus(rng, n, spk, warp):
+        out = []
+        for i in range(n):
+            ws = _yesno_words(rng)
+            f = mfcc_deltas(yesno_synth(ws, rng), device)
+            f = f @ warp[0].T + warp[1]
+            out.append((f"u{spk}_{i}", f.astype(np.float32), ws))
+        return out
+
+    train = [(u, f, ws, s) for s, warp in warps.items()
+             for (u, f, ws) in corpus(rng, 7, s, warp)]
+    test, refs = [], {}
+    for s, warp in warps.items():
+        for (u, f, ws) in corpus(np.random.RandomState(100 + int(s[1])), 3,
+                                 "t" + s, warp):
+            test.append((u, f, s))
+            refs[u] = ws
+    return train, test, refs
 
 
 def pad_batch(feats_list: list) -> tuple:
@@ -2042,6 +2269,42 @@ def _gmm_corpus_small(name: str):
             for i, (ws, w) in enumerate(zip(words, waves))]
 
 
+def em_card_vs_cpu(name: str, models: dict, batch, feats, nf, opts, align,
+                   target) -> tuple[float, float]:
+    """One EM iteration of the same GMM-HMM on the card and on the CPU
+    (`models` {"cpu": ..., "cuda": ...}): the loglikes, Viterbi alignments
+    (or `align`, one per device, when given), statistics and update. The
+    alignments must be identical; the updated parameters within 1e-5
+    (`_same_gmm_models`); the loglikes and tot_like within 1e-5 of the sums
+    of absolute GEMM terms behind them (`gmm_term_scale`). -> (parameter
+    error, loglike error)."""
+    from kaldi_tpu_torch.decoder.viterbi import viterbi_align
+    from kaldi_tpu_torch.steps import mono
+    scale = gmm_term_scale(models["cpu"].am, feats)
+    real = np.arange(feats.shape[1])[None, :] < nf[:, None]
+    ll_errs = []
+    if align is None:
+        lls = {d: m.am.loglikes(feats) for d, m in models.items()}
+        ll_errs.append(float(np.max(np.abs(
+            lls["cuda"].cpu().numpy() - lls["cpu"].numpy()) / scale)))
+        align = {d: viterbi_align(batch, lls[d], nf, opts.acoustic_scale,
+                                  device=d) for d in models}
+        _same_alignments(f"{name}: viterbi_align", align["cuda"],
+                         align["cpu"])
+    accs = {}
+    for d, md in models.items():
+        acc, tc, _n = mono._accumulate(md, feats, nf, align[d])
+        mono._update(md, acc, tc, opts, target)
+        accs[d] = acc
+    ll_errs.append(abs(accs["cuda"].tot_like - accs["cpu"].tot_like)
+                   / float(scale.max(axis=-1)[real].sum()))
+    err = _same_gmm_models(name, models["cuda"], models["cpu"], 1e-5)
+    if not max(ll_errs) <= 1e-5:
+        raise AssertionError(f"{name}: card vs CPU loglikes {max(ll_errs):.3e}"
+                             f" of their GEMM terms' magnitude (limit 1e-5)")
+    return err, max(ll_errs)
+
+
 def phase_gmm_small():
     """Card vs CPU at small shapes: GMM log-likelihoods; equal and Viterbi
     alignment and one EM iteration on yesno and rm-like training graphs;
@@ -2084,33 +2347,12 @@ def phase_gmm_small():
         _same_alignments(f"{name} equal_align", eq["cuda"], eq["cpu"])
         errs, ll_errs = [], []
         for it in range(2):          # the equal-align pass, then one EM
-            # the loglikes' and tot_like's errors, as shares of the sums
-            # of absolute GEMM terms behind them
-            scale = gmm_term_scale(models["cpu"].am, feats)
-            real = np.arange(feats.shape[1])[None, :] < nf[:, None]
-            if it:
-                lls = {d: models[d].am.loglikes(feats) for d in models}
-                ll_errs.append(float(np.max(np.abs(
-                    lls["cuda"].cpu().numpy() - lls["cpu"].numpy()) / scale)))
-                al = {d: viterbi_align(batch, lls[d], nf, 0.1, device=d)
-                      for d in models}
-                _same_alignments(f"{name} viterbi_align", al["cuda"],
-                                 al["cpu"])
-            else:
-                al = eq
-            accs = {}
-            for d, md in models.items():
-                acc, tc, _n = mono._accumulate(md, feats, nf, al[d])
-                mono._update(md, acc, tc, mono.MonoTrainOpts(),
-                             md.am.total_gauss + 8 if it else None)
-                accs[d] = acc
-            ll_errs.append(abs(accs["cuda"].tot_like - accs["cpu"].tot_like)
-                           / float(scale.max(axis=-1)[real].sum()))
-            errs.append(_same_gmm_models(f"{name} EM iteration {it}",
-                                         models["cuda"], models["cpu"], 1e-5))
-        if not max(errs + ll_errs) <= 1e-5:
-            raise AssertionError(f"{name} EM: card vs CPU statistics "
-                                 f"{max(errs):.3e}, loglikes {max(ll_errs):.3e}")
+            err, ll_err = em_card_vs_cpu(
+                f"{name} EM iteration {it}", models, batch, feats, nf,
+                mono.MonoTrainOpts(), eq if it == 0 else None,
+                models["cpu"].am.total_gauss + 8 if it else None)
+            errs.append(err)
+            ll_errs.append(ll_err)
         log(f"  {name}: {len(utts)} training graphs ({batch.src.shape[1]} "
             f"arcs padded): equal_align and viterbi_align identical; one EM "
             f"iteration card vs CPU: parameters {max(errs):.3e}, loglikes "
@@ -2331,6 +2573,581 @@ def phase_gmm_full(tr: dict, card: str, profile: bool = False) -> dict:
     return {"rate_toy": rate_b, "rate_rm": rate_c, "wer": corpus_wer}
 
 
+# the triphone ladder's small checks (phase 19): test_triphone_e2e.py's
+# options on its corpus
+TRI_MONO = dict(num_iters=10, totgauss=40, max_iter_inc=6,
+                realign_iters=tuple(range(1, 10)))
+TRI_SMALL = dict(num_iters=15, totgauss=100, max_iter_inc=10, num_leaves=25,
+                 tree_thresh=20.0, realign_iters=(2, 4, 6, 8, 10, 12))
+
+
+def gmm_model_on(model, device):
+    """A copy of a GMM-HMM `MonoModel` with its AmDiagGmm on `device` and
+    a transition model of its own (EM updates both in place)."""
+    import copy
+    from kaldi_tpu_torch.gmm.am_gmm import AmDiagGmm
+    from kaldi_tpu_torch.steps.mono import MonoModel
+    return MonoModel(AmDiagGmm([p.copy() for p in model.am.pdfs], device),
+                     copy.deepcopy(model.trans_model), model.ctx_dep,
+                     model.lang)
+
+
+def trees_equal(a, b) -> bool:
+    """Two event maps node for node: kinds, keys, question sets, table
+    orders and answers."""
+    kind = type(a).__name__
+    if kind != type(b).__name__:
+        return False
+    if kind == "ConstantEventMap":
+        return a.answer == b.answer
+    if kind == "TableEventMap":
+        return (a.key == b.key and list(a.table) == list(b.table)
+                and all(trees_equal(a.table[v], b.table[v]) for v in a.table))
+    return (a.key == b.key and a.yes_set == b.yes_set
+            and trees_equal(a.yes, b.yes) and trees_equal(a.no, b.no))
+
+
+def affine_term_scale(x, W) -> np.ndarray:
+    """|x| @ |A|^T + |b| in f64: the sum of the absolute terms behind each
+    output of the affine map W = [A, b] (an f32 product can be off by some
+    1e-7 of it, in an order that differs between devices)."""
+    W = np.abs(np.asarray(W, np.float64))
+    return np.abs(np.asarray(x, np.float64)) @ W[:, :-1].T + W[:, -1]
+
+
+def fmllr_term_scale(am, feats, pdfs):
+    """The fMLLR statistics (K, G) of `feats` aligned to `pdfs` with every
+    gaussian of the frame's pdf at posterior 1 and each term's absolute
+    value: the scale of the card-vs-CPU errors of `FmllrStats`."""
+    from kaldi_tpu_torch.transform.fmllr import FmllrStats
+    means = np.concatenate([p.means for p in am.pdfs])
+    variances = np.concatenate([p.vars for p in am.pdfs])
+    offsets = np.cumsum([0] + [p.num_gauss for p in am.pdfs])
+    mask = np.zeros((len(pdfs), len(means)))
+    for t, p in enumerate(pdfs):
+        mask[t, offsets[p]:offsets[p + 1]] = 1.0
+    st = FmllrStats(am.dim)
+    st.accumulate(np.abs(np.asarray(feats, np.float64)), np.abs(means),
+                  variances, mask)
+    return st
+
+
+def mllt_term_scale(am, feats, pdfs) -> np.ndarray:
+    """MLLT's G of `feats` aligned to `pdfs` with every gaussian of the
+    frame's pdf at posterior 1 and |x - mu| in place of x - mu."""
+    means = np.concatenate([p.means for p in am.pdfs])
+    variances = np.concatenate([p.vars for p in am.pdfs])
+    offsets = np.cumsum([0] + [p.num_gauss for p in am.pdfs])
+    x = np.asarray(feats, np.float64)
+    D = x.shape[1]
+    G = np.zeros((D, D, D))
+    for p in np.unique(pdfs):
+        rows = x[pdfs == p]
+        for m in range(offsets[p], offsets[p + 1]):
+            d = np.abs(rows - means[m])
+            G += (d.T @ d)[None] / variances[m][:, None, None]
+    return G
+
+
+def _worst(got, want, scale) -> float:
+    return float(np.max(np.abs(np.asarray(got, np.float64)
+                               - np.asarray(want, np.float64))
+                        / np.maximum(scale, 1e-300)))
+
+
+# phase 19's card-vs-CPU limits for what the device's Gaussian posteriors
+# feed: the MLLT and fMLLR statistics (relative to their terms' magnitude)
+# and the transforms estimated from them (relative to their largest
+# entry). The f32 loglikes agree to some 1e-7 of their GEMM terms, but
+# gaussians of one pdf that nearly tie turn that into posterior
+# differences far above it: MLLT's G differed by 2.399e-05 of its terms'
+# magnitude on the card (PERF.md). Everything else is held to 1e-5.
+POSTERIOR_STATS_LIMIT = 1e-4
+
+
+class _Limits:
+    """Collects every check of a phase and raises once, at the end, with
+    all that failed."""
+
+    def __init__(self):
+        self.failed: list[str] = []
+
+    def __call__(self, what: str, err: float, lim: float = 1e-5) -> float:
+        if not err <= lim:
+            self.failed.append(f"{what}: {err:.3e} (limit {lim})")
+        return err
+
+    def require(self, what: str, ok: bool):
+        if not ok:
+            self.failed.append(what)
+
+    def done(self, phase: str):
+        if self.failed:
+            raise AssertionError(f"{phase}: " + "; ".join(self.failed))
+
+
+def ladder_decoder(model, arpa: str, opts, device, flat: bool = True):
+    """`model`'s HCLG over the ARPA LM, by the flat pipeline
+    (make_hclg_flat, pack_graph_flat) or the object one (make_hclg,
+    pack_graph), behind a `CsrBeamDecoder` on `device` -> (decoder, graph
+    build seconds)."""
+    from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder
+    from kaldi_tpu_torch.decoder.graph_pack import pack_graph
+    from kaldi_tpu_torch.fst.graph import make_hclg
+    from kaldi_tpu_torch.fst.mkgraph_flat import make_hclg_flat, pack_graph_flat
+    from kaldi_tpu_torch.lm.arpa import ArpaLm, arpa_to_g
+    t = time.perf_counter()
+    lang, tm = model.lang, model.trans_model
+    g = arpa_to_g(ArpaLm.parse(arpa), lang.words)
+    if flat:
+        hclg, _st = make_hclg_flat(lang, g, tm, model.ctx_dep,
+                                   self_loop_scale=0.1)
+        packed = pack_graph_flat(hclg, tm.id2pdf_array)
+    else:
+        hclg = make_hclg(lang, g, tm, model.ctx_dep, self_loop_scale=0.1)
+        packed = pack_graph(hclg.fst, tm.id2pdf_array)
+    return CsrBeamDecoder(packed, opts, device=device), \
+        time.perf_counter() - t
+
+
+def _same_decodes(what: str, got: list, want: list, rel: float = 1e-4):
+    """Identical words and tids, costs within rel."""
+    for b, (g, w) in enumerate(zip(got, want)):
+        if (g is None) != (w is None) or (w is not None and (
+                list(g[0]) != list(w[0]) or list(g[1]) != list(w[1])
+                or abs(g[2] - w[2]) > rel * max(abs(w[2]), 1.0))):
+            raise AssertionError(f"{what}: utterance {b} decodes differently")
+
+
+def phase_ladder_small():
+    """Card vs CPU at tests/test_triphone_e2e.py's and test_sat_lda.py's
+    sizes: the triphone tree, the first EM iteration from it, the N-phone
+    graphs (object and flat pipelines decode alike), LDA and MLLT
+    transforms from card and CPU statistics, fMLLR statistics and
+    transforms, the affine transform, and decode_fmllr."""
+    import copy
+
+    import torch
+    from kaldi_tpu_torch.decoder.csr_beam import CsrBeamOpts
+    from kaldi_tpu_torch.ops.delta import splice_frames
+    from kaldi_tpu_torch.steps import deltas, lda_mllt, mono, sat, tdnn
+    from kaldi_tpu_torch.transform import fmllr, lda, mllt
+
+    check = _Limits()
+    # (a) the tree and train_deltas' first EM iteration
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(11)
+    train = tri_corpus(rng, 30, lambda w: mfcc_deltas(w, "cpu"))
+    test = tri_corpus(rng, 8, lambda w: mfcc_deltas(w, "cpu"))
+    lang = gmm_stack(TRI_LEXICON, TRI_ARPA)[0]
+    mono_cpu = mono.train_mono(lang, train, mono.MonoTrainOpts(**TRI_MONO),
+                               device="cpu")
+    monos = {"cpu": mono_cpu, "cuda": gmm_model_on(mono_cpu, "cuda")}
+    opts = deltas.DeltasTrainOpts(**TRI_SMALL)
+    trees = {d: deltas.build_triphone_tree(lang, m, train, opts)
+             for d, m in monos.items()}
+    (cc, ctm, cls), (gc, gtm, gls) = trees["cpu"], trees["cuda"]
+    if not (trees_equal(cc.event_map, gc.event_map)
+            and np.array_equal(ctm.id2pdf_array, gtm.id2pdf_array)
+            and all((a is None and b is None) or (
+                a.count == b.count and np.array_equal(a.x, b.x)
+                and np.array_equal(a.x2, b.x2)) for a, b in zip(cls, gls))):
+        raise AssertionError("triphone tree: card and CPU differ")
+    models = {d: mono.MonoModel(deltas.init_am_from_leaf_stats(cls, 39, d),
+                                copy.deepcopy(ctm), cc, lang) for d in monos}
+    batch, feats, nf = mono.compile_and_pad(lang, ctm, cc, train,
+                                            opts.transition_scale,
+                                            opts.self_loop_scale)
+    # the first EM iteration from the tree's one-gaussian init (a later
+    # one, after the split into near copies, moves posterior mass between
+    # near-tied gaussians by the loglikes' f32 error: PERF.md)
+    err, ll_err = em_card_vs_cpu("train_deltas EM iteration 1", models,
+                                 batch, feats, nf, opts, None,
+                                 models["cpu"].am.total_gauss + 40)
+    log(f"  (a) tri corpus: {len(train)} utterances; tree from card and CPU "
+        f"alignments identical ({cc.num_pdfs} leaves from "
+        f"{mono_cpu.am.num_pdfs} monophone pdfs, leaf statistics equal); "
+        f"train_deltas' first EM iteration card vs CPU: parameters "
+        f"{err:.3e}, loglikes and tot_like {ll_err:.3e} of their GEMM "
+        f"terms' magnitude (limits 1e-5), "
+        f"{models['cuda'].am.total_gauss} gaussians")
+
+    # (b) train_deltas on the card; its N-phone HCLG by both pipelines
+    tri = deltas.train_deltas(lang, train, monos["cuda"], opts)
+    copts = CsrBeamOpts(beam=200.0, max_active=512, acoustic_scale=0.1)
+    tfeats, tnf = pad_batch([f for _u, f, _w in test])
+    ll = tri.am.loglikes(tfeats)
+    res = {}
+    for flat in (True, False):
+        dec, secs = ladder_decoder(tri, TRI_ARPA, copts, "cuda", flat)
+        res[flat] = (dec.decode(ll, tnf), dec.graph.num_states, secs)
+    _same_decodes("N-phone HCLG, flat vs object pipeline", res[True][0],
+                  res[False][0])
+    tri_wer = wer([w for _u, _f, w in test],
+                  [[lang.words.sym(x) for x in r[0]] if r else []
+                   for r in res[True][0]])
+    check("train_deltas on the card: test WER", tri_wer, 0.0)
+    log(f"  (b) train_deltas on the card: {tri.am.num_pdfs} leaves, "
+        f"{tri.am.total_gauss} gaussians; N-phone HCLG by make_hclg_flat "
+        f"({res[True][1]} states, {res[True][2]:.3f} s) and make_hclg "
+        f"({res[False][1]} states, {res[False][2]:.3f} s) decode alike "
+        f"through CsrBeamDecoder on the card; WER {tri_wer:.2f}")
+
+    # (c) LDA and MLLT from card and CPU statistics
+    ylang = gmm_stack(YESNO_LEXICON, YESNO_ARPA)[0]
+    train_d, train_r, test_r = lda_corpus("cpu")
+    ymono = mono.train_mono(ylang, train_d,
+                            mono.MonoTrainOpts(**SAT_LDA_MONO), device="cpu")
+    lopts = lda_mllt.LdaMlltTrainOpts(**LDA_SMALL)
+    A, M, mstats, spliced_err = {}, {}, {}, 0.0
+    for d in ("cpu", "cuda"):
+        m = gmm_model_on(ymono, d)
+        ali = tdnn.align_with_gmm(m, train_d)
+        st, mst = lda.LdaStats(m.am.num_pdfs, 13 * 7), mllt.MlltStats(39)
+        for (f, pdfs), (_u, raw, _w) in zip(ali, train_r):
+            sp = splice_frames(torch.as_tensor(raw, device=d), 3, 3)
+            spliced_err = max(spliced_err, float(np.max(np.abs(
+                sp.cpu().numpy() - splice_frames(torch.as_tensor(raw), 3,
+                                                 3).numpy()))))
+            st.accumulate(sp.cpu().numpy()[: len(pdfs)], pdfs)
+            lda_mllt.accumulate_mllt_from_alignment(m.am, f, pdfs, mst)
+        A[d] = lda.estimate_lda(st, lopts.lda_dim)[0]
+        M[d] = mllt.update_mllt(mst)[0]
+        mstats[d] = mst
+    check("splice on the card vs CPU", spliced_err, 0.0)
+    g_scale = sum(mllt_term_scale(ymono.am, f, p)
+                  for f, p in tdnn.align_with_gmm(ymono, train_d))
+    # MLLT's optimum is ill-conditioned along some rows: the transforms are
+    # compared by the objective each reaches on the CPU's statistics
+    objf = {d: mllt.mllt_objf(mstats["cpu"], np.asarray(M[d], np.float64))
+            for d in M}
+    errs = {"LDA": _worst(A["cuda"], A["cpu"], np.abs(A["cpu"]).max()),
+            "MLLT G": _worst(mstats["cuda"].G, mstats["cpu"].G, g_scale),
+            "MLLT objective": abs(objf["cuda"] - objf["cpu"])
+            / abs(objf["cpu"])}
+    m_entry = _worst(M["cuda"], M["cpu"], np.abs(M["cpu"]).max())
+    check("LDA card vs CPU", errs["LDA"])
+    check("MLLT G card vs CPU", errs["MLLT G"], POSTERIOR_STATS_LIMIT)
+    check("MLLT objective card vs CPU", errs["MLLT objective"])
+    res_lda = lda_mllt.train_lda_mllt(ylang, train_d, train_r,
+                                      gmm_model_on(ymono, "cuda"), lopts)
+    lfeats, lnf = pad_batch([res_lda.transform_feats(f, lopts)
+                             for _u, f, _w in test_r])
+    dec, _s = ladder_decoder(res_lda.model, YESNO_ARPA, copts, "cuda")
+    lda_wer = wer([w for _u, _f, w in test_r],
+                  [[ylang.words.sym(x) for x in r[0]] if r else []
+                   for r in dec.decode(res_lda.model.am.loglikes(lfeats),
+                                       lnf)])
+    check("train_lda_mllt on the card: test WER", lda_wer, 0.0)
+    log(f"  (c) LDA+MLLT, yesno: splice identical; from card and CPU "
+        f"statistics: " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+        + f" (LDA relative to its largest entry, G to its terms' magnitude, "
+        f"the objective of each device's MLLT on the CPU's statistics to "
+        f"itself; limits 1e-5, {POSTERIOR_STATS_LIMIT} for G; the MLLT "
+        f"matrices differ by {m_entry:.3e} of their largest entry); "
+        f"train_lda_mllt on the card: a "
+        f"{list(res_lda.transform.shape)} transform, WER {lda_wer:.2f}")
+
+    # (d) fMLLR statistics, transforms and decode_fmllr
+    strain, stest, refs = sat_corpus("cpu")
+    smono = mono.train_mono(ylang, [(u, f, w) for u, f, w, _s in strain],
+                            mono.MonoTrainOpts(**SAT_LDA_MONO), device="cpu")
+    ali = tdnn.align_with_gmm(smono, [(u, f, w) for u, f, w, _s in strain])
+    spk = [s for _u, _f, _w, s in strain]
+    stats = {d: {} for d in ("cpu", "cuda")}
+    for d in stats:
+        m = gmm_model_on(smono, d)
+        for (f, pdfs), s in zip(ali, spk):
+            stats[d].setdefault(s, fmllr.FmllrStats(39)) \
+                .accumulate_from_alignment(m.am, f, pdfs)
+    errs = {"K": 0.0, "G": 0.0, "W": 0.0, "auxf": 0.0, "y": 0.0}
+    for s in stats["cpu"]:
+        sc = fmllr.FmllrStats(39)
+        for (f, pdfs), s2 in zip(ali, spk):
+            if s2 == s:
+                sc.add(fmllr_term_scale(smono.am, f, pdfs))
+        c, g = stats["cpu"][s], stats["cuda"][s]
+        errs["K"] = max(errs["K"], _worst(g.K, c.K, sc.K))
+        errs["G"] = max(errs["G"], _worst(g.G, c.G, sc.G))
+        W = {d: fmllr.estimate_fmllr(stats[d][s], min_count=50.0)[0]
+             for d in stats}
+        errs["W"] = max(errs["W"], _worst(W["cuda"], W["cpu"],
+                                          np.abs(W["cpu"]).max()))
+        aux = {d: fmllr.fmllr_auxf(np.asarray(W[d], np.float64), c)
+               for d in W}
+        errs["auxf"] = max(errs["auxf"], abs(aux["cuda"] - aux["cpu"])
+                           / abs(aux["cpu"]))
+        x = strain[spk.index(s)][1]
+        y = {d: fmllr.apply_affine_transform(x, W["cpu"], d).cpu().numpy()
+             for d in stats}
+        errs["y"] = max(errs["y"], _worst(y["cuda"], y["cpu"],
+                                          np.abs(y["cpu"]).max()))
+    for k, e in errs.items():
+        check(f"fMLLR {k} card vs CPU", e,
+              1e-5 if k in ("auxf", "y") else POSTERIOR_STATS_LIMIT)
+    sat_card = sat.train_sat(ylang, strain, gmm_model_on(smono, "cuda"),
+                             sat.SatTrainOpts(**SAT_SMALL))
+    sat_cpu = sat.SatModel(gmm_model_on(sat_card.model, "cpu"),
+                           dict(sat_card.transforms))
+    hyps = {}
+    for d, model in (("cuda", sat_card), ("cpu", sat_cpu)):
+        dec, _s = ladder_decoder(model.model, YESNO_ARPA, copts, d)
+        hyps[d] = sat.decode_fmllr(model, dec, stest, ylang,
+                                   fmllr_min_count=50.0)
+    check("decode_fmllr: utterances whose words differ on card and CPU",
+          sum(hyps["cuda"][u] != hyps["cpu"][u] for u in hyps["cpu"]), 0)
+    want = [refs[u] for u, _f, _s in stest]
+    sat_wer = wer(want, [[ylang.words.sym(x) for x in hyps["cuda"][u]]
+                         for u, _f, _s in stest])
+    sfeats, snf = pad_batch([f for _u, f, _s in stest])
+    dec, _s = ladder_decoder(sat_card.model, YESNO_ARPA, copts, "cuda")
+    si_wer = wer(want, [[ylang.words.sym(x) for x in r[0]] if r else []
+                        for r in dec.decode(sat_card.model.am.loglikes(sfeats),
+                                            snf)])
+    check.require(f"SAT WER {sat_wer:.2f} <= SI {si_wer:.2f} and < 25",
+                  sat_wer <= si_wer and sat_wer < 25.0)
+    log(f"  (d) fMLLR, 3 warped speakers: card vs CPU statistics K "
+        f"{errs['K']:.3e}, G {errs['G']:.3e} of their terms' magnitude and "
+        f"estimate_fmllr {errs['W']:.3e} of its largest entry (limits "
+        f"{POSTERIOR_STATS_LIMIT}), its auxiliary function on the CPU's "
+        f"statistics {errs['auxf']:.3e} relative and apply_affine_transform "
+        f"{errs['y']:.3e} of its largest entry (limits 1e-5); train_sat on "
+        f"the card: {len(sat_card.transforms)} speaker transforms; "
+        f"decode_fmllr: the same words on card and CPU; WER SAT "
+        f"{sat_wer:.2f}, SI {si_wer:.2f} (SAT <= SI, SAT < 25); phase 19 "
+        f"took {time.perf_counter() - t0:.3f} s")
+    check.done("phase 19")
+
+
+# the full ladder (phase 20): tests/test_ladder_full.py's options
+LADDER_MONO = dict(num_iters=14, totgauss=500, max_iter_inc=10,
+                   realign_iters=tuple(range(1, 14)))
+LADDER_TRI = dict(num_iters=12, totgauss=1500, max_iter_inc=8,
+                  num_leaves=200, realign_iters=(1, 2, 3, 4, 5, 6, 8, 10))
+LADDER_LDA = dict(LADDER_TRI, lda_dim=30, mllt_iters=(2, 4, 6))
+LADDER_TDNN = dict(hidden_dim=512, pnorm_output_dim=128, nonlinearity="relu",
+                   splice_indexes=((-2, -1, 0, 1, 2), (-1, 2), (0,)))
+LADDER_NNET = dict(initial_lr=0.1, final_lr=0.01, num_epochs=14,
+                   minibatch_size=256)
+LADDER_DECODE = dict(beam=14.0, max_active=1024, acoustic_scale=0.1,
+                     expand_budget=16384)
+# PARITY.md's ladder row: strict rungs and absolute bars
+LADDER_BARS = dict(mono=35.0, tri=12.0, lda=7.0, tdnn=7.0)
+
+
+def ladder_feats(waves, deltas: bool, device) -> list:
+    """tests/test_ladder_full.py `_featize_batch` on `device`: MFCC (with
+    deltas if asked) of the zero-padded batch, each cut to its own
+    frames."""
+    from kaldi_tpu_torch.ops.delta import add_deltas
+    wb = np.zeros((len(waves), max(len(w) for w in waves)), np.float32)
+    for i, w in enumerate(waves):
+        wb[i, : len(w)] = w
+    f = _mfcc(wb, device)
+    if deltas:
+        f = add_deltas(f, order=2, window=2)
+    fb = f.cpu().numpy()
+    return [fb[i, : max(0, (len(w) - 200) // 80 + 1)]
+            for i, w in enumerate(waves)]
+
+
+def _iter_ms(stats: list) -> str:
+    """Mean ms per iteration of each phase that iter_stats timed."""
+    keys = [k for k in ("tree", "lda", "loglikes", "align", "mllt", "fmllr",
+                        "accumulate", "update") if any(k in s for s in stats)]
+    return ", ".join(
+        f"{k} {np.mean([s[k] for s in stats if k in s]) * 1e3:.1f} ms "
+        f"(x{sum(k in s for s in stats)})" for k in keys)
+
+
+def phase_ladder_full(card: str, profile: bool = False) -> dict:
+    """tests/test_ladder_full.py on the card: mono -> tri -> LDA+MLLT ->
+    TDNN on its 120-word, 5-speaker coarticulated corpus, each decoded
+    through make_hclg_flat + CsrBeamDecoder; then SAT from tri with
+    decode_fmllr. Asserts PARITY.md's rungs and bars and SAT <= SI."""
+    import torch
+    from kaldi_tpu_torch.decoder.csr_beam import CsrBeamOpts
+    from kaldi_tpu_torch.fst.lang import Lexicon, prepare_lang
+    from kaldi_tpu_torch.nnet import quantized as q
+    from kaldi_tpu_torch.nnet.tdnn import TdnnConfig
+    from kaldi_tpu_torch.nnet.train import NnetTrainOpts
+    from kaldi_tpu_torch.ops import table_gather as tg
+    from kaldi_tpu_torch.steps import deltas, lda_mllt, mono, sat, tdnn
+
+    q.launches = tg.launches = 0          # count the ladder's path only
+    t0 = time.perf_counter()
+    corpus = ladder_corpus(**LADDER)
+    t = time.perf_counter()
+    tr_w = [w for _u, w, _ws, _s in corpus["train"]]
+    te_w = [w for _u, w, _ws, _s in corpus["test"]]
+    feats = {(part, d): ladder_feats(ws, d, "cuda")
+             for part, ws in (("train", tr_w), ("test", te_w))
+             for d in (True, False)}
+    t_feat = time.perf_counter() - t
+    train = {d: [(u, f, ws) for (u, _w, ws, _s), f
+                 in zip(corpus["train"], feats["train", d])]
+             for d in (True, False)}
+    test = {d: [(u, f, ws) for (u, _w, ws, _s), f
+                in zip(corpus["test"], feats["test", d])]
+            for d in (True, False)}
+    refs = [ws for _u, _w, ws, _s in corpus["test"]]
+    lang = prepare_lang(Lexicon.parse(corpus["lex_text"]), ["SIL"], "SIL",
+                        num_sil_states=3)
+    V = corpus["words"]
+    arpa = ("\\data\\\nngram 1=%d\n\n\\1-grams:\n%s\n-99\t<s>\n-1\t</s>\n"
+            "\n\\end\\\n" % (len(V) + 2, "\n".join(
+                f"-{np.log10(len(V)):.4f}\t{w}" for w in V)))
+    n_frames = sum(f.shape[0] for _u, f, _w in train[True])
+    log(f"  corpus: {len(train[True])} training utterances ({n_frames} "
+        f"frames), {len(refs)} test, {len(V)} words over 30 phones, 5 "
+        f"speakers; MFCC (+ deltas) on the card in {t_feat:.3f} s")
+    dopts = CsrBeamOpts(**LADDER_DECODE)
+    out, graph_s = {}, {}
+
+    def wer_of(name, model, test_utts, transform=None):
+        t = time.perf_counter()
+        dec, gs = ladder_decoder(model, arpa, dopts, "cuda")
+        graph_s[name] = gs
+        fl = [transform(f) if transform else f for _u, f, _w in test_utts]
+        fb, nf = pad_batch(fl)
+        res = dec.decode(model.am.loglikes(fb), nf)
+        w = wer(refs, [[lang.words.sym(x) for x in r[0]] if r else []
+                       for r in res])
+        return w, dec.graph.num_states, time.perf_counter() - t
+
+    def stage(name, train_fn, model_of, test_utts, transform_of=None):
+        stats: list = []
+        t = time.perf_counter()
+        res = train_fn(stats)
+        secs = time.perf_counter() - t
+        model = model_of(res)
+        w, states, dec_s = wer_of(name, model, test_utts,
+                                  transform_of(res) if transform_of else None)
+        gauss = getattr(model.am, "total_gauss", None)
+        out[name] = dict(wer=w, secs=secs, leaves=model.am.num_pdfs,
+                         gauss=gauss, stats=stats)
+        log(f"  {name}: trained in {secs:.3f} s"
+            + (f"; per iteration: {_iter_ms(stats)}" if stats else "")
+            + f"; {model.am.num_pdfs} leaves"
+            + (f", {gauss} gaussians" if gauss else "")
+            + f"; HCLG {states} states built in {graph_s[name]:.3f} s; "
+            f"decode {dec_s:.3f} s; test WER {w:.2f} | card: {card}")
+        return res
+
+    mono_m = stage("mono", lambda st: mono.train_mono(
+        lang, train[True], mono.MonoTrainOpts(**LADDER_MONO),
+        device="cuda", iter_stats=st), lambda r: r, test[True])
+    tri = stage("tri", lambda st: deltas.train_deltas(
+        lang, train[True], mono_m, deltas.DeltasTrainOpts(**LADDER_TRI),
+        iter_stats=st), lambda r: r, test[True])
+    lopts = lda_mllt.LdaMlltTrainOpts(**LADDER_LDA)
+    lda = stage("lda_mllt", lambda st: lda_mllt.train_lda_mllt(
+        lang, train[True], train[False], tri, lopts, iter_stats=st),
+        lambda r: r.model, test[False],
+        lambda r: lambda f: r.transform_feats(f, lopts))
+    train_l = [(u, lda.transform_feats(f, lopts), ws)
+               for u, f, ws in train[False]]
+    test_l = [(u, lda.transform_feats(f, lopts), ws)
+              for u, f, ws in test[False]]
+    nnet = stage("tdnn", lambda st: tdnn.train_tdnn(
+        lda.model, train_l, config=TdnnConfig(
+            feat_dim=30, num_pdfs=0, **LADDER_TDNN),
+        train_opts=NnetTrainOpts(**LADDER_NNET)),
+        lambda r: mono.MonoModel(r.am, lda.model.trans_model,
+                                 lda.model.ctx_dep, lang), test_l)
+    hist = nnet.history
+    log(f"  tdnn: {len(hist)} logged steps, loss {hist[0][2]:.4f} -> "
+        f"{hist[-1][2]:.4f}, frame accuracy {hist[-1][3]:.4f}")
+    w = {k: v["wer"] for k, v in out.items()}
+    checks = [("tri < mono - 8", w["tri"] < w["mono"] - 8.0),
+              ("lda <= tri", w["lda_mllt"] <= w["tri"]),
+              ("tdnn <= lda + 1", w["tdnn"] <= w["lda_mllt"] + 1.0)] + [
+        (f"{k} <= {b}", w["lda_mllt" if k == "lda" else k] <= b)
+        for k, b in LADDER_BARS.items()]
+    log("  LADDER: mono %.2f > tri %.2f > lda_mllt %.2f >= tdnn %.2f; "
+        % (w["mono"], w["tri"], w["lda_mllt"], w["tdnn"])
+        + ", ".join(f"{c} {'ok' if ok else 'FAILS'}" for c, ok in checks))
+    failed = [c for c, ok in checks if not ok]
+    if failed:
+        raise AssertionError(f"ladder: {failed} fail (WERs {w})")
+
+    # SAT from tri: the ladder's tri options, SatTrainOpts' fMLLR defaults
+    spk_train = [(u, f, ws, s) for (u, f, ws), (_u, _w, _ws, s)
+                 in zip(train[True], corpus["train"])]
+    spk_test = [(u, f, s) for (u, f, _ws), (_u, _w, _w2, s)
+                in zip(test[True], corpus["test"])]
+    stats: list = []
+    t = time.perf_counter()
+    sm = sat.train_sat(lang, spk_train, tri, sat.SatTrainOpts(**LADDER_TRI),
+                       iter_stats=stats)
+    sat_s = time.perf_counter() - t
+    t = time.perf_counter()
+    dec, graph_s["sat"] = ladder_decoder(sm.model, arpa, dopts, "cuda")
+    hyps = sat.decode_fmllr(sm, dec, spk_test, lang)
+    sat_dec_s = time.perf_counter() - t
+    w_sat = wer(refs, [[lang.words.sym(x) for x in hyps[u]]
+                       for u, _f, _s in spk_test])
+    fb, nf = pad_batch([f for _u, f, _s in spk_test])
+    w_si = wer(refs, [[lang.words.sym(x) for x in r[0]] if r else []
+                      for r in dec.decode(sm.model.am.loglikes(fb), nf)])
+    out["sat"] = dict(wer=w_sat, si_wer=w_si, secs=sat_s,
+                      leaves=sm.model.am.num_pdfs,
+                      gauss=sm.model.am.total_gauss, stats=stats)
+    log(f"  sat: trained in {sat_s:.3f} s; per iteration: {_iter_ms(stats)}; "
+        f"{len(sm.transforms)} speaker transforms, {sm.model.am.num_pdfs} "
+        f"leaves, {sm.model.am.total_gauss} gaussians; decode_fmllr "
+        f"{sat_dec_s:.3f} s (two passes); test WER SAT {w_sat:.2f}, the "
+        f"same model unadapted (SI) {w_si:.2f}, tri {w['tri']:.2f} | "
+        f"card: {card}")
+    if not w_sat <= w_si:
+        raise AssertionError(f"SAT {w_sat:.2f} > SI {w_si:.2f}")
+
+    # the graph: object pipeline once, for the time beside the flat one's
+    t = time.perf_counter()
+    _dec, obj_s = ladder_decoder(tri, arpa, dopts, "cuda", flat=False)
+    log(f"  tri's HCLG: make_hclg_flat {graph_s['tri']:.3f} s, make_hclg "
+        f"(object pipeline, Python compose_context) {obj_s:.3f} s")
+    if q.launches:
+        raise AssertionError(f"the ladder launched qaffine {q.launches} "
+                             f"times")
+    log(f"  launches on the ladder: gather {tg.launches} (its decodes), "
+        f"qaffine {q.launches}; phase 20 took "
+        f"{time.perf_counter() - t0:.3f} s")
+    launches = tg.launches
+
+    if profile:
+        profile_ladder(tri, train[True])
+    return dict(out, launches=launches, graph_s=graph_s, obj_graph_s=obj_s)
+
+
+def profile_ladder(model, utts):
+    """One realignment of the training set with `model` and one
+    per-utterance accumulation pass over it, under torch.profiler."""
+    from kaldi_tpu_torch.decoder.viterbi import viterbi_align
+    from kaldi_tpu_torch.steps import mono
+    import torch
+    batch, feats, nf = mono.compile_and_pad(model.lang, model.trans_model,
+                                            model.ctx_dep, utts, 1.0, 0.1)
+    ll = model.am.loglikes(feats)
+
+    def align():
+        return viterbi_align(batch, ll, nf, 0.1, device="cuda")
+
+    ali = align()
+
+    def accumulate():
+        mono._accumulate(model, feats, nf, ali)
+
+    for what, fn in (("realignment", align), ("accumulation", accumulate)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t
+        busy, n_ops, by_name = device_time(fn)
+        log_profile(f"tri {what} of {len(utts)} utterances", "call", 1,
+                    busy, n_ops, by_name, host_s, 8)
+
+
 def device_time(fn) -> tuple[float, int, dict]:
     """Run fn under torch.profiler. -> (device busy seconds: the sum of
     kernel, memcpy and memset durations, which do not overlap on one
@@ -2428,13 +3245,13 @@ def main() -> int:
 
     resolve_device("cuda")                # also turns TF32 off
     card = card_info()
-    log(f"[1/18] card: {card} | torch {torch.__version__} CUDA "
+    log(f"[1/20] card: {card} | torch {torch.__version__} CUDA "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
 
     t = time.perf_counter()
     libs = cuda_build.build()
-    log(f"[2/18] build: {len(libs)} kernels in {time.perf_counter() - t:.3f} "
+    log(f"[2/20] build: {len(libs)} kernels in {time.perf_counter() - t:.3f} "
         f"s (one nvcc each, in parallel)")
     for name, so in libs.items():
         with open(os.path.join(os.path.dirname(so), "nvcc.log")) as f:
@@ -2442,48 +3259,54 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]
         log(f"  {os.path.relpath(so, ROOT)}: {' | '.join(regs)}")
 
-    log("[3/18] table-gather kernel vs plain version")
+    log("[3/20] table-gather kernel vs plain version")
     k = phase_kernel(tg)
-    log("[4/18] qaffine kernel vs plain version")
+    log("[4/20] qaffine kernel vs plain version")
     qk = phase_qaffine(q)
-    log("[5/18] decoder on the card vs on the CPU")
+    log("[5/20] decoder on the card vs on the CPU")
     phase_decoder_parity()
-    log("[6/18] int8 decode on the card vs on the CPU")
+    log("[6/20] int8 decode on the card vs on the CPU")
     phase_int8_parity()
-    log("[7/18] full-width serving slice (bf16 TDNN)")
+    log("[7/20] full-width serving slice (bf16 TDNN)")
     sl = phase_slice(tg, card, profile="--profile" in sys.argv[1:])
-    log("[8/18] full-width int8 serving slice")
+    log("[8/20] full-width int8 serving slice")
     s8 = phase_int8_slice(q, tg, sl, card)
-    log("[9/18] streaming server, small: card vs CPU vs offline")
+    log("[9/20] streaming server, small: card vs CPU vs offline")
     phase_stream_small()
-    log("[10/18] streaming server, full width")
+    log("[10/20] streaming server, full width")
     st = phase_stream_full(tg, sl, card, profile="--profile" in sys.argv[1:])
-    log("[11/18] lattice path, small: card vs CPU, native vs numpy")
+    log("[11/20] lattice path, small: card vs CPU, native vs numpy")
     phase_lattice_small()
-    log("[12/18] training, small: card vs CPU")
+    log("[12/20] training, small: card vs CPU")
     phase_train_small()
-    log("[13/18] training, full width: the bench's AM with the port's "
+    log("[13/20] training, full width: the bench's AM with the port's "
         "train step")
     tr = phase_train_full(sl, card, profile="--profile" in sys.argv[1:])
-    log("[14/18] lattice path, full width (latgen at the bench's point)")
+    log("[14/20] lattice path, full width (latgen at the bench's point)")
     lt = phase_lattice_full(tg, sl, tr, card)
-    log("[15/18] online path, small: card vs CPU vs offline")
+    log("[15/20] online path, small: card vs CPU vs offline")
     phase_online_small()
-    log("[16/18] online path, full width (scripts/bench_streaming.py's "
+    log("[16/20] online path, full width (scripts/bench_streaming.py's "
         "configuration)")
     on = phase_online_full(tg, card, profile="--profile" in sys.argv[1:])
-    log("[17/18] GMM path, small: card vs CPU")
+    log("[17/20] GMM path, small: card vs CPU")
     phase_gmm_small()
-    log("[18/18] GMM path, full width: monophone training, the dense "
+    log("[18/20] GMM path, full width: monophone training, the dense "
         "decoder's serving lines")
     phase_gmm_full(tr, card, profile="--profile" in sys.argv[1:])
+    log("[19/20] triphone ladder, small: card vs CPU")
+    phase_ladder_small()
+    log("[20/20] triphone ladder, full width: mono -> tri -> LDA+MLLT -> "
+        "TDNN, and SAT")
+    ld = phase_ladder_full(card, profile="--profile" in sys.argv[1:])
 
     g_shape = GATHER_SHAPES[0]
     ms, plain_ms, library_ms, floor_ms = k["times"][g_shape]
     log(f"launches: gather {sl['launches']} on the bf16 slice, "
         f"{st['launches']} on the streaming path, {lt['launches']} on the "
         f"latgen path, {lt['adaptive_launches']} in the adaptive decode, "
-        f"{on['launches']} on the fused online path; qaffine "
+        f"{on['launches']} on the fused online path, {ld['launches']} on "
+        f"the triphone ladder's decodes; qaffine "
         f"{s8['launches']} on the int8 slice")
     log(card)
     log(json.dumps({"kernels": [{
@@ -2492,6 +3315,7 @@ def main() -> int:
         "replaces": "kaldi_tpu/ops/table_gather.py:50",
         "launches": sl["launches"], "lattice_launches": lt["launches"],
         "online_launches": on["launches"],
+        "ladder_launches": ld["launches"],
         "max_abs_err": k["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
         "bound_ms": gather_bound_ms(*g_shape), "bound_by": "bytes",
         "library_ms": library_ms, "floor_ms": floor_ms,

@@ -1,2 +1,3 @@
-"""Host copies of kaldi_tpu.fst (pure Python): the WFST algebra, L, H and
-HCLG construction, and per-utterance training graphs."""
+"""Host copies of kaldi_tpu.fst (pure Python): the WFST algebra, L, H,
+N-phone context and HCLG construction, per-utterance training graphs, and
+the flat-array pipeline over the native graph ops."""

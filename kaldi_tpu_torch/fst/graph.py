@@ -7,8 +7,6 @@
 
 The port's copy of kaldi_tpu/fst/graph.py (host code), carried verbatim so
 the port imports nothing of kaldi_tpu; tests hold the two equal.
-Monophone context only: the N-phone branch (kaldi_tpu/fst/context.py
-`compose_context`) is not ported yet and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -24,9 +22,6 @@ from kaldi_tpu_torch.fst.hmm_graph import make_h_transducer, add_self_loops
 from kaldi_tpu_torch.fst.lang import Lang
 from kaldi_tpu_torch.hmm.transition_model import TransitionModel
 from kaldi_tpu_torch.tree.context_dep import ContextDependency
-
-_NPHONE = ("N-phone context (kaldi_tpu/fst/context.py) is not in the "
-           "port yet: monophone graphs only")
 
 
 def mono_context(lg: Fst, lang: Lang):
@@ -70,9 +65,13 @@ def make_hclg(
     lg = compose(lang.L_disambig, g)
     lg = determinize_star(lg, use_log=True)
     lg = minimize_encoded(lg)
-    if ctx_dep.context_width != 1:
-        raise NotImplementedError(_NPHONE)
-    clg, ilabel_info = mono_context(lg, lang)
+    if ctx_dep.context_width == 1:
+        clg, ilabel_info = mono_context(lg, lang)
+    else:
+        from kaldi_tpu_torch.fst.context import compose_context
+        clg, ilabel_info = compose_context(
+            lg, set(lang.disambig_phone_ids),
+            N=ctx_dep.context_width, P=ctx_dep.central_position)
     ha, disambig_tids = make_h_transducer(
         ilabel_info, ctx_dep, trans_model, transition_scale)
     hclga = compose(ha, clg)
@@ -115,9 +114,13 @@ class TrainingGraphCompiler:
         linear transcript) (ref: bin/compile-train-graphs-fsts.cc)."""
         lg = compose(self.lang.L_disambig, g_utt)
         lg = determinize_star(lg, use_log=False)
-        if self.ctx.context_width != 1:
-            raise NotImplementedError(_NPHONE)
-        clg, ilabel_info = mono_context(lg, self.lang)
+        if self.ctx.context_width == 1:
+            clg, ilabel_info = mono_context(lg, self.lang)
+        else:
+            from kaldi_tpu_torch.fst.context import compose_context
+            clg, ilabel_info = compose_context(
+                lg, set(self.lang.disambig_phone_ids),
+                N=self.ctx.context_width, P=self.ctx.central_position)
         ha, disambig_tids = make_h_transducer(
             ilabel_info, self.ctx, self.tm, self.tscale)
         hclg = compose(ha, clg)

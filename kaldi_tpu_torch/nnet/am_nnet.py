@@ -38,6 +38,11 @@ class AmNnet:
                        else np.ones(n) / n)
 
     @property
+    def device(self) -> torch.device:
+        """Where the TDNN's weights are, and so where it scores."""
+        return next(self.model.parameters()).device
+
+    @property
     def num_pdfs(self) -> int:
         if self.group_ids is not None:
             return int(self.group_ids.max()) + 1
@@ -48,8 +53,7 @@ class AmNnet:
         """feats [..., T, D] -> log p(pdf|x) [..., T, num_pdfs] on the
         model's device (group-summed over mixture rows if mixed up).
         pad_context=False for inputs that already carry the context."""
-        dev = next(self.model.parameters()).device
-        x = torch.as_tensor(feats).to(device=dev, dtype=torch.float32)
+        x = torch.as_tensor(feats).to(device=self.device, dtype=torch.float32)
         log_post = self.model(x, pad_context=pad_context)
         if self.group_ids is not None:
             log_post = sum_group_log_posteriors(log_post, self.group_ids,

@@ -15,7 +15,10 @@ which keys checkpoints and NG-SGD's `param_filter` in the JAX package.
 The GMMs and the i-vector extractor are numpy objects in both packages;
 their converters copy the arrays into the port's classes. A monophone
 GMM-HMM (`mono_model_from_jax`) is copied pdf by pdf, with its transition
-log-probs.
+log-probs; a triphone GMM-HMM (`tri_model_from_jax`) also carries its
+decision tree across (`event_map_from_jax`, rebuilt node for node into the
+port's classes), and the LDA+MLLT and SAT models their transforms
+(`lda_mllt_model_from_jax`, `sat_model_from_jax`).
 """
 
 from __future__ import annotations
@@ -31,7 +34,9 @@ from kaldi_tpu_torch.gmm.full_gmm import FullGmm
 from kaldi_tpu_torch.hmm.transition_model import TransitionModel
 from kaldi_tpu_torch.ivector.extractor import IvectorExtractor
 from kaldi_tpu_torch.steps.mono import MonoModel
-from kaldi_tpu_torch.tree.context_dep import MonophoneContextDependency
+from kaldi_tpu_torch.tree import event_map as em
+from kaldi_tpu_torch.tree.context_dep import (MonophoneContextDependency,
+                                              TreeContextDependency)
 
 
 def tdnn_params_from_jax(tree) -> dict[str, torch.Tensor]:
@@ -163,6 +168,60 @@ def mono_model_from_jax(model, lang, device="cuda"):
     `lang`'s topology, whose tuples must equal the JAX model's."""
     ctx = MonophoneContextDependency.from_topo(lang.topo)
     tm = TransitionModel(lang.topo, lambda ph, pc: ctx.compute([ph], pc))
+    return _gmm_model_from_jax(model, lang, ctx, tm, device)
+
+
+def event_map_from_jax(node):
+    """A kaldi_tpu EventMap tree -> the same tree of the port's classes
+    (`ConstantEventMap`, `TableEventMap`, `SplitEventMap`), table order
+    kept."""
+    kind = type(node).__name__
+    if kind == "ConstantEventMap":
+        return em.ConstantEventMap(int(node.answer))
+    if kind == "TableEventMap":
+        return em.TableEventMap(node.key, {v: event_map_from_jax(m)
+                                           for v, m in node.table.items()})
+    if kind == "SplitEventMap":
+        return em.SplitEventMap(node.key, node.yes_set,
+                                event_map_from_jax(node.yes),
+                                event_map_from_jax(node.no))
+    raise TypeError(f"not a kaldi_tpu event map: {kind}")
+
+
+def tri_model_from_jax(model, lang, device="cuda"):
+    """A kaldi_tpu tied-triphone `MonoModel` (a `TreeContextDependency`
+    over an event map) -> the port's: the tree rebuilt by
+    `event_map_from_jax`, the transition model rebuilt from it and `lang`
+    (`transition_model_from_tree`, whose tuples must equal the JAX
+    model's) with the log-probs copied, and each pdf's DiagGmm copied into
+    an `AmDiagGmm` on `device`."""
+    from kaldi_tpu_torch.steps.deltas import transition_model_from_tree
+    c = model.ctx_dep
+    ctx = TreeContextDependency(c.context_width, c.central_position,
+                                event_map_from_jax(c.event_map), c.num_pdfs)
+    return _gmm_model_from_jax(model, lang, ctx,
+                               transition_model_from_tree(lang, ctx), device)
+
+
+def lda_mllt_model_from_jax(lda, lang, device="cuda"):
+    """A kaldi_tpu `LdaMlltModel` -> the port's: its triphone model by
+    `tri_model_from_jax`, its [lda_dim, D_spliced + 1] transform copied."""
+    from kaldi_tpu_torch.steps.lda_mllt import LdaMlltModel
+    return LdaMlltModel(tri_model_from_jax(lda.model, lang, device),
+                        np.array(lda.transform, np.float64))
+
+
+def sat_model_from_jax(sat, lang, device="cuda"):
+    """A kaldi_tpu `SatModel` -> the port's: its triphone model by
+    `tri_model_from_jax`, each speaker's [D, D+1] transform copied."""
+    from kaldi_tpu_torch.steps.sat import SatModel
+    return SatModel(tri_model_from_jax(sat.model, lang, device),
+                    {spk: np.array(w) for spk, w in sat.transforms.items()})
+
+
+def _gmm_model_from_jax(model, lang, ctx, tm, device):
+    """The JAX model's transition log-probs and pdfs into the port's `tm`
+    (whose tuples must equal the JAX model's) and a new `AmDiagGmm`."""
     sd = model.trans_model.state_dict()
     if not np.array_equal(np.asarray(tm.tuples, np.int32).reshape(-1, 3),
                           np.asarray(sd["tuples"]).reshape(-1, 3)):

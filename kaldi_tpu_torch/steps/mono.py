@@ -72,6 +72,31 @@ def flat_start(lang: Lang, feats_list, device="cuda") -> MonoModel:
     return MonoModel(am, tm, ctx, lang)
 
 
+def compile_and_pad(lang: Lang, trans_model: TransitionModel, ctx_dep, utts,
+                    transition_scale: float = 1.0,
+                    self_loop_scale: float = 1.0):
+    """Training graphs of `utts` ((utt, feats, words, ...) tuples; one
+    graph per distinct transcript) packed into one batch, and their
+    features padded: -> (batch, feats [B, T, D] f32, num_frames [B])."""
+    compiler = TrainingGraphCompiler(lang, trans_model, ctx_dep,
+                                     transition_scale, self_loop_scale)
+    cache: dict = {}
+    graphs = []
+    for (_u, _f, words, *_rest) in utts:
+        key = tuple(words)
+        if key not in cache:
+            cache[key] = compiler.compile_transcript(list(words))
+        graphs.append(cache[key])
+    B = len(utts)
+    T = max(u[1].shape[0] for u in utts)
+    feats = np.zeros((B, T, utts[0][1].shape[1]), np.float32)
+    nf = np.zeros(B, np.int32)
+    for b, u in enumerate(utts):
+        feats[b, : u[1].shape[0]] = u[1]
+        nf[b] = u[1].shape[0]
+    return pack_graphs(graphs, trans_model.id2pdf_array), feats, nf
+
+
 def _accumulate(model: MonoModel, feats, num_frames, align_results):
     """E-step host driver: per-utterance GMM stats + transition counts."""
     am, tm = model.am, model.trans_model
@@ -121,30 +146,10 @@ def train_mono(
     dev = resolve_device(device)
     feats_list = [f for (_u, f, _w) in utts]
     model = flat_start(lang, feats_list, dev)
-    compiler = TrainingGraphCompiler(
-        lang, model.trans_model, model.ctx_dep,
+    batch, feats, num_frames = compile_and_pad(
+        lang, model.trans_model, model.ctx_dep, utts,
         opts.transition_scale, opts.self_loop_scale)
-
-    # compile graphs (cache per transcript)
-    graph_cache: dict = {}
-    graphs = []
-    for (_u, _f, words) in utts:
-        key = tuple(words)
-        if key not in graph_cache:
-            graph_cache[key] = compiler.compile_transcript(list(words))
-        graphs.append(graph_cache[key])
-
-    # pad features into [B, T, D]
     B = len(utts)
-    T = max(f.shape[0] for f in feats_list)
-    D = feats_list[0].shape[1]
-    feats = np.zeros((B, T, D), np.float32)
-    num_frames = np.zeros(B, np.int32)
-    for b, f in enumerate(feats_list):
-        feats[b, : f.shape[0]] = f
-        num_frames[b] = f.shape[0]
-
-    batch = pack_graphs(graphs, model.trans_model.id2pdf_array)
     clock = _PhaseClock(dev, iter_stats is not None)
 
     # iteration 0: equal alignment

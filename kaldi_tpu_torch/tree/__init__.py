@@ -1,1 +1,2 @@
-"""Host copy of kaldi_tpu.tree's context dependency (monophone)."""
+"""Host copies of kaldi_tpu.tree: context dependency, event maps, Gaussian
+clustering and decision-tree building."""

@@ -6,7 +6,6 @@ plugs into the same interface when tied triphones arrive.
 
 The port's copy of kaldi_tpu/tree/context_dep.py (host code), carried verbatim so
 the port imports nothing of kaldi_tpu; tests hold the two equal.
-`TreeContextDependency` (tied triphones) is not ported yet.
 """
 
 from __future__ import annotations
@@ -57,3 +56,30 @@ class MonophoneContextDependency(ContextDependency):
             topo.phones, {p: topo.num_pdf_classes(p) for p in topo.phones}
         )
 
+
+class TreeContextDependency(ContextDependency):
+    """Decision-tree-based context dependency (tied triphones).
+
+    (ref: tree/context-dep.h:58 ContextDependency over an EventMap.)
+    """
+
+    def __init__(self, N: int, P: int, event_map, num_pdfs: int):
+        self.context_width = N
+        self.central_position = P
+        self.event_map = event_map
+        self._num_pdfs = num_pdfs
+
+    def compute(self, phone_window, pdf_class: int) -> int:
+        from kaldi_tpu_torch.tree.event_map import KPDF_CLASS
+        ev = {KPDF_CLASS: pdf_class}
+        for pos, p in enumerate(phone_window):
+            ev[pos] = int(p)
+        ans = self.event_map.map(ev)
+        if ans is None:
+            raise ValueError(f"tree cannot map window={phone_window} "
+                             f"pdf_class={pdf_class}")
+        return ans
+
+    @property
+    def num_pdfs(self) -> int:
+        return self._num_pdfs

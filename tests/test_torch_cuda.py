@@ -4,7 +4,8 @@ chunked and adaptive decoders, the train steps, NG-SGD and checkpoints,
 the mixed-up AM's group sum, the online path (features, the padded
 decoder, both fused engines, the nnet2 decoder with i-vectors) and the GMM
 path (GMM log-likelihoods, Viterbi alignment, the dense decoder's three
-forward paths) on a CUDA device. Each test skips without a card. This file imports no jax,
+forward paths) and the triphone ladder (the affine transform, fMLLR and
+MLLT statistics, a train_deltas EM iteration) on a CUDA device. Each test skips without a card. This file imports no jax,
 so it runs on a machine that has only torch:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -500,3 +501,86 @@ def test_dense_paths_card_equal_cpu(card, which, opts):
         if b is not None:
             assert a[0] == b[0] and a[1] == b[1]
             assert abs(a[2] - b[2]) <= 1e-4 * max(abs(b[2]), 1.0)
+
+
+def test_apply_affine_transform_card_equals_cpu(card):
+    import chip_smoke as cs
+    from kaldi_tpu_torch.transform.fmllr import apply_affine_transform
+    rng = np.random.RandomState(3)
+    x = (rng.randn(4, 300, 39) * 8.0).astype(np.float32)
+    W = np.concatenate([np.eye(39) + rng.randn(39, 39) * 0.1,
+                        rng.randn(39, 1)], axis=1)
+    got = apply_affine_transform(x, W, card)
+    assert got.device.type == "cuda"
+    want = apply_affine_transform(x, W).numpy()
+    assert np.max(np.abs(got.cpu().numpy() - want)
+                  / cs.affine_term_scale(x, W)) <= 1e-6
+
+
+def _sat_mono_and_alignments():
+    import chip_smoke as cs
+    from kaldi_tpu_torch.steps import mono, tdnn
+    train, _test, _refs = cs.sat_corpus("cpu")
+    lang = cs.gmm_stack(cs.YESNO_LEXICON, cs.YESNO_ARPA)[0]
+    utts = [(u, f, w) for u, f, w, _s in train[:9]]
+    m = mono.train_mono(lang, utts, mono.MonoTrainOpts(**cs.SAT_LDA_MONO),
+                        device="cpu")
+    return m, tdnn.align_with_gmm(m, utts)
+
+
+def test_fmllr_and_mllt_stats_card_equal_cpu(card):
+    """Statistics whose posteriors come from the card, within 1e-5 of the
+    same sums with each posterior 1 and the terms' absolute values."""
+    import chip_smoke as cs
+    from kaldi_tpu_torch.steps.lda_mllt import accumulate_mllt_from_alignment
+    from kaldi_tpu_torch.transform.fmllr import FmllrStats
+    from kaldi_tpu_torch.transform.mllt import MlltStats
+    m, ali = _sat_mono_and_alignments()
+    out = {}
+    for d in ("cpu", card):
+        am = cs.gmm_model_on(m, d).am
+        f_st, m_st = FmllrStats(39), MlltStats(39)
+        for feats, pdfs in ali:
+            f_st.accumulate_from_alignment(am, feats, pdfs)
+            accumulate_mllt_from_alignment(am, feats, pdfs, m_st)
+        out[str(d)] = (f_st, m_st)
+    (cf, cm), (gf, gm) = out["cpu"], out[str(card)]
+    sf = FmllrStats(39)
+    gs = 0.0
+    for feats, pdfs in ali:
+        sf.add(cs.fmllr_term_scale(m.am, feats, pdfs))
+        gs = gs + cs.mllt_term_scale(m.am, feats, pdfs)
+    assert np.max(np.abs(gf.K - cf.K) / sf.K) <= 1e-5
+    assert np.max(np.abs(gf.G - cf.G) / sf.G) <= 1e-5
+    assert np.max(np.abs(gm.G - cm.G) / gs) <= 1e-5
+    assert abs(gf.beta - cf.beta) <= 1e-5 * sf.beta
+
+
+def test_train_deltas_iteration_card_equals_cpu(card):
+    """train_deltas' tree from card and CPU alignments, then its first EM
+    iteration from the tree's init on each (chip_smoke.em_card_vs_cpu:
+    identical alignments, parameters within 1e-5, loglikes within 1e-5
+    of their GEMM terms' magnitude)."""
+    import copy
+    import chip_smoke as cs
+    from kaldi_tpu_torch.steps import deltas, mono
+    rng = np.random.RandomState(11)
+    train = cs.tri_corpus(rng, 12, lambda w: cs.mfcc_deltas(w, "cpu"))
+    lang = cs.gmm_stack(cs.TRI_LEXICON, cs.TRI_ARPA)[0]
+    m = mono.train_mono(lang, train, mono.MonoTrainOpts(**cs.TRI_MONO),
+                        device="cpu")
+    opts = deltas.DeltasTrainOpts(**cs.TRI_SMALL)
+    trees = {d: deltas.build_triphone_tree(lang, cs.gmm_model_on(m, d),
+                                           train, opts)
+             for d in ("cpu", "cuda")}
+    (cc, ctm, cls), (gc, gtm, _gls) = trees["cpu"], trees["cuda"]
+    assert cs.trees_equal(cc.event_map, gc.event_map)
+    np.testing.assert_array_equal(ctm.id2pdf_array, gtm.id2pdf_array)
+    models = {d: mono.MonoModel(deltas.init_am_from_leaf_stats(cls, 39, d),
+                                copy.deepcopy(ctm), cc, lang)
+              for d in ("cpu", "cuda")}
+    batch, feats, nf = mono.compile_and_pad(lang, ctm, cc, train, 1.0, 0.1)
+    err, ll_err = cs.em_card_vs_cpu("train_deltas iteration", models, batch,
+                                    feats, nf, opts, None,
+                                    models["cpu"].am.total_gauss + 20)
+    assert err <= 1e-5 and ll_err <= 1e-5

@@ -3,9 +3,13 @@ CPU: `Recognizer`, `CsrBeamDecoder`, `ChunkedCsrBeamDecoder`,
 `AdaptiveCsrBeamDecoder`, `BeamSearchDecoder`, `build_tier_tables`,
 `train_epochs`, `train_progressive`, `OnlineMfcc`,
 `OnlineFeaturePipeline` and the GMM path's `AmDiagGmm`, `viterbi_align`,
-`equal_align`, `flat_start`, `train_mono`, `DenseViterbiDecoder` and
-`make_decoder` default to "cuda", and with no card that default raises
-instead of falling back. `FusedStreamingServer`,
+`equal_align`, `flat_start`, `train_mono`, `DenseViterbiDecoder`,
+`make_decoder` and the triphone ladder's `init_am_from_leaf_stats` default
+to "cuda", and with no card that default raises instead of falling back.
+The ladder's steps (`build_triphone_tree`, `train_deltas`,
+`train_lda_mllt`, `train_sat`, `decode_fmllr`, `align_with_gmm`,
+`train_tdnn`) take no device: they run where the model they are given
+is, as a CPU run shows. `FusedStreamingServer`,
 `FusedOnlineDecoder`, `OnlineDecoder` and `SingleUtteranceNnet2Decoder`
 take no device: they run where their decoder runs; nor does
 `make_train_step`'s step, which runs where its tensors are. Inference
@@ -39,7 +43,14 @@ from kaldi_tpu_torch.online.fused import FusedOnlineDecoder
 from kaldi_tpu_torch.online.nnet2_decoding import SingleUtteranceNnet2Decoder
 from kaldi_tpu_torch.online.serving import FusedStreamingServer
 from kaldi_tpu_torch.recognize import Recognizer
+from kaldi_tpu_torch.steps.deltas import (DeltasTrainOpts,
+                                          build_triphone_tree,
+                                          init_am_from_leaf_stats,
+                                          train_deltas)
+from kaldi_tpu_torch.steps.lda_mllt import train_lda_mllt
 from kaldi_tpu_torch.steps.mono import flat_start, train_mono
+from kaldi_tpu_torch.steps.sat import decode_fmllr, train_sat
+from kaldi_tpu_torch.steps.tdnn import align_with_gmm, train_tdnn
 
 ENTRY_POINTS = {"Recognizer": Recognizer.__init__,
                 "CsrBeamDecoder": CsrBeamDecoder.__init__,
@@ -57,7 +68,10 @@ ENTRY_POINTS = {"Recognizer": Recognizer.__init__,
                 "flat_start": flat_start,
                 "train_mono": train_mono,
                 "DenseViterbiDecoder": DenseViterbiDecoder.__init__,
-                "make_decoder": make_decoder}
+                "make_decoder": make_decoder,
+                "init_am_from_leaf_stats": init_am_from_leaf_stats}
+LADDER_STEPS = [build_triphone_tree, train_deltas, train_lda_mllt, train_sat,
+                decode_fmllr, align_with_gmm, train_tdnn]
 
 
 def _graph():
@@ -138,9 +152,32 @@ def test_default_device_raises_without_a_card(name):
              "flat_start": lambda: flat_start(_lang(), [x[0]]),
              "train_mono": lambda: train_mono(_lang(), [("u", x[0], ["A"])]),
              "DenseViterbiDecoder": lambda: DenseViterbiDecoder(g),
-             "make_decoder": lambda: make_decoder(g)}[name]
+             "make_decoder": lambda: make_decoder(g),
+             "init_am_from_leaf_stats": lambda: init_am_from_leaf_stats(
+                 [None], 4)}[name]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build()
+
+
+@pytest.mark.parametrize("fn", LADDER_STEPS, ids=lambda f: f.__name__)
+def test_ladder_steps_take_no_device(fn):
+    assert "device" not in inspect.signature(fn).parameters
+
+
+def test_ladder_steps_run_where_their_model_is():
+    """A CPU monophone gives a CPU triphone model, and a CPU TDNN."""
+    rng = np.random.RandomState(0)
+    utts = [(f"u{i}", rng.randn(30, 4).astype(np.float32), ["A"])
+            for i in range(3)]
+    mono = flat_start(_lang(), [f for _u, f, _w in utts], "cpu")
+    tri = train_deltas(_lang(), utts, mono, DeltasTrainOpts(
+        num_iters=2, totgauss=8, max_iter_inc=1, num_leaves=4,
+        tree_thresh=0.0))
+    assert tri.am.device.type == "cpu"
+    res = train_tdnn(tri, utts, TdnnConfig(
+        feat_dim=0, num_pdfs=0, hidden_dim=8, nonlinearity="relu",
+        splice_indexes=((0,),)), NnetTrainOpts(num_epochs=1))
+    assert res.am.device.type == "cpu"
 
 
 def test_inference_builds_no_autograd_graph():

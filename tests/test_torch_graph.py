@@ -3,9 +3,12 @@ arrays equal to kaldi_tpu's (graph build, CSR split, eps folding, corpus
 synthesis, tier-table packing), and so do its copies of the GMM path's
 graph stack (prepare_lang, arpa_to_g, make_hclg, TrainingGraphCompiler,
 the transition model, pack_graph and pack_graphs) for the yesno and
-rm-like lexicons."""
+rm-like lexicons; with N-phone context (a synthetic triphone tree carried
+across) the HCLGs, training graphs, `compose_context` and the flat
+pipeline over the port's own native graph ops are equal too."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -156,12 +159,14 @@ ngram 2=4
 """
 LEXICONS = {"yesno": (cs.YESNO_LEXICON, cs.YESNO_ARPA),
             "yesno_bigram": (cs.YESNO_LEXICON, YESNO_BIGRAM),
-            "rm_like": (cs.RM_LEXICON, cs.rm_unigram_arpa())}
+            "rm_like": (cs.RM_LEXICON, cs.rm_unigram_arpa()),
+            "tri": (cs.TRI_LEXICON, cs.TRI_ARPA)}
 TRANSCRIPTS = {"yesno": [["YES"], ["NO", "YES"], ["YES", "YES", "NO"],
                          ["NO", "NO", "NO", "YES"], ["YES", "NO"]],
                "rm_like": [["ONE", "TWO"], ["THREE", "STOP", "OH"],
                            ["SEVEN"], ["ZERO", "EIGHT", "NINE", "FOUR"],
-                           ["FIVE", "SIX", "ONE", "ONE", "TWO"]]}
+                           ["FIVE", "SIX", "ONE", "ONE", "TWO"]],
+               "tri": [["AB"], ["CA", "AB"], ["BC", "AC", "CA"]]}
 
 
 def _fst_equal(a, b):
@@ -241,15 +246,141 @@ def test_training_graphs_and_pack_graphs_equal(name):
                          tgp.pack_graphs(tfs, tt.id2pdf_array))
 
 
-def test_nphone_context_is_not_ported():
-    lang, _ctx, tm, g, _h = _gmm_stack(tlang, tarpa, tgraph, ttm, tctx,
-                                       "yesno")
+# --- N-phone context: a synthetic tied-triphone tree (kaldi_tpu's
+# tree/synth.py, carried across by params.event_map_from_jax) ---
 
-    class Tri(tctx.ContextDependency):
-        context_width, central_position = 3, 1
+def _tri_stack(name, side):
+    """`name`'s lang and G, a 2 x 3-group synthetic triphone tree and the
+    transition model built from it, in the JAX package (side "j") or the
+    port ("t"): -> (lang, ctx, tm, g)."""
+    from kaldi_tpu.steps.deltas import transition_model_from_tree as jtree_tm
+    from kaldi_tpu.tree.synth import synth_triphone_tree
+    from kaldi_tpu_torch.params import event_map_from_jax
+    from kaldi_tpu_torch.steps.deltas import transition_model_from_tree
+    lex_text, arpa = LEXICONS[name]
+    mods = (jlang, jarpa) if side == "j" else (tlang, tarpa)
+    lang = mods[0].prepare_lang(mods[0].Lexicon.parse(lex_text), ["SIL"],
+                                "SIL", num_sil_states=3)
+    jl = jlang.prepare_lang(jlang.Lexicon.parse(lex_text), ["SIL"], "SIL",
+                            num_sil_states=3)
+    ctx = synth_triphone_tree(jl.topo, [jl.phones["SIL"]], 2, 3,
+                              np.random.default_rng(0))
+    if side == "j":
+        tm = jtree_tm(lang, ctx)
+    else:
+        ctx = tctx.TreeContextDependency(3, 1,
+                                         event_map_from_jax(ctx.event_map),
+                                         ctx.num_pdfs)
+        tm = transition_model_from_tree(lang, ctx)
+    g = mods[1].arpa_to_g(mods[1].ArpaLm.parse(arpa), lang.words)
+    return lang, ctx, tm, g
 
-    with pytest.raises(NotImplementedError):
-        tgraph.make_hclg(lang, g, tm, Tri())
+
+@pytest.mark.parametrize("name", list(LEXICONS))
+def test_nphone_hclg_equal(name):
+    stacks = {side: _tri_stack(name, side) for side in "jt"}
+    (jl, jc, jt, jg), (tl, tc, tt, tg) = stacks["j"], stacks["t"]
+    assert tt.tuples == jt.tuples
+    np.testing.assert_array_equal(tt.id2pdf_array, jt.id2pdf_array)
+    jh = jgraph.make_hclg(jl, jg, jt, jc, self_loop_scale=0.1)
+    th = tgraph.make_hclg(tl, tg, tt, tc, self_loop_scale=0.1)
+    _fst_equal(jh.fst, th.fst)
+    _assert_fields_equal(jgp.pack_graph(jh.fst, jt.id2pdf_array),
+                         tgp.pack_graph(th.fst, tt.id2pdf_array))
+    assert th.fst.num_states > 20
+
+
+@pytest.mark.parametrize("name", list(TRANSCRIPTS))
+def test_nphone_training_graphs_equal(name):
+    graphs = []
+    for side, mod in (("j", jgraph), ("t", tgraph)):
+        lang, ctx, tm, _g = _tri_stack(name, side)
+        comp = mod.TrainingGraphCompiler(lang, tm, ctx, 1.0, 0.1)
+        graphs.append((tm, [comp.compile_transcript(w)
+                            for w in TRANSCRIPTS[name]]))
+    (jt, jfs), (tt, tfs) = graphs
+    for a, b in zip(jfs, tfs):
+        _fst_equal(a, b)
+    _assert_fields_equal(jgp.pack_graphs(jfs, jt.id2pdf_array),
+                         tgp.pack_graphs(tfs, tt.id2pdf_array))
+
+
+@pytest.mark.parametrize("name", ["yesno_bigram", "tri"])
+def test_compose_context_equal(name):
+    from kaldi_tpu.fst import context as jcontext
+    from kaldi_tpu.fst.compose import compose as jcompose
+    from kaldi_tpu.fst.determinize import determinize_star as jdet
+    from kaldi_tpu_torch.fst import context as tcontext
+    from kaldi_tpu_torch.fst.compose import compose as tcompose
+    from kaldi_tpu_torch.fst.determinize import determinize_star as tdet
+    out = []
+    for side, compose, det, context in (("j", jcompose, jdet, jcontext),
+                                        ("t", tcompose, tdet, tcontext)):
+        lang, _c, _tm, g = _tri_stack(name, side)
+        lg = det(compose(lang.L_disambig, g), use_log=True)
+        dis = set(lang.disambig_phone_ids)
+        out.append((context.compose_context(lg, dis, N=3, P=1),
+                    context.make_context_fst(list(lang.topo.phones), dis,
+                                             len(lang.phones), N=3, P=1)))
+    ((jclg, jinfo), (jC, jcinfo)), ((tclg, tinfo), (tC, tcinfo)) = out
+    _fst_equal(jclg, tclg)
+    assert tinfo == jinfo and len(jinfo) > 10
+    _fst_equal(jC, tC)
+    assert tcinfo == jcinfo
+
+
+@pytest.mark.parametrize("context", ["mono", "tri"])
+@pytest.mark.parametrize("name", ["yesno_bigram", "rm_like", "tri"])
+def test_make_hclg_flat_equal(name, context):
+    """The flat pipeline over the native graph ops (the port's own copy of
+    native/fst_ops.cc, built at first use) equals JAX's array for array,
+    and so does its packed graph."""
+    from kaldi_tpu.fst import mkgraph_flat as jmf
+    from kaldi_tpu_torch.fst import mkgraph_flat as tmf
+    from kaldi_tpu_torch.fst import native_ops
+    assert native_ops.available()
+    out = []
+    for side, mf in (("j", jmf), ("t", tmf)):
+        if context == "tri":
+            lang, ctx, tm, g = _tri_stack(name, side)
+        else:
+            mods = ((jlang, jarpa, jgraph, jtm, jctx) if side == "j"
+                    else (tlang, tarpa, tgraph, ttm, tctx))
+            lang, ctx, tm, g, _h = _gmm_stack(*mods, name)
+        flat, stats = mf.make_hclg_flat(lang, g, tm, ctx, self_loop_scale=0.1)
+        out.append((flat, stats, mf.pack_graph_flat(flat, tm.id2pdf_array)))
+    (jf, js, jp), (tf, ts, tp) = out
+    assert ts == js
+    _assert_fields_equal(jf, tf)
+    _assert_fields_equal(jp, tp)
+    assert native_ops.library_path().startswith(os.path.join(
+        cs.ROOT, "build", "kaldi_tpu_torch"))
+
+
+def test_ladder_corpus_equals_tests_ladder_corpus():
+    """chip_smoke's copy of the full ladder's corpus synthesis equals
+    tests/ladder_corpus.build_corpus with test_ladder_full._mv as its
+    vocabulary, at test_ladder_full.py's seed and sizes."""
+    import ladder_corpus
+    from test_ladder_full import _mv
+    kw = dict(cs.LADDER)
+    rng = np.random.RandomState(kw.pop("seed"))
+    old = ladder_corpus.make_vocab
+    ladder_corpus.make_vocab = _mv
+    try:
+        want = ladder_corpus.build_corpus(rng, **kw)
+    finally:
+        ladder_corpus.make_vocab = old
+    got = cs.ladder_corpus(**cs.LADDER)
+    assert got["lex_text"] == want["lex_text"]
+    assert got["words"] == want["words"]
+    for part in ("train", "test"):
+        assert len(got[part]) == len(want[part]) > 0
+        for (gu, gw, gws, gs), (wu, ww, wws, ws) in zip(got[part],
+                                                        want[part]):
+            assert (gu, gws, gs) == (wu, wws, ws)
+            np.testing.assert_array_equal(gw, ww)
+            assert gw.dtype == ww.dtype
 
 
 def test_compute_wer_equals_jax():

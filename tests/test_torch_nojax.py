@@ -7,8 +7,10 @@ among them) and chip_smoke.py's helpers import, and a small decode, a
 record decode and its lattices (native and numpy), two train steps of a
 tiny TDNN with clipping, momentum and NG-SGD, the online path (MFCC
 and deltas, the padded decoder, both fused engines, the nnet2 decoder
-with i-vectors), the dense decoder on the yesno HCLG and the port's
-`recipe-yesno` (the GMM path end to end) run on the CPU. (kaldi_tpu/decoder/__init__.py imports the
+with i-vectors), the dense decoder on the yesno HCLG, the port's
+`recipe-yesno` (the GMM path end to end), and a small triphone run
+(train_deltas from a monophone, its HCLG through the flat pipeline on the
+port's native graph ops, a decode) run on the CPU. (kaldi_tpu/decoder/__init__.py imports the
 jax decoders, so reaching into kaldi_tpu.decoder from the port would fail
 here.)
 """
@@ -65,7 +67,16 @@ for n in ("kaldi_tpu_torch.cuda_build", "kaldi_tpu_torch.nnet.quantized",
           "kaldi_tpu_torch.gmm.estimation",
           "kaldi_tpu_torch.decoder.decodable",
           "kaldi_tpu_torch.decoder.viterbi", "kaldi_tpu_torch.decoder.dense",
-          "kaldi_tpu_torch.steps.mono", "kaldi_tpu_torch.cli"):
+          "kaldi_tpu_torch.steps.mono", "kaldi_tpu_torch.cli",
+          "kaldi_tpu_torch.tree.event_map", "kaldi_tpu_torch.tree.clustering",
+          "kaldi_tpu_torch.tree.build_tree", "kaldi_tpu_torch.fst.context",
+          "kaldi_tpu_torch.fst.flat", "kaldi_tpu_torch.fst.native_ops",
+          "kaldi_tpu_torch.fst.mkgraph_flat",
+          "kaldi_tpu_torch.transform.lda", "kaldi_tpu_torch.transform.mllt",
+          "kaldi_tpu_torch.transform.fmllr", "kaldi_tpu_torch.transform.fmpe",
+          "kaldi_tpu_torch.steps.deltas", "kaldi_tpu_torch.steps.lda_mllt",
+          "kaldi_tpu_torch.steps.sat", "kaldi_tpu_torch.steps.tdnn",
+          "kaldi_tpu_torch.params"):
     assert n in names, n
 import chip_smoke
 from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder, CsrBeamOpts
@@ -164,6 +175,30 @@ d = make_decoder(yes, device="cpu")
 assert d.opts == DenseDecoderOpts(eps_expansions=1), d.opts
 assert all(r is not None for r in d.decode(llg, np.array([30, 20])))
 assert cli.main(["recipe-yesno", "--device", "cpu"]) == 0
+from kaldi_tpu_torch.decoder.graph_pack import pack_graphs
+from kaldi_tpu_torch.fst.graph import TrainingGraphCompiler
+from kaldi_tpu_torch.fst.mkgraph_flat import make_hclg_flat, pack_graph_flat
+from kaldi_tpu_torch.lm.arpa import ArpaLm, arpa_to_g
+from kaldi_tpu_torch.steps.deltas import DeltasTrainOpts, train_deltas
+from kaldi_tpu_torch.steps.mono import MonoTrainOpts, train_mono
+lang = chip_smoke.gmm_stack(chip_smoke.TRI_LEXICON, chip_smoke.TRI_ARPA)[0]
+rng = np.random.RandomState(11)
+utts = chip_smoke.tri_corpus(rng, 8, lambda w: chip_smoke.mfcc_deltas(w, "cpu"))
+mono = train_mono(lang, utts, MonoTrainOpts(num_iters=4, totgauss=20,
+                                            max_iter_inc=3), device="cpu")
+tri = train_deltas(lang, utts, mono, DeltasTrainOpts(
+    num_iters=3, totgauss=40, max_iter_inc=2, num_leaves=12, tree_thresh=5.0))
+assert tri.ctx_dep.context_width == 3
+flat, _st = make_hclg_flat(lang, arpa_to_g(ArpaLm.parse(chip_smoke.TRI_ARPA),
+                                           lang.words),
+                           tri.trans_model, tri.ctx_dep)
+g = pack_graph_flat(flat, tri.trans_model.id2pdf_array)
+res = BeamSearchDecoder(g, BeamSearchOpts(beam=200.0, max_active=512,
+                                          acoustic_scale=0.1),
+                        device="cpu").decode(
+    tri.am.loglikes(chip_smoke.pad_batch([f for _u, f, _w in utts])[0]),
+    np.array([f.shape[0] for _u, f, _w in utts]))
+assert all(r is not None for r in res)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
        or m.startswith("kaldi_tpu.")]
 assert not bad, bad
