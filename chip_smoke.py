@@ -103,14 +103,17 @@ Phases (any failure raises and the script exits non-zero):
      and CPU alignments (identical), train_deltas' first EM iteration
      from its init (parameters within 1e-5, loglikes within 1e-5 of their
      GEMM terms' magnitude), train_deltas on the card with its N-phone HCLG by
-     make_hclg and make_hclg_flat decoding alike (WER 0); LDA from card
-     and CPU statistics (1e-5), MLLT's G (1e-4 of its terms' magnitude:
-     near-tied gaussians amplify the loglikes' f32 error in the
-     posteriors) and the objective each device's MLLT reaches (1e-5),
-     train_lda_mllt on the card (WER 0); fMLLR statistics and transforms
-     (1e-4), their auxiliary function and apply_affine_transform (1e-5),
-     train_sat on the card and decode_fmllr giving the same words on card
-     and CPU (SAT <= SI < 25);
+     make_hclg and make_hclg_flat decoding alike (WER 0); alignments,
+     splice and LDA from card and CPU statistics (1e-5); the MLLT and
+     fMLLR statistics (per speaker) from the card's and the CPU's
+     posteriors on the same alignments, each within the bound that the
+     per-gaussian loglikes' difference sets (posteriors move by at most
+     gamma (1 - gamma) S e^S, S that difference's spread within the pdf,
+     plus f32 rounding), the loglikes within 1e-5 of their GEMM terms;
+     MLLT and fMLLR matrices from each device's statistics reported (host
+     f64 solves); train_lda_mllt on the card (WER 0);
+     apply_affine_transform (1e-5), train_sat on the card and
+     decode_fmllr giving the same words on card and CPU (SAT <= SI < 25);
  20. triphone ladder, full width: tests/test_ladder_full.py's corpus (120
      words over 30 phones, 5 speakers, 200 training and 40 test
      utterances) and options on the card: train_mono -> train_deltas ->
@@ -119,8 +122,10 @@ Phases (any failure raises and the script exits non-zero):
      seconds and ms per iteration by phase; PARITY.md's rungs (tri < mono
      - 8, lda <= tri, tdnn <= lda + 1) and bars (35 / 12 / 7 / 7) must
      hold; then train_sat from tri and decode_fmllr, SAT <= SI; both graph
-     pipelines timed on tri's HCLG; qaffine must not launch; --profile
-     adds one profiled realignment and one accumulation pass.
+     pipelines timed on tri's HCLG; qaffine must not launch; the gather
+     kernel bit-exact against its plain version, and timed, at every
+     shape the ladder's decodes gave it; --profile adds one profiled
+     realignment and one accumulation pass.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error against its plain version, times and bound; the last line
@@ -2177,12 +2182,37 @@ def phase_online_full(tg, card: str, profile: bool = False) -> dict:
                        feed)
 
     # the gather kernel at the fused CSR path's B = 1 shapes
-    o, tabs = csr_dec.opts, csr_dec.tabs
+    shapes = csr_gather_shapes(csr_dec, 1, 64)
+    times = gather_at_shapes(tg, shapes, "the fused path's", 3)
+    return {"launches": launches, "shape": shapes[0],
+            "times": times[shapes[0]]}
+
+
+def csr_gather_shapes(dec, B: int, P: int) -> list:
+    """The (B, P, N) of each gather that a frame of `dec` (a
+    CsrBeamDecoder) makes at batch B over P pdfs (`_make_rounds`): the
+    fused acoustic lookup of the two tier-A arcs per token and b_apr arcs
+    per budgeted tier-B row, the tier-B rows' token scores, and the hub
+    arcs' lookup where the hubs have no one-hot."""
+    o, tabs = dec.opts, dec.tabs
     K = int(o.max_active)
+    have_b = tabs.brow.shape[0] > 1
     cbr = -(-int(o.expand_budget) // tabs.b_apr)
-    shapes = [(1, 64, 2 * K + (tabs.b_apr * cbr if tabs.brow.shape[0] > 1
-                               else 0)), (1, K, cbr)]
-    g = torch.Generator(device="cuda").manual_seed(3)
+    shapes = [(B, P, 2 * K + (tabs.b_apr * cbr if have_b else 0))]
+    if have_b:
+        shapes.append((B, K, cbr))
+    if len(tabs.hub_bounds) > 1 and tabs.hub_onehot is None:
+        shapes.append((B, P, int(tabs.hub_pdf.shape[0])))
+    return shapes
+
+
+def gather_at_shapes(tg, shapes, what: str, seed: int) -> dict:
+    """The gather kernel against its plain version at each (B, P, N) of
+    `shapes` (random tables, indices in range; bit-exact), and its device
+    time beside the plain version's, torch.gather's and the bound. ->
+    {shape: (ms, plain_ms, library_ms)}"""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
     times = {}
     for (B, P, N) in shapes:
         tab = torch.randn(B, P, device="cuda", generator=g)
@@ -2191,18 +2221,17 @@ def phase_online_full(tg, card: str, profile: bool = False) -> dict:
         if not torch.equal(tg.gather_cuda(tab, idx),
                            tg.batched_table_gather_ref(tab, idx)):
             raise AssertionError(f"gather != plain at {(B, P, N)}")
+        il = idx.long()
         times[(B, P, N)] = (cuda_ms(lambda: tg.gather_cuda(tab, idx)),
                             cuda_ms(lambda: tg.batched_table_gather_ref(
                                 tab, idx)),
-                            cuda_ms(lambda: torch.gather(tab, 1,
-                                                         idx.long())))
+                            cuda_ms(lambda: torch.gather(tab, 1, il)))
         k_ms, p_ms, l_ms = times[(B, P, N)]
-        log(f"  gather at the fused path's shape tab [{B}, {P}] idx [{B}, "
-            f"{N}]: kernel {k_ms:.6f} ms, plain version {p_ms:.6f} ms, "
-            f"torch.gather {l_ms:.6f} ms, bound "
+        log(f"  gather at {what} shape tab [{B}, {P}] idx [{B}, {N}]: "
+            f"bit-exact; kernel {k_ms:.6f} ms, plain version {p_ms:.6f} "
+            f"ms, torch.gather {l_ms:.6f} ms, bound "
             f"{gather_bound_ms(B, P, N):.6f} ms by bytes")
-    return {"launches": launches, "shape": shapes[0],
-            "times": times[shapes[0]]}
+    return times
 
 
 GMM_TRAIN_UTTS, GMM_TEST_UTTS = 250, 50   # phase 18 (a)'s corpus
@@ -2615,37 +2644,40 @@ def affine_term_scale(x, W) -> np.ndarray:
     return np.abs(np.asarray(x, np.float64)) @ W[:, :-1].T + W[:, -1]
 
 
-def fmllr_term_scale(am, feats, pdfs):
-    """The fMLLR statistics (K, G) of `feats` aligned to `pdfs` with every
-    gaussian of the frame's pdf at posterior 1 and each term's absolute
-    value: the scale of the card-vs-CPU errors of `FmllrStats`."""
+def _aligned_mask(am, pdfs) -> np.ndarray:
+    """[T, G] 1.0 where gaussian g belongs to frame t's aligned pdf."""
+    seg = np.repeat(np.arange(am.num_pdfs), [p.num_gauss for p in am.pdfs])
+    return (seg[None, :] == np.asarray(pdfs)[:, None]).astype(np.float64)
+
+
+def fmllr_term_scale(am, feats, pdfs, post=None):
+    """The fMLLR statistics (K, G) of `feats` aligned to `pdfs` with each
+    term's absolute value, every gaussian of the frame's pdf weighted by
+    `post` [T, G] (by default 1): the scale of the card-vs-CPU errors of
+    `FmllrStats`, or with `post` a bound on the posteriors' difference,
+    the bound that sets on them."""
     from kaldi_tpu_torch.transform.fmllr import FmllrStats
     means = np.concatenate([p.means for p in am.pdfs])
     variances = np.concatenate([p.vars for p in am.pdfs])
-    offsets = np.cumsum([0] + [p.num_gauss for p in am.pdfs])
-    mask = np.zeros((len(pdfs), len(means)))
-    for t, p in enumerate(pdfs):
-        mask[t, offsets[p]:offsets[p + 1]] = 1.0
     st = FmllrStats(am.dim)
     st.accumulate(np.abs(np.asarray(feats, np.float64)), np.abs(means),
-                  variances, mask)
+                  variances, _aligned_mask(am, pdfs) if post is None
+                  else post)
     return st
 
 
-def mllt_term_scale(am, feats, pdfs) -> np.ndarray:
-    """MLLT's G of `feats` aligned to `pdfs` with every gaussian of the
-    frame's pdf at posterior 1 and |x - mu| in place of x - mu."""
+def mllt_term_scale(am, feats, pdfs, post=None) -> np.ndarray:
+    """MLLT's G of `feats` aligned to `pdfs` with |x - mu| in place of
+    x - mu, every gaussian of the frame's pdf weighted by `post` [T, G]
+    (by default 1)."""
     means = np.concatenate([p.means for p in am.pdfs])
     variances = np.concatenate([p.vars for p in am.pdfs])
-    offsets = np.cumsum([0] + [p.num_gauss for p in am.pdfs])
+    w = _aligned_mask(am, pdfs) if post is None else post
     x = np.asarray(feats, np.float64)
-    D = x.shape[1]
-    G = np.zeros((D, D, D))
-    for p in np.unique(pdfs):
-        rows = x[pdfs == p]
-        for m in range(offsets[p], offsets[p + 1]):
-            d = np.abs(rows - means[m])
-            G += (d.T @ d)[None] / variances[m][:, None, None]
+    G = np.zeros((x.shape[1],) * 3)
+    for m in np.flatnonzero(w.sum(axis=0)):
+        d = np.abs(x - means[m])
+        G += ((d * w[:, m, None]).T @ d)[None] / variances[m][:, None, None]
     return G
 
 
@@ -2655,14 +2687,126 @@ def _worst(got, want, scale) -> float:
                         / np.maximum(scale, 1e-300)))
 
 
-# phase 19's card-vs-CPU limits for what the device's Gaussian posteriors
-# feed: the MLLT and fMLLR statistics (relative to their terms' magnitude)
-# and the transforms estimated from them (relative to their largest
-# entry). The f32 loglikes agree to some 1e-7 of their GEMM terms, but
-# gaussians of one pdf that nearly tie turn that into posterior
-# differences far above it: MLLT's G differed by 2.399e-05 of its terms'
-# magnitude on the card (PERF.md). Everything else is held to 1e-5.
-POSTERIOR_STATS_LIMIT = 1e-4
+F32_EPS = 2.0 ** -24                      # f32 unit roundoff
+
+
+def posterior_bound(am_cpu, am_card, feats, pdfs) -> dict:
+    """The gaussian posteriors of `feats` within each frame's aligned pdf
+    (`_posteriors_np`, as the statistics use them) on the card and on the
+    CPU, and the bound that the per-gaussian loglikes' difference sets on
+    their difference.
+
+    With delta_tm the card's loglike of gaussian m at frame t less the
+    CPU's and S_t its spread (max - min) over the aligned pdf's gaussians,
+    the exact softmax moves each posterior by at most
+    gamma (1 - gamma) S_t e^S_t (gamma the CPU's): largest where the pdf's
+    gaussians nearly tie, 0 for a pdf of one gaussian. Each side's f32
+    softmax adds at most (|l - max l| + n + 3) eps of gamma (the
+    subtraction, exp to 2 ulp, a sum of n terms, the division); 2^-126
+    covers denormals. -> {"bound" [T, G], "bound_mllt" (the same, plus the
+    whole term of a gaussian whose occupancy straddles MlltStats'
+    1e-8 cut), "card", "cpu" [T, G], "ll" (the loglikes' largest
+    difference over their GEMM terms' magnitude), "spread" (max S_t)}."""
+    import torch
+    from kaldi_tpu_torch.gmm.am_gmm import _augment
+    from kaldi_tpu_torch.transform.fmllr import _posteriors_np
+    x = np.asarray(feats, np.float32)
+    pdfs = np.asarray(pdfs)
+    comp, post = {}, {}
+    for d, am in (("cpu", am_cpu), ("card", am_card)):
+        packed = am.device_pack()[0]
+        comp[d] = torch.matmul(_augment(torch.as_tensor(x, device=am.device)),
+                               packed).cpu().numpy().astype(np.float64)
+        post[d] = _posteriors_np(am, x, pdfs, np.ones(len(x), np.float32))
+    mask = _aligned_mask(am_cpu, pdfs) > 0
+    xa = np.abs(x.astype(np.float64))
+    terms = np.concatenate([xa, 0.5 * xa * xa, np.ones((len(x), 1))],
+                           axis=1) @ np.abs(am_cpu.pack()[0].astype(np.float64))
+    delta = comp["card"] - comp["cpu"]
+    spread = (np.where(mask, delta, -np.inf).max(axis=1)
+              - np.where(mask, delta, np.inf).min(axis=1))[:, None]
+    lcpu = np.where(mask, comp["cpu"], -np.inf)
+    dist = np.where(mask, lcpu.max(axis=1, keepdims=True) - lcpu, 0.0)
+    g = post["cpu"]
+    n = mask.sum(axis=1, keepdims=True)
+    bound = np.where(mask, g * (1.0 - g) * spread * np.exp(spread)
+                     + 2.0 * (dist + n + 3) * F32_EPS * g + 2.0 ** -126, 0.0)
+    straddle = ((g.sum(axis=0) < 1e-8) != (post["card"].sum(axis=0) < 1e-8))
+    bound_mllt = bound + np.where(straddle[None, :],
+                                  np.maximum(g, post["card"]), 0.0)
+    return {"bound": bound, "bound_mllt": bound_mllt, "card": post["card"],
+            "cpu": g, "spread": float(spread.max(initial=0.0)),
+            "ll": float(np.max(np.abs(delta)[mask] / terms[mask],
+                               initial=0.0))}
+
+
+def posterior_stats_card_vs_cpu(am_cpu, am_card, ali) -> tuple[dict, dict]:
+    """`FmllrStats` and `MlltStats` of the aligned utterances `ali` [(feats,
+    pdfs)], accumulated once with the card's AM and once with the CPU's:
+    their only device work is the gaussian posteriors. -> ({"cpu":
+    (FmllrStats, MlltStats), "cuda": ...}, errs), errs naming for fMLLR's
+    K, G and beta and MLLT's G the largest difference over the terms'
+    magnitude ("terms") and over the bound the posteriors' bound sets
+    ("bound", must be <= 1); and for the posteriors the largest ratio of
+    their difference to their bound ("posterior ratio", <= 1), the largest
+    difference ("shift"), the CPU's posterior there ("at gamma"), the
+    loglikes' largest spread S_t ("spread") and difference over their
+    GEMM terms ("ll")."""
+    from kaldi_tpu_torch.steps.lda_mllt import accumulate_mllt_from_alignment
+    from kaldi_tpu_torch.transform.fmllr import FmllrStats
+    from kaldi_tpu_torch.transform.mllt import MlltStats
+    D = am_cpu.dim
+    stats = {d: (FmllrStats(D), MlltStats(D)) for d in ("cpu", "cuda")}
+    f_scale, f_bound = FmllrStats(D), FmllrStats(D)
+    g_scale, g_bound = np.zeros((D, D, D)), np.zeros((D, D, D))
+    errs = {"posterior ratio": 0.0, "shift": 0.0, "at gamma": 0.0,
+            "spread": 0.0, "ll": 0.0}
+    for feats, pdfs in ali:
+        for d, am in (("cpu", am_cpu), ("cuda", am_card)):
+            stats[d][0].accumulate_from_alignment(am, feats, pdfs)
+            accumulate_mllt_from_alignment(am, feats, pdfs, stats[d][1])
+        pb = posterior_bound(am_cpu, am_card, feats, pdfs)
+        f_scale.add(fmllr_term_scale(am_cpu, feats, pdfs))
+        f_bound.add(fmllr_term_scale(am_cpu, feats, pdfs, pb["bound"]))
+        g_scale += mllt_term_scale(am_cpu, feats, pdfs)
+        g_bound += mllt_term_scale(am_cpu, feats, pdfs, pb["bound_mllt"])
+        shift = np.abs(pb["card"] - pb["cpu"])
+        at = np.unravel_index(np.argmax(shift), shift.shape)
+        if shift[at] > errs["shift"]:
+            errs["shift"], errs["at gamma"] = float(shift[at]), \
+                float(pb["cpu"][at])
+        errs["posterior ratio"] = max(errs["posterior ratio"],
+                                      _worst(pb["card"], pb["cpu"],
+                                             pb["bound"]))
+        errs["spread"] = max(errs["spread"], pb["spread"])
+        errs["ll"] = max(errs["ll"], pb["ll"])
+    (cf, cm), (gf, gm) = stats["cpu"], stats["cuda"]
+    for name, got, want, scale, bound in (
+            ("fMLLR K", gf.K, cf.K, f_scale.K, f_bound.K),
+            ("fMLLR G", gf.G, cf.G, f_scale.G, f_bound.G),
+            ("fMLLR beta", gf.beta, cf.beta, f_scale.beta, f_bound.beta),
+            ("MLLT G", gm.G, cm.G, g_scale, g_bound)):
+        errs[name] = {"terms": _worst(got, want, scale),
+                      "bound": _worst(got, want, bound)}
+    return stats, errs
+
+
+def check_posterior_stats(check, what: str, errs: dict) -> str:
+    """Hold `posterior_stats_card_vs_cpu`'s errs to their limits: the
+    loglikes within 1e-5 of their GEMM terms, the posteriors and every
+    statistic within the bound. -> a line for the log."""
+    check(f"{what}: loglikes card vs CPU", errs["ll"])
+    check(f"{what}: posteriors over their bound", errs["posterior ratio"],
+          1.0)
+    stats = [k for k in errs if isinstance(errs[k], dict)]
+    for k in stats:
+        check(f"{what}: {k} over its bound", errs[k]["bound"], 1.0)
+    return (", ".join(f"{k} {errs[k]['terms']:.3e} of its terms' magnitude "
+                      f"({errs[k]['bound']:.3f} of its bound)" for k in stats)
+            + f"; posteriors at most {errs['posterior ratio']:.3f} of their "
+            f"bound, the largest shift {errs['shift']:.3e} at gamma "
+            f"{errs['at gamma']:.4f}; loglikes {errs['ll']:.3e} of their GEMM "
+            f"terms, spread within a pdf up to {errs['spread']:.3e} nats")
 
 
 class _Limits:
@@ -2799,36 +2943,32 @@ def phase_ladder_small():
     ymono = mono.train_mono(ylang, train_d,
                             mono.MonoTrainOpts(**SAT_LDA_MONO), device="cpu")
     lopts = lda_mllt.LdaMlltTrainOpts(**LDA_SMALL)
-    A, M, mstats, spliced_err = {}, {}, {}, 0.0
+    A, ali, spliced_err = {}, {}, 0.0
     for d in ("cpu", "cuda"):
         m = gmm_model_on(ymono, d)
-        ali = tdnn.align_with_gmm(m, train_d)
-        st, mst = lda.LdaStats(m.am.num_pdfs, 13 * 7), mllt.MlltStats(39)
-        for (f, pdfs), (_u, raw, _w) in zip(ali, train_r):
+        ali[d] = tdnn.align_with_gmm(m, train_d)
+        st = lda.LdaStats(m.am.num_pdfs, 13 * 7)
+        for (f, pdfs), (_u, raw, _w) in zip(ali[d], train_r):
             sp = splice_frames(torch.as_tensor(raw, device=d), 3, 3)
             spliced_err = max(spliced_err, float(np.max(np.abs(
                 sp.cpu().numpy() - splice_frames(torch.as_tensor(raw), 3,
                                                  3).numpy()))))
             st.accumulate(sp.cpu().numpy()[: len(pdfs)], pdfs)
-            lda_mllt.accumulate_mllt_from_alignment(m.am, f, pdfs, mst)
         A[d] = lda.estimate_lda(st, lopts.lda_dim)[0]
-        M[d] = mllt.update_mllt(mst)[0]
-        mstats[d] = mst
     check("splice on the card vs CPU", spliced_err, 0.0)
-    g_scale = sum(mllt_term_scale(ymono.am, f, p)
-                  for f, p in tdnn.align_with_gmm(ymono, train_d))
-    # MLLT's optimum is ill-conditioned along some rows: the transforms are
-    # compared by the objective each reaches on the CPU's statistics
-    objf = {d: mllt.mllt_objf(mstats["cpu"], np.asarray(M[d], np.float64))
-            for d in M}
-    errs = {"LDA": _worst(A["cuda"], A["cpu"], np.abs(A["cpu"]).max()),
-            "MLLT G": _worst(mstats["cuda"].G, mstats["cpu"].G, g_scale),
-            "MLLT objective": abs(objf["cuda"] - objf["cpu"])
-            / abs(objf["cpu"])}
+    check.require("yesno alignments: card and CPU differ", all(
+        np.array_equal(a[1], b[1]) for a, b in zip(ali["cpu"], ali["cuda"])))
+    lda_err = check("LDA card vs CPU", _worst(A["cuda"], A["cpu"],
+                                              np.abs(A["cpu"]).max()))
+    # MLLT's statistics from the card's and the CPU's posteriors on the
+    # same alignments, held to the bound the loglikes' difference sets;
+    # the solve is host f64 code, so the matrices differ only through them
+    mstats, m_errs = posterior_stats_card_vs_cpu(
+        gmm_model_on(ymono, "cpu").am, gmm_model_on(ymono, "cuda").am,
+        ali["cpu"])
+    m_line = check_posterior_stats(check, "LDA corpus", m_errs)
+    M = {d: mllt.update_mllt(mstats[d][1])[0] for d in mstats}
     m_entry = _worst(M["cuda"], M["cpu"], np.abs(M["cpu"]).max())
-    check("LDA card vs CPU", errs["LDA"])
-    check("MLLT G card vs CPU", errs["MLLT G"], POSTERIOR_STATS_LIMIT)
-    check("MLLT objective card vs CPU", errs["MLLT objective"])
     res_lda = lda_mllt.train_lda_mllt(ylang, train_d, train_r,
                                       gmm_model_on(ymono, "cuda"), lopts)
     lfeats, lnf = pad_batch([res_lda.transform_feats(f, lopts)
@@ -2839,52 +2979,37 @@ def phase_ladder_small():
                    for r in dec.decode(res_lda.model.am.loglikes(lfeats),
                                        lnf)])
     check("train_lda_mllt on the card: test WER", lda_wer, 0.0)
-    log(f"  (c) LDA+MLLT, yesno: splice identical; from card and CPU "
-        f"statistics: " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
-        + f" (LDA relative to its largest entry, G to its terms' magnitude, "
-        f"the objective of each device's MLLT on the CPU's statistics to "
-        f"itself; limits 1e-5, {POSTERIOR_STATS_LIMIT} for G; the MLLT "
-        f"matrices differ by {m_entry:.3e} of their largest entry); "
-        f"train_lda_mllt on the card: a "
-        f"{list(res_lda.transform.shape)} transform, WER {lda_wer:.2f}")
+    log(f"  (c) LDA+MLLT, yesno: splice and alignments identical; LDA from "
+        f"card and CPU statistics {lda_err:.3e} of its largest entry "
+        f"(limit 1e-5); posterior-fed statistics card vs CPU: {m_line} "
+        f"(limits: 1 of each bound, 1e-5 for the loglikes); MLLT from each device's statistics (not limited: the "
+        f"solve's conditioning) {m_entry:.3e} of its largest entry; "
+        f"train_lda_mllt on the card: a {list(res_lda.transform.shape)} "
+        f"transform, WER {lda_wer:.2f}")
 
-    # (d) fMLLR statistics, transforms and decode_fmllr
+    # (d) fMLLR statistics per speaker, transforms and decode_fmllr
     strain, stest, refs = sat_corpus("cpu")
     smono = mono.train_mono(ylang, [(u, f, w) for u, f, w, _s in strain],
                             mono.MonoTrainOpts(**SAT_LDA_MONO), device="cpu")
     ali = tdnn.align_with_gmm(smono, [(u, f, w) for u, f, w, _s in strain])
     spk = [s for _u, _f, _w, s in strain]
-    stats = {d: {} for d in ("cpu", "cuda")}
-    for d in stats:
-        m = gmm_model_on(smono, d)
-        for (f, pdfs), s in zip(ali, spk):
-            stats[d].setdefault(s, fmllr.FmllrStats(39)) \
-                .accumulate_from_alignment(m.am, f, pdfs)
-    errs = {"K": 0.0, "G": 0.0, "W": 0.0, "auxf": 0.0, "y": 0.0}
-    for s in stats["cpu"]:
-        sc = fmllr.FmllrStats(39)
-        for (f, pdfs), s2 in zip(ali, spk):
-            if s2 == s:
-                sc.add(fmllr_term_scale(smono.am, f, pdfs))
-        c, g = stats["cpu"][s], stats["cuda"][s]
-        errs["K"] = max(errs["K"], _worst(g.K, c.K, sc.K))
-        errs["G"] = max(errs["G"], _worst(g.G, c.G, sc.G))
-        W = {d: fmllr.estimate_fmllr(stats[d][s], min_count=50.0)[0]
-             for d in stats}
-        errs["W"] = max(errs["W"], _worst(W["cuda"], W["cpu"],
-                                          np.abs(W["cpu"]).max()))
-        aux = {d: fmllr.fmllr_auxf(np.asarray(W[d], np.float64), c)
-               for d in W}
-        errs["auxf"] = max(errs["auxf"], abs(aux["cuda"] - aux["cpu"])
-                           / abs(aux["cpu"]))
+    am_c, am_g = gmm_model_on(smono, "cpu").am, gmm_model_on(smono, "cuda").am
+    w_err = y_err = 0.0
+    for s in sorted(set(spk)):
+        fstats, f_errs = posterior_stats_card_vs_cpu(
+            am_c, am_g, [a for a, s2 in zip(ali, spk) if s2 == s])
+        f_line = check_posterior_stats(check, f"speaker {s}", f_errs)
+        log(f"  (d) speaker {s}: {f_line}")
+        W = {d: fmllr.estimate_fmllr(fstats[d][0], min_count=50.0)[0]
+             for d in fstats}
+        w_err = max(w_err, _worst(W["cuda"], W["cpu"],
+                                  np.abs(W["cpu"]).max()))
         x = strain[spk.index(s)][1]
         y = {d: fmllr.apply_affine_transform(x, W["cpu"], d).cpu().numpy()
-             for d in stats}
-        errs["y"] = max(errs["y"], _worst(y["cuda"], y["cpu"],
-                                          np.abs(y["cpu"]).max()))
-    for k, e in errs.items():
-        check(f"fMLLR {k} card vs CPU", e,
-              1e-5 if k in ("auxf", "y") else POSTERIOR_STATS_LIMIT)
+             for d in fstats}
+        y_err = max(y_err, _worst(y["cuda"], y["cpu"],
+                                  np.abs(y["cpu"]).max()))
+    check("apply_affine_transform card vs CPU", y_err)
     sat_card = sat.train_sat(ylang, strain, gmm_model_on(smono, "cuda"),
                              sat.SatTrainOpts(**SAT_SMALL))
     sat_cpu = sat.SatModel(gmm_model_on(sat_card.model, "cpu"),
@@ -2906,16 +3031,14 @@ def phase_ladder_small():
                                             snf)])
     check.require(f"SAT WER {sat_wer:.2f} <= SI {si_wer:.2f} and < 25",
                   sat_wer <= si_wer and sat_wer < 25.0)
-    log(f"  (d) fMLLR, 3 warped speakers: card vs CPU statistics K "
-        f"{errs['K']:.3e}, G {errs['G']:.3e} of their terms' magnitude and "
-        f"estimate_fmllr {errs['W']:.3e} of its largest entry (limits "
-        f"{POSTERIOR_STATS_LIMIT}), its auxiliary function on the CPU's "
-        f"statistics {errs['auxf']:.3e} relative and apply_affine_transform "
-        f"{errs['y']:.3e} of its largest entry (limits 1e-5); train_sat on "
-        f"the card: {len(sat_card.transforms)} speaker transforms; "
-        f"decode_fmllr: the same words on card and CPU; WER SAT "
-        f"{sat_wer:.2f}, SI {si_wer:.2f} (SAT <= SI, SAT < 25); phase 19 "
-        f"took {time.perf_counter() - t0:.3f} s")
+    log(f"  (d) fMLLR, 3 warped speakers: estimate_fmllr from each device's "
+        f"statistics (not limited: the solve's conditioning) {w_err:.3e} of "
+        f"its largest entry; apply_affine_transform {y_err:.3e} of its "
+        f"largest entry (limit 1e-5); train_sat on the card: "
+        f"{len(sat_card.transforms)} speaker transforms; decode_fmllr: the "
+        f"same words on card and CPU; WER SAT {sat_wer:.2f}, SI "
+        f"{si_wer:.2f} (SAT <= SI, SAT < 25); phase 19 took "
+        f"{time.perf_counter() - t0:.3f} s")
     check.done("phase 19")
 
 
@@ -3002,7 +3125,7 @@ def phase_ladder_full(card: str, profile: bool = False) -> dict:
         f"frames), {len(refs)} test, {len(V)} words over 30 phones, 5 "
         f"speakers; MFCC (+ deltas) on the card in {t_feat:.3f} s")
     dopts = CsrBeamOpts(**LADDER_DECODE)
-    out, graph_s = {}, {}
+    out, graph_s, shapes = {}, {}, set()
 
     def wer_of(name, model, test_utts, transform=None):
         t = time.perf_counter()
@@ -3010,7 +3133,9 @@ def phase_ladder_full(card: str, profile: bool = False) -> dict:
         graph_s[name] = gs
         fl = [transform(f) if transform else f for _u, f, _w in test_utts]
         fb, nf = pad_batch(fl)
-        res = dec.decode(model.am.loglikes(fb), nf)
+        ll = model.am.loglikes(fb)
+        shapes.update(csr_gather_shapes(dec, ll.shape[0], ll.shape[2]))
+        res = dec.decode(ll, nf)
         w = wer(refs, [[lang.words.sym(x) for x in r[0]] if r else []
                        for r in res])
         return w, dec.graph.num_states, time.perf_counter() - t
@@ -3088,8 +3213,10 @@ def phase_ladder_full(card: str, profile: bool = False) -> dict:
     w_sat = wer(refs, [[lang.words.sym(x) for x in hyps[u]]
                        for u, _f, _s in spk_test])
     fb, nf = pad_batch([f for _u, f, _s in spk_test])
+    ll = sm.model.am.loglikes(fb)
+    shapes.update(csr_gather_shapes(dec, ll.shape[0], ll.shape[2]))
     w_si = wer(refs, [[lang.words.sym(x) for x in r[0]] if r else []
-                      for r in dec.decode(sm.model.am.loglikes(fb), nf)])
+                      for r in dec.decode(ll, nf)])
     out["sat"] = dict(wer=w_sat, si_wer=w_si, secs=sat_s,
                       leaves=sm.model.am.num_pdfs,
                       gauss=sm.model.am.total_gauss, stats=stats)
@@ -3114,10 +3241,14 @@ def phase_ladder_full(card: str, profile: bool = False) -> dict:
         f"qaffine {q.launches}; phase 20 took "
         f"{time.perf_counter() - t0:.3f} s")
     launches = tg.launches
+    # the kernel at every shape the ladder's decodes gave it (these
+    # launches come after the count was read)
+    g_times = gather_at_shapes(tg, sorted(shapes), "the ladder's", 4)
 
     if profile:
         profile_ladder(tri, train[True])
-    return dict(out, launches=launches, graph_s=graph_s, obj_graph_s=obj_s)
+    return dict(out, launches=launches, graph_s=graph_s, obj_graph_s=obj_s,
+                gather_times=g_times)
 
 
 def profile_ladder(model, utts):
@@ -3322,7 +3453,11 @@ def main() -> int:
         "online_shape": on["shape"], "online_ms": on["times"][0],
         "online_plain_ms": on["times"][1],
         "online_library_ms": on["times"][2],
-        "online_bound_ms": gather_bound_ms(*on["shape"])}, {
+        "online_bound_ms": gather_bound_ms(*on["shape"]),
+        "ladder_shapes": [{
+            "shape": list(sh), "ms": t[0], "plain_ms": t[1],
+            "library_ms": t[2], "bound_ms": gather_bound_ms(*sh)}
+            for sh, t in ld["gather_times"].items()]}, {
         "name": "qaffine", "route": "cuda",
         "source": "kaldi_tpu_torch/csrc/qaffine.cu",
         "replaces": "kaldi_tpu/nnet/quantized.py:46",

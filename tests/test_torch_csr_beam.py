@@ -269,3 +269,34 @@ def test_hub_signed_zero_tie_matches_jax():
         np.testing.assert_array_equal(g_.numpy(), np.asarray(w_))
     assert got[0][0, 0] == 8                  # arc 7's target won the tie
     assert np.signbit(got[1][0, 0].item())
+
+
+@pytest.mark.parametrize("case", ["tiers", "hub"])
+def test_chip_smoke_gather_shapes_are_the_decodes(case, small_big_graph,
+                                                  monkeypatch):
+    """chip_smoke.csr_gather_shapes (the shapes at which the card's
+    gather kernel is checked and timed) lists exactly the (B, P, N) that
+    a decode's table gathers take: tier-A and tier-B lookups, the tier-B
+    rows' scores, and a hub's lookup where it has no one-hot."""
+    import chip_smoke as cs
+    from kaldi_tpu_torch.decoder import csr_beam
+    if case == "tiers":
+        g, ll = small_big_graph, _ll(7, 3, 12, 64)
+        kw = dict(beam=12.0, max_active=256, expand_budget=2048)
+    else:
+        g, ll = _star_hub_graph(300), _ll(8, 2, 10, 301)
+        kw = dict(beam=1e9, max_active=64, expand_budget=512,
+                  eps_budget=256, hub_threshold=32)
+    dec = CsrBeamDecoder(g, CsrBeamOpts(**kw), device="cpu")
+    seen = set()
+    real = csr_beam.batched_table_gather
+
+    def spy(tab, idx):
+        seen.add((tab.shape[0], tab.shape[1], idx.shape[1]))
+        return real(tab, idx)
+    monkeypatch.setattr(csr_beam, "batched_table_gather", spy)
+    B, _T, P = ll.shape
+    dec.decode(ll, np.full(B, ll.shape[1], np.int32))
+    assert seen == set(cs.csr_gather_shapes(dec, B, P))
+    assert (case == "hub") == (dec.tabs.hub_onehot is None
+                               and len(dec.tabs.hub_bounds) > 1)

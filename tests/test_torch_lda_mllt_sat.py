@@ -163,23 +163,13 @@ def test_fmllr_and_mllt_stats_match_jax(sat):
     ones_f = jfmllr.FmllrStats(D)
     jmll, tmll = jmllt.MlltStats(D), tmllt.MlltStats(D)
     ones_g = np.zeros((D, D, D))
-    means = np.concatenate([p.means for p in jm.am.pdfs])
-    variances = np.concatenate([p.vars for p in jm.am.pdfs])
-    offsets = np.cumsum([0] + [p.num_gauss for p in jm.am.pdfs])
     for feats, pdfs in aligned:
         jf.accumulate_from_alignment(jm.am, feats, pdfs)
         tf.accumulate_from_alignment(tm.am, feats, pdfs)
         jlda.accumulate_mllt_from_alignment(jm.am, feats, pdfs, jmll)
         tlda.accumulate_mllt_from_alignment(tm.am, feats, pdfs, tmll)
-        # the scale: every gaussian of the frame's pdf at posterior 1
-        mask = np.zeros((len(pdfs), len(means)))
-        for t, p in enumerate(pdfs):
-            mask[t, offsets[p]:offsets[p + 1]] = 1.0
-        x = feats.astype(np.float64)
-        ones_f.accumulate(np.abs(x), np.abs(means), variances, mask)
-        for m in np.flatnonzero(mask.sum(axis=0)):
-            d = np.abs(x - means[m]) * np.sqrt(mask[:, m])[:, None]
-            ones_g += (d.T @ d)[None] / variances[m][:, None, None]
+        ones_f.add(cs.fmllr_term_scale(jm.am, feats, pdfs))
+        ones_g += cs.mllt_term_scale(jm.am, feats, pdfs)
     assert tf.beta == pytest.approx(jf.beta, rel=1e-5)
     errs = {"fmllr K": _rel_to(tf.K, jf.K, ones_f.K),
             "fmllr G": _rel_to(tf.G, jf.G, ones_f.G),
@@ -196,6 +186,39 @@ def test_fmllr_and_mllt_stats_match_jax(sat):
     assert tp.beta == pytest.approx(jp.beta, rel=1e-6)
     assert _rel_to(tp.K, jp.K, np.abs(jp.K).max()) <= 1e-5
     assert _rel_to(tp.G, jp.G, np.abs(jp.G).max()) <= 1e-5
+
+
+def test_posterior_bound_covers_a_loglike_shift():
+    """chip_smoke's card-vs-CPU bound on the posterior-fed statistics,
+    with a CPU AM whose mixture weights moved by ~1e-4 in place of the
+    card's (the loglikes shift, the statistics' terms do not): the
+    posteriors and statistics stay within it and the loglikes within 1e-5
+    of their terms; moved means (terms that differ) break the bound."""
+    from kaldi_tpu_torch.gmm.am_gmm import AmDiagGmm
+    from kaldi_tpu_torch.steps import mono, tdnn
+    lang = cs.gmm_stack(cs.YESNO_LEXICON, cs.YESNO_ARPA)[0]
+    train_d = cs.lda_corpus("cpu")[0][:8]
+    m = mono.train_mono(lang, train_d, mono.MonoTrainOpts(**cs.SAT_LDA_MONO),
+                        device="cpu")
+    ali = tdnn.align_with_gmm(m, train_d)
+    rng = np.random.RandomState(0)
+    moved = [p.copy() for p in m.am.pdfs]
+    for p in moved:
+        w = p.weights * np.exp(rng.randn(p.num_gauss) * 1e-4)
+        p.weights = w / w.sum()
+    _st, errs = cs.posterior_stats_card_vs_cpu(
+        m.am, AmDiagGmm(moved, "cpu"), ali)
+    assert errs["shift"] > 0.0 and 0.0 < errs["at gamma"] < 1.0
+    check = cs._Limits()
+    cs.check_posterior_stats(check, "weights moved", errs)
+    assert check.failed == []
+    for p in moved:
+        p.means = p.means * (1.0 + 1e-3)
+    _st, errs = cs.posterior_stats_card_vs_cpu(
+        m.am, AmDiagGmm(moved, "cpu"), ali)
+    check = cs._Limits()
+    cs.check_posterior_stats(check, "means moved", errs)
+    assert any("over its bound" in f for f in check.failed)
 
 
 def test_apply_affine_transform_matches_jax():
