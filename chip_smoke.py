@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's serving, training and GMM-HMM paths once on one
-CUDA card and check them.
+"""Run the PyTorch port's serving, training, GMM-HMM and discriminative
+training paths once on one CUDA card and check them.
 
     python3 chip_smoke.py [--profile]
 
@@ -125,7 +125,38 @@ Phases (any failure raises and the script exits non-zero):
      pipelines timed on tri's HCLG; qaffine must not launch; the gather
      kernel bit-exact against its plain version, and timed, at every
      shape the ladder's decodes gave it; --profile adds one profiled
-     realignment and one accumulation pass.
+     realignment and one accumulation pass;
+ 21. discriminative path, small: tests/test_discriminative.py's yesno
+     system with the same (CPU) denominator lattices, boosted once, and
+     the same numerator alignment on card and CPU: one MMI and one sMBR
+     iteration's num and den statistics, each within the bound that the
+     two devices' loglikes set (a path's log-weight moves by at most the
+     lattice's spread S of 0.1 x their difference, so a lattice weight by
+     gamma (1 - gamma)(e^S - 1), an MPE weight by (e^S - 1) sd(A)
+     (sqrt(gamma) + gamma e^S); each gaussian's posterior as in phase
+     19); the EBW-updated means and variances from each device's
+     statistics reported; one nnet sMBR step of a small TDNN (each leaf
+     within 1e-5 of its largest |p| plus its largest step); neither
+     kernel may launch;
+ 22. discriminative path, full width: (a) tests/test_rm_like_recipe.py's
+     pyramid on the card (42 training and 12 test utterances at seed 17;
+     mono 14 iterations / 140 gaussians, tri 12 / 350 / 120 leaves, bMMI
+     2 iterations at boost 0.1) held to PARITY.md:32 (mono <= 12, tri <=
+     10, tri <= mono, bMMI <= tri, bMMI <= 8), then fMMI at
+     tests/test_fmmi.py's options from that tri and on test_fmmi.py's
+     yesno system, finite with a moved projection, each WER against its
+     base reported (PARITY.md:34 is not held: JAX's fMMI breaks it on
+     both systems, tests/test_torch_fmmi.py);
+     (b) on phase 20's models at the ladder's width: bMMI from tri
+     (train_mmi.sh's 4 iterations, boost 0.1, on tri's unigram HCLG by
+     make_hclg) and sMBR of the TDNN (3 epochs, denominator lattices from
+     its own loglikes through make_hclg_flat + CsrBeamDecoder, numerator
+     tids from the LDA+MLLT model), each objective non-decreasing and
+     every value finite; WERs before and after reported; seconds and ms
+     per iteration by phase, lattices per second, mean arcs, None counts;
+     the gather kernel bit-exact and timed at the shapes of (b)'s decodes;
+     --profile adds one profiled bMMI iteration and one sMBR epoch over
+     20 egs.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error against its plain version, times and bound; the last line
@@ -2722,22 +2753,35 @@ def posterior_bound(am_cpu, am_card, feats, pdfs) -> dict:
     xa = np.abs(x.astype(np.float64))
     terms = np.concatenate([xa, 0.5 * xa * xa, np.ones((len(x), 1))],
                            axis=1) @ np.abs(am_cpu.pack()[0].astype(np.float64))
-    delta = comp["card"] - comp["cpu"]
-    spread = (np.where(mask, delta, -np.inf).max(axis=1)
-              - np.where(mask, delta, np.inf).min(axis=1))[:, None]
-    lcpu = np.where(mask, comp["cpu"], -np.inf)
-    dist = np.where(mask, lcpu.max(axis=1, keepdims=True) - lcpu, 0.0)
+    bound, spread = softmax_shift_bound(comp["cpu"], comp["card"], post["cpu"],
+                                        mask)
     g = post["cpu"]
-    n = mask.sum(axis=1, keepdims=True)
-    bound = np.where(mask, g * (1.0 - g) * spread * np.exp(spread)
-                     + 2.0 * (dist + n + 3) * F32_EPS * g + 2.0 ** -126, 0.0)
     straddle = ((g.sum(axis=0) < 1e-8) != (post["card"].sum(axis=0) < 1e-8))
     bound_mllt = bound + np.where(straddle[None, :],
                                   np.maximum(g, post["card"]), 0.0)
+    delta = comp["card"] - comp["cpu"]
     return {"bound": bound, "bound_mllt": bound_mllt, "card": post["card"],
-            "cpu": g, "spread": float(spread.max(initial=0.0)),
+            "cpu": g, "spread": spread,
             "ll": float(np.max(np.abs(delta)[mask] / terms[mask],
                                initial=0.0))}
+
+
+def softmax_shift_bound(comp_a, comp_b, post_a, mask) -> tuple:
+    """`posterior_bound` on arrays: component loglikes [N, G] of one side
+    (a) and the other (b), a's posteriors within each row's masked
+    gaussians, the mask [N, G]. -> (bound [N, G] on |post_b - post_a|,
+    the largest spread S_n)."""
+    delta = comp_b - comp_a
+    spread = (np.where(mask, delta, -np.inf).max(axis=1)
+              - np.where(mask, delta, np.inf).min(axis=1))[:, None]
+    spread = np.where(np.isfinite(spread), spread, 0.0)
+    la = np.where(mask, comp_a, -np.inf)
+    dist = np.where(mask, la.max(axis=1, keepdims=True) - la, 0.0)
+    g = post_a
+    n = mask.sum(axis=1, keepdims=True)
+    bound = np.where(mask, g * (1.0 - g) * spread * np.exp(spread)
+                     + 2.0 * (dist + n + 3) * F32_EPS * g + 2.0 ** -126, 0.0)
+    return bound, float(spread.max(initial=0.0))
 
 
 def posterior_stats_card_vs_cpu(am_cpu, am_card, ali) -> tuple[dict, dict]:
@@ -3076,8 +3120,10 @@ def ladder_feats(waves, deltas: bool, device) -> list:
 
 def _iter_ms(stats: list) -> str:
     """Mean ms per iteration of each phase that iter_stats timed."""
-    keys = [k for k in ("tree", "lda", "loglikes", "align", "mllt", "fmllr",
-                        "accumulate", "update") if any(k in s for s in stats)]
+    keys = [k for k in ("ubm", "denlats", "tree", "lda", "fmpe", "loglikes",
+                        "align", "mllt", "fmllr", "boost", "rescore+fb",
+                        "post", "accumulate", "step", "update")
+            if any(k in s for s in stats)]
     return ", ".join(
         f"{k} {np.mean([s[k] for s in stats if k in s]) * 1e3:.1f} ms "
         f"(x{sum(k in s for s in stats)})" for k in keys)
@@ -3248,7 +3294,10 @@ def phase_ladder_full(card: str, profile: bool = False) -> dict:
     if profile:
         profile_ladder(tri, train[True])
     return dict(out, launches=launches, graph_s=graph_s, obj_graph_s=obj_s,
-                gather_times=g_times)
+                gather_times=g_times, models=dict(
+                    lang=lang, arpa=arpa, refs=refs, dopts=dopts, tri=tri,
+                    lda=lda, nnet=nnet, train=train[True], test=test[True],
+                    train_l=train_l, test_l=test_l))
 
 
 def profile_ladder(model, utts):
@@ -3277,6 +3326,785 @@ def profile_ladder(model, utts):
         busy, n_ops, by_name = device_time(fn)
         log_profile(f"tri {what} of {len(utts)} utterances", "call", 1,
                     busy, n_ops, by_name, host_s, 8)
+
+
+# the discriminative path (phases 21-22): tests/test_discriminative.py's
+# yesno system and tests/test_rm_like_recipe.py's, test_fmmi.py's and
+# the ladder's options
+MMI_MONO = dict(num_iters=8, totgauss=40, max_iter_inc=6,
+                realign_iters=tuple(range(1, 8)))
+
+
+def mmi_system(device) -> dict:
+    """tests/test_discriminative.py's `mmi_system` (:138-167) built by the
+    port on `device`: from RandomState(7), 16 training and then 6 test
+    yesno utterances of 2-4 words (MFCC + deltas), a monophone trained at
+    its options, and the yesno HCLG as the denominator graph. -> {"lang",
+    "model", "den_graph", "train", "test"}."""
+    from kaldi_tpu_torch.fst.graph import make_hclg
+    from kaldi_tpu_torch.lm.arpa import ArpaLm, arpa_to_g
+    from kaldi_tpu_torch.steps.mono import MonoTrainOpts, train_mono
+    rng = np.random.RandomState(7)
+    lang = gmm_stack(YESNO_LEXICON, YESNO_ARPA)[0]
+
+    def corpus(prefix: str, n: int) -> list:
+        out = []
+        for i in range(n):
+            ws = _yesno_words(rng)
+            out.append((f"{prefix}_{i}",
+                        mfcc_deltas(yesno_synth(ws, rng), device), ws))
+        return out
+
+    train, test = corpus("train", 16), corpus("test", 6)
+    model = train_mono(lang, train, MonoTrainOpts(**MMI_MONO), device=device)
+    g = arpa_to_g(ArpaLm.parse(YESNO_ARPA), lang.words)
+    den = make_hclg(lang, g, model.trans_model, model.ctx_dep,
+                    self_loop_scale=0.1)
+    return dict(lang=lang, model=model, den_graph=den, train=train,
+                test=test)
+
+
+F64_EPS = 2.0 ** -53                     # f64 unit roundoff
+
+
+def lattice_spread(lat, dll, tm, kappa: float) -> float:
+    """The spread (largest less smallest) over the lattice's complete paths
+    of kappa * sum_t dll[t, pdf(arc at t)]: rescoring the lattice with
+    loglikes that differ by dll [T, P] moves each path's log-weight by
+    that sum, so no two paths' log-weights move apart by more."""
+    from kaldi_tpu_torch.lat.posteriors import lattice_state_times
+    times, _T = lattice_state_times(lat)
+    hi = np.full(lat.num_states, -np.inf)
+    lo = np.full(lat.num_states, np.inf)
+    hi[lat.start] = lo[lat.start] = 0.0
+    for s in lat.topological_order():
+        if not np.isfinite(hi[s]):
+            continue
+        for a in lat.arcs[s]:
+            d = (kappa * float(dll[times[s], tm.transition_id_to_pdf(
+                a.ilabel)]) if a.ilabel else 0.0)
+            hi[a.nextstate] = max(hi[a.nextstate], hi[s] + d)
+            lo[a.nextstate] = min(lo[a.nextstate], lo[s] + d)
+    fin = [s for s in lat.finals if np.isfinite(hi[s])]
+    if not fin:
+        return 0.0
+    return float(max(hi[s] for s in fin) - min(lo[s] for s in fin))
+
+
+def _accuracy_moments(lat, tids, tm, criterion: str, sil,
+                      one_silence_class: bool = True) -> tuple:
+    """(E[A], Var[A]) of the path accuracy A under the lattice's
+    posteriors, with `lattice_forward_backward_mpe_variants`' per-arc
+    accuracy: a forward pass of each state's first and second moments of
+    the prefix accuracy."""
+    from kaldi_tpu_torch.lat.posteriors import lattice_state_times
+    times, _T = lattice_state_times(lat)
+    ref_pdf = [tm.transition_id_to_pdf(int(t)) for t in tids]
+    ref_phone = [tm.transition_id_to_phone(int(t)) for t in tids]
+
+    def acc(a, t):
+        ph = tm.transition_id_to_phone(a.ilabel)
+        ref_sil = ref_phone[t] in sil
+        if one_silence_class and (ph in sil or ref_sil):
+            return 1.0 if (ph in sil and ref_sil) else 0.0
+        if criterion == "mpfe":
+            return 1.0 if ph == ref_phone[t] else 0.0
+        return 1.0 if tm.transition_id_to_pdf(a.ilabel) == ref_pdf[t] \
+            else 0.0
+
+    n = lat.num_states
+    alpha = np.full(n, -np.inf)
+    m1, m2 = np.zeros(n), np.zeros(n)
+    alpha[lat.start] = 0.0
+    for s in lat.topological_order():
+        if alpha[s] == -np.inf:
+            continue
+        for a in lat.arcs[s]:
+            j, lp = a.nextstate, alpha[s] - a.cost
+            c = acc(a, int(times[s])) if a.ilabel else 0.0
+            new = np.logaddexp(alpha[j], lp)
+            w_old, w_new = np.exp(alpha[j] - new), np.exp(lp - new)
+            m1[j] = w_old * m1[j] + w_new * (m1[s] + c)
+            m2[j] = w_old * m2[j] + w_new * (m2[s] + 2 * c * m1[s] + c * c)
+            alpha[j] = new
+    fin = [(s, alpha[s] - g - ac) for s, (g, ac) in lat.finals.items()
+           if alpha[s] > -np.inf]
+    tot = np.logaddexp.reduce([lp for _s, lp in fin])
+    e1 = sum(np.exp(lp - tot) * m1[s] for s, lp in fin)
+    e2 = sum(np.exp(lp - tot) * m2[s] for s, lp in fin)
+    return float(e1), float(max(e2 - e1 * e1, 0.0))
+
+
+def disc_weight_bound(lat, ll_a, ll_b, tids, tm, opts, sil) -> tuple:
+    """The bound on how far the signed pdf posteriors of one utterance
+    (`lattice_forward_backward_mmi` or `_mpe_variants`, per
+    opts.criterion) move when the lattice is rescored with loglikes ll_b
+    [T, P] instead of ll_a, on the same lattice and numerator tids.
+
+    With S the paths' `lattice_spread` and eta = e^S - 1, each path's
+    posterior changes by a factor within [e^-S, e^S]. An entry's
+    occupancy gamma (a set of paths) then moves by at most
+    gamma (1 - gamma) eta: the MMI weight's bound. The MPE weight of
+    (t, p) is Cov(1[path at (t, p)], A), A the path accuracy; under the
+    reweighting it moves by at most eta (E[1 |A - E A|] + gamma (1 + eta)
+    E|A - E A|) <= eta sqrt(Var A) (sqrt(gamma) + gamma (1 + eta)) (Cauchy-
+    Schwarz; Var A from `_accuracy_moments`). Each side's f64
+    forward-backward rounds its log-sums by at most 3 eps of their
+    magnitude C per step, along at most L arcs and states: 24 (L + N)
+    eps C of gamma (of gamma (T + 1) for MPE). The 1e-8 cuts (tid
+    posteriors, cancelled weights) add 1e-8 per tid and one more. ->
+    ({(t, pdf): bound} on a's rescored copy, frames whose MMI drop
+    decision lies within its bound of the 1 - 1e-4 threshold, S)."""
+    import copy
+    from kaldi_tpu_torch.lat.functions import lattice_forward_backward
+    from kaldi_tpu_torch.lat.posteriors import (lattice_to_post,
+                                                rescore_lattice)
+    kappa = opts.acoustic_scale
+    la = rescore_lattice(copy.deepcopy(lat), ll_a, tm, kappa)
+    S = lattice_spread(la, np.asarray(ll_b, np.float64)
+                       - np.asarray(ll_a, np.float64), tm, kappa)
+    eta = float(np.expm1(S))
+    tid_post, _tot = lattice_to_post(la)
+    _p, tot, alpha, beta = lattice_forward_backward(la)
+    vals = np.concatenate([alpha[np.isfinite(alpha)], beta[np.isfinite(beta)],
+                           [tot], [a.cost for arcs in la.arcs for a in arcs]])
+    rho = 24.0 * (la.num_arcs + la.num_states) * F64_EPS * \
+        float(np.max(np.abs(vals)))
+    gamma: dict = {}
+    ntid: dict = {}
+    for t, frame in enumerate(tid_post):
+        for tid, g in frame:
+            key = (t, tm.transition_id_to_pdf(tid))
+            gamma[key] = gamma.get(key, 0.0) + g
+            ntid[key] = ntid.get(key, 0) + 1
+    bound, straddle = {}, set()
+    T = len(tid_post)
+    if opts.criterion == "mmi":
+        for key, g in gamma.items():
+            bound[key] = (g * (1.0 - g) * eta + 1e-8 * (ntid[key] + 1)
+                          + rho * (g + 1.0))
+        for t in range(T):
+            q = tm.transition_id_to_pdf(int(tids[t]))
+            g = gamma.get((t, q), 0.0)
+            b = bound.get((t, q), 1e-8 + rho)
+            bound.setdefault((t, q), b)
+            if abs((1.0 - g) - (1.0 - 1e-4)) <= b:
+                straddle.add(t)
+    else:
+        _e, var = _accuracy_moments(la, tids, tm, opts.criterion, sil)
+        sd = np.sqrt(var)
+        for key, g in gamma.items():
+            bound[key] = (eta * sd * (np.sqrt(g) + g * (1.0 + eta)) + 1e-8
+                          + rho * g * (T + 1))
+    return bound, straddle, S
+
+
+def _signed_post(lat, ll, tids, tm, opts, sil) -> dict:
+    """{(t, pdf): w} of one utterance: its lattice (a copy) rescored with
+    ll and forward-backwarded for opts.criterion, as
+    `discriminative_stats` does."""
+    import copy
+    from kaldi_tpu_torch.lat.posteriors import (
+        lattice_forward_backward_mmi, lattice_forward_backward_mpe_variants,
+        rescore_lattice)
+    la = rescore_lattice(copy.deepcopy(lat), ll, tm, opts.acoustic_scale)
+    if opts.criterion == "mmi":
+        post = lattice_forward_backward_mmi(la, tids, tm, opts.drop_frames,
+                                            opts.cancel)[0]
+    else:
+        post = lattice_forward_backward_mpe_variants(la, tids, tm,
+                                                     opts.criterion, sil)[0]
+    return {(t, p): w for t, fr in enumerate(post) for p, w in fr}
+
+
+def weighted_stats_bound(u, du, gam, B, x, bound: list, scale: list):
+    """Add to `bound` ([occ [G], mean_acc [G, D], var_acc [G, D]]) what N
+    weighted terms u_n gamma_ng f(x_n) (f = 1, x, x^2) of a GMM statistic
+    can move by when each weight moves by at most du_n and each
+    posterior by at most B_ng: (du (gamma + B) + u B + (3 eps32 + 2 N
+    eps64)(u + du)(gamma + B)) |f(x)|, the last term the f32 weight and
+    product and the f64 sums of N terms; and to `scale` the terms'
+    magnitude u gamma |f(x)|."""
+    xa = np.abs(np.asarray(x, np.float64))
+    rnd = 3 * F32_EPS + 2 * len(u) * F64_EPS
+    W = (du[:, None] * (gam + B) + u[:, None] * B
+         + rnd * (u + du)[:, None] * (gam + B))
+    U = u[:, None] * gam
+    for acc, M in ((bound, W), (scale, U)):
+        acc[0] += M.sum(axis=0)
+        acc[1] += M.T @ xa
+        acc[2] += M.T @ (xa * xa)
+
+
+def stats_errs(got, want, bound: list, scale: list) -> dict:
+    """Two `AccumAmDiagGmm`s' largest difference over `bound` ("bound")
+    and over the terms' magnitude `scale` ("terms"), per gaussian of all
+    pdfs in order."""
+    out = {"bound": 0.0, "terms": 0.0}
+    for k, field in enumerate(("occ", "mean_acc", "var_acc")):
+        g = np.concatenate([getattr(a, field) for a in got.accs])
+        w = np.concatenate([getattr(a, field) for a in want.accs])
+        out["bound"] = max(out["bound"], _worst(g, w, bound[k]))
+        out["terms"] = max(out["terms"], _worst(g, w, np.maximum(
+            scale[k], 1e-30)))
+    return out
+
+
+def disc_stats_card_vs_cpu(am_cpu, am_card, tm, lats, align, feats, nf,
+                           opts, sil) -> tuple[dict, dict]:
+    """One iteration's num and den statistics (`steps/mmi.
+    discriminative_stats`) with the CPU's AM and with the card's, from
+    copies of the same lattices and the same numerator alignment, each
+    rescoring with its own loglikes; and the bound their difference must
+    stay in.
+
+    Each entry's signed weight w (t, pdf) moves by at most
+    `disc_weight_bound` (plus the whole weight in a frame whose MMI drop
+    decision straddles its threshold), and so does its positive (num) and
+    negated negative (den) part; each gaussian's posterior within the pdf
+    by at most `posterior_bound`'s B. A term u gamma f(x) of a statistic
+    (f = 1, x, x^2) then moves by at most (dU (gamma + B) + u B + (3 eps32
+    + 2 N eps64)(u + dU)(gamma + B)) |f(x)|: the f32 weight and product,
+    and the f64 sums of N terms. -> ({"cpu": (num, den), "cuda": ...},
+    errs: for the num and den statistics the largest difference over the
+    bound ("bound", must be <= 1) and over the terms' magnitude ("terms");
+    the weights' largest difference over their bound ("weight ratio", <=
+    1), the largest path spread S, the straddling frames, and the
+    objective of each)."""
+    import copy
+    from kaldi_tpu_torch.steps.mmi import discriminative_stats
+    devs = (("cpu", am_cpu), ("cuda", am_card))
+    ll = {d: am.loglikes_np(feats) for d, am in devs}
+    stats, objf = {}, {}
+    for d, am in devs:
+        num, den, tot, frames, _used = discriminative_stats(
+            am, tm, [copy.deepcopy(lat) for lat in lats], align, ll[d],
+            feats, nf, opts, sil)
+        stats[d], objf[d] = (num, den), tot / max(frames, 1)
+    G, D = am_cpu.total_gauss, feats.shape[2]
+    bound = {side: [np.zeros(G), np.zeros((G, D)), np.zeros((G, D))]
+             for side in ("num", "den")}
+    scale = {side: [np.zeros(G), np.zeros((G, D)), np.zeros((G, D))]
+             for side in ("num", "den")}
+    errs = {"weight ratio": 0.0, "S": 0.0, "straddle": 0,
+            "objf": (objf["cpu"], objf["cuda"])}
+    for b, lat in enumerate(lats):
+        if lat is None or align[b] is None:
+            continue
+        tids = align[b][0]
+        wb, straddle, S = disc_weight_bound(lat, ll["cpu"][b], ll["cuda"][b],
+                                            tids, tm, opts, sil)
+        errs["S"] = max(errs["S"], S)
+        errs["straddle"] += len(straddle)
+        post = {d: _signed_post(lat, ll[d][b], tids, tm, opts, sil)
+                for d in ("cpu", "cuda")}
+        keys = sorted(set(post["cpu"]) | set(post["cuda"]))
+        w = {d: np.array([post[d].get(k, 0.0) for k in keys])
+             for d in post}
+        dw = np.array([wb.get(k, 2e-8) for k in keys]) + np.where(
+            [k[0] in straddle for k in keys],
+            np.maximum(np.abs(w["cpu"]), np.abs(w["cuda"])), 0.0)
+        errs["weight ratio"] = max(errs["weight ratio"], _worst(
+            w["cuda"], w["cpu"], dw))
+        t_idx = np.array([k[0] for k in keys])
+        pdfs = np.array([k[1] for k in keys])
+        x = feats[b, t_idx]
+        pb = posterior_bound(am_cpu, am_card, x, pdfs)
+        for side, u in (("num", np.maximum(w["cpu"], 0.0)),
+                        ("den", np.maximum(-w["cpu"], 0.0))):
+            weighted_stats_bound(u, dw, pb["cpu"], pb["bound"], x,
+                                 bound[side], scale[side])
+    for i, side in enumerate(("num", "den")):
+        errs[side] = stats_errs(stats["cuda"][i], stats["cpu"][i],
+                                bound[side], scale[side])
+    return stats, errs
+
+
+def disc_small_setup() -> dict:
+    """Phase 21's inputs: `mmi_system` on the CPU and a copy of its model
+    on the card; the CPU's denominator lattices of the training set,
+    boosted by 0.1 once with the CPU's numerator alignment, and that
+    alignment (both devices get these); and the card's own alignment."""
+    from kaldi_tpu_torch.decoder.viterbi import viterbi_align
+    from kaldi_tpu_torch.lat.posteriors import lattice_boost
+    from kaldi_tpu_torch.steps.mmi import MmiTrainOpts, make_denlats
+    from kaldi_tpu_torch.steps.mono import compile_and_pad
+    s = mmi_system("cpu")
+    m_cpu = s["model"]
+    m_card = gmm_model_on(m_cpu, "cuda")
+    tm = m_cpu.trans_model
+    sil = {s["lang"].phones["SIL"]}
+    batch, feats, nf = compile_and_pad(s["lang"], tm, m_cpu.ctx_dep,
+                                       s["train"], 1.0, 0.1)
+    opts = MmiTrainOpts(boost=0.1, lattice_beam=8.0)
+    _dec, lats = make_denlats(m_cpu, s["den_graph"], feats, nf, opts)
+    align = viterbi_align(batch, m_cpu.am.loglikes(feats), nf, 0.1,
+                          device="cpu")
+    for lat, a in zip(lats, align):
+        if lat is not None and a is not None:
+            lattice_boost(lat, a[0], tm, opts.boost, sil)
+    return dict(s, m_cpu=m_cpu, m_card=m_card, tm=tm, sil=sil, feats=feats,
+                nf=nf, opts=opts, lats=lats, align=align,
+                align_card=viterbi_align(batch, m_card.am.loglikes(feats),
+                                         nf, 0.1, device="cuda"))
+
+
+def smbr_step_card_vs_cpu(su: dict) -> dict:
+    """One nnet sMBR step (`make_discriminative_step`, SGD at 3e-4) of a
+    small TDNN (39 -> 64 relu over the yesno pdfs, seeded init with a
+    random final layer) on the card and on the CPU, from the same params,
+    features (the first aligned utterance's, with context) and dense
+    posteriors (from its lattice rescored with the CPU's loglikes). ->
+    {"err": the params' largest difference over their terms' magnitude
+    (per leaf, its largest |p| plus its largest step), "leaf": that per
+    leaf, "moved": the largest step, "objf", "utt"}."""
+    import copy
+    import torch
+    from kaldi_tpu_torch.nnet import discriminative as nd
+    from kaldi_tpu_torch.nnet import optim
+    from kaldi_tpu_torch.nnet.am_nnet import AmNnet
+    from kaldi_tpu_torch.nnet.tdnn import Tdnn, TdnnConfig
+    feats, nf, lats, align = su["feats"], su["nf"], su["lats"], su["align"]
+    cfg = TdnnConfig(feat_dim=feats.shape[2], num_pdfs=su["m_cpu"].am.num_pdfs,
+                     hidden_dim=64, pnorm_output_dim=16, nonlinearity="relu",
+                     splice_indexes=((-2, -1, 0, 1, 2), (-1, 1), (0,)))
+    tdnn = Tdnn(cfg)
+    tdnn.init(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        tdnn.final.w.copy_(torch.randn(tdnn.final.w.shape, generator=torch
+                                       .Generator().manual_seed(1)) * 0.3)
+    before = tdnn.params()
+    b = next(i for i, (lat, a) in enumerate(zip(lats, align))
+             if lat is not None and a is not None)
+    lc, rc = cfg.left_context, cfg.right_context
+    f = np.pad(feats[b, : nf[b]], ((lc, rc), (0, 0)), mode="edge")
+    am = AmNnet(tdnn)
+    ll = am.loglikes_np(f[None])[0][lc:lc + nf[b]]
+    post, objf = nd.compute_discriminative_post(
+        am, copy.deepcopy(lats[b]), align[b][0], su["tm"],
+        nd.NnetDiscriminativeOpts(), ll, su["sil"])
+    out = {}
+    for d in ("cpu", "cuda"):
+        model = Tdnn.from_params(cfg, before, device=d)
+        tx = optim.sgd(3e-4)
+        params = model.params()
+        new, _st, _loss = nd.make_discriminative_step(model, tx)(
+            params, tx.init(params), torch.as_tensor(f, device=d),
+            torch.as_tensor(post, device=d))
+        out[d] = {k: v.cpu() for k, v in new.items()}
+    # a leaf's two terms, p and the step -lr g, at their largest in the
+    # leaf: a bias that starts at 0 is all step, whose gradient sums
+    # signed posteriors over the frames (it cancels elementwise)
+    leaf = {k: float((out["cuda"][k] - out["cpu"][k]).abs().max())
+            / max(float(before[k].abs().max())
+                  + float((out["cpu"][k] - before[k]).abs().max()), 1e-30)
+            for k in before}
+    return {"err": max(leaf.values()), "leaf": leaf,
+            "moved": max(float((out["cpu"][k] - before[k]).abs().max())
+                         for k in before),
+            "objf": objf, "utt": b}
+
+
+def phase_disc_small():
+    """tests/test_discriminative.py's yesno system, card vs CPU, on the
+    same denominator lattices and numerator alignment
+    (`disc_small_setup`): one MMI and one sMBR iteration's statistics
+    (`disc_stats_card_vs_cpu`: each within the bound the two devices'
+    loglikes set), the EBW-updated means and variances from each device's
+    statistics (reported), and one nnet sMBR step
+    (`smbr_step_card_vs_cpu`: params within 1e-5 of their terms).
+    Neither kernel may launch."""
+    from kaldi_tpu_torch.gmm.ebw import update_ebw_am_diag_gmm
+    from kaldi_tpu_torch.nnet import quantized as q
+    from kaldi_tpu_torch.ops import table_gather as tg
+
+    q.launches = tg.launches = 0
+    t0 = time.perf_counter()
+    check = _Limits()
+    su = disc_small_setup()
+    m_cpu, m_card, lats, align = su["m_cpu"], su["m_card"], su["lats"], \
+        su["align"]
+    same = sum(a is not None and g is not None and list(a[0]) == list(g[0])
+               for a, g in zip(align, su["align_card"]))
+    log(f"  yesno system: {len(su['train'])} training utterances, "
+        f"{m_cpu.am.total_gauss} gaussians over {m_cpu.am.num_pdfs} pdfs; "
+        f"{sum(lat is not None for lat in lats)} denominator lattices "
+        f"(CPU, boosted 0.1), "
+        f"{np.mean([lat.num_arcs for lat in lats if lat]):.1f} arcs mean; "
+        f"the card's alignment equals the CPU's for {same} of "
+        f"{len(su['nf'])}")
+    for crit in ("mmi", "smbr"):
+        opts = dataclasses.replace(su["opts"], criterion=crit)
+        stats, errs = disc_stats_card_vs_cpu(
+            m_cpu.am, m_card.am, su["tm"], lats, align, su["feats"],
+            su["nf"], opts, su["sil"])
+        check(f"{crit}: lattice weights over their bound",
+              errs["weight ratio"], 1.0)
+        for side in ("num", "den"):
+            check(f"{crit}: {side} statistics over their bound",
+                  errs[side]["bound"], 1.0)
+        new = {d: update_ebw_am_diag_gmm(am, *stats[d], opts.ebw)
+               for d, am in (("cpu", m_cpu.am), ("cuda", m_card.am))}
+        dm = max(float(np.max(np.abs(g.means - c.means) / np.sqrt(c.vars)))
+                 for g, c in zip(new["cuda"].pdfs, new["cpu"].pdfs))
+        dv = max(float(np.max(np.abs(g.vars - c.vars) / c.vars))
+                 for g, c in zip(new["cuda"].pdfs, new["cpu"].pdfs))
+        log(f"  {crit}: objective/frame CPU {errs['objf'][0]:.6f}, card "
+            f"{errs['objf'][1]:.6f}; lattice weights at "
+            f"{errs['weight ratio']:.3f} of their bound (path spread S up "
+            f"to {errs['S']:.3e} nats, {errs['straddle']} frames near the "
+            f"drop threshold); num statistics {errs['num']['terms']:.3e} "
+            f"of their terms ({errs['num']['bound']:.3f} of the bound), den "
+            f"{errs['den']['terms']:.3e} ({errs['den']['bound']:.3f}); EBW "
+            f"from each device's statistics: means {dm:.3e} of a std apart, "
+            f"variances {dv:.3e} relative (reported, not limited)")
+    st = smbr_step_card_vs_cpu(su)
+    check("nnet sMBR step: params card vs CPU over their terms", st["err"])
+    check.require("nnet sMBR step moved the params", st["moved"] > 0)
+    log(f"  nnet sMBR step (TDNN 39 -> 64 relu, utterance {st['utt']}, "
+        f"objective {st['objf']:.4f}): params card vs CPU {st['err']:.3e} "
+        f"of their terms (limit 1e-5; per leaf "
+        + ", ".join(f"{k} {v:.2e}" for k, v in st["leaf"].items())
+        + f"), the step moved them by up to {st['moved']:.3e}")
+    check.require(f"kernels launched on the discriminative path (gather "
+                  f"{tg.launches}, qaffine {q.launches})",
+                  tg.launches == 0 and q.launches == 0)
+    check.done("phase 21")
+    log(f"  launches: gather {tg.launches}, qaffine {q.launches}; phase 21 "
+        f"took {time.perf_counter() - t0:.3f} s")
+
+
+# tests/test_rm_like_recipe.py's pyramid (phase 22 a) and test_fmmi.py's
+# fMMI options
+RM_MONO = dict(num_iters=14, totgauss=140, max_iter_inc=10,
+               realign_iters=tuple(range(1, 14)))
+RM_TRI = dict(num_iters=12, totgauss=350, max_iter_inc=8, num_leaves=120,
+              realign_iters=(1, 2, 3, 4, 5, 6, 8, 10))
+RM_MMI = dict(num_iters=2, boost=0.1, lattice_beam=7.0, max_active=1024)
+RM_FMMI = dict(num_iters=4, lattice_beam=8.0, fmpe_gauss=8)
+RM_BARS = dict(mono=12.0, tri=10.0, mmi=8.0)
+# phase 22 (b): train_mmi.sh's bMMI and train_discriminative2.sh's sMBR
+LADDER_SMBR = dict(criterion="smbr", num_epochs=3, learning_rate=3e-4)
+
+
+def _disc_log(what: str, secs: float, stats: list, n_utts: int, card: str):
+    lat_s = sum(st.get("rescore+fb", 0.0) for st in stats)
+    used = sum(st.get("lattices", 0) for st in stats)
+    den = stats[0].get("denlats")
+    log(f"  {what}: {secs:.3f} s; per iteration: {_iter_ms(stats)}"
+        + (f"; denlats {n_utts / den:.1f} lattices/s" if den else "")
+        + (f"; rescore+fb {used / lat_s:.1f} lattices/s" if lat_s and used
+           else "")
+        + (f"; mean {stats[0]['mean_arcs']:.1f} arcs per lattice"
+           if "mean_arcs" in stats[0] else "")
+        + f"; None lattices {stats[0].get('den_none', 0)}, alignments "
+        f"{max(st.get('align_none', 0) for st in stats)} | card: {card}")
+
+
+def phase_disc_full(card: str, ladder: dict, profile: bool = False) -> dict:
+    """(a) tests/test_rm_like_recipe.py's pyramid on the card (mono -> tri
+    -> bMMI) with PARITY.md:32's bars, then fMMI at test_fmmi.py's options
+    on that tri and at test_fmmi.py's own setup on the yesno system: each
+    finite, its projection moved, its objective within 0.05 of its start,
+    its WER against its base reported (PARITY.md:34 is not held: the
+    reference's fMMI breaks it on both systems, tests/test_torch_fmmi.py);
+    (b) on
+    phase 20's ladder models at the ladder's width: bMMI from tri
+    (train_mmi.sh's 4 iterations, its unigram HCLG by make_hclg) and sMBR
+    of the TDNN (3 epochs on denominator lattices from its own loglikes
+    through make_hclg_flat + CsrBeamDecoder, numerator tids from the
+    LDA+MLLT model it was aligned with), each objective non-decreasing
+    and finite; WERs before and after reported."""
+    import torch
+    from kaldi_tpu_torch.decoder.beam_search import BeamSearchOpts
+    from kaldi_tpu_torch.decoder.dense import make_decoder
+    from kaldi_tpu_torch.decoder.graph_pack import pack_graph
+    from kaldi_tpu_torch.decoder.viterbi import viterbi_align
+    from kaldi_tpu_torch.fst.graph import make_hclg
+    from kaldi_tpu_torch.fst.lang import Lexicon, prepare_lang
+    from kaldi_tpu_torch.lat.generate import decode_to_lattices
+    from kaldi_tpu_torch.lm.arpa import ArpaLm, arpa_to_g
+    from kaldi_tpu_torch.nnet import discriminative as nd
+    from kaldi_tpu_torch.nnet import quantized as q
+    from kaldi_tpu_torch.ops import table_gather as tg
+    from kaldi_tpu_torch.steps import deltas, fmmi, mmi, mono
+    from kaldi_tpu_torch.transform.fmpe import FmpeOptions
+
+    t0 = time.perf_counter()
+    q.launches = tg.launches = 0
+    # (a) the rm-like pyramid
+    rng = np.random.RandomState(17)
+    train_w, test_w = rm_corpus(rng, 42), rm_corpus(rng, 12)
+    train = [(f"tr{i}", mfcc_deltas(w, "cuda"), ws)
+             for i, (ws, w) in enumerate(train_w)]
+    test = [(f"te{i}", mfcc_deltas(w, "cuda"), ws)
+            for i, (ws, w) in enumerate(test_w)]
+    lang = prepare_lang(Lexicon.parse(RM_LEXICON), ["SIL"], "SIL",
+                        num_sil_states=3)
+    g = arpa_to_g(ArpaLm.parse(rm_unigram_arpa()), lang.words)
+    sil = {lang.phones["SIL"]}
+    refs = [ws for _u, _f, ws in test]
+
+    def rm_wer(model, graph=None, transform=None):
+        if graph is None:
+            graph = make_hclg(lang, g, model.trans_model, model.ctx_dep,
+                              self_loop_scale=0.1)
+        dec = make_decoder(pack_graph(graph.fst,
+                                      model.trans_model.id2pdf_array),
+                           BeamSearchOpts(beam=14.0, max_active=1024,
+                                          acoustic_scale=0.1),
+                           device="cuda")
+        fb, nf = pad_batch([transform(f).astype(np.float32) if transform
+                            else f for _u, f, _w in test])
+        res = dec.decode(model.am.loglikes(fb), nf)
+        return wer(refs, [[lang.words.sym(x) for x in r[0]] if r else []
+                          for r in res]), graph
+
+    secs = {}
+    t = time.perf_counter()
+    mono_m = mono.train_mono(lang, train, mono.MonoTrainOpts(**RM_MONO),
+                             device="cuda")
+    secs["mono"] = time.perf_counter() - t
+    w_mono, _g = rm_wer(mono_m)
+    t = time.perf_counter()
+    tri = deltas.train_deltas(lang, train, mono_m,
+                              deltas.DeltasTrainOpts(**RM_TRI))
+    secs["tri"] = time.perf_counter() - t
+    w_tri, graph = rm_wer(tri)
+    st_mmi: list = []
+    t = time.perf_counter()
+    am_mmi, hist = mmi.train_discriminative(
+        tri, graph, train, mmi.MmiTrainOpts(**RM_MMI), silence_phones=sil,
+        iter_stats=st_mmi)
+    secs["bmmi"] = time.perf_counter() - t
+    w_mmi, _g = rm_wer(mono.MonoModel(am_mmi, tri.trans_model, tri.ctx_dep,
+                                      lang), graph)
+    _disc_log(f"(a) bMMI {RM_MMI} from tri on {len(train)} utterances "
+              f"(objective/frame {', '.join(f'{h:.5f}' for h in hist)})",
+              secs["bmmi"], st_mmi, len(train), card)
+    st_f: list = []
+    t = time.perf_counter()
+    fm, am_f, hist_f = fmmi.train_fmmi(
+        tri, graph, train, fmmi.FmmiTrainOpts(
+            fmpe=FmpeOptions(learning_rate=0.002), **RM_FMMI),
+        silence_phones=sil, iter_stats=st_f)
+    secs["fmmi"] = time.perf_counter() - t
+    w_fmmi, _g = rm_wer(mono.MonoModel(am_f, tri.trans_model, tri.ctx_dep,
+                                       lang), graph, fm.apply)
+    _disc_log(f"(a) fMMI {RM_FMMI} from tri (objective/frame "
+              f"{', '.join(f'{h:.5f}' for h in hist_f)})", secs["fmmi"],
+              st_f, len(train), card)
+    # fMMI at tests/test_fmmi.py's own setup: the yesno system
+    t = time.perf_counter()
+    ys = mmi_system("cuda")
+    st_y: list = []
+    fm_y, am_y, hist_y = fmmi.train_fmmi(
+        ys["model"], ys["den_graph"], ys["train"][:10], fmmi.FmmiTrainOpts(
+            fmpe=FmpeOptions(learning_rate=0.002), **RM_FMMI),
+        silence_phones={ys["lang"].phones["SIL"]}, iter_stats=st_y)
+    secs["fmmi_yesno"] = time.perf_counter() - t
+    dec_y = make_decoder(pack_graph(ys["den_graph"].fst,
+                                    ys["model"].trans_model.id2pdf_array),
+                         BeamSearchOpts(beam=16.0, max_active=256,
+                                        acoustic_scale=0.1), device="cuda")
+
+    def yesno_wer(am, transform):
+        fb, nf = pad_batch([transform(f).astype(np.float32)
+                            for _u, f, _w in ys["test"]])
+        res = dec_y.decode(am.loglikes(fb), nf)
+        return wer([w for _u, _f, w in ys["test"]],
+                   [[ys["lang"].words.sym(x) for x in r[0]] if r else []
+                    for r in res])
+
+    w_ybase = yesno_wer(ys["model"].am, lambda f: f)
+    w_yfmmi = yesno_wer(am_y, fm_y.apply)
+    _disc_log(f"(a) fMMI at tests/test_fmmi.py's setup (yesno mono, 10 "
+              f"utterances; objective/frame "
+              f"{', '.join(f'{h:.5f}' for h in hist_y)})",
+              secs["fmmi_yesno"], st_y, 10, card)
+    checks = [("mono <= 12", w_mono <= RM_BARS["mono"]),
+              ("tri <= 10", w_tri <= RM_BARS["tri"]),
+              ("tri <= mono", w_tri <= w_mono),
+              ("bMMI <= tri", w_mmi <= w_tri),
+              ("bMMI <= 8", w_mmi <= RM_BARS["mmi"]),
+              ("bMMI objective does not fall", hist[-1] >= hist[0] - 1e-3),
+              ("fMMI objective within 0.05 of its start",
+               hist_y[-1] >= hist_y[0] - 0.05
+               and hist_f[-1] >= hist_f[0] - 0.05),
+              ("fMMI projections moved", float(np.abs(fm_y.M).max()) > 0
+               and float(np.abs(fm.M).max()) > 0),
+              ("finite", bool(np.isfinite(hist).all()
+                              and np.isfinite(hist_f).all()
+                              and np.isfinite(hist_y).all()))]
+    log(f"  (a) PYRAMID: mono {w_mono:.2f} -> tri {w_tri:.2f} -> tri+bMMI "
+        f"{w_mmi:.2f}; fMMI from tri {w_fmmi:.2f}, on yesno {w_yfmmi:.2f} "
+        f"against its base {w_ybase:.2f} (PARITY.md:34 reported, not held: "
+        f"JAX's fMMI breaks it on these systems too, "
+        f"tests/test_torch_fmmi.py); seconds "
+        + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()) + "; "
+        + ", ".join(f"{c} {'ok' if ok else 'FAILS'}" for c, ok in checks)
+        + f" | card: {card}")
+    failed = [c for c, ok in checks if not ok]
+    if failed:
+        raise AssertionError(f"rm-like pyramid: {failed} fail")
+    if tg.launches or q.launches:
+        raise AssertionError(f"kernels launched on the GMM discriminative "
+                             f"path: gather {tg.launches}, qaffine "
+                             f"{q.launches}")
+
+    # (b) the ladder's models at the ladder's width
+    L = ladder["models"]
+    lang_l, arpa, dopts, refs_l = L["lang"], L["arpa"], L["dopts"], L["refs"]
+    sil_l = {lang_l.phones["SIL"]}
+    shapes = set()
+
+    def ladder_wer(model, test_utts):
+        dec, _gs = ladder_decoder(model, arpa, dopts, "cuda")
+        fb, nf = pad_batch([f for _u, f, _w in test_utts])
+        ll = model.am.loglikes(fb)
+        shapes.update(csr_gather_shapes(dec, ll.shape[0], ll.shape[2]))
+        return wer(refs_l, [[lang_l.words.sym(x) for x in r[0]] if r else []
+                            for r in dec.decode(ll, nf)])
+
+    tri_l = L["tri"]
+    t = time.perf_counter()
+    g_l = arpa_to_g(ArpaLm.parse(arpa), lang_l.words)
+    den = make_hclg(lang_l, g_l, tri_l.trans_model, tri_l.ctx_dep,
+                    self_loop_scale=0.1)
+    den_s = time.perf_counter() - t
+    st_b: list = []
+    t = time.perf_counter()
+    am_b, hist_b = mmi.train_discriminative(
+        tri_l, den, L["train"], mmi.MmiTrainOpts(boost=0.1),
+        silence_phones=sil_l, iter_stats=st_b)
+    bmmi_s = time.perf_counter() - t
+    w_b = ladder_wer(mono.MonoModel(am_b, tri_l.trans_model, tri_l.ctx_dep,
+                                    lang_l), L["test"])
+    n_frames = sum(f.shape[0] for _u, f, _w in L["train"])
+    _disc_log(f"(b) bMMI {mmi.MmiTrainOpts(boost=0.1)} from the ladder's "
+              f"tri ({tri_l.am.num_pdfs} leaves, {tri_l.am.total_gauss} "
+              f"gaussians) on {len(L['train'])} utterances ({n_frames} "
+              f"frames); den HCLG (make_hclg) {den.fst.num_states} states "
+              f"in {den_s:.3f} s; objective/frame "
+              f"{', '.join(f'{h:.5f}' for h in hist_b)}", bmmi_s, st_b,
+              len(L["train"]), card)
+    w_tri_l = ladder["tri"]["wer"]
+    log(f"  (b) bMMI test WER {w_b:.2f} against tri's {w_tri_l:.2f}: bMMI "
+        f"{'beats' if w_b < w_tri_l else 'ties' if w_b == w_tri_l else 'does not beat'}"
+        f" tri | card: {card}")
+
+    # sMBR of the TDNN: numerator tids from the LDA+MLLT model it was
+    # aligned with, denominator lattices from its own loglikes
+    lda_m, nnet = L["lda"].model, L["nnet"]
+    am_n = nnet.am
+    t = time.perf_counter()
+    batch, feats_l, nf_l = mono.compile_and_pad(
+        lang_l, lda_m.trans_model, lda_m.ctx_dep, L["train_l"], 1.0, 0.1)
+    ali = viterbi_align(batch, lda_m.am.loglikes(feats_l), nf_l, 0.1,
+                        device="cuda")
+    nn_model = mono.MonoModel(am_n, lda_m.trans_model, lda_m.ctx_dep, lang_l)
+    dec, _gs = ladder_decoder(nn_model, arpa, dopts, "cuda")
+    ll_n = am_n.loglikes(feats_l)
+    shapes.update(csr_gather_shapes(dec, ll_n.shape[0], ll_n.shape[2]))
+    lats_n = decode_to_lattices(dec, ll_n.cpu().numpy(), nf_l,
+                                lattice_beam=8.0)
+    den_n_s = time.perf_counter() - t
+    cfg = am_n.model.config
+    lc, rc = cfg.left_context, cfg.right_context
+    egs = [(np.pad(feats_l[b, : nf_l[b]], ((lc, rc), (0, 0)), mode="edge"),
+            ali[b][0], lat) for b, lat in enumerate(lats_n)
+           if lat is not None and ali[b] is not None]
+    st_n: list = []
+    t = time.perf_counter()
+    params, hist_n = nd.train_nnet_discriminative(
+        am_n, lda_m.trans_model, egs, nd.NnetDiscriminativeOpts(
+            **LADDER_SMBR), silence_phones=sil_l, iter_stats=st_n)
+    smbr_s = time.perf_counter() - t
+    w_n = ladder_wer(mono.MonoModel(am_n.replace_params(params),
+                                    lda_m.trans_model, lda_m.ctx_dep,
+                                    lang_l), L["test_l"])
+    n_none = sum(lat is None for lat in lats_n)
+    log(f"  (b) sMBR {LADDER_SMBR} of the ladder's TDNN on {len(egs)} egs: "
+        f"alignment and denominator lattices (CsrBeamDecoder, lattice beam "
+        f"8) in {den_n_s:.3f} s ({len(lats_n) / den_n_s:.1f} lattices/s, "
+        f"{np.mean([lat.num_arcs for _f, _a, lat in egs]):.1f} arcs mean; "
+        f"None lattices {n_none}, alignments "
+        f"{sum(a is None for a in ali)}); trained in {smbr_s:.3f} s; per "
+        f"epoch: {_iter_ms(st_n)}; expected accuracy/frame "
+        f"{', '.join(f'{h:.5f}' for h in hist_n)}; test WER {w_n:.2f} "
+        f"against the TDNN's {ladder['tdnn']['wer']:.2f} | card: {card}")
+    checks = [("bMMI objective does not fall", hist_b[-1] >= hist_b[0] - 1e-3),
+              ("sMBR objective does not fall", hist_n[-1] >= hist_n[0] - 1e-3),
+              ("finite", bool(np.isfinite(hist_b).all()
+                              and np.isfinite(hist_n).all()
+                              and all(bool(torch.isfinite(v).all())
+                                      for v in params.values())
+                              and all(np.isfinite(p.means).all()
+                                      and np.isfinite(p.vars).all()
+                                      for p in am_b.pdfs)))]
+    log("  (b) " + ", ".join(f"{c} {'ok' if ok else 'FAILS'}"
+                             for c, ok in checks))
+    failed = [c for c, ok in checks if not ok]
+    if failed:
+        raise AssertionError(f"ladder discriminative: {failed} fail")
+    if q.launches:
+        raise AssertionError(f"qaffine launched {q.launches} times")
+    launches = tg.launches
+    log(f"  launches: gather {launches} (the ladder's decodes), qaffine "
+        f"{q.launches}; phase 22 took {time.perf_counter() - t0:.3f} s")
+    g_times = gather_at_shapes(tg, sorted(shapes), "the discriminative "
+                               "path's", 5)
+    if profile:
+        profile_disc(tri_l, den, L["train"], egs, am_n, lda_m.trans_model,
+                     sil_l)
+    return dict(launches=launches, gather_times=g_times,
+                wer=dict(mono=w_mono, tri=w_tri, bmmi=w_mmi, fmmi=w_fmmi,
+                         fmmi_yesno=w_yfmmi, yesno_base=w_ybase,
+                         ladder_bmmi=w_b, ladder_smbr=w_n))
+
+
+def profile_disc(tri, den, utts, egs, am_n, tm, sil):
+    """One bMMI iteration's work with the ladder's tri (loglikes,
+    alignment, rescore+fb, accumulation, EBW) on fresh denominator
+    lattices, and one sMBR epoch over 20 egs, under torch.profiler."""
+    import copy
+    import torch
+    from kaldi_tpu_torch.decoder.viterbi import viterbi_align
+    from kaldi_tpu_torch.gmm.ebw import update_ebw_am_diag_gmm
+    from kaldi_tpu_torch.nnet import discriminative as nd
+    from kaldi_tpu_torch.steps import mmi
+    from kaldi_tpu_torch.steps.mono import compile_and_pad
+    batch, feats, nf = compile_and_pad(tri.lang, tri.trans_model,
+                                       tri.ctx_dep, utts, 1.0, 0.1)
+    opts = mmi.MmiTrainOpts(boost=0.1)
+    _d, lats = mmi.make_denlats(tri, den, feats, nf, opts)
+    fresh = [[copy.deepcopy(lat) for lat in lats] for _ in range(2)]
+    sub = [[(f, a, copy.deepcopy(lat)) for f, a, lat in egs[:20]]
+           for _ in range(2)]
+
+    def bmmi_iteration():
+        ll = tri.am.loglikes(feats)
+        align = viterbi_align(batch, ll, nf, opts.acoustic_scale,
+                              device=tri.am.device)
+        num, den_acc, *_ = mmi.discriminative_stats(
+            tri.am, tri.trans_model, fresh.pop(), align, ll.cpu().numpy(),
+            feats, nf, opts, sil)
+        update_ebw_am_diag_gmm(tri.am, num, den_acc, opts.ebw)
+
+    def smbr_epoch():
+        nd.train_nnet_discriminative(am_n, tm, sub.pop(),
+                                     nd.NnetDiscriminativeOpts(
+                                         **LADDER_SMBR | dict(num_epochs=1)),
+                                     silence_phones=sil)
+
+    for what, fn in (("bMMI iteration", bmmi_iteration),
+                     ("sMBR epoch over 20 egs", smbr_epoch)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t
+        busy, n_ops, by_name = device_time(fn)
+        log_profile(what, "call", 1, busy, n_ops, by_name, host_s, 8)
 
 
 def device_time(fn) -> tuple[float, int, dict]:
@@ -3376,13 +4204,13 @@ def main() -> int:
 
     resolve_device("cuda")                # also turns TF32 off
     card = card_info()
-    log(f"[1/20] card: {card} | torch {torch.__version__} CUDA "
+    log(f"[1/22] card: {card} | torch {torch.__version__} CUDA "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
 
     t = time.perf_counter()
     libs = cuda_build.build()
-    log(f"[2/20] build: {len(libs)} kernels in {time.perf_counter() - t:.3f} "
+    log(f"[2/22] build: {len(libs)} kernels in {time.perf_counter() - t:.3f} "
         f"s (one nvcc each, in parallel)")
     for name, so in libs.items():
         with open(os.path.join(os.path.dirname(so), "nvcc.log")) as f:
@@ -3390,46 +4218,52 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]
         log(f"  {os.path.relpath(so, ROOT)}: {' | '.join(regs)}")
 
-    log("[3/20] table-gather kernel vs plain version")
+    log("[3/22] table-gather kernel vs plain version")
     k = phase_kernel(tg)
-    log("[4/20] qaffine kernel vs plain version")
+    log("[4/22] qaffine kernel vs plain version")
     qk = phase_qaffine(q)
-    log("[5/20] decoder on the card vs on the CPU")
+    log("[5/22] decoder on the card vs on the CPU")
     phase_decoder_parity()
-    log("[6/20] int8 decode on the card vs on the CPU")
+    log("[6/22] int8 decode on the card vs on the CPU")
     phase_int8_parity()
-    log("[7/20] full-width serving slice (bf16 TDNN)")
+    log("[7/22] full-width serving slice (bf16 TDNN)")
     sl = phase_slice(tg, card, profile="--profile" in sys.argv[1:])
-    log("[8/20] full-width int8 serving slice")
+    log("[8/22] full-width int8 serving slice")
     s8 = phase_int8_slice(q, tg, sl, card)
-    log("[9/20] streaming server, small: card vs CPU vs offline")
+    log("[9/22] streaming server, small: card vs CPU vs offline")
     phase_stream_small()
-    log("[10/20] streaming server, full width")
+    log("[10/22] streaming server, full width")
     st = phase_stream_full(tg, sl, card, profile="--profile" in sys.argv[1:])
-    log("[11/20] lattice path, small: card vs CPU, native vs numpy")
+    log("[11/22] lattice path, small: card vs CPU, native vs numpy")
     phase_lattice_small()
-    log("[12/20] training, small: card vs CPU")
+    log("[12/22] training, small: card vs CPU")
     phase_train_small()
-    log("[13/20] training, full width: the bench's AM with the port's "
+    log("[13/22] training, full width: the bench's AM with the port's "
         "train step")
     tr = phase_train_full(sl, card, profile="--profile" in sys.argv[1:])
-    log("[14/20] lattice path, full width (latgen at the bench's point)")
+    log("[14/22] lattice path, full width (latgen at the bench's point)")
     lt = phase_lattice_full(tg, sl, tr, card)
-    log("[15/20] online path, small: card vs CPU vs offline")
+    log("[15/22] online path, small: card vs CPU vs offline")
     phase_online_small()
-    log("[16/20] online path, full width (scripts/bench_streaming.py's "
+    log("[16/22] online path, full width (scripts/bench_streaming.py's "
         "configuration)")
     on = phase_online_full(tg, card, profile="--profile" in sys.argv[1:])
-    log("[17/20] GMM path, small: card vs CPU")
+    log("[17/22] GMM path, small: card vs CPU")
     phase_gmm_small()
-    log("[18/20] GMM path, full width: monophone training, the dense "
+    log("[18/22] GMM path, full width: monophone training, the dense "
         "decoder's serving lines")
     phase_gmm_full(tr, card, profile="--profile" in sys.argv[1:])
-    log("[19/20] triphone ladder, small: card vs CPU")
+    log("[19/22] triphone ladder, small: card vs CPU")
     phase_ladder_small()
-    log("[20/20] triphone ladder, full width: mono -> tri -> LDA+MLLT -> "
+    log("[20/22] triphone ladder, full width: mono -> tri -> LDA+MLLT -> "
         "TDNN, and SAT")
     ld = phase_ladder_full(card, profile="--profile" in sys.argv[1:])
+    log("[21/22] discriminative path, small: card vs CPU on shared "
+        "lattices")
+    phase_disc_small()
+    log("[22/22] discriminative path, full width: the rm-like pyramid with "
+        "bMMI and fMMI, then bMMI and TDNN sMBR on the ladder's models")
+    dk = phase_disc_full(card, ld, profile="--profile" in sys.argv[1:])
 
     g_shape = GATHER_SHAPES[0]
     ms, plain_ms, library_ms, floor_ms = k["times"][g_shape]
@@ -3437,7 +4271,8 @@ def main() -> int:
         f"{st['launches']} on the streaming path, {lt['launches']} on the "
         f"latgen path, {lt['adaptive_launches']} in the adaptive decode, "
         f"{on['launches']} on the fused online path, {ld['launches']} on "
-        f"the triphone ladder's decodes; qaffine "
+        f"the triphone ladder's decodes, {dk['launches']} on the "
+        f"discriminative path's; qaffine "
         f"{s8['launches']} on the int8 slice")
     log(card)
     log(json.dumps({"kernels": [{
@@ -3457,7 +4292,12 @@ def main() -> int:
         "ladder_shapes": [{
             "shape": list(sh), "ms": t[0], "plain_ms": t[1],
             "library_ms": t[2], "bound_ms": gather_bound_ms(*sh)}
-            for sh, t in ld["gather_times"].items()]}, {
+            for sh, t in ld["gather_times"].items()],
+        "disc_launches": dk["launches"],
+        "disc_shapes": [{
+            "shape": list(sh), "ms": t[0], "plain_ms": t[1],
+            "library_ms": t[2], "bound_ms": gather_bound_ms(*sh)}
+            for sh, t in dk["gather_times"].items()]}, {
         "name": "qaffine", "route": "cuda",
         "source": "kaldi_tpu_torch/csrc/qaffine.cu",
         "replaces": "kaldi_tpu/nnet/quantized.py:46",

@@ -1,1 +1,2 @@
-"""Host copies of kaldi_tpu.hmm (numpy): HMM topology and transition model."""
+"""Host copies of kaldi_tpu.hmm (numpy): HMM topology, transition model and
+the Posterior tools."""

@@ -54,10 +54,13 @@ def cross_entropy_loss(model: Tdnn, params, feats, targets, weights,
     -> (loss, accuracy) device scalars.
 
     compute_dtype=torch.bfloat16 runs the affine products (and their
-    gradients) in bf16 over the f32 params; the loss stays f32."""
-    log_post = functional_call(
-        model, params, (feats,),
-        {"pad_context": False, "compute_dtype": compute_dtype})
+    gradients) in bf16 over the f32 params; the loss stays f32. It is
+    passed to the model only when set, as JAX does, so that a model whose
+    forward takes no compute_dtype can share the loss."""
+    kw = {"pad_context": False}
+    if compute_dtype is not None:
+        kw["compute_dtype"] = compute_dtype
+    log_post = functional_call(model, params, (feats,), kw)
     return _ce(log_post, targets, weights)
 
 

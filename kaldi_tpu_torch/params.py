@@ -18,7 +18,9 @@ GMM-HMM (`mono_model_from_jax`) is copied pdf by pdf, with its transition
 log-probs; a triphone GMM-HMM (`tri_model_from_jax`) also carries its
 decision tree across (`event_map_from_jax`, rebuilt node for node into the
 port's classes), and the LDA+MLLT and SAT models their transforms
-(`lda_mllt_model_from_jax`, `sat_model_from_jax`).
+(`lda_mllt_model_from_jax`, `sat_model_from_jax`). Lattices
+(`lattice_from_jax`) are copied arc for arc, and an fMPE transform
+(`fmpe_from_jax`) with its projection and posterior GMM.
 """
 
 from __future__ import annotations
@@ -230,3 +232,32 @@ def _gmm_model_from_jax(model, lang, ctx, tm, device):
     tm.load_log_probs(np.asarray(sd["log_probs"]))
     am = AmDiagGmm([diag_gmm_from_jax(p) for p in model.am.pdfs], device)
     return MonoModel(am, tm, ctx, lang)
+
+
+def lattice_from_jax(lat):
+    """A kaldi_tpu `Lattice` -> the port's: states, arcs in their order
+    (with a determinized arc's tid string), finals and start copied."""
+    from kaldi_tpu_torch.lat.lattice import Lattice
+    out = Lattice()
+    for s, arcs in enumerate(lat.arcs):
+        out.add_state()
+        for a in arcs:
+            out.add_arc(s, int(a.ilabel), int(a.olabel), a.graph_cost,
+                        a.acoustic_cost, int(a.nextstate))
+            if a.tids:
+                out.arcs[s][-1].tids = tuple(int(t) for t in a.tids)
+    out.start = int(lat.start)
+    out.finals = {int(s): (float(g), float(a))
+                  for s, (g, a) in lat.finals.items()}
+    return out
+
+
+def fmpe_from_jax(fmpe):
+    """A kaldi_tpu `Fmpe` -> the port's: the posterior GMM, the options
+    and the projection M copied."""
+    import dataclasses
+    from kaldi_tpu_torch.transform.fmpe import Fmpe, FmpeOptions
+    out = Fmpe(diag_gmm_from_jax(fmpe.gmm), fmpe.dim,
+               FmpeOptions(**dataclasses.asdict(fmpe.opts)))
+    out.M = np.array(fmpe.M, np.float64)
+    return out

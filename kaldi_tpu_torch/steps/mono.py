@@ -200,8 +200,12 @@ class _PhaseClock:
         return out
 
     def close(self, stats: list | None, it: int, n_ok: int, acc):
+        self.flush(stats, iter=it, aligned=n_ok,
+                   loglike_per_frame=acc.tot_like / max(acc.tot_frames, 1))
+
+    def flush(self, stats: list | None, **fields):
+        """Append this iteration's phase seconds with `fields` to `stats`
+        (if given) and start the next iteration."""
         if stats is not None:
-            stats.append(dict(self.cur, iter=it, aligned=n_ok,
-                              loglike_per_frame=acc.tot_like
-                              / max(acc.tot_frames, 1)))
+            stats.append(dict(self.cur, **fields))
         self.cur = {}

@@ -5,7 +5,9 @@ the mixed-up AM's group sum, the online path (features, the padded
 decoder, both fused engines, the nnet2 decoder with i-vectors) and the GMM
 path (GMM log-likelihoods, Viterbi alignment, the dense decoder's three
 forward paths) and the triphone ladder (the affine transform, fMLLR and
-MLLT statistics, a train_deltas EM iteration) on a CUDA device. Each test skips without a card. This file imports no jax,
+MLLT statistics, a train_deltas EM iteration) and the discriminative path
+(one MMI and one sMBR iteration's statistics, an nnet sMBR step) on a
+CUDA device. Each test skips without a card. This file imports no jax,
 so it runs on a machine that has only torch:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -573,3 +575,32 @@ def test_train_deltas_iteration_card_equals_cpu(card):
                                     feats, nf, opts, None,
                                     models["cpu"].am.total_gauss + 20)
     assert err <= 1e-5 and ll_err <= 1e-5
+
+
+@pytest.mark.parametrize("criterion", ["mmi", "smbr"])
+def test_discriminative_iteration_card_equals_cpu(card, criterion):
+    """One MMI (sMBR) iteration's num and den statistics on the yesno
+    system, the card's AM against the CPU's on the same boosted lattices
+    and numerator alignment (chip_smoke.disc_small_setup): the lattice
+    weights and every statistic within the bound that the two devices'
+    loglikes set (chip_smoke.disc_stats_card_vs_cpu, as phase 21 holds
+    them)."""
+    import dataclasses
+    import chip_smoke as cs
+    su = cs.disc_small_setup()
+    _stats, errs = cs.disc_stats_card_vs_cpu(
+        su["m_cpu"].am, su["m_card"].am, su["tm"], su["lats"], su["align"],
+        su["feats"], su["nf"],
+        dataclasses.replace(su["opts"], criterion=criterion), su["sil"])
+    assert errs["weight ratio"] <= 1.0, errs
+    assert errs["num"]["bound"] <= 1.0 and errs["den"]["bound"] <= 1.0, errs
+
+
+def test_nnet_smbr_step_card_equals_cpu(card):
+    """One sMBR step of a small TDNN on the card and on the CPU from the
+    same params, features and posteriors (chip_smoke.smbr_step_card_vs_cpu):
+    each leaf within 1e-5 of its largest |p| plus its largest step, and
+    moved."""
+    import chip_smoke as cs
+    st = cs.smbr_step_card_vs_cpu(cs.disc_small_setup())
+    assert st["err"] <= 1e-5 and st["moved"] > 0, st

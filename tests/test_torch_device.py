@@ -8,8 +8,10 @@ CPU: `Recognizer`, `CsrBeamDecoder`, `ChunkedCsrBeamDecoder`,
 to "cuda", and with no card that default raises instead of falling back.
 The ladder's steps (`build_triphone_tree`, `train_deltas`,
 `train_lda_mllt`, `train_sat`, `decode_fmllr`, `align_with_gmm`,
-`train_tdnn`) take no device: they run where the model they are given
-is, as a CPU run shows. `FusedStreamingServer`,
+`train_tdnn`) and the discriminative steps (`make_denlats`,
+`train_discriminative`, `train_fmmi`, `train_nnet_discriminative`,
+`update_ebw_am_diag_gmm`) take no device: they run where the model they
+are given is, as a CPU run shows. `FusedStreamingServer`,
 `FusedOnlineDecoder`, `OnlineDecoder` and `SingleUtteranceNnet2Decoder`
 take no device: they run where their decoder runs; nor does
 `make_train_step`'s step, which runs where its tensors are. Inference
@@ -48,9 +50,16 @@ from kaldi_tpu_torch.steps.deltas import (DeltasTrainOpts,
                                           init_am_from_leaf_stats,
                                           train_deltas)
 from kaldi_tpu_torch.steps.lda_mllt import train_lda_mllt
-from kaldi_tpu_torch.steps.mono import flat_start, train_mono
+from kaldi_tpu_torch.steps.mono import MonoTrainOpts, flat_start, train_mono
 from kaldi_tpu_torch.steps.sat import decode_fmllr, train_sat
 from kaldi_tpu_torch.steps.tdnn import align_with_gmm, train_tdnn
+from kaldi_tpu_torch.fst.graph import make_hclg
+from kaldi_tpu_torch.gmm.ebw import update_ebw_am_diag_gmm
+from kaldi_tpu_torch.lm.arpa import ArpaLm, arpa_to_g
+from kaldi_tpu_torch.nnet.discriminative import train_nnet_discriminative
+from kaldi_tpu_torch.steps.fmmi import train_fmmi
+from kaldi_tpu_torch.steps.mmi import (MmiTrainOpts, make_denlats,
+                                       train_discriminative)
 
 ENTRY_POINTS = {"Recognizer": Recognizer.__init__,
                 "CsrBeamDecoder": CsrBeamDecoder.__init__,
@@ -72,6 +81,8 @@ ENTRY_POINTS = {"Recognizer": Recognizer.__init__,
                 "init_am_from_leaf_stats": init_am_from_leaf_stats}
 LADDER_STEPS = [build_triphone_tree, train_deltas, train_lda_mllt, train_sat,
                 decode_fmllr, align_with_gmm, train_tdnn]
+DISCRIMINATIVE_STEPS = [make_denlats, train_discriminative, train_fmmi,
+                        train_nnet_discriminative, update_ebw_am_diag_gmm]
 
 
 def _graph():
@@ -178,6 +189,29 @@ def test_ladder_steps_run_where_their_model_is():
         feat_dim=0, num_pdfs=0, hidden_dim=8, nonlinearity="relu",
         splice_indexes=((0,),)), NnetTrainOpts(num_epochs=1))
     assert res.am.device.type == "cpu"
+
+
+@pytest.mark.parametrize("fn", DISCRIMINATIVE_STEPS, ids=lambda f: f.__name__)
+def test_discriminative_steps_take_no_device(fn):
+    assert "device" not in inspect.signature(fn).parameters
+
+
+def test_discriminative_steps_run_where_their_model_is():
+    """A CPU monophone gives CPU denominator lattices' decoder and a CPU
+    bMMI model."""
+    rng = np.random.RandomState(0)
+    lang = _lang()
+    utts = [(f"u{i}", rng.randn(30, 4).astype(np.float32), ["A"])
+            for i in range(3)]
+    mono = train_mono(lang, utts, MonoTrainOpts(num_iters=2, totgauss=4,
+                                                max_iter_inc=1), device="cpu")
+    arpa = ("\\data\\\nngram 1=3\n\n\\1-grams:\n-1\tA\n-99\t<s>\n"
+            "-1\t</s>\n\n\\end\\\n")
+    den = make_hclg(lang, arpa_to_g(ArpaLm.parse(arpa), lang.words),
+                    mono.trans_model, mono.ctx_dep, self_loop_scale=0.1)
+    am, hist = train_discriminative(mono, den, utts, MmiTrainOpts(
+        num_iters=1, boost=0.1))
+    assert am.device.type == "cpu" and len(hist) == 1
 
 
 def test_inference_builds_no_autograd_graph():

@@ -329,16 +329,53 @@ def test_compose_context_equal(name):
     assert tcinfo == jcinfo
 
 
-@pytest.mark.parametrize("context", ["mono", "tri"])
-@pytest.mark.parametrize("name", ["yesno_bigram", "rm_like", "tri"])
-def test_make_hclg_flat_equal(name, context):
-    """The flat pipeline over the native graph ops (the port's own copy of
-    native/fst_ops.cc, built at first use) equals JAX's array for array,
-    and so does its packed graph."""
+JAX_FST_FLAGS = ("-O3", "-shared", "-fPIC")     # kaldi_tpu/fst/native_ops.py
+
+
+def jax_fst_ops(monkeypatch) -> str:
+    """Point kaldi_tpu.fst.native_ops at a build of native/fst_ops.cc of
+    this test's own, for the test's duration: compiled with JAX's flags
+    into a temporary file under build/ and moved into place with
+    os.replace, so that xdist workers that build at once never load a
+    half-written library (JAX's own build writes `g++ -o` straight to
+    native/libkaldi_tpu_fst_ops.so, and a worker that fails to load it
+    latches None until it exits). -> the library's path."""
+    import hashlib
+    import subprocess
+    import tempfile
+    from kaldi_tpu.fst import native_ops as jno
+    src = os.path.join(cs.ROOT, "native", "fst_ops.cc")
+    with open(src, "rb") as f:
+        key = hashlib.sha256(f.read() + " ".join(JAX_FST_FLAGS).encode()
+                             ).hexdigest()[:16]
+    so = os.path.join(cs.ROOT, "build", "kaldi_tpu_fst_ops", key,
+                      "libkaldi_tpu_fst_ops.so")
+    if not os.path.exists(so):
+        os.makedirs(os.path.dirname(so), exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(so))
+        os.close(fd)
+        try:
+            subprocess.run(["g++", *JAX_FST_FLAGS, "-o", tmp, src],
+                           check=True, capture_output=True, timeout=300)
+            os.replace(tmp, so)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    if os.path.getmtime(so) < os.path.getmtime(src):
+        os.utime(so)        # JAX's loader rebuilds a library older than src
+    monkeypatch.setattr(jno, "_SO", so)
+    monkeypatch.setattr(jno, "_lib", None)
+    monkeypatch.setattr(jno, "_tried", False)
+    return so
+
+
+def _flat_equal(name, context, monkeypatch):
     from kaldi_tpu.fst import mkgraph_flat as jmf
+    from kaldi_tpu.fst import native_ops as jno
     from kaldi_tpu_torch.fst import mkgraph_flat as tmf
     from kaldi_tpu_torch.fst import native_ops
-    assert native_ops.available()
+    so = jax_fst_ops(monkeypatch)
+    assert native_ops.available() and jno.available() and jno._SO == so
     out = []
     for side, mf in (("j", jmf), ("t", tmf)):
         if context == "tri":
@@ -355,6 +392,28 @@ def test_make_hclg_flat_equal(name, context):
     _assert_fields_equal(jp, tp)
     assert native_ops.library_path().startswith(os.path.join(
         cs.ROOT, "build", "kaldi_tpu_torch"))
+
+
+@pytest.mark.parametrize("context", ["mono", "tri"])
+@pytest.mark.parametrize("name", ["yesno_bigram", "rm_like", "tri"])
+def test_make_hclg_flat_equal(name, context, monkeypatch):
+    """The flat pipeline over the native graph ops (the port's own copy of
+    native/fst_ops.cc, built at first use) equals JAX's array for array,
+    and so does its packed graph. JAX's side loads its library from this
+    test's own atomic build (`jax_fst_ops`)."""
+    _flat_equal(name, context, monkeypatch)
+
+
+def test_make_hclg_flat_equal_after_a_failed_jax_load(monkeypatch):
+    """A worker whose JAX native_ops latched a failed load (as one that
+    read a half-written library does) still holds the flat graphs equal:
+    the test loads JAX's library from its own build."""
+    from kaldi_tpu.fst import native_ops as jno
+    monkeypatch.setattr(jno, "_lib", None)
+    monkeypatch.setattr(jno, "_tried", True)
+    monkeypatch.setattr(jno, "_SO", os.path.join(cs.ROOT, "build",
+                                                 "no_such_library.so"))
+    _flat_equal("rm_like", "tri", monkeypatch)
 
 
 def test_ladder_corpus_equals_tests_ladder_corpus():

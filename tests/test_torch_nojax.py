@@ -10,7 +10,8 @@ and deltas, the padded decoder, both fused engines, the nnet2 decoder
 with i-vectors), the dense decoder on the yesno HCLG, the port's
 `recipe-yesno` (the GMM path end to end), and a small triphone run
 (train_deltas from a monophone, its HCLG through the flat pipeline on the
-port's native graph ops, a decode) run on the CPU. (kaldi_tpu/decoder/__init__.py imports the
+port's native graph ops, a decode) and two bMMI and two fMMI iterations
+from that triphone model run on the CPU. (kaldi_tpu/decoder/__init__.py imports the
 jax decoders, so reaching into kaldi_tpu.decoder from the port would fail
 here.)
 """
@@ -76,7 +77,11 @@ for n in ("kaldi_tpu_torch.cuda_build", "kaldi_tpu_torch.nnet.quantized",
           "kaldi_tpu_torch.transform.fmllr", "kaldi_tpu_torch.transform.fmpe",
           "kaldi_tpu_torch.steps.deltas", "kaldi_tpu_torch.steps.lda_mllt",
           "kaldi_tpu_torch.steps.sat", "kaldi_tpu_torch.steps.tdnn",
-          "kaldi_tpu_torch.params"):
+          "kaldi_tpu_torch.params", "kaldi_tpu_torch.hmm.posterior",
+          "kaldi_tpu_torch.lat.posteriors", "kaldi_tpu_torch.gmm.ebw",
+          "kaldi_tpu_torch.steps.mmi", "kaldi_tpu_torch.steps.ubm",
+          "kaldi_tpu_torch.steps.fmmi",
+          "kaldi_tpu_torch.nnet.discriminative"):
     assert n in names, n
 import chip_smoke
 from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder, CsrBeamOpts
@@ -199,6 +204,18 @@ res = BeamSearchDecoder(g, BeamSearchOpts(beam=200.0, max_active=512,
     tri.am.loglikes(chip_smoke.pad_batch([f for _u, f, _w in utts])[0]),
     np.array([f.shape[0] for _u, f, _w in utts]))
 assert all(r is not None for r in res)
+from kaldi_tpu_torch.fst.graph import make_hclg
+from kaldi_tpu_torch.steps.fmmi import FmmiTrainOpts, train_fmmi
+from kaldi_tpu_torch.steps.mmi import MmiTrainOpts, train_discriminative
+den = make_hclg(lang, arpa_to_g(ArpaLm.parse(chip_smoke.TRI_ARPA), lang.words),
+                tri.trans_model, tri.ctx_dep, self_loop_scale=0.1)
+sil = {lang.phones["SIL"]}
+_am, hist = train_discriminative(tri, den, utts, MmiTrainOpts(
+    num_iters=2, boost=0.1), silence_phones=sil)
+assert len(hist) == 2 and np.isfinite(hist).all(), hist
+_f, _am, hist = train_fmmi(tri, den, utts[:4], FmmiTrainOpts(
+    num_iters=2, fmpe_gauss=4), silence_phones=sil)
+assert len(hist) == 2 and np.isfinite(hist).all(), hist
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
        or m.startswith("kaldi_tpu.")]
 assert not bad, bad

@@ -171,6 +171,48 @@ def test_n_bf16_steps_match_jax():
     _assert_params_close(tparams, jparams, 2e-2, fp_rel=1e-3)
 
 
+class _JaxNoDtypeNet:
+    """A net with JAX's apply signature but no compute_dtype: a linear
+    layer over the frames inside one frame of context each side."""
+
+    def apply(self, params, feats, pad_context=True):
+        x = feats if pad_context else feats[:, 1:-1]
+        return jax.nn.log_softmax(x @ params["w"], axis=-1)
+
+
+class _NoDtypeNet(torch.nn.Module):
+    """The same net as a torch module whose forward takes no
+    compute_dtype."""
+
+    def __init__(self, w):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.as_tensor(w), requires_grad=False)
+
+    def forward(self, feats, pad_context=True):
+        x = feats if pad_context else feats[:, 1:-1]
+        return torch.log_softmax(x @ self.w, dim=-1)
+
+
+def test_loss_passes_compute_dtype_only_when_set():
+    """JAX's loss passes compute_dtype to the model only when it is set,
+    so a net whose apply has no such keyword shares it; the port's loss
+    does the same (it raised TypeError before) and gives JAX's loss and
+    accuracy."""
+    rng = np.random.RandomState(0)
+    w = rng.randn(6, 4).astype(np.float32)
+    feats = rng.randn(3, 7, 6).astype(np.float32)
+    targets = rng.randint(0, 4, (3, 5)).astype(np.int32)
+    weights = rng.uniform(0.5, 1.0, (3, 5)).astype(np.float32)
+    jl, ja = jtrain.cross_entropy_loss(
+        _JaxNoDtypeNet(), {"w": jnp.asarray(w)}, jnp.asarray(feats),
+        jnp.asarray(targets), jnp.asarray(weights))
+    tl, ta = ttrain.cross_entropy_loss(
+        _NoDtypeNet(w), {"w": torch.as_tensor(w)}, torch.as_tensor(feats),
+        torch.as_tensor(targets), torch.as_tensor(weights))
+    assert float(tl) == pytest.approx(float(jl), rel=1e-6)
+    assert float(ta) == pytest.approx(float(ja), rel=1e-6)
+
+
 def test_train_step_returns_new_tensors_and_rejects_a_mesh():
     cfg, tree, feats, tgt, w = _setup()
     model = Tdnn(TdnnConfig(**cfg))
