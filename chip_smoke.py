@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's serving, training, GMM-HMM and discriminative
-training paths once on one CUDA card and check them.
+"""Run the PyTorch port's serving, training, GMM-HMM, discriminative
+training and nnet3 / nnet1 paths once on one CUDA card and check them.
 
     python3 chip_smoke.py [--profile]
 
@@ -156,7 +156,29 @@ Phases (any failure raises and the script exits non-zero):
      per iteration by phase, lattices per second, mean arcs, None counts;
      the gather kernel bit-exact and timed at the shapes of (b)'s decodes;
      --profile adds one profiled bMMI iteration and one sMBR epoch over
-     20 egs.
+     20 egs;
+ 23. nnet families, small, at the CPU tests' widths, card vs CPU: the
+     nnet3 dense (TDNN) and recurrent (LSTM) executors' forwards (1e-5 of
+     max |y|) and 8 NG-SGD steps of each, one nnet1 `train_frmshuff`
+     pass and 2 `train_lstm_streams` chunks (TRAIN_LIMITS), a CD-1 update
+     from a shared hidden sample (1e-5) and one nnet3 sMBR step on phase
+     21's shared lattices (1e-5 of its terms); neither kernel may launch;
+ 24. nnet families at the ladder's width on phase 20's models, decoded
+     through make_hclg_flat + CsrBeamDecoder on the LDA+MLLT HCLG: (a)
+     `train_tdnn3` at the nnet2 rung's width (30-dim LDA features, p-norm
+     512 -> 128, splices (-2..2), (-1, 2), (0,), NG-SGD at phase 20's
+     rates) held to the nnet2 bars (<= 7.0, <= lda_mllt + 1.0); (b)
+     `train_lstm3` at its own width, its WER reported, then an LSTM at
+     Kaldi's nnet3 LSTM recipe width (cell 1024, projection 256, 3
+     layers, chunk 20): its forward over 8 test utterances and 10 NG-SGD
+     steps card vs CPU, ms per step, frames/s and the card's idle share;
+     (c) a DBN (steps/nnet/pretrain_dbn.sh: 6 x 2048 RBMs over splice
+     +-5, one CD-1 epoch each) fine-tuned by `train_frmshuff` and decoded
+     with alignment-count priors: each RBM's reconstruction error falls,
+     the fine-tuning raises the frame accuracy, the WER is reported; the
+     gather kernel bit-exact and timed at these decodes' shapes; qaffine
+     must not launch; --profile prints the wide LSTM's profiled step by
+     kernel.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error against its plain version, times and bound; the last line
@@ -3652,7 +3674,29 @@ def disc_small_setup() -> dict:
 def smbr_step_card_vs_cpu(su: dict) -> dict:
     """One nnet sMBR step (`make_discriminative_step`, SGD at 3e-4) of a
     small TDNN (39 -> 64 relu over the yesno pdfs, seeded init with a
-    random final layer) on the card and on the CPU, from the same params,
+    random final layer) on the card and on the CPU
+    (`disc_step_card_vs_cpu`)."""
+    import torch
+    from kaldi_tpu_torch.nnet.am_nnet import AmNnet
+    from kaldi_tpu_torch.nnet.tdnn import Tdnn, TdnnConfig
+    cfg = TdnnConfig(feat_dim=su["feats"].shape[2],
+                     num_pdfs=su["m_cpu"].am.num_pdfs,
+                     hidden_dim=64, pnorm_output_dim=16, nonlinearity="relu",
+                     splice_indexes=((-2, -1, 0, 1, 2), (-1, 1), (0,)))
+    tdnn = Tdnn(cfg)
+    tdnn.init(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        tdnn.final.w.copy_(torch.randn(tdnn.final.w.shape, generator=torch
+                                       .Generator().manual_seed(1)) * 0.3)
+    before = tdnn.params()
+    return disc_step_card_vs_cpu(
+        su, AmNnet(tdnn), lambda d: Tdnn.from_params(cfg, before, device=d))
+
+
+def disc_step_card_vs_cpu(su: dict, am, model_on) -> dict:
+    """One nnet sMBR step (`make_discriminative_step`, SGD at 3e-4) of
+    `am`'s net (on the CPU) and of its copy on the card (`model_on(d)`:
+    the net holding the same params on device d), from the same params,
     features (the first aligned utterance's, with context) and dense
     posteriors (from its lattice rescored with the CPU's loglikes). ->
     {"err": the params' largest difference over their terms' magnitude
@@ -3662,30 +3706,22 @@ def smbr_step_card_vs_cpu(su: dict) -> dict:
     import torch
     from kaldi_tpu_torch.nnet import discriminative as nd
     from kaldi_tpu_torch.nnet import optim
-    from kaldi_tpu_torch.nnet.am_nnet import AmNnet
-    from kaldi_tpu_torch.nnet.tdnn import Tdnn, TdnnConfig
     feats, nf, lats, align = su["feats"], su["nf"], su["lats"], su["align"]
-    cfg = TdnnConfig(feat_dim=feats.shape[2], num_pdfs=su["m_cpu"].am.num_pdfs,
-                     hidden_dim=64, pnorm_output_dim=16, nonlinearity="relu",
-                     splice_indexes=((-2, -1, 0, 1, 2), (-1, 1), (0,)))
-    tdnn = Tdnn(cfg)
-    tdnn.init(torch.Generator().manual_seed(0))
-    with torch.no_grad():
-        tdnn.final.w.copy_(torch.randn(tdnn.final.w.shape, generator=torch
-                                       .Generator().manual_seed(1)) * 0.3)
-    before = tdnn.params()
+    before = am.model.params()
     b = next(i for i, (lat, a) in enumerate(zip(lats, align))
              if lat is not None and a is not None)
-    lc, rc = cfg.left_context, cfg.right_context
+    lc, rc = (getattr(am.model, "left_context", None),
+              getattr(am.model, "right_context", None))
+    if lc is None:
+        lc, rc = am.model.config.left_context, am.model.config.right_context
     f = np.pad(feats[b, : nf[b]], ((lc, rc), (0, 0)), mode="edge")
-    am = AmNnet(tdnn)
     ll = am.loglikes_np(f[None])[0][lc:lc + nf[b]]
     post, objf = nd.compute_discriminative_post(
         am, copy.deepcopy(lats[b]), align[b][0], su["tm"],
         nd.NnetDiscriminativeOpts(), ll, su["sil"])
     out = {}
     for d in ("cpu", "cuda"):
-        model = Tdnn.from_params(cfg, before, device=d)
+        model = model_on(d)
         tx = optim.sgd(3e-4)
         params = model.params()
         new, _st, _loss = nd.make_discriminative_step(model, tx)(
@@ -4107,6 +4143,546 @@ def profile_disc(tri, den, utts, egs, am_n, tm, sil):
         log_profile(what, "call", 1, busy, n_ops, by_name, host_s, 8)
 
 
+# phase 23: the neural families at the CPU tests' widths, card vs CPU
+NNET_SMALL = {
+    "tdnn": dict(feat_dim=8, num_targets=12, hidden_dim=16,
+                 splice_indexes=((-2, -1, 0, 1, 2), (-1, 2), (0,)),
+                 nonlinearity="PnormComponent", pnorm_output_dim=4),
+    "lstm": dict(feat_dim=8, num_targets=12, cell_dim=16, proj_dim=8,
+                 num_layers=2, splice=(-1, 0, 1))}
+# card vs CPU limits of phase 23's forwards, relative to the output's
+# largest |y|: f32 with TF32 off, so cuBLAS and the CPU sum the same
+# products in another order (PARITY.md's 1e-5 bar for one package against
+# the other on the CPU)
+NNET_FORWARD_LIMIT = 1e-5
+
+
+def nnet3_small_config(which: str) -> str:
+    from kaldi_tpu_torch.nnet3.configs import make_lstm_config, make_tdnn_config
+    kw = NNET_SMALL[which]
+    return (make_tdnn_config(**kw) if which == "tdnn"
+            else make_lstm_config(**kw))
+
+
+def _nnet3_nets(cfg: str, seed: int) -> dict:
+    """The config's Nnet3 on the card and on the CPU, holding the same
+    seeded init."""
+    import torch
+    from kaldi_tpu_torch.nnet3.network import Nnet3
+    nets = {d: Nnet3(cfg, device=d) for d in ("cuda", "cpu")}
+    p = nets["cpu"].init(torch.Generator().manual_seed(seed))
+    nets["cuda"].load_state_dict(p)
+    return nets
+
+
+def nnet3_forward_card_vs_cpu(which: str, seed: int = 0) -> float:
+    """The largest |card - CPU| over the CPU output's largest |y|, in decode
+    (pad_context) and chunk mode, of a small net from `nnet3_small_config`
+    (dense executor for the TDNN, recurrent for the LSTM)."""
+    import torch
+    nets = _nnet3_nets(nnet3_small_config(which), seed)
+    x = np.random.RandomState(seed).randn(3, 30, 8).astype(np.float32)
+    err = 0.0
+    for pad in (True, False):
+        y = {d: n(torch.as_tensor(x, device=d), pad_context=pad).cpu()
+             for d, n in nets.items()}
+        err = max(err, float((y["cuda"] - y["cpu"]).abs().max())
+                  / float(y["cpu"].abs().max()))
+    return err
+
+
+def _nnet3_batches(net, n: int, seed: int, B: int = 4, T: int = 8) -> list:
+    rng = np.random.RandomState(seed)
+    lc, rc = net.left_context, net.right_context
+    P = net.dims["output"]
+    return [(rng.randn(B, T + lc + rc, net.dims["input"]).astype(np.float32),
+             rng.randint(0, P, (B, T)).astype(np.int32),
+             rng.uniform(0.5, 1.5, (B, T)).astype(np.float32))
+            for _ in range(n)]
+
+
+def _nnet3_steps_on(net, batches: list, opts) -> tuple[dict, list, list]:
+    """len(batches) `make_nnet3_train_step` steps from the net's weights,
+    where the net is. -> (params on the CPU, losses, seconds per step)."""
+    import torch
+    from kaldi_tpu_torch.nnet3.training import (make_nnet3_optimizer,
+                                                make_nnet3_train_step)
+    dev = net.device
+    opt = make_nnet3_optimizer(net, opts, len(batches))
+    step = make_nnet3_train_step(net, opt)
+    params = net.params()
+    state = opt.init(params)
+    losses, secs = [], []
+    for b in batches:
+        t = time.perf_counter()
+        params, state, loss, _acc = step(
+            params, state, *(torch.as_tensor(a, device=dev) for a in b))
+        losses.append(float(loss))          # syncs the device
+        secs.append(time.perf_counter() - t)
+    return {k: v.cpu() for k, v in params.items()}, losses, secs
+
+
+NNET3_SMALL_OPTS = dict(initial_lr=0.05, final_lr=0.01, momentum=0.5,
+                        max_grad_norm=1.0, ng_update_period=4)
+
+
+def nnet3_steps_card_vs_cpu(which: str, seed: int = 1, steps: int = 8):
+    """`steps` NG-SGD steps (refresh every 4, clip 1.0, momentum 0.5) of a
+    small net on the card and the CPU from the same init and batches ->
+    (leaf, loss) errors held to TRAIN_LIMITS["ng_sgd"]."""
+    from kaldi_tpu_torch.nnet3.training import Nnet3TrainOpts
+    nets = _nnet3_nets(nnet3_small_config(which), seed)
+    batches = _nnet3_batches(nets["cpu"], steps, seed)
+    opts = Nnet3TrainOpts(**NNET3_SMALL_OPTS)
+    runs = [_nnet3_steps_on(nets[d], batches, opts)[:2]
+            for d in ("cuda", "cpu")]
+    return _train_errors("ng_sgd", *runs)
+
+
+FRMSHUFF_PROTO = ("<AffineTransform> <InputDim> 8 <OutputDim> 32\n"
+                  "<Sigmoid> <InputDim> 32 <OutputDim> 32\n"
+                  "<AffineTransform> <InputDim> 32 <OutputDim> 12\n"
+                  "<Softmax> <InputDim> 12 <OutputDim> 12\n")
+
+
+def frmshuff_card_vs_cpu(seed: int = 2):
+    """One `train_frmshuff` pass (momentum 0.5) of a small sigmoid net on
+    the card and the CPU over the same frames -> (leaf, loss) errors held
+    to TRAIN_LIMITS["f32"]."""
+    import torch
+    from kaldi_tpu_torch.nnet1.nnet import Nnet1, train_frmshuff
+    rng = np.random.RandomState(seed)
+    feats = rng.randn(300, 8).astype(np.float32)
+    targets = rng.randint(0, 12, 300)
+    p0 = Nnet1.from_proto(FRMSHUFF_PROTO, device="cpu").init(
+        torch.Generator().manual_seed(seed), param_stddev=0.3)
+    runs = []
+    for d in ("cuda", "cpu"):
+        net = Nnet1.from_proto(FRMSHUFF_PROTO, device=d)
+        p, hist = train_frmshuff(net, {k: v.to(d) for k, v in p0.items()},
+                                 feats, targets, learn_rate=0.1,
+                                 minibatch=64, momentum=0.5, seed=seed)
+        runs.append(({k: v.cpu() for k, v in p.items()}, [hist[0][0]]))
+    return _train_errors("f32", *runs)
+
+
+def lstm_streams_card_vs_cpu(seed: int = 3):
+    """`train_lstm_streams` over 2 chunks (2 streams x 6 frames, one stream
+    reset between them) of a 2-layer projected LSTM on the card and the
+    CPU -> (leaf, loss) errors held to TRAIN_LIMITS["f32"]."""
+    import torch
+    from kaldi_tpu_torch.nnet1.lstm import LstmConfig, LstmProjected
+    from kaldi_tpu_torch.nnet1.train import StreamTrainOpts, train_lstm_streams
+    rng = np.random.RandomState(seed)
+    utts = [(rng.randn(n, 8).astype(np.float32), rng.randint(0, 12, n))
+            for n in (12, 5, 6)]
+    cfg = LstmConfig(input_dim=8, cell_dim=16, proj_dim=8)
+    p0 = LstmProjected(cfg, 12, num_layers=2, device="cpu").init(
+        torch.Generator().manual_seed(seed))
+    runs = []
+    for d in ("cuda", "cpu"):
+        model = LstmProjected(cfg, 12, num_layers=2, device=d)
+        p, hist = train_lstm_streams(
+            model, {k: v.to(d) for k, v in p0.items()}, utts,
+            StreamTrainOpts(num_streams=2, bptt_chunk=6, learning_rate=0.1))
+        runs.append(({k: v.cpu() for k, v in p.items()}, hist))
+    return _train_errors("f32", *runs)
+
+
+def cd1_card_vs_cpu(seed: int = 4) -> float:
+    """A CD-1 update of a gaussian-bernoulli RBM (40 x 64, minibatch 32) on
+    the card and the CPU from the same init, data and hidden sample (drawn
+    once on the CPU from the CPU's P(h|v)) -> the largest error of W, the
+    biases and the velocities over each one's largest |value|."""
+    import torch
+    from kaldi_tpu_torch.nnet1.rbm import Rbm, RbmConfig
+    cfg = RbmConfig(visible_dim=40, hidden_dim=64, learning_rate=0.05)
+    v = torch.as_tensor(np.random.RandomState(seed).randn(32, 40)
+                        .astype(np.float32))
+    rbms = {d: Rbm(cfg, seed=seed, device=d) for d in ("cuda", "cpu")}
+    sample = rbms["cpu"].sample_hidden(rbms["cpu"].propagate(v),
+                                       torch.Generator().manual_seed(seed))
+    for d, r in rbms.items():
+        r.cd1_update(v.to(d), sample.to(d))
+    a, b = rbms["cuda"], rbms["cpu"]
+    pairs = [(a.W, b.W), (a.vis_bias, b.vis_bias),
+             (a.hid_bias, b.hid_bias)] + list(zip(a._vel, b._vel))
+    return max(float((x.cpu() - y).abs().max()) / float(y.abs().max())
+               for x, y in pairs)
+
+
+def nnet3_smbr_step_card_vs_cpu(su: dict) -> dict:
+    """`smbr_step_card_vs_cpu` for a config-built nnet3 TDNN (39 -> 64 relu
+    over the yesno pdfs, seeded init with a random final layer) behind
+    `AmNnet3`."""
+    import torch
+    from kaldi_tpu_torch.nnet3.configs import make_tdnn_config
+    from kaldi_tpu_torch.nnet3.network import Nnet3, param_name
+    from kaldi_tpu_torch.nnet3.training import AmNnet3
+    cfg = make_tdnn_config(su["feats"].shape[2], su["m_cpu"].am.num_pdfs,
+                           splice_indexes=((-2, -1, 0, 1, 2), (-1, 1), (0,)),
+                           hidden_dim=64)
+    net = Nnet3(cfg, device="cpu")
+    net.init(torch.Generator().manual_seed(0))
+    w = getattr(net.comp, "final%2Eaffine").w
+    with torch.no_grad():
+        w.copy_(torch.randn(w.shape, generator=torch.Generator()
+                            .manual_seed(1)) * 0.3)
+    before = net.params()
+    assert param_name("final.affine", "w") in before
+
+    def model_on(d):
+        m = Nnet3(cfg, device=d)
+        m.load_state_dict(before)
+        return m
+
+    return disc_step_card_vs_cpu(su, AmNnet3(net), model_on)
+
+
+def phase_nnet_small():
+    """The nnet3 and nnet1 families at the CPU tests' widths, card vs CPU:
+    the dense (TDNN) and recurrent (LSTM) executors' forwards, 8 nnet3
+    NG-SGD steps of each, one `train_frmshuff` pass, 2
+    `train_lstm_streams` chunks, a CD-1 update from a shared hidden sample
+    and one nnet3 sMBR step on phase 21's shared lattices. Neither kernel
+    may launch."""
+    from kaldi_tpu_torch.nnet import quantized as q
+    from kaldi_tpu_torch.ops import table_gather as tg
+    q.launches = tg.launches = 0
+    t0 = time.perf_counter()
+    check = _Limits()
+    for which in ("tdnn", "lstm"):
+        err = check(f"{which} forward, card vs CPU",
+                    nnet3_forward_card_vs_cpu(which), NNET_FORWARD_LIMIT)
+        leaf, loss = nnet3_steps_card_vs_cpu(which)
+        log(f"  nnet3 {which} ({NNET_SMALL[which]}): forward card vs CPU "
+            f"{err:.3e} of max |y| (limit {NNET_FORWARD_LIMIT}); 8 NG-SGD "
+            f"steps ({NNET3_SMALL_OPTS}): leaves within {leaf:.3e} of their "
+            f"max |p|, losses {loss:.3e} (limits {TRAIN_LIMITS['ng_sgd']})")
+    leaf, loss = frmshuff_card_vs_cpu()
+    log(f"  nnet1 train_frmshuff (8 -> 32 sigmoid -> 12, 300 frames, "
+        f"minibatch 64, momentum 0.5): leaves within {leaf:.3e}, loss "
+        f"{loss:.3e} (limits {TRAIN_LIMITS['f32']})")
+    leaf, loss = lstm_streams_card_vs_cpu()
+    log(f"  nnet1 train_lstm_streams (2 layers, cell 16, proj 8; 2 chunks "
+        f"of 2 streams x 6 frames): leaves within {leaf:.3e}, loss "
+        f"{loss:.3e} (limits {TRAIN_LIMITS['f32']})")
+    err = check("RBM CD-1 update, card vs CPU", cd1_card_vs_cpu())
+    log(f"  RBM CD-1 (gaussian 40 x bernoulli 64, shared sample): W, biases "
+        f"and velocities within {err:.3e} of their max (limit 1e-5)")
+    su = disc_small_setup()
+    st = nnet3_smbr_step_card_vs_cpu(su)
+    check("nnet3 sMBR step: params card vs CPU over their terms", st["err"])
+    check.require("nnet3 sMBR step moved the params", st["moved"] > 0)
+    log(f"  nnet3 sMBR step (config TDNN 39 -> 64 relu, utterance "
+        f"{st['utt']}, objective {st['objf']:.4f}): params card vs CPU "
+        f"{st['err']:.3e} of their terms (limit 1e-5), the step moved them "
+        f"by up to {st['moved']:.3e}")
+    check.require(f"kernels launched on the nnet families' small path "
+                  f"(gather {tg.launches}, qaffine {q.launches})",
+                  tg.launches == 0 and q.launches == 0)
+    check.done("phase 23")
+    log(f"  launches: gather {tg.launches}, qaffine {q.launches}; phase 23 "
+        f"took {time.perf_counter() - t0:.3f} s")
+
+
+# phase 24: the nnet families at the ladder's width, on phase 20's models.
+# (a) the nnet2 rung's width and options, through the nnet3 trainer (NG on)
+LADDER_TDNN3 = dict(splice_indexes=((-2, -1, 0, 1, 2), (-1, 2), (0,)),
+                    hidden_dim=512, pnorm_output_dim=128)
+# phase 20's rates, epochs and minibatch with tests/test_yesno_e2e.py's
+# nnet3 momentum (0.9): without it the p-norm stack under NG-SGD barely
+# moves in 14 epochs (a CPU dry run at a cut size: loss 5.66 -> 5.32,
+# where phase 20's relu TDNN went 5.08 -> 3.33)
+LADDER_NNET3 = dict(LADDER_NNET, momentum=0.9)
+# (b) train_lstm3's own architecture; the optimizer of
+# tests/test_nnet3_recurrent.py's LSTM hybrid, 10 epochs of the ladder
+LADDER_LSTM3_OPTS = dict(initial_lr=0.15, final_lr=0.02, num_epochs=10,
+                         minibatch_size=64, momentum=0.9)
+# Kaldi's nnet3 LSTM recipe width (egs/wsj/s5/local/nnet3/run_lstm.sh:
+# cell 1024, recurrent projection 256, 3 layers, chunk width 20, 100
+# chunks per minibatch), random weights from a seed
+WIDE_LSTM = dict(cell_dim=1024, proj_dim=256, num_layers=3)
+WIDE_CHUNK, WIDE_MB, WIDE_STEPS, WIDE_UTTS = 20, 100, 10, 8
+# the wide LSTM, card vs CPU: its forward relative to max |y| over 3
+# recurrent layers of K = 1280-term sums and ~300 steps; its steps at
+# TRAIN_LIMITS["ng_sgd"] (NG's eigh on cuSOLVER against LAPACK)
+WIDE_FORWARD_LIMIT = 1e-4
+# (c) steps/nnet/pretrain_dbn.sh: 6 x 2048 sigmoid RBMs over splice +-5 of
+# the features with global CMVN, gaussian-bernoulli first, one CD-1 epoch
+# each (rbm-train-cd1-frmshuff's minibatch 100) at RbmConfig's rates,
+# except the gaussian-bernoulli layer's: at 0.01 the reference's CD-1
+# diverges at 2048 hidden units (reconstruction MSE 15.5 -> 1.1e4 -> nan
+# in 6 steps on the ladder's features, JAX's algorithm), so it gets 0.001.
+# Then steps/nnet/train.sh's frame-shuffled fine-tuning: lr 0.008 on the
+# minibatch's summed gradient, i.e. 0.008 x 256 on train_frmshuff's mean
+DBN = dict(layers=6, hidden=2048, splice=tuple(range(-5, 6)), rbm_mb=100,
+           gb_lr=0.001, ft_lr=0.008 * 256, ft_mb=256, ft_epochs=8)
+
+
+def _dbn_inputs(utts, dev, stats=None):
+    """Each utterance's features spliced +-5 (clamped at its edges, as
+    splice-feats does) on `dev`, normalized by the training set's global
+    mean and std (`stats`, computed here when None). -> (list of [T, 330],
+    stats)."""
+    import torch
+    from kaldi_tpu_torch.nnet.components import splice
+    xs = [splice(torch.as_tensor(f, device=dev), DBN["splice"])
+          for f in utts]
+    if stats is None:
+        allx = torch.cat(xs)
+        stats = (allx.mean(0), allx.std(0, unbiased=False))
+    return [(x - stats[0]) / stats[1] for x in xs], stats
+
+
+def phase_nnet_full(card: str, ladder: dict, profile: bool = False) -> dict:
+    """The nnet families at the ladder's width on phase 20's models, each
+    decoded through make_hclg_flat + CsrBeamDecoder on the LDA+MLLT
+    model's HCLG: (a) `train_tdnn3` at the nnet2 rung's width, held to its
+    bars (<= 7.0, <= lda_mllt + 1.0); (b) `train_lstm3` at its own width,
+    its WER reported, then a wide LSTM (Kaldi's nnet3 LSTM recipe width)
+    card vs CPU: the forward over 8 test utterances and 10 NG-SGD train
+    steps, with ms per step, frames/s and the card's idle share; (c) a
+    DBN (6 x 2048 RBMs, one CD-1 epoch each) fine-tuned by
+    `train_frmshuff`, decoded with alignment-count priors: every RBM's
+    reconstruction error falls over its epoch and the fine-tuning raises
+    the frame accuracy. Then the gather kernel at every shape these
+    decodes gave it; qaffine must not launch."""
+    import torch
+    from kaldi_tpu_torch.nnet import quantized as q
+    from kaldi_tpu_torch.nnet.train import make_egs
+    from kaldi_tpu_torch.nnet1.nnet import Component, Nnet1, train_frmshuff
+    from kaldi_tpu_torch.nnet1.rbm import Rbm, RbmConfig
+    from kaldi_tpu_torch.nnet1.train import FrameShuffler
+    from kaldi_tpu_torch.nnet3.configs import make_lstm_config
+    from kaldi_tpu_torch.nnet3.network import Nnet3
+    from kaldi_tpu_torch.nnet3.training import Nnet3TrainOpts
+    from kaldi_tpu_torch.ops import table_gather as tg
+    from kaldi_tpu_torch.steps import nnet3_train
+    from kaldi_tpu_torch.steps.tdnn import align_with_gmm
+
+    L = ladder["models"]
+    lda_m, lang, refs = L["lda"].model, L["lang"], L["refs"]
+    train_l, test_l = L["train_l"], L["test_l"]
+    q.launches = tg.launches = 0
+    t0 = time.perf_counter()
+    secs: dict = {}
+    t = time.perf_counter()
+    dec, secs["graph"] = ladder_decoder(lda_m, L["arpa"], L["dopts"], "cuda")
+    shapes: set = set()
+    fb, nf = pad_batch([f for _u, f, _w in test_l])
+
+    def decode_wer(ll) -> float:
+        shapes.update(csr_gather_shapes(dec, ll.shape[0], ll.shape[2]))
+        return wer(refs, [[lang.words.sym(x) for x in r[0]] if r else []
+                          for r in dec.decode(ll, nf)])
+
+    def hybrid_wer(am) -> float:
+        return decode_wer(am.loglikes(fb))
+
+    w_lda, w_tdnn = ladder["lda_mllt"]["wer"], ladder["tdnn"]["wer"]
+    w_mono = ladder["mono"]["wer"]
+    out: dict = {}
+
+    # (a) the nnet3 TDNN at the nnet2 rung's width and options
+    t = time.perf_counter()
+    r3 = nnet3_train.train_tdnn3(lda_m, train_l, train_opts=Nnet3TrainOpts(
+        **LADDER_NNET3), **LADDER_TDNN3)
+    secs["tdnn3"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["tdnn3"] = hybrid_wer(r3.am)
+    secs["tdnn3 decode"] = time.perf_counter() - t
+    h = r3.history
+    log(f"  (a) nnet3 TDNN {LADDER_TDNN3} p-norm, {r3.am.model.num_params()} "
+        f"params, NG-SGD {LADDER_NNET3}: trained in {secs['tdnn3']:.3f} s "
+        f"({len(h)} logged steps, loss {h[0][2]:.4f} -> {h[-1][2]:.4f}, "
+        f"frame accuracy {h[-1][3]:.4f}); decode {secs['tdnn3 decode']:.3f} "
+        f"s; test WER {out['tdnn3']:.2f} against phase 20's nnet2 TDNN "
+        f"{w_tdnn:.2f} and lda_mllt {w_lda:.2f} | card: {card}")
+
+    # (b) the LSTM at train_lstm3's own width
+    t = time.perf_counter()
+    rl = nnet3_train.train_lstm3(lda_m, train_l, train_opts=Nnet3TrainOpts(
+        **LADDER_LSTM3_OPTS))
+    secs["lstm3"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["lstm3"] = hybrid_wer(rl.am)
+    secs["lstm3 decode"] = time.perf_counter() - t
+    h = rl.history
+    log(f"  (b) nnet3 LSTM (train_lstm3's cell 128, proj 64, 1 layer, chunk "
+        f"20), {rl.am.model.num_params()} params, {LADDER_LSTM3_OPTS}: "
+        f"trained in {secs['lstm3']:.3f} s (loss {h[0][2]:.4f} -> "
+        f"{h[-1][2]:.4f}, frame accuracy {h[-1][3]:.4f}); decode "
+        f"{secs['lstm3 decode']:.3f} s; test WER {out['lstm3']:.2f} "
+        f"(prediction: below mono's {w_mono:.2f}) | card: {card}")
+
+    # (b) the wide LSTM, card vs CPU
+    t = time.perf_counter()
+    P = lda_m.am.num_pdfs
+    wide = make_lstm_config(train_l[0][1].shape[1], P, **WIDE_LSTM)
+    nets = _nnet3_nets(wide, 11)
+    xb, _nb = pad_batch([f for _u, f, _w in test_l[:WIDE_UTTS]])
+    y = {}
+    for d, n in nets.items():
+        ts = time.perf_counter()
+        with torch.no_grad():
+            y[d] = n(torch.as_tensor(xb, device=d)).cpu()
+        if d == "cuda":
+            torch.cuda.synchronize()
+        secs[f"wide forward {d}"] = time.perf_counter() - ts
+    fwd_err = float((y["cuda"] - y["cpu"]).abs().max()) \
+        / float(y["cpu"].abs().max())
+    aligned = align_with_gmm(lda_m, train_l)
+    net = nets["cpu"]
+    egs = make_egs(aligned, net.left_context, net.right_context, WIDE_CHUNK)
+    perm = np.resize(np.random.RandomState(0).permutation(
+        len(egs["feats"])), WIDE_MB * WIDE_STEPS)
+    batches = [tuple(egs[k][perm[i * WIDE_MB:(i + 1) * WIDE_MB]]
+                     for k in ("feats", "targets", "weights"))
+               for i in range(WIDE_STEPS)]
+    wopts = Nnet3TrainOpts()
+    runs = {}
+    for d in ("cuda", "cpu"):
+        ts = time.perf_counter()
+        runs[d] = _nnet3_steps_on(nets[d], batches, wopts)
+        secs[f"wide steps {d}"] = time.perf_counter() - ts
+    leaf, loss = _train_errors("ng_sgd", runs["cuda"][:2], runs["cpu"][:2])
+    step_s = float(np.median(runs["cuda"][2][2:]))
+    frames = WIDE_MB * WIDE_CHUNK
+    # the card's idle share over one more step, under torch.profiler
+    from kaldi_tpu_torch.nnet3.training import (make_nnet3_optimizer,
+                                                make_nnet3_train_step)
+    opt = make_nnet3_optimizer(nets["cuda"], wopts, 1)
+    stepf = make_nnet3_train_step(nets["cuda"], opt)
+    p = nets["cuda"].params()
+    stt = opt.init(p)
+    bt = [torch.as_tensor(a, device="cuda") for a in batches[0]]
+    busy, n_ops, by_name = device_time(lambda: stepf(p, stt, *bt))
+    out["wide"] = dict(fwd_err=fwd_err, leaf=leaf, loss=loss,
+                       step_ms=step_s * 1e3, frames_s=frames / step_s,
+                       idle=1 - busy / step_s, ops=n_ops)
+    secs["wide"] = time.perf_counter() - t
+    log(f"  (b) wide LSTM {WIDE_LSTM} ({nets['cpu'].num_params()} params, "
+        f"seeded init): forward of {WIDE_UTTS} test utterances [{xb.shape[0]},"
+        f" {xb.shape[1]}, {xb.shape[2]}] card {secs['wide forward cuda']:.3f} "
+        f"s, CPU {secs['wide forward cpu']:.3f} s, card vs CPU "
+        f"{fwd_err:.3e} of max |y| (limit {WIDE_FORWARD_LIMIT}); "
+        f"{WIDE_STEPS} NG-SGD steps of {WIDE_MB} chunks x {WIDE_CHUNK} "
+        f"frames ({wopts}): leaves within {leaf:.3e} of their max |p|, "
+        f"losses {loss:.3e} (limits {TRAIN_LIMITS['ng_sgd']}); card "
+        f"{step_s * 1e3:.3f} ms/step (median of steps 3-{WIDE_STEPS}), "
+        f"{frames / step_s:.1f} frames/s; one profiled step: device busy "
+        f"{busy * 1e3:.3f} ms in {n_ops} device ops, idle "
+        f"{100 * (1 - busy / step_s):.1f}% | card: {card}")
+    if profile:
+        log_profile("one wide-LSTM train step", "step", 1, busy, n_ops,
+                    by_name, step_s, 15)
+        log_by_kind(by_name, 1, "step")
+    if not fwd_err <= WIDE_FORWARD_LIMIT:
+        raise AssertionError(f"wide LSTM forward card vs CPU {fwd_err:.3e} "
+                             f"> {WIDE_FORWARD_LIMIT}")
+
+    # (c) the DBN
+    t = time.perf_counter()
+    xs, stats = _dbn_inputs([f for f, _p in aligned], "cuda")
+    x_all = torch.cat(xs)
+    y_all = torch.as_tensor(np.concatenate([p for _f, p in aligned]),
+                            device="cuda").long()
+    data, rbms, rbm_log = x_all, [], []
+    for li in range(DBN["layers"]):
+        cfg = (RbmConfig(data.shape[1], DBN["hidden"],
+                         visible_type="bernoulli") if li else
+               RbmConfig(data.shape[1], DBN["hidden"],
+                         learning_rate=DBN["gb_lr"]))
+        rbm = Rbm(cfg, seed=li, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(100 + li)
+        mse = [rbm.cd1_step(v, gen) for v, _t in FrameShuffler(
+            data, y_all, DBN["rbm_mb"], seed=li)]
+        k = max(len(mse) // 10, 1)
+        rbm_log.append((float(np.mean(mse[:k])), float(np.mean(mse[-k:])),
+                        len(mse)))
+        with torch.no_grad():
+            data = rbm.propagate(data)
+        rbms.append(rbm)
+    del data
+    secs["dbn pretrain"] = time.perf_counter() - t
+    comps, params = [], {}
+    for li, rbm in enumerate(rbms):
+        params[f"{2 * li}.w"], params[f"{2 * li}.b"] = rbm.W, rbm.hid_bias
+        comps += [Component("AffineTransform", rbm.cfg.visible_dim,
+                            rbm.cfg.hidden_dim),
+                  Component("Sigmoid", rbm.cfg.hidden_dim,
+                            rbm.cfg.hidden_dim)]
+    top = 2 * DBN["layers"]
+    comps += [Component("AffineTransform", DBN["hidden"], P),
+              Component("Softmax", P, P)]
+    params[f"{top}.w"] = 0.1 * torch.randn(
+        P, DBN["hidden"], generator=torch.Generator().manual_seed(7)) \
+        .to("cuda")
+    params[f"{top}.b"] = torch.zeros(P, device="cuda")
+    dbn = Nnet1(comps, device="cuda")
+
+    def frame_acc(p) -> float:
+        with torch.no_grad():
+            hit = sum(int((dbn.apply(p, x_all[i:i + 8192]).argmax(-1)
+                           == y_all[i:i + 8192]).sum())
+                      for i in range(0, len(y_all), 8192))
+        return hit / len(y_all)
+
+    acc0 = frame_acc(params)
+    t = time.perf_counter()
+    params, ft_hist = train_frmshuff(dbn, params, x_all, y_all,
+                                     learn_rate=DBN["ft_lr"],
+                                     minibatch=DBN["ft_mb"],
+                                     num_epochs=DBN["ft_epochs"])
+    secs["dbn finetune"] = time.perf_counter() - t
+    acc1 = frame_acc(params)
+    counts = np.bincount(y_all.cpu().numpy(), minlength=P) + 0.5
+    log_prior = torch.log(torch.as_tensor(counts / counts.sum(),
+                                          dtype=torch.float32, device="cuda"))
+    t = time.perf_counter()
+    xt, _s = _dbn_inputs([f for _u, f, _w in test_l], "cuda", stats)
+    ll = torch.zeros(len(xt), fb.shape[1], P, device="cuda")
+    with torch.no_grad():
+        for b, x in enumerate(xt):
+            ll[b, : x.shape[0]] = dbn.apply(params, x) - log_prior
+    out["dbn"] = decode_wer(ll)
+    secs["dbn decode"] = time.perf_counter() - t
+    log(f"  (c) DBN {DBN}: {len(y_all)} frames; RBMs (reconstruction MSE, "
+        f"first -> last tenth of the epoch): " + "; ".join(
+            f"{i}: {a:.5f} -> {b:.5f} ({n} steps)"
+            for i, (a, b, n) in enumerate(rbm_log))
+        + f"; pretrained in {secs['dbn pretrain']:.3f} s; fine-tuned in "
+        f"{secs['dbn finetune']:.3f} s (last minibatch per epoch: "
+        + ", ".join(f"{a:.3f}" for _l, a in ft_hist)
+        + f"), training frame accuracy {acc0:.4f} -> {acc1:.4f}; decode "
+        f"{secs['dbn decode']:.3f} s (priors (counts + 0.5) / total, as "
+        f"nnet-forward --class-frame-counts); test WER {out['dbn']:.2f} "
+        f"(prediction: below mono's {w_mono:.2f}) | card: {card}")
+
+    checks = [("tdnn3 <= 7.0", out["tdnn3"] <= LADDER_BARS["tdnn"]),
+              ("tdnn3 <= lda_mllt + 1", out["tdnn3"] <= w_lda + 1.0)] + [
+        (f"RBM {i} reconstruction error falls", b < a)
+        for i, (a, b, _n) in enumerate(rbm_log)] + [
+        ("DBN fine-tuning raises the frame accuracy", acc1 > acc0)]
+    log("  " + ", ".join(f"{c} {'ok' if ok else 'FAILS'}" for c, ok in checks)
+        + f"; reported: lstm3 {out['lstm3']:.2f} "
+        f"{'<' if out['lstm3'] < w_mono else '>='} mono {w_mono:.2f}, dbn "
+        f"{out['dbn']:.2f} {'<' if out['dbn'] < w_mono else '>='} mono")
+    failed = [c for c, ok in checks if not ok]
+    if failed:
+        raise AssertionError(f"phase 24: {failed} fail (WERs {out})")
+    if q.launches:
+        raise AssertionError(f"qaffine launched {q.launches} times")
+    launches = tg.launches
+    log(f"  launches: gather {launches} (the three decodes), qaffine "
+        f"{q.launches}; seconds by stage: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+        + f"; phase 24 took {time.perf_counter() - t0:.3f} s")
+    g_times = gather_at_shapes(tg, sorted(shapes), "the nnet families'", 6)
+    return dict(out, launches=launches, gather_times=g_times, secs=secs)
+
+
 def device_time(fn) -> tuple[float, int, dict]:
     """Run fn under torch.profiler. -> (device busy seconds: the sum of
     kernel, memcpy and memset durations, which do not overlap on one
@@ -4204,13 +4780,13 @@ def main() -> int:
 
     resolve_device("cuda")                # also turns TF32 off
     card = card_info()
-    log(f"[1/22] card: {card} | torch {torch.__version__} CUDA "
+    log(f"[1/24] card: {card} | torch {torch.__version__} CUDA "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
 
     t = time.perf_counter()
     libs = cuda_build.build()
-    log(f"[2/22] build: {len(libs)} kernels in {time.perf_counter() - t:.3f} "
+    log(f"[2/24] build: {len(libs)} kernels in {time.perf_counter() - t:.3f} "
         f"s (one nvcc each, in parallel)")
     for name, so in libs.items():
         with open(os.path.join(os.path.dirname(so), "nvcc.log")) as f:
@@ -4218,52 +4794,57 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]
         log(f"  {os.path.relpath(so, ROOT)}: {' | '.join(regs)}")
 
-    log("[3/22] table-gather kernel vs plain version")
+    log("[3/24] table-gather kernel vs plain version")
     k = phase_kernel(tg)
-    log("[4/22] qaffine kernel vs plain version")
+    log("[4/24] qaffine kernel vs plain version")
     qk = phase_qaffine(q)
-    log("[5/22] decoder on the card vs on the CPU")
+    log("[5/24] decoder on the card vs on the CPU")
     phase_decoder_parity()
-    log("[6/22] int8 decode on the card vs on the CPU")
+    log("[6/24] int8 decode on the card vs on the CPU")
     phase_int8_parity()
-    log("[7/22] full-width serving slice (bf16 TDNN)")
+    log("[7/24] full-width serving slice (bf16 TDNN)")
     sl = phase_slice(tg, card, profile="--profile" in sys.argv[1:])
-    log("[8/22] full-width int8 serving slice")
+    log("[8/24] full-width int8 serving slice")
     s8 = phase_int8_slice(q, tg, sl, card)
-    log("[9/22] streaming server, small: card vs CPU vs offline")
+    log("[9/24] streaming server, small: card vs CPU vs offline")
     phase_stream_small()
-    log("[10/22] streaming server, full width")
+    log("[10/24] streaming server, full width")
     st = phase_stream_full(tg, sl, card, profile="--profile" in sys.argv[1:])
-    log("[11/22] lattice path, small: card vs CPU, native vs numpy")
+    log("[11/24] lattice path, small: card vs CPU, native vs numpy")
     phase_lattice_small()
-    log("[12/22] training, small: card vs CPU")
+    log("[12/24] training, small: card vs CPU")
     phase_train_small()
-    log("[13/22] training, full width: the bench's AM with the port's "
+    log("[13/24] training, full width: the bench's AM with the port's "
         "train step")
     tr = phase_train_full(sl, card, profile="--profile" in sys.argv[1:])
-    log("[14/22] lattice path, full width (latgen at the bench's point)")
+    log("[14/24] lattice path, full width (latgen at the bench's point)")
     lt = phase_lattice_full(tg, sl, tr, card)
-    log("[15/22] online path, small: card vs CPU vs offline")
+    log("[15/24] online path, small: card vs CPU vs offline")
     phase_online_small()
-    log("[16/22] online path, full width (scripts/bench_streaming.py's "
+    log("[16/24] online path, full width (scripts/bench_streaming.py's "
         "configuration)")
     on = phase_online_full(tg, card, profile="--profile" in sys.argv[1:])
-    log("[17/22] GMM path, small: card vs CPU")
+    log("[17/24] GMM path, small: card vs CPU")
     phase_gmm_small()
-    log("[18/22] GMM path, full width: monophone training, the dense "
+    log("[18/24] GMM path, full width: monophone training, the dense "
         "decoder's serving lines")
     phase_gmm_full(tr, card, profile="--profile" in sys.argv[1:])
-    log("[19/22] triphone ladder, small: card vs CPU")
+    log("[19/24] triphone ladder, small: card vs CPU")
     phase_ladder_small()
-    log("[20/22] triphone ladder, full width: mono -> tri -> LDA+MLLT -> "
+    log("[20/24] triphone ladder, full width: mono -> tri -> LDA+MLLT -> "
         "TDNN, and SAT")
     ld = phase_ladder_full(card, profile="--profile" in sys.argv[1:])
-    log("[21/22] discriminative path, small: card vs CPU on shared "
+    log("[21/24] discriminative path, small: card vs CPU on shared "
         "lattices")
     phase_disc_small()
-    log("[22/22] discriminative path, full width: the rm-like pyramid with "
+    log("[22/24] discriminative path, full width: the rm-like pyramid with "
         "bMMI and fMMI, then bMMI and TDNN sMBR on the ladder's models")
     dk = phase_disc_full(card, ld, profile="--profile" in sys.argv[1:])
+    log("[23/24] nnet3 and nnet1 families, small: card vs CPU")
+    phase_nnet_small()
+    log("[24/24] nnet3 and nnet1 families at the ladder's width: nnet3 "
+        "TDNN and LSTM, the wide LSTM, the DBN")
+    nn = phase_nnet_full(card, ld, profile="--profile" in sys.argv[1:])
 
     g_shape = GATHER_SHAPES[0]
     ms, plain_ms, library_ms, floor_ms = k["times"][g_shape]
@@ -4272,7 +4853,8 @@ def main() -> int:
         f"latgen path, {lt['adaptive_launches']} in the adaptive decode, "
         f"{on['launches']} on the fused online path, {ld['launches']} on "
         f"the triphone ladder's decodes, {dk['launches']} on the "
-        f"discriminative path's; qaffine "
+        f"discriminative path's, {nn['launches']} on the nnet families'; "
+        f"qaffine "
         f"{s8['launches']} on the int8 slice")
     log(card)
     log(json.dumps({"kernels": [{
@@ -4297,7 +4879,12 @@ def main() -> int:
         "disc_shapes": [{
             "shape": list(sh), "ms": t[0], "plain_ms": t[1],
             "library_ms": t[2], "bound_ms": gather_bound_ms(*sh)}
-            for sh, t in dk["gather_times"].items()]}, {
+            for sh, t in dk["gather_times"].items()],
+        "nnet_launches": nn["launches"],
+        "nnet_shapes": [{
+            "shape": list(sh), "ms": t[0], "plain_ms": t[1],
+            "library_ms": t[2], "bound_ms": gather_bound_ms(*sh)}
+            for sh, t in nn["gather_times"].items()]}, {
         "name": "qaffine", "route": "cuda",
         "source": "kaldi_tpu_torch/csrc/qaffine.cu",
         "replaces": "kaldi_tpu/nnet/quantized.py:46",

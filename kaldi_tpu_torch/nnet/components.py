@@ -1,8 +1,14 @@
 """Neural-net building blocks on tensors.
 
 Counterpart of kaldi_tpu/nnet/components.py (ref: nnet2/nnet-component.h
-PnormComponent :514, NormalizeComponent :555, SpliceComponent :1092).
+PnormComponent :514, NormalizeComponent :555, SpliceComponent :1092,
+MaxoutComponent, DropoutComponent, FixedAffineComponent).
 Splicing over time offsets is a clamped gather along T.
+
+A random draw (dropout's keep mask) comes from a `torch.Generator`
+through its own helper, and the component takes the drawn mask: JAX draws
+from a `jax.random` key, which torch cannot reproduce, so a test hands
+the component JAX's draw.
 """
 
 from __future__ import annotations
@@ -63,6 +69,53 @@ def normalize(x: torch.Tensor, target_rms: float = 1.0) -> torch.Tensor:
     return x * scale
 
 
+def maxout(x: torch.Tensor, output_dim: int) -> torch.Tensor:
+    """Group max: [..., D] -> [..., output_dim] over contiguous groups of
+    D // output_dim (ref: nnet2 MaxoutComponent)."""
+    g = x.shape[-1] // output_dim
+    return torch.amax(x.reshape(x.shape[:-1] + (output_dim, g)), dim=-1)
+
+
+def bernoulli_mask(generator: torch.Generator | None, keep: float, shape,
+                   device=None) -> torch.Tensor:
+    """A bool mask, True with probability `keep`, drawn on the generator's
+    device and moved to `device`."""
+    gdev = generator.device if generator is not None else None
+    u = torch.rand(shape, generator=generator, device=gdev)
+    return (u < keep).to(device or u.device)
+
+
+def dropout_masked(x: torch.Tensor, mask: torch.Tensor,
+                   proportion: float) -> torch.Tensor:
+    """Scale-preserving dropout with a given keep mask: x / keep where the
+    mask holds, else 0."""
+    keep = 1.0 - proportion
+    return torch.where(mask.to(x.device), x / keep, torch.zeros_like(x))
+
+
+def dropout(generator: torch.Generator | None, x: torch.Tensor,
+            proportion: float) -> torch.Tensor:
+    """(ref: nnet2 DropoutComponent, scale-preserving) The keep mask is
+    drawn by `bernoulli_mask`; `dropout_masked` applies it."""
+    mask = bernoulli_mask(generator, 1.0 - proportion, x.shape, x.device)
+    return dropout_masked(x, mask, proportion)
+
+
+def softsign(x: torch.Tensor) -> torch.Tensor:
+    return x / (1 + torch.abs(x))
+
+
 ACTIVATIONS = {
     "relu": torch.relu,                   # RectifiedLinearComponent
+    "sigmoid": torch.sigmoid,             # SigmoidComponent
+    "tanh": torch.tanh,                   # TanhComponent
+    "softsign": softsign,
 }
+
+
+def fixed_affine(x: torch.Tensor, mat: torch.Tensor,
+                 bias: torch.Tensor | None = None) -> torch.Tensor:
+    """x @ mat (+ bias) (ref: nnet2 FixedAffineComponent, e.g. an LDA-like
+    input transform)."""
+    y = torch.matmul(x, mat)
+    return y + bias if bias is not None else y

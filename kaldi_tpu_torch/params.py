@@ -21,6 +21,16 @@ port's classes), and the LDA+MLLT and SAT models their transforms
 (`lda_mllt_model_from_jax`, `sat_model_from_jax`). Lattices
 (`lattice_from_jax`) are copied arc for arc, and an fMPE transform
 (`fmpe_from_jax`) with its projection and posterior GMM.
+
+The neural families: an nnet3 params tree {component: {"w", "b"}} maps to
+the `Nnet3` state-dict names, whose component part escapes the dots of
+the component name (`nnet3_params_from_jax` / `nnet3_params_to_jax`);
+nnet1's list of per-component dicts and the projected LSTM's tree map to
+their dotted tree paths ("0.w", "layers.0.fwd.w_gifo_x":
+`nnet1_params_from_jax`, `lstm_params_from_jax`, through
+`flatten_tree`, the inverse of `params_to_jax`). An RBM carries its
+weights, biases and momentum velocities (`rbm_from_jax`), an `AmNnet3`
+its config, params and priors (`am_nnet3_from_jax`).
 """
 
 from __future__ import annotations
@@ -261,3 +271,75 @@ def fmpe_from_jax(fmpe):
                FmpeOptions(**dataclasses.asdict(fmpe.opts)))
     out.M = np.array(fmpe.M, np.float64)
     return out
+
+
+def flatten_tree(tree, prefix: str = "") -> dict[str, torch.Tensor]:
+    """A nested tree of dicts and lists with array leaves -> f32 CPU
+    tensors named by their dotted path ("layers.0.fwd.w"), the inverse of
+    `params_to_jax`'s naming."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: torch.from_numpy(np.array(tree, np.float32))}
+    out = {}
+    for k, v in items:
+        out.update(flatten_tree(v, f"{prefix}{k}."))
+    return out
+
+
+def nnet3_params_from_jax(tree) -> dict[str, torch.Tensor]:
+    """kaldi_tpu `Nnet3` params {component: {leaf: array}} -> the port's
+    `Nnet3` state dict (f32 CPU tensors)."""
+    from kaldi_tpu_torch.nnet3.network import param_name
+    return {param_name(c, leaf): torch.from_numpy(np.array(v, np.float32))
+            for c, leaves in tree.items() for leaf, v in leaves.items()}
+
+
+def nnet3_params_to_jax(params: dict) -> dict:
+    """The inverse: the port's `Nnet3` params -> {component: {leaf: numpy
+    array}}."""
+    from kaldi_tpu_torch.nnet3.network import split_param_name
+    out: dict = {}
+    for name, t in params.items():
+        c, leaf = split_param_name(name)
+        out.setdefault(c, {})[leaf] = t.detach().cpu().numpy()
+    return out
+
+
+def nnet1_params_from_jax(params_list) -> dict[str, torch.Tensor]:
+    """kaldi_tpu `Nnet1` params (one dict per component, empty for the
+    parameterless ones) -> the port's {"<i>.<leaf>": tensor}."""
+    return flatten_tree(list(params_list))
+
+
+def lstm_params_from_jax(tree) -> dict[str, torch.Tensor]:
+    """kaldi_tpu `LstmProjected` params {"layers": [{"fwd": {...}, "bwd":
+    ...}], "out_w", "out_b"} -> the port's flat dict."""
+    return flatten_tree(tree)
+
+
+def rbm_from_jax(rbm, device="cuda"):
+    """A kaldi_tpu `Rbm` -> the port's: its config, W, biases and momentum
+    velocities copied (f32 on `device`)."""
+    import dataclasses
+    from kaldi_tpu_torch.nnet1.rbm import Rbm, RbmConfig
+    out = Rbm(RbmConfig(**dataclasses.asdict(rbm.cfg)), device=device)
+
+    def t(a):
+        return torch.as_tensor(np.array(a, np.float32), device=out.device)
+    out.W, out.vis_bias, out.hid_bias = t(rbm.W), t(rbm.vis_bias), \
+        t(rbm.hid_bias)
+    out._vel = tuple(t(v) for v in rbm._vel)
+    return out
+
+
+def am_nnet3_from_jax(am, device="cuda"):
+    """A kaldi_tpu `AmNnet3` -> the port's: an `Nnet3` of the same config
+    text on `device` holding its params, and its priors."""
+    from kaldi_tpu_torch.nnet3.network import Nnet3
+    from kaldi_tpu_torch.nnet3.training import AmNnet3
+    net = Nnet3(am.model.config_text, device=device)
+    net.load_state_dict(nnet3_params_from_jax(am.params))
+    return AmNnet3(net, np.array(am.priors))

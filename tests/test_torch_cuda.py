@@ -6,8 +6,10 @@ decoder, both fused engines, the nnet2 decoder with i-vectors) and the GMM
 path (GMM log-likelihoods, Viterbi alignment, the dense decoder's three
 forward paths) and the triphone ladder (the affine transform, fMLLR and
 MLLT statistics, a train_deltas EM iteration) and the discriminative path
-(one MMI and one sMBR iteration's statistics, an nnet sMBR step) on a
-CUDA device. Each test skips without a card. This file imports no jax,
+(one MMI and one sMBR iteration's statistics, an nnet sMBR step) and the
+nnet3 / nnet1 families (forwards of both nnet3 executors, NG-SGD steps,
+train_frmshuff, train_lstm_streams, a CD-1 update, an nnet3 sMBR step) on
+a CUDA device. Each test skips without a card. This file imports no jax,
 so it runs on a machine that has only torch:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -603,4 +605,32 @@ def test_nnet_smbr_step_card_equals_cpu(card):
     moved."""
     import chip_smoke as cs
     st = cs.smbr_step_card_vs_cpu(cs.disc_small_setup())
+    assert st["err"] <= 1e-5 and st["moved"] > 0, st
+
+
+@pytest.mark.parametrize("which", ["tdnn", "lstm"])
+def test_nnet3_forward_and_steps_card_equal_cpu(card, which):
+    """The dense (TDNN) and recurrent (LSTM) executors' forwards within 1e-5
+    of max |y|, and 8 NG-SGD steps within TRAIN_LIMITS["ng_sgd"]
+    (chip_smoke's phase 23 helpers; `_train_errors` raises past them)."""
+    import chip_smoke as cs
+    assert cs.nnet3_forward_card_vs_cpu(which) <= cs.NNET_FORWARD_LIMIT
+    cs.nnet3_steps_card_vs_cpu(which)
+
+
+def test_nnet1_trainers_and_rbm_card_equal_cpu(card):
+    """One train_frmshuff pass and 2 train_lstm_streams chunks within
+    TRAIN_LIMITS["f32"]; a CD-1 update from a shared hidden sample within
+    1e-5."""
+    import chip_smoke as cs
+    cs.frmshuff_card_vs_cpu()
+    cs.lstm_streams_card_vs_cpu()
+    assert cs.cd1_card_vs_cpu() <= 1e-5
+
+
+def test_nnet3_smbr_step_card_equals_cpu(card):
+    """One sMBR step of a config-built nnet3 TDNN behind AmNnet3 on the
+    card and on the CPU: each leaf within 1e-5 of its terms, and moved."""
+    import chip_smoke as cs
+    st = cs.nnet3_smbr_step_card_vs_cpu(cs.disc_small_setup())
     assert st["err"] <= 1e-5 and st["moved"] > 0, st

@@ -11,7 +11,11 @@ The ladder's steps (`build_triphone_tree`, `train_deltas`,
 `train_tdnn`) and the discriminative steps (`make_denlats`,
 `train_discriminative`, `train_fmmi`, `train_nnet_discriminative`,
 `update_ebw_am_diag_gmm`) take no device: they run where the model they
-are given is, as a CPU run shows. `FusedStreamingServer`,
+are given is, as a CPU run shows. The neural families' `Nnet3`, `Nnet1`,
+`load_nnet1`, `LstmProjected` and `Rbm` default to "cuda" too; their
+trainers (`train_nnet3`, `train_tdnn3`, `train_lstm3`, `train_frmshuff`,
+`train_lstm_streams`) take no device and run where their model or GMM
+is. `FusedStreamingServer`,
 `FusedOnlineDecoder`, `OnlineDecoder` and `SingleUtteranceNnet2Decoder`
 take no device: they run where their decoder runs; nor does
 `make_train_step`'s step, which runs where its tensors are. Inference
@@ -60,6 +64,14 @@ from kaldi_tpu_torch.nnet.discriminative import train_nnet_discriminative
 from kaldi_tpu_torch.steps.fmmi import train_fmmi
 from kaldi_tpu_torch.steps.mmi import (MmiTrainOpts, make_denlats,
                                        train_discriminative)
+from kaldi_tpu_torch.nnet1.lstm import LstmConfig, LstmProjected
+from kaldi_tpu_torch.nnet1.nnet import Nnet1, load_nnet1, train_frmshuff
+from kaldi_tpu_torch.nnet1.rbm import Rbm, RbmConfig
+from kaldi_tpu_torch.nnet1.train import StreamTrainOpts, train_lstm_streams
+from kaldi_tpu_torch.nnet3.configs import make_lstm_config
+from kaldi_tpu_torch.nnet3.network import Nnet3
+from kaldi_tpu_torch.nnet3.training import Nnet3TrainOpts, train_nnet3
+from kaldi_tpu_torch.steps.nnet3_train import train_lstm3, train_tdnn3
 
 ENTRY_POINTS = {"Recognizer": Recognizer.__init__,
                 "CsrBeamDecoder": CsrBeamDecoder.__init__,
@@ -78,11 +90,21 @@ ENTRY_POINTS = {"Recognizer": Recognizer.__init__,
                 "train_mono": train_mono,
                 "DenseViterbiDecoder": DenseViterbiDecoder.__init__,
                 "make_decoder": make_decoder,
-                "init_am_from_leaf_stats": init_am_from_leaf_stats}
+                "init_am_from_leaf_stats": init_am_from_leaf_stats,
+                "Nnet3": Nnet3.__init__,
+                "Nnet1": Nnet1.__init__,
+                "Nnet1.from_proto": Nnet1.from_proto,
+                "load_nnet1": load_nnet1,
+                "LstmProjected": LstmProjected.__init__,
+                "Rbm": Rbm.__init__}
 LADDER_STEPS = [build_triphone_tree, train_deltas, train_lda_mllt, train_sat,
                 decode_fmllr, align_with_gmm, train_tdnn]
 DISCRIMINATIVE_STEPS = [make_denlats, train_discriminative, train_fmmi,
                         train_nnet_discriminative, update_ebw_am_diag_gmm]
+NNET_STEPS = [train_nnet3, train_tdnn3, train_lstm3, train_frmshuff,
+              train_lstm_streams]
+PROTO = "<AffineTransform> <InputDim> 4 <OutputDim> 2\n<Softmax> " \
+    "<InputDim> 2 <OutputDim> 2\n"
 
 
 def _graph():
@@ -103,6 +125,17 @@ def _batch():
         g.arc_start[None], g.ilabel[None], g.olabel[None], g.cost[None],
         g.nextstate[None], np.array([[0, 0, 1]], np.int32), g.pdf[None],
         g.final[None], np.zeros(1, np.int32), np.array([2]), np.array([3]))
+
+
+def _nnet1_file() -> str:
+    """A saved nnet1 file (written from the CPU)."""
+    import os
+    import tempfile
+    from kaldi_tpu_torch.nnet1.nnet import save_nnet1
+    net = Nnet1.from_proto(PROTO, device="cpu")
+    path = os.path.join(tempfile.mkdtemp(), "n.npz")
+    save_nnet1(path, net, net.init())
+    return path
 
 
 def _lang():
@@ -165,7 +198,13 @@ def test_default_device_raises_without_a_card(name):
              "DenseViterbiDecoder": lambda: DenseViterbiDecoder(g),
              "make_decoder": lambda: make_decoder(g),
              "init_am_from_leaf_stats": lambda: init_am_from_leaf_stats(
-                 [None], 4)}[name]
+                 [None], 4),
+             "Nnet3": lambda: Nnet3(make_lstm_config(4, 2, 4, 2)),
+             "Nnet1": lambda: Nnet1([]),
+             "Nnet1.from_proto": lambda: Nnet1.from_proto(PROTO),
+             "load_nnet1": lambda: load_nnet1(_nnet1_file()),
+             "LstmProjected": lambda: LstmProjected(LstmConfig(4, 4, 2), 2),
+             "Rbm": lambda: Rbm(RbmConfig(4, 3))}[name]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build()
 
@@ -230,3 +269,40 @@ def test_inference_builds_no_autograd_graph():
     for out in (rec.loglikes(waves),
                 AmNnet(tdnn).loglikes(np.zeros((1, 5, 40), np.float32))):
         assert out.grad_fn is None and not out.requires_grad
+
+
+@pytest.mark.parametrize("fn", NNET_STEPS, ids=lambda f: f.__name__)
+def test_nnet_trainers_take_no_device(fn):
+    assert "device" not in inspect.signature(fn).parameters
+
+
+def test_nnet_trainers_run_where_their_model_is():
+    """A CPU monophone gives CPU nnet3 TDNN and LSTM hybrids; CPU params
+    train on the CPU in every trainer."""
+    rng = np.random.RandomState(0)
+    utts = [(f"u{i}", rng.randn(30, 4).astype(np.float32), ["A"])
+            for i in range(3)]
+    mono = flat_start(_lang(), [f for _u, f, _w in utts], "cpu")
+    one = Nnet3TrainOpts(num_epochs=1)
+    tdnn = train_tdnn3(mono, utts, hidden_dim=8, pnorm_output_dim=2,
+                       train_opts=one)
+    lstm = train_lstm3(mono, utts, cell_dim=4, proj_dim=2, train_opts=one)
+    for res in (tdnn, lstm):
+        assert res.am.device.type == "cpu"
+        assert all(v.device.type == "cpu"
+                   for v in res.am.model.state_dict().values())
+    net = Nnet1.from_proto(PROTO, device="cpu")
+    p, _h = train_frmshuff(net, net.init(), rng.randn(9, 4).astype(
+        np.float32), rng.randint(0, 2, 9), minibatch=4)
+    assert all(v.device.type == "cpu" for v in p.values())
+    model = LstmProjected(LstmConfig(4, 4, 2), 2, device="cpu")
+    p, _h = train_lstm_streams(model, model.init(), [
+        (rng.randn(7, 4).astype(np.float32), rng.randint(0, 2, 7))],
+        StreamTrainOpts(num_streams=2, bptt_chunk=3))
+    assert all(v.device.type == "cpu" for v in p.values())
+    net3 = Nnet3(make_lstm_config(4, 2, 4, 2, splice=(0,)), device="cpu")
+    p, _h = train_nnet3(net3, net3.init(), {
+        "feats": rng.randn(3, 5, 4).astype(np.float32),
+        "targets": np.zeros((3, 5), np.int32),
+        "weights": np.ones((3, 5), np.float32)}, one)
+    assert all(v.device.type == "cpu" for v in p.values())

@@ -11,7 +11,9 @@ with i-vectors), the dense decoder on the yesno HCLG, the port's
 `recipe-yesno` (the GMM path end to end), and a small triphone run
 (train_deltas from a monophone, its HCLG through the flat pipeline on the
 port's native graph ops, a decode) and two bMMI and two fMMI iterations
-from that triphone model run on the CPU. (kaldi_tpu/decoder/__init__.py imports the
+from that triphone model run on the CPU; then two NG-SGD steps of a tiny
+config-built nnet3 LSTM and one `train_frmshuff` pass of a tiny nnet1
+net. (kaldi_tpu/decoder/__init__.py imports the
 jax decoders, so reaching into kaldi_tpu.decoder from the port would fail
 here.)
 """
@@ -81,7 +83,14 @@ for n in ("kaldi_tpu_torch.cuda_build", "kaldi_tpu_torch.nnet.quantized",
           "kaldi_tpu_torch.lat.posteriors", "kaldi_tpu_torch.gmm.ebw",
           "kaldi_tpu_torch.steps.mmi", "kaldi_tpu_torch.steps.ubm",
           "kaldi_tpu_torch.steps.fmmi",
-          "kaldi_tpu_torch.nnet.discriminative"):
+          "kaldi_tpu_torch.nnet.discriminative",
+          "kaldi_tpu_torch.nnet.components_extra",
+          "kaldi_tpu_torch.nnet3.descriptors", "kaldi_tpu_torch.nnet3.components",
+          "kaldi_tpu_torch.nnet3.network", "kaldi_tpu_torch.nnet3.configs",
+          "kaldi_tpu_torch.nnet3.training", "kaldi_tpu_torch.steps.nnet3_train",
+          "kaldi_tpu_torch.nnet1.nnet", "kaldi_tpu_torch.nnet1.train",
+          "kaldi_tpu_torch.nnet1.lstm", "kaldi_tpu_torch.nnet1.rbm",
+          "kaldi_tpu_torch.nnet1.conv", "kaldi_tpu_torch.nnet1.kl_hmm"):
     assert n in names, n
 import chip_smoke
 from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder, CsrBeamOpts
@@ -216,6 +225,31 @@ assert len(hist) == 2 and np.isfinite(hist).all(), hist
 _f, _am, hist = train_fmmi(tri, den, utts[:4], FmmiTrainOpts(
     num_iters=2, fmpe_gauss=4), silence_phones=sil)
 assert len(hist) == 2 and np.isfinite(hist).all(), hist
+from kaldi_tpu_torch.nnet3.configs import make_lstm_config
+from kaldi_tpu_torch.nnet3.network import Nnet3
+from kaldi_tpu_torch.nnet3.training import (Nnet3TrainOpts,
+                                            make_nnet3_optimizer,
+                                            make_nnet3_train_step)
+net3 = Nnet3(make_lstm_config(4, 3, cell_dim=6, proj_dim=4, splice=(-1, 0, 1)),
+             device="cpu")
+p3 = net3.init(torch.Generator().manual_seed(0))
+opt3 = make_nnet3_optimizer(net3, Nnet3TrainOpts(ng_update_period=2), 2)
+st3 = opt3.init(p3)
+step3 = make_nnet3_train_step(net3, opt3)
+b3 = (torch.randn(2, 9, 4, generator=torch.Generator().manual_seed(1)),
+      torch.zeros(2, 7, dtype=torch.int32),
+      torch.ones(2, 7))
+for _ in range(2):
+    p3, st3, loss3, _acc = step3(p3, st3, *b3)
+assert bool(torch.isfinite(loss3)) and st3[0].step == 2, loss3
+from kaldi_tpu_torch.nnet1.nnet import Nnet1, train_frmshuff
+net1 = Nnet1.from_proto("<AffineTransform> <InputDim> 4 <OutputDim> 3\n"
+                        "<Softmax> <InputDim> 3 <OutputDim> 3\n", device="cpu")
+_p1, hist1 = train_frmshuff(net1, net1.init(torch.Generator().manual_seed(0)),
+                            np.random.RandomState(3).randn(20, 4)
+                            .astype(np.float32), np.arange(20) % 3,
+                            minibatch=8)
+assert len(hist1) == 1 and np.isfinite(hist1[0][0]), hist1
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
        or m.startswith("kaldi_tpu.")]
 assert not bad, bad
