@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's serving, training, GMM-HMM, discriminative
-training and nnet3 / nnet1 paths once on one CUDA card and check them.
+training, nnet3 / nnet1 and speaker-recognition paths once on one CUDA
+card and check them.
 
     python3 chip_smoke.py [--profile]
 
@@ -178,7 +179,39 @@ Phases (any failure raises and the script exits non-zero):
      the fine-tuning raises the frame accuracy, the WER is reported; the
      gather kernel bit-exact and timed at these decodes' shapes; qaffine
      must not launch; --profile prints the wide LSTM's profiled step by
-     kernel.
+     kernel;
+ 25. speaker recognition, small, card vs CPU: tests/test_sre_pipeline.py's
+     corpus through sre10 v1 (GMM-UBM, 8 gaussians) and v2 (its oracle
+     posteriors over 4 classes), 8-dim i-vectors, on each device (the
+     EERs equal and under PARITY.md:47's 15%), then each stage from the
+     same inputs within the bound its arithmetic sets, every ratio to its
+     bound logged: the diag and the full UBM's statistics (the f32
+     loglikes' difference through the softmax), the gselect / min-post
+     stats (a frame may change its selection only where its loglikes'
+     difference could reorder its top k; such frames counted), one
+     extractor E-step for v1 and v2 (L and b to their f64 rounding, w and
+     L^-1 to kappa(L) times the measured differences and residuals), the
+     M-step's statistics A and B (what the E-step's differences carry
+     into them), and each side's solves (L w = b, L L^-1 = I, the
+     M-step) by their backward error, SOLVE_C (K + D) eps64; logistic regression (the loss within 1e-4, the same classes);
+     the VAD of sre10's MFCCs from the card and the CPU (a decision may
+     differ only within the features' difference of the threshold);
+     neither kernel may launch;
+ 26. speaker recognition at egs/sre10's width on the card: `sre_corpus`
+     (ladder_synth speech at 8 kHz, 200 speakers with their own warp and
+     tilt, 6 training, 1 enrollment and 1 test utterance each; 40,000
+     trials) with sre10's MFCCs (20 cepstra, 20-3700 Hz, 25 ms, + deltas
+     = 60 dims) on the card; (a) v1 with VAD, a 2048-gaussian full UBM and
+     a 600-dim extractor; (b) v2 without VAD, its posteriors phase 20's
+     TDNN over the LDA+MLLT model's pdfs; each with seconds by stage and
+     per EM iteration, peak memory, the full UBM's log-likelihood per
+     iteration and the EERs by PLDA and by cosine scoring (reported), and
+     held: (i) the stages for 8 utterances recomputed on the CPU within
+     phase 25's bounds (the M-step over 64 gaussians), (ii) the UBM
+     log-likelihood never falling by more than 1e-6 relative, (iii) every
+     tensor finite; (c) logistic regression over (a)'s training i-vectors
+     at the reference's options (final loss and closed-set accuracy
+     reported); neither kernel may launch.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error against its plain version, times and bound; the last line
@@ -4683,6 +4716,873 @@ def phase_nnet_full(card: str, ladder: dict, profile: bool = False) -> dict:
     return dict(out, launches=launches, gather_times=g_times, secs=secs)
 
 
+# the speaker-recognition path: tests/test_sre_pipeline.py's corpus and
+# options (phase 25), sre10's widths on a ladder_synth corpus (phase 26)
+SRE_SMALL = {"v1": dict(num_gauss=8, ivector_dim=8, use_vad=False),
+             "v2": dict(num_gauss=4, ivector_dim=8, use_vad=False)}
+# egs/sre10/v1: a 2048-gaussian full-covariance UBM, 600-dim i-vectors;
+# 200 speakers of 6 training, 1 enrollment and 1 test utterance
+SRE = dict(seed=23, speakers=200, train_per_spk=6, words=(8, 17))
+SRE_WIDTH = dict(num_gauss=2048, ivector_dim=600)
+SRE_CHECK_UTTS = 8            # (i): the stages recomputed on the CPU
+SRE_CHECK_GAUSS = 64          # (i): gaussians of the M-step on the CPU
+F64_EPS = 2.0 ** -53                      # f64 unit roundoff
+SOLVE_C = 2.0                 # a solve's backward error: SOLVE_C (K + D) eps64
+
+
+def sre_small_corpus(rng, n_spk=10, n_utt=5, frames=150, dim=8, n_comp=4):
+    """tests/test_sre_pipeline.py `_make_corpus`: speakers as a 2-dim
+    shift of 4 component means -> ({spk: [(feats [frames, dim], comps)]},
+    component means)."""
+    comp_means = rng.randn(n_comp, dim) * 4.0
+    spk_dirs = rng.randn(2, dim)
+    data = {}
+    for s in range(n_spk):
+        shift = rng.randn(2) @ spk_dirs * 1.2
+        utts = []
+        for _u in range(n_utt):
+            comps = rng.randint(0, n_comp, frames)
+            x = comp_means[comps] + shift + rng.randn(frames, dim)
+            utts.append((x.astype(np.float64), comps))
+        data[f"spk{s}"] = utts
+    return data, comp_means
+
+
+def sre_small_split(data) -> tuple:
+    """tests/test_sre_pipeline.py `_split`: 3 training utterances, the
+    4th enrolls, the 5th tests; every enrollment against every test."""
+    train = {s: [f for (f, _c) in us[:3]] for s, us in data.items()}
+    enroll = {s: us[3][0] for s, us in data.items()}
+    test = {f"{s}_t": us[4][0] for s, us in data.items()}
+    trials = [(s, f"{t}_t", s == t) for s in data for t in data]
+    return train, enroll, test, trials
+
+
+def sre_oracle_post_fn(comp_means):
+    """tests/test_sre_pipeline.py's oracle 'DNN': soft assignment of each
+    frame to the true component means."""
+    def post_fn(feats):
+        d = ((feats[:, None, :] - comp_means[None]) ** 2).sum(-1)
+        e = np.exp(-0.5 * (d - d.min(axis=1, keepdims=True)))
+        return e / e.sum(axis=1, keepdims=True)
+    return post_fn
+
+
+def sre_corpus(seed: int, speakers: int, train_per_spk: int, words,
+               n_words: int = 120, n_phones: int = 30, noise: float = 70.0,
+               coart: float = 0.6) -> dict:
+    """`ladder_corpus`'s vocabulary, phones and synthesis (8 kHz, noise 70,
+    coart 0.6) for `speakers` speakers, each with a warp from
+    uniform(0.88, 1.12) and a tilt from uniform(-0.5, 0.5) and
+    train_per_spk + 2 utterances of `words` words: -> dict(train {spk:
+    [wave]}, enroll {spk: wave}, test {spk + "_t": wave})."""
+    rng = np.random.RandomState(seed)
+    lex_text, vocab = ladder_vocab(rng, n_words, n_phones)
+    lexicon = {ln.split()[0]: [int(p[1:]) for p in ln.split()[1:]]
+               for ln in lex_text.splitlines()}
+    mel = 1127.0 * np.log1p(np.array([300.0, 3400.0]) / 700.0)
+    freqs = 700.0 * np.expm1(np.linspace(mel[0], mel[1], n_phones) / 1127.0)
+    spks = [f"s{k:03d}" for k in range(speakers)]
+    warps = {s: rng.uniform(0.88, 1.12) for s in spks}
+    tilts = {s: rng.uniform(-0.5, 0.5) for s in spks}
+
+    def utt(spk):
+        ws = [vocab[rng.randint(n_words)] for _ in range(rng.randint(*words))]
+        return ladder_synth([p for w in ws for p in lexicon[w]], freqs, rng,
+                            warps[spk], noise, coart, tilts[spk])
+
+    out = dict(train={}, enroll={}, test={})
+    for s in spks:
+        out["train"][s] = [utt(s) for _ in range(train_per_spk)]
+        out["enroll"][s] = utt(s)
+        out["test"][s + "_t"] = utt(s)
+    return out
+
+
+def sre_mfcc_opts():
+    """sre10's conf/mfcc.conf as the port's options: 8 kHz, 25 ms
+    frames, 20 cepstra with energy, mel bins from 20 to 3700 Hz; no
+    dither (a seeded run)."""
+    from kaldi_tpu_torch.ops.features import MfccOpts
+    from kaldi_tpu_torch.ops.mel import MelOpts
+    from kaldi_tpu_torch.ops.window import FrameOpts
+    return MfccOpts(frame_opts=FrameOpts(samp_freq=GMM_SR, dither=0.0,
+                                         frame_length_ms=25.0),
+                    mel_opts=MelOpts(low_freq=20.0, high_freq=3700.0),
+                    num_ceps=20)
+
+
+def sre_feats(waves, device, raw: bool = False, batch: int = 200) -> list:
+    """Features of 8 kHz waves on `device`, each cut to its own frames:
+    sre10's MFCC + delta + delta-delta (60 dims; the deltas per
+    utterance), or with raw=True the ladder's 13-dim MFCC (the LDA+MLLT
+    model's input). Host arrays."""
+    import torch
+    from kaldi_tpu_torch.ops.delta import add_deltas
+    from kaldi_tpu_torch.ops.features import mfcc
+    opts = sre_mfcc_opts()
+    out = []
+    for i in range(0, len(waves), batch):
+        ws = waves[i:i + batch]
+        wb = np.zeros((len(ws), max(len(w) for w in ws)), np.float32)
+        for j, w in enumerate(ws):
+            wb[j, : len(w)] = w
+        f = (_mfcc(wb, device) if raw else
+             mfcc(torch.as_tensor(wb, device=device), opts))
+        for j, w in enumerate(ws):
+            fj = f[j, : max(0, (len(w) - 200) // 80 + 1)]
+            out.append((fj if raw else add_deltas(fj, order=2, window=2))
+                       .cpu().numpy())
+    return out
+
+
+
+
+def _gamma_n(n: int, u: float) -> float:
+    """gamma_n = n u / (1 - n u): the relative error bound of a sum or an
+    inner product of n terms in a precision of unit roundoff u."""
+    return n * u / (1.0 - n * u)
+
+
+def diag_ubm_stats_card_vs_cpu(gmm, x, card: str = "cuda") -> dict:
+    """`AccumDiagGmm.accumulate_batch` of frames x [T, D] (as f32) with the
+    DiagGmm `gmm` on the card and on the CPU, held to the bound their f32
+    loglikes' difference sets: each posterior moves by at most
+    `softmax_shift_bound` b of the two devices' component loglikes, each
+    statistic by the sum of those moves times its frame term (1, |x|,
+    x^2), plus each side's rounding of its f32 sums over a chunk of n
+    frames, gamma_n(eps32) of its terms, and of the f64 sum of the chunks.
+    -> {"occ", "mean", "var": largest difference over its bound, "ll": the
+    loglikes' largest difference}. `card` names the device held against
+    the CPU."""
+    import inspect
+
+    import torch
+    from kaldi_tpu_torch.gmm.am_gmm import _augment
+    from kaldi_tpu_torch.gmm.estimation import (AccumDiagGmm,
+                                                _aligned_posteriors)
+    x = np.asarray(x, np.float32)
+    T = len(x)
+    chunk = inspect.signature(AccumDiagGmm.accumulate_batch).parameters[
+        "chunk"].default
+    acc, ll = {}, {}
+    for k, d in (("cpu", "cpu"), ("card", card)):
+        xd = torch.as_tensor(x, device=d)
+        acc[k] = AccumDiagGmm(gmm.num_gauss, gmm.dim)
+        acc[k].accumulate_batch(gmm, xd)
+        ll[k] = (_augment(xd) @ torch.as_tensor(gmm.packed(), device=d)
+                 ).cpu().numpy().astype(np.float64)
+    post = _aligned_posteriors(
+        torch.as_tensor(x), torch.zeros(T, dtype=torch.int64),
+        torch.ones(T), torch.as_tensor(gmm.packed()),
+        torch.zeros(gmm.num_gauss, dtype=torch.int64))[0].numpy()
+    post = post.astype(np.float64)
+    b, _spread = softmax_shift_bound(ll["cpu"], ll["card"], post,
+                                     np.ones(post.shape, bool))
+    r = _gamma_n(min(T, chunk), F32_EPS) + _gamma_n(-(-T // chunk),
+                                                   F64_EPS)
+    xa = np.abs(x.astype(np.float64))
+    errs = {}
+    for k, a, term in (("occ", "occ", np.ones((T, 1))),
+                       ("mean", "mean_acc", xa), ("var", "var_acc", xa * xa)):
+        bound = (1.0 + r) * (b.T @ term) + 2.0 * r * (post.T @ term)
+        errs[k] = _worst(getattr(acc["card"], a).reshape(bound.shape),
+                         getattr(acc["cpu"], a).reshape(bound.shape), bound)
+    errs["ll"] = float(np.abs(ll["card"] - ll["cpu"]).max())
+    return errs
+
+
+def full_ubm_stats_card_vs_cpu(gmm, x, card: str = "cuda") -> dict:
+    """`AccumFullGmm.accumulate_batch` of frames x [T, D] with the FullGmm
+    `gmm` on the card and on the CPU, held to the bound their f32 loglikes'
+    difference sets (each side casts its f64 GEMM's loglikes to f32): each
+    posterior moves by at most `softmax_shift_bound` b, each statistic (the
+    posteriors' f64 GEMM against `full_features` [1, x, x_d x_e]) by b^T
+    |f|, plus each side's f64 rounding, gamma_{T+2} of p^T |f|. -> {"occ",
+    "mean", "cov": largest difference over its bound, "ll": the loglikes'
+    largest difference}."""
+    import torch
+    from kaldi_tpu_torch.gmm.full_gmm import AccumFullGmm, full_features
+    x = np.asarray(x, np.float64)
+    T, D = x.shape
+    acc, ll = {}, {}
+    for k, d in (("cpu", "cpu"), ("card", card)):
+        acc[k] = AccumFullGmm(gmm.num_gauss, gmm.dim)
+        acc[k].accumulate_batch(gmm, x, device=d)
+        ll[k] = gmm.loglikes_batch(x, d).cpu().numpy().astype(np.float64)
+    post = gmm.posteriors_batch(x, "cpu").numpy().astype(np.float64)
+    b, _spread = softmax_shift_bound(ll["cpu"], ll["card"], post,
+                                     np.ones(post.shape, bool))
+    f = np.abs(full_features(torch.as_tensor(x)).numpy())
+    bound = (b + 2.0 * _gamma_n(T + 2, F64_EPS) * post).T @ f
+    rows, cols = np.triu_indices(D)
+    cov = np.zeros((gmm.num_gauss, D, D))
+    cov[:, rows, cols] = bound[:, 1 + D:]
+    cov[:, cols, rows] = bound[:, 1 + D:]
+    errs = {k: _worst(getattr(acc["card"], a), getattr(acc["cpu"], a), bd)
+            for k, a, bd in (("occ", "occ", bound[:, 0]),
+                             ("mean", "mean_acc", bound[:, 1:1 + D]),
+                             ("cov", "cov_acc", cov))}
+    errs["ll"] = float(np.abs(ll["card"] - ll["cpu"]).max())
+    return errs
+
+
+def gselect_stats_card_vs_cpu(ext, feats_list, num_gselect: int,
+                              min_post: float = 0.025,
+                              card: str = "cuda") -> dict:
+    """`IvectorExtractor.batch_stats` of the utterances on the card and on
+    the CPU, held to the bound the devices' f32 diag loglikes set. Per
+    frame, with the same top-k set on both: the softmax within it moves
+    by `softmax_shift_bound`, b; the renormalization after min-post
+    pruning by (b + p sum b) / s. A frame whose top-k set differs (which
+    its k-th and (k+1)-th loglikes may do only where they lie within twice
+    the loglikes' difference) or whose pruning differs (a posterior within
+    b of min_post) may move entirely: max(p_cpu, p_card). Each statistic
+    moves by the sum of its frames' bounds (times |x| for X) plus each
+    side's f64 rounding, gamma_{T+1} of its terms. -> {"post", "gamma",
+    "X": largest difference over its bound, "flips": frames of the second
+    kind, "unjustified": flips without that margin, "stats": the CPU's
+    (gamma, X)}."""
+    import torch
+    from kaldi_tpu_torch.gmm.am_gmm import _augment
+    from kaldi_tpu_torch.ivector.extractor import _gselect_posteriors
+    packed = ext._gselect_gmm().packed()
+    x = np.concatenate([np.asarray(f, np.float64) for f in feats_list])
+    ll, post, top = {}, {}, {}
+    for d in ("cpu", card):
+        xd = torch.as_tensor(x, dtype=torch.float32, device=d)
+        pk = torch.as_tensor(packed, device=d)
+        ll[d] = (_augment(xd) @ pk).cpu().numpy().astype(np.float64)
+        post[d] = _gselect_posteriors(xd, pk, num_gselect,
+                                      min_post).cpu().numpy()
+        top[d] = np.sort(np.argsort(-ll[d], axis=1, kind="stable")
+                         [:, :min(num_gselect, ll[d].shape[1])], axis=1)
+    k = top["cpu"].shape[1]
+    sel = np.zeros(ll["cpu"].shape, bool)
+    np.put_along_axis(sel, top["cpu"], True, axis=1)
+    m = np.where(sel, ll["cpu"], -np.inf)
+    pre = np.exp(m - m.max(axis=1, keepdims=True))
+    pre /= pre.sum(axis=1, keepdims=True)
+    b, _spread = softmax_shift_bound(ll["cpu"], ll[card], pre, sel)
+    kept = sel & (pre >= min_post)
+    s = np.maximum(np.where(kept, pre, 0.0).sum(axis=1, keepdims=True),
+                   1e-300)
+    p_fin = np.where(kept, pre / s, 0.0)
+    bound = np.where(kept, (b + p_fin * np.where(kept, b, 0.0).sum(
+        axis=1, keepdims=True)) / s, 0.0)
+    bound += 2.0 * (k + 3) * F32_EPS * p_fin + 2.0 ** -126
+    set_flip = np.any(top["cpu"] != top[card], axis=1)
+    prune_flip = np.any(sel & ((post[card] > 0) != (post["cpu"] > 0)),
+                        axis=1) & ~set_flip
+    srt = -np.sort(-ll["cpu"], axis=1)
+    delta = np.abs(ll[card] - ll["cpu"]).max(axis=1)
+    gap = (srt[:, k - 1] - srt[:, k]) if k < srt.shape[1] else \
+        np.full(len(x), np.inf)
+    near = np.any(sel & (np.abs(pre - min_post) <= b), axis=1)
+    unjustified = int(np.sum(set_flip & (gap > 2.0 * delta))
+                      + np.sum(prune_flip & ~near))
+    whole = set_flip | prune_flip
+    bound = np.where(whole[:, None],
+                     np.maximum(post["cpu"], post[card]) + 2.0 ** -126,
+                     bound)
+    g_card, X_card = (t.cpu().numpy() for t in ext.batch_stats(
+        feats_list, num_gselect, min_post, device=card))
+    g_cpu, X_cpu = (t.numpy() for t in ext.batch_stats(
+        feats_list, num_gselect, min_post, device="cpu"))
+    errs = {"post": _worst(post[card], post["cpu"], bound),
+            "flips": int(whole.sum()), "unjustified": unjustified,
+            "gamma": 0.0, "X": 0.0}
+    xa = np.abs(x)
+    t = 0
+    for n, f in enumerate(feats_list):
+        T = len(f)
+        bt, pt, at = bound[t:t + T], post["cpu"][t:t + T], xa[t:t + T]
+        r = 2.0 * _gamma_n(T + 1, F64_EPS)
+        errs["gamma"] = max(errs["gamma"], _worst(
+            g_card[n], g_cpu[n], bt.sum(0) + r * pt.sum(0)))
+        errs["X"] = max(errs["X"], _worst(
+            X_card[n], X_cpu[n], bt.T @ at + r * (pt.T @ at)))
+        t += T
+    return dict(errs, stats=(g_cpu, X_cpu))
+
+
+def backward_error(A, X, B) -> np.ndarray:
+    """The backward error of solves X A = B, per matrix: |X A - B| / (|X|
+    |A|) (Frobenius) for A [G, K, K], X and B [G, D, K] f64. Its bound,
+    `backward_bound`, is SOLVE_C (K + D) eps64: the residual's own f64
+    rounding is at most K eps64 of |X| |A|, and a Cholesky solve's
+    backward error is a small multiple of K eps64 in practice (Higham,
+    Accuracy and Stability of Numerical Algorithms, 10.1; its worst case,
+    3 K^2 eps64, is a bound nothing reaches). An M-step's M that differs
+    from the solve by 1e-9 of itself exceeds it
+    (tests/test_torch_ivector.py)."""
+    res = X @ A - B
+    return (np.linalg.norm(res.reshape(len(X), -1), axis=1)
+            / np.maximum(np.linalg.norm(X.reshape(len(X), -1), axis=1)
+                         * np.linalg.norm(A.reshape(len(X), -1), axis=1),
+                         1e-300))
+
+
+def backward_bound(K: int, D: int) -> float:
+    return SOLVE_C * (K + D) * F64_EPS
+
+
+def mstep_backward_error(M, A, B, smooth: float) -> tuple:
+    """The M-step's backward error per gaussian, |M_i (A_i + s I) - B_i| /
+    (|M_i| |A_i + s I|), for M [G, D, K], A [G, K, K], B [G, D, K] f64,
+    and its bound (`backward_error`). -> (errors [G], bound)."""
+    K, D = A.shape[-1], M.shape[1]
+    return (backward_error(A + smooth * np.eye(K), M, B),
+            backward_bound(K, D))
+
+
+def extractor_step_card_vs_cpu(ext, gamma, X, gauss=None,
+                               card: str = "cuda") -> dict:
+    """One E-step and M-step of the batch path from the same stats (gamma
+    [N, I], X [N, I, D], host f64) on the card and on the CPU, the M-step's
+    statistics and M over the gaussians `gauss` (all by default). Norms
+    are 2-norms of vectors and symmetric matrices, Frobenius of the rest;
+    every bound is per utterance or per gaussian:
+    - the linear system: L = I + sum_i gamma_i U_i and b = sum_i V_i Xc_i
+      (+ the prior offset) differ by at most both sides' rounding of them
+      from M: with U_i = (Sigma_i^-1 M_i)^T M_i and V_i^T = Sigma_i^-1 M_i
+      in D-term inner products, |dU_i| <= gamma_D |M_i| (|V_i| +
+      |Sigma_i^-1| |M_i|), |dL| <= sum_i gamma_i (|dU_i| + gamma_I |U_i|)
+      + eps |L|, and |db| <= sum_i (gamma_{ID} |V_i| |Xc_i| + |dXc_i|
+      |V_i| + |Xc_i| gamma_D |Sigma_i^-1| |M_i|) + eps |b| with |dXc_i|
+      <= eps (|X_i| + 2 gamma_i |mu_i|);
+    - the solves: with r = L w - b each side's residual (measured in f64,
+      plus its own rounding gamma_{K+1} (|L| |w| + |b|)), w_card - w_cpu
+      = L_cpu^-1 (db - dL w_card + r_card - r_cpu), so |dw| <= |L_cpu^-1|
+      (|dL| |w_card| + |db| + |r_card| + |r_cpu|); the same for L^-1
+      with R = L L^-1 - I: |dL^-1| <= |L_cpu^-1| (|dL| |L^-1_card| +
+      |R_card| + |R_cpu|). That is kappa(L) times the measured
+      differences and residuals, and as loose as kappa(L) is large; each
+      side's solves (L w = b, L L^-1 = I; L symmetric) are also held by
+      their backward error (`backward_error`);
+    - the statistics: A_i = sum_n gamma_ni E_n[w w^T] and B_i = sum_n
+      Xc_ni w_n^T differ by at most what the measured differences of
+      E[w w^T], Xc and w carry into them, plus each side's rounding,
+      gamma_{N+1} of their terms (and 4 eps of E[w w^T] for its sum);
+    - the M-step: each side's M_i by its backward error against its own
+      statistics (`mstep_backward_error`). The difference of the two M is
+      reported, not held: with few utterances kappa(A_i + sI) reaches 1e9.
+    -> {"L", "b", "w", "Linv", "solve", "A", "B", "M": the largest ratio
+    of each to its bound, "kappa_L", "kappa_A": the largest condition numbers,
+    "w_rel", "M_rel": the largest relative differences, "M_backward": the
+    largest backward error, "finite": every tensor of both steps finite}.
+    `card` names the device held against the CPU."""
+    import inspect
+
+    import torch
+    from kaldi_tpu_torch.ivector.extractor import (IvectorExtractor,
+                                                   IvectorStats)
+    I, D, K = ext.M.shape
+    N = len(gamma)
+    gauss = np.arange(I) if gauss is None else np.asarray(gauss)
+    smooth = inspect.signature(IvectorStats.update).parameters[
+        "smoothing"].default
+    side, finite = {}, True
+    for key, d in (("card", card), ("cpu", "cpu")):
+        e = IvectorExtractor.from_arrays(ext.means, ext.inv_covars,
+                                         ext.weights, ext.M,
+                                         ext.prior_offset)
+        g = torch.as_tensor(gamma, device=d)
+        Xd = torch.as_tensor(X, device=d)
+        L, b, xc = e.linear_terms(g, Xd)
+        _iv, w, chol, _xc = e.posterior_batch(g, Xd)
+        st = IvectorStats(e, d)
+        st.accumulate_batch(e, g, Xd)
+        out = {"L": L, "b": b, "w": w, "Linv": torch.cholesky_inverse(chol),
+               "xc": xc[:, gauss], "xcn": torch.linalg.vector_norm(xc, dim=2),
+               "A": st.A[gauss], "B": st.B[gauss]}
+        if key == "cpu":
+            c = e.on_device("cpu")
+
+            def fro(t):
+                return torch.linalg.vector_norm(t.flatten(1), dim=1)
+            out.update(nM=fro(c["M"]), nVt=fro(c["Vt"]), nU=fro(c["U"]),
+                       nic=fro(torch.as_tensor(ext.inv_covars)))
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        sub = IvectorExtractor.from_arrays(
+            ext.means[gauss], ext.inv_covars[gauss], ext.weights[gauss],
+            ext.M[gauss], ext.prior_offset)
+        sst = IvectorStats(sub, d)
+        sst.A, sst.B = st.A[gauss], st.B[gauss]
+        sst.update(sub)
+        out["M"] = sub.M
+        finite &= all(bool(np.isfinite(out[k]).all())
+                      for k in ("w", "Linv", "A", "B", "M"))
+        side[key] = out
+        del st, sst, e
+    c, p = side["card"], side["cpu"]
+    eps = F64_EPS
+
+    def fro(a):
+        return np.linalg.norm(a.reshape(len(a), -1), axis=1)
+
+    def vec(a):
+        return np.linalg.norm(a, axis=-1)
+
+    def spec(a):
+        return np.linalg.norm(a, ord=2, axis=(1, 2))
+
+    gm = np.asarray(gamma, np.float64)
+    eL = np.linalg.eigvalsh(p["L"])
+    linv_norm, kL = 1.0 / eL[:, 0], eL[:, -1] / eL[:, 0]
+    # the linear system's forward bounds
+    dVt = _gamma_n(D, eps) * p["nic"] * p["nM"]
+    dU = _gamma_n(D, eps) * p["nM"] * (p["nVt"] + p["nic"] * p["nM"])
+    bL = 2.0 * (gm @ (dU + _gamma_n(I, eps) * p["nU"]) + eps * fro(p["L"]))
+    mun = vec(ext.means)
+    dXc = eps * (vec(np.asarray(X, np.float64)) + 2.0 * gm * mun)
+    bb = 2.0 * ((_gamma_n(I * D, eps) * p["xcn"] * p["nVt"]
+                 + dXc * p["nVt"] + p["xcn"] * dVt).sum(axis=1)
+                + eps * vec(p["b"]))
+    dL, db = spec(c["L"] - p["L"]), vec(c["b"] - p["b"])
+
+    # the solves, from each side's residuals
+    def resid(s):
+        r = vec(np.einsum("nkj,nj->nk", s["L"], s["w"]) - s["b"])
+        r += _gamma_n(K + 1, eps) * (fro(s["L"]) * vec(s["w"]) + vec(s["b"]))
+        R = spec(s["L"] @ s["Linv"] - np.eye(K))
+        R += _gamma_n(K, eps) * fro(s["L"]) * fro(s["Linv"])
+        return r, R
+
+    (rc, Rc), (rp, Rp) = resid(c), resid(p)
+    # each side's solves by their backward error, as the M-step's
+    solve_back = max(float(backward_error(
+        s["L"], x, y).max()) for s in (c, p) for x, y in (
+        (s["w"][:, None], s["b"][:, None]),
+        (s["Linv"], np.broadcast_to(np.eye(K), s["L"].shape))))
+    dw = vec(c["w"] - p["w"])
+    bw = linv_norm * (dL * vec(c["w"]) + db + rc + rp)
+    dLinv = spec(c["Linv"] - p["Linv"])
+    bLinv = linv_norm * (dL * spec(c["Linv"]) + Rc + Rp)
+    # the statistics
+    g_n = _gamma_n(N + 1, eps)
+    eww = {k: s["Linv"] + s["w"][:, :, None] * s["w"][:, None, :]
+           for k, s in (("c", c), ("p", p))}
+    mag = np.maximum(fro(c["Linv"]), fro(p["Linv"])) + np.maximum(
+        vec(c["w"]), vec(p["w"])) ** 2
+    gg = gm[:, gauss]                                          # [N, G]
+    bA = gg.T @ (fro(eww["c"] - eww["p"]) + 2.0 * (g_n + 4.0 * eps) * mag)
+    xcg = np.linalg.norm(p["xc"], axis=2)                      # [N, G]
+    wn = np.maximum(vec(c["w"]), vec(p["w"]))
+    bB = (np.linalg.norm(c["xc"] - p["xc"], axis=2).T @ wn + xcg.T @ dw
+          + 2.0 * g_n * (xcg.T @ wn))
+    back = {k: mstep_backward_error(s["M"], s["A"], s["B"], smooth)
+            for k, s in (("card", c), ("cpu", p))}
+    evA = np.linalg.eigvalsh(p["A"] + smooth * np.eye(K))
+    # a gaussian no frame of these utterances reached has M_i = 0 on both
+    M_rel = fro(c["M"] - p["M"]) / np.maximum(fro(p["M"]), 1e-300)
+
+    def ratio(diff, bound):
+        return float(np.max(diff / np.maximum(bound, 1e-300)))
+    return {"L": ratio(fro(c["L"] - p["L"]), bL), "b": ratio(db, bb),
+            "w": ratio(dw, bw), "Linv": ratio(dLinv, bLinv),
+            "A": ratio(fro(c["A"] - p["A"]), bA),
+            "B": ratio(fro(c["B"] - p["B"]), bB),
+            "solve": solve_back / backward_bound(K, D),
+            "M": max(float(v[0].max() / v[1]) for v in back.values()),
+            "M_backward": float(back["card"][0].max()),
+            "kappa_L": float(kL.max()),
+            "kappa_A": float((evA[:, -1] / evA[:, 0]).max()),
+            "w_rel": float((dw / vec(p["w"])).max()),
+            "M_rel": float(M_rel.max()), "finite": finite}
+
+
+EXTRACTOR_CHECKS = (("L", "E-step L"), ("b", "E-step b"), ("w", "E-step w"),
+                    ("Linv", "E-step L^-1"),
+                    ("solve", "E-step solves' backward error"),
+                    ("A", "M-step statistic A"),
+                    ("B", "M-step statistic B"),
+                    ("M", "M-step backward error"))
+
+
+def check_extractor_step(check, what: str, es: dict) -> str:
+    """Hold `extractor_step_card_vs_cpu`'s ratios to 1 and its tensors
+    finite. -> a line for the log with each ratio."""
+    for k, name in EXTRACTOR_CHECKS:
+        check(f"{what}: {name} over its bound", es[k], 1.0)
+    check.require(f"{what}: an E/M-step tensor is not finite", es["finite"])
+    return (", ".join(f"{name} {es[k]:.3e}" for k, name in EXTRACTOR_CHECKS)
+            + f" of their bounds (kappa(L) up to {es['kappa_L']:.3e}, w "
+            f"{es['w_rel']:.3e} relative; M-step backward error "
+            f"{es['M_backward']:.3e}; M card vs CPU {es['M_rel']:.3e} "
+            f"relative, reported: kappa(A + sI) up to {es['kappa_A']:.3e})")
+
+
+def check_ubm_stats(check, what: str, du: dict | None, fu: dict | None,
+                    gs: dict | None) -> str:
+    """Hold the diag UBM's, the full UBM's and the gselect statistics'
+    ratios (any of them None is skipped) to 1 and the gselect flips to
+    their margin. -> a line for the log with each ratio."""
+    parts = []
+    if du is not None:
+        for k in ("occ", "mean", "var"):
+            check(f"{what}: diag UBM {k} over its bound", du[k], 1.0)
+        parts.append("diag UBM occ/mean/var " + "/".join(
+            f"{du[k]:.3e}" for k in ("occ", "mean", "var"))
+            + f" of their bounds (f32 loglikes apart by {du['ll']:.3e})")
+    if fu is not None:
+        for k in ("occ", "mean", "cov"):
+            check(f"{what}: full UBM {k} over its bound", fu[k], 1.0)
+        parts.append("full UBM occ/mean/cov " + "/".join(
+            f"{fu[k]:.3e}" for k in ("occ", "mean", "cov"))
+            + f" (f32 loglikes apart by {fu['ll']:.3e})")
+    if gs is not None:
+        for k in ("post", "gamma", "X"):
+            check(f"{what}: gselect {k} over its bound", gs[k], 1.0)
+        check(f"{what}: gselect flips without a margin", gs["unjustified"],
+              0)
+        parts.append("gselect posteriors/gamma/X " + "/".join(
+            f"{gs[k]:.3e}" for k in ("post", "gamma", "X"))
+            + f", {gs['flips']} frames with another selection or pruning "
+            f"(each within its loglikes' difference of the tie)")
+    return "; ".join(parts)
+
+
+def _trial_scores(scores: dict, trials) -> tuple[list, list]:
+    tgt = [scores[(e, t)] for e, t, y in trials if y]
+    non = [scores[(e, t)] for e, t, y in trials if not y]
+    return tgt, non
+
+
+def vad_card_vs_cpu(waves) -> dict:
+    """`compute_vad` of sre10's features of `waves` from the card and from
+    the CPU: a frame's decision may differ only where its log-energy lies
+    within the two devices' largest log-energy difference (times 1.5, the
+    threshold's mean term moving too) of the threshold. -> {"frames",
+    "voiced", "flips", "unjustified", "margin": the smallest distance of a
+    log-energy from its threshold}."""
+    from kaldi_tpu_torch.ivector.vad import VadOpts, compute_vad
+    o = VadOpts()
+    fs = {d: sre_feats(waves, d) for d in ("cpu", "cuda")}
+    out = {"frames": 0, "voiced": 0, "flips": 0, "unjustified": 0,
+           "margin": np.inf}
+    for a, b in zip(fs["cpu"], fs["cuda"]):
+        ma, mb = compute_vad(a, o), compute_vad(b, o)
+        e = a[:, 0].astype(np.float64)
+        dist = np.abs(e - o.vad_energy_threshold
+                      - o.vad_energy_mean_scale * e.mean())
+        d = float(np.abs(b[:, 0].astype(np.float64) - e).max())
+        flip = ma != mb
+        out["frames"] += len(e)
+        out["voiced"] += int(ma.sum())
+        out["flips"] += int(flip.sum())
+        out["unjustified"] += int(np.sum(flip & (dist > 1.5 * d)))
+        out["margin"] = min(out["margin"], float(dist.min()))
+    return out
+
+
+def phase_sre_small():
+    """tests/test_sre_pipeline.py's corpus through v1 and v2 on the card
+    and on the CPU (the EERs equal), each stage's device work held to its
+    derived bound from the same inputs; logistic regression and the VAD of
+    the card's features against the CPU's."""
+    from kaldi_tpu_torch.ivector.logistic_regression import \
+        LogisticRegression
+    from kaldi_tpu_torch.ivector.plda import length_normalize
+    from kaldi_tpu_torch.nnet import quantized as q
+    from kaldi_tpu_torch.ops import table_gather as tg
+    from kaldi_tpu_torch.steps import sre
+
+    q.launches = tg.launches = 0
+    t0 = time.perf_counter()
+    check = _Limits()
+    data, cm = sre_small_corpus(np.random.RandomState(0))
+    train, enroll, test, trials = sre_small_split(data)
+    systems = {}
+    for name, opts in SRE_SMALL.items():
+        kw = ({} if name == "v1" else
+              dict(post_fn=sre_oracle_post_fn(cm), num_post_classes=4))
+        res = {}
+        for d in ("cpu", "cuda"):
+            st: dict = {}
+            s = sre.train_sre_system(train, sre.SrePipelineOpts(**opts),
+                                     device=d, stage_stats=st, **kw)
+            res[d] = (s, st) + sre.evaluate_sre(s, enroll, test, trials)
+        systems[name] = res
+        (sc, stc, ec, scc), (sg, stg, eg, scg) = res["cpu"], res["cuda"]
+        ubm = max(_rel_err(getattr(sg.ubm, f), getattr(sc.ubm, f))
+                  for f in ("weights", "means", "covars"))
+        iv = float(np.abs(stg["ivectors"] - stc["ivectors"]).max()
+                   / np.abs(stc["ivectors"]).max())
+        want = np.array([scc[k] for k in scc])
+        sdiff = float(np.abs(np.array([scg[k] for k in scc]) - want).max())
+        log(f"  {name}: EER card {eg * 100:.2f}% CPU {ec * 100:.2f}%; "
+            f"reported, card vs CPU end to end: UBM {ubm:.3e} relative, "
+            f"training i-vectors {iv:.3e} of their largest, scores "
+            f"{sdiff:.3e} of {np.abs(want).max():.3f}")
+        check.require(f"{name}: EER card {eg} != CPU {ec}", eg == ec)
+        check.require(f"{name}: EER {ec} >= 0.15 (PARITY.md:47)", ec < 0.15)
+
+    # each stage from the same inputs, on the CPU systems' models
+    flat = [f for us in train.values() for f in us]
+    pooled = np.concatenate(flat)
+    s1, st1 = systems["v1"]["cpu"][:2]
+    du = diag_ubm_stats_card_vs_cpu(st1["diag_gmm"], pooled)
+    fu = full_ubm_stats_card_vs_cpu(s1.ubm, pooled)
+    gs = gselect_stats_card_vs_cpu(s1.extractor, flat, s1.opts.num_gselect)
+    log("  v1 stages card vs CPU from the same inputs: "
+        + check_ubm_stats(check, "v1", du, fu, gs))
+    log("  v1 E/M-step: " + check_extractor_step(
+        check, "v1", extractor_step_card_vs_cpu(s1.extractor, *gs["stats"])))
+    s2 = systems["v2"]["cpu"][0]
+    g2, X2 = s2.stats(flat)
+    log("  v2 E/M-step: " + check_extractor_step(
+        check, "v2", extractor_step_card_vs_cpu(s2.extractor, g2.numpy(),
+                                                X2.numpy())))
+
+    # logistic regression on v1's training i-vectors, speaker labels
+    X = length_normalize(st1["ivectors"])
+    labels = np.repeat(np.arange(len(train)), 3)
+    lr = {k: LogisticRegression() for k in ("cpu", "card")}
+    loss = {k: lr[k].train(X, labels, device=d)
+            for k, d in (("cpu", "cpu"), ("card", "cuda"))}
+    lw = float(np.abs(lr["card"].weights - lr["cpu"].weights).max())
+    # separable points: Adam at lr 0.5 wanders along a flat valley floor,
+    # where f32 gradient noise picks the way, so the weights are reported
+    # and the (convex, L2) loss and the classes held
+    check("logistic regression loss card vs CPU",
+          abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"]), 1e-4)
+    check.require("logistic regression classes card != CPU", np.array_equal(
+        lr["card"].classify(X), lr["cpu"].classify(X)))
+
+    # VAD of sre10's features from the card and from the CPU
+    rng = np.random.RandomState(2)
+    vd = vad_card_vs_cpu([ladder_synth(
+        list(rng.randint(0, 30, 12)), np.linspace(300.0, 3400.0, 30), rng,
+        1.0, 70.0, 0.6, 0.0) for _ in range(4)])
+    check("VAD flips without a margin", vd["unjustified"], 0)
+    check.require(f"kernels launched in phase 25 (gather {tg.launches}, "
+                  f"qaffine {q.launches})", not (q.launches or tg.launches))
+    log(f"  logistic regression card vs CPU: loss {loss['card']:.6f} vs "
+        f"{loss['cpu']:.6f}, the same classes, weights apart by {lw:.3e} "
+        f"(reported); VAD over {vd['frames']} frames ({vd['voiced']} voiced) "
+        f"of the card's and the CPU's features: {vd['flips']} decisions "
+        f"differ (log-energy at least {vd['margin']:.3e} from the "
+        f"threshold); launches: gather {tg.launches}, qaffine {q.launches}; "
+        f"phase 25 took {time.perf_counter() - t0:.3f} s")
+    check.done("phase 25")
+
+
+def _peak(what: str) -> str:
+    import torch
+    gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    return f"{what} {gb:.2f} GiB"
+
+
+def _cosine_eer(e_iv: dict, t_iv: dict, trials) -> float:
+    from kaldi_tpu_torch.ivector.metrics import compute_eer
+    ek, tk = list(e_iv), list(t_iv)
+    E = np.stack([e_iv[k] for k in ek])
+    T = np.stack([t_iv[k] for k in tk])
+    c = (E / np.linalg.norm(E, axis=1, keepdims=True)) @ \
+        (T / np.linalg.norm(T, axis=1, keepdims=True)).T
+    ei, ti = {k: i for i, k in enumerate(ek)}, {k: i for i, k in enumerate(tk)}
+    s = {(e, t): c[ei[e], ti[t]] for e, t, _y in trials}
+    return compute_eer(*_trial_scores(s, trials))[0]
+
+
+def _sre_system_at_width(name: str, train, enroll, test, trials, card,
+                         **kw) -> dict:
+    """Train and score one sre10 system at SRE_WIDTH on the card, with
+    seconds and peak memory by stage. -> dict."""
+    import torch
+    from kaldi_tpu_torch.steps import sre
+    torch.cuda.reset_peak_memory_stats()
+    st: dict = {}
+    opts = sre.SrePipelineOpts(**SRE_WIDTH, use_vad=name == "v1")
+    t = time.perf_counter()
+    system = sre.train_sre_system(train, opts, device="cuda",
+                                  stage_stats=st, **kw)
+    train_s = time.perf_counter() - t
+    mem = [_peak("training")]
+    t = time.perf_counter()
+    eer, scores = sre.evaluate_sre(system, enroll, test, trials)
+    score_s = time.perf_counter() - t
+    t = time.perf_counter()
+    ivs = system.ivectors(list(enroll.values()) + list(test.values()))
+    iv_s = time.perf_counter() - t
+    mem.append(_peak("scoring"))
+    eer_cos = _cosine_eer(dict(zip(enroll, ivs[:len(enroll)])),
+                          dict(zip(test, ivs[len(enroll):])), trials)
+    ll = [s["loglike"] for s in st["ubm_iters"]]
+    log(f"  {name}: {system.ubm.num_gauss} gaussians, {opts.ivector_dim}-dim "
+        f"i-vectors, VAD {'on' if opts.use_vad else 'off'}; seconds: "
+        + (f"diag UBM {st['diag_ubm']:.3f}, full UBM "
+           f"{st['ubm'] - st['diag_ubm']:.3f} (per iteration "
+           + ", ".join(f"{s['secs']:.3f} = accumulation "
+                       f"{s['accumulate']:.3f} + update "
+                       f"{s['secs'] - s['accumulate']:.3f}"
+                       for s in st["ubm_iters"] if "secs" in s) + ")"
+           if name == "v1" else f"posterior UBM {st['ubm']:.3f}")
+        + f", extractor init and stats {st['stats']:.3f}, EM per iteration "
+        + ", ".join(f"{s:.3f}" for s in st["ivector_iters"])
+        + f", training i-vectors (stats again, after a second VAD pass "
+        f"when on, as in JAX) {st['train_ivectors']:.3f}, PLDA "
+        f"{st['plda']:.3f}, evaluation (i-vectors + {len(trials)} trials) "
+        f"{score_s:.3f} (of which {len(ivs)} i-vectors {iv_s:.3f}); whole "
+        f"training {train_s:.3f}; peak memory {', '.join(mem)} | {card}")
+    if ll:
+        log("  " + name + ": full UBM log-likelihood per frame by iteration "
+            + ", ".join(f"{v:.6f}" for v in ll))
+    log(f"  {name}: EER PLDA {eer * 100:.2f}%, cosine {eer_cos * 100:.2f}% "
+        f"on {sum(y for *_k, y in trials)} target and "
+        f"{sum(not y for *_k, y in trials)} non-target trials (reported)")
+    finite = all(np.isfinite(a).all() for a in (
+        system.ubm.weights, system.ubm.means, system.ubm.covars,
+        system.extractor.M, st["ivectors"], system.plda.transform,
+        system.plda.psi, ivs, list(scores.values())))
+    return dict(system=system, eer=eer, eer_cos=eer_cos, ll=ll,
+                finite=finite, stage=st, ivectors=st["ivectors"],
+                eval_ivectors=ivs)
+
+
+def _width_checks(check, name: str, res: dict, flat: list):
+    """(i) the stages recomputed for SRE_CHECK_UTTS utterances, card vs
+    CPU from the same inputs, each within its bound: for v1 the diag UBM's
+    and the full UBM's statistics and the gselect stats; then one E-step
+    and the M-step (over SRE_CHECK_GAUSS gaussians) from those stats;
+    (ii) the full UBM's log-likelihood per frame never falls by more than
+    1e-6 relative; (iii) every tensor finite."""
+    system = res["system"]
+    ext = system.extractor
+    utts = [system.voiced(f) for f in flat[:SRE_CHECK_UTTS]]
+    t = time.perf_counter()
+    if system.post_fn is None:
+        x = np.concatenate(utts)
+        gs = gselect_stats_card_vs_cpu(ext, utts, system.opts.num_gselect)
+        text = check_ubm_stats(
+            check, f"{name} (i)",
+            diag_ubm_stats_card_vs_cpu(res["stage"]["diag_gmm"], x),
+            full_ubm_stats_card_vs_cpu(system.ubm, x), gs) + "; "
+        stats = gs["stats"]
+    else:
+        g, X = system.stats(utts)
+        stats, text = (g.cpu().numpy(), X.cpu().numpy()), ""
+    I = ext.M.shape[0]
+    gauss = np.linspace(0, I - 1, min(SRE_CHECK_GAUSS, I)).astype(int)
+    es = extractor_step_card_vs_cpu(ext, *stats, gauss=gauss)
+    text += "E/M-step " + check_extractor_step(check, f"{name} (i)", es)
+    ll = res["ll"]
+    fall = max([(a - b) / abs(a) for a, b in zip(ll, ll[1:])], default=0.0)
+    check(f"{name} (ii): full UBM log-likelihood falls", fall, 1e-6)
+    check.require(f"{name} (iii): a tensor is not finite", res["finite"])
+    log(f"  {name} (i) card vs CPU for {len(utts)} utterances "
+        f"({sum(len(u) for u in utts)} frames), the M-step over "
+        f"{len(gauss)} gaussians: {text}; in {time.perf_counter() - t:.3f} "
+        f"s; (ii) largest fall of the UBM log-likelihood {fall:.3e}; (iii) "
+        f"finite {res['finite']}")
+
+
+def phase_sre_full(card: str, ladder: dict) -> dict:
+    """sre10 v1 and v2 at SRE_WIDTH on the card over `sre_corpus`, then
+    logistic regression over v1's training i-vectors at the reference's
+    options. Neither kernel may launch."""
+    import torch
+    from kaldi_tpu_torch.ivector.logistic_regression import (
+        LogisticRegression, LogisticRegressionConfig)
+    from kaldi_tpu_torch.ivector.plda import length_normalize
+    from kaldi_tpu_torch.nnet import quantized as q
+    from kaldi_tpu_torch.ops import table_gather as tg
+    from kaldi_tpu_torch.steps.lda_mllt import LdaMlltTrainOpts
+
+    q.launches = tg.launches = 0
+    t0 = time.perf_counter()
+    check = _Limits()
+    t = time.perf_counter()
+    corpus = sre_corpus(**SRE)
+    synth_s = time.perf_counter() - t
+    spks = list(corpus["train"])
+    waves = ([w for s in spks for w in corpus["train"][s]]
+             + list(corpus["enroll"].values()) + list(corpus["test"].values()))
+    t = time.perf_counter()
+    feats = sre_feats(waves, "cuda")
+    feat_s = time.perf_counter() - t
+    n_tr = len(spks) * SRE["train_per_spk"]
+    train = {s: feats[i * SRE["train_per_spk"]:(i + 1) * SRE["train_per_spk"]]
+             for i, s in enumerate(spks)}
+    enroll = dict(zip(corpus["enroll"], feats[n_tr:n_tr + len(spks)]))
+    test = dict(zip(corpus["test"], feats[n_tr + len(spks):]))
+    trials = [(e, t, e + "_t" == t) for e in enroll for t in test]
+    frames = sum(len(f) for f in feats[:n_tr])
+    log(f"  corpus: {len(spks)} speakers, {n_tr} training utterances "
+        f"({frames} frames, {frames / 100 / n_tr:.2f} s each on average), "
+        f"{len(enroll)} enrollment and {len(test)} test; synthesized in "
+        f"{synth_s:.3f} s, sre10 MFCC + deltas ({feats[0].shape[1]} dims) on "
+        f"the card in {feat_s:.3f} s")
+    flat = [f for s in spks for f in train[s]]
+    log("  cut from egs/sre10: speakers and hours (sre10 trains on "
+        "thousands of speakers; here 200 synthetic ones) and, for v2, the "
+        "DNN (phase 20's 166 pdfs against about 5,000 senones); not cut: "
+        "the 2048-gaussian UBM, the 600-dim i-vectors, the 60-dim features")
+
+    out = {}
+    # (a) v1: GMM-UBM with VAD
+    out["v1"] = _sre_system_at_width("v1", train, enroll, test, trials, card)
+    _width_checks(check, "v1", out["v1"], flat)
+
+    # (b) v2: phase 20's TDNN posteriors over the LDA+MLLT model's pdfs on
+    # the same utterances' ASR features (same frame shift and edges)
+    models = ladder["models"]
+    lda, nnet = models["lda"], models["nnet"]
+    lopts = LdaMlltTrainOpts(**LADDER_LDA)
+    t = time.perf_counter()
+    raw = sre_feats(waves, "cuda", raw=True)
+    posts = {}
+    for f, r in zip(feats, raw):
+        if len(r) != len(f):
+            raise AssertionError(f"ASR frames {len(r)} != SRE {len(f)}")
+        lp = nnet.am.log_posteriors(lda.transform_feats(r, lopts))
+        posts[id(f)] = torch.exp(lp.double()).cpu().numpy()
+    post_s = time.perf_counter() - t
+    P = nnet.am.num_pdfs
+    log(f"  v2 posteriors: phase 20's TDNN over {P} pdfs on the LDA+MLLT "
+        f"features of all {len(feats)} utterances in {post_s:.3f} s")
+    out["v2"] = _sre_system_at_width(
+        "v2", train, enroll, test, trials, card,
+        post_fn=lambda f: posts[id(f)], num_post_classes=P)
+    _width_checks(check, "v2", out["v2"], flat)
+    for name in ("v1", "v2"):
+        r = out[name]
+        log(f"  {name} beside PARITY.md:46-47's bars (reported, not held at "
+            f"this corpus): EER {r['eer'] * 100:.2f}% vs 15%; PLDA "
+            f"{r['eer'] * 100:.2f}% vs cosine {r['eer_cos'] * 100:.2f}% + 2")
+
+    # (c) logistic regression at the reference's options: speakers from
+    # (a)'s length-normalized training i-vectors, scored on the test ones
+    cfg = LogisticRegressionConfig()
+    Xtr = length_normalize(out["v1"]["ivectors"])
+    labels = np.repeat(np.arange(len(spks)), SRE["train_per_spk"])
+    Xte = length_normalize(out["v1"]["eval_ivectors"][len(spks):])
+    t = time.perf_counter()
+    lr = LogisticRegression()
+    loss = lr.train(Xtr, labels, cfg, device="cuda")
+    lr_s = time.perf_counter() - t
+    acc = float(np.mean(lr.classify(Xte) == np.arange(len(spks))))
+    acc_tr = float(np.mean(lr.classify(Xtr) == labels))
+    check.require(f"logistic regression: loss {loss} or weights not finite",
+                  np.isfinite(loss) and np.isfinite(lr.weights).all())
+    log(f"  (c) logistic regression at {cfg} over {len(Xtr)} v1 training "
+        f"i-vectors, {len(spks)} speakers: final loss {loss:.6f} (the zero "
+        f"model's log {len(spks)} = {np.log(len(spks)):.6f}), accuracy on "
+        f"the training i-vectors {acc_tr * 100:.2f}%, closed-set accuracy on "
+        f"the {len(Xte)} test i-vectors {acc * 100:.2f}%, in {lr_s:.3f} s "
+        f"| {card}")
+    check.require(f"kernels launched in phase 26 (gather {tg.launches}, "
+                  f"qaffine {q.launches})", not (q.launches or tg.launches))
+    log(f"  launches: gather {tg.launches}, qaffine {q.launches}; phase 26 "
+        f"took {time.perf_counter() - t0:.3f} s")
+    check.done("phase 26")
+    return dict(v1_eer=out["v1"]["eer"], v2_eer=out["v2"]["eer"],
+                gather_launches=tg.launches, qaffine_launches=q.launches,
+                lr_loss=loss, lr_accuracy=acc)
+
+
 def device_time(fn) -> tuple[float, int, dict]:
     """Run fn under torch.profiler. -> (device busy seconds: the sum of
     kernel, memcpy and memset durations, which do not overlap on one
@@ -4780,13 +5680,13 @@ def main() -> int:
 
     resolve_device("cuda")                # also turns TF32 off
     card = card_info()
-    log(f"[1/24] card: {card} | torch {torch.__version__} CUDA "
+    log(f"[1/26] card: {card} | torch {torch.__version__} CUDA "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
 
     t = time.perf_counter()
     libs = cuda_build.build()
-    log(f"[2/24] build: {len(libs)} kernels in {time.perf_counter() - t:.3f} "
+    log(f"[2/26] build: {len(libs)} kernels in {time.perf_counter() - t:.3f} "
         f"s (one nvcc each, in parallel)")
     for name, so in libs.items():
         with open(os.path.join(os.path.dirname(so), "nvcc.log")) as f:
@@ -4794,57 +5694,64 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]
         log(f"  {os.path.relpath(so, ROOT)}: {' | '.join(regs)}")
 
-    log("[3/24] table-gather kernel vs plain version")
+    log("[3/26] table-gather kernel vs plain version")
     k = phase_kernel(tg)
-    log("[4/24] qaffine kernel vs plain version")
+    log("[4/26] qaffine kernel vs plain version")
     qk = phase_qaffine(q)
-    log("[5/24] decoder on the card vs on the CPU")
+    log("[5/26] decoder on the card vs on the CPU")
     phase_decoder_parity()
-    log("[6/24] int8 decode on the card vs on the CPU")
+    log("[6/26] int8 decode on the card vs on the CPU")
     phase_int8_parity()
-    log("[7/24] full-width serving slice (bf16 TDNN)")
+    log("[7/26] full-width serving slice (bf16 TDNN)")
     sl = phase_slice(tg, card, profile="--profile" in sys.argv[1:])
-    log("[8/24] full-width int8 serving slice")
+    log("[8/26] full-width int8 serving slice")
     s8 = phase_int8_slice(q, tg, sl, card)
-    log("[9/24] streaming server, small: card vs CPU vs offline")
+    log("[9/26] streaming server, small: card vs CPU vs offline")
     phase_stream_small()
-    log("[10/24] streaming server, full width")
+    log("[10/26] streaming server, full width")
     st = phase_stream_full(tg, sl, card, profile="--profile" in sys.argv[1:])
-    log("[11/24] lattice path, small: card vs CPU, native vs numpy")
+    log("[11/26] lattice path, small: card vs CPU, native vs numpy")
     phase_lattice_small()
-    log("[12/24] training, small: card vs CPU")
+    log("[12/26] training, small: card vs CPU")
     phase_train_small()
-    log("[13/24] training, full width: the bench's AM with the port's "
+    log("[13/26] training, full width: the bench's AM with the port's "
         "train step")
     tr = phase_train_full(sl, card, profile="--profile" in sys.argv[1:])
-    log("[14/24] lattice path, full width (latgen at the bench's point)")
+    log("[14/26] lattice path, full width (latgen at the bench's point)")
     lt = phase_lattice_full(tg, sl, tr, card)
-    log("[15/24] online path, small: card vs CPU vs offline")
+    log("[15/26] online path, small: card vs CPU vs offline")
     phase_online_small()
-    log("[16/24] online path, full width (scripts/bench_streaming.py's "
+    log("[16/26] online path, full width (scripts/bench_streaming.py's "
         "configuration)")
     on = phase_online_full(tg, card, profile="--profile" in sys.argv[1:])
-    log("[17/24] GMM path, small: card vs CPU")
+    log("[17/26] GMM path, small: card vs CPU")
     phase_gmm_small()
-    log("[18/24] GMM path, full width: monophone training, the dense "
+    log("[18/26] GMM path, full width: monophone training, the dense "
         "decoder's serving lines")
     phase_gmm_full(tr, card, profile="--profile" in sys.argv[1:])
-    log("[19/24] triphone ladder, small: card vs CPU")
+    log("[19/26] triphone ladder, small: card vs CPU")
     phase_ladder_small()
-    log("[20/24] triphone ladder, full width: mono -> tri -> LDA+MLLT -> "
+    log("[20/26] triphone ladder, full width: mono -> tri -> LDA+MLLT -> "
         "TDNN, and SAT")
     ld = phase_ladder_full(card, profile="--profile" in sys.argv[1:])
-    log("[21/24] discriminative path, small: card vs CPU on shared "
+    log("[21/26] discriminative path, small: card vs CPU on shared "
         "lattices")
     phase_disc_small()
-    log("[22/24] discriminative path, full width: the rm-like pyramid with "
+    log("[22/26] discriminative path, full width: the rm-like pyramid with "
         "bMMI and fMMI, then bMMI and TDNN sMBR on the ladder's models")
     dk = phase_disc_full(card, ld, profile="--profile" in sys.argv[1:])
-    log("[23/24] nnet3 and nnet1 families, small: card vs CPU")
+    log("[23/26] nnet3 and nnet1 families, small: card vs CPU")
     phase_nnet_small()
-    log("[24/24] nnet3 and nnet1 families at the ladder's width: nnet3 "
+    log("[24/26] nnet3 and nnet1 families at the ladder's width: nnet3 "
         "TDNN and LSTM, the wide LSTM, the DBN")
     nn = phase_nnet_full(card, ld, profile="--profile" in sys.argv[1:])
+    log("[25/26] speaker recognition, small: sre10 v1 and v2 card vs CPU, "
+        "each stage within its bound, logistic regression, VAD")
+    phase_sre_small()
+    log("[26/26] speaker recognition at sre10's width (2048 gaussians, "
+        "600-dim i-vectors, 60-dim features): v1 and v2, then logistic "
+        "regression")
+    sr = phase_sre_full(card, ld)
 
     g_shape = GATHER_SHAPES[0]
     ms, plain_ms, library_ms, floor_ms = k["times"][g_shape]
@@ -4853,9 +5760,10 @@ def main() -> int:
         f"latgen path, {lt['adaptive_launches']} in the adaptive decode, "
         f"{on['launches']} on the fused online path, {ld['launches']} on "
         f"the triphone ladder's decodes, {dk['launches']} on the "
-        f"discriminative path's, {nn['launches']} on the nnet families'; "
-        f"qaffine "
-        f"{s8['launches']} on the int8 slice")
+        f"discriminative path's, {nn['launches']} on the nnet families', "
+        f"{sr['gather_launches']} on the speaker-recognition path's; "
+        f"qaffine {s8['launches']} on the int8 slice, "
+        f"{sr['qaffine_launches']} on the speaker-recognition path's")
     log(card)
     log(json.dumps({"kernels": [{
         "name": "batched_table_gather", "route": "cuda",
@@ -4884,7 +5792,8 @@ def main() -> int:
         "nnet_shapes": [{
             "shape": list(sh), "ms": t[0], "plain_ms": t[1],
             "library_ms": t[2], "bound_ms": gather_bound_ms(*sh)}
-            for sh, t in nn["gather_times"].items()]}, {
+            for sh, t in nn["gather_times"].items()],
+        "sre_launches": sr["gather_launches"]}, {
         "name": "qaffine", "route": "cuda",
         "source": "kaldi_tpu_torch/csrc/qaffine.cu",
         "replaces": "kaldi_tpu/nnet/quantized.py:46",
@@ -4896,7 +5805,8 @@ def main() -> int:
         "bound_ms": qk["bound_ms"], "bound_by": qk["bound_by"],
         "three_pass_bound_ms": qk["three_pass_bound_ms"],
         "fp32_bound_ms": qk["fp32_bound_ms"],
-        "library_ms": qk["library_ms"]}]}))
+        "library_ms": qk["library_ms"],
+        "sre_launches": sr["qaffine_launches"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

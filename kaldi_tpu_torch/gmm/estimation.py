@@ -8,7 +8,9 @@ numpy code, copied. The device part is `_aligned_posteriors`: for frames
 pdf, from one GEMM over all pdfs and a masked softmax, on the AM's device.
 JAX pads T to a power of two so that its jit compiles few shapes; torch
 compiles nothing, so the port does not pad (the padded frames have zero
-weight and change no statistic).
+weight and change no statistic). `AccumDiagGmm.accumulate_batch` runs the
+same posteriors for one GMM over chunks of frames on a device (the UBM
+at 2048 gaussians).
 """
 
 from __future__ import annotations
@@ -44,6 +46,30 @@ class AccumDiagGmm:
         self.occ += other.occ
         self.mean_acc += other.mean_acc
         self.var_acc += other.var_acc
+
+    def accumulate_batch(self, gmm: DiagGmm, x: torch.Tensor,
+                         chunk: int = 1 << 16):
+        """`accumulate` for f32 frames [T, D] on their device: per chunk
+        the f32 posteriors (`_aligned_posteriors` with every frame in the
+        one GMM) and the f32 sums posteriors, posteriors^T x and
+        posteriors^T x^2, as JAX sums them over all its frames; the chunks'
+        sums are added in f64 there and copied back once."""
+        dev = x.device
+        packed = torch.as_tensor(gmm.packed(), device=dev)
+        seg = torch.zeros(gmm.num_gauss, dtype=torch.int64, device=dev)
+        sums = torch.zeros((gmm.num_gauss, 1 + 2 * gmm.dim),
+                           dtype=torch.float64, device=dev)
+        for i in range(0, len(x), chunk):
+            xc = x[i:i + chunk]
+            post, _ll = _aligned_posteriors(
+                xc, torch.zeros(len(xc), dtype=torch.int64, device=dev),
+                torch.ones(len(xc), device=dev), packed, seg)
+            sums += torch.cat([post.sum(dim=0)[:, None], post.T @ xc,
+                               post.T @ (xc * xc)], dim=1).double()
+        sums = sums.cpu().numpy()
+        self.occ += sums[:, 0]
+        self.mean_acc += sums[:, 1:1 + gmm.dim]
+        self.var_acc += sums[:, 1 + gmm.dim:]
 
 
 def mle_diag_gmm_update(

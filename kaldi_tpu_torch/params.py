@@ -13,7 +13,10 @@ and from the `jax.tree_util.keystr` of the same leaf ("['layers'][0]['w']"),
 which keys checkpoints and NG-SGD's `param_filter` in the JAX package.
 
 The GMMs and the i-vector extractor are numpy objects in both packages;
-their converters copy the arrays into the port's classes. A monophone
+their converters copy the arrays into the port's classes, as do those of
+the speaker-recognition objects (`plda_from_jax`,
+`logistic_regression_from_jax`, and `sre_system_from_jax` for a whole
+system: UBM, extractor, PLDA and options). A monophone
 GMM-HMM (`mono_model_from_jax`) is copied pdf by pdf, with its transition
 log-probs; a triphone GMM-HMM (`tri_model_from_jax`) also carries its
 decision tree across (`event_map_from_jax`, rebuilt node for node into the
@@ -170,6 +173,39 @@ def ivector_extractor_from_jax(ext):
     prior_offset) -> the port's, with the same parameters."""
     return IvectorExtractor.from_arrays(ext.means, ext.inv_covars,
                                         ext.weights, ext.M, ext.prior_offset)
+
+
+def plda_from_jax(plda):
+    """A kaldi_tpu `Plda` (numpy mean, transform, psi) -> the port's."""
+    from kaldi_tpu_torch.ivector.plda import Plda
+    return Plda(mean=np.array(plda.mean, np.float64),
+                transform=np.array(plda.transform, np.float64),
+                psi=np.array(plda.psi, np.float64))
+
+
+def logistic_regression_from_jax(lr):
+    """A kaldi_tpu `LogisticRegression` (numpy weights [C, D+1]) -> the
+    port's."""
+    from kaldi_tpu_torch.ivector.logistic_regression import \
+        LogisticRegression
+    return LogisticRegression(None if lr.weights is None
+                              else np.array(lr.weights))
+
+
+def sre_system_from_jax(system, device="cuda"):
+    """A kaldi_tpu `SreSystem` -> the port's on `device`: its full UBM,
+    extractor and PLDA copied, its options rebuilt field for field (VAD
+    options included), its `post_fn` kept."""
+    import dataclasses
+    from kaldi_tpu_torch.ivector.vad import VadOpts
+    from kaldi_tpu_torch.steps.sre import SrePipelineOpts, SreSystem
+    fields = dataclasses.asdict(system.opts)
+    fields["vad"] = VadOpts(**fields["vad"])
+    return SreSystem(ubm=full_gmm_from_jax(system.ubm),
+                     extractor=ivector_extractor_from_jax(system.extractor),
+                     plda=plda_from_jax(system.plda),
+                     opts=SrePipelineOpts(**fields), post_fn=system.post_fn,
+                     device=device)
 
 
 def mono_model_from_jax(model, lang, device="cuda"):

@@ -6,8 +6,8 @@ gmm-est-fmmi alternates: odd iterations update the fMPE projection from
 the MMI direct differential with the model fixed, even iterations do EBW
 model updates on the fMPE-transformed features; denominator lattices
 fixed, acoustics rescored per iteration). The structure is JAX's: the fMPE
-posterior GMM (`steps/ubm.train_diag_ubm`), the offsets and the
-differential are host numpy as in JAX; the GMM log-likelihoods, the
+posterior GMM (`steps/ubm.train_diag_ubm` with `host_numpy`), the offsets
+and the differential are host numpy as in JAX; the GMM log-likelihoods, the
 numerator alignment, the denominator lattices and the statistics run on
 the AM's device as in `steps/mmi.py`.
 """
@@ -58,7 +58,8 @@ def train_fmmi(model, den_graph, utts, opts: FmmiTrainOpts = FmmiTrainOpts(),
         pooled = np.concatenate([f for (_u, f, _w) in utts])
         return train_diag_ubm(pooled.astype(np.float64),
                               DiagUbmTrainOpts(num_gauss=opts.fmpe_gauss,
-                                               num_iters=2))
+                                               num_iters=2),
+                              host_numpy=True)
 
     fmpe = Fmpe(clock("ubm", ubm), D, opts.fmpe)
     _dec, denlats = clock("denlats", lambda: make_denlats(

@@ -8,9 +8,13 @@ forward paths) and the triphone ladder (the affine transform, fMLLR and
 MLLT statistics, a train_deltas EM iteration) and the discriminative path
 (one MMI and one sMBR iteration's statistics, an nnet sMBR step) and the
 nnet3 / nnet1 families (forwards of both nnet3 executors, NG-SGD steps,
-train_frmshuff, train_lstm_streams, a CD-1 update, an nnet3 sMBR step) on
-a CUDA device. Each test skips without a card. This file imports no jax,
-so it runs on a machine that has only torch:
+train_frmshuff, train_lstm_streams, a CD-1 update, an nnet3 sMBR step)
+and the speaker-recognition path (the diag and the full UBM's and the
+gselect statistics within their bounds, an extractor E-step and M-step
+for v1 and v2, sre10 v1 and v2 end to end with equal EERs, logistic
+regression) on a CUDA device.
+Each test skips without a card. This file imports no jax, so it runs on
+a machine that has only torch:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
@@ -634,3 +638,69 @@ def test_nnet3_smbr_step_card_equals_cpu(card):
     import chip_smoke as cs
     st = cs.nnet3_smbr_step_card_vs_cpu(cs.disc_small_setup())
     assert st["err"] <= 1e-5 and st["moved"] > 0, st
+
+
+def _sre_small():
+    import chip_smoke as cs
+    data, cm = cs.sre_small_corpus(np.random.RandomState(0))
+    return cs.sre_small_split(data), cm
+
+
+def test_sre_statistics_card_equal_cpu(card):
+    """On CPU-trained sre10 v1 and v2 systems of tests/test_sre_pipeline.py's
+    corpus: the diag and the full UBM's statistics, the gselect / min-post
+    stats and one extractor E-step and M-step from the same stats, card vs
+    CPU, each within its bound (chip_smoke's phase 25 helpers)."""
+    import chip_smoke as cs
+    from kaldi_tpu_torch.steps import sre
+    (train, _e, _t, _tr), cm = _sre_small()
+    st: dict = {}
+    s = sre.train_sre_system(train, sre.SrePipelineOpts(
+        **cs.SRE_SMALL["v1"]), device="cpu", stage_stats=st)
+    flat = [f for us in train.values() for f in us]
+    pooled = np.concatenate(flat)
+    check = cs._Limits()
+    gs = cs.gselect_stats_card_vs_cpu(s.extractor, flat, s.opts.num_gselect)
+    cs.check_ubm_stats(check, "v1", cs.diag_ubm_stats_card_vs_cpu(
+        st["diag_gmm"], pooled), cs.full_ubm_stats_card_vs_cpu(
+        s.ubm, pooled), gs)
+    cs.check_extractor_step(check, "v1", cs.extractor_step_card_vs_cpu(
+        s.extractor, *gs["stats"]))
+    s2 = sre.train_sre_system(train, sre.SrePipelineOpts(
+        **cs.SRE_SMALL["v2"]), post_fn=cs.sre_oracle_post_fn(cm),
+        num_post_classes=4, device="cpu")
+    g2, X2 = s2.stats(flat)
+    cs.check_extractor_step(check, "v2", cs.extractor_step_card_vs_cpu(
+        s2.extractor, g2.numpy(), X2.numpy()))
+    check.done("card-only SRE statistics")
+
+
+@pytest.mark.parametrize("name", ["v1", "v2"])
+def test_sre_pipeline_card_equals_cpu(card, name):
+    """train_sre_system + evaluate_sre on the card and on the CPU: the
+    same EER, under PARITY.md:47's 15%."""
+    import chip_smoke as cs
+    from kaldi_tpu_torch.steps import sre
+    (train, enroll, test, trials), cm = _sre_small()
+    kw = ({} if name == "v1" else
+          dict(post_fn=cs.sre_oracle_post_fn(cm), num_post_classes=4))
+    eer = {d: sre.evaluate_sre(sre.train_sre_system(
+        train, sre.SrePipelineOpts(**cs.SRE_SMALL[name]), device=d, **kw),
+        enroll, test, trials)[0] for d in ("cpu", "cuda")}
+    assert eer["cuda"] == eer["cpu"] < 0.15, eer
+
+
+def test_logistic_regression_card_equals_cpu(card):
+    """Logistic regression on 5 overlapping classes: the loss within 1e-5
+    relative and the same classes (the weights are not held: Adam follows
+    f32 noise where the loss is flat)."""
+    from kaldi_tpu_torch.ivector.logistic_regression import \
+        LogisticRegression
+    rng = np.random.RandomState(0)
+    y = rng.randint(0, 5, 200)
+    X = rng.randn(5, 12)[y] + rng.randn(200, 12)
+    lr = {d: LogisticRegression() for d in ("cpu", "cuda")}
+    loss = {d: lr[d].train(X, y, device=d) for d in lr}
+    assert abs(loss["cuda"] - loss["cpu"]) <= 1e-5 * abs(loss["cpu"])
+    np.testing.assert_array_equal(lr["cuda"].classify(X),
+                                  lr["cpu"].classify(X))

@@ -15,7 +15,18 @@ are given is, as a CPU run shows. The neural families' `Nnet3`, `Nnet1`,
 `load_nnet1`, `LstmProjected` and `Rbm` default to "cuda" too; their
 trainers (`train_nnet3`, `train_tdnn3`, `train_lstm3`, `train_frmshuff`,
 `train_lstm_streams`) take no device and run where their model or GMM
-is. `FusedStreamingServer`,
+is. The speaker-recognition path's `train_diag_ubm` (unless asked for
+JAX's host code by `host_numpy`), `train_full_ubm`,
+`full_ubm_from_posteriors`, `train_sre_system`, `SreSystem`,
+`sre_system_from_jax`, `LogisticRegression.train`,
+`train_ivector_extractor`, `mle_full_gmm_update`, `floor_eigenvalues`,
+the full GMM's batch path (`FullGmm.device_pack` / `loglikes_batch` /
+`posteriors_batch` / `loglike_batch`, `AccumFullGmm.accumulate_batch` /
+`accumulate_posteriors_batch`) and the extractor's
+(`IvectorExtractor.on_device` / `batch_stats` / `extract_batch`,
+`IvectorStats`) default to "cuda" too; `evaluate_sre` runs where its
+system is, `IvectorStats.accumulate` / `update` where their statistics
+are. `FusedStreamingServer`,
 `FusedOnlineDecoder`, `OnlineDecoder` and `SingleUtteranceNnet2Decoder`
 take no device: they run where their decoder runs; nor does
 `make_train_step`'s step, which runs where its tensors are. Inference
@@ -72,6 +83,19 @@ from kaldi_tpu_torch.nnet3.configs import make_lstm_config
 from kaldi_tpu_torch.nnet3.network import Nnet3
 from kaldi_tpu_torch.nnet3.training import Nnet3TrainOpts, train_nnet3
 from kaldi_tpu_torch.steps.nnet3_train import train_lstm3, train_tdnn3
+from kaldi_tpu_torch.gmm.full_gmm import (AccumFullGmm, FullGmm,
+                                          floor_eigenvalues,
+                                          mle_full_gmm_update)
+from kaldi_tpu_torch.ivector.extractor import (IvectorExtractor,
+                                               IvectorStats,
+                                               train_ivector_extractor)
+from kaldi_tpu_torch.ivector.logistic_regression import LogisticRegression
+from kaldi_tpu_torch.params import sre_system_from_jax
+from kaldi_tpu_torch.steps.sre import (SrePipelineOpts,
+                                       SreSystem, full_ubm_from_posteriors,
+                                       train_sre_system)
+from kaldi_tpu_torch.steps.ubm import (DiagUbmTrainOpts, train_diag_ubm,
+                                       train_full_ubm)
 
 ENTRY_POINTS = {"Recognizer": Recognizer.__init__,
                 "CsrBeamDecoder": CsrBeamDecoder.__init__,
@@ -96,7 +120,29 @@ ENTRY_POINTS = {"Recognizer": Recognizer.__init__,
                 "Nnet1.from_proto": Nnet1.from_proto,
                 "load_nnet1": load_nnet1,
                 "LstmProjected": LstmProjected.__init__,
-                "Rbm": Rbm.__init__}
+                "Rbm": Rbm.__init__,
+                "train_full_ubm": train_full_ubm,
+                "full_ubm_from_posteriors": full_ubm_from_posteriors,
+                "train_sre_system": train_sre_system,
+                "sre_system_from_jax": sre_system_from_jax,
+                "LogisticRegression.train": LogisticRegression.train,
+                "SreSystem": SreSystem.__init__,
+                "FullGmm.device_pack": FullGmm.device_pack,
+                "FullGmm.loglikes_batch": FullGmm.loglikes_batch,
+                "FullGmm.posteriors_batch": FullGmm.posteriors_batch,
+                "FullGmm.loglike_batch": FullGmm.loglike_batch,
+                "AccumFullGmm.accumulate_batch": AccumFullGmm.accumulate_batch,
+                "AccumFullGmm.accumulate_posteriors_batch":
+                    AccumFullGmm.accumulate_posteriors_batch,
+                "floor_eigenvalues": floor_eigenvalues,
+                "IvectorExtractor.on_device": IvectorExtractor.on_device,
+                "IvectorExtractor.batch_stats": IvectorExtractor.batch_stats,
+                "IvectorExtractor.extract_batch":
+                    IvectorExtractor.extract_batch,
+                "IvectorStats": IvectorStats.__init__,
+                "train_ivector_extractor": train_ivector_extractor,
+                "train_diag_ubm": train_diag_ubm,
+                "mle_full_gmm_update": mle_full_gmm_update}
 LADDER_STEPS = [build_triphone_tree, train_deltas, train_lda_mllt, train_sat,
                 decode_fmllr, align_with_gmm, train_tdnn]
 DISCRIMINATIVE_STEPS = [make_denlats, train_discriminative, train_fmmi,
@@ -136,6 +182,27 @@ def _nnet1_file() -> str:
     path = os.path.join(tempfile.mkdtemp(), "n.npz")
     save_nnet1(path, net, net.init())
     return path
+
+
+def _full_gmm():
+    return FullGmm(np.ones(2) / 2, np.zeros((2, 3)), np.stack([np.eye(3)] * 2))
+
+
+def _full_acc():
+    acc = AccumFullGmm(2, 3)
+    acc.accumulate_from_posteriors(np.random.RandomState(0).randn(40, 3),
+                                   np.full((40, 2), 0.5))
+    return acc
+
+
+def _jax_like_sre_system():
+    """An object shaped as a kaldi_tpu SreSystem (numpy fields)."""
+    import types
+    g = _full_gmm()
+    return types.SimpleNamespace(
+        ubm=g, extractor=IvectorExtractor(g, 2), plda=types.SimpleNamespace(
+            mean=np.zeros(2), transform=np.eye(2), psi=np.ones(2)),
+        opts=SrePipelineOpts(), post_fn=None)
 
 
 def _lang():
@@ -204,7 +271,52 @@ def test_default_device_raises_without_a_card(name):
              "Nnet1.from_proto": lambda: Nnet1.from_proto(PROTO),
              "load_nnet1": lambda: load_nnet1(_nnet1_file()),
              "LstmProjected": lambda: LstmProjected(LstmConfig(4, 4, 2), 2),
-             "Rbm": lambda: Rbm(RbmConfig(4, 3))}[name]
+             "Rbm": lambda: Rbm(RbmConfig(4, 3)),
+             "train_full_ubm": lambda: train_full_ubm(
+                 DiagGmm.from_stats(np.zeros(3), np.ones(3)),
+                 np.zeros((4, 3))),
+             "full_ubm_from_posteriors": lambda: full_ubm_from_posteriors(
+                 [np.zeros((4, 3))], [np.ones((4, 1))], 1),
+             "train_sre_system": lambda: train_sre_system(
+                 {"s": [np.random.RandomState(0).randn(9, 3)]},
+                 SrePipelineOpts(num_gauss=1, ivector_dim=2, use_vad=False)),
+             "sre_system_from_jax": lambda: sre_system_from_jax(
+                 _jax_like_sre_system()),
+             "LogisticRegression.train": lambda: LogisticRegression().train(
+                 np.zeros((2, 3)), np.array([0, 1])),
+             "SreSystem": lambda: SreSystem(
+                 _full_gmm(), IvectorExtractor(_full_gmm(), 2), None,
+                 SrePipelineOpts()),
+             "FullGmm.device_pack": lambda: _full_gmm().device_pack(),
+             "FullGmm.loglikes_batch": lambda: _full_gmm().loglikes_batch(
+                 np.zeros((4, 3))),
+             "FullGmm.posteriors_batch": lambda: _full_gmm().posteriors_batch(
+                 np.zeros((4, 3))),
+             "FullGmm.loglike_batch": lambda: _full_gmm().loglike_batch(
+                 np.zeros((4, 3))),
+             "AccumFullGmm.accumulate_batch": lambda: AccumFullGmm(
+                 2, 3).accumulate_batch(_full_gmm(), np.zeros((4, 3))),
+             "AccumFullGmm.accumulate_posteriors_batch": lambda: AccumFullGmm(
+                 2, 3).accumulate_posteriors_batch([np.zeros((4, 3))],
+                                                   [np.ones((4, 2))]),
+             "floor_eigenvalues": lambda: floor_eigenvalues(
+                 np.stack([np.eye(3)]), 1e-3),
+             "IvectorExtractor.on_device": lambda: IvectorExtractor(
+                 _full_gmm(), 2).on_device(),
+             "IvectorExtractor.batch_stats": lambda: IvectorExtractor(
+                 _full_gmm(), 2).batch_stats([np.zeros((4, 3))]),
+             "IvectorExtractor.extract_batch": lambda: IvectorExtractor(
+                 _full_gmm(), 2).extract_batch([(np.ones(2),
+                                                 np.zeros((2, 3)))]),
+             "IvectorStats": lambda: IvectorStats(IvectorExtractor(
+                 _full_gmm(), 2)),
+             "train_ivector_extractor": lambda: train_ivector_extractor(
+                 _full_gmm(), [np.zeros((4, 3))], 2, num_iters=1),
+             "train_diag_ubm": lambda: train_diag_ubm(
+                 np.random.RandomState(0).randn(9, 3), DiagUbmTrainOpts(
+                     num_gauss=2, num_iters=1)),
+             "mle_full_gmm_update": lambda: mle_full_gmm_update(
+                 _full_gmm(), _full_acc())}[name]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build()
 

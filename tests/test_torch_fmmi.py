@@ -51,7 +51,8 @@ def ubms(system):
     return (jubm.train_diag_ubm(x, jubm.DiagUbmTrainOpts(num_gauss=8,
                                                          num_iters=2)),
             tubm.train_diag_ubm(x, tubm.DiagUbmTrainOpts(num_gauss=8,
-                                                         num_iters=2)))
+                                                         num_iters=2),
+                                host_numpy=True))
 
 
 def test_train_diag_ubm_equals_jax(ubms):

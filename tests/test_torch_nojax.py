@@ -13,7 +13,8 @@ with i-vectors), the dense decoder on the yesno HCLG, the port's
 port's native graph ops, a decode) and two bMMI and two fMMI iterations
 from that triphone model run on the CPU; then two NG-SGD steps of a tiny
 config-built nnet3 LSTM and one `train_frmshuff` pass of a tiny nnet1
-net. (kaldi_tpu/decoder/__init__.py imports the
+net; then a tiny SRE v1 and v2 system trained and scored, and a
+logistic regression. (kaldi_tpu/decoder/__init__.py imports the
 jax decoders, so reaching into kaldi_tpu.decoder from the port would fail
 here.)
 """
@@ -90,7 +91,12 @@ for n in ("kaldi_tpu_torch.cuda_build", "kaldi_tpu_torch.nnet.quantized",
           "kaldi_tpu_torch.nnet3.training", "kaldi_tpu_torch.steps.nnet3_train",
           "kaldi_tpu_torch.nnet1.nnet", "kaldi_tpu_torch.nnet1.train",
           "kaldi_tpu_torch.nnet1.lstm", "kaldi_tpu_torch.nnet1.rbm",
-          "kaldi_tpu_torch.nnet1.conv", "kaldi_tpu_torch.nnet1.kl_hmm"):
+          "kaldi_tpu_torch.nnet1.conv", "kaldi_tpu_torch.nnet1.kl_hmm",
+          "kaldi_tpu_torch.ivector.vad", "kaldi_tpu_torch.ivector.metrics",
+          "kaldi_tpu_torch.ivector.plda",
+          "kaldi_tpu_torch.ivector.logistic_regression",
+          "kaldi_tpu_torch.steps.sre", "kaldi_tpu_torch.steps.ubm",
+          "kaldi_tpu_torch.gmm.full_gmm", "kaldi_tpu_torch.ivector.extractor"):
     assert n in names, n
 import chip_smoke
 from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder, CsrBeamOpts
@@ -250,6 +256,22 @@ _p1, hist1 = train_frmshuff(net1, net1.init(torch.Generator().manual_seed(0)),
                             .astype(np.float32), np.arange(20) % 3,
                             minibatch=8)
 assert len(hist1) == 1 and np.isfinite(hist1[0][0]), hist1
+from kaldi_tpu_torch.ivector.logistic_regression import LogisticRegression
+from kaldi_tpu_torch.steps.sre import (SrePipelineOpts, evaluate_sre,
+                                       train_sre_system)
+rng = np.random.RandomState(4)
+spk = {f"s{k}": [rng.randn(60, 5) + k for _ in range(3)] for k in range(4)}
+sre_trials = [(a, b + "t", a == b) for a in spk for b in spk]
+for kw in ({}, dict(post_fn=chip_smoke.sre_oracle_post_fn(
+        np.array([[0.0] * 5, [3.0] * 5])), num_post_classes=2)):
+    sre = train_sre_system({k: v[:2] for k, v in spk.items()},
+                           SrePipelineOpts(num_gauss=4, ivector_dim=3,
+                                           use_vad=False), device="cpu", **kw)
+    eer, sc = evaluate_sre(sre, {k: v[2] for k, v in spk.items()},
+                           {k + "t": v[2] for k, v in spk.items()}, sre_trials)
+    assert len(sc) == 16 and 0.0 <= eer <= 1.0, (eer, sc)
+lr = LogisticRegression()
+assert lr.train(rng.randn(20, 3), np.arange(20) % 2, device="cpu") < np.log(2)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
        or m.startswith("kaldi_tpu.")]
 assert not bad, bad

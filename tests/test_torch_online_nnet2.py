@@ -274,7 +274,8 @@ def test_diag_and_full_gmm_copies_equal_jax():
     ta, ja = tfull.AccumFullGmm(6, 24), jfull.AccumFullGmm(6, 24)
     ta.accumulate(tf, x)
     ja.accumulate(jf, x)
-    up_t = tfull.mle_full_gmm_update(tf, ta, min_gaussian_occupancy=1.0)
+    up_t = tfull.mle_full_gmm_update(tf, ta, min_gaussian_occupancy=1.0,
+                                     device="cpu")
     up_j = jfull.mle_full_gmm_update(jf, ja, min_gaussian_occupancy=1.0)
     np.testing.assert_allclose(up_t.covars, up_j.covars, rtol=1e-9)
     assert isinstance(tdiag.DiagGmm.from_stats(x.mean(0), x.var(0)),
@@ -294,17 +295,19 @@ def test_ivector_extractor_copy_equals_jax(su):
     np.testing.assert_array_equal(g, jx.utterance_stats(x, post)[0])
     for a, b in zip(tx.extract(g, X), jx.extract(g, X)):
         np.testing.assert_allclose(a, b, rtol=1e-12)
-    ts, js = text.IvectorStats(tx), jext.IvectorStats(jx)
+    ts, js = text.IvectorStats(tx, "cpu"), jext.IvectorStats(jx)
     ts.accumulate(tx, g, X)
     js.accumulate(jx, g, X)
     np.testing.assert_allclose(ts.B, js.B, rtol=1e-12)
     utts = [_frames(s, 40) for s in (20, 21, 22)]
-    tt = text.train_ivector_extractor(tdiag.DiagGmm(jx.weights, jx.means,
-                                                    1.0 / np.einsum(
-                                                        "idd->id",
-                                                        jx.inv_covars)),
-                                      utts, 3, num_iters=2, seed=2,
-                                      num_gselect=4)
+    tubm = tdiag.DiagGmm(jx.weights, jx.means,
+                         1.0 / np.einsum("idd->id", jx.inv_covars))
+    # the host's gselect posteriors, as JAX's loop takes them (the batch
+    # path's own come from f32 GEMM loglikes: tests/test_torch_ivector.py)
+    host = text.IvectorExtractor(tubm, 3, seed=2)
+    tt = text.train_ivector_extractor(
+        tubm, utts, 3, num_iters=2, seed=2, num_gselect=4, device="cpu",
+        posts=[host.frame_posteriors(f, 4) for f in utts])
     jt = jext.train_ivector_extractor(jdiag.DiagGmm(jx.weights, jx.means,
                                                     1.0 / np.einsum(
                                                         "idd->id",
