@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's serving, training, GMM-HMM, discriminative
-training, nnet3 / nnet1 and speaker-recognition paths once on one CUDA
-card and check them.
+training, nnet3 / nnet1, speaker-recognition, adaptation and SGMM2 paths
+once on one CUDA card and check them.
 
     python3 chip_smoke.py [--profile]
 
@@ -108,9 +108,9 @@ Phases (any failure raises and the script exits non-zero):
      splice and LDA from card and CPU statistics (1e-5); the MLLT and
      fMLLR statistics (per speaker) from the card's and the CPU's
      posteriors on the same alignments, each within the bound that the
-     per-gaussian loglikes' difference sets (posteriors move by at most
-     gamma (1 - gamma) S e^S, S that difference's spread within the pdf,
-     plus f32 rounding), the loglikes within 1e-5 of their GEMM terms;
+     per-gaussian loglikes' difference sets (each posterior by the exact
+     softmax response to that difference, plus f32 rounding), the
+     loglikes within 1e-5 of their GEMM terms;
      MLLT and fMLLR matrices from each device's statistics reported (host
      f64 solves); train_lda_mllt on the card (WER 0);
      apply_affine_transform (1e-5), train_sat on the card and
@@ -211,7 +211,47 @@ Phases (any failure raises and the script exits non-zero):
      log-likelihood never falling by more than 1e-6 relative, (iii) every
      tensor finite; (c) logistic regression over (a)'s training i-vectors
      at the reference's options (final loss and closed-set accuracy
-     reported); neither kernel may launch.
+     reported); neither kernel may launch;
+ 27. adaptation and SGMM2, small, card vs CPU, every ratio to its bound
+     logged: tests/test_sgmm.py's sgmm_setup (4 gaussians, 3 states split
+     to 6 substates, a speaker vector): `loglikes_matrix` (f64 rounding of
+     its terms), the accumulation's gamma, y, Y, Q, S_centered and total
+     loglike (the exact softmax response to the measured loglike
+     difference times each term, plus f64 GEMM rounding; gselect compared
+     as sets, flips counted), each update flag of vMwSc by its backward
+     error (v's and M's solves, Sigma's inverse) or its terms (w, c), the
+     EBW v, w and M quadratic solves by their backward error against the
+     floored Q, SGMM fMLLR (statistics 1e-9 of their terms, one gradient
+     1e-9, the line search by its auxiliary), gpost, the pre-transform,
+     the fMLLR basis and state distances; tests/test_adaptation_extras.py's
+     inputs through MLLR, the regression tree (statistics within the
+     posteriors' bound), basis fMLLR (one gradient 1e-9, the ascent by its
+     auxiliary), LVTLN (solves by backward error, the same class) and HLDA;
+     tests/test_fmllr_raw.py's through raw fMLLR (one Adam step 1e-5, the
+     150-step run by its objective 1e-3); then test_sgmm.py's two yesno SGMM
+     runs on each device, held to PARITY.md:36 (RandomState 13) and :37
+     (21, bMMI); neither kernel may launch;
+ 28. adaptation and SGMM2 on phase 20's models at the ladder's width,
+     each decode through make_hclg_flat + CsrBeamDecoder: (a) the LDA+MLLT
+     model adapted per test speaker by global fMLLR, raw fMLLR (13-dim MFCC
+     spliced +-3, the objective's quadratic and log-det shares and the
+     square LDA's rejected rows' variance before and after; its
+     accumulators saved to chiprun_out/raw_fmllr_witness.pkl for
+     tests/test_torch_raw_witness.py), basis fMLLR (a 100-element basis
+     from the 200 training utterances, transforms per test utterance),
+     regression-tree fMLLR and MLLR, WER and seconds each; (b) LVTLN on the
+     tri model (13 classes, warps 0.88-1.12, features through the mel
+     banks' VTLN warp), the selected warp per speaker against its true
+     warp, WER with and without; (c) HLDA 91 -> 30 dims with tri's pdfs as
+     classes; (d) SGMM2 at egs/rm's sgmm2_4a widths (400 gaussians, phase
+     dim 31, gselect 15, 3 substates per pdf; 8 iterations, speaker
+     subspace off) trained from the LDA+MLLT model over the 48,981
+     training frames, bMMI over its unigram HCLG, SGMM fMLLR per test
+     speaker: seconds per stage and iteration, loglike per iteration, the
+     MMI objectives, peak memory and WERs; the ML iteration whose update
+     lowered the loglike most saved to chiprun_out/sgmm_witness.pkl for
+     tests/test_torch_sgmm_witness.py; qaffine may not launch; the gather
+     kernel bit-exact and timed at these decodes' shapes.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error against its plain version, times and bound; the last line
@@ -435,8 +475,9 @@ def ladder_corpus(seed: int, n_words: int, speakers: int,
                   coart: float, n_phones: int = 30,
                   words_per_utt=(4, 8)) -> dict:
     """tests/ladder_corpus.py `build_corpus(RandomState(seed), ...)` with
-    `ladder_vocab`: -> dict(lex_text, words, train, test), the lists of
-    (utt_id, wave, words, spk)."""
+    `ladder_vocab`: -> dict(lex_text, words, train, test, warps, tilts),
+    the lists of (utt_id, wave, words, spk) and each speaker's frequency
+    warp and amplitude tilt."""
     rng = np.random.RandomState(seed)
     lex_text, words = ladder_vocab(rng, n_words, n_phones)
     lexicon = {}
@@ -463,7 +504,8 @@ def ladder_corpus(seed: int, n_words: int, speakers: int,
     for spk in warps:
         train.extend(gen(spk, train_per_spk, "tr"))
         test.extend(gen(spk, test_per_spk, "te"))
-    return dict(lex_text=lex_text, words=words, train=train, test=test)
+    return dict(lex_text=lex_text, words=words, train=train, test=test,
+                warps=warps, tilts=tilts)
 
 
 def rm_unigram_arpa() -> str:
@@ -474,14 +516,16 @@ def rm_unigram_arpa() -> str:
             "\n\\end\\\n" % (len(vocab) + 2, "\n".join(lines)))
 
 
-def _mfcc(waves, device):
+def _mfcc(waves, device, vtln_warp: float = 1.0):
     """13-dim MFCC of 8 kHz waves ([S] or [B, S]) on `device`, a tensor
-    there (the recipes' options: no dither)."""
+    there (the recipes' options: no dither), the mel banks warped by
+    vtln_warp."""
     import torch
     from kaldi_tpu_torch.ops.features import MfccOpts, mfcc
     from kaldi_tpu_torch.ops.window import FrameOpts
     fo = MfccOpts(frame_opts=FrameOpts(samp_freq=GMM_SR, dither=0.0))
-    return mfcc(torch.as_tensor(waves, device=device), fo)
+    return mfcc(torch.as_tensor(waves, device=device), fo,
+                vtln_warp=vtln_warp)
 
 
 def mfcc_deltas(wave, device) -> np.ndarray:
@@ -2783,13 +2827,11 @@ def posterior_bound(am_cpu, am_card, feats, pdfs) -> dict:
     their difference.
 
     With delta_tm the card's loglike of gaussian m at frame t less the
-    CPU's and S_t its spread (max - min) over the aligned pdf's gaussians,
-    the exact softmax moves each posterior by at most
-    gamma (1 - gamma) S_t e^S_t (gamma the CPU's): largest where the pdf's
-    gaussians nearly tie, 0 for a pdf of one gaussian. Each side's f32
-    softmax adds at most (|l - max l| + n + 3) eps of gamma (the
-    subtraction, exp to 2 ulp, a sum of n terms, the division); 2^-126
-    covers denormals. -> {"bound" [T, G], "bound_mllt" (the same, plus the
+    CPU's, the exact softmax moves each posterior gamma (the CPU's) to
+    gamma e^delta_tm / sum_m' gamma_m' e^delta_tm' (`softmax_shift_bound`):
+    0 for a pdf of one gaussian. Each side's f32 softmax adds at most
+    (|l - max l| + n + 3) eps of gamma (the subtraction, exp to 2 ulp, a
+    sum of n terms, the division); 2^-126 covers denormals. -> {"bound" [T, G], "bound_mllt" (the same, plus the
     whole term of a gaussian whose occupancy straddles MlltStats'
     1e-8 cut), "card", "cpu" [T, G], "ll" (the loglikes' largest
     difference over their GEMM terms' magnitude), "spread" (max S_t)}."""
@@ -2821,21 +2863,34 @@ def posterior_bound(am_cpu, am_card, feats, pdfs) -> dict:
                                initial=0.0))}
 
 
-def softmax_shift_bound(comp_a, comp_b, post_a, mask) -> tuple:
+def softmax_shift_bound(comp_a, comp_b, post_a, mask, eps=None) -> tuple:
     """`posterior_bound` on arrays: component loglikes [N, G] of one side
     (a) and the other (b), a's posteriors within each row's masked
-    gaussians, the mask [N, G]. -> (bound [N, G] on |post_b - post_a|,
-    the largest spread S_n)."""
+    gaussians, the mask [N, G], each side's unit roundoff eps (f32 by
+    default). -> (bound [N, G] on |post_b - post_a|, the largest spread
+    S_n).
+
+    The softmax's exact response to the loglikes' difference delta moves a
+    posterior p_i to p_i e^delta_i / sum_j p_j e^delta_j, so by
+    p_i |e^delta_i / sum_j p_j e^delta_j - 1|, evaluated in f64 (delta
+    taken less its row's largest, which cancels); each side's f32 softmax
+    adds at most (|l - max l| + n + 3) eps of p, and 2^-126 covers
+    denormals. (The first-order g (1 - g) S e^S majorises the response but
+    lets through a change of the statistics' own terms when S is large.)"""
     delta = comp_b - comp_a
-    spread = (np.where(mask, delta, -np.inf).max(axis=1)
-              - np.where(mask, delta, np.inf).min(axis=1))[:, None]
+    dmax = np.where(mask, delta, -np.inf).max(axis=1, keepdims=True)
+    spread = dmax - np.where(mask, delta, np.inf).min(axis=1, keepdims=True)
     spread = np.where(np.isfinite(spread), spread, 0.0)
+    g = post_a
+    e = np.where(mask, np.exp(np.where(mask, delta - np.where(
+        np.isfinite(dmax), dmax, 0.0), 0.0)), 0.0)
+    z = np.maximum((g * e).sum(axis=1, keepdims=True), 1e-300)
     la = np.where(mask, comp_a, -np.inf)
     dist = np.where(mask, la.max(axis=1, keepdims=True) - la, 0.0)
-    g = post_a
     n = mask.sum(axis=1, keepdims=True)
-    bound = np.where(mask, g * (1.0 - g) * spread * np.exp(spread)
-                     + 2.0 * (dist + n + 3) * F32_EPS * g + 2.0 ** -126, 0.0)
+    u = F32_EPS if eps is None else eps
+    bound = np.where(mask, g * np.abs(e / z - 1.0)
+                     + 2.0 * (dist + n + 3) * u * g + 2.0 ** -126, 0.0)
     return bound, float(spread.max(initial=0.0))
 
 
@@ -3157,15 +3212,15 @@ LADDER_DECODE = dict(beam=14.0, max_active=1024, acoustic_scale=0.1,
 LADDER_BARS = dict(mono=35.0, tri=12.0, lda=7.0, tdnn=7.0)
 
 
-def ladder_feats(waves, deltas: bool, device) -> list:
+def ladder_feats(waves, deltas: bool, device, vtln_warp: float = 1.0) -> list:
     """tests/test_ladder_full.py `_featize_batch` on `device`: MFCC (with
-    deltas if asked) of the zero-padded batch, each cut to its own
-    frames."""
+    deltas if asked, the mel banks warped by vtln_warp) of the zero-padded
+    batch, each cut to its own frames."""
     from kaldi_tpu_torch.ops.delta import add_deltas
     wb = np.zeros((len(waves), max(len(w) for w in waves)), np.float32)
     for i, w in enumerate(waves):
         wb[i, : len(w)] = w
-    f = _mfcc(wb, device)
+    f = _mfcc(wb, device, vtln_warp)
     if deltas:
         f = add_deltas(f, order=2, window=2)
     fb = f.cpu().numpy()
@@ -3352,7 +3407,8 @@ def phase_ladder_full(card: str, profile: bool = False) -> dict:
                 gather_times=g_times, models=dict(
                     lang=lang, arpa=arpa, refs=refs, dopts=dopts, tri=tri,
                     lda=lda, nnet=nnet, train=train[True], test=test[True],
-                    train_l=train_l, test_l=test_l))
+                    train_l=train_l, test_l=test_l, train_raw=train[False],
+                    test_raw=test[False], corpus=corpus))
 
 
 def profile_ladder(model, utts):
@@ -4927,18 +4983,61 @@ def full_ubm_stats_card_vs_cpu(gmm, x, card: str = "cuda") -> dict:
     return errs
 
 
+def gselect_posterior_bound(ll_a, ll_b, post_a, post_b, num_gselect: int,
+                            min_post: float) -> dict:
+    """The bound on |post_b - post_a| of two sides' gselect / min-post
+    posteriors [N, I] (`_gselect_posteriors`, JAX's `frame_posteriors`)
+    from their f32 diag loglikes ll_a, ll_b [N, I] (as f64). Per frame,
+    with the same top-k set on both: the softmax within it moves by
+    `softmax_shift_bound`, b; the renormalization after min-post pruning
+    by (b + p sum b) / s. A frame whose top-k set differs (which its k-th
+    and (k+1)-th loglikes may do only where they lie within twice the
+    loglikes' difference) or whose pruning differs (a posterior within b
+    of min_post) may move entirely: max(p_a, p_b). -> {"bound" [N, I],
+    "whole" [N] (frames of the second kind), "unjustified" (such frames
+    without that margin), "near" (entries whose support differs and whose
+    posterior lies within b of min_post)}."""
+    top = {s: np.sort(np.argsort(-ll, axis=1, kind="stable")
+                      [:, :min(num_gselect, ll.shape[1])], axis=1)
+           for s, ll in (("a", ll_a), ("b", ll_b))}
+    k = top["a"].shape[1]
+    sel = np.zeros(ll_a.shape, bool)
+    np.put_along_axis(sel, top["a"], True, axis=1)
+    m = np.where(sel, ll_a, -np.inf)
+    pre = np.exp(m - m.max(axis=1, keepdims=True))
+    pre /= pre.sum(axis=1, keepdims=True)
+    b, _spread = softmax_shift_bound(ll_a, ll_b, pre, sel)
+    kept = sel & (pre >= min_post)
+    s = np.maximum(np.where(kept, pre, 0.0).sum(axis=1, keepdims=True),
+                   1e-300)
+    p_fin = np.where(kept, pre / s, 0.0)
+    bound = np.where(kept, (b + p_fin * np.where(kept, b, 0.0).sum(
+        axis=1, keepdims=True)) / s, 0.0)
+    bound += 2.0 * (k + 3) * F32_EPS * p_fin + 2.0 ** -126
+    set_flip = np.any(top["a"] != top["b"], axis=1)
+    support = sel & ((post_b > 0) != (post_a > 0))
+    prune_flip = np.any(support, axis=1) & ~set_flip
+    srt = -np.sort(-ll_a, axis=1)
+    delta = np.abs(ll_b - ll_a).max(axis=1)
+    gap = (srt[:, k - 1] - srt[:, k]) if k < srt.shape[1] else \
+        np.full(len(ll_a), np.inf)
+    near_entry = support & (np.abs(pre - min_post) <= b)
+    near = np.any(sel & (np.abs(pre - min_post) <= b), axis=1)
+    unjustified = int(np.sum(set_flip & (gap > 2.0 * delta))
+                      + np.sum(prune_flip & ~near))
+    whole = set_flip | prune_flip
+    bound = np.where(whole[:, None], np.maximum(post_a, post_b) + 2.0 ** -126,
+                     bound)
+    return {"bound": bound, "whole": whole, "unjustified": unjustified,
+            "near": int(near_entry.sum())}
+
+
 def gselect_stats_card_vs_cpu(ext, feats_list, num_gselect: int,
                               min_post: float = 0.025,
                               card: str = "cuda") -> dict:
     """`IvectorExtractor.batch_stats` of the utterances on the card and on
-    the CPU, held to the bound the devices' f32 diag loglikes set. Per
-    frame, with the same top-k set on both: the softmax within it moves
-    by `softmax_shift_bound`, b; the renormalization after min-post
-    pruning by (b + p sum b) / s. A frame whose top-k set differs (which
-    its k-th and (k+1)-th loglikes may do only where they lie within twice
-    the loglikes' difference) or whose pruning differs (a posterior within
-    b of min_post) may move entirely: max(p_cpu, p_card). Each statistic
-    moves by the sum of its frames' bounds (times |x| for X) plus each
+    the CPU, held to the bound the devices' f32 diag loglikes set on the
+    posteriors (`gselect_posterior_bound`). Each statistic moves by the sum of its frames' bounds (times |x| for X) plus each
     side's f64 rounding, gamma_{T+1} of its terms. -> {"post", "gamma",
     "X": largest difference over its bound, "flips": frames of the second
     kind, "unjustified": flips without that margin, "stats": the CPU's
@@ -4948,49 +5047,22 @@ def gselect_stats_card_vs_cpu(ext, feats_list, num_gselect: int,
     from kaldi_tpu_torch.ivector.extractor import _gselect_posteriors
     packed = ext._gselect_gmm().packed()
     x = np.concatenate([np.asarray(f, np.float64) for f in feats_list])
-    ll, post, top = {}, {}, {}
+    ll, post = {}, {}
     for d in ("cpu", card):
         xd = torch.as_tensor(x, dtype=torch.float32, device=d)
         pk = torch.as_tensor(packed, device=d)
         ll[d] = (_augment(xd) @ pk).cpu().numpy().astype(np.float64)
         post[d] = _gselect_posteriors(xd, pk, num_gselect,
                                       min_post).cpu().numpy()
-        top[d] = np.sort(np.argsort(-ll[d], axis=1, kind="stable")
-                         [:, :min(num_gselect, ll[d].shape[1])], axis=1)
-    k = top["cpu"].shape[1]
-    sel = np.zeros(ll["cpu"].shape, bool)
-    np.put_along_axis(sel, top["cpu"], True, axis=1)
-    m = np.where(sel, ll["cpu"], -np.inf)
-    pre = np.exp(m - m.max(axis=1, keepdims=True))
-    pre /= pre.sum(axis=1, keepdims=True)
-    b, _spread = softmax_shift_bound(ll["cpu"], ll[card], pre, sel)
-    kept = sel & (pre >= min_post)
-    s = np.maximum(np.where(kept, pre, 0.0).sum(axis=1, keepdims=True),
-                   1e-300)
-    p_fin = np.where(kept, pre / s, 0.0)
-    bound = np.where(kept, (b + p_fin * np.where(kept, b, 0.0).sum(
-        axis=1, keepdims=True)) / s, 0.0)
-    bound += 2.0 * (k + 3) * F32_EPS * p_fin + 2.0 ** -126
-    set_flip = np.any(top["cpu"] != top[card], axis=1)
-    prune_flip = np.any(sel & ((post[card] > 0) != (post["cpu"] > 0)),
-                        axis=1) & ~set_flip
-    srt = -np.sort(-ll["cpu"], axis=1)
-    delta = np.abs(ll[card] - ll["cpu"]).max(axis=1)
-    gap = (srt[:, k - 1] - srt[:, k]) if k < srt.shape[1] else \
-        np.full(len(x), np.inf)
-    near = np.any(sel & (np.abs(pre - min_post) <= b), axis=1)
-    unjustified = int(np.sum(set_flip & (gap > 2.0 * delta))
-                      + np.sum(prune_flip & ~near))
-    whole = set_flip | prune_flip
-    bound = np.where(whole[:, None],
-                     np.maximum(post["cpu"], post[card]) + 2.0 ** -126,
-                     bound)
+    gb = gselect_posterior_bound(ll["cpu"], ll[card], post["cpu"], post[card],
+                                 num_gselect, min_post)
+    bound, whole = gb["bound"], gb["whole"]
     g_card, X_card = (t.cpu().numpy() for t in ext.batch_stats(
         feats_list, num_gselect, min_post, device=card))
     g_cpu, X_cpu = (t.numpy() for t in ext.batch_stats(
         feats_list, num_gselect, min_post, device="cpu"))
     errs = {"post": _worst(post[card], post["cpu"], bound),
-            "flips": int(whole.sum()), "unjustified": unjustified,
+            "flips": int(whole.sum()), "unjustified": gb["unjustified"],
             "gamma": 0.0, "X": 0.0}
     xa = np.abs(x)
     t = 0
@@ -5583,6 +5655,1345 @@ def phase_sre_full(card: str, ladder: dict) -> dict:
                 lr_loss=loss, lr_accuracy=acc)
 
 
+# ------------------------------------------- adaptation and SGMM2 (27-28)
+
+LVTLN_WARPS = [round(0.88 + 0.02 * k, 2) for k in range(13)]
+ADAPT_BASIS = dict(basis_size=100, eta=0.2)
+# egs/rm/s5 sgmm2_4a: train_ubm.sh 400, phn_dim = D + 1, gselect 15
+# (Sgmm2GselectConfig), train_sgmm2.sh 2500 7500 (3 substates per pdf);
+# 8 of its 25 iterations, speaker subspace off (never estimated: `vMwSc`)
+SGMM_WIDTH = dict(ubm_gauss=400, phn_dim=31, spk_dim=0, num_iters=8,
+                  num_gselect=15)
+SGMM_SUBSTATES_PER_PDF = 3
+RAW_WITNESS = os.path.join(ROOT, "chiprun_out", "raw_fmllr_witness.pkl")
+
+
+def _by_leaf(tree, per_gauss: dict) -> dict:
+    """{gaussian: W} of a regression-tree estimate -> {leaf: W}."""
+    return {int(leaf): per_gauss[int(np.flatnonzero(tree.gauss2leaf
+                                                    == leaf)[0])]
+            for leaf in tree.leaves}
+
+
+def _lda_full(lang, tri, train, train_raw, lopts):
+    """The square LDA (all 91 rows) from train_lda_mllt's statistics: tri's
+    alignments' pdfs as classes over the spliced raw MFCC. -> (transform
+    [91, 92], spliced [(T, 91)], pdfs [(T,)])."""
+    from kaldi_tpu_torch.steps.lda_mllt import _align, _splice
+    from kaldi_tpu_torch.transform.lda import LdaStats, estimate_lda
+    align = _align(lang, tri, train, lopts.acoustic_scale)
+    tid2pdf = tri.trans_model.id2pdf_array
+    spliced = [_splice(f, lopts, "cuda").cpu().numpy()
+               for _u, f, _w in train_raw]
+    st = LdaStats(tri.am.num_pdfs, spliced[0].shape[1])
+    pdfs = []
+    for b, res in enumerate(align):
+        T = min(len(res[0]), len(spliced[b]))
+        pdfs.append(tid2pdf[res[0][:T]])
+        spliced[b] = spliced[b][:T]
+        st.accumulate(spliced[b], pdfs[-1])
+    full, _ev = estimate_lda(st, spliced[0].shape[1])
+    return np.asarray(full, np.float64), spliced, pdfs
+
+
+def _rejected_variance(raw_feats: list, W, full, lda_dim: int, lopts) -> float:
+    """Mean variance of the square LDA's rejected rows (unit within-class
+    variance on the training data by construction) over a speaker's raw
+    frames with the raw transform W applied."""
+    from kaldi_tpu_torch.steps.lda_mllt import _splice
+    from kaldi_tpu_torch.transform.fmllr import apply_affine_transform
+    rows = full[lda_dim:]
+    ys = []
+    for f in raw_feats:
+        x = apply_affine_transform(f, W, "cuda")
+        sp = _splice(x.cpu().numpy(), lopts, "cuda").cpu().numpy()
+        ys.append(sp.astype(np.float64) @ rows[:, :-1].T + rows[:, -1])
+    return float(np.concatenate(ys).var(axis=0).mean())
+
+
+SGMM_WITNESS = os.path.join(ROOT, "chiprun_out", "sgmm_witness.pkl")
+
+
+def save_sgmm_witness(snaps: list, likes: list, gmm, utts, num_gselect: int,
+                      card: str):
+    """The SGMM2 iteration whose update lowered the loglike per frame most
+    (or the last), for tests/test_torch_sgmm_witness.py: its model and
+    statistics before the update (host arrays), its flags, the loglikes,
+    and the aligned training frames that replay the loglike after the
+    update."""
+    import pickle
+    from kaldi_tpu_torch.steps.tdnn import align_with_gmm
+    falls = [likes[k + 1] - likes[k] for k in range(len(likes) - 1)]
+    k = int(np.argmin(falls)) if falls else len(snaps) - 1
+    it, flags, model, accs = snaps[k]
+    aligned = align_with_gmm(gmm, utts)
+    a = lambda t: t.cpu().numpy()  # noqa: E731
+    os.makedirs(os.path.dirname(SGMM_WITNESS), exist_ok=True)
+    with open(SGMM_WITNESS, "wb") as f:
+        pickle.dump(dict(
+            iter=it, flags=flags, likes=likes, num_gselect=num_gselect,
+            model=dict(Sigma_inv=a(model.Sigma_inv), M=a(model.M),
+                       w=a(model.w), V=a(model.V), c=a(model.c),
+                       offsets=model.offsets),
+            accs=dict(gamma=a(accs.gamma), y=a(accs.y), Y=a(accs.Y),
+                      Q=a(accs.Q), S_centered=a(accs.S_centered),
+                      tot_like=accs.tot_like, tot_frames=accs.tot_frames),
+            x=np.concatenate([f for f, _p in aligned]).astype(np.float32),
+            pdfs=np.concatenate([p for _f, p in aligned]), card=card), f)
+    log(f"  (d) saved iteration {it} ({flags}: loglike/frame "
+        f"{likes[it]:.4f} -> {likes[min(it + 1, len(likes) - 1)]:.4f}) to "
+        f"{os.path.relpath(SGMM_WITNESS, ROOT)}")
+
+
+def phase_adapt_sgmm_full(card: str, ladder: dict) -> dict:
+    """Phase 28 on phase 20's ladder models: (a) adaptation of the LDA+MLLT
+    model per test speaker (raw fMLLR with the rejected-dimension
+    diagnostic and the witness's inputs saved, basis fMLLR per test
+    utterance from a basis of the 200 training utterances, regression-tree
+    fMLLR and MLLR, global fMLLR); (b) LVTLN on the tri model, one class per
+    warp in 0.88-1.12; (c) HLDA on the 91-dim spliced MFCC; (d) SGMM2 at
+    egs/rm's sgmm2_4a widths from the LDA+MLLT model, bMMI over the
+    ladder's unigram HCLG and SGMM fMLLR per test speaker. Every decode goes
+    through make_hclg_flat + CsrBeamDecoder; qaffine must not launch."""
+    import pickle
+    import torch
+    from kaldi_tpu_torch.fst.graph import make_hclg
+    from kaldi_tpu_torch.lm.arpa import ArpaLm, arpa_to_g
+    from kaldi_tpu_torch.nnet import quantized as q
+    from kaldi_tpu_torch.ops import table_gather as tg
+    from kaldi_tpu_torch.sgmm.fmllr import (FmllrSgmm2Accs, apply_fmllr,
+                                            estimate_sgmm2_fmllr)
+    from kaldi_tpu_torch.steps import lda_mllt
+    from kaldi_tpu_torch.steps.sgmm_steps import (SgmmAm, SgmmMmiOpts,
+                                                  SgmmTrainOpts,
+                                                  train_sgmm2_bmmi,
+                                                  train_sgmm2_system)
+    from kaldi_tpu_torch.transform import basis_fmllr as bf
+    from kaldi_tpu_torch.transform import regtree as rt
+    from kaldi_tpu_torch.transform.fmllr import (FmllrStats,
+                                                 apply_affine_transform,
+                                                 estimate_fmllr)
+    from kaldi_tpu_torch.transform.fmllr_raw import (FmllrRawAccs,
+                                                     estimate_fmllr_raw,
+                                                     fmllr_raw_auxf)
+    from kaldi_tpu_torch.transform.hlda import HldaStats, estimate_hlda
+    from kaldi_tpu_torch.transform.lvtln import LinearVtln
+
+    t0 = time.perf_counter()
+    q.launches = tg.launches = 0
+    m = ladder["models"]
+    lang, arpa, refs, dopts = m["lang"], m["arpa"], m["refs"], m["dopts"]
+    tri, lda = m["tri"], m["lda"]
+    lopts = lda_mllt.LdaMlltTrainOpts(**LADDER_LDA)
+    corpus = m["corpus"]
+    utts = [u for u, _w, _ws, _s in corpus["test"]]
+    spk = [s for _u, _w, _ws, s in corpus["test"]]
+    speakers = sorted(set(spk))
+    out, shapes = {}, set()
+
+    def decode(dec, ll, nf):
+        shapes.update(csr_gather_shapes(dec, ll.shape[0], ll.shape[2]))
+        return dec.decode(ll, nf)
+
+    def words(res):
+        return [[lang.words.sym(x) for x in r[0]] if r else [] for r in res]
+
+    def wer_of(dec, model, fl):
+        fb, nf = pad_batch(fl)
+        return wer(refs, words(decode(dec, model.am.loglikes(fb), nf)))
+
+    def first_pass(dec, model, fl):
+        fb, nf = pad_batch(fl)
+        res = decode(dec, model.am.loglikes(fb), nf)
+        tid2pdf = model.trans_model.id2pdf_array
+        return wer(refs, words(res)), [
+            tid2pdf[np.asarray(r[1][:int(nf[b])])] for b, r in enumerate(res)]
+
+    dec_l, _s = ladder_decoder(lda.model, arpa, dopts, "cuda")
+    test_l = [f for _u, f, _w in m["test_l"]]
+    test_raw = [f for _u, f, _w in m["test_raw"]]
+    w_si, pdfs = first_pass(dec_l, lda.model, test_l)
+    log(f"  (a) LDA+MLLT SI decode (first pass) WER {w_si:.2f} | card: {card}")
+
+    def per_speaker(fn):
+        return {s: fn([b for b in range(len(utts)) if spk[b] == s])
+                for s in speakers}
+
+    # (a) global fMLLR per speaker, for comparison
+    t = time.perf_counter()
+
+    def global_w(bs):
+        st = FmllrStats(lda.model.am.dim)
+        for b in bs:
+            st.accumulate_from_alignment(lda.model.am, test_l[b], pdfs[b])
+        return estimate_fmllr(st, min_count=100.0)[0]
+
+    Wg = per_speaker(global_w)
+    fl = [apply_affine_transform(test_l[b], Wg[spk[b]], "cuda").cpu().numpy()
+          for b in range(len(utts))]
+    out["fmllr"] = dict(wer=wer_of(dec_l, lda.model, fl),
+                        secs=time.perf_counter() - t)
+    # (a) raw fMLLR per speaker (the refused PR's configuration)
+    t = time.perf_counter()
+    full, spliced_tr, pdfs_tr = _lda_full(lang, tri, m["train"],
+                                          m["train_raw"], lopts)
+    t_lda = time.perf_counter() - t
+    t = time.perf_counter()
+    raw, witness = {}, {}
+    for s in speakers:
+        bs = [b for b in range(len(utts)) if spk[b] == s]
+        accs = FmllrRawAccs(test_raw[0].shape[1], lopts.splice_left,
+                            lopts.splice_right, "cuda")
+        for b in bs:
+            accs.accumulate_from_alignment(lda.model.am, test_raw[b],
+                                           lda.transform, pdfs[b])
+        hist: list = []
+        W, gain = estimate_fmllr_raw(accs, lda.transform, history=hist)
+        X, mu, iv, gam = accs.stacked()
+        A = torch.as_tensor(W, device="cuda")
+        Tm = torch.as_tensor(lda.transform, dtype=torch.float32,
+                             device="cuda")
+        d, n = accs.d, accs.L + accs.R + 1
+        ident = torch.cat([torch.eye(d, device="cuda"),
+                           torch.zeros((d, 1), device="cuda")], 1)
+        q0 = float(fmllr_raw_auxf(ident, X, Tm, mu, iv, gam, 0.0, d, n))
+        q1 = float(fmllr_raw_auxf(A, X, Tm, mu, iv, gam, 0.0, d, n))
+        logdet_share = accs.beta() * float(torch.linalg.slogdet(
+            A[:, :d].double())[1]) / max(gain * accs.beta(), 1e-30)
+        raw[s] = dict(W=W, gain=gain, frames=accs.num_frames,
+                      beta=accs.beta(), quad_gain=(q1 - q0) / accs.beta(),
+                      logdet_share=logdet_share,
+                      rej_before=_rejected_variance(
+                          [test_raw[b] for b in bs], np.concatenate(
+                              [np.eye(d), np.zeros((d, 1))], 1), full,
+                          lda.model.am.dim, lopts),
+                      rej_after=_rejected_variance(
+                          [test_raw[b] for b in bs], W, full,
+                          lda.model.am.dim, lopts))
+        witness[s] = dict(X=X.cpu().numpy(), gam=gam.cpu().numpy(),
+                          pdfs=np.concatenate([pdfs[b] for b in bs]),
+                          W=W, gain=gain, history=hist,
+                          rejected=(raw[s]["rej_before"],
+                                    raw[s]["rej_after"]))
+    fl = [lda.transform_feats(apply_affine_transform(
+        test_raw[b], raw[spk[b]]["W"], "cuda").cpu().numpy(), lopts)
+          for b in range(len(utts))]
+    out["raw_fmllr"] = dict(wer=wer_of(dec_l, lda.model, fl),
+                            secs=time.perf_counter() - t)
+    for s in speakers:
+        r = raw[s]
+        log(f"  (a) raw fMLLR {s}: {r['frames']} frames, gain "
+            f"{r['gain']:.4f} nats/frame (quadratic term {r['quad_gain']:.4f},"
+            f" beta log|det A| {r['logdet_share']:.3f} of the gain); "
+            f"rejected-row variance {r['rej_before']:.4f} -> "
+            f"{r['rej_after']:.4f} (1 on training data by construction)")
+    # the witness's inputs: replayed through JAX's estimate_fmllr_raw on
+    # the CPU by tests/test_torch_raw_witness.py
+    os.makedirs(os.path.dirname(RAW_WITNESS), exist_ok=True)
+    lm = lda.model
+    am_cpu = type(lm.am)(lm.am.pdfs, "cpu")
+    with open(RAW_WITNESS, "wb") as f:
+        pickle.dump(dict(
+            speakers=witness, transform=lda.transform, full_lda=full,
+            splice=(lopts.splice_left, lopts.splice_right),
+            model=dict(pdfs=[(g.weights, g.means, g.vars) for g in am_cpu.pdfs],
+                       trans_model=lm.trans_model, ctx_dep=lm.ctx_dep),
+            lexicon=corpus["lex_text"], arpa=arpa, refs=refs, utts=utts,
+            spk=spk, test_raw=test_raw, dopts=dataclasses.asdict(dopts),
+            wer=dict(si=w_si, raw=out["raw_fmllr"]["wer"]), card=card), f)
+    # (a) basis fMLLR: the basis from the 200 training utterances'
+    # statistics (one gradient per utterance), transforms per test utterance
+    t = time.perf_counter()
+    ali_tr = lda_mllt._align(lang, lda.model, m["train_l"], 0.1)
+    accus = bf.BasisFmllrAccus(lda.model.am.dim, "cuda")
+    tid2pdf = lda.model.trans_model.id2pdf_array
+    for (_u, f, _w), res in zip(m["train_l"], ali_tr):
+        st = FmllrStats(lda.model.am.dim)
+        T = min(len(res[0]), len(f))
+        st.accumulate_from_alignment(lda.model.am, f[:T], tid2pdf[res[0][:T]])
+        accus.accumulate_from_speaker(st)
+    basis = bf.estimate_fmllr_basis(accus, ADAPT_BASIS["basis_size"])
+    t_basis = time.perf_counter() - t
+    fl, n_used = [], []
+    for b in range(len(utts)):
+        st = FmllrStats(lda.model.am.dim)
+        st.accumulate_from_alignment(lda.model.am, test_l[b], pdfs[b])
+        W, n, _g = bf.compute_basis_fmllr_transform(st, basis,
+                                                    eta=ADAPT_BASIS["eta"])
+        n_used.append(n)
+        fl.append(apply_affine_transform(test_l[b], W.cpu().numpy(),
+                                         "cuda").cpu().numpy())
+    out["basis_fmllr"] = dict(wer=wer_of(dec_l, lda.model, fl),
+                              secs=time.perf_counter() - t,
+                              basis_secs=t_basis,
+                              coeffs=float(np.mean(n_used)))
+    # (a) regression-tree fMLLR and MLLR per speaker, at JAX's defaults
+    t = time.perf_counter()
+    tree = rt.RegressionTree(lda.model.am, device="cuda")
+    post = [[[(int(p), 1.0)] for p in pdfs[b]] for b in range(len(utts))]
+    ll_rt, ll_mllr = [None] * len(utts), [None] * len(utts)
+    for s in speakers:
+        bs = [b for b in range(len(utts)) if spk[b] == s]
+        acc = rt.RegtreeStats(tree, lda.model.am.dim)
+        macc = rt.RegtreeMllrStats(tree, lda.model.am.dim)
+        for b in bs:
+            acc.accumulate(lda.model.am, test_l[b], post[b])
+            macc.accumulate(lda.model.am, test_l[b], post[b])
+        by_leaf = _by_leaf(tree, rt.estimate_regtree_fmllr(acc))
+        am_m = rt.apply_regtree_mllr(lda.model.am, tree, _by_leaf(
+            tree, rt.estimate_regtree_mllr(macc)))
+        for b in bs:
+            ll_rt[b] = rt.regtree_fmllr_loglikes(lda.model.am, tree, by_leaf,
+                                                 test_l[b]).float()
+            ll_mllr[b] = am_m.loglikes(test_l[b])
+    for name, lls in (("regtree_fmllr", ll_rt), ("regtree_mllr", ll_mllr)):
+        fb, nf = pad_batch([np.zeros((len(f), 1)) for f in test_l])
+        ll = torch.zeros((len(lls), fb.shape[1], lls[0].shape[1]),
+                         device="cuda")
+        for b, x in enumerate(lls):
+            ll[b, :len(x)] = x
+        out[name] = dict(wer=wer(refs, words(decode(dec_l, ll, nf))),
+                         secs=time.perf_counter() - t)
+    out["regtree_leaves"] = len(tree.leaves)
+    log("  (a) adaptation of the LDA+MLLT model (SI " + f"{w_si:.2f}): "
+        + ", ".join(f"{k} WER {out[k]['wer']:.2f} in {out[k]['secs']:.3f} s"
+                    for k in ("fmllr", "raw_fmllr", "basis_fmllr",
+                              "regtree_fmllr", "regtree_mllr"))
+        + f"; square LDA {t_lda:.3f} s; basis of "
+        f"{ADAPT_BASIS['basis_size']} from {len(ali_tr)} utterances in "
+        f"{t_basis:.3f} s, {out['basis_fmllr']['coeffs']:.1f} coefficients "
+        f"per test utterance; regression tree of {len(tree.leaves)} leaves "
+        f"| card: {card}")
+
+    # (b) LVTLN on the tri model (MFCC + deltas), one class per warp
+    t = time.perf_counter()
+    tr_w = [w for _u, w, _ws, _s in corpus["train"]]
+    X = np.concatenate([f for _u, f, _w in m["train"]])
+    lv = LinearVtln(X.shape[1], LVTLN_WARPS, "cuda")
+    for c, wp in enumerate(LVTLN_WARPS):
+        if wp != 1.0:
+            lv.train_class(c, X, np.concatenate(
+                ladder_feats(tr_w, True, "cuda", vtln_warp=wp)))
+    t_train = time.perf_counter() - t
+    del X
+    dec_t, _s = ladder_decoder(tri, arpa, dopts, "cuda")
+    test_d = [f for _u, f, _w in m["test"]]
+    w_tri, pdfs_t = first_pass(dec_t, tri, test_d)
+    sel = {}
+    for s in speakers:
+        st = FmllrStats(tri.am.dim)
+        for b in range(len(utts)):
+            if spk[b] == s:
+                st.accumulate_from_alignment(tri.am, test_d[b], pdfs_t[b])
+        c, W, aux = lv.select_class(st)
+        sel[s] = (LVTLN_WARPS[c], W, (np.asarray(aux) - aux[
+            lv.default_class]) / st.beta)
+    fl = [apply_affine_transform(test_d[b], sel[spk[b]][1], "cuda").cpu()
+          .numpy() for b in range(len(utts))]
+    out["lvtln"] = dict(wer=wer_of(dec_t, tri, fl), si_wer=w_tri,
+                        secs=time.perf_counter() - t, train_secs=t_train,
+                        selected={s: sel[s][0] for s in speakers},
+                        true={s: corpus["warps"][s] for s in speakers})
+    log(f"  (b) LVTLN on tri: {len(LVTLN_WARPS)} classes trained in "
+        f"{t_train:.3f} s; selected warp vs the speaker's true warp: "
+        + ", ".join(f"{s} {sel[s][0]:.2f} vs {corpus['warps'][s]:.4f}"
+                    for s in speakers)
+        + "; each class's auxiliary over the identity's, per frame: "
+        + "; ".join(f"{s} " + " ".join(f"{a:+.3f}" for a in sel[s][2])
+                    for s in speakers)
+        + f"; WER {w_tri:.2f} without, {out['lvtln']['wer']:.2f} with the "
+        f"selected transforms ({out['lvtln']['secs']:.3f} s) | card: {card}")
+
+    # (c) HLDA on the 91-dim spliced MFCC, tri's pdfs as classes
+    t = time.perf_counter()
+    hs = HldaStats(spliced_tr[0].shape[1], "cuda")
+    hs.accumulate(np.concatenate(spliced_tr), np.concatenate(pdfs_tr),
+                  tri.am.num_pdfs)
+    A_h, impr = estimate_hlda(hs, lda.model.am.dim)
+    out["hlda"] = dict(gain=impr, secs=time.perf_counter() - t,
+                       frames=int(hs.beta), shape=list(A_h.shape))
+    log(f"  (c) HLDA {spliced_tr[0].shape[1]} -> {A_h.shape[0]} dims over "
+        f"{int(hs.beta)} frames and {tri.am.num_pdfs} classes: gain "
+        f"{impr:.4f} per frame in {out['hlda']['secs']:.3f} s | card: {card}")
+
+    # (d) SGMM2 at egs/rm's sgmm2_4a widths from the LDA+MLLT model
+    torch.cuda.reset_peak_memory_stats()
+    P = lda.model.am.num_pdfs
+    sopts = SgmmTrainOpts(**SGMM_WIDTH,
+                          total_substates=SGMM_SUBSTATES_PER_PDF * P)
+    its: list = []
+    stages: dict = {}
+    snaps: list = []
+
+    def snapshot(it, flags, model, accs):
+        snaps.append((it, flags, model.to("cpu"), _accs_to(accs, "cpu")))
+
+    t = time.perf_counter()
+    sam, likes = train_sgmm2_system(lda.model, m["train_l"], sopts,
+                                    iter_stats=its, stage_secs=stages,
+                                    snapshot=snapshot)
+    t_ml = time.perf_counter() - t
+    save_sgmm_witness(snaps, likes, lda.model, m["train_l"],
+                      sopts.num_gselect, card)
+    peak_ml = torch.cuda.max_memory_allocated() / 2 ** 30
+    sg = sam.sgmm
+    t = time.perf_counter()
+    fb, nf = pad_batch(test_l)
+    res = decode(dec_l, sam.loglikes(fb), nf)
+    w_ml = wer(refs, words(res))
+    t_dec = time.perf_counter() - t
+    tid2pdf = lda.model.trans_model.id2pdf_array
+    pdfs_s = [tid2pdf[np.asarray(r[1][:int(nf[b])])]
+              for b, r in enumerate(res)]
+    log(f"  (d) SGMM2 ML: I {sg.num_gauss}, S {sg.phn_dim}, gselect "
+        f"{sam.num_gselect}, {int(sg.offsets[-1])} substates over {P} "
+        f"states, {sum(len(f) for _u, f, _w in m['train_l'])} frames; "
+        f"stages " + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+        + f"; per iteration (flags, loglike/frame, accumulate / update s): "
+        + ", ".join(f"{s['flags']} {s['loglike']:.4f} "
+                    f"{s['accumulate']:.3f}/{s['update']:.3f}" for s in its)
+        + f"; peak {peak_ml:.2f} GiB; test decode {t_dec:.3f} s, WER "
+        f"{w_ml:.2f} (LDA+MLLT GMM {w_si:.2f}) | card: {card}")
+    g = arpa_to_g(ArpaLm.parse(arpa), lang.words)
+    den = make_hclg(lang, g, lda.model.trans_model, lda.model.ctx_dep,
+                    self_loop_scale=0.1)
+    sam_b = SgmmAm(sg.copy(), sam.num_gselect)
+    mits: list = []
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    sam_b, objs = train_sgmm2_bmmi(lda.model, sam_b, den, m["train_l"],
+                                   SgmmMmiOpts(), iter_stats=mits)
+    t_mmi = time.perf_counter() - t
+    peak_mmi = torch.cuda.max_memory_allocated() / 2 ** 30
+    fb, nf = pad_batch(test_l)
+    w_mmi = wer(refs, words(decode(dec_l, sam_b.loglikes(fb), nf)))
+    log(f"  (d) SGMM2 bMMI {dataclasses.asdict(SgmmMmiOpts())}: objective "
+        + ", ".join(f"{o:.5f}" for o in objs) + f" in {t_mmi:.3f} s ("
+        + "; ".join(", ".join(f"{k} {v:.3f}" if isinstance(v, float) else
+                              f"{k} {v}" for k, v in st.items())
+                    for st in mits)
+        + f"); peak {peak_mmi:.2f} GiB; WER {w_mmi:.2f} | card: {card}")
+    t = time.perf_counter()
+    Ws = {}
+    for s in speakers:
+        bs = [b for b in range(len(utts)) if spk[b] == s]
+        fa = FmllrSgmm2Accs(sg)
+        fa.accumulate(sg, np.concatenate([test_l[b] for b in bs]),
+                      (np.arange(sum(len(test_l[b]) for b in bs)),
+                       np.concatenate([pdfs_s[b] for b in bs]),
+                       np.ones(sum(len(test_l[b]) for b in bs))),
+                      sam.num_gselect)
+        Ws[s] = estimate_sgmm2_fmllr(fa, sg)
+    fl = [apply_fmllr(Ws[spk[b]][0], test_l[b]).float().cpu().numpy()
+          for b in range(len(utts))]
+    fb, nf = pad_batch(fl)
+    w_f = wer(refs, words(decode(dec_l, sam.loglikes(fb), nf)))
+    t_f = time.perf_counter() - t
+    out["sgmm"] = dict(wer=w_ml, bmmi_wer=w_mmi, fmllr_wer=w_f, likes=likes,
+                       mmi_objs=objs, secs=t_ml, bmmi_secs=t_mmi,
+                       fmllr_secs=t_f, peak_gib=peak_ml,
+                       bmmi_peak_gib=peak_mmi, iters=its, stages=stages,
+                       substates=int(sg.offsets[-1]))
+    log(f"  (d) SGMM2 fMLLR per test speaker (gain per frame "
+        + ", ".join(f"{s} {Ws[s][1]:.4f}" for s in speakers)
+        + f"): WER {w_f:.2f} in {t_f:.3f} s; SGMM ML {w_ml:.2f}, bMMI "
+        f"{w_mmi:.2f}, ML + fMLLR {w_f:.2f} vs the LDA+MLLT GMM {w_si:.2f} "
+        f"(PARITY.md:36's SGMM <= GMM + 5.0 and < 20.0 is reported here, "
+        f"held on yesno in phase 27) | card: {card}")
+    check = _Limits()
+    check.require("SGMM loglike/frame finite", all(np.isfinite(likes)))
+    check.require("bMMI objectives finite",
+                  all(np.isfinite(o) for o in objs))
+    for k in ("fmllr", "raw_fmllr", "basis_fmllr", "regtree_fmllr",
+              "regtree_mllr", "lvtln"):
+        check.require(f"{k} WER finite", np.isfinite(out[k]["wer"]))
+    check.require("HLDA gain >= 0", out["hlda"]["gain"] >= -1e-9)
+    check.require(f"qaffine launched {q.launches} times", q.launches == 0)
+    check.done("phase 28")
+    launches = tg.launches
+    log(f"  launches on phase 28: gather {launches} (its decodes), qaffine "
+        f"{q.launches}; phase 28 took {time.perf_counter() - t0:.3f} s")
+    g_times = gather_at_shapes(tg, sorted(shapes), "phase 28's", 28)
+    return dict(out, launches=launches, gather_times=g_times)
+
+
+SGMM_SMALL = dict(num_gselect=3, substates=6)
+SGMM_YESNO = {13: dict(train=14, test=6, sgmm_iters=6, bmmi=False),
+              21: dict(train=12, test=6, sgmm_iters=4, bmmi=True)}
+SGMM_YESNO_MONO = dict(num_iters=8, totgauss=30, max_iter_inc=6,
+                       realign_iters=tuple(range(1, 8)))
+RAW_STEP_LIMIT = 1e-5          # one f32 Adam step, relative to max |W|
+# Whole runs are held by their objective, not their W: near the optimum
+# Adam's m / sqrt(v) and a backtracking line search's `val > cur` branch
+# follow rounding noise, so equal objectives come with W apart.
+RAW_RUN_LIMIT = 1e-3           # a whole f32 Adam run (raw fMLLR)
+LINE_SEARCH_LIMIT = 1e-9       # a whole f64 line search (basis, SGMM fMLLR)
+
+
+def sgmm_small_setup(device, split: bool = True) -> dict:
+    """tests/test_sgmm.py's `sgmm_setup` built by the port: three classes
+    from RandomState(0) (150 frames of 4 dims each), a 4-gaussian UBM by
+    host EM, `AmSgmm2(phn_dim=5, spk_dim=2, seed=1)` on `device`, split to
+    6 substates unless split is False; a speaker shifted by RandomState(9)'s offset. -> {"model",
+    "feats", "post", "spk_feats", "spk_post"}."""
+    from kaldi_tpu_torch.gmm.diag_gmm import DiagGmm
+    from kaldi_tpu_torch.gmm.estimation import (AccumDiagGmm,
+                                                mle_diag_gmm_update)
+    from kaldi_tpu_torch.gmm.full_gmm import FullGmm
+    from kaldi_tpu_torch.sgmm import AmSgmm2
+    rng = np.random.RandomState(0)
+    mu = rng.randn(3, 4) * 3.0
+    feats = np.concatenate([mu[j] + rng.randn(150, 4) for j in range(3)])
+    post = [[(j, 1.0)] for j in range(3) for _ in range(150)]
+    ubm = DiagGmm.from_stats(feats.mean(0), feats.var(0)).split(4)
+    for _ in range(5):
+        acc = AccumDiagGmm(ubm.num_gauss, ubm.dim)
+        acc.accumulate(ubm, feats.astype(np.float32))
+        ubm = mle_diag_gmm_update(ubm, acc)
+    fubm = FullGmm.from_diag(ubm.weights, ubm.means, ubm.vars)
+    model = AmSgmm2(fubm, num_states=3, phn_dim=5, spk_dim=2, seed=1,
+                    device=device)
+    if split:
+        model.split_substates(SGMM_SMALL["substates"])
+    offset = np.random.RandomState(9).randn(4) * 0.8
+    return dict(model=model, feats=feats, post=post,
+                spk_feats=feats[:100] + offset, spk_post=post[:100])
+
+
+def _sgmm_dense_ll(model, x, entries, K, spk):
+    """Per entry the component loglikes [E, Mmax, I] (-inf off the
+    entry's state's substates and the frame's gselect), f64 host, and the
+    gselect sets [T, K]."""
+    from kaldi_tpu_torch.sgmm.estimate import by_state, state_entries
+    t, j, _w = state_entries(entries, model.device)
+    xd = model._x(x)
+    gsel = model.gselect(xd, K)
+    nrm = model.normalizers()
+    Mmax = int(model.num_substates.max())
+    out = np.full((len(t), Mmax, model.num_gauss), -np.inf)
+    for s, idx in by_state(j):
+        z, q = model.frame_terms(xd[t[idx]], gsel[t[idx]], spk)
+        ll = model.state_component_loglikes(s, z, q, gsel[t[idx]], nrm)
+        ii = idx.cpu().numpy()
+        g = gsel[t[idx]].cpu().numpy()
+        llh = ll.cpu().numpy()
+        for k in range(g.shape[1]):
+            out[ii[:, None], np.arange(llh.shape[1])[None, :], g[:, k:k + 1]] \
+                = llh[:, :, k]
+    return out, np.sort(gsel.cpu().numpy(), axis=1)
+
+
+def _sgmm_terms(model, x, entries, weights, spk):
+    """The SGMM statistics' terms with absolute values, each (entry,
+    substate, gaussian) weighted by weights [E, Mmax, I]: -> dict of
+    gamma [Mtot, I], y [Mtot, S], Y [I, D, S], Q [I, S, S], S [I, D, D]
+    (host f64): sum_e w (1, |SinvM|' |x - o|, |x - o| |v|', |v| |v|',
+    (|x| + |mu|)(|x| + |mu|)')."""
+    from kaldi_tpu_torch.sgmm.estimate import state_entries
+    t, j, _w = (a.cpu().numpy() for a in state_entries(entries, "cpu"))
+    I, D, S = model.M.shape
+    V = model.V.cpu().numpy()
+    M = model.M.cpu().numpy()
+    SinvM = np.abs(model.SinvM.cpu().numpy())
+    off = model.spk_offsets(spk)
+    off = np.zeros((I, D)) if off is None else off.cpu().numpy()
+    x = np.asarray(x, np.float64)
+    Mtot = len(V)
+    o = model.offsets
+    out = dict(gamma=np.zeros((Mtot, I)), y=np.zeros((Mtot, S)),
+               Y=np.zeros((I, D, S)), Q=np.zeros((I, S, S)),
+               S=np.zeros((I, D, D)))
+    for e in range(len(t)):
+        a, b = o[j[e]], o[j[e] + 1]
+        w = weights[e, :b - a]                                  # [M, I]
+        xo = np.abs(x[t[e]][None] - off)                        # [I, D]
+        v = np.abs(V[a:b])
+        mu = np.abs(np.einsum("ids,ms->mid", M, V[a:b]) + off[None])
+        out["gamma"][a:b] += w
+        out["y"][a:b] += np.einsum("mi,id,ids->ms", w, xo, SinvM)
+        out["Y"] += np.einsum("mi,id,ms->ids", w, xo, v)
+        out["Q"] += np.einsum("mi,ms,mt->ist", w, v, v)
+        xm = np.abs(x[t[e]])[None, None] + mu
+        out["S"] += np.einsum("mi,mid,mie->ide", w, xm, xm)
+    return out
+
+
+def sgmm_stats_card_vs_cpu(model, x, entries, K: int, spk=None,
+                           card: str = "cuda") -> dict:
+    """`Sgmm2Accs` of the same entries with `model` (on the CPU) and its
+    copy on `card`, each statistic held to the bound the two sides'
+    component loglikes set: the exact softmax response to their measured
+    difference (`softmax_shift_bound`, f64 rounding), times each term's
+    magnitude, plus each side's f64 GEMM rounding 2 gamma_n of the terms
+    (n the frames plus D^2). A frame whose gselect sets differ may move
+    entirely (counted; it must lie within twice the score difference of
+    the k-th / (k+1)-th gap). -> {stat: ratio to its bound, "flips",
+    "unjustified", "ll" (the loglikes' largest difference over the terms'
+    scale), "accs": the CPU's accumulators}."""
+    from kaldi_tpu_torch.sgmm import Sgmm2Accs
+    from kaldi_tpu_torch.sgmm.estimate import state_entries
+    side = {"cpu": model, "card": model.to(card)}
+    spk_on = {d: None if spk is None else type(spk)(spk.v.to(m.device))
+              for d, m in side.items()}
+    accs = {}
+    for d, m in side.items():
+        accs[d] = Sgmm2Accs(m)
+        accs[d].accumulate(m, x, entries, K, spk_on[d])
+    ll, sets = {}, {}
+    for d, m in side.items():
+        ll[d], sets[d] = _sgmm_dense_ll(m, x, entries, K, spk_on[d])
+    t, _j, w = (a.cpu().numpy() for a in state_entries(entries, "cpu"))
+    E = len(t)
+    a, b = ll["cpu"].reshape(E, -1), ll["card"].reshape(E, -1)
+    mask = np.isfinite(a) & np.isfinite(b)
+    pa = np.exp(np.where(mask, a - a.max(1, keepdims=True), -np.inf))
+    pa /= pa.sum(1, keepdims=True)
+    pb = np.exp(np.where(np.isfinite(b), b - b.max(1, keepdims=True),
+                         -np.inf))
+    pb /= pb.sum(1, keepdims=True)
+    a0, b0 = np.where(mask, a, 0.0), np.where(mask, b, 0.0)
+    bound, _spr = softmax_shift_bound(a0, b0, pa, mask, eps=F64_EPS)
+    flip = np.any(sets["cpu"] != sets["card"], axis=1)[t]
+    scores = {d: m.gselect_scores(m._x(x)).cpu().numpy()
+              for d, m in side.items()}
+    srt = -np.sort(-scores["cpu"], axis=1)
+    gap = srt[:, K - 1] - srt[:, K] if K < srt.shape[1] else \
+        np.full(len(srt), np.inf)
+    dsc = np.abs(scores["card"] - scores["cpu"]).max(axis=1)
+    unjust = int(np.sum(np.any(sets["cpu"] != sets["card"], axis=1)
+                        & (gap > 2.0 * dsc)))
+    bound = np.where(flip[:, None], np.maximum(pa, pb), bound)
+    shape = ll["cpu"].shape
+    wb = (bound * w[:, None]).reshape(shape)
+    wp = (pa * w[:, None]).reshape(shape)
+    tb = _sgmm_terms(model, x, entries, wb, spk)
+    tp = _sgmm_terms(model, x, entries, wp, spk)
+    r = 2.0 * _gamma_n(E + model.dim ** 2, F64_EPS)
+    cpu, crd = accs["cpu"], accs["card"]
+    errs = {"flips": int(flip.sum()), "unjustified": unjust}
+    for name, key in (("gamma", "gamma"), ("y", "y"), ("Y", "Y"), ("Q", "Q"),
+                      ("S_centered", "S")):
+        got = getattr(crd, name).cpu().numpy()
+        want = getattr(cpu, name).cpu().numpy()
+        errs[name] = _worst(got, want, tb[key] + r * tp[key])
+    d = np.abs(b0 - a0).max(1)
+    lse = np.abs(np.log(np.where(mask, np.exp(a - a.max(1, keepdims=True)),
+                                 0.0).sum(1)) + a.max(1))
+    errs["tot_like"] = abs(crd.tot_like - cpu.tot_like) / float(
+        (w * (d + r * lse)).sum() + 1e-300)
+    fin = np.isfinite(a)
+    errs["ll"] = float(np.abs(b0 - a0).max()
+                       / max(np.abs(np.where(fin, a, 0.0)).max(), 1e-300))
+    errs["accs"] = cpu
+    return errs
+
+
+def sgmm_update_card_vs_cpu(model, accs, flags: str,
+                            card: str = "cuda") -> dict:
+    """`update_sgmm2` with each flag from the same statistics (the CPU's,
+    copied to `card`) on both sides, each held by its backward error:
+    v's solves (lhs v = rhs) and M's (M (Q + 1e-4 I) = Y) to
+    `backward_bound`; Sigma's inverse of the floored scatter to
+    SIGMA_C D eps64; the explicit w and c steps to 2 gamma_n of their
+    terms. -> {flag: ratio to its bound}."""
+    import torch
+    from kaldi_tpu_torch.sgmm.estimate import update_sgmm2, v_system
+    I, D, S = model.M.shape
+    out = {}
+    acc_card = _accs_to(accs, card)
+    for f in flags:
+        cpu, crd = model.copy(), model.to(card)
+        update_sgmm2(cpu, accs, f)
+        update_sgmm2(crd, acc_card, f)
+        if f == "v":
+            lhs, rhs, live = (a.cpu().numpy() for a in v_system(model, accs))
+            worst = 0.0
+            for side in (cpu, crd):
+                v = side.V.cpu().numpy()[live]
+                be = backward_error(np.transpose(lhs[live], (0, 2, 1)),
+                                    v[:, None, :], rhs[live][:, None, :])
+                worst = max(worst, float(be.max(initial=0.0)))
+            out["v"] = worst / backward_bound(S, 1)
+        elif f == "M":
+            live = accs.gamma.sum(0).cpu().numpy() >= 1.0
+            A = (accs.Q + 1e-4 * torch.eye(S, dtype=torch.float64)).numpy()
+            B = accs.Y.cpu().numpy()
+            worst = max(float(backward_error(
+                A[live], side.M.cpu().numpy()[live], B[live]).max(initial=0))
+                for side in (cpu, crd))
+            out["M"] = worst / backward_bound(S, D)
+        elif f == "S":
+            g = accs.gamma.sum(0).cpu().numpy()
+            live = g >= D
+            Si = accs.S_centered.cpu().numpy()[live] / g[live][:, None, None]
+            Si = 0.5 * (Si + np.transpose(Si, (0, 2, 1)))
+            ev, U = np.linalg.eigh(Si)
+            Sf = (U * np.maximum(ev, 1e-3)[:, None, :]) @ np.transpose(
+                U, (0, 2, 1))
+            eye = np.broadcast_to(np.eye(D), Sf.shape)
+            worst = max(float(backward_error(
+                Sf, side.Sigma_inv.cpu().numpy()[live], eye).max(initial=0))
+                for side in (cpu, crd))
+            out["S"] = worst / (SIGMA_C * D * F64_EPS)
+        else:
+            name = {"w": "w", "c": "c"}[f]
+            got = getattr(crd, name).cpu().numpy()
+            want = getattr(cpu, name).cpu().numpy()
+            Mtot = len(model.V)
+            r = 2.0 * _gamma_n(Mtot + I + S, F64_EPS) * 4
+            gam = accs.gamma.cpu().numpy()
+            if f == "w":
+                V = np.abs(model.V.cpu().numpy())
+                terms = (np.abs(want) + 1.5 * (2.0 * gam.sum(1, keepdims=True)
+                                               * np.ones_like(gam)).T @ V
+                         / max(accs.tot_frames, 1.0))
+            else:
+                terms = np.abs(want) + 1e-300
+            out[f] = _worst(got, want, r * terms)
+    return out
+
+
+SIGMA_C = 16.0    # the floored scatter's reconstruction: SIGMA_C D eps64
+
+
+def _accs_to(accs, device):
+    """A shallow copy of an accumulator object (`Sgmm2Accs`,
+    `FmllrSgmm2Accs`) with every tensor on `device`."""
+    import copy
+    import torch
+    out = copy.copy(accs)
+    for k, v in vars(accs).items():
+        if isinstance(v, torch.Tensor):
+            setattr(out, k, v.to(device))
+    return out
+
+
+def sgmm_ebw_card_vs_cpu(model, num, den, card: str = "cuda") -> dict:
+    """`update_sgmm2_ebw` (vMwSc) from the same num / den statistics on both
+    sides: the v, w and M steps' floored quadratic solves held by their
+    backward error against the CPU's floored Q (problems whose floored
+    solve improved on both sides; the others counted), the improvements
+    reported. -> {"v", "w", "M": ratio to `backward_bound`, "fallback":
+    count, "impr": {side: dict}}."""
+    import torch
+    from kaldi_tpu_torch.sgmm import ebw
+    opts = ebw.EbwSgmm2Options()
+    out = {"fallback": 0}
+    cards = (_accs_to(num, card), _accs_to(den, card))
+    mc = model.to(card)
+    for name, fn in (("v", ebw.v_problems), ("w", ebw.w_problems),
+                     ("M", ebw.M_problems)):
+        prob = fn(model, num, den, opts)
+        Q, g = prob[0], prob[1]
+        prob_c = fn(mc, *cards, opts)
+        solve = (ebw._solve_quadratic_matrix if name == "M"
+                 else ebw._solve_quadratic)
+        dc, ic = solve(*(prob_c[:2]))
+        dh, ih = solve(Q, g)
+        w, V = torch.linalg.eigh(0.5 * (Q + Q.transpose(-1, -2)))
+        floor = torch.clamp(w.max(-1).values, min=0.0) / 1e5
+        Qf = (V * torch.maximum(w, floor[:, None])[:, None, :]) \
+            @ V.transpose(-1, -2)
+        # the first branch taken: the floored solve improved the objective
+        live = prob[2].numpy() if len(prob) > 2 else np.ones(len(Q), bool)
+        ok = (ih.numpy() > 0) & (ic.cpu().numpy() > 0) & live
+        worst = 0.0
+        for d in (dh, dc.cpu()):
+            X = d.numpy() if name == "M" else d.numpy()[:, None, :]
+            B = g.numpy() if name == "M" else g.numpy()[:, None, :]
+            be = backward_error(Qf.numpy()[ok], X[ok], B[ok])
+            worst = max(worst, float(be.max(initial=0.0)))
+        out[name] = worst / backward_bound(Q.shape[-1], 1 if name != "M"
+                                           else g.shape[1])
+        out["fallback"] += int((~ok & live).sum())
+    m_cpu, m_card = model.copy(), model.to(card)
+    out["impr"] = {"cpu": ebw.update_sgmm2_ebw(m_cpu, num, den),
+                   card: ebw.update_sgmm2_ebw(m_card, *cards)}
+    return out
+
+
+def sgmm_yesno_system(seed: int, device) -> dict:
+    """tests/test_sgmm.py's yesno SGMM runs built by the port on `device`:
+    RandomState(seed) draws the training and test utterances (2-3 words,
+    MFCC + deltas), a monophone at their options, then
+    `train_sgmm2_system(SgmmTrainOpts(ubm_gauss=8, phn_dim=8))`; seed 13
+    decodes the test set with the GMM and the SGMM through `make_decoder`
+    (test_sgmm2_asr_decode), seed 21 also runs bMMI over the yesno HCLG
+    and decodes with `BeamSearchDecoder` (test_sgmm2_bmmi_e2e). -> WERs,
+    loglikes, objectives, the models."""
+    from kaldi_tpu_torch.decoder.beam_search import (BeamSearchDecoder,
+                                                     BeamSearchOpts)
+    from kaldi_tpu_torch.decoder.dense import make_decoder
+    from kaldi_tpu_torch.decoder.graph_pack import pack_graph
+    from kaldi_tpu_torch.fst.graph import make_hclg
+    from kaldi_tpu_torch.lm.arpa import ArpaLm, arpa_to_g
+    from kaldi_tpu_torch.steps.mono import MonoTrainOpts, train_mono
+    from kaldi_tpu_torch.steps.sgmm_steps import (SgmmAm, SgmmMmiOpts,
+                                                  SgmmTrainOpts,
+                                                  train_sgmm2_bmmi,
+                                                  train_sgmm2_system)
+    cfg = SGMM_YESNO[seed]
+    rng = np.random.RandomState(seed)
+    lang = gmm_stack(YESNO_LEXICON, YESNO_ARPA)[0]
+
+    def corpus(prefix, n):
+        out = []
+        for i in range(n):
+            ws = [rng.choice(["YES", "NO"]) for _ in range(rng.randint(2, 4))]
+            out.append((f"{prefix}{i}", mfcc_deltas(yesno_synth(ws, rng),
+                                                    device), ws))
+        return out
+
+    train, test = corpus("u", cfg["train"]), corpus("t", cfg["test"])
+    gmm = train_mono(lang, train, MonoTrainOpts(**SGMM_YESNO_MONO),
+                     device=device)
+    sam, likes = train_sgmm2_system(gmm, train, SgmmTrainOpts(
+        ubm_gauss=8, phn_dim=8, num_iters=cfg["sgmm_iters"]))
+    g = arpa_to_g(ArpaLm.parse(YESNO_ARPA), lang.words)
+    graph = make_hclg(lang, g, gmm.trans_model, gmm.ctx_dep,
+                      self_loop_scale=0.1)
+    packed = pack_graph(graph.fst, gmm.trans_model.id2pdf_array)
+    bopts = BeamSearchOpts(beam=16.0, max_active=256, acoustic_scale=0.1)
+    dec = (BeamSearchDecoder(packed, bopts, device=device) if cfg["bmmi"]
+           else make_decoder(packed, bopts, device=device))
+    fb, nf = pad_batch([f for _u, f, _w in test])
+    refs = [ws for _u, _f, ws in test]
+
+    def wer_of(am):
+        res = dec.decode(am.loglikes(fb), nf)
+        return wer(refs, [[lang.words.sym(w) for w in r[0]] if r else []
+                          for r in res])
+
+    out = dict(gmm=gmm, sgmm=sam, likes=likes, train=train,
+               wer_gmm=wer_of(gmm.am),
+               wer_sgmm=wer_of(sam))
+    if cfg["bmmi"]:
+        sam2 = SgmmAm(sam.sgmm.copy(), sam.num_gselect)
+        sam2, objs = train_sgmm2_bmmi(gmm, sam2, graph, train,
+                                      SgmmMmiOpts(num_iters=2, boost=0.1))
+        out.update(bmmi=sam2, objs=objs, wer_bmmi=wer_of(sam2))
+    return out
+
+
+def check_sgmm_yesno(check, what: str, r: dict) -> str:
+    """The run's PARITY.md row, as JAX's slow test asserts it: without bMMI
+    (test_sgmm2_asr_decode) :36, SGMM <= GMM + 5.0 and < 20.0 with the
+    loglike rising; with bMMI (test_sgmm2_bmmi_e2e) :37, the objective not
+    falling by more than 1e-3 and WER <= the ML SGMM's."""
+    line = (f"GMM {r['wer_gmm']:.2f}, SGMM {r['wer_sgmm']:.2f} (loglike "
+            f"{r['likes'][0]:.3f} -> {r['likes'][-1]:.3f})")
+    if "objs" not in r:
+        check.require(f"{what}: SGMM loglike rises {r['likes']}",
+                      r["likes"][-1] > r["likes"][0])
+        check.require(f"{what}: SGMM {r['wer_sgmm']:.2f} <= GMM "
+                      f"{r['wer_gmm']:.2f} + 5", r["wer_sgmm"]
+                      <= r["wer_gmm"] + 5.0)
+        check.require(f"{what}: SGMM {r['wer_sgmm']:.2f} < 20",
+                      r["wer_sgmm"] < 20.0)
+        return line
+    check.require(f"{what}: bMMI objective {r['objs']} does not fall",
+                  r["objs"][-1] >= r["objs"][0] - 1e-3)
+    check.require(f"{what}: bMMI {r['wer_bmmi']:.2f} <= ML "
+                  f"{r['wer_sgmm']:.2f}", r["wer_bmmi"] <= r["wer_sgmm"] + 1e-9)
+    return line + (f", bMMI {r['wer_bmmi']:.2f} (objective "
+                   + ", ".join(f"{o:.5f}" for o in r["objs"]) + ")")
+
+
+def toy_am(rng, num_pdfs: int = 3, num_gauss: int = 2, dim: int = 4,
+           device="cpu"):
+    """tests/test_adaptation_extras.py `_toy_am` (its RNG order) as the
+    port's AmDiagGmm on `device`."""
+    from kaldi_tpu_torch.gmm.am_gmm import AmDiagGmm
+    from kaldi_tpu_torch.gmm.diag_gmm import DiagGmm
+    pdfs = []
+    for _ in range(num_pdfs):
+        means = rng.randn(num_gauss, dim) * 3
+        variances = np.ones((num_gauss, dim)) * (0.5 + rng.rand(num_gauss,
+                                                                dim))
+        w = rng.rand(num_gauss) + 0.5
+        pdfs.append(DiagGmm(w / w.sum(), means, variances))
+    return AmDiagGmm(pdfs, device)
+
+
+def _am_on(am, device):
+    from kaldi_tpu_torch.gmm.am_gmm import AmDiagGmm
+    return AmDiagGmm([p.copy() for p in am.pdfs], device)
+
+
+def _regtree_data(rng, am):
+    """test_regression_tree_and_regtree_fmllr's data: 80 frames from each
+    gaussian, aligned to its pdf."""
+    feats, pdfs = [], []
+    for pdf, g in enumerate(am.pdfs):
+        for m in range(g.num_gauss):
+            feats.append(g.means[m] + rng.randn(80, am.dim)
+                         * np.sqrt(g.vars[m]))
+            pdfs.extend([pdf] * 80)
+    return np.concatenate(feats), np.asarray(pdfs)
+
+
+def _mllr_terms(am, feats, post):
+    """RegtreeMllrStats' (K, G) per gaussian with absolute values, the
+    frames weighted by post [T, G]: -> K [G, D, D+1], G [G, D, D+1, D+1]."""
+    mu = np.concatenate([g.means for g in am.pdfs])
+    iv = 1.0 / np.concatenate([g.vars for g in am.pdfs])
+    xi = np.abs(np.concatenate([mu, np.ones((len(mu), 1))], axis=1))
+    gx = post.T @ np.abs(feats)
+    return (np.einsum("gd,gp->gdp", gx * iv, xi),
+            np.einsum("gd,gp,gq->gdpq", post.sum(0)[:, None] * iv, xi, xi))
+
+
+def adapt_card_vs_cpu(card: str = "cuda") -> dict:
+    """tests/test_adaptation_extras.py's and test_fmllr_raw.py's inputs
+    through the port's adaptation transforms on the CPU and on `card`, each
+    held by its arithmetic: -> {check: ratio to its bound (<= 1)}."""
+    import torch
+    from kaldi_tpu_torch.gmm.diag_gmm import DiagGmm
+    from kaldi_tpu_torch.ops.delta import splice_frames
+    from kaldi_tpu_torch.transform import basis_fmllr as bf
+    from kaldi_tpu_torch.transform import fmllr_raw as fr
+    from kaldi_tpu_torch.transform import regtree as rt
+    from kaldi_tpu_torch.transform.fmllr import FmllrStats
+    from kaldi_tpu_torch.transform.hlda import HldaStats, estimate_hlda
+    from kaldi_tpu_torch.transform.lvtln import LinearVtln
+    from kaldi_tpu_torch.nnet.optim import adam, apply_updates
+    out = {}
+    dev = ("cpu", card)
+    r = 2.0 * _gamma_n(4000, F64_EPS)
+
+    # MLLR (test_mllr_recovers_mean_shift)
+    rng = np.random.RandomState(0)
+    am = toy_am(rng)
+    D = am.dim
+    shift = rng.randn(D) * 0.8
+    data = []
+    for g in am.pdfs:
+        for m in range(g.num_gauss):
+            x = g.means[m] + shift + rng.randn(400, D) * np.sqrt(g.vars[m])
+            p = np.zeros((400, g.num_gauss))
+            p[:, m] = 1.0
+            data.append((x, g.means, g.vars, p))
+    st = {d: rt.MllrStats(D, d) for d in dev}
+    for d in dev:
+        for args in data:
+            st[d].accumulate(*args)
+    tK = sum(np.abs(p).T @ np.abs(x) for x, _m, _v, p in data)
+    out["MLLR stats"] = max(
+        _worst(st[card].K.cpu().numpy(), st["cpu"].K.numpy(),
+               r * np.abs(st["cpu"].K.numpy()) + r * tK.max()),
+        _worst(st[card].G.cpu().numpy(), st["cpu"].G.numpy(),
+               r * np.abs(st["cpu"].G.numpy())))
+    eye = np.eye(D + 1)
+    A = np.transpose(st["cpu"].G.numpy() + 1e-8 * eye, (0, 2, 1))
+    out["MLLR solve"] = max(float(backward_error(
+        A, rt.estimate_mllr(st[d]).cpu().numpy()[:, None, :],
+        st["cpu"].K.numpy()[:, None, :]).max()) for d in dev) \
+        / backward_bound(D + 1, 1)
+
+    # regression tree (test_regression_tree_and_regtree_fmllr)
+    rng = np.random.RandomState(1)
+    am = {"cpu": toy_am(rng, num_pdfs=4, num_gauss=2, dim=3)}
+    am[card] = _am_on(am["cpu"], card)
+    feats, pdfs = _regtree_data(rng, am["cpu"])
+    tree = {d: rt.RegressionTree(am[d], num_base_classes=4, device=d)
+            for d in dev}
+    out["tree equal"] = float(tree["cpu"].parent != tree[card].parent or
+                              np.any(tree["cpu"].gauss2leaf
+                                     != tree[card].gauss2leaf))
+    post = [[(int(p), 1.0)] for p in pdfs]
+    acc = {d: rt.RegtreeStats(tree[d], 3) for d in dev}
+    macc = {d: rt.RegtreeMllrStats(tree[d], 3) for d in dev}
+    for d in dev:
+        acc[d].accumulate(am[d], feats, post)
+        macc[d].accumulate(am[d], feats, post)
+    pb = posterior_bound(am["cpu"], am[card], feats, pdfs)
+    g2l = tree["cpu"].gauss2leaf
+    worst = 0.0
+    for leaf in tree["cpu"].leaves:
+        sel = (g2l == leaf)[None, :]
+        b = fmllr_term_scale(am["cpu"], feats, pdfs, pb["bound"] * sel)
+        s = fmllr_term_scale(am["cpu"], feats, pdfs,
+                             _aligned_mask(am["cpu"], pdfs) * sel)
+        for f in ("K", "G"):
+            worst = max(worst, _worst(
+                getattr(acc[card].stats[leaf], f),
+                getattr(acc["cpu"].stats[leaf], f),
+                getattr(b, f) + r * getattr(s, f)))
+    out["regtree fMLLR stats"] = worst
+    kb, gb = _mllr_terms(am["cpu"], feats, pb["bound"])
+    ks, gs = _mllr_terms(am["cpu"], feats, _aligned_mask(am["cpu"], pdfs))
+    oh = tree["cpu"].leaf_onehot().numpy()
+    out["regtree MLLR stats"] = max(
+        _worst(macc[card].K.cpu().numpy(), macc["cpu"].K.numpy(),
+               np.einsum("gl,gdp->ldp", oh, kb + r * ks) + 1e-300),
+        _worst(macc[card].G.cpu().numpy(), macc["cpu"].G.numpy(),
+               np.einsum("gl,gdpq->ldpq", oh, gb + r * gs) + 1e-300))
+    by_leaf = {leaf: np.concatenate([np.eye(3) * 1.1, np.full((3, 1), 0.1)],
+                                    1) for leaf in tree["cpu"].leaves[:2]}
+    ll = {d: rt.regtree_fmllr_loglikes(am[d], tree[d], by_leaf, feats)
+          .cpu().numpy() for d in dev}
+    xa = np.abs(feats) * 1.2 + 0.2
+    mu = np.concatenate([g.means for g in am["cpu"].pdfs])
+    iv = 1.0 / np.concatenate([g.vars for g in am["cpu"].pdfs])
+    terms = (xa @ (np.abs(mu) * iv).T + 0.5 * (xa * xa) @ iv.T
+             + 0.5 * (mu * mu * iv).sum(1) + 10.0).max(1, keepdims=True)
+    out["regtree loglikes"] = _worst(ll[card], ll["cpu"], r * terms)
+
+    # basis fMLLR (test_basis_fmllr)
+    rng = np.random.RandomState(2)
+    dim = 3
+    g = DiagGmm(np.ones(2) / 2, rng.randn(2, dim) * 2, np.ones((2, dim)))
+
+    def spk_stats(n, A, b):
+        s = FmllrStats(dim)
+        for m in range(2):
+            x = (g.means[m] + rng.randn(n, dim)) @ A.T + b
+            p = np.zeros((n, 2))
+            p[:, m] = 1.0
+            s.accumulate(x, g.means, g.vars, p)
+        return s
+
+    train = [spk_stats(150, np.eye(dim) + rng.randn(dim, dim) * 0.1,
+                       rng.randn(dim) * 0.3) for _ in range(12)]
+    accus = {d: bf.BasisFmllrAccus(dim, d) for d in dev}
+    for s in train:
+        for d in dev:
+            accus[d].accumulate_from_speaker(s)
+    gs_cpu = accus["cpu"].grad_scatter.numpy()
+    vmax = np.sqrt(np.diag(gs_cpu))
+    out["basis scatter"] = max(
+        _worst(accus[card].grad_scatter.cpu().numpy(), gs_cpu,
+               r * np.outer(vmax, vmax) * 4 + 1e-300),
+        _worst(accus[card].H.cpu().numpy(), accus["cpu"].H.numpy(),
+               r * np.abs(accus["cpu"].H.numpy()) + 1e-300))
+    basis = {d: bf.estimate_fmllr_basis(accus[d], 6) for d in dev}
+    Vb = basis[card].reshape(6, -1).cpu().numpy()
+    out["basis orthonormal"] = float(np.abs(
+        Vb @ bf._hbar(accus["cpu"]).numpy() @ Vb.T - np.eye(6)).max()) / 1e-8
+    test = spk_stats(60, np.eye(dim) * 1.1, np.array([0.5, -0.2, 0.1]))
+    W0 = np.concatenate([np.eye(dim), np.zeros((dim, 1))], 1)
+    grads = {d: bf._auxf_gradient(torch.as_tensor(W0, device=d),
+                                  *bf._stats_on(test, d)).cpu().numpy()
+             for d in dev}
+    out["basis gradient"] = _worst(grads[card], grads["cpu"],
+                                   1e-9 * np.abs(grads["cpu"]).max())
+    Bc = basis["cpu"]
+    res = {d: bf.compute_basis_fmllr_transform(test, Bc.to(d), eta=0.05)
+           for d in dev}
+    out["basis transform (auxiliary)"] = abs(
+        res[card][2] - res["cpu"][2]) / (LINE_SEARCH_LIMIT * max(
+            abs(res["cpu"][2]), 1.0))
+    out["basis coefficients equal"] = float(res[card][1] != res["cpu"][1])
+
+    # LVTLN (test_lvtln_selects_matching_warp)
+    rng = np.random.RandomState(3)
+    dim = 4
+    lv = {d: LinearVtln(dim, [0.9, 1.0, 1.1], d) for d in dev}
+    maps = {0: np.eye(dim) * 0.8 + 0.05, 1: np.eye(dim),
+            2: np.eye(dim) * 1.25 - 0.05}
+    X = rng.randn(2000, dim)
+    worst = 0.0
+    for c, Mc in maps.items():
+        for d in dev:
+            lv[d].train_class(c, X, X @ Mc.T)
+            Gn = X.T @ X + 1e-6 * np.eye(dim)
+            worst = max(worst, float(backward_error(
+                Gn[None], lv[d].A[c].cpu().numpy()[None],
+                (X.T @ (X @ Mc.T)).T[None]).max()))
+    out["LVTLN solves"] = worst / backward_bound(dim, dim)
+    g1 = DiagGmm(np.ones(1), np.zeros((1, dim)), np.ones((1, dim)))
+    xs = rng.randn(500, dim) @ np.linalg.inv(maps[2]).T
+    s = FmllrStats(dim)
+    s.accumulate(xs, g1.means, g1.vars, np.ones((500, 1)))
+    sel = {d: lv[d].select_class(s) for d in dev}
+    out["LVTLN class equal"] = float(sel[card][0] != sel["cpu"][0]
+                                     or sel["cpu"][0] != 2)
+    out["LVTLN auxiliaries"] = _worst(sel[card][2], sel["cpu"][2], 1e-9 * (
+        np.abs(sel["cpu"][2]) + 1.0))
+
+    # HLDA (test_hlda_finds_informative_dims)
+    rng = np.random.RandomState(4)
+    hs = {d: HldaStats(5, d) for d in dev}
+    cm = np.zeros((3, 5))
+    cm[:, 0] = [-4, 0, 4]
+    cm[:, 1] = [3, -3, 0]
+    xs = []
+    for c in range(3):
+        x = cm[c] + rng.randn(500, 5)
+        xs.append(np.abs(x))
+        for d in dev:
+            hs[d].accumulate(x, np.full(500, c), 3)
+    xa = np.concatenate(xs)
+    out["HLDA stats"] = max(
+        _worst(hs[card].total_2nd.cpu().numpy(), hs["cpu"].total_2nd.numpy(),
+               r * xa.T @ xa),
+        _worst(hs[card].class_mean_acc.cpu().numpy(),
+               hs["cpu"].class_mean_acc.numpy(), r * xa.sum(0) + 1e-300))
+    hl = {d: estimate_hlda(hs[d], 2) for d in dev}
+    out["HLDA (auxiliary)"] = abs(hl[card][1] - hl["cpu"][1]) / (
+        LINE_SEARCH_LIMIT * max(abs(hl["cpu"][1]), 1.0))
+
+    # raw fMLLR (test_fmllr_raw_recovers_distortion)
+    rng = np.random.RandomState(0)
+    d_raw, L, R, Dm = 3, 1, 1, 4
+    proj = rng.randn(Dm, (L + R + 1) * d_raw) * 0.4
+    Tmat = np.concatenate([proj, np.zeros((Dm, 1))], axis=1)
+    clean = rng.randn(800, d_raw) * 1.5 + rng.randn(d_raw)
+    y = splice_frames(torch.as_tensor(clean), L, R).numpy() @ proj.T
+    pid = (y[:, 0] > np.median(y[:, 0])).astype(int)
+    from kaldi_tpu_torch.gmm.am_gmm import AmDiagGmm
+    am_r = {"cpu": AmDiagGmm([DiagGmm(np.ones(1), y[pid == c].mean(0)[None],
+                                      y[pid == c].var(0)[None] + 1e-3)
+                              for c in (0, 1)], "cpu")}
+    am_r[card] = _am_on(am_r["cpu"], card)
+    distorted = clean @ (np.eye(d_raw) * 1.3).T + np.array([0.5, -0.3, 0.2])
+    accs = {d: fr.FmllrRawAccs(d_raw, L, R, d) for d in dev}
+    for d in dev:
+        accs[d].accumulate_from_alignment(am_r[d], distorted[:400], Tmat,
+                                          pid[:400])
+    st = {d: accs[d].stacked() for d in dev}
+    out["raw accumulators"] = max(
+        float((st[card][i].cpu() - st["cpu"][i]).abs().max()
+              / (2 * F32_EPS * st["cpu"][i].abs().max() + 1e-30))
+        for i in range(4))
+    # one Adam step from the same accumulators (the CPU's, copied over)
+    X, mu, iv, gam = st["cpu"]
+    beta = accs["cpu"].beta()
+    W1 = {}
+    for d in dev:
+        W = torch.as_tensor(W0, dtype=torch.float32, device=d) \
+            .requires_grad_(True)
+        args = [a.to(d) for a in (X, torch.as_tensor(Tmat, dtype=torch.float32),
+                                  mu, iv, gam)]
+        (-fr.fmllr_raw_auxf(W, *args, beta, d_raw, L + R + 1)).backward()
+        tx = adam(0.03)
+        upd, _s = tx.update({"W": W.grad}, tx.init({"W": W.detach()}))
+        W1[d] = apply_updates({"W": W.detach()}, upd)["W"].cpu().numpy()
+    out["raw one Adam step"] = _worst(W1[card], W1["cpu"], RAW_STEP_LIMIT
+                                      * np.abs(W1["cpu"]).max())
+    accs_c = fr.FmllrRawAccs(d_raw, L, R, card)
+    accs_c._chunks = [tuple(a.to(card) for a in c)
+                      for c in accs["cpu"]._chunks]
+    run = {"cpu": fr.estimate_fmllr_raw(accs["cpu"], Tmat, 300, 0.03),
+           card: fr.estimate_fmllr_raw(accs_c, Tmat, 300, 0.03)}
+    out["raw Adam run (objective)"] = abs(run[card][1] - run["cpu"][1]) / (
+        RAW_RUN_LIMIT * abs(run["cpu"][1]))
+    out["raw W difference (reported)"] = float(np.abs(
+        run[card][0] - run["cpu"][0]).max())
+    return out
+
+
+def sgmm_extras_card_vs_cpu(su: dict, card: str = "cuda") -> dict:
+    """SGMM fMLLR, gpost, the pre-transform, the fMLLR basis and the state
+    distances of `sgmm_small_setup`'s model (after the ML updates "vc",
+    "Mc") on the CPU and `card`. -> {check: ratio to its bound}."""
+    from kaldi_tpu_torch.sgmm import Sgmm2Accs, update_sgmm2
+    from kaldi_tpu_torch.sgmm import prexform as px
+    from kaldi_tpu_torch.sgmm.fmllr import (FmllrSgmm2Accs,
+                                            estimate_sgmm2_fmllr)
+    from kaldi_tpu_torch.sgmm.gpost import compute_gpost
+    m = su["model"].copy()
+    feats, post = su["feats"], su["post"]
+    for f in ("vc", "Mc"):
+        a = Sgmm2Accs(m)
+        a.accumulate(m, feats, post, 4)
+        update_sgmm2(m, a, f)
+    occ = a.state_occs()
+    side = {"cpu": m, "card": m.to(card)}
+    out = {}
+    bad = feats @ (np.eye(4) * 0.7).T + 0.8
+    fa = {}
+    for d, md in side.items():
+        fa[d] = FmllrSgmm2Accs(md)
+        fa[d].accumulate(md, bad, post)
+    xa = np.concatenate([np.abs(bad), np.ones((len(bad), 1))], 1)
+    Gt = xa.T @ xa
+    Kt = (np.abs(m.Sigma_inv.numpy()).sum(0) @ np.abs(m.means().numpy())
+          .max((0, 1))[:, None]) * xa.sum(0)[None]
+    r = 1e-9
+    out["SGMM fMLLR stats"] = max(
+        _worst(fa["card"].K.cpu().numpy(), fa["cpu"].K.numpy(), r * Kt),
+        _worst(fa["card"].G.cpu().numpy(), fa["cpu"].G.numpy(),
+               r * Gt[None]),
+        abs(fa["card"].beta - fa["cpu"].beta) / (r * len(bad)))
+    fa_on = {"cpu": fa["cpu"], "card": _accs_to(fa["cpu"], card)}
+    gr = {d: px.fmllr_grad_at_identity(fa_on[d], side[d]).cpu().numpy()
+          for d in side}
+    out["SGMM fMLLR gradient"] = _worst(gr["card"], gr["cpu"], 1e-9 * np.abs(
+        gr["cpu"]).max())
+    est = {d: estimate_sgmm2_fmllr(fa_on[d], side[d]) for d in side}
+    out["SGMM fMLLR (auxiliary)"] = abs(est["card"][1] - est["cpu"][1]) / (
+        LINE_SEARCH_LIMIT * max(abs(est["cpu"][1]), 1.0))
+    pre = {d: [t.cpu().numpy() for t in px.compute_prexform(side[d], occ)]
+           for d in side}
+    out["pre-transform"] = max(_worst(a, b, 1e-9 * np.abs(b).max())
+                               for a, b in zip(pre["card"], pre["cpu"]))
+    dist = {d: px.state_distances(side[d], occ).cpu().numpy() for d in side}
+    out["state distances"] = _worst(dist["card"], dist["cpu"],
+                                    1e-9 * np.abs(dist["cpu"]).max())
+    fb = {}
+    for d in side:
+        a2 = FmllrSgmm2Accs(side[d])
+        a2.accumulate(side[d], su["spk_feats"], su["spk_post"])
+        fb[d] = [fa_on[d], a2]
+    basis = {d: px.estimate_fmllr_basis(side[d], fb[d], 4).cpu().numpy()
+             for d in side}
+    cos = np.abs((basis["card"][0] * basis["cpu"][0]).sum())
+    out["fMLLR basis (top direction)"] = abs(1.0 - cos) / 1e-9
+    gp = {d: compute_gpost(side[d], feats[:60], post[:60], 3) for d in side}
+    worst, sets = 0.0, 0
+    for fc, fp in zip(gp["card"], gp["cpu"]):
+        for (jc, gc, pc), (jp, gq, pq) in zip(fc, fp):
+            if jc != jp or set(gc) != set(gq):
+                sets += 1
+                continue
+            oc, op = np.argsort(gc), np.argsort(gq)
+            worst = max(worst, _worst(pc[:, oc], pq[:, op],
+                                      2 * F32_EPS * np.abs(pq) + 1e-12))
+    out["gpost"] = worst
+    out["gpost sets differ"] = float(sets)
+    return out
+
+
+
+def sgmm_loglikes_card_vs_cpu(model, x, K: int, spk=None,
+                              card: str = "cuda") -> float:
+    """`loglikes_matrix` on both sides over the same frames: the largest
+    difference over 2 gamma_n (n = D^2 + S + I) of its terms' magnitude
+    (|n_jmi| + |z||v| + |x' Sigma^-1 x| / 2, bounded per frame)."""
+    a = model.loglikes_matrix(x, K, spk).numpy()
+    mc = model.to(card)
+    sc = None if spk is None else type(spk)(spk.v.to(card))
+    b = mc.loglikes_matrix(x, K, sc).cpu().numpy()
+    I, D, S = model.M.shape
+    xa = np.abs(np.asarray(x, np.float64))
+    Sinv = np.abs(model.Sigma_inv.numpy())
+    quad = 0.5 * np.einsum("td,ide,te->ti", xa, Sinv, xa).max(1)
+    z = xa @ np.abs(model.SinvM.numpy()).transpose(1, 0, 2).reshape(D, -1)
+    zv = z.max(1) * np.abs(model.V.numpy()).sum(1).max()
+    nrm = np.abs(model.normalizers().numpy()).max()
+    terms = (quad + zv + nrm + np.abs(a).max(1))[:, None]
+    return _worst(b, a, 2.0 * _gamma_n(D * D + S + I, F64_EPS) * 4 * terms)
+
+
+def phase_adapt_sgmm_small():
+    """Phase 27: the adaptation transforms and SGMM2 small, card vs CPU,
+    every check by a bound its arithmetic sets, each ratio logged."""
+    from kaldi_tpu_torch.nnet import quantized as q
+    from kaldi_tpu_torch.ops import table_gather as tg
+    from kaldi_tpu_torch.sgmm import Sgmm2Accs, estimate_speaker_vector
+    q.launches = tg.launches = 0
+    t0 = time.perf_counter()
+    check = _Limits()
+    su = sgmm_small_setup("cpu")
+    m, feats, post = su["model"], su["feats"], su["post"]
+    K = SGMM_SMALL["num_gselect"]
+    spk = estimate_speaker_vector(m, su["spk_feats"], su["spk_post"], K)
+    spk_c = estimate_speaker_vector(m.to("cuda"), su["spk_feats"],
+                                    su["spk_post"], K)
+    r_spk = _worst(spk_c.v.cpu().numpy(), spk.v.numpy(),
+                   1e-9 * np.abs(spk.v.numpy()).max())
+    check("speaker vector over 1e-9 of its largest entry", r_spk, 1.0)
+    ll = {"plain": sgmm_loglikes_card_vs_cpu(m, feats, K),
+          "speaker": sgmm_loglikes_card_vs_cpu(m, su["spk_feats"], K, spk)}
+    for k, v in ll.items():
+        check(f"loglikes_matrix ({k}) over its bound", v, 1.0)
+    lines = []
+    for what, x, pst, sp in (("plain", feats, post, None),
+                             ("speaker", su["spk_feats"], su["spk_post"],
+                              spk)):
+        e = sgmm_stats_card_vs_cpu(m, x, pst, K, sp)
+        for k in ("gamma", "y", "Y", "Q", "S_centered", "tot_like"):
+            check(f"accumulation ({what}) {k} over its bound", e[k], 1.0)
+        check(f"accumulation ({what}) unjustified gselect flips",
+              e["unjustified"], 0)
+        lines.append(f"{what}: " + ", ".join(
+            f"{k} {e[k]:.3f}" for k in ("gamma", "y", "Y", "Q", "S_centered",
+                                        "tot_like"))
+            + f", gselect flips {e['flips']}, loglikes {e['ll']:.2e} of "
+            f"their scale")
+        if what == "plain":
+            accs = e["accs"]
+    up = sgmm_update_card_vs_cpu(m, accs, "vMwSc")
+    for k, v in up.items():
+        check(f"update {k} over its bound", v, 1.0)
+    # EBW on num (alignment) / den (the model's own state posteriors)
+    llm = m.loglikes_matrix(feats, K).numpy()
+    p = np.exp(llm - llm.max(1, keepdims=True))
+    p /= p.sum(1, keepdims=True)
+    den_post = [[(j, float(p[t, j])) for j in range(3) if p[t, j] > 1e-6]
+                for t in range(len(feats))]
+    num, den = Sgmm2Accs(m), Sgmm2Accs(m)
+    num.accumulate(m, feats, post, K)
+    den.accumulate(m, feats, den_post, K)
+    eb = sgmm_ebw_card_vs_cpu(m, num, den)
+    for k in ("v", "w", "M"):
+        check(f"EBW {k} solves over their bound", eb[k], 1.0)
+    ex = sgmm_extras_card_vs_cpu(su)
+    for k, v in ex.items():
+        check(f"{k}", v, 1.0 if "differ" not in k else 0.0)
+    log("  (i) SGMM2 core at tests/test_sgmm.py's sgmm_setup (I 4, D 4, S "
+        f"5, T 2, {int(m.offsets[-1])} substates, gselect {K}), ratios to "
+        f"their bounds: speaker vector {r_spk:.3f}; loglikes_matrix "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ll.items()) + "; statistics "
+        + "; ".join(lines) + "; updates " + ", ".join(
+            f"{k} {v:.3f}" for k, v in up.items())
+        + f"; EBW solves v {eb['v']:.3f}, w {eb['w']:.3f}, M {eb['M']:.3f} "
+        f"({eb['fallback']} fell back), improvements card "
+        + str({k: round(v, 6) for k, v in eb["impr"]["cuda"].items()})
+        + " CPU " + str({k: round(v, 6) for k, v in eb["impr"]["cpu"].items()})
+        + "; " + ", ".join(f"{k} {v:.3f}" for k, v in ex.items()))
+    ad = adapt_card_vs_cpu()
+    for k, v in ad.items():
+        if "reported" in k:
+            continue
+        check(k, v, 0.0 if ("equal" in k) else 1.0)
+    log("  (ii) adaptation transforms at tests/test_adaptation_extras.py's "
+        "and test_fmllr_raw.py's inputs, ratios to their bounds: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in ad.items()))
+    # (iii) the yesno SGMM runs on both devices, PARITY.md:36-37
+    for seed in SGMM_YESNO:
+        res = {}
+        for d in ("cuda", "cpu"):
+            t = time.perf_counter()
+            res[d] = sgmm_yesno_system(seed, d)
+            res[d]["secs"] = time.perf_counter() - t
+        lines = [f"{d} " + check_sgmm_yesno(check, f"yesno {seed} {d}",
+                                            res[d])
+                 + f" in {res[d]['secs']:.3f} s" for d in res]
+        sg = res["cpu"]["sgmm"]
+        e = sgmm_stats_card_vs_cpu(
+            sg.sgmm, np.concatenate([f for f, _p in _aligned_yesno(res)]),
+            _yesno_entries(res), sg.num_gselect)
+        for k in ("gamma", "y", "Y", "Q", "S_centered", "tot_like"):
+            check(f"yesno {seed} accumulation {k} over its bound", e[k], 1.0)
+        check(f"yesno {seed} unjustified gselect flips", e["unjustified"], 0)
+        log(f"  (iii) yesno SGMM (RandomState {seed}): " + "; ".join(lines)
+            + "; the CPU SGMM's statistics card vs CPU (I 8, D 39): "
+            + ", ".join(f"{k} {e[k]:.3f}" for k in (
+                "gamma", "y", "Y", "Q", "S_centered", "tot_like"))
+            + f", gselect flips {e['flips']}")
+    check.require(f"qaffine launched {q.launches} times", q.launches == 0)
+    check.require(f"the gather launched {tg.launches} times", tg.launches == 0)
+    check.done("phase 27")
+    log(f"  phase 27 took {time.perf_counter() - t0:.3f} s; neither kernel "
+        f"launched")
+
+
+def _aligned_yesno(res: dict) -> list:
+    """The CPU yesno system's training alignments [(feats, pdfs)]."""
+    from kaldi_tpu_torch.steps.tdnn import align_with_gmm
+    r = res["cpu"]
+    if "aligned" not in r:
+        r["aligned"] = align_with_gmm(r["gmm"], r["train"])
+    return r["aligned"]
+
+
+def _yesno_entries(res: dict) -> tuple:
+    pdfs = np.concatenate([p for _f, p in _aligned_yesno(res)])
+    return (np.arange(len(pdfs)), pdfs, np.ones(len(pdfs)))
+
+
 def device_time(fn) -> tuple[float, int, dict]:
     """Run fn under torch.profiler. -> (device busy seconds: the sum of
     kernel, memcpy and memset durations, which do not overlap on one
@@ -5680,13 +7091,13 @@ def main() -> int:
 
     resolve_device("cuda")                # also turns TF32 off
     card = card_info()
-    log(f"[1/26] card: {card} | torch {torch.__version__} CUDA "
+    log(f"[1/28] card: {card} | torch {torch.__version__} CUDA "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
 
     t = time.perf_counter()
     libs = cuda_build.build()
-    log(f"[2/26] build: {len(libs)} kernels in {time.perf_counter() - t:.3f} "
+    log(f"[2/28] build: {len(libs)} kernels in {time.perf_counter() - t:.3f} "
         f"s (one nvcc each, in parallel)")
     for name, so in libs.items():
         with open(os.path.join(os.path.dirname(so), "nvcc.log")) as f:
@@ -5694,64 +7105,71 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]
         log(f"  {os.path.relpath(so, ROOT)}: {' | '.join(regs)}")
 
-    log("[3/26] table-gather kernel vs plain version")
+    log("[3/28] table-gather kernel vs plain version")
     k = phase_kernel(tg)
-    log("[4/26] qaffine kernel vs plain version")
+    log("[4/28] qaffine kernel vs plain version")
     qk = phase_qaffine(q)
-    log("[5/26] decoder on the card vs on the CPU")
+    log("[5/28] decoder on the card vs on the CPU")
     phase_decoder_parity()
-    log("[6/26] int8 decode on the card vs on the CPU")
+    log("[6/28] int8 decode on the card vs on the CPU")
     phase_int8_parity()
-    log("[7/26] full-width serving slice (bf16 TDNN)")
+    log("[7/28] full-width serving slice (bf16 TDNN)")
     sl = phase_slice(tg, card, profile="--profile" in sys.argv[1:])
-    log("[8/26] full-width int8 serving slice")
+    log("[8/28] full-width int8 serving slice")
     s8 = phase_int8_slice(q, tg, sl, card)
-    log("[9/26] streaming server, small: card vs CPU vs offline")
+    log("[9/28] streaming server, small: card vs CPU vs offline")
     phase_stream_small()
-    log("[10/26] streaming server, full width")
+    log("[10/28] streaming server, full width")
     st = phase_stream_full(tg, sl, card, profile="--profile" in sys.argv[1:])
-    log("[11/26] lattice path, small: card vs CPU, native vs numpy")
+    log("[11/28] lattice path, small: card vs CPU, native vs numpy")
     phase_lattice_small()
-    log("[12/26] training, small: card vs CPU")
+    log("[12/28] training, small: card vs CPU")
     phase_train_small()
-    log("[13/26] training, full width: the bench's AM with the port's "
+    log("[13/28] training, full width: the bench's AM with the port's "
         "train step")
     tr = phase_train_full(sl, card, profile="--profile" in sys.argv[1:])
-    log("[14/26] lattice path, full width (latgen at the bench's point)")
+    log("[14/28] lattice path, full width (latgen at the bench's point)")
     lt = phase_lattice_full(tg, sl, tr, card)
-    log("[15/26] online path, small: card vs CPU vs offline")
+    log("[15/28] online path, small: card vs CPU vs offline")
     phase_online_small()
-    log("[16/26] online path, full width (scripts/bench_streaming.py's "
+    log("[16/28] online path, full width (scripts/bench_streaming.py's "
         "configuration)")
     on = phase_online_full(tg, card, profile="--profile" in sys.argv[1:])
-    log("[17/26] GMM path, small: card vs CPU")
+    log("[17/28] GMM path, small: card vs CPU")
     phase_gmm_small()
-    log("[18/26] GMM path, full width: monophone training, the dense "
+    log("[18/28] GMM path, full width: monophone training, the dense "
         "decoder's serving lines")
     phase_gmm_full(tr, card, profile="--profile" in sys.argv[1:])
-    log("[19/26] triphone ladder, small: card vs CPU")
+    log("[19/28] triphone ladder, small: card vs CPU")
     phase_ladder_small()
-    log("[20/26] triphone ladder, full width: mono -> tri -> LDA+MLLT -> "
+    log("[20/28] triphone ladder, full width: mono -> tri -> LDA+MLLT -> "
         "TDNN, and SAT")
     ld = phase_ladder_full(card, profile="--profile" in sys.argv[1:])
-    log("[21/26] discriminative path, small: card vs CPU on shared "
+    log("[21/28] discriminative path, small: card vs CPU on shared "
         "lattices")
     phase_disc_small()
-    log("[22/26] discriminative path, full width: the rm-like pyramid with "
+    log("[22/28] discriminative path, full width: the rm-like pyramid with "
         "bMMI and fMMI, then bMMI and TDNN sMBR on the ladder's models")
     dk = phase_disc_full(card, ld, profile="--profile" in sys.argv[1:])
-    log("[23/26] nnet3 and nnet1 families, small: card vs CPU")
+    log("[23/28] nnet3 and nnet1 families, small: card vs CPU")
     phase_nnet_small()
-    log("[24/26] nnet3 and nnet1 families at the ladder's width: nnet3 "
+    log("[24/28] nnet3 and nnet1 families at the ladder's width: nnet3 "
         "TDNN and LSTM, the wide LSTM, the DBN")
     nn = phase_nnet_full(card, ld, profile="--profile" in sys.argv[1:])
-    log("[25/26] speaker recognition, small: sre10 v1 and v2 card vs CPU, "
+    log("[25/28] speaker recognition, small: sre10 v1 and v2 card vs CPU, "
         "each stage within its bound, logistic regression, VAD")
     phase_sre_small()
-    log("[26/26] speaker recognition at sre10's width (2048 gaussians, "
+    log("[26/28] speaker recognition at sre10's width (2048 gaussians, "
         "600-dim i-vectors, 60-dim features): v1 and v2, then logistic "
         "regression")
     sr = phase_sre_full(card, ld)
+    log("[27/28] adaptation transforms and SGMM2, small: card vs CPU, each "
+        "check within its bound, the yesno SGMM runs at PARITY.md:36-37")
+    phase_adapt_sgmm_small()
+    log("[28/28] adaptation and SGMM2 at the ladder's width: raw, basis, "
+        "regression-tree and global fMLLR, MLLR, LVTLN, HLDA; SGMM2 at "
+        "egs/rm's sgmm2_4a widths, bMMI, SGMM fMLLR")
+    ad = phase_adapt_sgmm_full(card, ld)
 
     g_shape = GATHER_SHAPES[0]
     ms, plain_ms, library_ms, floor_ms = k["times"][g_shape]
@@ -5761,9 +7179,11 @@ def main() -> int:
         f"{on['launches']} on the fused online path, {ld['launches']} on "
         f"the triphone ladder's decodes, {dk['launches']} on the "
         f"discriminative path's, {nn['launches']} on the nnet families', "
-        f"{sr['gather_launches']} on the speaker-recognition path's; "
+        f"{sr['gather_launches']} on the speaker-recognition path's, "
+        f"{ad['launches']} on the adaptation and SGMM path's; "
         f"qaffine {s8['launches']} on the int8 slice, "
-        f"{sr['qaffine_launches']} on the speaker-recognition path's")
+        f"{sr['qaffine_launches']} on the speaker-recognition path's, 0 on "
+        f"the adaptation and SGMM path's (phases 27-28 assert it)")
     log(card)
     log(json.dumps({"kernels": [{
         "name": "batched_table_gather", "route": "cuda",
@@ -5793,7 +7213,8 @@ def main() -> int:
             "shape": list(sh), "ms": t[0], "plain_ms": t[1],
             "library_ms": t[2], "bound_ms": gather_bound_ms(*sh)}
             for sh, t in nn["gather_times"].items()],
-        "sre_launches": sr["gather_launches"]}, {
+        "sre_launches": sr["gather_launches"],
+        "adapt_sgmm_launches": ad["launches"]}, {
         "name": "qaffine", "route": "cuda",
         "source": "kaldi_tpu_torch/csrc/qaffine.cu",
         "replaces": "kaldi_tpu/nnet/quantized.py:46",
@@ -5806,7 +7227,8 @@ def main() -> int:
         "three_pass_bound_ms": qk["three_pass_bound_ms"],
         "fp32_bound_ms": qk["fp32_bound_ms"],
         "library_ms": qk["library_ms"],
-        "sre_launches": sr["qaffine_launches"]}]}))
+        "sre_launches": sr["qaffine_launches"],
+        "adapt_sgmm_launches": 0}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -379,3 +379,80 @@ def am_nnet3_from_jax(am, device="cuda"):
     net = Nnet3(am.model.config_text, device=device)
     net.load_state_dict(nnet3_params_from_jax(am.params))
     return AmNnet3(net, np.array(am.priors))
+
+
+def sgmm2_from_jax(model, device="cuda"):
+    """A kaldi_tpu `AmSgmm2` (numpy Sigma_inv, M, w, N, per-state lists v
+    and c, optional norm_set_ids) -> the port's, its substates flat in
+    JAX's (state, substate) order, on `device`."""
+    from kaldi_tpu_torch.device import resolve_device
+    from kaldi_tpu_torch.sgmm.model import AmSgmm2
+    out = object.__new__(AmSgmm2)
+    out.device = resolve_device(device)
+    out.Sigma_inv = out._t(model.Sigma_inv)
+    out.M = out._t(model.M)
+    out.w = out._t(model.w)
+    out.N = None if model.N is None else out._t(model.N)
+    out.V = out._t(np.concatenate([np.stack(vj) for vj in model.v]))
+    out.c = out._t(np.concatenate([np.asarray(cj) for cj in model.c]))
+    out.offsets = np.concatenate(
+        [[0], np.cumsum([len(cj) for cj in model.c])]).astype(np.int64)
+    sets = getattr(model, "norm_set_ids", None)
+    out.norm_set_ids = None if sets is None else np.asarray(sets)
+    out._update_derived()
+    return out
+
+
+def sgmm2_to_lists(model) -> tuple[list, list]:
+    """The port's flat V and c -> JAX's per-state lists (numpy)."""
+    V, c = model.V.cpu().numpy(), model.c.cpu().numpy()
+    o = model.offsets
+    return ([list(V[o[j]:o[j + 1]]) for j in range(model.num_states)],
+            [c[o[j]:o[j + 1]] for j in range(model.num_states)])
+
+
+def regression_tree_from_jax(tree, device="cuda"):
+    """A kaldi_tpu `RegressionTree` -> the port's, with the same nodes,
+    members, leaves and gaussian-to-leaf map."""
+    from kaldi_tpu_torch.device import resolve_device
+    from kaldi_tpu_torch.transform.regtree import RegressionTree
+    out = object.__new__(RegressionTree)
+    out.device = resolve_device(device)
+    out.means = np.array(tree.means)
+    out.owner = list(tree.owner)
+    out.parent = list(tree.parent)
+    out.members = [np.array(m) for m in tree.members]
+    out.leaves = list(tree.leaves)
+    out.gauss2leaf = np.array(tree.gauss2leaf)
+    return out
+
+
+def linear_vtln_from_jax(lv, device="cuda"):
+    """A kaldi_tpu `LinearVtln` -> the port's, the class matrices on
+    `device`."""
+    from kaldi_tpu_torch.transform.lvtln import LinearVtln
+    out = LinearVtln(lv.A.shape[1], lv.warps, device=device)
+    out.A = torch.as_tensor(np.asarray(lv.A), dtype=torch.float64,
+                            device=out.device)
+    return out
+
+
+def fmllr_stats_from_jax(stats):
+    """A kaldi_tpu `FmllrStats` -> the port's (f64 host arrays)."""
+    from kaldi_tpu_torch.transform.fmllr import FmllrStats
+    out = FmllrStats(stats.K.shape[0])
+    out.beta, out.K, out.G = float(stats.beta), np.array(stats.K), \
+        np.array(stats.G)
+    return out
+
+
+def fmllr_raw_accs_from_jax(accs, device="cuda"):
+    """A kaldi_tpu `FmllrRawAccs` (per-frame windows, means, inverse
+    variances, gaussian posteriors) -> the port's, padded as JAX pads
+    them, on `device`."""
+    from kaldi_tpu_torch.transform.fmllr_raw import FmllrRawAccs
+    out = FmllrRawAccs(accs.d, accs.L, accs.R, device=device)
+    if accs.windows:
+        out.add_frames(np.stack(accs.windows), accs.means, accs.inv_vars,
+                       accs.gammas)
+    return out

@@ -12,7 +12,10 @@ train_frmshuff, train_lstm_streams, a CD-1 update, an nnet3 sMBR step)
 and the speaker-recognition path (the diag and the full UBM's and the
 gselect statistics within their bounds, an extractor E-step and M-step
 for v1 and v2, sre10 v1 and v2 end to end with equal EERs, logistic
-regression) on a CUDA device.
+regression) and the adaptation and SGMM2 path (`loglikes_matrix` and the
+SGMM2 statistics within their bounds, the updates and EBW solves by their
+backward error, SGMM fMLLR, gpost and the pre-transform, raw, basis and
+regression-tree fMLLR, MLLR, LVTLN and HLDA) on a CUDA device.
 Each test skips without a card. This file imports no jax, so it runs on
 a machine that has only torch:
 
@@ -704,3 +707,46 @@ def test_logistic_regression_card_equals_cpu(card):
     assert abs(loss["cuda"] - loss["cpu"]) <= 1e-5 * abs(loss["cpu"])
     np.testing.assert_array_equal(lr["cuda"].classify(X),
                                   lr["cpu"].classify(X))
+
+
+def _sgmm_small():
+    import chip_smoke as cs
+    return cs.sgmm_small_setup("cpu")
+
+
+def test_sgmm_loglikes_and_statistics_card_within_their_bounds(card):
+    """`loglikes_matrix` and the SGMM2 accumulation (gamma, y, Y, Q,
+    S_centered, the total loglike) card vs CPU, plain and with a speaker
+    vector, each within its bound (chip_smoke's phase 27 helpers)."""
+    import chip_smoke as cs
+    from kaldi_tpu_torch.sgmm import estimate_speaker_vector
+    su = _sgmm_small()
+    m = su["model"]
+    spk = estimate_speaker_vector(m, su["spk_feats"], su["spk_post"], 3)
+    assert cs.sgmm_loglikes_card_vs_cpu(m, su["feats"], 3) <= 1.0
+    assert cs.sgmm_loglikes_card_vs_cpu(m, su["spk_feats"], 3, spk) <= 1.0
+    for x, post, sp in ((su["feats"], su["post"], None),
+                        (su["spk_feats"], su["spk_post"], spk)):
+        e = cs.sgmm_stats_card_vs_cpu(m, x, post, 3, sp)
+        assert e["unjustified"] == 0
+        for k in ("gamma", "y", "Y", "Q", "S_centered", "tot_like"):
+            assert e[k] <= 1.0, (k, e[k])
+
+
+def test_sgmm_updates_ebw_and_extras_card_within_their_bounds(card):
+    import chip_smoke as cs
+    su = _sgmm_small()
+    m = su["model"]
+    e = cs.sgmm_stats_card_vs_cpu(m, su["feats"], su["post"], 3)
+    up = cs.sgmm_update_card_vs_cpu(m, e["accs"], "vMwSc")
+    assert max(up.values()) <= 1.0, up
+    ex = cs.sgmm_extras_card_vs_cpu(su)
+    for k, v in ex.items():
+        assert v <= (0.0 if "differ" in k else 1.0), (k, v)
+
+
+def test_adaptation_transforms_card_within_their_bounds(card):
+    import chip_smoke as cs
+    for k, v in cs.adapt_card_vs_cpu().items():
+        if "reported" not in k:
+            assert v <= (0.0 if "equal" in k else 1.0), (k, v)

@@ -26,7 +26,16 @@ the full GMM's batch path (`FullGmm.device_pack` / `loglikes_batch` /
 (`IvectorExtractor.on_device` / `batch_stats` / `extract_batch`,
 `IvectorStats`) default to "cuda" too; `evaluate_sre` runs where its
 system is, `IvectorStats.accumulate` / `update` where their statistics
-are. `FusedStreamingServer`,
+are. The adaptation and SGMM2 path's `AmSgmm2`, `FmllrRawAccs`,
+`BasisFmllrAccus`, `RegressionTree`, `MllrStats`, `LinearVtln`,
+`HldaStats` and the converters `sgmm2_from_jax`,
+`regression_tree_from_jax`, `linear_vtln_from_jax` and
+`fmllr_raw_accs_from_jax` default to "cuda"; its steps and estimators
+(`train_sgmm2_system`, `train_sgmm2_bmmi`, `train_sgmm2`, `update_sgmm2`,
+`estimate_speaker_vector`, `update_sgmm2_ebw`, `estimate_sgmm2_fmllr`,
+`compute_gpost`, `estimate_fmllr_raw`, `compute_basis_fmllr_transform`,
+`estimate_hlda`) take no device and run where their model, statistics or
+basis are. `FusedStreamingServer`,
 `FusedOnlineDecoder`, `OnlineDecoder` and `SingleUtteranceNnet2Decoder`
 take no device: they run where their decoder runs; nor does
 `make_train_step`'s step, which runs where its tensors are. Inference
@@ -96,6 +105,25 @@ from kaldi_tpu_torch.steps.sre import (SrePipelineOpts,
                                        train_sre_system)
 from kaldi_tpu_torch.steps.ubm import (DiagUbmTrainOpts, train_diag_ubm,
                                        train_full_ubm)
+from kaldi_tpu_torch.params import (fmllr_raw_accs_from_jax,
+                                    linear_vtln_from_jax,
+                                    regression_tree_from_jax, sgmm2_from_jax)
+from kaldi_tpu_torch.sgmm import (AmSgmm2, estimate_speaker_vector,
+                                  train_sgmm2, update_sgmm2)
+from kaldi_tpu_torch.sgmm.ebw import update_sgmm2_ebw
+from kaldi_tpu_torch.sgmm.fmllr import estimate_sgmm2_fmllr
+from kaldi_tpu_torch.sgmm.gpost import compute_gpost
+from kaldi_tpu_torch.steps.sgmm_steps import (SgmmTrainOpts,
+                                              train_sgmm2_bmmi,
+                                              train_sgmm2_system)
+from kaldi_tpu_torch.transform.basis_fmllr import (
+    BasisFmllrAccus, compute_basis_fmllr_transform)
+from kaldi_tpu_torch.transform.fmllr_raw import (FmllrRawAccs,
+                                                 estimate_fmllr_raw)
+from kaldi_tpu_torch.transform.hlda import HldaStats, estimate_hlda
+from kaldi_tpu_torch.transform.lvtln import LinearVtln
+from kaldi_tpu_torch.transform.regtree import (MllrStats, RegressionTree,
+                                               RegtreeStats)
 
 ENTRY_POINTS = {"Recognizer": Recognizer.__init__,
                 "CsrBeamDecoder": CsrBeamDecoder.__init__,
@@ -142,7 +170,24 @@ ENTRY_POINTS = {"Recognizer": Recognizer.__init__,
                 "IvectorStats": IvectorStats.__init__,
                 "train_ivector_extractor": train_ivector_extractor,
                 "train_diag_ubm": train_diag_ubm,
-                "mle_full_gmm_update": mle_full_gmm_update}
+                "mle_full_gmm_update": mle_full_gmm_update,
+                "AmSgmm2": AmSgmm2.__init__,
+                "FmllrRawAccs": FmllrRawAccs.__init__,
+                "BasisFmllrAccus": BasisFmllrAccus.__init__,
+                "RegressionTree": RegressionTree.__init__,
+                "MllrStats": MllrStats.__init__,
+                "LinearVtln": LinearVtln.__init__,
+                "HldaStats": HldaStats.__init__,
+                "sgmm2_from_jax": sgmm2_from_jax,
+                "regression_tree_from_jax": regression_tree_from_jax,
+                "linear_vtln_from_jax": linear_vtln_from_jax,
+                "fmllr_raw_accs_from_jax": fmllr_raw_accs_from_jax}
+# the adaptation and SGMM2 steps run where their model, statistics or basis
+# are (PR 13)
+ADAPT_STEPS = [train_sgmm2_system, train_sgmm2_bmmi, train_sgmm2,
+               update_sgmm2, estimate_speaker_vector, update_sgmm2_ebw,
+               estimate_sgmm2_fmllr, compute_gpost, estimate_fmllr_raw,
+               compute_basis_fmllr_transform, estimate_hlda]
 LADDER_STEPS = [build_triphone_tree, train_deltas, train_lda_mllt, train_sat,
                 decode_fmllr, align_with_gmm, train_tdnn]
 DISCRIMINATIVE_STEPS = [make_denlats, train_discriminative, train_fmmi,
@@ -207,6 +252,30 @@ def _jax_like_sre_system():
 
 def _lang():
     return prepare_lang(Lexicon.parse("A P1"), ["SIL"], "SIL")
+
+
+def _cpu_am():
+    rng = np.random.RandomState(0)
+    return AmDiagGmm([DiagGmm(np.ones(2) / 2, rng.randn(2, 3),
+                              np.ones((2, 3))) for _ in range(2)], "cpu")
+
+
+def _jax_like_sgmm():
+    """An object shaped as a kaldi_tpu AmSgmm2 (numpy fields, lists)."""
+    import types
+    rng = np.random.RandomState(0)
+    return types.SimpleNamespace(
+        Sigma_inv=np.stack([np.eye(3)] * 2), M=rng.randn(2, 3, 2),
+        w=np.zeros((2, 2)), N=None, v=[[np.eye(2)[0]], [np.eye(2)[0]]],
+        c=[np.ones(1), np.ones(1)])
+
+
+def _jax_like_raw_accs():
+    import types
+    return types.SimpleNamespace(d=3, L=1, R=1, windows=[np.zeros(9)],
+                                 means=[np.zeros((1, 4))],
+                                 inv_vars=[np.ones((1, 4))],
+                                 gammas=[np.ones(1)])
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
@@ -316,9 +385,66 @@ def test_default_device_raises_without_a_card(name):
                  np.random.RandomState(0).randn(9, 3), DiagUbmTrainOpts(
                      num_gauss=2, num_iters=1)),
              "mle_full_gmm_update": lambda: mle_full_gmm_update(
-                 _full_gmm(), _full_acc())}[name]
+                 _full_gmm(), _full_acc()),
+             "AmSgmm2": lambda: AmSgmm2(_full_gmm(), 2, 2),
+             "FmllrRawAccs": lambda: FmllrRawAccs(3, 1, 1),
+             "BasisFmllrAccus": lambda: BasisFmllrAccus(3),
+             "RegressionTree": lambda: RegressionTree(_cpu_am(), 2),
+             "MllrStats": lambda: MllrStats(3),
+             "LinearVtln": lambda: LinearVtln(3, [1.0]),
+             "HldaStats": lambda: HldaStats(3),
+             "sgmm2_from_jax": lambda: sgmm2_from_jax(_jax_like_sgmm()),
+             "regression_tree_from_jax": lambda: regression_tree_from_jax(
+                 RegressionTree(_cpu_am(), 2, device="cpu")),
+             "linear_vtln_from_jax": lambda: linear_vtln_from_jax(
+                 LinearVtln(3, [1.0], "cpu")),
+             "fmllr_raw_accs_from_jax": lambda: fmllr_raw_accs_from_jax(
+                 _jax_like_raw_accs())}[name]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build()
+
+
+@pytest.mark.parametrize("fn", ADAPT_STEPS, ids=lambda f: f.__name__)
+def test_adaptation_steps_take_no_device(fn):
+    assert "device" not in inspect.signature(fn).parameters
+
+
+def test_adaptation_objects_run_where_their_tensors_are():
+    """A CPU SGMM2, its statistics, updates, speaker vector, gpost and
+    fMLLR stay on the CPU; a CPU regression tree's loglikes, a CPU LVTLN's
+    classes, CPU HLDA, basis and raw-fMLLR work too."""
+    from kaldi_tpu_torch.sgmm import Sgmm2Accs
+    from kaldi_tpu_torch.sgmm.fmllr import FmllrSgmm2Accs
+    from kaldi_tpu_torch.transform.basis_fmllr import estimate_fmllr_basis
+    from kaldi_tpu_torch.transform.fmllr import FmllrStats
+    from kaldi_tpu_torch.transform.regtree import regtree_fmllr_loglikes
+    m = AmSgmm2(_full_gmm(), 2, 2, spk_dim=1, device="cpu")
+    x = np.random.RandomState(1).randn(12, 3)
+    post = [[(t % 2, 1.0)] for t in range(12)]
+    acc = Sgmm2Accs(m)
+    acc.accumulate(m, x, post, 2)
+    assert acc.gamma.device.type == "cpu"
+    update_sgmm2(m, acc, "vMwSc")
+    assert m.V.device.type == m.M.device.type == "cpu"
+    assert estimate_speaker_vector(m, x, post, 2).v.device.type == "cpu"
+    assert compute_gpost(m, x, post, 2)[0][0][2].dtype == np.float32
+    fa = FmllrSgmm2Accs(m)
+    fa.accumulate(m, x, post, 2)
+    assert estimate_sgmm2_fmllr(fa, m, min_count=1.0)[0].device.type == "cpu"
+    am = _cpu_am()
+    tree = RegressionTree(am, 2, device="cpu")
+    ll = regtree_fmllr_loglikes(am, tree, {}, x)
+    assert ll.device.type == "cpu" and ll.shape == (12, 2)
+    st = FmllrStats(3)
+    st.accumulate(x, am.pdfs[0].means, am.pdfs[0].vars, np.full((12, 2), .5))
+    acc_b = BasisFmllrAccus(3, "cpu")
+    acc_b.accumulate_from_speaker(st)
+    basis = estimate_fmllr_basis(acc_b, 2)
+    assert compute_basis_fmllr_transform(st, basis)[0].device.type == "cpu"
+    hs = HldaStats(3, "cpu")
+    hs.accumulate(x, np.arange(12) % 2, 2)
+    assert estimate_hlda(hs, 2)[0].shape == (2, 3)
+    assert LinearVtln(3, [1.0], "cpu").select_class(st)[0] == 0
 
 
 @pytest.mark.parametrize("fn", LADDER_STEPS, ids=lambda f: f.__name__)

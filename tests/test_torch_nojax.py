@@ -14,7 +14,9 @@ port's native graph ops, a decode) and two bMMI and two fMMI iterations
 from that triphone model run on the CPU; then two NG-SGD steps of a tiny
 config-built nnet3 LSTM and one `train_frmshuff` pass of a tiny nnet1
 net; then a tiny SRE v1 and v2 system trained and scored, and a
-logistic regression. (kaldi_tpu/decoder/__init__.py imports the
+logistic regression; then a tiny SGMM2 trained from the triphone model
+with one bMMI iteration, and chip_smoke's adaptation checks (raw, basis
+and regression-tree fMLLR, MLLR, LVTLN, HLDA) with the CPU on both sides. (kaldi_tpu/decoder/__init__.py imports the
 jax decoders, so reaching into kaldi_tpu.decoder from the port would fail
 here.)
 """
@@ -96,7 +98,15 @@ for n in ("kaldi_tpu_torch.cuda_build", "kaldi_tpu_torch.nnet.quantized",
           "kaldi_tpu_torch.ivector.plda",
           "kaldi_tpu_torch.ivector.logistic_regression",
           "kaldi_tpu_torch.steps.sre", "kaldi_tpu_torch.steps.ubm",
-          "kaldi_tpu_torch.gmm.full_gmm", "kaldi_tpu_torch.ivector.extractor"):
+          "kaldi_tpu_torch.gmm.full_gmm", "kaldi_tpu_torch.ivector.extractor",
+          "kaldi_tpu_torch.transform.fmllr_raw",
+          "kaldi_tpu_torch.transform.basis_fmllr",
+          "kaldi_tpu_torch.transform.regtree", "kaldi_tpu_torch.transform.lvtln",
+          "kaldi_tpu_torch.transform.hlda", "kaldi_tpu_torch.sgmm",
+          "kaldi_tpu_torch.sgmm.model", "kaldi_tpu_torch.sgmm.estimate",
+          "kaldi_tpu_torch.sgmm.gpost", "kaldi_tpu_torch.sgmm.fmllr",
+          "kaldi_tpu_torch.sgmm.prexform", "kaldi_tpu_torch.sgmm.ebw",
+          "kaldi_tpu_torch.steps.sgmm_steps"):
     assert n in names, n
 import chip_smoke
 from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder, CsrBeamOpts
@@ -272,6 +282,15 @@ for kw in ({}, dict(post_fn=chip_smoke.sre_oracle_post_fn(
     assert len(sc) == 16 and 0.0 <= eer <= 1.0, (eer, sc)
 lr = LogisticRegression()
 assert lr.train(rng.randn(20, 3), np.arange(20) % 2, device="cpu") < np.log(2)
+from kaldi_tpu_torch.steps.sgmm_steps import (SgmmMmiOpts, SgmmTrainOpts,
+                                              train_sgmm2_bmmi,
+                                              train_sgmm2_system)
+sam, likes = train_sgmm2_system(tri, utts, SgmmTrainOpts(
+    ubm_gauss=4, phn_dim=4, num_iters=2))
+assert len(likes) == 2 and np.isfinite(likes).all(), likes
+_sam, objs = train_sgmm2_bmmi(tri, sam, den, utts[:4], SgmmMmiOpts(num_iters=1))
+assert len(objs) == 2 and np.isfinite(objs).all(), objs
+assert chip_smoke.adapt_card_vs_cpu(card="cpu")["LVTLN class equal"] == 0.0
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
        or m.startswith("kaldi_tpu.")]
 assert not bad, bad
