@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's serving, training, GMM-HMM, discriminative
-training, nnet3 / nnet1, speaker-recognition, adaptation and SGMM2 paths
-once on one CUDA card and check them.
+training, nnet3 / nnet1, speaker-recognition, adaptation and SGMM2,
+rescoring and keyword-search paths and its pitch, resampling and
+reverberation features once on one CUDA card and check them.
 
     python3 chip_smoke.py [--profile]
 
@@ -251,7 +252,40 @@ Phases (any failure raises and the script exits non-zero):
      MMI objectives, peak memory and WERs; the ML iteration whose update
      lowered the loglike most saved to chiprun_out/sgmm_witness.pkl for
      tests/test_torch_sgmm_witness.py; qaffine may not launch; the gather
-     kernel bit-exact and timed at these decodes' shapes.
+     kernel bit-exact and timed at these decodes' shapes;
+ 29. rescoring, search and features, small, card vs CPU: `step_batch` and
+     `final_cost_batch` on the three LM shapes of ARPA_SHAPES over 20,000
+     seeded queries (word ids past the column domain among them) equal
+     the CPU and the scalar `step` exactly; the batch rescorer's lattices
+     of the 40-word hub graph's decodes and of random topological
+     lattices equal the CPU's array for array at three LM scales;
+     `decode_biglm` with its padded decoder on the card against
+     `decode_biglm_exact` at tests/test_ubm_biglm.py:92's setup (the same
+     words, cost within 1e-3); tests/test_signal_pitch.py's signals
+     through the convolution, both resamplers and the NCCF, each within
+     the bound of its arithmetic (the ratio logged), and the pitch
+     Viterbi path equal on every frame; neither kernel may launch;
+ 30. rescoring and search at width: (a) bench.py:452-544: its trigram
+     (synth_trigram_arpa over 60,000 words, 1,130,773 n-grams) as a
+     ConstArpaLm with its tables on the card, rescoring phase 14's latgen
+     lattices at lm_scale 0.5 on the card and on the CPU (equal lattices;
+     audio-sec/s, BFS levels, host syncs, arcs, table bytes, peak
+     memory), then the truncation audit against phase 14's untruncated
+     lattices (oracle WERs, top-50 path recall, rescored best-path
+     drift); (b) the ladder's 40 test utterances through phase 20's
+     LDA+MLLT and TDNN models (make_hclg_flat + CsrBeamDecoder lattices):
+     the old G out and the same unigram in (best paths unchanged up to
+     the LMs' f32 rounding), a trigram over its 120 words and the oracle
+     (held <= the best path) on both, the score_lattices sweep and MBR on
+     the LDA+MLLT lattices, a ctm
+     through word_align_lattice, KWS over every word and 40 seeded
+     phrases against the forced alignment's ctm (ATWV; one-word
+     posteriors within 1e-9 of the forward-backward), and decode_biglm
+     with the padded decoder on the card; (c) the bench's 8 x 10 s test
+     waves through compute_kaldi_pitch + process_pitch, reverberate
+     (4800-tap RIR, 15 dB) and resample_waveform (16 -> 8 kHz) on the
+     card and the CPU, ms per utterance, card vs CPU within the bounds;
+     qaffine may not launch, the gather's launches (b's decodes) counted.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error against its plain version, times and bound; the last line
@@ -1946,7 +1980,9 @@ def phase_lattice_full(tg, sl: dict, tr: dict, card: str) -> dict:
         failed.append(f"native extractor ran {native_gen.extractions} times")
     if failed:
         raise AssertionError("; ".join(failed))
-    return {"launches": launches, "adaptive_launches": a_launches}
+    return {"launches": launches, "adaptive_launches": a_launches,
+            "lats": lats, "lats_u": lats_u, "refs": tr["ref"][TRAIN_UTTS:],
+            "waves": np.asarray(waves), "secs": waves.shape[1] / 16000.0}
 
 
 # --------------------------------------------- the single-stream online path
@@ -6994,6 +7030,851 @@ def _yesno_entries(res: dict) -> tuple:
     return (np.arange(len(pdfs)), pdfs, np.ones(len(pdfs)))
 
 
+# ------------------------------------------ rescoring and keyword search
+
+# tests/test_const_arpa.py's three LM shapes, written out (the reference's
+# src/lm fixtures are not in this tree): a plain trigram (after
+# input.arpa), histories without their own entries (missing_backoffs.arpa)
+# and a 4-gram with backoffs on entries that extend nothing and a history
+# whose prefix is no entry (unused_backoffs.arpa); words a, b, c
+ARPA_SHAPES = {
+    "plain": "\\data\\\nngram 1=5\nngram 2=4\nngram 3=3\n\n\\1-grams:\n"
+             "-1.234679\ta\t-0.3\n-1.456783\tb\t-0.25\n-1.9\tc\n"
+             "-99\t<s>\t-0.5\n-1.333333\t</s>\n\n\\2-grams:\n"
+             "-0.45678\ta b\t-0.23\n-0.30490\t<s> a\t-0.42\n"
+             "-0.34567\tb </s>\n-0.6\tb a\t-0.1\n\n\\3-grams:\n"
+             "-0.34958\t<s> a b\n-0.23940\ta b </s>\n-0.2\tb a b\n\n"
+             "\\end\\\n",
+    "missing_backoffs": "\\data\\\nngram 1=5\nngram 2=3\nngram 3=4\n\n"
+             "\\1-grams:\n-1.0\ta\t-0.5\n-1.2\tb\t-0.3\n-1.5\tc\n"
+             "-99\t<s>\t-0.4\n-1.1\t</s>\n\n\\2-grams:\n-0.3\ta b\t-0.2\n"
+             "-0.6\tb c\n-0.5\t<s> b\n\n\\3-grams:\n-0.2\t<s> a b\n"
+             "-0.1\ta b c\n-0.4\tc a b\n-0.7\tc b </s>\n\n\\end\\\n",
+    "unused_backoffs": "\\data\\\nngram 1=5\nngram 2=5\nngram 3=3\n"
+             "ngram 4=2\n\n\\1-grams:\n-1.0\ta\t-0.5\n-1.2\tb\t-0.3\n"
+             "-1.5\tc\t-0.2\n-99\t<s>\t-0.4\n-1.1\t</s>\n\n\\2-grams:\n"
+             "-0.3\ta b\t-0.2\n-0.6\tb c\t-0.7\n-0.5\t<s> a\t-0.1\n"
+             "-0.4\tc a\t-0.6\n-0.9\tb </s>\n\n\\3-grams:\n"
+             "-0.2\t<s> a b\t-0.3\n-0.15\ta b c\t-0.4\n-0.35\tb c a\n\n"
+             "\\4-grams:\n-0.1\t<s> a b c\n-0.05\tc a b </s>\n\n\\end\\\n",
+}
+# test_ubm_biglm.py:92-138's LMs over the words a and b
+BIGLM_UNIGRAM = ("\\data\\\nngram 1=4\n\n\\1-grams:\n-0.30103\ta\n"
+                 "-0.30103\tb\n-99\t<s>\n-0.1\t</s>\n\n\\end\\\n")
+BIGLM_BIGRAM = ("\\data\\\nngram 1=4\nngram 2=2\n\n\\1-grams:\n-0.5\ta -0.1\n"
+                "-0.5\tb -0.1\n-99\t<s> -0.1\n-0.5\t</s>\n\n\\2-grams:\n"
+                "-0.05\tb a\n-3.0\ta b\n\n\\end\\\n")
+# bench.py:459-470: the trigram over the bench graph's 60,000 words
+BENCH_LM = dict(vocab=60000, n_bigrams=700_000, n_trigrams=750_000, seed=7,
+                ngrams=1_130_773)
+RESCORE_LM_SCALE = 0.5                  # bench.py:475
+AUDIT_NBEST = 50                        # bench.py:517
+LADDER_TRIGRAM = dict(n_bigrams=3000, n_trigrams=6000, seed=7)
+# the rung whose lattices go through MBR and the lmwt sweep (host n-best
+# and best paths): on an NVIDIA H100 80GB HBM3 (700 W) run the TDNN's
+# lattices held 414,273 arcs against the LDA+MLLT's 34,838, and the two
+# passes over them took 126 s of phase 30
+SWEEP_RUNG = "lda_mllt"
+KWS_PHRASES = 40
+RIR = dict(taps=4800, rt60=0.3, snr_db=15.0, seed=29)
+
+
+def symbol_table(words, extra=()):
+    """The port's SymbolTable: <eps>, then `words`, then `extra`."""
+    from kaldi_tpu_torch.fst.fst import SymbolTable
+    t = SymbolTable()
+    for w in list(words) + list(extra):
+        t.add(w)
+    return t
+
+
+def shape_lm(name: str):
+    """ARPA_SHAPES[name] as a ConstArpaLm over <eps> a b c <s> </s> #0."""
+    from kaldi_tpu_torch.lm.arpa import ArpaLm
+    from kaldi_tpu_torch.lm.const_arpa import ConstArpaLm
+    return ConstArpaLm(ArpaLm.parse(ARPA_SHAPES[name]),
+                       symbol_table(["a", "b", "c", "<s>", "</s>", "#0"]))
+
+
+def lattices_equal(a, b) -> bool:
+    """The same arc arrays, start and finals (in order)."""
+    x, y = a.to_arrays(), b.to_arrays()
+    return x[0] == y[0] and all(np.array_equal(p, q) for p, q in
+                                zip(x[1:], y[1:])) and a.start == b.start \
+        and list(a.finals.items()) == list(b.finals.items())
+
+
+def step_batch_card_vs_cpu(clm, n: int = 20000, seed: int = 0,
+                           card: str = "cuda") -> dict:
+    """A seeded batch of n queries over every state, with word ids inside,
+    straddling and beyond the packed column domain: `step_batch` and
+    `final_cost_batch` on `card` against the CPU, and the CPU against the
+    scalar `step` on every (n // 500)-th query. -> counts of queries that
+    differ (0 everywhere: the costs are exact)."""
+    clm._batch_tables()
+    W = clm._wspan
+    rng = np.random.RandomState(seed)
+    states = rng.randint(0, clm.num_states, n)
+    words = np.concatenate([rng.randint(-4, W + 8, n - 40),
+                            np.arange(W - 5, W + 15),
+                            rng.randint(W, 4 * W, 20)]).astype(np.int64)
+    nc, cc = clm.step_batch(states, words, device=card)
+    nh, ch = clm.step_batch(states, words, device="cpu")
+    fin = [clm.final_cost_batch(states[:500], device=d) for d in (card,
+                                                                  "cpu")]
+    return {"next states": int(np.sum(nc != nh)),
+            "costs": int(np.sum(cc != ch)),
+            "finals": int(np.sum(fin[0] != fin[1])),
+            "scalar step": sum(
+                clm.step(int(states[i]), int(words[i])) != (nh[i], ch[i])
+                for i in range(0, n, max(n // 500, 1)))}
+
+
+def rescore_card_vs_cpu(lats, clm, lm_scale: float, card: str = "cuda"):
+    """The batch rescorer over `lats` (None skipped, the rest in one
+    `lattice_lmrescore_const_arpa_many` call) on `card` and on the CPU.
+    -> (card lattices, CPU lattices, card seconds, CPU seconds, lattices
+    that differ)."""
+    import torch
+    from kaldi_tpu_torch.lm.const_arpa import \
+        lattice_lmrescore_const_arpa_many as rescore
+    live = [lat for lat in lats if lat is not None]
+    out, secs = {}, {}
+    for dev in (card, "cpu"):
+        clm.device_tables(dev)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        out[dev] = rescore(live, clm, lm_scale, device=dev)
+        secs[dev] = time.perf_counter() - t
+    return out[card], out["cpu"], secs[card], secs["cpu"], sum(
+        not lattices_equal(a, b) for a, b in zip(out[card], out["cpu"]))
+
+
+def hub_lattices():
+    """Lattices of the 40-word star hub graph from the port's CSR decoder
+    with records on the CPU, on seeded loglikes: -> (word symbols, 3
+    lattices)."""
+    from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder, CsrBeamOpts
+    from kaldi_tpu_torch.lat.generate import raw_lattice_from_decode
+    dec = CsrBeamDecoder(star_hub_graph(40), CsrBeamOpts(
+        beam=1e9, max_active=32, expand_budget=256, hub_threshold=8,
+        rec_cap=16, rec_f16=True), device="cpu")
+    ll = np.random.RandomState(0).randn(3, 12, 41).astype(np.float32)
+    nf = np.array([12, 9, 12], np.int32)
+    raw = dec.decode_raw(ll, nf)
+    return ([f"w{k}" for k in range(1, 41)],
+            [raw_lattice_from_decode(dec, raw, nf, b, 6.0) for b in range(3)])
+
+
+def random_topo_lattices(seed: int, n: int, words: list) -> list:
+    """tests/test_const_arpa.py:216's random topologically sorted
+    lattices over `words` (0 is eps; an id past the LM is out of
+    vocabulary)."""
+    from kaldi_tpu_torch.lat.lattice import Lattice
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        m = int(rng.randint(5, 14))
+        lat = Lattice()
+        for _ in range(m):
+            lat.add_state()
+        lat.start = 0
+        for _ in range(int(rng.randint(m, 3 * m))):
+            s = int(rng.randint(0, m - 1))
+            lat.add_arc(s, int(rng.randint(1, 9)),
+                        words[int(rng.randint(len(words)))],
+                        float(np.round(rng.rand(), 3)),
+                        float(np.round(rng.rand(), 3)),
+                        int(rng.randint(s + 1, m)))
+        lat.set_final(m - 1, 0.25, 0.0)
+        if int(rng.randint(2)):
+            lat.set_final(int(rng.randint(1, m)), 0.5, 0.0)
+        out.append(lat)
+    return out
+
+
+def topo_sorted(lat):
+    """`lat` with its states renumbered in topological order (every arc
+    src < dst), the same paths and weights: what the batch rescorer takes
+    on its device (a composed lattice need not be sorted)."""
+    from kaldi_tpu_torch.lat.lattice import Lattice
+    order = lat.topological_order()
+    new = np.empty(lat.num_states, np.int64)
+    new[order] = np.arange(lat.num_states)
+    n, src, il, ol, gc, ac, dst = lat.to_arrays()
+    return Lattice.from_arrays(n, new[src], il, ol, gc, ac, new[dst],
+                               start=int(new[lat.start]),
+                               finals={int(new[s]): f
+                                       for s, f in lat.finals.items()})
+
+
+def biglm_setup(device) -> dict:
+    """tests/test_ubm_biglm.py:92-138: a two-word lexicon, its unigram G
+    and HCLG, the bigram as a ConstArpaLm, seeded loglikes (B 3, T 24),
+    the padded decoder at beam 1e9 on `device`."""
+    from kaldi_tpu_torch.decoder.beam_search import (BeamSearchDecoder,
+                                                     BeamSearchOpts)
+    from kaldi_tpu_torch.decoder.graph_pack import pack_graph
+    from kaldi_tpu_torch.fst.graph import make_hclg
+    from kaldi_tpu_torch.fst.lang import Lexicon, prepare_lang
+    from kaldi_tpu_torch.hmm.transition_model import TransitionModel
+    from kaldi_tpu_torch.lm.arpa import ArpaLm, arpa_to_g
+    from kaldi_tpu_torch.lm.const_arpa import ConstArpaLm
+    from kaldi_tpu_torch.tree.context_dep import MonophoneContextDependency
+    lang = prepare_lang(Lexicon.parse("a AY\nb BE"), ["SIL"], "SIL",
+                        num_sil_states=1, num_nonsil_states=2)
+    ctx = MonophoneContextDependency.from_topo(lang.topo)
+    tm = TransitionModel(lang.topo, lambda ph, pc: ctx.compute([ph], pc))
+    g = arpa_to_g(ArpaLm.parse(BIGLM_UNIGRAM), lang.words)
+    packed = pack_graph(make_hclg(lang, g, tm, ctx, self_loop_scale=0.1).fst,
+                        tm.id2pdf_array)
+    rng = np.random.RandomState(4)
+    return dict(lang=lang, g=g, packed=packed,
+                clm=ConstArpaLm(ArpaLm.parse(BIGLM_BIGRAM), lang.words),
+                ll=(rng.randn(3, 24, tm.num_pdfs) * 2).astype(np.float32),
+                nf=np.array([24, 18, 24], np.int32),
+                dec=BeamSearchDecoder(packed, BeamSearchOpts(
+                    beam=1e9, max_active=128, acoustic_scale=0.1),
+                    device=device))
+
+
+def biglm_vs_exact(card: str = "cuda") -> dict:
+    """decode_biglm with its decoder on `card` (lattice beam 100) against
+    the unpruned host oracle decode_biglm_exact (test_ubm_biglm.py:92):
+    -> word mismatches, None mismatches and the largest cost gap."""
+    from kaldi_tpu_torch.decoder.biglm import decode_biglm, decode_biglm_exact
+    s = biglm_setup(card)
+    bo = s["lang"].words["#0"]
+    fast = decode_biglm(s["dec"], s["ll"], s["nf"], s["g"], bo, s["clm"],
+                        lattice_beam=100.0)
+    exact = decode_biglm_exact(s["packed"], s["ll"], s["nf"], s["g"], bo,
+                               s["clm"])
+    both = [(f, e) for f, e in zip(fast, exact) if f and e]
+    return {"none": sum((f is None) != (e is None)
+                        for f, e in zip(fast, exact)),
+            "words": sum(f[0] != e[0] for f, e in both),
+            "cost gap": max((abs(f[1] - e[1]) for f, e in both),
+                            default=0.0), "n": len(both)}
+
+
+def pitch_signals() -> list:
+    """tests/test_signal_pitch.py's signals at 16 kHz: tones at 120, 220
+    and 330 Hz (0.6 s) and 150 Hz (0.5 s), and noise (RandomState(2))."""
+    out = []
+    for f0, secs in ((120.0, 0.6), (220.0, 0.6), (330.0, 0.6),
+                     (150.0, 0.5)):
+        t = np.arange(int(16000 * secs)) / 16000.0
+        out.append((np.sin(2 * np.pi * f0 * t) * 5000).astype(np.float32))
+    out.append((np.random.RandomState(2).randn(8000) * 100)
+               .astype(np.float32))
+    return out
+
+
+def seeded_rir(taps: int, rt60_s: float, seed: int,
+               sr: float = 16000.0) -> np.ndarray:
+    """An exponentially decaying noise RIR of `taps` samples falling 60 dB
+    over rt60_s, direct path 1."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(taps) / sr
+    rir = rng.randn(taps) * np.exp(-6.908 * t / rt60_s)
+    rir[0] = 1.0
+    return rir.astype(np.float32)
+
+
+def fft_conv_bound(x: np.ndarray, h: np.ndarray) -> float:
+    """Per-sample bound of |card - CPU| for `fft_convolve`: each side's
+    rfft / product / irfft errs by at most (3 a + 2) u (|x|_2 |h|_1 +
+    |x|_1 |h|_2) with a = 5 log2(nfft) (an FFT of size N errs by about
+    log2 N u of its 2-norm), twice for the two sides."""
+    nfft = 1 << (len(x) + len(h) - 2).bit_length()
+    a = 5.0 * np.log2(nfft)
+    x, h = np.asarray(x, np.float64), np.asarray(h, np.float64)
+    return 2 * (3 * a + 2) * F64_EPS * (
+        np.linalg.norm(x) * np.abs(h).sum()
+        + np.abs(x).sum() * np.linalg.norm(h))
+
+
+def resample_bound(rs, x) -> np.ndarray:
+    """Per-output bound of |card - CPU| for `LinearResample.resample_tensor`:
+    a dot of L f64 products, L u sum |x_i f_i| on each side."""
+    import copy
+    import torch
+    rs_abs = copy.copy(rs)
+    rs_abs.filters = np.abs(rs.filters)
+    mag = rs_abs.resample_tensor(torch.as_tensor(np.abs(np.asarray(
+        x, np.float64)))).numpy()
+    return 2 * rs.filters.shape[1] * F64_EPS * mag
+
+
+def nccf_bound(frames: np.ndarray, lags, win: int,
+               ballast: float) -> np.ndarray:
+    """Per-(frame, lag) bound of |card - CPU| for `_nccf`, to first order:
+    each mean-removed sample errs by at most (win + 2) u M (M the window's
+    largest |x|), a sum of win products by win u sum |terms|, the square
+    root and the division by u of their value; twice for the two
+    sides."""
+    u = F64_EPS
+    f = np.asarray(frames, np.float64)
+    a = f[:, :win] - f[:, :win].mean(1, keepdims=True)
+    lo = int(lags[0])
+    idx = np.arange(len(lags))[:, None] + lo + np.arange(win)[None, :]
+    b = f[:, idx]                                            # [T, L, win]
+    b = b - b.mean(2, keepdims=True)
+    Ma = np.abs(f[:, :win]).max(1)[:, None]
+    Mb = np.abs(f[:, idx]).max(2)
+    sa, sb = np.abs(a).sum(1)[:, None], np.abs(b).sum(2)
+    e1, e2 = (a * a).sum(1)[:, None], (b * b).sum(2)
+    num = (a[:, None, :] * b).sum(2)
+    da, db = (win + 2) * u * Ma, (win + 2) * u * Mb
+    dnum = da * sb + db * sa + win * u * np.abs(a[:, None, :] * b).sum(2)
+    de1, de2 = 2 * da * sa + win * u * e1, 2 * db * sb + win * u * e2
+    den = np.sqrt(e1 * e2 + ballast + 1e-10)
+    dden = (de1 * e2 + e1 * de2 + 3 * u * (e1 * e2 + ballast)) / (2 * den) \
+        + u * den
+    return 2 * (dnum / den + np.abs(num) * dden / den ** 2
+                + u * np.abs(num / den))
+
+
+def features_card_vs_cpu(waves: list, card: str = "cuda") -> dict:
+    """Each wave (16 kHz) through the feature modules on `card` and on the
+    CPU. Convolution with RIR's seeded RIR, the 16 -> 8 kHz resampler and
+    the pitch tracker's 16 -> 4 kHz one: the f64 results within their
+    bounds; the NCCF of the same (CPU-resampled) frames within its bound;
+    the Viterbi over lags on the same f32 costs path for path; the whole
+    tracker's path (frames differing) and process_pitch's output. ->
+    worst ratio to each bound, frame counts, and seconds per device."""
+    import torch
+    from kaldi_tpu_torch.ops import pitch as P
+    from kaldi_tpu_torch.ops.resample import LinearResample
+    from kaldi_tpu_torch.ops.signal import fft_convolve
+    opts = P.PitchOpts()
+    rir = seeded_rir(RIR["taps"], RIR["rt60"], RIR["seed"])
+    rs8 = LinearResample(16000.0, 8000.0)
+    rs4 = LinearResample(16000.0, opts.resample_freq,
+                         filter_cutoff=opts.lowpass_cutoff)
+    win, shift = 100, 40
+    lags = np.arange(int(opts.resample_freq / opts.max_f0),
+                     int(np.ceil(opts.resample_freq / opts.min_f0)) + 1)
+    need = win + int(lags[-1])
+    r = {"conv": 0.0, "resample 8k": 0.0, "resample 4k": 0.0, "nccf": 0.0,
+         "viterbi frames": 0, "pitch frames": 0, "process_pitch": 0.0,
+         "frames": 0}
+
+    def both(fn):
+        return [fn(d) for d in (card, "cpu")]
+
+    def ratio(got, want, bound):
+        return float(np.max(np.abs(np.asarray(got) - np.asarray(want))
+                            / np.maximum(bound, 1e-300)))
+
+    for w in waves:
+        x64 = np.asarray(w, np.float64)
+        c, h = both(lambda d: fft_convolve(
+            torch.as_tensor(x64, device=d), torch.as_tensor(
+                rir.astype(np.float64), device=d), len(w)).cpu().numpy())
+        r["conv"] = max(r["conv"], ratio(c, h, fft_conv_bound(w, rir)))
+        for name, rs in (("resample 8k", rs8), ("resample 4k", rs4)):
+            c, h = both(lambda d: rs.resample_tensor(torch.as_tensor(
+                x64, device=d)).cpu().numpy())
+            r[name] = max(r[name], ratio(c, h, resample_bound(rs, x64)))
+        x4 = rs4.resample(x64, device="cpu").astype(np.float64)
+        T = 1 + (len(x4) - need) // shift
+        if T < 2:
+            continue
+        fr = x4[(np.arange(T) * shift)[:, None] + np.arange(need)]
+        ballast = opts.nccf_ballast * (float(np.mean(x4 * x4)) + 1e-10) * win
+        c, h = both(lambda d: P._nccf(torch.as_tensor(fr, device=d), lags,
+                                      win, ballast).cpu().numpy())
+        r["nccf"] = max(r["nccf"], ratio(c, h, nccf_bound(fr, lags, win,
+                                                          ballast)))
+        costs = (1.0 - (h - opts.soft_min_f0 * (lags / opts.resample_freq)))
+        ld = np.log(lags.astype(np.float64))
+        trans = opts.penalty_factor * (ld[:, None] - ld[None, :]) ** 2 / \
+            opts.delta_pitch ** 0.5
+        c, h = both(lambda d: P._viterbi_lags(
+            torch.as_tensor(costs, device=d).float(),
+            torch.as_tensor(trans, device=d).float()))
+        r["viterbi frames"] += int(np.sum(c != h))
+        c, h = both(lambda d: P.compute_kaldi_pitch(w, device=d))
+        r["pitch frames"] += int(np.sum(c[:, 1] != h[:, 1]))
+        r["frames"] += len(h)
+        r["process_pitch"] = max(r["process_pitch"], float(np.max(np.abs(
+            P.process_pitch(c) - P.process_pitch(h)))))
+    return r
+
+
+def kws_word_posterior_gap(lat, index, words) -> float:
+    """The largest |sum of a one-word keyword's unmerged hit posteriors -
+    the word's expected count by the lattice's forward-backward| over
+    `words`: the search's alpha + arc + beta - tot per arc against
+    lattice_forward_backward's arc posteriors."""
+    from kaldi_tpu_torch.kws import search_index
+    from kaldi_tpu_torch.lat.functions import lattice_forward_backward
+    post, _tot, _a, _b = lattice_forward_backward(lat)
+    gap = 0.0
+    for word in words:
+        want = sum(p for (s, i), p in post.items()
+                   if lat.arcs[s][i].olabel == word)
+        got = sum(h[3] for h in search_index([index], [word],
+                                             merge_tolerance=-1))
+        gap = max(gap, abs(got - want))
+    return gap
+
+
+def phase_rescore_small() -> None:
+    """Phase 29: the const-ARPA LM, the batch rescorer, decode_biglm and
+    the feature modules, small, card vs CPU."""
+    from kaldi_tpu_torch.lm.const_arpa import ConstArpaLm, stats
+    from kaldi_tpu_torch.lm.synth import synth_trigram_arpa
+    from kaldi_tpu_torch.nnet import quantized as q
+    from kaldi_tpu_torch.ops import table_gather as tg
+    q.launches = tg.launches = 0
+    t0 = time.perf_counter()
+    failed = []
+    for k, name in enumerate(ARPA_SHAPES):
+        r = step_batch_card_vs_cpu(shape_lm(name), 20000, k)
+        log(f"  step_batch, {name} LM, 20000 seeded queries (word ids past "
+            f"the column domain among them): card vs CPU and CPU vs the "
+            f"scalar step, queries that differ {r}")
+        if any(r.values()):
+            failed.append(f"step_batch on {name}: {r}")
+    words, lats = hub_lattices()
+    hub_lm = ConstArpaLm(synth_trigram_arpa(words, 300, 300,
+                                            rng=np.random.default_rng(3)),
+                         symbol_table(words))
+    cases = [("hub lattices", lats, hub_lm)] + [
+        (f"random lattices, {name} LM", random_topo_lattices(
+            k, 8, [1, 2, 3, 0, 99]), shape_lm(name))
+        for k, name in enumerate(ARPA_SHAPES)]
+    stats.update(lattices=0, levels=0, syncs=0, scalar=0)
+    for what, ls, clm in cases:
+        for scale in (0.5, 1.0, -1.0):
+            _c, _h, _tc, _th, diff = rescore_card_vs_cpu(ls, clm, scale)
+            if diff:
+                failed.append(f"{what} at scale {scale}: {diff} lattices "
+                              f"differ card vs CPU")
+    log(f"  batch rescoring of {stats['lattices'] // 2} lattices (hub graph "
+        f"decodes and random topological ones) at lm_scale 0.5, 1, -1: "
+        f"lattice arrays card == CPU for all; {stats['levels']} BFS "
+        f"levels, {stats['syncs']} host syncs on both devices; scalar "
+        f"fallbacks {stats['scalar']}")
+    b = biglm_vs_exact()
+    log(f"  decode_biglm (padded decoder on the card, lattice beam 100) vs "
+        f"decode_biglm_exact at test_ubm_biglm.py:92's setup: {b['n']} "
+        f"utterances, word mismatches {b['words']}, None mismatches "
+        f"{b['none']}, largest cost gap {b['cost gap']:.3e} (limit 1e-3)")
+    if b["words"] or b["none"] or b["cost gap"] > 1e-3 or b["n"] < 3:
+        failed.append(f"decode_biglm vs exact: {b}")
+    t = time.perf_counter()
+    f = features_card_vs_cpu(pitch_signals())
+    log(f"  features on tests/test_signal_pitch.py's 5 signals, card vs CPU "
+        f"(ratios to the bounds of their arithmetic): convolution "
+        f"{f['conv']:.3e}, resampling 16 -> 8 kHz {f['resample 8k']:.3e}, "
+        f"16 -> 4 kHz {f['resample 4k']:.3e}, NCCF {f['nccf']:.3e}; Viterbi "
+        f"frames differing on shared costs {f['viterbi frames']}, whole "
+        f"tracker {f['pitch frames']} of {f['frames']}; process_pitch "
+        f"within {f['process_pitch']:.3e}; {time.perf_counter() - t:.3f} s")
+    bad = [k for k in ("conv", "resample 8k", "resample 4k", "nccf")
+           if not f[k] <= 1.0] + [k for k in ("viterbi frames",
+                                              "pitch frames") if f[k]]
+    if bad:
+        failed.append(f"features card vs CPU: {bad} ({f})")
+    if q.launches or tg.launches:
+        failed.append(f"launches: gather {tg.launches}, qaffine {q.launches}")
+    log(f"  launches: gather {tg.launches}, qaffine {q.launches}; phase 29 "
+        f"took {time.perf_counter() - t0:.3f} s")
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
+def _best_words(lats) -> list:
+    from kaldi_tpu_torch.lat.functions import lattice_best_path
+    out = []
+    for lat in lats:
+        r = lattice_best_path(lat) if lat is not None and \
+            lat.num_states else None
+        out.append(list(r[0]) if r else [])
+    return out
+
+
+def _lat_wer(refs: list, lats) -> float:
+    return wer(refs, _best_words(lats))
+
+
+def _oracle_wer(refs: list, lats) -> float:
+    from kaldi_tpu_torch.lat.align import lattice_oracle
+    edits = sum(lattice_oracle(lat, ref)[0] if lat is not None
+                else len(ref) for lat, ref in zip(lats, refs))
+    return 100.0 * edits / max(sum(len(r) for r in refs), 1)
+
+
+def _kws_refs(ctms: dict, phrases: list) -> dict:
+    """{keyword: [(utt, t_begin, t_end)]} from per-utterance ctms: every
+    word's occurrences, and each two-word phrase's consecutive pairs."""
+    refs: dict = {}
+    for u, ctm in ctms.items():
+        for w, t0, d in ctm:
+            refs.setdefault((w,), []).append((u, t0, t0 + d))
+        for (w1, t1, _d1), (w2, t2, d2) in zip(ctm, ctm[1:]):
+            if (w1, w2) in phrases:
+                refs.setdefault((w1, w2), []).append((u, t1, t2 + d2))
+    return refs
+
+
+def phase_rescore_full(card: str, lt: dict, ld: dict) -> dict:
+    """Phase 30: (a) bench.py's trigram rescoring line and its truncation
+    audit on phase 14's lattices, (b) rescoring, scoring, MBR, oracle,
+    ctm, KWS and decode_biglm on the ladder's lattices, (c) the feature
+    modules on the bench's test waves."""
+    import torch
+    from kaldi_tpu_torch.decoder.beam_search import (BeamSearchDecoder,
+                                                     BeamSearchOpts)
+    from kaldi_tpu_torch.decoder.biglm import decode_biglm
+    from kaldi_tpu_torch.decoder.viterbi import viterbi_align
+    from kaldi_tpu_torch.kws import (TwvOptions, compute_twv,
+                                     lattice_to_kws_index, search_index)
+    from kaldi_tpu_torch.lat.align import word_align_lattice, words_to_ctm
+    from kaldi_tpu_torch.lat.functions import (compose_lattice_with_lm,
+                                               lattice_best_path, nbest)
+    from kaldi_tpu_torch.lat.generate import decode_to_lattices
+    from kaldi_tpu_torch.lat.mbr import mbr_decode
+    from kaldi_tpu_torch.lm.arpa import ArpaLm, arpa_to_g
+    from kaldi_tpu_torch.lm.const_arpa import ConstArpaLm, stats
+    from kaldi_tpu_torch.lm.const_arpa import \
+        lattice_lmrescore_const_arpa_many as rescore_many
+    from kaldi_tpu_torch.lm.synth import synth_trigram_arpa
+    from kaldi_tpu_torch.nnet import quantized as q
+    from kaldi_tpu_torch.ops import table_gather as tg
+    from kaldi_tpu_torch.ops.pitch import compute_kaldi_pitch, process_pitch
+    from kaldi_tpu_torch.ops.resample import resample_waveform
+    from kaldi_tpu_torch.ops.signal import reverberate
+    from kaldi_tpu_torch.steps import mono
+    from kaldi_tpu_torch.steps.score import score_lattices
+
+    q.launches = tg.launches = 0
+    t0 = time.perf_counter()
+    failed = []
+
+    # (a) bench.py:452-481 at full width, then its audit (:483-544)
+    t = time.perf_counter()
+    vocab = [f"W{k:06d}" for k in range(1, BENCH_LM["vocab"] + 1)]
+    lm3 = synth_trigram_arpa(vocab, n_bigrams=BENCH_LM["n_bigrams"],
+                             n_trigrams=BENCH_LM["n_trigrams"],
+                             rng=np.random.default_rng(BENCH_LM["seed"]))
+    synth_s = time.perf_counter() - t
+    n_ngrams = sum(len(d) for d in lm3.ngrams)
+    if n_ngrams != BENCH_LM["ngrams"]:
+        failed.append(f"the bench's trigram has {n_ngrams} n-grams, not "
+                      f"{BENCH_LM['ngrams']}")
+    t = time.perf_counter()
+    clm = ConstArpaLm(lm3, symbol_table(vocab))
+    build_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    tabs = clm.device_tables("cuda")
+    torch.cuda.synchronize()
+    tab_s = time.perf_counter() - t
+    lats, lats_u, refs = lt["lats"], lt["lats_u"], lt["refs"]
+    lats_in = [lat for lat in lats if lat is not None]
+    secs = lt["secs"]
+    stats.update(lattices=0, levels=0, syncs=0, arcs=0, scalar=0)
+    resc_c, resc_h, tc, th, diff = rescore_card_vs_cpu(lats_in, clm,
+                                                       RESCORE_LM_SCALE)
+    st = dict(stats)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_arcs = sum(lat.num_arcs for lat in resc_c)
+    in_arcs = sum(lat.num_arcs for lat in lats_in)
+    log(f"  (a) bench.py's trigram: {n_ngrams} n-grams over {len(vocab)} "
+        f"words (synth_trigram_arpa, default_rng({BENCH_LM['seed']})) in "
+        f"{synth_s:.3f} s; ConstArpaLm built in {build_s:.3f} s ("
+        f"{clm.num_states} states, {len(clm.col_word)} entries); its "
+        f"tables on the card {clm.table_bytes(tabs) / 1e6:.3f} MB, moved in "
+        f"{tab_s:.3f} s | card: {card}")
+    log(f"  (a) rescoring phase 14's {len(lats_in)} latgen lattices (of "
+        f"{len(lats)}; None skipped, bench.py:475) at lm_scale "
+        f"{RESCORE_LM_SCALE}: card {tc:.4f} s = "
+        f"{len(lats_in) * secs / tc:.3f} audio-sec/s, CPU (the same code) "
+        f"{th:.4f} s = {len(lats_in) * secs / th:.3f} audio-sec/s; "
+        f"{st['levels'] // 2} BFS levels and {st['syncs'] // 2} host syncs "
+        f"per device; {in_arcs} arcs in, {n_arcs} rescored arcs out; "
+        f"lattices card == CPU: {len(resc_c) - diff}/{len(resc_c)}; "
+        f"scalar fallbacks {st['scalar']}; peak device memory {peak:.3f} "
+        f"GiB | card: {card}")
+    if diff:
+        failed.append(f"bench rescoring: {diff} lattices differ card vs CPU")
+    if st["scalar"]:
+        failed.append(f"{st['scalar']} decoder lattices were not "
+                      f"topologically sorted")
+    # the audit: truncated (rec_cap 3072) vs untruncated records
+    t = time.perf_counter()
+    n_ref = 0
+    orc = [0.0, 0.0]
+    hits = total = drift = used = 0
+    both = [b for b, (x, y) in enumerate(zip(lats, lats_u))
+            if x is not None and y is not None]
+    resc_u = dict(zip(both, rescore_many([lats_u[b] for b in both], clm,
+                                         RESCORE_LM_SCALE, device="cuda")))
+    for b, (lt_, lu_, ref) in enumerate(zip(lats, lats_u, refs)):
+        if b not in resc_u:
+            continue
+        used += 1
+        n_ref += len(ref)
+        orc[0] += _oracle_wer([ref], [lt_]) * len(ref) / 100.0
+        orc[1] += _oracle_wer([ref], [lu_]) * len(ref) / 100.0
+        seqs_u = {tuple(w for w in p[0] if w != 0)
+                  for p in nbest(lu_, AUDIT_NBEST)}
+        seqs_t = {tuple(w for w in p[0] if w != 0)
+                  for p in nbest(lt_, max(AUDIT_NBEST * 4, 200))}
+        total += len(seqs_u)
+        hits += sum(s in seqs_t for s in seqs_u)
+        rb = [lattice_best_path(x) for x in (
+            resc_c[[i for i, x in enumerate(lats_in) if x is lt_][0]],
+            resc_u[b])]
+        drift += (list(rb[0][0]) if rb[0] else None) != \
+            (list(rb[1][0]) if rb[1] else None)
+    audit = dict(oracle_t=100.0 * orc[0] / max(n_ref, 1),
+                 oracle_u=100.0 * orc[1] / max(n_ref, 1),
+                 recall=100.0 * hits / max(total, 1), drift=drift, used=used)
+    log(f"  (a) truncation audit over the {used} utterances with both "
+        f"lattices (rec_cap 3072 vs untruncated, rec_beam = lattice beam 8 "
+        f"in both): oracle WER truncated {audit['oracle_t']:.3f}%, "
+        f"untruncated {audit['oracle_u']:.3f}%; top-{AUDIT_NBEST} path "
+        f"recall {audit['recall']:.2f}%; rescored best-path drift "
+        f"{drift} utterances; {time.perf_counter() - t:.3f} s")
+
+    # (b) the ladder's lattices
+    M = ld["models"]
+    lang, lda, nnet = M["lang"], M["lda"], M["nnet"]
+    refs_w = M["refs"]
+    V = M["corpus"]["words"]
+    tm = lda.model.trans_model
+    g_old = arpa_to_g(ArpaLm.parse(M["arpa"]), lang.words)
+    bo = lang.words["#0"]
+    sil = frozenset({lang.phones["SIL"]})
+    lex = {}
+    for line in M["corpus"]["lex_text"].splitlines():
+        w, *pron = line.split()
+        lex.setdefault(lang.words[w], []).append(
+            tuple(lang.phones[p] for p in pron))
+    t = time.perf_counter()
+    dec, graph_s = ladder_decoder(lda.model, M["arpa"], M["dopts"], "cuda")
+    fb, nf = pad_batch([f for _u, f, _w in M["test_l"]])
+    rungs = {}
+    for name, am in (("lda_mllt", lda.model.am), ("tdnn", nnet.am)):
+        ll = am.loglikes(fb)
+        ll = ll.cpu().numpy() if hasattr(ll, "cpu") else np.asarray(ll)
+        rungs[name] = dict(ll=ll, lats=decode_to_lattices(
+            dec, ll, nf, lattice_beam=LATTICE_BEAM, num_threads=8))
+    dec_s = time.perf_counter() - t
+    uni = ConstArpaLm(ArpaLm.parse(M["arpa"]), lang.words)
+    tri_lm = synth_trigram_arpa(V, LADDER_TRIGRAM["n_bigrams"],
+                                LADDER_TRIGRAM["n_trigrams"],
+                                rng=np.random.default_rng(
+                                    LADDER_TRIGRAM["seed"]))
+    tri = ConstArpaLm(tri_lm, lang.words)
+    # the largest cost the unigram gives a word or </s>: what its f32
+    # rounding in either LM scales
+    c_max = max([abs(uni.step(uni.start_state(), lang.words[w])[1])
+                 for w in V] + [abs(uni.final_cost(s))
+                                for s in range(uni.num_states)])
+    log(f"  (b) the ladder's 40 test utterances: HCLG {dec.graph.num_states} "
+        f"states ({graph_s:.3f} s), lattices of the LDA+MLLT and TDNN rungs "
+        f"(CsrBeamDecoder, beam 14, max_active 1024, lattice beam "
+        f"{LATTICE_BEAM}) in {dec_s:.3f} s; trigram over the {len(V)} words: "
+        f"{sum(len(d) for d in tri_lm.ngrams)} n-grams")
+    def hyp_words(ids):
+        return [lang.words.sym(x) for x in ids]
+    out_b = {}
+    for name, r in rungs.items():
+        lats_r = r["lats"]
+        live = [b for b, lat in enumerate(lats_r) if lat is not None]
+        t = time.perf_counter()
+        no_old = [topo_sorted(compose_lattice_with_lm(
+            lats_r[b], g_old, bo, lm_scale=-1.0)) for b in live]
+        t_compose = time.perf_counter() - t
+        stats.update(scalar=0, levels=0)
+        t = time.perf_counter()
+        ident = rescore_many(no_old, uni, 1.0, device="cuda")
+        resc_live = rescore_many(no_old, tri, 1.0, device="cuda")
+        t_resc = time.perf_counter() - t
+        levels = stats["levels"]
+        resc = [None] * len(lats_r)
+        for b, lat in zip(live, resc_live):
+            resc[b] = lat
+        ties = 0
+        for b, new in zip(live, ident):
+            old, got = lattice_best_path(lats_r[b]), lattice_best_path(new)
+            bound = (len(old[0]) + 1) * 2.0 ** -23 * c_max \
+                + 64 * F64_EPS * abs(old[2])
+            gap = abs(got[2] - old[2])
+            if list(got[0]) != list(old[0]):
+                if gap <= bound:
+                    ties += 1
+                    log(f"  (b) {name} utt {b}: the identity rescoring's "
+                        f"best path differs within the LMs' f32 rounding "
+                        f"(gap {gap:.3e}, bound {bound:.3e})")
+                else:
+                    failed.append(f"{name} utt {b}: identity rescoring "
+                                  f"moved the best path by {gap}")
+            elif gap > bound:
+                failed.append(f"{name} utt {b}: identity rescoring moved "
+                              f"the cost by {gap} > {bound}")
+        if stats["scalar"]:
+            failed.append(f"{name}: {stats['scalar']} lattices took the "
+                          f"scalar rescorer")
+        w_best = wer(refs_w, [hyp_words(x) for x in _best_words(lats_r)])
+        w_tri = wer(refs_w, [hyp_words(x) for x in _best_words(resc)])
+        w_orc = _oracle_wer([[lang.words[w] for w in ref] for ref in refs_w],
+                            lats_r)
+        out_b[name] = dict(best=w_best, tri=w_tri, oracle=w_orc)
+        n_arcs = sum(lats_r[b].num_arcs for b in live)
+        log(f"  (b) {name}: {len(live)} lattices, {n_arcs} arcs; best path "
+            f"{w_best:.2f}, oracle {w_orc:.2f}, trigram-rescored {w_tri:.2f} "
+            f"(old G out by compose_lattice_with_lm on the host "
+            f"{t_compose:.3f} s; the unigram back in and the trigram in on "
+            f"the card {t_resc:.3f} s, {levels} BFS levels for the two; the "
+            f"identity rescoring unchanged, {ties} near-ties) | card: {card}")
+        if name == SWEEP_RUNG:
+            t = time.perf_counter()
+            best, (lmwt, wip), _grid = score_lattices(
+                {b: lat for b, lat in enumerate(lats_r)},
+                {b: ref for b, ref in enumerate(refs_w)}, words=lang.words)
+            t_score = time.perf_counter() - t
+            t = time.perf_counter()
+            w_mbr = wer(refs_w, [hyp_words(mbr_decode(lat)[0])
+                                 if lat is not None else [] for lat in lats_r])
+            t_mbr = time.perf_counter() - t
+            out_b[name].update(mbr=w_mbr, sweep=(lmwt, wip, best.wer))
+            log(f"  (b) {name}: MBR {w_mbr:.2f} ({t_mbr:.3f} s); "
+                f"score_lattices sweep (lmwt 5-17, wip 0-1) best lmwt "
+                f"{lmwt}, wip {wip}: WER {best.wer:.2f} ({t_score:.3f} s) | "
+                f"card: {card}")
+        if not w_orc <= w_best:
+            failed.append(f"{name}: oracle WER {w_orc} > best path {w_best}")
+    # ctm and keyword search on the LDA+MLLT lattices
+    lats_l = rungs["lda_mllt"]["lats"]
+    # the ctm: word_align_lattice's best path where it aligns the lattice;
+    # it emits a word only on the phones after its label, and the
+    # decoder's word labels trail the word's first phone, so most come out
+    # empty (JAX's host code, the same): then the raw best path
+    t = time.perf_counter()
+    ctm_hyp = aligned = 0
+    for lat in lats_l:
+        if lat is None:
+            continue
+        al = word_align_lattice(lat, tm, lex, sil)
+        aligned += al.num_states > 0
+        bp = lattice_best_path(al if al.num_states else lat)
+        ctm_hyp += len(words_to_ctm(bp[1], [w for w in bp[0] if w], tm, lex,
+                                    sil))
+    t_ctm = time.perf_counter() - t
+    batch, feats_l, nf_l = mono.compile_and_pad(
+        lang, tm, lda.model.ctx_dep, M["test_l"], 1.0, 0.1)
+    ali = viterbi_align(batch, lda.model.am.loglikes(feats_l), nf_l, 0.1,
+                        device="cuda")
+    ctms = {u: words_to_ctm(a[0], [lang.words[w] for w in ws], tm, lex, sil)
+            for (u, _f, ws), a in zip(M["test_l"], ali) if a is not None}
+    rng = np.random.RandomState(31)
+    phrases: set = set()
+    while len(phrases) < KWS_PHRASES:
+        ws = refs_w[rng.randint(len(refs_w))]
+        k = rng.randint(len(ws) - 1)
+        phrases.add((lang.words[ws[k]], lang.words[ws[k + 1]]))
+    t = time.perf_counter()
+    utts = [u for u, _f, _w in M["test_l"]]
+    index = [lattice_to_kws_index(lat, u) for lat, u in zip(lats_l, utts)
+             if lat is not None]
+    keywords = [(lang.words[w],) for w in V] + sorted(phrases)
+    kw_hits = {kw: search_index(index, list(kw)) for kw in keywords}
+    kws_s = time.perf_counter() - t
+    kws_refs = _kws_refs(ctms, phrases)
+    dur = float(np.sum(nf)) / 100.0
+    twv = compute_twv(kws_refs, kw_hits, dur, TwvOptions())
+    gap = max(kws_word_posterior_gap(lat, ix, sorted(set(ix.word.tolist())))
+              for lat, ix in zip([x for x in lats_l if x is not None], index))
+    log(f"  (b) ctm: word_align_lattice aligned {aligned} of "
+        f"{sum(x is not None for x in lats_l)} LDA+MLLT lattices; "
+        f"words_to_ctm over the best paths timed {ctm_hyp} words in "
+        f"{t_ctm:.3f} s; "
+        f"forced-alignment ctm of {len(ctms)} references; KWS: "
+        f"{len(index)} indexes, {len(keywords)} keywords ({len(V)} words + "
+        f"{len(phrases)} two-word phrases) searched in {kws_s:.3f} s; "
+        f"ATWV {twv['atwv']:.4f}, STWV {twv['stwv']:.4f} at TwvOptions() "
+        f"over {dur:.2f} s of audio; one-word posteriors vs forward-backward "
+        f"within {gap:.3e} (limit 1e-9)")
+    if not gap <= 1e-9:
+        failed.append(f"KWS posterior off its forward-backward by {gap}")
+    # decode_biglm: the padded decoder on the card, old G out, trigram in
+    t = time.perf_counter()
+    pdec = BeamSearchDecoder(dec.graph, BeamSearchOpts(
+        beam=M["dopts"].beam, max_active=M["dopts"].max_active,
+        acoustic_scale=0.1), device="cuda")
+    big = decode_biglm(pdec, rungs["lda_mllt"]["ll"], nf, g_old, bo, tri,
+                       lattice_beam=LATTICE_BEAM)
+    big_s = time.perf_counter() - t
+    w_big = wer(refs_w, [hyp_words(r[0]) if r else [] for r in big])
+    log(f"  (b) decode_biglm (padded BeamSearchDecoder on the card, beam "
+        f"{M['dopts'].beam}, max_active {M['dopts'].max_active}, lattice beam "
+        f"{LATTICE_BEAM}) with the trigram over the 40 test utterances: WER "
+        f"{w_big:.2f} in {big_s:.3f} s | card: {card}")
+    launches = tg.launches
+    if q.launches:
+        failed.append(f"phase 30 launched qaffine {q.launches} times")
+
+    # (c) the feature modules on the bench's 8 test waves (10 s, 16 kHz)
+    waves = lt["waves"]
+    rir = seeded_rir(RIR["taps"], RIR["rt60"], RIR["seed"])
+    ms = {}
+    for dev in ("cuda", "cpu"):
+        for what, fn in (
+                ("pitch", lambda w: process_pitch(compute_kaldi_pitch(
+                    w, device=dev))),
+                ("reverberate", lambda w: reverberate(
+                    w, rir, snr_db=RIR["snr_db"],
+                    rng=np.random.RandomState(RIR["seed"]), device=dev)),
+                ("resample", lambda w: resample_waveform(w, 16000.0, 8000.0,
+                                                         device=dev))):
+            fn(waves[0])
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            for w in waves:
+                fn(w)
+            ms[what, dev] = 1e3 * (time.perf_counter() - t) / len(waves)
+    t = time.perf_counter()
+    f = features_card_vs_cpu(waves)
+    log(f"  (c) features on the bench's {len(waves)} x 10 s test waves: ms "
+        f"per utterance card / CPU: compute_kaldi_pitch + process_pitch "
+        f"{ms['pitch', 'cuda']:.3f} / {ms['pitch', 'cpu']:.3f}, reverberate "
+        f"({RIR['taps']}-tap RIR, {RIR['snr_db']} dB) "
+        f"{ms['reverberate', 'cuda']:.3f} / {ms['reverberate', 'cpu']:.3f}, "
+        f"resample_waveform 16 -> 8 kHz {ms['resample', 'cuda']:.3f} / "
+        f"{ms['resample', 'cpu']:.3f} | card: {card}")
+    log(f"  (c) card vs CPU, ratios to the bounds: convolution "
+        f"{f['conv']:.3e}, resampling 16 -> 8 kHz {f['resample 8k']:.3e}, "
+        f"16 -> 4 kHz {f['resample 4k']:.3e}, NCCF {f['nccf']:.3e}; Viterbi "
+        f"frames differing on shared costs {f['viterbi frames']}; the whole "
+        f"tracker's pitch differs on {f['pitch frames']} of {f['frames']} "
+        f"frames (reported: the resampled input is rounded to f32 on each "
+        f"device); process_pitch within {f['process_pitch']:.3e}; "
+        f"{time.perf_counter() - t:.3f} s")
+    bad = [k for k in ("conv", "resample 8k", "resample 4k", "nccf")
+           if not f[k] <= 1.0] + (["viterbi frames"] if f["viterbi frames"]
+                                  else [])
+    if bad:
+        failed.append(f"features at width card vs CPU: {bad} ({f})")
+    log(f"  launches: gather {launches} (the ladder lattices' decodes), "
+        f"qaffine {q.launches}; phase 30 took "
+        f"{time.perf_counter() - t0:.3f} s")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return dict(launches=launches, audit=audit, rescore=dict(
+        card_s=tc, cpu_s=th, levels=st["levels"] // 2), ladder=out_b,
+        atwv=twv["atwv"], biglm_wer=w_big)
+
+
 def device_time(fn) -> tuple[float, int, dict]:
     """Run fn under torch.profiler. -> (device busy seconds: the sum of
     kernel, memcpy and memset durations, which do not overlap on one
@@ -7091,13 +7972,13 @@ def main() -> int:
 
     resolve_device("cuda")                # also turns TF32 off
     card = card_info()
-    log(f"[1/28] card: {card} | torch {torch.__version__} CUDA "
+    log(f"[1/30] card: {card} | torch {torch.__version__} CUDA "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
 
     t = time.perf_counter()
     libs = cuda_build.build()
-    log(f"[2/28] build: {len(libs)} kernels in {time.perf_counter() - t:.3f} "
+    log(f"[2/30] build: {len(libs)} kernels in {time.perf_counter() - t:.3f} "
         f"s (one nvcc each, in parallel)")
     for name, so in libs.items():
         with open(os.path.join(os.path.dirname(so), "nvcc.log")) as f:
@@ -7105,71 +7986,80 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]
         log(f"  {os.path.relpath(so, ROOT)}: {' | '.join(regs)}")
 
-    log("[3/28] table-gather kernel vs plain version")
+    log("[3/30] table-gather kernel vs plain version")
     k = phase_kernel(tg)
-    log("[4/28] qaffine kernel vs plain version")
+    log("[4/30] qaffine kernel vs plain version")
     qk = phase_qaffine(q)
-    log("[5/28] decoder on the card vs on the CPU")
+    log("[5/30] decoder on the card vs on the CPU")
     phase_decoder_parity()
-    log("[6/28] int8 decode on the card vs on the CPU")
+    log("[6/30] int8 decode on the card vs on the CPU")
     phase_int8_parity()
-    log("[7/28] full-width serving slice (bf16 TDNN)")
+    log("[7/30] full-width serving slice (bf16 TDNN)")
     sl = phase_slice(tg, card, profile="--profile" in sys.argv[1:])
-    log("[8/28] full-width int8 serving slice")
+    log("[8/30] full-width int8 serving slice")
     s8 = phase_int8_slice(q, tg, sl, card)
-    log("[9/28] streaming server, small: card vs CPU vs offline")
+    log("[9/30] streaming server, small: card vs CPU vs offline")
     phase_stream_small()
-    log("[10/28] streaming server, full width")
+    log("[10/30] streaming server, full width")
     st = phase_stream_full(tg, sl, card, profile="--profile" in sys.argv[1:])
-    log("[11/28] lattice path, small: card vs CPU, native vs numpy")
+    log("[11/30] lattice path, small: card vs CPU, native vs numpy")
     phase_lattice_small()
-    log("[12/28] training, small: card vs CPU")
+    log("[12/30] training, small: card vs CPU")
     phase_train_small()
-    log("[13/28] training, full width: the bench's AM with the port's "
+    log("[13/30] training, full width: the bench's AM with the port's "
         "train step")
     tr = phase_train_full(sl, card, profile="--profile" in sys.argv[1:])
-    log("[14/28] lattice path, full width (latgen at the bench's point)")
+    log("[14/30] lattice path, full width (latgen at the bench's point)")
     lt = phase_lattice_full(tg, sl, tr, card)
-    log("[15/28] online path, small: card vs CPU vs offline")
+    log("[15/30] online path, small: card vs CPU vs offline")
     phase_online_small()
-    log("[16/28] online path, full width (scripts/bench_streaming.py's "
+    log("[16/30] online path, full width (scripts/bench_streaming.py's "
         "configuration)")
     on = phase_online_full(tg, card, profile="--profile" in sys.argv[1:])
-    log("[17/28] GMM path, small: card vs CPU")
+    log("[17/30] GMM path, small: card vs CPU")
     phase_gmm_small()
-    log("[18/28] GMM path, full width: monophone training, the dense "
+    log("[18/30] GMM path, full width: monophone training, the dense "
         "decoder's serving lines")
     phase_gmm_full(tr, card, profile="--profile" in sys.argv[1:])
-    log("[19/28] triphone ladder, small: card vs CPU")
+    log("[19/30] triphone ladder, small: card vs CPU")
     phase_ladder_small()
-    log("[20/28] triphone ladder, full width: mono -> tri -> LDA+MLLT -> "
+    log("[20/30] triphone ladder, full width: mono -> tri -> LDA+MLLT -> "
         "TDNN, and SAT")
     ld = phase_ladder_full(card, profile="--profile" in sys.argv[1:])
-    log("[21/28] discriminative path, small: card vs CPU on shared "
+    log("[21/30] discriminative path, small: card vs CPU on shared "
         "lattices")
     phase_disc_small()
-    log("[22/28] discriminative path, full width: the rm-like pyramid with "
+    log("[22/30] discriminative path, full width: the rm-like pyramid with "
         "bMMI and fMMI, then bMMI and TDNN sMBR on the ladder's models")
     dk = phase_disc_full(card, ld, profile="--profile" in sys.argv[1:])
-    log("[23/28] nnet3 and nnet1 families, small: card vs CPU")
+    log("[23/30] nnet3 and nnet1 families, small: card vs CPU")
     phase_nnet_small()
-    log("[24/28] nnet3 and nnet1 families at the ladder's width: nnet3 "
+    log("[24/30] nnet3 and nnet1 families at the ladder's width: nnet3 "
         "TDNN and LSTM, the wide LSTM, the DBN")
     nn = phase_nnet_full(card, ld, profile="--profile" in sys.argv[1:])
-    log("[25/28] speaker recognition, small: sre10 v1 and v2 card vs CPU, "
+    log("[25/30] speaker recognition, small: sre10 v1 and v2 card vs CPU, "
         "each stage within its bound, logistic regression, VAD")
     phase_sre_small()
-    log("[26/28] speaker recognition at sre10's width (2048 gaussians, "
+    log("[26/30] speaker recognition at sre10's width (2048 gaussians, "
         "600-dim i-vectors, 60-dim features): v1 and v2, then logistic "
         "regression")
     sr = phase_sre_full(card, ld)
-    log("[27/28] adaptation transforms and SGMM2, small: card vs CPU, each "
+    log("[27/30] adaptation transforms and SGMM2, small: card vs CPU, each "
         "check within its bound, the yesno SGMM runs at PARITY.md:36-37")
     phase_adapt_sgmm_small()
-    log("[28/28] adaptation and SGMM2 at the ladder's width: raw, basis, "
+    log("[28/30] adaptation and SGMM2 at the ladder's width: raw, basis, "
         "regression-tree and global fMLLR, MLLR, LVTLN, HLDA; SGMM2 at "
         "egs/rm's sgmm2_4a widths, bMMI, SGMM fMLLR")
     ad = phase_adapt_sgmm_full(card, ld)
+    log("[29/30] rescoring, search and features, small: step_batch, the "
+        "batch rescorer, decode_biglm vs its exact oracle, pitch, resampling "
+        "and convolution, card vs CPU")
+    phase_rescore_small()
+    log("[30/30] rescoring and search at width: bench.py's 1.13M-n-gram "
+        "trigram over phase 14's lattices with the truncation audit; the "
+        "ladder's lattices through rescoring, scoring, MBR, ctm, KWS and "
+        "decode_biglm; features on the bench's test waves")
+    rs = phase_rescore_full(card, lt, ld)
 
     g_shape = GATHER_SHAPES[0]
     ms, plain_ms, library_ms, floor_ms = k["times"][g_shape]
@@ -7180,10 +8070,12 @@ def main() -> int:
         f"the triphone ladder's decodes, {dk['launches']} on the "
         f"discriminative path's, {nn['launches']} on the nnet families', "
         f"{sr['gather_launches']} on the speaker-recognition path's, "
-        f"{ad['launches']} on the adaptation and SGMM path's; "
-        f"qaffine {s8['launches']} on the int8 slice, "
+        f"{ad['launches']} on the adaptation and SGMM path's, "
+        f"{rs['launches']} on the rescoring and search path's (phase 30's "
+        f"ladder decodes); qaffine {s8['launches']} on the int8 slice, "
         f"{sr['qaffine_launches']} on the speaker-recognition path's, 0 on "
-        f"the adaptation and SGMM path's (phases 27-28 assert it)")
+        f"the adaptation and SGMM path's and on the rescoring path's "
+        f"(phases 27-30 assert it)")
     log(card)
     log(json.dumps({"kernels": [{
         "name": "batched_table_gather", "route": "cuda",
@@ -7214,7 +8106,8 @@ def main() -> int:
             "library_ms": t[2], "bound_ms": gather_bound_ms(*sh)}
             for sh, t in nn["gather_times"].items()],
         "sre_launches": sr["gather_launches"],
-        "adapt_sgmm_launches": ad["launches"]}, {
+        "adapt_sgmm_launches": ad["launches"],
+        "rescore_launches": rs["launches"]}, {
         "name": "qaffine", "route": "cuda",
         "source": "kaldi_tpu_torch/csrc/qaffine.cu",
         "replaces": "kaldi_tpu/nnet/quantized.py:46",
@@ -7228,7 +8121,7 @@ def main() -> int:
         "fp32_bound_ms": qk["fp32_bound_ms"],
         "library_ms": qk["library_ms"],
         "sre_launches": sr["qaffine_launches"],
-        "adapt_sgmm_launches": 0}]}))
+        "adapt_sgmm_launches": 0, "rescore_launches": 0}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -15,7 +15,10 @@ for v1 and v2, sre10 v1 and v2 end to end with equal EERs, logistic
 regression) and the adaptation and SGMM2 path (`loglikes_matrix` and the
 SGMM2 statistics within their bounds, the updates and EBW solves by their
 backward error, SGMM fMLLR, gpost and the pre-transform, raw, basis and
-regression-tree fMLLR, MLLR, LVTLN and HLDA) on a CUDA device.
+regression-tree fMLLR, MLLR, LVTLN and HLDA) and the rescoring and
+feature modules (step_batch and the batch rescorer exactly, decode_biglm
+against its exact oracle, pitch, resampling and convolution within their
+bounds) on a CUDA device.
 Each test skips without a card. This file imports no jax, so it runs on
 a machine that has only torch:
 
@@ -750,3 +753,46 @@ def test_adaptation_transforms_card_within_their_bounds(card):
     for k, v in cs.adapt_card_vs_cpu().items():
         if "reported" not in k:
             assert v <= (0.0 if "equal" in k else 1.0), (k, v)
+
+
+@pytest.mark.parametrize("name", ["plain", "missing_backoffs",
+                                  "unused_backoffs"])
+def test_step_batch_and_rescoring_card_equal_cpu(card, name):
+    """step_batch exactly (chip_smoke.step_batch_card_vs_cpu, phase 29),
+    and the batch rescorer's lattices array for array on random
+    topological lattices at three scales."""
+    import chip_smoke as cs
+    clm = cs.shape_lm(name)
+    assert not any(cs.step_batch_card_vs_cpu(clm).values())
+    lats = cs.random_topo_lattices(1, 8, [1, 2, 3, 0, 99])
+    for scale in (0.5, 1.0, -1.0):
+        assert cs.rescore_card_vs_cpu(lats, clm, scale)[-1] == 0
+
+
+def test_hub_lattice_rescoring_card_equals_cpu(card):
+    import chip_smoke as cs
+    from kaldi_tpu_torch.lm.const_arpa import ConstArpaLm
+    from kaldi_tpu_torch.lm.synth import synth_trigram_arpa
+    words, lats = cs.hub_lattices()
+    clm = ConstArpaLm(synth_trigram_arpa(words, 300, 300,
+                                         rng=np.random.default_rng(3)),
+                      cs.symbol_table(words))
+    assert cs.rescore_card_vs_cpu(lats, clm, 0.5)[-1] == 0
+
+
+def test_decode_biglm_on_the_card_equals_exact(card):
+    import chip_smoke as cs
+    b = cs.biglm_vs_exact()
+    assert b["n"] == 3 and not b["words"] and not b["none"]
+    assert b["cost gap"] <= 1e-3
+
+
+def test_pitch_and_resampling_card_within_their_bounds(card):
+    """chip_smoke.features_card_vs_cpu on tests/test_signal_pitch.py's
+    signals: convolution, both resamplers and the NCCF within the bounds
+    of their arithmetic, the Viterbi path equal on every frame."""
+    import chip_smoke as cs
+    f = cs.features_card_vs_cpu(cs.pitch_signals())
+    for k in ("conv", "resample 8k", "resample 4k", "nccf"):
+        assert f[k] <= 1.0, (k, f)
+    assert f["viterbi frames"] == 0 and f["pitch frames"] == 0, f

@@ -35,7 +35,15 @@ are. The adaptation and SGMM2 path's `AmSgmm2`, `FmllrRawAccs`,
 `estimate_speaker_vector`, `update_sgmm2_ebw`, `estimate_sgmm2_fmllr`,
 `compute_gpost`, `estimate_fmllr_raw`, `compute_basis_fmllr_transform`,
 `estimate_hlda`) take no device and run where their model, statistics or
-basis are. `FusedStreamingServer`,
+basis are. The rescoring and feature modules' device entry points
+(`ConstArpaLm.device_tables` / `step_batch` / `final_cost_batch`,
+`lattice_lmrescore_const_arpa_batch` / `_many`, `convolve_signals`,
+`reverberate`, `LinearResample.resample`, `ArbitraryResample.resample`,
+`resample_waveform`, `compute_kaldi_pitch`) default to "cuda" and run on
+the CPU when asked; their host code (the scalar rescorer, lattice
+alignment, MBR, scoring, KWS, `process_pitch`, `synth_trigram_arpa`,
+`decode_biglm_exact`) takes no device, and `decode_biglm` runs where its
+decoder runs. `FusedStreamingServer`,
 `FusedOnlineDecoder`, `OnlineDecoder` and `SingleUtteranceNnet2Decoder`
 take no device: they run where their decoder runs; nor does
 `make_train_step`'s step, which runs where its tensors are. Inference
@@ -124,6 +132,12 @@ from kaldi_tpu_torch.transform.hlda import HldaStats, estimate_hlda
 from kaldi_tpu_torch.transform.lvtln import LinearVtln
 from kaldi_tpu_torch.transform.regtree import (MllrStats, RegressionTree,
                                                RegtreeStats)
+from kaldi_tpu_torch import kws
+from kaldi_tpu_torch.decoder import biglm
+from kaldi_tpu_torch.lat import align, mbr
+from kaldi_tpu_torch.lm import const_arpa, synth
+from kaldi_tpu_torch.ops import pitch, resample, signal
+from kaldi_tpu_torch.steps import score
 
 ENTRY_POINTS = {"Recognizer": Recognizer.__init__,
                 "CsrBeamDecoder": CsrBeamDecoder.__init__,
@@ -544,3 +558,101 @@ def test_nnet_trainers_run_where_their_model_is():
         "targets": np.zeros((3, 5), np.int32),
         "weights": np.ones((3, 5), np.float32)}, one)
     assert all(v.device.type == "cpu" for v in p.values())
+
+
+# the rescoring and feature modules: name -> call with `device`
+def _plain_lm():
+    import chip_smoke as cs
+    return cs.shape_lm("plain")
+
+
+def _toy_lattice():
+    from kaldi_tpu_torch.lat.lattice import Lattice
+    lat = Lattice()
+    s0, s1 = lat.add_state(), lat.add_state()
+    lat.start = s0
+    lat.add_arc(s0, 1, 1, 0.5, 0.25, s1)
+    lat.set_final(s1)
+    return lat
+
+
+def _wave():
+    return np.random.RandomState(0).randn(4000).astype(np.float32) * 100
+
+
+RESCORE_ENTRY_POINTS = {
+    "ConstArpaLm.device_tables": lambda **kw: _plain_lm().device_tables(
+        **kw),
+    "ConstArpaLm.step_batch": lambda **kw: _plain_lm().step_batch(
+        [0, 1], [1, 2], **kw),
+    "ConstArpaLm.final_cost_batch": lambda **kw:
+        _plain_lm().final_cost_batch([0, 1], **kw),
+    "lattice_lmrescore_const_arpa_batch": lambda **kw:
+        const_arpa.lattice_lmrescore_const_arpa_batch(
+            _toy_lattice(), _plain_lm(), 0.5, **kw),
+    "lattice_lmrescore_const_arpa_many": lambda **kw:
+        const_arpa.lattice_lmrescore_const_arpa_many(
+            [_toy_lattice()], _plain_lm(), 0.5, **kw),
+    "convolve_signals": lambda **kw: signal.convolve_signals(
+        _wave(), np.ones(3, np.float32), **kw),
+    "reverberate": lambda **kw: signal.reverberate(
+        _wave(), np.ones(3, np.float32), snr_db=10.0,
+        rng=np.random.RandomState(0), **kw),
+    "LinearResample.resample": lambda **kw: resample.LinearResample(
+        16000, 8000).resample(_wave(), **kw),
+    "ArbitraryResample.resample": lambda **kw: resample.ArbitraryResample(
+        4000, 16000.0, 4000.0, np.array([0.01, 0.1])).resample(_wave(),
+                                                                **kw),
+    "resample_waveform": lambda **kw: resample.resample_waveform(
+        _wave(), 16000, 8000, **kw),
+    "compute_kaldi_pitch": lambda **kw: pitch.compute_kaldi_pitch(
+        _wave(), **kw)}
+RESCORE_FUNCTIONS = {
+    "ConstArpaLm.device_tables": const_arpa.ConstArpaLm.device_tables,
+    "ConstArpaLm.step_batch": const_arpa.ConstArpaLm.step_batch,
+    "ConstArpaLm.final_cost_batch": const_arpa.ConstArpaLm.final_cost_batch,
+    "lattice_lmrescore_const_arpa_batch":
+        const_arpa.lattice_lmrescore_const_arpa_batch,
+    "lattice_lmrescore_const_arpa_many":
+        const_arpa.lattice_lmrescore_const_arpa_many,
+    "convolve_signals": signal.convolve_signals,
+    "reverberate": signal.reverberate,
+    "LinearResample.resample": resample.LinearResample.resample,
+    "ArbitraryResample.resample": resample.ArbitraryResample.resample,
+    "resample_waveform": resample.resample_waveform,
+    "compute_kaldi_pitch": pitch.compute_kaldi_pitch}
+# host code: it takes no device (decode_biglm runs where its decoder runs)
+HOST_FUNCTIONS = [biglm.decode_biglm, biglm.decode_biglm_exact,
+                  const_arpa.lattice_lmrescore_const_arpa,
+                  align.word_align_lattice, align.lattice_oracle,
+                  mbr.mbr_decode, score.score_lattices, kws.search_index,
+                  kws.lattice_to_kws_index, pitch.process_pitch,
+                  synth.synth_trigram_arpa]
+
+
+@pytest.mark.parametrize("name", sorted(RESCORE_FUNCTIONS))
+def test_rescoring_entry_point_defaults_to_cuda(name):
+    default = inspect.signature(RESCORE_FUNCTIONS[name]).parameters[
+        "device"].default
+    assert default == "cuda"
+
+
+@pytest.mark.parametrize("name", sorted(RESCORE_ENTRY_POINTS))
+def test_rescoring_default_raises_without_a_card_and_cpu_runs(name):
+    call = RESCORE_ENTRY_POINTS[name]
+    assert call(device="cpu") is not None
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default builds there")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()
+
+
+@pytest.mark.parametrize("fn", HOST_FUNCTIONS, ids=lambda f: f.__name__)
+def test_rescoring_host_functions_take_no_device(fn):
+    assert "device" not in inspect.signature(fn).parameters
+
+
+def test_decode_biglm_runs_where_its_decoder_runs():
+    import chip_smoke as cs
+    b = cs.biglm_vs_exact(card="cpu")
+    assert b["n"] == 3 and not b["words"] and b["cost gap"] <= 1e-3

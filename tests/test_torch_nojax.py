@@ -16,7 +16,9 @@ config-built nnet3 LSTM and one `train_frmshuff` pass of a tiny nnet1
 net; then a tiny SRE v1 and v2 system trained and scored, and a
 logistic regression; then a tiny SGMM2 trained from the triphone model
 with one bMMI iteration, and chip_smoke's adaptation checks (raw, basis
-and regression-tree fMLLR, MLLR, LVTLN, HLDA) with the CPU on both sides. (kaldi_tpu/decoder/__init__.py imports the
+and regression-tree fMLLR, MLLR, LVTLN, HLDA) with the CPU on both sides;
+then a small const-ARPA rescoring, an MBR decode, a KWS search and a
+pitch track. (kaldi_tpu/decoder/__init__.py imports the
 jax decoders, so reaching into kaldi_tpu.decoder from the port would fail
 here.)
 """
@@ -106,7 +108,14 @@ for n in ("kaldi_tpu_torch.cuda_build", "kaldi_tpu_torch.nnet.quantized",
           "kaldi_tpu_torch.sgmm.model", "kaldi_tpu_torch.sgmm.estimate",
           "kaldi_tpu_torch.sgmm.gpost", "kaldi_tpu_torch.sgmm.fmllr",
           "kaldi_tpu_torch.sgmm.prexform", "kaldi_tpu_torch.sgmm.ebw",
-          "kaldi_tpu_torch.steps.sgmm_steps"):
+          "kaldi_tpu_torch.steps.sgmm_steps", "kaldi_tpu_torch.lm.synth",
+          "kaldi_tpu_torch.lm.const_arpa", "kaldi_tpu_torch.lat.align",
+          "kaldi_tpu_torch.lat.mbr", "kaldi_tpu_torch.steps.score",
+          "kaldi_tpu_torch.decoder.biglm", "kaldi_tpu_torch.kws",
+          "kaldi_tpu_torch.kws.index", "kaldi_tpu_torch.kws.scoring",
+          "kaldi_tpu_torch.kws.proxy", "kaldi_tpu_torch.ops.signal",
+          "kaldi_tpu_torch.ops.resample", "kaldi_tpu_torch.ops.pitch",
+          "kaldi_tpu_torch.ops.sinusoid"):
     assert n in names, n
 import chip_smoke
 from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder, CsrBeamOpts
@@ -291,6 +300,24 @@ assert len(likes) == 2 and np.isfinite(likes).all(), likes
 _sam, objs = train_sgmm2_bmmi(tri, sam, den, utts[:4], SgmmMmiOpts(num_iters=1))
 assert len(objs) == 2 and np.isfinite(objs).all(), objs
 assert chip_smoke.adapt_card_vs_cpu(card="cpu")["LVTLN class equal"] == 0.0
+from kaldi_tpu_torch.kws import lattice_to_kws_index, search_index
+from kaldi_tpu_torch.lat.mbr import mbr_decode
+from kaldi_tpu_torch.lm.const_arpa import (ConstArpaLm,
+                                           lattice_lmrescore_const_arpa_many)
+from kaldi_tpu_torch.lm.synth import synth_trigram_arpa
+from kaldi_tpu_torch.ops.pitch import compute_kaldi_pitch, process_pitch
+hw, hl = chip_smoke.hub_lattices()
+clm = ConstArpaLm(synth_trigram_arpa(hw, 200, 200,
+                                     rng=np.random.default_rng(1)),
+                  chip_smoke.symbol_table(hw))
+resc = lattice_lmrescore_const_arpa_many(hl, clm, 0.5, device="cpu")
+assert all(lattice_best_path(x) is not None for x in resc)
+hyp, bins = mbr_decode(resc[0], max_paths=20)
+assert hyp and len(bins) == len(hyp)
+assert search_index([lattice_to_kws_index(resc[0], "u")], hyp[:1])
+pt = process_pitch(compute_kaldi_pitch(chip_smoke.pitch_signals()[0],
+                                       device="cpu"))
+assert pt.shape[1] == 3 and np.isfinite(pt).all()
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
        or m.startswith("kaldi_tpu.")]
 assert not bad, bad
