@@ -61,8 +61,8 @@ Phases (any failure raises and the script exits non-zero):
      7000, beam 13, expand_budget 16384, eps_budget 2048, rec_cap 3072,
      rec_beam = lattice_beam = 8, rec_f16, rec_flat, rec_flat_cap 512),
      on the bench's 8 test utterances with phase 13's AM:
-     `decode_to_lattices_stream` over 3 batches of 8 x 10 s on 8
-     extraction threads, twice, then one batch split into record decode,
+     `decode_to_lattices_stream` over 2 batches of 8 x 10 s on 8
+     extraction threads, once, then one batch split into record decode,
      copy and extraction; the rec_trunc share of shipped slots must stay
      under 5%; untruncated records, whose excess over rec_cap must be
      rec_trunc exactly; records with nothing masked, whose lattice best
@@ -77,9 +77,10 @@ Phases (any failure raises and the script exits non-zero):
  16. online path, full width, at scripts/bench_streaming.py's
      configuration (the 300-word HCLG, a relu TDNN of width 512 over 64
      pdfs trained 300 bf16 steps on the card, 160 ms chunks): the fused
-     path (`FusedOnlineDecoder` on the CSR engine, with `get_lattice`)
-     over 6 utterances and the generic path (`SingleUtteranceNnet2Decoder`
-     over the padded engine) over 3: online RTF, chunk latency p50 / p95,
+     path (`FusedOnlineDecoder` on the CSR engine, with `get_lattice` on
+     the first 2) over 6 utterances and the generic path
+     (`SingleUtteranceNnet2Decoder` over the padded engine) over 3:
+     online RTF, chunk latency p50 / p95,
      finalize and get_lattice ms, max delay, and hypothesis mismatches
      against the offline decode on the card, which must be 0; then the
      gather kernel timed at the fused path's B = 1 shapes;
@@ -150,10 +151,11 @@ Phases (any failure raises and the script exits non-zero):
      base reported (PARITY.md:34 is not held: JAX's fMMI breaks it on
      both systems, tests/test_torch_fmmi.py);
      (b) on phase 20's models at the ladder's width: bMMI from tri
-     (train_mmi.sh's 4 iterations, boost 0.1, on tri's unigram HCLG by
-     make_hclg) and sMBR of the TDNN (3 epochs, denominator lattices from
-     its own loglikes through make_hclg_flat + CsrBeamDecoder, numerator
-     tids from the LDA+MLLT model), each objective non-decreasing and
+     (2 iterations, boost 0.1, on tri's unigram HCLG by make_hclg) and
+     sMBR of the TDNN (2 epochs over the first 50 training utterances,
+     denominator lattices from its own loglikes through make_hclg_flat +
+     CsrBeamDecoder, numerator tids from the LDA+MLLT model), each
+     objective non-decreasing and
      every value finite; WERs before and after reported; seconds and ms
      per iteration by phase, lattices per second, mean arcs, None counts;
      the gather kernel bit-exact and timed at the shapes of (b)'s decodes;
@@ -172,7 +174,7 @@ Phases (any failure raises and the script exits non-zero):
      rates) held to the nnet2 bars (<= 7.0, <= lda_mllt + 1.0); (b)
      `train_lstm3` at its own width, its WER reported, then an LSTM at
      Kaldi's nnet3 LSTM recipe width (cell 1024, projection 256, 3
-     layers, chunk 20): its forward over 8 test utterances and 10 NG-SGD
+     layers, chunk 20): its forward over 8 test utterances and 4 NG-SGD
      steps card vs CPU, ms per step, frames/s and the card's idle share;
      (c) a DBN (steps/nnet/pretrain_dbn.sh: 6 x 2048 RBMs over splice
      +-5, one CD-1 epoch each) fine-tuned by `train_frmshuff` and decoded
@@ -207,7 +209,7 @@ Phases (any failure raises and the script exits non-zero):
      TDNN over the LDA+MLLT model's pdfs; each with seconds by stage and
      per EM iteration, peak memory, the full UBM's log-likelihood per
      iteration and the EERs by PLDA and by cosine scoring (reported), and
-     held: (i) the stages for 8 utterances recomputed on the CPU within
+     held: (i) the stages for 4 utterances recomputed on the CPU within
      phase 25's bounds (the M-step over 64 gaussians), (ii) the UBM
      log-likelihood never falling by more than 1e-6 relative, (iii) every
      tensor finite; (c) logistic regression over (a)'s training i-vectors
@@ -247,7 +249,8 @@ Phases (any failure raises and the script exits non-zero):
      classes; (d) SGMM2 at egs/rm's sgmm2_4a widths (400 gaussians, phase
      dim 31, gselect 15, 3 substates per pdf; 8 iterations, speaker
      subspace off) trained from the LDA+MLLT model over the 48,981
-     training frames, bMMI over its unigram HCLG, SGMM fMLLR per test
+     training frames, one bMMI iteration over its unigram HCLG, SGMM
+     fMLLR per test
      speaker: seconds per stage and iteration, loglike per iteration, the
      MMI objectives, peak memory and WERs; the ML iteration whose update
      lowered the loglike most saved to chiprun_out/sgmm_witness.pkl for
@@ -285,7 +288,48 @@ Phases (any failure raises and the script exits non-zero):
      waves through compute_kaldi_pitch + process_pitch, reverberate
      (4800-tap RIR, 15 dB) and resample_waveform (16 -> 8 kHz) on the
      card and the CPU, ms per utterance, card vs CPU within the bounds;
-     qaffine may not launch, the gather's launches (b's decodes) counted.
+     qaffine may not launch, the gather's launches (b's decodes) counted;
+ 31. the file layer and network serving, small, card vs CPU: every model
+     file kind of io/model_io.py saved by the port, loaded on the card
+     and on the CPU and saved again (the same bytes, bit-equal arrays,
+     the card's loads computing exactly what the originals did); binary,
+     text and compressed arks through the native and the Python readers;
+     `DecodeSession` (a yesno GMM) and `FusedDecodeSession` (the small
+     CSR setup) fed even, odd and one-byte-first PCM chunks, every
+     partial and final equal on the card and the CPU; the threaded
+     decoder equal to the synchronous one; `SingleUtteranceGmmDecoder`
+     with early fMLLR, the same words and re-estimations, its statistics
+     within the bound the two devices' posteriors set; the codecs;
+ 32. network serving at phase 16's configuration: (a) its AM and HCLG
+     through the port's files into chiprun_out/serving/, loaded on the
+     card bit-equal; (b) `AudioServer` with `fused_session_factory` (one
+     CsrBeamDecoder and FusedOnlineDecoder per connection) answering 6
+     concurrent clients (`stream_wave`, 2560 samples per send): every
+     FINAL equals phase 16's offline CSR decode, the gather launches and
+     qaffine does not; per-connection wall, FINAL latency after the
+     client's SHUT_WR p50 / p95, partials, aggregate audio-sec/s, the
+     gather at the server's shape; (c) the same streams through µ-law and
+     ADPCM transport (WER against the uncompressed FINALs, reported); (d)
+     `ThreadedSingleUtteranceDecoder` over phase 16's generic path equal
+     to its synchronous results; (e) `SingleUtteranceGmmDecoder` over
+     phase 20's tri on the first 8 of the ladder's test utterances
+     through `OnlineFeaturePipeline` at the ladder's MFCC options, without
+     adaptation equal to the offline decode of the same pipeline's
+     features, with the default policy its WER
+     (reported); (f) the CLI
+     in-process: the GMM server over the tri files with two connections
+     and the client (FINALs equal (e)'s), and
+     online2-wav-nnet2-am-compute read back by read_ark equal to
+     `AmNnet.loglikes_np` on the same features.
+
+Two processes share the card. The phases that take nothing from phase
+20's ladder run in a second one (the script with --side-phases): the
+bench graph's chain (7, 8, 10, 13, 14, 18, 30 a and c), then the small
+card-vs-CPU phases (5, 6, 9, 11, 12, 15, 17, 19, 21, 23, 25, 27, 29, 31);
+this one runs 1-4, then 16, 20, 22, 24, 26, 28, 30 b and 32 beside it,
+and prints the second's log after phase 32's. Each phase's start goes to
+stderr with the seconds since its process began; a run still going at
+1000 s dumps every thread's stack there.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error against its plain version, times and bound; the last line
@@ -296,8 +340,10 @@ the script fails.
 from __future__ import annotations
 
 import dataclasses
+import faulthandler
 import json
 import os
+import socket
 import sys
 import time
 
@@ -335,6 +381,61 @@ GATHER_EDGES = [(3, 200, 1000),      # P not a multiple of 128
 
 def log(*a):
     print(*a, flush=True)
+
+
+T_START = time.perf_counter()
+# past this many seconds every thread's stack goes to stderr, so that a run
+# stopped at the 1200 s limit shows where it was
+STACKS_AFTER_S = 1000
+# sockets of phases 31-32: a connection that stalls fails the run instead
+# of holding it to the time limit
+SOCKET_TIMEOUT_S = 120
+
+
+# The phases that take nothing from phase 20's ladder (the bench graph's
+# chain, 7-14, 18 and 30 a, c, then these small card-vs-CPU ones) run in a
+# second process beside those that do: its stdout in SIDE_LOG (copied to
+# this one's at the end), its launch counts in SIDE_RESULTS, its CPU ops
+# on SIDE_THREADS threads so that the other's host loops keep their cores
+SMALL_PHASES = (
+    (5, "decoder on the card vs on the CPU", "phase_decoder_parity"),
+    (6, "int8 decode on the card vs on the CPU", "phase_int8_parity"),
+    (9, "streaming server, small: card vs CPU vs offline",
+     "phase_stream_small"),
+    (11, "lattice path, small: card vs CPU, native vs numpy",
+     "phase_lattice_small"),
+    (12, "training, small: card vs CPU", "phase_train_small"),
+    (15, "online path, small: card vs CPU vs offline", "phase_online_small"),
+    (17, "GMM path, small: card vs CPU", "phase_gmm_small"),
+    (19, "triphone ladder, small: card vs CPU", "phase_ladder_small"),
+    (21, "discriminative path, small: card vs CPU on shared lattices",
+     "phase_disc_small"),
+    (23, "nnet3 and nnet1 families, small: card vs CPU", "phase_nnet_small"),
+    (25, "speaker recognition, small: sre10 v1 and v2 card vs CPU, each "
+         "stage within its bound, logistic regression, VAD",
+     "phase_sre_small"),
+    (27, "adaptation transforms and SGMM2, small: card vs CPU, each check "
+         "within its bound, the yesno SGMM runs at PARITY.md:36-37",
+     "phase_adapt_sgmm_small"),
+    (29, "rescoring, search and features, small: step_batch, the batch "
+         "rescorer, decode_biglm vs its exact oracle, pitch, resampling and "
+         "convolution, card vs CPU", "phase_rescore_small"),
+    (31, "the file layer and network serving, small: every model file "
+         "kind, arks, the decode sessions, the threaded and the online GMM "
+         "decoders, card vs CPU", "phase_serving_small"))
+SIDE_FLAG = "--side-phases"
+SIDE_LOG = os.path.join(ROOT, "chiprun_out", "side_phases.log")
+SIDE_RESULTS = os.path.join(ROOT, "chiprun_out", "side_phases.json")
+SIDE_THREADS = 3
+
+
+def log_phase(msg: str):
+    """A phase's header on stdout, and its start on stderr in seconds since
+    the script began."""
+    log(msg)
+    print(f"chip_smoke {msg.split(']')[0]}] at "
+          f"{time.perf_counter() - T_START:.1f} s", file=sys.stderr,
+          flush=True)
 
 
 def wer(refs: list[list], hyps: list[list]) -> float:
@@ -1538,7 +1639,7 @@ def phase_lattice_small():
 
 
 LATTICE_BEAM = 8.0
-LATGEN_BATCHES = 3
+LATGEN_BATCHES = 2             # in the one timed run
 
 
 def _sizes(lats) -> list:
@@ -1842,18 +1943,16 @@ def phase_lattice_full(tg, sl: dict, tr: dict, card: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tg.launches = 0                       # count the latgen path only
-    rates, fallbacks0 = [], dec.last_flat_fallbacks
-    for _ in range(2):
-        t = time.perf_counter()
-        outs = list(decode_to_lattices_stream(
-            dec, [(ll_np, nf)] * LATGEN_BATCHES, LATTICE_BEAM,
-            num_threads=8))
-        rates.append(LATGEN_BATCHES * audio / (time.perf_counter() - t))
+    fallbacks0 = dec.last_flat_fallbacks
+    t = time.perf_counter()
+    outs = list(decode_to_lattices_stream(
+        dec, [(ll_np, nf)] * LATGEN_BATCHES, LATTICE_BEAM, num_threads=8))
+    rate = LATGEN_BATCHES * audio / (time.perf_counter() - t)
     launches = tg.launches
     peak = torch.cuda.max_memory_allocated() / 2**30
-    if launches < 2 * T * LATGEN_BATCHES * 2:
+    if launches < 2 * T * LATGEN_BATCHES:
         raise AssertionError(f"{launches} gather launches for "
-                             f"{2 * LATGEN_BATCHES} batches of {T} frames")
+                             f"{LATGEN_BATCHES} batches of {T} frames")
     lats = outs[-1]
     if len(outs) != LATGEN_BATCHES:
         raise AssertionError(f"latgen: {len(outs)} batches came out")
@@ -1874,12 +1973,12 @@ def phase_lattice_full(tg, sl: dict, tr: dict, card: str) -> dict:
     trunc = int(dec.last_rec_trunc.sum())
     wire = raw.get("rec_wire_slots", float("nan"))
     share = 100.0 * trunc / shipped
-    log(f"  latgen: {[round(r, 3) for r in rates]} audio-sec/s per run of "
-        f"{LATGEN_BATCHES} batches x {B} x {waves.shape[1] / 16000.0:.1f} s "
-        f"(decode_to_lattices_stream, 8 extraction threads; warm-up batch "
-        f"{warm_s:.3f} s, decoder set-up {setup_s:.3f} s); gather launches "
-        f"{launches} ({launches / (2 * LATGEN_BATCHES * T):.1f}/frame); "
-        f"peak device memory {peak:.3f} GiB | card: {card}")
+    log(f"  latgen: {rate:.3f} audio-sec/s over {LATGEN_BATCHES} batches x "
+        f"{B} x {waves.shape[1] / 16000.0:.1f} s (decode_to_lattices_stream, "
+        f"8 extraction threads; warm-up batch {warm_s:.3f} s, decoder set-up "
+        f"{setup_s:.3f} s); gather launches {launches} "
+        f"({launches / (LATGEN_BATCHES * T):.1f}/frame); peak device memory "
+        f"{peak:.3f} GiB | card: {card}")
     log(f"  one batch: record decode enqueue {t1 - t0:.4f} s, device drain + "
         f"one copy + dense rebuild {t2 - t1:.4f} s, native extraction of "
         f"{B} utts on 8 threads {t3 - t2:.4f} s")
@@ -1976,7 +2075,7 @@ def phase_lattice_full(tg, sl: dict, tr: dict, card: str) -> dict:
         f"{int(ad.last_escalated.sum())}/{B}, small chunks "
         f"{ad.last_small_chunks} of {-(-T // 128)}, gather launches "
         f"{a_launches}; set-up {ad_setup:.3f} s; words == full decode")
-    if native_gen.extractions < B * (2 * LATGEN_BATCHES + 4):
+    if native_gen.extractions < B * (LATGEN_BATCHES + 4):
         failed.append(f"native extractor ran {native_gen.extractions} times")
     if failed:
         raise AssertionError("; ".join(failed))
@@ -1988,6 +2087,10 @@ def phase_lattice_full(tg, sl: dict, tr: dict, card: str) -> dict:
 # --------------------------------------------- the single-stream online path
 
 ONLINE_FB = dict(samp_freq=16000.0, dither=0.0)
+# phase 16: get_lattice on the first ONLINE_LATTICE_UTTS test utterances
+# (1.5-1.8 s each on an NVIDIA H100 80GB HBM3 at 700 W; all 6 before,
+# cut for the time limit)
+ONLINE_LATTICE_UTTS = 2
 
 
 def _online_fused_stream(fused, wave, chunk: int):
@@ -2238,9 +2341,9 @@ def phase_online_full(tg, card: str, profile: bool = False) -> dict:
     t_setup = time.perf_counter() - t
     base_dec = BeamSearchDecoder(graph, BeamSearchOpts(
         beam=13.0, max_active=512, acoustic_scale=0.1), device="cuda")
-    csr_dec = CsrBeamDecoder(graph, CsrBeamOpts(
-        beam=13.0, max_active=512, acoustic_scale=0.1, expand_budget=8192,
-        eps_budget=1024), device="cuda")
+    csr_opts = CsrBeamOpts(beam=13.0, max_active=512, acoustic_scale=0.1,
+                           expand_budget=8192, eps_budget=1024)
+    csr_dec = CsrBeamDecoder(graph, csr_opts, device="cuda")
     ll_off = am.loglikes(feats[n_train:])
     nf = np.full(n_test, Tf, np.int32)
     off, off_csr = base_dec.decode(ll_off, nf), csr_dec.decode(ll_off, nf)
@@ -2272,12 +2375,14 @@ def phase_online_full(tg, card: str, profile: bool = False) -> dict:
             res = fused.best_path()
             fin_ms.append((time.perf_counter() - t0) * 1e3)
             timer.finish(f_stats)
+            if res is None or list(res[0]) != list(off_csr[u][0]):
+                f_mism += 1
+            if u >= ONLINE_LATTICE_UTTS:
+                continue
             t0, n0 = time.perf_counter(), tg.launches
             lat = fused.get_lattice(8.0)
             lat_ms.append((time.perf_counter() - t0) * 1e3)
             lat_launches += tg.launches - n0
-            if res is None or list(res[0]) != list(off_csr[u][0]):
-                f_mism += 1
             if lat is None:
                 f_mism += 1
     launches = tg.launches - lat_launches     # streaming only
@@ -2291,9 +2396,11 @@ def phase_online_full(tg, card: str, profile: bool = False) -> dict:
         f"of audio ({n_test} utts); chunk latency (accept + sync, 160 ms "
         f"chunks) p50 {fp50:.3f} ms p95 {fp95:.3f} ms; finalize "
         f"(input_finished + best_path) median {np.median(fin_ms):.3f} ms; "
-        f"get_lattice median {np.median(lat_ms):.3f} ms; max delay "
+        f"get_lattice median {np.median(lat_ms):.3f} ms (first "
+        f"{len(lat_ms)} utts); max delay "
         f"{f_stats.max_delay:.4f} s; hypothesis mismatches vs offline "
-        f"{f_mism} (None lattices counted); gather launches {launches} "
+        f"{f_mism} (None lattices of those counted); gather launches "
+        f"{launches} "
         f"streaming ({launches / frames:.2f}/frame) and {lat_launches} in "
         f"get_lattice's record decodes | card: {card}")
     if f_mism:
@@ -2304,14 +2411,17 @@ def phase_online_full(tg, card: str, profile: bool = False) -> dict:
         profile_online("fused path", wave, chunk, fp50 / 1e3,
                        fused.accept_waveform)
 
+    def make_generic():
+        return SingleUtteranceNnet2Decoder(
+            am, _TmShim, base_dec, OnlineNnet2FeaturePipeline(
+                OnlineMfcc(fb, computer=fbank, device="cuda")),
+            chunk_frames=16)
+
     for pass_ in range(2):                # pass 0 warms up on one utt
-        g_stats, g_lat, g_mism = OnlineTimingStats(), [], 0
+        g_stats, g_lat, g_mism, generic = OnlineTimingStats(), [], 0, []
         for u in range(3 if pass_ else 1):
             wave = waves[n_train + u]
-            d = SingleUtteranceNnet2Decoder(
-                am, _TmShim, base_dec, OnlineNnet2FeaturePipeline(
-                    OnlineMfcc(fb, computer=fbank, device="cuda")),
-                chunk_frames=16)
+            d = make_generic()
             timer = OnlineTimer(f"u{u}")
             for pos in range(0, len(wave), chunk):
                 t0 = time.perf_counter()
@@ -2323,6 +2433,7 @@ def phase_online_full(tg, card: str, profile: bool = False) -> dict:
             d.finalize_decoding()
             timer.finish(g_stats)
             res = d.best_path()
+            generic.append(res)
             if res is None or list(res[0]) != list(off[u][0]):
                 g_mism += 1
     gp50, gp95 = _pcts(g_lat)
@@ -2336,10 +2447,7 @@ def phase_online_full(tg, card: str, profile: bool = False) -> dict:
     if g_mism:
         raise AssertionError(f"generic path: {g_mism} mismatches")
     if profile:
-        d = SingleUtteranceNnet2Decoder(
-            am, _TmShim, base_dec, OnlineNnet2FeaturePipeline(
-                OnlineMfcc(fb, computer=fbank, device="cuda")),
-            chunk_frames=16)
+        d = make_generic()
 
         def feed(w):
             d.pipeline.accept_waveform(w)
@@ -2350,8 +2458,13 @@ def phase_online_full(tg, card: str, profile: bool = False) -> dict:
     # the gather kernel at the fused CSR path's B = 1 shapes
     shapes = csr_gather_shapes(csr_dec, 1, 64)
     times = gather_at_shapes(tg, shapes, "the fused path's", 3)
+    # what phase 32 serves: the AM, the graph, the options, the test waves
+    # with their offline CSR decodes and the generic path's results
     return {"launches": launches, "shape": shapes[0],
-            "times": times[shapes[0]]}
+            "times": times[shapes[0]], "am": am, "graph": graph, "fb": fb,
+            "csr_opts": csr_opts, "test_waves": list(waves[n_train:]),
+            "offline": off_csr, "frames": Tf, "generic": generic,
+            "make_generic": make_generic}
 
 
 def csr_gather_shapes(dec, B: int, P: int) -> list:
@@ -3020,28 +3133,31 @@ class _Limits:
             raise AssertionError(f"{phase}: " + "; ".join(self.failed))
 
 
-def ladder_decoder(model, arpa: str, opts, device, flat: bool = True):
+def ladder_decoder(model, arpa: str, opts, device, flat: bool = True,
+                   hclg=None):
     """`model`'s HCLG over the ARPA LM, by the flat pipeline
-    (make_hclg_flat, pack_graph_flat) or the object one (make_hclg,
-    pack_graph), behind a `CsrBeamDecoder` on `device` -> (decoder, graph
-    build seconds)."""
+    (make_hclg_flat, pack_graph_flat) or the object one (`ladder_hclg`, or
+    `hclg` when the caller built it, then pack_graph), behind a
+    `CsrBeamDecoder` on `device` -> (decoder, graph build seconds)."""
     from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder
     from kaldi_tpu_torch.decoder.graph_pack import pack_graph
-    from kaldi_tpu_torch.fst.graph import make_hclg
-    from kaldi_tpu_torch.fst.mkgraph_flat import make_hclg_flat, pack_graph_flat
-    from kaldi_tpu_torch.lm.arpa import ArpaLm, arpa_to_g
     t = time.perf_counter()
-    lang, tm = model.lang, model.trans_model
-    g = arpa_to_g(ArpaLm.parse(arpa), lang.words)
-    if flat:
-        hclg, _st = make_hclg_flat(lang, g, tm, model.ctx_dep,
-                                   self_loop_scale=0.1)
-        packed = pack_graph_flat(hclg, tm.id2pdf_array)
+    if flat and hclg is None:
+        packed = ladder_packed(model, arpa)
     else:
-        hclg = make_hclg(lang, g, tm, model.ctx_dep, self_loop_scale=0.1)
-        packed = pack_graph(hclg.fst, tm.id2pdf_array)
+        hclg = hclg or ladder_hclg(model, arpa)
+        packed = pack_graph(hclg.fst, model.trans_model.id2pdf_array)
     return CsrBeamDecoder(packed, opts, device=device), \
         time.perf_counter() - t
+
+
+def ladder_hclg(model, arpa: str):
+    """`model`'s HCLG over the ARPA LM by the object pipeline (make_hclg)."""
+    from kaldi_tpu_torch.fst.graph import make_hclg
+    from kaldi_tpu_torch.lm.arpa import ArpaLm, arpa_to_g
+    g = arpa_to_g(ArpaLm.parse(arpa), model.lang.words)
+    return make_hclg(model.lang, g, model.trans_model, model.ctx_dep,
+                     self_loop_scale=0.1)
 
 
 def _same_decodes(what: str, got: list, want: list, rel: float = 1e-4):
@@ -3422,8 +3538,11 @@ def phase_ladder_full(card: str, profile: bool = False) -> dict:
         raise AssertionError(f"SAT {w_sat:.2f} > SI {w_si:.2f}")
 
     # the graph: object pipeline once, for the time beside the flat one's
+    # (phase 22 takes this HCLG as bMMI's denominator graph)
     t = time.perf_counter()
-    _dec, obj_s = ladder_decoder(tri, arpa, dopts, "cuda", flat=False)
+    tri_hclg = ladder_hclg(tri, arpa)
+    _dec, _s = ladder_decoder(tri, arpa, dopts, "cuda", hclg=tri_hclg)
+    obj_s = time.perf_counter() - t
     log(f"  tri's HCLG: make_hclg_flat {graph_s['tri']:.3f} s, make_hclg "
         f"(object pipeline, Python compose_context) {obj_s:.3f} s")
     if q.launches:
@@ -3442,7 +3561,8 @@ def phase_ladder_full(card: str, profile: bool = False) -> dict:
     return dict(out, launches=launches, graph_s=graph_s, obj_graph_s=obj_s,
                 gather_times=g_times, models=dict(
                     lang=lang, arpa=arpa, refs=refs, dopts=dopts, tri=tri,
-                    lda=lda, nnet=nnet, train=train[True], test=test[True],
+                    tri_hclg=tri_hclg, lda=lda, nnet=nnet, train=train[True],
+                    test=test[True],
                     train_l=train_l, test_l=test_l, train_raw=train[False],
                     test_raw=test[False], corpus=corpus))
 
@@ -3944,8 +4064,15 @@ RM_TRI = dict(num_iters=12, totgauss=350, max_iter_inc=8, num_leaves=120,
 RM_MMI = dict(num_iters=2, boost=0.1, lattice_beam=7.0, max_active=1024)
 RM_FMMI = dict(num_iters=4, lattice_beam=8.0, fmpe_gauss=8)
 RM_BARS = dict(mono=12.0, tri=10.0, mmi=8.0)
-# phase 22 (b): train_mmi.sh's bMMI and train_discriminative2.sh's sMBR
-LADDER_SMBR = dict(criterion="smbr", num_epochs=3, learning_rate=3e-4)
+# phase 22 (b): train_mmi.sh's bMMI and train_discriminative2.sh's sMBR,
+# cut for the time limit: bMMI of the ladder's tri in LADDER_BMMI_ITERS
+# iterations (train_mmi.sh's 4 took 16.6 s on an NVIDIA H100 80GB HBM3 at
+# 700 W), sMBR of the ladder's TDNN on the first SMBR_UTTS training
+# utterances (3 epochs over all 200 took 59.0 s there, 18.3 s of each
+# epoch in the host's posteriors)
+LADDER_SMBR = dict(criterion="smbr", num_epochs=2, learning_rate=3e-4)
+SMBR_UTTS = 50
+LADDER_BMMI_ITERS = 2
 
 
 def _disc_log(what: str, secs: float, stats: list, n_utts: int, card: str):
@@ -3969,13 +4096,13 @@ def phase_disc_full(card: str, ladder: dict, profile: bool = False) -> dict:
     finite, its projection moved, its objective within 0.05 of its start,
     its WER against its base reported (PARITY.md:34 is not held: the
     reference's fMMI breaks it on both systems, tests/test_torch_fmmi.py);
-    (b) on
-    phase 20's ladder models at the ladder's width: bMMI from tri
-    (train_mmi.sh's 4 iterations, its unigram HCLG by make_hclg) and sMBR
-    of the TDNN (3 epochs on denominator lattices from its own loglikes
-    through make_hclg_flat + CsrBeamDecoder, numerator tids from the
-    LDA+MLLT model it was aligned with), each objective non-decreasing
-    and finite; WERs before and after reported."""
+    (b) on phase 20's ladder models at the ladder's width: bMMI from tri
+    (2 iterations, its unigram HCLG by make_hclg) and sMBR of the TDNN (2
+    epochs over the first 50 training utterances, on denominator lattices
+    from its own loglikes through make_hclg_flat + CsrBeamDecoder,
+    numerator tids from the LDA+MLLT model it was aligned with), each
+    objective non-decreasing and finite; WERs before and after
+    reported."""
     import torch
     from kaldi_tpu_torch.decoder.beam_search import BeamSearchOpts
     from kaldi_tpu_torch.decoder.dense import make_decoder
@@ -4127,26 +4254,23 @@ def phase_disc_full(card: str, ladder: dict, profile: bool = False) -> dict:
         return wer(refs_l, [[lang_l.words.sym(x) for x in r[0]] if r else []
                             for r in dec.decode(ll, nf)])
 
-    tri_l = L["tri"]
-    t = time.perf_counter()
-    g_l = arpa_to_g(ArpaLm.parse(arpa), lang_l.words)
-    den = make_hclg(lang_l, g_l, tri_l.trans_model, tri_l.ctx_dep,
-                    self_loop_scale=0.1)
-    den_s = time.perf_counter() - t
+    tri_l, den = L["tri"], L["tri_hclg"]
     st_b: list = []
     t = time.perf_counter()
+    bopts = mmi.MmiTrainOpts(num_iters=LADDER_BMMI_ITERS, boost=0.1)
     am_b, hist_b = mmi.train_discriminative(
-        tri_l, den, L["train"], mmi.MmiTrainOpts(boost=0.1),
-        silence_phones=sil_l, iter_stats=st_b)
+        tri_l, den, L["train"], bopts, silence_phones=sil_l,
+        iter_stats=st_b)
     bmmi_s = time.perf_counter() - t
     w_b = ladder_wer(mono.MonoModel(am_b, tri_l.trans_model, tri_l.ctx_dep,
                                     lang_l), L["test"])
     n_frames = sum(f.shape[0] for _u, f, _w in L["train"])
-    _disc_log(f"(b) bMMI {mmi.MmiTrainOpts(boost=0.1)} from the ladder's "
+    _disc_log(f"(b) bMMI {bopts} from the ladder's "
               f"tri ({tri_l.am.num_pdfs} leaves, {tri_l.am.total_gauss} "
               f"gaussians) on {len(L['train'])} utterances ({n_frames} "
-              f"frames); den HCLG (make_hclg) {den.fst.num_states} states "
-              f"in {den_s:.3f} s; objective/frame "
+              f"frames); den HCLG (phase 20's make_hclg) "
+              f"{den.fst.num_states} states in {ladder['obj_graph_s']:.3f} "
+              f"s; objective/frame "
               f"{', '.join(f'{h:.5f}' for h in hist_b)}", bmmi_s, st_b,
               len(L["train"]), card)
     w_tri_l = ladder["tri"]["wer"]
@@ -4160,7 +4284,8 @@ def phase_disc_full(card: str, ladder: dict, profile: bool = False) -> dict:
     am_n = nnet.am
     t = time.perf_counter()
     batch, feats_l, nf_l = mono.compile_and_pad(
-        lang_l, lda_m.trans_model, lda_m.ctx_dep, L["train_l"], 1.0, 0.1)
+        lang_l, lda_m.trans_model, lda_m.ctx_dep, L["train_l"][:SMBR_UTTS],
+        1.0, 0.1)
     ali = viterbi_align(batch, lda_m.am.loglikes(feats_l), nf_l, 0.1,
                         device="cuda")
     nn_model = mono.MonoModel(am_n, lda_m.trans_model, lda_m.ctx_dep, lang_l)
@@ -4521,14 +4646,15 @@ LADDER_TDNN3 = dict(splice_indexes=((-2, -1, 0, 1, 2), (-1, 2), (0,)),
 # where phase 20's relu TDNN went 5.08 -> 3.33)
 LADDER_NNET3 = dict(LADDER_NNET, momentum=0.9)
 # (b) train_lstm3's own architecture; the optimizer of
-# tests/test_nnet3_recurrent.py's LSTM hybrid, 10 epochs of the ladder
-LADDER_LSTM3_OPTS = dict(initial_lr=0.15, final_lr=0.02, num_epochs=10,
+# tests/test_nnet3_recurrent.py's LSTM hybrid, 3 epochs of the ladder (10
+# took 21.0 s on an NVIDIA H100 80GB HBM3 at 700 W; cut for the time limit)
+LADDER_LSTM3_OPTS = dict(initial_lr=0.15, final_lr=0.02, num_epochs=3,
                          minibatch_size=64, momentum=0.9)
 # Kaldi's nnet3 LSTM recipe width (egs/wsj/s5/local/nnet3/run_lstm.sh:
 # cell 1024, recurrent projection 256, 3 layers, chunk width 20, 100
 # chunks per minibatch), random weights from a seed
 WIDE_LSTM = dict(cell_dim=1024, proj_dim=256, num_layers=3)
-WIDE_CHUNK, WIDE_MB, WIDE_STEPS, WIDE_UTTS = 20, 100, 10, 8
+WIDE_CHUNK, WIDE_MB, WIDE_STEPS, WIDE_UTTS = 20, 100, 4, 8
 # the wide LSTM, card vs CPU: its forward relative to max |y| over 3
 # recurrent layers of K = 1280-term sums and ~300 steps; its steps at
 # TRAIN_LIMITS["ng_sgd"] (NG's eigh on cuSOLVER against LAPACK)
@@ -4566,7 +4692,7 @@ def phase_nnet_full(card: str, ladder: dict, profile: bool = False) -> dict:
     model's HCLG: (a) `train_tdnn3` at the nnet2 rung's width, held to its
     bars (<= 7.0, <= lda_mllt + 1.0); (b) `train_lstm3` at its own width,
     its WER reported, then a wide LSTM (Kaldi's nnet3 LSTM recipe width)
-    card vs CPU: the forward over 8 test utterances and 10 NG-SGD train
+    card vs CPU: the forward over 8 test utterances and 4 NG-SGD train
     steps, with ms per step, frames/s and the card's idle share; (c) a
     DBN (6 x 2048 RBMs, one CD-1 epoch each) fine-tuned by
     `train_frmshuff`, decoded with alignment-count priors: every RBM's
@@ -4813,10 +4939,13 @@ def phase_nnet_full(card: str, ladder: dict, profile: bool = False) -> dict:
 SRE_SMALL = {"v1": dict(num_gauss=8, ivector_dim=8, use_vad=False),
              "v2": dict(num_gauss=4, ivector_dim=8, use_vad=False)}
 # egs/sre10/v1: a 2048-gaussian full-covariance UBM, 600-dim i-vectors;
-# 200 speakers of 6 training, 1 enrollment and 1 test utterance
+# 200 speakers of 6 training, 1 enrollment and 1 test utterance (with 100,
+# v1's PLDA EER was 41.68% against 200's 13.48%)
 SRE = dict(seed=23, speakers=200, train_per_spk=6, words=(8, 17))
 SRE_WIDTH = dict(num_gauss=2048, ivector_dim=600)
-SRE_CHECK_UTTS = 8            # (i): the stages recomputed on the CPU
+# (i): the stages recomputed on the CPU for SRE_CHECK_UTTS utterances (8
+# took 28.2 s of phase 26 beside an NVIDIA H100 80GB HBM3 at 700 W)
+SRE_CHECK_UTTS = 4
 SRE_CHECK_GAUSS = 64          # (i): gaussians of the M-step on the CPU
 F64_EPS = 2.0 ** -53                      # f64 unit roundoff
 SOLVE_C = 2.0                 # a solve's backward error: SOLVE_C (K + D) eps64
@@ -5625,8 +5754,9 @@ def phase_sre_full(card: str, ladder: dict) -> dict:
         f"the card in {feat_s:.3f} s")
     flat = [f for s in spks for f in train[s]]
     log("  cut from egs/sre10: speakers and hours (sre10 trains on "
-        "thousands of speakers; here 200 synthetic ones) and, for v2, the "
-        "DNN (phase 20's 166 pdfs against about 5,000 senones); not cut: "
+        f"thousands of speakers; here {len(spks)} synthetic ones) and, for "
+        "v2, the DNN (phase 20's 166 pdfs against about 5,000 senones); not "
+        "cut: "
         "the 2048-gaussian UBM, the 600-dim i-vectors, the 60-dim features")
 
     out = {}
@@ -5701,6 +5831,9 @@ ADAPT_BASIS = dict(basis_size=100, eta=0.2)
 SGMM_WIDTH = dict(ubm_gauss=400, phn_dim=31, spk_dim=0, num_iters=8,
                   num_gselect=15)
 SGMM_SUBSTATES_PER_PDF = 3
+# SGMM2 bMMI iterations (SgmmMmiOpts' default 2 took 19.5 s on an NVIDIA
+# H100 80GB HBM3 at 700 W; cut for the time limit)
+SGMM_MMI_ITERS = 1
 RAW_WITNESS = os.path.join(ROOT, "chiprun_out", "raw_fmllr_witness.pkl")
 
 
@@ -6094,16 +6227,17 @@ def phase_adapt_sgmm_full(card: str, ladder: dict) -> dict:
     den = make_hclg(lang, g, lda.model.trans_model, lda.model.ctx_dep,
                     self_loop_scale=0.1)
     sam_b = SgmmAm(sg.copy(), sam.num_gselect)
+    mmi_opts = SgmmMmiOpts(num_iters=SGMM_MMI_ITERS)
     mits: list = []
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     sam_b, objs = train_sgmm2_bmmi(lda.model, sam_b, den, m["train_l"],
-                                   SgmmMmiOpts(), iter_stats=mits)
+                                   mmi_opts, iter_stats=mits)
     t_mmi = time.perf_counter() - t
     peak_mmi = torch.cuda.max_memory_allocated() / 2 ** 30
     fb, nf = pad_batch(test_l)
     w_mmi = wer(refs, words(decode(dec_l, sam_b.loglikes(fb), nf)))
-    log(f"  (d) SGMM2 bMMI {dataclasses.asdict(SgmmMmiOpts())}: objective "
+    log(f"  (d) SGMM2 bMMI {dataclasses.asdict(mmi_opts)}: objective "
         + ", ".join(f"{o:.5f}" for o in objs) + f" in {t_mmi:.3f} s ("
         + "; ".join(", ".join(f"{k} {v:.3f}" if isinstance(v, float) else
                               f"{k} {v}" for k, v in st.items())
@@ -7522,24 +7656,12 @@ def _kws_refs(ctms: dict, phrases: list) -> dict:
     return refs
 
 
-def phase_rescore_full(card: str, lt: dict, ld: dict) -> dict:
-    """Phase 30: (a) bench.py's trigram rescoring line and its truncation
-    audit on phase 14's lattices, (b) rescoring, scoring, MBR, oracle,
-    ctm, KWS and decode_biglm on the ladder's lattices, (c) the feature
-    modules on the bench's test waves."""
+def phase_rescore_bench(card: str, lt: dict) -> dict:
+    """Phase 30 (a) and (c), which take nothing from the ladder: (a)
+    bench.py's trigram rescoring line and its truncation audit on phase
+    14's lattices, (c) the feature modules on the bench's test waves."""
     import torch
-    from kaldi_tpu_torch.decoder.beam_search import (BeamSearchDecoder,
-                                                     BeamSearchOpts)
-    from kaldi_tpu_torch.decoder.biglm import decode_biglm
-    from kaldi_tpu_torch.decoder.viterbi import viterbi_align
-    from kaldi_tpu_torch.kws import (TwvOptions, compute_twv,
-                                     lattice_to_kws_index, search_index)
-    from kaldi_tpu_torch.lat.align import word_align_lattice, words_to_ctm
-    from kaldi_tpu_torch.lat.functions import (compose_lattice_with_lm,
-                                               lattice_best_path, nbest)
-    from kaldi_tpu_torch.lat.generate import decode_to_lattices
-    from kaldi_tpu_torch.lat.mbr import mbr_decode
-    from kaldi_tpu_torch.lm.arpa import ArpaLm, arpa_to_g
+    from kaldi_tpu_torch.lat.functions import lattice_best_path, nbest
     from kaldi_tpu_torch.lm.const_arpa import ConstArpaLm, stats
     from kaldi_tpu_torch.lm.const_arpa import \
         lattice_lmrescore_const_arpa_many as rescore_many
@@ -7549,8 +7671,6 @@ def phase_rescore_full(card: str, lt: dict, ld: dict) -> dict:
     from kaldi_tpu_torch.ops.pitch import compute_kaldi_pitch, process_pitch
     from kaldi_tpu_torch.ops.resample import resample_waveform
     from kaldi_tpu_torch.ops.signal import reverberate
-    from kaldi_tpu_torch.steps import mono
-    from kaldi_tpu_torch.steps.score import score_lattices
 
     q.launches = tg.launches = 0
     t0 = time.perf_counter()
@@ -7643,6 +7763,86 @@ def phase_rescore_full(card: str, lt: dict, ld: dict) -> dict:
         f"untruncated {audit['oracle_u']:.3f}%; top-{AUDIT_NBEST} path "
         f"recall {audit['recall']:.2f}%; rescored best-path drift "
         f"{drift} utterances; {time.perf_counter() - t:.3f} s")
+
+    # (c) the feature modules on the bench's 8 test waves (10 s, 16 kHz)
+    waves = lt["waves"]
+    rir = seeded_rir(RIR["taps"], RIR["rt60"], RIR["seed"])
+    ms = {}
+    for dev in ("cuda", "cpu"):
+        for what, fn in (
+                ("pitch", lambda w: process_pitch(compute_kaldi_pitch(
+                    w, device=dev))),
+                ("reverberate", lambda w: reverberate(
+                    w, rir, snr_db=RIR["snr_db"],
+                    rng=np.random.RandomState(RIR["seed"]), device=dev)),
+                ("resample", lambda w: resample_waveform(w, 16000.0, 8000.0,
+                                                         device=dev))):
+            fn(waves[0])
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            for w in waves:
+                fn(w)
+            ms[what, dev] = 1e3 * (time.perf_counter() - t) / len(waves)
+    t = time.perf_counter()
+    f = features_card_vs_cpu(waves)
+    log(f"  (c) features on the bench's {len(waves)} x 10 s test waves: ms "
+        f"per utterance card / CPU: compute_kaldi_pitch + process_pitch "
+        f"{ms['pitch', 'cuda']:.3f} / {ms['pitch', 'cpu']:.3f}, reverberate "
+        f"({RIR['taps']}-tap RIR, {RIR['snr_db']} dB) "
+        f"{ms['reverberate', 'cuda']:.3f} / {ms['reverberate', 'cpu']:.3f}, "
+        f"resample_waveform 16 -> 8 kHz {ms['resample', 'cuda']:.3f} / "
+        f"{ms['resample', 'cpu']:.3f} | card: {card}")
+    log(f"  (c) card vs CPU, ratios to the bounds: convolution "
+        f"{f['conv']:.3e}, resampling 16 -> 8 kHz {f['resample 8k']:.3e}, "
+        f"16 -> 4 kHz {f['resample 4k']:.3e}, NCCF {f['nccf']:.3e}; Viterbi "
+        f"frames differing on shared costs {f['viterbi frames']}; the whole "
+        f"tracker's pitch differs on {f['pitch frames']} of {f['frames']} "
+        f"frames (reported: the resampled input is rounded to f32 on each "
+        f"device); process_pitch within {f['process_pitch']:.3e}; "
+        f"{time.perf_counter() - t:.3f} s")
+    bad = [k for k in ("conv", "resample 8k", "resample 4k", "nccf")
+           if not f[k] <= 1.0] + (["viterbi frames"] if f["viterbi frames"]
+                                  else [])
+    if bad:
+        failed.append(f"features at width card vs CPU: {bad} ({f})")
+    if q.launches:
+        failed.append(f"phase 30 (a, c) launched qaffine {q.launches} times")
+    log(f"  launches: gather {tg.launches}, qaffine {q.launches}; phase 30 "
+        f"(a, c) took {time.perf_counter() - t0:.3f} s")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return dict(audit=audit, rescore=dict(card_s=tc, cpu_s=th,
+                                          levels=st["levels"] // 2))
+
+
+def phase_rescore_ladder(card: str, ld: dict) -> dict:
+    """Phase 30 (b): rescoring, scoring, MBR, oracle, ctm, KWS and
+    decode_biglm on the ladder's lattices."""
+    from kaldi_tpu_torch.decoder.beam_search import (BeamSearchDecoder,
+                                                     BeamSearchOpts)
+    from kaldi_tpu_torch.decoder.biglm import decode_biglm
+    from kaldi_tpu_torch.decoder.viterbi import viterbi_align
+    from kaldi_tpu_torch.kws import (TwvOptions, compute_twv,
+                                     lattice_to_kws_index, search_index)
+    from kaldi_tpu_torch.lat.align import word_align_lattice, words_to_ctm
+    from kaldi_tpu_torch.lat.functions import (compose_lattice_with_lm,
+                                               lattice_best_path)
+    from kaldi_tpu_torch.lat.generate import decode_to_lattices
+    from kaldi_tpu_torch.lat.mbr import mbr_decode
+    from kaldi_tpu_torch.lm.arpa import ArpaLm, arpa_to_g
+    from kaldi_tpu_torch.lm.const_arpa import ConstArpaLm, stats
+    from kaldi_tpu_torch.lm.const_arpa import \
+        lattice_lmrescore_const_arpa_many as rescore_many
+    from kaldi_tpu_torch.lm.synth import synth_trigram_arpa
+    from kaldi_tpu_torch.nnet import quantized as q
+    from kaldi_tpu_torch.ops import table_gather as tg
+    from kaldi_tpu_torch.steps import mono
+    from kaldi_tpu_torch.steps.score import score_lattices
+
+    q.launches = tg.launches = 0
+    t0 = time.perf_counter()
+    failed = []
 
     # (b) the ladder's lattices
     M = ld["models"]
@@ -7822,57 +8022,894 @@ def phase_rescore_full(card: str, lt: dict, ld: dict) -> dict:
     launches = tg.launches
     if q.launches:
         failed.append(f"phase 30 launched qaffine {q.launches} times")
-
-    # (c) the feature modules on the bench's 8 test waves (10 s, 16 kHz)
-    waves = lt["waves"]
-    rir = seeded_rir(RIR["taps"], RIR["rt60"], RIR["seed"])
-    ms = {}
-    for dev in ("cuda", "cpu"):
-        for what, fn in (
-                ("pitch", lambda w: process_pitch(compute_kaldi_pitch(
-                    w, device=dev))),
-                ("reverberate", lambda w: reverberate(
-                    w, rir, snr_db=RIR["snr_db"],
-                    rng=np.random.RandomState(RIR["seed"]), device=dev)),
-                ("resample", lambda w: resample_waveform(w, 16000.0, 8000.0,
-                                                         device=dev))):
-            fn(waves[0])
-            if dev == "cuda":
-                torch.cuda.synchronize()
-            t = time.perf_counter()
-            for w in waves:
-                fn(w)
-            ms[what, dev] = 1e3 * (time.perf_counter() - t) / len(waves)
-    t = time.perf_counter()
-    f = features_card_vs_cpu(waves)
-    log(f"  (c) features on the bench's {len(waves)} x 10 s test waves: ms "
-        f"per utterance card / CPU: compute_kaldi_pitch + process_pitch "
-        f"{ms['pitch', 'cuda']:.3f} / {ms['pitch', 'cpu']:.3f}, reverberate "
-        f"({RIR['taps']}-tap RIR, {RIR['snr_db']} dB) "
-        f"{ms['reverberate', 'cuda']:.3f} / {ms['reverberate', 'cpu']:.3f}, "
-        f"resample_waveform 16 -> 8 kHz {ms['resample', 'cuda']:.3f} / "
-        f"{ms['resample', 'cpu']:.3f} | card: {card}")
-    log(f"  (c) card vs CPU, ratios to the bounds: convolution "
-        f"{f['conv']:.3e}, resampling 16 -> 8 kHz {f['resample 8k']:.3e}, "
-        f"16 -> 4 kHz {f['resample 4k']:.3e}, NCCF {f['nccf']:.3e}; Viterbi "
-        f"frames differing on shared costs {f['viterbi frames']}; the whole "
-        f"tracker's pitch differs on {f['pitch frames']} of {f['frames']} "
-        f"frames (reported: the resampled input is rounded to f32 on each "
-        f"device); process_pitch within {f['process_pitch']:.3e}; "
-        f"{time.perf_counter() - t:.3f} s")
-    bad = [k for k in ("conv", "resample 8k", "resample 4k", "nccf")
-           if not f[k] <= 1.0] + (["viterbi frames"] if f["viterbi frames"]
-                                  else [])
-    if bad:
-        failed.append(f"features at width card vs CPU: {bad} ({f})")
     log(f"  launches: gather {launches} (the ladder lattices' decodes), "
-        f"qaffine {q.launches}; phase 30 took "
+        f"qaffine {q.launches}; phase 30 (b) took "
         f"{time.perf_counter() - t0:.3f} s")
     if failed:
         raise AssertionError("; ".join(failed))
-    return dict(launches=launches, audit=audit, rescore=dict(
-        card_s=tc, cpu_s=th, levels=st["levels"] // 2), ladder=out_b,
-        atwv=twv["atwv"], biglm_wer=w_big)
+    return dict(launches=launches, ladder=out_b, atwv=twv["atwv"],
+                biglm_wer=w_big)
+
+
+# ---------------------------------------------------------------------------
+# phases 31-32: the file layer and network serving
+
+SERVE_BEAM = dict(beam=16.0, max_active=64, acoustic_scale=0.1)
+SERVE_CHUNKINGS = {"even-4000": [4000], "odd-777": [777],
+                   "byte-then-odd": [1, 3001]}
+# phase 32 (e): the first SERVE_GMM_UTTS of the ladder's 40 test
+# utterances (its first speaker's) through the online GMM decoder without
+# adaptation, then again with the default adaptation policy (reported, not
+# held): on an NVIDIA H100 80GB HBM3 (700 W) all 40 took 40.2 s without
+# adaptation and 16 took 20.4 s with it, cut for the script's time limit
+SERVE_GMM_UTTS = 8
+SERVE_ADAPT_UTTS = 8
+SERVE_DIR = os.path.join(ROOT, "chiprun_out", "serving")
+
+
+def yesno_gmm_system(seed: int = 3) -> dict:
+    """A yesno monophone trained on the CPU (8 iterations, 40 gaussians,
+    16 utterances of MFCC + deltas), its HCLG, and three test waves of 3,
+    4 and 8 words (tests/test_torch_server.py's system)."""
+    from kaldi_tpu_torch.steps.mono import MonoTrainOpts, train_mono
+    rng = np.random.RandomState(seed)
+    utts = []
+    for i in range(16):
+        ws = [rng.choice(["YES", "NO"]) for _ in range(rng.randint(2, 5))]
+        utts.append((f"u{i}", mfcc_deltas(yesno_synth(ws, rng), "cpu"), ws))
+    lang, _ctx, _tm, _g = gmm_stack(YESNO_LEXICON, YESNO_ARPA)
+    model = train_mono(lang, utts, MonoTrainOpts(
+        num_iters=8, totgauss=40, max_iter_inc=6,
+        realign_iters=tuple(range(1, 8))), device="cpu")
+    packed = gmm_hclg(model.lang, YESNO_ARPA, model.trans_model,
+                      model.ctx_dep)
+    waves = [yesno_synth(ws, rng) for ws in
+             (["YES", "NO", "YES"], ["NO", "NO", "YES", "NO"],
+              ["YES", "NO", "YES", "NO", "YES", "NO", "YES", "NO"])]
+    return dict(model=model, packed=packed, waves=waves)
+
+
+def pcm_chunks(wave, pattern: list) -> list:
+    """A wave as 16-bit PCM bytes cut by `pattern` (the last size repeats)."""
+    pcm = np.clip(wave, -32768, 32767).astype("<i2").tobytes()
+    out, pos, i = [], 0, 0
+    while pos < len(pcm):
+        n = pattern[min(i, len(pattern) - 1)]
+        out.append(pcm[pos:pos + n])
+        pos, i = pos + n, i + 1
+    return out
+
+
+def drive_session(session, chunks) -> list:
+    """A session's hypothesis after every chunk, then its final one."""
+    hyps = []
+    for c in chunks:
+        session.accept_pcm(c)
+        hyps.append(session.hypothesis())
+    session.finish()
+    return hyps + [session.hypothesis(final=True)]
+
+
+def gmm_session_factory(model, packed, device):
+    """DecodeSessions of a GMM system (MFCC + deltas at 8 kHz, the padded
+    decoder, 16-frame chunks) on `device`, as the CLI's online server
+    builds them."""
+    from kaldi_tpu_torch.decoder.beam_search import (BeamSearchDecoder,
+                                                     BeamSearchOpts)
+    from kaldi_tpu_torch.online.decoder import OnlineDecoder
+    from kaldi_tpu_torch.online.features import OnlineFeaturePipeline
+    from kaldi_tpu_torch.online.server import DecodeSession
+    base = BeamSearchDecoder(packed, BeamSearchOpts(**SERVE_BEAM),
+                             device=device)
+    fo = gmm_mfcc_opts()
+
+    def session():
+        return DecodeSession(
+            lambda: OnlineFeaturePipeline(fo, delta_order=2, device=device),
+            lambda: OnlineDecoder(base, chunk_frames=16),
+            am=model.am, words=model.lang.words)
+    return session
+
+
+def gmm_mfcc_opts():
+    from kaldi_tpu_torch.ops.features import MfccOpts
+    from kaldi_tpu_torch.ops.window import FrameOpts
+    return MfccOpts(frame_opts=FrameOpts(samp_freq=GMM_SR, dither=0.0))
+
+
+def npz_same(a: str, b: str, loads=None) -> bool:
+    """Two model files hold the same members and the same bytes in each
+    array; a pickled host payload (`__host__`) is unpickled by `loads`
+    (default: the port's) and compared by `host_equal`, since pickling
+    the same sets again may order their elements otherwise."""
+    from kaldi_tpu_torch.io.model_io import _loads
+    loads = loads or _loads
+    za, zb = np.load(a), np.load(b)
+    if sorted(za.files) != sorted(zb.files):
+        return False
+    for k in za.files:
+        x, y = za[k], zb[k]
+        if k == "__host__":
+            if not host_equal(loads(x.tobytes()), loads(y.tobytes())):
+                return False
+        elif not (x.dtype == y.dtype and x.shape == y.shape
+                  and x.tobytes() == y.tobytes()):
+            return False
+    return True
+
+
+def host_equal(a, b) -> bool:
+    """Structural equality of unpickled host payloads: objects by class
+    and attributes (`__slots__` or `__dict__`), arrays by dtype and
+    value, containers element for element."""
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return (np.asarray(a).dtype == np.asarray(b).dtype
+                and np.array_equal(a, b))
+    if type(a) is not type(b):
+        return False
+    if isinstance(a, dict):
+        return list(a) == list(b) and all(host_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(host_equal, a, b))
+    if hasattr(a, "__slots__"):
+        return all(host_equal(getattr(a, k), getattr(b, k))
+                   for k in a.__slots__)
+    if hasattr(a, "__dict__"):
+        return host_equal(vars(a), vars(b))
+    return a == b
+
+
+def _state_equal(a, b) -> bool:
+    import torch
+    sa, sb = a.state_dict(), b.state_dict()
+    return list(sa) == list(sb) and all(
+        torch.equal(sa[k].cpu(), sb[k].cpu()) for k in sa)
+
+
+def model_files_card_vs_cpu(ys: dict, out_dir: str,
+                            card: str = "cuda") -> dict:
+    """Every model kind of io/model_io.py through the port's save_* and
+    load_*: each object is saved, loaded on `card` and on the CPU, and each
+    load saved again. The files hold the same arrays bit for bit and equal
+    host objects (`npz_same`), and each device object computes on the card
+    exactly what it computed before the round trip. -> {kind: "ok"}."""
+    import torch
+    from kaldi_tpu_torch.gmm.diag_gmm import DiagGmm
+    from kaldi_tpu_torch.gmm.estimation import AccumAmDiagGmm
+    from kaldi_tpu_torch.gmm.full_gmm import FullGmm
+    from kaldi_tpu_torch.io import model_io as mio
+    from kaldi_tpu_torch.ivector.extractor import IvectorExtractor
+    from kaldi_tpu_torch.ivector.plda import Plda
+    from kaldi_tpu_torch.lm.arpa import ArpaLm
+    from kaldi_tpu_torch.lm.const_arpa import ConstArpaLm
+    from kaldi_tpu_torch.nnet.am_nnet import AmNnet
+    from kaldi_tpu_torch.nnet.tdnn import Tdnn, TdnnConfig
+    from kaldi_tpu_torch.nnet3.network import Nnet3
+    from kaldi_tpu_torch.nnet3.training import AmNnet3
+    from kaldi_tpu_torch.params import random_tdnn_params
+    from kaldi_tpu_torch.sgmm.estimate import Sgmm2Accs
+    from kaldi_tpu_torch.steps.sgmm_steps import SgmmAm
+    from kaldi_tpu_torch.tree import build_tree as tbt
+    from kaldi_tpu_torch.tree.context_dep import TreeContextDependency
+
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.RandomState(31)
+    x39 = rng.randn(2, 30, 39).astype(np.float32)
+    x8 = rng.randn(1, 12, 8).astype(np.float32)
+    cfg = TdnnConfig(feat_dim=39, num_pdfs=ys["model"].am.num_pdfs,
+                     hidden_dim=64, nonlinearity="relu",
+                     splice_indexes=((-1, 0, 1), (-1, 2), (0,)))
+    tdnn = Tdnn(cfg, device=card).load_jax_params(
+        random_tdnn_params(cfg, np.random.default_rng(31)))
+    net3 = Nnet3(nnet3_small_config("tdnn"), device=card)
+    net3.init(torch.Generator().manual_seed(31))
+    su = sgmm_small_setup(card)
+    sam = SgmmAm(su["model"], 3)
+    accs = Sgmm2Accs(su["model"])
+    accs.accumulate(su["model"], su["feats"], su["post"], num_gselect=3)
+    gacc = AccumAmDiagGmm(ys["model"].am)
+    for a in gacc.accs:
+        a.occ, a.mean_acc = rng.rand(*a.occ.shape), rng.randn(*a.mean_acc.shape)
+    stats = tree_stats_example()
+    questions = tbt.Questions(tbt.obtain_questions(stats), num_pdf_classes=3)
+    tree, n = tbt.build_tree(stats, questions, [[p] for p in range(1, 9)],
+                             {p: 3 for p in range(1, 9)}, None, [True] * 8,
+                             max_leaves=12, thresh=5.0, cluster_thresh=-1.0)
+    A = rng.randn(3, 4, 4)
+    arpa = ("\\data\\\nngram 1=4\nngram 2=2\n\n\\1-grams:\n-1.0\t<s>\t-0.3\n"
+            "-0.7\ta\t-0.2\n-0.9\tb\n-0.8\t</s>\n\n\\2-grams:\n-0.3\t<s> a\n"
+            "-0.4\ta b\n\n\\end\\\n")
+    ubm = DiagGmm(rng.dirichlet(np.ones(4)), rng.randn(4, 5),
+                  rng.uniform(0.5, 2.0, (4, 5)))
+    ext = IvectorExtractor(ubm, 3, seed=1)
+    objs = {
+        "gmm_system": (gmm_model_on(ys["model"], card),
+                       lambda m: m.am.loglikes(x39)),
+        "hclg": (ys["packed"], None),
+        "am_nnet": (AmNnet(tdnn, np.full(cfg.num_pdfs, 1.0 / cfg.num_pdfs)),
+                    lambda m: m.loglikes(x39)),
+        "raw_nnet": (tdnn, lambda m: m(torch.as_tensor(x39, device=card))),
+        "am_nnet3": (AmNnet3(net3), lambda m: m.loglikes(x8)),
+        "ivector_extractor": (ext, None),
+        "const_arpa": (ConstArpaLm(ArpaLm.parse(arpa),
+                                   symbol_table(["a", "b", "<s>", "</s>"])),
+                       None),
+        "ubm": (FullGmm(rng.dirichlet(np.ones(3)), rng.randn(3, 4),
+                        A @ A.transpose(0, 2, 1) + np.eye(4)), None),
+        "plda": (Plda(mean=rng.randn(4), transform=rng.randn(4, 4),
+                      psi=rng.rand(4)), None),
+        "gmm_accs": (gacc, None),
+        "tree_stats": ((stats, 3, 1), None),
+        "tree": (TreeContextDependency(3, 1, tree, n), None),
+        "sgmm2": (sam, lambda m: m.loglikes(su["feats"][None, :40])),
+        "sgmm2_accs": (accs, lambda m: m.Y),
+    }
+    ondev = {"gmm_system", "am_nnet", "raw_nnet", "am_nnet3", "sgmm2",
+             "sgmm2_accs"}
+    out = {}
+    for kind, (obj, compute) in objs.items():
+        save = getattr(mio, f"save_{kind}")
+        load = getattr(mio, f"load_{kind}")
+        a, b = (os.path.join(out_dir, f"{kind}.{k}") for k in ("a", "b"))
+        _save_kind(save, a, obj)
+        kw = [dict(device=card), dict(device="cpu")] if kind in ondev \
+            else [{}, {}]
+        on_card, on_cpu = load(a, **kw[0]), load(a, **kw[1])
+        _save_kind(save, b, on_card)
+        if not npz_same(a, b):
+            raise AssertionError(f"model file {kind}: the card's load saves "
+                                 f"other data")
+        c = os.path.join(out_dir, f"{kind}.c")
+        _save_kind(save, c, on_cpu)
+        if not npz_same(a, c):
+            raise AssertionError(f"model file {kind}: the CPU's load saves "
+                                 f"other data")
+        if compute is not None:
+            m = on_card[0] if kind == "raw_nnet" else on_card
+            with torch.no_grad():
+                got, want = compute(m), compute(obj)
+            if not torch.equal(torch.as_tensor(got).cpu(),
+                               torch.as_tensor(want).cpu()):
+                raise AssertionError(f"model file {kind}: the card's load "
+                                     f"computes otherwise")
+        out[kind] = "ok"
+    return out
+
+
+def _save_kind(save, path: str, obj):
+    """save_<kind> of an object as its load_<kind> returns it (tree
+    stats, raw nnets and GMM accs load as tuples of save's arguments)."""
+    if isinstance(obj, tuple):
+        save(path, *obj)
+    else:
+        save(path, obj)
+
+
+def tree_stats_example(seed: int = 7, dim: int = 5) -> dict:
+    """tests/test_torch_tree.py's seeded tree statistics (the port's
+    classes)."""
+    from kaldi_tpu_torch.tree import clustering as tcl
+    from kaldi_tpu_torch.tree.event_map import KPDF_CLASS
+    rng = np.random.RandomState(seed)
+    stats = {}
+    for _ in range(160):
+        left, right = (int(v) for v in rng.randint(0, 9, 2))
+        centre = int(rng.randint(1, 9))
+        if centre == 8:
+            left = right = 0
+        for pc in range(3):
+            ev = frozenset([(KPDF_CLASS, pc), (0, left), (1, centre),
+                            (2, right)])
+            n = int(rng.randint(5, 30))
+            mean = (np.full(dim, 2.0 * (centre % 3) + pc) + 0.7 * (left % 2))
+            x = mean + rng.randn(n, dim) * 0.5
+            st = stats.get(ev)
+            new = tcl.GaussStats(count=float(n), x=x.sum(0),
+                                 x2=(x * x).sum(0))
+            stats[ev] = new if st is None else st.add(new)
+    return stats
+
+
+def ark_round_trips(out_dir: str) -> dict:
+    """Binary, text and compressed arks by the port: written, read by the
+    native reader (by path) and the Python reader (by handle) alike, the
+    native writer's bytes equal to the Python writer's. -> counts."""
+    from kaldi_tpu_torch.io import kaldi_io, native
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.RandomState(32)
+    items = [(f"u{i}", rng.randn(rng.randint(5, 300), 40).astype(np.float32))
+             for i in range(6)]
+    checked = 0
+    for mode, kw in (("binary", {}), ("text", dict(binary=False)),
+                     ("compressed", dict(compress=True))):
+        path = os.path.join(out_dir, f"{mode}.ark")
+        kaldi_io.write_ark(path, items, **kw)
+        by_path = list(kaldi_io.read_ark(path))
+        with open(path, "rb") as f:
+            by_handle = list(kaldi_io.read_ark(f))
+        if [k for k, _v in by_path] != [k for k, _v in items] or any(
+                not np.array_equal(a, b) for (_k, a), (_k2, b)
+                in zip(by_path, by_handle)):
+            raise AssertionError(f"{mode} ark: the readers disagree")
+        if mode == "binary" and any(not np.array_equal(a, b) for (_k, a),
+                                    (_k2, b) in zip(by_path, items)):
+            raise AssertionError("binary ark: not bit-exact")
+        if mode == "binary":
+            nat = list(native.read_ark_native(path))
+            if any(not np.array_equal(a, b) for (_k, a), (_k2, b)
+                   in zip(nat, items)):
+                raise AssertionError("native reader != the written arrays")
+        checked += len(items)
+    npath = os.path.join(out_dir, "native.ark")
+    with native.ArkWriterNative(npath) as w:
+        for k, v in items:
+            w.write(k, v)
+    with open(npath, "rb") as f, open(os.path.join(out_dir, "binary.ark"),
+                                      "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError("native writer's bytes != Python writer's")
+    return dict(entries=checked, native=native.available())
+
+
+def sessions_card_vs_cpu(ys: dict, card: str = "cuda") -> dict:
+    """DecodeSession (the yesno GMM) and FusedDecodeSession (the small
+    stream setup through `fused_session_factory`) fed the same bytes in
+    fixed and odd-length chunks on `card` and on the CPU: every partial
+    and the final hypothesis equal. -> {session: number of hypotheses}."""
+    from kaldi_tpu_torch.nnet.am_nnet import AmNnet
+    from kaldi_tpu_torch.nnet.tdnn import Tdnn
+    from kaldi_tpu_torch.online.server import fused_session_factory
+    su = small_stream_setup()
+    am = AmNnet(Tdnn(su["cfg"]).load_jax_params(su["params"]),
+                priors=su["priors"])
+    rng = np.random.default_rng(33)
+    fwave = (rng.standard_normal(20000) * 4000).astype(np.float32)
+    out = {}
+    for name, wave, make in (
+            ("gmm", ys["waves"][1], lambda dev: gmm_session_factory(
+                gmm_model_on(ys["model"], dev), ys["packed"], dev)),
+            ("fused", fwave, lambda dev: fused_session_factory(
+                am, su["graph"], su["opts"], su["fb"],
+                symbol_table([f"w{k}" for k in range(1, 41)]), device=dev,
+                chunk_samples=2560, t_max=256))):
+        n = 0
+        for label, pattern in SERVE_CHUNKINGS.items():
+            chunks = pcm_chunks(wave, pattern)
+            got = drive_session(make(card)(), chunks)
+            want = drive_session(make("cpu")(), chunks)
+            if got != want:
+                raise AssertionError(f"{name} session ({label}): card "
+                                     f"{got[-1]!r} != CPU {want[-1]!r}")
+            if not got[-1] or len(set(got)) < 3:
+                raise AssertionError(f"{name} session: no partials")
+            n += len(got)
+        out[name] = n
+    return out
+
+
+def threaded_vs_sync(ys: dict, card: str = "cuda") -> int:
+    """ThreadedSingleUtteranceDecoder over a seeded TDNN on the yesno
+    HCLG equals the synchronous SingleUtteranceNnet2Decoder (words, tids,
+    cost within 1e-4) on `card`. -> words decoded."""
+    from kaldi_tpu_torch.decoder.beam_search import (BeamSearchDecoder,
+                                                     BeamSearchOpts)
+    from kaldi_tpu_torch.nnet.am_nnet import AmNnet
+    from kaldi_tpu_torch.nnet.tdnn import Tdnn, TdnnConfig
+    from kaldi_tpu_torch.online.features import (OnlineFeaturePipeline,
+                                                 OnlineProcessedFeature)
+    from kaldi_tpu_torch.online.nnet2_decoding import (
+        OnlineNnet2FeaturePipeline, SingleUtteranceNnet2Decoder)
+    from kaldi_tpu_torch.params import random_tdnn_params
+    m = ys["model"]
+    cfg = TdnnConfig(feat_dim=39, num_pdfs=m.am.num_pdfs, hidden_dim=32,
+                     nonlinearity="relu", splice_indexes=((-1, 0, 1), (0,)))
+    am = AmNnet(Tdnn(cfg).load_jax_params(random_tdnn_params(
+        cfg, np.random.default_rng(7))),
+        np.random.default_rng(8).dirichlet(np.ones(cfg.num_pdfs)))
+    dec = BeamSearchDecoder(ys["packed"], BeamSearchOpts(**SERVE_BEAM),
+                            device=card)
+
+    def make():
+        return SingleUtteranceNnet2Decoder(
+            am, m.trans_model, dec, OnlineNnet2FeaturePipeline(
+                OnlineProcessedFeature(OnlineFeaturePipeline(
+                    gmm_mfcc_opts(), delta_order=2, device=card))),
+            chunk_frames=16)
+    n = 0
+    for wave in ys["waves"]:
+        want = _sync_decode(make(), wave, 1600)
+        got = _threaded_decode(make(), wave, 1600)
+        _same_results("threaded decoder", [got], [want], card)
+        n += len(want[0])
+    return n
+
+
+def _sync_decode(sud, wave, step: int):
+    for lo in range(0, len(wave), step):
+        sud.pipeline.accept_waveform(wave[lo: lo + step])
+        sud.advance_decoding()
+    sud.finalize_decoding()
+    return sud.best_path()
+
+
+def _threaded_decode(sud, wave, step: int):
+    from kaldi_tpu_torch.online.threaded import \
+        ThreadedSingleUtteranceDecoder
+    t = ThreadedSingleUtteranceDecoder(sud)
+    for lo in range(0, len(wave), step):
+        t.accept_waveform(wave[lo: lo + step])
+    t.input_finished()
+    if not t.wait(timeout=300.0):
+        raise AssertionError("threaded decoder: timeout")
+    return t.best_path()
+
+
+def run_gmm_decoder(model, beam_decoder, wave, policy):
+    """SingleUtteranceGmmDecoder over `model` fed 250 ms per call -> (best
+    path, transform or None after each call, the re-estimations'
+    (features, partial path, start, transform))."""
+    from kaldi_tpu_torch.online.features import OnlineFeaturePipeline
+    from kaldi_tpu_torch.online.gmm_decoding import SingleUtteranceGmmDecoder
+    sud = SingleUtteranceGmmDecoder(
+        model.am, model.trans_model, beam_decoder,
+        OnlineFeaturePipeline(gmm_mfcc_opts(), delta_order=2,
+                              device=beam_decoder.device),
+        policy=policy, fmllr_min_count=20.0)
+    transforms, calls = [], []
+    estimate = sud.estimate_fmllr
+
+    def recorded(raw):
+        init = sud.state.transform
+        res = sud.decoder.best_path(use_final_probs=False)
+        estimate(raw)
+        calls.append((np.array(raw), res, init, sud.state.transform))
+    sud.estimate_fmllr = recorded
+    step = int(0.25 * GMM_SR)
+    for lo in range(0, len(wave), step):
+        sud.pipeline.accept_waveform(wave[lo: lo + step])
+        sud.advance_decoding()
+        transforms.append(None if sud.state.transform is None
+                          else np.array(sud.state.transform))
+    sud.finalize_decoding()
+    return sud.best_path(), transforms, calls
+
+
+def fmllr_replay(am_a, am_b, tm, raw, res) -> dict:
+    """One online re-estimation's fMLLR statistics from two AMs (the same
+    GMM on two devices) on the same features and partial path, the term
+    scale and the bound that the two AMs' gaussian posteriors' difference
+    sets on them (`fmllr_term_scale`): -> {"K", "G": (max |a - b| /
+    bound, max bound / scale)}."""
+    from kaldi_tpu_torch.transform.fmllr import FmllrStats, _posteriors_np
+    tids = res[1]
+    T = min(len(tids), raw.shape[0])
+    x = raw[:T]
+    pdfs = np.array([tm.transition_id_to_pdf(t) for t in tids[:T]])
+    st = []
+    for am in (am_a, am_b):
+        s = FmllrStats(x.shape[1])
+        s.accumulate_from_alignment(am, x, pdfs)
+        st.append(s)
+    post = [_posteriors_np(am, x.astype(np.float32), pdfs,
+                           np.ones(T, np.float32)) for am in (am_a, am_b)]
+    bound = fmllr_term_scale(am_a, x, pdfs, post=np.abs(post[0] - post[1]))
+    scale = fmllr_term_scale(am_a, x, pdfs)
+    out = {}
+    for k in ("K", "G"):
+        b = getattr(bound, k) + 1e-9 * getattr(scale, k)
+        out[k] = (float(np.max(np.abs(getattr(st[0], k) - getattr(st[1], k))
+                               / b)),
+                  float(np.max(getattr(bound, k)
+                               / np.maximum(getattr(scale, k), 1e-30))))
+    return out
+
+
+def gmm_decoder_card_vs_cpu(ys: dict, card: str = "cuda") -> dict:
+    """SingleUtteranceGmmDecoder on the yesno system's 8-word wave with
+    early adaptation (first estimate at 0.5 s) on `card` and on the CPU:
+    the same words and tids, re-estimations at the same calls, and each
+    of the card's re-estimations replayed against the CPU's AM on the
+    card's inputs: its statistics within the bound that the two AMs'
+    posteriors' difference sets. -> {"words", "estimates", "bound ratio",
+    "bound share", "max |dW| / max |W|"} (the last reported only: the
+    solve amplifies the statistics' last digits)."""
+    from kaldi_tpu_torch.decoder.beam_search import (BeamSearchDecoder,
+                                                     BeamSearchOpts)
+    from kaldi_tpu_torch.online.gmm_decoding import AdaptationPolicy
+    policy = AdaptationPolicy(adaptation_first_utt_delay=0.5,
+                              adaptation_first_utt_ratio=1.5)
+    wave = ys["waves"][2]
+    runs = {}
+    for dev in (card, "cpu"):
+        m = gmm_model_on(ys["model"], dev)
+        dec = BeamSearchDecoder(ys["packed"], BeamSearchOpts(**SERVE_BEAM),
+                                device=dev)
+        runs[dev] = (m,) + run_gmm_decoder(m, dec, wave, policy)
+    (ma, ra, ta, ca), (mb, rb, tb, cb) = runs[card], runs["cpu"]
+    if list(ra[0]) != list(rb[0]) or list(ra[1]) != list(rb[1]):
+        raise AssertionError("online GMM decoder: card != CPU words")
+    if [t is None for t in ta] != [t is None for t in tb] or not ca:
+        raise AssertionError("online GMM decoder: adaptation schedules "
+                             "differ")
+    ratio, share = 0.0, 0.0
+    for raw, res, _init, _W in ca:
+        r = fmllr_replay(ma.am, mb.am, ma.trans_model, raw, res)
+        ratio = max(ratio, r["K"][0], r["G"][0])
+        share = max(share, r["K"][1], r["G"][1])
+    dW = max(float(np.abs(a - b).max() / np.abs(b).max())
+             for a, b in zip(ta, tb) if a is not None)
+    return {"words": len(ra[0]), "estimates": len(ca), "bound ratio": ratio,
+            "bound share": share, "max |dW| / max |W|": dW}
+
+
+def codec_checks() -> dict:
+    """µ-law and IMA ADPCM: chunked encode and decode with carried state
+    equal the one-shot codes and samples bit for bit; the round trip's
+    SNR on a tone. -> {"mulaw snr", "adpcm snr"}."""
+    from kaldi_tpu_torch.online import compress
+    t = np.arange(8000) / GMM_SR
+    x = (9000 * np.sin(2 * np.pi * 440 * t)
+         + np.random.RandomState(34).randn(8000) * 300).astype(np.float32)
+    one, _ = compress.adpcm_encode(x)
+    es, ds, codes, dec = compress.AdpcmState(), compress.AdpcmState(), [], []
+    for lo in range(0, len(x), 777):
+        c, es = compress.adpcm_encode(x[lo:lo + 777], es)
+        d, ds = compress.adpcm_decode(c, ds)
+        codes.append(c)
+        dec.append(d)
+    if not np.array_equal(np.concatenate(codes), one) or not np.array_equal(
+            np.concatenate(dec), compress.adpcm_decode(one)[0]):
+        raise AssertionError("ADPCM: chunked != one-shot")
+    mu = compress.mulaw_encode(x)
+    if not np.array_equal(np.concatenate([compress.mulaw_encode(x[:3001]),
+                                          compress.mulaw_encode(x[3001:])]),
+                          mu):
+        raise AssertionError("µ-law: chunked != one-shot")
+
+    def snr(y):
+        return float(10 * np.log10((x ** 2).mean() / ((x - y) ** 2).mean()))
+    return {"mulaw snr": snr(compress.mulaw_decode(mu)),
+            "adpcm snr": snr(np.concatenate(dec))}
+
+
+def phase_serving_small() -> None:
+    """Phase 31: the file layer and the serving classes, small, card vs
+    CPU."""
+    t0 = time.perf_counter()
+    ys = yesno_gmm_system()
+    log(f"  yesno system: {ys['model'].am.num_pdfs} pdfs, "
+        f"{ys['model'].am.total_gauss} gaussians (trained on the CPU in "
+        f"{time.perf_counter() - t0:.3f} s)")
+    t = time.perf_counter()
+    kinds = model_files_card_vs_cpu(ys, os.path.join(SERVE_DIR, "small"))
+    log(f"  model files: {len(kinds)} kinds ({', '.join(kinds)}) saved, "
+        f"loaded on the card and on the CPU and saved again: the same "
+        f"array bytes and host objects, the card's loads compute exactly "
+        f"what the originals did ({time.perf_counter() - t:.3f} s)")
+    a = ark_round_trips(os.path.join(SERVE_DIR, "arks"))
+    log(f"  arks: {a['entries']} entries binary, text and compressed; the "
+        f"native reader (built: {a['native']}) and the Python reader agree, "
+        f"the native writer's bytes are the Python writer's")
+    s = sessions_card_vs_cpu(ys)
+    log(f"  DecodeSession (yesno GMM) and FusedDecodeSession (small CSR) fed "
+        f"{len(SERVE_CHUNKINGS)} chunkings (even, odd, one byte first): "
+        f"every partial and final equal on the card and the CPU ({s})")
+    n = threaded_vs_sync(ys)
+    log(f"  ThreadedSingleUtteranceDecoder == synchronous decoder on the "
+        f"card ({n} words over 3 utterances)")
+    g = gmm_decoder_card_vs_cpu(ys)
+    if not g["bound ratio"] <= 1.0:
+        raise AssertionError(f"online GMM decoder: fMLLR statistics outside "
+                             f"their bound ({g})")
+    log(f"  SingleUtteranceGmmDecoder (first estimate at 0.5 s): card == CPU "
+        f"words ({g['words']}), {g['estimates']} re-estimations at the same "
+        f"calls; statistics within {g['bound ratio']:.3e} of the "
+        f"posterior bound (bound {g['bound share']:.3e} of the terms); "
+        f"transforms differ by {g['max |dW| / max |W|']:.3e} of max |W| "
+        f"(reported)")
+    c = codec_checks()
+    log(f"  codecs: µ-law and ADPCM chunked == one-shot bit for bit; SNR "
+        f"µ-law {c['mulaw snr']:.2f} dB, ADPCM {c['adpcm snr']:.2f} dB; "
+        f"phase 31 took {time.perf_counter() - t0:.3f} s")
+
+
+def _serve_concurrently(server, waves, chunk_samples: int) -> list:
+    """Stream each wave on its own connection, all at once (one client
+    thread each) -> [(lines, timings)]."""
+    import threading
+    from kaldi_tpu_torch.online.server import stream_wave
+    server.serve_in_background()
+    out = [None] * len(waves)
+    errors = []
+
+    def client(i):
+        try:
+            tm = {}
+            out[i] = (stream_wave("127.0.0.1", server.port, waves[i],
+                                  chunk_samples=chunk_samples, timings=tm),
+                      tm)
+        except Exception as e:               # noqa: BLE001 — raised below
+            errors.append(e)
+    try:
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(len(waves))]
+        for t in threads:
+            t.start()
+        deadline = time.perf_counter() + 2 * SOCKET_TIMEOUT_S
+        for t in threads:
+            t.join(timeout=max(deadline - time.perf_counter(), 0.0))
+    finally:
+        server.shutdown()
+    if errors or any(o is None for o in out):
+        raise AssertionError(f"clients failed: {errors}")
+    return out
+
+
+def _finals(results) -> list:
+    for lines, _tm in results:
+        if not lines or not lines[-1].startswith("FINAL"):
+            raise AssertionError(f"no FINAL line: {lines[-3:]}")
+    return [lines[-1][len("FINAL"):].split() for lines, _tm in results]
+
+
+def phase_serving_full(tg, card: str, on: dict, ld: dict) -> dict:
+    """Phase 32: phase 16's configuration behind the TCP server, and the
+    ladder's tri system behind the online GMM decoder and the CLI."""
+    from kaldi_tpu_torch.decoder.beam_search import (BeamSearchDecoder,
+                                                     BeamSearchOpts)
+    from kaldi_tpu_torch.io import model_io as mio
+    from kaldi_tpu_torch.nnet import quantized as q
+    from kaldi_tpu_torch.online import compress
+    from kaldi_tpu_torch.online.features import OnlineFeaturePipeline
+    from kaldi_tpu_torch.online.gmm_decoding import AdaptationPolicy
+    from kaldi_tpu_torch.online.server import (AudioServer,
+                                               fused_session_factory)
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(SERVE_DIR, "full")
+    os.makedirs(out_dir, exist_ok=True)
+    SR, chunk = 16000.0, 2560
+    # (a) the AM and HCLG through the port's files, loaded on the card
+    am_p, g_p = os.path.join(out_dir, "am.mdl"), os.path.join(out_dir, "HCLG")
+    mio.save_am_nnet(am_p, on["am"])
+    mio.save_hclg(g_p, on["graph"])
+    am = mio.load_am_nnet(am_p, device="cuda")
+    graph = mio.load_hclg(g_p)
+    if not _state_equal(am.model, on["am"].model) or not np.array_equal(
+            am.priors, on["am"].priors) or any(
+            not np.array_equal(getattr(graph, k), getattr(on["graph"], k))
+            for k in ("arc_start", "ilabel", "olabel", "cost", "nextstate",
+                      "pdf", "final")):
+        raise AssertionError("phase 16's AM or HCLG changed through the "
+                             "port's files")
+    log(f"  (a) phase 16's AM ({os.path.getsize(am_p)} bytes) and HCLG "
+        f"({os.path.getsize(g_p)} bytes) saved by the port and loaded on "
+        f"the card: bit-equal")
+
+    # (b) 6 concurrent connections at phase 16's configuration
+    vocab = int(graph.olabel.max())
+    words = symbol_table([f"w{k}" for k in range(1, vocab + 1)])
+    waves = on["test_waves"]
+    want = [[f"w{w}" for w in r[0]] for r in on["offline"]]
+    factory = fused_session_factory(am, graph, on["csr_opts"], on["fb"],
+                                    words, device="cuda",
+                                    chunk_samples=chunk, t_max=1024)
+    factory()                              # warm-up: one session's set-up
+    q.launches = tg.launches = 0           # count the server's path only
+    t = time.perf_counter()
+    res = _serve_concurrently(AudioServer("127.0.0.1", 0, factory), waves,
+                              chunk)
+    wall = time.perf_counter() - t
+    launches, q_launches = tg.launches, q.launches
+    got = _finals(res)
+    bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    if bad:
+        raise AssertionError(f"server FINALs differ from phase 16's offline "
+                             f"decode at connections {bad}")
+    if not launches or q_launches:
+        raise AssertionError(f"server path: gather {launches} launches, "
+                             f"qaffine {q_launches}")
+    audio = sum(len(w) for w in waves) / SR
+    fin = [(tm["final"] - tm["shut_wr"]) * 1e3 for _l, tm in res]
+    conn = [tm["final"] - tm["start"] for _l, tm in res]
+    partials = [sum(ln.startswith("PARTIAL") for ln in lines)
+                for lines, _tm in res]
+    span = max(tm["final"] for _l, tm in res) - min(tm["start"]
+                                                   for _l, tm in res)
+    p50, p95 = _pcts(fin)
+    frames = len(waves) * on["frames"]
+    log(f"  (b) AudioServer, {len(waves)} concurrent connections of "
+        f"{audio / len(waves):.2f} s each, {chunk} samples per send: every "
+        f"FINAL == phase 16's offline CSR decode; per-connection wall "
+        f"{min(conn):.3f}-{max(conn):.3f} s; FINAL latency after SHUT_WR "
+        f"p50 {p50:.3f} ms p95 {p95:.3f} ms; partials per connection "
+        f"{partials}; aggregate {audio / span:.3f} audio-sec/s ({audio:.2f} "
+        f"s of audio in {span:.3f} s, {wall:.3f} s with the server's start "
+        f"and stop); gather launches {launches} "
+        f"({launches / frames:.2f} per frame), qaffine {q_launches} | card: "
+        f"{card}")
+    shapes = csr_gather_shapes(factory().fused.dec, 1, on["am"].num_pdfs)
+    times = gather_at_shapes(tg, shapes, "the server's", 5)
+
+    # (c) the same streams through µ-law and ADPCM transport
+    wers = {}
+    for codec in ("mulaw", "adpcm"):
+        if codec == "mulaw":
+            cw = [compress.mulaw_decode(compress.mulaw_encode(w))
+                  for w in waves]
+        else:
+            cw = [compress.adpcm_decode(compress.adpcm_encode(w)[0])[0]
+                  for w in waves]
+        t = time.perf_counter()
+        cres = _finals(_serve_concurrently(
+            AudioServer("127.0.0.1", 0, factory), cw, chunk))
+        wers[codec] = wer(got, cres)
+        log(f"  (c) {codec} transport: WER {wers[codec]:.2f} against the "
+            f"uncompressed FINALs ({time.perf_counter() - t:.3f} s)")
+
+    # (d) the threaded decoder over phase 16's generic path
+    t = time.perf_counter()
+    for u, sync in enumerate(on["generic"]):
+        thr = _threaded_decode(on["make_generic"](), waves[u], chunk)
+        _same_results("threaded generic path", [thr], [sync], "cuda")
+    log(f"  (d) ThreadedSingleUtteranceDecoder over phase 16's generic path, "
+        f"{len(on['generic'])} utterances: == the synchronous decoder "
+        f"(words, tids) ({time.perf_counter() - t:.3f} s)")
+
+    # (e) the online GMM decoder over phase 20's tri
+    m = ld["models"]
+    tri, lang = m["tri"], m["lang"]
+    packed = ladder_packed(tri, m["arpa"])
+    bopts = BeamSearchOpts(beam=LADDER_DECODE["beam"],
+                           max_active=LADDER_DECODE["max_active"],
+                           acoustic_scale=0.1)
+    bdec = BeamSearchDecoder(packed, bopts, device="cuda")
+    test = m["corpus"]["test"][:SERVE_GMM_UTTS]
+    refs = [ws for _u, _w, ws, _s in test]
+    never = AdaptationPolicy(adaptation_first_utt_delay=1e9,
+                             adaptation_delay=1e9)
+    t = time.perf_counter()
+    plain = [run_gmm_decoder(tri, bdec, w, never)[0]
+             for _u, w, _ws, _s in test]
+    t_plain = time.perf_counter() - t
+    feats, fdiff = [], 0.0
+    ladder_f = {u: f for u, f, _ws in m["test"]}
+    for u, w, _ws, _s in test:
+        pipe = OnlineFeaturePipeline(gmm_mfcc_opts(), delta_order=2,
+                                     device="cuda")
+        pipe.accept_waveform(w)
+        pipe.input_finished()
+        feats.append(pipe.get_features())
+        n = min(len(feats[-1]), len(ladder_f[u]))
+        fdiff = max(fdiff, float(np.abs(feats[-1][:n]
+                                        - ladder_f[u][:n]).max()))
+    fb, nf = pad_batch(feats)
+    offline = bdec.decode(tri.am.loglikes(fb), nf)
+    # chunked and batched GEMMs round the loglikes differently: the same
+    # words and tids, the cost (a sum over frames) within 1e-4
+    _same_decodes("online GMM decoder (no adaptation)", plain, offline)
+    t = time.perf_counter()
+    adapted = [run_gmm_decoder(tri, bdec, w, AdaptationPolicy())
+               for _u, w, _ws, _s in test[:SERVE_ADAPT_UTTS]]
+    t_ad = time.perf_counter() - t
+    n_est = sum(len(c) for _r, _t, c in adapted)
+    sym = lang.words.sym
+    w_plain = wer(refs, [[sym(x) for x in r[0]] for r in plain])
+    w_plain_a = wer(refs[:SERVE_ADAPT_UTTS],
+                    [[sym(x) for x in r[0]] for r in plain[:SERVE_ADAPT_UTTS]])
+    w_ad = wer(refs[:SERVE_ADAPT_UTTS],
+               [[sym(x) for x in r[0]] if r else []
+                for r, _t, _c in adapted])
+    log(f"  (e) SingleUtteranceGmmDecoder over phase 20's tri "
+        f"({tri.am.num_pdfs} pdfs), the first {len(test)} of the ladder's "
+        f"{len(m['corpus']['test'])} test utterances, 250 ms per "
+        f"call: without adaptation == the offline decode of the same "
+        f"pipeline's features, WER {w_plain:.2f} ({t_plain:.3f} s); the "
+        f"default AdaptationPolicy on the first {len(adapted)}: {n_est} fMLLR "
+        f"estimates, WER {w_ad:.2f} against {w_plain_a:.2f} unadapted "
+        f"({t_ad:.3f} s); phase 20 tri {ld['tri']['wer']:.2f} on all 40 "
+        f"from the ladder's batch features, which the online "
+        f"pipeline does not reproduce: its per-utterance MFCC and deltas "
+        f"differ from the zero-padded batch's by up to {fdiff:.3e} (the "
+        f"deltas of the last frames read past the utterance's end there)")
+
+    # (f) the CLI in-process
+    t = time.perf_counter()
+    cli_out = serving_cli(tri, packed, lang, test[:2], plain[:2], out_dir)
+    log(f"  (f) CLI: online-server-gmm-decode-faster (tri and its HCLG as "
+        f"the port saved them, 2 connections) and online-audio-client: "
+        f"FINALs == (e)'s; online2-wav-nnet2-am-compute: {cli_out['rows']} "
+        f"rows read back by read_ark == AmNnet.loglikes_np on the same "
+        f"features ({time.perf_counter() - t:.3f} s); phase 32 took "
+        f"{time.perf_counter() - t0:.3f} s")
+    return {"launches": launches, "shape": shapes[0],
+            "times": times[shapes[0]], "fin_p50": p50, "fin_p95": p95,
+            "audio_s_per_s": audio / span, "wers": wers}
+
+
+def ladder_packed(model, arpa: str):
+    """`model`'s HCLG over the ARPA LM by the flat pipeline, packed."""
+    from kaldi_tpu_torch.fst.mkgraph_flat import make_hclg_flat, pack_graph_flat
+    from kaldi_tpu_torch.lm.arpa import ArpaLm, arpa_to_g
+    g = arpa_to_g(ArpaLm.parse(arpa), model.lang.words)
+    hclg, _st = make_hclg_flat(model.lang, g, model.trans_model,
+                               model.ctx_dep, self_loop_scale=0.1)
+    return pack_graph_flat(hclg, model.trans_model.id2pdf_array)
+
+
+def serving_cli(tri, packed, lang, test, want, out_dir: str) -> dict:
+    """Phase 32 (f): the CLI's online server over `tri` and `packed` as the
+    port saves them, two connections, the client on two utterances (each
+    FINAL == `want`'s words); then online2-wav-nnet2-am-compute over a
+    seeded TDNN of phase 16's width on the MFCC + deltas, read back by
+    read_ark and held equal to AmNnet.loglikes_np on the same features."""
+    import contextlib
+    import io
+    import threading
+    from kaldi_tpu_torch import cli
+    from kaldi_tpu_torch.io import kaldi_io, model_io as mio
+    from kaldi_tpu_torch.io.wave import read_wave, write_wave
+    from kaldi_tpu_torch.nnet.am_nnet import AmNnet
+    from kaldi_tpu_torch.nnet.tdnn import Tdnn, TdnnConfig
+    from kaldi_tpu_torch.online.features import (OnlineFeaturePipeline,
+                                                 OnlineProcessedFeature)
+    from kaldi_tpu_torch.params import random_tdnn_params
+    mdl, hclg = (os.path.join(out_dir, n) for n in ("tri.mdl", "tri.HCLG"))
+    mio.save_gmm_system(mdl, tri)
+    mio.save_hclg(hclg, packed)
+    scp = os.path.join(out_dir, "wav.scp")
+    with open(scp, "w") as f:
+        for u, w, _ws, _s in test:
+            path = os.path.join(out_dir, f"{u}.wav")
+            write_wave(path, w, GMM_SR)
+            f.write(f"{u} {path}\n")
+    pf = os.path.join(out_dir, "port")
+    if os.path.exists(pf):
+        os.remove(pf)
+    srv = threading.Thread(target=cli.main, args=([
+        "online-server-gmm-decode-faster", mdl, hclg, "--port-file", pf,
+        "--num-connections", "2", "--sample-frequency", str(GMM_SR),
+        "--beam", str(LADDER_DECODE["beam"]), "--max-active",
+        str(LADDER_DECODE["max_active"]), "--device", "cuda"],), daemon=True)
+    srv.start()
+    for _ in range(1200):
+        if os.path.exists(pf) and open(pf).read():
+            break
+        time.sleep(0.05)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["online-audio-client", "127.0.0.1", open(pf).read(), scp])
+    srv.join(timeout=120)
+    lines = buf.getvalue().splitlines()
+    for (u, _w, _ws, _s), line, r in zip(test, lines, want):
+        if line.split() != [u, "FINAL"] + [lang.words.sym(x) for x in r[0]]:
+            raise AssertionError(f"CLI server: {line!r} != {r[0]}")
+    if len(lines) != len(test):
+        raise AssertionError(f"CLI client printed {lines}")
+    cfg = TdnnConfig(feat_dim=39, num_pdfs=tri.am.num_pdfs, hidden_dim=512,
+                     nonlinearity="relu",
+                     splice_indexes=((-2, -1, 0, 1, 2), (-1, 2), (0,)))
+    am = AmNnet(Tdnn(cfg, device="cuda").load_jax_params(
+        random_tdnn_params(cfg, np.random.default_rng(35))),
+        np.full(cfg.num_pdfs, 1.0 / cfg.num_pdfs))
+    nnet = os.path.join(out_dir, "tdnn.mdl")
+    mio.save_am_nnet(nnet, am)
+    ark = os.path.join(out_dir, "am.ark")
+    cli.main(["online2-wav-nnet2-am-compute", nnet, scp, f"ark:{ark}",
+              "--sample-frequency", str(GMM_SR), "--device", "cuda"])
+    rows = dict(kaldi_io.read_ark(ark))
+    for u, _w, _ws, _s in test:
+        wave = read_wave(os.path.join(out_dir, f"{u}.wav"))[0][0]
+        pipe = OnlineProcessedFeature(OnlineFeaturePipeline(
+            gmm_mfcc_opts(), delta_order=2, device="cuda"))
+        step = int(0.5 * GMM_SR)
+        for lo in range(0, len(wave), step):
+            pipe.accept_waveform(wave[lo:lo + step])
+        pipe.input_finished()
+        x = pipe.get_frames(0, pipe.num_frames_ready())[None]
+        if not np.array_equal(rows[u], am.loglikes_np(x)[0]):
+            raise AssertionError(f"am-compute row {u} != loglikes_np")
+    return {"rows": sum(len(v) for v in rows.values())}
 
 
 def device_time(fn) -> tuple[float, int, dict]:
@@ -7958,13 +8995,111 @@ def profile_stream(srv, waves, chunk: int, host_s_per_step: float):
                 n_ops, by_name, host_s_per_step, 12)
 
 
+def build_native() -> list[str]:
+    """Build the g++ libraries (graph ops, lattice extraction, ark reader)
+    that the phases would otherwise build one by one at first use, all at
+    once. -> their paths."""
+    from concurrent.futures import ThreadPoolExecutor
+    from kaldi_tpu_torch.fst import native_ops
+    from kaldi_tpu_torch.io import native as ark_native
+    from kaldi_tpu_torch.lat import native_gen
+    mods = (native_ops, native_gen, ark_native)
+    loads = (native_ops._load, native_gen._load, ark_native.load)
+    with ThreadPoolExecutor(len(loads)) as ex:
+        for f in [ex.submit(load) for load in loads]:
+            f.result()
+    return [m.library_path() for m in mods]
+
+
+def side_phases() -> int:
+    """The second process (`SIDE_FLAG`): the bench graph's chain (phases
+    7, 8, 10, 13, 14, 18, 30 a and c), then the SMALL_PHASES; the chain's
+    launch counts go to SIDE_RESULTS."""
+    import torch
+    from kaldi_tpu_torch.device import card_info, resolve_device
+    from kaldi_tpu_torch.nnet import quantized as q
+    from kaldi_tpu_torch.ops import table_gather as tg
+    resolve_device("cuda")                # also turns TF32 off
+    torch.set_num_threads(SIDE_THREADS)
+    card = card_info()
+    profile = "--profile" in sys.argv[1:]
+    log_phase("[7/32] full-width serving slice (bf16 TDNN)")
+    sl = phase_slice(tg, card, profile=profile)
+    log_phase("[8/32] full-width int8 serving slice")
+    s8 = phase_int8_slice(q, tg, sl, card)
+    log_phase("[10/32] streaming server, full width")
+    st = phase_stream_full(tg, sl, card, profile=profile)
+    log_phase("[13/32] training, full width: the bench's AM with the port's "
+              "train step")
+    tr = phase_train_full(sl, card, profile=profile)
+    log_phase("[14/32] lattice path, full width (latgen at the bench's "
+              "point)")
+    lt = phase_lattice_full(tg, sl, tr, card)
+    log_phase("[18/32] GMM path, full width: monophone training, the dense "
+              "decoder's serving lines")
+    phase_gmm_full(tr, card, profile=profile)
+    log_phase("[30/32] (a, c) rescoring at width: bench.py's 1.13M-n-gram "
+              "trigram over phase 14's lattices with the truncation audit; "
+              "features on the bench's test waves")
+    phase_rescore_bench(card, lt)
+    for k, what, fn in SMALL_PHASES:
+        if k == 31:
+            socket.setdefaulttimeout(SOCKET_TIMEOUT_S)
+        log_phase(f"[{k}/32] {what}")
+        globals()[fn]()
+    with open(SIDE_RESULTS, "w") as f:
+        json.dump({"slice": sl["launches"], "int8": s8["launches"],
+                   "stream": st["launches"], "latgen": lt["launches"],
+                   "adaptive": lt["adaptive_launches"]}, f)
+    log(f"the second process's phases in "
+        f"{time.perf_counter() - T_START:.1f} s")
+    return 0
+
+
+def start_side_phases():
+    """-> the second process, its stdout in SIDE_LOG and its stderr this
+    one's."""
+    import subprocess
+    os.makedirs(os.path.dirname(SIDE_LOG), exist_ok=True)
+    if os.path.exists(SIDE_RESULTS):
+        os.remove(SIDE_RESULTS)
+    with open(SIDE_LOG, "w") as out:
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), SIDE_FLAG]
+            + [a for a in sys.argv[1:] if a == "--profile"],
+            stdout=out, cwd=ROOT)
+
+
+def finish_side_phases(proc) -> dict:
+    """Wait for the second process, copy its log here, fail with it. ->
+    its launch counts."""
+    import subprocess
+    try:
+        rc = proc.wait(timeout=max(STACKS_AFTER_S + 150
+                                   - (time.perf_counter() - T_START), 1.0))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "killed at the time limit"
+    with open(SIDE_LOG) as f:
+        for line in f:
+            log(line.rstrip("\n"))
+    if rc != 0:
+        raise AssertionError(f"the second process failed ({rc})")
+    with open(SIDE_RESULTS) as f:
+        return json.load(f)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on "
               "a card", file=sys.stderr)
         return 2
+    faulthandler.dump_traceback_later(STACKS_AFTER_S)
     sys.path.insert(0, ROOT)
+    if SIDE_FLAG in sys.argv[1:]:
+        return side_phases()
     from kaldi_tpu_torch import cuda_build
     from kaldi_tpu_torch.device import card_info, resolve_device
     from kaldi_tpu_torch.nnet import quantized as q
@@ -7972,116 +9107,93 @@ def main() -> int:
 
     resolve_device("cuda")                # also turns TF32 off
     card = card_info()
-    log(f"[1/30] card: {card} | torch {torch.__version__} CUDA "
-        f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
-        f"{torch.cuda.device_count()}")
+    log_phase(f"[1/32] card: {card} | torch {torch.__version__} CUDA "
+              f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
+              f"{torch.cuda.device_count()}")
 
     t = time.perf_counter()
-    libs = cuda_build.build()
-    log(f"[2/30] build: {len(libs)} kernels in {time.perf_counter() - t:.3f} "
-        f"s (one nvcc each, in parallel)")
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(1) as ex:
+        native = ex.submit(build_native)
+        libs = cuda_build.build()
+        native = native.result()
+    log_phase(f"[2/32] build: {len(libs)} kernels (one nvcc each) and "
+              f"{len(native)} g++ libraries, all at once, in "
+              f"{time.perf_counter() - t:.3f} s")
     for name, so in libs.items():
         with open(os.path.join(os.path.dirname(so), "nvcc.log")) as f:
             regs = [ln.split("info    : ")[-1] for ln in f
                     if "registers" in ln or "spill" in ln]
         log(f"  {os.path.relpath(so, ROOT)}: {' | '.join(regs)}")
 
-    log("[3/30] table-gather kernel vs plain version")
+    log_phase("[3/32] table-gather kernel vs plain version")
     k = phase_kernel(tg)
-    log("[4/30] qaffine kernel vs plain version")
+    log_phase("[4/32] qaffine kernel vs plain version")
     qk = phase_qaffine(q)
-    log("[5/30] decoder on the card vs on the CPU")
-    phase_decoder_parity()
-    log("[6/30] int8 decode on the card vs on the CPU")
-    phase_int8_parity()
-    log("[7/30] full-width serving slice (bf16 TDNN)")
-    sl = phase_slice(tg, card, profile="--profile" in sys.argv[1:])
-    log("[8/30] full-width int8 serving slice")
-    s8 = phase_int8_slice(q, tg, sl, card)
-    log("[9/30] streaming server, small: card vs CPU vs offline")
-    phase_stream_small()
-    log("[10/30] streaming server, full width")
-    st = phase_stream_full(tg, sl, card, profile="--profile" in sys.argv[1:])
-    log("[11/30] lattice path, small: card vs CPU, native vs numpy")
-    phase_lattice_small()
-    log("[12/30] training, small: card vs CPU")
-    phase_train_small()
-    log("[13/30] training, full width: the bench's AM with the port's "
-        "train step")
-    tr = phase_train_full(sl, card, profile="--profile" in sys.argv[1:])
-    log("[14/30] lattice path, full width (latgen at the bench's point)")
-    lt = phase_lattice_full(tg, sl, tr, card)
-    log("[15/30] online path, small: card vs CPU vs offline")
-    phase_online_small()
-    log("[16/30] online path, full width (scripts/bench_streaming.py's "
-        "configuration)")
-    on = phase_online_full(tg, card, profile="--profile" in sys.argv[1:])
-    log("[17/30] GMM path, small: card vs CPU")
-    phase_gmm_small()
-    log("[18/30] GMM path, full width: monophone training, the dense "
-        "decoder's serving lines")
-    phase_gmm_full(tr, card, profile="--profile" in sys.argv[1:])
-    log("[19/30] triphone ladder, small: card vs CPU")
-    phase_ladder_small()
-    log("[20/30] triphone ladder, full width: mono -> tri -> LDA+MLLT -> "
-        "TDNN, and SAT")
-    ld = phase_ladder_full(card, profile="--profile" in sys.argv[1:])
-    log("[21/30] discriminative path, small: card vs CPU on shared "
-        "lattices")
-    phase_disc_small()
-    log("[22/30] discriminative path, full width: the rm-like pyramid with "
-        "bMMI and fMMI, then bMMI and TDNN sMBR on the ladder's models")
-    dk = phase_disc_full(card, ld, profile="--profile" in sys.argv[1:])
-    log("[23/30] nnet3 and nnet1 families, small: card vs CPU")
-    phase_nnet_small()
-    log("[24/30] nnet3 and nnet1 families at the ladder's width: nnet3 "
-        "TDNN and LSTM, the wide LSTM, the DBN")
-    nn = phase_nnet_full(card, ld, profile="--profile" in sys.argv[1:])
-    log("[25/30] speaker recognition, small: sre10 v1 and v2 card vs CPU, "
-        "each stage within its bound, logistic regression, VAD")
-    phase_sre_small()
-    log("[26/30] speaker recognition at sre10's width (2048 gaussians, "
-        "600-dim i-vectors, 60-dim features): v1 and v2, then logistic "
-        "regression")
-    sr = phase_sre_full(card, ld)
-    log("[27/30] adaptation transforms and SGMM2, small: card vs CPU, each "
-        "check within its bound, the yesno SGMM runs at PARITY.md:36-37")
-    phase_adapt_sgmm_small()
-    log("[28/30] adaptation and SGMM2 at the ladder's width: raw, basis, "
-        "regression-tree and global fMLLR, MLLR, LVTLN, HLDA; SGMM2 at "
-        "egs/rm's sgmm2_4a widths, bMMI, SGMM fMLLR")
-    ad = phase_adapt_sgmm_full(card, ld)
-    log("[29/30] rescoring, search and features, small: step_batch, the "
-        "batch rescorer, decode_biglm vs its exact oracle, pitch, resampling "
-        "and convolution, card vs CPU")
-    phase_rescore_small()
-    log("[30/30] rescoring and search at width: bench.py's 1.13M-n-gram "
-        "trigram over phase 14's lattices with the truncation audit; the "
-        "ladder's lattices through rescoring, scoring, MBR, ctm, KWS and "
-        "decode_biglm; features on the bench's test waves")
-    rs = phase_rescore_full(card, lt, ld)
+    side = start_side_phases()            # beside the phases below
+    try:
+        log_phase("[16/32] online path, full width "
+                  "(scripts/bench_streaming.py's configuration)")
+        on = phase_online_full(tg, card, profile="--profile" in sys.argv[1:])
+        log_phase("[20/32] triphone ladder, full width: mono -> tri -> "
+                  "LDA+MLLT -> TDNN, and SAT")
+        ld = phase_ladder_full(card, profile="--profile" in sys.argv[1:])
+        log_phase("[22/32] discriminative path, full width: the rm-like "
+                  "pyramid with bMMI and fMMI, then bMMI and TDNN sMBR on the "
+                  "ladder's models")
+        dk = phase_disc_full(card, ld, profile="--profile" in sys.argv[1:])
+        log_phase("[24/32] nnet3 and nnet1 families at the ladder's width: "
+                  "nnet3 TDNN and LSTM, the wide LSTM, the DBN")
+        nn = phase_nnet_full(card, ld, profile="--profile" in sys.argv[1:])
+        log_phase("[26/32] speaker recognition at sre10's width (2048 "
+                  "gaussians, 600-dim i-vectors, 60-dim features): v1 and v2, "
+                  "then logistic regression")
+        sr = phase_sre_full(card, ld)
+        log_phase("[28/32] adaptation and SGMM2 at the ladder's width: raw, "
+                  "basis, regression-tree and global fMLLR, MLLR, LVTLN, "
+                  "HLDA; SGMM2 at egs/rm's sgmm2_4a widths, bMMI, SGMM fMLLR")
+        ad = phase_adapt_sgmm_full(card, ld)
+        log_phase("[30/32] (b) search at width: the ladder's lattices "
+                  "through rescoring, scoring, MBR, ctm, KWS and "
+                  "decode_biglm")
+        rs = phase_rescore_ladder(card, ld)
+        socket.setdefaulttimeout(SOCKET_TIMEOUT_S)
+        log_phase("[32/32] network serving at phase 16's configuration: its "
+                  "AM and HCLG through the port's files, the TCP server over "
+                  "6 concurrent connections (also through µ-law and ADPCM), "
+                  "the threaded decoder, the online GMM decoder over phase "
+                  "20's tri, the CLI")
+        sv = phase_serving_full(tg, card, on, ld)
+        sd = finish_side_phases(side)
+    finally:
+        if side.poll() is None:
+            side.kill()
+            side.wait()
 
     g_shape = GATHER_SHAPES[0]
     ms, plain_ms, library_ms, floor_ms = k["times"][g_shape]
-    log(f"launches: gather {sl['launches']} on the bf16 slice, "
-        f"{st['launches']} on the streaming path, {lt['launches']} on the "
-        f"latgen path, {lt['adaptive_launches']} in the adaptive decode, "
+    log(f"launches: gather {sd['slice']} on the bf16 slice, "
+        f"{sd['stream']} on the streaming path, {sd['latgen']} on the "
+        f"latgen path, {sd['adaptive']} in the adaptive decode, "
         f"{on['launches']} on the fused online path, {ld['launches']} on "
         f"the triphone ladder's decodes, {dk['launches']} on the "
         f"discriminative path's, {nn['launches']} on the nnet families', "
         f"{sr['gather_launches']} on the speaker-recognition path's, "
         f"{ad['launches']} on the adaptation and SGMM path's, "
         f"{rs['launches']} on the rescoring and search path's (phase 30's "
-        f"ladder decodes); qaffine {s8['launches']} on the int8 slice, "
+        f"ladder decodes), {sv['launches']} on the TCP server's (phase 32's "
+        f"6 connections); qaffine {sd['int8']} on the int8 slice, "
         f"{sr['qaffine_launches']} on the speaker-recognition path's, 0 on "
-        f"the adaptation and SGMM path's and on the rescoring path's "
-        f"(phases 27-30 assert it)")
+        f"the adaptation and SGMM path's, on the rescoring path's and on "
+        f"the server's (phases 27-30 and 32 assert it)")
+    faulthandler.cancel_dump_traceback_later()
+    log(f"all 32 phases in {time.perf_counter() - T_START:.1f} s")
     log(card)
     log(json.dumps({"kernels": [{
         "name": "batched_table_gather", "route": "cuda",
         "source": "kaldi_tpu_torch/csrc/table_gather.cu",
         "replaces": "kaldi_tpu/ops/table_gather.py:50",
-        "launches": sl["launches"], "lattice_launches": lt["launches"],
+        "launches": sd["slice"], "lattice_launches": sd["latgen"],
         "online_launches": on["launches"],
         "ladder_launches": ld["launches"],
         "max_abs_err": k["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
@@ -8107,11 +9219,15 @@ def main() -> int:
             for sh, t in nn["gather_times"].items()],
         "sre_launches": sr["gather_launches"],
         "adapt_sgmm_launches": ad["launches"],
-        "rescore_launches": rs["launches"]}, {
+        "rescore_launches": rs["launches"],
+        "server_launches": sv["launches"], "server_shape": sv["shape"],
+        "server_ms": sv["times"][0], "server_plain_ms": sv["times"][1],
+        "server_library_ms": sv["times"][2],
+        "server_bound_ms": gather_bound_ms(*sv["shape"])}, {
         "name": "qaffine", "route": "cuda",
         "source": "kaldi_tpu_torch/csrc/qaffine.cu",
         "replaces": "kaldi_tpu/nnet/quantized.py:46",
-        "launches": s8["launches"], "max_abs_err": qk["max_abs_err"],
+        "launches": sd["int8"], "max_abs_err": qk["max_abs_err"],
         "max_rel_err": qk["max_rel_err"],
         "ms": qk["ms"], "plain_ms": qk["plain_ms"],
         "max_rel_err_f64": qk["max_rel_err_f64"],
@@ -8121,7 +9237,8 @@ def main() -> int:
         "fp32_bound_ms": qk["fp32_bound_ms"],
         "library_ms": qk["library_ms"],
         "sre_launches": sr["qaffine_launches"],
-        "adapt_sgmm_launches": 0, "rescore_launches": 0}]}))
+        "adapt_sgmm_launches": 0, "rescore_launches": 0,
+        "server_launches": 0}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,14 @@
 """Command-line entry points of the port (counterpart of kaldi_tpu/cli.py).
 
     python -m kaldi_tpu_torch.cli recipe-yesno [--device cpu]
+    python -m kaldi_tpu_torch.cli online-audio-server-decode-faster \
+        final.mdl HCLG.npz --port-file port --num-connections 2
+    python -m kaldi_tpu_torch.cli online-audio-client 127.0.0.1 PORT wav.scp
 
-Only `recipe-yesno` is ported so far. Every command runs on the card
-unless `--device cpu` is given.
+Ported so far: `recipe-yesno` and the online / onlinebin subcommands of
+kaldi_tpu/cli_online_extra.py (`cli_online_extra.py`), which read and
+write the JAX package's model files. Every command that touches a model
+runs on the card unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -13,6 +18,29 @@ import sys
 
 import numpy as np
 import torch
+
+from kaldi_tpu_torch import cli_online_extra
+
+
+def _read_wav_scp(path):
+    """wav.scp lines -> (utt, path) pairs."""
+    with open(path) as f:
+        for line in f:
+            parts = line.strip().split(None, 1)
+            if len(parts) == 2:
+                yield parts
+
+
+def _read_utt2spk(path: str) -> dict:
+    """utt2spk lines -> {utt: spk}; {} for an empty path."""
+    m = {}
+    if path:
+        with open(path) as f:
+            for line in f:
+                toks = line.split()
+                if len(toks) >= 2:
+                    m[toks[0]] = toks[1]
+    return m
 
 
 def cmd_recipe_yesno(args) -> int:
@@ -108,6 +136,7 @@ def main(argv=None) -> int:
     s.add_argument("--device", default="cuda",
                    help="torch device (default: cuda)")
     s.set_defaults(func=cmd_recipe_yesno)
+    cli_online_extra.register(sub)
     args = p.parse_args(argv)
     rc = args.func(args)
     if rc:

@@ -356,23 +356,36 @@ def nbest(lat: Lattice, n: int):
     import heapq
     if lat.num_states == 0 or lat.start < 0:
         return []
-    h = [(0.0, 0, lat.start, (), ())]
+    # every pushed partial path is a node (its parent node and the arc's
+    # labels), numbered in push order, which breaks cost ties as the
+    # reference's push counter does; a path's words and tids are read back
+    # along its parents only when it reaches a final state
+    parent, olabel, ilabel = [-1], [0], [0]
+    h = [(0.0, 0, lat.start)]
     out = []
-    seq = 0
     seen = defaultdict(int)
     while h and len(out) < n:
-        cost, _q, s, words, tids = heapq.heappop(h)
+        cost, node, s = heapq.heappop(h)
         if s in lat.finals:
             g, a = lat.finals[s]
-            out.append((list(words), list(tids), cost + g + a))
+            words, tids = [], []
+            k = node
+            while k > 0:
+                if olabel[k]:
+                    words.append(olabel[k])
+                if ilabel[k]:
+                    tids.append(ilabel[k])
+                k = parent[k]
+            out.append((words[::-1], tids[::-1], cost + g + a))
         if seen[s] >= n:
             continue
         seen[s] += 1
         for arc in lat.arcs[s]:
-            seq += 1
-            heapq.heappush(h, (cost + arc.cost, seq, arc.nextstate,
-                               words + ((arc.olabel,) if arc.olabel else ()),
-                               tids + ((arc.ilabel,) if arc.ilabel else ())))
+            parent.append(node)
+            olabel.append(arc.olabel)
+            ilabel.append(arc.ilabel)
+            heapq.heappush(h, (cost + arc.cost, len(parent) - 1,
+                               arc.nextstate))
     return out
 
 

@@ -27,6 +27,7 @@ shared memory.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -37,6 +38,7 @@ from kaldi_tpu_torch.nnet.components import (ACTIVATIONS, normalize, pnorm,
                                              splice, splice_valid)
 
 launches = 0          # kernel launches since the last reset
+_launches_lock = threading.Lock()   # the server's connection threads
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
@@ -127,7 +129,8 @@ def qaffine_cuda(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
                 bias.data_ptr(), y.data_ptr(), M, N, K, stream)
     if rc != 0:
         raise RuntimeError(f"qaffine kernel launch failed: cudaError {rc}")
-    launches += 1
+    with _launches_lock:
+        launches += 1
     return y
 
 

@@ -28,12 +28,14 @@ only for CPU tensors; for CUDA tensors it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 from kaldi_tpu_torch import cuda_build
 
 launches = 0          # kernel launches since the last reset
+_launches_lock = threading.Lock()   # the server's connection threads
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
@@ -79,7 +81,8 @@ def gather_cuda(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                 stream)
     if rc != 0:
         raise RuntimeError(f"table-gather kernel launch failed: cudaError {rc}")
-    launches += 1
+    with _launches_lock:
+        launches += 1
     return out
 
 

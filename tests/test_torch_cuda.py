@@ -18,7 +18,10 @@ backward error, SGMM fMLLR, gpost and the pre-transform, raw, basis and
 regression-tree fMLLR, MLLR, LVTLN and HLDA) and the rescoring and
 feature modules (step_batch and the batch rescorer exactly, decode_biglm
 against its exact oracle, pitch, resampling and convolution within their
-bounds) on a CUDA device.
+bounds) and the file layer and network serving (every model file kind
+through the port's save and load on the card, the decode sessions'
+partials and finals, the threaded and the online GMM decoders, a TCP
+server over concurrent connections) on a CUDA device.
 Each test skips without a card. This file imports no jax, so it runs on
 a machine that has only torch:
 
@@ -796,3 +799,68 @@ def test_pitch_and_resampling_card_within_their_bounds(card):
     for k in ("conv", "resample 8k", "resample 4k", "nccf"):
         assert f[k] <= 1.0, (k, f)
     assert f["viterbi frames"] == 0 and f["pitch frames"] == 0, f
+
+
+# --- the file layer and network serving (chip_smoke.py phase 31) ---
+
+@pytest.fixture(scope="module")
+def yesno_gmm():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke as cs
+    return cs.yesno_gmm_system()
+
+
+def test_model_files_card_equal_cpu(card, yesno_gmm, tmp_path):
+    """Every model kind saved by the port, loaded on the card and on the
+    CPU and saved again: equal files, the card's loads computing exactly
+    what the originals did (chip_smoke.model_files_card_vs_cpu)."""
+    import chip_smoke as cs
+    assert len(cs.model_files_card_vs_cpu(yesno_gmm, str(tmp_path))) == 14
+
+
+def test_decode_sessions_card_equal_cpu(card, yesno_gmm):
+    """DecodeSession and FusedDecodeSession over even, odd and
+    one-byte-first PCM chunks: every partial and final equal."""
+    import chip_smoke as cs
+    s = cs.sessions_card_vs_cpu(yesno_gmm)
+    assert s["gmm"] > 0 and s["fused"] > 0
+
+
+def test_threaded_decoder_on_the_card_equals_synchronous(card, yesno_gmm):
+    import chip_smoke as cs
+    assert cs.threaded_vs_sync(yesno_gmm) > 0
+
+
+def test_online_gmm_decoder_card_within_its_bound(card, yesno_gmm):
+    import chip_smoke as cs
+    g = cs.gmm_decoder_card_vs_cpu(yesno_gmm)
+    assert g["words"] == 8 and g["estimates"] > 0
+    assert g["bound ratio"] <= 1.0, g
+
+
+def test_fused_server_on_the_card_answers_concurrent_connections(card):
+    """Three connections at once to an AudioServer over
+    `fused_session_factory` on the card: each FINAL equals the offline
+    decode on the card, and the gather launched."""
+    import chip_smoke as cs
+    from kaldi_tpu_torch.nnet.am_nnet import AmNnet
+    from kaldi_tpu_torch.nnet.tdnn import Tdnn
+    from kaldi_tpu_torch.online.server import (AudioServer,
+                                               fused_session_factory)
+    su = cs.small_stream_setup()
+    am = AmNnet(Tdnn(su["cfg"]).load_jax_params(su["params"]),
+                priors=su["priors"])
+    words = cs.symbol_table([f"w{k}" for k in range(1, 41)])
+    factory = fused_session_factory(am, su["graph"], su["opts"], su["fb"],
+                                    words, chunk_samples=2560, t_max=256)
+    dec = factory().fused.dec
+    rng = np.random.default_rng(36)
+    waves = [(rng.standard_normal(n) * 4000).astype(np.float32)
+             for n in (20000, 13333, 26001)]
+    want = [[f"w{w}" for w in r[0]]
+            for r in cs._offline(am, dec, waves, su["fb"])]
+    tg.launches = 0
+    got = cs._finals(cs._serve_concurrently(
+        AudioServer("127.0.0.1", 0, factory), waves, 2560))
+    assert got == want and tg.launches > 0

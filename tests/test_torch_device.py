@@ -46,8 +46,13 @@ alignment, MBR, scoring, KWS, `process_pitch`, `synth_trigram_arpa`,
 decoder runs. `FusedStreamingServer`,
 `FusedOnlineDecoder`, `OnlineDecoder` and `SingleUtteranceNnet2Decoder`
 take no device: they run where their decoder runs; nor does
-`make_train_step`'s step, which runs where its tensors are. Inference
-builds no autograd graph."""
+`make_train_step`'s step, which runs where its tensors are. The file
+layer's loaders of device objects (`load_gmm_system`, `load_am_nnet`,
+`load_raw_nnet`, `load_am_nnet3`, `load_sgmm2`, `load_sgmm2_accs`) and
+the server's `fused_session_factory` default to "cuda" too; the serving
+classes (`DecodeSession`, `FusedDecodeSession`, `AudioServer`,
+`ThreadedSingleUtteranceDecoder`, `SingleUtteranceGmmDecoder`) take no
+device. Inference builds no autograd graph."""
 
 import inspect
 
@@ -656,3 +661,80 @@ def test_decode_biglm_runs_where_its_decoder_runs():
     import chip_smoke as cs
     b = cs.biglm_vs_exact(card="cpu")
     assert b["n"] == 3 and not b["words"] and b["cost gap"] <= 1e-3
+
+
+# --- the file layer and network serving ---
+
+def _model_files(tmp_path) -> dict:
+    """One small file of each kind whose load builds a device object,
+    written by the port on the CPU."""
+    import chip_smoke as cs
+    from kaldi_tpu_torch.io import model_io
+    from kaldi_tpu_torch.nnet.am_nnet import AmNnet
+    from kaldi_tpu_torch.nnet3.network import Nnet3
+    from kaldi_tpu_torch.nnet3.training import AmNnet3
+    from kaldi_tpu_torch.sgmm.estimate import Sgmm2Accs
+    from kaldi_tpu_torch.params import sgmm2_from_jax
+    from kaldi_tpu_torch.steps.mono import MonoModel
+    from kaldi_tpu_torch.steps.sgmm_steps import SgmmAm
+    lang, ctx, tm, _g = cs.gmm_stack(cs.YESNO_LEXICON, cs.YESNO_ARPA)
+    tdnn = Tdnn(TdnnConfig(feat_dim=4, num_pdfs=2, hidden_dim=8,
+                           nonlinearity="relu", splice_indexes=((0,),)),
+                device="cpu")
+    net = Nnet3(cs.nnet3_small_config("tdnn"), device="cpu")
+    sgmm = sgmm2_from_jax(_jax_like_sgmm(), "cpu")
+    objs = {"gmm_system": MonoModel(cs.random_am([1] * tm.num_pdfs, 3, 0,
+                                                 "cpu"), tm, ctx, lang),
+            "am_nnet": AmNnet(tdnn), "raw_nnet": tdnn,
+            "am_nnet3": AmNnet3(net), "sgmm2": SgmmAm(sgmm, 2),
+            "sgmm2_accs": Sgmm2Accs(sgmm)}
+    paths = {}
+    for kind, obj in objs.items():
+        paths[kind] = str(tmp_path / kind)
+        getattr(model_io, f"save_{kind}")(paths[kind], obj)
+    return paths
+
+
+LOADERS = ["gmm_system", "am_nnet", "raw_nnet", "am_nnet3", "sgmm2",
+           "sgmm2_accs"]
+
+
+@pytest.mark.parametrize("kind", LOADERS)
+def test_device_loaders_default_to_cuda_and_raise_without_a_card(kind,
+                                                                 tmp_path):
+    from kaldi_tpu_torch.io import model_io
+    load = getattr(model_io, f"load_{kind}")
+    assert inspect.signature(load).parameters["device"].default == "cuda"
+    path = _model_files(tmp_path)[kind]
+    assert load(path, device="cpu") is not None
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default builds there")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load(path)
+
+
+def test_fused_session_factory_defaults_to_cuda():
+    from kaldi_tpu_torch.online.server import fused_session_factory
+    assert inspect.signature(fused_session_factory).parameters[
+        "device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default builds there")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fused_session_factory(None, _graph(), CsrBeamOpts(), None, None)
+
+
+def _serving_classes():
+    from kaldi_tpu_torch.online.gmm_decoding import SingleUtteranceGmmDecoder
+    from kaldi_tpu_torch.online.server import (AudioServer, DecodeSession,
+                                               FusedDecodeSession)
+    from kaldi_tpu_torch.online.threaded import \
+        ThreadedSingleUtteranceDecoder
+    return [DecodeSession, FusedDecodeSession, AudioServer,
+            ThreadedSingleUtteranceDecoder, SingleUtteranceGmmDecoder]
+
+
+@pytest.mark.parametrize("cls", _serving_classes(),
+                         ids=lambda c: c.__name__)
+def test_serving_classes_take_no_device(cls):
+    """They run where the decoder or model they are given runs."""
+    assert "device" not in inspect.signature(cls.__init__).parameters

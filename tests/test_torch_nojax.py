@@ -18,7 +18,10 @@ logistic regression; then a tiny SGMM2 trained from the triphone model
 with one bMMI iteration, and chip_smoke's adaptation checks (raw, basis
 and regression-tree fMLLR, MLLR, LVTLN, HLDA) with the CPU on both sides;
 then a small const-ARPA rescoring, an MBR decode, a KWS search and a
-pitch track. (kaldi_tpu/decoder/__init__.py imports the
+pitch track; then the file layer (a triphone GMM system with its tree and
+an AmNnet through model files, an ark by the native reader), the codecs,
+a localhost `AudioServer` over the fused CSR session, the threaded
+decoder and the online GMM decoder. (kaldi_tpu/decoder/__init__.py imports the
 jax decoders, so reaching into kaldi_tpu.decoder from the port would fail
 here.)
 """
@@ -115,7 +118,14 @@ for n in ("kaldi_tpu_torch.cuda_build", "kaldi_tpu_torch.nnet.quantized",
           "kaldi_tpu_torch.kws.index", "kaldi_tpu_torch.kws.scoring",
           "kaldi_tpu_torch.kws.proxy", "kaldi_tpu_torch.ops.signal",
           "kaldi_tpu_torch.ops.resample", "kaldi_tpu_torch.ops.pitch",
-          "kaldi_tpu_torch.ops.sinusoid"):
+          "kaldi_tpu_torch.ops.sinusoid", "kaldi_tpu_torch.io",
+          "kaldi_tpu_torch.io.wave", "kaldi_tpu_torch.io.htk",
+          "kaldi_tpu_torch.io.kaldi_io", "kaldi_tpu_torch.io.compressed",
+          "kaldi_tpu_torch.io.native", "kaldi_tpu_torch.io.model_io",
+          "kaldi_tpu_torch.online.server", "kaldi_tpu_torch.online.threaded",
+          "kaldi_tpu_torch.online.compress",
+          "kaldi_tpu_torch.online.gmm_decoding",
+          "kaldi_tpu_torch.cli_online_extra"):
     assert n in names, n
 import chip_smoke
 from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder, CsrBeamOpts
@@ -318,6 +328,55 @@ assert search_index([lattice_to_kws_index(resc[0], "u")], hyp[:1])
 pt = process_pitch(compute_kaldi_pitch(chip_smoke.pitch_signals()[0],
                                        device="cpu"))
 assert pt.shape[1] == 3 and np.isfinite(pt).all()
+import tempfile
+from kaldi_tpu_torch.io import kaldi_io, model_io, native
+from kaldi_tpu_torch.online import compress
+from kaldi_tpu_torch.online.gmm_decoding import SingleUtteranceGmmDecoder
+from kaldi_tpu_torch.online.server import (AudioServer, FusedDecodeSession,
+                                           fused_session_factory,
+                                           stream_wave)
+from kaldi_tpu_torch.online.threaded import ThreadedSingleUtteranceDecoder
+tmp = tempfile.mkdtemp()
+model_io.save_gmm_system(tmp + "/tri.mdl", tri)
+tri2 = model_io.load_gmm_system(tmp + "/tri.mdl", device="cpu")
+assert chip_smoke.trees_equal(tri2.ctx_dep.event_map, tri.ctx_dep.event_map)
+np.testing.assert_array_equal(tri2.trans_model.id2pdf_array,
+                              tri.trans_model.id2pdf_array)
+model_io.save_am_nnet(tmp + "/am", am)
+assert model_io.load_am_nnet(tmp + "/am", device="cpu").num_pdfs == 41
+kaldi_io.write_ark(tmp + "/a.ark", [("a", feats)])
+assert native.available()
+assert np.array_equal(next(iter(kaldi_io.read_ark(tmp + "/a.ark")))[1], feats)
+codes, _st = compress.adpcm_encode(wave)
+assert len(compress.adpcm_decode(codes)[0]) == len(wave)
+copts = CsrBeamOpts(beam=1e9, max_active=32, expand_budget=256,
+                    hub_threshold=8)
+words = chip_smoke.symbol_table([f"w{k}" for k in range(1, 41)])
+srv = AudioServer("127.0.0.1", 0, fused_session_factory(
+    am, hub, copts, fb, words, device="cpu", chunk_samples=1600, t_max=64))
+srv.serve_in_background()
+try:
+    lines = stream_wave("127.0.0.1", srv.port, wave, chunk_samples=1001)
+finally:
+    srv.shutdown()
+assert lines and lines[-1].startswith("FINAL "), lines
+tdec = ThreadedSingleUtteranceDecoder(SingleUtteranceNnet2Decoder(
+    am2, Tm, BeamSearchDecoder(hub, BeamSearchOpts(beam=1e9, max_active=32),
+                               device="cpu"),
+    OnlineNnet2FeaturePipeline(OnlineMfcc(fb, computer=fbank, device="cpu"),
+                               OnlineIvectorFeature(ext))))
+tdec.accept_waveform(wave)
+tdec.input_finished()
+assert tdec.wait(60.0) and tdec.best_path() is not None
+gdec = SingleUtteranceGmmDecoder(
+    tri.am, tri.trans_model, BeamSearchDecoder(g, BeamSearchOpts(
+        beam=200.0, max_active=512), device="cpu"),
+    OnlineFeaturePipeline(MfccOpts(frame_opts=FrameOpts(
+        samp_freq=8000.0, dither=0.0)), device="cpu"))
+gwave = chip_smoke.tri_synth(["AB", "CA"], np.random.RandomState(5))
+gdec.pipeline.accept_waveform(gwave)
+gdec.finalize_decoding()
+assert gdec.best_path() is not None
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
        or m.startswith("kaldi_tpu.")]
 assert not bad, bad
