@@ -320,16 +320,40 @@ Phases (any failure raises and the script exits non-zero):
      in-process: the GMM server over the tri files with two connections
      and the client (FINALs equal (e)'s), and
      online2-wav-nnet2-am-compute read back by read_ark equal to
-     `AmNnet.loglikes_np` on the same features.
+     `AmNnet.loglikes_np` on the same features;
+ 33. the decoder tools and recipe utilities, small, card vs CPU:
+     `check_packed_graph` and `check_tier_tables` silent on the card's
+     and the CPU's tables of tests/test_csr_beam.py's word-loop graph in
+     both tier-B layouts, every corruption raising alike on both;
+     `decode_batched` over `CsrBeamDecoder` equal to the per-utterance
+     decodes, card == CPU; `simple_decode` equal to the CSR decoder at an
+     unpruned beam; `device_trace` naming the gather kernel;
+     `AccuProfiler` synchronising; qaffine may not launch;
+ 34. the decoder tools at the bench graph's width (after phase 14): (a)
+     both verifiers over the bench graph and the card's tier tables,
+     timed; (b) `decode_batched` with phase 13's AM (bf16 TDNN over fbank
+     + CMVN) at bench.py's search options over the 8 test utterances and
+     their cuts at 3 s and 6 s (24 in 3 buckets, batch_size 8): equal to
+     each utterance decoded alone (B = 1, the same loglikes rows),
+     overflow 0; audio-sec/s between CUDA events, padding share, gather
+     launches, and the word errors against `Recognizer`'s words (for
+     information); (c) the self-built triphone graph at the full tree
+     width (the port's copy of scripts/mkgraph_scale.py's `build`, 2,000
+     words), verified and decoded card == CPU on seeded loglikes.
+
+Phases 20, 22 (b) and 28 (b) save the inputs of the recipe witnesses
+(chiprun_out/sat_witness.pkl, smbr_witness.pkl, lvtln_witness.pkl; with
+raw_fmllr_witness.pkl and sgmm_witness.pkl from 28), which
+tests/test_torch_<name>_witness.py replays through JAX on a CPU.
 
 Two processes share the card. The phases that take nothing from phase
 20's ladder run in a second one (the script with --side-phases): the
-bench graph's chain (7, 8, 10, 13, 14, 18, 30 a and c), then the small
-card-vs-CPU phases (5, 6, 9, 11, 12, 15, 17, 19, 21, 23, 25, 27, 29, 31);
-this one runs 1-4, then 16, 20, 22, 24, 26, 28, 30 b and 32 beside it,
-and prints the second's log after phase 32's. Each phase's start goes to
-stderr with the seconds since its process began; a run still going at
-1000 s dumps every thread's stack there.
+bench graph's chain (7, 8, 10, 13, 14, 34, 18, 30 a and c), then the
+small card-vs-CPU phases (5, 6, 9, 11, 12, 15, 17, 19, 21, 23, 25, 27,
+29, 31, 33); this one runs 1-4, then 16, 20, 22, 24, 26, 28, 30 b and 32
+beside it, and prints the second's log after phase 32's. Each phase's
+start goes to stderr with the seconds since its process began; a run
+still going at 1000 s dumps every thread's stack there.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error against its plain version, times and bound; the last line
@@ -422,7 +446,10 @@ SMALL_PHASES = (
          "convolution, card vs CPU", "phase_rescore_small"),
     (31, "the file layer and network serving, small: every model file "
          "kind, arks, the decode sessions, the threaded and the online GMM "
-         "decoders, card vs CPU", "phase_serving_small"))
+         "decoders, card vs CPU", "phase_serving_small"),
+    (33, "decoder tools and recipe utilities, small: the graph and tier-"
+         "table verifiers, decode_batched, simple_decode, device_trace, "
+         "AccuProfiler, card vs CPU", "phase_tools_small"))
 SIDE_FLAG = "--side-phases"
 SIDE_LOG = os.path.join(ROOT, "chiprun_out", "side_phases.log")
 SIDE_RESULTS = os.path.join(ROOT, "chiprun_out", "side_phases.json")
@@ -3511,9 +3538,11 @@ def phase_ladder_full(card: str, profile: bool = False) -> dict:
                 in zip(test[True], corpus["test"])]
     stats: list = []
     t = time.perf_counter()
-    sm = sat.train_sat(lang, spk_train, tri, sat.SatTrainOpts(**LADDER_TRI),
-                       iter_stats=stats)
+    with SatWitness() as sw:
+        sm = sat.train_sat(lang, spk_train, tri,
+                           sat.SatTrainOpts(**LADDER_TRI), iter_stats=stats)
     sat_s = time.perf_counter() - t
+    save_witness(SAT_WITNESS, sw.data)
     t = time.perf_counter()
     dec, graph_s["sat"] = ladder_decoder(sm.model, arpa, dopts, "cuda")
     hyps = sat.decode_fmllr(sm, dec, spk_test, lang)
@@ -4300,6 +4329,9 @@ def phase_disc_full(card: str, ladder: dict, profile: bool = False) -> dict:
     egs = [(np.pad(feats_l[b, : nf_l[b]], ((lc, rc), (0, 0)), mode="edge"),
             ali[b][0], lat) for b, lat in enumerate(lats_n)
            if lat is not None and ali[b] is not None]
+    save_witness(SMBR_WITNESS, smbr_witness_data(
+        am_n, lda_m.trans_model, egs[0],
+        nd.NnetDiscriminativeOpts(**LADDER_SMBR), sil_l))
     st_n: list = []
     t = time.perf_counter()
     params, hist_n = nd.train_nnet_discriminative(
@@ -6148,15 +6180,16 @@ def phase_adapt_sgmm_full(card: str, ladder: dict) -> dict:
     dec_t, _s = ladder_decoder(tri, arpa, dopts, "cuda")
     test_d = [f for _u, f, _w in m["test"]]
     w_tri, pdfs_t = first_pass(dec_t, tri, test_d)
-    sel = {}
+    sel, lv_stats = {}, {}
     for s in speakers:
-        st = FmllrStats(tri.am.dim)
+        st = lv_stats[s] = FmllrStats(tri.am.dim)
         for b in range(len(utts)):
             if spk[b] == s:
                 st.accumulate_from_alignment(tri.am, test_d[b], pdfs_t[b])
         c, W, aux = lv.select_class(st)
         sel[s] = (LVTLN_WARPS[c], W, (np.asarray(aux) - aux[
             lv.default_class]) / st.beta)
+    save_witness(LVTLN_WITNESS, lvtln_witness_data(lv, lv_stats))
     fl = [apply_affine_transform(test_d[b], sel[spk[b]][1], "cuda").cpu()
           .numpy() for b in range(len(utts))]
     out["lvtln"] = dict(wer=wer_of(dec_t, tri, fl), si_wer=w_tri,
@@ -8912,6 +8945,509 @@ def serving_cli(tri, packed, lang, test, want, out_dir: str) -> dict:
     return {"rows": sum(len(v) for v in rows.values())}
 
 
+# ------------------------- decoder tools, graph helpers, recipe witnesses
+
+TOOLS_GRAPH = dict(vocab=300, avg_bigram_succ=20, num_pdfs=64, seed=1)
+TOOLS_TINY = dict(vocab=40, avg_bigram_succ=6, num_pdfs=16, seed=3)
+TOOLS_CSR = dict(beam=11.0, max_active=256, acoustic_scale=0.1,
+                 expand_budget=4096, eps_budget=1024, hub_threshold=64)
+TOOLS_LENGTHS = [30, 64, 50, 70, 90, 100, 120]
+BENCH_SEARCH = dict(beam=13.0, max_active=7000, acoustic_scale=0.1,
+                    expand_budget=16384, eps_budget=2048)   # bench.py:235-238
+BATCHED_CUTS_S = (3.0, 6.0)     # phase 34 (b): each test wave cut here too
+BATCHED_SIZE = 8
+SELF_BUILT = dict(vocab=2000, n_bigrams=20000, n_trigrams=10000)
+SELF_BUILT_FRAMES = 100
+BIG_BITS = int(np.array(1e10, np.float32).view(np.int32))
+LVTLN_WITNESS = os.path.join(ROOT, "chiprun_out", "lvtln_witness.pkl")
+SAT_WITNESS = os.path.join(ROOT, "chiprun_out", "sat_witness.pkl")
+SMBR_WITNESS = os.path.join(ROOT, "chiprun_out", "smbr_witness.pkl")
+
+
+def tier_table_corruptions(tabs) -> list:
+    """(field, row, col, change, message) for the corruptions of
+    tests/test_csr_beam.py:383-430 and :736 (a live tier-A arc's
+    nextstate, pdf, olabel and cost; a tier-B row; the quad layout's
+    packed tid) and a live padding arc of a partly filled tier-B row; each
+    must make `check_tier_tables` raise with `message`."""
+    srow = np.asarray(tabs.srow.cpu()) if hasattr(tabs.srow, "cpu") \
+        else np.asarray(tabs.srow)
+    live = np.flatnonzero(srow[:, 0] != BIG_BITS)
+    out = [("srow", live[0], 1, 1, "tier-A"), ("srow", live[0], 2, 1, "pdf"),
+           ("srow", live[0], 4, 1, "olabel"), ("srow", live[0], 0, 1, "cost"),
+           ("brow", 0, 1, 1, "tier-B rows")]
+    apr = tabs.b_apr
+    if apr == 4:
+        out.append(("brow", 0, 2, 1 << 16, "tier-B rows"))
+    deg = srow[:, 11]
+    s = np.flatnonzero((deg > 2) & (deg % apr != 0))[0]
+    i = int(deg[s])
+    out.append(("brow", int(srow[s, 10]) + i // apr,
+                (4 if apr == 4 else 5) * (i % apr), -1, "padding arc"))
+    return out
+
+
+def corrupt_tables(tabs, field, row, col, change, wrap=None):
+    """A copy of the tier tables with one entry of `field` changed (+1, a
+    flipped packed-tid bit, or a padding arc made live), wrapped by `wrap`
+    (default: a torch tensor on the field's device)."""
+    import torch
+    t = getattr(tabs, field)
+    a = (t.cpu().numpy() if hasattr(t, "cpu") else np.asarray(t)).copy()
+    a[row, col] = (a[row, col] ^ change if change == 1 << 16
+                   else 7 if change == -1 else a[row, col] + change)
+    new = wrap(a) if wrap else torch.from_numpy(a).to(t.device)
+    return dataclasses.replace(tabs, **{field: new})
+
+
+def verify_card_vs_cpu(card="cuda") -> dict:
+    """`check_packed_graph` and `check_tier_tables` on the card's and the
+    CPU's tables of tests/test_csr_beam.py's word-loop graph, in the quad
+    and the triple tier-B layout: silent on both, and every corruption of
+    `tier_table_corruptions` raises with the same message on each."""
+    from kaldi_tpu_torch.decoder.biggraph import BigGraphConfig, make_big_hclg
+    from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder, CsrBeamOpts
+    from kaldi_tpu_torch.decoder.verify import (check_packed_graph,
+                                                check_tier_tables)
+    g, _ = make_big_hclg(BigGraphConfig(**TOOLS_GRAPH))
+    check_packed_graph(g, num_pdfs=TOOLS_GRAPH["num_pdfs"])
+    n = 0
+    for triple in (False, True):
+        opts = CsrBeamOpts(max_active=64, expand_budget=256, hub_threshold=64,
+                           force_b_triple=triple)
+        decs = [CsrBeamDecoder(g, opts, device=d) for d in (card, "cpu")]
+        for dec in decs:
+            check_tier_tables(dec.graph, dec.tabs, 64)
+        for case in tier_table_corruptions(decs[1].tabs):
+            msgs = []
+            for dec in decs:
+                try:
+                    check_tier_tables(dec.graph,
+                                      corrupt_tables(dec.tabs, *case[:4]), 64)
+                    msgs.append(None)
+                except ValueError as e:
+                    msgs.append(str(e))
+            if msgs[0] is None or msgs[0] != msgs[1] or case[4] not in \
+                    msgs[0]:
+                raise AssertionError(f"corruption {case} (triple {triple}): "
+                                     f"{msgs}")
+            n += 1
+    return {"corruptions": n}
+
+
+class RecordingDecoder:
+    """A decoder that passes `decode` on and keeps each batch's loglikes
+    and overflow: the per-utterance comparison decodes the same rows."""
+
+    def __init__(self, dec):
+        self.dec, self.lls, self.overflow = dec, [], []
+
+    def decode(self, ll, nf):
+        res = self.dec.decode(ll, nf)
+        self.lls.append(ll)
+        self.overflow.append(int(np.asarray(self.dec.last_overflow).sum()))
+        return res
+
+
+def batched_vs_single(dec, utts, score_fn, batch_size, device) -> dict:
+    """`decode_batched` over `dec` against the decode of each utterance
+    alone (B = 1, its batch's loglikes rows cut to its length, the same
+    decoder): words and tids equal, cost within 1e-4. -> the results, the
+    seconds between CUDA events (or the host clock on the CPU), the
+    overflow per batch, the padding share and the batch shapes."""
+    import torch
+    from kaldi_tpu_torch.decoder.batching import bucket_batches, decode_batched
+    from kaldi_tpu_torch.ops import table_gather as tg
+    rd = RecordingDecoder(dec)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+    t, n0 = time.perf_counter(), tg.launches
+    got = decode_batched(rd, utts, score_fn, batch_size=batch_size,
+                         device=device)
+    if cuda:
+        ev[1].record()
+        torch.cuda.synchronize()
+        secs = ev[0].elapsed_time(ev[1]) / 1e3
+    else:
+        secs = time.perf_counter() - t
+    launches = tg.launches - n0
+    batches = bucket_batches(utts, batch_size)
+    if len(batches) != len(rd.lls):
+        raise AssertionError(f"{len(rd.lls)} batches, expected "
+                             f"{len(batches)}")
+    worst, shapes = 0.0, []
+    for (bound, members), ll in zip(batches, rd.lls):
+        shapes.append((len(members), bound))
+        for b, (k, f) in enumerate(members):
+            n = f.shape[0]
+            one = dec.decode(ll[b:b + 1, :n], np.array([n], np.int32))[0]
+            if got[k] is None or one is None or \
+                    list(got[k][0]) != list(one[0]) or \
+                    list(got[k][1]) != list(one[1]) or \
+                    abs(got[k][2] - one[2]) > 1e-4:
+                raise AssertionError(
+                    f"{k}: batched {None if got[k] is None else got[k][0]} "
+                    f"!= alone {None if one is None else one[0]}")
+            worst = max(worst, abs(got[k][2] - one[2]))
+    frames = sum(f.shape[0] for _k, f in utts)
+    padded = sum(batch_size * bound for bound, _m in batches)
+    return {"res": got, "secs": secs, "overflow": rd.overflow,
+            "launches": launches,
+            "pad_share": 1.0 - frames / padded, "shapes": shapes,
+            "cost_gap": worst, "frames": frames}
+
+
+def tools_utts() -> list:
+    """Seeded 8-dim features of TOOLS_LENGTHS frames, keyed u0, u1, ..."""
+    rng = np.random.RandomState(5)
+    return [(f"u{i}", rng.randn(n, 8).astype(np.float32))
+            for i, n in enumerate(TOOLS_LENGTHS)]
+
+
+def tools_score(x):
+    """A frame-wise seeded stand-in for the AM over TOOLS_GRAPH's pdfs,
+    [B, T, 8] -> [B, T, 64] on the batch's device (numpy in, numpy out)."""
+    import torch
+    w = np.random.RandomState(6).randn(8, TOOLS_GRAPH["num_pdfs"]).astype(
+        np.float32)
+    if torch.is_tensor(x):
+        return (x @ torch.from_numpy(w).to(x.device)) * 2.0
+    return np.asarray(x, np.float32) @ w * 2.0
+
+
+def batched_card_vs_cpu(card="cuda") -> dict:
+    """decode_batched over CsrBeamDecoder on the card and on the CPU, each
+    equal to its per-utterance decodes, and the two equal (words, tids,
+    cost within 1e-4)."""
+    from kaldi_tpu_torch.decoder.biggraph import BigGraphConfig, make_big_hclg
+    from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder, CsrBeamOpts
+    g, _ = make_big_hclg(BigGraphConfig(**TOOLS_GRAPH))
+    utts = tools_utts()
+    out = [batched_vs_single(CsrBeamDecoder(g, CsrBeamOpts(**TOOLS_CSR),
+                                            device=d),
+                             utts, tools_score, 2, d)
+           for d in (card, "cpu")]
+    a, b = out[0]["res"], out[1]["res"]
+    for k, _f in utts:
+        if list(a[k][0]) != list(b[k][0]) or list(a[k][1]) != list(b[k][1]) \
+                or abs(a[k][2] - b[k][2]) > 1e-4:
+            raise AssertionError(f"{k}: card {a[k][0]} != CPU {b[k][0]}")
+    return {"utts": len(utts), "batches": out[0]["shapes"],
+            "pad_share": out[0]["pad_share"], "launches": out[0]["launches"]}
+
+
+def simple_vs_csr(card="cuda", seed=0) -> dict:
+    """`simple_decode` (the oracle) against the CSR decoder on `card` at a
+    beam and frontier wide enough that neither prunes: the same words,
+    cost within 1e-4."""
+    from kaldi_tpu_torch.decoder.biggraph import BigGraphConfig, make_big_hclg
+    from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder, CsrBeamOpts
+    from kaldi_tpu_torch.decoder.simple import simple_decode
+    g, _ = make_big_hclg(BigGraphConfig(**TOOLS_TINY))
+    ll = (np.random.RandomState(seed).randn(24, TOOLS_TINY["num_pdfs"])
+          * 3).astype(np.float32)
+    want = simple_decode(g, ll)
+    wide = CsrBeamOpts(beam=1e9, max_active=g.num_states,
+                       acoustic_scale=0.1, expand_budget=1 << 16,
+                       eps_budget=1 << 14, hub_threshold=1 << 20)
+    got = CsrBeamDecoder(g, wide, device=card).decode(
+        ll[None], np.array([24], np.int32))[0]
+    if list(got[0]) != want[0] or abs(got[2] - want[2]) > 1e-4:
+        raise AssertionError(f"simple {want[0]} {want[2]} != CSR {got[0]} "
+                             f"{got[2]}")
+    return {"words": len(want[0]), "cost_gap": abs(got[2] - want[2])}
+
+
+def phase_tools_small() -> None:
+    """Phase 33: the decoder tools and recipe utilities, small, card vs
+    CPU."""
+    import tempfile
+    import torch
+    from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder, CsrBeamOpts
+    from kaldi_tpu_torch.nnet import quantized as q
+    from kaldi_tpu_torch.utils.profiling import AccuProfiler, device_trace
+    q.launches = 0
+    t = time.perf_counter()
+    v = verify_card_vs_cpu()
+    log(f"  check_packed_graph / check_tier_tables: silent on the card's "
+        f"and the CPU's tables (quad and triple tier-B layouts, a hub), "
+        f"{v['corruptions']} corruptions raise alike on both")
+    b = batched_card_vs_cpu()
+    if b["launches"] == 0:
+        raise AssertionError("decode_batched on the card launched no gather")
+    log(f"  decode_batched over CsrBeamDecoder: {b['utts']} utterances in "
+        f"batches {b['batches']} (padding {b['pad_share']:.3f}) == the "
+        f"per-utterance decodes, card == CPU; gather launches "
+        f"{b['launches']} in decode_batched")
+    s = [simple_vs_csr(seed=k) for k in (0, 1)]
+    log(f"  simple_decode == CsrBeamDecoder on the card at an unpruned "
+        f"beam: words and cost (gaps {[x['cost_gap'] for x in s]})")
+    from kaldi_tpu_torch.decoder.biggraph import BigGraphConfig, make_big_hclg
+    g, _ = make_big_hclg(BigGraphConfig(**TOOLS_GRAPH))
+    dec = CsrBeamDecoder(g, CsrBeamOpts(**TOOLS_CSR), device="cuda")
+    ll = torch.randn(2, 20, 64, device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(0))
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        with device_trace(d):
+            dec.decode(ll, np.array([20, 12], np.int32))
+        trace = open(os.path.join(d, "trace.json")).read()
+    if "table_gather_kernel" not in trace:
+        raise AssertionError("device_trace: no table_gather_kernel in it")
+    prof = AccuProfiler()
+    with prof.track("sleep"):
+        torch.cuda._sleep(int(2e8))
+    if prof.seconds["sleep"] < 0.02:
+        raise AssertionError(f"AccuProfiler measured {prof.seconds['sleep']}"
+                             f" s around a card sleep: no synchronize")
+    if q.launches:
+        raise AssertionError(f"qaffine launched {q.launches} times")
+    log(f"  device_trace: {len(trace)} bytes naming table_gather_kernel; "
+        f"AccuProfiler around a card sleep {prof.seconds['sleep']:.4f} s "
+        f"(synchronised); qaffine launches 0; phase 33 "
+        f"{time.perf_counter() - t:.3f} s")
+
+
+def phase_tools_full(tg, sl: dict, tr: dict, card: str) -> dict:
+    """Phase 34: (a) the verifiers over the bench graph's tier tables on
+    the card, (b) decode_batched with phase 13's AM over the bench's test
+    utterances and their cuts, (c) the self-built triphone graph at the
+    full tree width, card vs CPU."""
+    import torch
+    from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder, CsrBeamOpts
+    from kaldi_tpu_torch.decoder.verify import (check_packed_graph,
+                                                check_tier_tables)
+    from kaldi_tpu_torch.nnet import quantized as q
+    from kaldi_tpu_torch.ops.features import cmvn, fbank
+    from kaldi_tpu_torch.recognize import SERVING_FBANK
+    from kaldi_tpu_torch.scripts.mkgraph_scale import build
+    q.launches = 0
+    graph, dec = sl["graph"], sl["decoder"]
+    if any(getattr(dec.opts, k) != v for k, v in BENCH_SEARCH.items()):
+        raise AssertionError("phase 7's decoder is not at bench.py's options")
+    # (a)
+    t = time.perf_counter()
+    check_packed_graph(graph, num_pdfs=2048)
+    check_packed_graph(dec.graph, num_pdfs=2048)
+    t_packed = time.perf_counter() - t
+    t = time.perf_counter()
+    check_tier_tables(dec.graph, dec.tabs, dec.opts.hub_threshold)
+    t_tier = time.perf_counter() - t
+    log(f"  (a) check_packed_graph over the bench graph ({graph.num_states} "
+        f"states, {graph.num_arcs} arcs) and its eps-folded copy "
+        f"{t_packed:.3f} s; check_tier_tables over the card's tier tables "
+        f"({dec.tabs.srow.shape[0]} states, tier-B {dec.tabs.b_apr} "
+        f"arcs/row, {len(dec.tabs.hub_bounds) - 1} hub(s)) {t_tier:.3f} s; "
+        f"both silent")
+    # (b)
+    tdnn = tr["tdnn"]
+    waves = np.asarray(tr["waves"][TRAIN_UTTS:])
+    refs = tr["ref"][TRAIN_UTTS:]
+    groups = {"10s": waves}
+    for c in BATCHED_CUTS_S:
+        groups[f"{c:g}s"] = waves[:, : int(c * 16000)]
+    utts = []
+    for name, w in groups.items():
+        x = cmvn(fbank(torch.as_tensor(w, device="cuda"), SERVING_FBANK))
+        utts += [(f"{i}-{name}", x[i].cpu().numpy()) for i in range(len(w))]
+
+    def score(x):
+        return tdnn(x, pad_context=True, compute_dtype=torch.bfloat16)
+    with torch.inference_mode():
+        bt = batched_vs_single(dec, utts, score, BATCHED_SIZE, "cuda")
+    launches = bt["launches"]
+    if sum(bt["overflow"]):
+        raise AssertionError(f"decode_batched overflow {bt['overflow']}")
+    if len(bt["shapes"]) < 3 or launches == 0:
+        raise AssertionError(f"{len(bt['shapes'])} batches, {launches} "
+                             f"gather launches")
+    # Recognizer's words (each group as one batch, its edge frames
+    # replicated), for information: word errors of the batched decode
+    # against them
+    rec_w, bat_w = [], []
+    with torch.inference_mode():
+        for name, w in groups.items():
+            x = cmvn(fbank(torch.as_tensor(w, device="cuda"), SERVING_FBANK))
+            ll = score(x)
+            res = dec.decode(ll, np.full(len(w), ll.shape[1], np.int32))
+            rec_w += [list(r[0]) if r else [] for r in res]
+            bat_w += [list(bt["res"][f"{i}-{name}"][0])
+                      for i in range(len(w))]
+    n_words = sum(len(x) for x in rec_w)
+    diff = round(wer(rec_w, bat_w) * n_words / 100.0)
+    w10 = wer(refs, [list(bt["res"][f"{i}-10s"][0])
+                     for i in range(len(waves))])
+    audio = bt["frames"] / 100.0
+    log(f"  (b) decode_batched at bench.py's options over {len(utts)} "
+        f"utterances (the {len(waves)} test waves whole and cut at "
+        f"{BATCHED_CUTS_S} s), batch_size {BATCHED_SIZE}: batches (B, T) "
+        f"{bt['shapes']}, padding share {bt['pad_share']:.4f}; "
+        f"{audio / bt['secs']:.3f} audio-sec/s between CUDA events "
+        f"({bt['secs']:.3f} s, fbank+CMVN outside); gather launches "
+        f"{launches}; overflow {bt['overflow']}; == each utterance decoded "
+        f"alone (B = 1, the same loglikes rows): words and tids, cost gap "
+        f"{bt['cost_gap']:.2e}; WER of the whole waves {w10:.2f}%; word "
+        f"errors against Recognizer's words (edge frames replicated, not "
+        f"the bucket's zero padding): {diff} of {n_words} | card: {card}")
+    # (c)
+    t = time.perf_counter()
+    packed, num_pdfs, stats = build(**SELF_BUILT)
+    build_s = time.perf_counter() - t
+    check_packed_graph(packed, num_pdfs=num_pdfs)
+    decs = {d: CsrBeamDecoder(packed, CsrBeamOpts(**BENCH_SEARCH), device=d)
+            for d in ("cuda", "cpu")}
+    t = time.perf_counter()
+    check_tier_tables(decs["cuda"].graph, decs["cuda"].tabs,
+                      decs["cuda"].opts.hub_threshold)
+    t_tier_c = time.perf_counter() - t
+    ll = (np.random.default_rng(1).standard_normal(
+        (2, SELF_BUILT_FRAMES, num_pdfs)) * 3).astype(np.float32)
+    nf = np.full(2, SELF_BUILT_FRAMES, np.int32)
+    tg.launches = 0
+    res = {d: dec.decode(ll, nf) for d, dec in decs.items()}
+    launches_c = tg.launches
+    if launches_c == 0:
+        raise AssertionError("the self-built graph's card decode launched "
+                             "no gather")
+    ovf = int(np.asarray(decs["cuda"].last_overflow).sum())
+    for b in range(2):
+        a, c = res["cuda"][b], res["cpu"][b]
+        if a is None or c is None or list(a[0]) != list(c[0]) or \
+                list(a[1]) != list(c[1]):
+            raise AssertionError(f"self-built graph, utterance {b}: card "
+                                 f"!= CPU")
+    if q.launches:
+        raise AssertionError(f"qaffine launched {q.launches} times")
+    log(f"  (c) self-built triphone graph (the port's mkgraph_scale.build, "
+        f"{SELF_BUILT}, default_rng(0)): {stats['states']} states, "
+        f"{stats['arcs']} arcs, {num_pdfs} pdfs, {stats['num_tids']} "
+        f"transition ids; built in {build_s:.1f} s; check_packed_graph and "
+        f"check_tier_tables ({t_tier_c:.3f} s) silent; 2 utterances of "
+        f"seeded loglikes ({nf.tolist()} frames) card == CPU (words and "
+        f"tids), overflow {ovf}, gather launches {launches_c} | card: "
+        f"{card}")
+    return {"launches": launches, "graph_launches": launches_c,
+            "tier_s": t_tier, "rate": audio / bt["secs"],
+            "pad_share": bt["pad_share"]}
+
+
+# the recipe witnesses: each saves a phase's own inputs, replayed through
+# JAX on the CPU by tests/test_torch_<name>_witness.py
+
+
+def save_witness(path: str, data: dict) -> None:
+    import pickle
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(data, f, protocol=4)
+
+
+def lvtln_witness_data(lv, stats: dict) -> dict:
+    """Phase 28 (b)'s LVTLN selection: the class transforms and, per
+    speaker, its fMLLR statistics and the card's class and auxiliary per
+    class."""
+    out = {"warps": list(lv.warps), "A": lv.A.cpu().numpy(),
+           "default_class": lv.default_class, "speakers": {}}
+    for s, st in stats.items():
+        c, W, aux = lv.select_class(st)
+        out["speakers"][s] = dict(beta=float(st.beta), K=st.K.copy(),
+                                  G=st.G.copy(), cls=int(c),
+                                  W=np.asarray(W), aux=np.asarray(aux))
+    return out
+
+
+def _pdf_params(am) -> list:
+    return [(p.weights.copy(), p.means.copy(), p.vars.copy())
+            for p in am.pdfs]
+
+
+class SatWitness:
+    """Records train_sat's first fMLLR iteration in the port: the inputs
+    and result of `estimate_speaker_transforms` (the model, the current
+    features, alignments and speakers), then that iteration's `_update`
+    (the model before, the accumulators, the model after). Use as a
+    context manager around `train_sat`."""
+
+    def __enter__(self):
+        from kaldi_tpu_torch.steps import sat
+        self.sat, self.data = sat, {}
+        self._est, self._upd = sat.estimate_speaker_transforms, sat._update
+        sat.estimate_speaker_transforms = self.estimate
+        sat._update = self.update
+        return self
+
+    def __exit__(self, *exc):
+        self.sat.estimate_speaker_transforms = self._est
+        self.sat._update = self._upd
+
+    def estimate(self, model, utts, align, min_count=100.0, init=None):
+        delta = self._est(model, utts, align, min_count, init)
+        if "estimate" not in self.data:
+            self.data["estimate"] = dict(
+                pdfs=_pdf_params(model.am),
+                id2pdf=np.asarray(model.trans_model.id2pdf_array),
+                utts=[(u, np.asarray(f, np.float32), s)
+                      for u, f, _w, s in utts],
+                align=[None if r is None else np.asarray(r[0])
+                       for r in align],
+                min_count=float(min_count),
+                delta={s: np.asarray(W) for s, W in delta.items()})
+        return delta
+
+    def update(self, model, acc, tcounts, opts, target):
+        first = "estimate" in self.data and "update" not in self.data
+        before = _pdf_params(model.am) if first else None
+        accs = [(a.occ.copy(), a.mean_acc.copy(), a.var_acc.copy())
+                for a in acc.accs] if first else None
+        self._upd(model, acc, tcounts, opts, target)
+        if first:
+            self.data["update"] = dict(
+                before=before, accs=accs, target=target,
+                min_gaussian_occupancy=opts.min_gaussian_occupancy,
+                perturb_factor=opts.perturb_factor, power=opts.power,
+                after=_pdf_params(model.am))
+
+
+def smbr_witness_data(am, tm, eg, opts, silence_phones) -> dict:
+    """Phase 22 (b)'s first sMBR minibatch before training: the eg
+    (features with context, numerator alignment, the lattice), the TDNN's
+    config, params and priors, and the card's loglikes, dense signed
+    posteriors, objective and gradient of the surrogate loss
+    -sum(post * logprob) at those params."""
+    import copy
+    import torch
+    from torch.func import functional_call
+    from kaldi_tpu_torch.nnet import discriminative as nd
+    feats, ali, lat = eg
+    model = am.model
+    lc = model.config.left_context
+    lat0 = copy.deepcopy(lat)
+    ll = am.loglikes_np(feats[None])[0][lc:lc + len(ali)]
+    post, objf = nd.compute_discriminative_post(
+        am, copy.deepcopy(lat), ali, tm, opts, ll, silence_phones)
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in model.params().items()}
+    x = torch.as_tensor(np.asarray(feats, np.float32),
+                        device=am.device)[None]
+    logprob = functional_call(model, params, (x,),
+                              dict(pad_context=False))[0]
+    loss = -(torch.as_tensor(post, device=am.device) * logprob).sum()
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return dict(feats=np.asarray(feats, np.float32), ali=np.asarray(ali),
+                lattice=lat0, config=dataclasses.asdict(model.config),
+                params={k: v.detach().cpu().numpy()
+                        for k, v in params.items()},
+                priors=np.asarray(am.priors), tm=tm,
+                silence_phones=sorted(silence_phones),
+                opts=dataclasses.asdict(opts), ll=ll, post=post,
+                objf=float(objf), loss=float(loss.detach()),
+                grads={k: g.cpu().numpy() for k, g in zip(params, grads)})
+
+
+
 def device_time(fn) -> tuple[float, int, dict]:
     """Run fn under torch.profiler. -> (device busy seconds: the sum of
     kernel, memcpy and memset durations, which do not overlap on one
@@ -9013,7 +9549,7 @@ def build_native() -> list[str]:
 
 def side_phases() -> int:
     """The second process (`SIDE_FLAG`): the bench graph's chain (phases
-    7, 8, 10, 13, 14, 18, 30 a and c), then the SMALL_PHASES; the chain's
+    7, 8, 10, 13, 14, 34, 18, 30 a and c), then the SMALL_PHASES; the chain's
     launch counts go to SIDE_RESULTS."""
     import torch
     from kaldi_tpu_torch.device import card_info, resolve_device
@@ -9023,34 +9559,40 @@ def side_phases() -> int:
     torch.set_num_threads(SIDE_THREADS)
     card = card_info()
     profile = "--profile" in sys.argv[1:]
-    log_phase("[7/32] full-width serving slice (bf16 TDNN)")
+    log_phase("[7/34] full-width serving slice (bf16 TDNN)")
     sl = phase_slice(tg, card, profile=profile)
-    log_phase("[8/32] full-width int8 serving slice")
+    log_phase("[8/34] full-width int8 serving slice")
     s8 = phase_int8_slice(q, tg, sl, card)
-    log_phase("[10/32] streaming server, full width")
+    log_phase("[10/34] streaming server, full width")
     st = phase_stream_full(tg, sl, card, profile=profile)
-    log_phase("[13/32] training, full width: the bench's AM with the port's "
+    log_phase("[13/34] training, full width: the bench's AM with the port's "
               "train step")
     tr = phase_train_full(sl, card, profile=profile)
-    log_phase("[14/32] lattice path, full width (latgen at the bench's "
+    log_phase("[14/34] lattice path, full width (latgen at the bench's "
               "point)")
     lt = phase_lattice_full(tg, sl, tr, card)
-    log_phase("[18/32] GMM path, full width: monophone training, the dense "
+    log_phase("[34/34] decoder tools at the bench graph's width: the "
+              "verifiers over its tier tables, decode_batched with phase 13's "
+              "AM, the self-built triphone graph")
+    tl = phase_tools_full(tg, sl, tr, card)
+    log_phase("[18/34] GMM path, full width: monophone training, the dense "
               "decoder's serving lines")
     phase_gmm_full(tr, card, profile=profile)
-    log_phase("[30/32] (a, c) rescoring at width: bench.py's 1.13M-n-gram "
+    log_phase("[30/34] (a, c) rescoring at width: bench.py's 1.13M-n-gram "
               "trigram over phase 14's lattices with the truncation audit; "
               "features on the bench's test waves")
     phase_rescore_bench(card, lt)
     for k, what, fn in SMALL_PHASES:
         if k == 31:
             socket.setdefaulttimeout(SOCKET_TIMEOUT_S)
-        log_phase(f"[{k}/32] {what}")
+        log_phase(f"[{k}/34] {what}")
         globals()[fn]()
     with open(SIDE_RESULTS, "w") as f:
         json.dump({"slice": sl["launches"], "int8": s8["launches"],
                    "stream": st["launches"], "latgen": lt["launches"],
-                   "adaptive": lt["adaptive_launches"]}, f)
+                   "adaptive": lt["adaptive_launches"],
+                   "tools": tl["launches"],
+                   "tools_graph": tl["graph_launches"]}, f)
     log(f"the second process's phases in "
         f"{time.perf_counter() - T_START:.1f} s")
     return 0
@@ -9107,7 +9649,7 @@ def main() -> int:
 
     resolve_device("cuda")                # also turns TF32 off
     card = card_info()
-    log_phase(f"[1/32] card: {card} | torch {torch.__version__} CUDA "
+    log_phase(f"[1/34] card: {card} | torch {torch.__version__} CUDA "
               f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
               f"{torch.cuda.device_count()}")
 
@@ -9117,7 +9659,7 @@ def main() -> int:
         native = ex.submit(build_native)
         libs = cuda_build.build()
         native = native.result()
-    log_phase(f"[2/32] build: {len(libs)} kernels (one nvcc each) and "
+    log_phase(f"[2/34] build: {len(libs)} kernels (one nvcc each) and "
               f"{len(native)} g++ libraries, all at once, in "
               f"{time.perf_counter() - t:.3f} s")
     for name, so in libs.items():
@@ -9126,39 +9668,39 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]
         log(f"  {os.path.relpath(so, ROOT)}: {' | '.join(regs)}")
 
-    log_phase("[3/32] table-gather kernel vs plain version")
+    log_phase("[3/34] table-gather kernel vs plain version")
     k = phase_kernel(tg)
-    log_phase("[4/32] qaffine kernel vs plain version")
+    log_phase("[4/34] qaffine kernel vs plain version")
     qk = phase_qaffine(q)
     side = start_side_phases()            # beside the phases below
     try:
-        log_phase("[16/32] online path, full width "
+        log_phase("[16/34] online path, full width "
                   "(scripts/bench_streaming.py's configuration)")
         on = phase_online_full(tg, card, profile="--profile" in sys.argv[1:])
-        log_phase("[20/32] triphone ladder, full width: mono -> tri -> "
+        log_phase("[20/34] triphone ladder, full width: mono -> tri -> "
                   "LDA+MLLT -> TDNN, and SAT")
         ld = phase_ladder_full(card, profile="--profile" in sys.argv[1:])
-        log_phase("[22/32] discriminative path, full width: the rm-like "
+        log_phase("[22/34] discriminative path, full width: the rm-like "
                   "pyramid with bMMI and fMMI, then bMMI and TDNN sMBR on the "
                   "ladder's models")
         dk = phase_disc_full(card, ld, profile="--profile" in sys.argv[1:])
-        log_phase("[24/32] nnet3 and nnet1 families at the ladder's width: "
+        log_phase("[24/34] nnet3 and nnet1 families at the ladder's width: "
                   "nnet3 TDNN and LSTM, the wide LSTM, the DBN")
         nn = phase_nnet_full(card, ld, profile="--profile" in sys.argv[1:])
-        log_phase("[26/32] speaker recognition at sre10's width (2048 "
+        log_phase("[26/34] speaker recognition at sre10's width (2048 "
                   "gaussians, 600-dim i-vectors, 60-dim features): v1 and v2, "
                   "then logistic regression")
         sr = phase_sre_full(card, ld)
-        log_phase("[28/32] adaptation and SGMM2 at the ladder's width: raw, "
+        log_phase("[28/34] adaptation and SGMM2 at the ladder's width: raw, "
                   "basis, regression-tree and global fMLLR, MLLR, LVTLN, "
                   "HLDA; SGMM2 at egs/rm's sgmm2_4a widths, bMMI, SGMM fMLLR")
         ad = phase_adapt_sgmm_full(card, ld)
-        log_phase("[30/32] (b) search at width: the ladder's lattices "
+        log_phase("[30/34] (b) search at width: the ladder's lattices "
                   "through rescoring, scoring, MBR, ctm, KWS and "
                   "decode_biglm")
         rs = phase_rescore_ladder(card, ld)
         socket.setdefaulttimeout(SOCKET_TIMEOUT_S)
-        log_phase("[32/32] network serving at phase 16's configuration: its "
+        log_phase("[32/34] network serving at phase 16's configuration: its "
                   "AM and HCLG through the port's files, the TCP server over "
                   "6 concurrent connections (also through µ-law and ADPCM), "
                   "the threaded decoder, the online GMM decoder over phase "
@@ -9182,12 +9724,15 @@ def main() -> int:
         f"{ad['launches']} on the adaptation and SGMM path's, "
         f"{rs['launches']} on the rescoring and search path's (phase 30's "
         f"ladder decodes), {sv['launches']} on the TCP server's (phase 32's "
-        f"6 connections); qaffine {sd['int8']} on the int8 slice, "
+        f"6 connections), {sd['tools']} in phase 34's decode_batched and "
+        f"{sd['tools_graph']} on its self-built graph; qaffine {sd['int8']} "
+        f"on the int8 slice, "
         f"{sr['qaffine_launches']} on the speaker-recognition path's, 0 on "
         f"the adaptation and SGMM path's, on the rescoring path's and on "
-        f"the server's (phases 27-30 and 32 assert it)")
+        f"the server's and the decoder tools' (phases 27-30 and 32-34 "
+        f"assert it)")
     faulthandler.cancel_dump_traceback_later()
-    log(f"all 32 phases in {time.perf_counter() - T_START:.1f} s")
+    log(f"all 34 phases in {time.perf_counter() - T_START:.1f} s")
     log(card)
     log(json.dumps({"kernels": [{
         "name": "batched_table_gather", "route": "cuda",
@@ -9223,7 +9768,9 @@ def main() -> int:
         "server_launches": sv["launches"], "server_shape": sv["shape"],
         "server_ms": sv["times"][0], "server_plain_ms": sv["times"][1],
         "server_library_ms": sv["times"][2],
-        "server_bound_ms": gather_bound_ms(*sv["shape"])}, {
+        "server_bound_ms": gather_bound_ms(*sv["shape"]),
+        "tools_launches": sd["tools"],
+        "tools_graph_launches": sd["tools_graph"]}, {
         "name": "qaffine", "route": "cuda",
         "source": "kaldi_tpu_torch/csrc/qaffine.cu",
         "replaces": "kaldi_tpu/nnet/quantized.py:46",
@@ -9238,7 +9785,7 @@ def main() -> int:
         "library_ms": qk["library_ms"],
         "sre_launches": sr["qaffine_launches"],
         "adapt_sgmm_launches": 0, "rescore_launches": 0,
-        "server_launches": 0}]}))
+        "server_launches": 0, "tools_launches": 0}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

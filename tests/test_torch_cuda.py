@@ -864,3 +864,24 @@ def test_fused_server_on_the_card_answers_concurrent_connections(card):
     got = cs._finals(cs._serve_concurrently(
         AudioServer("127.0.0.1", 0, factory), waves, 2560))
     assert got == want and tg.launches > 0
+
+
+# --- decoder tools (PR 16's phase 33 helpers) ---
+
+def test_verifiers_card_equal_cpu(card):
+    """check_packed_graph / check_tier_tables silent on the card's tables
+    in both tier-B layouts, every corruption raising as on the CPU."""
+    import chip_smoke as cs
+    assert cs.verify_card_vs_cpu()["corruptions"] >= 12
+
+
+def test_decode_batched_card_equals_cpu_and_single(card):
+    import chip_smoke as cs
+    b = cs.batched_card_vs_cpu()
+    assert b["utts"] == len(cs.TOOLS_LENGTHS) and b["launches"] > 0
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_simple_decode_equals_csr_on_the_card(card, seed):
+    import chip_smoke as cs
+    assert cs.simple_vs_csr(seed=seed)["cost_gap"] <= 1e-4

@@ -738,3 +738,57 @@ def _serving_classes():
 def test_serving_classes_take_no_device(cls):
     """They run where the decoder or model they are given runs."""
     assert "device" not in inspect.signature(cls.__init__).parameters
+
+
+# --- decoder tools, graph helpers and recipe utilities ---
+
+def test_decode_batched_defaults_to_cuda_and_raises_without_a_card():
+    from kaldi_tpu_torch.decoder.batching import decode_batched
+    assert inspect.signature(decode_batched).parameters[
+        "device"].default == "cuda"
+    dec = CsrBeamDecoder(_graph(), CsrBeamOpts(beam=1e9, max_active=8,
+                                               expand_budget=64),
+                         device="cpu")
+    utts = [("a", np.zeros((3, 2), np.float32))]
+
+    def score(x):
+        return torch.zeros(x.shape[0], x.shape[1], 4, device=x.device)
+    assert decode_batched(dec, utts, score, batch_size=2,
+                          device="cpu")["a"] is not None
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default builds there")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        decode_batched(dec, utts, score)
+
+
+def _tool_host_functions():
+    from kaldi_tpu_torch.decoder.simple import simple_decode
+    from kaldi_tpu_torch.decoder.verify import (check_packed_graph,
+                                                check_tier_tables)
+    from kaldi_tpu_torch.hmm.hmm_utils import (convert_alignment,
+                                               split_to_phones)
+    from kaldi_tpu_torch.scripts.mkgraph_scale import build
+    from kaldi_tpu_torch.steps.egs import dump_egs, egs_minibatches
+    from kaldi_tpu_torch.tree.synth import synth_triphone_tree
+    from kaldi_tpu_torch.utils.jobs import run_jobs
+    from kaldi_tpu_torch.utils.optimization import est_pca, lbfgs, linear_cgd
+    return [simple_decode, check_packed_graph, check_tier_tables,
+            convert_alignment, split_to_phones, build, dump_egs,
+            egs_minibatches, synth_triphone_tree, run_jobs, est_pca, lbfgs,
+            linear_cgd]
+
+
+@pytest.mark.parametrize("fn", _tool_host_functions(),
+                         ids=lambda f: f.__name__)
+def test_tool_host_functions_take_no_device(fn):
+    """Host code, or (check_tier_tables) reads the tables where they are."""
+    assert "device" not in inspect.signature(fn).parameters
+
+
+def test_check_tier_tables_reads_the_tables_where_they_are():
+    from kaldi_tpu_torch.decoder.verify import check_tier_tables
+    dec = CsrBeamDecoder(_graph(), CsrBeamOpts(max_active=8,
+                                               expand_budget=64),
+                         device="cpu")
+    assert dec.tabs.srow.device.type == "cpu"
+    check_tier_tables(dec.graph, dec.tabs, dec.opts.hub_threshold)

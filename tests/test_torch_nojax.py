@@ -125,7 +125,16 @@ for n in ("kaldi_tpu_torch.cuda_build", "kaldi_tpu_torch.nnet.quantized",
           "kaldi_tpu_torch.online.server", "kaldi_tpu_torch.online.threaded",
           "kaldi_tpu_torch.online.compress",
           "kaldi_tpu_torch.online.gmm_decoding",
-          "kaldi_tpu_torch.cli_online_extra"):
+          "kaldi_tpu_torch.cli_online_extra",
+          "kaldi_tpu_torch.fst.text_io", "kaldi_tpu_torch.fst.special",
+          "kaldi_tpu_torch.fst.factor", "kaldi_tpu_torch.hmm.hmm_utils",
+          "kaldi_tpu_torch.tree.synth", "kaldi_tpu_torch.decoder.simple",
+          "kaldi_tpu_torch.decoder.batching", "kaldi_tpu_torch.decoder.verify",
+          "kaldi_tpu_torch.steps.egs", "kaldi_tpu_torch.utils.optimization",
+          "kaldi_tpu_torch.utils.gpsr", "kaldi_tpu_torch.utils.data_dir",
+          "kaldi_tpu_torch.utils.jobs", "kaldi_tpu_torch.utils.experiment",
+          "kaldi_tpu_torch.utils.profiling",
+          "kaldi_tpu_torch.scripts.mkgraph_scale"):
     assert n in names, n
 import chip_smoke
 from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder, CsrBeamOpts
@@ -377,6 +386,24 @@ gwave = chip_smoke.tri_synth(["AB", "CA"], np.random.RandomState(5))
 gdec.pipeline.accept_waveform(gwave)
 gdec.finalize_decoding()
 assert gdec.best_path() is not None
+from kaldi_tpu_torch.decoder.batching import decode_batched
+from kaldi_tpu_torch.decoder.simple import simple_decode
+from kaldi_tpu_torch.decoder.verify import (check_packed_graph,
+                                            check_tier_tables)
+from kaldi_tpu_torch.utils.profiling import check_finite
+hub40 = chip_smoke.star_hub_graph(40)
+cdec = CsrBeamDecoder(hub40, CsrBeamOpts(beam=1e9, max_active=32,
+                                         expand_budget=256, hub_threshold=8),
+                      device="cpu")
+check_packed_graph(cdec.graph)
+check_tier_tables(cdec.graph, cdec.tabs, 8)
+ll = np.random.RandomState(0).randn(2, 10, 41).astype(np.float32)
+res = cdec.decode(ll, np.array([10, 6], np.int32))
+utts = [("a", ll[0]), ("b", ll[1, :6])]
+bat = decode_batched(cdec, utts, lambda x: x, batch_size=2, device="cpu")
+assert bat["a"][0] == res[0][0] and bat["b"][0] == res[1][0], (bat, res)
+assert simple_decode(cdec.graph, ll[0])[0] == list(res[0][0])
+check_finite({"w": torch.ones(2)})
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
        or m.startswith("kaldi_tpu.")]
 assert not bad, bad

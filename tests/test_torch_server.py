@@ -20,15 +20,19 @@ CSR setup (a seeded relu TDNN over a 40-word synthetic HCLG).
 - µ-law and IMA ADPCM codes, decoded samples and the carried ADPCM state
   are bit-exact with JAX's however the audio is chunked.
 - `SingleUtteranceGmmDecoder` with mid-utterance fMLLR gives JAX's words
-  and alignment and re-estimates at the same chunks; each re-estimation,
-  replayed on the port's own features and partial path, has JAX's fMLLR
-  statistics within the bound that the two packages' gaussian posteriors'
-  difference sets (near-tied gaussians turn the f32 loglikes' rounding
-  into posterior shifts, ROADMAP.md §3 traps; chip_smoke.py phase 19
-  holds the card to the CPU the same way), and JAX's f64 solve of the
-  port's statistics gives the port's transform exactly. The transform
-  itself is not held at a fixed tolerance: the solve over a few hundred
-  frames amplifies the statistics' last digits.
+  and re-estimates at the same chunks. Stage by stage, both decoders read
+  JAX's features and the port decodes on with JAX's transform after each
+  re-estimation (lockstep): the same alignment; each re-estimation's
+  fMLLR statistics within the bound that the two packages' gaussian
+  posteriors' difference sets (near-tied gaussians turn the f32 loglikes'
+  rounding into posterior shifts, ROADMAP.md §3 traps; chip_smoke.py phase
+  19 holds the card to the CPU the same way); JAX's f64 solve of the
+  port's statistics gives the port's transform exactly, and the two
+  transforms lie within the first-order bound the statistics' difference
+  sets through the solve. The transform itself is not held at a fixed
+  tolerance: the solve over a few dozen frames is ill-conditioned and
+  amplifies the statistics' last digits (the witness test of the early
+  policy's first estimate).
 """
 
 import jax
@@ -412,22 +416,97 @@ def _rel_to(got, want, scale) -> float:
                         / np.maximum(scale, 1e-30)))
 
 
+class _JaxFeatures:
+    """JAX's `OnlineFeaturePipeline`, its frames handed over as numpy: the
+    one feature source both packages' decoders read in the lockstep run
+    (the port's pipeline is held to JAX's in
+    tests/test_torch_online_features.py)."""
+
+    def __init__(self):
+        self.p = JPipeline(_mfcc_opts("j"), delta_order=2)
+
+    def accept_waveform(self, wave):
+        self.p.accept_waveform(wave)
+
+    def input_finished(self):
+        self.p.input_finished()
+
+    def get_features(self):
+        return np.asarray(self.p.get_features())
+
+
+def _run_lockstep(g, kw, wave):
+    """Both decoders on JAX's features; after each of its re-estimations
+    the port keeps its own transform for the record and then decodes on
+    with JAX's, so every stage is compared on the same inputs -> (port
+    run, JAX run, the port's own transforms)."""
+    jsud = _gmm_decoder(g, "j", kw)
+    jsud.pipeline = _JaxFeatures()
+    jrun = _run_gmm(jsud, wave)
+    tsud = _gmm_decoder(g, "t", kw)
+    tsud.pipeline = _JaxFeatures()
+    jax_w = iter([c[3] for c in jrun[2]])
+    own, estimate = [], tsud.estimate_fmllr
+
+    def locked(raw):
+        estimate(raw)
+        own.append(tsud.state.transform)
+        tsud.state.transform = next(jax_w)
+    tsud.estimate_fmllr = locked
+    return _run_gmm(tsud, wave), jrun, own
+
+
+def _first_order_bound(ts, js, W) -> np.ndarray:
+    """Per row d of the transform, the first-order change of the row solve
+    w_d = G_d^-1 (alpha cof + k_d) that the statistics' difference sets:
+    ||G_d^-1|| (||dk_d|| + ||dG_d|| ||w_d||)."""
+    return np.array([
+        np.linalg.norm(np.linalg.inv(js.G[d]), 2)
+        * (np.linalg.norm(ts.K[d] - js.K[d])
+           + np.linalg.norm(ts.G[d] - js.G[d], 2) * np.linalg.norm(W[d]))
+        for d in range(W.shape[0])])
+
+
+EARLY = dict(adaptation_first_utt_delay=0.5, adaptation_first_utt_ratio=1.5)
+
+
 @pytest.mark.parametrize("policy", ["default", "early"])
 def test_online_gmm_decoder_words_and_transform_equal_jax(gmm, policy):
-    kw = {} if policy == "default" else dict(
-        adaptation_first_utt_delay=0.5, adaptation_first_utt_ratio=1.5)
+    kw = {} if policy == "default" else EARLY
     wave = gmm["waves"][2]
-    (tw, tt, _tc), ttr, calls = _run_gmm(_gmm_decoder(gmm, "t", kw), wave)
-    (jw, jt, _jc), jtr, jcalls = _run_gmm(_gmm_decoder(gmm, "j", kw), wave)
-    assert list(tw) == list(jw) and list(tt) == list(jt)
+    # each package on its own features: the same words and the same
+    # re-estimation schedule. The transition ids are not compared here:
+    # the fMLLR solve over a few dozen frames is ill-conditioned (cond(G_d)
+    # up to 3e9, test_online_fmllr_first_estimate_witness), so the two
+    # packages' f32 rounding of the features and loglikes moves W by ~0.1
+    # and, in the early policy, the later partial alignments apart.
+    (tw, _tt, _tc), ttr, calls = _run_gmm(_gmm_decoder(gmm, "t", kw), wave)
+    (jw, _jt, _jc), jtr, jcalls = _run_gmm(_gmm_decoder(gmm, "j", kw), wave)
+    assert list(tw) == list(jw)
     assert [x is None for x in ttr] == [x is None for x in jtr]
     assert len(calls) == len(jcalls) > 0 and any(x is not None for x in ttr)
-    # each re-estimation, replayed on the port's own inputs: the fMLLR
-    # statistics within the bound that the packages' gaussian posteriors'
-    # difference sets (plus 1e-9 of the terms for the f64 sums), that
-    # bound small, and JAX's solve of the port's statistics is the port's
-    # transform
-    for raw, res, init, W in calls:
+    words = [gmm["t"].lang.words.sym(w) for w in tw]
+    assert words == ["YES", "NO"] * 4
+    # lockstep, stage by stage on the same inputs: the same best path, and
+    # at each re-estimation the same features, partial path and start; the
+    # fMLLR statistics within the bound that the packages' gaussian
+    # posteriors' difference sets (plus 1e-9 of the terms for the f64
+    # sums), that bound small; JAX's solve of the port's statistics is the
+    # port's transform (the solve held by its backward error, ROADMAP.md
+    # §3 traps), and the port's transform within the first-order bound
+    # that the statistics' difference sets through the solve
+    trun, jrun, own = _run_lockstep(gmm, kw, wave)
+    (tw, tt, _tc), _ttr, calls = trun
+    (jw, jt, _jc), _jtr, jcalls = jrun
+    assert list(tw) == list(jw) and list(tt) == list(jt)
+    assert len(calls) == len(jcalls) == len(own) > 0
+    for (raw, res, init, _), (jraw, jres, jinit, jW), W in zip(
+            calls, jcalls, own):
+        np.testing.assert_array_equal(raw, jraw)
+        assert list(res[1]) == list(jres[1])
+        assert (init is None) == (jinit is None)
+        if init is not None:
+            np.testing.assert_array_equal(init, jinit)
         ts, js, scale, bound, want = _replay(gmm, raw, res, init)
         assert ts.beta == pytest.approx(js.beta, rel=1e-6)
         for k in ("K", "G"):
@@ -436,8 +515,50 @@ def test_online_gmm_decoder_words_and_transform_equal_jax(gmm, policy):
             assert np.all(np.abs(got - ref) <= b + 1e-9 * sc), k
             assert _rel_to(b, 0.0, sc) <= 1e-3, k
         np.testing.assert_array_equal(W, want)
-    words = [gmm["t"].lang.words.sym(w) for w in tw]
-    assert words == ["YES", "NO"] * 4
+        dW = np.abs(np.asarray(W, np.float64) - np.asarray(jW, np.float64))
+        assert np.all(dW.max(axis=1) <= _first_order_bound(
+            ts, js, np.asarray(jW, np.float64)))
+
+
+def test_online_fmllr_first_estimate_witness(gmm):
+    """The early policy's first estimate (69 frames, min count 20): on the
+    same features and partial path the packages' statistics differ by the
+    f32 rounding of their gaussian posteriors, and the solve turns that
+    into a difference in W of ~0.1. The solve, not the port, does it:
+    JAX's own transform from f32 posteriors lies as far from its solve of
+    exact (f64) posteriors as the port's does, and G_d's condition number
+    reaches ~1e9."""
+    from kaldi_tpu.transform import fmllr as jfmllr
+    trun, _jrun, own = _run_lockstep(gmm, EARLY, gmm["waves"][2])
+    raw, res, init, _ = trun[2][0]
+    assert init is None and raw.shape[0] == 69
+    ts, js, _scale, _bound, want = _replay(gmm, raw, res, init)
+    am = gmm["j"].am
+    x = raw.astype(np.float64)
+    pdfs = np.array([gmm["j"].trans_model.transition_id_to_pdf(t)
+                     for t in res[1][:x.shape[0]]])
+    means = np.concatenate([p.means for p in am.pdfs])
+    var = np.concatenate([p.vars for p in am.pdfs])
+    owner = np.concatenate([np.full(len(p.weights), i)
+                            for i, p in enumerate(am.pdfs)])
+    ll = (np.concatenate([np.log(p.weights) for p in am.pdfs])[None]
+          - 0.5 * np.sum(np.log(2 * np.pi * var), 1)[None]
+          - 0.5 * (((x[:, None] - means[None]) ** 2) / var[None]).sum(-1))
+    ll = np.where(owner[None] == pdfs[:, None], ll, -np.inf)
+    post = np.exp(ll - ll.max(1, keepdims=True))
+    exact = jfmllr.FmllrStats(x.shape[1])
+    exact.accumulate(x, means, var, post / post.sum(1, keepdims=True))
+
+    def solve(st):
+        return np.asarray(jfmllr.estimate_fmllr(st, min_count=20.0)[0],
+                          np.float64)
+    w_t, w_j, w_64 = np.asarray(own[0], np.float64), solve(js), solve(exact)
+    np.testing.assert_array_equal(own[0], want)
+    diff = np.abs(w_t - w_j).max()
+    assert 1e-3 < diff < 1.0
+    assert np.abs(w_j - w_64).max() > 0.1 * diff
+    assert np.abs(w_t - w_64).max() > 0.1 * diff
+    assert max(np.linalg.cond(exact.G[d]) for d in range(x.shape[1])) > 1e8
 
 
 def test_adaptation_policy_schedule_equals_jax():
