@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's serving, training, GMM-HMM, discriminative
 training, nnet3 / nnet1, speaker-recognition, adaptation and SGMM2,
-rescoring and keyword-search paths and its pitch, resampling and
-reverberation features once on one CUDA card and check them.
+rescoring and keyword-search paths, its pitch, resampling and
+reverberation features and its file-driven CLI once on one CUDA card and
+check them.
 
     python3 chip_smoke.py [--profile]
 
@@ -339,7 +340,30 @@ Phases (any failure raises and the script exits non-zero):
      launches, and the word errors against `Recognizer`'s words (for
      information); (c) the self-built triphone graph at the full tree
      width (the port's copy of scripts/mkgraph_scale.py's `build`, 2,000
-     words), verified and decoded card == CPU on seeded loglikes.
+     words), verified and decoded card == CPU on seeded loglikes;
+ 35. the CLI's first slice, small: every case of `CLI_CASES` (the slice's
+     feature, CMVN, table, matrix, vector, wave, data-dir and probe
+     subcommands on seeded files) in-process with the default device
+     (the card) and with --device cpu, host files byte-equal and device
+     results within their parity tests' bounds; recipe-yesno-files on
+     the card and on the CPU, WER 0 on the GMM and the streaming-TDNN
+     paths, seconds by stage; decode-faster, gmm-align,
+     decode-faster-mapped and online2 card == CPU on the card's files,
+     nnet-am-compute within 1e-5, train-nnet3's round trip,
+     online2 --fused == the generic pipeline on a delta-free system,
+     cuda-compiled and cuda-gpu-available exit 0; qaffine may not launch;
+ 36. the bench decode through files (after phase 34): bench.py's 8 test
+     waves as wav files, compute-fbank-feats (== the port's fbank of
+     read_wave's samples), compute-cmvn-stats and apply-cmvn --norm-vars,
+     nnet-am-compute with phase 13's AM (save_am_nnet), save_hclg of the
+     bench graph and decode-faster-mapped at bench.py's search options
+     through make_decoder's CSR decoder, compute-wer: its words equal a
+     direct CsrBeamDecoder decode of the same loglikes ark (overflow 0),
+     the gather launches about twice a frame (then timed at this decode's
+     shapes against its plain version), qaffine does not; each
+     command's seconds and audio-sec/s, the HCLG file's size, save and
+     load seconds, and the word errors against phase 34's Recognizer-path
+     words (for information).
 
 Phases 20, 22 (b) and 28 (b) save the inputs of the recipe witnesses
 (chiprun_out/sat_witness.pkl, smbr_witness.pkl, lvtln_witness.pkl; with
@@ -348,9 +372,9 @@ tests/test_torch_<name>_witness.py replays through JAX on a CPU.
 
 Two processes share the card. The phases that take nothing from phase
 20's ladder run in a second one (the script with --side-phases): the
-bench graph's chain (7, 8, 10, 13, 14, 34, 18, 30 a and c), then the
+bench graph's chain (7, 8, 10, 13, 14, 34, 36, 18, 30 a and c), then the
 small card-vs-CPU phases (5, 6, 9, 11, 12, 15, 17, 19, 21, 23, 25, 27,
-29, 31, 33); this one runs 1-4, then 16, 20, 22, 24, 26, 28, 30 b and 32
+29, 31, 33, 35); this one runs 1-4, then 16, 20, 22, 24, 26, 28, 30 b and 32
 beside it, and prints the second's log after phase 32's. Each phase's
 start goes to stderr with the seconds since its process began; a run
 still going at 1000 s dumps every thread's stack there.
@@ -449,7 +473,11 @@ SMALL_PHASES = (
          "decoders, card vs CPU", "phase_serving_small"),
     (33, "decoder tools and recipe utilities, small: the graph and tier-"
          "table verifiers, decode_batched, simple_decode, device_trace, "
-         "AccuProfiler, card vs CPU", "phase_tools_small"))
+         "AccuProfiler, card vs CPU", "phase_tools_small"),
+    (35, "the CLI's first slice, small: every subcommand on the card and "
+         "with --device cpu, recipe-yesno-files on the card, --fused vs the "
+         "generic pipeline, train-nnet3's round trip, the card probes",
+     "phase_cli_small"))
 SIDE_FLAG = "--side-phases"
 SIDE_LOG = os.path.join(ROOT, "chiprun_out", "side_phases.log")
 SIDE_RESULTS = os.path.join(ROOT, "chiprun_out", "side_phases.json")
@@ -9331,7 +9359,786 @@ def phase_tools_full(tg, sl: dict, tr: dict, card: str) -> dict:
         f"{card}")
     return {"launches": launches, "graph_launches": launches_c,
             "tier_s": t_tier, "rate": audio / bt["secs"],
-            "pad_share": bt["pad_share"]}
+            "pad_share": bt["pad_share"], "rec_words": rec_w[:len(waves)]}
+
+
+# the CLI's first slice (phases 35-36): every subcommand once on the card
+# (the default device) and once with --device cpu, then the bench decode
+# driven through files
+
+CLI_FEAT_TOL = dict(rtol=2e-4, atol=2e-3)   # tests/test_torch_features.py
+CLI_EXACT_TOL = dict(rtol=1e-6, atol=1e-6)  # test_torch_online_features.py
+CLI_SLIDING_TOL = dict(rtol=2e-5, atol=2e-5)    # its sliding-CMVN cases
+CLI_NNET_TOL = dict(rtol=1e-5, atol=1e-5)   # tests/test_torch_am_nnet.py
+CLI_PITCH_REL = 1e-6         # of each column's scale (test_torch_pitch_signal)
+CLI_SR = "8000"
+
+
+def cli_call(argv) -> tuple[str, int, float, str]:
+    """The port's CLI in-process -> (stdout, exit code, seconds, stderr)."""
+    import contextlib
+    import io
+    from kaldi_tpu_torch import cli
+    out, err = io.StringIO(), io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            rc = cli.main(argv)
+        except SystemExit as e:
+            rc = e.code if isinstance(e.code, int) else (
+                0 if e.code is None else 1)
+    return out.getvalue(), rc, time.perf_counter() - t, err.getvalue()
+
+
+def cli_inputs(d: str):
+    """Seeded inputs for every host and device subcommand of the slice:
+    yesno waves at 8 kHz (one stereo) in a wav.scp, an RIR, segments,
+    MFCC-like features, (nccf, pitch) rows, VAD decisions, CMVN
+    statistics, transforms, vectors, weights, alignments, matrices and
+    data-dir text files. -> P(name) -> path."""
+    from kaldi_tpu_torch.io.kaldi_io import write_ark
+    from kaldi_tpu_torch.io.wave import write_wave
+    os.makedirs(d, exist_ok=True)
+
+    def P(*n):
+        return os.path.join(d, *n)
+    rng = np.random.RandomState(17)
+    scp = []
+    for i, ws in enumerate((["YES", "NO"], ["NO", "YES", "YES"],
+                            ["YES", "NO", "NO"])):
+        w = yesno_synth(ws, rng)
+        if i == 2:
+            w = np.stack([w, 0.5 * w[::-1]])
+        write_wave(P(f"u{i}.wav"), w, GMM_SR)
+        scp.append(f"u{i} {P(f'u{i}.wav')}\n")
+    with open(P("wav.scp"), "w") as f:
+        f.writelines(scp)
+    rir = np.exp(-np.arange(400) / 60.0) * rng.randn(400)
+    rir[0] = 1.0
+    write_wave(P("rir.wav"), (rir * 3000).astype(np.float32), GMM_SR)
+    feats = {f"u{i}": (rng.randn(T, 13) * 3 + rng.randn(13) * 5)
+             .astype(np.float32) for i, T in enumerate((57, 83, 40))}
+    write_ark(P("feats.ark"), feats, scp_path=P("feats.scp"))
+    write_ark(P("short.ark"), {k: v[:-1] for k, v in feats.items()})
+    pitch = {k: np.stack([rng.uniform(-0.2, 1.0, T),
+                          120 + 30 * np.sin(np.arange(T) / 7.0)
+                          + rng.randn(T)], 1).astype(np.float32)
+             for k, T in (("u0", 60), ("u1", 45))}
+    write_ark(P("pitch.ark"), pitch)
+    write_ark(P("vad.ark"), {k: (v[:, 0] > np.median(v[:, 0]))
+                             .astype(np.float32) for k, v in feats.items()})
+    stats = {}
+    for k, v in feats.items():
+        x = v.astype(np.float64)
+        st = np.zeros((2, 14))
+        st[0, :13], st[0, 13], st[1, :13] = x.sum(0), len(x), (x * x).sum(0)
+        stats[k] = st
+    write_ark(P("cmvn.ark"), stats)
+    W = rng.randn(10, 14)
+    write_ark(P("affine.ark"), {"t": W.astype(np.float32)})
+    write_ark(P("linear.ark"), {"t": W[:, :13].astype(np.float32)})
+    write_ark(P("B_aff.ark"), {"t": rng.randn(6, 7).astype(np.float32)})
+    write_ark(P("A.ark"), {"t": rng.randn(4, 7).astype(np.float32)})
+    write_ark(P("vt.ark"), {"t": rng.randn(2, 3).astype(np.float32)})
+    write_ark(P("vecs.ark"), {k: rng.randn(3).astype(np.float32)
+                              for k in ("u0", "u1")})
+    write_ark(P("w1.ark"), {"a": rng.uniform(0, 1, 5).astype(np.float32)})
+    write_ark(P("w2.ark"), {"a": rng.uniform(0, 1, 5).astype(np.float32)})
+    write_ark(P("ali.ark"), {k: rng.randint(0, 13, len(v)).astype(np.int32)
+                             for k, v in feats.items()})
+    for name, text in (
+            ("segments", "s0 u0 0.10 0.50\ns1 u1 0.25 0.90\n"),
+            ("fsegments", "s0 u0 0.03 0.15\ns1 u1 0.10 0.33\n"),
+            ("ranges", "r0 u0 2 9\nr1 u1 0 30\n"),
+            ("ivv.txt", "a 1 2 ; 3\nb 4 ;\n"),
+            ("utt2spk", "u0 A\nu1 B\nu2 A\n"), ("spk2utt", "A u0 u2\nB u1\n"),
+            ("reco2file_and_channel", "u0 c1 A\nu1 c1 B\nu2 c2 A\n"),
+            ("ref", "u0 a b c\nu1 d e\n"), ("hyp", "u0 a x c\nu1 d e f\n")):
+        with open(P(name), "w") as f:
+            f.write(text)
+    return P
+
+
+def _ark(P, n):
+    return f"ark:{P(n)}"
+
+
+# (name, argv(P, O), how the two runs compare, the ark compared): "bytes"
+# for host commands (every file written byte-equal, stdout and exit code
+# equal); for device commands the bound of the module's parity test, and
+# for the spectrogram, fbank and MFCC that bound plus the FFT's error
+# bound (fft_feature_bound)
+CLI_CASES = [
+    *[(f"compute-{k}-feats", lambda P, O, k=k: [
+        f"compute-{k}-feats", P("wav.scp"), f"ark,scp:{O}/f.ark,{O}/f.scp",
+        "--sample-frequency", CLI_SR, "--dither", "0"], kind, "f.ark")
+      for k, kind in (("mfcc", "mfcc"), ("fbank", "fbank"),
+                      ("spectrogram", "spec"), ("plp", "feat"),
+                      ("pitch", "pitch"))],
+    ("compute-kaldi-pitch-feats", lambda P, O: [
+        "compute-kaldi-pitch-feats", P("wav.scp"), f"ark:{O}/f.ark",
+        "--sample-frequency", CLI_SR], "pitch", "f.ark"),
+    ("compute-and-process-kaldi-pitch-feats", lambda P, O: [
+        "compute-and-process-kaldi-pitch-feats", P("wav.scp"),
+        f"ark:{O}/f.ark", "--sample-frequency", CLI_SR], "pitch", "f.ark"),
+    ("add-deltas", lambda P, O: ["add-deltas", _ark(P, "feats.ark"),
+                                 f"ark:{O}/f.ark"], "exact", "f.ark"),
+    ("add-deltas-sdc", lambda P, O: ["add-deltas-sdc", _ark(P, "feats.ark"),
+                                     f"ark:{O}/f.ark"], "exact", "f.ark"),
+    ("splice-feats", lambda P, O: ["splice-feats", _ark(P, "feats.ark"),
+                                   f"ark:{O}/f.ark"], "exact", "f.ark"),
+    ("apply-cmvn", lambda P, O: [
+        "apply-cmvn", _ark(P, "cmvn.ark"), _ark(P, "feats.ark"),
+        f"ark:{O}/f.ark", "--norm-vars"], "exact", "f.ark"),
+    ("apply-cmvn-sliding", lambda P, O: [
+        "apply-cmvn-sliding", _ark(P, "feats.ark"), f"ark:{O}/f.ark",
+        "--cmn-window", "30", "--min-window", "10", "--norm-vars"],
+     "sliding", "f.ark"),
+    ("transform-feats", lambda P, O: [
+        "transform-feats", P("affine.ark"), _ark(P, "feats.ark"),
+        f"ark:{O}/f.ark"], "exact", "f.ark"),
+    ("wav-reverberate", lambda P, O: [
+        "wav-reverberate", P("u0.wav"), P("rir.wav"), f"{O}/r.wav"],
+     "wav", "r.wav"),
+    ("compute-cmvn-stats", lambda P, O: [
+        "compute-cmvn-stats", _ark(P, "feats.ark"), f"ark:{O}/s.ark",
+        "--spk2utt", P("spk2utt")], "bytes", None),
+    ("compute-cmvn-stats-two-channel", lambda P, O: [
+        "compute-cmvn-stats-two-channel", P("reco2file_and_channel"),
+        _ark(P, "feats.ark"), f"ark:{O}/s.ark"], "bytes", None),
+    ("apply-cmvn-online", lambda P, O: [
+        "apply-cmvn-online", _ark(P, "feats.ark"), f"ark:{O}/f.ark",
+        "--cmn-window", "20"], "bytes", None),
+    ("modify-cmvn-stats", lambda P, O: [
+        "modify-cmvn-stats", _ark(P, "cmvn.ark"), f"ark:{O}/s.ark"],
+     "bytes", None),
+    ("compute-vad", lambda P, O: ["compute-vad", _ark(P, "feats.ark"),
+                                  f"ark:{O}/v.ark"], "bytes", None),
+    ("select-voiced-frames", lambda P, O: [
+        "select-voiced-frames", _ark(P, "feats.ark"), _ark(P, "vad.ark"),
+        f"ark:{O}/f.ark"], "bytes", None),
+    ("create-split-from-vad", lambda P, O: [
+        "create-split-from-vad", _ark(P, "vad.ark"), f"{O}/segments",
+        "--max-voiced", "12"], "bytes", None),
+    *[(n, lambda P, O, n=n: [n, _ark(P, "pitch.ark"), f"ark:{O}/p.ark"],
+       "bytes", None) for n in ("process-pitch-feats",
+                                "process-kaldi-pitch-feats",
+                                "interpolate-pitch")],
+    ("detect-sinusoids", lambda P, O: ["detect-sinusoids", P("wav.scp")],
+     "bytes", None),
+    ("copy-feats", lambda P, O: ["copy-feats", f"scp:{P('feats.scp')}",
+                                 f"ark,scp:{O}/c.ark,{O}/c.scp",
+                                 "--compress"], "bytes", None),
+    ("copy-feats-to-htk", lambda P, O: [
+        "copy-feats-to-htk", _ark(P, "feats.ark"), f"{O}/htk"], "bytes",
+     None),
+    ("copy-feats-to-sphinx", lambda P, O: [
+        "copy-feats-to-sphinx", _ark(P, "feats.ark"), f"{O}/sphinx"],
+     "bytes", None),
+    ("paste-feats", lambda P, O: [
+        "paste-feats", _ark(P, "feats.ark"), _ark(P, "short.ark"),
+        f"ark:{O}/p.ark", "--length-tolerance", "1"], "bytes", None),
+    ("append-feats", lambda P, O: [
+        "append-feats", _ark(P, "feats.ark"), _ark(P, "short.ark"),
+        f"ark:{O}/a.ark"], "bytes", None),
+    ("append-vector-to-feats", lambda P, O: [
+        "append-vector-to-feats", _ark(P, "feats.ark"), _ark(P, "vecs.ark"),
+        f"ark:{O}/a.ark"], "bytes", None),
+    ("select-feats", lambda P, O: ["select-feats", "0-2,5",
+                                   _ark(P, "feats.ark"), f"ark:{O}/s.ark"],
+     "bytes", None),
+    ("subset-feats", lambda P, O: ["subset-feats", _ark(P, "feats.ark"),
+                                   f"ark:{O}/s.ark", "--n", "2"],
+     "bytes", None),
+    ("subsample-feats", lambda P, O: [
+        "subsample-feats", _ark(P, "feats.ark"), f"ark:{O}/s.ark", "--n",
+        "3"], "bytes", None),
+    ("shift-feats", lambda P, O: ["shift-feats", _ark(P, "feats.ark"),
+                                  f"ark:{O}/s.ark", "--shift", "2"],
+     "bytes", None),
+    *[(n, lambda P, O, n=n: [n, _ark(P, "feats.ark"), f"ark:{O}/r.ark"],
+       "bytes", None) for n in ("reverse-feats", "remove-mean",
+                                "matrix-sum-rows", "copy-matrix")],
+    ("extract-rows", lambda P, O: ["extract-rows", P("ranges"),
+                                   _ark(P, "feats.ark"), f"ark:{O}/r.ark"],
+     "bytes", None),
+    ("extract-segments", lambda P, O: [
+        "extract-segments", P("wav.scp"), P("segments"), f"{O}/seg"],
+     "bytes", None),
+    ("extract-feature-segments", lambda P, O: [
+        "extract-feature-segments", _ark(P, "feats.ark"), P("fsegments"),
+        f"ark:{O}/s.ark"], "bytes", None),
+    *[(n, lambda P, O, n=n: [n, _ark(P, "feats.ark")], "bytes", None)
+      for n in ("feat-to-dim", "feat-to-len", "matrix-dim")],
+    ("compare-feats", lambda P, O: ["compare-feats", _ark(P, "feats.ark"),
+                                    _ark(P, "short.ark")], "bytes", None),
+    ("copy-vector", lambda P, O: ["copy-vector", _ark(P, "vecs.ark"),
+                                  f"ark,t:{O}/v.txt"], "bytes", None),
+    ("copy-int-vector", lambda P, O: ["copy-int-vector", _ark(P, "ali.ark"),
+                                      f"ark:{O}/a.ark"], "bytes", None),
+    ("copy-int-vector-vector", lambda P, O: [
+        "copy-int-vector-vector", f"ark:{P('ivv.txt')}", f"ark:{O}/c.txt"],
+     "bytes", None),
+    *[(n, lambda P, O, n=n: [n, f"ark:{O}/s.ark", _ark(P, "feats.ark"),
+                             f"scp:{P('feats.scp')}"],
+       "bytes", None) for n in ("matrix-sum", "sum-matrices")],
+    ("matrix-logprob", lambda P, O: [
+        "matrix-logprob", _ark(P, "feats.ark"), _ark(P, "ali.ark")],
+     "bytes", None),
+    ("duplicate-matrix", lambda P, O: [
+        "duplicate-matrix", _ark(P, "feats.ark"), f"ark:{O}/d1.ark",
+        f"ark,t:{O}/d2.txt"], "bytes", None),
+    ("vector-scale", lambda P, O: ["vector-scale", _ark(P, "vecs.ark"),
+                                   f"ark:{O}/v.ark", "--scale", "2"],
+     "bytes", None),
+    ("vector-sum", lambda P, O: ["vector-sum", f"ark:{O}/v.ark",
+                                 _ark(P, "vecs.ark"), _ark(P, "vecs.ark")],
+     "bytes", None),
+    ("dot-weights", lambda P, O: ["dot-weights", _ark(P, "w1.ark"),
+                                  _ark(P, "w2.ark"), f"ark:{O}/d.ark"],
+     "bytes", None),
+    ("reverse-weights", lambda P, O: ["reverse-weights", _ark(P, "w1.ark"),
+                                      f"ark:{O}/r.ark"], "bytes", None),
+    ("transform-vec", lambda P, O: ["transform-vec", P("vt.ark"),
+                                    _ark(P, "vecs.ark"), f"ark:{O}/v.ark"],
+     "bytes", None),
+    ("compose-transforms", lambda P, O: [
+        "compose-transforms", P("A.ark"), P("B_aff.ark"), f"{O}/c.ark"],
+     "bytes", None),
+    ("extend-transform-dim", lambda P, O: [
+        "extend-transform-dim", P("B_aff.ark"), f"{O}/e.ark",
+        "--new-dimension", "9"], "bytes", None),
+    ("est-pca", lambda P, O: ["est-pca", _ark(P, "feats.ark"),
+                              f"{O}/pca.ark", "--dim", "4"], "bytes", None),
+    ("wav-copy", lambda P, O: ["wav-copy", P("u2.wav"), f"{O}/c.wav"],
+     "bytes", None),
+    ("wav-to-duration", lambda P, O: ["wav-to-duration", P("wav.scp")],
+     "bytes", None),
+    ("extend-wav-with-silence", lambda P, O: [
+        "extend-wav-with-silence", P("wav.scp"), f"{O}/ext"], "bytes", None),
+    ("split-scp", lambda P, O: ["split-scp", P("wav.scp"), "2",
+                                f"{O}/part.JOB.scp"], "bytes", None),
+    ("utt2spk-to-spk2utt", lambda P, O: ["utt2spk-to-spk2utt",
+                                         P("utt2spk")], "bytes", None),
+    ("compute-wer", lambda P, O: ["compute-wer", P("ref"), P("hyp")],
+     "bytes", None),
+    ("info", lambda P, O: ["info"], "bytes", None),
+]
+
+
+def _cli_files(d: str) -> list:
+    return sorted(os.path.relpath(os.path.join(r, f), d)
+                  for r, _ds, fs in os.walk(d) for f in fs)
+
+
+F32_EPS = 2.0 ** -24
+
+
+def fft_feature_bound(wave, opts, kind: str) -> np.ndarray:
+    """[T, D] bound on |a - b| of two f32 computations of the features
+    `kind` ("spec", "fbank" or "mfcc") of `wave` under `opts` that differ
+    in their FFT (the card's and the CPU's, or JAX's and the port's): the
+    features' parity bound (CLI_FEAT_TOL, added by the caller) plus the
+    FFT's rounding error per bin, of the order log2(N) eps ||x|| for a
+    frame x (its normwise bound log2(N) eps ||X|| spread over the N bins),
+    taken twice on each side: |dX_k| <= 4 log2(N) eps ||x||, carried to
+    every power bin (2 |dX| |X_k| + |dX|^2), through the mel filters,
+    through the log (-log(1 - de / e); unbounded where the error can reach
+    the energy itself) and, for MFCC, the DCT and lifter. A bin far below
+    its frame's power is where this outgrows the parity bound."""
+    import torch
+    from kaldi_tpu_torch.ops.dct import dct_matrix, lifter_coeffs
+    from kaldi_tpu_torch.ops.mel import mel_banks
+    from kaldi_tpu_torch.ops.window import extract_windows
+    fo = opts.frame_opts
+    x = extract_windows(torch.as_tensor(np.asarray(wave, np.float32)),
+                        fo)[0].double()
+    N = x.shape[-1]
+    p = torch.fft.rfft(x).abs().square().numpy()
+    dX = 4.0 * np.log2(N) * F32_EPS * np.linalg.norm(
+        x.numpy(), axis=-1, keepdims=True)
+    dp = 2.0 * dX * np.sqrt(p) + dX * dX
+
+    def dlog(e, de):
+        r = de / np.maximum(e, 1e-300)
+        return np.where(r < 1.0, -np.log1p(-np.minimum(r, 1.0 - 1e-12)),
+                        np.inf)
+    if kind == "spec":
+        out = np.zeros((p.shape[0], p.shape[1]))
+        out[:, 1:] = dlog(p[:, 1:], dp[:, 1:])
+        return out
+    B = mel_banks(opts.mel_opts, fo).double().numpy()
+    dlog_e = dlog(p[:, : N // 2] @ B.T, dp[:, : N // 2] @ B.T)
+    if kind == "fbank":
+        return dlog_e
+    D = np.abs(dct_matrix(opts.num_ceps, opts.mel_opts.num_bins)
+               .double().numpy())
+    if opts.cepstral_lifter != 0.0:
+        D = D * np.abs(lifter_coeffs(opts.cepstral_lifter, opts.num_ceps)
+                       .double().numpy())[:, None]
+    with np.errstate(invalid="ignore"):
+        out = dlog_e @ D.T
+    if opts.use_energy:
+        out[:, 0] = 0.0     # c0 is the frame's log energy, in time
+    return np.nan_to_num(out, nan=np.inf)
+
+
+def cli_fft_bounds(P, kind: str) -> dict:
+    """{utt: fft_feature_bound} for CLI_CASES' feature cases (wav.scp's
+    first channel at 8 kHz, dither 0, the subcommands' defaults)."""
+    from kaldi_tpu_torch import ops
+    from kaldi_tpu_torch.io.wave import read_wave
+    fo = ops.FrameOpts(samp_freq=float(CLI_SR), dither=0.0)
+    mel = ops.MelOpts(num_bins=23)
+    opts = {"spec": ops.SpectrogramOpts(frame_opts=fo),
+            "fbank": ops.FbankOpts(frame_opts=fo, mel_opts=mel),
+            "mfcc": ops.MfccOpts(frame_opts=fo, mel_opts=mel)}[kind]
+    with open(P("wav.scp")) as f:
+        scp = [ln.split() for ln in f if ln.strip()]
+    return {u: fft_feature_bound(read_wave(path)[0][0], opts, kind)
+            for u, path in scp}
+
+
+def _cli_close(kind: str, g, w, fft=None) -> float:
+    """-> the worst |g - w|; raises past the kind's bound (plus the FFT's
+    error bound `fft` where given)."""
+    g64, w64 = np.asarray(g, np.float64), np.asarray(w, np.float64)
+    diff = np.abs(g64 - w64)
+    if kind == "pitch":
+        bound = CLI_PITCH_REL * np.maximum(np.abs(w64).max(axis=0), 1e-30)
+    elif kind == "wav":
+        bound = np.ones_like(w64)          # one int16 step
+    else:
+        tol = {"feat": CLI_FEAT_TOL, "exact": CLI_EXACT_TOL,
+               "sliding": CLI_SLIDING_TOL, "nnet": CLI_NNET_TOL}[kind]
+        bound = tol["atol"] + tol["rtol"] * np.abs(w64)
+        if fft is not None:
+            bound = bound + fft
+    if not (diff <= bound).all():
+        raise AssertionError(f"{kind}: {float(diff.max()):.3e} past its "
+                             f"bound")
+    return float(diff.max(initial=0.0))
+
+
+def cli_compare(kind: str, dirs: dict, out: dict, name: str,
+                ark: str | None, fft: dict | None = None) -> float:
+    """Two runs of one subcommand (dirs/out by side, "card" and "cpu"):
+    byte-equal files and output for a host command, the output ark or
+    wave within the kind's bound (and `fft[key]`, an FFT error bound) for
+    a device command. -> worst diff."""
+    from kaldi_tpu_torch.io.kaldi_io import read_ark
+    from kaldi_tpu_torch.io.wave import read_wave
+    dc, dp = dirs["card"], dirs["cpu"]
+    if out["card"][1] != out["cpu"][1]:
+        raise AssertionError(f"{name}: exit codes {out['card'][1]} / "
+                             f"{out['cpu'][1]}")
+    if kind == "bytes":
+        if _cli_files(dc) != _cli_files(dp) or \
+                out["card"][0].replace(dc, dp) != out["cpu"][0]:
+            raise AssertionError(f"{name}: different files or output")
+        for f in _cli_files(dc):
+            a = open(os.path.join(dc, f), "rb").read()
+            b = open(os.path.join(dp, f), "rb").read()
+            if a.replace(dc.encode(), dp.encode()) != b:
+                raise AssertionError(f"{name}: {f} differs")
+        return 0.0
+    if kind == "wav":
+        (g, gs), (w, ws) = (read_wave(os.path.join(d, ark))
+                            for d in (dc, dp))
+        if gs != ws or g.shape != w.shape:
+            raise AssertionError(f"{name}: wave header differs")
+        return _cli_close(kind, g, w)
+    got = list(read_ark(os.path.join(dc, ark)))
+    want = list(read_ark(os.path.join(dp, ark)))
+    if [k for k, _ in got] != [k for k, _ in want] or not want:
+        raise AssertionError(f"{name}: keys differ")
+    worst = 0.0
+    for (k, g), (_k2, w) in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name}: shapes differ")
+        worst = max(worst, _cli_close(kind, g, w,
+                                      None if fft is None else fft[k]))
+    return worst
+
+
+def _cli_sides(card: str, device: bool) -> dict:
+    """The extra arguments of each side: the card side takes the default
+    device ("cuda" when the card is the card)."""
+    on_card = [] if (card == "cuda" or not device) else ["--device", card]
+    return {"card": on_card, "cpu": ["--device", "cpu"] if device else []}
+
+
+def cli_card_vs_cpu(root: str, card: str = "cuda") -> dict:
+    """Every subcommand of CLI_CASES in-process, once with the default
+    device (the card) and once with --device cpu: host files byte-equal,
+    device results within their parity bound. -> {name: (card seconds,
+    worst diff)}."""
+    from kaldi_tpu_torch import cli
+    P = cli_inputs(os.path.join(root, "in"))
+    res = {}
+    for name, argv, kind, ark in CLI_CASES:
+        base = argv(P, "{O}")
+        device = base[0] in cli.DEVICE_COMMANDS or cli._ALIASES.get(
+            base[0], [""])[0] in cli.DEVICE_COMMANDS
+        dirs, out = {}, {}
+        for side, extra in _cli_sides(card, device).items():
+            dirs[side] = os.path.join(root, name, side)
+            os.makedirs(dirs[side], exist_ok=True)
+            out[side] = cli_call([a.replace("{O}", dirs[side])
+                                  for a in base] + extra)
+            if out[side][1] not in (0, 1):
+                raise AssertionError(f"{name} ({side}): exit "
+                                     f"{out[side][1]}: {out[side][3]}")
+        fft = None
+        if kind in ("spec", "fbank", "mfcc"):
+            fft, kind = cli_fft_bounds(P, kind), "feat"
+        res[name] = (out["card"][2],
+                     cli_compare(kind, dirs, out, name, ark, fft))
+    return res
+
+
+def _hyp_words(path: str) -> dict:
+    with open(path) as f:
+        return {ln.split()[0]: ln.split()[1:] for ln in f if ln.strip()}
+
+
+def _cli_ok(name: str, r):
+    if r[1] != 0:
+        raise AssertionError(f"{name}: exit {r[1]}: {r[3][-2000:]}")
+    return r
+
+
+def cli_train_card_vs_cpu(root: str, card: str = "cuda") -> dict:
+    """The slice's training, graph and decoding subcommands, card vs CPU:
+    the file-driven recipe on each (WER 0 on both paths; train-mono and
+    train-tdnn held by outcome: the gaussian count, the words), then on
+    the card's files decode-faster, gmm-align, decode-faster-mapped and
+    online2 identical on both, nnet-am-compute within 1e-5, mkgraph
+    array for array, train-nnet3's round trip, --fused equal to the
+    generic pipeline on a delta-free system, and the card probes. ->
+    {"seconds": {name: card seconds}, "stages": {stage: seconds}}."""
+    from kaldi_tpu_torch.io import model_io
+    from kaldi_tpu_torch.io.kaldi_io import read_ark
+    sides = _cli_sides(card, True)
+    secs: dict = {}
+    w = {s: os.path.join(root, f"recipe_{s}") for s in sides}
+    rec = {s: _cli_ok(f"recipe-yesno-files ({s})", cli_call(
+        ["recipe-yesno-files", w[s]] + sides[s])) for s in sides}
+    secs["recipe-yesno-files"] = rec["card"][2]
+    stages = {}
+    for ln in rec["card"][3].splitlines():
+        if "seconds by stage" in ln:
+            for part in ln.split("seconds by stage ")[1].split(", "):
+                k, v = part.rsplit(" ", 1)
+                stages[k] = float(v)
+    P = lambda *n: os.path.join(w["card"], *n)               # noqa: E731
+    ref = _hyp_words(P("test", "text"))
+    for s in sides:
+        for hyp in ("hyp_gmm.txt", "hyp_tdnn.txt"):
+            if _hyp_words(os.path.join(w[s], hyp)) != ref:
+                raise AssertionError(f"recipe ({s}): {hyp} is not WER 0")
+    gauss = {s: sum(np.load(os.path.join(w[s], "mono.npz"))[
+        f"pdf{i}_weights"].shape[0] for i in range(int(np.load(os.path.join(
+            w[s], "mono.npz"))["num_pdfs"]))) for s in sides}
+    if gauss["card"] != gauss["cpu"]:
+        raise AssertionError(f"train-mono: gaussians {gauss}")
+
+    def both(name, argv, compare):
+        """argv on the card side and the CPU side -> compare(card, cpu)."""
+        out = {}
+        for s in sides:
+            d = os.path.join(root, name, s)
+            os.makedirs(d, exist_ok=True)
+            out[s] = _cli_ok(f"{name} ({s})", cli_call(
+                [a.replace("{O}", d) for a in argv] + sides[s]))
+            out[s] = (d,) + out[s]
+        secs[name] = out["card"][3]
+        compare(out["card"], out["cpu"])
+
+    def same_stdout(a, b):
+        if a[1] != b[1]:
+            raise AssertionError("card and CPU print different words")
+
+    def same_file(n):
+        def cmp(a, b):
+            if open(os.path.join(a[0], n), "rb").read() != \
+                    open(os.path.join(b[0], n), "rb").read():
+                raise AssertionError(f"{n}: card != CPU")
+        return cmp
+
+    def arks_within(kind):
+        def cmp(a, b):
+            cli_compare(kind, {"card": a[0], "cpu": b[0]},
+                        {"card": a[1:], "cpu": b[1:]}, "ark", "o.ark")
+        return cmp
+
+    feats = f"ark:{P('test', 'feats.ark')}"
+    for name in ("decode-faster", "gmm-decode-faster", "gmm-decode-simple"):
+        both(name, [name, P("mono.npz"), P("hclg.npz"), feats], same_stdout)
+    for name in ("gmm-align", "gmm-align-compiled"):
+        both(name, [name, P("mono.npz"), P("train", "text"),
+                    f"ark:{P('train', 'feats.ark')}", "ark:{O}/ali.ark"],
+             same_file("ali.ark"))
+    for extra in ([], ["--divide-by-priors"], ["--apply-exp"]):
+        both("nnet-am-compute", ["nnet-am-compute", P("tdnn.npz"), feats,
+                                 "ark:{O}/o.ark", *extra],
+             arks_within("nnet"))
+    ll = os.path.join(root, "nnet-am-compute", "cpu", "ll.ark")
+    _cli_ok("nnet-am-compute", cli_call([
+        "nnet-am-compute", P("tdnn.npz"), feats, f"ark:{ll}",
+        "--divide-by-priors", "--device", "cpu"]))
+    both("decode-faster-mapped", ["decode-faster-mapped", P("hclg.npz"),
+                                  f"ark:{ll}"], same_stdout)
+    online = [P("mono.npz"), P("tdnn.npz"), P("hclg.npz"),
+              P("test", "wav.scp"), "--sample-frequency", CLI_SR]
+    both("online2-wav-nnet2-latgen-faster",
+         ["online2-wav-nnet2-latgen-faster", *online], same_stdout)
+    t = time.perf_counter()
+    mk = os.path.join(root, "mkgraph.npz")
+    _cli_ok("mkgraph", cli_call(["mkgraph", P("mono.npz"), P("lm.arpa"),
+                                 mk]))
+    secs["mkgraph"] = time.perf_counter() - t
+    a, b = np.load(mk), np.load(P("hclg.npz"))
+    if sorted(a.files) != sorted(b.files) or any(
+            not np.array_equal(a[k], b[k]) for k in a.files):
+        raise AssertionError("mkgraph: a second build differs")
+    # train-nnet3: the card's file reloads to identical loglikes, the CPU's
+    # loader computes them within 1e-5; the CPU's run trains too
+    x = np.random.RandomState(0).randn(1, 30, 39).astype(np.float32)
+    lls = {}
+    for s in sides:
+        n3 = os.path.join(root, f"nnet3_{s}.npz")
+        r = _cli_ok(f"train-nnet3 ({s})", cli_call([
+            "train-nnet3", P("mono.npz"), P("train", "text"),
+            f"ark:{P('train', 'feats.ark')}", n3, "--num-epochs", "8"]
+            + sides[s]))
+        if s == "card":
+            secs["train-nnet3"] = r[2]
+        dev = "cpu" if s == "cpu" else card
+        am = model_io.load_am_nnet3(n3, device=dev)
+        lls[s] = am.loglikes_np(x)
+        if not np.isfinite(lls[s]).all() or lls[s].shape[:2] != (1, 30):
+            raise AssertionError(f"train-nnet3 ({s}): loglikes")
+        again = os.path.join(root, f"nnet3_{s}_again.npz")
+        model_io.save_am_nnet3(again, am)
+        if not np.array_equal(model_io.load_am_nnet3(
+                again, device=dev).loglikes_np(x), lls[s]):
+            raise AssertionError(f"train-nnet3 ({s}): reload differs")
+    cpu_ll = model_io.load_am_nnet3(os.path.join(root, "nnet3_card.npz"),
+                                    device="cpu").loglikes_np(x)
+    _cli_close("nnet", cpu_ll, lls["card"])
+    # --fused on a delta-free system trained on the card
+    D = lambda n: os.path.join(root, n)                      # noqa: E731
+    for argv in (["train-mono", P("lexicon.txt"), P("train", "text"),
+                  f"ark:{P('train', 'mfcc.ark')}", D("mono0.npz")],
+                 ["train-tdnn", D("mono0.npz"), P("train", "text"),
+                  f"ark:{P('train', 'mfcc.ark')}", D("tdnn0.npz")]):
+        _cli_ok(argv[0], cli_call(argv + sides["card"]))
+    _cli_ok("mkgraph", cli_call(["mkgraph", D("mono0.npz"), P("lm.arpa"),
+                                 D("hclg0.npz")]))
+    common = ["online2-wav-nnet2-latgen-faster", D("mono0.npz"),
+              D("tdnn0.npz"), D("hclg0.npz"), P("test", "wav.scp"),
+              "--sample-frequency", CLI_SR, "--delta-order", "0"]
+    gen = _cli_ok("online2 generic", cli_call(common + sides["card"]))
+    fused = _cli_ok("online2 --fused", cli_call(common + ["--fused"]
+                                                + sides["card"]))
+    secs["online2-wav-nnet2-latgen-faster --fused"] = fused[2]
+    if sorted(gen[0].splitlines()) != sorted(fused[0].splitlines()) or \
+            len(gen[0].splitlines()) != 8:
+        raise AssertionError("--fused != the generic pipeline")
+    import torch
+    for name, ok in (("cuda-compiled", bool(torch.version.cuda)),
+                     ("cuda-gpu-available", torch.cuda.is_available())):
+        r = cli_call([name])
+        want = 0 if card == "cuda" else int(not ok)
+        if r[1] != want:
+            raise AssertionError(f"{name}: exit {r[1]}, want {want}")
+        secs[name] = r[2]
+    return {"seconds": secs, "stages": stages, "fused": fused[0]}
+
+
+def build_scratch() -> str:
+    """-> a new directory under build/ (gitignored) for a phase's files."""
+    import tempfile
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    return tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+
+
+def phase_cli_small() -> None:
+    """Phase 35: every subcommand of the CLI's first slice on small inputs
+    on the card and with --device cpu (host files byte-equal, device
+    results within their parity bound), the file-driven yesno recipe on
+    the card, --fused against the generic pipeline, train-nnet3's round
+    trip and the card probes; qaffine must not launch."""
+    import shutil
+    from kaldi_tpu_torch.nnet import quantized as q
+    q.launches = 0
+    root = build_scratch()
+    try:
+        res = cli_card_vs_cpu(os.path.join(root, "cases"))
+        tr = cli_train_card_vs_cpu(os.path.join(root, "train"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if q.launches:
+        raise AssertionError(f"qaffine launched {q.launches} times")
+    dev = {n: r for n, r in res.items() if r[1]}
+    log(f"  {len(res)} subcommand cases card (default device) vs "
+        f"--device cpu: host files byte-equal, device results within "
+        f"bound (worst diffs {', '.join(f'{n} {r[1]:.2e}' for n, r in dev.items())}); "
+        f"card seconds {', '.join(f'{n} {r[0]:.3f}' for n, r in res.items())}")
+    log(f"  training and decoding, card vs CPU: recipe-yesno-files WER 0 on "
+        f"the GMM and the streaming-TDNN paths on both; decode-faster, "
+        f"gmm-align, decode-faster-mapped and online2 identical, "
+        f"nnet-am-compute within 1e-5, train-nnet3 round trip, --fused == "
+        f"generic, cuda-compiled and cuda-gpu-available exit 0; card "
+        f"seconds {', '.join(f'{n} {s:.3f}' for n, s in tr['seconds'].items())}; "
+        f"the recipe on the card by stage "
+        f"{', '.join(f'{n} {s:.3f}' for n, s in tr['stages'].items())}")
+
+
+def phase_cli_bench(tg, sl: dict, tr: dict, tl: dict, card: str) -> dict:
+    """Phase 36: the bench decode driven through files in Kaldi's shape —
+    bench.py's 8 test waves as wav files, compute-fbank-feats (== the
+    port's fbank of what read_wave returns), compute-cmvn-stats and
+    apply-cmvn --norm-vars, nnet-am-compute with phase 13's AM,
+    decode-faster-mapped on the bench graph through save_hclg at bench.py's
+    search options, compute-wer; the words equal a direct CsrBeamDecoder
+    decode of the same loglikes ark built with make_decoder's options, its
+    overflow 0; the gather launches, qaffine does not."""
+    import shutil
+    import torch
+    from kaldi_tpu_torch.decoder.beam_search import BeamSearchOpts
+    from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder, CsrBeamOpts
+    from kaldi_tpu_torch.io.kaldi_io import read_ark
+    from kaldi_tpu_torch.io.model_io import load_hclg, save_am_nnet, save_hclg
+    from kaldi_tpu_torch.io.wave import read_wave, write_wave
+    from kaldi_tpu_torch.nnet import quantized as q
+    from kaldi_tpu_torch.nnet.am_nnet import AmNnet
+    from kaldi_tpu_torch.ops.features import fbank
+    from kaldi_tpu_torch.recognize import SERVING_FBANK
+
+    q.launches = 0
+    graph = sl["graph"]
+    waves = np.asarray(tr["waves"][TRAIN_UTTS:])
+    refs = tr["ref"][TRAIN_UTTS:]
+    audio = waves.shape[0] * waves.shape[1] / 16000.0
+    d = build_scratch()
+    P = lambda *n: os.path.join(d, *n)                       # noqa: E731
+    secs = {}
+
+    def run(name, argv):
+        r = _cli_ok(name, cli_call(argv))
+        secs[name] = r[2]
+        return r
+    try:
+        with open(P("wav.scp"), "w") as f, open(P("ref.txt"), "w") as g:
+            for i, w in enumerate(waves):
+                write_wave(P(f"test{i}.wav"), w, 16000.0)
+                f.write(f"test{i} {P(f'test{i}.wav')}\n")
+                g.write(f"test{i} {' '.join(str(x) for x in refs[i])}\n")
+        run("compute-fbank-feats", [
+            "compute-fbank-feats", P("wav.scp"),
+            f"ark,scp:{P('fbank.ark')},{P('fbank.scp')}",
+            "--num-mel-bins", "40", "--dither", "0"])
+        fb_err = 0.0       # relative: a few f32 roundings of the log-mel
+        for i, (k, m) in enumerate(read_ark(P("fbank.ark"))):
+            samples = read_wave(P(f"test{i}.wav"))[0][0]
+            want = fbank(torch.as_tensor(samples, device="cuda"),
+                         SERVING_FBANK).cpu().numpy()
+            if k != f"test{i}" or m.shape != want.shape:
+                raise AssertionError(f"compute-fbank-feats: {k} {m.shape}")
+            fb_err = max(fb_err, float((np.abs(m - want)
+                                        / np.maximum(np.abs(want), 1.0))
+                                       .max()))
+        if not fb_err <= 1e-5:
+            raise AssertionError(f"compute-fbank-feats != fbank of "
+                                 f"read_wave's samples: {fb_err:.3e}")
+        run("compute-cmvn-stats", ["compute-cmvn-stats",
+                                   f"ark:{P('fbank.ark')}",
+                                   f"ark:{P('cmvn.ark')}"])
+        run("apply-cmvn", ["apply-cmvn", f"ark:{P('cmvn.ark')}",
+                           f"ark:{P('fbank.ark')}", f"ark:{P('feats.ark')}",
+                           "--norm-vars"])
+        save_am_nnet(P("final.mdl"), AmNnet(tr["tdnn"]))
+        run("nnet-am-compute", ["nnet-am-compute", P("final.mdl"),
+                                f"ark:{P('feats.ark')}",
+                                f"ark:{P('logpost.ark')}"])
+        t = time.perf_counter()
+        save_hclg(P("HCLG.npz"), graph)
+        save_s = time.perf_counter() - t
+        mib = os.path.getsize(P("HCLG.npz")) / 2**20
+        search = ["--beam", "13", "--max-active", "7000",
+                  "--acoustic-scale", "0.1"]
+        tg.launches = 0
+        run("decode-faster-mapped", ["decode-faster-mapped", P("HCLG.npz"),
+                                     f"ark:{P('logpost.ark')}",
+                                     "--transcription-out", P("hyp.txt"),
+                                     *search])
+        launches = tg.launches
+        wer_line = run("compute-wer", ["compute-wer", P("ref.txt"),
+                                       P("hyp.txt")])[0].strip()
+        hyp = _hyp_words(P("hyp.txt"))
+        # the direct decode of the same loglikes ark
+        items = list(read_ark(P("logpost.ark")))
+        T = max(m.shape[0] for _k, m in items)
+        ll = np.full((len(items), T, items[0][1].shape[1]), -1e10,
+                     np.float32)
+        nf = np.zeros(len(items), np.int32)
+        for b, (_k, m) in enumerate(items):
+            ll[b, : m.shape[0]] = m
+            nf[b] = m.shape[0]
+        t = time.perf_counter()
+        packed = load_hclg(P("HCLG.npz"))
+        load_s = time.perf_counter() - t
+        t = time.perf_counter()
+        dec = CsrBeamDecoder(packed, CsrBeamOpts(
+            beam=13.0, max_active=7000, acoustic_scale=0.1,
+            eps_expansions=BeamSearchOpts().eps_expansions), device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        direct = dec.decode(ll, nf)
+        ovf = int(np.asarray(dec.last_overflow).sum())
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if ovf:
+        raise AssertionError(f"direct decode overflow {ovf}")
+    for b, (k, _m) in enumerate(items):
+        want = [] if direct[b] is None else [str(x) for x in direct[b][0]]
+        if hyp.get(k) != want:
+            raise AssertionError(f"{k}: decode-faster-mapped != the direct "
+                                 f"CsrBeamDecoder decode")
+    if launches < 2 * T:
+        raise AssertionError(f"{launches} gather launches for {T} frames")
+    if q.launches:
+        raise AssertionError(f"qaffine launched {q.launches} times")
+    # the gather kernel at the shapes this decode gave it
+    shapes = csr_gather_shapes(dec, ll.shape[0], ll.shape[2])
+    g_times = gather_at_shapes(tg, shapes, "the CLI decode's", 36)
+    words = [[int(x) for x in hyp[f"test{i}"]] for i in range(len(waves))]
+    rec = tl["rec_words"]
+    n_rec = sum(len(x) for x in rec)
+    diff = round(wer(rec, words) * n_rec / 100.0)
+    rates = ", ".join(f"{n} {s:.3f} s ({audio / s:.1f} audio-sec/s)"
+                      for n, s in secs.items())
+    log(f"  {len(waves)} test waves ({audio:.0f} s of audio) through the "
+        f"port's CLI: {rates}; compute-fbank-feats == fbank of read_wave's "
+        f"samples (within {fb_err:.1e} relative, limit 1e-5); HCLG.npz {mib:.1f} MiB, "
+        f"save_hclg {save_s:.3f} s, load_hclg {load_s:.3f} s, "
+        f"CsrBeamDecoder construction (make_decoder's options) "
+        f"{build_s:.3f} s | card: {card}")
+    log(f"  decode-faster-mapped at --beam 13 --max-active 7000 "
+        f"--acoustic-scale 0.1: == the direct CsrBeamDecoder decode of the "
+        f"same loglikes ark (overflow {ovf}); gather launches {launches} "
+        f"({launches / T:.2f}/frame over {T} frames), qaffine 0; "
+        f"compute-wer: {wer_line}; word errors against phase 34's "
+        f"Recognizer-path words (phase 13's AM in bf16, serving CMVN "
+        f"std + 1e-5): {diff} of {n_rec}")
+    return {"launches": launches, "secs": secs, "save_s": save_s,
+            "load_s": load_s, "build_s": build_s, "mib": mib,
+            "gather_times": [{
+                "shape": list(sh), "ms": t[0], "plain_ms": t[1],
+                "library_ms": t[2], "bound_ms": gather_bound_ms(*sh)}
+                for sh, t in g_times.items()]}
 
 
 # the recipe witnesses: each saves a phase's own inputs, replayed through
@@ -9549,8 +10356,8 @@ def build_native() -> list[str]:
 
 def side_phases() -> int:
     """The second process (`SIDE_FLAG`): the bench graph's chain (phases
-    7, 8, 10, 13, 14, 34, 18, 30 a and c), then the SMALL_PHASES; the chain's
-    launch counts go to SIDE_RESULTS."""
+    7, 8, 10, 13, 14, 34, 36, 18, 30 a and c), then the SMALL_PHASES; the
+    chain's launch counts go to SIDE_RESULTS."""
     import torch
     from kaldi_tpu_torch.device import card_info, resolve_device
     from kaldi_tpu_torch.nnet import quantized as q
@@ -9559,40 +10366,47 @@ def side_phases() -> int:
     torch.set_num_threads(SIDE_THREADS)
     card = card_info()
     profile = "--profile" in sys.argv[1:]
-    log_phase("[7/34] full-width serving slice (bf16 TDNN)")
+    log_phase("[7/36] full-width serving slice (bf16 TDNN)")
     sl = phase_slice(tg, card, profile=profile)
-    log_phase("[8/34] full-width int8 serving slice")
+    log_phase("[8/36] full-width int8 serving slice")
     s8 = phase_int8_slice(q, tg, sl, card)
-    log_phase("[10/34] streaming server, full width")
+    log_phase("[10/36] streaming server, full width")
     st = phase_stream_full(tg, sl, card, profile=profile)
-    log_phase("[13/34] training, full width: the bench's AM with the port's "
+    log_phase("[13/36] training, full width: the bench's AM with the port's "
               "train step")
     tr = phase_train_full(sl, card, profile=profile)
-    log_phase("[14/34] lattice path, full width (latgen at the bench's "
+    log_phase("[14/36] lattice path, full width (latgen at the bench's "
               "point)")
     lt = phase_lattice_full(tg, sl, tr, card)
-    log_phase("[34/34] decoder tools at the bench graph's width: the "
+    log_phase("[34/36] decoder tools at the bench graph's width: the "
               "verifiers over its tier tables, decode_batched with phase 13's "
               "AM, the self-built triphone graph")
     tl = phase_tools_full(tg, sl, tr, card)
-    log_phase("[18/34] GMM path, full width: monophone training, the dense "
+    log_phase("[36/36] the bench decode through files: compute-fbank-feats "
+              "-> compute-cmvn-stats / apply-cmvn -> nnet-am-compute with "
+              "phase 13's AM -> decode-faster-mapped on the bench graph -> "
+              "compute-wer")
+    cb = phase_cli_bench(tg, sl, tr, tl, card)
+    log_phase("[18/36] GMM path, full width: monophone training, the dense "
               "decoder's serving lines")
     phase_gmm_full(tr, card, profile=profile)
-    log_phase("[30/34] (a, c) rescoring at width: bench.py's 1.13M-n-gram "
+    log_phase("[30/36] (a, c) rescoring at width: bench.py's 1.13M-n-gram "
               "trigram over phase 14's lattices with the truncation audit; "
               "features on the bench's test waves")
     phase_rescore_bench(card, lt)
     for k, what, fn in SMALL_PHASES:
         if k == 31:
             socket.setdefaulttimeout(SOCKET_TIMEOUT_S)
-        log_phase(f"[{k}/34] {what}")
+        log_phase(f"[{k}/36] {what}")
         globals()[fn]()
     with open(SIDE_RESULTS, "w") as f:
         json.dump({"slice": sl["launches"], "int8": s8["launches"],
                    "stream": st["launches"], "latgen": lt["launches"],
                    "adaptive": lt["adaptive_launches"],
                    "tools": tl["launches"],
-                   "tools_graph": tl["graph_launches"]}, f)
+                   "tools_graph": tl["graph_launches"],
+                   "cli": cb["launches"],
+                   "cli_shapes": cb["gather_times"]}, f)
     log(f"the second process's phases in "
         f"{time.perf_counter() - T_START:.1f} s")
     return 0
@@ -9649,7 +10463,7 @@ def main() -> int:
 
     resolve_device("cuda")                # also turns TF32 off
     card = card_info()
-    log_phase(f"[1/34] card: {card} | torch {torch.__version__} CUDA "
+    log_phase(f"[1/36] card: {card} | torch {torch.__version__} CUDA "
               f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
               f"{torch.cuda.device_count()}")
 
@@ -9659,7 +10473,7 @@ def main() -> int:
         native = ex.submit(build_native)
         libs = cuda_build.build()
         native = native.result()
-    log_phase(f"[2/34] build: {len(libs)} kernels (one nvcc each) and "
+    log_phase(f"[2/36] build: {len(libs)} kernels (one nvcc each) and "
               f"{len(native)} g++ libraries, all at once, in "
               f"{time.perf_counter() - t:.3f} s")
     for name, so in libs.items():
@@ -9668,39 +10482,39 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]
         log(f"  {os.path.relpath(so, ROOT)}: {' | '.join(regs)}")
 
-    log_phase("[3/34] table-gather kernel vs plain version")
+    log_phase("[3/36] table-gather kernel vs plain version")
     k = phase_kernel(tg)
-    log_phase("[4/34] qaffine kernel vs plain version")
+    log_phase("[4/36] qaffine kernel vs plain version")
     qk = phase_qaffine(q)
     side = start_side_phases()            # beside the phases below
     try:
-        log_phase("[16/34] online path, full width "
+        log_phase("[16/36] online path, full width "
                   "(scripts/bench_streaming.py's configuration)")
         on = phase_online_full(tg, card, profile="--profile" in sys.argv[1:])
-        log_phase("[20/34] triphone ladder, full width: mono -> tri -> "
+        log_phase("[20/36] triphone ladder, full width: mono -> tri -> "
                   "LDA+MLLT -> TDNN, and SAT")
         ld = phase_ladder_full(card, profile="--profile" in sys.argv[1:])
-        log_phase("[22/34] discriminative path, full width: the rm-like "
+        log_phase("[22/36] discriminative path, full width: the rm-like "
                   "pyramid with bMMI and fMMI, then bMMI and TDNN sMBR on the "
                   "ladder's models")
         dk = phase_disc_full(card, ld, profile="--profile" in sys.argv[1:])
-        log_phase("[24/34] nnet3 and nnet1 families at the ladder's width: "
+        log_phase("[24/36] nnet3 and nnet1 families at the ladder's width: "
                   "nnet3 TDNN and LSTM, the wide LSTM, the DBN")
         nn = phase_nnet_full(card, ld, profile="--profile" in sys.argv[1:])
-        log_phase("[26/34] speaker recognition at sre10's width (2048 "
+        log_phase("[26/36] speaker recognition at sre10's width (2048 "
                   "gaussians, 600-dim i-vectors, 60-dim features): v1 and v2, "
                   "then logistic regression")
         sr = phase_sre_full(card, ld)
-        log_phase("[28/34] adaptation and SGMM2 at the ladder's width: raw, "
+        log_phase("[28/36] adaptation and SGMM2 at the ladder's width: raw, "
                   "basis, regression-tree and global fMLLR, MLLR, LVTLN, "
                   "HLDA; SGMM2 at egs/rm's sgmm2_4a widths, bMMI, SGMM fMLLR")
         ad = phase_adapt_sgmm_full(card, ld)
-        log_phase("[30/34] (b) search at width: the ladder's lattices "
+        log_phase("[30/36] (b) search at width: the ladder's lattices "
                   "through rescoring, scoring, MBR, ctm, KWS and "
                   "decode_biglm")
         rs = phase_rescore_ladder(card, ld)
         socket.setdefaulttimeout(SOCKET_TIMEOUT_S)
-        log_phase("[32/34] network serving at phase 16's configuration: its "
+        log_phase("[32/36] network serving at phase 16's configuration: its "
                   "AM and HCLG through the port's files, the TCP server over "
                   "6 concurrent connections (also through µ-law and ADPCM), "
                   "the threaded decoder, the online GMM decoder over phase "
@@ -9725,14 +10539,15 @@ def main() -> int:
         f"{rs['launches']} on the rescoring and search path's (phase 30's "
         f"ladder decodes), {sv['launches']} on the TCP server's (phase 32's "
         f"6 connections), {sd['tools']} in phase 34's decode_batched and "
-        f"{sd['tools_graph']} on its self-built graph; qaffine {sd['int8']} "
+        f"{sd['tools_graph']} on its self-built graph, {sd['cli']} in phase "
+        f"36's decode-faster-mapped; qaffine {sd['int8']} "
         f"on the int8 slice, "
         f"{sr['qaffine_launches']} on the speaker-recognition path's, 0 on "
         f"the adaptation and SGMM path's, on the rescoring path's and on "
-        f"the server's and the decoder tools' (phases 27-30 and 32-34 "
-        f"assert it)")
+        f"the server's, the decoder tools' and the CLI's (phases 27-30 and "
+        f"32-36 assert it)")
     faulthandler.cancel_dump_traceback_later()
-    log(f"all 34 phases in {time.perf_counter() - T_START:.1f} s")
+    log(f"all 36 phases in {time.perf_counter() - T_START:.1f} s")
     log(card)
     log(json.dumps({"kernels": [{
         "name": "batched_table_gather", "route": "cuda",
@@ -9770,7 +10585,8 @@ def main() -> int:
         "server_library_ms": sv["times"][2],
         "server_bound_ms": gather_bound_ms(*sv["shape"]),
         "tools_launches": sd["tools"],
-        "tools_graph_launches": sd["tools_graph"]}, {
+        "tools_graph_launches": sd["tools_graph"],
+        "cli_launches": sd["cli"], "cli_shapes": sd["cli_shapes"]}, {
         "name": "qaffine", "route": "cuda",
         "source": "kaldi_tpu_torch/csrc/qaffine.cu",
         "replaces": "kaldi_tpu/nnet/quantized.py:46",
@@ -9785,7 +10601,7 @@ def main() -> int:
         "library_ms": qk["library_ms"],
         "sre_launches": sr["qaffine_launches"],
         "adapt_sgmm_launches": 0, "rescore_launches": 0,
-        "server_launches": 0, "tools_launches": 0}]}))
+        "server_launches": 0, "tools_launches": 0, "cli_launches": 0}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

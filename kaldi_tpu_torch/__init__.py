@@ -7,3 +7,5 @@ fbank -> CMVN -> TDNN -> degree-tiered CSR beam search; the TDNN trains
 with `nnet.train.make_train_step`. Hand-written kernels live in `csrc/`
 and are built at first use.
 """
+
+__version__ = "0.2.0"       # kaldi_tpu's, whose file formats it reads

@@ -1,0 +1,246 @@
+"""Miscellaneous utility CLI subcommands of the port (the bin/ long tail).
+
+Counterpart of kaldi_tpu/cli_misc.py, holding the ported ones: per-frame
+weight algebra, matrix plumbing, VAD-driven segmentation, two-channel
+CMVN statistics and the card probes. All but the probes are host numpy,
+writing JAX's bytes. Registered into the main parser by
+kaldi_tpu_torch.cli.main via register(sub).
+
+(ref: bin/*.cc, featbin/*.cc, ivectorbin/create-split-from-vad.cc —
+ cited per command.)
+"""
+
+from __future__ import annotations
+
+import contextlib
+import sys
+
+import numpy as np
+
+
+# ------------------------------------------------------ weight / scalar ops
+
+def cmd_dot_weights(args):
+    """Per-utterance dot product of two weight vectors
+    (ref: bin/dot-weights.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, open_wspecifier
+    b = {k: np.asarray(v).reshape(-1)
+         for (k, v) in open_rspecifier(args.rspecifier2)}
+    n = 0
+    with open_wspecifier(args.wspecifier) as out:
+        for k, v in open_rspecifier(args.rspecifier1):
+            if k not in b:
+                continue
+            d = float(np.dot(np.asarray(v).reshape(-1), b[k]))
+            out.write(k, np.array([d], np.float32))
+            n += 1
+    print(f"dot-weights: {n} utts", file=sys.stderr)
+
+
+def cmd_reverse_weights(args):
+    """1.0 - weight per frame (ref: bin/reverse-weights.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, open_wspecifier
+    n = 0
+    with open_wspecifier(args.wspecifier) as out:
+        for k, v in open_rspecifier(args.rspecifier):
+            w = np.asarray(v, np.float32)
+            out.write(k, (1.0 - w) if args.reverse else w)
+            n += 1
+    print(f"reverse-weights: {n} utts", file=sys.stderr)
+
+
+# ------------------------------------------------------------- matrix ops
+
+def cmd_duplicate_matrix(args):
+    """Copy a matrix archive to several outputs
+    (ref: bin/duplicate-matrix.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, open_wspecifier
+    with contextlib.ExitStack() as stack:
+        outs = [stack.enter_context(open_wspecifier(w))
+                for w in args.wspecifiers]
+        n = 0
+        for k, v in open_rspecifier(args.rspecifier):
+            for o in outs:
+                o.write(k, np.asarray(v, np.float32))
+            n += 1
+    print(f"duplicate-matrix: {n} x {len(args.wspecifiers)}",
+          file=sys.stderr)
+
+
+def cmd_matrix_logprob(args):
+    """Sum of matrix[t, ali[t]] over frames, logged per utterance and
+    in total; optional pass-through copy (ref: bin/matrix-logprob.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, open_wspecifier
+    ali = {k: np.asarray(v, np.int64).reshape(-1)
+           for (k, v) in open_rspecifier(args.ali_rspecifier)}
+    tot, tot_frames = 0.0, 0
+    out = open_wspecifier(args.wspecifier) if args.wspecifier else None
+    for k, m in open_rspecifier(args.rspecifier):
+        if k not in ali:
+            continue
+        a = ali[k]
+        lp = float(np.asarray(m)[np.arange(len(a)), a].sum())
+        print(f"matrix-logprob: {k} logprob/frame "
+              f"{lp / max(len(a), 1):.4f}", file=sys.stderr)
+        tot += lp
+        tot_frames += len(a)
+        if out is not None:
+            out.write(k, np.asarray(m, np.float32))
+    if out is not None:
+        out.close()
+    print(f"matrix-logprob: total logprob/frame "
+          f"{tot / max(tot_frames, 1):.4f} over {tot_frames} frames",
+          file=sys.stderr)
+
+
+def cmd_copy_int_vector_vector(args):
+    """Ragged int-vector-vector archives, text format with ';'
+    separators (ref: bin/copy-int-vector-vector.cc, the Kaldi text
+    format for vector<vector<int32>>)."""
+    n = 0
+    src = args.rspecifier
+    path = src.split(":", 1)[1] if ":" in src else src
+    dst = args.wspecifier
+    dpath = dst.split(":", 1)[1] if ":" in dst else dst
+    with open(path) as f, open(dpath, "w") as g:
+        for line in f:
+            if line.strip():
+                g.write(line if line.endswith("\n") else line + "\n")
+                n += 1
+    print(f"copy-int-vector-vector: {n} items", file=sys.stderr)
+
+
+# --------------------------------------------------------- VAD / features
+
+def cmd_create_split_from_vad(args):
+    """Voiced-run segments from per-frame VAD decisions, each at most
+    max-voiced frames: lines '<dst-utt> <src-utt> <first> <last>'
+    (ref: ivectorbin/create-split-from-vad.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    n_segs = 0
+    with open(args.segments_out, "w") as out:
+        for utt, vad in open_rspecifier(args.vad_rspecifier):
+            voiced = np.flatnonzero(np.asarray(vad).reshape(-1) > 0.5)
+            if voiced.size == 0:
+                continue
+            n_chunks = int(np.ceil(voiced.size / args.max_voiced))
+            for c in range(n_chunks):
+                chunk = voiced[c * args.max_voiced:
+                               (c + 1) * args.max_voiced]
+                out.write(f"{utt}-{c:04d} {utt} {chunk[0]} "
+                          f"{chunk[-1]}\n")
+                n_segs += 1
+    print(f"create-split-from-vad: {n_segs} segments", file=sys.stderr)
+
+
+def cmd_compute_cmvn_stats_two_channel(args):
+    """CMVN stats for two-channel (telephone) data: per frame the louder
+    channel (first coefficient) gets weight 1, the quieter one
+    quieter-channel-weight (ref:
+    featbin/compute-cmvn-stats-two-channel.cc). reco2file_and_channel
+    lines: <utt> <file> <A|B>."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, open_wspecifier
+    pairs: dict = {}
+    with open(args.reco2file_and_channel) as f:
+        for line in f:
+            toks = line.split()
+            if len(toks) >= 3:
+                pairs.setdefault(toks[1], {})[toks[2]] = toks[0]
+    feats = {k: np.asarray(v, np.float64)
+             for (k, v) in open_rspecifier(args.rspecifier)}
+    n = 0
+    with open_wspecifier(args.wspecifier) as out:
+        for fname, chans in sorted(pairs.items()):
+            utts = sorted(chans.items())
+            if len(utts) != 2:
+                # single-channel recording: plain CMVN stats
+                for _c, utt in utts:
+                    if utt not in feats:
+                        continue
+                    x = feats[utt]
+                    out.write(utt, _cmvn_stats(x, np.ones(len(x))))
+                    n += 1
+                continue
+            (_c1, u1), (_c2, u2) = utts
+            if u1 not in feats or u2 not in feats:
+                continue
+            x1, x2 = feats[u1], feats[u2]
+            T = min(len(x1), len(x2))
+            louder1 = x1[:T, 0] > x2[:T, 0]
+            w1 = np.where(louder1, 1.0, args.quieter_channel_weight)
+            w2 = np.where(louder1, args.quieter_channel_weight, 1.0)
+            out.write(u1, _cmvn_stats(x1[:T], w1))
+            out.write(u2, _cmvn_stats(x2[:T], w2))
+            n += 2
+    print(f"compute-cmvn-stats-two-channel: {n} utts", file=sys.stderr)
+
+
+def _cmvn_stats(x, w):
+    """Weighted CMVN stats in the standard [2, D+1] layout."""
+    D = x.shape[1]
+    st = np.zeros((2, D + 1))
+    st[0, :D] = (w[:, None] * x).sum(axis=0)
+    st[0, D] = w.sum()
+    st[1, :D] = (w[:, None] * x * x).sum(axis=0)
+    return st.astype(np.float32)
+
+
+# --------------------------------------------------------- device probes
+
+def cmd_cuda_compiled(args):
+    """Exit 0 iff this torch was built with CUDA
+    (ref: bin/cuda-compiled.cc)."""
+    import torch
+    print(f"cuda-compiled: torch {torch.__version__} CUDA "
+          f"{torch.version.cuda}", file=sys.stderr)
+    raise SystemExit(0 if torch.version.cuda else 1)
+
+
+def cmd_cuda_gpu_available(args):
+    """Exit 0 iff a tensor can be made on cuda:0 right now
+    (ref: nnet2bin/cuda-gpu-available.cc)."""
+    import torch
+    try:
+        x = torch.zeros(1, device="cuda:0")
+        torch.cuda.synchronize()
+        print(f"cuda-gpu-available: {x.device} "
+              f"{torch.cuda.get_device_name(0)}", file=sys.stderr)
+    except Exception as e:  # noqa: BLE001 — probe must not crash
+        print(f"cuda-gpu-available: probe failed: {e}", file=sys.stderr)
+        raise SystemExit(1)
+    raise SystemExit(0)
+
+
+# ------------------------------------------------------------ registration
+
+def register(sub):
+    def add(name, func, *arg_specs):
+        q = sub.add_parser(name)
+        for (a_args, a_kw) in arg_specs:
+            q.add_argument(*a_args, **a_kw)
+        q.set_defaults(func=func)
+
+    def a(*args, **kw):
+        return (args, kw)
+
+    add("dot-weights", cmd_dot_weights,
+        a("rspecifier1"), a("rspecifier2"), a("wspecifier"))
+    add("reverse-weights", cmd_reverse_weights,
+        a("rspecifier"), a("wspecifier"),
+        a("--reverse", type=lambda s: s != "false", default=True))
+    add("duplicate-matrix", cmd_duplicate_matrix,
+        a("rspecifier"), a("wspecifiers", nargs="+"))
+    add("matrix-logprob", cmd_matrix_logprob,
+        a("rspecifier"), a("ali_rspecifier"),
+        a("wspecifier", nargs="?", default=""))
+    add("copy-int-vector-vector", cmd_copy_int_vector_vector,
+        a("rspecifier"), a("wspecifier"))
+    add("create-split-from-vad", cmd_create_split_from_vad,
+        a("vad_rspecifier"), a("segments_out"),
+        a("--max-voiced", type=int, default=9000))
+    add("compute-cmvn-stats-two-channel",
+        cmd_compute_cmvn_stats_two_channel,
+        a("reco2file_and_channel"), a("rspecifier"), a("wspecifier"),
+        a("--quieter-channel-weight", type=float, default=0.01))
+    add("cuda-compiled", cmd_cuda_compiled)
+    add("cuda-gpu-available", cmd_cuda_gpu_available)

@@ -885,3 +885,22 @@ def test_decode_batched_card_equals_cpu_and_single(card):
 def test_simple_decode_equals_csr_on_the_card(card, seed):
     import chip_smoke as cs
     assert cs.simple_vs_csr(seed=seed)["cost_gap"] <= 1e-4
+
+
+# --- the CLI's first slice (phase 35's helpers) ---
+
+def test_cli_subcommands_card_equal_cpu(card, tmp_path):
+    """Every case of chip_smoke.CLI_CASES with the default device (the
+    card) and with --device cpu: host files byte-equal, device results
+    within their parity bound."""
+    import chip_smoke as cs
+    assert len(cs.cli_card_vs_cpu(str(tmp_path))) == len(cs.CLI_CASES)
+
+
+def test_cli_training_and_decoding_card_vs_cpu(card, tmp_path):
+    """recipe-yesno-files at WER 0 on the card and the CPU, the decoding
+    commands identical, --fused == generic, train-nnet3's round trip, the
+    card probes exit 0."""
+    import chip_smoke as cs
+    tr = cs.cli_train_card_vs_cpu(str(tmp_path))
+    assert tr["seconds"]["cuda-gpu-available"] >= 0

@@ -792,3 +792,28 @@ def test_check_tier_tables_reads_the_tables_where_they_are():
                          device="cpu")
     assert dec.tabs.srow.device.type == "cpu"
     check_tier_tables(dec.graph, dec.tabs, dec.opts.hub_threshold)
+
+
+def _cli_device_commands():
+    from kaldi_tpu_torch import cli
+    return sorted(cli.DEVICE_COMMANDS + ("nnet-am-compute",))
+
+
+@pytest.mark.parametrize("name", _cli_device_commands())
+def test_cli_device_command_defaults_to_cuda_and_raises_without_a_card(
+        name, tmp_path):
+    """Each subcommand of the CLI that builds a device object takes
+    `--device`, default "cuda"; with no card that default raises before
+    the command reads or writes a file."""
+    from kaldi_tpu_torch import cli
+    from test_torch_cli_surface import _parsers
+    parser = _parsers("kaldi_tpu_torch.cli")[name]
+    dev = [a for a in parser._actions if a.dest == "device"]
+    assert len(dev) == 1 and dev[0].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default builds there")
+    argv = [name] + [str(tmp_path / a.dest) for a in parser._actions
+                     if not a.option_strings]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(argv)
+    assert not list(tmp_path.iterdir())

@@ -8,7 +8,9 @@ record decode and its lattices (native and numpy), two train steps of a
 tiny TDNN with clipping, momentum and NG-SGD, the online path (MFCC
 and deltas, the padded decoder, both fused engines, the nnet2 decoder
 with i-vectors), the dense decoder on the yesno HCLG, the port's
-`recipe-yesno` (the GMM path end to end), and a small triphone run
+`recipe-yesno` (the GMM path end to end), its `recipe-yesno-files` (the
+CLI's first slice over files) and one subcommand of each other group of
+that slice, and a small triphone run
 (train_deltas from a monophone, its HCLG through the flat pipeline on the
 port's native graph ops, a decode) and two bMMI and two fMMI iterations
 from that triphone model run on the CPU; then two NG-SGD steps of a tiny
@@ -125,7 +127,8 @@ for n in ("kaldi_tpu_torch.cuda_build", "kaldi_tpu_torch.nnet.quantized",
           "kaldi_tpu_torch.online.server", "kaldi_tpu_torch.online.threaded",
           "kaldi_tpu_torch.online.compress",
           "kaldi_tpu_torch.online.gmm_decoding",
-          "kaldi_tpu_torch.cli_online_extra",
+          "kaldi_tpu_torch.cli_online_extra", "kaldi_tpu_torch.cli_misc",
+          "kaldi_tpu_torch.cli_nnet",
           "kaldi_tpu_torch.fst.text_io", "kaldi_tpu_torch.fst.special",
           "kaldi_tpu_torch.fst.factor", "kaldi_tpu_torch.hmm.hmm_utils",
           "kaldi_tpu_torch.tree.synth", "kaldi_tpu_torch.decoder.simple",
@@ -233,6 +236,25 @@ d = make_decoder(yes, device="cpu")
 assert d.opts == DenseDecoderOpts(eps_expansions=1), d.opts
 assert all(r is not None for r in d.decode(llg, np.array([30, 20])))
 assert cli.main(["recipe-yesno", "--device", "cpu"]) == 0
+import contextlib, io, tempfile
+with tempfile.TemporaryDirectory() as w, \
+        contextlib.redirect_stdout(io.StringIO()):
+    # features, training, graph and decoding through files (CLI slice 1)
+    assert cli.main(["recipe-yesno-files", w, "--device", "cpu"]) == 0
+    for argv in (
+            ["copy-feats", f"ark:{w}/test/feats.ark", f"ark:{w}/c.ark",
+             "--compress"],                                   # tables
+            ["matrix-sum", f"ark:{w}/s.ark", f"ark:{w}/test/mfcc.ark",
+             f"ark:{w}/test/mfcc.ark"],                       # matrices
+            ["compute-cmvn-stats", f"ark:{w}/test/mfcc.ark",
+             f"ark:{w}/cmvn.ark"],                            # CMVN
+            ["dot-weights", f"ark:{w}/s.ark", f"ark:{w}/s.ark",
+             f"ark:{w}/d.ark"],                               # cli_misc
+            ["nnet-am-compute", f"{w}/tdnn.npz", f"ark:{w}/test/feats.ark",
+             f"ark:{w}/ll.ark", "--device", "cpu"],           # cli_nnet
+            ["split-scp", f"{w}/test/wav.scp", "2", f"{w}/JOB.scp"],
+            ["info"]):                                        # data, probes
+        assert cli.main(argv) == 0, argv
 from kaldi_tpu_torch.decoder.graph_pack import pack_graphs
 from kaldi_tpu_torch.fst.graph import TrainingGraphCompiler
 from kaldi_tpu_torch.fst.mkgraph_flat import make_hclg_flat, pack_graph_flat
