@@ -341,9 +341,13 @@ Phases (any failure raises and the script exits non-zero):
      information); (c) the self-built triphone graph at the full tree
      width (the port's copy of scripts/mkgraph_scale.py's `build`, 2,000
      words), verified and decoded card == CPU on seeded loglikes;
- 35. the CLI's first slice, small: every case of `CLI_CASES` (the slice's
-     feature, CMVN, table, matrix, vector, wave, data-dir and probe
-     subcommands on seeded files) in-process with the default device
+ 35. the CLI's first and second slices, small: every case of `CLI_CASES`
+     (the first slice's feature, CMVN, table, matrix, vector, wave,
+     data-dir and probe subcommands on seeded files; the second's device
+     subcommands on a small yesno GMM system: alignments identical, model
+     files array for array, accumulators within 1e-5, loglikes within
+     1e-5 of their GEMM terms, a full UBM's update within 1e-9,
+     train-deltas by its counts) in-process with the default device
      (the card) and with --device cpu, host files byte-equal and device
      results within their parity tests' bounds; recipe-yesno-files on
      the card and on the CPU, WER 0 on the GMM and the streaming-TDNN
@@ -364,6 +368,24 @@ Phases (any failure raises and the script exits non-zero):
      command's seconds and audio-sec/s, the HCLG file's size, save and
      load seconds, and the word errors against phase 34's Recognizer-path
      words (for information).
+ 37. Kaldi's egs/rm/s5 GMM front half through the CLI's files at the
+     triphone ladder's width (phase 20's corpus as 8 kHz wav files, 2
+     shards): compute-mfcc-feats + add-deltas; train_mono.sh as
+     primitives (gmm-init-mono, align-equal, then gmm-boost-silence,
+     gmm-align, gmm-acc-stats-ali per shard, gmm-sum-accs, gmm-est with a
+     mix-up ramp to 500 gaussians, 14 iterations); train_deltas.sh
+     (acc-tree-stats per shard, sum-tree-stats, cluster-phones,
+     compile-questions, build-tree at 200 leaves, gmm-init-model,
+     convert-ali, 12 iterations to 1,500 gaussians); mkgraph.sh as
+     primitives from arpa2fst to fst-pack-graph beside mkgraph;
+     decode-faster and compute-wer on the 40 test utterances. Mono and
+     tri WER within LADDER_BARS, tri < mono; the shards' sums equal one
+     unsharded accumulation (1e-6); one accumulation at width card vs
+     --device cpu within 1e-5 plus the bound that the gaussian loglikes'
+     difference sets; the primitive graph decodes to mkgraph's
+     words (its states logged beside mkgraph's: the text FSTs round
+     weights to 7 digits); seconds by stage and command kind, file
+     sizes; neither kernel launches (the dense decoder).
 
 Phases 20, 22 (b) and 28 (b) save the inputs of the recipe witnesses
 (chiprun_out/sat_witness.pkl, smbr_witness.pkl, lvtln_witness.pkl; with
@@ -372,10 +394,10 @@ tests/test_torch_<name>_witness.py replays through JAX on a CPU.
 
 Two processes share the card. The phases that take nothing from phase
 20's ladder run in a second one (the script with --side-phases): the
-bench graph's chain (7, 8, 10, 13, 14, 34, 36, 18, 30 a and c), then the
-small card-vs-CPU phases (5, 6, 9, 11, 12, 15, 17, 19, 21, 23, 25, 27,
-29, 31, 33, 35); this one runs 1-4, then 16, 20, 22, 24, 26, 28, 30 b and 32
-beside it, and prints the second's log after phase 32's. Each phase's
+bench graph's chain (7, 8, 10, 13, 14, 34, 36, 18, 30 a and c), 37, then
+the small card-vs-CPU phases (5, 6, 9, 11, 12, 15, 17, 19, 21, 23, 25, 27,
+29, 31, 33); this one runs 1-4, then 16, 20, 22, 24, 26, 28, 30 b, 32 and
+35 beside it, and prints the second's log after phase 35's. Each phase's
 start goes to stderr with the seconds since its process began; a run
 still going at 1000 s dumps every thread's stack there.
 
@@ -441,10 +463,13 @@ SOCKET_TIMEOUT_S = 120
 
 
 # The phases that take nothing from phase 20's ladder (the bench graph's
-# chain, 7-14, 18 and 30 a, c, then these small card-vs-CPU ones) run in a
+# chain, 7-14, 18 and 30 a, c, phase 37, which trains its own models from
+# LADDER's corpus through the CLI, then these small card-vs-CPU ones) run in a
 # second process beside those that do: its stdout in SIDE_LOG (copied to
 # this one's at the end), its launch counts in SIDE_RESULTS, its CPU ops
-# on SIDE_THREADS threads so that the other's host loops keep their cores
+# on SIDE_THREADS threads so that the other's host loops keep their cores.
+# Phase 35, small too, runs in this process after phase 32, which keeps the
+# two processes' times within 30 s of each other
 SMALL_PHASES = (
     (5, "decoder on the card vs on the CPU", "phase_decoder_parity"),
     (6, "int8 decode on the card vs on the CPU", "phase_int8_parity"),
@@ -473,11 +498,7 @@ SMALL_PHASES = (
          "decoders, card vs CPU", "phase_serving_small"),
     (33, "decoder tools and recipe utilities, small: the graph and tier-"
          "table verifiers, decode_batched, simple_decode, device_trace, "
-         "AccuProfiler, card vs CPU", "phase_tools_small"),
-    (35, "the CLI's first slice, small: every subcommand on the card and "
-         "with --device cpu, recipe-yesno-files on the card, --fused vs the "
-         "generic pipeline, train-nnet3's round trip, the card probes",
-     "phase_cli_small"))
+         "AccuProfiler, card vs CPU", "phase_tools_small"))
 SIDE_FLAG = "--side-phases"
 SIDE_LOG = os.path.join(ROOT, "chiprun_out", "side_phases.log")
 SIDE_RESULTS = os.path.join(ROOT, "chiprun_out", "side_phases.json")
@@ -9362,15 +9383,19 @@ def phase_tools_full(tg, sl: dict, tr: dict, card: str) -> dict:
             "pad_share": bt["pad_share"], "rec_words": rec_w[:len(waves)]}
 
 
-# the CLI's first slice (phases 35-36): every subcommand once on the card
-# (the default device) and once with --device cpu, then the bench decode
-# driven through files
+# the CLI's first and second slices (phases 35-37): every device
+# subcommand and the first slice's host ones once on the card (the default
+# device) and once with --device cpu, the bench decode driven through
+# files, and the GMM recipe through files at the ladder's width
 
 CLI_FEAT_TOL = dict(rtol=2e-4, atol=2e-3)   # tests/test_torch_features.py
 CLI_EXACT_TOL = dict(rtol=1e-6, atol=1e-6)  # test_torch_online_features.py
 CLI_SLIDING_TOL = dict(rtol=2e-5, atol=2e-5)    # its sliding-CMVN cases
 CLI_NNET_TOL = dict(rtol=1e-5, atol=1e-5)   # tests/test_torch_am_nnet.py
 CLI_PITCH_REL = 1e-6         # of each column's scale (test_torch_pitch_signal)
+CLI_ACC_REL = 1e-5           # GMM accumulators: of each array's largest value
+CLI_LL_REL = 1e-5            # GMM loglikes: of their GEMM terms (phases 17-20)
+CLI_EIGH_REL = 1e-9          # a full-covariance update's eigenvalue floor
 CLI_SR = "8000"
 
 
@@ -9456,7 +9481,58 @@ def cli_inputs(d: str):
             ("ref", "u0 a b c\nu1 d e\n"), ("hyp", "u0 a x c\nu1 d e f\n")):
         with open(P(name), "w") as f:
             f.write(text)
+    cli_gmm_inputs(lambda *n: P("gmm", *n), rng)
     return P
+
+
+def cli_gmm_inputs(G, rng) -> None:
+    """The second slice's device commands' inputs under G(name): 8 yesno
+    utterances of MFCC + deltas, a monophone trained on them, its
+    alignments, posteriors (plain and signed), loglikes, tree statistics,
+    a 20-leaf tree, a full-covariance UBM and its statistics, all made
+    through the CLI on the CPU."""
+    from kaldi_tpu_torch.io.wave import write_wave
+    os.makedirs(G(), exist_ok=True)
+    texts = []
+    with open(G("wav.scp"), "w") as f:
+        for i in range(8):
+            ws = [str(rng.choice(["YES", "NO"]))
+                  for _ in range(rng.randint(2, 5))]
+            write_wave(G(f"y{i}.wav"), yesno_synth(ws, rng), GMM_SR)
+            f.write(f"y{i} {G(f'y{i}.wav')}\n")
+            texts.append(f"y{i} {' '.join(ws)}\n")
+    for name, text in (("text", "".join(texts)),
+                       ("lexicon.txt", YESNO_LEXICON + "\n")):
+        with open(G(name), "w") as f:
+            f.write(text)
+    feats, ali = f"ark:{G('feats.ark')}", f"ark:{G('ali.ark')}"
+    cpu = ["--device", "cpu"]
+    for argv in (
+            ["compute-mfcc-feats", G("wav.scp"), f"ark:{G('mfcc.ark')}",
+             "--sample-frequency", CLI_SR, "--dither", "0", *cpu],
+            ["add-deltas", f"ark:{G('mfcc.ark')}", feats, *cpu],
+            ["train-mono", G("lexicon.txt"), G("text"), feats,
+             G("mono.npz"), "--num-iters", "6", "--totgauss", "30", *cpu],
+            ["gmm-align", G("mono.npz"), G("text"), feats, ali, *cpu],
+            ["ali-to-post", ali, G("post.txt")],
+            ["gmm-compute-likes", G("mono.npz"), feats,
+             f"ark:{G('likes.ark')}", *cpu],
+            ["acc-tree-stats", G("mono.npz"), feats, ali, G("ts.npz")],
+            ["build-tree", G("mono.npz"), G("ts.npz"), G("tree.npz"),
+             "--max-leaves", "20"],
+            ["gmm-acc-stats-ali", G("mono.npz"), feats, ali, G("acc.npz"),
+             *cpu],
+            ["init-ubm", G("mono.npz"), G("acc.npz"), G("fubm.npz"),
+             "--ubm-num-gauss", "4"],
+            ["gmm-global-acc-stats", G("fubm.npz"), feats, G("facc.npz")]):
+        _cli_ok(argv[0], cli_call(argv))
+    with open(G("post.txt")) as f, open(G("signed.txt"), "w") as g:
+        for i, line in enumerate(f):
+            toks = line.split()
+            if i % 2:       # every other utterance a denominator
+                toks = [t if k % 2 == 0 or t in "[]" else
+                        f"{-0.5 * float(t):.6g}" for k, t in enumerate(toks)]
+            g.write(" ".join(toks) + "\n")
 
 
 def _ark(P, n):
@@ -9623,6 +9699,48 @@ CLI_CASES = [
     ("compute-wer", lambda P, O: ["compute-wer", P("ref"), P("hyp")],
      "bytes", None),
     ("info", lambda P, O: ["info"], "bytes", None),
+    # the second slice's device commands on cli_gmm_inputs' yesno system:
+    # alignments identical; model files ("npz") array for array; the
+    # accumulators ("accs") within CLI_ACC_REL of each array's largest
+    # magnitude plus the bound that the gaussian loglikes' difference sets
+    # (`accs_posterior_bound`); loglikes ("gmm") within CLI_LL_REL of their
+    # GEMM terms; a
+    # full UBM's eigenvalue floor ("eigh") within CLI_EIGH_REL; training
+    # ("outcome") by its pdf and gaussian counts
+    *[(n, lambda P, O, n=n: [n, P("gmm", "mono.npz"), P("gmm", "text"),
+                             _ark(P, "gmm/feats.ark"), f"ark:{O}/a.ark"],
+       "bytes", None) for n in ("align-equal", "align-equal-compiled")],
+    *[(n, lambda P, O, n=n: [n, P("gmm", "mono.npz"), P("gmm", "text"),
+                             _ark(P, "gmm/likes.ark"), f"ark:{O}/a.ark"],
+       "bytes", None) for n in ("align-mapped", "align-compiled-mapped")],
+    ("gmm-init-mono", lambda P, O: [
+        "gmm-init-mono", P("gmm", "lexicon.txt"), _ark(P, "gmm/feats.ark"),
+        f"{O}/m.npz"], "npz", None),
+    ("gmm-init-model", lambda P, O: [
+        "gmm-init-model", P("gmm", "mono.npz"), P("gmm", "tree.npz"),
+        P("gmm", "ts.npz"), f"{O}/m.npz"], "npz", None),
+    ("gmm-init-model-flat", lambda P, O: [
+        "gmm-init-model-flat", P("gmm", "mono.npz"), P("gmm", "tree.npz"),
+        f"{O}/m.npz", _ark(P, "gmm/feats.ark")], "npz", None),
+    ("gmm-acc-stats-ali", lambda P, O: [
+        "gmm-acc-stats-ali", P("gmm", "mono.npz"), _ark(P, "gmm/feats.ark"),
+        _ark(P, "gmm/ali.ark"), f"{O}/a.npz"], "accs", None),
+    ("gmm-acc-stats", lambda P, O: [
+        "gmm-acc-stats", P("gmm", "mono.npz"), _ark(P, "gmm/feats.ark"),
+        P("gmm", "post.txt"), f"{O}/a.npz"], "accs", None),
+    ("gmm-acc-stats2", lambda P, O: [
+        "gmm-acc-stats2", P("gmm", "mono.npz"), _ark(P, "gmm/feats.ark"),
+        P("gmm", "signed.txt"), f"{O}/n.npz", f"{O}/d.npz"], "accs", None),
+    ("gmm-compute-likes", lambda P, O: [
+        "gmm-compute-likes", P("gmm", "mono.npz"), _ark(P, "gmm/feats.ark"),
+        f"ark:{O}/l.ark"], "gmm", "l.ark"),
+    ("gmm-global-est", lambda P, O: [
+        "gmm-global-est", P("gmm", "fubm.npz"), P("gmm", "facc.npz"),
+        f"{O}/u.npz", "--min-gaussian-occupancy", "1"], "eigh", None),
+    ("train-deltas", lambda P, O: [
+        "train-deltas", P("gmm", "mono.npz"), P("gmm", "text"),
+        _ark(P, "gmm/feats.ark"), f"{O}/m.npz", "--num-leaves", "20",
+        "--totgauss", "60", "--num-iters", "4"], "outcome", "m.npz"),
 ]
 
 
@@ -9701,13 +9819,15 @@ def cli_fft_bounds(P, kind: str) -> dict:
 
 def _cli_close(kind: str, g, w, fft=None) -> float:
     """-> the worst |g - w|; raises past the kind's bound (plus the FFT's
-    error bound `fft` where given)."""
+    error bound `fft` where given; for "gmm" `fft` is the bound)."""
     g64, w64 = np.asarray(g, np.float64), np.asarray(w, np.float64)
     diff = np.abs(g64 - w64)
     if kind == "pitch":
         bound = CLI_PITCH_REL * np.maximum(np.abs(w64).max(axis=0), 1e-30)
     elif kind == "wav":
         bound = np.ones_like(w64)          # one int16 step
+    elif kind == "gmm":
+        bound = fft
     else:
         tol = {"feat": CLI_FEAT_TOL, "exact": CLI_EXACT_TOL,
                "sliding": CLI_SLIDING_TOL, "nnet": CLI_NNET_TOL}[kind]
@@ -9748,6 +9868,20 @@ def cli_compare(kind: str, dirs: dict, out: dict, name: str,
         if gs != ws or g.shape != w.shape:
             raise AssertionError(f"{name}: wave header differs")
         return _cli_close(kind, g, w)
+    if kind == "outcome":
+        (g, w) = (np.load(os.path.join(d, ark)) for d in (dc, dp))
+        if [int(g["num_pdfs"]), _num_gauss(g)] != \
+                [int(w["num_pdfs"]), _num_gauss(w)]:
+            raise AssertionError(f"{name}: pdf or gaussian counts differ")
+        return 0.0
+    if kind in ("npz", "accs", "eigh"):
+        if _cli_files(dc) != _cli_files(dp) or out["card"][0] != \
+                out["cpu"][0]:
+            raise AssertionError(f"{name}: different files or output")
+        rel = {"npz": 0.0, "accs": CLI_ACC_REL, "eigh": CLI_EIGH_REL}[kind]
+        return max(npz_rel(os.path.join(dc, f), os.path.join(dp, f), rel,
+                           name, (fft or {}).get(f))
+                   for f in _cli_files(dc))
     got = list(read_ark(os.path.join(dc, ark)))
     want = list(read_ark(os.path.join(dp, ark)))
     if [k for k, _ in got] != [k for k, _ in want] or not want:
@@ -9759,6 +9893,138 @@ def cli_compare(kind: str, dirs: dict, out: dict, name: str,
         worst = max(worst, _cli_close(kind, g, w,
                                       None if fft is None else fft[k]))
     return worst
+
+
+def _num_gauss(z) -> int:
+    """A GMM system file's gaussian count."""
+    return sum(z[f"pdf{i}_weights"].shape[0]
+               for i in range(int(z["num_pdfs"])))
+
+
+def npz_rel(a: str, b: str, rel: float, name: str,
+            bound: dict | None = None) -> float:
+    """Two `.npz` files of one command: the same members, integer arrays
+    and pickled host payloads (`host_equal`) equal, every float array
+    within `rel` of its largest finite magnitude (its infinities equal)
+    plus, for a member in `bound`, that array of elementwise bounds. ->
+    the worst difference over the largest magnitude."""
+    from kaldi_tpu_torch.io.model_io import _loads
+    za, zb = np.load(a), np.load(b)
+    if sorted(za.files) != sorted(zb.files):
+        raise AssertionError(f"{name}: {os.path.basename(a)} members differ")
+    worst = 0.0
+    for k in za.files:
+        x, y = za[k], zb[k]
+        why = ""
+        if k == "__host__":
+            ok = host_equal(_loads(x.tobytes()), _loads(y.tobytes()))
+        elif x.dtype != y.dtype or x.shape != y.shape:
+            ok = False
+        elif x.dtype.kind != "f":
+            ok = np.array_equal(x, y)
+        else:
+            fin = np.isfinite(y)
+            scale = max(float(np.abs(y[fin]).max(initial=0.0)), 1e-300)
+            diff = np.abs(x[fin].astype(np.float64) - y[fin])
+            allowed = rel * scale + (np.asarray(bound[k])[fin]
+                                     if bound and k in bound else 0.0)
+            worst = max(worst, float(diff.max(initial=0.0)) / scale)
+            ok = bool((diff <= allowed).all()) and np.array_equal(
+                x[~fin], y[~fin])
+            allowed = np.broadcast_to(allowed, diff.shape)
+            if diff.size and not ok:
+                at = int(np.argmax(diff - allowed))
+                why = (f": {diff.flat[at]:.3e} against "
+                       f"{allowed.flat[at]:.3e} allowed, "
+                       f"{float(diff.max()) / scale:.3e} of the largest "
+                       f"value {scale:.3e}")
+        if not ok:
+            raise AssertionError(f"{name}: {os.path.basename(a)}[{k}] "
+                                 f"differs (limit {rel}){why}")
+    return worst
+
+
+def accs_posterior_bound(model: str, feats: dict, entries: dict,
+                         card: str) -> dict:
+    """The bound that the gaussian loglikes' card-vs-CPU difference sets on
+    GMM accumulators (`posterior_bound` per utterance, as the ladder's and
+    the adaptation phases hold posterior-fed statistics): `entries` {utt:
+    (frames [N], pdfs [N], weights [N])}, the (frame, pdf, weight) triples
+    accumulated -> {accumulator file member: bound array} for each pdf's
+    occupancies, first and second moments."""
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    am_cpu = load_gmm_system(model, device="cpu").am
+    am_card = load_gmm_system(model, device=card).am
+    seg = am_cpu.pack()[1]
+    occ = np.zeros(len(seg))
+    m1 = np.zeros((len(seg), am_cpu.dim))
+    m2 = np.zeros_like(m1)
+    for utt, (frames, pdfs, w) in entries.items():
+        x = np.asarray(feats[utt], np.float32)[frames]
+        b = posterior_bound(am_cpu, am_card, x, pdfs)["bound"] \
+            * np.abs(np.asarray(w, np.float64))[:, None]
+        xa = np.abs(x.astype(np.float64))
+        occ += b.sum(axis=0)
+        m1 += b.T @ xa
+        m2 += b.T @ (xa * xa)
+    out = {}
+    for j in range(am_cpu.num_pdfs):
+        g = seg == j
+        out.update({f"acc{j}_occ": occ[g], f"acc{j}_mean": m1[g],
+                    f"acc{j}_var": m2[g]})
+    return out
+
+
+def _ali_entries(rspecifier: str, tm) -> dict:
+    """An alignment archive's (frame, pdf, weight 1) triples per
+    utterance."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    return {u: (np.arange(len(a)), tm.id2pdf_array[a], np.ones(len(a)))
+            for u, a in open_rspecifier(rspecifier)}
+
+
+def _post_entries(path: str, tm, sign: int = 0) -> dict:
+    """A text posterior file's (frame, pdf, weight) triples per utterance;
+    with sign 1 or -1 only the weights of that sign, as their magnitude
+    (gmm-acc-stats2's numerator and denominator)."""
+    from kaldi_tpu_torch.hmm.posterior import read_post_ark
+    out = {}
+    for utt, post in read_post_ark(path):
+        rows = [(t, tm.transition_id_to_pdf(int(tid)), abs(w))
+                for t, frame in enumerate(post) for tid, w in frame
+                if sign == 0 or w * sign > 0]
+        if rows:
+            out[utt] = tuple(np.array(c) for c in zip(*rows))
+    return out
+
+
+def cli_acc_bounds(P, name: str, card: str) -> dict:
+    """{output file: accs_posterior_bound} of CLI_CASES' accumulating
+    cases on cli_gmm_inputs' model, features and alignments."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    model = P("gmm", "mono.npz")
+    tm = load_gmm_system(model, device="cpu").trans_model
+    feats = dict(open_rspecifier(f"ark:{P('gmm', 'feats.ark')}"))
+    if name == "gmm-acc-stats-ali":
+        files = {"a.npz": _ali_entries(f"ark:{P('gmm', 'ali.ark')}", tm)}
+    elif name == "gmm-acc-stats":
+        files = {"a.npz": _post_entries(P("gmm", "post.txt"), tm)}
+    else:
+        files = {f: _post_entries(P("gmm", "signed.txt"), tm, s)
+                 for f, s in (("n.npz", 1), ("d.npz", -1))}
+    return {f: accs_posterior_bound(model, feats, e, card)
+            for f, e in files.items()}
+
+
+def cli_gmm_bounds(P) -> dict:
+    """{utt: CLI_LL_REL of each loglike's GEMM terms} for
+    gmm-compute-likes on cli_gmm_inputs' model and features."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    am = load_gmm_system(P("gmm", "mono.npz"), device="cpu").am
+    return {k: CLI_LL_REL * gmm_term_scale(am, v)
+            for k, v in open_rspecifier(f"ark:{P('gmm', 'feats.ark')}")}
 
 
 def _cli_sides(card: str, device: bool) -> dict:
@@ -9792,6 +10058,10 @@ def cli_card_vs_cpu(root: str, card: str = "cuda") -> dict:
         fft = None
         if kind in ("spec", "fbank", "mfcc"):
             fft, kind = cli_fft_bounds(P, kind), "feat"
+        elif kind == "gmm":
+            fft = cli_gmm_bounds(P)
+        elif kind == "accs":
+            fft = cli_acc_bounds(P, name, card)
         res[name] = (out["card"][2],
                      cli_compare(kind, dirs, out, name, ark, fft))
     return res
@@ -9965,9 +10235,10 @@ def build_scratch() -> str:
 
 
 def phase_cli_small() -> None:
-    """Phase 35: every subcommand of the CLI's first slice on small inputs
-    on the card and with --device cpu (host files byte-equal, device
-    results within their parity bound), the file-driven yesno recipe on
+    """Phase 35: every device subcommand of the CLI's first two slices and
+    the first slice's host ones on small inputs on the card and with
+    --device cpu (host files byte-equal, device results within their
+    parity bound), the file-driven yesno recipe on
     the card, --fused against the generic pipeline, train-nnet3's round
     trip and the card probes; qaffine must not launch."""
     import shutil
@@ -10139,6 +10410,340 @@ def phase_cli_bench(tg, sl: dict, tr: dict, tl: dict, card: str) -> dict:
                 "shape": list(sh), "ms": t[0], "plain_ms": t[1],
                 "library_ms": t[2], "bound_ms": gather_bound_ms(*sh)}
                 for sh, t in g_times.items()]}
+
+
+# phase 37: Kaldi's egs/rm/s5 GMM front half (steps/train_mono.sh ->
+# steps/train_deltas.sh -> utils/mkgraph.sh -> decode) through the port's
+# CLI over files, at the triphone ladder's width: LADDER's corpus,
+# LADDER_MONO's and LADDER_TRI's options, nj = 2 shards
+LADDER_CLI_SHARDS = 2
+LADDER_CLI_BOOST = "1.25"          # steps/train_mono.sh's --boost-silence
+LADDER_CLI_EST = ["--min-gaussian-occupancy", "3", "--power", "0.25"]
+LADDER_CLI_DECODE = ["--beam", "14", "--max-active", "1024",
+                     "--acoustic-scale", "0.1"]
+LADDER_CLI_KIND = {
+    "compute-mfcc-feats": "feature", "add-deltas": "feature",
+    "align-equal": "align", "gmm-align": "align", "convert-ali": "align",
+    "gmm-acc-stats-ali": "accumulate", "gmm-sum-accs": "accumulate",
+    "gmm-init-mono": "estimate", "gmm-boost-silence": "estimate",
+    "gmm-est": "estimate", "acc-tree-stats": "tree",
+    "sum-tree-stats": "tree", "cluster-phones": "tree",
+    "compile-questions": "tree", "build-tree": "tree",
+    "gmm-init-model": "tree", "mkgraph": "graph", "arpa2fst": "graph",
+    "fsttablecompose": "graph", "fstdeterminizestar": "graph",
+    "fstminimizeencoded": "graph", "fstcomposecontext": "graph",
+    "make-h-transducer": "graph", "fstrmsymbols": "graph",
+    "fstrmepslocal": "graph", "add-self-loops": "graph",
+    "fst-pack-graph": "graph", "decode-faster": "decode",
+    "compute-wer": "decode"}
+
+
+def ladder_cli_files(d: str, corpus: dict) -> dict:
+    """A data dir per set in Kaldi's layout under d (8 kHz wav files,
+    wav.scp, text), the lexicon and the unigram ARPA over the corpus'
+    words (phase 20's LM). -> {"train": (utt ids), "test": (...)}."""
+    from kaldi_tpu_torch.io.wave import write_wave
+    utts = {}
+    for part in ("train", "test"):
+        os.makedirs(os.path.join(d, part), exist_ok=True)
+        with open(os.path.join(d, part, "wav.scp"), "w") as scp, \
+                open(os.path.join(d, part, "text"), "w") as text:
+            for u, wave, ws, _spk in corpus[part]:
+                path = os.path.join(d, part, f"{u}.wav")
+                write_wave(path, wave, GMM_SR)
+                scp.write(f"{u} {path}\n")
+                text.write(f"{u} {' '.join(ws)}\n")
+        utts[part] = sorted(u for u, _w, _ws, _s in corpus[part])
+    V = corpus["words"]
+    with open(os.path.join(d, "lexicon.txt"), "w") as f:
+        f.write(corpus["lex_text"] + "\n")
+    with open(os.path.join(d, "lm.arpa"), "w") as f:
+        f.write("\\data\\\nngram 1=%d\n\n\\1-grams:\n%s\n-99\t<s>\n-1\t</s>"
+                "\n\n\\end\\\n" % (len(V) + 2, "\n".join(
+                    f"-{np.log10(len(V)):.4f}\t{w}" for w in V)))
+    return utts
+
+
+def _tree_stats_rel(a: str, b: str) -> float:
+    """Two tree-statistics files: the same events, the largest difference
+    of any count, sum or sum of squares over its event's largest
+    magnitude."""
+    from kaldi_tpu_torch.io.model_io import load_tree_stats
+    (x, nx, px), (y, ny, py) = load_tree_stats(a), load_tree_stats(b)
+    if (nx, px) != (ny, py) or set(x) != set(y):
+        raise AssertionError(f"{a} vs {b}: events differ")
+    worst = 0.0
+    for ev, s in y.items():
+        for u, v in ((x[ev].count, s.count), (x[ev].x, s.x),
+                     (x[ev].x2, s.x2)):
+            worst = max(worst, float(np.max(np.abs(np.subtract(u, v)))
+                                     / max(np.max(np.abs(v)), 1e-300)))
+    return worst
+
+
+def phase_ladder_cli(card: str) -> dict:
+    """Phase 37: LADDER's corpus through the port's CLI in Kaldi's shape,
+    every file under a temporary directory in build/:
+    compute-mfcc-feats + add-deltas; steps/train_mono.sh as primitives
+    (tests/test_gmmbin_cli.py:84: gmm-init-mono, align-equal, then per
+    iteration gmm-boost-silence, gmm-align, gmm-acc-stats-ali per shard,
+    gmm-sum-accs, gmm-est with a mix-up ramp to LADDER_MONO's gaussians);
+    steps/train_deltas.sh (tests/test_tree_cli.py:21: acc-tree-stats per
+    shard, sum-tree-stats, cluster-phones, compile-questions, build-tree at
+    LADDER_TRI's leaves, gmm-init-model, convert-ali, then EM with
+    LADDER_TRI's realignments and mix-up ramp); utils/mkgraph.sh as
+    primitives (tests/test_graph_primitives_cli.py:21) beside `mkgraph`;
+    decode-faster on the test set and compute-wer. Asserts LADDER_BARS'
+    mono and tri bars and tri < mono; the shards' sums equal one unsharded
+    accumulation (GMM and tree statistics, 1e-6); one accumulation at
+    width with --device cpu within CLI_ACC_REL of the card's plus the
+    bound that the gaussian loglikes' difference sets; the
+    primitive graph decodes every test utterance to mkgraph's words (its
+    states are logged beside mkgraph's: see the note at the graphs' log
+    line);
+    neither kernel launches (make_decoder picks the dense decoder for the
+    triphone graph)."""
+    import shutil
+    from kaldi_tpu_torch.fst.text_io import save_fst
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, write_ark
+    from kaldi_tpu_torch.io.model_io import load_gmm_system, load_hclg
+    from kaldi_tpu_torch.nnet import quantized as q
+    from kaldi_tpu_torch.ops import table_gather as tg
+
+    t0 = time.perf_counter()
+    corpus = ladder_corpus(**LADDER)
+    d = build_scratch()
+    P = lambda *n: os.path.join(d, *n)                       # noqa: E731
+    kinds = dict.fromkeys(("feature", "align", "accumulate", "estimate",
+                           "tree", "graph", "decode"), 0.0)
+    calls = dict.fromkeys(kinds, 0)
+    stages, sizes = {}, {}
+
+    def run(*argv):
+        r = _cli_ok(argv[0], cli_call(list(argv)))
+        kinds[LADDER_CLI_KIND[argv[0]]] += r[2]
+        calls[LADDER_CLI_KIND[argv[0]]] += 1
+        return r[0]
+
+    def model(name):
+        return load_gmm_system(P(name), device="cpu")
+
+    def shards(ali: str):
+        alis = dict(open_rspecifier(f"ark:{P(ali)}"))
+        keys = np.array_split(np.array(utts["train"]), LADDER_CLI_SHARDS)
+        for j, ks in enumerate(keys):
+            write_ark(P(f"{ali}.{j + 1}"), {u: alis[u] for u in ks})
+        return [f"ark:{P(f'{ali}.{j + 1}')}" for j in range(len(keys))]
+
+    def acc_sum(mdl: str, ali: str, out: str):
+        parts = []
+        for j, spec in enumerate(shards(ali)):
+            parts.append(P(f"{out}.{j + 1}"))
+            run("gmm-acc-stats-ali", P(mdl), F, spec, parts[-1])
+        run("gmm-sum-accs", P(out), *parts)
+
+    def mix_up(cur: int, inc: int, it: int, opts: dict) -> int:
+        return min(opts["totgauss"], cur + inc) \
+            if it <= opts["max_iter_inc"] else cur
+
+    def score(mdl: str, graph: str, tag: str):
+        hyp = P(f"hyp_{tag}.txt")
+        run("decode-faster", P(mdl), P(graph), TF, "--transcription-out",
+            hyp, *LADDER_CLI_DECODE)
+        line = run("compute-wer", P("test", "text"), hyp).strip()
+        return float(line.split()[1]), line, _hyp_words(hyp)
+
+    q.launches = tg.launches = 0          # count this phase's path only
+    try:
+        t = time.perf_counter()
+        utts = ladder_cli_files(d, corpus)
+        stages["data"] = time.perf_counter() - t
+        t = time.perf_counter()
+        for part in ("train", "test"):
+            run("compute-mfcc-feats", P(part, "wav.scp"),
+                f"ark:{P(part, 'mfcc.ark')}", "--sample-frequency",
+                str(int(GMM_SR)), "--dither", "0")
+            run("add-deltas", f"ark:{P(part, 'mfcc.ark')}",
+                f"ark:{P(part, 'feats.ark')}")
+        F, TF = f"ark:{P('train', 'feats.ark')}", \
+            f"ark:{P('test', 'feats.ark')}"
+        text = P("train", "text")
+        stages["features"] = time.perf_counter() - t
+        n_frames = sum(v.shape[0] for _k, v in open_rspecifier(F))
+
+        # steps/train_mono.sh
+        t = time.perf_counter()
+        mo = LADDER_MONO
+        run("gmm-init-mono", P("lexicon.txt"), F, P("mono0.npz"))
+        m0 = model("mono0.npz")
+        sil = str(m0.lang.phones["SIL"])
+        cur = m0.am.num_pdfs
+        inc = max(1, (mo["totgauss"] - cur) // mo["max_iter_inc"])
+        checks = {}
+        for it in range(mo["num_iters"]):
+            if it == 0:
+                run("align-equal", P("mono0.npz"), text, F,
+                    f"ark:{P('ali')}")
+                mix = []
+            else:
+                run("gmm-boost-silence", sil, P(f"mono{it}.npz"),
+                    P("malign.npz"), "--boost", LADDER_CLI_BOOST)
+                run("gmm-align", P("malign.npz"), text, F, f"ark:{P('ali')}")
+                cur = mix_up(cur, inc, it, mo)
+                mix = ["--mix-up", str(cur)]
+            acc_sum(f"mono{it}.npz", "ali", "acc.npz")
+            if it == mo["num_iters"] - 1:
+                # one unsharded accumulation on the card and on the CPU
+                run("gmm-acc-stats-ali", P(f"mono{it}.npz"), F,
+                    f"ark:{P('ali')}", P("acc_all.npz"))
+                run("gmm-acc-stats-ali", P(f"mono{it}.npz"), F,
+                    f"ark:{P('ali')}", P("acc_cpu.npz"), "--device", "cpu")
+                checks["mono shards"] = npz_rel(
+                    P("acc.npz"), P("acc_all.npz"), 1e-6, "sharded GMM "
+                    "statistics")
+                checks["card vs cpu"] = npz_rel(
+                    P("acc_all.npz"), P("acc_cpu.npz"), CLI_ACC_REL,
+                    "card vs CPU accumulation", accs_posterior_bound(
+                        P(f"mono{it}.npz"), dict(open_rspecifier(F)),
+                        _ali_entries(f"ark:{P('ali')}",
+                                     model(f"mono{it}.npz").trans_model),
+                        "cuda"))
+            run("gmm-est", P(f"mono{it}.npz"), P("acc.npz"),
+                P(f"mono{it + 1}.npz"), *LADDER_CLI_EST, *mix)
+        mono = f"mono{mo['num_iters']}.npz"
+        run("gmm-align", P(mono), text, F, f"ark:{P('ali')}")
+        stages["mono"] = time.perf_counter() - t
+
+        # steps/train_deltas.sh
+        t = time.perf_counter()
+        to = LADDER_TRI
+        parts = []
+        for j, spec in enumerate(shards("ali")):
+            parts.append(P(f"ts.npz.{j + 1}"))
+            run("acc-tree-stats", P(mono), F, spec, parts[-1])
+        run("sum-tree-stats", P("ts.npz"), *parts)
+        run("acc-tree-stats", P(mono), F, f"ark:{P('ali')}",
+            P("ts_all.npz"))
+        checks["tree shards"] = _tree_stats_rel(P("ts.npz"),
+                                                P("ts_all.npz"))
+        run("cluster-phones", P("ts.npz"), P("questions.txt"))
+        run("compile-questions", P("questions.txt"), P("questions.pkl"))
+        run("build-tree", P(mono), P("ts.npz"), P("tree.npz"),
+            "--questions", P("questions.txt"), "--max-leaves",
+            str(to["num_leaves"]))
+        run("gmm-init-model", P(mono), P("tree.npz"), P("ts.npz"),
+            P("tri0.npz"))
+        run("convert-ali", P(mono), P("tri0.npz"), f"ark:{P('ali')}",
+            f"ark:{P('triali')}")
+        cur = model("tri0.npz").am.num_pdfs
+        leaves = cur
+        inc = max(1, (to["totgauss"] - cur) // to["max_iter_inc"])
+        for it in range(to["num_iters"]):
+            if it in to["realign_iters"]:
+                run("gmm-align", P(f"tri{it}.npz"), text, F,
+                    f"ark:{P('triali')}")
+            acc_sum(f"tri{it}.npz", "triali", "tacc.npz")
+            cur = mix_up(cur, inc, it + 1, to)
+            run("gmm-est", P(f"tri{it}.npz"), P("tacc.npz"),
+                P(f"tri{it + 1}.npz"), *LADDER_CLI_EST, "--mix-up",
+                str(cur))
+        tri = f"tri{to['num_iters']}.npz"
+        stages["tri"] = time.perf_counter() - t
+
+        # utils/mkgraph.sh as primitives, beside mkgraph
+        t = time.perf_counter()
+        run("mkgraph", P(mono), P("lm.arpa"), P("mono_graph.npz"))
+        run("mkgraph", P(tri), P("lm.arpa"), P("mk_graph.npz"))
+        lang = model(tri).lang
+        save_fst(P("L_disambig.txt"), lang.L_disambig)
+        with open(P("phone_disambig.txt"), "w") as f:
+            f.writelines(f"{p}\n" for p in lang.disambig_phone_ids)
+        lang.words.write(P("words.txt"))
+        for argv in (
+                ["arpa2fst", P("lm.arpa"), P("words.txt"), P("G.txt")],
+                ["fsttablecompose", P("L_disambig.txt"), P("G.txt"),
+                 P("LG0.txt")],
+                ["fstdeterminizestar", "--use-log", P("LG0.txt"),
+                 P("LG1.txt")],
+                ["fstminimizeencoded", P("LG1.txt"), P("LG.txt")],
+                ["fstcomposecontext", P("ilabels.json"), P("LG.txt"),
+                 P("CLG.txt"), "--context-size", "3", "--central-position",
+                 "1", "--read-disambig-syms", P("phone_disambig.txt")],
+                ["make-h-transducer", P("ilabels.json"), P(tri), P("Ha.txt"),
+                 "--disambig-syms-out", P("disambig_tid.txt")],
+                ["fsttablecompose", P("Ha.txt"), P("CLG.txt"),
+                 P("HCLGa0.txt")],
+                ["fstdeterminizestar", "--use-log", P("HCLGa0.txt"),
+                 P("HCLGa1.txt")],
+                ["fstrmsymbols", P("disambig_tid.txt"), P("HCLGa1.txt"),
+                 P("HCLGa2.txt")],
+                ["fstrmepslocal", P("HCLGa2.txt"), P("HCLGa3.txt")],
+                ["fstminimizeencoded", P("HCLGa3.txt"), P("HCLGa.txt")],
+                ["add-self-loops", P(tri), P("HCLGa.txt"), P("HCLG.txt"),
+                 "--self-loop-scale", "0.1"],
+                ["fst-pack-graph", P(tri), P("HCLG.txt"), P("graph.npz")]):
+            run(*argv)
+        stages["graph"] = time.perf_counter() - t
+        states = {g: load_hclg(P(g)).num_states
+                  for g in ("graph.npz", "mk_graph.npz", "mono_graph.npz")}
+
+        t = time.perf_counter()
+        w_mono, l_mono, _h = score(mono, "mono_graph.npz", "mono")
+        w_tri, l_tri, h_prim = score(tri, "graph.npz", "tri")
+        _w, _l, h_mk = score(tri, "mk_graph.npz", "tri_mk")
+        stages["decode"] = time.perf_counter() - t
+        gather, qaffine = tg.launches, q.launches
+        for n in ("train/feats.ark", "test/feats.ark", mono, tri,
+                  "acc.npz", "tacc.npz", "ts.npz", "tree.npz", "HCLG.txt",
+                  "graph.npz", "mk_graph.npz"):
+            sizes[n] = os.path.getsize(P(n))
+        mono_g, tri_g = (model(m).am.total_gauss for m in (mono, tri))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    total = time.perf_counter() - t0
+    n_calls = sum(calls.values())
+    log(f"  {len(utts['train'])} training utterances ({n_frames} frames), "
+        f"{len(utts['test'])} test, through {n_calls} CLI calls in "
+        f"{total:.3f} s | card: {card}")
+    log("  seconds by stage: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stages.items()))
+    log("  seconds by command kind (calls): " + ", ".join(
+        f"{k} {v:.3f} ({calls[k]})" for k, v in kinds.items()))
+    log("  file sizes (bytes): " + ", ".join(
+        f"{k} {v}" for k, v in sizes.items()))
+    log(f"  mono: {mono_g} gaussians; {l_mono}")
+    log(f"  tri: {leaves} leaves, {tri_g} gaussians; {l_tri}")
+    # the text FSTs between the primitives carry weights at OpenFst's 7
+    # significant digits (JAX's format, byte for byte), and minimization
+    # merges states whose rounded weights agree: the primitive graph may
+    # have fewer states than mkgraph's in-memory build, and must decode
+    # every test utterance to its words
+    log(f"  graphs: primitives {states['graph.npz']} states, mkgraph "
+        f"{states['mk_graph.npz']} (mono {states['mono_graph.npz']}); "
+        f"the two triphone graphs decode to "
+        f"{'the same' if h_prim == h_mk else 'different'} words")
+    log(f"  shards' sums vs one accumulation: GMM "
+        f"{checks['mono shards']:.3e}, "
+        f"tree statistics {checks['tree shards']:.3e} (limit 1e-6); one "
+        f"accumulation at width, card vs --device cpu: "
+        f"{checks['card vs cpu']:.3e} of each array's largest value "
+        f"(limit {CLI_ACC_REL} plus the posteriors' bound); launches: "
+        f"gather {gather}, qaffine {qaffine}")
+    fails = [msg for msg, ok in (
+        (f"mono WER {w_mono} > {LADDER_BARS['mono']}",
+         w_mono <= LADDER_BARS["mono"]),
+        (f"tri WER {w_tri} > {LADDER_BARS['tri']}",
+         w_tri <= LADDER_BARS["tri"]),
+        (f"tri WER {w_tri} >= mono {w_mono}", w_tri < w_mono),
+        ("sharded tree statistics", checks["tree shards"] <= 1e-6),
+        ("primitive graph's words", h_prim == h_mk),
+        (f"gather launched {gather} times", gather == 0),
+        (f"qaffine launched {qaffine} times", qaffine == 0)) if not ok]
+    if fails:
+        raise AssertionError(f"phase 37: {fails}")
+    return {"wer": {"mono": w_mono, "tri": w_tri}, "stages": stages,
+            "kinds": kinds, "seconds": total, "launches": {
+                "gather": gather, "qaffine": qaffine}}
 
 
 # the recipe witnesses: each saves a phase's own inputs, replayed through
@@ -10356,8 +10961,9 @@ def build_native() -> list[str]:
 
 def side_phases() -> int:
     """The second process (`SIDE_FLAG`): the bench graph's chain (phases
-    7, 8, 10, 13, 14, 34, 36, 18, 30 a and c), then the SMALL_PHASES; the
-    chain's launch counts go to SIDE_RESULTS."""
+    7, 8, 10, 13, 14, 34, 36, 18, 30 a and c), the CLI's GMM recipe at the
+    ladder's width (37), then the SMALL_PHASES; the launch counts go to
+    SIDE_RESULTS."""
     import torch
     from kaldi_tpu_torch.device import card_info, resolve_device
     from kaldi_tpu_torch.nnet import quantized as q
@@ -10366,38 +10972,42 @@ def side_phases() -> int:
     torch.set_num_threads(SIDE_THREADS)
     card = card_info()
     profile = "--profile" in sys.argv[1:]
-    log_phase("[7/36] full-width serving slice (bf16 TDNN)")
+    log_phase("[7/37] full-width serving slice (bf16 TDNN)")
     sl = phase_slice(tg, card, profile=profile)
-    log_phase("[8/36] full-width int8 serving slice")
+    log_phase("[8/37] full-width int8 serving slice")
     s8 = phase_int8_slice(q, tg, sl, card)
-    log_phase("[10/36] streaming server, full width")
+    log_phase("[10/37] streaming server, full width")
     st = phase_stream_full(tg, sl, card, profile=profile)
-    log_phase("[13/36] training, full width: the bench's AM with the port's "
+    log_phase("[13/37] training, full width: the bench's AM with the port's "
               "train step")
     tr = phase_train_full(sl, card, profile=profile)
-    log_phase("[14/36] lattice path, full width (latgen at the bench's "
+    log_phase("[14/37] lattice path, full width (latgen at the bench's "
               "point)")
     lt = phase_lattice_full(tg, sl, tr, card)
-    log_phase("[34/36] decoder tools at the bench graph's width: the "
+    log_phase("[34/37] decoder tools at the bench graph's width: the "
               "verifiers over its tier tables, decode_batched with phase 13's "
               "AM, the self-built triphone graph")
     tl = phase_tools_full(tg, sl, tr, card)
-    log_phase("[36/36] the bench decode through files: compute-fbank-feats "
+    log_phase("[36/37] the bench decode through files: compute-fbank-feats "
               "-> compute-cmvn-stats / apply-cmvn -> nnet-am-compute with "
               "phase 13's AM -> decode-faster-mapped on the bench graph -> "
               "compute-wer")
     cb = phase_cli_bench(tg, sl, tr, tl, card)
-    log_phase("[18/36] GMM path, full width: monophone training, the dense "
+    log_phase("[18/37] GMM path, full width: monophone training, the dense "
               "decoder's serving lines")
     phase_gmm_full(tr, card, profile=profile)
-    log_phase("[30/36] (a, c) rescoring at width: bench.py's 1.13M-n-gram "
+    log_phase("[30/37] (a, c) rescoring at width: bench.py's 1.13M-n-gram "
               "trigram over phase 14's lattices with the truncation audit; "
               "features on the bench's test waves")
     phase_rescore_bench(card, lt)
+    log_phase("[37/37] Kaldi's train_mono.sh -> train_deltas.sh -> "
+              "mkgraph.sh -> decode through the CLI's files at the triphone "
+              "ladder's width")
+    lc = phase_ladder_cli(card)
     for k, what, fn in SMALL_PHASES:
         if k == 31:
             socket.setdefaulttimeout(SOCKET_TIMEOUT_S)
-        log_phase(f"[{k}/36] {what}")
+        log_phase(f"[{k}/37] {what}")
         globals()[fn]()
     with open(SIDE_RESULTS, "w") as f:
         json.dump({"slice": sl["launches"], "int8": s8["launches"],
@@ -10406,7 +11016,8 @@ def side_phases() -> int:
                    "tools": tl["launches"],
                    "tools_graph": tl["graph_launches"],
                    "cli": cb["launches"],
-                   "cli_shapes": cb["gather_times"]}, f)
+                   "cli_shapes": cb["gather_times"],
+                   "ladder_cli": lc["launches"]}, f)
     log(f"the second process's phases in "
         f"{time.perf_counter() - T_START:.1f} s")
     return 0
@@ -10463,7 +11074,7 @@ def main() -> int:
 
     resolve_device("cuda")                # also turns TF32 off
     card = card_info()
-    log_phase(f"[1/36] card: {card} | torch {torch.__version__} CUDA "
+    log_phase(f"[1/37] card: {card} | torch {torch.__version__} CUDA "
               f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
               f"{torch.cuda.device_count()}")
 
@@ -10473,7 +11084,7 @@ def main() -> int:
         native = ex.submit(build_native)
         libs = cuda_build.build()
         native = native.result()
-    log_phase(f"[2/36] build: {len(libs)} kernels (one nvcc each) and "
+    log_phase(f"[2/37] build: {len(libs)} kernels (one nvcc each) and "
               f"{len(native)} g++ libraries, all at once, in "
               f"{time.perf_counter() - t:.3f} s")
     for name, so in libs.items():
@@ -10482,44 +11093,50 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]
         log(f"  {os.path.relpath(so, ROOT)}: {' | '.join(regs)}")
 
-    log_phase("[3/36] table-gather kernel vs plain version")
+    log_phase("[3/37] table-gather kernel vs plain version")
     k = phase_kernel(tg)
-    log_phase("[4/36] qaffine kernel vs plain version")
+    log_phase("[4/37] qaffine kernel vs plain version")
     qk = phase_qaffine(q)
     side = start_side_phases()            # beside the phases below
     try:
-        log_phase("[16/36] online path, full width "
+        log_phase("[16/37] online path, full width "
                   "(scripts/bench_streaming.py's configuration)")
         on = phase_online_full(tg, card, profile="--profile" in sys.argv[1:])
-        log_phase("[20/36] triphone ladder, full width: mono -> tri -> "
+        log_phase("[20/37] triphone ladder, full width: mono -> tri -> "
                   "LDA+MLLT -> TDNN, and SAT")
         ld = phase_ladder_full(card, profile="--profile" in sys.argv[1:])
-        log_phase("[22/36] discriminative path, full width: the rm-like "
+        log_phase("[22/37] discriminative path, full width: the rm-like "
                   "pyramid with bMMI and fMMI, then bMMI and TDNN sMBR on the "
                   "ladder's models")
         dk = phase_disc_full(card, ld, profile="--profile" in sys.argv[1:])
-        log_phase("[24/36] nnet3 and nnet1 families at the ladder's width: "
+        log_phase("[24/37] nnet3 and nnet1 families at the ladder's width: "
                   "nnet3 TDNN and LSTM, the wide LSTM, the DBN")
         nn = phase_nnet_full(card, ld, profile="--profile" in sys.argv[1:])
-        log_phase("[26/36] speaker recognition at sre10's width (2048 "
+        log_phase("[26/37] speaker recognition at sre10's width (2048 "
                   "gaussians, 600-dim i-vectors, 60-dim features): v1 and v2, "
                   "then logistic regression")
         sr = phase_sre_full(card, ld)
-        log_phase("[28/36] adaptation and SGMM2 at the ladder's width: raw, "
+        log_phase("[28/37] adaptation and SGMM2 at the ladder's width: raw, "
                   "basis, regression-tree and global fMLLR, MLLR, LVTLN, "
                   "HLDA; SGMM2 at egs/rm's sgmm2_4a widths, bMMI, SGMM fMLLR")
         ad = phase_adapt_sgmm_full(card, ld)
-        log_phase("[30/36] (b) search at width: the ladder's lattices "
+        log_phase("[30/37] (b) search at width: the ladder's lattices "
                   "through rescoring, scoring, MBR, ctm, KWS and "
                   "decode_biglm")
         rs = phase_rescore_ladder(card, ld)
         socket.setdefaulttimeout(SOCKET_TIMEOUT_S)
-        log_phase("[32/36] network serving at phase 16's configuration: its "
+        log_phase("[32/37] network serving at phase 16's configuration: its "
                   "AM and HCLG through the port's files, the TCP server over "
                   "6 concurrent connections (also through µ-law and ADPCM), "
                   "the threaded decoder, the online GMM decoder over phase "
                   "20's tri, the CLI")
         sv = phase_serving_full(tg, card, on, ld)
+        log_phase("[35/37] the CLI's first and second slices, small: every "
+                  "device subcommand and the first slice's host ones on the "
+                  "card and with --device cpu, recipe-yesno-files on the "
+                  "card, --fused vs the generic pipeline, train-nnet3's "
+                  "round trip, the card probes")
+        phase_cli_small()
         sd = finish_side_phases(side)
     finally:
         if side.poll() is None:
@@ -10540,14 +11157,15 @@ def main() -> int:
         f"ladder decodes), {sv['launches']} on the TCP server's (phase 32's "
         f"6 connections), {sd['tools']} in phase 34's decode_batched and "
         f"{sd['tools_graph']} on its self-built graph, {sd['cli']} in phase "
-        f"36's decode-faster-mapped; qaffine {sd['int8']} "
+        f"36's decode-faster-mapped, {sd['ladder_cli']['gather']} in phase "
+        f"37's CLI recipe; qaffine {sd['int8']} "
         f"on the int8 slice, "
         f"{sr['qaffine_launches']} on the speaker-recognition path's, 0 on "
         f"the adaptation and SGMM path's, on the rescoring path's and on "
         f"the server's, the decoder tools' and the CLI's (phases 27-30 and "
-        f"32-36 assert it)")
+        f"32-36 assert it), {sd['ladder_cli']['qaffine']} in phase 37's")
     faulthandler.cancel_dump_traceback_later()
-    log(f"all 36 phases in {time.perf_counter() - T_START:.1f} s")
+    log(f"all 37 phases in {time.perf_counter() - T_START:.1f} s")
     log(card)
     log(json.dumps({"kernels": [{
         "name": "batched_table_gather", "route": "cuda",
@@ -10586,7 +11204,8 @@ def main() -> int:
         "server_bound_ms": gather_bound_ms(*sv["shape"]),
         "tools_launches": sd["tools"],
         "tools_graph_launches": sd["tools_graph"],
-        "cli_launches": sd["cli"], "cli_shapes": sd["cli_shapes"]}, {
+        "cli_launches": sd["cli"], "cli_shapes": sd["cli_shapes"],
+        "ladder_cli_launches": sd["ladder_cli"]["gather"]}, {
         "name": "qaffine", "route": "cuda",
         "source": "kaldi_tpu_torch/csrc/qaffine.cu",
         "replaces": "kaldi_tpu/nnet/quantized.py:46",
@@ -10601,7 +11220,8 @@ def main() -> int:
         "library_ms": qk["library_ms"],
         "sre_launches": sr["qaffine_launches"],
         "adapt_sgmm_launches": 0, "rescore_launches": 0,
-        "server_launches": 0, "tools_launches": 0, "cli_launches": 0}]}))
+        "server_launches": 0, "tools_launches": 0, "cli_launches": 0,
+        "ladder_cli_launches": sd["ladder_cli"]["qaffine"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,16 +7,21 @@
     python -m kaldi_tpu_torch.cli online-audio-client 127.0.0.1 PORT wav.scp
 
 Ported so far: `recipe-yesno`, the online / onlinebin subcommands of
-kaldi_tpu/cli_online_extra.py (`cli_online_extra.py`) and the first CLI
+kaldi_tpu/cli_online_extra.py (`cli_online_extra.py`); the first CLI
 slice: feature extraction, CMVN, feature tables, matrices, vectors and
 transforms, waves and data-dir utilities, the card probes, monophone /
 TDNN / nnet3 training, alignment, graph building and decoding, and the
-file-driven yesno recipe (`cli_misc.py` and `cli_nnet.py` hold the
-slice's commands that JAX keeps there). Commands read and write the JAX
-package's files: arks through `io/kaldi_io.py`, models through
-`io/model_io.py`. Every command that builds a device object takes
-`--device` (default: cuda) and raises without a card; host commands
-(copies, selections, statistics, numpy arithmetic) write JAX's bytes.
+file-driven yesno recipe; and the second: the FST and graph primitives
+that utils/mkgraph.sh drives, HMM and alignment tools, trees, and the
+GMM and global-GMM primitives of steps/train_mono.sh and
+train_deltas.sh (`cli_misc.py`, `cli_nnet.py`, `cli_fst.py` and
+`cli_gmm_extra.py` hold the commands that JAX keeps there). Commands
+read and write the JAX package's files: arks through `io/kaldi_io.py`,
+models through `io/model_io.py`. Every command that builds a device
+object takes `--device` (default: cuda) and raises without a card; host
+commands (copies, selections, statistics, numpy arithmetic, FSTs, trees,
+the GMM updates and the global GMMs, which JAX scores on the host) write
+JAX's bytes.
 `--config=FILE` expands as util/parse-options.h:44 does.
 """
 
@@ -31,7 +36,8 @@ import time
 import numpy as np
 import torch
 
-from kaldi_tpu_torch import cli_misc, cli_nnet, cli_online_extra
+from kaldi_tpu_torch import (cli_fst, cli_gmm_extra, cli_misc, cli_nnet,
+                             cli_online_extra)
 
 
 def _expand_config_args(argv):
@@ -628,38 +634,18 @@ def cmd_gmm_align(args):
     """Forced alignment: transition-id ark from a model + text + feats
     (ref: gmmbin/gmm-align-compiled.cc); loglikes and Viterbi on the
     device."""
-    from kaldi_tpu_torch.decoder.graph_pack import pack_graphs
     from kaldi_tpu_torch.decoder.viterbi import viterbi_align
-    from kaldi_tpu_torch.fst.graph import TrainingGraphCompiler
-    from kaldi_tpu_torch.io.kaldi_io import open_wspecifier
     from kaldi_tpu_torch.io.model_io import load_gmm_system
     dev = _device(args)
     model = load_gmm_system(args.model, device=dev)
     utts = _load_train_utts(args.text, args.rspecifier)
-    compiler = TrainingGraphCompiler(
-        model.lang, model.trans_model, model.ctx_dep,
-        transition_scale=args.transition_scale,
-        self_loop_scale=args.self_loop_scale)
-    cache: dict = {}
-    graphs = []
-    for (_u, _f, words) in utts:
-        key = tuple(words)
-        if key not in cache:
-            cache[key] = compiler.compile_transcript(list(words))
-        graphs.append(cache[key])
+    batch = _training_graphs(model, [w for (_u, _f, w) in utts],
+                             args.transition_scale, args.self_loop_scale)
     feats, nf = _pad_batch([(u, f) for (u, f, _w) in utts])
-    batch = pack_graphs(graphs, model.trans_model.id2pdf_array)
     results = viterbi_align(batch, model.am.loglikes_np(feats), nf,
                             args.acoustic_scale, device=dev)
-    n_ok = 0
-    with open_wspecifier(args.wspecifier) as out:
-        for b, res in enumerate(results):
-            if res is None:
-                print(f"gmm-align: failed for {utts[b][0]}",
-                      file=sys.stderr)
-                continue
-            out.write(utts[b][0], np.asarray(res[0], np.int32))
-            n_ok += 1
+    n_ok = _write_alignments("gmm-align", args.wspecifier,
+                             [u for (u, _f, _w) in utts], results)
     print(f"gmm-align: aligned {n_ok}/{len(utts)}", file=sys.stderr)
 
 
@@ -1448,18 +1434,1282 @@ def cmd_recipe_yesno(args) -> int:
     return 1 if stats.wer > 0 else 0
 
 
+# ------------------------------------------------ FSTs and graphs (host)
+
+def _fst_unary(transform):
+    """An Fst -> Fst transform as a text-in, text-out subcommand."""
+    def run(args):
+        from kaldi_tpu_torch.fst.text_io import load_fst, save_fst
+        fst = load_fst(args.fst_in,
+                       getattr(args, "isymbols", "") or "",
+                       getattr(args, "osymbols", "") or "")
+        out = transform(fst, args)
+        save_fst(args.fst_out, out)
+        print(f"{out.num_states} states, {out.num_arcs} arcs",
+              file=sys.stderr)
+    return run
+
+
+def _fst_determinize(fst, a):
+    from kaldi_tpu_torch.fst.determinize import determinize_star
+    return determinize_star(fst, use_log=a.use_log)
+
+
+def _fst_rmepsilon(fst, a):
+    from kaldi_tpu_torch.fst.epsilon import rm_epsilon
+    return rm_epsilon(fst, use_log=a.use_log)
+
+
+def _fst_minimize(fst, a):
+    from kaldi_tpu_torch.fst.minimize import minimize_encoded
+    return minimize_encoded(fst)
+
+
+def _fst_push(fst, a):
+    from kaldi_tpu_torch.fst.special import push_special
+    return push_special(fst)
+
+
+def _fst_rmepslocal(fst, a):
+    from kaldi_tpu_torch.fst.epsilon import remove_eps_local
+    remove_eps_local(fst)
+    return fst
+
+
+def _read_int_list(path: str) -> list:
+    with open(path) as f:
+        return [int(t) for t in f.read().split()]
+
+
+def cmd_fst_compose(args):
+    """(ref: fstcompose / fsttablecompose)"""
+    from kaldi_tpu_torch.fst.compose import compose, table_compose
+    from kaldi_tpu_torch.fst.text_io import load_fst, save_fst
+    a = load_fst(args.a)
+    b = load_fst(args.b)
+    a.arcsort(by="olabel")
+    b.arcsort(by="ilabel")
+    out = table_compose(a, b) if args.table else compose(a, b)
+    save_fst(args.fst_out, out)
+    print(f"{out.num_states} states, {out.num_arcs} arcs", file=sys.stderr)
+
+
+def cmd_fst_shortest_path(args):
+    """(ref: fstshortestpath + fstprint of the best path); exits 1 when
+    no path exists."""
+    from kaldi_tpu_torch.fst.text_io import load_fst
+    res = load_fst(args.fst_in).shortest_path()
+    if res is None:
+        print("no path", file=sys.stderr)
+        sys.exit(1)
+    il, ol, cost = res
+    print(" ".join(map(str, il)))
+    print(" ".join(map(str, ol)))
+    print(f"{cost:.6g}")
+
+
+def cmd_fst_info(args):
+    """(ref: fstinfo)"""
+    from kaldi_tpu_torch.fst.text_io import load_fst
+    fst = load_fst(args.fst_in)
+    n_eps = sum(1 for arcs in fst.arcs for (i, _o, _w, _d) in arcs
+                if i == 0)
+    print(json.dumps({
+        "num_states": fst.num_states,
+        "num_arcs": fst.num_arcs,
+        "num_eps_input_arcs": n_eps,
+        "start": fst.start,
+        "num_final_states": len(fst.finals),
+        "input_deterministic": fst.is_deterministic(),
+    }, indent=2))
+
+
+def cmd_arpa2fst(args):
+    """ARPA LM -> G acceptor with #0 backoff inputs, OpenFst text out
+    (ref: bin/arpa2fst.cc + egs utils/format_lm.sh)."""
+    from kaldi_tpu_torch.fst.fst import SymbolTable
+    from kaldi_tpu_torch.fst.text_io import save_fst
+    from kaldi_tpu_torch.lm.arpa import ArpaLm, arpa_to_g
+    words = SymbolTable.read(args.words)
+    with open(args.arpa) as f:
+        lm = ArpaLm.parse(f.read())
+    g = arpa_to_g(lm, words, backoff_symbol=args.backoff_symbol)
+    save_fst(args.fst_out, g)
+    print(f"arpa2fst: order {lm.order}, {g.num_states} states, "
+          f"{g.num_arcs} arcs", file=sys.stderr)
+
+
+def cmd_fst_compose_context(args):
+    """LG -> CLG + ilabel_info file (ref: fstbin/fstcomposecontext.cc;
+    ilabel_info convention fstext/context-fst.h)."""
+    from kaldi_tpu_torch.fst.context import compose_context
+    from kaldi_tpu_torch.fst.text_io import load_fst, save_fst
+    lg = load_fst(args.fst_in)
+    disambig = set()
+    if args.read_disambig_syms:
+        disambig = set(_read_int_list(args.read_disambig_syms))
+    clg, ilabel_info = compose_context(
+        lg, disambig, N=args.context_size, P=args.central_position)
+    with open(args.ilabels_out, "w") as f:
+        json.dump([list(map(int, w)) for w in ilabel_info], f)
+    save_fst(args.fst_out, clg)
+    print(f"fst-compose-context: {clg.num_states} states, "
+          f"{clg.num_arcs} arcs, {len(ilabel_info)} ilabels",
+          file=sys.stderr)
+
+
+def cmd_make_h_transducer(args):
+    """ilabel_info + model (tree, transitions) -> Ha transducer
+    (ref: bin/make-h-transducer.cc)."""
+    from kaldi_tpu_torch.fst.hmm_graph import make_h_transducer
+    from kaldi_tpu_torch.fst.text_io import save_fst
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    model = load_gmm_system(args.model, device="cpu")
+    with open(args.ilabels) as f:
+        ilabel_info = json.load(f)
+    ha, disambig_tids = make_h_transducer(
+        ilabel_info, model.ctx_dep, model.trans_model,
+        transition_scale=args.transition_scale)
+    save_fst(args.fst_out, ha)
+    if args.disambig_syms_out:
+        with open(args.disambig_syms_out, "w") as f:
+            for t in disambig_tids:
+                f.write(f"{t}\n")
+    print(f"make-h-transducer: {ha.num_states} states, {ha.num_arcs} "
+          f"arcs, {len(disambig_tids)} disambig tids", file=sys.stderr)
+
+
+def cmd_add_self_loops(args):
+    """Insert self-loop transition-ids with probability-mass rescaling
+    (ref: bin/add-self-loops.cc, hmm/hmm-utils.cc AddSelfLoops)."""
+    from kaldi_tpu_torch.fst.hmm_graph import add_self_loops
+    from kaldi_tpu_torch.fst.text_io import load_fst, save_fst
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    model = load_gmm_system(args.model, device="cpu")
+    fst = load_fst(args.fst_in)
+    disambig = ()
+    if args.disambig_syms:
+        disambig = tuple(_read_int_list(args.disambig_syms))
+    out = add_self_loops(fst, model.trans_model, disambig,
+                         self_loop_scale=args.self_loop_scale,
+                         reorder=True)
+    save_fst(args.fst_out, out)
+    print(f"add-self-loops: {out.num_states} states, {out.num_arcs} arcs",
+          file=sys.stderr)
+
+
+def cmd_fst_rmsymbols(args):
+    """Replace listed input symbols with epsilon
+    (ref: fstbin/fstrmsymbols.cc)."""
+    from kaldi_tpu_torch.fst.epsilon import remove_symbols
+    from kaldi_tpu_torch.fst.text_io import load_fst, save_fst
+    fst = load_fst(args.fst_in)
+    syms = _read_int_list(args.syms)
+    remove_symbols(fst, syms)
+    save_fst(args.fst_out, fst)
+    print(f"fst-rmsymbols: removed {len(syms)} symbols", file=sys.stderr)
+
+
+def cmd_fst_pack_graph(args):
+    """Pack an HCLG text FST into the decoders' graph file (CSR arc
+    tables + tid->pdf map; ref: the decode path of
+    gmmbin/gmm-latgen-faster.cc reading fst::ReadFstKaldi)."""
+    from kaldi_tpu_torch.decoder.graph_pack import pack_graph
+    from kaldi_tpu_torch.fst.text_io import load_fst
+    from kaldi_tpu_torch.io.model_io import load_gmm_system, save_hclg
+    model = load_gmm_system(args.model, device="cpu")
+    fst = load_fst(args.fst_in)
+    fst.connect()
+    fst.arcsort("ilabel")
+    packed = pack_graph(fst, model.trans_model.id2pdf_array)
+    save_hclg(args.graph_out, packed)
+    print(f"fst-pack-graph: {packed.num_states} states", file=sys.stderr)
+
+
+def cmd_fst_copy(args):
+    """(ref: fstbin/fstcopy.cc)"""
+    from kaldi_tpu_torch.fst.text_io import load_fst, save_fst
+    f = load_fst(args.fst_in)
+    save_fst(args.fst_out, f)
+    print(f"fstcopy: {f.num_states} states", file=sys.stderr)
+
+
+def cmd_fst_is_stochastic(args):
+    """Per-state outgoing weight sums in the log semiring
+    (ref: fstbin/fstisstochastic.cc): prints the min and max residual,
+    exits 1 when either is outside --delta."""
+    import math
+    from kaldi_tpu_torch.fst.text_io import load_fst
+    f = load_fst(args.fst_in)
+    INF = float("inf")
+
+    def log_add(acc, v):
+        return v if acc is None else \
+            max(acc, v) + math.log1p(math.exp(-abs(acc - v)))
+    lo, hi = INF, -INF
+    for s in range(f.num_states):
+        acc = None
+        for (_i, _o, w, _d) in f.arcs[s]:
+            acc = log_add(acc, -w)
+        fw = f.final(s)
+        if fw < INF:
+            acc = log_add(acc, -fw)
+        if acc is None:
+            continue
+        lo, hi = min(lo, acc), max(hi, acc)
+    print(f"{lo:.6f} {hi:.6f}")
+    if not (abs(lo) <= args.delta and abs(hi) <= args.delta):
+        sys.exit(1)
+
+
+def cmd_fst_phi_compose(args):
+    """Compose with phi (failure) transitions on the right FST
+    (ref: fstbin/fstphicompose.cc)."""
+    from kaldi_tpu_torch.fst.special import phi_compose
+    from kaldi_tpu_torch.fst.text_io import load_fst, save_fst
+    out = phi_compose(load_fst(args.a), load_fst(args.b), args.phi_label)
+    save_fst(args.fst_out, out)
+    print(f"fst-phi-compose: {out.num_states} states, "
+          f"{out.num_arcs} arcs", file=sys.stderr)
+
+
+def cmd_make_pdf_to_tid_transducer(args):
+    """One-state transducer mapping pdf-id+1 -> transition-ids
+    (ref: bin/make-pdf-to-tid-transducer.cc)."""
+    from kaldi_tpu_torch.fst.fst import Fst
+    from kaldi_tpu_torch.fst.text_io import save_fst
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    tm = load_gmm_system(args.model, device="cpu").trans_model
+    f = Fst()
+    s = f.add_state()
+    f.start = s
+    f.set_final(s, 0.0)
+    for tid in range(1, tm.num_transition_ids + 1):
+        f.add_arc(s, tm.transition_id_to_pdf(tid) + 1, tid, 0.0, s)
+    save_fst(args.fst_out, f)
+    print(f"make-pdf-to-tid-transducer: {f.num_arcs} arcs",
+          file=sys.stderr)
+
+
+def cmd_transcripts_to_fsts(args):
+    """Transcripts -> linear acceptor FSTs, text-archive format
+    (ref: kwsbin/transcripts-to-fsts.cc)."""
+    from kaldi_tpu_torch.fst.fst import Fst
+    from kaldi_tpu_torch.fst.text_io import read_symbols, write_fst_text
+    sym = read_symbols(args.word_symbols) if args.word_symbols else None
+    out = open(args.fsts_out, "w") if args.fsts_out != "-" else sys.stdout
+    n = 0
+    with open(args.transcripts) as f:
+        for line in f:
+            parts = line.split()
+            if not parts:
+                continue
+            ids = [sym[w] if sym else int(w) for w in parts[1:]]
+            out.write(parts[0] + "\n")
+            write_fst_text(out, Fst.linear_acceptor(ids))
+            out.write("\n")
+            n += 1
+    if args.fsts_out != "-":
+        out.close()
+    print(f"transcripts-to-fsts: {n} fsts", file=sys.stderr)
+
+
+def cmd_fsts_to_transcripts(args):
+    """Keyed text FSTs (the compile-train-graphs-fsts format) ->
+    shortest-path output-label transcripts
+    (ref: fstbin/fsts-to-transcripts.cc)."""
+    from kaldi_tpu_torch.cli_fst import _read_fst_ark
+    for key, fst in _read_fst_ark(args.fsts_in):
+        res = fst.shortest_path()
+        words = " ".join(str(w) for w in res[1]) if res else ""
+        print(f"{key} {words}")
+
+
+def cmd_compile_train_graphs(args):
+    """Per-utterance training graphs from transcripts
+    (ref: bin/compile-train-graphs.cc); prints states and arcs per
+    utterance."""
+    from kaldi_tpu_torch.fst.graph import TrainingGraphCompiler
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    model = load_gmm_system(args.model, device="cpu")
+    compiler = TrainingGraphCompiler(model.lang, model.trans_model,
+                                     model.ctx_dep)
+    with open(args.text) as f:
+        for line in f:
+            parts = line.split()
+            g = compiler.compile_transcript(parts[1:])
+            n_arcs = sum(len(a) for a in g.arcs)
+            print(f"{parts[0]} states={g.num_states} arcs={n_arcs}")
+
+
+# ------------------------------------------------- HMMs and alignments
+
+def cmd_hmm_info(args):
+    """(ref: bin/hmm-info.cc)"""
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    tm = load_gmm_system(args.model, device="cpu").trans_model
+    print(f"number of phones {len(tm.topo.phones)}")
+    print(f"number of pdfs {tm.num_pdfs}")
+    print(f"number of transition-ids {tm.num_transition_ids}")
+    print(f"number of transition-states {len(tm.tuples)}")
+
+
+def cmd_am_info(args):
+    """(ref: bin/am-info.cc; gmmbin/gmm-info.cc prints the same)"""
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    model = load_gmm_system(args.model, device="cpu")
+    tm, am = model.trans_model, model.am
+    print(f"number of phones {len(model.lang.topo.phones)}")
+    print(f"number of pdfs {am.num_pdfs}")
+    print(f"number of transition-ids {tm.num_transition_ids}")
+    print(f"number of transition-states {len(tm.tuples)}")
+    print(f"feature dimension {am.dim}")
+    print(f"number of gaussians {am.total_gauss}")
+
+
+def cmd_show_transitions(args):
+    """The transition model: each transition-state's tuple and its
+    transition-ids' probabilities (ref: bin/show-transitions.cc)."""
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    model = load_gmm_system(args.model, device="cpu")
+    tm = model.trans_model
+    for ts in range(1, len(tm.tuples) + 1):
+        phone, hmm_state, pdf = tm.tuples[ts - 1]
+        print(f"Transition-state {ts}: phone = "
+              f"{model.lang.phones.sym(phone)} hmm-state = {hmm_state} "
+              f"pdf = {pdf}")
+        for tid in tm.transition_ids_of_state(ts):
+            p = float(np.exp(tm.log_probs[tid]))
+            kind = ("self-loop" if tm.is_self_loop(tid)
+                    else f"idx {tm.transition_id_to_transition_index(tid)}")
+            print(f" Transition-id = {tid} p = {p:.4f} [{kind}]")
+
+
+def cmd_show_alignments(args):
+    """Phone segmentation of alignments, one line per utterance
+    (ref: bin/show-alignments.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    from kaldi_tpu_torch.lat.align import ali_to_phones
+    model = load_gmm_system(args.model, device="cpu")
+    for utt, ali in open_rspecifier(args.ali_rspecifier):
+        segs = ali_to_phones(model.trans_model, np.asarray(ali, np.int64))
+        pretty = " ".join(
+            f"{model.lang.phones.sym(ph)}[{int(round(dur / 0.01))}]"
+            for (ph, _start, dur) in segs)
+        print(f"{utt} {pretty}")
+
+
+def cmd_gmm_copy(args):
+    """(ref: gmmbin/gmm-copy.cc, bin/copy-transition-model.cc)"""
+    from kaldi_tpu_torch.io.model_io import load_gmm_system, save_gmm_system
+    save_gmm_system(args.model_out, load_gmm_system(args.model, device="cpu"))
+    print("gmm-copy: done", file=sys.stderr)
+
+
+def cmd_train_transitions(args):
+    """Transition probabilities re-estimated from alignments
+    (ref: nnetbin/train-transitions.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import load_gmm_system, save_gmm_system
+    model = load_gmm_system(args.model, device="cpu")
+    tm = model.trans_model
+    counts = np.zeros(tm.num_transition_ids + 1, np.float64)
+    for _utt, ali in open_rspecifier(args.ali_rspecifier):
+        np.add.at(counts, np.asarray(ali, np.int64), 1.0)
+    tm.mle_update(counts)
+    save_gmm_system(args.model_out, model)
+    print(f"train-transitions: {int(counts.sum())} frames",
+          file=sys.stderr)
+
+
+def cmd_ali_to_pdf(args):
+    """(ref: bin/ali-to-pdf.cc)"""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, open_wspecifier
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    tid2pdf = load_gmm_system(args.model, device="cpu") \
+        .trans_model.id2pdf_array
+    n = 0
+    with open_wspecifier(args.wspecifier) as out:
+        for utt, ali in open_rspecifier(args.ali_rspecifier):
+            out.write(utt, tid2pdf[np.asarray(ali, np.int64)]
+                      .astype(np.int32))
+            n += 1
+    print(f"ali-to-pdf: {n} utts", file=sys.stderr)
+
+
+def cmd_ali_to_phones(args):
+    """Alignment tids -> phone sequences, lengths or CTM lines
+    (ref: bin/ali-to-phones.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    from kaldi_tpu_torch.lat.align import ali_to_phones
+    tm = load_gmm_system(args.model, device="cpu").trans_model
+    for utt, ali in open_rspecifier(args.ali_rspecifier):
+        segs = ali_to_phones(tm, np.asarray(ali, np.int64))
+        if args.write_lengths:
+            body = " ; ".join(f"{ph} {dur}" for (ph, _s, dur) in segs)
+        elif args.ctm_output:
+            print("\n".join(
+                f"{utt} 1 {s * args.frame_shift:.2f} "
+                f"{dur * args.frame_shift:.2f} {ph}"
+                for (ph, s, dur) in segs))
+            continue
+        else:
+            body = " ".join(str(ph) for (ph, _s, _d) in segs)
+        print(f"{utt} {body}")
+
+
+def cmd_ali_to_post(args):
+    """Alignments -> unit-weight posteriors (ref: bin/ali-to-post.cc)."""
+    from kaldi_tpu_torch.hmm.posterior import ali_to_post, write_post_line
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    out = open(args.post_out, "w") if args.post_out != "-" else sys.stdout
+    n = 0
+    for utt, ali in open_rspecifier(args.ali_rspecifier):
+        write_post_line(out, utt, ali_to_post(np.asarray(ali, np.int64)))
+        n += 1
+    if args.post_out != "-":
+        out.close()
+    print(f"ali-to-post: {n} utts", file=sys.stderr)
+
+
+def cmd_convert_ali(args):
+    """Alignments of one system mapped onto another's tree
+    (ref: bin/convert-ali.cc, hmm/hmm-utils.cc ConvertAlignment)."""
+    from kaldi_tpu_torch.hmm.hmm_utils import convert_alignment
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, open_wspecifier
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    old = load_gmm_system(args.old_model, device="cpu")
+    new = load_gmm_system(args.new_model, device="cpu")
+    n = 0
+    with open_wspecifier(args.wspecifier) as out:
+        for utt, ali in open_rspecifier(args.ali_rspecifier):
+            out.write(utt, convert_alignment(
+                np.asarray(ali, np.int64), old.trans_model,
+                new.trans_model, new.ctx_dep))
+            n += 1
+    print(f"convert-ali: {n} utts", file=sys.stderr)
+
+
+def cmd_analyze_counts(args):
+    """Symbol counts over int-vector archives (alignment pdf or phone
+    counts; ref: bin/analyze-counts.cc, bin/pdf-to-counts.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, write_ark
+    counts: dict = {}
+    for _utt, v in open_rspecifier(args.rspecifier):
+        for x in np.asarray(v).ravel():
+            counts[int(x)] = counts.get(int(x), 0) + 1
+    n = max(counts) + 1 if counts else 0
+    vec = np.zeros(n, np.float32)
+    for k, c in counts.items():
+        if k >= 0:
+            vec[k] = c
+    write_ark(args.counts_out, {"counts": vec})
+    print(f"analyze-counts: {int(vec.sum())} symbols, {n} bins",
+          file=sys.stderr)
+
+
+def _training_graphs(model, transcripts, transition_scale=1.0,
+                     self_loop_scale=1.0):
+    """One training graph per transcript (word lists; one compile per
+    distinct transcript) packed into a batch."""
+    from kaldi_tpu_torch.decoder.graph_pack import pack_graphs
+    from kaldi_tpu_torch.fst.graph import TrainingGraphCompiler
+    compiler = TrainingGraphCompiler(
+        model.lang, model.trans_model, model.ctx_dep,
+        transition_scale=transition_scale, self_loop_scale=self_loop_scale)
+    cache: dict = {}
+    graphs = []
+    for words in transcripts:
+        key = tuple(words)
+        if key not in cache:
+            cache[key] = compiler.compile_transcript(list(words))
+        graphs.append(cache[key])
+    return pack_graphs(graphs, model.trans_model.id2pdf_array)
+
+
+def _write_alignments(name, wspecifier, keys, results):
+    """Each utterance's transition-ids to the ark (a failed one to
+    stderr) -> the count written."""
+    from kaldi_tpu_torch.io.kaldi_io import open_wspecifier
+    n_ok = 0
+    with open_wspecifier(wspecifier) as out:
+        for k, res in zip(keys, results):
+            if res is None:
+                print(f"{name}: failed for {k}", file=sys.stderr)
+                continue
+            out.write(k, np.asarray(res[0], np.int32))
+            n_ok += 1
+    return n_ok
+
+
+def cmd_align_equal(args):
+    """Equal (acoustics-free) alignment for EM iteration 0
+    (ref: bin/align-equal-compiled.cc); the DP on the device."""
+    from kaldi_tpu_torch.decoder.viterbi import equal_align
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    dev = _device(args)
+    model = load_gmm_system(args.model, device="cpu")
+    utts = _load_train_utts(args.text, args.rspecifier)
+    batch = _training_graphs(model, [w for (_u, _f, w) in utts],
+                             args.transition_scale, args.self_loop_scale)
+    nf = np.array([f.shape[0] for (_u, f, _w) in utts], np.int32)
+    n_ok = _write_alignments("align-equal", args.wspecifier,
+                             [u for (u, _f, _w) in utts],
+                             equal_align(batch, nf, device=dev))
+    print(f"align-equal: aligned {n_ok}/{len(utts)}", file=sys.stderr)
+
+
+def cmd_align_mapped(args):
+    """Forced alignment from precomputed loglike matrices
+    (ref: bin/align-mapped.cc); Viterbi on the device."""
+    from kaldi_tpu_torch.decoder.viterbi import viterbi_align
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    dev = _device(args)
+    model = load_gmm_system(args.model, device="cpu")
+    text = _read_text_file(args.text)
+    items = [(k, m) for (k, m) in
+             open_rspecifier(args.loglikes_rspecifier) if k in text]
+    if not items:
+        raise SystemExit("align-mapped: no utterances joined")
+    batch = _training_graphs(model, [text[k] for (k, _m) in items])
+    ll, nf = _pad_batch(items, fill=-1e10)
+    n = _write_alignments("align-mapped", args.wspecifier,
+                          [k for (k, _m) in items],
+                          viterbi_align(batch, ll, nf, args.acoustic_scale,
+                                        device=dev))
+    print(f"align-mapped: {n}/{len(items)}", file=sys.stderr)
+
+
+def cmd_align_text(args):
+    """Per-utterance word alignments (ref: bin/align-text.cc output:
+    'utt ref1 hyp1 ; ref2 hyp2 ; ...' with <eps> for ins/del)."""
+    from kaldi_tpu_torch.utils.wer import levenshtein_alignment
+    refs, hyps = _read_text_file(args.ref), _read_text_file(args.hyp)
+    for utt in refs:
+        pairs, _errs = levenshtein_alignment(refs[utt], hyps.get(utt, []))
+        print(f"{utt} " + " ; ".join(f"{r} {h}" for (r, h) in pairs))
+
+
+# --------------------------------------------------------------- trees
+
+def _read_question_sets(path: str) -> list:
+    """One phone set per line (cluster-phones' output)."""
+    qsets = []
+    with open(path) as f:
+        for line in f:
+            toks = line.split()
+            if toks:
+                qsets.append([int(t) for t in toks])
+    return qsets
+
+
+def cmd_acc_tree_stats(args):
+    """Per-(context, pdf-class) Gaussian stats from alignments, the
+    build-tree input (ref: bin/acc-tree-stats.cc, hmm/tree-accu.h:41)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import load_gmm_system, save_tree_stats
+    from kaldi_tpu_torch.tree.build_tree import accumulate_tree_stats
+    model = load_gmm_system(args.model, device="cpu")
+    if args.ci_phones:
+        ci = {int(p) for p in args.ci_phones.split(":") if p}
+    else:
+        ci = {model.lang.phones[p] for p in model.lang.silence_phones}
+    feats = dict(open_rspecifier(args.rspecifier))
+    stats: dict = {}
+    n = 0
+    for utt, ali in open_rspecifier(args.ali_rspecifier):
+        if utt not in feats:
+            print(f"acc-tree-stats: no feats for {utt}", file=sys.stderr)
+            continue
+        accumulate_tree_stats(
+            np.asarray(feats[utt]), np.asarray(ali, np.int64),
+            model.trans_model, N=args.context_width,
+            P=args.central_position, ci_phones=ci, stats=stats)
+        n += 1
+    save_tree_stats(args.stats_out, stats, args.context_width,
+                    args.central_position)
+    print(f"acc-tree-stats: {n} utts, {len(stats)} event stats",
+          file=sys.stderr)
+
+
+def cmd_sum_tree_stats(args):
+    """(ref: bin/sum-tree-stats.cc)"""
+    from kaldi_tpu_torch.io.model_io import load_tree_stats, save_tree_stats
+    total, N, P = None, None, None
+    for p in args.stats_in:
+        stats, n_, p_ = load_tree_stats(p)
+        if total is None:
+            total, N, P = stats, n_, p_
+            continue
+        assert (n_, p_) == (N, P), "mismatched context windows"
+        for ev, st in stats.items():
+            total[ev] = st if ev not in total else total[ev].add(st)
+    save_tree_stats(args.stats_out, total, N, P)
+    print(f"sum-tree-stats: {len(args.stats_in)} -> {args.stats_out}",
+          file=sys.stderr)
+
+
+def cmd_cluster_phones(args):
+    """Phones clustered into question sets by central-phone stats
+    (ref: bin/cluster-phones.cc; one ascending phone-id set per line)."""
+    from kaldi_tpu_torch.io.model_io import load_tree_stats
+    from kaldi_tpu_torch.tree.build_tree import obtain_questions
+    stats, _N, P = load_tree_stats(args.stats)
+    qsets = obtain_questions(stats, P)
+    with open(args.questions_out, "w") as f:
+        for q in qsets:
+            f.write(" ".join(str(p) for p in sorted(q)) + "\n")
+    print(f"cluster-phones: {len(qsets)} question sets", file=sys.stderr)
+
+
+def cmd_build_tree(args):
+    """Tied-state decision tree from tree stats + questions
+    (ref: bin/build-tree.cc, tree/build-tree.h:82)."""
+    from kaldi_tpu_torch.io.model_io import (load_gmm_system,
+                                             load_tree_stats, save_tree)
+    from kaldi_tpu_torch.steps.deltas import DeltasTrainOpts, tree_from_stats
+    model = load_gmm_system(args.model, device="cpu")
+    stats, N, P = load_tree_stats(args.stats)
+    qsets = _read_question_sets(args.questions) if args.questions else None
+    opts = DeltasTrainOpts(
+        num_leaves=args.max_leaves, tree_thresh=args.thresh,
+        cluster_thresh=args.cluster_thresh, sil_roots=args.sil_roots,
+        context_width=N, central_position=P)
+    ctx, _tm, _leaf_stats = tree_from_stats(model.lang, stats, opts, qsets)
+    save_tree(args.tree_out, ctx)
+    print(f"build-tree: {ctx.num_pdfs} leaves", file=sys.stderr)
+
+
+def cmd_build_tree_two_level(args):
+    """Two-level tree: fine leaves sharing coarse codebooks
+    (ref: bin/build-tree-two-level.cc, tree/build-tree.h:145)."""
+    from kaldi_tpu_torch.io.model_io import (load_gmm_system,
+                                             load_tree_stats, save_tree)
+    from kaldi_tpu_torch.tree.build_tree import Questions, build_tree_two_level
+    from kaldi_tpu_torch.tree.context_dep import TreeContextDependency
+    model = load_gmm_system(args.model, device="cpu")
+    stats, N, Pc = load_tree_stats(args.tree_stats)
+    qsets = _read_question_sets(args.questions)
+    phones = sorted({ph for (ph, _s, _p) in model.trans_model.tuples})
+    ph2cls = {p: model.lang.topo.num_pdf_classes(p) for p in phones}
+    questions = Questions(qsets, num_pdf_classes=max(ph2cls.values()),
+                          N=N, P=Pc)
+    fine, n_fine, _coarse, n_coarse, f2c = build_tree_two_level(
+        stats, questions, [[p] for p in phones], ph2cls,
+        max_leaves_first=args.max_leaves_first,
+        max_leaves_second=args.max_leaves_second, P=Pc)
+    save_tree(args.tree_out, TreeContextDependency(N, Pc, fine, n_fine))
+    with open(args.map_out, "w") as f:
+        for leaf, c in enumerate(f2c):
+            f.write(f"{leaf} {c}\n")
+    print(f"build-tree-two-level: {n_fine} fine leaves over "
+          f"{n_coarse} coarse", file=sys.stderr)
+
+
+def _tree_of(path: str):
+    """A tree file's tree, or a GMM system file's."""
+    from kaldi_tpu_torch.io.model_io import load_gmm_system, load_tree
+    try:
+        return load_tree(path)
+    except Exception:
+        return load_gmm_system(path, device="cpu").ctx_dep
+
+
+def cmd_copy_tree(args):
+    """(ref: bin/copy-tree.cc; also takes the tree out of a GMM system
+    file)"""
+    from kaldi_tpu_torch.io.model_io import save_tree
+    save_tree(args.tree_out, _tree_of(args.tree))
+    print("copy-tree: done", file=sys.stderr)
+
+
+def cmd_tree_info(args):
+    """(ref: bin/tree-info.cc)"""
+    ctx = _tree_of(args.model)
+    print(f"num-pdfs {ctx.num_pdfs}")
+    print(f"context-width {ctx.context_width}")
+    print(f"central-position {ctx.central_position}")
+
+
+def cmd_gmm_init_model(args):
+    """GMM system from a tree + tree stats, one gaussian per leaf from the
+    leaf's own stats (ref: gmmbin/gmm-init-model.cc); the AM is built for
+    the device."""
+    from kaldi_tpu_torch.io.model_io import (load_gmm_system,
+                                             load_tree, load_tree_stats,
+                                             save_gmm_system)
+    from kaldi_tpu_torch.steps.deltas import (init_am_from_leaf_stats,
+                                              leaf_stats_from_tree_stats,
+                                              transition_model_from_tree)
+    from kaldi_tpu_torch.steps.mono import MonoModel
+    dev = _device(args)
+    src = load_gmm_system(args.model, device="cpu")
+    ctx = load_tree(args.tree)
+    stats, _N, _P = load_tree_stats(args.stats)
+    tm = transition_model_from_tree(src.lang, ctx)
+    am = init_am_from_leaf_stats(leaf_stats_from_tree_stats(stats, ctx),
+                                 src.am.dim, device=dev)
+    save_gmm_system(args.model_out, MonoModel(am, tm, ctx, src.lang))
+    print(f"gmm-init-model: {am.num_pdfs} pdfs, "
+          f"{tm.num_transition_ids} transition ids", file=sys.stderr)
+
+
+def cmd_train_deltas(args):
+    """Tied-triphone training from an existing system and a data dir's
+    text + features (ref: steps/train_deltas.sh fused, like train-mono),
+    on the device."""
+    from kaldi_tpu_torch.io.model_io import load_gmm_system, save_gmm_system
+    from kaldi_tpu_torch.steps.deltas import DeltasTrainOpts, train_deltas
+    dev = _device(args)
+    ali_model = load_gmm_system(args.model, device=dev)
+    utts = _load_train_utts(args.text, args.rspecifier)
+    model = train_deltas(ali_model.lang, utts, ali_model, DeltasTrainOpts(
+        num_iters=args.num_iters, totgauss=args.totgauss,
+        num_leaves=args.num_leaves, tree_thresh=args.tree_thresh,
+        realign_iters=tuple(range(1, args.num_iters)),
+        sil_roots=args.sil_roots))
+    save_gmm_system(args.model_out, model)
+    print(f"train-deltas: {model.am.num_pdfs} pdfs, "
+          f"{model.am.total_gauss} gauss", file=sys.stderr)
+
+
+# ---------------------------------------------------------------- GMMs
+
+def _post_to_pdf_post(post, tm):
+    """Text-archive posterior (tid, w) frames -> (pdf, w) frames."""
+    return [[(tm.transition_id_to_pdf(tid), w) for (tid, w) in frame]
+            for frame in post]
+
+
+def _occs(acc) -> np.ndarray:
+    """Per-pdf occupancies of GMM accumulators."""
+    return np.array([a.occ.sum() for a in acc.accs])
+
+
+def _avg_like(acc) -> str:
+    return f"{acc.tot_like / max(acc.tot_frames, 1.0):.4f}"
+
+
+def cmd_gmm_init_mono(args):
+    """Flat-start monophone model from global feature moments
+    (ref: gmmbin/gmm-init-mono.cc); the AM is built for the device."""
+    from kaldi_tpu_torch.fst.lang import Lexicon, prepare_lang
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import save_gmm_system
+    from kaldi_tpu_torch.steps.mono import flat_start
+    dev = _device(args)
+    with open(args.lexicon) as f:
+        lex = Lexicon.parse(f.read())
+    lang = prepare_lang(lex, [args.sil_phone], args.sil_phone,
+                        num_sil_states=args.num_sil_states)
+    feats = [v for (_k, v) in open_rspecifier(args.rspecifier)]
+    model = flat_start(lang, feats, device=dev)
+    save_gmm_system(args.model_out, model)
+    print(f"gmm-init-mono: {model.am.num_pdfs} pdfs, dim "
+          f"{model.am.dim}", file=sys.stderr)
+
+
+def cmd_gmm_acc_stats_ali(args):
+    """GMM + transition stats from transition-id alignments
+    (ref: gmmbin/gmm-acc-stats-ali.cc); the gaussian posteriors on the
+    device."""
+    from kaldi_tpu_torch.gmm.estimation import AccumAmDiagGmm
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import load_gmm_system, save_gmm_accs
+    dev = _device(args)
+    model = load_gmm_system(args.model, device=dev)
+    am, tm = model.am, model.trans_model
+    acc = AccumAmDiagGmm(am)
+    trans_counts = np.zeros(tm.num_transition_ids + 1, np.float64)
+    feats = dict(open_rspecifier(args.rspecifier))
+    n = 0
+    for utt, ali in open_rspecifier(args.ali_rspecifier):
+        if utt not in feats:
+            print(f"gmm-acc-stats-ali: no feats for {utt}",
+                  file=sys.stderr)
+            continue
+        tids = np.asarray(ali, np.int64)
+        acc.accumulate_from_alignment(am, feats[utt],
+                                      tm.id2pdf_array[tids])
+        np.add.at(trans_counts, tids, 1.0)
+        n += 1
+    save_gmm_accs(args.accs_out, acc, trans_counts)
+    print(f"gmm-acc-stats-ali: {n} utts, avg loglike/frame "
+          f"{_avg_like(acc)}", file=sys.stderr)
+
+
+def cmd_gmm_sum_accs(args):
+    """(ref: gmmbin/gmm-sum-accs.cc)"""
+    from kaldi_tpu_torch.io.model_io import load_gmm_accs, save_gmm_accs
+    total, tc_total = None, None
+    for p in args.accs_in:
+        acc, tc = load_gmm_accs(p)
+        if total is None:
+            total, tc_total = acc, tc
+        else:
+            total.add(acc)
+            if tc is not None:
+                tc_total = tc if tc_total is None else tc_total + tc
+    save_gmm_accs(args.accs_out, total, tc_total)
+    print(f"gmm-sum-accs: {len(args.accs_in)} -> {args.accs_out}",
+          file=sys.stderr)
+
+
+def cmd_gmm_est(args):
+    """MLE re-estimation from accs (+ transition update, optional mixup)
+    (ref: gmmbin/gmm-est.cc); host f64."""
+    from kaldi_tpu_torch.gmm.estimation import mle_diag_gmm_update
+    from kaldi_tpu_torch.io.model_io import (load_gmm_accs,
+                                             load_gmm_system,
+                                             save_gmm_system)
+    model = load_gmm_system(args.model, device="cpu")
+    acc, trans_counts = load_gmm_accs(args.accs)
+    am = model.am
+    occs = _occs(acc)
+    for i, a in enumerate(acc.accs):
+        am.pdfs[i] = mle_diag_gmm_update(
+            am.pdfs[i], a,
+            min_gaussian_occupancy=args.min_gaussian_occupancy)
+    if trans_counts is not None:
+        model.trans_model.mle_update(trans_counts)
+    if args.mix_up and args.mix_up > am.total_gauss:
+        am.split_by_count(args.mix_up, power=args.power, occs=occs)
+    am.invalidate()
+    save_gmm_system(args.model_out, model)
+    print(f"gmm-est: {am.num_pdfs} pdfs, {am.total_gauss} gauss, "
+          f"avg loglike/frame {_avg_like(acc)}", file=sys.stderr)
+
+
+def cmd_gmm_boost_silence(args):
+    """Mixture weights of silence-phone pdfs scaled so that silence wins
+    early alignments (ref: gmmbin/gmm-boost-silence.cc)."""
+    from kaldi_tpu_torch.gmm.diag_gmm import DiagGmm
+    from kaldi_tpu_torch.io.model_io import load_gmm_system, save_gmm_system
+    model = load_gmm_system(args.model, device="cpu")
+    sil = set(int(p) for p in args.silence_phones.split(":") if p)
+    pdfs = sorted({pdf for (ph, _st, pdf) in model.trans_model.tuples
+                   if ph in sil})
+    for pdf in pdfs:
+        g = model.am.pdfs[pdf]
+        model.am.pdfs[pdf] = DiagGmm(g.weights * args.boost, g.means,
+                                     g.vars)
+    model.am.invalidate()
+    save_gmm_system(args.model_out, model)
+    print(f"gmm-boost-silence: boosted {len(pdfs)} pdfs by "
+          f"{args.boost}", file=sys.stderr)
+
+
+def cmd_gmm_mixup(args):
+    """Gaussian splitting to a target total (ref: gmmbin/gmm-mixup.cc)."""
+    from kaldi_tpu_torch.io.model_io import (load_gmm_accs,
+                                             load_gmm_system,
+                                             save_gmm_system)
+    model = load_gmm_system(args.model, device="cpu")
+    occs = None
+    if args.occs:
+        occs = _occs(load_gmm_accs(args.occs)[0])
+    model.am.split_by_count(args.mix_up, power=args.power, occs=occs)
+    model.am.invalidate()
+    save_gmm_system(args.model_out, model)
+    print(f"gmm-mixup: -> {model.am.total_gauss} gauss", file=sys.stderr)
+
+
+def cmd_gmm_gselect(args):
+    """Per-frame top-N gaussian indices of a UBM, best first
+    (ref: gmmbin/gmm-gselect.cc; text 'utt i i i ; i i i ; ...', one
+    group per frame); host numpy, as JAX scores UBMs."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import load_ubm
+    ubm = load_ubm(args.ubm)
+    out = open(args.gselect_out, "w") if args.gselect_out != "-" \
+        else sys.stdout
+    n = 0
+    for utt, v in open_rspecifier(args.rspecifier):
+        ll = ubm.loglikes(np.asarray(v, np.float64))
+        k = min(args.n, ll.shape[1])
+        idx = np.argpartition(-ll, k - 1, axis=1)[:, :k]
+        row_ll = np.take_along_axis(ll, idx, axis=1)
+        idx = np.take_along_axis(idx, np.argsort(-row_ll, axis=1), axis=1)
+        out.write(utt + " " + " ; ".join(
+            " ".join(str(int(i)) for i in row) for row in idx) + "\n")
+        n += 1
+    if args.gselect_out != "-":
+        out.close()
+    print(f"gmm-gselect: {n} utts, {args.n} per frame", file=sys.stderr)
+
+
+def cmd_gmm_compute_likes(args):
+    """Per-pdf log-likelihood matrices of a GMM AM, the input of the
+    mapped decoders (ref: gmmbin/gmm-compute-likes.cc); on the device."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, open_wspecifier
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    dev = _device(args)
+    model = load_gmm_system(args.model, device=dev)
+    n = 0
+    with open_wspecifier(args.wspecifier) as out:
+        for utt, v in open_rspecifier(args.rspecifier):
+            ll = model.am.loglikes_np(np.asarray(v, np.float32)[None])[0]
+            out.write(utt, ll.astype(np.float32))
+            n += 1
+    print(f"gmm-compute-likes: {n} utts", file=sys.stderr)
+
+
+def _model_feats_posts(args):
+    """(model on the device, {utt: feats}, the post file's (utt, post)
+    pairs) of a posterior-weighted accumulation."""
+    from kaldi_tpu_torch.hmm.posterior import read_post_ark
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    dev = _device(args)
+    model = load_gmm_system(args.model, device=dev)
+    return (model, dict(open_rspecifier(args.rspecifier)),
+            read_post_ark(args.post_in))
+
+
+def cmd_gmm_acc_stats(args):
+    """GMM + transition stats weighted by the soft posteriors of a post
+    file (ref: gmmbin/gmm-acc-stats.cc, the denominator stats of
+    discriminative training); the gaussian posteriors on the device."""
+    from kaldi_tpu_torch.gmm.estimation import AccumAmDiagGmm
+    from kaldi_tpu_torch.io.model_io import save_gmm_accs
+    model, feats, posts = _model_feats_posts(args)
+    am, tm = model.am, model.trans_model
+    acc = AccumAmDiagGmm(am)
+    trans_counts = np.zeros(tm.num_transition_ids + 1, np.float64)
+    n = 0
+    for utt, post in posts:
+        if utt not in feats:
+            continue
+        acc.accumulate_from_posteriors(am, feats[utt],
+                                       _post_to_pdf_post(post, tm))
+        for entries in post:
+            for tid, w in entries:
+                trans_counts[int(tid)] += w
+        n += 1
+    save_gmm_accs(args.accs_out, acc, trans_counts)
+    print(f"gmm-acc-stats: {n} utts", file=sys.stderr)
+
+
+def cmd_gmm_acc_stats2(args):
+    """Signed posteriors -> numerator (w > 0) and denominator (w < 0)
+    accs in one pass (ref: gmmbin/gmm-acc-stats2.cc); the gaussian
+    posteriors on the device."""
+    from kaldi_tpu_torch.gmm.estimation import AccumAmDiagGmm
+    from kaldi_tpu_torch.io.model_io import save_gmm_accs
+    model, feats, posts = _model_feats_posts(args)
+    am = model.am
+    num, den = AccumAmDiagGmm(am), AccumAmDiagGmm(am)
+    n = 0
+    for utt, post in posts:
+        if utt not in feats:
+            continue
+        pdf_post = _post_to_pdf_post(post, model.trans_model)
+        num.accumulate_from_posteriors(
+            am, feats[utt], [[(p, w) for (p, w) in fr if w > 0]
+                             for fr in pdf_post])
+        den.accumulate_from_posteriors(
+            am, feats[utt], [[(p, -w) for (p, w) in fr if w < 0]
+                             for fr in pdf_post])
+        n += 1
+    save_gmm_accs(args.num_accs_out, num, None)
+    save_gmm_accs(args.den_accs_out, den, None)
+    print(f"gmm-acc-stats2: {n} utts", file=sys.stderr)
+
+
+def cmd_gmm_scale_accs(args):
+    """(ref: gmmbin/gmm-scale-accs.cc)"""
+    from kaldi_tpu_torch.io.model_io import load_gmm_accs, save_gmm_accs
+    acc, tc = load_gmm_accs(args.accs)
+    s = args.scale
+    for a in acc.accs:
+        a.occ *= s
+        a.mean_acc *= s
+        a.var_acc *= s
+    acc.tot_like *= s
+    acc.tot_frames *= s
+    if tc is not None:
+        tc = tc * s
+    save_gmm_accs(args.accs_out, acc, tc)
+    print(f"gmm-scale-accs: scale {s}", file=sys.stderr)
+
+
+def cmd_gmm_ismooth_stats(args):
+    """I-smoothing of accs toward the model
+    (ref: gmmbin/gmm-ismooth-stats.cc)."""
+    from kaldi_tpu_torch.gmm.ebw import ismooth_stats_diag_gmm
+    from kaldi_tpu_torch.io.model_io import (load_gmm_accs,
+                                             load_gmm_system,
+                                             save_gmm_accs)
+    model = load_gmm_system(args.model, device="cpu")
+    acc, tc = load_gmm_accs(args.accs)
+    for pdf in range(model.am.num_pdfs):
+        acc.accs[pdf] = ismooth_stats_diag_gmm(
+            acc.accs[pdf], model.am.pdfs[pdf], args.tau)
+    save_gmm_accs(args.accs_out, acc, tc)
+    print(f"gmm-ismooth-stats: tau {args.tau}", file=sys.stderr)
+
+
+def _num_den(args):
+    """(model on the CPU, numerator accs, denominator accs)."""
+    from kaldi_tpu_torch.io.model_io import load_gmm_accs, load_gmm_system
+    return (load_gmm_system(args.model, device="cpu"),
+            load_gmm_accs(args.num_accs)[0], load_gmm_accs(args.den_accs)[0])
+
+
+def cmd_gmm_est_gaussians_ebw(args):
+    """Discriminative (EBW) mean and variance update from numerator and
+    denominator accs (ref: gmmbin/gmm-est-gaussians-ebw.cc)."""
+    from kaldi_tpu_torch.gmm.ebw import EbwOptions, update_ebw_diag_gmm
+    from kaldi_tpu_torch.io.model_io import save_gmm_system
+    model, num, den = _num_den(args)
+    opts = EbwOptions(E=args.E, tau=args.tau)
+    for pdf in range(model.am.num_pdfs):
+        model.am.pdfs[pdf] = update_ebw_diag_gmm(
+            model.am.pdfs[pdf], num.accs[pdf], den.accs[pdf], opts)[0]
+    model.am.invalidate()
+    save_gmm_system(args.model_out, model)
+    print(f"gmm-est-gaussians-ebw: updated {model.am.num_pdfs} pdfs",
+          file=sys.stderr)
+
+
+def cmd_gmm_est_weights_ebw(args):
+    """EBW mixture-weight update (ref: gmmbin/gmm-est-weights-ebw.cc)."""
+    from kaldi_tpu_torch.gmm.ebw import update_ebw_weights_diag_gmm
+    from kaldi_tpu_torch.io.model_io import save_gmm_system
+    model, num, den = _num_den(args)
+    for pdf in range(model.am.num_pdfs):
+        model.am.pdfs[pdf] = update_ebw_weights_diag_gmm(
+            model.am.pdfs[pdf], num.accs[pdf], den.accs[pdf],
+            weight_tau=args.weight_tau)
+    model.am.invalidate()
+    save_gmm_system(args.model_out, model)
+    print(f"gmm-est-weights-ebw: updated {model.am.num_pdfs} pdfs",
+          file=sys.stderr)
+
+
+# --------------------------------------- global GMMs (UBMs; host numpy)
+
+def _save_global_accs(path: str, acc, full: bool, tot_like: float,
+                      tot_frames: float):
+    """A global GMM's accumulators in JAX's npz layout."""
+    blobs = {"occ": acc.occ, "mean_acc": acc.mean_acc,
+             "full": np.int64(full), "tot_like": np.float64(tot_like),
+             "tot_frames": np.float64(tot_frames)}
+    blobs["cov_acc" if full else "var_acc"] = \
+        acc.cov_acc if full else acc.var_acc
+    with open(path, "wb") as f:
+        np.savez(f, **blobs)
+
+
+def _global_acc(ubm, dim=None):
+    """-> (an empty accumulator of the UBM's covariance kind, is full)."""
+    from kaldi_tpu_torch.gmm.estimation import AccumDiagGmm
+    from kaldi_tpu_torch.gmm.full_gmm import AccumFullGmm, FullGmm
+    full = isinstance(ubm, FullGmm)
+    return ((AccumFullGmm if full else AccumDiagGmm)(
+        ubm.num_gauss, ubm.dim if dim is None else dim), full)
+
+
+def cmd_gmm_global_get_post(args):
+    """Top-N UBM component posteriors per frame as a post file
+    (ref: gmmbin/gmm-global-get-post.cc)."""
+    from kaldi_tpu_torch.hmm.posterior import write_post_line
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import load_ubm
+    ubm = load_ubm(args.model)
+    n = 0
+    with open(args.post_out, "w") as out:
+        for utt, feats in open_rspecifier(args.rspecifier):
+            x = feats.astype(np.float64)
+            post = np.asarray(ubm.posteriors(x.astype(np.float32)),
+                              np.float64)
+            idx = np.argsort(-post, axis=1)[:, : args.n]
+            lines = []
+            for t in range(len(x)):
+                sel = [(int(i), float(post[t, i])) for i in idx[t]
+                       if post[t, i] >= args.min_post]
+                tot = sum(w for (_i, w) in sel) or 1.0
+                lines.append([(i, w / tot) for (i, w) in sel])
+            write_post_line(out, utt, lines)
+            n += 1
+    print(f"gmm-global-get-post: {n} utts", file=sys.stderr)
+
+
+def cmd_gmm_global_to_fgmm(args):
+    """Diagonal UBM -> full-covariance UBM
+    (ref: gmmbin/gmm-global-to-fgmm.cc)."""
+    from kaldi_tpu_torch.gmm.full_gmm import FullGmm
+    from kaldi_tpu_torch.io.model_io import load_ubm, save_ubm
+    ubm = load_ubm(args.model)
+    covars = np.stack([np.diag(v) for v in ubm.vars])
+    save_ubm(args.model_out,
+             FullGmm(ubm.weights.copy(), ubm.means.copy(), covars))
+    print(f"gmm-global-to-fgmm: {ubm.num_gauss} gauss, dim {ubm.dim}",
+          file=sys.stderr)
+
+
+def cmd_gmm_global_copy(args):
+    """(ref: gmmbin/gmm-global-copy.cc)"""
+    from kaldi_tpu_torch.io.model_io import load_ubm, save_ubm
+    save_ubm(args.model_out, load_ubm(args.model))
+    print("gmm-global-copy: done", file=sys.stderr)
+
+
+def cmd_gmm_global_info(args):
+    """(ref: gmmbin/gmm-global-info.cc)"""
+    from kaldi_tpu_torch.gmm.full_gmm import FullGmm
+    from kaldi_tpu_torch.io.model_io import load_ubm
+    ubm = load_ubm(args.model)
+    print(f"number of gaussians {ubm.num_gauss}")
+    print(f"feature dimension {ubm.dim}")
+    print(f"covariance type "
+          f"{'full' if isinstance(ubm, FullGmm) else 'diagonal'}")
+
+
+def cmd_gmm_global_acc_stats_post(args):
+    """UBM stats weighted by precomputed component posteriors
+    (ref: fgmmbin/fgmm-global-acc-stats-post.cc)."""
+    from kaldi_tpu_torch.hmm.posterior import read_post_ark
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import load_ubm
+    ubm = load_ubm(args.model)
+    acc, full = _global_acc(ubm)
+    feats = dict(open_rspecifier(args.rspecifier))
+    n = 0
+    for utt, post in read_post_ark(args.post_in):
+        if utt not in feats:
+            continue
+        x = feats[utt].astype(np.float64)
+        P = np.zeros((len(x), ubm.num_gauss))
+        for t, fr in enumerate(post):
+            for (i, w) in fr:
+                if t < len(x):
+                    P[t, i] = w
+        acc.accumulate_from_posteriors(x, P)
+        n += 1
+    _save_global_accs(args.accs_out, acc, full, 0.0, acc.occ.sum())
+    print(f"fgmm-global-acc-stats-post: {n} utts", file=sys.stderr)
+
+
+def cmd_gmm_global_acc_stats(args):
+    """EM stats of a global (non-HMM) diagonal or full GMM over a feature
+    archive (ref: gmmbin/gmm-global-acc-stats.cc,
+    fgmmbin/fgmm-global-acc-stats.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import load_ubm
+    ubm = load_ubm(args.model)
+    acc, full = _global_acc(ubm)
+    n_frames, tot_like = 0, 0.0
+    for _utt, feats in open_rspecifier(args.rspecifier):
+        x = feats.astype(np.float64)
+        acc.accumulate(ubm, x)
+        tot_like += float(ubm.loglike(x).sum())
+        n_frames += len(x)
+    _save_global_accs(args.accs_out, acc, full, tot_like, n_frames)
+    print(f"gmm-global-acc-stats: {n_frames} frames, avg loglike "
+          f"{tot_like / max(n_frames, 1):.4f}", file=sys.stderr)
+
+
+def cmd_gmm_global_est(args):
+    """(ref: gmmbin/gmm-global-est.cc, fgmmbin/fgmm-global-est.cc); a
+    full-covariance update floors its eigenvalues on the device."""
+    from kaldi_tpu_torch.gmm.estimation import mle_diag_gmm_update
+    from kaldi_tpu_torch.gmm.full_gmm import mle_full_gmm_update
+    from kaldi_tpu_torch.io.model_io import load_ubm, save_ubm
+    dev = _device(args)
+    ubm = load_ubm(args.model)
+    z = np.load(args.accs)
+    acc, full = _global_acc(ubm)
+    assert bool(z["full"]) == full, "accs/model covariance kind"
+    acc.occ, acc.mean_acc = z["occ"], z["mean_acc"]
+    if full:
+        acc.cov_acc = z["cov_acc"]
+        new = mle_full_gmm_update(
+            ubm, acc, min_gaussian_occupancy=args.min_gaussian_occupancy,
+            device=dev)
+    else:
+        acc.var_acc = z["var_acc"]
+        new = mle_diag_gmm_update(
+            ubm, acc, min_gaussian_occupancy=args.min_gaussian_occupancy)
+    save_ubm(args.model_out, new)
+    print(f"gmm-global-est: avg loglike/frame "
+          f"{float(z['tot_like']) / max(float(z['tot_frames']), 1):.4f}",
+          file=sys.stderr)
+
+
+def cmd_gmm_global_get_frame_likes(args):
+    """Per-frame total loglikes under a global GMM
+    (ref: gmmbin/gmm-global-get-frame-likes.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, open_wspecifier
+    from kaldi_tpu_torch.io.model_io import load_ubm
+    ubm = load_ubm(args.model)
+    n = 0
+    with open_wspecifier(args.wspecifier) as out:
+        for utt, feats in open_rspecifier(args.rspecifier):
+            out.write(utt, np.asarray(ubm.loglike(
+                feats.astype(np.float64)), np.float32))
+            n += 1
+    print(f"gmm-global-get-frame-likes: {n} utts", file=sys.stderr)
+
+
+def cmd_gmm_global_sum_accs(args):
+    """(ref: gmmbin/gmm-global-sum-accs.cc)"""
+    blobs = None
+    for p in args.accs_in:
+        z = dict(np.load(p))
+        if blobs is None:
+            blobs = z
+        else:
+            assert bool(z["full"]) == bool(blobs["full"])
+            for k in z:
+                if k != "full":
+                    blobs[k] = blobs[k] + z[k]
+    with open(args.accs_out, "wb") as f:
+        np.savez(f, **blobs)
+    print(f"gmm-global-sum-accs: {len(args.accs_in)} files",
+          file=sys.stderr)
+
+
 # Reference binary names that resolve to a canonical subcommand: the
 # ported ones of kaldi_tpu/cli.py's `_ALIASES`. Options after the alias
 # pass straight through to the canonical command.
 _ALIASES: dict = {
+    # fstbin (OpenFst-style names)
+    "fsttablecompose": ["fst-compose", "--table"],
+    "fstdeterminizestar": ["fst-determinize-star"],
+    "fstdeterminizelog": ["fst-determinize-star", "--use-log"],
+    "fstminimizeencoded": ["fst-minimize-encoded"],
+    "fstpushspecial": ["fst-push-special"],
+    "fstrmepslocal": ["fst-rmepslocal"],
+    "fstrmsymbols": ["fst-rmsymbols"],
+    "fstphicompose": ["fst-phi-compose"],
+    "fstcomposecontext": ["fst-compose-context"],
+    "fstaddselfloops": ["add-self-loops"],
+    # featbin
     "compute-kaldi-pitch-feats": ["compute-pitch-feats"],
+    # alignment and decode variants
     "gmm-align-compiled": ["gmm-align"],
+    "align-equal-compiled": ["align-equal"],
+    "align-compiled-mapped": ["align-mapped"],
     "gmm-decode-faster": ["decode-faster"],
     "gmm-decode-simple": ["gmm-decode-faster"],
+    # the sgmm tree tools are the generic tree tools
+    "sgmm-acc-tree-stats": ["acc-tree-stats"],
+    "sgmm-build-tree": ["build-tree"],
+    "sgmm-cluster-phones": ["cluster-phones"],
+    "sgmm-sum-tree-stats": ["sum-tree-stats"],
+    # the top-N selection does not depend on the covariance kind
+    "fgmm-gselect": ["gmm-gselect"],
     "sum-matrices": ["matrix-sum"],
+    "nnet-train-transitions": ["train-transitions"],
+    "nnet3-am-train-transitions": ["train-transitions"],
 }
 
-# the subcommands of this module that build a device object (`--device`)
+# the subcommands of this module and of cli_gmm_extra.py that build a
+# device object (`--device`)
 DEVICE_COMMANDS = (
     "compute-mfcc-feats", "compute-fbank-feats", "compute-spectrogram-feats",
     "compute-plp-feats", "compute-pitch-feats",
@@ -1468,7 +2718,10 @@ DEVICE_COMMANDS = (
     "wav-reverberate", "train-mono", "train-tdnn", "train-nnet3",
     "gmm-align", "decode-faster", "decode-faster-mapped",
     "online2-wav-nnet2-latgen-faster", "recipe-yesno-files",
-    "recipe-yesno")
+    "recipe-yesno", "align-equal", "align-mapped", "gmm-init-mono",
+    "gmm-init-model", "gmm-init-model-flat", "gmm-acc-stats-ali",
+    "gmm-acc-stats", "gmm-acc-stats2", "gmm-compute-likes",
+    "gmm-global-est", "train-deltas")
 
 
 def _register(sub):
@@ -1913,6 +3166,436 @@ def _register(sub):
     q.add_argument("--momentum", type=float, default=0.9)
     q.set_defaults(func=cmd_train_nnet3)
 
+    # --- FSTs and graphs (text interchange like the fstbin binaries)
+    def fst_io(name, transform):
+        qq = sub.add_parser(name)
+        qq.add_argument("fst_in")
+        qq.add_argument("fst_out")
+        qq.set_defaults(func=_fst_unary(transform))
+        return qq
+
+    q = fst_io("fst-determinize-star", _fst_determinize)
+    q.add_argument("--use-log", action="store_true")
+    q = fst_io("fst-rmepsilon", _fst_rmepsilon)
+    q.add_argument("--use-log", action="store_true")
+    fst_io("fst-minimize-encoded", _fst_minimize)
+    fst_io("fst-push-special", _fst_push)
+    q = fst_io("fst-arcsort", lambda fst, a: fst.arcsort(by=a.sort_type))
+    q.add_argument("--sort-type", default="ilabel",
+                   choices=["ilabel", "olabel"])
+    q = fst_io("fst-project",
+               lambda fst, a: fst.project(output=a.project_output))
+    q.add_argument("--project-output", action="store_true")
+    fst_io("fst-invert", lambda fst, a: fst.invert())
+    fst_io("fst-connect", lambda fst, a: fst.connect())
+    fst_io("fst-rmepslocal", _fst_rmepslocal)
+
+    q = sub.add_parser("fst-compose")
+    q.add_argument("a")
+    q.add_argument("b")
+    q.add_argument("fst_out")
+    q.add_argument("--table", action="store_true",
+                   help="table-compose (fsttablecompose)")
+    q.set_defaults(func=cmd_fst_compose)
+
+    for name, func in (("fst-shortest-path", cmd_fst_shortest_path),
+                       ("fst-info", cmd_fst_info)):
+        q = sub.add_parser(name)
+        q.add_argument("fst_in")
+        q.set_defaults(func=func)
+
+    q = sub.add_parser("arpa2fst")
+    q.add_argument("arpa")
+    q.add_argument("words")
+    q.add_argument("fst_out")
+    q.add_argument("--backoff-symbol", default="#0")
+    q.set_defaults(func=cmd_arpa2fst)
+
+    q = sub.add_parser("fst-compose-context")
+    q.add_argument("ilabels_out")
+    q.add_argument("fst_in")
+    q.add_argument("fst_out")
+    q.add_argument("--context-size", type=int, default=3)
+    q.add_argument("--central-position", type=int, default=1)
+    q.add_argument("--read-disambig-syms", default="")
+    q.set_defaults(func=cmd_fst_compose_context)
+
+    q = sub.add_parser("make-h-transducer")
+    q.add_argument("ilabels")
+    q.add_argument("model")
+    q.add_argument("fst_out")
+    q.add_argument("--disambig-syms-out", default="")
+    q.add_argument("--transition-scale", type=float, default=1.0)
+    q.set_defaults(func=cmd_make_h_transducer)
+
+    q = sub.add_parser("add-self-loops")
+    q.add_argument("model")
+    q.add_argument("fst_in")
+    q.add_argument("fst_out")
+    q.add_argument("--self-loop-scale", type=float, default=0.1)
+    q.add_argument("--disambig-syms", default="")
+    q.set_defaults(func=cmd_add_self_loops)
+
+    q = sub.add_parser("fst-rmsymbols")
+    q.add_argument("syms")
+    q.add_argument("fst_in")
+    q.add_argument("fst_out")
+    q.set_defaults(func=cmd_fst_rmsymbols)
+
+    q = sub.add_parser("fst-pack-graph")
+    q.add_argument("model")
+    q.add_argument("fst_in")
+    q.add_argument("graph_out")
+    q.set_defaults(func=cmd_fst_pack_graph)
+
+    q = sub.add_parser("fstcopy")
+    q.add_argument("fst_in")
+    q.add_argument("fst_out")
+    q.set_defaults(func=cmd_fst_copy)
+
+    q = sub.add_parser("fstisstochastic")
+    q.add_argument("fst_in")
+    q.add_argument("--delta", type=float, default=0.01)
+    q.set_defaults(func=cmd_fst_is_stochastic)
+
+    q = sub.add_parser("fst-phi-compose")
+    q.add_argument("phi_label", type=int)
+    q.add_argument("a")
+    q.add_argument("b")
+    q.add_argument("fst_out")
+    q.set_defaults(func=cmd_fst_phi_compose)
+
+    q = sub.add_parser("make-pdf-to-tid-transducer")
+    q.add_argument("model")
+    q.add_argument("fst_out")
+    q.set_defaults(func=cmd_make_pdf_to_tid_transducer)
+
+    q = sub.add_parser("transcripts-to-fsts")
+    q.add_argument("transcripts")
+    q.add_argument("fsts_out")
+    q.add_argument("--word-symbols", default="")
+    q.set_defaults(func=cmd_transcripts_to_fsts)
+
+    q = sub.add_parser("fsts-to-transcripts")
+    q.add_argument("fsts_in")
+    q.set_defaults(func=cmd_fsts_to_transcripts)
+
+    q = sub.add_parser("compile-train-graphs")
+    q.add_argument("model")
+    q.add_argument("text")
+    q.set_defaults(func=cmd_compile_train_graphs)
+
+    # --- HMMs and alignments
+    for name, func in (("hmm-info", cmd_hmm_info), ("am-info", cmd_am_info),
+                       ("gmm-info", cmd_am_info),
+                       ("show-transitions", cmd_show_transitions)):
+        q = sub.add_parser(name)
+        q.add_argument("model")
+        q.set_defaults(func=func)
+
+    q = sub.add_parser("show-alignments")
+    q.add_argument("model")
+    q.add_argument("ali_rspecifier")
+    q.set_defaults(func=cmd_show_alignments)
+
+    for name in ("gmm-copy", "copy-transition-model"):
+        q = sub.add_parser(name)
+        q.add_argument("model")
+        q.add_argument("model_out")
+        q.set_defaults(func=cmd_gmm_copy)
+
+    q = sub.add_parser("train-transitions")
+    q.add_argument("model")
+    q.add_argument("ali_rspecifier")
+    q.add_argument("model_out")
+    q.set_defaults(func=cmd_train_transitions)
+
+    q = sub.add_parser("ali-to-pdf")
+    q.add_argument("model")
+    q.add_argument("ali_rspecifier")
+    q.add_argument("wspecifier")
+    q.set_defaults(func=cmd_ali_to_pdf)
+
+    q = sub.add_parser("ali-to-phones")
+    q.add_argument("model")
+    q.add_argument("ali_rspecifier")
+    q.add_argument("--write-lengths", action="store_true")
+    q.add_argument("--ctm-output", action="store_true")
+    q.add_argument("--frame-shift", type=float, default=0.01)
+    q.set_defaults(func=cmd_ali_to_phones)
+
+    q = sub.add_parser("ali-to-post")
+    q.add_argument("ali_rspecifier")
+    q.add_argument("post_out")
+    q.set_defaults(func=cmd_ali_to_post)
+
+    q = sub.add_parser("convert-ali")
+    q.add_argument("old_model")
+    q.add_argument("new_model")
+    q.add_argument("ali_rspecifier")
+    q.add_argument("wspecifier")
+    q.set_defaults(func=cmd_convert_ali)
+
+    for name in ("analyze-counts", "pdf-to-counts"):
+        q = sub.add_parser(name)
+        q.add_argument("rspecifier")
+        q.add_argument("counts_out")
+        q.set_defaults(func=cmd_analyze_counts)
+
+    q = sub.add_parser("align-equal")
+    q.add_argument("model")
+    q.add_argument("text")
+    q.add_argument("rspecifier")
+    q.add_argument("wspecifier")
+    q.add_argument("--transition-scale", type=float, default=1.0)
+    q.add_argument("--self-loop-scale", type=float, default=0.1)
+    q.set_defaults(func=cmd_align_equal)
+
+    q = sub.add_parser("align-mapped")
+    q.add_argument("model")
+    q.add_argument("text")
+    q.add_argument("loglikes_rspecifier")
+    q.add_argument("wspecifier")
+    q.add_argument("--acoustic-scale", type=float, default=0.1)
+    q.set_defaults(func=cmd_align_mapped)
+
+    q = sub.add_parser("align-text")
+    q.add_argument("ref")
+    q.add_argument("hyp")
+    q.set_defaults(func=cmd_align_text)
+
+    # --- trees
+    q = sub.add_parser("acc-tree-stats")
+    q.add_argument("model")
+    q.add_argument("rspecifier")
+    q.add_argument("ali_rspecifier")
+    q.add_argument("stats_out")
+    q.add_argument("--context-width", type=int, default=3)
+    q.add_argument("--central-position", type=int, default=1)
+    q.add_argument("--ci-phones", default="",
+                   help="colon-separated context-independent phone ids "
+                        "(default: the model's silence phones)")
+    q.set_defaults(func=cmd_acc_tree_stats)
+
+    q = sub.add_parser("sum-tree-stats")
+    q.add_argument("stats_out")
+    q.add_argument("stats_in", nargs="+")
+    q.set_defaults(func=cmd_sum_tree_stats)
+
+    q = sub.add_parser("cluster-phones")
+    q.add_argument("stats")
+    q.add_argument("questions_out")
+    q.set_defaults(func=cmd_cluster_phones)
+
+    sil_roots = ["shared_not_split", "shared_split", "per_state"]
+    q = sub.add_parser("build-tree")
+    q.add_argument("model")
+    q.add_argument("stats")
+    q.add_argument("tree_out")
+    q.add_argument("--questions", default="",
+                   help="question-sets file (cluster-phones output); "
+                        "derived from the stats when absent")
+    q.add_argument("--max-leaves", type=int, default=500)
+    q.add_argument("--thresh", type=float, default=30.0)
+    q.add_argument("--cluster-thresh", type=float, default=-1.0)
+    q.add_argument("--sil-roots", default="shared_not_split",
+                   choices=sil_roots)
+    q.set_defaults(func=cmd_build_tree)
+
+    q = sub.add_parser("build-tree-two-level")
+    q.add_argument("model")
+    q.add_argument("tree_stats")
+    q.add_argument("questions")
+    q.add_argument("tree_out")
+    q.add_argument("map_out")
+    q.add_argument("--max-leaves-first", type=int, default=100)
+    q.add_argument("--max-leaves-second", type=int, default=400)
+    q.set_defaults(func=cmd_build_tree_two_level)
+
+    q = sub.add_parser("copy-tree")
+    q.add_argument("tree")
+    q.add_argument("tree_out")
+    q.set_defaults(func=cmd_copy_tree)
+
+    q = sub.add_parser("tree-info")
+    q.add_argument("model", help="tree file or GMM system npz")
+    q.set_defaults(func=cmd_tree_info)
+
+    q = sub.add_parser("gmm-init-model")
+    q.add_argument("model", help="source system (lang/topology)")
+    q.add_argument("tree")
+    q.add_argument("stats")
+    q.add_argument("model_out")
+    q.set_defaults(func=cmd_gmm_init_model)
+
+    q = sub.add_parser("train-deltas")
+    q.add_argument("model", help="alignment (mono) system")
+    q.add_argument("text")
+    q.add_argument("rspecifier")
+    q.add_argument("model_out")
+    q.add_argument("--num-iters", type=int, default=15)
+    q.add_argument("--totgauss", type=int, default=200)
+    q.add_argument("--num-leaves", type=int, default=50)
+    q.add_argument("--tree-thresh", type=float, default=30.0)
+    q.add_argument("--sil-roots", default="shared_not_split",
+                   choices=sil_roots)
+    q.set_defaults(func=cmd_train_deltas)
+
+    # --- GMMs
+    q = sub.add_parser("gmm-init-mono")
+    q.add_argument("lexicon")
+    q.add_argument("rspecifier")
+    q.add_argument("model_out")
+    q.add_argument("--sil-phone", default="SIL")
+    q.add_argument("--num-sil-states", type=int, default=3)
+    q.set_defaults(func=cmd_gmm_init_mono)
+
+    q = sub.add_parser("gmm-acc-stats-ali")
+    q.add_argument("model")
+    q.add_argument("rspecifier")
+    q.add_argument("ali_rspecifier")
+    q.add_argument("accs_out")
+    q.set_defaults(func=cmd_gmm_acc_stats_ali)
+
+    q = sub.add_parser("gmm-acc-stats")
+    q.add_argument("model")
+    q.add_argument("rspecifier")
+    q.add_argument("post_in")
+    q.add_argument("accs_out")
+    q.set_defaults(func=cmd_gmm_acc_stats)
+
+    q = sub.add_parser("gmm-acc-stats2")
+    q.add_argument("model")
+    q.add_argument("rspecifier")
+    q.add_argument("post_in")
+    q.add_argument("num_accs_out")
+    q.add_argument("den_accs_out")
+    q.set_defaults(func=cmd_gmm_acc_stats2)
+
+    q = sub.add_parser("gmm-sum-accs")
+    q.add_argument("accs_out")
+    q.add_argument("accs_in", nargs="+")
+    q.set_defaults(func=cmd_gmm_sum_accs)
+
+    q = sub.add_parser("gmm-scale-accs")
+    q.add_argument("scale", type=float)
+    q.add_argument("accs")
+    q.add_argument("accs_out")
+    q.set_defaults(func=cmd_gmm_scale_accs)
+
+    q = sub.add_parser("gmm-ismooth-stats")
+    q.add_argument("model")
+    q.add_argument("accs")
+    q.add_argument("accs_out")
+    q.add_argument("--tau", type=float, default=100.0)
+    q.set_defaults(func=cmd_gmm_ismooth_stats)
+
+    q = sub.add_parser("gmm-est")
+    q.add_argument("model")
+    q.add_argument("accs")
+    q.add_argument("model_out")
+    q.add_argument("--mix-up", type=int, default=0)
+    q.add_argument("--power", type=float, default=0.2)
+    q.add_argument("--min-gaussian-occupancy", type=float, default=10.0)
+    q.set_defaults(func=cmd_gmm_est)
+
+    q = sub.add_parser("gmm-est-gaussians-ebw")
+    q.add_argument("model")
+    q.add_argument("num_accs")
+    q.add_argument("den_accs")
+    q.add_argument("model_out")
+    q.add_argument("--E", type=float, default=2.0)
+    q.add_argument("--tau", type=float, default=100.0)
+    q.set_defaults(func=cmd_gmm_est_gaussians_ebw)
+
+    q = sub.add_parser("gmm-est-weights-ebw")
+    q.add_argument("model")
+    q.add_argument("num_accs")
+    q.add_argument("den_accs")
+    q.add_argument("model_out")
+    q.add_argument("--weight-tau", type=float, default=10.0)
+    q.set_defaults(func=cmd_gmm_est_weights_ebw)
+
+    q = sub.add_parser("gmm-boost-silence")
+    q.add_argument("silence_phones", help="colon-separated phone ids")
+    q.add_argument("model")
+    q.add_argument("model_out")
+    q.add_argument("--boost", type=float, default=1.0)
+    q.set_defaults(func=cmd_gmm_boost_silence)
+
+    q = sub.add_parser("gmm-mixup")
+    q.add_argument("model")
+    q.add_argument("model_out")
+    q.add_argument("--mix-up", type=int, required=True)
+    q.add_argument("--power", type=float, default=0.2)
+    q.add_argument("--occs", default="",
+                   help="gmm accs file supplying occupancies")
+    q.set_defaults(func=cmd_gmm_mixup)
+
+    q = sub.add_parser("gmm-gselect")
+    q.add_argument("ubm")
+    q.add_argument("rspecifier")
+    q.add_argument("gselect_out")
+    q.add_argument("--n", type=int, default=50)
+    q.set_defaults(func=cmd_gmm_gselect)
+
+    q = sub.add_parser("gmm-compute-likes")
+    q.add_argument("model")
+    q.add_argument("rspecifier")
+    q.add_argument("wspecifier")
+    q.set_defaults(func=cmd_gmm_compute_likes)
+
+    # --- global GMMs
+    q = sub.add_parser("gmm-global-get-post")
+    q.add_argument("model")
+    q.add_argument("rspecifier")
+    q.add_argument("post_out")
+    q.add_argument("--n", type=int, default=10)
+    q.add_argument("--min-post", type=float, default=0.0)
+    q.set_defaults(func=cmd_gmm_global_get_post)
+
+    for name, func in (("gmm-global-to-fgmm", cmd_gmm_global_to_fgmm),
+                       ("gmm-global-copy", cmd_gmm_global_copy)):
+        q = sub.add_parser(name)
+        q.add_argument("model")
+        q.add_argument("model_out")
+        q.set_defaults(func=func)
+
+    q = sub.add_parser("gmm-global-info")
+    q.add_argument("model")
+    q.set_defaults(func=cmd_gmm_global_info)
+
+    q = sub.add_parser("gmm-global-acc-stats-post")
+    q.add_argument("model")
+    q.add_argument("rspecifier")
+    q.add_argument("post_in")
+    q.add_argument("accs_out")
+    q.set_defaults(func=cmd_gmm_global_acc_stats_post)
+
+    q = sub.add_parser("gmm-global-acc-stats")
+    q.add_argument("model")
+    q.add_argument("rspecifier")
+    q.add_argument("accs_out")
+    q.set_defaults(func=cmd_gmm_global_acc_stats)
+
+    q = sub.add_parser("gmm-global-est")
+    q.add_argument("model")
+    q.add_argument("accs")
+    q.add_argument("model_out")
+    q.add_argument("--min-gaussian-occupancy", type=float, default=10.0)
+    q.set_defaults(func=cmd_gmm_global_est)
+
+    q = sub.add_parser("gmm-global-get-frame-likes")
+    q.add_argument("model")
+    q.add_argument("rspecifier")
+    q.add_argument("wspecifier")
+    q.set_defaults(func=cmd_gmm_global_get_frame_likes)
+
+    q = sub.add_parser("gmm-global-sum-accs")
+    q.add_argument("accs_out")
+    q.add_argument("accs_in", nargs="+")
+    q.set_defaults(func=cmd_gmm_global_sum_accs)
+
     q = sub.add_parser("recipe-yesno", help="synthetic yesno: features -> "
                        "mono training -> HCLG -> decode -> WER (exits 1 "
                        "unless WER == 0)")
@@ -1920,10 +3603,6 @@ def _register(sub):
                    help="JAX's option, unused there too: this recipe "
                         "writes no files")
     q.set_defaults(func=cmd_recipe_yesno)
-
-    for name in DEVICE_COMMANDS:
-        sub.choices[name].add_argument("--device", default="cuda",
-                                       help="torch device (default: cuda)")
 
 
 def main(argv=None) -> int:
@@ -1936,9 +3615,12 @@ def main(argv=None) -> int:
                                 description=__doc__.splitlines()[0])
     sub = p.add_subparsers(dest="cmd", required=True)
     _register(sub)
-    cli_nnet.register(sub)
-    cli_misc.register(sub)
-    cli_online_extra.register(sub)
+    for module in (cli_nnet, cli_misc, cli_fst, cli_gmm_extra,
+                   cli_online_extra):
+        module.register(sub)
+    for name in DEVICE_COMMANDS:
+        sub.choices[name].add_argument("--device", default="cuda",
+                                       help="torch device (default: cuda)")
     args = p.parse_args(argv)
     rc = args.func(args)
     if rc:

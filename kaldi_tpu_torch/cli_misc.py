@@ -2,7 +2,8 @@
 
 Counterpart of kaldi_tpu/cli_misc.py, holding the ported ones: per-frame
 weight algebra, matrix plumbing, VAD-driven segmentation, two-channel
-CMVN statistics and the card probes. All but the probes are host numpy,
+CMVN statistics, the tree tools (contexts, compiled questions, GraphViz)
+and the card probes. All but the probes are host numpy,
 writing JAX's bytes. Registered into the main parser by
 kaldi_tpu_torch.cli.main via register(sub).
 
@@ -13,6 +14,7 @@ kaldi_tpu_torch.cli.main via register(sub).
 from __future__ import annotations
 
 import contextlib
+import pickle
 import sys
 
 import numpy as np
@@ -185,6 +187,118 @@ def _cmvn_stats(x, w):
     return st.astype(np.float32)
 
 
+# ------------------------------------------------------------ trees
+
+def cmd_extract_ctx(args):
+    """Map phone-in-context events (from tree stats) to pdf-ids: lines
+    '<pdf-id> <pdf-class> <left> <center> <right>'
+    (ref: bin/extract-ctx.cc)."""
+    from kaldi_tpu_torch.io.model_io import load_tree, load_tree_stats
+    from kaldi_tpu_torch.tree.build_tree import KPDF_CLASS
+    stats, N, P = load_tree_stats(args.tree_stats)
+    ctx = load_tree(args.tree)
+    syms = {}
+    if args.phone_symbols:
+        with open(args.phone_symbols) as f:
+            for line in f:
+                toks = line.split()
+                if len(toks) >= 2:
+                    syms[int(toks[1])] = toks[0]
+    lines = []
+    for ev in stats:
+        e = dict(ev)
+        pdf_class = e.pop(KPDF_CLASS)
+        window = [e[pos] for pos in sorted(e)]
+        pdf = ctx.event_map.map(dict(ev)) if hasattr(ctx, "event_map") \
+            else ctx.compute(window, pdf_class)
+        if pdf is None:
+            continue
+        phones = " ".join(syms.get(p, str(p)) for p in window)
+        lines.append((pdf, f"{pdf} {pdf_class} {phones}"))
+    for _pdf, line in sorted(lines):
+        print(line)
+    print(f"extract-ctx: {len(lines)} events", file=sys.stderr)
+
+
+def cmd_compile_questions(args):
+    """Questions text (one phone set per line) + pdf-class refinement
+    -> pickled Questions object consumable by build-tree
+    (ref: bin/compile-questions.cc)."""
+    from kaldi_tpu_torch.io.model_io import JaxNamePickler
+    from kaldi_tpu_torch.tree.build_tree import Questions
+    qsets = []
+    with open(args.questions_text) as f:
+        for line in f:
+            toks = line.split()
+            if toks:
+                qsets.append([int(t) for t in toks])
+    q = Questions(qsets, num_pdf_classes=args.num_pdf_classes,
+                  N=args.context_width, P=args.central_position)
+    with open(args.questions_out, "wb") as f:
+        JaxNamePickler(f, protocol=pickle.HIGHEST_PROTOCOL).dump(q)
+    print(f"compile-questions: {len(qsets)} phone questions, "
+          f"{args.num_pdf_classes} pdf-classes", file=sys.stderr)
+
+
+def cmd_draw_tree(args):
+    """GraphViz description of the decision tree
+    (ref: bin/draw-tree.cc)."""
+    from kaldi_tpu_torch.io.model_io import load_tree
+    from kaldi_tpu_torch.tree.event_map import (ConstantEventMap,
+                                                SplitEventMap,
+                                                TableEventMap)
+    from kaldi_tpu_torch.tree.build_tree import KPDF_CLASS
+    syms = {}
+    with open(args.phone_symbols) as f:
+        for line in f:
+            toks = line.split()
+            if len(toks) >= 2:
+                syms[int(toks[1])] = toks[0]
+    ctx = load_tree(args.tree)
+    em = getattr(ctx, "event_map", None)
+    lines = ["digraph tree {", "node [shape=box];"]
+    counter = [0]
+
+    def keyname(key):
+        return "pdf-class" if key == KPDF_CLASS else f"ctx{key}"
+
+    def phset(s):
+        return ",".join(syms.get(p, str(p)) for p in sorted(s))
+
+    def walk(node):
+        nid = counter[0]
+        counter[0] += 1
+        if isinstance(node, ConstantEventMap):
+            lines.append(f'n{nid} [label="pdf {node.answer}", '
+                         f'shape=ellipse];')
+        elif isinstance(node, SplitEventMap):
+            lines.append(f'n{nid} [label="{keyname(node.key)} in '
+                         f'{{{phset(node.yes_set)}}}?"];')
+            yid = walk(node.yes)
+            lines.append(f'n{nid} -> n{yid} [label="yes"];')
+            nid2 = walk(node.no)
+            lines.append(f'n{nid} -> n{nid2} [label="no"];')
+        elif isinstance(node, TableEventMap):
+            lines.append(f'n{nid} [label="table on '
+                         f'{keyname(node.key)}"];')
+            for val, child in sorted(node.table.items()):
+                cid = walk(child)
+                lines.append(
+                    f'n{nid} -> n{cid} '
+                    f'[label="{syms.get(val, str(val))}"];')
+        else:
+            lines.append(f'n{nid} [label="{type(node).__name__}"];')
+        return nid
+
+    if em is not None:
+        walk(em)
+    else:
+        # monophone tree: one leaf block per phone
+        lines.append('n0 [label="monophone tree"];')
+    lines.append("}")
+    print("\n".join(lines))
+
+
 # --------------------------------------------------------- device probes
 
 def cmd_cuda_compiled(args):
@@ -242,5 +356,14 @@ def register(sub):
         cmd_compute_cmvn_stats_two_channel,
         a("reco2file_and_channel"), a("rspecifier"), a("wspecifier"),
         a("--quieter-channel-weight", type=float, default=0.01))
+    add("extract-ctx", cmd_extract_ctx,
+        a("tree_stats"), a("tree"),
+        a("--phone-symbols", default=""))
+    add("compile-questions", cmd_compile_questions,
+        a("questions_text"), a("questions_out"),
+        a("--num-pdf-classes", type=int, default=3),
+        a("--context-width", type=int, default=3),
+        a("--central-position", type=int, default=1))
+    add("draw-tree", cmd_draw_tree, a("phone_symbols"), a("tree"))
     add("cuda-compiled", cmd_cuda_compiled)
     add("cuda-gpu-available", cmd_cuda_gpu_available)

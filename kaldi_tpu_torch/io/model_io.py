@@ -109,6 +109,22 @@ def _dumps(obj) -> bytes:
     return bytes(out)
 
 
+class JaxNamePickler(pickle._Pickler):
+    """The pure-Python pickler naming the port's classes by the JAX
+    package's modules, as `_dumps` does at protocol 2, for the pickles
+    that JAX writes at protocol 4 or later (`compile-questions`): the
+    result is JAX's byte for byte and loads there."""
+
+    def save_global(self, obj, name=None):
+        module = getattr(obj, "__module__", "")
+        if self.proto < 4 or not module.startswith(_PORT):
+            return super().save_global(obj, name)
+        self.save(_JAX + module[len(_PORT):])
+        self.save(name or obj.__qualname__)
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
 def _u8(b: bytes) -> np.ndarray:
     return np.frombuffer(b, dtype=np.uint8)
 

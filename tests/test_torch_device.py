@@ -799,6 +799,17 @@ def _cli_device_commands():
     return sorted(cli.DEVICE_COMMANDS + ("nnet-am-compute",))
 
 
+def test_cli_second_slice_device_commands_take_device():
+    """The second CLI slice's commands that build a device object (GMM
+    likelihoods, alignment, accumulation, model init, a full UBM's
+    eigenvalue floor, triphone training) are among those checked below."""
+    from kaldi_tpu_torch import cli
+    assert {"align-equal", "align-mapped", "gmm-init-mono",
+            "gmm-init-model", "gmm-init-model-flat", "gmm-acc-stats-ali",
+            "gmm-acc-stats", "gmm-acc-stats2", "gmm-compute-likes",
+            "gmm-global-est", "train-deltas"} <= set(_cli_device_commands())
+
+
 @pytest.mark.parametrize("name", _cli_device_commands())
 def test_cli_device_command_defaults_to_cuda_and_raises_without_a_card(
         name, tmp_path):

@@ -10,7 +10,8 @@ and deltas, the padded decoder, both fused engines, the nnet2 decoder
 with i-vectors), the dense decoder on the yesno HCLG, the port's
 `recipe-yesno` (the GMM path end to end), its `recipe-yesno-files` (the
 CLI's first slice over files) and one subcommand of each other group of
-that slice, and a small triphone run
+that slice and of the second (FSTs, GMMs, cli_fst, cli_gmm_extra), and a
+small triphone run
 (train_deltas from a monophone, its HCLG through the flat pipeline on the
 port's native graph ops, a decode) and two bMMI and two fMMI iterations
 from that triphone model run on the CPU; then two NG-SGD steps of a tiny
@@ -128,7 +129,8 @@ for n in ("kaldi_tpu_torch.cuda_build", "kaldi_tpu_torch.nnet.quantized",
           "kaldi_tpu_torch.online.compress",
           "kaldi_tpu_torch.online.gmm_decoding",
           "kaldi_tpu_torch.cli_online_extra", "kaldi_tpu_torch.cli_misc",
-          "kaldi_tpu_torch.cli_nnet",
+          "kaldi_tpu_torch.cli_nnet", "kaldi_tpu_torch.cli_fst",
+          "kaldi_tpu_torch.cli_gmm_extra",
           "kaldi_tpu_torch.fst.text_io", "kaldi_tpu_torch.fst.special",
           "kaldi_tpu_torch.fst.factor", "kaldi_tpu_torch.hmm.hmm_utils",
           "kaldi_tpu_torch.tree.synth", "kaldi_tpu_torch.decoder.simple",
@@ -253,7 +255,16 @@ with tempfile.TemporaryDirectory() as w, \
             ["nnet-am-compute", f"{w}/tdnn.npz", f"ark:{w}/test/feats.ark",
              f"ark:{w}/ll.ark", "--device", "cpu"],           # cli_nnet
             ["split-scp", f"{w}/test/wav.scp", "2", f"{w}/JOB.scp"],
-            ["info"]):                                        # data, probes
+            ["info"],                                         # data, probes
+            ["fstrand", f"{w}/r.fst", "--seed", "3"],         # cli_fst
+            ["fst-determinize-star", f"{w}/r.fst", f"{w}/d.fst"],  # FSTs
+            ["gmm-acc-stats-ali", f"{w}/mono.npz",
+             f"ark:{w}/train/feats.ark", f"ark:{w}/ali.ark",
+             f"{w}/acc.npz", "--device", "cpu"],              # GMMs
+            ["gmm-est", f"{w}/mono.npz", f"{w}/acc.npz",
+             f"{w}/mono1.npz"],
+            ["init-ubm", f"{w}/mono.npz", f"{w}/acc.npz",
+             f"{w}/ubm.npz", "--ubm-num-gauss", "4"]):        # gmm_extra
         assert cli.main(argv) == 0, argv
 from kaldi_tpu_torch.decoder.graph_pack import pack_graphs
 from kaldi_tpu_torch.fst.graph import TrainingGraphCompiler
