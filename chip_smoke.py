@@ -341,13 +341,17 @@ Phases (any failure raises and the script exits non-zero):
      information); (c) the self-built triphone graph at the full tree
      width (the port's copy of scripts/mkgraph_scale.py's `build`, 2,000
      words), verified and decoded card == CPU on seeded loglikes;
- 35. the CLI's first and second slices, small: every case of `CLI_CASES`
+ 35. the CLI's first three slices, small: every case of `CLI_CASES`
      (the first slice's feature, CMVN, table, matrix, vector, wave,
      data-dir and probe subcommands on seeded files; the second's device
      subcommands on a small yesno GMM system: alignments identical, model
      files array for array, accumulators within 1e-5, loglikes within
      1e-5 of their GEMM terms, a full UBM's update within 1e-9,
-     train-deltas by its counts) in-process with the default device
+     train-deltas by its counts; the third's on the same system:
+     latgen-faster-mapped's lattices with the same arcs and costs within
+     1e-4, gmm-latgen-faster, the biglm pair and decode-fmllr the same
+     words, gmm-rescore-lattice's costs within the loglikes' bound)
+     in-process with the default device
      (the card) and with --device cpu, host files byte-equal and device
      results within their parity tests' bounds; recipe-yesno-files on
      the card and on the CPU, WER 0 on the GMM and the streaming-TDNN
@@ -386,6 +390,26 @@ Phases (any failure raises and the script exits non-zero):
      words (its states logged beside mkgraph's: the text FSTs round
      weights to 7 digits); seconds by stage and command kind, file
      sizes; neither kernel launches (the dense decoder).
+ 38. Kaldi's egs/rm/s5 decode and scoring back half through the CLI's
+     files, on phase 37's tri model, primitive-built HCLG, G.txt and
+     test set: decode.sh (gmm-latgen-faster --determinize-lattice);
+     score.sh over LM weights 7, 10, 13 and penalties 0, 0.5
+     (lattice-scale, lattice-add-penalty, lattice-best-path, compute-wer)
+     and lattice-oracle; lmrescore_const_arpa.sh (arpa-to-const-arpa of
+     a trigram at LADDER_TRIGRAM's sizes and of the unigram,
+     lattice-lmrescore --lm-scale -1, lattice-lmrescore-const-arpa) and
+     gmm-latgen-biglm-faster; gmm-compute-likes and latgen-faster-mapped
+     into raw lattices; lattice-mbr-decode, lattice-to-ctm-conf,
+     lattice-to-post, weight-silence-post, post-to-weights,
+     post-to-pdf-post; KWS (lattice-to-kws-index on two shards,
+     kws-index-union, kws-search, compute-atwv against a forced
+     alignment's references); decode_fmllr.sh (decode-fmllr, 5
+     speakers); latgen-faster-mapped card == CPU on 8 utterances;
+     gmm-rescore-lattice. Best scored WER within LADDER_BARS' tri bar,
+     oracle within it; the identity rescoring keeps every best path and
+     gmm-rescore-lattice too (near-ties within their bounds counted);
+     the sharded index's hits == the unsharded one's; posteriors sum to 1
+     per frame, silence-weighted ones in [0, 1]; neither kernel launches.
 
 Phases 20, 22 (b) and 28 (b) save the inputs of the recipe witnesses
 (chiprun_out/sat_witness.pkl, smbr_witness.pkl, lvtln_witness.pkl; with
@@ -394,8 +418,8 @@ tests/test_torch_<name>_witness.py replays through JAX on a CPU.
 
 Two processes share the card. The phases that take nothing from phase
 20's ladder run in a second one (the script with --side-phases): the
-bench graph's chain (7, 8, 10, 13, 14, 34, 36, 18, 30 a and c), 37, then
-the small card-vs-CPU phases (5, 6, 9, 11, 12, 15, 17, 19, 21, 23, 25, 27,
+bench graph's chain (7, 8, 10, 13, 14, 34, 36, 18, 30 a and c), 37, 38,
+then the small card-vs-CPU phases (5, 6, 9, 11, 12, 15, 17, 19, 21, 23, 25, 27,
 29, 31, 33); this one runs 1-4, then 16, 20, 22, 24, 26, 28, 30 b, 32 and
 35 beside it, and prints the second's log after phase 35's. Each phase's
 start goes to stderr with the seconds since its process began; a run
@@ -7725,6 +7749,18 @@ def _oracle_wer(refs: list, lats) -> float:
     return 100.0 * edits / max(sum(len(r) for r in refs), 1)
 
 
+def kws_phrases(refs_w: list, words) -> set:
+    """KWS_PHRASES two-word phrases (word-id pairs) drawn from the
+    reference transcripts `refs_w` (word lists)."""
+    rng = np.random.RandomState(31)
+    phrases: set = set()
+    while len(phrases) < KWS_PHRASES:
+        ws = refs_w[rng.randint(len(refs_w))]
+        k = rng.randint(len(ws) - 1)
+        phrases.add((words[ws[k]], words[ws[k + 1]]))
+    return phrases
+
+
 def _kws_refs(ctms: dict, phrases: list) -> dict:
     """{keyword: [(utt, t_begin, t_end)]} from per-utterance ctms: every
     word's occurrences, and each two-word phrase's consecutive pairs."""
@@ -8058,12 +8094,7 @@ def phase_rescore_ladder(card: str, ld: dict) -> dict:
                         device="cuda")
     ctms = {u: words_to_ctm(a[0], [lang.words[w] for w in ws], tm, lex, sil)
             for (u, _f, ws), a in zip(M["test_l"], ali) if a is not None}
-    rng = np.random.RandomState(31)
-    phrases: set = set()
-    while len(phrases) < KWS_PHRASES:
-        ws = refs_w[rng.randint(len(refs_w))]
-        k = rng.randint(len(ws) - 1)
-        phrases.add((lang.words[ws[k]], lang.words[ws[k + 1]]))
+    phrases = kws_phrases(refs_w, lang.words)
     t = time.perf_counter()
     utts = [u for u, _f, _w in M["test_l"]]
     index = [lattice_to_kws_index(lat, u) for lat, u in zip(lats_l, utts)
@@ -9396,7 +9427,15 @@ CLI_PITCH_REL = 1e-6         # of each column's scale (test_torch_pitch_signal)
 CLI_ACC_REL = 1e-5           # GMM accumulators: of each array's largest value
 CLI_LL_REL = 1e-5            # GMM loglikes: of their GEMM terms (phases 17-20)
 CLI_EIGH_REL = 1e-9          # a full-covariance update's eigenvalue floor
+CLI_LAT_ATOL = 1e-4          # lattice costs (tests/test_torch_lattice.py)
+LAT_TEXT_REL = 1e-5          # two writes of a lattice cost at 6 digits
 CLI_SR = "8000"
+# the yesno decodes of the third slice's device cases: a tiny graph's search
+CLI_LATGEN = ["--beam", "14", "--max-active", "64", "--lattice-beam", "7"]
+YESNO_BIGRAM = ("\\data\\\nngram 1=4\nngram 2=4\n\n\\1-grams:\n-0.5\t</s>\n"
+                "-99\t<s>\t-0.3\n-0.4\tNO\t-0.2\n-0.4\tYES\t-0.2\n\n"
+                "\\2-grams:\n-0.2\t<s> NO\n-0.3\tNO YES\n-0.2\tYES NO\n"
+                "-0.5\tYES </s>\n\n\\end\\\n")
 
 
 def cli_call(argv) -> tuple[str, int, float, str]:
@@ -9486,11 +9525,12 @@ def cli_inputs(d: str):
 
 
 def cli_gmm_inputs(G, rng) -> None:
-    """The second slice's device commands' inputs under G(name): 8 yesno
-    utterances of MFCC + deltas, a monophone trained on them, its
-    alignments, posteriors (plain and signed), loglikes, tree statistics,
-    a 20-leaf tree, a full-covariance UBM and its statistics, all made
-    through the CLI on the CPU."""
+    """The second and third slices' device commands' inputs under
+    G(name): 8 yesno utterances of MFCC + deltas, a monophone trained on
+    them, its alignments, posteriors (plain and signed), loglikes, tree
+    statistics, a 20-leaf tree, a full-covariance UBM and its statistics,
+    its HCLG, G as a text FST, a bigram's const-ARPA, its raw lattices and
+    an utt2spk of two speakers, all made through the CLI on the CPU."""
     from kaldi_tpu_torch.io.wave import write_wave
     os.makedirs(G(), exist_ok=True)
     texts = []
@@ -9526,6 +9566,22 @@ def cli_gmm_inputs(G, rng) -> None:
              "--ubm-num-gauss", "4"],
             ["gmm-global-acc-stats", G("fubm.npz"), feats, G("facc.npz")]):
         _cli_ok(argv[0], cli_call(argv))
+    for name, text in (("lm.arpa", YESNO_ARPA), ("bigram.arpa", YESNO_BIGRAM)):
+        with open(G(name), "w") as f:
+            f.write(text)
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    load_gmm_system(G("mono.npz"), device="cpu").lang.words.write(
+        G("words.txt"))
+    for argv in (
+            ["mkgraph", G("mono.npz"), G("lm.arpa"), G("hclg.npz")],
+            ["arpa2fst", G("lm.arpa"), G("words.txt"), G("G.txt")],
+            ["arpa-to-const-arpa", G("words.txt"), G("bigram.arpa"),
+             G("bigram.npz")],
+            ["gmm-latgen-faster", G("mono.npz"), G("hclg.npz"), feats,
+             "--lattice-out", G("lat.ark"), *CLI_LATGEN, *cpu]):
+        _cli_ok(argv[0], cli_call(argv))
+    with open(G("utt2spk"), "w") as f:
+        f.writelines(f"y{i} s{i % 2}\n" for i in range(8))
     with open(G("post.txt")) as f, open(G("signed.txt"), "w") as g:
         for i, line in enumerate(f):
             toks = line.split()
@@ -9537,6 +9593,12 @@ def cli_gmm_inputs(G, rng) -> None:
 
 def _ark(P, n):
     return f"ark:{P(n)}"
+
+
+def word_id(words_txt: str, word: str) -> str:
+    """`word`'s id in a words.txt, as a command-line argument."""
+    with open(words_txt) as f:
+        return next(i for w, i in (ln.split() for ln in f) if w == word)
 
 
 # (name, argv(P, O), how the two runs compare, the ark compared): "bytes"
@@ -9741,6 +9803,35 @@ CLI_CASES = [
         "train-deltas", P("gmm", "mono.npz"), P("gmm", "text"),
         _ark(P, "gmm/feats.ark"), f"{O}/m.npz", "--num-leaves", "20",
         "--totgauss", "60", "--num-iters", "4"], "outcome", "m.npz"),
+    # the third slice's device commands on the same system: the lattices
+    # of one loglike file ("lattice") with the same nodes and arcs, costs
+    # within CLI_LAT_ATOL; the GMM decodes ("words") by their
+    # transcriptions and lattice best paths; the GMM rescoring
+    # ("rescored") with the same arcs, acoustic costs within the
+    # loglikes' bound plus the lattice text's rounding
+    ("latgen-faster-mapped", lambda P, O: [
+        "latgen-faster-mapped", P("gmm", "hclg.npz"), _ark(P, "gmm/likes.ark"),
+        "--lattice-out", f"{O}/lat.ark", *CLI_LATGEN], "lattice", "lat.ark"),
+    ("gmm-latgen-faster", lambda P, O: [
+        "gmm-latgen-faster", P("gmm", "mono.npz"), P("gmm", "hclg.npz"),
+        _ark(P, "gmm/feats.ark"), "--determinize-lattice", "--lattice-out",
+        f"{O}/lat.ark", "--transcription-out", f"{O}/hyp.txt", *CLI_LATGEN],
+     "words", "hyp.txt"),
+    *[(n, lambda P, O, n=n: [
+        n, P("gmm", "mono.npz"), P("gmm", "hclg.npz"), P("gmm", "G.txt"),
+        P("gmm", "bigram.npz"), _ark(P, "gmm/feats.ark"), "--backoff-symbol",
+        word_id(P("gmm", "words.txt"), "#0"), "--transcription-out",
+        f"{O}/hyp.txt", *CLI_LATGEN],
+       "words", "hyp.txt")
+      for n in ("gmm-latgen-biglm-faster", "gmm-decode-biglm-faster")],
+    ("gmm-rescore-lattice", lambda P, O: [
+        "gmm-rescore-lattice", P("gmm", "mono.npz"), P("gmm", "lat.ark"),
+        _ark(P, "gmm/feats.ark"), f"{O}/lat.ark"], "rescored", "lat.ark"),
+    ("decode-fmllr", lambda P, O: [
+        "decode-fmllr", P("gmm", "mono.npz"), P("gmm", "hclg.npz"),
+        _ark(P, "gmm/feats.ark"), P("gmm", "utt2spk"), "--transcription-out",
+        f"{O}/hyp.txt", "--fmllr-min-count", "50", "--beam", "14",
+        "--max-active", "64"], "words", "hyp.txt"),
 ]
 
 
@@ -9840,6 +9931,51 @@ def _cli_close(kind: str, g, w, fft=None) -> float:
     return float(diff.max(initial=0.0))
 
 
+def _lattice_arrays(lat):
+    """-> (node count, int arc columns [A, 4] (src, ilabel, olabel, dst)
+    sorted, their costs [A, 2] in that order, finals sorted)."""
+    n, src, il, ol, gc, ac, dst = lat.to_arrays()
+    ints = np.stack([np.asarray(a, np.int64) for a in (src, il, ol, dst)], 1)
+    costs = np.stack([np.asarray(gc, np.float64),
+                      np.asarray(ac, np.float64)], 1)
+    order = np.lexsort((costs[:, 1], costs[:, 0], ints[:, 3], ints[:, 2],
+                        ints[:, 1], ints[:, 0]))
+    finals = sorted((int(s), float(g), float(a))
+                    for s, (g, a) in lat.finals.items())
+    return n, ints[order], costs[order], finals
+
+
+def lattices_within(a: str, b: str, name: str, atol, rel: float = 0.0
+                    ) -> float:
+    """Two lattice arks (the card's, then the CPU's): the same keys, and
+    each lattice with the same node count and sorted (src, ilabel, olabel,
+    dst) arcs, its arc and final costs within `atol` (a number, or one
+    per key) plus `rel` of the lattice's largest cost, as
+    tests/test_torch_lattice.py's `_same_lattice` holds the port to JAX.
+    -> the worst cost difference."""
+    from kaldi_tpu_torch.lat.io import read_lattice_ark
+    la, lb = (dict(read_lattice_ark(p)) for p in (a, b))
+    if list(la) != list(lb) or not lb:
+        raise AssertionError(f"{name}: lattice keys differ")
+    worst = 0.0
+    for k in lb:
+        (na, ia, ca, fa), (nb, ib, cb, fb) = (_lattice_arrays(x)
+                                              for x in (la[k], lb[k]))
+        if na != nb or not np.array_equal(ia, ib) or \
+                [f[0] for f in fa] != [f[0] for f in fb]:
+            raise AssertionError(f"{name} {k}: the lattices differ")
+        got = np.concatenate([ca.ravel(), np.ravel([f[1:] for f in fa])])
+        want = np.concatenate([cb.ravel(), np.ravel([f[1:] for f in fb])])
+        diff = float(np.abs(got - want).max(initial=0.0))
+        tol = (atol[k] if isinstance(atol, dict) else atol) \
+            + rel * float(np.abs(want).max(initial=0.0))
+        if not diff <= tol:
+            raise AssertionError(f"{name} {k}: lattice costs {diff:.3e} "
+                                 f"apart, past {tol:.3e}")
+        worst = max(worst, diff)
+    return worst
+
+
 def cli_compare(kind: str, dirs: dict, out: dict, name: str,
                 ark: str | None, fft: dict | None = None) -> float:
     """Two runs of one subcommand (dirs/out by side, "card" and "cpu"):
@@ -9848,6 +9984,8 @@ def cli_compare(kind: str, dirs: dict, out: dict, name: str,
     a device command. -> worst diff."""
     from kaldi_tpu_torch.io.kaldi_io import read_ark
     from kaldi_tpu_torch.io.wave import read_wave
+    from kaldi_tpu_torch.lat.functions import lattice_best_path
+    from kaldi_tpu_torch.lat.io import read_lattice_ark
     dc, dp = dirs["card"], dirs["cpu"]
     if out["card"][1] != out["cpu"][1]:
         raise AssertionError(f"{name}: exit codes {out['card'][1]} / "
@@ -9874,6 +10012,27 @@ def cli_compare(kind: str, dirs: dict, out: dict, name: str,
                 [int(w["num_pdfs"]), _num_gauss(w)]:
             raise AssertionError(f"{name}: pdf or gaussian counts differ")
         return 0.0
+    if kind == "words":
+        if _cli_files(dc) != _cli_files(dp) or out["card"][0] != \
+                out["cpu"][0] or open(os.path.join(dc, ark)).read() != \
+                open(os.path.join(dp, ark)).read():
+            raise AssertionError(f"{name}: card and CPU words differ")
+        if "lat.ark" in _cli_files(dc):
+            best = [{k: lattice_best_path(lat)[0] for k, lat in
+                     read_lattice_ark(os.path.join(d, "lat.ark"))}
+                    for d in (dc, dp)]
+            if best[0] != best[1]:
+                raise AssertionError(f"{name}: lattice best paths differ")
+        return 0.0
+    if kind == "lattice":
+        if out["card"][0] != out["cpu"][0]:
+            raise AssertionError(f"{name}: card and CPU words differ")
+        return lattices_within(os.path.join(dc, ark), os.path.join(dp, ark),
+                               name, CLI_LAT_ATOL)
+    if kind == "rescored":
+        return lattices_within(os.path.join(dc, ark), os.path.join(dp, ark),
+                               name, {k: 0.1 * float(b.max()) for k, b in
+                                      fft.items()}, LAT_TEXT_REL)
     if kind in ("npz", "accs", "eigh"):
         if _cli_files(dc) != _cli_files(dp) or out["card"][0] != \
                 out["cpu"][0]:
@@ -10058,7 +10217,7 @@ def cli_card_vs_cpu(root: str, card: str = "cuda") -> dict:
         fft = None
         if kind in ("spec", "fbank", "mfcc"):
             fft, kind = cli_fft_bounds(P, kind), "feat"
-        elif kind == "gmm":
+        elif kind in ("gmm", "rescored"):
             fft = cli_gmm_bounds(P)
         elif kind == "accs":
             fft = cli_acc_bounds(P, name, card)
@@ -10235,8 +10394,8 @@ def build_scratch() -> str:
 
 
 def phase_cli_small() -> None:
-    """Phase 35: every device subcommand of the CLI's first two slices and
-    the first slice's host ones on small inputs on the card and with
+    """Phase 35: every device subcommand of the CLI's first three slices
+    and the first slice's host ones on small inputs on the card and with
     --device cpu (host files byte-equal, device results within their
     parity bound), the file-driven yesno recipe on
     the card, --fused against the generic pipeline, train-nnet3's round
@@ -10440,19 +10599,21 @@ LADDER_CLI_KIND = {
 
 def ladder_cli_files(d: str, corpus: dict) -> dict:
     """A data dir per set in Kaldi's layout under d (8 kHz wav files,
-    wav.scp, text), the lexicon and the unigram ARPA over the corpus'
+    wav.scp, text, utt2spk), the lexicon and the unigram ARPA over the corpus'
     words (phase 20's LM). -> {"train": (utt ids), "test": (...)}."""
     from kaldi_tpu_torch.io.wave import write_wave
     utts = {}
     for part in ("train", "test"):
         os.makedirs(os.path.join(d, part), exist_ok=True)
         with open(os.path.join(d, part, "wav.scp"), "w") as scp, \
-                open(os.path.join(d, part, "text"), "w") as text:
-            for u, wave, ws, _spk in corpus[part]:
+                open(os.path.join(d, part, "text"), "w") as text, \
+                open(os.path.join(d, part, "utt2spk"), "w") as u2s:
+            for u, wave, ws, spk in corpus[part]:
                 path = os.path.join(d, part, f"{u}.wav")
                 write_wave(path, wave, GMM_SR)
                 scp.write(f"{u} {path}\n")
                 text.write(f"{u} {' '.join(ws)}\n")
+                u2s.write(f"{u} {spk}\n")
         utts[part] = sorted(u for u, _w, _ws, _s in corpus[part])
     V = corpus["words"]
     with open(os.path.join(d, "lexicon.txt"), "w") as f:
@@ -10502,7 +10663,9 @@ def phase_ladder_cli(card: str) -> dict:
     states are logged beside mkgraph's: see the note at the graphs' log
     line);
     neither kernel launches (make_decoder picks the dense decoder for the
-    triphone graph)."""
+    triphone graph). -> its results and its directory ("dir"), which
+    phase 38 reads and then removes (it is removed here if this phase
+    fails)."""
     import shutil
     from kaldi_tpu_torch.fst.text_io import save_fst
     from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, write_ark
@@ -10698,8 +10861,9 @@ def phase_ladder_cli(card: str) -> dict:
                   "graph.npz", "mk_graph.npz"):
             sizes[n] = os.path.getsize(P(n))
         mono_g, tri_g = (model(m).am.total_gauss for m in (mono, tri))
-    finally:
+    except BaseException:
         shutil.rmtree(d, ignore_errors=True)
+        raise
     total = time.perf_counter() - t0
     n_calls = sum(calls.values())
     log(f"  {len(utts['train'])} training utterances ({n_frames} frames), "
@@ -10740,8 +10904,420 @@ def phase_ladder_cli(card: str) -> dict:
         (f"gather launched {gather} times", gather == 0),
         (f"qaffine launched {qaffine} times", qaffine == 0)) if not ok]
     if fails:
+        shutil.rmtree(d, ignore_errors=True)
         raise AssertionError(f"phase 37: {fails}")
     return {"wer": {"mono": w_mono, "tri": w_tri}, "stages": stages,
+            "kinds": kinds, "seconds": total, "launches": {
+                "gather": gather, "qaffine": qaffine},
+            "dir": d, "tri": tri, "frames_test": sum(
+                v.shape[0] for _k, v in open_rspecifier(TF))}
+
+
+# phase 38: Kaldi's egs/rm/s5 decode and scoring back half
+# (steps/decode.sh -> local/score.sh -> steps/lmrescore_const_arpa.sh ->
+# confidences, ctm and posteriors -> KWS -> steps/decode_fmllr.sh) through
+# the port's CLI over phase 37's files: its tri model, primitive-built
+# HCLG, G.txt, words.txt, lm.arpa and test set
+# the padded beam search of the lattice decodes: at LADDER_CLI_DECODE's
+# beam 14 it prunes the right words of 15 of the 40 test utterances (WER
+# 20.61 in a CPU rehearsal, 17.98 at beam 16, 7.46 at 20, 3.95 at 24,
+# 1.32 at 30; on an H100's tri model 10.09 at 24), where phase 37's
+# dense decoder searches every state (1.75 on the rehearsal's model)
+LATTICE_CLI_SEARCH = ["--beam", "30", "--max-active", "1024",
+                      "--acoustic-scale", "0.1"]
+LATTICE_CLI_LMWT = (7, 10, 13)          # local/score.sh's sweep, cut to 3
+LATTICE_CLI_WIP = ("0.0", "0.5")
+LATTICE_CLI_RECHECK = 8                 # utterances decoded card vs CPU
+G_TEXT_REL = 5e-7                       # a weight at 7 significant digits
+LATTICE_CLI_KIND = {
+    "gmm-latgen-faster": "decode", "latgen-faster-mapped": "decode",
+    "gmm-latgen-biglm-faster": "decode", "decode-fmllr": "decode",
+    "gmm-compute-likes": "decode", "gmm-align": "decode",
+    "lattice-scale": "lattice", "lattice-add-penalty": "lattice",
+    "lattice-best-path": "lattice", "lattice-oracle": "lattice",
+    "lattice-mbr-decode": "lattice", "lattice-to-ctm-conf": "lattice",
+    "compute-wer": "lattice", "arpa-to-const-arpa": "rescore",
+    "lattice-lmrescore": "rescore", "lattice-lmrescore-const-arpa": "rescore",
+    "gmm-rescore-lattice": "rescore", "lattice-to-post": "post",
+    "post-to-weights": "post", "weight-silence-post": "post",
+    "post-to-pdf-post": "post", "lattice-to-kws-index": "kws",
+    "kws-index-union": "kws", "kws-search": "kws", "compute-atwv": "kws"}
+
+
+def arpa_text(lm) -> str:
+    """An ArpaLm as ARPA text (log10 probabilities and backoffs at 7
+    significant digits)."""
+    lines = ["\\data\\"] + [f"ngram {k + 1}={len(d)}"
+                            for k, d in enumerate(lm.ngrams)]
+    for k, d in enumerate(lm.ngrams):
+        lines += ["", f"\\{k + 1}-grams:"]
+        for ws, (lp, bo) in d.items():
+            lines.append(f"{lp / np.log(10):.7g}\t{' '.join(ws)}" + (
+                "" if bo is None else f"\t{bo / np.log(10):.7g}"))
+    return "\n".join(lines + ["", "\\end\\", ""])
+
+
+def best_path_abs(lat) -> float:
+    """The sum of |graph cost| + |acoustic cost| over the arcs and final
+    weight of `lat`'s best path: what a relative rounding of each written
+    cost scales."""
+    best = {lat.start: (0.0, 0.0)}
+    for s in lat.topological_order():
+        if s not in best:
+            continue
+        c, ab = best[s]
+        for a in lat.arcs[s]:
+            nc = c + a.graph_cost + a.acoustic_cost
+            if a.nextstate not in best or nc < best[a.nextstate][0]:
+                best[a.nextstate] = (nc, ab + abs(a.graph_cost)
+                                     + abs(a.acoustic_cost))
+    return min(((best[s][0] + g + ac, best[s][1] + abs(g) + abs(ac))
+                for s, (g, ac) in lat.finals.items() if s in best),
+               default=(0.0, 0.0))[1]
+
+
+def phase_lattice_cli(card: str, lc: dict) -> dict:
+    """Phase 38: phase 37's files (`lc["dir"]`, removed at the end)
+    through the port's CLI in the shape of Kaldi's decode and scoring
+    scripts, on the card unless a step says otherwise:
+    steps/decode.sh (gmm-latgen-faster with --determinize-lattice at
+    LATTICE_CLI_SEARCH, as are the other lattice decodes); local/score.sh
+    over LATTICE_CLI_LMWT x LATTICE_CLI_WIP (lattice-scale,
+    lattice-add-penalty, lattice-best-path, compute-wer) and
+    lattice-oracle; steps/lmrescore_const_arpa.sh
+    (arpa-to-const-arpa of LADDER_TRIGRAM's trigram and of lm.arpa,
+    lattice-lmrescore --lm-scale -1 with G.txt, lattice-lmrescore-const-arpa
+    with the unigram, an identity, and with the trigram) and
+    gmm-latgen-biglm-faster; the tri model's loglikes (gmm-compute-likes)
+    through latgen-faster-mapped into raw lattices, which the frame-level
+    tools read (the determinized lattices carry each word's transition ids
+    as a string on an arc without an input label); lattice-mbr-decode,
+    lattice-to-ctm-conf; lattice-to-post -> post-to-weights and
+    weight-silence-post -> post-to-weights -> post-to-pdf-post; KWS over
+    the 120 words and KWS_PHRASES phrases with references from a forced
+    alignment (gmm-align, words_to_ctm, phase 30's `_kws_refs`):
+    lattice-to-kws-index on two shards and unsharded, kws-index-union,
+    kws-search, compute-atwv; steps/decode_fmllr.sh (decode-fmllr over
+    the 5 test speakers); latgen-faster-mapped on the first
+    LATTICE_CLI_RECHECK utterances on the card and with --device cpu;
+    gmm-rescore-lattice of the raw lattices. Asserts the best scored WER
+    within LADDER_BARS' tri bar and the oracle within it, the identity
+    rescoring's best paths (near-ties within its bound counted), the
+    union's hits equal to the unsharded index's, posteriors summing to 1
+    per frame and silence-weighted ones in [0, 1], card == CPU within
+    CLI_LAT_ATOL, gmm-rescore-lattice's best paths (near-ties within the
+    loglikes' bound counted) and no kernel launch."""
+    import shutil
+    from kaldi_tpu_torch.hmm.posterior import post_to_weights, read_post_ark
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, write_ark
+    from kaldi_tpu_torch.io.model_io import load_const_arpa, load_gmm_system
+    from kaldi_tpu_torch.lat.align import words_to_ctm
+    from kaldi_tpu_torch.lat.functions import lattice_best_path
+    from kaldi_tpu_torch.lat.io import read_lattice_ark, write_lattice_ark
+    from kaldi_tpu_torch.lm.synth import synth_trigram_arpa
+    from kaldi_tpu_torch.nnet import quantized as q
+    from kaldi_tpu_torch.ops import table_gather as tg
+
+    t0 = time.perf_counter()
+    d = lc["dir"]
+    P = lambda *n: os.path.join(d, *n)                       # noqa: E731
+    kinds = dict.fromkeys(("decode", "lattice", "rescore", "post", "kws"),
+                          0.0)
+    calls = dict.fromkeys(kinds, 0)
+    stages, sizes, failed = {}, {}, []
+
+    def run(*argv):
+        r = _cli_ok(argv[0], cli_call(list(argv)))
+        kinds[LATTICE_CLI_KIND[argv[0]]] += r[2]
+        calls[LATTICE_CLI_KIND[argv[0]]] += 1
+        return r
+
+    def wer_of(ref: str, hyp: str) -> float:
+        return float(run("compute-wer", ref, hyp)[0].split()[1])
+
+    def lats(name):
+        return dict(read_lattice_ark(P(name)))
+
+    q.launches = tg.launches = 0          # count this phase's path only
+    try:
+        tri, graph = P(lc["tri"]), P("graph.npz")
+        TF = f"ark:{P('test', 'feats.ark')}"
+        model = load_gmm_system(tri, device="cpu")
+        words = model.lang.words
+        bo = word_id(P("words.txt"), "#0")
+        refs = _hyp_words(P("test", "text"))
+        with open(P("test", "text_int"), "w") as f:
+            f.writelines(f"{u} {' '.join(str(words[w]) for w in ws)}\n"
+                         for u, ws in refs.items())
+
+        # steps/decode.sh
+        t = time.perf_counter()
+        run("gmm-latgen-faster", tri, graph, TF, "--determinize-lattice",
+            "--lattice-out", P("det.ark"), "--transcription-out",
+            P("hyp_lat.txt"), "--lattice-beam", str(LATTICE_BEAM),
+            *LATTICE_CLI_SEARCH)
+        w_lat = wer_of(P("test", "text"), P("hyp_lat.txt"))
+        hyp_lat, hyp_37 = (_hyp_words(P(h)) for h in ("hyp_lat.txt",
+                                                      "hyp_tri.txt"))
+        n_other = sum(hyp_lat.get(u) != ws for u, ws in hyp_37.items())
+        stages["decode.sh"] = time.perf_counter() - t
+
+        # local/score.sh: the lattices hold acoustic costs at the decode's
+        # acoustic scale (0.1), so Kaldi's --inv-acoustic-scale LMWT is
+        # --acoustic-scale 1 / (0.1 LMWT) here (steps/score.py's sweep)
+        t = time.perf_counter()
+        grid = {}
+        for lmwt in LATTICE_CLI_LMWT:
+            run("lattice-scale", P("det.ark"), P("scaled.ark"),
+                "--acoustic-scale", repr(1.0 / (0.1 * lmwt)))
+            for wip in LATTICE_CLI_WIP:
+                run("lattice-add-penalty", P("scaled.ark"), P("pen.ark"),
+                    "--word-ins-penalty", wip)
+                with open(P("hyp_int.txt"), "w") as f:
+                    f.write(run("lattice-best-path", P("pen.ark"))[0])
+                grid[(lmwt, wip)] = wer_of(P("test", "text_int"),
+                                           P("hyp_int.txt"))
+        (b_lmwt, b_wip), w_best = min(grid.items(), key=lambda kv: kv[1])
+        orc = run("lattice-oracle", P("det.ark"), P("test", "text_int"))
+        w_orc = float(orc[3].split("%oracle-WER ")[1].split()[0])
+        stages["score.sh"] = time.perf_counter() - t
+
+        # steps/lmrescore_const_arpa.sh, then the biglm decode
+        t = time.perf_counter()
+        V = sorted({ln.split()[0] for ln in open(P("lexicon.txt"))})
+        with open(P("tri.arpa"), "w") as f:
+            f.write(arpa_text(synth_trigram_arpa(
+                V, LADDER_TRIGRAM["n_bigrams"], LADDER_TRIGRAM["n_trigrams"],
+                rng=np.random.default_rng(LADDER_TRIGRAM["seed"]))))
+        for lm, out in (("tri.arpa", "tri.clm.npz"),
+                        ("lm.arpa", "uni.clm.npz")):
+            run("arpa-to-const-arpa", P("words.txt"), P(lm), P(out))
+        run("lattice-lmrescore", P("det.ark"), P("G.txt"), P("noG.ark"),
+            "--lm-scale", "-1", "--backoff-symbol", bo)
+        for lm, out in (("uni.clm.npz", "ident.ark"),
+                        ("tri.clm.npz", "trigram.ark")):
+            run("lattice-lmrescore-const-arpa", tri, P(lm), P("noG.ark"),
+                P(out))
+        with open(P("hyp_int.txt"), "w") as f:
+            f.write(run("lattice-best-path", P("trigram.ark"))[0])
+        w_tri = wer_of(P("test", "text_int"), P("hyp_int.txt"))
+        uni = load_const_arpa(P("uni.clm.npz"))
+        # the largest cost the unigram gives a word or </s> (phase 30 b)
+        c_max = max([abs(uni.step(uni.start_state(), words[w])[1])
+                     for w in V] + [abs(uni.final_cost(s))
+                                    for s in range(uni.num_states)])
+        det, ident = lats("det.ark"), lats("ident.ark")
+        ties = 0
+        for u, lat in det.items():
+            old, new = lattice_best_path(lat), lattice_best_path(ident[u])
+            n = len(old[0]) + 1
+            # phase 30 b's f32 bound, G.txt's 7 digits (the words, </s>
+            # and one backoff), two more writes of each graph cost
+            bound = n * 2.0 ** -23 * c_max + 64 * F64_EPS * abs(old[2]) \
+                + (n + 1) * G_TEXT_REL * c_max \
+                + LAT_TEXT_REL * best_path_abs(ident[u])
+            gap = abs(new[2] - old[2])
+            if list(new[0]) != list(old[0]) and gap <= bound:
+                ties += 1
+                log(f"  {u}: the identity rescoring's best path differs "
+                    f"within its bound (gap {gap:.3e}, bound {bound:.3e})")
+            elif gap > bound:
+                failed.append(f"identity rescoring moved {u}'s best path "
+                              f"by {gap:.3e} > {bound:.3e}")
+        run("gmm-latgen-biglm-faster", tri, graph, P("G.txt"),
+            P("tri.clm.npz"), TF, "--backoff-symbol", bo,
+            "--transcription-out", P("hyp_big.txt"), "--lattice-beam",
+            str(LATTICE_BEAM), *LATTICE_CLI_SEARCH)
+        w_big = wer_of(P("test", "text"), P("hyp_big.txt"))
+        stages["lmrescore_const_arpa.sh"] = time.perf_counter() - t
+
+        # the raw lattices: the tri model's loglikes, then the padded
+        # search on them
+        t = time.perf_counter()
+        run("gmm-compute-likes", tri, TF, f"ark:{P('likes.ark')}")
+        run("latgen-faster-mapped", graph, f"ark:{P('likes.ark')}",
+            "--lattice-out", P("raw.ark"), "--lattice-beam",
+            str(LATTICE_BEAM), *LATTICE_CLI_SEARCH)
+        stages["raw lattices"] = time.perf_counter() - t
+
+        # confidences, ctm and posteriors
+        t = time.perf_counter()
+        mbr = run("lattice-mbr-decode", P("det.ark"), "--acoustic-scale",
+                  "1.0")[0]
+        with open(P("hyp_mbr.txt"), "w") as f:
+            for ln in mbr.splitlines():
+                u, *ws = ln.split()
+                f.write(" ".join([u] + [w.split(":")[0] for w in ws]) + "\n")
+        w_mbr = wer_of(P("test", "text_int"), P("hyp_mbr.txt"))
+        ctm = run("lattice-to-ctm-conf", P("raw.ark"), "--acoustic-scale",
+                  "1.0")[0].splitlines()
+        sil = str(model.lang.phones["SIL"])
+        run("lattice-to-post", P("raw.ark"), P("post.txt"),
+            "--acoustic-scale", "0.1")
+        run("post-to-weights", P("post.txt"), f"ark:{P('pw.ark')}")
+        run("weight-silence-post", "0.0", sil, tri, P("post.txt"),
+            P("wpost.txt"))
+        run("post-to-weights", P("wpost.txt"), f"ark:{P('wpw.ark')}")
+        run("post-to-pdf-post", tri, P("wpost.txt"), P("pdf_post.txt"))
+        w1 = np.concatenate([v for _k, v in open_rspecifier(
+            f"ark:{P('pw.ark')}")])
+        ww = np.concatenate([v for _k, v in open_rspecifier(
+            f"ark:{P('wpw.ark')}")])
+        post_dev = float(np.abs(w1 - 1.0).max())
+        if not post_dev <= 1e-4:
+            failed.append(f"lattice-to-post's weights {post_dev:.3e} off 1")
+        if not (ww.min() >= -1e-4 and ww.max() <= 1 + 1e-4):
+            failed.append(f"silence-weighted posteriors in [{ww.min()}, "
+                          f"{ww.max()}]")
+        if len(w1) != lc["frames_test"]:
+            failed.append(f"posteriors over {len(w1)} frames, not "
+                          f"{lc['frames_test']}")
+        n_pdf = sum(len(p) for _u, p in read_post_ark(P("pdf_post.txt")))
+        stages["confidence and posteriors"] = time.perf_counter() - t
+
+        # KWS: references from a forced alignment of the test text
+        t = time.perf_counter()
+        run("gmm-align", tri, P("test", "text"), TF, f"ark:{P('ali.ark')}")
+        lex: dict = {}
+        for line in open(P("lexicon.txt")):
+            w, *pron = line.split()
+            lex.setdefault(words[w], []).append(
+                tuple(model.lang.phones[p] for p in pron))
+        sil_set = frozenset({model.lang.phones["SIL"]})
+        tm = model.trans_model
+        ctms = {u: words_to_ctm(np.asarray(a, np.int64),
+                                [words[w] for w in refs[u]], tm, lex,
+                                sil_set)
+                for u, a in open_rspecifier(f"ark:{P('ali.ark')}")}
+        phrases = kws_phrases(list(refs.values()), words)
+        keywords = [(words[w],) for w in V] + sorted(phrases)
+        kwid = {kw: f"KW{i:03d}" for i, kw in enumerate(keywords)}
+        with open(P("keywords.txt"), "w") as f:
+            f.writelines(f"{kwid[kw]} {' '.join(map(str, kw))}\n"
+                         for kw in keywords)
+        with open(P("kws_ref.txt"), "w") as f:
+            for kw, occ in sorted(_kws_refs(ctms, phrases).items()):
+                f.writelines(f"{kwid[kw]} {u} {tb} {te}\n"
+                             for u, tb, te in occ)
+        raw = lats("raw.ark")
+        keys = list(raw)
+        half = len(keys) // 2
+        for j, part in enumerate((keys[:half], keys[half:])):
+            write_lattice_ark(P(f"raw.{j + 1}.ark"),
+                              {u: raw[u] for u in part})
+            run("lattice-to-kws-index", P(f"raw.{j + 1}.ark"),
+                P(f"index.{j + 1}"))
+        run("kws-index-union", P("index.union"), P("index.1"), P("index.2"))
+        run("lattice-to-kws-index", P("raw.ark"), P("index.all"))
+        hits = run("kws-search", P("index.union"), P("keywords.txt"),
+                   "--index")[0]
+        hits_all = run("kws-search", P("index.all"), P("keywords.txt"),
+                       "--index")[0]
+        if sorted(hits.splitlines()) != sorted(hits_all.splitlines()):
+            failed.append("the union's kws-search hits differ from the "
+                          "unsharded index's")
+        with open(P("kws_hits.txt"), "w") as f:
+            f.write(hits)
+        dur = lc["frames_test"] / 100.0
+        atwv = run("compute-atwv", repr(dur), P("kws_ref.txt"),
+                   P("kws_hits.txt"))[0].splitlines()
+        twv = {ln.split()[0]: float(ln.split()[1]) for ln in atwv[:2]}
+        stages["kws"] = time.perf_counter() - t
+
+        # steps/decode_fmllr.sh
+        t = time.perf_counter()
+        run("decode-fmllr", tri, graph, TF, P("test", "utt2spk"),
+            "--transcription-out", P("hyp_fmllr.txt"), *LADDER_CLI_DECODE)
+        w_fmllr = wer_of(P("test", "text"), P("hyp_fmllr.txt"))
+        n_spk = len({ln.split()[1] for ln in open(P("test", "utt2spk"))})
+        stages["decode_fmllr.sh"] = time.perf_counter() - t
+
+        # card against CPU; the GMM rescoring of the raw lattices
+        t = time.perf_counter()
+        likes = list(open_rspecifier(f"ark:{P('likes.ark')}"))
+        write_ark(P("likes8.ark"), dict(likes[:LATTICE_CLI_RECHECK]))
+        out = {}
+        for side, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+            out[side] = run("latgen-faster-mapped", graph,
+                            f"ark:{P('likes8.ark')}", "--lattice-out",
+                            P(f"lat8_{side}.ark"), "--lattice-beam",
+                            str(LATTICE_BEAM), *LATTICE_CLI_SEARCH, *extra)
+        if out["card"][0] != out["cpu"][0]:
+            failed.append("latgen-faster-mapped: card and CPU words differ")
+        lat_diff = lattices_within(P("lat8_card.ark"), P("lat8_cpu.ark"),
+                                   "latgen-faster-mapped", CLI_LAT_ATOL)
+        run("gmm-rescore-lattice", tri, P("raw.ark"), TF, P("rescored.ark"))
+        resc = lats("rescored.ark")
+        feats = dict(open_rspecifier(TF))
+        r_ties = 0
+        for u, lat in raw.items():
+            old, new = lattice_best_path(lat), lattice_best_path(resc[u])
+            bound = 0.1 * CLI_LL_REL * float(gmm_term_scale(
+                model.am, feats[u]).max(axis=-1).sum()) \
+                + LAT_TEXT_REL * best_path_abs(resc[u])
+            gap = abs(new[2] - old[2])
+            if list(new[1]) != list(old[1]) and gap <= bound:
+                r_ties += 1
+                log(f"  {u}: gmm-rescore-lattice's best path differs "
+                    f"within the loglikes' bound (gap {gap:.3e}, bound "
+                    f"{bound:.3e})")
+            elif gap > bound:
+                failed.append(f"gmm-rescore-lattice moved {u}'s best path "
+                              f"by {gap:.3e} > {bound:.3e}")
+        stages["card vs cpu, rescoring"] = time.perf_counter() - t
+        gather, qaffine = tg.launches, q.launches
+        arcs = {n: sum(x.num_arcs for x in lats(n).values())
+                for n in ("det.ark", "raw.ark", "trigram.ark")}
+        for n in ("det.ark", "raw.ark", "trigram.ark", "likes.ark",
+                  "tri.arpa", "tri.clm.npz", "uni.clm.npz", "index.union",
+                  "post.txt", "pdf_post.txt"):
+            sizes[n] = os.path.getsize(P(n))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    total = time.perf_counter() - t0
+    log(f"  {len(det)} test utterances through {sum(calls.values())} CLI "
+        f"calls in {total:.3f} s | card: {card}")
+    log("  seconds by step: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stages.items()))
+    log("  seconds by command kind (calls): " + ", ".join(
+        f"{k} {v:.3f} ({calls[k]})" for k, v in kinds.items()))
+    log("  lattice arcs: " + ", ".join(f"{k} {v}" for k, v in arcs.items())
+        + " | file sizes (bytes): " + ", ".join(
+            f"{k} {v}" for k, v in sizes.items()))
+    log(f"  gmm-latgen-faster: WER {w_lat:.2f}, {n_other} of {len(hyp_37)} "
+        f"utterances in other words than phase 37's decode-faster")
+    log("  score.sh (acoustic scale 1/(0.1 lmwt)): " + ", ".join(
+        f"lmwt {k[0]} wip {k[1]} {v:.2f}" for k, v in grid.items())
+        + f"; best {w_best:.2f} at lmwt {b_lmwt}, wip {b_wip}; oracle "
+        f"{w_orc:.2f}")
+    log(f"  lmrescore_const_arpa.sh: trigram WER {w_tri:.2f}; the identity "
+        f"rescoring keeps every best path ({ties} near-ties); "
+        f"gmm-latgen-biglm-faster WER {w_big:.2f}")
+    log(f"  MBR WER {w_mbr:.2f}; ctm {len(ctm)} words; posteriors over "
+        f"{len(w1)} frames, sum off 1 by at most {post_dev:.3e}, "
+        f"silence-weighted in [{ww.min():.6f}, {ww.max():.6f}]; "
+        f"{n_pdf} pdf-posterior entries")
+    log(f"  KWS: {len(keywords)} keywords ({len(V)} words + {len(phrases)} "
+        f"phrases), {len(hits.splitlines())} hits, ATWV {twv['ATWV']:.4f}, "
+        f"STWV {twv['STWV']:.4f} over {dur:.2f} s; the two shards' union "
+        f"== the unsharded index")
+    log(f"  decode-fmllr over {n_spk} speakers: WER {w_fmllr:.2f}")
+    log(f"  latgen-faster-mapped on {LATTICE_CLI_RECHECK} utterances, card "
+        f"vs --device cpu: costs within {lat_diff:.3e} (limit "
+        f"{CLI_LAT_ATOL}); gmm-rescore-lattice keeps every best path "
+        f"({r_ties} near-ties); launches: gather {gather}, qaffine "
+        f"{qaffine}")
+    failed += [msg for msg, ok in (
+        (f"best scored WER {w_best} > {LADDER_BARS['tri']}",
+         w_best <= LADDER_BARS["tri"]),
+        (f"oracle WER {w_orc} > best {w_best}", w_orc <= w_best),
+        (f"gather launched {gather} times", gather == 0),
+        (f"qaffine launched {qaffine} times", qaffine == 0)) if not ok]
+    if failed:
+        raise AssertionError(f"phase 38: {failed}")
+    return {"wer": {"latgen": w_lat, "best": w_best, "oracle": w_orc,
+                    "trigram": w_tri, "biglm": w_big, "mbr": w_mbr,
+                    "fmllr": w_fmllr}, "atwv": twv, "stages": stages,
             "kinds": kinds, "seconds": total, "launches": {
                 "gather": gather, "qaffine": qaffine}}
 
@@ -10962,8 +11538,8 @@ def build_native() -> list[str]:
 def side_phases() -> int:
     """The second process (`SIDE_FLAG`): the bench graph's chain (phases
     7, 8, 10, 13, 14, 34, 36, 18, 30 a and c), the CLI's GMM recipe at the
-    ladder's width (37), then the SMALL_PHASES; the launch counts go to
-    SIDE_RESULTS."""
+    ladder's width (37) and its decode and scoring back half (38), then
+    the SMALL_PHASES; the launch counts go to SIDE_RESULTS."""
     import torch
     from kaldi_tpu_torch.device import card_info, resolve_device
     from kaldi_tpu_torch.nnet import quantized as q
@@ -10972,42 +11548,46 @@ def side_phases() -> int:
     torch.set_num_threads(SIDE_THREADS)
     card = card_info()
     profile = "--profile" in sys.argv[1:]
-    log_phase("[7/37] full-width serving slice (bf16 TDNN)")
+    log_phase("[7/38] full-width serving slice (bf16 TDNN)")
     sl = phase_slice(tg, card, profile=profile)
-    log_phase("[8/37] full-width int8 serving slice")
+    log_phase("[8/38] full-width int8 serving slice")
     s8 = phase_int8_slice(q, tg, sl, card)
-    log_phase("[10/37] streaming server, full width")
+    log_phase("[10/38] streaming server, full width")
     st = phase_stream_full(tg, sl, card, profile=profile)
-    log_phase("[13/37] training, full width: the bench's AM with the port's "
+    log_phase("[13/38] training, full width: the bench's AM with the port's "
               "train step")
     tr = phase_train_full(sl, card, profile=profile)
-    log_phase("[14/37] lattice path, full width (latgen at the bench's "
+    log_phase("[14/38] lattice path, full width (latgen at the bench's "
               "point)")
     lt = phase_lattice_full(tg, sl, tr, card)
-    log_phase("[34/37] decoder tools at the bench graph's width: the "
+    log_phase("[34/38] decoder tools at the bench graph's width: the "
               "verifiers over its tier tables, decode_batched with phase 13's "
               "AM, the self-built triphone graph")
     tl = phase_tools_full(tg, sl, tr, card)
-    log_phase("[36/37] the bench decode through files: compute-fbank-feats "
+    log_phase("[36/38] the bench decode through files: compute-fbank-feats "
               "-> compute-cmvn-stats / apply-cmvn -> nnet-am-compute with "
               "phase 13's AM -> decode-faster-mapped on the bench graph -> "
               "compute-wer")
     cb = phase_cli_bench(tg, sl, tr, tl, card)
-    log_phase("[18/37] GMM path, full width: monophone training, the dense "
+    log_phase("[18/38] GMM path, full width: monophone training, the dense "
               "decoder's serving lines")
     phase_gmm_full(tr, card, profile=profile)
-    log_phase("[30/37] (a, c) rescoring at width: bench.py's 1.13M-n-gram "
+    log_phase("[30/38] (a, c) rescoring at width: bench.py's 1.13M-n-gram "
               "trigram over phase 14's lattices with the truncation audit; "
               "features on the bench's test waves")
     phase_rescore_bench(card, lt)
-    log_phase("[37/37] Kaldi's train_mono.sh -> train_deltas.sh -> "
+    log_phase("[37/38] Kaldi's train_mono.sh -> train_deltas.sh -> "
               "mkgraph.sh -> decode through the CLI's files at the triphone "
               "ladder's width")
     lc = phase_ladder_cli(card)
+    log_phase("[38/38] Kaldi's decode.sh -> score.sh -> "
+              "lmrescore_const_arpa.sh -> confidences, posteriors, KWS -> "
+              "decode_fmllr.sh through the CLI's files on phase 37's")
+    lt38 = phase_lattice_cli(card, lc)
     for k, what, fn in SMALL_PHASES:
         if k == 31:
             socket.setdefaulttimeout(SOCKET_TIMEOUT_S)
-        log_phase(f"[{k}/37] {what}")
+        log_phase(f"[{k}/38] {what}")
         globals()[fn]()
     with open(SIDE_RESULTS, "w") as f:
         json.dump({"slice": sl["launches"], "int8": s8["launches"],
@@ -11017,7 +11597,8 @@ def side_phases() -> int:
                    "tools_graph": tl["graph_launches"],
                    "cli": cb["launches"],
                    "cli_shapes": cb["gather_times"],
-                   "ladder_cli": lc["launches"]}, f)
+                   "ladder_cli": lc["launches"],
+                   "lattice_cli": lt38["launches"]}, f)
     log(f"the second process's phases in "
         f"{time.perf_counter() - T_START:.1f} s")
     return 0
@@ -11074,7 +11655,7 @@ def main() -> int:
 
     resolve_device("cuda")                # also turns TF32 off
     card = card_info()
-    log_phase(f"[1/37] card: {card} | torch {torch.__version__} CUDA "
+    log_phase(f"[1/38] card: {card} | torch {torch.__version__} CUDA "
               f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
               f"{torch.cuda.device_count()}")
 
@@ -11084,7 +11665,7 @@ def main() -> int:
         native = ex.submit(build_native)
         libs = cuda_build.build()
         native = native.result()
-    log_phase(f"[2/37] build: {len(libs)} kernels (one nvcc each) and "
+    log_phase(f"[2/38] build: {len(libs)} kernels (one nvcc each) and "
               f"{len(native)} g++ libraries, all at once, in "
               f"{time.perf_counter() - t:.3f} s")
     for name, so in libs.items():
@@ -11093,45 +11674,45 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]
         log(f"  {os.path.relpath(so, ROOT)}: {' | '.join(regs)}")
 
-    log_phase("[3/37] table-gather kernel vs plain version")
+    log_phase("[3/38] table-gather kernel vs plain version")
     k = phase_kernel(tg)
-    log_phase("[4/37] qaffine kernel vs plain version")
+    log_phase("[4/38] qaffine kernel vs plain version")
     qk = phase_qaffine(q)
     side = start_side_phases()            # beside the phases below
     try:
-        log_phase("[16/37] online path, full width "
+        log_phase("[16/38] online path, full width "
                   "(scripts/bench_streaming.py's configuration)")
         on = phase_online_full(tg, card, profile="--profile" in sys.argv[1:])
-        log_phase("[20/37] triphone ladder, full width: mono -> tri -> "
+        log_phase("[20/38] triphone ladder, full width: mono -> tri -> "
                   "LDA+MLLT -> TDNN, and SAT")
         ld = phase_ladder_full(card, profile="--profile" in sys.argv[1:])
-        log_phase("[22/37] discriminative path, full width: the rm-like "
+        log_phase("[22/38] discriminative path, full width: the rm-like "
                   "pyramid with bMMI and fMMI, then bMMI and TDNN sMBR on the "
                   "ladder's models")
         dk = phase_disc_full(card, ld, profile="--profile" in sys.argv[1:])
-        log_phase("[24/37] nnet3 and nnet1 families at the ladder's width: "
+        log_phase("[24/38] nnet3 and nnet1 families at the ladder's width: "
                   "nnet3 TDNN and LSTM, the wide LSTM, the DBN")
         nn = phase_nnet_full(card, ld, profile="--profile" in sys.argv[1:])
-        log_phase("[26/37] speaker recognition at sre10's width (2048 "
+        log_phase("[26/38] speaker recognition at sre10's width (2048 "
                   "gaussians, 600-dim i-vectors, 60-dim features): v1 and v2, "
                   "then logistic regression")
         sr = phase_sre_full(card, ld)
-        log_phase("[28/37] adaptation and SGMM2 at the ladder's width: raw, "
+        log_phase("[28/38] adaptation and SGMM2 at the ladder's width: raw, "
                   "basis, regression-tree and global fMLLR, MLLR, LVTLN, "
                   "HLDA; SGMM2 at egs/rm's sgmm2_4a widths, bMMI, SGMM fMLLR")
         ad = phase_adapt_sgmm_full(card, ld)
-        log_phase("[30/37] (b) search at width: the ladder's lattices "
+        log_phase("[30/38] (b) search at width: the ladder's lattices "
                   "through rescoring, scoring, MBR, ctm, KWS and "
                   "decode_biglm")
         rs = phase_rescore_ladder(card, ld)
         socket.setdefaulttimeout(SOCKET_TIMEOUT_S)
-        log_phase("[32/37] network serving at phase 16's configuration: its "
+        log_phase("[32/38] network serving at phase 16's configuration: its "
                   "AM and HCLG through the port's files, the TCP server over "
                   "6 concurrent connections (also through µ-law and ADPCM), "
                   "the threaded decoder, the online GMM decoder over phase "
                   "20's tri, the CLI")
         sv = phase_serving_full(tg, card, on, ld)
-        log_phase("[35/37] the CLI's first and second slices, small: every "
+        log_phase("[35/38] the CLI's first three slices, small: every "
                   "device subcommand and the first slice's host ones on the "
                   "card and with --device cpu, recipe-yesno-files on the "
                   "card, --fused vs the generic pipeline, train-nnet3's "
@@ -11158,14 +11739,16 @@ def main() -> int:
         f"6 connections), {sd['tools']} in phase 34's decode_batched and "
         f"{sd['tools_graph']} on its self-built graph, {sd['cli']} in phase "
         f"36's decode-faster-mapped, {sd['ladder_cli']['gather']} in phase "
-        f"37's CLI recipe; qaffine {sd['int8']} "
+        f"37's CLI recipe, {sd['lattice_cli']['gather']} in phase 38's; "
+        f"qaffine {sd['int8']} "
         f"on the int8 slice, "
         f"{sr['qaffine_launches']} on the speaker-recognition path's, 0 on "
         f"the adaptation and SGMM path's, on the rescoring path's and on "
         f"the server's, the decoder tools' and the CLI's (phases 27-30 and "
-        f"32-36 assert it), {sd['ladder_cli']['qaffine']} in phase 37's")
+        f"32-36 assert it), {sd['ladder_cli']['qaffine']} in phase 37's, "
+        f"{sd['lattice_cli']['qaffine']} in phase 38's")
     faulthandler.cancel_dump_traceback_later()
-    log(f"all 37 phases in {time.perf_counter() - T_START:.1f} s")
+    log(f"all 38 phases in {time.perf_counter() - T_START:.1f} s")
     log(card)
     log(json.dumps({"kernels": [{
         "name": "batched_table_gather", "route": "cuda",
@@ -11205,7 +11788,8 @@ def main() -> int:
         "tools_launches": sd["tools"],
         "tools_graph_launches": sd["tools_graph"],
         "cli_launches": sd["cli"], "cli_shapes": sd["cli_shapes"],
-        "ladder_cli_launches": sd["ladder_cli"]["gather"]}, {
+        "ladder_cli_launches": sd["ladder_cli"]["gather"],
+        "lattice_cli_launches": sd["lattice_cli"]["gather"]}, {
         "name": "qaffine", "route": "cuda",
         "source": "kaldi_tpu_torch/csrc/qaffine.cu",
         "replaces": "kaldi_tpu/nnet/quantized.py:46",
@@ -11221,7 +11805,8 @@ def main() -> int:
         "sre_launches": sr["qaffine_launches"],
         "adapt_sgmm_launches": 0, "rescore_launches": 0,
         "server_launches": 0, "tools_launches": 0, "cli_launches": 0,
-        "ladder_cli_launches": sd["ladder_cli"]["qaffine"]}]}))
+        "ladder_cli_launches": sd["ladder_cli"]["qaffine"],
+        "lattice_cli_launches": sd["lattice_cli"]["qaffine"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

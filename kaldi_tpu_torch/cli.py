@@ -11,17 +11,21 @@ kaldi_tpu/cli_online_extra.py (`cli_online_extra.py`); the first CLI
 slice: feature extraction, CMVN, feature tables, matrices, vectors and
 transforms, waves and data-dir utilities, the card probes, monophone /
 TDNN / nnet3 training, alignment, graph building and decoding, and the
-file-driven yesno recipe; and the second: the FST and graph primitives
+file-driven yesno recipe; the second: the FST and graph primitives
 that utils/mkgraph.sh drives, HMM and alignment tools, trees, and the
 GMM and global-GMM primitives of steps/train_mono.sh and
-train_deltas.sh (`cli_misc.py`, `cli_nnet.py`, `cli_fst.py` and
-`cli_gmm_extra.py` hold the commands that JAX keeps there). Commands
+train_deltas.sh; and the third: lattice generation and rescoring
+(steps/decode.sh, decode_fmllr.sh, lmrescore_const_arpa.sh), the lattice
+tools and n-best lists of local/score.sh and the confidence tools,
+posteriors, keyword search and pronunciations (`cli_misc.py`,
+`cli_nnet.py`, `cli_fst.py`, `cli_gmm_extra.py` and `cli_tail.py` hold
+the commands that JAX keeps there). Commands
 read and write the JAX package's files: arks through `io/kaldi_io.py`,
 models through `io/model_io.py`. Every command that builds a device
 object takes `--device` (default: cuda) and raises without a card; host
 commands (copies, selections, statistics, numpy arithmetic, FSTs, trees,
-the GMM updates and the global GMMs, which JAX scores on the host) write
-JAX's bytes.
+the GMM updates and the global GMMs, which JAX scores on the host, and
+lattices, posteriors and KWS indexes) write JAX's bytes.
 `--config=FILE` expands as util/parse-options.h:44 does.
 """
 
@@ -37,7 +41,7 @@ import numpy as np
 import torch
 
 from kaldi_tpu_torch import (cli_fst, cli_gmm_extra, cli_misc, cli_nnet,
-                             cli_online_extra)
+                             cli_online_extra, cli_tail)
 
 
 def _expand_config_args(argv):
@@ -2673,6 +2677,1278 @@ def cmd_gmm_global_sum_accs(args):
           file=sys.stderr)
 
 
+# ------------------------------------------------ lattice generation
+
+def _latgen_from_loglikes(packed, keys, ll, nf, args, dev, sym=None):
+    """Shared latgen tail: the padded beam search's lattice decode of a
+    [B, T, P] loglike batch on `dev`, optional word-level
+    determinization, best-path transcriptions (int ids, or words via
+    `sym`), optional lattice ark (ref: decoder/decoder-wrappers.cc
+    DecodeUtteranceLattice*)."""
+    from kaldi_tpu_torch.decoder.beam_search import BeamSearchDecoder
+    from kaldi_tpu_torch.lat.functions import (DeterminizeLatticeOverflow,
+                                               determinize_lattice,
+                                               lattice_best_path)
+    from kaldi_tpu_torch.lat.generate import decode_to_lattices
+    from kaldi_tpu_torch.lat.io import write_lattice_ark
+    dec = BeamSearchDecoder(packed, _beam_opts(args), device=dev)
+    lats = decode_to_lattices(dec, ll, nf, lattice_beam=args.lattice_beam)
+    if args.determinize_lattice:
+        # the reference default: every raw lattice is determinized to
+        # word level before writing; on blowup keep the raw lattice
+        # (gmm-latgen-faster --determinize-lattice=true,
+        #  decoder-wrappers.cc:267,283)
+        det = []
+        for lat in lats:
+            if lat is None:
+                det.append(None)
+                continue
+            try:
+                det.append(determinize_lattice(lat, beam=args.lattice_beam))
+            except DeterminizeLatticeOverflow as e:
+                print(f"warning: {e}; keeping raw lattice",
+                      file=sys.stderr)
+                det.append(lat)
+        lats = det
+    trans_out = getattr(args, "transcription_out", "")
+    out = open(trans_out, "w") if trans_out else sys.stdout
+    for b, k in enumerate(keys):
+        if lats[b] is None:
+            out.write(f"{k}\n")
+            continue
+        res = lattice_best_path(lats[b])
+        ws = res[0] if res else []
+        txt = " ".join(sym(w) if sym else str(w) for w in ws)
+        out.write(f"{k} {txt}\n")
+    if trans_out:
+        out.close()
+    if args.lattice_out:
+        write_lattice_ark(args.lattice_out,
+                          {k: lats[b] for b, k in enumerate(keys)})
+
+
+def _gmm_loglikes(model, items):
+    """[(key, feats)] -> ([B, T, P] f32 loglikes scored on the model's
+    device with the padding masked, so that no path survives past an
+    utterance's end; [B] int32 frame counts)."""
+    feats, nf = _pad_batch(items)
+    ll = model.am.loglikes_np(feats)
+    for b in range(len(items)):
+        ll[b, nf[b]:] = -1e10
+    return ll, nf
+
+
+def cmd_latgen_faster_mapped(args):
+    """Lattice-generating decode from precomputed pdf log-likelihood
+    matrices (ref: bin/latgen-faster-mapped.cc — the decodable is a
+    matrix, the graph maps tids to pdf rows) by the padded beam search
+    on the device. Writes int transcriptions to stdout and, with
+    --lattice-out, text lattices."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import load_hclg
+    dev = _device(args)
+    packed = load_hclg(args.graph)
+    items = list(open_rspecifier(args.loglikes_rspecifier))
+    ll, nf = _pad_batch(items, fill=-1e10)
+    _latgen_from_loglikes(packed, [k for (k, _m) in items], ll, nf, args,
+                          dev)
+
+
+def cmd_gmm_latgen_faster(args):
+    """Lattice-generating GMM decode straight from features — the
+    reference's #1 entry point (ref: gmmbin/gmm-latgen-faster.cc); the
+    loglikes and the search run on the device. Optional --utt2spk +
+    --transform applies per-speaker fMLLR before scoring (the
+    steps/decode_fmllr.sh second pass)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, read_ark
+    from kaldi_tpu_torch.io.model_io import load_gmm_system, load_hclg
+    from kaldi_tpu_torch.transform.fmllr import apply_affine_transform
+    dev = _device(args)
+    model = load_gmm_system(args.model, device=dev)
+    packed = load_hclg(args.graph)
+    items = list(open_rspecifier(args.rspecifier))
+    if args.transform:
+        trans = {k: np.asarray(v, np.float64)
+                 for (k, v) in read_ark(args.transform)}
+        utt2spk = _read_utt2spk(args.utt2spk)
+        items = [(k, _to_host(apply_affine_transform(
+                      f, trans[utt2spk.get(k, k)], dev))
+                  if utt2spk.get(k, k) in trans else f)
+                 for (k, f) in items]
+    ll, nf = _gmm_loglikes(model, items)
+    _latgen_from_loglikes(packed, [k for (k, _f) in items], ll, nf, args,
+                          dev, sym=model.lang.words.sym)
+
+
+def cmd_decode_fmllr(args):
+    """Two-pass fMLLR decoding: SI first pass, per-speaker fMLLR from
+    first-pass alignments, adapted second pass, by the decoder
+    `make_decoder` picks for the graph, on the device
+    (ref: steps/decode_fmllr.sh; gmm-est-fmllr + gmm-latgen-faster)."""
+    from kaldi_tpu_torch.decoder.dense import make_decoder
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import load_gmm_system, load_hclg
+    from kaldi_tpu_torch.steps.sat import SatModel, decode_fmllr
+    dev = _device(args)
+    model = load_gmm_system(args.model, device=dev)
+    packed = load_hclg(args.graph)
+    utt2spk = _read_utt2spk(args.utt2spk)
+    utts = [(k, f.astype(np.float32), utt2spk.get(k, k))
+            for (k, f) in open_rspecifier(args.rspecifier)]
+    dec = make_decoder(packed, _beam_opts(args), device=dev)
+    hyps = decode_fmllr(SatModel(model, {}), dec, utts, model.lang,
+                        acoustic_scale=args.acoustic_scale,
+                        fmllr_min_count=args.fmllr_min_count)
+    out = open(args.transcription_out, "w") if args.transcription_out \
+        else sys.stdout
+    for (k, _f, _s) in utts:
+        words = " ".join(model.lang.words.sym(w) for w in hyps.get(k, []))
+        out.write(f"{k} {words}\n")
+    if args.transcription_out:
+        out.close()
+
+
+def cmd_gmm_rescore_lattice(args):
+    """Replace lattice acoustic costs with this GMM's likelihoods, scored
+    on the device (ref: gmmbin/gmm-rescore-lattice.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    from kaldi_tpu_torch.lat.io import read_lattice_ark, write_lattice_ark
+    from kaldi_tpu_torch.lat.posteriors import rescore_lattice
+    model = load_gmm_system(args.model, device=_device(args))
+    feats = dict(open_rspecifier(args.rspecifier))
+    out = {}
+    for key, lat in read_lattice_ark(args.lattice_ark):
+        if key not in feats:
+            continue
+        ll = model.am.loglikes_np(feats[key].astype(np.float32)[None])[0]
+        out[key] = rescore_lattice(lat, ll.astype(np.float64),
+                                   model.trans_model,
+                                   acoustic_scale=args.acoustic_scale)
+    write_lattice_ark(args.out_ark, out)
+    print(f"gmm-rescore-lattice: {len(out)}", file=sys.stderr)
+
+
+def cmd_gmm_latgen_biglm_faster(args):
+    """Decode with a small-LM graph on the device, rescore exactly under
+    a big const-arpa LM on the host (decode-then-rescore realisation of
+    the reference's on-the-fly composition; ref:
+    gmmbin/gmm-latgen-biglm-faster.cc, kaldi_tpu_torch/decoder/biglm.py
+    for the semantics bound)."""
+    from kaldi_tpu_torch.decoder.beam_search import BeamSearchDecoder
+    from kaldi_tpu_torch.decoder.biglm import decode_biglm
+    from kaldi_tpu_torch.fst.text_io import load_fst
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import (load_const_arpa,
+                                             load_gmm_system, load_hclg)
+    dev = _device(args)
+    model = load_gmm_system(args.model, device=dev)
+    packed = load_hclg(args.graph)
+    old_g = load_fst(args.old_g)
+    new_lm = load_const_arpa(args.new_lm)
+    dec = BeamSearchDecoder(packed, _beam_opts(args), device=dev)
+    items = list(open_rspecifier(args.rspecifier))
+    ll, nf = _gmm_loglikes(model, items)
+    results = decode_biglm(dec, ll, nf, old_g,
+                           backoff_label=args.backoff_symbol,
+                           new_lm=new_lm, lm_scale=args.lm_scale,
+                           lattice_beam=args.lattice_beam)
+    _write_transcripts(args, [k for (k, _f) in items], results,
+                       model.lang.words.sym)
+
+
+# ------------------------------------------- language-model rescoring
+
+def cmd_arpa_to_const_arpa(args):
+    """Build and save the packed const-arpa LM artifact
+    (ref: lmbin/arpa-to-const-arpa.cc)."""
+    from kaldi_tpu_torch.lm.arpa import ArpaLm
+    from kaldi_tpu_torch.lm.const_arpa import ConstArpaLm
+    from kaldi_tpu_torch.io.model_io import save_const_arpa
+    from kaldi_tpu_torch.fst.fst import SymbolTable
+    words = SymbolTable.read(args.words)
+    with open(args.arpa) as f:
+        clm = ConstArpaLm(ArpaLm.parse(f.read()), words)
+    save_const_arpa(args.out, clm)
+    print(f"arpa-to-const-arpa: {len(clm.row_lo) - 1} states, "
+          f"{len(clm.col_word)} transitions", file=sys.stderr)
+
+
+def cmd_lattice_lmrescore_const_arpa(args):
+    """Replace/interpolate LM scores via a const-arpa LM
+    (ref: latbin/lattice-lmrescore-const-arpa.cc)."""
+    from kaldi_tpu_torch.lat.io import read_lattice_ark, write_lattice_ark
+    from kaldi_tpu_torch.lm.arpa import ArpaLm
+    from kaldi_tpu_torch.lm.const_arpa import (ConstArpaLm,
+                                               lattice_lmrescore_const_arpa)
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    model = load_gmm_system(args.model, device="cpu")
+    if args.arpa.endswith(".npz") or args.arpa.endswith(".clm"):
+        from kaldi_tpu_torch.io.model_io import load_const_arpa
+        clm = load_const_arpa(args.arpa)
+    else:
+        with open(args.arpa) as f:
+            clm = ConstArpaLm(ArpaLm.parse(f.read()), model.lang.words)
+    out = {}
+    for key, lat in read_lattice_ark(args.lattice_ark):
+        out[key] = lattice_lmrescore_const_arpa(lat, clm,
+                                                lm_scale=args.lm_scale)
+    write_lattice_ark(args.out_ark, out)
+
+
+def cmd_lattice_lmrescore(args):
+    """Add lm_scale * G-costs by composing each lattice with a backoff
+    word acceptor; run with --lm-scale=-1 on the old G then +1 on the
+    new one to swap LMs (ref: latbin/lattice-lmrescore.cc)."""
+    from kaldi_tpu_torch.lat.io import read_lattice_ark, write_lattice_ark
+    from kaldi_tpu_torch.lat.functions import compose_lattice_with_lm
+    from kaldi_tpu_torch.fst.text_io import load_fst
+    g = load_fst(args.g_fst)
+    out = {}
+    for key, lat in read_lattice_ark(args.lattice_ark):
+        out[key] = compose_lattice_with_lm(
+            lat, g, backoff_label=args.backoff_symbol,
+            lm_scale=args.lm_scale)
+    write_lattice_ark(args.out_ark, out)
+    print(f"lattice-lmrescore: {len(out)} lattices, "
+          f"lm_scale={args.lm_scale}", file=sys.stderr)
+
+
+def cmd_lattice_rescore_mapped(args):
+    """Replace acoustic costs from new loglike matrices
+    (ref: latbin/lattice-rescore-mapped.cc)."""
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.lat.io import read_lattice_ark, write_lattice_ark
+    from kaldi_tpu_torch.lat.posteriors import rescore_lattice
+    tm = load_gmm_system(args.model, device="cpu").trans_model
+    likes = {k: np.asarray(v, np.float64)
+             for (k, v) in open_rspecifier(args.loglikes_rspecifier)}
+    out = {}
+    for key, lat in read_lattice_ark(args.lattice_ark):
+        if key not in likes:
+            continue
+        out[key] = rescore_lattice(lat, likes[key], tm,
+                                   acoustic_scale=args.acoustic_scale)
+    write_lattice_ark(args.out_ark, out)
+    print(f"lattice-rescore-mapped: {len(out)}", file=sys.stderr)
+
+
+def cmd_lattice_add_trans_probs(args):
+    """Add transition log-probs into the graph cost
+    (ref: latbin/lattice-add-trans-probs.cc)."""
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    from kaldi_tpu_torch.lat.io import read_lattice_ark, write_lattice_ark
+    tm = load_gmm_system(args.model, device="cpu").trans_model
+    out = {}
+    for key, lat in read_lattice_ark(args.lattice_ark):
+        for s in range(lat.num_states):
+            for a in lat.arcs[s]:
+                if a.ilabel:
+                    a.graph_cost -= (args.transition_scale
+                                     * float(tm.log_probs[a.ilabel]))
+        out[key] = lat
+    write_lattice_ark(args.out_ark, out)
+    print(f"lattice-add-trans-probs: {len(out)}", file=sys.stderr)
+
+
+# ------------------------------------------------------ lattice tools
+
+def _arc_frames(a) -> int:
+    """Frames a lattice arc covers: its transition-id string's length,
+    else one for an emitting arc."""
+    tids = getattr(a, "tids", None)
+    if tids:
+        return len(tids)
+    return 1 if a.ilabel else 0
+
+
+def cmd_lattice_copy(args):
+    """Copy/validate a text lattice archive (ref: latbin/lattice-copy.cc;
+    with --write-ark="" prints per-lattice stats only)."""
+    from kaldi_tpu_torch.lat.io import read_lattice_ark, write_lattice_ark
+    lats = {}
+    for key, lat in read_lattice_ark(args.lattice_ark):
+        lats[key] = lat
+        if args.verbose:
+            print(f"{key}: {lat.num_states} states {lat.num_arcs} arcs",
+                  file=sys.stderr)
+    if args.out:
+        write_lattice_ark(args.out, lats)
+    print(f"lattice-copy: {len(lats)} lattices", file=sys.stderr)
+
+
+def cmd_lattice_depth(args):
+    """Mean arc depth (arcs crossing each frame) per lattice and overall
+    (ref: latbin/lattice-depth.cc Compute total arc-frames / frames)."""
+    from kaldi_tpu_torch.lat.io import read_lattice_ark
+    tot_frames, tot_arc_frames = 0, 0
+    for key, lat in read_lattice_ark(args.lattice_ark):
+        arc_frames = sum(_arc_frames(a)
+                         for s in range(lat.num_states)
+                         for a in lat.arcs[s])
+        # frame count: max emitted frames over paths (time-synchronous
+        # lattices agree on every path; DP over the topological order)
+        order = lat.topological_order()
+        nmax = np.zeros(lat.num_states, np.int64)
+        for s in order:
+            for a in lat.arcs[s]:
+                nmax[a.nextstate] = max(nmax[a.nextstate],
+                                        nmax[s] + _arc_frames(a))
+        T = max((int(nmax[s]) for s in lat.finals), default=0)
+        depth = arc_frames / max(T, 1)
+        print(f"{key} {depth:.4f}")
+        tot_frames += T
+        tot_arc_frames += arc_frames
+    print(f"lattice-depth: overall depth "
+          f"{tot_arc_frames / max(tot_frames, 1):.4f} over "
+          f"{tot_frames} frames", file=sys.stderr)
+
+
+def cmd_lattice_rmali(args):
+    """Strip alignments (transition-id ilabels / strings) from lattices
+    (ref: latbin/lattice-rmali.cc — word lattices for LM rescoring
+    don't need them)."""
+    from kaldi_tpu_torch.lat.io import read_lattice_ark, write_lattice_ark
+    lats = {}
+    for key, lat in read_lattice_ark(args.lattice_ark):
+        for s in range(lat.num_states):
+            for a in lat.arcs[s]:
+                a.ilabel = 0
+                if hasattr(a, "tids"):
+                    a.tids = ()
+        lats[key] = lat
+    write_lattice_ark(args.out, lats)
+    print(f"lattice-rmali: {len(lats)} lattices", file=sys.stderr)
+
+
+def cmd_lattice_add_penalty(args):
+    """Add a per-word insertion penalty to lattice graph costs
+    (ref: latbin/lattice-add-penalty.cc)."""
+    from kaldi_tpu_torch.lat.io import read_lattice_ark, write_lattice_ark
+    from kaldi_tpu_torch.lat.functions import add_word_ins_penalty
+    lats = {}
+    for key, lat in read_lattice_ark(args.lattice_ark):
+        add_word_ins_penalty(lat, args.word_ins_penalty)
+        lats[key] = lat
+    write_lattice_ark(args.out, lats)
+    print(f"lattice-add-penalty: {len(lats)} lattices", file=sys.stderr)
+
+
+def cmd_lattice_best_path(args):
+    """Best paths from a text lattice ark, with optional rescaling
+    (ref: latbin/lattice-best-path.cc)."""
+    from kaldi_tpu_torch.lat.io import read_lattice_ark
+    from kaldi_tpu_torch.lat.functions import (add_word_ins_penalty,
+                                               lattice_best_path,
+                                               lattice_scale)
+    for key, lat in read_lattice_ark(args.lattice_ark):
+        lattice_scale(lat, lm_scale=args.lm_scale,
+                      acoustic_scale=args.acoustic_scale)
+        if args.word_ins_penalty:
+            add_word_ins_penalty(lat, args.word_ins_penalty)
+        res = lattice_best_path(lat)
+        words = " ".join(str(w) for w in res[0]) if res else ""
+        print(f"{key} {words}")
+
+
+def _load_lattice_cmd(fn):
+    """Wrap a per-lattice transform into an ark->ark command."""
+    def run(args):
+        from kaldi_tpu_torch.lat.io import read_lattice_ark, write_lattice_ark
+        out = {}
+        for key, lat in read_lattice_ark(args.lattice_ark):
+            r = fn(args, key, lat)
+            if r is not None:
+                out[key] = r
+        write_lattice_ark(args.out_ark, out)
+    return run
+
+
+def cmd_lattice_scale(args, key, lat):
+    from kaldi_tpu_torch.lat.functions import lattice_scale
+    return lattice_scale(lat, lm_scale=args.lm_scale,
+                         acoustic_scale=args.acoustic_scale)
+
+
+def cmd_lattice_prune(args, key, lat):
+    from kaldi_tpu_torch.lat.functions import prune_lattice
+    return prune_lattice(lat, args.beam)
+
+
+def cmd_lattice_determinize(args, key, lat):
+    from kaldi_tpu_torch.lat.functions import (determinize_lattice,
+                                               DeterminizeLatticeOverflow)
+    try:
+        return determinize_lattice(lat, beam=args.beam if args.beam > 0
+                                   else None)
+    except DeterminizeLatticeOverflow as e:
+        # reference wrappers keep the raw lattice on determinization
+        # blowup (decoder-wrappers.cc:283)
+        print(f"warning: {key}: {e}; keeping raw lattice",
+              file=sys.stderr)
+        return lat
+
+
+def cmd_lattice_push(args, key, lat):
+    from kaldi_tpu_torch.lat.align import push_lattice
+    return push_lattice(lat)
+
+
+def cmd_lattice_minimize(args, key, lat):
+    from kaldi_tpu_torch.lat.align import minimize_lattice
+    return minimize_lattice(lat)
+
+
+def cmd_lattice_nbest(args):
+    """N best paths per lattice (ref: latbin/lattice-to-nbest.cc)."""
+    from kaldi_tpu_torch.lat.io import read_lattice_ark
+    from kaldi_tpu_torch.lat.functions import nbest
+    for key, lat in read_lattice_ark(args.lattice_ark):
+        for i, (words, _tids, cost) in enumerate(nbest(lat, args.n)):
+            print(f"{key}-{i + 1} {cost:.4f} "
+                  + " ".join(str(w) for w in words))
+
+
+def cmd_lattice_mbr_decode(args):
+    """Minimum-Bayes-risk decode with confidences
+    (ref: latbin/lattice-mbr-decode.cc)."""
+    from kaldi_tpu_torch.lat.io import read_lattice_ark
+    from kaldi_tpu_torch.lat.functions import lattice_scale
+    from kaldi_tpu_torch.lat.mbr import mbr_decode
+    for key, lat in read_lattice_ark(args.lattice_ark):
+        lattice_scale(lat, lm_scale=args.lm_scale,
+                      acoustic_scale=args.acoustic_scale)
+        words, bins = mbr_decode(lat)
+        body = " ".join(f"{w}:{b.get(w, 0.0):.3f}"
+                        for w, b in zip(words, bins))
+        print(f"{key} {body}")
+
+
+def cmd_lattice_oracle(args):
+    """Oracle WER path through each lattice
+    (ref: latbin/lattice-oracle.cc)."""
+    from kaldi_tpu_torch.lat.io import read_lattice_ark
+    from kaldi_tpu_torch.lat.align import lattice_oracle
+    refs = {}
+    with open(args.ref_text) as f:
+        for line in f:
+            parts = line.split()
+            refs[parts[0]] = [int(w) for w in parts[1:]]
+    tot_err = tot_words = 0
+    for key, lat in read_lattice_ark(args.lattice_ark):
+        if key not in refs:
+            continue
+        errs, path = lattice_oracle(lat, refs[key])
+        errs = int(errs)
+        tot_err += errs
+        tot_words += len(refs[key])
+        print(f"{key} {errs} " + " ".join(str(w) for w in path))
+    if tot_words:
+        print(f"%oracle-WER {100.0 * tot_err / tot_words:.2f} "
+              f"[ {tot_err} / {tot_words} ]", file=sys.stderr)
+
+
+def cmd_lattice_union(args):
+    """Per-key union of two lattice arks (ref: latbin/lattice-union.cc)."""
+    from kaldi_tpu_torch.lat.io import read_lattice_ark, write_lattice_ark
+    from kaldi_tpu_torch.lat.align import lattice_union
+    a = dict(read_lattice_ark(args.ark_a))
+    b = dict(read_lattice_ark(args.ark_b))
+    out = {}
+    for key in sorted(set(a) | set(b)):
+        if key in a and key in b:
+            out[key] = lattice_union(a[key], b[key])
+        else:
+            out[key] = a.get(key) or b[key]
+    write_lattice_ark(args.out_ark, out)
+
+
+def cmd_lattice_interp(args):
+    """Weighted lattice interpolation (ref: latbin/lattice-interp.cc)."""
+    from kaldi_tpu_torch.lat.io import read_lattice_ark, write_lattice_ark
+    from kaldi_tpu_torch.lat.align import lattice_interp
+    a = dict(read_lattice_ark(args.ark_a))
+    b = dict(read_lattice_ark(args.ark_b))
+    out = {}
+    for key in sorted(set(a) & set(b)):
+        out[key] = lattice_interp(a[key], b[key], args.alpha)
+    write_lattice_ark(args.out_ark, out)
+
+
+def cmd_lattice_to_ctm_conf(args):
+    """Best-path CTM with MBR word confidences
+    (ref: latbin/lattice-to-ctm-conf.cc): 'utt chan start dur word conf'
+    with times in seconds."""
+    from kaldi_tpu_torch.lat.io import read_lattice_ark
+    from kaldi_tpu_torch.lat.functions import (lattice_scale, best_path_ctm)
+    from kaldi_tpu_torch.lat.mbr import mbr_decode, word_confidences
+    for key, lat in read_lattice_ark(args.lattice_ark):
+        lattice_scale(lat, lm_scale=args.lm_scale,
+                      acoustic_scale=args.acoustic_scale)
+        ctm = best_path_ctm(lat)
+        words, bins = mbr_decode(lat)
+        confs = word_confidences(words, bins)
+        conf_of = ({w: c for w, c in zip(words, confs)}
+                   if len(words) == len(confs) else {})
+        for (w, s0, dur) in ctm:
+            c = conf_of.get(w, 1.0)
+            print(f"{key} 1 {s0 * args.frame_shift:.2f} "
+                  f"{dur * args.frame_shift:.2f} {w} {c:.2f}")
+
+
+def cmd_lattice_to_fst(args):
+    """Lattices -> word FSTs (OpenFst text), weights optionally scaled
+    away like the reference default (ref: latbin/lattice-to-fst.cc)."""
+    from kaldi_tpu_torch.lat.io import read_lattice_ark
+    from kaldi_tpu_torch.fst.fst import Fst
+    from kaldi_tpu_torch.fst.text_io import write_fst_text
+    n = 0
+    with open(args.fsts_out, "w") as out:
+        for key, lat in read_lattice_ark(args.lattice_ark):
+            f = Fst()
+            for _ in range(lat.num_states):
+                f.add_state()
+            f.start = lat.start
+            for s in range(lat.num_states):
+                for a in lat.arcs[s]:
+                    w = (args.lm_scale * a.graph_cost
+                         + args.acoustic_scale * a.acoustic_cost)
+                    f.add_arc(s, a.olabel, a.olabel, w, a.nextstate)
+            for s, (g, ac) in lat.finals.items():
+                f.set_final(s, args.lm_scale * g
+                            + args.acoustic_scale * ac)
+            f.connect()
+            out.write(f"{key}\n")
+            write_fst_text(out, f)
+            out.write("\n")
+            n += 1
+    print(f"lattice-to-fst: {n} lattices", file=sys.stderr)
+
+
+def cmd_lattice_project(args):
+    """Project onto output labels (word acceptor lattices)
+    (ref: latbin/lattice-project.cc)."""
+    from kaldi_tpu_torch.lat.io import read_lattice_ark, write_lattice_ark
+    out = {}
+    for key, lat in read_lattice_ark(args.lattice_ark):
+        for s in range(lat.num_states):
+            for a in lat.arcs[s]:
+                a.ilabel = a.olabel
+        out[key] = lat
+    write_lattice_ark(args.out_ark, out)
+    print(f"lattice-project: {len(out)}", file=sys.stderr)
+
+
+def cmd_lattice_depth_per_frame(args):
+    """(ref: latbin/lattice-depth-per-frame.cc)"""
+    from kaldi_tpu_torch.lat.io import read_lattice_ark
+    from kaldi_tpu_torch.lat.posteriors import lattice_state_times
+    for key, lat in read_lattice_ark(args.lattice_ark):
+        times, T = lattice_state_times(lat)
+        depth = np.zeros(T, np.int64)
+        for s in range(lat.num_states):
+            t = int(times[s])
+            for a in lat.arcs[s]:
+                if a.ilabel and t < T:
+                    depth[t] += 1
+        print(f"{key} " + " ".join(map(str, depth)))
+
+
+def cmd_lattice_confidence(args):
+    """Sentence-level confidence: best-path margin over the runner-up
+    word sequence (ref: latbin/lattice-confidence.cc)."""
+    from kaldi_tpu_torch.lat.io import read_lattice_ark
+    from kaldi_tpu_torch.lat.align import lattice_confidence
+    for key, lat in read_lattice_ark(args.lattice_ark):
+        c = lattice_confidence(lat)
+        print(f"{key} {min(c, args.max_confidence):.4f}")
+
+
+def cmd_lattice_compose(args):
+    """Compose lattices with a word acceptor FST
+    (ref: latbin/lattice-compose.cc)."""
+    from kaldi_tpu_torch.lat.io import read_lattice_ark, write_lattice_ark
+    from kaldi_tpu_torch.lat.functions import compose_lattice_with_lm
+    from kaldi_tpu_torch.fst.text_io import load_fst
+    g = load_fst(args.fst)
+    out = {}
+    for key, lat in read_lattice_ark(args.lattice_ark):
+        out[key] = compose_lattice_with_lm(lat, g, backoff_label=-1,
+                                           lm_scale=1.0)
+    write_lattice_ark(args.out_ark, out)
+    print(f"lattice-compose: {len(out)}", file=sys.stderr)
+
+
+def cmd_lattice_1best(args):
+    """Viterbi-best path of each lattice, written as a linear lattice
+    (ref: latbin/lattice-1best.cc)."""
+    from kaldi_tpu_torch.lat.io import read_lattice_ark, write_lattice_ark
+    from kaldi_tpu_torch.lat.functions import lattice_scale, lattice_best_path
+    from kaldi_tpu_torch.lat.lattice import Lattice
+    out = {}
+    for key, lat in read_lattice_ark(args.lattice_ark):
+        lattice_scale(lat, lm_scale=args.lm_scale,
+                      acoustic_scale=args.acoustic_scale)
+        res = lattice_best_path(lat)
+        if res is None:
+            print(f"warning: no path for {key}", file=sys.stderr)
+            continue
+        words, tids, cost = res
+        lin = Lattice()
+        prev = lin.add_state()
+        lin.start = prev
+        # emit one arc per tid; attach words greedily to the first arcs
+        wq = list(words)
+        for tid in tids:
+            nxt = lin.add_state()
+            lin.add_arc(prev, tid, wq.pop(0) if wq else 0, 0.0, 0.0, nxt)
+            prev = nxt
+        for w in wq:       # words beyond tids (tid-free lattice)
+            nxt = lin.add_state()
+            lin.add_arc(prev, 0, w, 0.0, 0.0, nxt)
+            prev = nxt
+        lin.set_final(prev, cost, 0.0)
+        out[key] = lin
+    write_lattice_ark(args.out_ark, out)
+    print(f"lattice-1best: {len(out)} lattices", file=sys.stderr)
+
+
+def cmd_lattice_to_post(args):
+    """Per-frame transition-id posteriors from lattice forward-backward
+    (ref: latbin/lattice-to-post.cc)."""
+    from kaldi_tpu_torch.lat.io import read_lattice_ark
+    from kaldi_tpu_torch.lat.functions import lattice_scale
+    from kaldi_tpu_torch.lat.posteriors import lattice_to_post
+    from kaldi_tpu_torch.hmm.posterior import write_post_line
+    n, tot, frames = 0, 0.0, 0
+    with open(args.post_out, "w") as f:
+        for key, lat in read_lattice_ark(args.lattice_ark):
+            lattice_scale(lat, lm_scale=args.lm_scale,
+                          acoustic_scale=args.acoustic_scale)
+            post, like = lattice_to_post(lat)
+            write_post_line(f, key, post)
+            tot += like
+            frames += len(post)
+            n += 1
+    print(f"lattice-to-post: {n} lattices, avg loglike/frame "
+          f"{tot / max(frames, 1):.4f}", file=sys.stderr)
+
+
+def _read_ali_dict(rspecifier):
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    return {k: np.asarray(v, np.int64)
+            for (k, v) in open_rspecifier(rspecifier)}
+
+
+def cmd_lattice_to_mpe_post(args):
+    """MPE/sMBR posteriors against a numerator alignment
+    (ref: latbin/lattice-to-mpe-post.cc, lattice-to-smbr-post.cc)."""
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    from kaldi_tpu_torch.lat.io import read_lattice_ark
+    from kaldi_tpu_torch.lat.functions import lattice_scale
+    from kaldi_tpu_torch.lat.posteriors import (
+        lattice_forward_backward_mpe_variants)
+    from kaldi_tpu_torch.hmm.posterior import write_post_line
+    model = load_gmm_system(args.model, device="cpu")
+    ali = _read_ali_dict(args.ali_rspecifier)
+    sil = {int(p) for p in args.silence_phones.split(":") if p}
+    n, tot_acc, frames = 0, 0.0, 0
+    with open(args.post_out, "w") as f:
+        for key, lat in read_lattice_ark(args.lattice_ark):
+            if key not in ali:
+                continue
+            lattice_scale(lat, lm_scale=args.lm_scale,
+                          acoustic_scale=args.acoustic_scale)
+            post, acc = lattice_forward_backward_mpe_variants(
+                lat, ali[key], model.trans_model,
+                criterion=args.criterion, silence_phones=sil,
+                one_silence_class=not args.no_one_silence_class)
+            write_post_line(f, key, post)
+            tot_acc += acc
+            frames += len(post)
+            n += 1
+    print(f"lattice-to-{args.criterion}-post: {n} lattices, avg "
+          f"accuracy/frame {tot_acc / max(frames, 1):.4f}",
+          file=sys.stderr)
+
+
+def cmd_lattice_boost_ali(args):
+    """Boosted-MMI lattice boosting against the numerator alignment
+    (ref: latbin/lattice-boost-ali.cc)."""
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    from kaldi_tpu_torch.lat.io import read_lattice_ark, write_lattice_ark
+    from kaldi_tpu_torch.lat.posteriors import lattice_boost
+    model = load_gmm_system(args.model, device="cpu")
+    ali = _read_ali_dict(args.ali_rspecifier)
+    sil = {int(p) for p in args.silence_phones.split(":") if p}
+    out = {}
+    for key, lat in read_lattice_ark(args.lattice_ark):
+        if key not in ali:
+            continue
+        out[key] = lattice_boost(
+            lat, ali[key], model.trans_model, args.b,
+            silence_phones=sil,
+            max_silence_error=args.max_silence_error)
+    write_lattice_ark(args.out_ark, out)
+    print(f"lattice-boost-ali: {len(out)} lattices, b={args.b}",
+          file=sys.stderr)
+
+
+def cmd_lattice_to_phone_lattice(args):
+    """Replace word output labels with phone labels read off the
+    transition-ids (ref: latbin/lattice-to-phone-lattice.cc)."""
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    from kaldi_tpu_torch.lat.io import read_lattice_ark, write_lattice_ark
+    from kaldi_tpu_torch.lat.align import phone_align_lattice
+    model = load_gmm_system(args.model, device="cpu")
+    out = {}
+    for key, lat in read_lattice_ark(args.lattice_ark):
+        out[key] = phone_align_lattice(lat, model.trans_model,
+                                       replace_output_symbols=True)
+    write_lattice_ark(args.out_ark, out)
+    print(f"lattice-to-phone-lattice: {len(out)} lattices",
+          file=sys.stderr)
+
+
+def cmd_lattice_align_phones(args):
+    """Re-segment lattice arcs on phone boundaries
+    (ref: latbin/lattice-align-phones.cc)."""
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    from kaldi_tpu_torch.lat.io import read_lattice_ark, write_lattice_ark
+    from kaldi_tpu_torch.lat.align import phone_align_lattice
+    model = load_gmm_system(args.model, device="cpu")
+    out = {}
+    for key, lat in read_lattice_ark(args.lattice_ark):
+        out[key] = phone_align_lattice(
+            lat, model.trans_model,
+            replace_output_symbols=args.replace_output_symbols)
+    write_lattice_ark(args.out_ark, out)
+    print(f"lattice-align-phones: {len(out)} lattices", file=sys.stderr)
+
+
+def cmd_lattice_equivalent(args):
+    """Exit 0 iff the two archives' lattices are best-path equivalent
+    within delta (a practical stand-in for the reference's randomized
+    equivalence test; ref: latbin/lattice-equivalent.cc)."""
+    from kaldi_tpu_torch.lat.io import read_lattice_ark
+    from kaldi_tpu_torch.lat.functions import lattice_best_path
+    a = dict(read_lattice_ark(args.ark_a))
+    b = dict(read_lattice_ark(args.ark_b))
+    n_bad = 0
+    for key in sorted(set(a) | set(b)):
+        if key not in a or key not in b:
+            n_bad += 1
+            continue
+        ra, rb = lattice_best_path(a[key]), lattice_best_path(b[key])
+        if (ra is None) != (rb is None):
+            n_bad += 1
+            continue
+        if ra is None:
+            continue
+        if ra[0] != rb[0] or abs(ra[2] - rb[2]) > args.delta:
+            n_bad += 1
+    print(f"lattice-equivalent: {n_bad} differ "
+          f"of {len(set(a) | set(b))}", file=sys.stderr)
+    if n_bad:
+        sys.exit(1)
+
+
+def cmd_lattice_limit_depth(args):
+    """Prune with progressively tighter beams until mean depth is under
+    the cap (ref: latbin/lattice-limit-depth.cc)."""
+    from kaldi_tpu_torch.lat.io import read_lattice_ark, write_lattice_ark
+    from kaldi_tpu_torch.lat.functions import prune_lattice
+    from kaldi_tpu_torch.lat.posteriors import lattice_state_times
+    out = {}
+    for key, lat in read_lattice_ark(args.lattice_ark):
+        costs = [a.cost for arcs in lat.arcs for a in arcs]
+        beam = max(1.0, float(np.ptp(costs))) if costs else 1.0
+        for _ in range(10):
+            _times, T = lattice_state_times(lat)
+            n_arcs = sum(1 for arcs in lat.arcs for a in arcs
+                         if a.ilabel != 0)
+            if n_arcs / max(T, 1) <= args.max_depth:
+                break
+            lat = prune_lattice(lat, beam)
+            beam *= 0.5       # tighten until under the depth cap
+        out[key] = lat
+    write_lattice_ark(args.out_ark, out)
+    print(f"lattice-limit-depth: {len(out)} lattices", file=sys.stderr)
+
+
+def cmd_lattice_align_words(args):
+    """Word alignment of lattices: every arc carries exactly one word
+    spanning its true frames (ref: latbin/lattice-align-words-lexicon.cc)."""
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    from kaldi_tpu_torch.fst.lang import Lexicon
+    from kaldi_tpu_torch.lat.io import read_lattice_ark, write_lattice_ark
+    from kaldi_tpu_torch.lat.align import word_align_lattice
+    model = load_gmm_system(args.model, device="cpu")
+    lang = model.lang
+    with open(args.lexicon) as f:
+        lex = Lexicon.parse(f.read())
+    lex_phones: dict = {}
+    for (word, _p, pron) in lex.entries:
+        bad_ph = [ph for ph in pron if ph not in lang.phones]
+        if bad_ph:
+            raise SystemExit(
+                f"lattice-align-words: lexicon entry '{word}' uses "
+                f"phones absent from the model: {bad_ph}")
+        if word not in lang.words:
+            print(f"warning: lexicon word '{word}' not in the model's "
+                  f"word table; skipping", file=sys.stderr)
+            continue
+        lex_phones.setdefault(lang.words[word], []).append(
+            tuple(lang.phones[ph] for ph in pron))
+    sil = {lang.phones[p] for p in lang.silence_phones
+           if p in lang.phones}
+    out = {}
+    n_fail = 0
+    for key, lat in read_lattice_ark(args.lattice_ark):
+        aligned = word_align_lattice(lat, model.trans_model, lex_phones,
+                                     silence_phones=sil)
+        if aligned.num_states == 0 or aligned.start < 0 \
+                or not aligned.finals:
+            # the reference binary reports per-lattice alignment failure
+            print(f"warning: word alignment failed for {key} (a word in "
+                  f"the lattice has no matching pronunciation?)",
+                  file=sys.stderr)
+            n_fail += 1
+            continue
+        out[key] = aligned
+    write_lattice_ark(args.lattice_out, out)
+    print(f"lattice-align-words: {len(out)} lattices aligned, "
+          f"{n_fail} failed", file=sys.stderr)
+
+
+def cmd_lattice_reverse(args):
+    """Time-reverse lattices (ref: latbin/lattice-reverse.cc)."""
+    from kaldi_tpu_torch.lat.io import read_lattice_ark, write_lattice_ark
+    from kaldi_tpu_torch.lat.lattice import Lattice
+    out = {}
+    for key, lat in read_lattice_ark(args.lattice_ark):
+        rev = Lattice()
+        for _ in range(lat.num_states + 1):
+            rev.add_state()
+        # state 0 is the new super-start (the text format reads the
+        # first state as the start); old state s becomes s + 1
+        rev.start = 0
+        for s in range(lat.num_states):
+            for a in lat.arcs[s]:
+                rev.add_arc(a.nextstate + 1, a.ilabel, a.olabel,
+                            a.graph_cost, a.acoustic_cost, s + 1)
+        for s, (g, ac) in lat.finals.items():
+            rev.add_arc(0, 0, 0, g, ac, s + 1)
+        rev.set_final(lat.start + 1, 0.0, 0.0)
+        out[key] = rev
+    write_lattice_ark(args.out_ark, out)
+    print(f"lattice-reverse: {len(out)}", file=sys.stderr)
+
+
+def cmd_lattice_combine(args):
+    """Union lattices across N archives per key
+    (ref: latbin/lattice-combine.cc)."""
+    from kaldi_tpu_torch.lat.io import read_lattice_ark, write_lattice_ark
+    from kaldi_tpu_torch.lat.align import lattice_union
+    merged: dict = {}
+    for p in args.arks_in:
+        for key, lat in read_lattice_ark(p):
+            merged[key] = (lattice_union(merged[key], lat)
+                           if key in merged else lat)
+    write_lattice_ark(args.out_ark, merged)
+    print(f"lattice-combine: {len(merged)} keys from "
+          f"{len(args.arks_in)} archives", file=sys.stderr)
+
+
+# ------------------------------------------------------- n-best lists
+
+def cmd_nbest_to_linear(args):
+    """Split each lattice's n-best into numbered linear transcripts
+    (ref: latbin/nbest-to-linear.cc output contract: per-path words)."""
+    from kaldi_tpu_torch.lat.io import read_lattice_ark
+    from kaldi_tpu_torch.lat.functions import nbest
+    for key, lat in read_lattice_ark(args.lattice_ark):
+        for i, (words, tids, cost) in enumerate(nbest(lat, args.n)):
+            print(f"{key}-{i + 1} " + " ".join(str(w) for w in words))
+
+
+def cmd_nbest_to_ctm(args):
+    """Linear (single-path) lattices -> CTM lines with frame times
+    (ref: latbin/nbest-to-ctm.cc)."""
+    from kaldi_tpu_torch.lat.io import read_lattice_ark
+    from kaldi_tpu_torch.lat.functions import best_path_ctm
+    for key, lat in read_lattice_ark(args.lattice_ark):
+        for (w, s0, dur) in best_path_ctm(lat):
+            print(f"{key} 1 {s0 * args.frame_shift:.2f} "
+                  f"{dur * args.frame_shift:.2f} {w}")
+
+
+def cmd_linear_to_nbest(args):
+    """Inverse of nbest-to-linear: utterance transcripts (int words) ->
+    single-path lattices (ref: latbin/linear-to-nbest.cc)."""
+    from kaldi_tpu_torch.lat.io import write_lattice_ark
+    from kaldi_tpu_torch.lat.lattice import Lattice
+    out = {}
+    with open(args.transcripts) as f:
+        for line in f:
+            parts = line.split()
+            if not parts:
+                continue
+            lin = Lattice()
+            prev = lin.add_state()
+            lin.start = prev
+            for w in parts[1:]:
+                nxt = lin.add_state()
+                lin.add_arc(prev, 0, int(w), 0.0, 0.0, nxt)
+                prev = nxt
+            lin.set_final(prev, 0.0, 0.0)
+            out[parts[0]] = lin
+    write_lattice_ark(args.out_ark, out)
+    print(f"linear-to-nbest: {len(out)} paths", file=sys.stderr)
+
+
+def cmd_nbest_to_lattice(args):
+    """Re-merge 'utt-N' n-best path lattices into one lattice per utt
+    (ref: latbin/nbest-to-lattice.cc)."""
+    from kaldi_tpu_torch.lat.io import read_lattice_ark, write_lattice_ark
+    from kaldi_tpu_torch.lat.align import lattice_union
+    merged: dict = {}
+    for key, lat in read_lattice_ark(args.nbest_ark):
+        base = key.rsplit("-", 1)[0]
+        merged[base] = (lattice_union(merged[base], lat)
+                        if base in merged else lat)
+    write_lattice_ark(args.out_ark, merged)
+    print(f"nbest-to-lattice: {len(merged)} utts", file=sys.stderr)
+
+
+# --------------------------------------------------------- posteriors
+
+def cmd_weight_silence_post(args):
+    """Scale posterior entries on silence-phone transition-ids
+    (ref: bin/weight-silence-post.cc)."""
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    from kaldi_tpu_torch.hmm.posterior import (read_post_ark, write_post_line,
+                                               weight_silence_post)
+    model = load_gmm_system(args.model, device="cpu")
+    sil = [int(p) for p in args.silence_phones.split(":") if p]
+    out = open(args.post_out, "w") if args.post_out != "-" else sys.stdout
+    n = 0
+    for utt, post in read_post_ark(args.post_in):
+        write_post_line(out, utt, weight_silence_post(
+            post, model.trans_model, sil, args.silence_weight))
+        n += 1
+    if args.post_out != "-":
+        out.close()
+    print(f"weight-silence-post: {n} utts", file=sys.stderr)
+
+
+def cmd_sum_post(args):
+    """Frame-wise posterior sum of two archives (ref: bin/sum-post.cc)."""
+    from kaldi_tpu_torch.hmm.posterior import (read_post_ark, write_post_line,
+                                               sum_post, scale_post)
+    b_map = {u: p for (u, p) in read_post_ark(args.post_b)}
+    out = open(args.post_out, "w") if args.post_out != "-" else sys.stdout
+    n = 0
+    for utt, pa in read_post_ark(args.post_a):
+        if utt not in b_map:
+            continue
+        pa = scale_post(pa, args.scale1)
+        pb = scale_post(b_map[utt], args.scale2)
+        write_post_line(out, utt, sum_post(pa, pb))
+        n += 1
+    if args.post_out != "-":
+        out.close()
+    print(f"sum-post: {n} utts", file=sys.stderr)
+
+
+def cmd_post_to_weights(args):
+    """Per-frame total posterior weight vectors
+    (ref: bin/post-to-weights.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_wspecifier
+    from kaldi_tpu_torch.hmm.posterior import read_post_ark, post_to_weights
+    n = 0
+    with open_wspecifier(args.wspecifier) as out:
+        for utt, post in read_post_ark(args.post_in):
+            out.write(utt, np.asarray(post_to_weights(post), np.float32))
+            n += 1
+    print(f"post-to-weights: {n} utts", file=sys.stderr)
+
+
+def _post_map_cmd(fn, label):
+    """Wrap a per-utterance posterior transform as a subcommand."""
+    def run(args):
+        from kaldi_tpu_torch.hmm.posterior import (read_post_ark,
+                                                   write_post_line)
+        n = 0
+        with open(args.post_out, "w") as out:
+            for utt, post in read_post_ark(args.post_in):
+                write_post_line(out, utt, fn(args, post))
+                n += 1
+        print(f"{label}: {n} utts", file=sys.stderr)
+    return run
+
+
+def cmd_copy_post(args):
+    """(ref: bin/copy-post.cc; --scale folds in scale-post.cc)"""
+    from kaldi_tpu_torch.hmm.posterior import read_post_ark, write_post_line, \
+        scale_post
+    n = 0
+    with open(args.post_out, "w") as out:
+        for utt, post in read_post_ark(args.post_in):
+            if args.scale != 1.0:
+                post = scale_post(post, args.scale)
+            write_post_line(out, utt, post)
+            n += 1
+    print(f"copy-post: {n} utts", file=sys.stderr)
+
+
+def cmd_weight_post(args):
+    """Per-frame reweighting by a weights-vector archive
+    (ref: bin/weight-post.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.hmm.posterior import (read_post_ark, write_post_line,
+                                               weight_post)
+    w = {k: np.asarray(v, np.float64)
+         for (k, v) in open_rspecifier(args.weights_rspecifier)}
+    n = 0
+    with open(args.post_out, "w") as out:
+        for utt, post in read_post_ark(args.post_in):
+            if utt not in w:
+                continue
+            write_post_line(out, utt, weight_post(post, w[utt]))
+            n += 1
+    print(f"weight-post: {n} utts", file=sys.stderr)
+
+
+def cmd_thresh_post(args):
+    """Drop entries below the threshold (ref: bin/thresh-post.cc)."""
+    def f(a, post):
+        return [[(i, w) for (i, w) in fr if w >= a.threshold]
+                for fr in post]
+    return _post_map_cmd(f, "thresh-post")(args)
+
+
+def cmd_rand_prune_post(args):
+    """Randomized expectation-preserving pruning: an entry with
+    |w| < scale survives with prob |w|/scale at weight ±scale
+    (ref: bin/rand-prune-post.cc, RandPrune in base/kaldi-math.h)."""
+    rng = np.random.RandomState(args.seed)
+    s = args.scale
+
+    def f(a, post):
+        out = []
+        for fr in post:
+            kept = []
+            for (i, w) in fr:
+                if abs(w) >= s or s == 0:
+                    kept.append((i, w))
+                elif rng.rand() < abs(w) / s:
+                    kept.append((i, s if w > 0 else -s))
+            out.append(kept)
+        return out
+    return _post_map_cmd(f, "rand-prune-post")(args)
+
+
+def cmd_post_to_pdf_post(args):
+    """(ref: bin/post-to-pdf-post.cc)"""
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    tm = load_gmm_system(args.model, device="cpu").trans_model
+    return _post_map_cmd(
+        lambda a, post: _post_to_pdf_post(post, tm),
+        "post-to-pdf-post")(args)
+
+
+def cmd_post_to_phone_post(args):
+    """(ref: bin/post-to-phone-post.cc)"""
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    from kaldi_tpu_torch.hmm.posterior import post_to_phone_post
+    tm = load_gmm_system(args.model, device="cpu").trans_model
+    return _post_map_cmd(
+        lambda a, post: post_to_phone_post(post, tm),
+        "post-to-phone-post")(args)
+
+
+def cmd_prob_to_post(args):
+    """Probability (or log-prob) matrices -> sparse posteriors
+    (ref: bin/prob-to-post.cc, bin/logprob-to-post.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.hmm.posterior import write_post_line
+    n = 0
+    with open(args.post_out, "w") as out:
+        for utt, mat in open_rspecifier(args.rspecifier):
+            p = np.asarray(mat, np.float64)
+            if args.log_input:
+                p = np.exp(p)
+            post = [[(int(i), float(p[t, i]))
+                     for i in np.nonzero(p[t] >= args.min_post)[0]]
+                    for t in range(p.shape[0])]
+            write_post_line(out, utt, post)
+            n += 1
+    print(f"prob-to-post: {n} utts", file=sys.stderr)
+
+
+def cmd_get_post_on_ali(args):
+    """Per-frame posterior of the aligned transition-id — the frame
+    confidence used for frame-weighted training
+    (ref: bin/get-post-on-ali.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, open_wspecifier
+    from kaldi_tpu_torch.hmm.posterior import read_post_ark
+    ali = {k: np.asarray(v, np.int64)
+           for (k, v) in open_rspecifier(args.ali_rspecifier)}
+    n = 0
+    with open_wspecifier(args.wspecifier) as out:
+        for utt, post in read_post_ark(args.post_in):
+            if utt not in ali:
+                continue
+            a = ali[utt]
+            conf = np.zeros(len(post), np.float32)
+            for t, fr in enumerate(post):
+                if t < len(a):
+                    conf[t] = sum(w for (i, w) in fr if i == a[t])
+            out.write(utt, conf)
+            n += 1
+    print(f"get-post-on-ali: {n} utts", file=sys.stderr)
+
+
+def cmd_feat_to_post(args):
+    """Feature rows -> posterior entries (the KL-HMM input path)
+    (ref: nnetbin/feat-to-post.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.hmm.posterior import write_post_line
+    n = 0
+    with open(args.post_out, "w") as out:
+        for utt, f in open_rspecifier(args.rspecifier):
+            post = [[(int(d), float(v)) for d, v in enumerate(row)
+                     if abs(v) > args.min_value]
+                    for row in np.asarray(f)]
+            write_post_line(out, utt, post)
+            n += 1
+    print(f"feat-to-post: {n} utts", file=sys.stderr)
+
+
+def cmd_paste_post(args):
+    """Merge two posterior streams with the 2nd's ids offset by the
+    first stream's dim (ref: nnetbin/paste-post.cc)."""
+    from kaldi_tpu_torch.hmm.posterior import read_post_ark, write_post_line
+    a = {k: p for (k, p) in read_post_ark(args.post_a)}
+    b = {k: p for (k, p) in read_post_ark(args.post_b)}
+    n = 0
+    with open(args.post_out, "w") as out:
+        for k in sorted(set(a) & set(b)):
+            pa, pb = a[k], b[k]
+            merged = [fa + [(i + args.dim_a, w) for (i, w) in fb]
+                      for fa, fb in zip(pa, pb)]
+            write_post_line(out, k, merged)
+            n += 1
+    print(f"paste-post: {n} utts", file=sys.stderr)
+
+
+# ----------------------------------------------------- keyword search
+
+def cmd_kws_search(args):
+    """Keyword search over a text-lattice ark or a prebuilt index file
+    (ref: kwsbin/kws-search.cc; keywords file: 'kwid word-id ...')."""
+    from kaldi_tpu_torch.kws import (lattice_to_kws_index, search_index,
+                                     load_kws_index)
+    if getattr(args, "index", False):
+        indexes = load_kws_index(args.lattice_ark)
+    else:
+        from kaldi_tpu_torch.lat.io import read_lattice_ark
+        indexes = [lattice_to_kws_index(lat, key)
+                   for key, lat in read_lattice_ark(args.lattice_ark)]
+    with open(args.keywords) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) < 2:
+                continue
+            kwid, words = parts[0], [int(w) for w in parts[1:]]
+            for (utt, t0, t1, p) in search_index(indexes, words):
+                print(f"{kwid} {utt} {t0} {t1} {p:.4f}")
+
+
+def cmd_lattice_to_kws_index(args):
+    """Build the timed-factor keyword index from a lattice ark
+    (ref: kwsbin/lattice-to-kws-index.cc over kws/kws-functions.h:89-97)."""
+    from kaldi_tpu_torch.lat.io import read_lattice_ark
+    from kaldi_tpu_torch.kws import lattice_to_kws_index, save_kws_index
+    indexes = [lattice_to_kws_index(lat, key)
+               for key, lat in read_lattice_ark(args.lattice_ark)]
+    save_kws_index(args.index_out, indexes)
+    print(f"lattice-to-kws-index: {len(indexes)} utterances",
+          file=sys.stderr)
+
+
+def cmd_kws_index_union(args):
+    """Union several index files (ref: kwsbin/kws-index-union.cc)."""
+    from kaldi_tpu_torch.kws import (load_kws_index, save_kws_index,
+                                     union_kws_indexes)
+    merged = union_kws_indexes([load_kws_index(p) for p in args.indexes])
+    save_kws_index(args.index_out, merged)
+    print(f"kws-index-union: {len(args.indexes)} files -> "
+          f"{len(merged)} utterances", file=sys.stderr)
+
+
+def cmd_compute_atwv(args):
+    """ATWV/STWV from a ref file ('kwid utt t_begin t_end') and a hits
+    file ('kwid utt t_begin t_end score') (ref: kwsbin/compute-atwv.cc
+    over kws/kws-scoring.h:188-221)."""
+    from kaldi_tpu_torch.kws import compute_twv, TwvOptions
+
+    def read4(path, with_score):
+        d: dict = {}
+        with open(path) as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                kw, utt, t0, t1 = parts[:4]
+                row = (utt, int(float(t0)), int(float(t1)))
+                if with_score:
+                    row += (float(parts[4]) if len(parts) > 4 else 1.0,)
+                d.setdefault(kw, []).append(row)
+        return d
+
+    refs = read4(args.ref, with_score=False)
+    hits = read4(args.hits, with_score=True)
+    res = compute_twv(refs, hits, args.duration,
+                      TwvOptions(score_threshold=args.score_threshold))
+    print(f"ATWV {res['atwv']:.4f}")
+    print(f"STWV {res['stwv']:.4f}")
+    for kw in sorted(res["per_kw"]):
+        print(f"{kw} {res['per_kw'][kw]:.4f}")
+
+
+def cmd_generate_proxy_keywords(args):
+    """Proxy keywords for OOVs by phone-confusion distance over the
+    lexicon (ref: kwsbin/generate-proxy-keywords.cc). Keywords file:
+    'kwid phone phone ...'; lexicon: 'word phone phone ...'."""
+    from kaldi_tpu_torch.kws import generate_proxy_keywords
+    lexicon: dict = {}
+    with open(args.lexicon) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) >= 2:
+                lexicon.setdefault(parts[0], []).append(parts[1:])
+    confusion = {}
+    if args.confusion_matrix:
+        with open(args.confusion_matrix) as f:
+            for line in f:
+                parts = line.split()
+                if len(parts) >= 3:
+                    confusion[(parts[0], parts[1])] = float(parts[2])
+    with open(args.keywords) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) < 2:
+                continue
+            kwid, pron = parts[0], parts[1:]
+            for words, cost in generate_proxy_keywords(
+                    pron, lexicon, confusion,
+                    nbest=args.nbest, beam=args.proxy_beam):
+                print(f"{kwid} {cost:.3f} " + " ".join(words))
+
+
 # Reference binary names that resolve to a canonical subcommand: the
 # ported ones of kaldi_tpu/cli.py's `_ALIASES`. Options after the alias
 # pass straight through to the canonical command.
@@ -2696,6 +3972,17 @@ _ALIASES: dict = {
     "align-compiled-mapped": ["align-mapped"],
     "gmm-decode-faster": ["decode-faster"],
     "gmm-decode-simple": ["gmm-decode-faster"],
+    "gmm-latgen-faster-parallel": ["gmm-latgen-faster"],
+    "gmm-latgen-simple": ["gmm-latgen-faster"],
+    "latgen-faster-mapped-parallel": ["latgen-faster-mapped"],
+    # word alignment by lexicon is the one word aligner
+    "lattice-align-words-lexicon": ["lattice-align-words"],
+    "lattice-word-align": ["lattice-align-words"],
+    # the pruned determinizations are lattice-determinize --beam
+    "lattice-determinize-pruned": ["lattice-determinize"],
+    "lattice-determinize-pruned-parallel": ["lattice-determinize"],
+    "lattice-determinize-phone-pruned": ["lattice-determinize"],
+    "lattice-determinize-phone-pruned-parallel": ["lattice-determinize"],
     # the sgmm tree tools are the generic tree tools
     "sgmm-acc-tree-stats": ["acc-tree-stats"],
     "sgmm-build-tree": ["build-tree"],
@@ -2721,7 +4008,9 @@ DEVICE_COMMANDS = (
     "recipe-yesno", "align-equal", "align-mapped", "gmm-init-mono",
     "gmm-init-model", "gmm-init-model-flat", "gmm-acc-stats-ali",
     "gmm-acc-stats", "gmm-acc-stats2", "gmm-compute-likes",
-    "gmm-global-est", "train-deltas")
+    "gmm-global-est", "train-deltas", "latgen-faster-mapped",
+    "gmm-latgen-faster", "gmm-latgen-biglm-faster", "gmm-decode-biglm-faster",
+    "gmm-rescore-lattice", "decode-fmllr")
 
 
 def _register(sub):
@@ -3596,6 +4885,450 @@ def _register(sub):
     q.add_argument("accs_in", nargs="+")
     q.set_defaults(func=cmd_gmm_global_sum_accs)
 
+    # the third slice: lattice generation and rescoring, lattice tools,
+    # n-best lists, posteriors and keyword search
+    q = sub.add_parser("latgen-faster-mapped")
+    q.add_argument("graph")
+    q.add_argument("loglikes_rspecifier")
+    q.add_argument("--lattice-out", default="")
+    q.add_argument("--determinize-lattice", action="store_true",
+                   help="word-level determinization of each lattice "
+                        "(the reference's default decode mode)")
+    q.add_argument("--beam", type=float, default=16.0)
+    q.add_argument("--lattice-beam", type=float, default=8.0)
+    q.add_argument("--max-active", type=int, default=512)
+    q.add_argument("--acoustic-scale", type=float, default=0.1)
+    q.set_defaults(func=cmd_latgen_faster_mapped)
+
+    q = sub.add_parser("gmm-latgen-faster")
+    q.add_argument("model")
+    q.add_argument("graph")
+    q.add_argument("rspecifier")
+    q.add_argument("--lattice-out", default="")
+    q.add_argument("--transcription-out", default="")
+    q.add_argument("--determinize-lattice", action="store_true")
+    q.add_argument("--beam", type=float, default=16.0)
+    q.add_argument("--lattice-beam", type=float, default=8.0)
+    q.add_argument("--max-active", type=int, default=512)
+    q.add_argument("--acoustic-scale", type=float, default=0.1)
+    q.add_argument("--utt2spk", default="")
+    q.add_argument("--transform", default="",
+                   help="fMLLR transform ark, looked up per --utt2spk")
+    q.set_defaults(func=cmd_gmm_latgen_faster)
+
+    q = sub.add_parser("decode-fmllr")
+    q.add_argument("model")
+    q.add_argument("graph")
+    q.add_argument("rspecifier")
+    q.add_argument("utt2spk")
+    q.add_argument("--transcription-out", default="")
+    q.add_argument("--beam", type=float, default=16.0)
+    q.add_argument("--max-active", type=int, default=512)
+    q.add_argument("--acoustic-scale", type=float, default=0.1)
+    q.add_argument("--fmllr-min-count", type=float, default=100.0)
+    q.set_defaults(func=cmd_decode_fmllr)
+
+    q = sub.add_parser("lattice-copy")
+    q.add_argument("lattice_ark")
+    q.add_argument("--out", default="")
+    q.add_argument("--verbose", action="store_true")
+    q.set_defaults(func=cmd_lattice_copy)
+
+    q = sub.add_parser("lattice-depth")
+    q.add_argument("lattice_ark")
+    q.set_defaults(func=cmd_lattice_depth)
+
+    q = sub.add_parser("lattice-rmali")
+    q.add_argument("lattice_ark")
+    q.add_argument("out")
+    q.set_defaults(func=cmd_lattice_rmali)
+
+    q = sub.add_parser("lattice-add-penalty")
+    q.add_argument("lattice_ark")
+    q.add_argument("out")
+    q.add_argument("--word-ins-penalty", type=float, default=0.0)
+    q.set_defaults(func=cmd_lattice_add_penalty)
+
+    q = sub.add_parser("lattice-best-path")
+    q.add_argument("lattice_ark")
+    q.add_argument("--lm-scale", type=float, default=1.0)
+    q.add_argument("--acoustic-scale", type=float, default=1.0)
+    q.add_argument("--word-ins-penalty", type=float, default=0.0)
+    q.set_defaults(func=cmd_lattice_best_path)
+
+    q = sub.add_parser("lattice-scale")
+    q.add_argument("lattice_ark")
+    q.add_argument("out_ark")
+    q.add_argument("--lm-scale", type=float, default=1.0)
+    q.add_argument("--acoustic-scale", type=float, default=1.0)
+    q.set_defaults(func=_load_lattice_cmd(cmd_lattice_scale))
+
+    q = sub.add_parser("lattice-prune")
+    q.add_argument("lattice_ark")
+    q.add_argument("out_ark")
+    q.add_argument("--beam", type=float, default=4.0)
+    q.set_defaults(func=_load_lattice_cmd(cmd_lattice_prune))
+
+    q = sub.add_parser("lattice-to-nbest")
+    q.add_argument("lattice_ark")
+    q.add_argument("--n", type=int, default=10)
+    q.set_defaults(func=cmd_lattice_nbest)
+
+    q = sub.add_parser("lattice-mbr-decode")
+    q.add_argument("lattice_ark")
+    q.add_argument("--lm-scale", type=float, default=1.0)
+    q.add_argument("--acoustic-scale", type=float, default=0.1)
+    q.set_defaults(func=cmd_lattice_mbr_decode)
+
+    q = sub.add_parser("lattice-oracle")
+    q.add_argument("lattice_ark")
+    q.add_argument("ref_text")
+    q.set_defaults(func=cmd_lattice_oracle)
+
+    q = sub.add_parser("arpa-to-const-arpa")
+    q.add_argument("words")
+    q.add_argument("arpa")
+    q.add_argument("out")
+    q.set_defaults(func=cmd_arpa_to_const_arpa)
+
+    q = sub.add_parser("lattice-lmrescore-const-arpa")
+    q.add_argument("model")
+    q.add_argument("arpa")
+    q.add_argument("lattice_ark")
+    q.add_argument("out_ark")
+    q.add_argument("--lm-scale", type=float, default=1.0)
+    q.set_defaults(func=cmd_lattice_lmrescore_const_arpa)
+
+    q = sub.add_parser("lattice-determinize")
+    q.add_argument("lattice_ark")
+    q.add_argument("out_ark")
+    q.add_argument("--beam", type=float, default=0.0)
+    q.set_defaults(func=_load_lattice_cmd(cmd_lattice_determinize))
+
+    q = sub.add_parser("lattice-push")
+    q.add_argument("lattice_ark")
+    q.add_argument("out_ark")
+    q.set_defaults(func=_load_lattice_cmd(cmd_lattice_push))
+
+    q = sub.add_parser("lattice-minimize")
+    q.add_argument("lattice_ark")
+    q.add_argument("out_ark")
+    q.set_defaults(func=_load_lattice_cmd(cmd_lattice_minimize))
+
+    q = sub.add_parser("lattice-union")
+    q.add_argument("ark_a")
+    q.add_argument("ark_b")
+    q.add_argument("out_ark")
+    q.set_defaults(func=cmd_lattice_union)
+
+    q = sub.add_parser("lattice-interp")
+    q.add_argument("ark_a")
+    q.add_argument("ark_b")
+    q.add_argument("out_ark")
+    q.add_argument("--alpha", type=float, default=0.5)
+    q.set_defaults(func=cmd_lattice_interp)
+
+    q = sub.add_parser("nbest-to-linear")
+    q.add_argument("lattice_ark")
+    q.add_argument("--n", type=int, default=10)
+    q.set_defaults(func=cmd_nbest_to_linear)
+
+    q = sub.add_parser("lattice-to-ctm-conf")
+    q.add_argument("lattice_ark")
+    q.add_argument("--lm-scale", type=float, default=1.0)
+    q.add_argument("--acoustic-scale", type=float, default=0.1)
+    q.add_argument("--frame-shift", type=float, default=0.01)
+    q.set_defaults(func=cmd_lattice_to_ctm_conf)
+
+    q = sub.add_parser("lattice-1best")
+    q.add_argument("lattice_ark")
+    q.add_argument("out_ark")
+    q.add_argument("--lm-scale", type=float, default=1.0)
+    q.add_argument("--acoustic-scale", type=float, default=1.0)
+    q.set_defaults(func=cmd_lattice_1best)
+
+    q = sub.add_parser("linear-to-nbest")
+    q.add_argument("transcripts")
+    q.add_argument("out_ark")
+    q.set_defaults(func=cmd_linear_to_nbest)
+
+    q = sub.add_parser("lattice-to-post")
+    q.add_argument("lattice_ark")
+    q.add_argument("post_out")
+    q.add_argument("--lm-scale", type=float, default=1.0)
+    q.add_argument("--acoustic-scale", type=float, default=0.1)
+    q.set_defaults(func=cmd_lattice_to_post)
+
+    for name, crit in (("lattice-to-mpe-post", "mpfe"),
+                       ("lattice-to-smbr-post", "smbr")):
+        q = sub.add_parser(name)
+        q.add_argument("model")
+        q.add_argument("ali_rspecifier")
+        q.add_argument("lattice_ark")
+        q.add_argument("post_out")
+        q.add_argument("--lm-scale", type=float, default=1.0)
+        q.add_argument("--acoustic-scale", type=float, default=0.1)
+        q.add_argument("--silence-phones", default="")
+        q.add_argument("--no-one-silence-class", action="store_true")
+        q.set_defaults(func=cmd_lattice_to_mpe_post, criterion=crit)
+
+    q = sub.add_parser("lattice-boost-ali")
+    q.add_argument("model")
+    q.add_argument("lattice_ark")
+    q.add_argument("ali_rspecifier")
+    q.add_argument("out_ark")
+    q.add_argument("--b", type=float, default=0.05)
+    q.add_argument("--silence-phones", default="")
+    q.add_argument("--max-silence-error", type=float, default=0.0)
+    q.set_defaults(func=cmd_lattice_boost_ali)
+
+    q = sub.add_parser("lattice-lmrescore")
+    q.add_argument("lattice_ark")
+    q.add_argument("g_fst")
+    q.add_argument("out_ark")
+    q.add_argument("--lm-scale", type=float, default=1.0)
+    q.add_argument("--backoff-symbol", type=int, required=True,
+                   help="word-id of the #0 backoff symbol in G")
+    q.set_defaults(func=cmd_lattice_lmrescore)
+
+    q = sub.add_parser("lattice-to-phone-lattice")
+    q.add_argument("model")
+    q.add_argument("lattice_ark")
+    q.add_argument("out_ark")
+    q.set_defaults(func=cmd_lattice_to_phone_lattice)
+
+    q = sub.add_parser("lattice-align-phones")
+    q.add_argument("model")
+    q.add_argument("lattice_ark")
+    q.add_argument("out_ark")
+    q.add_argument("--replace-output-symbols", action="store_true")
+    q.set_defaults(func=cmd_lattice_align_phones)
+
+    q = sub.add_parser("lattice-equivalent")
+    q.add_argument("ark_a")
+    q.add_argument("ark_b")
+    q.add_argument("--delta", type=float, default=0.1)
+    q.set_defaults(func=cmd_lattice_equivalent)
+
+    q = sub.add_parser("lattice-limit-depth")
+    q.add_argument("lattice_ark")
+    q.add_argument("out_ark")
+    q.add_argument("--max-depth", type=int, default=80)
+    q.set_defaults(func=cmd_lattice_limit_depth)
+
+    q = sub.add_parser("kws-search")
+    q.add_argument("lattice_ark")
+    q.add_argument("keywords")
+    q.add_argument("--index", action="store_true",
+                   help="input is a lattice-to-kws-index file, not an ark")
+    q.set_defaults(func=cmd_kws_search)
+
+    q = sub.add_parser("lattice-to-kws-index")
+    q.add_argument("lattice_ark")
+    q.add_argument("index_out")
+    q.set_defaults(func=cmd_lattice_to_kws_index)
+
+    q = sub.add_parser("kws-index-union")
+    q.add_argument("index_out")
+    q.add_argument("indexes", nargs="+")
+    q.set_defaults(func=cmd_kws_index_union)
+
+    q = sub.add_parser("compute-atwv")
+    q.add_argument("duration", type=float,
+                   help="total audio duration in seconds")
+    q.add_argument("ref", help="'kwid utt t_begin t_end' lines")
+    q.add_argument("hits", help="'kwid utt t_begin t_end score' lines")
+    q.add_argument("--score-threshold", type=float, default=0.5)
+    q.set_defaults(func=cmd_compute_atwv)
+
+    q = sub.add_parser("generate-proxy-keywords")
+    q.add_argument("keywords", help="'kwid phone phone ...' lines")
+    q.add_argument("lexicon", help="'word phone phone ...' lines")
+    q.add_argument("--confusion-matrix", default="",
+                   help="'phone phone cost' lines")
+    q.add_argument("--nbest", type=int, default=10)
+    q.add_argument("--proxy-beam", type=float, default=4.0)
+    q.set_defaults(func=cmd_generate_proxy_keywords)
+
+    q = sub.add_parser("weight-silence-post")
+    q.add_argument("silence_weight", type=float)
+    q.add_argument("silence_phones", help="colon-separated phone ids")
+    q.add_argument("model")
+    q.add_argument("post_in")
+    q.add_argument("post_out")
+    q.set_defaults(func=cmd_weight_silence_post)
+
+    q = sub.add_parser("sum-post")
+    q.add_argument("post_a")
+    q.add_argument("post_b")
+    q.add_argument("post_out")
+    q.add_argument("--scale1", type=float, default=1.0)
+    q.add_argument("--scale2", type=float, default=1.0)
+    q.set_defaults(func=cmd_sum_post)
+
+    q = sub.add_parser("post-to-weights")
+    q.add_argument("post_in")
+    q.add_argument("wspecifier")
+    q.set_defaults(func=cmd_post_to_weights)
+
+    for name in ("copy-post", "scale-post"):
+        q = sub.add_parser(name)
+        q.add_argument("post_in")
+        q.add_argument("post_out")
+        q.add_argument("--scale", type=float, default=1.0)
+        q.set_defaults(func=cmd_copy_post)
+
+    q = sub.add_parser("weight-post")
+    q.add_argument("post_in")
+    q.add_argument("weights_rspecifier")
+    q.add_argument("post_out")
+    q.set_defaults(func=cmd_weight_post)
+
+    q = sub.add_parser("thresh-post")
+    q.add_argument("post_in")
+    q.add_argument("post_out")
+    q.add_argument("--threshold", type=float, default=0.01)
+    q.set_defaults(func=cmd_thresh_post)
+
+    q = sub.add_parser("rand-prune-post")
+    q.add_argument("post_in")
+    q.add_argument("post_out")
+    q.add_argument("--scale", type=float, default=0.1)
+    q.add_argument("--seed", type=int, default=0)
+    q.set_defaults(func=cmd_rand_prune_post)
+
+    q = sub.add_parser("post-to-pdf-post")
+    q.add_argument("model")
+    q.add_argument("post_in")
+    q.add_argument("post_out")
+    q.set_defaults(func=cmd_post_to_pdf_post)
+
+    q = sub.add_parser("post-to-phone-post")
+    q.add_argument("model")
+    q.add_argument("post_in")
+    q.add_argument("post_out")
+    q.set_defaults(func=cmd_post_to_phone_post)
+
+    for name, log_in in (("prob-to-post", False),
+                         ("logprob-to-post", True)):
+        q = sub.add_parser(name)
+        q.add_argument("rspecifier")
+        q.add_argument("post_out")
+        q.add_argument("--min-post", type=float, default=0.01)
+        q.set_defaults(func=cmd_prob_to_post, log_input=log_in)
+
+    q = sub.add_parser("get-post-on-ali")
+    q.add_argument("post_in")
+    q.add_argument("ali_rspecifier")
+    q.add_argument("wspecifier")
+    q.set_defaults(func=cmd_get_post_on_ali)
+
+    q = sub.add_parser("lattice-to-fst")
+    q.add_argument("lattice_ark")
+    q.add_argument("fsts_out")
+    q.add_argument("--lm-scale", type=float, default=0.0)
+    q.add_argument("--acoustic-scale", type=float, default=0.0)
+    q.set_defaults(func=cmd_lattice_to_fst)
+
+    q = sub.add_parser("lattice-project")
+    q.add_argument("lattice_ark")
+    q.add_argument("out_ark")
+    q.set_defaults(func=cmd_lattice_project)
+
+    q = sub.add_parser("lattice-depth-per-frame")
+    q.add_argument("lattice_ark")
+    q.set_defaults(func=cmd_lattice_depth_per_frame)
+
+    q = sub.add_parser("lattice-confidence")
+    q.add_argument("lattice_ark")
+    q.add_argument("--max-confidence", type=float, default=1e6)
+    q.set_defaults(func=cmd_lattice_confidence)
+
+    q = sub.add_parser("nbest-to-ctm")
+    q.add_argument("lattice_ark")
+    q.add_argument("--frame-shift", type=float, default=0.01)
+    q.set_defaults(func=cmd_nbest_to_ctm)
+
+    q = sub.add_parser("lattice-rescore-mapped")
+    q.add_argument("model")
+    q.add_argument("lattice_ark")
+    q.add_argument("loglikes_rspecifier")
+    q.add_argument("out_ark")
+    q.add_argument("--acoustic-scale", type=float, default=1.0)
+    q.set_defaults(func=cmd_lattice_rescore_mapped)
+
+    q = sub.add_parser("lattice-add-trans-probs")
+    q.add_argument("model")
+    q.add_argument("lattice_ark")
+    q.add_argument("out_ark")
+    q.add_argument("--transition-scale", type=float, default=1.0)
+    q.set_defaults(func=cmd_lattice_add_trans_probs)
+
+    q = sub.add_parser("lattice-compose")
+    q.add_argument("lattice_ark")
+    q.add_argument("fst")
+    q.add_argument("out_ark")
+    q.set_defaults(func=cmd_lattice_compose)
+
+    q = sub.add_parser("lattice-reverse")
+    q.add_argument("lattice_ark")
+    q.add_argument("out_ark")
+    q.set_defaults(func=cmd_lattice_reverse)
+
+    q = sub.add_parser("lattice-combine")
+    q.add_argument("out_ark")
+    q.add_argument("arks_in", nargs="+")
+    q.set_defaults(func=cmd_lattice_combine)
+
+    q = sub.add_parser("nbest-to-lattice")
+    q.add_argument("nbest_ark")
+    q.add_argument("out_ark")
+    q.set_defaults(func=cmd_nbest_to_lattice)
+
+    q = sub.add_parser("lattice-align-words")
+    q.add_argument("lexicon")
+    q.add_argument("model")
+    q.add_argument("lattice_ark")
+    q.add_argument("lattice_out")
+    q.set_defaults(func=cmd_lattice_align_words)
+
+    q = sub.add_parser("gmm-rescore-lattice")
+    q.add_argument("model")
+    q.add_argument("lattice_ark")
+    q.add_argument("rspecifier")
+    q.add_argument("out_ark")
+    q.add_argument("--acoustic-scale", type=float, default=0.1)
+    q.set_defaults(func=cmd_gmm_rescore_lattice)
+
+    for name in ("gmm-latgen-biglm-faster", "gmm-decode-biglm-faster"):
+        q = sub.add_parser(name)
+        q.add_argument("model")
+        q.add_argument("graph")
+        q.add_argument("old_g", help="small G (text FST)")
+        q.add_argument("new_lm", help="const-arpa npz")
+        q.add_argument("rspecifier")
+        q.add_argument("--transcription-out", default="")
+        q.add_argument("--backoff-symbol", type=int, required=True)
+        q.add_argument("--beam", type=float, default=16.0)
+        q.add_argument("--lattice-beam", type=float, default=8.0)
+        q.add_argument("--max-active", type=int, default=512)
+        q.add_argument("--acoustic-scale", type=float, default=0.1)
+        q.add_argument("--lm-scale", type=float, default=1.0)
+        q.set_defaults(func=cmd_gmm_latgen_biglm_faster)
+
+    q = sub.add_parser("feat-to-post")
+    q.add_argument("rspecifier")
+    q.add_argument("post_out")
+    q.add_argument("--min-value", type=float, default=0.0)
+    q.set_defaults(func=cmd_feat_to_post)
+
+    q = sub.add_parser("paste-post")
+    q.add_argument("post_a")
+    q.add_argument("dim_a", type=int)
+    q.add_argument("post_b")
+    q.add_argument("post_out")
+    q.set_defaults(func=cmd_paste_post)
+
     q = sub.add_parser("recipe-yesno", help="synthetic yesno: features -> "
                        "mono training -> HCLG -> decode -> WER (exits 1 "
                        "unless WER == 0)")
@@ -3616,7 +5349,7 @@ def main(argv=None) -> int:
     sub = p.add_subparsers(dest="cmd", required=True)
     _register(sub)
     for module in (cli_nnet, cli_misc, cli_fst, cli_gmm_extra,
-                   cli_online_extra):
+                   cli_online_extra, cli_tail):
         module.register(sub)
     for name in DEVICE_COMMANDS:
         sub.choices[name].add_argument("--device", default="cuda",

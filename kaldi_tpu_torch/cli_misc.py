@@ -1,10 +1,10 @@
 """Miscellaneous utility CLI subcommands of the port (the bin/ long tail).
 
 Counterpart of kaldi_tpu/cli_misc.py, holding the ported ones: per-frame
-weight algebra, matrix plumbing, VAD-driven segmentation, two-channel
-CMVN statistics, the tree tools (contexts, compiled questions, GraphViz)
-and the card probes. All but the probes are host numpy,
-writing JAX's bytes. Registered into the main parser by
+weight algebra, silence probabilities, matrix plumbing, VAD-driven
+segmentation, two-channel CMVN statistics, the tree tools (contexts,
+compiled questions, GraphViz) and the card probes. All but the probes
+are host numpy, writing JAX's bytes. Registered into the main parser by
 kaldi_tpu_torch.cli.main via register(sub).
 
 (ref: bin/*.cc, featbin/*.cc, ivectorbin/create-split-from-vad.cc —
@@ -49,6 +49,34 @@ def cmd_reverse_weights(args):
             out.write(k, (1.0 - w) if args.reverse else w)
             n += 1
     print(f"reverse-weights: {n} utts", file=sys.stderr)
+
+
+def cmd_get_silence_probs(args):
+    """Per-frame P(silence) by Bayes over silence/non-silence loglikes
+    with a prior and optional quantization
+    (ref: gmmbin/get-silence-probs.cc:69-118)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, open_wspecifier
+    nonsil = {k: np.asarray(v, np.float64).reshape(-1)
+              for (k, v) in open_rspecifier(args.nonsil_rspecifier)}
+    bias = np.log(args.sil_prior / (1.0 - args.sil_prior))
+    n = 0
+    with open_wspecifier(args.wspecifier) as out:
+        for k, v in open_rspecifier(args.sil_rspecifier):
+            if k not in nonsil:
+                print(f"get-silence-probs: no non-sil likes for {k}",
+                      file=sys.stderr)
+                continue
+            logodds = (np.asarray(v, np.float64).reshape(-1)
+                       - nonsil[k] + bias)
+            p = np.where(logodds > 10.0, 1.0,
+                         1.0 / (1.0 + np.exp(-np.minimum(logodds, 10.0))))
+            if args.quantize:
+                p = args.quantize * np.floor(0.5 + p / args.quantize)
+            if args.write_nonsil_probs:
+                p = 1.0 - p
+            out.write(k, p.astype(np.float32))
+            n += 1
+    print(f"get-silence-probs: {n} utts", file=sys.stderr)
 
 
 # ------------------------------------------------------------- matrix ops
@@ -342,6 +370,11 @@ def register(sub):
     add("reverse-weights", cmd_reverse_weights,
         a("rspecifier"), a("wspecifier"),
         a("--reverse", type=lambda s: s != "false", default=True))
+    add("get-silence-probs", cmd_get_silence_probs,
+        a("sil_rspecifier"), a("nonsil_rspecifier"), a("wspecifier"),
+        a("--sil-prior", type=float, default=0.5),
+        a("--quantize", type=float, default=0.0),
+        a("--write-nonsil-probs", action="store_true"))
     add("duplicate-matrix", cmd_duplicate_matrix,
         a("rspecifier"), a("wspecifiers", nargs="+"))
     add("matrix-logprob", cmd_matrix_logprob,

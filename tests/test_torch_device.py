@@ -810,6 +810,16 @@ def test_cli_second_slice_device_commands_take_device():
             "gmm-global-est", "train-deltas"} <= set(_cli_device_commands())
 
 
+def test_cli_third_slice_device_commands_take_device():
+    """The third CLI slice's commands that build a device object (the
+    padded beam search's lattice decodes, the GMM rescoring, the two-pass
+    fMLLR decode) are among those checked below."""
+    assert {"latgen-faster-mapped", "gmm-latgen-faster",
+            "gmm-latgen-biglm-faster", "gmm-decode-biglm-faster",
+            "gmm-rescore-lattice", "decode-fmllr"} <= set(
+                _cli_device_commands())
+
+
 @pytest.mark.parametrize("name", _cli_device_commands())
 def test_cli_device_command_defaults_to_cuda_and_raises_without_a_card(
         name, tmp_path):
@@ -825,6 +835,9 @@ def test_cli_device_command_defaults_to_cuda_and_raises_without_a_card(
         pytest.skip("a card is present: the default builds there")
     argv = [name] + [str(tmp_path / a.dest) for a in parser._actions
                      if not a.option_strings]
+    for a in parser._actions:       # a required option (--backoff-symbol)
+        if a.option_strings and a.required:
+            argv += [a.option_strings[0], "0"]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(argv)
     assert not list(tmp_path.iterdir())

@@ -10,8 +10,9 @@ and deltas, the padded decoder, both fused engines, the nnet2 decoder
 with i-vectors), the dense decoder on the yesno HCLG, the port's
 `recipe-yesno` (the GMM path end to end), its `recipe-yesno-files` (the
 CLI's first slice over files) and one subcommand of each other group of
-that slice and of the second (FSTs, GMMs, cli_fst, cli_gmm_extra), and a
-small triphone run
+that slice and of the second (FSTs, GMMs, cli_fst, cli_gmm_extra), the
+third slice's lattice decode with a lattice and a posterior subcommand
+and `kws-search` on its lattices, and a small triphone run
 (train_deltas from a monophone, its HCLG through the flat pipeline on the
 port's native graph ops, a decode) and two bMMI and two fMMI iterations
 from that triphone model run on the CPU; then two NG-SGD steps of a tiny
@@ -130,7 +131,7 @@ for n in ("kaldi_tpu_torch.cuda_build", "kaldi_tpu_torch.nnet.quantized",
           "kaldi_tpu_torch.online.gmm_decoding",
           "kaldi_tpu_torch.cli_online_extra", "kaldi_tpu_torch.cli_misc",
           "kaldi_tpu_torch.cli_nnet", "kaldi_tpu_torch.cli_fst",
-          "kaldi_tpu_torch.cli_gmm_extra",
+          "kaldi_tpu_torch.cli_gmm_extra", "kaldi_tpu_torch.cli_tail",
           "kaldi_tpu_torch.fst.text_io", "kaldi_tpu_torch.fst.special",
           "kaldi_tpu_torch.fst.factor", "kaldi_tpu_torch.hmm.hmm_utils",
           "kaldi_tpu_torch.tree.synth", "kaldi_tpu_torch.decoder.simple",
@@ -264,8 +265,19 @@ with tempfile.TemporaryDirectory() as w, \
             ["gmm-est", f"{w}/mono.npz", f"{w}/acc.npz",
              f"{w}/mono1.npz"],
             ["init-ubm", f"{w}/mono.npz", f"{w}/acc.npz",
-             f"{w}/ubm.npz", "--ubm-num-gauss", "4"]):        # gmm_extra
+             f"{w}/ubm.npz", "--ubm-num-gauss", "4"],         # gmm_extra
+            ["gmm-latgen-faster", f"{w}/mono.npz", f"{w}/hclg.npz",
+             f"ark:{w}/test/feats.ark", "--lattice-out", f"{w}/lat.ark",
+             "--max-active", "64", "--device", "cpu"],        # CLI slice 3
+            ["lattice-best-path", f"{w}/lat.ark",
+             "--acoustic-scale", "0.1"],                      # lattices
+            ["lattice-to-post", f"{w}/lat.ark", f"{w}/post.txt"],
+            ["post-to-weights", f"{w}/post.txt",
+             f"ark:{w}/pw.ark"]):                             # posteriors
         assert cli.main(argv) == 0, argv
+    with open(f"{w}/kw.txt", "w") as f:
+        f.write("KW1 1\nKW2 2 1\n")
+    assert cli.main(["kws-search", f"{w}/lat.ark", f"{w}/kw.txt"]) == 0
 from kaldi_tpu_torch.decoder.graph_pack import pack_graphs
 from kaldi_tpu_torch.fst.graph import TrainingGraphCompiler
 from kaldi_tpu_torch.fst.mkgraph_flat import make_hclg_flat, pack_graph_flat
