@@ -492,8 +492,9 @@ SOCKET_TIMEOUT_S = 120
 # second process beside those that do: its stdout in SIDE_LOG (copied to
 # this one's at the end), its launch counts in SIDE_RESULTS, its CPU ops
 # on SIDE_THREADS threads so that the other's host loops keep their cores.
-# Phase 35, small too, runs in this process after phase 32, which keeps the
-# two processes' times within 30 s of each other
+# Phases 35 and 19 (19 since phase 39 joined the second process), small
+# too, run in this process after phase 32, which keeps the two processes'
+# times within 30 s of each other
 SMALL_PHASES = (
     (5, "decoder on the card vs on the CPU", "phase_decoder_parity"),
     (6, "int8 decode on the card vs on the CPU", "phase_int8_parity"),
@@ -504,7 +505,6 @@ SMALL_PHASES = (
     (12, "training, small: card vs CPU", "phase_train_small"),
     (15, "online path, small: card vs CPU vs offline", "phase_online_small"),
     (17, "GMM path, small: card vs CPU", "phase_gmm_small"),
-    (19, "triphone ladder, small: card vs CPU", "phase_ladder_small"),
     (21, "discriminative path, small: card vs CPU on shared lattices",
      "phase_disc_small"),
     (23, "nnet3 and nnet1 families, small: card vs CPU", "phase_nnet_small"),
@@ -9428,6 +9428,13 @@ CLI_ACC_REL = 1e-5           # GMM accumulators: of each array's largest value
 CLI_LL_REL = 1e-5            # GMM loglikes: of their GEMM terms (phases 17-20)
 CLI_EIGH_REL = 1e-9          # a full-covariance update's eigenvalue floor
 CLI_LAT_ATOL = 1e-4          # lattice costs (tests/test_torch_lattice.py)
+# averaged posteriors (nnet-adjust-priors): |exp a - exp b| <= p |a - b| to
+# first order, and the forward's CLI_NNET_TOL gives |a - b| <= 1e-5 (1 +
+# |a|); p |log p| <= 1/e, so each prior moves at most 1e-5 (1 + 1/e),
+# rounded up to cover the second order and the sums
+CLI_PRIORS_BOUND = 1.4e-5
+PRINTED_ATOL = 1.5e-4        # 4 printed decimals plus the forward's bound
+CLI_SHRINK_REL = 1e-4        # tests/test_torch_surgery.py's shrink bound
 LAT_TEXT_REL = 1e-5          # two writes of a lattice cost at 6 digits
 CLI_SR = "8000"
 # the yesno decodes of the third slice's device cases: a tiny graph's search
@@ -9521,6 +9528,7 @@ def cli_inputs(d: str):
         with open(P(name), "w") as f:
             f.write(text)
     cli_gmm_inputs(lambda *n: P("gmm", *n), rng)
+    cli_nnet_inputs(lambda *n: P("nnet", *n), lambda *n: P("gmm", *n))
     return P
 
 
@@ -9835,6 +9843,183 @@ CLI_CASES = [
 ]
 
 
+def cli_nnet_inputs(N, G) -> None:
+    """The fourth slice's device commands' inputs under N(name), from the
+    GMM system under G(name) (cli_gmm_inputs), made through the port's
+    CLI on the CPU: egs of context 2 + 2 and a validation subset, a
+    p-norm TDNN AmNnet (nnet-am-init, then one epoch), a p-norm nnet3
+    TDNN (make_tdnn_config, nnet3-init, one epoch), a sigmoid nnet1 net,
+    pdf alignments and the discriminative egs of the GMM's lattices."""
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    from kaldi_tpu_torch.nnet3.configs import make_tdnn_config
+    os.makedirs(N(), exist_ok=True)
+    pdfs = load_gmm_system(G("mono.npz"), device="cpu").am.num_pdfs
+    with open(N("tdnn.config"), "w") as f:
+        f.write(make_tdnn_config(39, pdfs, splice_indexes=((-1, 0, 1),
+                                                           (-1, 1)),
+                                 hidden_dim=32, nonlinearity="PnormComponent",
+                                 pnorm_output_dim=8))
+    with open(N("net.proto"), "w") as f:
+        f.write(f"<AffineTransform> <InputDim> 39 <OutputDim> 16\n"
+                f"<Sigmoid> <InputDim> 16 <OutputDim> 16\n"
+                f"<AffineTransform> <InputDim> 16 <OutputDim> {pdfs}\n"
+                f"<Softmax> <InputDim> {pdfs} <OutputDim> {pdfs}\n")
+    feats, ali = f"ark:{G('feats.ark')}", f"ark:{G('ali.ark')}"
+    one = ["--num-epochs", "1", "--minibatch-size", "16", "--device", "cpu"]
+    for argv in (
+            ["nnet-get-egs", G("mono.npz"), feats, ali, N("egs"),
+             "--left-context", "2", "--right-context", "2"],
+            ["nnet-subset-egs", N("egs"), N("valid"), "--n", "16"],
+            ["nnet-am-init", G("mono.npz"), feats, N("nn0.npz"),
+             "--splice-indexes=-1,0,1;-1,1", "--hidden-dim", "32",
+             "--pnorm-output-dim", "8"],
+            ["nnet-train-simple", N("nn0.npz"), N("egs"), N("nn1.npz"),
+             *one],
+            ["nnet3-init", N("tdnn.config"), N("n3_0.npz")],
+            ["nnet3-train", N("n3_0.npz"), N("egs"), N("n3_1.npz"), *one],
+            ["nnet-initialize", N("net.proto"), N("init.nnet")],
+            ["ali-to-pdf", G("mono.npz"), ali, f"ark:{N('pdf.ark')}"],
+            ["nnet-get-egs-discriminative", N("nn1.npz"), feats, ali,
+             G("lat.ark"), N("degs")]):
+        _cli_ok(argv[0], cli_call(argv))
+
+
+def _nn(P, *n):
+    return P("nnet", *n)
+
+
+# the fourth slice's device commands on the small nnet system
+# (cli_nnet_inputs): forwards ("nnet", CLI_NNET_TOL); f32 trainers, fits
+# and gradients ("train": each array within TRAIN_LIMITS["f32"] of its
+# largest value); NG-SGD and the Adam-fitted combinations ("ng": 1e-4, as
+# TRAIN_LIMITS["ng_sgd"] and tests/test_torch_surgery.py's combine);
+# printed objectives ("printed": PRINTED_ATOL); averaged posteriors
+# ("priors": CLI_PRIORS_BOUND); shrink ("shrink": the output layer within
+# 1e-4, each hidden layer a scalar multiple, since the RMS normalize
+# cancels its scale); the LSTM files ("lstm": their pickled params at
+# TRAIN_LIMITS["f32"]); the RBM, whose hidden samples come from a
+# generator on each side's device ("shapes": JAX's members, shapes and
+# dtypes, finite); lattice decodes ("lattice")
+NNET_CLI_CASES = [
+    ("nnet3-compute", lambda P, O: [
+        "nnet3-compute", _nn(P, "n3_1.npz"), _ark(P, "gmm/feats.ark"),
+        f"ark:{O}/y.ark"], "nnet", "y.ark"),
+    ("nnet3-compute --use-priors", lambda P, O: [
+        "nnet3-compute", _nn(P, "n3_1.npz"), _ark(P, "gmm/feats.ark"),
+        f"ark:{O}/y.ark", "--use-priors"], "nnet", "y.ark"),
+    ("nnet-forward", lambda P, O: [
+        "nnet-forward", _nn(P, "init.nnet"), _ark(P, "gmm/feats.ark"),
+        f"ark:{O}/y.ark", "--apply-log"], "nnet", "y.ark"),
+    ("nnet-train-frmshuff", lambda P, O: [
+        "nnet-train-frmshuff", _nn(P, "init.nnet"), _ark(P, "gmm/feats.ark"),
+        _ark(P, "nnet/pdf.ark"), f"{O}/t.nnet", "--minibatch-size", "64"],
+     "train", None),
+    ("rbm-train-cd1-frmshuff", lambda P, O: [
+        "rbm-train-cd1-frmshuff", _ark(P, "gmm/feats.ark"), f"{O}/r.npz",
+        "--hidden-dim", "16", "--num-epochs", "1", "--minibatch-size", "64"],
+     "shapes", None),
+    ("nnet3-train", lambda P, O: [
+        "nnet3-train", _nn(P, "n3_0.npz"), _nn(P, "egs"), f"{O}/n.npz",
+        "--num-epochs", "1", "--minibatch-size", "16"], "ng", None),
+    ("nnet3-compute-prob", lambda P, O: [
+        "nnet3-compute-prob", _nn(P, "n3_1.npz"), _nn(P, "valid")],
+     "printed", None),
+    ("nnet3-combine", lambda P, O: [
+        "nnet3-combine", _nn(P, "valid"), f"{O}/c.npz", _nn(P, "n3_0.npz"),
+        _nn(P, "n3_1.npz"), "--num-steps", "10"], "ng", None),
+    ("nnet3-am-adjust-priors", lambda P, O: [
+        "nnet3-am-adjust-priors", _nn(P, "n3_1.npz"),
+        _ark(P, "gmm/feats.ark"), f"{O}/p.npz"], "priors", None),
+    ("nnet3-latgen-faster", lambda P, O: [
+        "nnet3-latgen-faster", P("gmm", "mono.npz"), _nn(P, "n3_1.npz"),
+        P("gmm", "hclg.npz"), _ark(P, "gmm/feats.ark"), "--lattice-out",
+        f"{O}/lat.ark", *CLI_LATGEN], "lattice", "lat.ark"),
+    ("nnet-train-simple", lambda P, O: [
+        "nnet-train-simple", _nn(P, "nn0.npz"), _nn(P, "egs"), f"{O}/n.npz",
+        "--num-epochs", "1", "--minibatch-size", "16"], "train", None),
+    ("nnet-combine-fast", lambda P, O: [
+        "nnet-combine-fast", _nn(P, "valid"), f"{O}/c.npz",
+        _nn(P, "nn0.npz"), _nn(P, "nn1.npz"), "--num-steps", "10"],
+     "ng", None),
+    ("nnet-adjust-priors", lambda P, O: [
+        "nnet-adjust-priors", _nn(P, "nn1.npz"), _ark(P, "gmm/feats.ark"),
+        f"{O}/p.npz"], "priors", None),
+    ("nnet-latgen-faster", lambda P, O: [
+        "nnet-latgen-faster", P("gmm", "mono.npz"), _nn(P, "nn1.npz"),
+        P("gmm", "hclg.npz"), _ark(P, "gmm/feats.ark"), "--lattice-out",
+        f"{O}/lat.ark", *CLI_LATGEN], "lattice", "lat.ark"),
+    *[(n, lambda P, O, n=n: [
+        n, _nn(P, "nn1.npz"), _nn(P, "valid"), f"{O}/s.npz", "--num-steps",
+        "5"], "shrink", None) for n in ("nnet-am-shrink", "nnet-shrink")],
+    ("nnet-am-fix", lambda P, O: [
+        "nnet-am-fix", _nn(P, "nn1.npz"), _nn(P, "valid"), f"{O}/f.npz"],
+     "train", None),
+    ("nnet-am-rescale", lambda P, O: [
+        "nnet-am-rescale", _nn(P, "nn1.npz"), _nn(P, "valid"), f"{O}/r.npz",
+        "--num-iters", "2"], "train", None),
+    ("nnet-am-stats", lambda P, O: [
+        "nnet-am-stats", _nn(P, "nn1.npz"), "--egs", _nn(P, "valid")],
+     "printed", None),
+    ("nnet-show-progress", lambda P, O: [
+        "nnet-show-progress", _nn(P, "nn0.npz"), _nn(P, "nn1.npz"),
+        _nn(P, "valid")], "printed", None),
+    ("nnet-limit-degradation", lambda P, O: [
+        "nnet-limit-degradation", _nn(P, "nn1.npz"), _nn(P, "nn0.npz"),
+        _nn(P, "valid"), f"{O}/l.npz"], "train", None),
+    ("nnet-compute", lambda P, O: [
+        "nnet-compute", _nn(P, "nn1.npz"), _ark(P, "gmm/feats.ark"),
+        f"ark:{O}/y.ark"], "nnet", "y.ark"),
+    ("nnet-logprob", lambda P, O: [
+        "nnet-logprob", _nn(P, "nn1.npz"), _ark(P, "gmm/feats.ark"),
+        f"ark:{O}/y.ark"], "nnet", "y.ark"),
+    ("nnet-logprob2", lambda P, O: [
+        "nnet-logprob2", _nn(P, "nn1.npz"), _ark(P, "gmm/feats.ark"),
+        f"ark:{O}/p.ark", f"ark:{O}/l.ark"], "nnet", "l.ark"),
+    ("nnet-compute-prob", lambda P, O: [
+        "nnet-compute-prob", _nn(P, "nn1.npz"), _nn(P, "valid")],
+     "printed", None),
+    ("nnet-compute-from-egs", lambda P, O: [
+        "nnet-compute-from-egs", _nn(P, "nn1.npz"), _nn(P, "valid"),
+        f"ark:{O}/y.ark"], "nnet", "y.ark"),
+    ("nnet-gradient", lambda P, O: [
+        "nnet-gradient", _nn(P, "nn1.npz"), _nn(P, "valid"), f"{O}/g.npz"],
+     "train", None),
+    ("nnet-train-simple-perturbed", lambda P, O: [
+        "nnet-train-simple-perturbed", _nn(P, "nn0.npz"), _nn(P, "egs"),
+        f"{O}/t.npz", "--num-epochs", "1", "--minibatch-size", "16"],
+     "train", None),
+    ("nnet-train-ensemble", lambda P, O: [
+        "nnet-train-ensemble", _nn(P, "egs"), _nn(P, "nn0.npz"),
+        _nn(P, "nn1.npz"), f"{O}/e0.npz", f"{O}/e1.npz", "--num-epochs",
+        "1", "--minibatch-size", "16"], "train", None),
+    ("nnet-train-discriminative-simple", lambda P, O: [
+        "nnet-train-discriminative-simple", _nn(P, "nn1.npz"),
+        P("gmm", "mono.npz"), _nn(P, "degs"), f"{O}/d.npz", "--criterion",
+        "mmi"], "train", None),
+    ("nnet-align-compiled", lambda P, O: [
+        "nnet-align-compiled", P("gmm", "mono.npz"), _nn(P, "nn1.npz"),
+        P("gmm", "text"), _ark(P, "gmm/feats.ark"), f"ark:{O}/a.ark"],
+     "bytes", None),
+    *[(n, lambda P, O, n=n: [
+        n, _ark(P, "gmm/feats.ark"), _ark(P, "nnet/pdf.ark"), "init",
+        f"{O}/l.npz", "--cell-dim", "8", "--proj-dim", "4", "--num-epochs",
+        "1", "--learn-rate", "0.005"], "lstm", None)
+      for n in ("nnet-train-lstm-streams", "nnet-train-blstm-streams")],
+    *[(n, lambda P, O, n=n: [
+        n, _nn(P, "init.nnet"), P("gmm", "mono.npz"),
+        _ark(P, "gmm/feats.ark"), P("gmm", "lat.ark"), _ark(P, "gmm/ali.ark"),
+        f"{O}/s.nnet", "--learn-rate", "0.01"], "train", None)
+      for n in ("nnet-train-mmi-sequential", "nnet-train-mpe-sequential")],
+    ("nnet3-compute-from-egs", lambda P, O: [
+        "nnet3-compute-from-egs", _nn(P, "n3_1.npz"), _nn(P, "valid"),
+        f"ark:{O}/y.ark"], "nnet", "y.ark"),
+    ("nnet3-show-progress", lambda P, O: [
+        "nnet3-show-progress", _nn(P, "n3_0.npz"), _nn(P, "n3_1.npz"),
+        _nn(P, "valid")], "printed", None),
+]
+CLI_CASES += NNET_CLI_CASES
+
+
 def _cli_files(d: str) -> list:
     return sorted(os.path.relpath(os.path.join(r, f), d)
                   for r, _ds, fs in os.walk(d) for f in fs)
@@ -10033,6 +10218,20 @@ def cli_compare(kind: str, dirs: dict, out: dict, name: str,
         return lattices_within(os.path.join(dc, ark), os.path.join(dp, ark),
                                name, {k: 0.1 * float(b.max()) for k, b in
                                       fft.items()}, LAT_TEXT_REL)
+    if kind in ("train", "ng", "priors", "shrink", "shapes", "lstm"):
+        return nnet_files_close(kind, dc, dp, out, name)
+    if kind == "printed":
+        a, b = out["card"][0].splitlines(), out["cpu"][0].splitlines()
+        if len(a) != len(b) or not a:
+            raise AssertionError(f"{name}: different output")
+        worst = 0.0
+        for x, y in zip(a, b):
+            nx, ny = _printed_numbers(x), _printed_numbers(y)
+            if len(nx) != len(ny) or not np.allclose(nx, ny, rtol=0,
+                                                     atol=PRINTED_ATOL):
+                raise AssertionError(f"{name}: {x!r} vs {y!r}")
+            worst = max([worst] + [abs(u - v) for u, v in zip(nx, ny)])
+        return worst
     if kind in ("npz", "accs", "eigh"):
         if _cli_files(dc) != _cli_files(dp) or out["card"][0] != \
                 out["cpu"][0]:
@@ -10052,6 +10251,84 @@ def cli_compare(kind: str, dirs: dict, out: dict, name: str,
         worst = max(worst, _cli_close(kind, g, w,
                                       None if fft is None else fft[k]))
     return worst
+
+
+def _printed_numbers(line: str) -> list:
+    out = []
+    for t in line.replace("(", " ").replace(")", " ").replace(
+            ";", " ").split():
+        try:
+            out.append(float(t))
+        except ValueError:
+            pass
+    return out
+
+
+def nnet_files_close(kind: str, dc: str, dp: str, out: dict,
+                     name: str) -> float:
+    """The files of a network command, card (dc) vs CPU (dp), by kind:
+    "train" each float array within TRAIN_LIMITS["f32"] of its largest
+    value, "ng" within TRAIN_LIMITS["ng_sgd"], "priors" the priors within
+    CLI_PRIORS_BOUND and the rest equal, "shrink" the output layer within
+    CLI_SHRINK_REL and each hidden array a scalar multiple (within the
+    same) of the CPU's, "shapes" the same members, shapes and dtypes, all
+    finite, "lstm" the pickled LSTM params within TRAIN_LIMITS["f32"].
+    -> the worst relative difference."""
+    import pickle
+    files = _cli_files(dc)
+    if files != _cli_files(dp) or not files:
+        raise AssertionError(f"{name}: different files")
+    worst = 0.0
+    for f in files:
+        a, b = os.path.join(dc, f), os.path.join(dp, f)
+        if kind in ("train", "ng", "priors"):
+            rel = {"train": TRAIN_LIMITS["f32"][0],
+                   "ng": TRAIN_LIMITS["ng_sgd"][0], "priors": 0.0}[kind]
+            bound = None
+            if kind == "priors":
+                bound = {"priors": np.full(np.load(b)["priors"].shape,
+                                           CLI_PRIORS_BOUND)}
+            worst = max(worst, npz_rel(a, b, rel, name, bound))
+            continue
+        za, zb = np.load(a), np.load(b)
+        if sorted(za.files) != sorted(zb.files):
+            raise AssertionError(f"{name}: {f} members differ")
+        if kind == "lstm":
+            x, y = (pickle.loads(z["__host__"].tobytes()) for z in (za, zb))
+            if x[:4] != y[:4]:
+                raise AssertionError(f"{name}: LSTM headers differ")
+            pairs = list(zip(_flat_leaves(x[4]), _flat_leaves(y[4])))
+        else:
+            pairs = [(za[k], zb[k]) for k in za.files]
+        for k, (x, y) in zip(za.files if kind != "lstm" else
+                             range(len(pairs)), pairs):
+            if x.shape != y.shape or x.dtype != y.dtype or (
+                    x.dtype.kind == "f" and not np.isfinite(x).all()):
+                raise AssertionError(f"{name}: {f}[{k}] differs")
+            if kind == "shapes" or x.dtype.kind != "f":
+                continue
+            scale = max(float(np.abs(y).max(initial=0.0)), 1e-30)
+            if kind == "shrink" and str(k).startswith("layer"):
+                c = float(np.vdot(x, y) / max(np.vdot(y, y), 1e-300))
+                x = x / c
+            d = float(np.abs(x.astype(np.float64) - y).max(
+                initial=0.0)) / scale
+            lim = CLI_SHRINK_REL if kind == "shrink" else \
+                TRAIN_LIMITS["f32"][0]
+            if d > lim:
+                raise AssertionError(f"{name}: {f}[{k}] {d:.3e} of its "
+                                     f"largest value > {lim}")
+            worst = max(worst, d)
+    return worst
+
+
+def _flat_leaves(tree) -> list:
+    """A nested dict / list tree's arrays in key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flat_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _flat_leaves(v)]
+    return [np.asarray(tree)]
 
 
 def _num_gauss(z) -> int:
@@ -10977,9 +11254,10 @@ def best_path_abs(lat) -> float:
 
 
 def phase_lattice_cli(card: str, lc: dict) -> dict:
-    """Phase 38: phase 37's files (`lc["dir"]`, removed at the end)
-    through the port's CLI in the shape of Kaldi's decode and scoring
-    scripts, on the card unless a step says otherwise:
+    """Phase 38: phase 37's files (`lc["dir"]`, which phase 39 reads and
+    then removes; removed here if this phase fails) through the port's
+    CLI in the shape of Kaldi's decode and scoring scripts, on the card
+    unless a step says otherwise:
     steps/decode.sh (gmm-latgen-faster with --determinize-lattice at
     LATTICE_CLI_SEARCH, as are the other lattice decodes); local/score.sh
     over LATTICE_CLI_LMWT x LATTICE_CLI_WIP (lattice-scale,
@@ -11272,8 +11550,9 @@ def phase_lattice_cli(card: str, lc: dict) -> dict:
                   "tri.arpa", "tri.clm.npz", "uni.clm.npz", "index.union",
                   "post.txt", "pdf_post.txt"):
             sizes[n] = os.path.getsize(P(n))
-    finally:
+    except BaseException:
         shutil.rmtree(d, ignore_errors=True)
+        raise
     total = time.perf_counter() - t0
     log(f"  {len(det)} test utterances through {sum(calls.values())} CLI "
         f"calls in {total:.3f} s | card: {card}")
@@ -11314,12 +11593,415 @@ def phase_lattice_cli(card: str, lc: dict) -> dict:
         (f"gather launched {gather} times", gather == 0),
         (f"qaffine launched {qaffine} times", qaffine == 0)) if not ok]
     if failed:
+        shutil.rmtree(d, ignore_errors=True)
         raise AssertionError(f"phase 38: {failed}")
     return {"wer": {"latgen": w_lat, "best": w_best, "oracle": w_orc,
                     "trigram": w_tri, "biglm": w_big, "mbr": w_mbr,
                     "fmllr": w_fmllr}, "atwv": twv, "stages": stages,
             "kinds": kinds, "seconds": total, "launches": {
                 "gather": gather, "qaffine": qaffine}}
+
+
+# phase 39: Kaldi's neural recipes (steps/nnet2/train_multisplice_accel2.sh,
+# steps/nnet3/train_tdnn.sh, steps/nnet/pretrain_dbn.sh -> train.sh ->
+# decode.sh) through the port's CLI over phase 37's files: its tri model,
+# alignments of its 200 training utterances, primitive-built HCLG and
+# features. Each recipe keeps its training width (LADDER_TDNN,
+# LADDER_TDNN3, DBN's 2048 units); depth, epochs and jobs are cut to the
+# time limit (NNET_CLI_* and the docstring of phase_nnet_cli)
+NNET_CLI_EGS = ["--left-context", "3", "--right-context", "4", "--chunk",
+                "8"]                # LADDER_TDNN's splices: context 3 + 4
+NNET_CLI_JOBS = 2
+NNET_CLI_VALID = "600"              # get_egs2.sh's num_utts_subset ~ 300
+# train_multisplice_accel2.sh's outer loop: each iteration trains every
+# job from the current model on its archive, then nnet-am-average; the
+# learning rate falls geometrically over the iterations from LADDER_NNET's
+# initial to its final rate; the last iteration's models go to the
+# combination. 4 iterations of 7 epochs (a job sees its archive 28 times)
+NNET_CLI_ITERS = 4
+NNET_CLI_EPOCHS = "7"
+NNET_CLI_MOMENTUM = {"nnet2": "0", "nnet3": "0.9"}  # LADDER_NNET, _NNET3
+# pretrain_dbn.sh's first RBMs at its width (2048 units, minibatch 100,
+# one epoch each) over splice +-5 and global CMVN; depth cut from 6 to 2
+# (each layer's input ark is 200 MB-400 MB of the corpus' frames); both
+# at DBN's gaussian-bernoulli rate (the CLI's RBM is gaussian-bernoulli
+# at every depth); fine-tuning cut from 8 epochs to 4
+NNET_CLI_RBMS = 2
+NNET_CLI_DBN_EPOCHS = "4"
+# the lattice decodes' lattice beam, cut from decode.sh's 8 to 4 for the
+# time limit: only their best paths are scored here, and a lattice beam
+# prunes nothing on the best path (at 8 each decode wrote 28-33 MB of
+# text lattices on an NVIDIA H100, half the phase's time)
+NNET_CLI_LATTICE_BEAM = "4.0"
+NNET_CLI_RECON_UTTS = 40      # the RBMs' reconstruction error checked here
+NNET_CLI_KIND = {
+    "gmm-align": "align", "ali-to-pdf": "align", "analyze-counts": "align",
+    "nnet-get-egs": "egs", "nnet3-get-egs": "egs",
+    "nnet-shuffle-egs": "egs", "nnet3-shuffle-egs": "egs",
+    "nnet-subset-egs": "egs", "nnet3-subset-egs": "egs",
+    "nnet-copy-egs": "egs", "nnet3-merge-egs": "egs",
+    "nnet-select-egs": "egs", "nnet-am-init": "init", "nnet3-init": "init",
+    "nnet-initialize": "init", "nnet-train-simple": "train",
+    "nnet3-train": "train", "nnet-am-average": "combine",
+    "nnet3-average": "combine", "nnet-combine-fast": "combine",
+    "nnet3-combine": "combine", "nnet-compute-prob": "diagnostic",
+    "nnet3-compute-prob": "diagnostic", "nnet-show-progress": "diagnostic",
+    "nnet3-show-progress": "diagnostic", "nnet-am-info": "diagnostic",
+    "nnet3-info": "diagnostic", "nnet-adjust-priors": "priors",
+    "nnet3-am-adjust-priors": "priors", "nnet-latgen-faster": "decode",
+    "nnet3-latgen-faster": "decode", "nnet3-compute": "decode",
+    "decode-faster-mapped": "decode", "latgen-faster-mapped": "decode",
+    "lattice-best-path": "decode", "compute-wer": "decode",
+    "nnet-forward": "forward", "compute-cmvn-stats": "forward",
+    "cmvn-to-nnet": "dbn", "nnet-concat": "dbn",
+    "rbm-train-cd1-frmshuff": "dbn", "rbm-convert-to-nnet": "dbn",
+    "nnet-train-frmshuff": "train"}
+
+
+def _rbm_recon(path: str, ark: str, seed: int, dev) -> tuple[float, float]:
+    """The mean-field reconstruction error of an RBM file over the frames
+    of an ark's first NNET_CLI_RECON_UTTS utterances, and that of the init
+    `rbm-train-cd1-frmshuff --seed` starts from: (before, after)."""
+    import itertools
+    import torch
+    from kaldi_tpu_torch.io.kaldi_io import read_ark
+    from kaldi_tpu_torch.nnet1.rbm import Rbm, RbmConfig
+    z = np.load(path)
+    v = torch.as_tensor(np.concatenate([x for _k, x in itertools.islice(
+        read_ark(ark), NNET_CLI_RECON_UTTS)]), device=dev)
+    out = []
+    for trained in (False, True):
+        rbm = Rbm(RbmConfig(*z["W"].shape[::-1]), seed=seed, device=dev)
+        if trained:
+            rbm.W, rbm.vis_bias, rbm.hid_bias = (
+                torch.as_tensor(z[k], device=dev)
+                for k in ("W", "vis_bias", "hid_bias"))
+        with torch.no_grad():
+            r = rbm.reconstruct(rbm.propagate(v))
+            out.append(float(torch.mean((r - v) ** 2)))
+    return out[0], out[1]
+
+
+def parallel_sgd(run, P, kind: str, init: str) -> list:
+    """train_multisplice_accel2.sh's (and train_tdnn.sh's) outer loop
+    through the CLI: NNET_CLI_ITERS iterations, each training every job
+    from the current model on its own archive (`job2.j` / `job3.j`) with
+    the iteration's slice of the geometric learning-rate decay, then
+    averaging them. -> the last iteration's job models and their average
+    (what the combination weighs)."""
+    train, avg, job = {"nnet2": ("nnet-train-simple", "nnet-am-average",
+                                 "job2"),
+                       "nnet3": ("nnet3-train", "nnet3-average",
+                                 "job3")}[kind]
+    lr0, lr1 = LADDER_NNET["initial_lr"], LADDER_NNET["final_lr"]
+
+    def lr(k: int) -> str:
+        return repr(lr0 * (lr1 / lr0) ** (k / NNET_CLI_ITERS))
+    cur = P(init)
+    for it in range(NNET_CLI_ITERS):
+        outs = [P(f"{kind}_{it}_{j}.npz") for j in range(NNET_CLI_JOBS)]
+        for j, out in enumerate(outs):
+            run(train, cur, P(f"{job}.{j}"), out, "--initial-lr", lr(it),
+                "--final-lr", lr(it + 1), "--num-epochs", NNET_CLI_EPOCHS,
+                "--minibatch-size", str(LADDER_NNET["minibatch_size"]),
+                "--momentum", NNET_CLI_MOMENTUM[kind])
+        cur = P(f"{kind}_{it}_avg.npz")
+        run(avg, cur, *outs)
+    return outs + [cur]
+
+
+def phase_nnet_cli(card: str, lc: dict) -> dict:
+    """Phase 39: phase 37's files (`lc["dir"]`, removed at the end)
+    through the port's CLI in the shape of Kaldi's three neural recipes,
+    on the card:
+    alignments (steps/align_si.sh: gmm-align of the training set with the
+    tri model, ali-to-pdf);
+    (a) nnet2, steps/nnet2/train_multisplice_accel2.sh as
+    tests/test_nnet2_cli.py drives it: nnet-get-egs into 2 archives of the
+    39-dim delta features, nnet-shuffle-egs, nnet-subset-egs (validation),
+    nnet-copy-egs, nnet-select-egs (one archive per job), nnet-am-init at
+    LADDER_TDNN's width, NNET_CLI_ITERS iterations of NNET_CLI_JOBS jobs
+    of nnet-train-simple at LADDER_NNET's rates and minibatch, each
+    followed by nnet-am-average (`parallel_sgd`), nnet-combine-fast,
+    nnet-compute-prob (train and valid), nnet-show-progress,
+    nnet-adjust-priors, nnet-am-info, then nnet-latgen-faster ->
+    lattice-best-path -> compute-wer;
+    (b) nnet3, steps/nnet3/train_tdnn.sh as tests/test_nnet3_cli.py drives
+    it: make_tdnn_config at LADDER_TDNN3, nnet3-init, nnet3-get-egs,
+    nnet3-shuffle-egs / nnet3-subset-egs / nnet3-merge-egs, the same
+    iterations of nnet3-train at LADDER_NNET3 and nnet3-average,
+    nnet3-combine,
+    nnet3-compute-prob, nnet3-show-progress, nnet3-am-adjust-priors,
+    nnet3-info, then nnet3-latgen-faster and nnet3-compute ->
+    decode-faster-mapped (the dense decoder) -> compute-wer;
+    (c) nnet1, steps/nnet/pretrain_dbn.sh -> train.sh -> decode.sh as
+    tests/test_nnet1_cli.py drives it: the feature transform (splice +-5
+    of the 13-dim MFCC by nnet-initialize, nnet-forward,
+    compute-cmvn-stats, cmvn-to-nnet, nnet-concat), NNET_CLI_RBMS RBMs of
+    2048 units (rbm-train-cd1-frmshuff, rbm-convert-to-nnet, the next
+    layer's input by nnet-forward), the softmax top (nnet-initialize),
+    nnet-concat, nnet-train-frmshuff on the pdf alignments, then
+    nnet-forward with the alignment counts' priors -> latgen-faster-mapped
+    -> lattice-best-path -> compute-wer. Cuts from the recipes: 2 jobs, a
+    job's data is one archive; 4 iterations of 7 epochs; 2 of 6 RBMs, both
+    at the gaussian-bernoulli rate; 4 of train.sh's fine-tuning epochs
+    (NNET_CLI_*); the lattice beam 4 of decode.sh's 8
+    (NNET_CLI_LATTICE_BEAM). The lattice decodes search at
+    LATTICE_CLI_SEARCH (the padded decoder at phase 37's beam prunes the
+    right words).
+    Asserts the nnet2 and nnet3 best-path WERs within LADDER_BARS' tri
+    bar, finite loglikes, each RBM's reconstruction error below its
+    init's and no kernel launch; the DBN's WER is reported."""
+    import shutil
+    from kaldi_tpu_torch.io.kaldi_io import read_ark
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    from kaldi_tpu_torch.nnet import quantized as q
+    from kaldi_tpu_torch.nnet3.configs import make_tdnn_config
+    from kaldi_tpu_torch.ops import table_gather as tg
+
+    t0 = time.perf_counter()
+    d = lc["dir"]
+    P = lambda *n: os.path.join(d, *n)                       # noqa: E731
+    kinds = dict.fromkeys(sorted(set(NNET_CLI_KIND.values())), 0.0)
+    calls = dict.fromkeys(kinds, 0)
+    stages, sizes, out = {}, {}, {}
+
+    def run(*argv):
+        r = _cli_ok(argv[0], cli_call(list(argv)))
+        kinds[NNET_CLI_KIND[argv[0]]] += r[2]
+        calls[NNET_CLI_KIND[argv[0]]] += 1
+        return r
+
+    def wer_int(hyp_text: str, tag: str) -> float:
+        with open(P(f"hyp_{tag}.txt"), "w") as f:
+            f.write(hyp_text)
+        line = run("compute-wer", P("test", "text_int"),
+                   P(f"hyp_{tag}.txt"))[0]
+        return float(line.split()[1])
+
+    def egs_bytes(egs: str) -> int:
+        return sum(os.path.getsize(os.path.join(P(egs), f))
+                   for f in os.listdir(P(egs)))
+
+    def finite(ark: str) -> bool:
+        return all(np.isfinite(v).all() for _k, v in read_ark(P(ark)))
+
+    q.launches = tg.launches = 0          # count this phase's path only
+    try:
+        tri = P(lc["tri"])
+        F, TF = f"ark:{P('train', 'feats.ark')}", \
+            f"ark:{P('test', 'feats.ark')}"
+        model = load_gmm_system(tri, device="cpu")
+        pdfs = model.am.num_pdfs
+        words = model.lang.words
+        with open(P("test", "text_int"), "w") as f:
+            f.writelines(f"{u} {' '.join(str(words[w]) for w in ws)}\n"
+                         for u, ws in _hyp_words(P("test", "text")).items())
+
+        # steps/align_si.sh
+        t = time.perf_counter()
+        run("gmm-align", tri, P("train", "text"), F, f"ark:{P('nali')}")
+        run("ali-to-pdf", tri, f"ark:{P('nali')}", f"ark:{P('pdf.ark')}")
+        run("analyze-counts", f"ark:{P('pdf.ark')}", P("counts.ark"))
+        stages["align"] = time.perf_counter() - t
+
+        # (a) steps/nnet2/train_multisplice_accel2.sh
+        t = time.perf_counter()
+        run("nnet-get-egs", tri, F, f"ark:{P('nali')}", P("egs2"),
+            "--num-archives", str(NNET_CLI_JOBS), *NNET_CLI_EGS)
+        run("nnet-shuffle-egs", P("egs2"), P("egs2s"), "--num-archives",
+            str(NNET_CLI_JOBS), "--seed", "1")
+        run("nnet-subset-egs", P("egs2s"), P("valid2"), "--n",
+            NNET_CLI_VALID, "--randomize")
+        run("nnet-copy-egs", P("egs2s"), P("train2"), "--num-archives",
+            "1")
+        for j in range(NNET_CLI_JOBS):
+            run("nnet-select-egs", P("egs2s"), P(f"job2.{j}"), "--n",
+                str(NNET_CLI_JOBS), "--k", str(j))
+        sizes["nnet2 egs"] = egs_bytes("egs2")
+        stages["nnet2 egs"] = time.perf_counter() - t
+        t = time.perf_counter()
+        splice = ";".join(",".join(str(o) for o in c)
+                          for c in LADDER_TDNN["splice_indexes"])
+        run("nnet-am-init", tri, F, P("nn0.npz"),
+            f"--splice-indexes={splice}", "--hidden-dim",
+            str(LADDER_TDNN["hidden_dim"]), "--pnorm-output-dim",
+            str(LADDER_TDNN["pnorm_output_dim"]), "--nonlinearity",
+            LADDER_TDNN["nonlinearity"])
+        jobs = parallel_sgd(run, P, "nnet2", "nn0.npz")
+        run("nnet-combine-fast", P("valid2"), P("nn_comb.npz"), *jobs)
+        stages["nnet2 train"] = time.perf_counter() - t
+        t = time.perf_counter()
+        prob2 = {s: float(run("nnet-compute-prob", P("nn_comb.npz"),
+                              P(e))[0].split()[1])
+                 for s, e in (("train", "train2"), ("valid", "valid2"))}
+        prog2 = run("nnet-show-progress", P("nn0.npz"), P("nn_comb.npz"),
+                    P("valid2"))[0].strip().splitlines()[-1]
+        run("nnet-adjust-priors", P("nn_comb.npz"), F, P("nn_final.npz"))
+        info2 = run("nnet-am-info", P("nn_final.npz"))[0]
+        stages["nnet2 diagnostics"] = time.perf_counter() - t
+        t = time.perf_counter()
+        run("nnet-latgen-faster", tri, P("nn_final.npz"), P("graph.npz"), TF,
+            "--lattice-out", P("lat2.ark"), "--lattice-beam",
+            NNET_CLI_LATTICE_BEAM, *LATTICE_CLI_SEARCH)
+        out["nnet2"] = wer_int(run("lattice-best-path", P("lat2.ark"))[0],
+                               "nnet2")
+        stages["nnet2 decode"] = time.perf_counter() - t
+
+        # (b) steps/nnet3/train_tdnn.sh
+        t = time.perf_counter()
+        with open(P("tdnn3.config"), "w") as f:
+            f.write(make_tdnn_config(
+                39, pdfs, splice_indexes=LADDER_TDNN3["splice_indexes"],
+                hidden_dim=LADDER_TDNN3["hidden_dim"],
+                nonlinearity="PnormComponent",
+                pnorm_output_dim=LADDER_TDNN3["pnorm_output_dim"]))
+        run("nnet3-init", P("tdnn3.config"), P("n3_0.npz"))
+        run("nnet3-get-egs", tri, F, f"ark:{P('nali')}", P("egs3"),
+            "--num-archives", str(NNET_CLI_JOBS), *NNET_CLI_EGS)
+        run("nnet3-shuffle-egs", P("egs3"), P("egs3s"), "--num-archives",
+            str(NNET_CLI_JOBS), "--seed", "2")
+        run("nnet3-subset-egs", P("egs3s"), P("valid3"), "--n",
+            NNET_CLI_VALID, "--randomize")
+        run("nnet3-merge-egs", P("egs3s"), P("train3"))
+        for j in range(NNET_CLI_JOBS):
+            run("nnet-select-egs", P("egs3s"), P(f"job3.{j}"), "--n",
+                str(NNET_CLI_JOBS), "--k", str(j))
+        sizes["nnet3 egs"] = egs_bytes("egs3")
+        stages["nnet3 egs"] = time.perf_counter() - t
+        t = time.perf_counter()
+        jobs = parallel_sgd(run, P, "nnet3", "n3_0.npz")
+        run("nnet3-combine", P("valid3"), P("n3_comb.npz"), *jobs)
+        stages["nnet3 train"] = time.perf_counter() - t
+        t = time.perf_counter()
+        prob3 = {s: float(run("nnet3-compute-prob", P("n3_comb.npz"),
+                              P(e))[0].split()[1])
+                 for s, e in (("train", "train3"), ("valid", "valid3"))}
+        prog3 = run("nnet3-show-progress", P("n3_0.npz"), P("n3_comb.npz"),
+                    P("valid3"))[0].strip().splitlines()
+        run("nnet3-am-adjust-priors", P("n3_comb.npz"), F, P("n3_final.npz"))
+        info3 = run("nnet3-info", P("n3_final.npz"))[0]
+        stages["nnet3 diagnostics"] = time.perf_counter() - t
+        t = time.perf_counter()
+        run("nnet3-latgen-faster", tri, P("n3_final.npz"), P("graph.npz"),
+            TF, "--lattice-out", P("lat3.ark"), "--lattice-beam",
+            NNET_CLI_LATTICE_BEAM, *LATTICE_CLI_SEARCH)
+        out["nnet3"] = wer_int(run("lattice-best-path", P("lat3.ark"))[0],
+                               "nnet3")
+        run("nnet3-compute", P("n3_final.npz"), TF, f"ark:{P('ll3.ark')}",
+            "--use-priors")
+        out["nnet3 dense"] = wer_int(run(
+            "decode-faster-mapped", P("graph.npz"), f"ark:{P('ll3.ark')}",
+            *LADDER_CLI_DECODE)[0], "nnet3_dense")
+        stages["nnet3 decode"] = time.perf_counter() - t
+
+        # (c) steps/nnet/pretrain_dbn.sh -> train.sh -> decode.sh
+        t = time.perf_counter()
+        M, TM = f"ark:{P('train', 'mfcc.ark')}", \
+            f"ark:{P('test', 'mfcc.ark')}"
+        ctx = len(DBN["splice"])
+        with open(P("splice.proto"), "w") as f:
+            f.write(f"<NnetProto>\n<Splice> <InputDim> 13 <OutputDim> "
+                    f"{13 * ctx} <BuildVector> "
+                    f"{':'.join(map(str, DBN['splice']))}\n</NnetProto>\n")
+        run("nnet-initialize", P("splice.proto"), P("splice.nnet"))
+        run("nnet-forward", P("splice.nnet"), M, f"ark:{P('spliced.ark')}",
+            "--apply-log")
+        run("compute-cmvn-stats", f"ark:{P('spliced.ark')}",
+            f"ark:{P('gcmvn.ark')}")
+        run("cmvn-to-nnet", f"ark:{P('gcmvn.ark')}", P("cmvn.nnet"))
+        run("nnet-concat", P("ft.nnet"), P("splice.nnet"), P("cmvn.nnet"))
+        run("nnet-forward", P("ft.nnet"), M, f"ark:{P('l0.ark')}",
+            "--apply-log")
+        recon, stack = [], [P("ft.nnet")]
+        for i in range(1, NNET_CLI_RBMS + 1):
+            run("rbm-train-cd1-frmshuff", f"ark:{P(f'l{i - 1}.ark')}",
+                P(f"rbm{i}.npz"), "--hidden-dim", str(DBN["hidden"]),
+                "--learn-rate", str(DBN["gb_lr"]), "--minibatch-size",
+                str(DBN["rbm_mb"]), "--num-epochs", "1", "--seed", str(i))
+            recon.append(_rbm_recon(P(f"rbm{i}.npz"), P(f"l{i - 1}.ark"),
+                                    i, "cuda"))
+            run("rbm-convert-to-nnet", P(f"rbm{i}.npz"), P(f"rbm{i}.nnet"))
+            stack.append(P(f"rbm{i}.nnet"))
+            if i < NNET_CLI_RBMS:
+                run("nnet-concat", P("stack.nnet"), *stack)
+                run("nnet-forward", P("stack.nnet"), M,
+                    f"ark:{P(f'l{i}.ark')}", "--apply-log")
+                sizes[f"l{i}.ark"] = os.path.getsize(P(f"l{i}.ark"))
+        stages["dbn pretrain"] = time.perf_counter() - t
+        t = time.perf_counter()
+        with open(P("top.proto"), "w") as f:
+            f.write(f"<NnetProto>\n<AffineTransform> <InputDim> "
+                    f"{DBN['hidden']} <OutputDim> {pdfs}\n<Softmax> "
+                    f"<InputDim> {pdfs} <OutputDim> {pdfs}\n</NnetProto>\n")
+        run("nnet-initialize", P("top.proto"), P("top.nnet"), "--seed", "7")
+        run("nnet-concat", P("dbn0.nnet"), *stack[1:], P("top.nnet"))
+        ft = run("nnet-train-frmshuff", P("dbn0.nnet"), f"ark:{P('l0.ark')}",
+                 f"ark:{P('pdf.ark')}", P("dbn.nnet"), "--learn-rate",
+                 str(DBN["ft_lr"]), "--minibatch-size", str(DBN["ft_mb"]),
+                 "--num-epochs", NNET_CLI_DBN_EPOCHS)[3].strip()
+        stages["dbn finetune"] = time.perf_counter() - t
+        t = time.perf_counter()
+        run("nnet-concat", P("dbn_final.nnet"), P("ft.nnet"), P("dbn.nnet"))
+        run("nnet-forward", P("dbn_final.nnet"), TM, f"ark:{P('lld.ark')}",
+            "--apply-log", "--class-frame-counts", P("counts.ark"))
+        run("latgen-faster-mapped", P("graph.npz"), f"ark:{P('lld.ark')}",
+            "--lattice-out", P("latd.ark"), "--lattice-beam",
+            NNET_CLI_LATTICE_BEAM, *LATTICE_CLI_SEARCH)
+        out["dbn"] = wer_int(run("lattice-best-path", P("latd.ark"))[0],
+                             "dbn")
+        stages["dbn decode"] = time.perf_counter() - t
+        ok_finite = all(finite(a) for a in ("ll3.ark", "lld.ark"))
+        gather, qaffine = tg.launches, q.launches
+        for n in ("nn_final.npz", "n3_final.npz", "dbn_final.nnet",
+                  "l0.ark", "lat2.ark", "lat3.ark", "latd.ark"):
+            sizes[n] = os.path.getsize(P(n))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    total = time.perf_counter() - t0
+    n_calls = sum(calls.values())
+    log(f"  nnet2, nnet3 and DBN recipes through {n_calls} CLI calls in "
+        f"{total:.3f} s | card: {card}")
+    log("  seconds by stage: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stages.items()))
+    log("  seconds by command kind (calls): " + ", ".join(
+        f"{k} {v:.3f} ({calls[k]})" for k, v in kinds.items()))
+    log("  file sizes (bytes): " + ", ".join(
+        f"{k} {v}" for k, v in sizes.items()))
+    log(f"  (a) nnet2 {LADDER_TDNN}, {NNET_CLI_ITERS} iterations of "
+        f"{NNET_CLI_JOBS} jobs x {NNET_CLI_EPOCHS} epochs, lr "
+        f"{LADDER_NNET['initial_lr']} -> {LADDER_NNET['final_lr']}, "
+        f"minibatch {LADDER_NNET['minibatch_size']}: log-prob per frame train "
+        f"{prob2['train']:.4f} valid {prob2['valid']:.4f}; {prog2}; "
+        f"{info2.splitlines()[5]}; best-path WER {out['nnet2']:.2f}")
+    log(f"  (b) nnet3 {LADDER_TDNN3}, the same schedule, momentum "
+        f"{NNET_CLI_MOMENTUM['nnet3']}: log-prob per frame train "
+        f"{prob3['train']:.4f} valid {prob3['valid']:.4f}; "
+        f"{' | '.join(prog3)}; {info3.splitlines()[4]}; best-path WER "
+        f"{out['nnet3']:.2f}, nnet3-compute -> decode-faster-mapped WER "
+        f"{out['nnet3 dense']:.2f}")
+    log(f"  (c) DBN: {NNET_CLI_RBMS} RBMs of {DBN['hidden']} units, "
+        f"reconstruction error init -> trained: " + ", ".join(
+            f"{a:.5f} -> {b:.5f}" for a, b in recon)
+        + f"; fine-tuning ({NNET_CLI_DBN_EPOCHS} epochs): {ft}; WER "
+        f"{out['dbn']:.2f} (reported only; phase 24's library DBN: "
+        f"PERF.md §7); loglikes finite: {ok_finite}; launches: gather "
+        f"{gather}, qaffine {qaffine}")
+    fails = [msg for msg, ok in (
+        (f"nnet2 WER {out['nnet2']} > {LADDER_BARS['tri']}",
+         out["nnet2"] <= LADDER_BARS["tri"]),
+        (f"nnet3 WER {out['nnet3']} > {LADDER_BARS['tri']}",
+         out["nnet3"] <= LADDER_BARS["tri"]),
+        ("loglikes not finite", ok_finite),
+        (f"an RBM's reconstruction error did not fall: {recon}",
+         all(b < a for a, b in recon)),
+        (f"gather launched {gather} times", gather == 0),
+        (f"qaffine launched {qaffine} times", qaffine == 0)) if not ok]
+    if fails:
+        raise AssertionError(f"phase 39: {fails}")
+    return {"wer": out, "stages": stages, "kinds": kinds, "seconds": total,
+            "recon": recon, "launches": {"gather": gather,
+                                         "qaffine": qaffine}}
 
 
 # the recipe witnesses: each saves a phase's own inputs, replayed through
@@ -11538,8 +12220,9 @@ def build_native() -> list[str]:
 def side_phases() -> int:
     """The second process (`SIDE_FLAG`): the bench graph's chain (phases
     7, 8, 10, 13, 14, 34, 36, 18, 30 a and c), the CLI's GMM recipe at the
-    ladder's width (37) and its decode and scoring back half (38), then
-    the SMALL_PHASES; the launch counts go to SIDE_RESULTS."""
+    ladder's width (37), its decode and scoring back half (38) and the
+    neural recipes on its files (39), then the SMALL_PHASES; the launch
+    counts go to SIDE_RESULTS."""
     import torch
     from kaldi_tpu_torch.device import card_info, resolve_device
     from kaldi_tpu_torch.nnet import quantized as q
@@ -11548,46 +12231,51 @@ def side_phases() -> int:
     torch.set_num_threads(SIDE_THREADS)
     card = card_info()
     profile = "--profile" in sys.argv[1:]
-    log_phase("[7/38] full-width serving slice (bf16 TDNN)")
+    log_phase("[7/39] full-width serving slice (bf16 TDNN)")
     sl = phase_slice(tg, card, profile=profile)
-    log_phase("[8/38] full-width int8 serving slice")
+    log_phase("[8/39] full-width int8 serving slice")
     s8 = phase_int8_slice(q, tg, sl, card)
-    log_phase("[10/38] streaming server, full width")
+    log_phase("[10/39] streaming server, full width")
     st = phase_stream_full(tg, sl, card, profile=profile)
-    log_phase("[13/38] training, full width: the bench's AM with the port's "
+    log_phase("[13/39] training, full width: the bench's AM with the port's "
               "train step")
     tr = phase_train_full(sl, card, profile=profile)
-    log_phase("[14/38] lattice path, full width (latgen at the bench's "
+    log_phase("[14/39] lattice path, full width (latgen at the bench's "
               "point)")
     lt = phase_lattice_full(tg, sl, tr, card)
-    log_phase("[34/38] decoder tools at the bench graph's width: the "
+    log_phase("[34/39] decoder tools at the bench graph's width: the "
               "verifiers over its tier tables, decode_batched with phase 13's "
               "AM, the self-built triphone graph")
     tl = phase_tools_full(tg, sl, tr, card)
-    log_phase("[36/38] the bench decode through files: compute-fbank-feats "
+    log_phase("[36/39] the bench decode through files: compute-fbank-feats "
               "-> compute-cmvn-stats / apply-cmvn -> nnet-am-compute with "
               "phase 13's AM -> decode-faster-mapped on the bench graph -> "
               "compute-wer")
     cb = phase_cli_bench(tg, sl, tr, tl, card)
-    log_phase("[18/38] GMM path, full width: monophone training, the dense "
+    log_phase("[18/39] GMM path, full width: monophone training, the dense "
               "decoder's serving lines")
     phase_gmm_full(tr, card, profile=profile)
-    log_phase("[30/38] (a, c) rescoring at width: bench.py's 1.13M-n-gram "
+    log_phase("[30/39] (a, c) rescoring at width: bench.py's 1.13M-n-gram "
               "trigram over phase 14's lattices with the truncation audit; "
               "features on the bench's test waves")
     phase_rescore_bench(card, lt)
-    log_phase("[37/38] Kaldi's train_mono.sh -> train_deltas.sh -> "
+    log_phase("[37/39] Kaldi's train_mono.sh -> train_deltas.sh -> "
               "mkgraph.sh -> decode through the CLI's files at the triphone "
               "ladder's width")
     lc = phase_ladder_cli(card)
-    log_phase("[38/38] Kaldi's decode.sh -> score.sh -> "
+    log_phase("[38/39] Kaldi's decode.sh -> score.sh -> "
               "lmrescore_const_arpa.sh -> confidences, posteriors, KWS -> "
               "decode_fmllr.sh through the CLI's files on phase 37's")
     lt38 = phase_lattice_cli(card, lc)
+    log_phase("[39/39] Kaldi's nnet2, nnet3 and DBN recipes "
+              "(train_multisplice_accel2.sh, train_tdnn.sh, pretrain_dbn.sh "
+              "-> train.sh -> decode.sh) through the CLI's files on phase "
+              "37's")
+    nc = phase_nnet_cli(card, lc)
     for k, what, fn in SMALL_PHASES:
         if k == 31:
             socket.setdefaulttimeout(SOCKET_TIMEOUT_S)
-        log_phase(f"[{k}/38] {what}")
+        log_phase(f"[{k}/39] {what}")
         globals()[fn]()
     with open(SIDE_RESULTS, "w") as f:
         json.dump({"slice": sl["launches"], "int8": s8["launches"],
@@ -11598,7 +12286,8 @@ def side_phases() -> int:
                    "cli": cb["launches"],
                    "cli_shapes": cb["gather_times"],
                    "ladder_cli": lc["launches"],
-                   "lattice_cli": lt38["launches"]}, f)
+                   "lattice_cli": lt38["launches"],
+                   "nnet_cli": nc["launches"]}, f)
     log(f"the second process's phases in "
         f"{time.perf_counter() - T_START:.1f} s")
     return 0
@@ -11655,7 +12344,7 @@ def main() -> int:
 
     resolve_device("cuda")                # also turns TF32 off
     card = card_info()
-    log_phase(f"[1/38] card: {card} | torch {torch.__version__} CUDA "
+    log_phase(f"[1/39] card: {card} | torch {torch.__version__} CUDA "
               f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
               f"{torch.cuda.device_count()}")
 
@@ -11665,7 +12354,7 @@ def main() -> int:
         native = ex.submit(build_native)
         libs = cuda_build.build()
         native = native.result()
-    log_phase(f"[2/38] build: {len(libs)} kernels (one nvcc each) and "
+    log_phase(f"[2/39] build: {len(libs)} kernels (one nvcc each) and "
               f"{len(native)} g++ libraries, all at once, in "
               f"{time.perf_counter() - t:.3f} s")
     for name, so in libs.items():
@@ -11674,50 +12363,52 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]
         log(f"  {os.path.relpath(so, ROOT)}: {' | '.join(regs)}")
 
-    log_phase("[3/38] table-gather kernel vs plain version")
+    log_phase("[3/39] table-gather kernel vs plain version")
     k = phase_kernel(tg)
-    log_phase("[4/38] qaffine kernel vs plain version")
+    log_phase("[4/39] qaffine kernel vs plain version")
     qk = phase_qaffine(q)
     side = start_side_phases()            # beside the phases below
     try:
-        log_phase("[16/38] online path, full width "
+        log_phase("[16/39] online path, full width "
                   "(scripts/bench_streaming.py's configuration)")
         on = phase_online_full(tg, card, profile="--profile" in sys.argv[1:])
-        log_phase("[20/38] triphone ladder, full width: mono -> tri -> "
+        log_phase("[20/39] triphone ladder, full width: mono -> tri -> "
                   "LDA+MLLT -> TDNN, and SAT")
         ld = phase_ladder_full(card, profile="--profile" in sys.argv[1:])
-        log_phase("[22/38] discriminative path, full width: the rm-like "
+        log_phase("[22/39] discriminative path, full width: the rm-like "
                   "pyramid with bMMI and fMMI, then bMMI and TDNN sMBR on the "
                   "ladder's models")
         dk = phase_disc_full(card, ld, profile="--profile" in sys.argv[1:])
-        log_phase("[24/38] nnet3 and nnet1 families at the ladder's width: "
+        log_phase("[24/39] nnet3 and nnet1 families at the ladder's width: "
                   "nnet3 TDNN and LSTM, the wide LSTM, the DBN")
         nn = phase_nnet_full(card, ld, profile="--profile" in sys.argv[1:])
-        log_phase("[26/38] speaker recognition at sre10's width (2048 "
+        log_phase("[26/39] speaker recognition at sre10's width (2048 "
                   "gaussians, 600-dim i-vectors, 60-dim features): v1 and v2, "
                   "then logistic regression")
         sr = phase_sre_full(card, ld)
-        log_phase("[28/38] adaptation and SGMM2 at the ladder's width: raw, "
+        log_phase("[28/39] adaptation and SGMM2 at the ladder's width: raw, "
                   "basis, regression-tree and global fMLLR, MLLR, LVTLN, "
                   "HLDA; SGMM2 at egs/rm's sgmm2_4a widths, bMMI, SGMM fMLLR")
         ad = phase_adapt_sgmm_full(card, ld)
-        log_phase("[30/38] (b) search at width: the ladder's lattices "
+        log_phase("[30/39] (b) search at width: the ladder's lattices "
                   "through rescoring, scoring, MBR, ctm, KWS and "
                   "decode_biglm")
         rs = phase_rescore_ladder(card, ld)
         socket.setdefaulttimeout(SOCKET_TIMEOUT_S)
-        log_phase("[32/38] network serving at phase 16's configuration: its "
+        log_phase("[32/39] network serving at phase 16's configuration: its "
                   "AM and HCLG through the port's files, the TCP server over "
                   "6 concurrent connections (also through µ-law and ADPCM), "
                   "the threaded decoder, the online GMM decoder over phase "
                   "20's tri, the CLI")
         sv = phase_serving_full(tg, card, on, ld)
-        log_phase("[35/38] the CLI's first three slices, small: every "
+        log_phase("[35/39] the CLI's first four slices, small: every "
                   "device subcommand and the first slice's host ones on the "
                   "card and with --device cpu, recipe-yesno-files on the "
                   "card, --fused vs the generic pipeline, train-nnet3's "
                   "round trip, the card probes")
         phase_cli_small()
+        log_phase("[19/39] triphone ladder, small: card vs CPU")
+        phase_ladder_small()
         sd = finish_side_phases(side)
     finally:
         if side.poll() is None:
@@ -11739,16 +12430,18 @@ def main() -> int:
         f"6 connections), {sd['tools']} in phase 34's decode_batched and "
         f"{sd['tools_graph']} on its self-built graph, {sd['cli']} in phase "
         f"36's decode-faster-mapped, {sd['ladder_cli']['gather']} in phase "
-        f"37's CLI recipe, {sd['lattice_cli']['gather']} in phase 38's; "
+        f"37's CLI recipe, {sd['lattice_cli']['gather']} in phase 38's, "
+        f"{sd['nnet_cli']['gather']} in phase 39's; "
         f"qaffine {sd['int8']} "
         f"on the int8 slice, "
         f"{sr['qaffine_launches']} on the speaker-recognition path's, 0 on "
         f"the adaptation and SGMM path's, on the rescoring path's and on "
         f"the server's, the decoder tools' and the CLI's (phases 27-30 and "
         f"32-36 assert it), {sd['ladder_cli']['qaffine']} in phase 37's, "
-        f"{sd['lattice_cli']['qaffine']} in phase 38's")
+        f"{sd['lattice_cli']['qaffine']} in phase 38's, "
+        f"{sd['nnet_cli']['qaffine']} in phase 39's")
     faulthandler.cancel_dump_traceback_later()
-    log(f"all 38 phases in {time.perf_counter() - T_START:.1f} s")
+    log(f"all 39 phases in {time.perf_counter() - T_START:.1f} s")
     log(card)
     log(json.dumps({"kernels": [{
         "name": "batched_table_gather", "route": "cuda",
@@ -11789,7 +12482,8 @@ def main() -> int:
         "tools_graph_launches": sd["tools_graph"],
         "cli_launches": sd["cli"], "cli_shapes": sd["cli_shapes"],
         "ladder_cli_launches": sd["ladder_cli"]["gather"],
-        "lattice_cli_launches": sd["lattice_cli"]["gather"]}, {
+        "lattice_cli_launches": sd["lattice_cli"]["gather"],
+        "nnet_cli_launches": sd["nnet_cli"]["gather"]}, {
         "name": "qaffine", "route": "cuda",
         "source": "kaldi_tpu_torch/csrc/qaffine.cu",
         "replaces": "kaldi_tpu/nnet/quantized.py:46",
@@ -11806,7 +12500,8 @@ def main() -> int:
         "adapt_sgmm_launches": 0, "rescore_launches": 0,
         "server_launches": 0, "tools_launches": 0, "cli_launches": 0,
         "ladder_cli_launches": sd["ladder_cli"]["qaffine"],
-        "lattice_cli_launches": sd["lattice_cli"]["qaffine"]}]}))
+        "lattice_cli_launches": sd["lattice_cli"]["qaffine"],
+        "nnet_cli_launches": sd["nnet_cli"]["qaffine"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

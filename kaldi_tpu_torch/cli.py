@@ -3949,6 +3949,685 @@ def cmd_generate_proxy_keywords(args):
                 print(f"{kwid} {cost:.3f} " + " ".join(words))
 
 
+# ------------------------------------------------ nnet3 (nnet3bin)
+
+def _load_am3(path, device="cpu"):
+    from kaldi_tpu_torch.io.model_io import load_am_nnet3
+    return load_am_nnet3(path, device=device)
+
+
+def _am3_tree(am) -> dict:
+    """An AmNnet3's weights as JAX's {component: {leaf: array}}, in its
+    file order (io/model_io.py `param_order`)."""
+    from kaldi_tpu_torch.params import nnet3_params_to_jax
+    tree = nnet3_params_to_jax(am.model.state_dict())
+    order = getattr(am.model, "param_order", None)
+    if not order:
+        return tree
+    out: dict = {}
+    for c, k in order:
+        out.setdefault(c, {})[k] = tree[c][k]
+    return out
+
+
+def _egs_tensors(egs, dev):
+    """An egs dict's feats, targets and weights as tensors on `dev`."""
+    return tuple(torch.as_tensor(egs[k], device=dev)
+                 for k in ("feats", "targets", "weights"))
+
+
+def cmd_nnet3_info(args):
+    """Print an nnet3 model's structure: dims, context, nodes,
+    components, parameter counts (ref: nnet3bin/nnet3-info.cc /
+    nnet3-am-info.cc)."""
+    am = _load_am3(args.model)
+    net = am.model
+    print(f"input-dim {net.dims.get('input', '?')}")
+    print(f"output-dim {net.dims['output']}")
+    print(f"left-context {net.left_context}")
+    print(f"right-context {net.right_context}")
+    print(f"num-parameters {net.num_params()}")
+    print(f"num-nodes {len(net.nodes)}")
+    print(f"num-components {len(net.components)}")
+    for n in net.nodes:
+        print(f"node {n.name} kind={n.kind} dim={net.dims.get(n.name)}")
+    for name, cfg in net.components.items():
+        print(f"component {name} type={cfg['type']}")
+
+
+def cmd_nnet3_copy(args):
+    """Copy an nnet3 model, optionally scaling parameters
+    (ref: nnet3bin/nnet3-copy.cc --scale)."""
+    from kaldi_tpu_torch.io.model_io import save_am_nnet3
+    am = _load_am3(args.model)
+    if args.scale != 1.0:
+        am = am.replace_params({
+            comp: {k: np.asarray(v) * args.scale for k, v in leaf.items()}
+            for comp, leaf in _am3_tree(am).items()})
+    save_am_nnet3(args.model_out, am)
+    print(f"nnet3-copy: scale {args.scale}", file=sys.stderr)
+
+
+def cmd_nnet3_compute(args):
+    """Forward an nnet3 model over a feature archive on the device; writes
+    the net output per utterance (log-posteriors), or pseudo-loglikes with
+    --use-priors (ref: nnet3bin/nnet3-compute.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, open_wspecifier
+    dev = _device(args)
+    am = _load_am3(args.model, dev)
+    n = 0
+    with open_wspecifier(args.wspecifier) as out, torch.inference_mode():
+        for utt, feats in open_rspecifier(args.rspecifier):
+            x = feats.astype(np.float32)[None]
+            if args.use_priors:
+                y = am.loglikes_np(x)[0]
+            else:
+                y = _to_host(am.model(torch.as_tensor(x, device=dev),
+                                      pad_context=True)[0])
+            out.write(utt, y.astype(np.float32))
+            n += 1
+    print(f"nnet3-compute: {n} utts", file=sys.stderr)
+
+
+def cmd_nnet3_init(args):
+    """Random-init an nnet3 model from a config file (ref:
+    nnet3bin/nnet3-init.cc + steps/nnet3/make_tdnn_configs.py); the
+    weights come from a torch.Generator seeded with --seed, not JAX's
+    key."""
+    from kaldi_tpu_torch.io.model_io import save_am_nnet3
+    from kaldi_tpu_torch.nnet3.network import Nnet3
+    from kaldi_tpu_torch.nnet3.training import AmNnet3
+    with open(args.config) as f:
+        net = Nnet3(f.read(), device="cpu")
+    net.init(torch.Generator().manual_seed(args.seed))
+    save_am_nnet3(args.nnet_out, AmNnet3(net))
+    print(f"nnet3-init: output-dim {net.dims['output']}, "
+          f"{len(net.components)} components", file=sys.stderr)
+
+
+def cmd_nnet3_train(args):
+    """SGD over an egs dir through the nnet3 trainer on the device
+    (ref: nnet3bin/nnet3-train.cc, nnet3/nnet-training.cc:37)."""
+    from kaldi_tpu_torch.io.model_io import save_am_nnet3
+    from kaldi_tpu_torch.nnet3.training import Nnet3TrainOpts, train_nnet3
+    dev = _device(args)
+    am = _load_am3(args.nnet_in, dev)
+    egs = _read_egs_dir(args.egs_dir)
+    params, history = train_nnet3(
+        am.model, am.model.params(), egs,
+        Nnet3TrainOpts(initial_lr=args.initial_lr,
+                       final_lr=args.final_lr,
+                       num_epochs=args.num_epochs,
+                       minibatch_size=args.minibatch_size,
+                       momentum=args.momentum))
+    save_am_nnet3(args.nnet_out, am.replace_params(params))
+    if history:
+        print(f"nnet3-train: final loss {history[-1][2]:.3f} "
+              f"acc {history[-1][3]:.3f}", file=sys.stderr)
+
+
+def cmd_nnet3_compute_prob(args):
+    """Diagnostic objective over an egs dir on the device
+    (ref: nnet3bin/nnet3-compute-prob.cc, nnet3/nnet-diagnostics.h:81)."""
+    from kaldi_tpu_torch.nnet3.training import nnet3_objective
+    dev = _device(args)
+    am = _load_am3(args.nnet, dev)
+    egs = _read_egs_dir(args.egs_dir)
+    with torch.no_grad():
+        loss, acc = nnet3_objective(am.model, am.model.params(),
+                                    *_egs_tensors(egs, dev))
+    print(f"log-probability-per-frame {-float(loss):.4f} "
+          f"accuracy {float(acc):.4f}")
+
+
+def _average_trees(trees):
+    """JAX's average_params on numpy trees: sum(xs) / len(xs) per leaf,
+    dict keys sorted as a JAX tree map leaves them."""
+    if isinstance(trees[0], dict):
+        return {k: _average_trees([t[k] for t in trees])
+                for k in sorted(trees[0])}
+    if isinstance(trees[0], list):
+        return [_average_trees(list(xs)) for xs in zip(*trees)]
+    return sum(trees) / len(trees)
+
+
+def cmd_nnet3_average(args):
+    """(ref: nnet3bin/nnet3-average.cc)"""
+    from kaldi_tpu_torch.io.model_io import save_am_nnet3
+    ams = [_load_am3(p) for p in args.nnets_in]
+    out = ams[0].replace_params(_average_trees([_am3_tree(a) for a in ams]))
+    out.priors = np.mean([a.priors for a in ams], axis=0)
+    save_am_nnet3(args.nnet_out, out)
+    print(f"nnet3-average: {len(ams)} models", file=sys.stderr)
+
+
+def cmd_nnet3_combine(args):
+    """Validation-optimal combination, fitted on the device
+    (ref: nnet3bin/nnet3-combine.cc)."""
+    from kaldi_tpu_torch.io.model_io import save_am_nnet3
+    from kaldi_tpu_torch.nnet.combine import combine_params
+    from kaldi_tpu_torch.nnet3.training import nnet3_objective
+    dev = _device(args)
+    ams = [_load_am3(p, dev) for p in args.nnets_in]
+    feats, targets, weights = _egs_tensors(_read_egs_dir(args.valid_egs),
+                                           dev)
+    net = ams[0].model
+
+    def loss_fn(params):
+        return nnet3_objective(net, params, feats, targets, weights)[0]
+
+    params, final_loss = combine_params(
+        [a.model.params() for a in ams], loss_fn, num_steps=args.num_steps)
+    save_am_nnet3(args.nnet_out, ams[0].replace_params(params))
+    print(f"nnet3-combine: {len(ams)} models, valid loss "
+          f"{final_loss:.4f}", file=sys.stderr)
+
+
+def cmd_nnet3_adjust_priors(args):
+    """priors := average posterior over the features, the forward on the
+    device (ref: nnet3bin/nnet3-am-adjust-priors.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import save_am_nnet3
+    am = _load_am3(args.nnet_in, _device(args))
+    am.set_priors_from_posteriors(
+        f.astype(np.float32)[None]
+        for (_k, f) in open_rspecifier(args.rspecifier))
+    save_am_nnet3(args.nnet_out, am)
+    print("nnet3-am-adjust-priors: done", file=sys.stderr)
+
+
+def _nnet_latgen(args, am, dev):
+    """nnet-latgen-faster / nnet3-latgen-faster: the AM's pseudo-loglikes
+    of the padded batch on `dev` (past each utterance's end masked), then
+    `_latgen_from_loglikes` with the words of the GMM system's lang."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import load_gmm_system, load_hclg
+    model = load_gmm_system(args.model, device="cpu")
+    packed = load_hclg(args.graph)
+    items = list(open_rspecifier(args.rspecifier))
+    feats, nf = _pad_batch(items)
+    ll = np.array(am.loglikes_np(feats), np.float32)
+    for b in range(len(items)):
+        ll[b, nf[b]:] = -1e10
+    _latgen_from_loglikes(packed, [k for (k, _f) in items], ll, nf, args,
+                          dev, sym=model.lang.words.sym)
+
+
+def cmd_nnet3_latgen_faster(args):
+    """Hybrid nnet3 lattice-generating decode on the device
+    (ref: nnet3bin/nnet3-latgen-faster.cc)."""
+    dev = _device(args)
+    _nnet_latgen(args, _load_am3(args.nnet, dev), dev)
+
+
+# ------------------------------------------------ nnet1 (nnetbin)
+
+def _nnet1_params(params: dict, offset: int) -> dict:
+    """An nnet1 params dict with its component indexes shifted."""
+    out = {}
+    for name, v in params.items():
+        i, leaf = name.split(".", 1)
+        out[f"{int(i) + offset}.{leaf}"] = v
+    return out
+
+
+def cmd_nnet1_initialize(args):
+    """Proto file -> randomly initialised nnet1 component stack
+    (ref: nnetbin/nnet-initialize.cc); the weights come from a
+    torch.Generator seeded with --seed, not JAX's key."""
+    from kaldi_tpu_torch.nnet1.nnet import Nnet1, save_nnet1
+    with open(args.proto) as f:
+        net = Nnet1.from_proto(f.read(), device="cpu")
+    params = net.init(torch.Generator().manual_seed(args.seed))
+    save_nnet1(args.nnet_out, net, params)
+    print(f"nnet-initialize: {len(net.components)} components, "
+          f"{net.input_dim}->{net.output_dim}", file=sys.stderr)
+
+
+def cmd_nnet1_info(args):
+    """(ref: nnetbin/nnet-info.cc)"""
+    from kaldi_tpu_torch.nnet1.nnet import load_nnet1
+    net, params = load_nnet1(args.nnet, device="cpu")
+    print(f"num-components {len(net.components)}")
+    print(f"input-dim {net.input_dim}")
+    print(f"output-dim {net.output_dim}")
+    print(f"num-parameters {sum(v.numel() for v in params.values())}")
+    for c in net.components:
+        print(f"component {c.kind} {c.in_dim}->{c.out_dim}")
+
+
+def cmd_nnet1_copy(args):
+    """(ref: nnetbin/nnet-copy.cc)"""
+    from kaldi_tpu_torch.nnet1.nnet import load_nnet1, save_nnet1
+    save_nnet1(args.nnet_out, *load_nnet1(args.nnet_in, device="cpu"))
+    print("nnet-copy: done", file=sys.stderr)
+
+
+def cmd_nnet1_concat(args):
+    """Stack nets front-to-back (ref: nnetbin/nnet-concat.cc)."""
+    from kaldi_tpu_torch.nnet1.nnet import load_nnet1, save_nnet1
+    net, params = load_nnet1(args.nnets_in[0], device="cpu")
+    for p in args.nnets_in[1:]:
+        n2, p2 = load_nnet1(p, device="cpu")
+        params = {**params, **_nnet1_params(p2, len(net.components))}
+        net = net.concat(n2)
+    save_nnet1(args.nnet_out, net, params)
+    print(f"nnet-concat: {len(args.nnets_in)} nets -> "
+          f"{len(net.components)} components", file=sys.stderr)
+
+
+def cmd_nnet1_forward(args):
+    """The net on the device (ref: nnetbin/nnet-forward.cc; --apply-log
+    keeps the log domain, --class-frame-counts divides by priors)."""
+    from kaldi_tpu_torch.io.kaldi_io import (open_rspecifier,
+                                             open_wspecifier, read_ark)
+    from kaldi_tpu_torch.nnet1.nnet import load_nnet1
+    dev = _device(args)
+    net, params = load_nnet1(args.nnet, device=dev)
+    log_prior = None
+    if args.class_frame_counts:
+        (cnt,) = [v for _, v in read_ark(args.class_frame_counts)]
+        p = np.asarray(cnt, np.float64) + 0.5
+        log_prior = np.log(p / p.sum())
+    n = 0
+    with open_wspecifier(args.wspecifier) as out, torch.inference_mode():
+        for k, f in open_rspecifier(args.rspecifier):
+            y = _to_host(net.apply(params, torch.as_tensor(
+                f, dtype=torch.float32, device=dev)))
+            if log_prior is not None:
+                y = y - log_prior
+            if not args.apply_log:
+                y = np.exp(y)
+            out.write(k, y.astype(np.float32))
+            n += 1
+    print(f"nnet-forward: {n} utts", file=sys.stderr)
+
+
+def cmd_nnet1_train_frmshuff(args):
+    """Frame-shuffled xent SGD over features + pdf alignments on the
+    device (ref: nnetbin/nnet-train-frmshuff.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.nnet1.nnet import (load_nnet1, save_nnet1,
+                                            train_frmshuff)
+    dev = _device(args)
+    net, params = load_nnet1(args.nnet_in, device=dev)
+    feats = {k: v for (k, v) in open_rspecifier(args.rspecifier)}
+    X, T = [], []
+    for utt, ali in open_rspecifier(args.targets_rspecifier):
+        if utt not in feats:
+            continue
+        n = min(len(ali), feats[utt].shape[0])
+        X.append(feats[utt][:n])
+        T.append(np.asarray(ali[:n], np.int64))
+    X = np.concatenate(X).astype(np.float32)
+    T = np.concatenate(T)
+    params, hist = train_frmshuff(
+        net, params, torch.as_tensor(X, device=dev),
+        torch.as_tensor(T, device=dev), learn_rate=args.learn_rate,
+        minibatch=args.minibatch_size, num_epochs=args.num_epochs,
+        momentum=args.momentum, seed=args.seed)
+    save_nnet1(args.nnet_out, net, params)
+    print(f"nnet-train-frmshuff: {len(X)} frames, final loss "
+          f"{hist[-1][0]:.3f} acc {hist[-1][1]:.3f}", file=sys.stderr)
+
+
+def cmd_rbm_train_cd1_frmshuff(args):
+    """CD-1 RBM pretraining over pooled frames on the device (ref:
+    nnetbin/rbm-train-cd1-frmshuff.cc). The weights start from JAX's
+    numpy draw; the hidden samples come from a torch.Generator on the
+    device seeded with --seed (JAX draws them from its key)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.nnet1.rbm import Rbm, RbmConfig
+    from kaldi_tpu_torch.nnet1.train import FrameShuffler
+    dev = _device(args)
+    X = np.concatenate([v for (_k, v) in
+                        open_rspecifier(args.rspecifier)]).astype(np.float32)
+    rbm = Rbm(RbmConfig(visible_dim=X.shape[1], hidden_dim=args.hidden_dim,
+                        learning_rate=args.learn_rate), seed=args.seed,
+              device=dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    Xd = torch.as_tensor(X, device=dev)
+    mse = 0.0
+    for ep in range(args.num_epochs):
+        shuf = FrameShuffler(Xd, np.zeros(len(X), np.int32),
+                             args.minibatch_size, seed=args.seed + ep)
+        for x, _t in shuf:
+            mse = rbm.cd1_step(x, gen)
+    with open(args.rbm_out, "wb") as f:
+        np.savez(f, W=_to_host(rbm.W), vis_bias=_to_host(rbm.vis_bias),
+                 hid_bias=_to_host(rbm.hid_bias))
+    print(f"rbm-train-cd1-frmshuff: final mse {mse:.4f}", file=sys.stderr)
+
+
+def cmd_rbm_convert_to_nnet(args):
+    """RBM -> AffineTransform+Sigmoid stack
+    (ref: nnetbin/rbm-convert-to-nnet.cc)."""
+    from kaldi_tpu_torch.nnet1.nnet import Component, Nnet1, save_nnet1
+    z = np.load(args.rbm)
+    W, b = z["W"], z["hid_bias"]
+    H, V = W.shape
+    net = Nnet1([Component("AffineTransform", V, H),
+                 Component("Sigmoid", H, H)], device="cpu")
+    save_nnet1(args.nnet_out, net, {"0.w": torch.as_tensor(W),
+                                    "0.b": torch.as_tensor(b)})
+    print(f"rbm-convert-to-nnet: {V}->{H}", file=sys.stderr)
+
+
+def cmd_cmvn_to_nnet(args):
+    """Global CMVN stats -> AddShift+Rescale front components
+    (ref: nnetbin/cmvn-to-nnet.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.nnet1.nnet import Component, Nnet1, save_nnet1
+    # sum all stats entries (per-spk or global)
+    total = None
+    for _k, st in open_rspecifier(args.cmvn_rspecifier):
+        total = st if total is None else total + st
+    st = np.asarray(total, np.float64)
+    cnt = st[0, -1]
+    mean = st[0, :-1] / cnt
+    var = st[1, :-1] / cnt - mean ** 2
+    D = len(mean)
+    net = Nnet1([Component("AddShift", D, D), Component("Rescale", D, D)],
+                device="cpu")
+    save_nnet1(args.nnet_out, net, {
+        "0.b": torch.as_tensor((-mean).astype(np.float32)),
+        "1.s": torch.as_tensor((1.0 / np.sqrt(np.maximum(var, 1e-10)))
+                               .astype(np.float32))})
+    print(f"cmvn-to-nnet: dim {D}", file=sys.stderr)
+
+
+def cmd_transf_to_nnet(args):
+    """Linear/affine transform matrix -> AffineTransform component
+    (ref: nnetbin/transf-to-nnet.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import read_ark
+    from kaldi_tpu_torch.nnet1.nnet import Component, Nnet1, save_nnet1
+    (M,) = [v for _, v in read_ark(args.transform)]
+    M = np.asarray(M, np.float64)
+    out_dim, in_cols = M.shape
+    if args.affine or in_cols == out_dim + 1:
+        W, b = M[:, :-1], M[:, -1]
+    else:
+        W, b = M, np.zeros(out_dim)
+    net = Nnet1([Component("AffineTransform", W.shape[1], out_dim)],
+                device="cpu")
+    save_nnet1(args.nnet_out, net, {
+        "0.w": torch.as_tensor(W.astype(np.float32)),
+        "0.b": torch.as_tensor(b.astype(np.float32))})
+    print(f"transf-to-nnet: {W.shape[1]}->{out_dim}", file=sys.stderr)
+
+
+def cmd_nnet_kl_hmm_acc(args):
+    """Accumulate KL-HMM state distributions from posterior features +
+    state alignments (ref: nnetbin/nnet-kl-hmm-acc.cc); host counts."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.nnet1.kl_hmm import KlHmm
+    feats = {k: v for (k, v) in open_rspecifier(args.rspecifier)}
+    kl = None
+    for utt, ali in open_rspecifier(args.ali_rspecifier):
+        if utt not in feats:
+            continue
+        f = np.asarray(feats[utt], np.float64)
+        a = np.asarray(ali, np.int64)
+        n = min(len(f), len(a))
+        if kl is None:
+            kl = KlHmm(f.shape[1], args.num_states)
+        kl.accumulate(f[:n], a[:n])
+    with open(args.accs_out, "wb") as f:
+        np.savez(f, counts=kl.counts)
+    print(f"nnet-kl-hmm-acc: {int(kl.counts.sum())} total mass",
+          file=sys.stderr)
+
+
+def cmd_nnet_kl_hmm_sum_accs(args):
+    """(ref: nnetbin/nnet-kl-hmm-sum-accs.cc)"""
+    total = None
+    for p in args.accs_in:
+        c = np.load(p)["counts"]
+        total = c if total is None else total + c
+    with open(args.accs_out, "wb") as f:
+        np.savez(f, counts=total)
+    print(f"nnet-kl-hmm-sum-accs: {len(args.accs_in)} files",
+          file=sys.stderr)
+
+
+# ------------------------------------------------ nnet2 egs (nnet2bin)
+
+def _read_egs_dir(egs_dir):
+    """-> egs dict {feats, targets, weights} concatenated over archives
+    (weights.<a>.ark read when present, else all-ones)."""
+    import glob as _glob
+    from kaldi_tpu_torch.io.kaldi_io import read_ark
+    feats, targets, weights = [], [], []
+    for p in sorted(_glob.glob(os.path.join(egs_dir, "egs.*.ark"))):
+        a = p.rsplit("egs.", 1)[1].split(".ark")[0]
+        targ = dict(read_ark(os.path.join(egs_dir, f"targets.{a}.ark")))
+        wpath = os.path.join(egs_dir, f"weights.{a}.ark")
+        wts = dict(read_ark(wpath)) if os.path.exists(wpath) else {}
+        for k, x in read_ark(p):
+            feats.append(x)
+            targets.append(targ[k].astype(np.int32))
+            weights.append(np.asarray(wts[k], np.float32).reshape(-1)
+                           if k in wts else None)
+    if not feats:
+        raise SystemExit(f"no egs archives under {egs_dir}")
+    f = np.stack(feats)
+    t = np.stack(targets)
+    w = np.stack([np.ones(t.shape[1], np.float32) if x is None else x
+                  for x in weights])
+    return {"feats": f, "targets": t, "weights": w}
+
+
+def cmd_nnet_get_egs(args):
+    """Dump frame-chunk training examples with context to randomized
+    archives (ref: nnet2bin/nnet-get-egs.cc + steps/nnet2/get_egs2.sh)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    from kaldi_tpu_torch.steps.egs import dump_egs
+    tm = load_gmm_system(args.model, device="cpu").trans_model
+    feats = {k: v for (k, v) in open_rspecifier(args.rspecifier)}
+    aligned, utt_names = [], []
+    for utt, ali in open_rspecifier(args.ali_rspecifier):
+        if utt in feats:
+            tids = np.asarray(ali, np.int64)
+            aligned.append((feats[utt].astype(np.float32),
+                            tm.id2pdf_array[tids]))
+            utt_names.append(utt)
+    n = dump_egs(aligned, args.left_context, args.right_context,
+                 args.chunk, args.egs_dir,
+                 num_archives=args.num_archives,
+                 compress=not args.no_compress, seed=args.seed,
+                 utt_names=utt_names)
+    print(f"nnet-get-egs: {len(aligned)} utts -> {n} archives",
+          file=sys.stderr)
+
+
+def _rewrite_egs(in_dir, out_dir, transform, num_archives, seed):
+    """Shared egs-archive rewriter: reads all (feats, target) examples,
+    applies `transform(examples, rng) -> examples`, writes round-robin
+    into num_archives archives."""
+    import glob as _glob
+    from kaldi_tpu_torch.io.kaldi_io import read_ark, write_ark
+    rng = np.random.RandomState(seed)
+    examples = []
+    have_weights = False
+    for p in sorted(_glob.glob(os.path.join(in_dir, "egs.*.ark"))):
+        a = p.rsplit("egs.", 1)[1].split(".ark")[0]
+        targ = dict(read_ark(os.path.join(in_dir, f"targets.{a}.ark")))
+        wpath = os.path.join(in_dir, f"weights.{a}.ark")
+        wts = dict(read_ark(wpath)) if os.path.exists(wpath) else {}
+        have_weights = have_weights or bool(wts)
+        for k, x in read_ark(p):
+            examples.append((k, x, targ[k], wts.get(k)))
+    examples = transform(examples, rng)
+    os.makedirs(out_dir, exist_ok=True)
+    buckets = [[] for _ in range(num_archives)]
+    for i, ex in enumerate(examples):
+        buckets[i % num_archives].append(ex)
+    for a, items in enumerate(buckets):
+        write_ark(os.path.join(out_dir, f"egs.{a}.ark"),
+                  {k: x for (k, x, _y, _w) in items})
+        write_ark(os.path.join(out_dir, f"targets.{a}.ark"),
+                  {k: y for (k, _x, y, _w) in items})
+        if have_weights:
+            write_ark(os.path.join(out_dir, f"weights.{a}.ark"),
+                      {k: w for (k, _x, _y, w) in items
+                       if w is not None})
+    return len(examples)
+
+
+def cmd_nnet_copy_egs(args):
+    """Redistribute egs across archives (ref: nnet2bin/nnet-copy-egs.cc)."""
+    n = _rewrite_egs(args.egs_in, args.egs_out, lambda ex, rng: ex,
+                     args.num_archives, args.seed)
+    print(f"nnet-copy-egs: {n} examples -> {args.num_archives} archives",
+          file=sys.stderr)
+
+
+def cmd_nnet_shuffle_egs(args):
+    """(ref: nnet2bin/nnet-shuffle-egs.cc)"""
+    def shuf(ex, rng):
+        order = rng.permutation(len(ex))
+        return [ex[i] for i in order]
+    n = _rewrite_egs(args.egs_in, args.egs_out, shuf,
+                     args.num_archives, args.seed)
+    print(f"nnet-shuffle-egs: {n} examples", file=sys.stderr)
+
+
+def cmd_nnet_subset_egs(args):
+    """(ref: nnet2bin/nnet-subset-egs.cc)"""
+    def take(ex, rng):
+        if args.randomize:
+            order = rng.permutation(len(ex))[: args.n]
+            return [ex[i] for i in sorted(order)]
+        return ex[: args.n]
+    n = _rewrite_egs(args.egs_in, args.egs_out, take, 1, args.seed)
+    print(f"nnet-subset-egs: kept {n}", file=sys.stderr)
+
+
+# ------------------------------------------ nnet2 models (nnet2bin)
+
+def cmd_nnet_am_init(args):
+    """Random-init a multisplice TDNN AmNnet sized to a GMM system's pdf
+    count (ref: nnet2bin/nnet-am-init.cc + nnet-init); the weights come
+    from a torch.Generator seeded with --seed, not JAX's key."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import load_gmm_system, save_am_nnet
+    from kaldi_tpu_torch.nnet.am_nnet import AmNnet
+    from kaldi_tpu_torch.nnet.tdnn import Tdnn, TdnnConfig
+    model = load_gmm_system(args.model, device="cpu")
+    _k, f0 = next(iter(open_rspecifier(args.rspecifier)))
+    splice = tuple(tuple(int(t) for t in grp.split(","))
+                   for grp in args.splice_indexes.split(";"))
+    cfg = TdnnConfig(feat_dim=f0.shape[1], num_pdfs=model.am.num_pdfs,
+                     splice_indexes=splice, hidden_dim=args.hidden_dim,
+                     pnorm_output_dim=args.pnorm_output_dim,
+                     nonlinearity=args.nonlinearity)
+    net = Tdnn(cfg, device="cpu")
+    net.init(torch.Generator().manual_seed(args.seed))
+    save_am_nnet(args.nnet_out, AmNnet(net))
+    print(f"nnet-am-init: {cfg.num_pdfs} pdfs, "
+          f"{len(cfg.splice_indexes)} layers", file=sys.stderr)
+
+
+def cmd_nnet_train_simple(args):
+    """SGD over an egs dir, one process, on the device
+    (ref: nnet2bin/nnet-train-simple.cc)."""
+    from kaldi_tpu_torch.io.model_io import save_am_nnet
+    from kaldi_tpu_torch.nnet.train import NnetTrainOpts, train_epochs
+    dev = _device(args)
+    am = cli_nnet._load_am(args.nnet_in, dev)
+    egs = _read_egs_dir(args.egs_dir)
+    params, history = train_epochs(
+        am.model, am.model.params(), egs,
+        NnetTrainOpts(initial_lr=args.initial_lr, final_lr=args.final_lr,
+                      num_epochs=args.num_epochs,
+                      minibatch_size=args.minibatch_size,
+                      momentum=args.momentum), device=dev)
+    save_am_nnet(args.nnet_out, am.replace_params(params))
+    if history:
+        print(f"nnet-train-simple: final loss {history[-1][2]:.3f} "
+              f"acc {history[-1][3]:.3f}", file=sys.stderr)
+
+
+def cmd_nnet_am_info(args):
+    """(ref: nnet2bin/nnet-am-info.cc)"""
+    am = cli_nnet._load_am(args.nnet)
+    cfg = am.model.config
+    print(f"num-components {len(cfg.splice_indexes) + 1}")
+    print(f"num-pdfs {cfg.num_pdfs}")
+    print(f"input-dim {cfg.feat_dim}")
+    print(f"left-context {cfg.left_context}")
+    print(f"right-context {cfg.right_context}")
+    print(f"num-parameters {am.model.num_params()}")
+    for i, ctx in enumerate(cfg.splice_indexes):
+        print(f"layer {i} splice {list(ctx)} hidden {cfg.hidden_dim} "
+              f"({cfg.nonlinearity})")
+
+
+def cmd_nnet_am_copy(args):
+    """(ref: nnet2bin/nnet-am-copy.cc)"""
+    from kaldi_tpu_torch.io.model_io import save_am_nnet
+    save_am_nnet(args.nnet_out, cli_nnet._load_am(args.nnet_in))
+    print("nnet-am-copy: done", file=sys.stderr)
+
+
+def cmd_nnet_am_average(args):
+    """Average parameters of N models (ref: nnet2bin/nnet-am-average.cc —
+    the reduce step of parallel-SGD-with-model-averaging)."""
+    from kaldi_tpu_torch.io.model_io import save_am_nnet
+    ams = [cli_nnet._load_am(p) for p in args.nnets_in]
+    out = ams[0].replace_params(
+        _average_trees([cli_nnet._tree(a) for a in ams]))
+    out.priors = np.mean([a.priors for a in ams], axis=0)
+    save_am_nnet(args.nnet_out, out)
+    print(f"nnet-am-average: {len(ams)} models", file=sys.stderr)
+
+
+def cmd_nnet_combine_fast(args):
+    """Validation-loss-optimal model combination, fitted on the device
+    (ref: nnet2bin/nnet-combine-fast.cc)."""
+    from kaldi_tpu_torch.io.model_io import save_am_nnet
+    from kaldi_tpu_torch.nnet.combine import combine_params
+    from kaldi_tpu_torch.nnet.train import cross_entropy_loss
+    dev = _device(args)
+    ams = [cli_nnet._load_am(p, dev) for p in args.nnets_in]
+    feats, targets, weights = _egs_tensors(_read_egs_dir(args.valid_egs),
+                                           dev)
+    model = ams[0].model
+
+    def loss_fn(params):
+        return cross_entropy_loss(model, params, feats, targets,
+                                  weights)[0]
+
+    params, final_loss = combine_params(
+        [a.model.params() for a in ams], loss_fn, num_steps=args.num_steps)
+    save_am_nnet(args.nnet_out, ams[0].replace_params(params))
+    print(f"nnet-combine-fast: {len(ams)} models, valid loss "
+          f"{final_loss:.4f}", file=sys.stderr)
+
+
+def cmd_nnet_adjust_priors(args):
+    """priors := average posterior over held-out features, the forward on
+    the device (ref: nnet2bin/nnet-adjust-priors.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import save_am_nnet
+    am = cli_nnet._load_am(args.nnet_in, _device(args))
+    am.set_priors_from_posteriors(
+        f.astype(np.float32)[None]
+        for (_k, f) in open_rspecifier(args.rspecifier))
+    save_am_nnet(args.nnet_out, am)
+    print(f"nnet-adjust-priors: prior entropy "
+          f"{-np.sum(am.priors * np.log(np.maximum(am.priors, 1e-20))):.3f}",
+          file=sys.stderr)
+
+
+def cmd_nnet_latgen_faster(args):
+    """Hybrid nnet2 lattice-generating decode on the device
+    (ref: nnet2bin/nnet-latgen-faster.cc)."""
+    dev = _device(args)
+    _nnet_latgen(args, cli_nnet._load_am(args.nnet, dev), dev)
+
+
 # Reference binary names that resolve to a canonical subcommand: the
 # ported ones of kaldi_tpu/cli.py's `_ALIASES`. Options after the alias
 # pass straight through to the canonical command.
@@ -3993,10 +4672,30 @@ _ALIASES: dict = {
     "sum-matrices": ["matrix-sum"],
     "nnet-train-transitions": ["train-transitions"],
     "nnet3-am-train-transitions": ["train-transitions"],
+    # nnet2 / nnet3 am-wrappers and the parallel variants, which are the
+    # same batched computation
+    "nnet-latgen-faster-parallel": ["nnet-latgen-faster"],
+    "nnet-train-parallel": ["nnet-train-simple"],
+    "nnet-train-perutt": ["nnet-train-simple"],
+    "nnet-train-parallel-perturbed": ["nnet-train-simple-perturbed"],
+    "nnet-train-discriminative-parallel":
+        ["nnet-train-discriminative-simple"],
+    "nnet-perturb-egs-fmllr": ["nnet-perturb-egs"],
+    "nnet-get-feature-transform-multi": ["nnet-get-feature-transform"],
+    "nnet-logprob-parallel": ["nnet-logprob"],
+    "nnet-logprob2-parallel": ["nnet-logprob2"],
+    "nnet-combine": ["nnet-combine-fast"],
+    "nnet-combine-a": ["nnet-combine-fast"],
+    "nnet-am-combine": ["nnet-combine-fast"],
+    "nnet-init": ["nnet-am-init"],
+    "nnet3-am-copy": ["nnet3-copy"],
+    "nnet3-am-info": ["nnet3-info"],
+    "nnet3-am-init": ["nnet3-init"],
 }
 
-# the subcommands of this module and of cli_gmm_extra.py that build a
-# device object (`--device`)
+# the subcommands that build a device object (`--device`): this module's,
+# cli_gmm_extra.py's and those of cli_nnet.py and cli_tail.py that run a
+# network
 DEVICE_COMMANDS = (
     "compute-mfcc-feats", "compute-fbank-feats", "compute-spectrogram-feats",
     "compute-plp-feats", "compute-pitch-feats",
@@ -4010,7 +4709,12 @@ DEVICE_COMMANDS = (
     "gmm-acc-stats", "gmm-acc-stats2", "gmm-compute-likes",
     "gmm-global-est", "train-deltas", "latgen-faster-mapped",
     "gmm-latgen-faster", "gmm-latgen-biglm-faster", "gmm-decode-biglm-faster",
-    "gmm-rescore-lattice", "decode-fmllr")
+    "gmm-rescore-lattice", "decode-fmllr", "nnet3-compute", "nnet-forward",
+    "nnet-train-frmshuff", "rbm-train-cd1-frmshuff", "nnet3-train",
+    "nnet3-compute-prob", "nnet3-combine", "nnet3-am-adjust-priors",
+    "nnet3-latgen-faster", "nnet-train-simple", "nnet-combine-fast",
+    "nnet-adjust-priors", "nnet-latgen-faster") + (
+        cli_nnet.DEVICE_COMMANDS + cli_tail.DEVICE_COMMANDS)
 
 
 def _register(sub):
@@ -5336,6 +6040,232 @@ def _register(sub):
                    help="JAX's option, unused there too: this recipe "
                         "writes no files")
     q.set_defaults(func=cmd_recipe_yesno)
+    _register_nnet(sub)
+
+
+def _register_nnet(sub):
+    """The nnet2, nnet3 and nnet1 subcommands of this module, with JAX's
+    argument names and defaults (kaldi_tpu/cli.py main)."""
+    q = sub.add_parser("nnet3-info")
+    q.add_argument("model")
+    q.set_defaults(func=cmd_nnet3_info)
+
+    q = sub.add_parser("nnet3-copy")
+    q.add_argument("model")
+    q.add_argument("model_out")
+    q.add_argument("--scale", type=float, default=1.0)
+    q.set_defaults(func=cmd_nnet3_copy)
+
+    q = sub.add_parser("nnet3-compute")
+    q.add_argument("model")
+    q.add_argument("rspecifier")
+    q.add_argument("wspecifier")
+    q.add_argument("--use-priors", action="store_true",
+                   help="subtract log-priors (pseudo-loglikes out)")
+    q.set_defaults(func=cmd_nnet3_compute)
+
+    q = sub.add_parser("nnet-initialize")
+    q.add_argument("proto")
+    q.add_argument("nnet_out")
+    q.add_argument("--seed", type=int, default=0)
+    q.set_defaults(func=cmd_nnet1_initialize)
+
+    q = sub.add_parser("nnet-info")
+    q.add_argument("nnet")
+    q.set_defaults(func=cmd_nnet1_info)
+
+    q = sub.add_parser("nnet-copy")
+    q.add_argument("nnet_in")
+    q.add_argument("nnet_out")
+    q.set_defaults(func=cmd_nnet1_copy)
+
+    q = sub.add_parser("nnet-concat")
+    q.add_argument("nnet_out")
+    q.add_argument("nnets_in", nargs="+")
+    q.set_defaults(func=cmd_nnet1_concat)
+
+    q = sub.add_parser("nnet-forward")
+    q.add_argument("nnet")
+    q.add_argument("rspecifier")
+    q.add_argument("wspecifier")
+    q.add_argument("--apply-log", action="store_true")
+    q.add_argument("--class-frame-counts", default="")
+    q.set_defaults(func=cmd_nnet1_forward)
+
+    q = sub.add_parser("nnet-train-frmshuff")
+    q.add_argument("nnet_in")
+    q.add_argument("rspecifier")
+    q.add_argument("targets_rspecifier", help="pdf alignments ark")
+    q.add_argument("nnet_out")
+    q.add_argument("--learn-rate", type=float, default=0.008)
+    q.add_argument("--minibatch-size", type=int, default=256)
+    q.add_argument("--num-epochs", type=int, default=1)
+    q.add_argument("--momentum", type=float, default=0.0)
+    q.add_argument("--seed", type=int, default=0)
+    q.set_defaults(func=cmd_nnet1_train_frmshuff)
+
+    q = sub.add_parser("rbm-train-cd1-frmshuff")
+    q.add_argument("rspecifier")
+    q.add_argument("rbm_out")
+    q.add_argument("--hidden-dim", type=int, default=128)
+    q.add_argument("--learn-rate", type=float, default=0.01)
+    q.add_argument("--minibatch-size", type=int, default=256)
+    q.add_argument("--num-epochs", type=int, default=2)
+    q.add_argument("--seed", type=int, default=0)
+    q.set_defaults(func=cmd_rbm_train_cd1_frmshuff)
+
+    q = sub.add_parser("rbm-convert-to-nnet")
+    q.add_argument("rbm")
+    q.add_argument("nnet_out")
+    q.set_defaults(func=cmd_rbm_convert_to_nnet)
+
+    q = sub.add_parser("cmvn-to-nnet")
+    q.add_argument("cmvn_rspecifier")
+    q.add_argument("nnet_out")
+    q.set_defaults(func=cmd_cmvn_to_nnet)
+
+    q = sub.add_parser("transf-to-nnet")
+    q.add_argument("transform")
+    q.add_argument("nnet_out")
+    q.add_argument("--affine", action="store_true")
+    q.set_defaults(func=cmd_transf_to_nnet)
+
+    q = sub.add_parser("nnet-kl-hmm-acc")
+    q.add_argument("rspecifier", help="posterior-feature matrices")
+    q.add_argument("ali_rspecifier")
+    q.add_argument("accs_out")
+    q.add_argument("--num-states", type=int, required=True)
+    q.set_defaults(func=cmd_nnet_kl_hmm_acc)
+
+    q = sub.add_parser("nnet-kl-hmm-sum-accs")
+    q.add_argument("accs_out")
+    q.add_argument("accs_in", nargs="+")
+    q.set_defaults(func=cmd_nnet_kl_hmm_sum_accs)
+
+    q = sub.add_parser("nnet3-init")
+    q.add_argument("config")
+    q.add_argument("nnet_out")
+    q.add_argument("--seed", type=int, default=0)
+    q.set_defaults(func=cmd_nnet3_init)
+
+    for name, func in (("nnet3-train", cmd_nnet3_train),
+                       ("nnet-train-simple", cmd_nnet_train_simple)):
+        q = sub.add_parser(name)
+        q.add_argument("nnet_in")
+        q.add_argument("egs_dir")
+        q.add_argument("nnet_out")
+        q.add_argument("--initial-lr", type=float, default=0.04)
+        q.add_argument("--final-lr", type=float, default=0.004)
+        q.add_argument("--num-epochs", type=int, default=4)
+        q.add_argument("--minibatch-size", type=int, default=128)
+        q.add_argument("--momentum", type=float, default=0.9)
+        q.set_defaults(func=func)
+
+    q = sub.add_parser("nnet3-compute-prob")
+    q.add_argument("nnet")
+    q.add_argument("egs_dir")
+    q.set_defaults(func=cmd_nnet3_compute_prob)
+
+    for name, func in (("nnet3-average", cmd_nnet3_average),
+                       ("nnet-am-average", cmd_nnet_am_average)):
+        q = sub.add_parser(name)
+        q.add_argument("nnet_out")
+        q.add_argument("nnets_in", nargs="+")
+        q.set_defaults(func=func)
+
+    for name, func in (("nnet3-combine", cmd_nnet3_combine),
+                       ("nnet-combine-fast", cmd_nnet_combine_fast)):
+        q = sub.add_parser(name)
+        q.add_argument("valid_egs")
+        q.add_argument("nnet_out")
+        q.add_argument("nnets_in", nargs="+")
+        q.add_argument("--num-steps", type=int, default=50)
+        q.set_defaults(func=func)
+
+    for name, func in (("nnet3-am-adjust-priors", cmd_nnet3_adjust_priors),
+                       ("nnet-adjust-priors", cmd_nnet_adjust_priors)):
+        q = sub.add_parser(name)
+        q.add_argument("nnet_in")
+        q.add_argument("rspecifier")
+        q.add_argument("nnet_out")
+        q.set_defaults(func=func)
+
+    for name, func in (("nnet3-latgen-faster", cmd_nnet3_latgen_faster),
+                       ("nnet-latgen-faster", cmd_nnet_latgen_faster)):
+        q = sub.add_parser(name)
+        q.add_argument("model")
+        q.add_argument("nnet")
+        q.add_argument("graph")
+        q.add_argument("rspecifier")
+        q.add_argument("--lattice-out", default="")
+        q.add_argument("--transcription-out", default="")
+        q.add_argument("--determinize-lattice", action="store_true")
+        q.add_argument("--beam", type=float, default=16.0)
+        q.add_argument("--lattice-beam", type=float, default=8.0)
+        q.add_argument("--max-active", type=int, default=512)
+        q.add_argument("--acoustic-scale", type=float, default=0.1)
+        q.set_defaults(func=func)
+
+    # the nnet3 egs binaries share the nnet2 egs-archive implementation
+    # (ref: nnet3bin/nnet3-get-egs.cc, nnet3-shuffle-egs.cc,
+    #  nnet3-merge-egs.cc, nnet3-copy-egs.cc, nnet3-subset-egs.cc)
+    for name in ("nnet-get-egs", "nnet3-get-egs"):
+        q = sub.add_parser(name)
+        q.add_argument("model")
+        q.add_argument("rspecifier")
+        q.add_argument("ali_rspecifier")
+        q.add_argument("egs_dir")
+        q.add_argument("--left-context", type=int, default=13)
+        q.add_argument("--right-context", type=int, default=9)
+        q.add_argument("--chunk", type=int, default=8)
+        q.add_argument("--num-archives", type=int, default=2)
+        q.add_argument("--no-compress", action="store_true")
+        q.add_argument("--seed", type=int, default=0)
+        q.set_defaults(func=cmd_nnet_get_egs)
+
+    for name, func, archives in (
+            ("nnet-copy-egs", cmd_nnet_copy_egs, 2),
+            ("nnet3-copy-egs", cmd_nnet_copy_egs, 1),
+            ("nnet3-merge-egs", cmd_nnet_copy_egs, 1),
+            ("nnet-shuffle-egs", cmd_nnet_shuffle_egs, 1),
+            ("nnet3-shuffle-egs", cmd_nnet_shuffle_egs, 1)):
+        q = sub.add_parser(name)
+        q.add_argument("egs_in")
+        q.add_argument("egs_out")
+        q.add_argument("--num-archives", type=int, default=archives)
+        q.add_argument("--seed", type=int, default=0)
+        q.set_defaults(func=func)
+
+    for name in ("nnet-subset-egs", "nnet3-subset-egs"):
+        q = sub.add_parser(name)
+        q.add_argument("egs_in")
+        q.add_argument("egs_out")
+        q.add_argument("--n", type=int, default=1000)
+        q.add_argument("--randomize", action="store_true")
+        q.add_argument("--seed", type=int, default=0)
+        q.set_defaults(func=cmd_nnet_subset_egs)
+
+    q = sub.add_parser("nnet-am-init")
+    q.add_argument("model")
+    q.add_argument("rspecifier", help="features (to size the input dim)")
+    q.add_argument("nnet_out")
+    q.add_argument("--splice-indexes",
+                   default="-2,-1,0,1,2;-1,2;-3,3;0")
+    q.add_argument("--hidden-dim", type=int, default=256)
+    q.add_argument("--pnorm-output-dim", type=int, default=64)
+    q.add_argument("--nonlinearity", default="pnorm",
+                   choices=["pnorm", "relu"])
+    q.add_argument("--seed", type=int, default=0)
+    q.set_defaults(func=cmd_nnet_am_init)
+
+    q = sub.add_parser("nnet-am-info")
+    q.add_argument("nnet")
+    q.set_defaults(func=cmd_nnet_am_info)
+
+    q = sub.add_parser("nnet-am-copy")
+    q.add_argument("nnet_in")
+    q.add_argument("nnet_out")
+    q.set_defaults(func=cmd_nnet_am_copy)
 
 
 def main(argv=None) -> int:

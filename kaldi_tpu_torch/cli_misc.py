@@ -1,7 +1,7 @@
 """Miscellaneous utility CLI subcommands of the port (the bin/ long tail).
 
-Counterpart of kaldi_tpu/cli_misc.py, holding the ported ones: per-frame
-weight algebra, silence probabilities, matrix plumbing, VAD-driven
+Counterpart of kaldi_tpu/cli_misc.py: per-frame weight algebra, silence
+probabilities, MCE scaling, matrix plumbing, pfile export, VAD-driven
 segmentation, two-channel CMVN statistics, the tree tools (contexts,
 compiled questions, GraphViz) and the card probes. All but the probes
 are host numpy, writing JAX's bytes. Registered into the main parser by
@@ -49,6 +49,27 @@ def cmd_reverse_weights(args):
             out.write(k, (1.0 - w) if args.reverse else w)
             n += 1
     print(f"reverse-weights: {n} utts", file=sys.stderr)
+
+
+def cmd_compute_mce_scale(args):
+    """MCE posterior scale 4·σ(α(num−den)+β)(1−σ(·)) per utterance
+    (ref: bin/compute-mce-scale.cc:66-78)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, open_wspecifier
+    den = {k: float(np.asarray(v).reshape(-1)[0])
+           for (k, v) in open_rspecifier(args.den_rspecifier)}
+    n, tot_sig = 0, 0.0
+    with open_wspecifier(args.wspecifier) as out:
+        for k, v in open_rspecifier(args.num_rspecifier):
+            if k not in den:
+                continue
+            num = float(np.asarray(v).reshape(-1)[0])
+            diff = args.mce_alpha * (num - den[k]) + args.mce_beta
+            sig = 1.0 / (1.0 + np.exp(min(diff, 30.0)))
+            out.write(k, np.array([4.0 * sig * (1.0 - sig)], np.float32))
+            tot_sig += sig
+            n += 1
+    print(f"compute-mce-scale: {n} utts, avg sigmoid "
+          f"{tot_sig / max(n, 1):.4f}", file=sys.stderr)
 
 
 def cmd_get_silence_probs(args):
@@ -217,6 +238,30 @@ def _cmvn_stats(x, w):
 
 # ------------------------------------------------------------ trees
 
+def cmd_build_pfile_from_ali(args):
+    """Per-frame '<feat values> <pdf label>' text rows grouped per
+    utterance — the ICSI pfile payload the reference pipes into
+    pfile_create (ref: bin/build-pfile-from-ali.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    tm = load_gmm_system(args.model, device="cpu").trans_model
+    ali = {k: np.asarray(v, np.int64).reshape(-1)
+           for (k, v) in open_rspecifier(args.ali_rspecifier)}
+    n = 0
+    with open(args.pfile_out, "w") as out:
+        for sent, (utt, feats) in enumerate(
+                open_rspecifier(args.rspecifier)):
+            if utt not in ali:
+                continue
+            pdfs = tm.id2pdf_array[ali[utt]]
+            T = min(len(pdfs), feats.shape[0])
+            for t in range(T):
+                row = " ".join(f"{v:.6g}" for v in feats[t])
+                out.write(f"{sent} {t} {row} {pdfs[t]}\n")
+            n += 1
+    print(f"build-pfile-from-ali: {n} utts", file=sys.stderr)
+
+
 def cmd_extract_ctx(args):
     """Map phone-in-context events (from tree stats) to pdf-ids: lines
     '<pdf-id> <pdf-class> <left> <center> <right>'
@@ -370,6 +415,10 @@ def register(sub):
     add("reverse-weights", cmd_reverse_weights,
         a("rspecifier"), a("wspecifier"),
         a("--reverse", type=lambda s: s != "false", default=True))
+    add("compute-mce-scale", cmd_compute_mce_scale,
+        a("num_rspecifier"), a("den_rspecifier"), a("wspecifier"),
+        a("--mce-alpha", type=float, default=1.0),
+        a("--mce-beta", type=float, default=0.0))
     add("get-silence-probs", cmd_get_silence_probs,
         a("sil_rspecifier"), a("nonsil_rspecifier"), a("wspecifier"),
         a("--sil-prior", type=float, default=0.5),
@@ -389,6 +438,8 @@ def register(sub):
         cmd_compute_cmvn_stats_two_channel,
         a("reco2file_and_channel"), a("rspecifier"), a("wspecifier"),
         a("--quieter-channel-weight", type=float, default=0.01))
+    add("build-pfile-from-ali", cmd_build_pfile_from_ali,
+        a("model"), a("ali_rspecifier"), a("rspecifier"), a("pfile_out"))
     add("extract-ctx", cmd_extract_ctx,
         a("tree_stats"), a("tree"),
         a("--phone-symbols", default=""))

@@ -50,6 +50,7 @@ HOST_CLASSES = {
     ("tree.event_map", "TableEventMap"),
     ("tree.event_map", "SplitEventMap"),
     ("tree.clustering", "GaussStats"),
+    ("nnet1.lstm", "LstmConfig"), ("nnet1.kl_hmm", "KlHmm"),
 }
 #: what arrays, numpy scalars and sets pickle through
 SAFE_GLOBALS = {
@@ -230,6 +231,19 @@ def load_hclg(path: str):
 
 # ------------------------------------------------------------------ nnets
 
+def _in_leaf_order(model, layers: list) -> list:
+    """A TDNN's hidden layers (JAX-layout dicts) with each layer's leaves
+    in `model.leaf_order`, the order of the file it was loaded from or of
+    the tree it was built from, when it names them: JAX's files list
+    "w, b" after an init and "b, w" after a tree map, and a copy keeps
+    its input's order."""
+    order = getattr(model, "leaf_order", None)
+    if not order or len(order) != len(layers) or any(
+            sorted(o) != sorted(l) for o, l in zip(order, layers)):
+        return layers
+    return [{k: l[k] for k in o} for o, l in zip(order, layers)]
+
+
 def _tdnn_blobs(kind: bytes, config, tree) -> tuple[dict, dict, dict]:
     """A TDNN file's header, final layer and hidden layers (JAX's layout),
     apart, since the AM file puts its priors between them."""
@@ -258,8 +272,10 @@ def _load_tdnn(z, device):
                     if k.startswith(f"layer{i}.")}
                    for i in range(int(z["n_layers"]))],
     }
-    return Tdnn.from_params(TdnnConfig(**cfg), tdnn_params_from_jax(tree),
-                            device=device)
+    model = Tdnn.from_params(TdnnConfig(**cfg), tdnn_params_from_jax(tree),
+                             device=device)
+    model.leaf_order = [list(layer) for layer in tree["layers"]]
+    return model
 
 
 def save_am_nnet(path: str, am) -> None:
@@ -267,15 +283,30 @@ def save_am_nnet(path: str, am) -> None:
     (ref: nnet2/am-nnet.h Write — model + priors in one object); the
     layers in JAX's layout (`layer{i}.w`, `final_w`, ...)."""
     from kaldi_tpu_torch.params import tdnn_params_to_jax
-    head, final, layers = _tdnn_blobs(b"am_nnet2", am.model.config,
-                                      tdnn_params_to_jax(am.model))
-    blobs = {**head, "priors": np.asarray(am.priors, np.float64), **final}
-    if getattr(am, "group_ids", None) is not None:
-        blobs["group_ids"] = np.asarray(am.group_ids, np.int32)
-    if getattr(am, "lr_scales", None):
-        blobs["lr_scales_json"] = _u8(json.dumps(am.lr_scales).encode())
-    if getattr(am, "meta", None):
-        blobs["meta_json"] = _u8(json.dumps(am.meta).encode())
+    tree = tdnn_params_to_jax(am.model)
+    tree["layers"] = _in_leaf_order(am.model, tree["layers"])
+    save_am_tree(path, am.model.config, tree, am.priors,
+                 getattr(am, "group_ids", None),
+                 getattr(am, "lr_scales", None), getattr(am, "meta", None))
+
+
+def save_am_tree(path: str, config, tree, priors=None, group_ids=None,
+                 lr_scales=None, meta=None) -> None:
+    """An AmNnet file from a TdnnConfig and a JAX-layout tree of numpy
+    arrays, each written as given (its leaf order and memory order: JAX
+    writes a transposed output layer Fortran-ordered) and without a
+    module, so the widths need not chain (JAX writes such files too).
+    priors None: uniform over config.num_pdfs, as JAX's AmNnet."""
+    if priors is None:
+        priors = np.ones(config.num_pdfs) / config.num_pdfs
+    head, final, layers = _tdnn_blobs(b"am_nnet2", config, tree)
+    blobs = {**head, "priors": np.asarray(priors, np.float64), **final}
+    if group_ids is not None:
+        blobs["group_ids"] = np.asarray(group_ids, np.int32)
+    if lr_scales:
+        blobs["lr_scales_json"] = _u8(json.dumps(lr_scales).encode())
+    if meta:
+        blobs["meta_json"] = _u8(json.dumps(meta).encode())
     _savez(path, {**blobs, **layers})
 
 
@@ -300,7 +331,14 @@ def save_raw_nnet(path: str, model, params: dict | None = None) -> None:
     `state_dict()` names it (the model's own weights when None)."""
     from kaldi_tpu_torch.params import params_to_jax
     tree = params_to_jax(model.state_dict() if params is None else params)
-    head, final, layers = _tdnn_blobs(b"raw_nnet2", model.config, tree)
+    tree["layers"] = _in_leaf_order(model, tree.get("layers", []))
+    save_raw_tree(path, model.config, tree)
+
+
+def save_raw_tree(path: str, config, tree) -> None:
+    """A raw nnet file from a TdnnConfig and a JAX-layout tree, each
+    array written as given (see `save_am_tree`)."""
+    head, final, layers = _tdnn_blobs(b"raw_nnet2", config, tree)
     _savez(path, {**head, **final, **layers})
 
 
@@ -321,9 +359,13 @@ def save_am_nnet3(path: str, am) -> None:
         "config_text": _u8(am.model.config_text.encode()),
         "priors": np.asarray(am.priors, np.float64),
     }
-    for comp, leaf in nnet3_params_to_jax(am.model.state_dict()).items():
-        for k, v in leaf.items():
-            blobs[f"param:{comp}:{k}"] = v
+    tree = nnet3_params_to_jax(am.model.state_dict())
+    keys = [(comp, k) for comp, leaf in tree.items() for k in leaf]
+    order = getattr(am.model, "param_order", None)
+    if order and sorted(order) == sorted(keys):
+        keys = order          # the file's or the tree's order (a copy's)
+    for comp, k in keys:
+        blobs[f"param:{comp}:{k}"] = tree[comp][k]
     _savez(path, blobs)
 
 
@@ -340,6 +382,7 @@ def load_am_nnet3(path: str, device="cuda"):
             _tag, comp, k = key.split(":", 2)
             params.setdefault(comp, {})[k] = z[key]
     net.load_state_dict(nnet3_params_from_jax(params))
+    net.param_order = [(c, k) for c, leaf in params.items() for k in leaf]
     return AmNnet3(net, z["priors"])
 
 

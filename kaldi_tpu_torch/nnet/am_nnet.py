@@ -88,10 +88,14 @@ class AmNnet:
         -> tensor). The model takes its widths from the params, so they may
         differ from this one's (widened, mixed up, a new output layer), as
         in the JAX class; priors, group_ids and lr_scales are shared and
-        meta starts empty."""
-        flat = tdnn_params_from_jax(params) if "layers" in params else params
+        meta starts empty. A JAX tree's leaf order per layer is the file
+        order the model is saved in (`leaf_order`, io/model_io.py)."""
+        tree = "layers" in params
+        flat = tdnn_params_from_jax(params) if tree else params
         model = Tdnn.from_params(self.model.config, flat,
                                  device=self.model.final.w.device)
+        if tree:
+            model.leaf_order = [list(layer) for layer in params["layers"]]
         return AmNnet(model, self.priors, group_ids=self.group_ids,
                       lr_scales=self.lr_scales)
 

@@ -163,8 +163,12 @@ class AmNnet3(AmNnet):
         params dict, or JAX's {component: {leaf: array}} tree. The priors
         are shared."""
         from kaldi_tpu_torch.params import nnet3_params_from_jax
+        order = None
         if isinstance(next(iter(params.values())), dict):
+            # the tree's order is the file order (io/model_io.py)
+            order = [(c, k) for c, leaf in params.items() for k in leaf]
             params = nnet3_params_from_jax(params)
         net = Nnet3(self.model.config_text, device=self.device)
         net.load_state_dict(params)
+        net.param_order = order
         return AmNnet3(net, self.priors)

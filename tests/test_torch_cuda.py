@@ -904,3 +904,18 @@ def test_cli_training_and_decoding_card_vs_cpu(card, tmp_path):
     import chip_smoke as cs
     tr = cs.cli_train_card_vs_cpu(str(tmp_path))
     assert tr["seconds"]["cuda-gpu-available"] >= 0
+
+
+def test_cli_nnet_slice_card_equal_cpu(card, tmp_path):
+    """The fourth slice's device commands (chip_smoke.NNET_CLI_CASES:
+    nnet2, nnet3 and nnet1 forwards, trainers, fits, diagnostics and
+    lattice decodes) on the card and with --device cpu, each within its
+    bound."""
+    import chip_smoke as cs
+    cases = cs.CLI_CASES
+    try:
+        cs.CLI_CASES = cs.NNET_CLI_CASES
+        res = cs.cli_card_vs_cpu(str(tmp_path))
+    finally:
+        cs.CLI_CASES = cases
+    assert set(res) == {n for n, _a, _k, _o in cs.NNET_CLI_CASES}

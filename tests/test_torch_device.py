@@ -820,6 +820,52 @@ def test_cli_third_slice_device_commands_take_device():
                 _cli_device_commands())
 
 
+def _cli_device_commands_before_slice_4():
+    """The device commands of the first three slices (`decode-fmllr` ends
+    them in `cli.DEVICE_COMMANDS`) and nnet-am-compute."""
+    from kaldi_tpu_torch import cli
+    end = cli.DEVICE_COMMANDS.index("decode-fmllr") + 1
+    return list(cli.DEVICE_COMMANDS[:end]) + ["nnet-am-compute"]
+
+
+def test_cli_fourth_slice_device_commands_take_device():
+    """The fourth CLI slice's commands that run a network (forwards,
+    trainers, fits, diagnostics over egs, lattice decodes, the aligner)
+    are among those checked below, and each is a card-vs-CPU case of
+    chip_smoke's phase 35; the host ones (copies, info, averages, surgery
+    that rewrites parameters, egs files, inits) take none."""
+    from test_torch_cli_surface import _parsers
+    device = set(_cli_device_commands())
+    assert {"nnet3-compute", "nnet-forward", "nnet-train-frmshuff",
+            "rbm-train-cd1-frmshuff", "nnet3-train", "nnet3-compute-prob",
+            "nnet3-combine", "nnet3-am-adjust-priors", "nnet3-latgen-faster",
+            "nnet-train-simple", "nnet-combine-fast", "nnet-adjust-priors",
+            "nnet-latgen-faster", "nnet-am-shrink", "nnet-shrink",
+            "nnet-am-fix", "nnet-am-rescale", "nnet-am-stats",
+            "nnet-show-progress", "nnet-limit-degradation", "nnet-compute",
+            "nnet-logprob", "nnet-logprob2", "nnet-compute-prob",
+            "nnet-compute-from-egs", "nnet-gradient",
+            "nnet-train-simple-perturbed", "nnet-train-ensemble",
+            "nnet-train-discriminative-simple", "nnet-align-compiled",
+            "nnet-train-lstm-streams", "nnet-train-blstm-streams",
+            "nnet-train-mmi-sequential", "nnet-train-mpe-sequential",
+            "nnet3-compute-from-egs", "nnet3-show-progress"} <= device
+    import chip_smoke as cs
+    cased = {argv(lambda *n: "", "")[0]
+             for _n, argv, _k, _a in cs.NNET_CLI_CASES}
+    assert cased == device - set(_cli_device_commands_before_slice_4())
+    parsers = _parsers("kaldi_tpu_torch.cli")
+    for name in ("nnet3-info", "nnet3-copy", "nnet3-average", "nnet3-init",
+                 "nnet-am-init", "nnet-am-info", "nnet-am-copy",
+                 "nnet-am-average", "nnet-get-egs", "nnet-shuffle-egs",
+                 "nnet-initialize", "nnet-concat", "cmvn-to-nnet",
+                 "nnet-am-mixup", "nnet-am-widen", "raw-nnet-concat",
+                 "nnet3-acc-lda-stats", "compute-mce-scale",
+                 "build-pfile-from-ali"):
+        assert name not in device
+        assert all(a.dest != "device" for a in parsers[name]._actions)
+
+
 @pytest.mark.parametrize("name", _cli_device_commands())
 def test_cli_device_command_defaults_to_cuda_and_raises_without_a_card(
         name, tmp_path):

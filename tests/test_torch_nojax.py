@@ -12,7 +12,9 @@ with i-vectors), the dense decoder on the yesno HCLG, the port's
 CLI's first slice over files) and one subcommand of each other group of
 that slice and of the second (FSTs, GMMs, cli_fst, cli_gmm_extra), the
 third slice's lattice decode with a lattice and a posterior subcommand
-and `kws-search` on its lattices, and a small triphone run
+and `kws-search` on its lattices, the fourth slice's egs, nnet2 init and
+SGD, an nnet diagnostic, nnet3 LDA statistics and an MCE scale, and a
+small triphone run
 (train_deltas from a monophone, its HCLG through the flat pipeline on the
 port's native graph ops, a decode) and two bMMI and two fMMI iterations
 from that triphone model run on the CPU; then two NG-SGD steps of a tiny
@@ -278,6 +280,26 @@ with tempfile.TemporaryDirectory() as w, \
     with open(f"{w}/kw.txt", "w") as f:
         f.write("KW1 1\nKW2 2 1\n")
     assert cli.main(["kws-search", f"{w}/lat.ark", f"{w}/kw.txt"]) == 0
+    # the fourth slice: nnet2 egs, init and SGD (cli), cli_nnet, nnet3,
+    # nnet1 (cli_tail) and cli_misc
+    tf = f"ark:{w}/train/feats.ark"
+    for argv in (
+            ["gmm-align", f"{w}/mono.npz", f"{w}/train/text", tf,
+             f"ark:{w}/nali.ark", "--device", "cpu"],
+            ["nnet-get-egs", f"{w}/mono.npz", tf, f"ark:{w}/nali.ark",
+             f"{w}/egs", "--left-context", "1", "--right-context", "1"],
+            ["nnet-am-init", f"{w}/mono.npz", tf, f"{w}/nn.npz",
+             "--splice-indexes=-1,0,1", "--hidden-dim", "16",
+             "--pnorm-output-dim", "4"],
+            ["nnet-train-simple", f"{w}/nn.npz", f"{w}/egs", f"{w}/nn1.npz",
+             "--num-epochs", "1", "--device", "cpu"],
+            ["nnet-am-info", f"{w}/nn1.npz"],
+            ["nnet-compute-prob", f"{w}/nn1.npz", f"{w}/egs", "--device",
+             "cpu"],                                          # cli_nnet
+            ["nnet3-acc-lda-stats", f"{w}/egs", f"{w}/lda.npz"],  # cli_tail
+            ["compute-mce-scale", f"ark:{w}/s.ark", f"ark:{w}/s.ark",
+             f"ark:{w}/mce.ark"]):                            # cli_misc
+        assert cli.main(argv) == 0, argv
 from kaldi_tpu_torch.decoder.graph_pack import pack_graphs
 from kaldi_tpu_torch.fst.graph import TrainingGraphCompiler
 from kaldi_tpu_torch.fst.mkgraph_flat import make_hclg_flat, pack_graph_flat
