@@ -302,7 +302,7 @@ Phases (any failure raises and the script exits non-zero):
      with early fMLLR, the same words and re-estimations, its statistics
      within the bound the two devices' posteriors set; the codecs;
  32. network serving at phase 16's configuration: (a) its AM and HCLG
-     through the port's files into chiprun_out/serving/, loaded on the
+     through the port's files into build/serving/, loaded on the
      card bit-equal; (b) `AudioServer` with `fused_session_factory` (one
      CsrBeamDecoder and FusedOnlineDecoder per connection) answering 6
      concurrent clients (`stream_wave`, 2560 samples per send): every
@@ -341,7 +341,7 @@ Phases (any failure raises and the script exits non-zero):
      information); (c) the self-built triphone graph at the full tree
      width (the port's copy of scripts/mkgraph_scale.py's `build`, 2,000
      words), verified and decoded card == CPU on seeded loglikes;
- 35. the CLI's first three slices, small: every case of `CLI_CASES`
+ 35. the CLI's first five slices, small: every case of `CLI_CASES`
      (the first slice's feature, CMVN, table, matrix, vector, wave,
      data-dir and probe subcommands on seeded files; the second's device
      subcommands on a small yesno GMM system: alignments identical, model
@@ -350,7 +350,9 @@ Phases (any failure raises and the script exits non-zero):
      train-deltas by its counts; the third's on the same system:
      latgen-faster-mapped's lattices with the same arcs and costs within
      1e-4, gmm-latgen-faster, the biglm pair and decode-fmllr the same
-     words, gmm-rescore-lattice's costs within the loglikes' bound)
+     words, gmm-rescore-lattice's costs within the loglikes' bound; the
+     fourth's nnet cases; the fifth's (5a) speaker, logistic-regression,
+     LDA+MLLT and online-GMM device cases, `SRE_CLI_CASES`)
      in-process with the default device
      (the card) and with --device cpu, host files byte-equal and device
      results within their parity tests' bounds; recipe-yesno-files on
@@ -410,20 +412,29 @@ Phases (any failure raises and the script exits non-zero):
      gmm-rescore-lattice too (near-ties within their bounds counted);
      the sharded index's hits == the unsharded one's; posteriors sum to 1
      per frame, silence-weighted ones in [0, 1]; neither kernel launches.
+ 39. Kaldi's nnet2, nnet3 and DBN recipes through the CLI's files on
+     phase 37's (`phase_nnet_cli`).
+ 40. egs/sre10 v1's run.sh through the CLI's files on phase 26's corpus
+     (`phase_sre_cli`): features, VAD, the full UBM, the 600-dim
+     extractor, i-vectors, PLDA and cosine scoring, the EER, logistic
+     regression; PLDA EER <= 15% and below the cosine one, seconds by
+     command and stage, file sizes, peak memory; neither kernel launches.
 
-Phases 20, 22 (b) and 28 (b) save the inputs of the recipe witnesses
-(chiprun_out/sat_witness.pkl, smbr_witness.pkl, lvtln_witness.pkl; with
+Phases 20, 22 (b), 24 (c) and 28 (b) save the inputs of the recipe
+witnesses (chiprun_out/sat_witness.pkl and csr_witness.pkl, then
+smbr_witness.pkl, dbn_witness.pkl and lvtln_witness.pkl; with
 raw_fmllr_witness.pkl and sgmm_witness.pkl from 28), which
 tests/test_torch_<name>_witness.py replays through JAX on a CPU.
 
-Two processes share the card. The phases that take nothing from phase
+Two processes share the card. Most phases that take nothing from phase
 20's ladder run in a second one (the script with --side-phases): the
 bench graph's chain (7, 8, 10, 13, 14, 34, 36, 18, 30 a and c), 37, 38,
-then the small card-vs-CPU phases (5, 6, 9, 11, 12, 15, 17, 19, 21, 23, 25, 27,
-29, 31, 33); this one runs 1-4, then 16, 20, 22, 24, 26, 28, 30 b, 32 and
-35 beside it, and prints the second's log after phase 35's. Each phase's
-start goes to stderr with the seconds since its process began; a run
-still going at 1000 s dumps every thread's stack there.
+39, 40, then the small card-vs-CPU phases (5, 6, 9, 11, 12, 15, 17, 21, 23,
+25, 27, 29, 31, 33); this one runs 1-4, then 16, 20, 22, 24, 26, 28, 30 b,
+32, 35 and 19 beside it, and prints the second's log after phase 19's, with
+both processes' ends on its clock. Each phase's start goes to stderr with
+the seconds since its process began; a run still going at 1000 s dumps
+every thread's stack there.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error against its plain version, times and bound; the last line
@@ -478,6 +489,7 @@ def log(*a):
 
 
 T_START = time.perf_counter()
+T_START_WALL = time.time()      # the two processes' ends on one clock
 # past this many seconds every thread's stack goes to stderr, so that a run
 # stopped at the 1200 s limit shows where it was
 STACKS_AFTER_S = 1000
@@ -492,9 +504,9 @@ SOCKET_TIMEOUT_S = 120
 # second process beside those that do: its stdout in SIDE_LOG (copied to
 # this one's at the end), its launch counts in SIDE_RESULTS, its CPU ops
 # on SIDE_THREADS threads so that the other's host loops keep their cores.
-# Phases 35 and 19 (19 since phase 39 joined the second process), small
-# too, run in this process after phase 32, which keeps the two processes'
-# times within 30 s of each other
+# Phase 35, small too, runs in this process after phase 32, and phase 19
+# in the second one after phase 39 (since phase 40 joined this one), which
+# keeps the two processes' times within 30 s of each other
 SMALL_PHASES = (
     (5, "decoder on the card vs on the CPU", "phase_decoder_parity"),
     (6, "int8 decode on the card vs on the CPU", "phase_int8_parity"),
@@ -3536,9 +3548,11 @@ def phase_ladder_full(card: str, profile: bool = False) -> dict:
     out, graph_s, shapes = {}, {}, set()
 
     def wer_of(name, model, test_utts, transform=None):
+        from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder
         t = time.perf_counter()
-        dec, gs = ladder_decoder(model, arpa, dopts, "cuda")
-        graph_s[name] = gs
+        packed = ladder_packed(model, arpa)
+        dec = CsrBeamDecoder(packed, dopts, device="cuda")
+        graph_s[name] = time.perf_counter() - t
         fl = [transform(f) if transform else f for _u, f, _w in test_utts]
         fb, nf = pad_batch(fl)
         ll = model.am.loglikes(fb)
@@ -3546,6 +3560,9 @@ def phase_ladder_full(card: str, profile: bool = False) -> dict:
         res = dec.decode(ll, nf)
         w = wer(refs, [[lang.words.sym(x) for x in r[0]] if r else []
                        for r in res])
+        if name == "tri":                 # the CSR witness's batch
+            save_witness(CSR_WITNESS, csr_witness_data(
+                packed, ll, nf, dopts, res, dec.last_overflow))
         return w, dec.graph.num_states, time.perf_counter() - t
 
     def stage(name, train_fn, model_of, test_utts, transform_of=None):
@@ -3666,7 +3683,7 @@ def phase_ladder_full(card: str, profile: bool = False) -> dict:
                     tri_hclg=tri_hclg, lda=lda, nnet=nnet, train=train[True],
                     test=test[True],
                     train_l=train_l, test_l=test_l, train_raw=train[False],
-                    test_raw=test[False], corpus=corpus))
+                    test_raw=test[False], corpus=corpus, mono=mono_m))
 
 
 def profile_ladder(model, utts):
@@ -4751,9 +4768,10 @@ LADDER_TDNN3 = dict(splice_indexes=((-2, -1, 0, 1, 2), (-1, 2), (0,)),
 # where phase 20's relu TDNN went 5.08 -> 3.33)
 LADDER_NNET3 = dict(LADDER_NNET, momentum=0.9)
 # (b) train_lstm3's own architecture; the optimizer of
-# tests/test_nnet3_recurrent.py's LSTM hybrid, 3 epochs of the ladder (10
-# took 21.0 s on an NVIDIA H100 80GB HBM3 at 700 W; cut for the time limit)
-LADDER_LSTM3_OPTS = dict(initial_lr=0.15, final_lr=0.02, num_epochs=3,
+# tests/test_nnet3_recurrent.py's LSTM hybrid, 2 epochs of the ladder (10
+# took 21.0 s on an NVIDIA H100 80GB HBM3 at 700 W, 3 11.6 s; cut for the
+# time limit)
+LADDER_LSTM3_OPTS = dict(initial_lr=0.15, final_lr=0.02, num_epochs=2,
                          minibatch_size=64, momentum=0.9)
 # Kaldi's nnet3 LSTM recipe width (egs/wsj/s5/local/nnet3/run_lstm.sh:
 # cell 1024, recurrent projection 256, 3 layers, chunk width 20, 100
@@ -4789,6 +4807,58 @@ def _dbn_inputs(utts, dev, stats=None):
         allx = torch.cat(xs)
         stats = (allx.mean(0), allx.std(0, unbiased=False))
     return [(x - stats[0]) / stats[1] for x in xs], stats
+
+
+def cd1_witness_step(rbm, v, gen) -> dict:
+    """`rbm.cd1_step(v, gen)` split at its hidden sample (as cd1_step
+    splits it), recorded for the DBN witness: the RbmConfig, v, the
+    sample (uint8 when bernoulli), W and the biases before, the MSE, and
+    after it vis_bias and the first DBN_WITNESS_ROWS rows of W and
+    hid_bias."""
+    import dataclasses
+
+    def host(t):
+        return t.detach().cpu().numpy().copy()
+    h_pos = rbm.propagate(v)
+    h = rbm.sample_hidden(h_pos, gen)
+    out = dict(cfg=dataclasses.asdict(rbm.cfg), v=host(v),
+               h_sample=host(h).astype(np.uint8) if rbm.cfg.hidden_type
+               == "bernoulli" else host(h),
+               W=host(rbm.W), vis_bias=host(rbm.vis_bias),
+               hid_bias=host(rbm.hid_bias))
+    out["mse"] = rbm.cd1_update(v, h, h_pos)
+    n = DBN_WITNESS_ROWS
+    out.update(W_after=host(rbm.W[:n]), hid_bias_after=host(rbm.hid_bias[:n]),
+               vis_bias_after=host(rbm.vis_bias))
+    return out
+
+
+def top_witness_step(rbms, w, b, x_all, y_all) -> dict:
+    """The DBN's first fine-tuning minibatch (`train_frmshuff`'s first
+    draw) at its top AffineTransform: the activations entering it, the
+    targets, its w and b before and b after one SGD step of the top layer
+    with softmax at DBN's fine-tuning rate (the step the whole network's
+    takes for that layer: its gradient depends on nothing below it), and
+    the first DBN_WITNESS_ROWS // 4 rows of w after."""
+    import torch
+    from kaldi_tpu_torch.nnet1.nnet import Component, Nnet1, train_frmshuff
+    from kaldi_tpu_torch.nnet1.train import FrameShuffler
+    x, t = next(iter(FrameShuffler(x_all, y_all, DBN["ft_mb"], seed=0)))
+    with torch.no_grad():
+        for rbm in rbms:
+            x = rbm.propagate(x)
+    P, H = w.shape
+    net = Nnet1([Component("AffineTransform", H, P),
+                 Component("Softmax", P, P)], device=w.device)
+    after, _h = train_frmshuff(net, {"0.w": w.clone(), "0.b": b.clone()}, x,
+                               t, learn_rate=DBN["ft_lr"], minibatch=len(x))
+
+    def host(a):
+        return a.detach().cpu().numpy().copy()
+    n = DBN_WITNESS_ROWS // 4
+    return dict(x=host(x), targets=host(t), w=host(w), b=host(b),
+                w_after=host(after["0.w"][:n]), b_after=host(after["0.b"]),
+                learn_rate=DBN["ft_lr"])
 
 
 def phase_nnet_full(card: str, ladder: dict, profile: bool = False) -> dict:
@@ -4952,8 +5022,13 @@ def phase_nnet_full(card: str, ladder: dict, profile: bool = False) -> dict:
                          learning_rate=DBN["gb_lr"]))
         rbm = Rbm(cfg, seed=li, device="cuda")
         gen = torch.Generator(device="cuda").manual_seed(100 + li)
-        mse = [rbm.cd1_step(v, gen) for v, _t in FrameShuffler(
-            data, y_all, DBN["rbm_mb"], seed=li)]
+        mse = []
+        for v, _t in FrameShuffler(data, y_all, DBN["rbm_mb"], seed=li):
+            if li == 0 and not mse:       # the witness's CD-1 step
+                rbm_w = cd1_witness_step(rbm, v, gen)
+                mse.append(rbm_w["mse"])
+            else:
+                mse.append(rbm.cd1_step(v, gen))
         k = max(len(mse) // 10, 1)
         rbm_log.append((float(np.mean(mse[:k])), float(np.mean(mse[-k:])),
                         len(mse)))
@@ -4977,6 +5052,8 @@ def phase_nnet_full(card: str, ladder: dict, profile: bool = False) -> dict:
         .to("cuda")
     params[f"{top}.b"] = torch.zeros(P, device="cuda")
     dbn = Nnet1(comps, device="cuda")
+    save_witness(DBN_WITNESS, dict(rbm=rbm_w, finetune=top_witness_step(
+        rbms, params[f"{top}.w"], params[f"{top}.b"], x_all, y_all)))
 
     def frame_acc(p) -> float:
         with torch.no_grad():
@@ -5048,6 +5125,9 @@ SRE_SMALL = {"v1": dict(num_gauss=8, ivector_dim=8, use_vad=False),
 # v1's PLDA EER was 41.68% against 200's 13.48%)
 SRE = dict(seed=23, speakers=200, train_per_spk=6, words=(8, 17))
 SRE_WIDTH = dict(num_gauss=2048, ivector_dim=600)
+# phase 26's depth, and phase 40's: SrePipelineOpts' 3 UBM iterations
+# per size, 4 extractor EM iterations and 8 PLDA iterations
+SRE_DEPTH = dict(ubm_iters=3, ivector_iters=4, plda_iters=8)
 # (i): the stages recomputed on the CPU for SRE_CHECK_UTTS utterances (8
 # took 28.2 s of phase 26 beside an NVIDIA H100 80GB HBM3 at 700 W)
 SRE_CHECK_UTTS = 4
@@ -5737,7 +5817,8 @@ def _sre_system_at_width(name: str, train, enroll, test, trials, card,
     from kaldi_tpu_torch.steps import sre
     torch.cuda.reset_peak_memory_stats()
     st: dict = {}
-    opts = sre.SrePipelineOpts(**SRE_WIDTH, use_vad=name == "v1")
+    opts = sre.SrePipelineOpts(**SRE_WIDTH, **SRE_DEPTH,
+                               use_vad=name == "v1")
     t = time.perf_counter()
     system = sre.train_sre_system(train, opts, device="cuda",
                                   stage_stats=st, **kw)
@@ -5924,6 +6005,240 @@ def phase_sre_full(card: str, ladder: dict) -> dict:
     return dict(v1_eer=out["v1"]["eer"], v2_eer=out["v2"]["eer"],
                 gather_launches=tg.launches, qaffine_launches=q.launches,
                 lr_loss=loss, lr_accuracy=acc)
+
+
+# phase 40: egs/sre10/v1's run.sh through the CLI's files on phase 26's
+# corpus. sre10's conf/mfcc.conf as the CLI takes it: 8 kHz, 25 ms
+# frames, 20 cepstra over 23 mel bins from 20 Hz (its --high-freq 3700
+# and --snip-edges false are not options of compute-mfcc-feats: the
+# bins reach 4000 Hz and edges are snipped, as in phase 26); then
+# phase 26's depth (SRE_DEPTH) with the extractor at gselect 10
+SRE_CLI_MFCC = ["--sample-frequency", "8000", "--frame-length", "25",
+                "--dither", "0", "--num-ceps", "20"]
+SRE_CLI_GSELECT = "10"
+# the steps each set's i-vectors take before scoring ("n" length
+# normalization, "c" subtracting the training set's mean):
+# local/plda_scoring.sh's, with the enrollment speakers' i-vectors as
+# sid/extract_ivectors.sh writes them (normalized, averaged over the
+# speaker's utterances, normalized again: one utterance each here)
+SRE_CLI_NORM = {"train": ("c", "n"), "enroll": ("n", "c", "n"),
+                "test": ("n", "c", "n")}
+SRE_CLI_EER_BAR = 0.15        # PARITY.md:46's SRE bar
+SRE_CLI_KIND = {
+    "compute-mfcc-feats": "features", "add-deltas": "features",
+    "compute-vad": "features", "select-voiced-frames": "features",
+    "train-ubm": "ubm", "train-ivector-extractor": "extractor",
+    "ivector-extract": "ivectors", "ivector-mean": "ivectors",
+    "ivector-subtract-global-mean": "ivectors",
+    "ivector-normalize-length": "ivectors",
+    "ivector-compute-plda": "plda", "ivector-plda-scoring": "scoring",
+    "ivector-compute-dot-products": "scoring", "compute-eer": "scoring",
+    "logistic-regression-train": "lid", "logistic-regression-eval": "lid"}
+
+
+def sre_cli_files(d: str, corpus: dict) -> dict:
+    """`sre_corpus`'s waves as 8 kHz 16-bit wav files under d with
+    Kaldi's data dirs: {set: wav.scp} for train (spk-uN), enroll (spk)
+    and test (spk_t), train's utt2spk and spk2utt, test's utt2spk and
+    the trials (every enrollment speaker against every test utterance,
+    '<spk> <test-utt>'). -> the paths."""
+    from kaldi_tpu_torch.io.wave import write_wave
+    P = lambda *n: os.path.join(d, *n)                       # noqa: E731
+    sets = {"train": [(f"{s}-u{i}", w) for s, ws in corpus["train"].items()
+                      for i, w in enumerate(ws)],
+            "enroll": list(corpus["enroll"].items()),
+            "test": list(corpus["test"].items())}
+    for name, utts in sets.items():
+        os.makedirs(P(name, "wav"), exist_ok=True)
+        with open(P(name, "wav.scp"), "w") as f:
+            for u, w in utts:
+                write_wave(P(name, "wav", f"{u}.wav"), w, GMM_SR)
+                f.write(f"{u} {P(name, 'wav', u + '.wav')}\n")
+    spks = list(corpus["train"])
+    with open(P("train", "utt2spk"), "w") as f:
+        f.writelines(f"{u} {u.split('-')[0]}\n" for u, _w in sets["train"])
+    with open(P("train", "spk2utt"), "w") as f:
+        for s in spks:
+            f.write(s + " " + " ".join(f"{s}-u{i}" for i in range(
+                len(corpus["train"][s]))) + "\n")
+    with open(P("test", "utt2spk"), "w") as f:
+        f.writelines(f"{u} {u[:-2]}\n" for u, _w in sets["test"])
+    with open(P("trials"), "w") as f:
+        f.writelines(f"{e} {t}\n" for e in corpus["enroll"]
+                     for t in corpus["test"])
+    return {k: len(v) for k, v in sets.items()}
+
+
+def phase_sre_cli(card: str) -> dict:
+    """Phase 40: egs/sre10/v1's run.sh through the port's CLI files on
+    phase 26's corpus (`sre_corpus(**SRE)`, synthesized again: 200
+    speakers, 1200 training, 200 enrollment and 200 test utterances,
+    40,000 trials), on the card:
+    compute-mfcc-feats (SRE_CLI_MFCC) -> add-deltas (60 dims) ->
+    compute-vad (on the cepstra) -> select-voiced-frames for each set;
+    train-ubm --full (sid/train_diag_ubm.sh + train_full_ubm.sh fused, as
+    JAX's CLI has them: 2048 gaussians); train-ivector-extractor
+    (sid/train_ivector_extractor.sh fused: 600 dims); ivector-extract of
+    the three sets, all at phase 26's depth (SRE_DEPTH); then
+    local/plda_scoring.sh's scoring (ivector-mean of train; each set
+    through ivector-normalize-length and ivector-subtract-global-mean as
+    SRE_CLI_NORM says) -> ivector-compute-plda on train's spk2utt ->
+    ivector-plda-scoring -> compute-eer, and cosine scoring by
+    ivector-compute-dot-products -> compute-eer; logistic-regression-train
+    over the training i-vectors as PLDA takes them (speakers as classes)
+    -> -eval on the test ones. Cuts from egs/sre10 v1: speakers and hours
+    (thousands of speakers there), sid/*.sh's sliding CMN before the VAD's
+    selection (phase 26 has none), the MFCC's --high-freq and --snip-edges
+    (not options of the CLI), and v2's DNN path (JAX's CLI has no fused
+    command for it). Asserts the PLDA EER at or under SRE_CLI_EER_BAR and
+    below the cosine EER, every score finite and no kernel launch. The
+    extractor's file (f64, about 650 MB) and the arks live in a temporary
+    directory under build/, removed at the end."""
+    import shutil
+    import torch
+    from kaldi_tpu_torch.nnet import quantized as q
+    from kaldi_tpu_torch.ops import table_gather as tg
+
+    t0 = time.perf_counter()
+    q.launches = tg.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    d = build_scratch()
+    P = lambda *n: os.path.join(d, *n)                       # noqa: E731
+    kinds = dict.fromkeys(sorted(set(SRE_CLI_KIND.values())), 0.0)
+    calls = dict.fromkeys(kinds, 0)
+    stages, sizes, secs, eers = {}, {}, {}, {}
+    scores: list = []
+
+    def run(*argv):
+        r = _cli_ok(argv[0], cli_call(list(argv)))
+        kinds[SRE_CLI_KIND[argv[0]]] += r[2]
+        calls[SRE_CLI_KIND[argv[0]]] += 1
+        secs[argv[0]] = secs.get(argv[0], 0.0) + r[2]
+        return r
+
+    def eer(text: str, name: str) -> float:
+        rows = [ln.split() for ln in text.splitlines()]
+        scores.extend(float(sc) for _e, _t, sc in rows)
+        with open(P(f"{name}.eer_in"), "w") as f:
+            f.writelines(f"{sc} {'target' if e + '_t' == t else 'nontarget'}"
+                         "\n" for e, t, sc in rows)
+        line = run("compute-eer", P(f"{name}.eer_in"))[0]
+        return float(line.split()[1].rstrip("%")) / 100.0
+
+    def normalized(name: str) -> str:
+        """The set's i-vectors as the scoring takes them -> their ark."""
+        src = P(name, "iv.ark")
+        for k, step in enumerate(SRE_CLI_NORM[name]):
+            dst = P(name, f"iv.{k}.ark")
+            if step == "c":
+                run("ivector-subtract-global-mean", f"ark:{src}",
+                    f"ark:{dst}", "--mean", P("mean.ark"))
+            else:
+                run("ivector-normalize-length", f"ark:{src}", f"ark:{dst}")
+            src = dst
+        return src
+
+    try:
+        t = time.perf_counter()
+        corpus = sre_corpus(**SRE)
+        stages["corpus"] = time.perf_counter() - t
+        t = time.perf_counter()
+        n_sets = sre_cli_files(d, corpus)
+        stages["wav files"] = time.perf_counter() - t
+        t = time.perf_counter()
+        for name in n_sets:
+            run("compute-mfcc-feats", P(name, "wav.scp"),
+                f"ark:{P(name, 'mfcc.ark')}", *SRE_CLI_MFCC)
+            run("add-deltas", f"ark:{P(name, 'mfcc.ark')}",
+                f"ark:{P(name, 'feats.ark')}")
+            run("compute-vad", f"ark:{P(name, 'mfcc.ark')}",
+                f"ark:{P(name, 'vad.ark')}")
+            run("select-voiced-frames", f"ark:{P(name, 'feats.ark')}",
+                f"ark:{P(name, 'vad.ark')}", f"ark:{P(name, 'voiced.ark')}")
+        stages["features"] = time.perf_counter() - t
+        t = time.perf_counter()
+        run("train-ubm", f"ark:{P('train', 'voiced.ark')}", P("ubm.npz"),
+            "--num-gauss", str(SRE_WIDTH["num_gauss"]), "--num-iters",
+            str(SRE_DEPTH["ubm_iters"]), "--full", "--full-iters",
+            str(SRE_DEPTH["ubm_iters"]))
+        stages["ubm"] = time.perf_counter() - t
+        t = time.perf_counter()
+        run("train-ivector-extractor", P("ubm.npz"),
+            f"ark:{P('train', 'voiced.ark')}", P("extractor.npz"),
+            "--ivector-dim", str(SRE_WIDTH["ivector_dim"]), "--num-iters",
+            str(SRE_DEPTH["ivector_iters"]), "--num-gselect",
+            SRE_CLI_GSELECT)
+        stages["extractor"] = time.perf_counter() - t
+        t = time.perf_counter()
+        for name in n_sets:
+            run("ivector-extract", P("extractor.npz"),
+                f"ark:{P(name, 'voiced.ark')}", f"ark:{P(name, 'iv.ark')}",
+                "--num-gselect", SRE_CLI_GSELECT)
+        run("ivector-mean", f"ark:{P('train', 'iv.ark')}",
+            f"ark:{P('mean.ark')}")
+        stages["ivectors"] = time.perf_counter() - t
+        t = time.perf_counter()
+        arks = {name: normalized(name) for name in n_sets}
+        run("ivector-compute-plda", P("train", "spk2utt"),
+            f"ark:{arks['train']}", P("plda.npz"), "--num-iters",
+            str(SRE_DEPTH["plda_iters"]))
+        run("ivector-plda-scoring", P("plda.npz"), f"ark:{arks['enroll']}",
+            f"ark:{arks['test']}", P("trials"), "--scores-out",
+            P("plda.scores"))
+        with open(P("plda.scores")) as f:
+            eers["plda"] = eer(f.read(), "plda")
+        eers["cosine"] = eer(run(
+            "ivector-compute-dot-products", P("trials"),
+            f"ark:cat {arks['enroll']} {arks['test']} |")[0], "cosine")
+        stages["scoring"] = time.perf_counter() - t
+        t = time.perf_counter()
+        lr_loss = float(run(
+            "logistic-regression-train", f"ark:{arks['train']}",
+            P("train", "utt2spk"), P("lr.npz"))[3].split("final loss")[1])
+        lr_acc = float(run(
+            "logistic-regression-eval", P("lr.npz"), f"ark:{arks['test']}",
+            f"ark:{P('lid.ark')}", "--utt2label", P("test", "utt2spk")
+        )[3].split("accuracy")[1].split()[0])
+        stages["lid"] = time.perf_counter() - t
+        for n in ("ubm.npz", "extractor.npz", "plda.npz", "lr.npz"):
+            sizes[n] = os.path.getsize(P(n))
+        for name in n_sets:
+            sizes[f"{name}/voiced.ark"] = os.path.getsize(
+                P(name, "voiced.ark"))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    total = time.perf_counter() - t0
+    log(f"  sre10 v1 through {sum(calls.values())} CLI calls on {n_sets} "
+        f"utterances ({len(scores) // 2} trials) at {SRE_DEPTH} in "
+        f"{total:.3f} s; peak card memory {peak:.2f} GiB | card: {card}")
+    log("  seconds by stage: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stages.items()))
+    log("  seconds by command kind (calls): " + ", ".join(
+        f"{k} {v:.3f} ({calls[k]})" for k, v in kinds.items()))
+    log("  seconds by command: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in secs.items()))
+    log("  file sizes (bytes): " + ", ".join(
+        f"{k} {v}" for k, v in sizes.items()))
+    log(f"  EER: PLDA {eers['plda'] * 100:.2f}%, cosine "
+        f"{eers['cosine'] * 100:.2f}%; logistic regression final loss "
+        f"{lr_loss:.4f}, closed-set accuracy on the test i-vectors "
+        f"{lr_acc * 100:.2f}%")
+    checks = [(f"PLDA EER <= {SRE_CLI_EER_BAR:.2f}",
+               eers["plda"] <= SRE_CLI_EER_BAR),
+              ("PLDA EER < cosine EER", eers["plda"] < eers["cosine"]),
+              ("every score finite", bool(np.isfinite(scores).all())),
+              ("no kernel launch", not (tg.launches or q.launches))]
+    log("  " + ", ".join(f"{c} {'ok' if ok else 'FAILS'}"
+                         for c, ok in checks)
+        + f"; launches: gather {tg.launches}, qaffine {q.launches}; phase 40 "
+        f"took {total:.3f} s")
+    failed = [c for c, ok in checks if not ok]
+    if failed:
+        raise AssertionError(f"phase 40: {failed} fail (EERs {eers})")
+    return dict(eer=eers, launches={"gather": tg.launches,
+                                    "qaffine": q.launches},
+                seconds=total, stages=stages, lr_accuracy=lr_acc)
 
 
 # ------------------------------------------- adaptation and SGMM2 (27-28)
@@ -7315,6 +7630,10 @@ LADDER_TRIGRAM = dict(n_bigrams=3000, n_trigrams=6000, seed=7)
 # lattices held 414,273 arcs against the LDA+MLLT's 34,838, and the two
 # passes over them took 126 s of phase 30
 SWEEP_RUNG = "lda_mllt"
+# the sweep's grid, cut for the script's time from score_lattices'
+# defaults (lmwt 5-17 by 2, wip 0, 0.5, 1) to phase 38's score.sh points
+SWEEP_LMWT = (7, 10, 13)
+SWEEP_WIP = (0.0, 0.5)
 KWS_PHRASES = 40
 RIR = dict(taps=4800, rt60=0.3, snr_db=15.0, seed=29)
 
@@ -8058,7 +8377,8 @@ def phase_rescore_ladder(card: str, ld: dict) -> dict:
             t = time.perf_counter()
             best, (lmwt, wip), _grid = score_lattices(
                 {b: lat for b, lat in enumerate(lats_r)},
-                {b: ref for b, ref in enumerate(refs_w)}, words=lang.words)
+                {b: ref for b, ref in enumerate(refs_w)}, words=lang.words,
+                lm_scales=SWEEP_LMWT, word_ins_penalties=SWEEP_WIP)
             t_score = time.perf_counter() - t
             t = time.perf_counter()
             w_mbr = wer(refs_w, [hyp_words(mbr_decode(lat)[0])
@@ -8066,7 +8386,8 @@ def phase_rescore_ladder(card: str, ld: dict) -> dict:
             t_mbr = time.perf_counter() - t
             out_b[name].update(mbr=w_mbr, sweep=(lmwt, wip, best.wer))
             log(f"  (b) {name}: MBR {w_mbr:.2f} ({t_mbr:.3f} s); "
-                f"score_lattices sweep (lmwt 5-17, wip 0-1) best lmwt "
+                f"score_lattices sweep (lmwt {SWEEP_LMWT}, wip "
+                f"{SWEEP_WIP}) best lmwt "
                 f"{lmwt}, wip {wip}: WER {best.wer:.2f} ({t_score:.3f} s) | "
                 f"card: {card}")
         if not w_orc <= w_best:
@@ -8157,7 +8478,9 @@ SERVE_CHUNKINGS = {"even-4000": [4000], "odd-777": [777],
 # adaptation and 16 took 20.4 s with it, cut for the script's time limit
 SERVE_GMM_UTTS = 8
 SERVE_ADAPT_UTTS = 8
-SERVE_DIR = os.path.join(ROOT, "chiprun_out", "serving")
+# phases 31 and 32's files, under build/ (gitignored): chiprun_out/ holds
+# the witnesses and the logs
+SERVE_DIR = os.path.join(ROOT, "build", "serving")
 
 
 def yesno_gmm_system(seed: int = 3) -> dict:
@@ -9041,6 +9364,11 @@ SELF_BUILT_FRAMES = 100
 BIG_BITS = int(np.array(1e10, np.float32).view(np.int32))
 LVTLN_WITNESS = os.path.join(ROOT, "chiprun_out", "lvtln_witness.pkl")
 SAT_WITNESS = os.path.join(ROOT, "chiprun_out", "sat_witness.pkl")
+CSR_WITNESS = os.path.join(ROOT, "chiprun_out", "csr_witness.pkl")
+DBN_WITNESS = os.path.join(ROOT, "chiprun_out", "dbn_witness.pkl")
+# the hidden units whose updated W rows the DBN witness keeps: the CD-1
+# update needs all of W before, its check a sample of W after
+DBN_WITNESS_ROWS = 256
 SMBR_WITNESS = os.path.join(ROOT, "chiprun_out", "smbr_witness.pkl")
 
 
@@ -9437,6 +9765,14 @@ PRINTED_ATOL = 1.5e-4        # 4 printed decimals plus the forward's bound
 CLI_SHRINK_REL = 1e-4        # tests/test_torch_surgery.py's shrink bound
 LAT_TEXT_REL = 1e-5          # two writes of a lattice cost at 6 digits
 CLI_SR = "8000"
+# the fifth slice's (5a) device commands (tests/test_torch_cli_sre.py):
+# extractor statistics from gselect posteriors within 1e-6 (of each
+# array's largest value); a UBM's EM through splits; a whole extractor
+# run and its i-vectors; logistic regression's weights step for step
+CLI_POST_REL = 1e-5
+CLI_UBM_REL = 1e-3
+CLI_EM_REL = 1e-5
+CLI_LR_REL = 1e-5
 # the yesno decodes of the third slice's device cases: a tiny graph's search
 CLI_LATGEN = ["--beam", "14", "--max-active", "64", "--lattice-beam", "7"]
 YESNO_BIGRAM = ("\\data\\\nngram 1=4\nngram 2=4\n\n\\1-grams:\n-0.5\t</s>\n"
@@ -9529,7 +9865,89 @@ def cli_inputs(d: str):
             f.write(text)
     cli_gmm_inputs(lambda *n: P("gmm", *n), rng)
     cli_nnet_inputs(lambda *n: P("nnet", *n), lambda *n: P("gmm", *n))
+    cli_sre_inputs(lambda *n: P("sre", *n))
     return P
+
+
+def sre_cli_corpus(P) -> tuple[dict, dict]:
+    """4 synthetic speakers x 4 utterances of 60 frames x 5 dims (two
+    content clusters at +-3 plus a constant per-speaker offset,
+    RandomState(11)) written under P(name): f.ark, f1.ark (the first 8),
+    utt2spk, spk2utt, trials (speaker x utterance), pairs (utterance x
+    utterance) and ivm.ark (12 x 6 matrices). -> (feats, utt2spk)."""
+    from kaldi_tpu_torch.io.kaldi_io import write_ark
+    rng = np.random.RandomState(11)
+    offs = [np.full(5, v) for v in (0.8, -0.8, 0.4, -0.4)]
+    feats, utt2spk = {}, {}
+    for i in range(16):
+        s = i % 4
+        content = np.where(rng.rand(60, 1) < 0.5, 3.0, -3.0)
+        u = f"s{s}-u{i // 4}"
+        feats[u] = (rng.randn(60, 5) + content + offs[s]).astype(np.float32)
+        utt2spk[u] = f"s{s}"
+    feats = dict(sorted(feats.items()))
+    keys = list(feats)
+    write_ark(P("f.ark"), feats)
+    write_ark(P("f1.ark"), {k: feats[k] for k in keys[:8]})
+    with open(P("utt2spk"), "w") as f:
+        f.writelines(f"{u} {s}\n" for u, s in sorted(utt2spk.items()))
+    with open(P("spk2utt"), "w") as f:
+        for s in sorted(set(utt2spk.values())):
+            f.write(s + " " + " ".join(u for u in keys if utt2spk[u] == s)
+                    + "\n")
+    with open(P("trials"), "w") as f:
+        f.writelines(f"s{s} {u}\n" for s in range(4) for u in keys)
+    with open(P("pairs"), "w") as f:
+        f.writelines(f"{a} {b}\n" for a in keys[:4] for b in keys)
+    write_ark(P("ivm.ark"), {u: rng.randn(12, 6).astype(np.float32)
+                             for u in keys[:3]})
+    return feats, utt2spk
+
+
+def cli_sre_inputs(S) -> None:
+    """The fifth slice's speaker inputs under S(name), through the port's
+    CLI on the CPU: `sre_cli_corpus`, a full UBM of 4 gaussians, an
+    extractor of dimension 6 and its statistics, and i-vectors."""
+    os.makedirs(S(), exist_ok=True)
+    sre_cli_corpus(S)
+    F, cpu = f"ark:{S('f.ark')}", ["--device", "cpu"]
+    for argv in (
+            ["train-ubm", F, S("fubm.npz"), "--num-gauss", "4",
+             "--num-iters", "3", "--full", *cpu],
+            ["ivector-extractor-init", S("fubm.npz"), S("ext0.npz"),
+             "--ivector-dim", "6"],
+            ["ivector-extractor-acc-stats", S("ext0.npz"), F, S("acc.npz"),
+             *cpu],
+            ["ivector-extractor-est", S("ext0.npz"), S("acc.npz"),
+             S("ext1.npz"), *cpu],
+            ["ivector-extract", S("ext1.npz"), F, f"ark:{S('iv.ark')}",
+             *cpu]):
+        _cli_ok(argv[0], cli_call(argv))
+
+
+def online_feature_bounds(wav_scp: str, sr: float,
+                          num_ceps: int = 13) -> dict:
+    """{utt: [T, 3 num_ceps] bound} for online2-wav-dump-features'
+    MFCC + deltas of two computations that differ in their FFT: each MFCC
+    element's `fft_feature_bound`, and for the delta and delta-delta
+    columns the window maximum of that bound (2 and 4 frames on either
+    side) times the filters' sum of |coefficients| (0.6 and 0.36)."""
+    from kaldi_tpu_torch import ops
+    from kaldi_tpu_torch.io.wave import read_wave
+    fo = ops.MfccOpts(frame_opts=ops.FrameOpts(samp_freq=sr, dither=0.0),
+                      num_ceps=num_ceps)
+    out = {}
+    with open(wav_scp) as f:
+        scp = [ln.split() for ln in f if ln.strip()]
+    for utt, path in scp:
+        b = fft_feature_bound(read_wave(path)[0][0], fo, "mfcc")
+        cols = []
+        for gain, w in ((1.0, 0), (0.6, 2), (0.36, 4)):
+            pad = np.pad(b, ((w, w), (0, 0)), mode="edge")
+            cols.append(gain * np.max([pad[i:i + len(b)]
+                                       for i in range(2 * w + 1)], axis=0))
+        out[utt] = np.concatenate(cols, axis=1)
+    return out
 
 
 def cli_gmm_inputs(G, rng) -> None:
@@ -10020,6 +10438,65 @@ NNET_CLI_CASES = [
 CLI_CASES += NNET_CLI_CASES
 
 
+def _sre(P, *n):
+    return P("sre", *n)
+
+
+# the fifth slice's (5a) device commands on the small speaker corpus
+# (cli_sre_inputs) and the GMM system (cli_gmm_inputs): the full UBM's
+# update ("eigh"); UBM EM ("ubm": CLI_UBM_REL); extractor statistics
+# ("post": CLI_POST_REL), its M-step from the same statistics ("eigh"), a
+# whole extractor run ("em": CLI_EM_REL) and the i-vectors ("ivec", the
+# same of each vector's largest value); logistic regression's weights
+# ("lr": CLI_LR_REL); LDA+MLLT training by outcome (pdf and gaussian
+# counts); the online features within the FFT's bound carried through
+# the deltas ("online"); the online GMM decoder's words ("words")
+SRE_CLI_CASES = [
+    ("fgmm-global-est", lambda P, O: [
+        "fgmm-global-est", P("gmm", "fubm.npz"), P("gmm", "facc.npz"),
+        f"{O}/u.npz", "--min-gaussian-occupancy", "3"], "eigh", None),
+    ("train-ubm", lambda P, O: [
+        "train-ubm", _ark(P, "sre/f.ark"), f"{O}/u.npz", "--num-gauss",
+        "4", "--num-iters", "3", "--full"], "ubm", None),
+    ("train-ivector-extractor", lambda P, O: [
+        "train-ivector-extractor", _sre(P, "fubm.npz"), _ark(P, "sre/f.ark"),
+        f"{O}/e.npz", "--ivector-dim", "6", "--num-iters", "3",
+        "--num-gselect", "4"], "em", None),
+    ("ivector-extract", lambda P, O: [
+        "ivector-extract", _sre(P, "ext1.npz"), _ark(P, "sre/f.ark"),
+        f"ark:{O}/iv.ark", "--spk2utt", _sre(P, "spk2utt")], "ivec",
+     "iv.ark"),
+    ("ivector-extractor-acc-stats", lambda P, O: [
+        "ivector-extractor-acc-stats", _sre(P, "ext0.npz"),
+        _ark(P, "sre/f.ark"), f"{O}/a.npz", "--num-gselect", "3"], "post",
+     None),
+    ("ivector-extractor-est", lambda P, O: [
+        "ivector-extractor-est", _sre(P, "ext0.npz"), _sre(P, "acc.npz"),
+        f"{O}/e.npz"], "eigh", None),
+    ("logistic-regression-train", lambda P, O: [
+        "logistic-regression-train", _ark(P, "sre/iv.ark"),
+        _sre(P, "utt2spk"), f"{O}/lr.npz", "--max-steps", "30"], "lr",
+     None),
+    ("train-lda-mllt", lambda P, O: [
+        "train-lda-mllt", P("gmm", "mono.npz"), P("gmm", "text"),
+        _ark(P, "gmm/mfcc.ark"), _ark(P, "gmm/feats.ark"), f"{O}/lm.npz",
+        f"{O}/final.ark", "--num-iters", "4", "--totgauss", "50",
+        "--num-leaves", "12", "--lda-dim", "12"], "outcome", "lm.npz"),
+    ("online2-wav-dump-features", lambda P, O: [
+        "online2-wav-dump-features", P("gmm", "wav.scp"), f"ark:{O}/f.ark",
+        "--sample-frequency", CLI_SR, "--chunk-secs", "0.13"], "online",
+     "f.ark"),
+    ("online2-wav-gmm-latgen-faster", lambda P, O: [
+        "online2-wav-gmm-latgen-faster", P("gmm", "mono.npz"),
+        P("gmm", "hclg.npz"), P("gmm", "wav.scp"), "--transcription-out",
+        f"{O}/hyp.txt", "--utt2spk", P("gmm", "utt2spk"),
+        "--sample-frequency", CLI_SR, "--beam", "12", "--max-active", "64",
+        "--adaptation-delay", "0.5", "--fmllr-min-count", "30"], "words",
+     "hyp.txt"),
+]
+CLI_CASES += SRE_CLI_CASES
+
+
 def _cli_files(d: str) -> list:
     return sorted(os.path.relpath(os.path.join(r, f), d)
                   for r, _ds, fs in os.walk(d) for f in fs)
@@ -10100,6 +10577,8 @@ def _cli_close(kind: str, g, w, fft=None) -> float:
     diff = np.abs(g64 - w64)
     if kind == "pitch":
         bound = CLI_PITCH_REL * np.maximum(np.abs(w64).max(axis=0), 1e-30)
+    elif kind == "ivec":
+        bound = np.full_like(w64, CLI_EM_REL * np.abs(w64).max(initial=0.0))
     elif kind == "wav":
         bound = np.ones_like(w64)          # one int16 step
     elif kind == "gmm":
@@ -10232,11 +10711,13 @@ def cli_compare(kind: str, dirs: dict, out: dict, name: str,
                 raise AssertionError(f"{name}: {x!r} vs {y!r}")
             worst = max([worst] + [abs(u - v) for u, v in zip(nx, ny)])
         return worst
-    if kind in ("npz", "accs", "eigh"):
+    if kind in ("npz", "accs", "eigh", "ubm", "post", "em", "lr"):
         if _cli_files(dc) != _cli_files(dp) or out["card"][0] != \
                 out["cpu"][0]:
             raise AssertionError(f"{name}: different files or output")
-        rel = {"npz": 0.0, "accs": CLI_ACC_REL, "eigh": CLI_EIGH_REL}[kind]
+        rel = {"npz": 0.0, "accs": CLI_ACC_REL, "eigh": CLI_EIGH_REL,
+               "ubm": CLI_UBM_REL, "post": CLI_POST_REL, "em": CLI_EM_REL,
+               "lr": CLI_LR_REL}[kind]
         return max(npz_rel(os.path.join(dc, f), os.path.join(dp, f), rel,
                            name, (fft or {}).get(f))
                    for f in _cli_files(dc))
@@ -10498,6 +10979,9 @@ def cli_card_vs_cpu(root: str, card: str = "cuda") -> dict:
             fft = cli_gmm_bounds(P)
         elif kind == "accs":
             fft = cli_acc_bounds(P, name, card)
+        elif kind == "online":
+            fft, kind = online_feature_bounds(P("gmm", "wav.scp"),
+                                              float(CLI_SR)), "feat"
         res[name] = (out["card"][2],
                      cli_compare(kind, dirs, out, name, ark, fft))
     return res
@@ -10671,7 +11155,7 @@ def build_scratch() -> str:
 
 
 def phase_cli_small() -> None:
-    """Phase 35: every device subcommand of the CLI's first three slices
+    """Phase 35: every device subcommand of the CLI's first five slices
     and the first slice's host ones on small inputs on the card and with
     --device cpu (host files byte-equal, device results within their
     parity bound), the file-driven yesno recipe on
@@ -10853,6 +11337,12 @@ def phase_cli_bench(tg, sl: dict, tr: dict, tl: dict, card: str) -> dict:
 # CLI over files, at the triphone ladder's width: LADDER's corpus,
 # LADDER_MONO's and LADDER_TRI's options, nj = 2 shards
 LADDER_CLI_SHARDS = 2
+# depth cut for the script's time: train_mono.sh's loop 10 of
+# LADDER_MONO's 14 iterations (realigning at each, its ramp to the
+# gaussian target unchanged per iteration), train_deltas.sh's
+# realignments 5 of LADDER_TRI's 8
+LADDER_CLI_MONO_ITERS = 10
+LADDER_CLI_TRI_REALIGN = (2, 4, 6, 8, 10)
 LADDER_CLI_BOOST = "1.25"          # steps/train_mono.sh's --boost-silence
 LADDER_CLI_EST = ["--min-gaussian-occupancy", "3", "--power", "0.25"]
 LADDER_CLI_DECODE = ["--beam", "14", "--max-active", "1024",
@@ -10925,11 +11415,12 @@ def phase_ladder_cli(card: str) -> dict:
     compute-mfcc-feats + add-deltas; steps/train_mono.sh as primitives
     (tests/test_gmmbin_cli.py:84: gmm-init-mono, align-equal, then per
     iteration gmm-boost-silence, gmm-align, gmm-acc-stats-ali per shard,
-    gmm-sum-accs, gmm-est with a mix-up ramp to LADDER_MONO's gaussians);
+    gmm-sum-accs, gmm-est with a mix-up ramp to LADDER_MONO's gaussians,
+    LADDER_CLI_MONO_ITERS iterations);
     steps/train_deltas.sh (tests/test_tree_cli.py:21: acc-tree-stats per
     shard, sum-tree-stats, cluster-phones, compile-questions, build-tree at
     LADDER_TRI's leaves, gmm-init-model, convert-ali, then EM with
-    LADDER_TRI's realignments and mix-up ramp); utils/mkgraph.sh as
+    LADDER_TRI's mix-up ramp, realigning at LADDER_CLI_TRI_REALIGN); utils/mkgraph.sh as
     primitives (tests/test_graph_primitives_cli.py:21) beside `mkgraph`;
     decode-faster on the test set and compute-wer. Asserts LADDER_BARS'
     mono and tri bars and tri < mono; the shards' sums equal one unsharded
@@ -11013,7 +11504,7 @@ def phase_ladder_cli(card: str) -> dict:
 
         # steps/train_mono.sh
         t = time.perf_counter()
-        mo = LADDER_MONO
+        mo = dict(LADDER_MONO, num_iters=LADDER_CLI_MONO_ITERS)
         run("gmm-init-mono", P("lexicon.txt"), F, P("mono0.npz"))
         m0 = model("mono0.npz")
         sil = str(m0.lang.phones["SIL"])
@@ -11056,7 +11547,7 @@ def phase_ladder_cli(card: str) -> dict:
 
         # steps/train_deltas.sh
         t = time.perf_counter()
-        to = LADDER_TRI
+        to = dict(LADDER_TRI, realign_iters=LADDER_CLI_TRI_REALIGN)
         parts = []
         for j, spec in enumerate(shards("ali")):
             parts.append(P(f"ts.npz.{j + 1}"))
@@ -12015,6 +12506,23 @@ def save_witness(path: str, data: dict) -> None:
         pickle.dump(data, f, protocol=4)
 
 
+def csr_witness_data(packed, ll, nf, opts, res, overflow) -> dict:
+    """A CsrBeamDecoder batch for tests/test_torch_csr_witness.py: the
+    packed graph's arrays, each utterance's loglikes [T_b, P] (unpadded),
+    the search options and the decoder's words, costs and overflow."""
+    import dataclasses
+    import torch
+    ll = ll.cpu().numpy() if isinstance(ll, torch.Tensor) else np.asarray(ll)
+    nf = np.asarray(nf)
+    return dict(graph=dataclasses.asdict(packed),
+                loglikes=[ll[b, :nf[b]].copy() for b in range(len(nf))],
+                opts=dataclasses.asdict(opts),
+                words=[None if r is None else [int(x) for x in r[0]]
+                       for r in res],
+                costs=[None if r is None else float(r[2]) for r in res],
+                overflow=np.asarray(overflow).tolist())
+
+
 def lvtln_witness_data(lv, stats: dict) -> dict:
     """Phase 28 (b)'s LVTLN selection: the class transforms and, per
     speaker, its fMLLR statistics and the card's class and auxiliary per
@@ -12221,8 +12729,8 @@ def side_phases() -> int:
     """The second process (`SIDE_FLAG`): the bench graph's chain (phases
     7, 8, 10, 13, 14, 34, 36, 18, 30 a and c), the CLI's GMM recipe at the
     ladder's width (37), its decode and scoring back half (38) and the
-    neural recipes on its files (39), then the SMALL_PHASES; the launch
-    counts go to SIDE_RESULTS."""
+    neural recipes on its files (39), sre10 through files (40), then the
+    SMALL_PHASES; the launch counts and its end go to SIDE_RESULTS."""
     import torch
     from kaldi_tpu_torch.device import card_info, resolve_device
     from kaldi_tpu_torch.nnet import quantized as q
@@ -12231,51 +12739,59 @@ def side_phases() -> int:
     torch.set_num_threads(SIDE_THREADS)
     card = card_info()
     profile = "--profile" in sys.argv[1:]
-    log_phase("[7/39] full-width serving slice (bf16 TDNN)")
+    log_phase("[7/40] full-width serving slice (bf16 TDNN)")
     sl = phase_slice(tg, card, profile=profile)
-    log_phase("[8/39] full-width int8 serving slice")
+    log_phase("[8/40] full-width int8 serving slice")
     s8 = phase_int8_slice(q, tg, sl, card)
-    log_phase("[10/39] streaming server, full width")
+    log_phase("[10/40] streaming server, full width")
     st = phase_stream_full(tg, sl, card, profile=profile)
-    log_phase("[13/39] training, full width: the bench's AM with the port's "
+    log_phase("[13/40] training, full width: the bench's AM with the port's "
               "train step")
     tr = phase_train_full(sl, card, profile=profile)
-    log_phase("[14/39] lattice path, full width (latgen at the bench's "
+    log_phase("[14/40] lattice path, full width (latgen at the bench's "
               "point)")
     lt = phase_lattice_full(tg, sl, tr, card)
-    log_phase("[34/39] decoder tools at the bench graph's width: the "
+    log_phase("[34/40] decoder tools at the bench graph's width: the "
               "verifiers over its tier tables, decode_batched with phase 13's "
               "AM, the self-built triphone graph")
     tl = phase_tools_full(tg, sl, tr, card)
-    log_phase("[36/39] the bench decode through files: compute-fbank-feats "
+    log_phase("[36/40] the bench decode through files: compute-fbank-feats "
               "-> compute-cmvn-stats / apply-cmvn -> nnet-am-compute with "
               "phase 13's AM -> decode-faster-mapped on the bench graph -> "
               "compute-wer")
     cb = phase_cli_bench(tg, sl, tr, tl, card)
-    log_phase("[18/39] GMM path, full width: monophone training, the dense "
+    log_phase("[18/40] GMM path, full width: monophone training, the dense "
               "decoder's serving lines")
     phase_gmm_full(tr, card, profile=profile)
-    log_phase("[30/39] (a, c) rescoring at width: bench.py's 1.13M-n-gram "
+    log_phase("[30/40] (a, c) rescoring at width: bench.py's 1.13M-n-gram "
               "trigram over phase 14's lattices with the truncation audit; "
               "features on the bench's test waves")
     phase_rescore_bench(card, lt)
-    log_phase("[37/39] Kaldi's train_mono.sh -> train_deltas.sh -> "
+    log_phase("[37/40] Kaldi's train_mono.sh -> train_deltas.sh -> "
               "mkgraph.sh -> decode through the CLI's files at the triphone "
               "ladder's width")
     lc = phase_ladder_cli(card)
-    log_phase("[38/39] Kaldi's decode.sh -> score.sh -> "
+    log_phase("[38/40] Kaldi's decode.sh -> score.sh -> "
               "lmrescore_const_arpa.sh -> confidences, posteriors, KWS -> "
               "decode_fmllr.sh through the CLI's files on phase 37's")
     lt38 = phase_lattice_cli(card, lc)
-    log_phase("[39/39] Kaldi's nnet2, nnet3 and DBN recipes "
+    log_phase("[39/40] Kaldi's nnet2, nnet3 and DBN recipes "
               "(train_multisplice_accel2.sh, train_tdnn.sh, pretrain_dbn.sh "
               "-> train.sh -> decode.sh) through the CLI's files on phase "
               "37's")
     nc = phase_nnet_cli(card, lc)
+    log_phase("[40/40] egs/sre10 v1's run.sh through the CLI's files on "
+              "phase 26's corpus: compute-mfcc-feats -> add-deltas -> "
+              "compute-vad -> select-voiced-frames -> train-ubm --full -> "
+              "train-ivector-extractor -> ivector-extract -> mean, "
+              "centring, length -> ivector-compute-plda -> "
+              "ivector-plda-scoring / ivector-compute-dot-products -> "
+              "compute-eer; logistic regression")
+    sc = phase_sre_cli(card)
     for k, what, fn in SMALL_PHASES:
         if k == 31:
             socket.setdefaulttimeout(SOCKET_TIMEOUT_S)
-        log_phase(f"[{k}/39] {what}")
+        log_phase(f"[{k}/40] {what}")
         globals()[fn]()
     with open(SIDE_RESULTS, "w") as f:
         json.dump({"slice": sl["launches"], "int8": s8["launches"],
@@ -12287,7 +12803,8 @@ def side_phases() -> int:
                    "cli_shapes": cb["gather_times"],
                    "ladder_cli": lc["launches"],
                    "lattice_cli": lt38["launches"],
-                   "nnet_cli": nc["launches"]}, f)
+                   "nnet_cli": nc["launches"],
+                   "sre_cli": sc["launches"], "ended": time.time()}, f)
     log(f"the second process's phases in "
         f"{time.perf_counter() - T_START:.1f} s")
     return 0
@@ -12344,7 +12861,7 @@ def main() -> int:
 
     resolve_device("cuda")                # also turns TF32 off
     card = card_info()
-    log_phase(f"[1/39] card: {card} | torch {torch.__version__} CUDA "
+    log_phase(f"[1/40] card: {card} | torch {torch.__version__} CUDA "
               f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
               f"{torch.cuda.device_count()}")
 
@@ -12354,7 +12871,7 @@ def main() -> int:
         native = ex.submit(build_native)
         libs = cuda_build.build()
         native = native.result()
-    log_phase(f"[2/39] build: {len(libs)} kernels (one nvcc each) and "
+    log_phase(f"[2/40] build: {len(libs)} kernels (one nvcc each) and "
               f"{len(native)} g++ libraries, all at once, in "
               f"{time.perf_counter() - t:.3f} s")
     for name, so in libs.items():
@@ -12363,53 +12880,58 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]
         log(f"  {os.path.relpath(so, ROOT)}: {' | '.join(regs)}")
 
-    log_phase("[3/39] table-gather kernel vs plain version")
+    log_phase("[3/40] table-gather kernel vs plain version")
     k = phase_kernel(tg)
-    log_phase("[4/39] qaffine kernel vs plain version")
+    log_phase("[4/40] qaffine kernel vs plain version")
     qk = phase_qaffine(q)
     side = start_side_phases()            # beside the phases below
     try:
-        log_phase("[16/39] online path, full width "
+        log_phase("[16/40] online path, full width "
                   "(scripts/bench_streaming.py's configuration)")
         on = phase_online_full(tg, card, profile="--profile" in sys.argv[1:])
-        log_phase("[20/39] triphone ladder, full width: mono -> tri -> "
+        log_phase("[20/40] triphone ladder, full width: mono -> tri -> "
                   "LDA+MLLT -> TDNN, and SAT")
         ld = phase_ladder_full(card, profile="--profile" in sys.argv[1:])
-        log_phase("[22/39] discriminative path, full width: the rm-like "
+        log_phase("[22/40] discriminative path, full width: the rm-like "
                   "pyramid with bMMI and fMMI, then bMMI and TDNN sMBR on the "
                   "ladder's models")
         dk = phase_disc_full(card, ld, profile="--profile" in sys.argv[1:])
-        log_phase("[24/39] nnet3 and nnet1 families at the ladder's width: "
+        log_phase("[24/40] nnet3 and nnet1 families at the ladder's width: "
                   "nnet3 TDNN and LSTM, the wide LSTM, the DBN")
         nn = phase_nnet_full(card, ld, profile="--profile" in sys.argv[1:])
-        log_phase("[26/39] speaker recognition at sre10's width (2048 "
+        log_phase("[26/40] speaker recognition at sre10's width (2048 "
                   "gaussians, 600-dim i-vectors, 60-dim features): v1 and v2, "
                   "then logistic regression")
         sr = phase_sre_full(card, ld)
-        log_phase("[28/39] adaptation and SGMM2 at the ladder's width: raw, "
+        log_phase("[28/40] adaptation and SGMM2 at the ladder's width: raw, "
                   "basis, regression-tree and global fMLLR, MLLR, LVTLN, "
                   "HLDA; SGMM2 at egs/rm's sgmm2_4a widths, bMMI, SGMM fMLLR")
         ad = phase_adapt_sgmm_full(card, ld)
-        log_phase("[30/39] (b) search at width: the ladder's lattices "
+        log_phase("[30/40] (b) search at width: the ladder's lattices "
                   "through rescoring, scoring, MBR, ctm, KWS and "
                   "decode_biglm")
         rs = phase_rescore_ladder(card, ld)
         socket.setdefaulttimeout(SOCKET_TIMEOUT_S)
-        log_phase("[32/39] network serving at phase 16's configuration: its "
+        log_phase("[32/40] network serving at phase 16's configuration: its "
                   "AM and HCLG through the port's files, the TCP server over "
                   "6 concurrent connections (also through µ-law and ADPCM), "
                   "the threaded decoder, the online GMM decoder over phase "
                   "20's tri, the CLI")
         sv = phase_serving_full(tg, card, on, ld)
-        log_phase("[35/39] the CLI's first four slices, small: every "
+        log_phase("[35/40] the CLI's first five slices, small: every "
                   "device subcommand and the first slice's host ones on the "
                   "card and with --device cpu, recipe-yesno-files on the "
                   "card, --fused vs the generic pipeline, train-nnet3's "
                   "round trip, the card probes")
         phase_cli_small()
-        log_phase("[19/39] triphone ladder, small: card vs CPU")
+        log_phase("[19/40] triphone ladder, small: card vs CPU")
         phase_ladder_small()
+        main_end = time.perf_counter() - T_START
         sd = finish_side_phases(side)
+        side_end = sd["ended"] - T_START_WALL
+        log(f"this process's phases ended at {main_end:.1f} s, the second "
+            f"process's at {side_end:.1f} s (both on this one's clock): "
+            f"{abs(main_end - side_end):.1f} s apart")
     finally:
         if side.poll() is None:
             side.kill()
@@ -12431,7 +12953,8 @@ def main() -> int:
         f"{sd['tools_graph']} on its self-built graph, {sd['cli']} in phase "
         f"36's decode-faster-mapped, {sd['ladder_cli']['gather']} in phase "
         f"37's CLI recipe, {sd['lattice_cli']['gather']} in phase 38's, "
-        f"{sd['nnet_cli']['gather']} in phase 39's; "
+        f"{sd['nnet_cli']['gather']} in phase 39's, "
+        f"{sd['sre_cli']['gather']} in phase 40's; "
         f"qaffine {sd['int8']} "
         f"on the int8 slice, "
         f"{sr['qaffine_launches']} on the speaker-recognition path's, 0 on "
@@ -12439,9 +12962,10 @@ def main() -> int:
         f"the server's, the decoder tools' and the CLI's (phases 27-30 and "
         f"32-36 assert it), {sd['ladder_cli']['qaffine']} in phase 37's, "
         f"{sd['lattice_cli']['qaffine']} in phase 38's, "
-        f"{sd['nnet_cli']['qaffine']} in phase 39's")
+        f"{sd['nnet_cli']['qaffine']} in phase 39's, "
+        f"{sd['sre_cli']['qaffine']} in phase 40's")
     faulthandler.cancel_dump_traceback_later()
-    log(f"all 39 phases in {time.perf_counter() - T_START:.1f} s")
+    log(f"all 40 phases in {time.perf_counter() - T_START:.1f} s")
     log(card)
     log(json.dumps({"kernels": [{
         "name": "batched_table_gather", "route": "cuda",
@@ -12483,7 +13007,8 @@ def main() -> int:
         "cli_launches": sd["cli"], "cli_shapes": sd["cli_shapes"],
         "ladder_cli_launches": sd["ladder_cli"]["gather"],
         "lattice_cli_launches": sd["lattice_cli"]["gather"],
-        "nnet_cli_launches": sd["nnet_cli"]["gather"]}, {
+        "nnet_cli_launches": sd["nnet_cli"]["gather"],
+        "sre_cli_launches": sd["sre_cli"]["gather"]}, {
         "name": "qaffine", "route": "cuda",
         "source": "kaldi_tpu_torch/csrc/qaffine.cu",
         "replaces": "kaldi_tpu/nnet/quantized.py:46",
@@ -12501,7 +13026,8 @@ def main() -> int:
         "server_launches": 0, "tools_launches": 0, "cli_launches": 0,
         "ladder_cli_launches": sd["ladder_cli"]["qaffine"],
         "lattice_cli_launches": sd["lattice_cli"]["qaffine"],
-        "nnet_cli_launches": sd["nnet_cli"]["qaffine"]}]}))
+        "nnet_cli_launches": sd["nnet_cli"]["qaffine"],
+        "sre_cli_launches": sd["sre_cli"]["qaffine"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -17,8 +17,11 @@ GMM and global-GMM primitives of steps/train_mono.sh and
 train_deltas.sh; and the third: lattice generation and rescoring
 (steps/decode.sh, decode_fmllr.sh, lmrescore_const_arpa.sh), the lattice
 tools and n-best lists of local/score.sh and the confidence tools,
-posteriors, keyword search and pronunciations (`cli_misc.py`,
-`cli_nnet.py`, `cli_fst.py`, `cli_gmm_extra.py` and `cli_tail.py` hold
+posteriors, keyword search and pronunciations; the fourth: nnet2, nnet3
+and nnet1; and the fifth (5a): speaker recognition (egs/sre10's UBMs,
+i-vector extractor, PLDA and scoring), logistic regression, LDA / MLLT
+statistics and the online GMM decoder (`cli_misc.py`, `cli_nnet.py`,
+`cli_fst.py`, `cli_gmm_extra.py`, `cli_tail.py` and `cli_adapt.py` hold
 the commands that JAX keeps there). Commands
 read and write the JAX package's files: arks through `io/kaldi_io.py`,
 models through `io/model_io.py`. Every command that builds a device
@@ -40,8 +43,8 @@ import time
 import numpy as np
 import torch
 
-from kaldi_tpu_torch import (cli_fst, cli_gmm_extra, cli_misc, cli_nnet,
-                             cli_online_extra, cli_tail)
+from kaldi_tpu_torch import (cli_adapt, cli_fst, cli_gmm_extra, cli_misc,
+                             cli_nnet, cli_online_extra, cli_tail)
 
 
 def _expand_config_args(argv):
@@ -4628,6 +4631,746 @@ def cmd_nnet_latgen_faster(args):
     _nnet_latgen(args, cli_nnet._load_am(args.nnet, dev), dev)
 
 
+# ---------------------------------------------- speaker recognition (5a)
+
+def cmd_compute_eer(args):
+    """(ref: ivectorbin/compute-eer.cc — scores file: '<score> target' or
+    '<score> nontarget' per line)."""
+    from kaldi_tpu_torch.ivector.metrics import compute_eer
+    tgt, non = [], []
+    with open(args.scores) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) < 2:
+                continue
+            (tgt if parts[1] == "target" else non).append(float(parts[0]))
+    eer, thresh = compute_eer(tgt, non)
+    print(f"EER {eer * 100:.4f}% at threshold {thresh:.6f}")
+
+
+def cmd_train_ubm(args):
+    """Diagonal (and optionally full-covariance) UBM from pooled feats,
+    each EM pass's statistics on the device (ref: sid/train_diag_ubm.sh +
+    train_full_ubm.sh driving gmm-global-* / fgmm-global-*)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import save_ubm
+    from kaldi_tpu_torch.steps.ubm import (DiagUbmTrainOpts,
+                                           FullUbmTrainOpts, train_diag_ubm,
+                                           train_full_ubm)
+    dev = _device(args)
+    pooled = np.concatenate([v for (_k, v) in
+                             open_rspecifier(args.rspecifier)])
+    ubm = train_diag_ubm(pooled.astype(np.float64),
+                         DiagUbmTrainOpts(num_gauss=args.num_gauss,
+                                          num_iters=args.num_iters),
+                         device=dev)
+    if args.full:
+        ubm = train_full_ubm(ubm, pooled.astype(np.float64),
+                             FullUbmTrainOpts(num_iters=args.full_iters),
+                             device=dev)
+    save_ubm(args.ubm_out, ubm)
+    print(f"train-ubm: {args.num_gauss} gauss "
+          f"({'full' if args.full else 'diag'}) over {len(pooled)} frames",
+          file=sys.stderr)
+
+
+def cmd_train_ivector_extractor(args):
+    """EM over the utterances' statistics on the device
+    (ref: sid/train_ivector_extractor.sh / ivector-extractor-est)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import load_ubm, save_ivector_extractor
+    from kaldi_tpu_torch.ivector.extractor import train_ivector_extractor
+    dev = _device(args)
+    ubm = load_ubm(args.ubm)
+    feats = [v.astype(np.float64)
+             for (_k, v) in open_rspecifier(args.rspecifier)]
+    ext = train_ivector_extractor(
+        ubm, feats, ivector_dim=args.ivector_dim,
+        num_iters=args.num_iters, num_gselect=args.num_gselect, device=dev)
+    save_ivector_extractor(args.extractor_out, ext)
+    print(f"train-ivector-extractor: dim {args.ivector_dim} over "
+          f"{len(feats)} utts", file=sys.stderr)
+
+
+def _ivector_stats(ext, rspecifier, num_gselect, dev):
+    """-> (keys, gamma [N, I], X [N, I, D]): every utterance's
+    gselect-pruned zeroth and first-order statistics, f64 on `dev`."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    keys, feats = [], []
+    for utt, v in open_rspecifier(rspecifier):
+        keys.append(utt)
+        feats.append(v.astype(np.float64))
+    gamma, X = ext.batch_stats(feats, num_gselect, device=dev)
+    return keys, gamma, X
+
+
+def cmd_ivector_extract(args):
+    """Per-utterance (or per-speaker with --spk2utt) i-vectors, the
+    statistics and the posterior solves batched on the device
+    (ref: ivectorbin/ivector-extract.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_wspecifier
+    from kaldi_tpu_torch.io.model_io import load_ivector_extractor
+    from kaldi_tpu_torch.ivector.extractor import BATCH
+    dev = _device(args)
+    ext = load_ivector_extractor(args.extractor)
+    spk2utt = None
+    if args.spk2utt:
+        spk2utt = {}
+        with open(args.spk2utt) as f:
+            for line in f:
+                parts = line.split()
+                spk2utt[parts[0]] = parts[1:]
+    keys, gamma, X = _ivector_stats(ext, args.rspecifier, args.num_gselect,
+                                    dev)
+    if spk2utt is not None:
+        row = {k: i for i, k in enumerate(keys)}
+        keys = list(spk2utt)
+        idx = [[row[u] for u in utts if u in row]
+               for utts in spk2utt.values()]
+        gamma = torch.stack([gamma[i].sum(0) if i else gamma.new_zeros(
+            gamma.shape[1:]) for i in idx])
+        X = torch.stack([X[i].sum(0) if i else X.new_zeros(X.shape[1:])
+                         for i in idx])
+    w = [ext.posterior_batch(gamma[i:i + BATCH], X[i:i + BATCH])[0]
+         for i in range(0, len(keys), BATCH)]
+    w = _to_host(torch.cat(w)) if w else np.zeros((0, ext.ivector_dim))
+    with open_wspecifier(args.wspecifier) as out:
+        for key, v in zip(keys, w):
+            out.write(key, v.astype(np.float32))
+    print(f"ivector-extract: {len(keys)} i-vectors", file=sys.stderr)
+
+
+def cmd_ivector_extractor_init(args):
+    """Default-init a T-matrix extractor from a UBM
+    (ref: ivectorbin/ivector-extractor-init.cc)."""
+    from kaldi_tpu_torch.io.model_io import load_ubm, save_ivector_extractor
+    from kaldi_tpu_torch.ivector.extractor import IvectorExtractor
+    ubm = load_ubm(args.ubm)
+    ext = IvectorExtractor(ubm, args.ivector_dim,
+                           prior_offset=args.prior_offset, seed=args.seed)
+    save_ivector_extractor(args.extractor_out, ext)
+    print(f"ivector-extractor-init: dim {args.ivector_dim}, "
+          f"{ext.M.shape[0]} gauss", file=sys.stderr)
+
+
+def cmd_ivector_extractor_acc_stats(args):
+    """The E-step's statistics A and B, batched on the device
+    (ref: ivectorbin/ivector-extractor-acc-stats.cc)."""
+    from kaldi_tpu_torch.io.model_io import load_ivector_extractor
+    from kaldi_tpu_torch.ivector.extractor import BATCH, IvectorStats
+    dev = _device(args)
+    ext = load_ivector_extractor(args.extractor)
+    _keys, gamma, X = _ivector_stats(ext, args.rspecifier,
+                                     args.num_gselect, dev)
+    st = IvectorStats(ext, dev)
+    for i in range(0, len(gamma), BATCH):
+        st.accumulate_batch(ext, gamma[i:i + BATCH], X[i:i + BATCH])
+    with open(args.accs_out, "wb") as f:
+        np.savez(f, A=_to_host(st.A), B=_to_host(st.B),
+                 count=np.float64(st.count))
+    print(f"ivector-extractor-acc-stats: {int(st.count)} utts",
+          file=sys.stderr)
+
+
+def cmd_ivector_extractor_sum_accs(args):
+    """(ref: ivectorbin/ivector-extractor-sum-accs.cc)"""
+    A, B, count = None, None, 0.0
+    for p in args.accs_in:
+        z = np.load(p)
+        A = z["A"] if A is None else A + z["A"]
+        B = z["B"] if B is None else B + z["B"]
+        count += float(z["count"])
+    with open(args.accs_out, "wb") as f:
+        np.savez(f, A=A, B=B, count=np.float64(count))
+    print(f"ivector-extractor-sum-accs: {len(args.accs_in)} files",
+          file=sys.stderr)
+
+
+def cmd_ivector_extractor_est(args):
+    """M-step, a batched Cholesky solve on the device
+    (ref: ivectorbin/ivector-extractor-est.cc)."""
+    from kaldi_tpu_torch.io.model_io import (load_ivector_extractor,
+                                             save_ivector_extractor)
+    from kaldi_tpu_torch.ivector.extractor import IvectorStats
+    dev = _device(args)
+    ext = load_ivector_extractor(args.extractor)
+    z = np.load(args.accs)
+    st = IvectorStats(ext, dev)
+    st.A = torch.as_tensor(z["A"], dtype=torch.float64, device=dev)
+    st.B = torch.as_tensor(z["B"], dtype=torch.float64, device=dev)
+    st.count = float(z["count"])
+    st.update(ext)
+    save_ivector_extractor(args.extractor_out, ext)
+    print(f"ivector-extractor-est: updated from {int(st.count)} utts",
+          file=sys.stderr)
+
+
+def cmd_ivector_compute_lda(args):
+    """LDA projection for i-vectors from speaker labels
+    (ref: ivectorbin/ivector-compute-lda.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, write_ark
+    from kaldi_tpu_torch.transform.lda import LdaStats, estimate_lda
+    utt2spk = _read_utt2spk(args.utt2spk)
+    ivecs = [(utt2spk.get(k, k), np.asarray(v, np.float64))
+             for (k, v) in open_rspecifier(args.rspecifier)]
+    spks = sorted({s for (s, _v) in ivecs})
+    spk_id = {s: i for i, s in enumerate(spks)}
+    stats = LdaStats(len(spks), ivecs[0][1].size)
+    for (s, v) in ivecs:
+        stats.accumulate(v[None, :], np.array([spk_id[s]]))
+    M, _evals = estimate_lda(stats, args.dim)
+    write_ark(args.matrix_out, {"lda": np.asarray(M, np.float32)})
+    print(f"ivector-compute-lda: {M.shape[0]}x{M.shape[1]} from "
+          f"{len(spks)} speakers", file=sys.stderr)
+
+
+def cmd_ivector_compute_dot_products(args):
+    """Cosine scoring of trials (ref:
+    ivectorbin/ivector-compute-dot-products.cc; trials lines
+    '<key1> <key2>')."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    vecs = {k: np.asarray(v, np.float64)
+            for (k, v) in open_rspecifier(args.rspecifier)}
+    with open(args.trials) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) < 2:
+                continue
+            a, b = parts[0], parts[1]
+            if a not in vecs or b not in vecs:
+                continue
+            va, vb = vecs[a], vecs[b]
+            score = float(va @ vb / (np.linalg.norm(va)
+                                     * np.linalg.norm(vb) + 1e-20))
+            print(f"{a} {b} {score:.6f}")
+
+
+def cmd_ivector_adapt_plda(args):
+    """Unsupervised PLDA domain adaptation from unlabeled i-vectors
+    (ref: ivectorbin/ivector-adapt-plda.cc,
+    plda.h PldaUnsupervisedAdaptor)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import load_plda, save_plda
+    from kaldi_tpu_torch.ivector.plda import length_normalize
+    plda = load_plda(args.plda)
+    xs = np.stack([length_normalize(np.asarray(v, np.float64))
+                   for (_k, v) in open_rspecifier(args.rspecifier)])
+    adapted = plda.adapt(
+        xs, mean_diff_scale=args.mean_diff_scale,
+        within_covar_scale=args.within_covar_scale,
+        between_covar_scale=args.between_covar_scale)
+    save_plda(args.plda_out, adapted)
+    print(f"ivector-adapt-plda: {len(xs)} adaptation vectors",
+          file=sys.stderr)
+
+
+def cmd_ivector_copy_plda(args):
+    """(ref: ivectorbin/ivector-copy-plda.cc; --smoothing scales psi)"""
+    from kaldi_tpu_torch.io.model_io import load_plda, save_plda
+    plda = load_plda(args.plda)
+    if args.smoothing > 0:
+        # between-class smoothing: psi <- psi + s * mean(psi)
+        plda.psi = plda.psi + args.smoothing * float(np.mean(plda.psi))
+    save_plda(args.plda_out, plda)
+    print("ivector-copy-plda: done", file=sys.stderr)
+
+
+def cmd_train_plda(args):
+    """(ref: ivectorbin/ivector-compute-plda.cc)"""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import save_plda
+    from kaldi_tpu_torch.ivector.plda import (Plda, PldaStats,
+                                              length_normalize)
+    spk2utt = {}
+    with open(args.spk2utt) as f:
+        for line in f:
+            parts = line.split()
+            spk2utt[parts[0]] = parts[1:]
+    ivecs = dict(open_rspecifier(args.rspecifier))
+    dim = next(iter(ivecs.values())).shape[-1]
+    stats = PldaStats(dim)
+    for _spk, utts in spk2utt.items():
+        rows = [length_normalize(ivecs[u]) for u in utts if u in ivecs]
+        if rows:
+            stats.add_speaker(np.stack(rows))
+    plda = Plda.train(stats, num_iters=args.num_iters)
+    save_plda(args.plda_out, plda)
+    print(f"train-plda: {len(spk2utt)} speakers, dim {dim}",
+          file=sys.stderr)
+
+
+def cmd_ivector_plda_scoring(args):
+    """Trial scoring: LLR per (enroll, test) pair, each i-vector
+    length-normalized and transformed once, as `Plda.score_trials` does
+    per pair (ref: ivectorbin/ivector-plda-scoring.cc; trials file lines
+    '<enroll-key> <test-key>')."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import load_plda
+    from kaldi_tpu_torch.ivector.plda import length_normalize
+    plda = load_plda(args.plda)
+    raw = (dict(open_rspecifier(args.enroll_rspecifier)),
+           dict(open_rspecifier(args.test_rspecifier)))
+    done: tuple = ({}, {})
+
+    def prep(side, key):
+        if key not in done[side]:
+            done[side][key] = plda.transform_ivector(length_normalize(
+                np.asarray(raw[side][key], np.float64)))
+        return done[side][key]
+
+    out = open(args.scores_out, "w") if args.scores_out else sys.stdout
+    n = 0
+    with open(args.trials) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) < 2:
+                continue
+            e, t = parts[0], parts[1]
+            s = plda.llr(prep(0, e), 1, prep(1, t))
+            out.write(f"{e} {t} {s:.6f}\n")
+            n += 1
+    if args.scores_out:
+        out.close()
+    print(f"ivector-plda-scoring: {n} trials", file=sys.stderr)
+
+
+def cmd_ivector_extract_online2(args):
+    """Streaming per-frame i-vectors from a feature ark, the host copy of
+    the online extractor (ref: online2bin/ivector-extract-online2.cc —
+    writes, every ivector-period frames, the i-vector estimated from
+    stats so far; speaker adaptation state carries across an
+    utt2spk-grouped stream)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, open_wspecifier
+    from kaldi_tpu_torch.io.model_io import load_ivector_extractor
+    from kaldi_tpu_torch.online.ivector import (OnlineIvectorConfig,
+                                                OnlineIvectorFeature)
+    ext = load_ivector_extractor(args.extractor)
+    cfg = OnlineIvectorConfig(ivector_period=args.ivector_period,
+                              num_gselect=args.num_gselect,
+                              use_most_recent_ivector=False)
+    utt2spk = _read_utt2spk(args.utt2spk)
+    spk_state: dict = {}
+    n = 0
+    with open_wspecifier(args.wspecifier) as out:
+        for utt, feats in open_rspecifier(args.rspecifier):
+            spk = utt2spk.get(utt, utt)
+            iv = OnlineIvectorFeature(ext, cfg,
+                                      adaptation_state=spk_state.get(spk))
+            T = feats.shape[0]
+            f64 = np.asarray(feats, np.float64)
+            rows = []
+            # each period's i-vector uses only the statistics so far
+            for lo in range(0, T, args.ivector_period):
+                hi = min(T, lo + args.ivector_period)
+                iv.accept_features(f64[lo:hi])
+                rows.extend(iv.get_frame(t) for t in range(lo, hi))
+            out.write(utt, np.stack(rows).astype(np.float32))
+            spk_state[spk] = iv.get_adaptation_state()
+            n += 1
+    print(f"ivector-extract-online2: {n} utterances", file=sys.stderr)
+
+
+def cmd_ivector_mean(args):
+    """Average vectors: with --spk2utt, one mean per speaker; otherwise
+    a single global mean under key 'mean'
+    (ref: ivectorbin/ivector-mean.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, open_wspecifier
+    vecs = {k: np.asarray(v, np.float64)
+            for (k, v) in open_rspecifier(args.rspecifier)}
+    with open_wspecifier(args.wspecifier) as out:
+        if args.spk2utt:
+            with open(args.spk2utt) as f:
+                for line in f:
+                    parts = line.split()
+                    spk, utts = parts[0], [u for u in parts[1:]
+                                           if u in vecs]
+                    if not utts:
+                        continue
+                    out.write(spk, np.mean([vecs[u] for u in utts],
+                                           axis=0).astype(np.float32))
+        else:
+            out.write("mean", np.mean(list(vecs.values()),
+                                      axis=0).astype(np.float32))
+    print(f"ivector-mean: {len(vecs)} vectors in", file=sys.stderr)
+
+
+def cmd_ivector_normalize_length(args):
+    """Scale each vector to length sqrt(dim)
+    (ref: ivectorbin/ivector-normalize-length.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, open_wspecifier
+    ratios = []
+    with open_wspecifier(args.wspecifier) as out:
+        for key, v in open_rspecifier(args.rspecifier):
+            v = np.asarray(v, np.float64)
+            ratio = np.linalg.norm(v) / np.sqrt(v.size)
+            ratios.append(ratio)
+            if not args.scaleup and ratio < 1.0:
+                ratio = 1.0   # --scaleup=false: only shrink long vectors
+            out.write(key, (v / max(ratio, 1e-20)).astype(np.float32))
+    print(f"ivector-normalize-length: {len(ratios)} vectors, avg ratio "
+          f"{np.mean(ratios):.4f}", file=sys.stderr)
+
+
+def cmd_ivector_subtract_global_mean(args):
+    """Subtract the mean of all input vectors (or a precomputed one via
+    --mean) (ref: ivectorbin/ivector-subtract-global-mean.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import (open_rspecifier, open_wspecifier,
+                                             read_ark)
+    items = [(k, np.asarray(v, np.float64))
+             for (k, v) in open_rspecifier(args.rspecifier)]
+    if args.mean:
+        mean = np.asarray(next(iter(dict(read_ark(args.mean)).values())),
+                          np.float64)
+    else:
+        mean = np.mean([v for (_k, v) in items], axis=0)
+    with open_wspecifier(args.wspecifier) as out:
+        for k, v in items:
+            out.write(k, (v - mean).astype(np.float32))
+    print(f"ivector-subtract-global-mean: {len(items)} vectors",
+          file=sys.stderr)
+
+
+def cmd_logistic_regression_train(args):
+    """Multiclass logistic regression on vectors (e.g. language-id on
+    i-vectors), its Adam steps on the device
+    (ref: ivectorbin/logistic-regression-train.cc). utt2label: text file
+    'utt label'; class names are stored with the model."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.ivector.logistic_regression import (
+        LogisticRegression, LogisticRegressionConfig)
+    dev = _device(args)
+    labels_txt = _read_utt2spk(args.utt2label)
+    X, y, classes = [], [], {}
+    for utt, v in open_rspecifier(args.rspecifier):
+        if utt not in labels_txt:
+            continue
+        lab = labels_txt[utt]
+        classes.setdefault(lab, len(classes))
+        X.append(np.asarray(v, np.float32))
+        y.append(classes[lab])
+    lr = LogisticRegression()
+    loss = lr.train(np.stack(X), np.asarray(y, np.int32),
+                    LogisticRegressionConfig(max_steps=args.max_steps,
+                                             normalizer=args.normalizer),
+                    device=dev)
+    names = [c for c, _i in sorted(classes.items(), key=lambda kv: kv[1])]
+    with open(args.model_out, "wb") as f:
+        np.savez(f, weights=lr.weights,
+                 classes=np.frombuffer(
+                     "\n".join(names).encode(), dtype=np.uint8))
+    print(f"logistic-regression-train: {len(X)} examples, "
+          f"{len(classes)} classes, final loss {loss:.4f}",
+          file=sys.stderr)
+
+
+def cmd_logistic_regression_eval(args):
+    """Log-posteriors (and argmax class) of vectors under a trained
+    model, host numpy as in JAX
+    (ref: ivectorbin/logistic-regression-eval.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, open_wspecifier
+    from kaldi_tpu_torch.ivector.logistic_regression import LogisticRegression
+    z = np.load(args.model)
+    lr = LogisticRegression(z["weights"])
+    names = z["classes"].tobytes().decode().split("\n")
+    n_correct, n_tot = 0, 0
+    truth = _read_utt2spk(args.utt2label) if args.utt2label else {}
+    with open_wspecifier(args.wspecifier) as out:
+        for utt, v in open_rspecifier(args.rspecifier):
+            lp = lr.log_posteriors(np.asarray(v, np.float32)[None])[0]
+            out.write(utt, lp.astype(np.float32))
+            if utt in truth:
+                n_tot += 1
+                n_correct += int(names[int(np.argmax(lp))] == truth[utt])
+    if n_tot:
+        print(f"logistic-regression-eval: accuracy "
+              f"{n_correct / n_tot:.4f} over {n_tot}", file=sys.stderr)
+
+
+def cmd_logistic_regression_copy(args):
+    """(ref: ivectorbin/logistic-regression-copy.cc)"""
+    z = dict(np.load(args.model).items())
+    with open(args.model_out, "wb") as f:
+        np.savez(f, **z)
+    print("logistic-regression-copy: done", file=sys.stderr)
+
+
+def cmd_copy_gselect(args):
+    """(ref: bin/copy-gselect.cc)"""
+    n = 0
+    with open(args.gselect_out, "w") as out:
+        with open(args.gselect_in) as f:
+            for line in f:
+                out.write(line)
+                n += 1
+    print(f"copy-gselect: {n} utts", file=sys.stderr)
+
+
+def cmd_fgmm_global_to_gmm(args):
+    """Full-covariance UBM -> diagonal (keep the covar diagonal)
+    (ref: fgmmbin/fgmm-global-to-gmm.cc)."""
+    from kaldi_tpu_torch.gmm.diag_gmm import DiagGmm
+    from kaldi_tpu_torch.gmm.full_gmm import FullGmm
+    from kaldi_tpu_torch.io.model_io import load_ubm, save_ubm
+    ubm = load_ubm(args.model)
+    assert isinstance(ubm, FullGmm), "input must be a full-cov UBM"
+    variances = np.stack([np.diag(c) for c in ubm.covars])
+    save_ubm(args.model_out,
+             DiagGmm(ubm.weights.copy(), ubm.means.copy(), variances))
+    print(f"fgmm-global-to-gmm: {ubm.num_gauss} gauss", file=sys.stderr)
+
+
+# ------------------------------------------------------------ LDA / MLLT
+
+def cmd_acc_lda(args):
+    """LDA class stats (class = pdf) from weighted posteriors
+    (ref: bin/acc-lda.cc, transform/lda-estimate.h:57)."""
+    from kaldi_tpu_torch.hmm.posterior import read_post_ark
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    from kaldi_tpu_torch.transform.lda import LdaStats
+    model = load_gmm_system(args.model, device="cpu")
+    tm = model.trans_model
+    feats = dict(open_rspecifier(args.rspecifier))
+    stats = None
+    n = 0
+    for utt, post in read_post_ark(args.post_in):
+        if utt not in feats:
+            continue
+        x = feats[utt]
+        if stats is None:
+            stats = LdaStats(model.am.num_pdfs, x.shape[1])
+        rows, classes, ws = [], [], []
+        for t, frame in enumerate(post):
+            for tid, w in frame:
+                rows.append(t)
+                classes.append(tm.transition_id_to_pdf(tid))
+                ws.append(w)
+        stats.accumulate(x[np.asarray(rows)],
+                         np.asarray(classes, np.int64),
+                         np.asarray(ws, np.float64))
+        n += 1
+    with open(args.accs_out, "wb") as f:
+        np.savez(f, zero_acc=stats.zero_acc, first_acc=stats.first_acc,
+                 total_second=stats.total_second)
+    print(f"acc-lda: {n} utts, {stats.total_count:.0f} frames",
+          file=sys.stderr)
+
+
+def cmd_est_lda(args):
+    """(ref: bin/est-lda.cc)"""
+    from kaldi_tpu_torch.io.kaldi_io import write_ark
+    from kaldi_tpu_torch.transform.lda import LdaStats, estimate_lda
+    z = np.load(args.accs)
+    stats = LdaStats(z["zero_acc"].shape[0], z["first_acc"].shape[1])
+    stats.zero_acc, stats.first_acc = z["zero_acc"], z["first_acc"]
+    stats.total_second = z["total_second"]
+    W, evals = estimate_lda(stats, args.dim)
+    write_ark(args.matrix_out, {"lda": np.asarray(W, np.float32)})
+    print(f"est-lda: {W.shape[0]}x{W.shape[1]}, eig sum "
+          f"{evals.sum():.2f}", file=sys.stderr)
+
+
+def cmd_gmm_acc_mllt(args):
+    """MLLT (STC) stats from weighted posteriors, host f64 as in JAX
+    (ref: gmmbin/gmm-acc-mllt.cc, transform/mllt.h:42)."""
+    from kaldi_tpu_torch.hmm.posterior import read_post_ark
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    from kaldi_tpu_torch.transform.mllt import MlltStats
+    model = load_gmm_system(args.model, device="cpu")
+    feats = dict(open_rspecifier(args.rspecifier))
+    stats = MlltStats(model.am.dim)
+    n = 0
+    for utt, post in read_post_ark(args.post_in):
+        if utt not in feats:
+            continue
+        stats.accumulate_from_gmm_post(
+            feats[utt], model.am,
+            _post_to_pdf_post(post, model.trans_model))
+        n += 1
+    with open(args.accs_out, "wb") as f:
+        np.savez(f, G=stats.G, beta=stats.beta)
+    print(f"gmm-acc-mllt: {n} utts, beta {stats.beta:.0f}",
+          file=sys.stderr)
+
+
+def cmd_est_mllt(args):
+    """(ref: bin/est-mllt.cc)"""
+    from kaldi_tpu_torch.io.kaldi_io import write_ark
+    from kaldi_tpu_torch.transform.mllt import MlltStats, update_mllt
+    z = np.load(args.accs)
+    stats = MlltStats(z["G"].shape[1])
+    stats.G, stats.beta = z["G"], float(z["beta"])
+    M, impr = update_mllt(stats)
+    write_ark(args.matrix_out, {"mllt": np.asarray(M, np.float32)})
+    print(f"est-mllt: objf impr/frame {impr / max(stats.beta, 1.0):.4f} "
+          f"over {stats.beta:.0f} frames", file=sys.stderr)
+
+
+def cmd_sum_lda_accs(args):
+    """(ref: bin/sum-lda-accs.cc)"""
+    z0 = None
+    for p in args.accs_in:
+        z = dict(np.load(p).items())
+        if z0 is None:
+            z0 = z
+        else:
+            for k in z:
+                z0[k] = z0[k] + z[k]
+    with open(args.accs_out, "wb") as f:
+        np.savez(f, **z0)
+    print(f"sum-lda-accs: {len(args.accs_in)} files", file=sys.stderr)
+
+
+def cmd_sum_mllt_accs(args):
+    """(ref: bin/sum-mllt-accs.cc)"""
+    G, beta = None, 0.0
+    for p in args.accs_in:
+        z = np.load(p)
+        G = z["G"] if G is None else G + z["G"]
+        beta += float(z["beta"])
+    with open(args.accs_out, "wb") as f:
+        np.savez(f, G=G, beta=np.float64(beta))
+    print(f"sum-mllt-accs: {len(args.accs_in)} files", file=sys.stderr)
+
+
+def cmd_train_lda_mllt(args):
+    """Splice -> LDA -> tied-triphone GMM with iterative MLLT, fused, on
+    the device (ref: steps/train_lda_mllt.sh). Writes the model and the
+    composed MLLT·LDA feature transform; decode with
+    `splice-feats | transform-feats <transform>` features."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, write_ark
+    from kaldi_tpu_torch.io.model_io import load_gmm_system, save_gmm_system
+    from kaldi_tpu_torch.steps.lda_mllt import (LdaMlltTrainOpts,
+                                                train_lda_mllt)
+    dev = _device(args)
+    ali_model = load_gmm_system(args.model, device=dev)
+    utts_align = _load_train_utts(args.text, args.ali_rspecifier)
+    raw = dict(open_rspecifier(args.rspecifier))
+    utts_raw = [(u, raw[u].astype(np.float32), w)
+                for (u, _f, w) in utts_align if u in raw]
+    if len(utts_raw) != len(utts_align):
+        raise SystemExit("raw and alignment feature archives disagree")
+    opts = LdaMlltTrainOpts(
+        num_iters=args.num_iters, totgauss=args.totgauss,
+        num_leaves=args.num_leaves, lda_dim=args.lda_dim,
+        splice_left=args.splice_left, splice_right=args.splice_right,
+        realign_iters=tuple(range(1, args.num_iters)))
+    lm = train_lda_mllt(ali_model.lang, utts_align, utts_raw, ali_model,
+                        opts)
+    save_gmm_system(args.model_out, lm.model)
+    write_ark(args.transform_out,
+              {"final": np.asarray(lm.transform, np.float32)})
+    print(f"train-lda-mllt: {lm.model.am.num_pdfs} pdfs, "
+          f"{lm.model.am.total_gauss} gauss, transform "
+          f"{lm.transform.shape[0]}x{lm.transform.shape[1]}",
+          file=sys.stderr)
+
+
+# ---------------------------------------------------------- online GMM
+
+def _online_mfcc_opts(args):
+    from kaldi_tpu_torch.ops import FrameOpts, MfccOpts
+    return MfccOpts(frame_opts=FrameOpts(samp_freq=args.sample_frequency,
+                                         dither=0.0),
+                    num_ceps=args.num_ceps)
+
+
+def cmd_online2_wav_dump_features(args):
+    """Stream wavs through the online feature pipeline on the device and
+    dump the features (ref: online2bin/online2-wav-dump-features.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_wspecifier
+    from kaldi_tpu_torch.io.wave import read_wave
+    from kaldi_tpu_torch.online.features import OnlineFeaturePipeline
+    dev = _device(args)
+    fo = _online_mfcc_opts(args)
+    chunk = int(args.chunk_secs * args.sample_frequency)
+    n = 0
+    with open_wspecifier(args.wspecifier) as out:
+        for utt, path in _read_wav_scp(args.wav_scp):
+            wave, _sr = read_wave(path)
+            pipe = OnlineFeaturePipeline(fo, delta_order=args.delta_order,
+                                         device=dev)
+            w = wave[0]
+            for lo in range(0, len(w), chunk):
+                pipe.accept_waveform(w[lo: lo + chunk])
+            pipe.input_finished()
+            out.write(utt, np.asarray(pipe.get_features(), np.float32))
+            n += 1
+    print(f"online2-wav-dump-features: {n} utts", file=sys.stderr)
+
+
+def cmd_online2_wav_gmm_latgen_faster(args):
+    """Streaming GMM decoding of a wav.scp with mid-utterance fMLLR and
+    per-speaker adaptation state carried across utterances; features,
+    loglikes and the padded search on the device
+    (ref: online2bin/online2-wav-gmm-latgen-faster.cc)."""
+    from kaldi_tpu_torch.decoder.beam_search import (BeamSearchDecoder,
+                                                     BeamSearchOpts)
+    from kaldi_tpu_torch.io.model_io import load_gmm_system, load_hclg
+    from kaldi_tpu_torch.io.wave import read_wave
+    from kaldi_tpu_torch.online.features import OnlineFeaturePipeline
+    from kaldi_tpu_torch.online.gmm_decoding import (AdaptationPolicy,
+                                                     SingleUtteranceGmmDecoder)
+    dev = _device(args)
+    gmm = load_gmm_system(args.model, device=dev)
+    base_dec = BeamSearchDecoder(load_hclg(args.graph), BeamSearchOpts(
+        beam=args.beam, max_active=args.max_active,
+        acoustic_scale=args.acoustic_scale), device=dev)
+    fo = _online_mfcc_opts(args)
+    utt2spk = _read_utt2spk(args.utt2spk)
+    states: dict = {}
+    out = open(args.transcription_out, "w") if args.transcription_out \
+        else sys.stdout
+    chunk = int(args.chunk_secs * args.sample_frequency)
+    n = 0
+    for utt, path in _read_wav_scp(args.wav_scp):
+        spk = utt2spk.get(utt, utt)
+        wave, _sr = read_wave(path)
+        w = wave[0]
+        pipe = OnlineFeaturePipeline(fo, delta_order=args.delta_order,
+                                     device=dev)
+        sud = SingleUtteranceGmmDecoder(
+            gmm.am, gmm.trans_model, base_dec, pipe,
+            adaptation_state=states.get(spk),
+            policy=AdaptationPolicy(
+                adaptation_first_utt_delay=args.adaptation_delay),
+            is_first_utt=spk not in states,
+            fmllr_min_count=args.fmllr_min_count)
+        for lo in range(0, len(w), chunk):
+            pipe.accept_waveform(w[lo: lo + chunk])
+            sud.advance_decoding()
+        sud.finalize_decoding()
+        states[spk] = sud.get_adaptation_state()
+        res = sud.best_path()
+        words = "" if res is None else " ".join(
+            gmm.lang.words.sym(x) for x in res[0])
+        out.write(f"{utt} {words}\n")
+        n += 1
+    if args.transcription_out:
+        out.close()
+    n_adapt = sum(1 for s in states.values() if s.transform is not None)
+    print(f"online2-wav-gmm-latgen-faster: decoded {n} utts, "
+          f"{n_adapt} speakers adapted", file=sys.stderr)
+
+
+def cmd_post_to_tacc(args):
+    """Sum posterior mass per transition-id over the archive
+    (ref: bin/post-to-tacc.cc)."""
+    from kaldi_tpu_torch.hmm.posterior import read_post_ark
+    from kaldi_tpu_torch.io.kaldi_io import write_ark
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    tm = load_gmm_system(args.model, device="cpu").trans_model
+    acc = np.zeros(tm.num_transition_ids + 1, np.float64)
+    for _utt, post in read_post_ark(args.post_in):
+        for fr in post:
+            for (i, w) in fr:
+                if 0 <= i < len(acc):
+                    acc[i] += w
+    write_ark(args.acc_out, {"tacc": acc.astype(np.float32)})
+    print(f"post-to-tacc: total {acc.sum():.1f}", file=sys.stderr)
+
+
 # Reference binary names that resolve to a canonical subcommand: the
 # ported ones of kaldi_tpu/cli.py's `_ALIASES`. Options after the alias
 # pass straight through to the canonical command.
@@ -4691,7 +5434,21 @@ _ALIASES: dict = {
     "nnet3-am-copy": ["nnet3-copy"],
     "nnet3-am-info": ["nnet3-info"],
     "nnet3-am-init": ["nnet3-init"],
+    # ivector / online
+    "ivector-extract-online": ["ivector-extract-online2"],
+    "online-wav-gmm-decode-faster": ["online2-wav-gmm-latgen-faster"],
+    # the reference's mic-driven decoder; audio arrives from wav.scp
+    "online-gmm-decode-faster": ["online2-wav-gmm-latgen-faster"],
 }
+
+# the fifth slice's (5a) subcommands that build a device object: the UBM
+# and extractor EM, the batched i-vector solves, logistic regression's
+# Adam steps, LDA+MLLT training and the online GMM's features and search
+SPEAKER_DEVICE_COMMANDS = (
+    "fgmm-global-est", "train-ubm", "train-ivector-extractor",
+    "ivector-extract", "ivector-extractor-acc-stats", "ivector-extractor-est",
+    "logistic-regression-train", "train-lda-mllt",
+    "online2-wav-dump-features", "online2-wav-gmm-latgen-faster")
 
 # the subcommands that build a device object (`--device`): this module's,
 # cli_gmm_extra.py's and those of cli_nnet.py and cli_tail.py that run a
@@ -4714,7 +5471,8 @@ DEVICE_COMMANDS = (
     "nnet3-compute-prob", "nnet3-combine", "nnet3-am-adjust-priors",
     "nnet3-latgen-faster", "nnet-train-simple", "nnet-combine-fast",
     "nnet-adjust-priors", "nnet-latgen-faster") + (
-        cli_nnet.DEVICE_COMMANDS + cli_tail.DEVICE_COMMANDS)
+        cli_nnet.DEVICE_COMMANDS + cli_tail.DEVICE_COMMANDS
+        + SPEAKER_DEVICE_COMMANDS)
 
 
 def _register(sub):
@@ -5548,46 +6306,52 @@ def _register(sub):
     q.set_defaults(func=cmd_gmm_global_get_post)
 
     for name, func in (("gmm-global-to-fgmm", cmd_gmm_global_to_fgmm),
-                       ("gmm-global-copy", cmd_gmm_global_copy)):
+                       ("gmm-global-copy", cmd_gmm_global_copy),
+                       ("fgmm-global-copy", cmd_gmm_global_copy),
+                       ("fgmm-global-to-gmm", cmd_fgmm_global_to_gmm)):
         q = sub.add_parser(name)
         q.add_argument("model")
         q.add_argument("model_out")
         q.set_defaults(func=func)
 
-    q = sub.add_parser("gmm-global-info")
-    q.add_argument("model")
-    q.set_defaults(func=cmd_gmm_global_info)
+    # the full-covariance names share the diagonal commands' handlers,
+    # which take either kind of UBM (as JAX registers them)
+    for pre in ("gmm", "fgmm"):
+        q = sub.add_parser(f"{pre}-global-info")
+        q.add_argument("model")
+        q.set_defaults(func=cmd_gmm_global_info)
 
-    q = sub.add_parser("gmm-global-acc-stats-post")
-    q.add_argument("model")
-    q.add_argument("rspecifier")
-    q.add_argument("post_in")
-    q.add_argument("accs_out")
-    q.set_defaults(func=cmd_gmm_global_acc_stats_post)
+        q = sub.add_parser(f"{pre}-global-acc-stats-post")
+        q.add_argument("model")
+        q.add_argument("rspecifier")
+        q.add_argument("post_in")
+        q.add_argument("accs_out")
+        q.set_defaults(func=cmd_gmm_global_acc_stats_post)
 
-    q = sub.add_parser("gmm-global-acc-stats")
-    q.add_argument("model")
-    q.add_argument("rspecifier")
-    q.add_argument("accs_out")
-    q.set_defaults(func=cmd_gmm_global_acc_stats)
+        q = sub.add_parser(f"{pre}-global-acc-stats")
+        q.add_argument("model")
+        q.add_argument("rspecifier")
+        q.add_argument("accs_out")
+        q.set_defaults(func=cmd_gmm_global_acc_stats)
 
-    q = sub.add_parser("gmm-global-est")
-    q.add_argument("model")
-    q.add_argument("accs")
-    q.add_argument("model_out")
-    q.add_argument("--min-gaussian-occupancy", type=float, default=10.0)
-    q.set_defaults(func=cmd_gmm_global_est)
+        q = sub.add_parser(f"{pre}-global-est")
+        q.add_argument("model")
+        q.add_argument("accs")
+        q.add_argument("model_out")
+        q.add_argument("--min-gaussian-occupancy", type=float,
+                       default=10.0)
+        q.set_defaults(func=cmd_gmm_global_est)
 
-    q = sub.add_parser("gmm-global-get-frame-likes")
-    q.add_argument("model")
-    q.add_argument("rspecifier")
-    q.add_argument("wspecifier")
-    q.set_defaults(func=cmd_gmm_global_get_frame_likes)
+        q = sub.add_parser(f"{pre}-global-get-frame-likes")
+        q.add_argument("model")
+        q.add_argument("rspecifier")
+        q.add_argument("wspecifier")
+        q.set_defaults(func=cmd_gmm_global_get_frame_likes)
 
-    q = sub.add_parser("gmm-global-sum-accs")
-    q.add_argument("accs_out")
-    q.add_argument("accs_in", nargs="+")
-    q.set_defaults(func=cmd_gmm_global_sum_accs)
+        q = sub.add_parser(f"{pre}-global-sum-accs")
+        q.add_argument("accs_out")
+        q.add_argument("accs_in", nargs="+")
+        q.set_defaults(func=cmd_gmm_global_sum_accs)
 
     # the third slice: lattice generation and rescoring, lattice tools,
     # n-best lists, posteriors and keyword search
@@ -6041,6 +6805,246 @@ def _register(sub):
                         "writes no files")
     q.set_defaults(func=cmd_recipe_yesno)
     _register_nnet(sub)
+    _register_speaker(sub)
+
+
+def _register_speaker(sub):
+    """The fifth slice's (5a) subcommands: speaker recognition, logistic
+    regression, LDA / MLLT and the online GMM (kaldi_tpu/cli.py main)."""
+    q = sub.add_parser("compute-eer")
+    q.add_argument("scores")
+    q.set_defaults(func=cmd_compute_eer)
+
+    q = sub.add_parser("train-ubm")
+    q.add_argument("rspecifier")
+    q.add_argument("ubm_out")
+    q.add_argument("--num-gauss", type=int, default=64)
+    q.add_argument("--num-iters", type=int, default=4)
+    q.add_argument("--full", action="store_true")
+    q.add_argument("--full-iters", type=int, default=2)
+    q.set_defaults(func=cmd_train_ubm)
+
+    q = sub.add_parser("train-ivector-extractor")
+    q.add_argument("ubm")
+    q.add_argument("rspecifier")
+    q.add_argument("extractor_out")
+    q.add_argument("--ivector-dim", type=int, default=100)
+    q.add_argument("--num-iters", type=int, default=5)
+    q.add_argument("--num-gselect", type=int, default=20)
+    q.set_defaults(func=cmd_train_ivector_extractor)
+
+    q = sub.add_parser("ivector-extract")
+    q.add_argument("extractor")
+    q.add_argument("rspecifier")
+    q.add_argument("wspecifier")
+    q.add_argument("--spk2utt", default="")
+    q.add_argument("--num-gselect", type=int, default=20)
+    q.set_defaults(func=cmd_ivector_extract)
+
+    for name in ("train-plda", "ivector-compute-plda"):
+        q = sub.add_parser(name)
+        q.add_argument("spk2utt")
+        q.add_argument("rspecifier")
+        q.add_argument("plda_out")
+        q.add_argument("--num-iters", type=int, default=10)
+        q.set_defaults(func=cmd_train_plda)
+
+    q = sub.add_parser("ivector-extractor-init")
+    q.add_argument("ubm")
+    q.add_argument("extractor_out")
+    q.add_argument("--ivector-dim", type=int, default=100)
+    q.add_argument("--prior-offset", type=float, default=100.0)
+    q.add_argument("--seed", type=int, default=0)
+    q.set_defaults(func=cmd_ivector_extractor_init)
+
+    q = sub.add_parser("ivector-extractor-acc-stats")
+    q.add_argument("extractor")
+    q.add_argument("rspecifier")
+    q.add_argument("accs_out")
+    q.add_argument("--num-gselect", type=int, default=20)
+    q.set_defaults(func=cmd_ivector_extractor_acc_stats)
+
+    q = sub.add_parser("ivector-extractor-sum-accs")
+    q.add_argument("accs_out")
+    q.add_argument("accs_in", nargs="+")
+    q.set_defaults(func=cmd_ivector_extractor_sum_accs)
+
+    q = sub.add_parser("ivector-extractor-est")
+    q.add_argument("extractor")
+    q.add_argument("accs")
+    q.add_argument("extractor_out")
+    q.set_defaults(func=cmd_ivector_extractor_est)
+
+    q = sub.add_parser("ivector-compute-lda")
+    q.add_argument("rspecifier")
+    q.add_argument("utt2spk")
+    q.add_argument("matrix_out")
+    q.add_argument("--dim", type=int, default=100)
+    q.set_defaults(func=cmd_ivector_compute_lda)
+
+    q = sub.add_parser("ivector-transform")
+    q.add_argument("transform")
+    q.add_argument("rspecifier")
+    q.add_argument("wspecifier")
+    q.set_defaults(func=cmd_transform_vec)
+
+    q = sub.add_parser("ivector-compute-dot-products")
+    q.add_argument("trials")
+    q.add_argument("rspecifier")
+    q.set_defaults(func=cmd_ivector_compute_dot_products)
+
+    q = sub.add_parser("ivector-adapt-plda")
+    q.add_argument("plda")
+    q.add_argument("rspecifier")
+    q.add_argument("plda_out")
+    q.add_argument("--mean-diff-scale", type=float, default=1.0)
+    q.add_argument("--within-covar-scale", type=float, default=0.3)
+    q.add_argument("--between-covar-scale", type=float, default=0.7)
+    q.set_defaults(func=cmd_ivector_adapt_plda)
+
+    q = sub.add_parser("ivector-copy-plda")
+    q.add_argument("plda")
+    q.add_argument("plda_out")
+    q.add_argument("--smoothing", type=float, default=0.0)
+    q.set_defaults(func=cmd_ivector_copy_plda)
+
+    q = sub.add_parser("ivector-plda-scoring")
+    q.add_argument("plda")
+    q.add_argument("enroll_rspecifier")
+    q.add_argument("test_rspecifier")
+    q.add_argument("trials")
+    q.add_argument("--scores-out", default="")
+    q.set_defaults(func=cmd_ivector_plda_scoring)
+
+    q = sub.add_parser("ivector-extract-online2")
+    q.add_argument("extractor")
+    q.add_argument("rspecifier")
+    q.add_argument("wspecifier")
+    q.add_argument("--utt2spk", default="")
+    q.add_argument("--ivector-period", type=int, default=10)
+    q.add_argument("--num-gselect", type=int, default=5)
+    q.set_defaults(func=cmd_ivector_extract_online2)
+
+    q = sub.add_parser("ivector-mean")
+    q.add_argument("rspecifier")
+    q.add_argument("wspecifier")
+    q.add_argument("--spk2utt", default="")
+    q.set_defaults(func=cmd_ivector_mean)
+
+    q = sub.add_parser("ivector-normalize-length")
+    q.add_argument("rspecifier")
+    q.add_argument("wspecifier")
+    q.add_argument("--scaleup", action="store_true", default=True)
+    q.add_argument("--no-scaleup", dest="scaleup", action="store_false")
+    q.set_defaults(func=cmd_ivector_normalize_length)
+
+    q = sub.add_parser("ivector-subtract-global-mean")
+    q.add_argument("rspecifier")
+    q.add_argument("wspecifier")
+    q.add_argument("--mean", default="",
+                   help="precomputed mean ark (from ivector-mean)")
+    q.set_defaults(func=cmd_ivector_subtract_global_mean)
+
+    q = sub.add_parser("logistic-regression-train")
+    q.add_argument("rspecifier")
+    q.add_argument("utt2label")
+    q.add_argument("model_out")
+    q.add_argument("--max-steps", type=int, default=100)
+    q.add_argument("--normalizer", type=float, default=0.0025)
+    q.set_defaults(func=cmd_logistic_regression_train)
+
+    q = sub.add_parser("logistic-regression-eval")
+    q.add_argument("model")
+    q.add_argument("rspecifier")
+    q.add_argument("wspecifier")
+    q.add_argument("--utt2label", default="",
+                   help="truth labels; prints accuracy")
+    q.set_defaults(func=cmd_logistic_regression_eval)
+
+    q = sub.add_parser("logistic-regression-copy")
+    q.add_argument("model")
+    q.add_argument("model_out")
+    q.set_defaults(func=cmd_logistic_regression_copy)
+
+    q = sub.add_parser("copy-gselect")
+    q.add_argument("gselect_in")
+    q.add_argument("gselect_out")
+    q.set_defaults(func=cmd_copy_gselect)
+
+    for name in ("acc-lda", "gmm-acc-mllt"):
+        q = sub.add_parser(name)
+        q.add_argument("model")
+        q.add_argument("rspecifier")
+        q.add_argument("post_in")
+        q.add_argument("accs_out")
+        q.set_defaults(func=cmd_acc_lda if name == "acc-lda"
+                       else cmd_gmm_acc_mllt)
+
+    q = sub.add_parser("est-lda")
+    q.add_argument("accs")
+    q.add_argument("matrix_out")
+    q.add_argument("--dim", type=int, default=40)
+    q.set_defaults(func=cmd_est_lda)
+
+    q = sub.add_parser("est-mllt")
+    q.add_argument("accs")
+    q.add_argument("matrix_out")
+    q.set_defaults(func=cmd_est_mllt)
+
+    for name, func in (("sum-lda-accs", cmd_sum_lda_accs),
+                       ("sum-mllt-accs", cmd_sum_mllt_accs)):
+        q = sub.add_parser(name)
+        q.add_argument("accs_out")
+        q.add_argument("accs_in", nargs="+")
+        q.set_defaults(func=func)
+
+    q = sub.add_parser("train-lda-mllt")
+    q.add_argument("model", help="alignment system")
+    q.add_argument("text")
+    q.add_argument("rspecifier", help="raw (unspliced) features")
+    q.add_argument("ali_rspecifier",
+                   help="features in the alignment model's space")
+    q.add_argument("model_out")
+    q.add_argument("transform_out", help="composed MLLT*LDA transform ark")
+    q.add_argument("--num-iters", type=int, default=15)
+    q.add_argument("--totgauss", type=int, default=200)
+    q.add_argument("--num-leaves", type=int, default=50)
+    q.add_argument("--lda-dim", type=int, default=40)
+    q.add_argument("--splice-left", type=int, default=3)
+    q.add_argument("--splice-right", type=int, default=3)
+    q.set_defaults(func=cmd_train_lda_mllt)
+
+    q = sub.add_parser("online2-wav-gmm-latgen-faster")
+    q.add_argument("model")
+    q.add_argument("graph")
+    q.add_argument("wav_scp")
+    q.add_argument("--transcription-out", default="")
+    q.add_argument("--utt2spk", default="")
+    q.add_argument("--sample-frequency", type=float, default=16000.0)
+    q.add_argument("--num-ceps", type=int, default=13)
+    q.add_argument("--delta-order", type=int, default=2)
+    q.add_argument("--beam", type=float, default=16.0)
+    q.add_argument("--max-active", type=int, default=256)
+    q.add_argument("--acoustic-scale", type=float, default=0.1)
+    q.add_argument("--chunk-secs", type=float, default=0.4)
+    q.add_argument("--adaptation-delay", type=float, default=2.0)
+    q.add_argument("--fmllr-min-count", type=float, default=100.0)
+    q.set_defaults(func=cmd_online2_wav_gmm_latgen_faster)
+
+    q = sub.add_parser("online2-wav-dump-features")
+    q.add_argument("wav_scp")
+    q.add_argument("wspecifier")
+    q.add_argument("--sample-frequency", type=float, default=16000.0)
+    q.add_argument("--num-ceps", type=int, default=13)
+    q.add_argument("--delta-order", type=int, default=2)
+    q.add_argument("--chunk-secs", type=float, default=0.4)
+    q.set_defaults(func=cmd_online2_wav_dump_features)
+
+    q = sub.add_parser("post-to-tacc")
+    q.add_argument("model")
+    q.add_argument("post_in")
+    q.add_argument("acc_out")
+    q.set_defaults(func=cmd_post_to_tacc)
 
 
 def _register_nnet(sub):
@@ -6279,7 +7283,7 @@ def main(argv=None) -> int:
     sub = p.add_subparsers(dest="cmd", required=True)
     _register(sub)
     for module in (cli_nnet, cli_misc, cli_fst, cli_gmm_extra,
-                   cli_online_extra, cli_tail):
+                   cli_online_extra, cli_tail, cli_adapt):
         module.register(sub)
     for name in DEVICE_COMMANDS:
         sub.choices[name].add_argument("--device", default="cuda",

@@ -324,6 +324,117 @@ def cmd_gmm_acc_stats_twofeats(args):
 
 # ------------------------------------------------------------ registration
 
+def cmd_fgmm_global_init_from_accs(args):
+    """Full GMM straight from accumulated stats
+    (ref: fgmmbin/fgmm-global-init-from-accs.cc)."""
+    from kaldi_tpu_torch.io.model_io import save_ubm
+    from kaldi_tpu_torch.gmm.full_gmm import FullGmm
+    z = np.load(args.accs_in)
+    occ = z["occ"]
+    D = z["mean_acc"].shape[1]
+    keep = occ > max(args.min_gaussian_occupancy, 1e-10)
+    occ_k = occ[keep]
+    means = z["mean_acc"][keep] / occ_k[:, None]
+    cov = (z["cov_acc"][keep] / occ_k[:, None, None]
+           - np.einsum("md,me->mde", means, means))
+    cov += np.eye(D)[None] * args.variance_floor
+    weights = occ_k / occ_k.sum()
+    ncomp = int(args.num_components)
+    if ncomp and ncomp < len(weights):
+        order = np.argsort(-occ_k)[:ncomp]
+        weights = weights[order] / weights[order].sum()
+        means, cov = means[order], cov[order]
+    save_ubm(args.model_out, FullGmm(weights, means, cov))
+    print(f"fgmm-global-init-from-accs: {len(weights)} components",
+          file=sys.stderr)
+
+
+def cmd_fgmm_global_merge(args):
+    """Concatenate several full GMMs, proportionally reweighted; writes
+    the sizes file (ref: fgmmbin/fgmm-global-merge.cc)."""
+    from kaldi_tpu_torch.io.model_io import load_ubm, save_ubm
+    from kaldi_tpu_torch.gmm.full_gmm import FullGmm
+    parts = [load_ubm(p) for p in args.fgmm_in]
+    parts = [p if isinstance(p, FullGmm)
+             else FullGmm.from_diag(p.weights, p.means, p.vars)
+             for p in parts]
+    n = len(parts)
+    weights = np.concatenate([p.weights / n for p in parts])
+    means = np.concatenate([p.means for p in parts])
+    covars = np.concatenate([p.covars for p in parts])
+    save_ubm(args.fgmm_out, FullGmm(weights / weights.sum(), means,
+                                    covars))
+    with open(args.sizes_out, "w") as f:
+        f.write(" ".join(str(p.num_gauss) for p in parts) + "\n")
+    print(f"fgmm-global-merge: {len(weights)} total components",
+          file=sys.stderr)
+
+
+def _merge_cost(w1, m1, c1, w2, m2, c2):
+    """Likelihood loss of merging two weighted full Gaussians."""
+    w = w1 + w2
+    m = (w1 * m1 + w2 * m2) / w
+    c = (w1 * (c1 + np.outer(m1, m1)) + w2 * (c2 + np.outer(m2, m2))) / w \
+        - np.outer(m, m)
+    def ld(c_):
+        sign, v = np.linalg.slogdet(c_ + 1e-8 * np.eye(len(m)))
+        return v
+    return 0.5 * (w * ld(c) - w1 * ld(c1) - w2 * ld(c2)), (w, m, c)
+
+
+def cmd_fgmm_global_mixdown(args):
+    """Greedy pair merging down to --mixdown-target components; gselect
+    co-occurrence proposes candidate pairs when given
+    (ref: fgmmbin/fgmm-global-mixdown.cc)."""
+    from kaldi_tpu_torch.io.model_io import load_ubm, save_ubm
+    from kaldi_tpu_torch.gmm.full_gmm import FullGmm
+    ubm = load_ubm(args.model)
+    if not isinstance(ubm, FullGmm):
+        ubm = FullGmm.from_diag(ubm.weights, ubm.means, ubm.vars)
+    if args.mixdown_target <= 0:
+        raise SystemExit("fgmm-global-mixdown: --mixdown-target required")
+    w = list(ubm.weights)
+    m = list(ubm.means)
+    c = list(ubm.covars)
+    co = None
+    if args.gselect:
+        I = len(w)
+        co = np.zeros((I, I))
+        for _utt, frames in _read_gselect(args.gselect).items():
+            for idx in frames:
+                for a in idx:
+                    for b in idx:
+                        if a < b:
+                            co[a, b] += 1
+    while len(w) > args.mixdown_target:
+        if co is not None and co.any():
+            cand = np.argwhere(co > 0)
+            order = np.argsort(-co[cand[:, 0], cand[:, 1]])
+            cand = [tuple(x) for x in cand[order[: args.num_pairs]]]
+        else:
+            cand = [(i, j) for i in range(len(w))
+                    for j in range(i + 1, len(w))]
+        best = None
+        for (i, j) in cand:
+            if i >= len(w) or j >= len(w) or i == j:
+                continue
+            cost, merged = _merge_cost(w[i], m[i], c[i], w[j], m[j], c[j])
+            if best is None or cost < best[0]:
+                best = (cost, i, j, merged)
+        if best is None:
+            break
+        _cost, i, j, (wm, mm, cm) = best
+        for lst in (w, m, c):
+            lst[i] = None
+        w[i], m[i], c[i] = wm, mm, cm
+        w.pop(j), m.pop(j), c.pop(j)
+        if co is not None:
+            co = np.delete(np.delete(co, j, 0), j, 1)
+    save_ubm(args.model_out, FullGmm(np.array(w) / np.sum(w),
+                                     np.stack(m), np.stack(c)))
+    print(f"fgmm-global-mixdown: -> {len(w)} components", file=sys.stderr)
+
+
 def register(sub):
     def add(name, func, *arg_specs):
         q = sub.add_parser(name)
@@ -343,6 +454,17 @@ def register(sub):
                  "fgmm-global-acc-stats-twofeats"):
         add(name, cmd_gmm_global_acc_stats_twofeats,
             a("model"), a("rspecifier"), a("rspecifier2"), a("accs_out"))
+    add("fgmm-global-init-from-accs", cmd_fgmm_global_init_from_accs,
+        a("accs_in"), a("num_components", type=int), a("model_out"),
+        a("--min-gaussian-occupancy", type=float, default=10.0),
+        a("--variance-floor", type=float, default=1e-3))
+    add("fgmm-global-merge", cmd_fgmm_global_merge,
+        a("fgmm_out"), a("sizes_out"), a("fgmm_in", nargs="+"))
+    add("fgmm-global-mixdown", cmd_fgmm_global_mixdown,
+        a("model"), a("model_out"),
+        a("--mixdown-target", type=int, default=-1),
+        a("--gselect", default=""),
+        a("--num-pairs", type=int, default=20000))
     add("init-ubm", cmd_init_ubm,
         a("model"), a("occs"), a("gmm_out"),
         a("--ubm-num-gauss", type=int, default=400),

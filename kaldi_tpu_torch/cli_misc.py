@@ -400,6 +400,27 @@ def cmd_cuda_gpu_available(args):
 
 # ------------------------------------------------------------ registration
 
+def cmd_ivector_randomize(args):
+    """With probability p, replace online-ivector row t by a row drawn
+    uniformly from [t, T) — training-time robustness to the amount of
+    accumulated context (ref: online2bin/ivector-randomize.cc); numpy's
+    RandomState, so JAX's draws."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, open_wspecifier
+    rng = np.random.RandomState(args.srand)
+    n = 0
+    with open_wspecifier(args.wspecifier) as out:
+        for k, m in open_rspecifier(args.rspecifier):
+            m = np.asarray(m, np.float32)
+            T = m.shape[0]
+            res = m.copy()
+            for t in range(T):
+                if rng.uniform() <= args.randomize_prob:
+                    res[t] = m[rng.randint(t, T)]
+            out.write(k, res)
+            n += 1
+    print(f"ivector-randomize: {n} matrices", file=sys.stderr)
+
+
 def register(sub):
     def add(name, func, *arg_specs):
         q = sub.add_parser(name)
@@ -410,6 +431,10 @@ def register(sub):
     def a(*args, **kw):
         return (args, kw)
 
+    add("ivector-randomize", cmd_ivector_randomize,
+        a("rspecifier"), a("wspecifier"),
+        a("--randomize-prob", type=float, default=0.5),
+        a("--srand", type=int, default=0))
     add("dot-weights", cmd_dot_weights,
         a("rspecifier1"), a("rspecifier2"), a("wspecifier"))
     add("reverse-weights", cmd_reverse_weights,

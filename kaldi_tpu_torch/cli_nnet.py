@@ -321,15 +321,21 @@ def cmd_nnet_am_rescale(args):
     n = min(len(egs["feats"]), args.max_examples)
     feats = torch.as_tensor(egs["feats"][:n], device=dev)
     params = am.model.params()
+    tree = _tree(am)
     for _ in range(args.num_iters):
         with torch.no_grad():
             stats = am.replace_params(params).model.hidden_mean_abs(feats)
         for i, avg in enumerate(stats):
             mean = max(float(avg.cpu().numpy().mean()), 1e-8)
-            s = float(np.clip(args.target_avg / mean, 0.5, 2.0))
-            params[f"layers.{i}.w"] = params[f"layers.{i}.w"] * s
-            params[f"layers.{i}.b"] = params[f"layers.{i}.b"] * s
-    _save_am(args.nnet_out, am.replace_params(params))
+            # the clipped scale is numpy f64, so the scaled leaves are f64
+            # host arrays as in JAX's file; the forward reads them in f32
+            s = np.clip(args.target_avg / mean, 0.5, 2.0)
+            layer = tree["layers"][i]
+            for k in ("w", "b"):
+                layer[k] = layer[k] * s
+                params[f"layers.{i}.{k}"] = torch.as_tensor(
+                    np.asarray(layer[k], np.float32), device=dev)
+    _save_tree(args.nnet_out, am, tree)
     print(f"nnet-am-rescale: target {args.target_avg} over {n} egs",
           file=sys.stderr)
 

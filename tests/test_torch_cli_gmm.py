@@ -134,6 +134,14 @@ def same_files(res, close=None, printed=True, code=0):
                 close(k, g, w)
 
 
+def same_leaves(zj, zt):
+    """Two `.npz` model files hold the same members, each with JAX's dtype
+    and shape (a file compared within a bound keeps JAX's layout)."""
+    assert sorted(zj.files) == sorted(zt.files)
+    for k in zj.files:
+        assert (zt[k].dtype, zt[k].shape) == (zj[k].dtype, zj[k].shape), k
+
+
 def rel_close(rel):
     """|got - want| <= rel * max |want| of the array."""
     def close(k, g, w):

@@ -41,7 +41,7 @@ import torch
 from kaldi_tpu_torch.lat.io import read_lattice_ark
 from test_gmmbin_cli import _tiny_corpus
 from test_torch_cli_features import run_both, same_arks, same_bytes, tol
-from test_torch_cli_gmm import rel_close, same_files
+from test_torch_cli_gmm import rel_close, same_files, same_leaves
 from test_torch_cli_nnet2 import (SEARCH, few_utts, jok, posterior_bound,
                                   std_ratio_ok, tok, wer_of_lattices)
 from test_torch_lattice import _same_lattice
@@ -238,6 +238,7 @@ def test_adjust_priors_within_the_posteriors_bound(sysd, tmp_path):
     assert jc == tc == 0
     zj, zt = np.load(_o(jd, "p.npz")), np.load(_o(td, "p.npz"))
     assert zj.files == zt.files
+    same_leaves(zj, zt)
     for k in zj.files:
         if k == "priors":
             assert np.abs(zt[k] - zj[k]).max() <= bound

@@ -26,10 +26,9 @@ utterances).
   draw): every array equal, the zeros' signs aside.
 - Fitted on the device: nnet-am-shrink (and nnet-shrink) by
   tests/test_torch_surgery.py's shrink contract (`test_shrink_...`);
-  nnet-am-fix within 1e-5; nnet-am-rescale within 1e-5 of each leaf
-  (JAX's file
-  holds f64 leaves: numpy promotes the f32 weights by the clipped f64
-  scale; the port keeps the model's f32); trainers within 1e-5
+  nnet-am-fix within 1e-5; nnet-am-rescale with JAX's dtypes (f64
+  scaled layers: numpy promotes the f32 weights by the clipped f64
+  scale) within 1e-5 of each leaf; trainers within 1e-5
   (chip_smoke.TRAIN_LIMITS["f32"]); nnet-train-discriminative-simple's
   update within 1e-3 of its largest |value| (posteriors of lattices
   rescored with loglikes 1e-5 apart, as in test_torch_cli_nnet1).
@@ -44,7 +43,7 @@ import torch
 
 from kaldi_tpu_torch.io.kaldi_io import read_ark, write_ark
 from test_torch_cli_features import run_both, same_arks, same_bytes, tol
-from test_torch_cli_gmm import rel_close, same_files
+from test_torch_cli_gmm import rel_close, same_files, same_leaves
 from test_torch_cli_nnet1 import SEQ_UPDATE_REL, proto
 from test_torch_cli_nnet2 import (SEARCH, TRAIN_REL, jok, nnet2_system,
                                   std_ratio_ok)
@@ -318,6 +317,7 @@ def test_shrink_within_bound(sysd, tmp_path, name):
     (jd, _jo, jc), (td, _to, tc) = res["jax"], res["port"]
     assert jc == tc == 0
     zj, zt = np.load(_o(jd, "s.npz")), np.load(_o(td, "s.npz"))
+    same_leaves(zj, zt)
     for k in ("final_w", "final_b"):
         rel_close(SHRINK_REL)(k, zt[k], zj[k])
     x = _read_egs_dir(sysd("valid"))["feats"]
@@ -368,20 +368,17 @@ def test_model_commands_within_bound(sysd, tmp_path, name):
 
 def test_rescale_within_bound(sysd, tmp_path):
     """JAX's file holds f64 layers (numpy promotes the f32 weights by the
-    clipped f64 scale); the port keeps the model's f32, each leaf within
-    1e-5 of its largest |value|."""
+    clipped f64 scale), and so does the port's: each leaf has JAX's dtype
+    and shape, within 1e-5 of its largest |value|."""
     res = _run(sysd, tmp_path, lambda P, O: [
         "nnet-am-rescale", P("nn1.npz"), P("valid"), _o(O, "r.npz"),
         "--num-iters", "2"], device=True)
-    (jd, _jo, jc), (td, _to, tc) = res["jax"], res["port"]
-    assert jc == tc == 0
-    zj, zt = np.load(_o(jd, "r.npz")), np.load(_o(td, "r.npz"))
-    assert sorted(zj.files) == sorted(zt.files)
-    for k in zj.files:
-        if zj[k].dtype.kind == "f":
-            rel_close(1e-5)(k, zt[k], zj[k])
-        else:
-            assert np.array_equal(zt[k], zj[k]), k
+    same_files(res, close=rel_close(1e-5), printed=False)
+    z = np.load(_o(res["port"][0], "r.npz"))
+    assert {z[k].dtype for k in z.files if k.startswith("layer")} >= {
+        np.dtype(np.float64)}
+    from kaldi_tpu.io.model_io import load_am_nnet as jax_load_am_nnet
+    jax_load_am_nnet(_o(res["port"][0], "r.npz"))
 
 
 @pytest.mark.parametrize("name", ["nnet-train-discriminative-simple",
@@ -394,7 +391,7 @@ def test_discriminative_within_the_posteriors_bound(sysd, tmp_path, name):
     assert jc == tc == 0
     z0 = np.load(sysd("nn1.npz"))
     zj, zt = np.load(_o(jd, "d.npz")), np.load(_o(td, "d.npz"))
-    assert sorted(zj.files) == sorted(zt.files)
+    same_leaves(zj, zt)
     for k in zj.files:
         if zj[k].dtype.kind != "f" or k == "priors":
             assert np.array_equal(zt[k], zj[k]), k

@@ -919,3 +919,19 @@ def test_cli_nnet_slice_card_equal_cpu(card, tmp_path):
     finally:
         cs.CLI_CASES = cases
     assert set(res) == {n for n, _a, _k, _o in cs.NNET_CLI_CASES}
+
+
+def test_cli_sre_slice_card_equal_cpu(card, tmp_path):
+    """The fifth slice's (5a) device commands (chip_smoke.SRE_CLI_CASES:
+    ivector-extract and the extractor's EM, the UBMs, logistic regression,
+    LDA+MLLT training and the online GMM) on the card and with --device
+    cpu, each within its bound."""
+    import chip_smoke as cs
+    cases = cs.CLI_CASES
+    try:
+        cs.CLI_CASES = cs.SRE_CLI_CASES
+        res = cs.cli_card_vs_cpu(str(tmp_path))
+    finally:
+        cs.CLI_CASES = cases
+    assert set(res) == {n for n, _a, _k, _o in cs.SRE_CLI_CASES}
+    assert "ivector-extract" in res

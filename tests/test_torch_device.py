@@ -834,6 +834,7 @@ def test_cli_fourth_slice_device_commands_take_device():
     are among those checked below, and each is a card-vs-CPU case of
     chip_smoke's phase 35; the host ones (copies, info, averages, surgery
     that rewrites parameters, egs files, inits) take none."""
+    from kaldi_tpu_torch import cli
     from test_torch_cli_surface import _parsers
     device = set(_cli_device_commands())
     assert {"nnet3-compute", "nnet-forward", "nnet-train-frmshuff",
@@ -853,7 +854,8 @@ def test_cli_fourth_slice_device_commands_take_device():
     import chip_smoke as cs
     cased = {argv(lambda *n: "", "")[0]
              for _n, argv, _k, _a in cs.NNET_CLI_CASES}
-    assert cased == device - set(_cli_device_commands_before_slice_4())
+    assert cased == device - set(_cli_device_commands_before_slice_4()) \
+        - set(cli.SPEAKER_DEVICE_COMMANDS)
     parsers = _parsers("kaldi_tpu_torch.cli")
     for name in ("nnet3-info", "nnet3-copy", "nnet3-average", "nnet3-init",
                  "nnet-am-init", "nnet-am-info", "nnet-am-copy",
@@ -862,6 +864,38 @@ def test_cli_fourth_slice_device_commands_take_device():
                  "nnet-am-mixup", "nnet-am-widen", "raw-nnet-concat",
                  "nnet3-acc-lda-stats", "compute-mce-scale",
                  "build-pfile-from-ali"):
+        assert name not in device
+        assert all(a.dest != "device" for a in parsers[name]._actions)
+
+
+def test_cli_fifth_slice_device_commands_take_device():
+    """The fifth CLI slice's (5a) commands that build a device object (UBM
+    and extractor EM, batched i-vectors, logistic regression's steps,
+    LDA+MLLT training, the online GMM) are among those checked below, and
+    each is a card-vs-CPU case of chip_smoke's phase 35; the host ones
+    (PLDA, scoring, means, LDA / MLLT statistics and estimates, the
+    full-UBM tools, online i-vectors) take none."""
+    from kaldi_tpu_torch import cli
+    from test_torch_cli_surface import _parsers
+    device = set(_cli_device_commands())
+    slice5 = set(cli.SPEAKER_DEVICE_COMMANDS)
+    assert slice5 == {
+        "fgmm-global-est", "train-ubm", "train-ivector-extractor",
+        "ivector-extract", "ivector-extractor-acc-stats",
+        "ivector-extractor-est", "logistic-regression-train",
+        "train-lda-mllt", "online2-wav-dump-features",
+        "online2-wav-gmm-latgen-faster"} and slice5 <= device
+    import chip_smoke as cs
+    assert {argv(lambda *n: "", "")[0]
+            for _n, argv, _k, _a in cs.SRE_CLI_CASES} == slice5
+    parsers = _parsers("kaldi_tpu_torch.cli")
+    for name in ("ivector-extractor-init", "ivector-extractor-sum-accs",
+                 "ivector-compute-plda", "train-plda", "ivector-plda-scoring",
+                 "ivector-mean", "ivector-extract-online2", "compute-eer",
+                 "fgmm-global-acc-stats", "fgmm-global-mixdown",
+                 "logistic-regression-eval", "acc-lda", "est-lda",
+                 "gmm-acc-mllt", "est-mllt", "gmm-acc-mllt-global",
+                 "get-full-lda-mat", "post-to-tacc", "lattice-arcgraph"):
         assert name not in device
         assert all(a.dest != "device" for a in parsers[name]._actions)
 

@@ -3,9 +3,10 @@
 In a fresh interpreter whose import system refuses `jax` and `jaxlib`,
 every kaldi_tpu_torch module (the int8 path, AmNnet, the streaming
 server, the lattice modules, the training modules and the online path
-among them) and chip_smoke.py's helpers import, and a small decode, a
-record decode and its lattices (native and numpy), two train steps of a
-tiny TDNN with clipping, momentum and NG-SGD, the online path (MFCC
+among them), chip_smoke.py's helpers and chip_probes.py import, and a
+small decode, a record decode and its lattices (native and numpy), two
+train steps of a tiny TDNN with clipping, momentum and NG-SGD, the
+online path (MFCC
 and deltas, the padded decoder, both fused engines, the nnet2 decoder
 with i-vectors), the dense decoder on the yesno HCLG, the port's
 `recipe-yesno` (the GMM path end to end), its `recipe-yesno-files` (the
@@ -13,8 +14,9 @@ CLI's first slice over files) and one subcommand of each other group of
 that slice and of the second (FSTs, GMMs, cli_fst, cli_gmm_extra), the
 third slice's lattice decode with a lattice and a posterior subcommand
 and `kws-search` on its lattices, the fourth slice's egs, nnet2 init and
-SGD, an nnet diagnostic, nnet3 LDA statistics and an MCE scale, and a
-small triphone run
+SGD, an nnet diagnostic, nnet3 LDA statistics and an MCE scale, the
+fifth slice's extractor init, i-vectors and global MLLT statistics
+(cli_adapt), and a small triphone run
 (train_deltas from a monophone, its HCLG through the flat pipeline on the
 port's native graph ops, a decode) and two bMMI and two fMMI iterations
 from that triphone model run on the CPU; then two NG-SGD steps of a tiny
@@ -134,6 +136,7 @@ for n in ("kaldi_tpu_torch.cuda_build", "kaldi_tpu_torch.nnet.quantized",
           "kaldi_tpu_torch.cli_online_extra", "kaldi_tpu_torch.cli_misc",
           "kaldi_tpu_torch.cli_nnet", "kaldi_tpu_torch.cli_fst",
           "kaldi_tpu_torch.cli_gmm_extra", "kaldi_tpu_torch.cli_tail",
+          "kaldi_tpu_torch.cli_adapt",
           "kaldi_tpu_torch.fst.text_io", "kaldi_tpu_torch.fst.special",
           "kaldi_tpu_torch.fst.factor", "kaldi_tpu_torch.hmm.hmm_utils",
           "kaldi_tpu_torch.tree.synth", "kaldi_tpu_torch.decoder.simple",
@@ -145,6 +148,7 @@ for n in ("kaldi_tpu_torch.cuda_build", "kaldi_tpu_torch.nnet.quantized",
           "kaldi_tpu_torch.scripts.mkgraph_scale"):
     assert n in names, n
 import chip_smoke
+import chip_probes  # noqa: F401
 from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder, CsrBeamOpts
 g = chip_smoke.star_hub_graph(40)
 dec = CsrBeamDecoder(g, CsrBeamOpts(beam=1e9, max_active=32,
@@ -299,6 +303,15 @@ with tempfile.TemporaryDirectory() as w, \
             ["nnet3-acc-lda-stats", f"{w}/egs", f"{w}/lda.npz"],  # cli_tail
             ["compute-mce-scale", f"ark:{w}/s.ark", f"ark:{w}/s.ark",
              f"ark:{w}/mce.ark"]):                            # cli_misc
+        assert cli.main(argv) == 0, argv
+    # the fifth slice (5a): the extractor and i-vectors (cli), the
+    # global MLLT statistics (cli_adapt)
+    for argv in (
+            ["ivector-extractor-init", f"{w}/ubm.npz", f"{w}/ext.npz",
+             "--ivector-dim", "4"],
+            ["ivector-extract", f"{w}/ext.npz", tf, f"ark:{w}/iv.ark",
+             "--num-gselect", "2", "--device", "cpu"],
+            ["gmm-acc-mllt-global", f"{w}/ubm.npz", tf, f"{w}/macc.npz"]):
         assert cli.main(argv) == 0, argv
 from kaldi_tpu_torch.decoder.graph_pack import pack_graphs
 from kaldi_tpu_torch.fst.graph import TrainingGraphCompiler
