@@ -341,7 +341,7 @@ Phases (any failure raises and the script exits non-zero):
      information); (c) the self-built triphone graph at the full tree
      width (the port's copy of scripts/mkgraph_scale.py's `build`, 2,000
      words), verified and decoded card == CPU on seeded loglikes;
- 35. the CLI's first five slices, small: every case of `CLI_CASES`
+ 35. the CLI's five slices, small: every case of `CLI_CASES`
      (the first slice's feature, CMVN, table, matrix, vector, wave,
      data-dir and probe subcommands on seeded files; the second's device
      subcommands on a small yesno GMM system: alignments identical, model
@@ -352,7 +352,11 @@ Phases (any failure raises and the script exits non-zero):
      1e-4, gmm-latgen-faster, the biglm pair and decode-fmllr the same
      words, gmm-rescore-lattice's costs within the loglikes' bound; the
      fourth's nnet cases; the fifth's (5a) speaker, logistic-regression,
-     LDA+MLLT and online-GMM device cases, `SRE_CLI_CASES`)
+     LDA+MLLT and online-GMM device cases, `SRE_CLI_CASES`; and its 5b
+     adaptation and SGMM2 device cases, `ADAPT_CLI_CASES`: the SGMM2's
+     f64 results within 1e-9, fMLLR-type transforms within 2e-3 of
+     their largest entry, posterior-fed statistics within 1e-3, the two
+     fMLLR bases by their Rayleigh quotients, the decodes by words)
      in-process with the default device
      (the card) and with --device cpu, host files byte-equal and device
      results within their parity tests' bounds; recipe-yesno-files on
@@ -419,19 +423,38 @@ Phases (any failure raises and the script exits non-zero):
      extractor, i-vectors, PLDA and cosine scoring, the EER, logistic
      regression; PLDA EER <= 15% and below the cosine one, seconds by
      command and stage, file sizes, peak memory; neither kernel launches.
+ 41. Kaldi's egs/rm/s5 adaptation and SGMM2 chain through the CLI's files
+     on phase 37's (`phase_adapt_cli`): train_sat.sh as primitives
+     (fMLLR from silence-weighted alignment posteriors, the tree on the
+     fMLLR features, EM with realignment and fMLLR re-estimation, the SI
+     model by two-feature statistics), mkgraph.sh's primitives,
+     decode_fmllr.sh (the SI pass, its lattices' posteriors, the
+     speakers' fMLLR, the adapted pass), train_ubm.sh (init-ubm at 400
+     gaussians, the gmm-global-* EM), train_sgmm2.sh at phase 28's
+     SGMM_WIDTH (sgmm2-init, sgmm2-gselect, sharded sgmm2-acc-stats ->
+     sgmm2-sum-accs -> sgmm2-est with the substate split, one
+     realignment by sgmm2-align-compiled) and decode_sgmm2.sh
+     (sgmm2-latgen-faster, sgmm2-rescore-lattice); SAT <= its SI pass and
+     <= LADDER_BARS' tri bar, SGMM2 < 20 (PARITY.md:36; SGMM2 <= SAT + 5
+     reported: JAX's updates miss it at width, ROADMAP §3 B 8),
+     the shards' sums equal one accumulation, one sgmm2-acc-stats at
+     width card == --device cpu within 1e-9, the rescored lattices keep
+     their best paths; seconds by stage and command kind, file sizes,
+     peak memory, each WER; neither kernel launches.
 
-Phases 20, 22 (b), 24 (c) and 28 (b) save the inputs of the recipe
+Phases 20, 22 (b), 24 (c), 28 (b) and 41 save the inputs of the recipe
 witnesses (chiprun_out/sat_witness.pkl and csr_witness.pkl, then
 smbr_witness.pkl, dbn_witness.pkl and lvtln_witness.pkl; with
-raw_fmllr_witness.pkl and sgmm_witness.pkl from 28), which
+raw_fmllr_witness.pkl and sgmm_witness.pkl from 28, and
+sgmm_cli_witness.pkl from 41, read by test_torch_sgmm_witness.py), which
 tests/test_torch_<name>_witness.py replays through JAX on a CPU.
 
 Two processes share the card. Most phases that take nothing from phase
 20's ladder run in a second one (the script with --side-phases): the
 bench graph's chain (7, 8, 10, 13, 14, 34, 36, 18, 30 a and c), 37, 38,
-39, 40, then the small card-vs-CPU phases (5, 6, 9, 11, 12, 15, 17, 21, 23,
+39, 41, 19, then the small card-vs-CPU phases (5, 6, 9, 11, 12, 15, 17, 21, 23,
 25, 27, 29, 31, 33); this one runs 1-4, then 16, 20, 22, 24, 26, 28, 30 b,
-32, 35 and 19 beside it, and prints the second's log after phase 19's, with
+32, 40 and 35 beside it, and prints the second's log after phase 35's, with
 both processes' ends on its clock. Each phase's start goes to stderr with
 the seconds since its process began; a run still going at 1000 s dumps
 every thread's stack there.
@@ -504,9 +527,9 @@ SOCKET_TIMEOUT_S = 120
 # second process beside those that do: its stdout in SIDE_LOG (copied to
 # this one's at the end), its launch counts in SIDE_RESULTS, its CPU ops
 # on SIDE_THREADS threads so that the other's host loops keep their cores.
-# Phase 35, small too, runs in this process after phase 32, and phase 19
-# in the second one after phase 39 (since phase 40 joined this one), which
-# keeps the two processes' times within 30 s of each other
+# Phases 40 and 35 run in this process after phase 32; phase 41 (on
+# phase 37's files) and then phase 19 run in the second one after phase
+# 39: which keeps the two processes' times within 30 s of each other
 SMALL_PHASES = (
     (5, "decoder on the card vs on the CPU", "phase_decoder_parity"),
     (6, "int8 decode on the card vs on the CPU", "phase_int8_parity"),
@@ -9866,6 +9889,7 @@ def cli_inputs(d: str):
     cli_gmm_inputs(lambda *n: P("gmm", *n), rng)
     cli_nnet_inputs(lambda *n: P("nnet", *n), lambda *n: P("gmm", *n))
     cli_sre_inputs(lambda *n: P("sre", *n))
+    cli_adapt_inputs(lambda *n: P("adapt", *n), lambda *n: P("gmm", *n))
     return P
 
 
@@ -10497,6 +10521,447 @@ SRE_CLI_CASES = [
 CLI_CASES += SRE_CLI_CASES
 
 
+# the fifth slice's (5b) device commands, on the yesno GMM system
+# (cli_gmm_inputs) and the adaptation and SGMM files made from it
+# (cli_adapt_inputs), each held to tests/test_torch_cli_adapt.py's and
+# test_torch_cli_sgmm.py's bound: "a_f64" for the SGMM2's f64 scoring,
+# statistics and updates (ADAPT_CLI_REL, test_torch_sgmm.py's 1e-9);
+# "a_solve" for HLDA's f64 cyclic row updates (its parity test's 1e-6);
+# "a_fmllr" for the fMLLR-type transforms of f32 gaussian posteriors;
+# "a_stats" for posterior-fed statistics (MAP means, basis and MLLR
+# statistics); "a_basis" and "a_sbasis" for the two fMLLR bases by each
+# vector's Rayleigh quotient under the CPU's scatter (their eigenvectors
+# of near-equal eigenvalues rotate freely); train-sat by its pdf and
+# gaussian counts ("outcome"), train-sgmm2 by its printed counts and
+# loglike ("a_sgmm_outcome"); the decodes by their words ("words")
+ADAPT_CLI_REL = {"a_f64": 1e-9, "a_solve": 1e-6, "a_fmllr": 2e-3,
+                 "a_stats": 1e-3}
+ADAPT_CLI_LIKE_TOL = 1e-2    # train-sgmm2's printed loglike per frame
+
+
+def _ad(P, *n):
+    return P("adapt", *n)
+
+
+def _adg(P, *n):
+    return P("gmm", *n)
+
+
+def cli_adapt_inputs(A, G) -> None:
+    """The fifth slice's (5b) device commands' inputs under A(name), made
+    through the CLI on the CPU from the yesno GMM system under G(name):
+    a regression tree and its fMLLR and MLLR transforms, an LVTLN file
+    and warped features, a diagonal UBM, MAP-adapted models, an fMLLR
+    basis and its statistics, HLDA statistics, the lattices' arc graphs,
+    an SGMM2 (8 gaussians of the full UBM, phn-dim 10, spk-dim 3, split
+    to 20 substates) with its statistics (plain and from signed
+    posteriors), gaussian-level posteriors, fMLLR-basis statistics and
+    lattices."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, write_ark
+    os.makedirs(A(), exist_ok=True)
+    feats, cpu = f"ark:{G('feats.ark')}", ["--device", "cpu"]
+    spk = ["--utt2spk", G("utt2spk")]
+    write_ark(A("warped.ark"), {
+        k: (v * np.linspace(0.9, 1.1, v.shape[1])[None]).astype(np.float32)
+        for k, v in open_rspecifier(feats)})
+    for argv in (
+            ["gmm-make-regtree", G("mono.npz"), A("regtree.npz"),
+             "--max-leaves", "3"],
+            ["gmm-init-lvtln", A("lvtln.npz"), "--dim", "39", "--warps",
+             "0.9:1.0:1.1"],
+            ["init-ubm", G("mono.npz"), G("acc.npz"), A("dubm.npz"),
+             "--ubm-num-gauss", "6", "--fullcov-ubm", "false"],
+            ["gmm-est-regtree-fmllr", G("mono.npz"), A("regtree.npz"), feats,
+             G("post.txt"), f"ark:{A('rt.ark')}", "--min-count", "50",
+             *spk, *cpu],
+            ["gmm-est-regtree-mllr", G("mono.npz"), A("regtree.npz"), feats,
+             G("post.txt"), f"ark:{A('rtm.ark')}", "--min-count", "50",
+             *spk, *cpu],
+            ["gmm-adapt-map", G("mono.npz"), feats, G("post.txt"),
+             A("mapdir"), *spk, *cpu],
+            ["gmm-basis-fmllr-training", G("mono.npz"), feats, G("post.txt"),
+             A("basis.npz"), "--basis-size", "20", *spk, *cpu],
+            ["gmm-basis-fmllr-accs", G("mono.npz"), feats, G("post.txt"),
+             A("bacc.npz"), *spk, *cpu],
+            ["gmm-acc-hlda", G("mono.npz"), feats, f"ark:{G('ali.ark')}",
+             A("hlda.npz"), *cpu],
+            ["lattice-arcgraph", G("lat.ark"), A("arcs.ark")],
+            ["init-ubm", G("mono.npz"), G("acc.npz"), A("fubm.npz"),
+             "--ubm-num-gauss", "8"],
+            ["sgmm2-init", G("mono.npz"), A("fubm.npz"), A("sgmm0.npz"),
+             "--phn-dim", "10", "--spk-dim", "3", "--num-gselect", "4",
+             *cpu],
+            ["sgmm2-acc-stats", A("sgmm0.npz"), G("mono.npz"), feats,
+             G("post.txt"), A("sacc0.npz"), *cpu],
+            ["sgmm2-est", A("sgmm0.npz"), A("sacc0.npz"), A("sgmm.npz"),
+             "--split-substates", "20", *cpu],
+            ["sgmm2-acc-stats", A("sgmm.npz"), G("mono.npz"), feats,
+             G("post.txt"), A("sacc.npz"), *cpu],
+            ["sgmm2-acc-stats2", A("sgmm.npz"), G("mono.npz"), feats,
+             G("signed.txt"), A("num.npz"), A("den.npz"), *cpu],
+            ["sgmm2-post-to-gpost", A("sgmm.npz"), G("mono.npz"), feats,
+             G("post.txt"), A("gpost.pkl"), *cpu],
+            ["sgmm-acc-fmllrbasis-ali", A("sgmm.npz"), G("mono.npz"), feats,
+             f"ark:{G('ali.ark')}", A("fb.pkl"), *spk, *cpu],
+            ["sgmm2-latgen-faster", A("sgmm.npz"), G("mono.npz"),
+             G("hclg.npz"), feats, "--lattice-out", A("slat.ark"),
+             *CLI_LATGEN, *cpu]):
+        _cli_ok(argv[0], cli_call(argv))
+
+
+ADAPT_CLI_CASES = [
+    ("train-sat", lambda P, O: [
+        "train-sat", _adg(P, "mono.npz"), _adg(P, "text"),
+        _ark(P, "gmm/feats.ark"), _adg(P, "utt2spk"), f"{O}/sat.npz",
+        f"ark:{O}/t.ark", "--num-iters", "4", "--totgauss", "40",
+        "--num-leaves", "12", "--fmllr-min-count", "50"], "outcome",
+     "sat.npz"),
+    ("gmm-est-fmllr", lambda P, O: [
+        "gmm-est-fmllr", _adg(P, "mono.npz"), _ark(P, "gmm/feats.ark"),
+        _adg(P, "post.txt"), f"ark:{O}/t.ark", "--min-count", "50",
+        "--utt2spk", _adg(P, "utt2spk")], "a_fmllr", None),
+    ("gmm-train-lvtln-special", lambda P, O: [
+        "gmm-train-lvtln-special", "2", _ad(P, "lvtln.npz"),
+        _ark(P, "gmm/feats.ark"), _ark(P, "adapt/warped.ark"),
+        f"{O}/l.npz"], "a_f64", None),
+    ("gmm-est-lvtln-trans", lambda P, O: [
+        "gmm-est-lvtln-trans", _adg(P, "mono.npz"), _ad(P, "lvtln.npz"),
+        _ark(P, "gmm/feats.ark"), _adg(P, "post.txt"), f"ark:{O}/t.ark",
+        "--utt2spk", _adg(P, "utt2spk")], "a_fmllr", None),
+    ("gmm-adapt-map", lambda P, O: [
+        "gmm-adapt-map", _adg(P, "mono.npz"), _ark(P, "gmm/feats.ark"),
+        _adg(P, "post.txt"), f"{O}/mapdir", "--utt2spk",
+        _adg(P, "utt2spk")], "a_stats", None),
+    ("gmm-est-regtree-fmllr", lambda P, O: [
+        "gmm-est-regtree-fmllr", _adg(P, "mono.npz"), _ad(P, "regtree.npz"),
+        _ark(P, "gmm/feats.ark"), _adg(P, "post.txt"), f"ark:{O}/t.ark",
+        "--min-count", "50", "--utt2spk", _adg(P, "utt2spk")], "a_fmllr",
+     None),
+    ("gmm-basis-fmllr-training", lambda P, O: [
+        "gmm-basis-fmllr-training", _adg(P, "mono.npz"),
+        _ark(P, "gmm/feats.ark"), _adg(P, "post.txt"), f"{O}/b.npz",
+        "--basis-size", "20", "--utt2spk", _adg(P, "utt2spk")], "a_basis",
+     "b.npz"),
+    ("gmm-est-basis-fmllr", lambda P, O: [
+        "gmm-est-basis-fmllr", _adg(P, "mono.npz"), _ad(P, "basis.npz"),
+        _ark(P, "gmm/feats.ark"), _adg(P, "post.txt"), f"ark:{O}/t.ark",
+        "--utt2spk", _adg(P, "utt2spk")], "a_fmllr", None),
+    ("train-sgmm2", lambda P, O: [
+        "train-sgmm2", _adg(P, "mono.npz"), _adg(P, "text"),
+        _ark(P, "gmm/feats.ark"), f"{O}/s.npz", "--ubm-gauss", "8",
+        "--phn-dim", "8", "--num-iters", "3", "--num-gselect", "4"],
+     "a_sgmm_outcome", "s.npz"),
+    ("sgmm2-latgen-faster", lambda P, O: [
+        "sgmm2-latgen-faster", _ad(P, "sgmm.npz"), _adg(P, "mono.npz"),
+        _adg(P, "hclg.npz"), _ark(P, "gmm/feats.ark"), "--lattice-out",
+        f"{O}/lat.ark", "--transcription-out", f"{O}/hyp.txt", *CLI_LATGEN],
+     "words", "hyp.txt"),
+    ("sgmm2-gselect", lambda P, O: [
+        "sgmm2-gselect", _ad(P, "sgmm.npz"), _ark(P, "gmm/feats.ark"),
+        f"ark:{O}/g.ark", "--num-gselect", "4"], "a_f64", None),
+    ("sgmm2-acc-stats", lambda P, O: [
+        "sgmm2-acc-stats", _ad(P, "sgmm.npz"), _adg(P, "mono.npz"),
+        _ark(P, "gmm/feats.ark"), _adg(P, "post.txt"), f"{O}/a.npz"],
+     "a_f64", None),
+    ("sgmm2-est", lambda P, O: [
+        "sgmm2-est", _ad(P, "sgmm.npz"), _ad(P, "sacc.npz"), f"{O}/s.npz",
+        "--split-substates", "25"], "a_f64", None),
+    ("sgmm2-est-ebw", lambda P, O: [
+        "sgmm2-est-ebw", _ad(P, "sgmm.npz"), _ad(P, "num.npz"),
+        _ad(P, "den.npz"), f"{O}/s.npz"], "a_f64", None),
+    ("sgmm2-align", lambda P, O: [
+        "sgmm2-align", _ad(P, "sgmm.npz"), _adg(P, "mono.npz"),
+        _adg(P, "text"), _ark(P, "gmm/feats.ark"), f"ark:{O}/a.ark"],
+     "a_f64", None),
+    ("sgmm2-est-spkvecs", lambda P, O: [
+        "sgmm2-est-spkvecs", _ad(P, "sgmm.npz"), _adg(P, "mono.npz"),
+        _ark(P, "gmm/feats.ark"), _adg(P, "post.txt"), f"ark:{O}/v.ark",
+        "--utt2spk", _adg(P, "utt2spk")], "a_f64", None),
+    # cli_adapt.py
+    ("gmm-global-est-lvtln-trans", lambda P, O: [
+        "gmm-global-est-lvtln-trans", _ad(P, "dubm.npz"),
+        _ad(P, "lvtln.npz"), _ark(P, "gmm/feats.ark"), f"ark:{O}/t.ark",
+        "--utt2spk", _adg(P, "utt2spk")], "a_fmllr", None),
+    ("gmm-acc-hlda", lambda P, O: [
+        "gmm-acc-hlda", _adg(P, "mono.npz"), _ark(P, "gmm/feats.ark"),
+        _ark(P, "gmm/ali.ark"), f"{O}/h.npz"], "a_f64", None),
+    ("gmm-est-hlda", lambda P, O: [
+        "gmm-est-hlda", f"{O}/h.ark", _ad(P, "hlda.npz"), _ad(P, "hlda.npz"),
+        "--keep-dims", "20"], "a_solve", None),
+    ("gmm-basis-fmllr-accs", lambda P, O: [
+        "gmm-basis-fmllr-accs", _adg(P, "mono.npz"), _ark(P, "gmm/feats.ark"),
+        _adg(P, "post.txt"), f"{O}/b.npz", "--utt2spk", _adg(P, "utt2spk")],
+     "a_stats", None),
+    ("gmm-basis-fmllr-accs-gpost", lambda P, O: [
+        "gmm-basis-fmllr-accs-gpost", _adg(P, "mono.npz"),
+        _ark(P, "gmm/feats.ark"), _adg(P, "post.txt"), f"{O}/b.npz"],
+     "a_stats", None),
+    ("gmm-est-regtree-mllr", lambda P, O: [
+        "gmm-est-regtree-mllr", _adg(P, "mono.npz"), _ad(P, "regtree.npz"),
+        _ark(P, "gmm/feats.ark"), _adg(P, "post.txt"), f"ark:{O}/t.ark",
+        "--min-count", "50", "--utt2spk", _adg(P, "utt2spk")], "a_mllr",
+     "t.ark"),
+    ("gmm-est-regtree-fmllr-ali", lambda P, O: [
+        "gmm-est-regtree-fmllr-ali", _adg(P, "mono.npz"),
+        _ad(P, "regtree.npz"), _ark(P, "gmm/feats.ark"),
+        _ark(P, "gmm/ali.ark"), f"ark:{O}/t.ark", "--min-count", "50",
+        "--utt2spk", _adg(P, "utt2spk")], "a_fmllr", None),
+    ("gmm-decode-faster-regtree-fmllr", lambda P, O: [
+        "gmm-decode-faster-regtree-fmllr", _adg(P, "mono.npz"),
+        _ad(P, "regtree.npz"), _adg(P, "hclg.npz"), _ark(P, "gmm/feats.ark"),
+        _ad(P, "rt.ark"), "--utt2spk", _adg(P, "utt2spk"),
+        "--transcription-out", f"{O}/hyp.txt", *CLI_LATGEN], "words",
+     "hyp.txt"),
+    ("gmm-decode-faster-regtree-mllr", lambda P, O: [
+        "gmm-decode-faster-regtree-mllr", _adg(P, "mono.npz"),
+        _ad(P, "regtree.npz"), _adg(P, "hclg.npz"), _ark(P, "gmm/feats.ark"),
+        _ad(P, "rtm.ark"), "--utt2spk", _adg(P, "utt2spk"),
+        "--transcription-out", f"{O}/hyp.txt", *CLI_LATGEN], "words",
+     "hyp.txt"),
+    ("gmm-latgen-faster-regtree-fmllr", lambda P, O: [
+        "gmm-latgen-faster-regtree-fmllr", _adg(P, "mono.npz"),
+        _ad(P, "regtree.npz"), _adg(P, "hclg.npz"), _ark(P, "gmm/feats.ark"),
+        _ad(P, "rt.ark"), "--utt2spk", _adg(P, "utt2spk"),
+        "--transcription-out", f"{O}/hyp.txt", "--lattice-out",
+        f"{O}/lat.ark", *CLI_LATGEN], "words", "hyp.txt"),
+    ("gmm-decode-nbest", lambda P, O: [
+        "gmm-decode-nbest", _adg(P, "mono.npz"), _adg(P, "hclg.npz"),
+        _ark(P, "gmm/feats.ark"), "--n", "3", "--transcription-out",
+        f"{O}/hyp.txt", *CLI_LATGEN], "words", "hyp.txt"),
+    ("gmm-latgen-map", lambda P, O: [
+        "gmm-latgen-map", _adg(P, "mono.npz"), _ad(P, "mapdir"),
+        _adg(P, "hclg.npz"), _ark(P, "gmm/feats.ark"), "--utt2spk",
+        _adg(P, "utt2spk"), "--transcription-out", f"{O}/hyp.txt",
+        *CLI_LATGEN], "words", "hyp.txt"),
+    ("gmm-latgen-tracking", lambda P, O: [
+        "gmm-latgen-tracking", _adg(P, "mono.npz"), _ark(P, "gmm/feats.ark"),
+        _ark(P, "adapt/arcs.ark"), "--transcription-out", f"{O}/hyp.txt",
+        "--lattice-out", f"{O}/lat.ark", *CLI_LATGEN], "words", "hyp.txt"),
+    ("latgen-tracking-mapped", lambda P, O: [
+        "latgen-tracking-mapped", _adg(P, "mono.npz"),
+        _ark(P, "gmm/likes.ark"), _ark(P, "adapt/arcs.ark"),
+        "--transcription-out", f"{O}/hyp.txt", *CLI_LATGEN], "words",
+     "hyp.txt"),
+    # cli_sgmm.py
+    ("sgmm2-init", lambda P, O: [
+        "sgmm2-init", _adg(P, "mono.npz"), _ad(P, "fubm.npz"),
+        f"{O}/s.npz", "--phn-dim", "10", "--spk-dim", "3",
+        "--num-gselect", "4", "--seed", "2"], "a_f64", None),
+    ("sgmm-mixup", lambda P, O: [
+        "sgmm-mixup", _ad(P, "sgmm.npz"), f"{O}/s.npz", "--num-substates",
+        "30", "--read-occs", _ad(P, "sacc.npz"), "--increase-phn-dim", "12",
+        "--increase-spk-dim", "4"], "a_f64", None),
+    ("sgmm-calc-distances", lambda P, O: [
+        "sgmm-calc-distances", _ad(P, "sgmm.npz"), _ad(P, "sacc.npz"),
+        f"{O}/d.ark"], "a_f64", None),
+    ("sgmm2-post-to-gpost", lambda P, O: [
+        "sgmm2-post-to-gpost", _ad(P, "sgmm.npz"), _adg(P, "mono.npz"),
+        _ark(P, "gmm/feats.ark"), _adg(P, "post.txt"), f"{O}/g.pkl"],
+     "a_f64", None),
+    ("sgmm2-acc-stats-gpost", lambda P, O: [
+        "sgmm2-acc-stats-gpost", _ad(P, "sgmm.npz"), _ark(P, "gmm/feats.ark"),
+        _ad(P, "gpost.pkl"), f"{O}/a.npz"], "a_f64", None),
+    ("sgmm2-acc-stats2", lambda P, O: [
+        "sgmm2-acc-stats2", _ad(P, "sgmm.npz"), _adg(P, "mono.npz"),
+        _ark(P, "gmm/feats.ark"), _adg(P, "signed.txt"), f"{O}/n.npz",
+        f"{O}/d.npz"], "a_f64", None),
+    ("sgmm-acc-stats-ali", lambda P, O: [
+        "sgmm-acc-stats-ali", _ad(P, "sgmm.npz"), _adg(P, "mono.npz"),
+        _ark(P, "gmm/feats.ark"), _ark(P, "gmm/ali.ark"), f"{O}/a.npz"],
+     "a_f64", None),
+    ("sgmm-est-multi", lambda P, O: [
+        "sgmm-est-multi", _ad(P, "sgmm.npz"), _ad(P, "sacc.npz"),
+        f"{O}/o1.npz", _ad(P, "sgmm.npz"), _ad(P, "num.npz"),
+        f"{O}/o2.npz"], "a_f64", None),
+    ("sgmm2-est-fmllr", lambda P, O: [
+        "sgmm2-est-fmllr", _ad(P, "sgmm.npz"), _adg(P, "mono.npz"),
+        _ark(P, "gmm/feats.ark"), _adg(P, "post.txt"), f"ark:{O}/t.ark",
+        "--fmllr-min-count", "50", "--utt2spk", _adg(P, "utt2spk")],
+     "a_f64", None),
+    ("sgmm2-comp-prexform", lambda P, O: [
+        "sgmm2-comp-prexform", _ad(P, "sgmm.npz"), _ad(P, "sacc.npz"),
+        f"{O}/s.npz"], "a_f64", None),
+    ("sgmm-acc-fmllrbasis-ali", lambda P, O: [
+        "sgmm-acc-fmllrbasis-ali", _ad(P, "sgmm.npz"), _adg(P, "mono.npz"),
+        _ark(P, "gmm/feats.ark"), _ark(P, "gmm/ali.ark"), f"{O}/fb.pkl",
+        "--utt2spk", _adg(P, "utt2spk")], "a_f64", None),
+    ("sgmm-est-fmllrbasis", lambda P, O: [
+        "sgmm-est-fmllrbasis", _ad(P, "sgmm.npz"), f"{O}/s.npz",
+        _ad(P, "fb.pkl"), "--num-bases", "10"], "a_sbasis", "s.npz"),
+    ("sgmm2-rescore-lattice", lambda P, O: [
+        "sgmm2-rescore-lattice", _ad(P, "sgmm.npz"), _adg(P, "mono.npz"),
+        _ad(P, "slat.ark"), _ark(P, "gmm/feats.ark"), f"{O}/lat.ark"],
+     "lattice", "lat.ark"),
+]
+CLI_CASES += ADAPT_CLI_CASES
+
+
+def _pickled_rel(a, b, rel: float, name: str) -> float:
+    """Two unpickled results (the card's, the CPU's): containers element
+    for element, float arrays within `rel` of their largest magnitude,
+    the rest equal. -> the worst relative difference."""
+    if isinstance(b, dict):
+        if list(a) != list(b):
+            raise AssertionError(f"{name}: keys differ")
+        return max([_pickled_rel(a[k], b[k], rel, name) for k in b] + [0.0])
+    if isinstance(b, (list, tuple)):
+        if type(a) is not type(b) or len(a) != len(b):
+            raise AssertionError(f"{name}: lengths differ")
+        return max([_pickled_rel(x, y, rel, name) for x, y in zip(a, b)]
+                   + [0.0])
+    if isinstance(b, (np.ndarray, float)) and np.asarray(b).dtype.kind == "f":
+        x, y = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        if x.shape != y.shape:
+            raise AssertionError(f"{name}: shapes differ")
+        r = float(np.abs(x - y).max(initial=0.0)
+                  / max(float(np.abs(y).max(initial=0.0)), 1e-300))
+        if r > rel:
+            raise AssertionError(f"{name}: {r:.3e} of the largest value "
+                                 f"apart (limit {rel})")
+        return r
+    if not np.array_equal(np.asarray(a), np.asarray(b)):
+        raise AssertionError(f"{name}: values differ")
+    return 0.0
+
+
+def _printed_close(name: str, out: dict, rtol: float):
+    """The command's own lines (stdout and its stderr lines), card against
+    CPU: the same words, each number within rtol of its size plus the
+    4th printed decimal."""
+    def lines(o):
+        return o[0].splitlines() + [ln for ln in o[3].splitlines()
+                                    if ln.startswith(f"{name}:")]
+    a, b = lines(out["card"]), lines(out["cpu"])
+    if len(a) != len(b):
+        raise AssertionError(f"{name}: different output")
+    for x, y in zip(a, b):
+        nx, ny = _printed_numbers(x), _printed_numbers(y)
+        if len(nx) != len(ny) or not np.allclose(nx, ny, rtol=rtol,
+                                                 atol=PRINTED_ATOL):
+            raise AssertionError(f"{name}: {x!r} vs {y!r}")
+
+
+def basis_quotients(basis: np.ndarray, scatter: np.ndarray,
+                    metric: np.ndarray | None = None) -> np.ndarray:
+    """Each basis vector's Rayleigh quotient b' S b / b' H b (H the
+    identity when None): what the basis, leading eigenvectors of S in
+    the H metric, captures, whatever their rotation within near-equal
+    eigenvalues."""
+    V = basis.reshape(len(basis), -1)
+    den = np.einsum("ki,ki->k", V, V) if metric is None else \
+        np.einsum("ki,ij,kj->k", V, metric, V)
+    return np.einsum("ki,ij,kj->k", V, scatter, V) / den
+
+
+def sgmm_basis_scatter(model: str, stats: str) -> np.ndarray:
+    """sgmm-est-fmllrbasis's scatter of the speakers' fMLLR gradients at
+    the identity over sqrt(beta), from its statistics file, on the CPU."""
+    import pickle
+
+    import torch
+    from kaldi_tpu_torch.io.model_io import load_sgmm2
+    from kaldi_tpu_torch.sgmm.fmllr import FmllrSgmm2Accs
+    from kaldi_tpu_torch.sgmm.prexform import fmllr_grad_at_identity
+    m = load_sgmm2(model, device="cpu").sgmm
+    S = 0.0
+    with open(stats, "rb") as f:
+        for _spk, (beta, K, G) in pickle.load(f).items():
+            st = FmllrSgmm2Accs(m)
+            st._beta = torch.tensor(beta, dtype=torch.float64)
+            st.K = torch.as_tensor(K, dtype=torch.float64)
+            st.G = torch.as_tensor(G, dtype=torch.float64)
+            g = fmllr_grad_at_identity(st, m).reshape(-1).numpy()
+            S = S + np.outer(g, g) / beta
+    return S
+
+
+def adapt_files_close(kind: str, dc: str, dp: str, out: dict, name: str,
+                      P) -> float:
+    """The fifth slice's (5b) device cases, card (dc) against CPU (dp):
+    the command's lines within the kind's bound, the same files, model
+    and statistics files (npz_rel), arks and pickles within the kind's
+    bound (ADAPT_CLI_REL; integer arks equal); the MLLR transforms by
+    the adapted means of their leaves' gaussians; the two bases by their
+    Rayleigh quotients under the CPU's scatter; train-sgmm2 by its counts
+    and loglike. -> the worst relative difference."""
+    from kaldi_tpu_torch.io.kaldi_io import read_ark
+    rel = ADAPT_CLI_REL.get(kind, ADAPT_CLI_REL["a_stats"])
+    if _cli_files(dc) != _cli_files(dp):
+        raise AssertionError(f"{name}: different files")
+    if kind == "a_sgmm_outcome":
+        a, b = (o[3].strip().splitlines()[-1].rsplit(" ", 1)
+                for o in (out["card"], out["cpu"]))
+        if a[0] != b[0] or abs(float(a[1]) - float(b[1])) > \
+                ADAPT_CLI_LIKE_TOL:
+            raise AssertionError(f"{name}: {a} vs {b}")
+        return abs(float(a[1]) - float(b[1]))
+    _printed_close(name, out, 0.0 if kind == "a_f64" else rel)
+    if kind in ("a_basis", "a_sbasis"):
+        key = "basis" if kind == "a_basis" else "__extra_fmllr_basis"
+        if kind == "a_basis":
+            z = np.load(_ad(P, "bacc.npz"))
+            S, H = z["grad_scatter"], z["H"] / float(z["beta"])
+        else:
+            S, H = sgmm_basis_scatter(_ad(P, "sgmm.npz"), _ad(P, "fb.pkl")), \
+                None
+        qa, qb = (basis_quotients(np.load(os.path.join(d, "b.npz" if
+                                                       kind == "a_basis"
+                                                       else "s.npz"))[key],
+                                  S, H) for d in (dc, dp))
+        # a perturbation E of the scatter moves an eigenvector's quotient
+        # under the unperturbed scatter by at most 2 |E|: the gradient
+        # scatter of f32 posteriors is held as their statistics are
+        # (a_stats), the SGMM's f64 one to 1e-6 of its largest quotient
+        lim = ADAPT_CLI_REL["a_stats"] if kind == "a_basis" else 1e-6
+        worst = float(np.abs(qa - qb).max() / np.abs(qb).max())
+        if worst > lim:
+            raise AssertionError(f"{name}: basis quotients {worst:.3e} "
+                                 f"of the largest apart (limit {lim})")
+        return worst
+    worst = 0.0
+    for f in _cli_files(dc):
+        a, b = os.path.join(dc, f), os.path.join(dp, f)
+        if f.endswith(".npz"):
+            worst = max(worst, npz_rel(a, b, rel, name))
+        elif f.endswith(".pkl"):
+            import pickle
+            with open(a, "rb") as x, open(b, "rb") as y:
+                worst = max(worst, _pickled_rel(pickle.load(x),
+                                                pickle.load(y), rel, name))
+        elif f.endswith(".ark"):
+            ga, wa = dict(read_ark(a)), dict(read_ark(b))
+            if list(ga) != list(wa) or not wa:
+                raise AssertionError(f"{name}: keys differ")
+            for k in wa:
+                if kind == "a_mllr":
+                    worst = max(worst, _mllr_means_rel(P, ga[k], wa[k], name))
+                    continue
+                worst = max(worst, _pickled_rel(ga[k], wa[k], rel, name))
+        elif open(a, "rb").read() != open(b, "rb").read():
+            raise AssertionError(f"{name}: {f} differs")
+    return worst
+
+
+def _mllr_means_rel(P, got, want, name: str) -> float:
+    """Regression-tree MLLR rows solve a leaf's system over its few
+    gaussian means, whose span is all that the data determines: the two
+    transforms' adapted means W [mu; 1] of each leaf's gaussians within
+    ADAPT_CLI_REL["a_stats"] of their largest magnitude."""
+    from kaldi_tpu_torch.cli import _load_regtree
+    from kaldi_tpu_torch.transform.regtree import unstack_transforms
+    tree = _load_regtree(_ad(P, "regtree.npz"))
+    xi = np.concatenate([tree.means, np.ones((len(tree.means), 1))], 1)
+    D = tree.means.shape[1]
+    g, w = (unstack_transforms(tree, t, D) for t in (got, want))
+    worst = 0.0
+    for leaf in w:
+        sel = tree.gauss2leaf == leaf
+        worst = max(worst, _pickled_rel(xi[sel] @ g[leaf].T,
+                                        xi[sel] @ w[leaf].T,
+                                        ADAPT_CLI_REL["a_stats"], name))
+    return worst
+
+
 def _cli_files(d: str) -> list:
     return sorted(os.path.relpath(os.path.join(r, f), d)
                   for r, _ds, fs in os.walk(d) for f in fs)
@@ -10972,6 +11437,10 @@ def cli_card_vs_cpu(root: str, card: str = "cuda") -> dict:
             if out[side][1] not in (0, 1):
                 raise AssertionError(f"{name} ({side}): exit "
                                      f"{out[side][1]}: {out[side][3]}")
+        if kind.startswith("a_"):
+            res[name] = (out["card"][2], adapt_files_close(
+                kind, dirs["card"], dirs["cpu"], out, name, P))
+            continue
         fft = None
         if kind in ("spec", "fbank", "mfcc"):
             fft, kind = cli_fft_bounds(P, kind), "feat"
@@ -11155,7 +11624,7 @@ def build_scratch() -> str:
 
 
 def phase_cli_small() -> None:
-    """Phase 35: every device subcommand of the CLI's first five slices
+    """Phase 35: every device subcommand of the CLI's five slices
     and the first slice's host ones on small inputs on the card and with
     --device cpu (host files byte-equal, device results within their
     parity bound), the file-driven yesno recipe on
@@ -11409,6 +11878,46 @@ def _tree_stats_rel(a: str, b: str) -> float:
     return worst
 
 
+def mkgraph_primitives(run, P, mdl: str, tag: str = "") -> str:
+    """utils/mkgraph.sh as the CLI's primitives (tests/test_graph_primitives
+    _cli.py:21) for the model file P(mdl) and P("lm.arpa"): arpa2fst,
+    fsttablecompose, fstdeterminizestar, fstminimizeencoded,
+    fstcomposecontext, make-h-transducer, add-self-loops and
+    fst-pack-graph, each file under P(tag + name); `run(*argv)` runs one
+    command. -> the packed graph's name, P(tag + "graph.npz")."""
+    from kaldi_tpu_torch.fst.text_io import save_fst
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    T = lambda n: P(tag + n)                                 # noqa: E731
+    lang = load_gmm_system(P(mdl), device="cpu").lang
+    save_fst(T("L_disambig.txt"), lang.L_disambig)
+    with open(T("phone_disambig.txt"), "w") as f:
+        f.writelines(f"{p}\n" for p in lang.disambig_phone_ids)
+    lang.words.write(T("words.txt"))
+    for argv in (
+            ["arpa2fst", P("lm.arpa"), T("words.txt"), T("G.txt")],
+            ["fsttablecompose", T("L_disambig.txt"), T("G.txt"),
+             T("LG0.txt")],
+            ["fstdeterminizestar", "--use-log", T("LG0.txt"), T("LG1.txt")],
+            ["fstminimizeencoded", T("LG1.txt"), T("LG.txt")],
+            ["fstcomposecontext", T("ilabels.json"), T("LG.txt"),
+             T("CLG.txt"), "--context-size", "3", "--central-position",
+             "1", "--read-disambig-syms", T("phone_disambig.txt")],
+            ["make-h-transducer", T("ilabels.json"), P(mdl), T("Ha.txt"),
+             "--disambig-syms-out", T("disambig_tid.txt")],
+            ["fsttablecompose", T("Ha.txt"), T("CLG.txt"), T("HCLGa0.txt")],
+            ["fstdeterminizestar", "--use-log", T("HCLGa0.txt"),
+             T("HCLGa1.txt")],
+            ["fstrmsymbols", T("disambig_tid.txt"), T("HCLGa1.txt"),
+             T("HCLGa2.txt")],
+            ["fstrmepslocal", T("HCLGa2.txt"), T("HCLGa3.txt")],
+            ["fstminimizeencoded", T("HCLGa3.txt"), T("HCLGa.txt")],
+            ["add-self-loops", P(mdl), T("HCLGa.txt"), T("HCLG.txt"),
+             "--self-loop-scale", "0.1"],
+            ["fst-pack-graph", P(mdl), T("HCLG.txt"), T("graph.npz")]):
+        run(*argv)
+    return tag + "graph.npz"
+
+
 def phase_ladder_cli(card: str) -> dict:
     """Phase 37: LADDER's corpus through the port's CLI in Kaldi's shape,
     every file under a temporary directory in build/:
@@ -11435,7 +11944,6 @@ def phase_ladder_cli(card: str) -> dict:
     phase 38 reads and then removes (it is removed here if this phase
     fails)."""
     import shutil
-    from kaldi_tpu_torch.fst.text_io import save_fst
     from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, write_ark
     from kaldi_tpu_torch.io.model_io import load_gmm_system, load_hclg
     from kaldi_tpu_torch.nnet import quantized as q
@@ -11585,35 +12093,7 @@ def phase_ladder_cli(card: str) -> dict:
         t = time.perf_counter()
         run("mkgraph", P(mono), P("lm.arpa"), P("mono_graph.npz"))
         run("mkgraph", P(tri), P("lm.arpa"), P("mk_graph.npz"))
-        lang = model(tri).lang
-        save_fst(P("L_disambig.txt"), lang.L_disambig)
-        with open(P("phone_disambig.txt"), "w") as f:
-            f.writelines(f"{p}\n" for p in lang.disambig_phone_ids)
-        lang.words.write(P("words.txt"))
-        for argv in (
-                ["arpa2fst", P("lm.arpa"), P("words.txt"), P("G.txt")],
-                ["fsttablecompose", P("L_disambig.txt"), P("G.txt"),
-                 P("LG0.txt")],
-                ["fstdeterminizestar", "--use-log", P("LG0.txt"),
-                 P("LG1.txt")],
-                ["fstminimizeencoded", P("LG1.txt"), P("LG.txt")],
-                ["fstcomposecontext", P("ilabels.json"), P("LG.txt"),
-                 P("CLG.txt"), "--context-size", "3", "--central-position",
-                 "1", "--read-disambig-syms", P("phone_disambig.txt")],
-                ["make-h-transducer", P("ilabels.json"), P(tri), P("Ha.txt"),
-                 "--disambig-syms-out", P("disambig_tid.txt")],
-                ["fsttablecompose", P("Ha.txt"), P("CLG.txt"),
-                 P("HCLGa0.txt")],
-                ["fstdeterminizestar", "--use-log", P("HCLGa0.txt"),
-                 P("HCLGa1.txt")],
-                ["fstrmsymbols", P("disambig_tid.txt"), P("HCLGa1.txt"),
-                 P("HCLGa2.txt")],
-                ["fstrmepslocal", P("HCLGa2.txt"), P("HCLGa3.txt")],
-                ["fstminimizeencoded", P("HCLGa3.txt"), P("HCLGa.txt")],
-                ["add-self-loops", P(tri), P("HCLGa.txt"), P("HCLG.txt"),
-                 "--self-loop-scale", "0.1"],
-                ["fst-pack-graph", P(tri), P("HCLG.txt"), P("graph.npz")]):
-            run(*argv)
+        mkgraph_primitives(run, P, tri)
         stages["graph"] = time.perf_counter() - t
         states = {g: load_hclg(P(g)).num_states
                   for g in ("graph.npz", "mk_graph.npz", "mono_graph.npz")}
@@ -11745,8 +12225,8 @@ def best_path_abs(lat) -> float:
 
 
 def phase_lattice_cli(card: str, lc: dict) -> dict:
-    """Phase 38: phase 37's files (`lc["dir"]`, which phase 39 reads and
-    then removes; removed here if this phase fails) through the port's
+    """Phase 38: phase 37's files (`lc["dir"]`, which phases 39 and 41
+    read and 41 removes; removed here if this phase fails) through the port's
     CLI in the shape of Kaldi's decode and scoring scripts, on the card
     unless a step says otherwise:
     steps/decode.sh (gmm-latgen-faster with --determinize-lattice at
@@ -12202,7 +12682,8 @@ def parallel_sgd(run, P, kind: str, init: str) -> list:
 
 
 def phase_nnet_cli(card: str, lc: dict) -> dict:
-    """Phase 39: phase 37's files (`lc["dir"]`, removed at the end)
+    """Phase 39: phase 37's files (`lc["dir"]`, which phase 41 reads and
+    then removes; removed here if this phase fails)
     through the port's CLI in the shape of Kaldi's three neural recipes,
     on the card:
     alignments (steps/align_si.sh: gmm-align of the training set with the
@@ -12447,8 +12928,9 @@ def phase_nnet_cli(card: str, lc: dict) -> dict:
         for n in ("nn_final.npz", "n3_final.npz", "dbn_final.nnet",
                   "l0.ark", "lat2.ark", "lat3.ark", "latd.ark"):
             sizes[n] = os.path.getsize(P(n))
-    finally:
+    except BaseException:
         shutil.rmtree(d, ignore_errors=True)
+        raise
     total = time.perf_counter() - t0
     n_calls = sum(calls.values())
     log(f"  nnet2, nnet3 and DBN recipes through {n_calls} CLI calls in "
@@ -12493,6 +12975,466 @@ def phase_nnet_cli(card: str, lc: dict) -> dict:
     return {"wer": out, "stages": stages, "kinds": kinds, "seconds": total,
             "recon": recon, "launches": {"gather": gather,
                                          "qaffine": qaffine}}
+
+
+# phase 41: Kaldi's egs/rm/s5 adaptation and SGMM2 chain
+# (steps/train_sat.sh -> decode_fmllr.sh -> train_ubm.sh ->
+# train_sgmm2.sh -> decode_sgmm2.sh) through the port's CLI on phase 37's
+# files. Depth cut for the script's time (fixed before its first run on a
+# card): train_sat.sh's 35 iterations to 6, its fMLLR re-estimation at
+# iterations 2, 4, 6, 12 to the initial one and 1, 3, its realignment at
+# 10, 20, 30 to 2, 4; train_ubm.sh's 3 iterations as they are;
+# train_sgmm2.sh's 25 iterations to 6 on JAX's block schedule (phase 28's:
+# v, M, vw, S with c each time), the substates split to 3 per pdf at
+# iteration 3, one realignment before iteration 3 (its 5, 10, 15)
+ADAPT_CLI_SAT_ITERS = 6
+ADAPT_CLI_SAT_FMLLR = (1, 3)
+ADAPT_CLI_SAT_REALIGN = (2, 4)
+ADAPT_CLI_UBM = dict(num_gauss=400, num_iters=3)
+ADAPT_CLI_SGMM_ITERS = 6
+ADAPT_CLI_SGMM_FLAGS = ("vc", "Mc", "vwc", "Sc")
+ADAPT_CLI_SGMM_REALIGN = 3
+ADAPT_CLI_SILENCE = "0.0"      # train_sat.sh's and decode_fmllr.sh's weight
+ADAPT_CLI_CPU_UTTS = 20        # the sgmm2-acc-stats held card vs CPU
+ADAPT_CLI_SGMM_SLACK = 5.0     # PARITY.md:36: SGMM2 <= SAT + 5 (reported)
+ADAPT_CLI_SGMM_BAR = 20.0      # ... and < 20 (asserted)
+ADAPT_CLI_KIND = {
+    "gmm-align": "align", "ali-to-post": "post", "weight-silence-post":
+    "post", "lattice-to-post": "post", "gmm-post-to-gpost": "post",
+    "gmm-est-fmllr": "fmllr", "gmm-est-fmllr-gpost": "fmllr",
+    "transform-feats": "fmllr", "acc-tree-stats": "tree",
+    "sum-tree-stats": "tree", "cluster-phones": "tree",
+    "compile-questions": "tree", "build-tree": "tree",
+    "gmm-init-model": "tree", "convert-ali": "align",
+    "gmm-acc-stats-ali": "accumulate", "gmm-sum-accs": "accumulate",
+    "gmm-acc-stats-twofeats": "accumulate", "gmm-est": "estimate",
+    "init-ubm": "ubm", "gmm-global-acc-stats": "ubm",
+    "gmm-global-sum-accs": "ubm", "gmm-global-est": "ubm",
+    "sgmm2-init": "sgmm", "sgmm2-gselect": "sgmm", "sgmm2-acc-stats":
+    "sgmm", "sgmm2-sum-accs": "sgmm", "sgmm2-est": "sgmm",
+    "sgmm2-align-compiled": "align", "gmm-latgen-faster": "decode",
+    "sgmm2-latgen-faster": "decode", "sgmm2-rescore-lattice": "decode",
+    "lattice-best-path": "decode", "compute-wer": "decode",
+    "sgmm2-info": "sgmm",
+    "arpa2fst": "graph", "fsttablecompose": "graph",
+    "fstdeterminizestar": "graph", "fstminimizeencoded": "graph",
+    "fstcomposecontext": "graph", "make-h-transducer": "graph",
+    "fstrmsymbols": "graph", "fstrmepslocal": "graph",
+    "add-self-loops": "graph", "fst-pack-graph": "graph"}
+
+
+def sgmm_scatter_bound(feats: str, post: str) -> np.ndarray:
+    """[D, D] the f64 rounding bound of an SGMM2 accumulator's centred
+    scatter S_i = sum_t g_ti x x' - (the mean terms), which cancel: 1e-9
+    (ADAPT_CLI_REL's f64 bound) of twice sum_t |x_t| |x_t|' over the post
+    file's utterances, which bounds either sum's terms for every gaussian
+    (sum_i g_ti = 1)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    keep = {ln.split()[0] for ln in open(post) if ln.strip()}
+    x = np.abs(np.concatenate([np.asarray(v, np.float64) for k, v in
+                               open_rspecifier(feats) if k in keep]))
+    return 2 * ADAPT_CLI_REL["a_f64"] * (x.T @ x)
+
+
+def save_sgmm_cli_witness(P, likes: list, flags: list, ali: list,
+                          feats: str, utts: list) -> None:
+    """Phase 41's SGMM2 update that lowered the loglike per frame most, in
+    `save_sgmm_witness`'s format (tests/test_torch_sgmm_witness.py replays
+    it through JAX): the model and the summed statistics before it, its
+    flags and the training frames with the pdfs of the alignment that the
+    next accumulation used, to chiprun_out/sgmm_cli_witness.pkl."""
+    import pickle
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import load_gmm_system, load_sgmm2
+    from kaldi_tpu_torch.params import sgmm2_to_lists
+    falls = [likes[k + 1] - likes[k] for k in range(len(likes) - 1)]
+    it = int(np.argmin(falls))
+    model = load_sgmm2(P(f"sgmm{it}.npz"), device="cpu").sgmm
+    z = np.load(P(f"sg_acc{it}.npz"))
+    J = int(z["num_states"])
+    tm = load_gmm_system(P(f"sat{ADAPT_CLI_SAT_ITERS}.npz"),
+                         device="cpu").trans_model
+    rows = dict(open_rspecifier(feats))
+    alis = dict(open_rspecifier(f"ark:{P(ali[it + 1])}"))
+    x = np.concatenate([rows[u][:len(alis[u])] for u in utts if u in alis])
+    pdfs = np.concatenate([tm.id2pdf_array[np.asarray(alis[u], np.int64)]
+                           [:len(rows[u])] for u in utts if u in alis])
+    a = lambda t: np.asarray(t.cpu() if hasattr(t, "cpu") else t)  # noqa
+    v, c = sgmm2_to_lists(model)
+    path = os.path.join(ROOT, "chiprun_out", "sgmm_cli_witness.pkl")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(dict(
+            iter=it, flags=flags[it], likes=likes,
+            num_gselect=SGMM_WIDTH["num_gselect"],
+            model=dict(Sigma_inv=a(model.Sigma_inv), M=a(model.M),
+                       w=a(model.w), V=a(model.V), c=a(model.c),
+                       offsets=model.offsets),
+            accs=dict(gamma=np.concatenate([z[f"gamma{j}"]
+                                            for j in range(J)]),
+                      y=np.concatenate([z[f"y{j}"] for j in range(J)]),
+                      Y=z["Y"], Q=z["Q"], S_centered=z["S_centered"],
+                      tot_like=float(z["tot_like"]),
+                      tot_frames=float(z["tot_frames"])),
+            x=x.astype(np.float32), pdfs=pdfs, card="phase 41"), f,
+            protocol=4)
+    log(f"  saved SGMM2 iteration {it} ({flags[it]}: loglike/frame "
+        f"{likes[it]:.4f} -> {likes[it + 1]:.4f}) to "
+        f"{os.path.relpath(path, ROOT)}")
+
+
+def phase_adapt_cli(card: str, lc: dict) -> dict:
+    """Phase 41: phase 37's files (`lc["dir"]`, removed at the end)
+    through the port's CLI in the shape of Kaldi's egs/rm/s5 adaptation
+    and SGMM2 chain, on the card:
+    (1) steps/train_sat.sh as primitives at the tri widths of phase 37
+    (LADDER_TRI's leaves and gaussians): gmm-align with phase 37's tri,
+    ali-to-post -> weight-silence-post -> gmm-est-fmllr per speaker ->
+    transform-feats; the tree on the fMLLR features (acc-tree-stats per
+    shard, sum-tree-stats, cluster-phones, compile-questions, build-tree,
+    gmm-init-model, convert-ali); then EM (gmm-acc-stats-ali per shard,
+    gmm-sum-accs, gmm-est with the mix-up ramp), realigning at
+    ADAPT_CLI_SAT_REALIGN and re-estimating each speaker's fMLLR at
+    ADAPT_CLI_SAT_FMLLR (from the speaker-independent features: the
+    composed transform; JAX's compose-transforms takes one matrix, not a
+    table); the SI model by gmm-acc-stats-twofeats + gmm-est (final.alimdl);
+    (2) utils/mkgraph.sh's primitives for the SAT model, then
+    steps/decode_fmllr.sh on the test set: the SI pass (gmm-latgen-faster
+    with the SI model), lattice-to-post -> weight-silence-post ->
+    gmm-post-to-gpost -> gmm-est-fmllr-gpost (JAX's -gpost alias reads
+    the silence-weighted posteriors, not gmm-post-to-gpost's pickle) ->
+    transform-feats -> the adapted gmm-latgen-faster -> compute-wer;
+    (3) steps/train_ubm.sh: init-ubm at 400 gaussians from the SAT model,
+    then gmm-global-acc-stats per shard, gmm-global-sum-accs and
+    gmm-global-est (ADAPT_CLI_UBM's iterations; the diagonal family: the
+    host full-covariance statistics of 400 gaussians over 49k frames take
+    minutes per iteration);
+    (4) steps/train_sgmm2.sh at phase 28's SGMM_WIDTH on the fMLLR
+    features (phn-dim D + 1, spk-dim 0, gselect 15): the SAT model's
+    final alignment (final.alimdl's), sgmm2-init, sgmm2-gselect, then per
+    iteration sgmm2-acc-stats per shard -> sgmm2-sum-accs -> sgmm2-est on
+    ADAPT_CLI_SGMM_FLAGS' schedule with --split-substates to
+    SGMM_SUBSTATES_PER_PDF per pdf, one realignment by
+    sgmm2-align-compiled;
+    (5) steps/decode_sgmm2.sh: sgmm2-latgen-faster on the test set's fMLLR
+    features -> compute-wer, sgmm2-rescore-lattice with the decoding model.
+    The lattice decodes search at LATTICE_CLI_SEARCH (ROADMAP §3 B 14).
+    Asserts SAT <= its SI pass and <= LADDER_BARS' tri bar, SGMM2 <
+    ADAPT_CLI_SGMM_BAR, and reports SGMM2 against SAT +
+    ADAPT_CLI_SGMM_SLACK (PARITY.md:36, which JAX's SGMM2 misses at width:
+    ROADMAP §3 B 8; the update that lowered the loglike most goes to
+    chiprun_out/sgmm_cli_witness.pkl for tests/test_torch_sgmm_witness.py);
+    the shards' sums equal
+    one unsharded accumulation (the SAT statistics on fMLLR features and
+    the SGMM2 statistics, 1e-6); one sgmm2-acc-stats at width with
+    --device cpu (ADAPT_CLI_CPU_UTTS utterances) within ADAPT_CLI_REL's
+    f64 bound of the card's; the rescored lattices keep each best path;
+    neither kernel launches. -> its results."""
+    import shutil
+
+    import torch
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, write_ark
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    from kaldi_tpu_torch.nnet import quantized as q
+    from kaldi_tpu_torch.ops import table_gather as tg
+
+    t0 = time.perf_counter()
+    d = lc["dir"]
+    P = lambda *n: os.path.join(d, *n)                       # noqa: E731
+    kinds = dict.fromkeys(sorted(set(ADAPT_CLI_KIND.values())), 0.0)
+    calls = dict.fromkeys(kinds, 0)
+    stages, sizes, checks, wer, lines = {}, {}, {}, {}, {}
+
+    def run(*argv):
+        r = _cli_ok(argv[0], cli_call(list(argv)))
+        kinds[ADAPT_CLI_KIND[argv[0]]] += r[2]
+        calls[ADAPT_CLI_KIND[argv[0]]] += 1
+        return r
+
+    def wer_of(hyp: str, tag: str) -> float:
+        line = run("compute-wer", P("test", "text"), P(hyp))[0].strip()
+        lines[tag] = line
+        return float(line.split()[1])
+
+    def shards(spec: str, name: str) -> list:
+        """The training set's rows of ark `spec` in LADDER_CLI_SHARDS
+        arks (or post files when `name` ends in .txt)."""
+        keys = np.array_split(np.array(utts), LADDER_CLI_SHARDS)
+        out = []
+        if name.endswith(".txt"):
+            with open(spec) as f:
+                rows = {ln.split()[0]: ln for ln in f if ln.strip()}
+            for j, ks in enumerate(keys):
+                out.append(P(f"{name}.{j + 1}"))
+                with open(out[-1], "w") as f:
+                    f.writelines(rows[u] for u in ks if u in rows)
+            return out
+        rows = dict(open_rspecifier(spec))
+        for j, ks in enumerate(keys):
+            write_ark(P(f"{name}.{j + 1}"), {u: rows[u] for u in ks})
+            out.append(f"ark:{P(f'{name}.{j + 1}')}")
+        return out
+
+    def posts(ali: str, mdl: str, name: str) -> str:
+        run("ali-to-post", f"ark:{P(ali)}", P(f"{name}.raw"))
+        run("weight-silence-post", ADAPT_CLI_SILENCE, sil, P(mdl),
+            P(f"{name}.raw"), P(name))
+        return name
+
+    def fmllr(mdl: str, post: str, feats: str, u2s: str, out: str,
+              name: str = "gmm-est-fmllr"):
+        run(name, P(mdl), feats, P(post), f"ark:{P(out)}", "--utt2spk",
+            u2s)
+
+    def transformed(trans: str, feats: str, u2s: str, out: str) -> str:
+        run("transform-feats", "--utt2spk", u2s, P(trans), feats,
+            f"ark:{P(out)}")
+        return f"ark:{P(out)}"
+
+    q.launches = tg.launches = 0          # count this phase's path only
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        F, TF = f"ark:{P('train', 'feats.ark')}", \
+            f"ark:{P('test', 'feats.ark')}"
+        text, u2s, tu2s = (P("train", "text"), P("train", "utt2spk"),
+                           P("test", "utt2spk"))
+        tri = lc["tri"]
+        utts = [ln.split()[0] for ln in open(text) if ln.strip()]
+        sil = str(load_gmm_system(P(tri), device="cpu").lang.phones["SIL"])
+
+        # (1) steps/train_sat.sh
+        t = time.perf_counter()
+        run("gmm-align", P(tri), text, F, f"ark:{P('sat_ali')}")
+        fmllr(tri, posts("sat_ali", tri, "sat_post.txt"), F, u2s,
+              "sat_trans.ark")
+        SF = transformed("sat_trans.ark", F, u2s, "sat_feats.ark")
+        parts = []
+        for j, spec in enumerate(shards(f"ark:{P('sat_ali')}", "sat_ali")):
+            parts.append(P(f"sat_ts.npz.{j + 1}"))
+            run("acc-tree-stats", P(tri), SF, spec, parts[-1])
+        run("sum-tree-stats", P("sat_ts.npz"), *parts)
+        run("cluster-phones", P("sat_ts.npz"), P("sat_questions.txt"))
+        run("compile-questions", P("sat_questions.txt"),
+            P("sat_questions.pkl"))
+        run("build-tree", P(tri), P("sat_ts.npz"), P("sat_tree.npz"),
+            "--questions", P("sat_questions.txt"), "--max-leaves",
+            str(LADDER_TRI["num_leaves"]))
+        run("gmm-init-model", P(tri), P("sat_tree.npz"), P("sat_ts.npz"),
+            P("sat0.npz"))
+        run("convert-ali", P(tri), P("sat0.npz"), f"ark:{P('sat_ali')}",
+            f"ark:{P('sat_cali')}")
+        stages["sat tree"] = time.perf_counter() - t
+        t = time.perf_counter()
+        cur = load_gmm_system(P("sat0.npz"), device="cpu").am.num_pdfs
+        leaves = cur
+        inc = max(1, (LADDER_TRI["totgauss"] - cur)
+                  // LADDER_TRI["max_iter_inc"])
+        for it in range(ADAPT_CLI_SAT_ITERS):
+            mdl = f"sat{it}.npz"
+            if it in ADAPT_CLI_SAT_REALIGN:
+                run("gmm-align", P(mdl), text, SF, f"ark:{P('sat_cali')}")
+            if it in ADAPT_CLI_SAT_FMLLR:
+                fmllr(mdl, posts("sat_cali", mdl, "sat_post.txt"), F, u2s,
+                      "sat_trans.ark")
+                SF = transformed("sat_trans.ark", F, u2s, "sat_feats.ark")
+            parts = []
+            for j, spec in enumerate(shards(f"ark:{P('sat_cali')}",
+                                            "sat_cali")):
+                parts.append(P(f"sat_acc.npz.{j + 1}"))
+                run("gmm-acc-stats-ali", P(mdl), SF, spec, parts[-1])
+            run("gmm-sum-accs", P("sat_acc.npz"), *parts)
+            if it == ADAPT_CLI_SAT_ITERS - 1:
+                run("gmm-acc-stats-ali", P(mdl), SF, f"ark:{P('sat_cali')}",
+                    P("sat_acc_all.npz"))
+                checks["sat shards"] = npz_rel(
+                    P("sat_acc.npz"), P("sat_acc_all.npz"), 1e-6,
+                    "sharded SAT statistics")
+            cur = min(LADDER_TRI["totgauss"], cur + inc) \
+                if it + 1 <= LADDER_TRI["max_iter_inc"] else cur
+            run("gmm-est", P(mdl), P("sat_acc.npz"),
+                P(f"sat{it + 1}.npz"), *LADDER_CLI_EST, "--mix-up", str(cur))
+        sat = f"sat{ADAPT_CLI_SAT_ITERS}.npz"
+        # final.alimdl: the SAT model's alignments, statistics of the
+        # speaker-independent features
+        run("gmm-align", P(sat), text, SF, f"ark:{P('sat_cali')}")
+        run("ali-to-post", f"ark:{P('sat_cali')}", P("sat_fpost.txt"))
+        run("gmm-acc-stats-twofeats", P(sat), SF, F, P("sat_fpost.txt"),
+            P("sat_twoacc.npz"))
+        run("gmm-est", P(sat), P("sat_twoacc.npz"), P("sat_si.npz"),
+            *LADDER_CLI_EST)
+        stages["sat em"] = time.perf_counter() - t
+
+        # (2) the graph, then steps/decode_fmllr.sh
+        t = time.perf_counter()
+        graph = mkgraph_primitives(run, P, sat, "sat_")
+        stages["graph"] = time.perf_counter() - t
+        t = time.perf_counter()
+        run("gmm-latgen-faster", P("sat_si.npz"), P(graph), TF,
+            "--lattice-out", P("si_lat.ark"), "--transcription-out",
+            P("hyp_si.txt"), *LATTICE_CLI_SEARCH)
+        wer["si"] = wer_of("hyp_si.txt", "si")
+        run("lattice-to-post", P("si_lat.ark"), P("si_post.raw"),
+            "--acoustic-scale", "0.1")
+        run("weight-silence-post", ADAPT_CLI_SILENCE, sil, P("sat_si.npz"),
+            P("si_post.raw"), P("si_post.txt"))
+        run("gmm-post-to-gpost", P("sat_si.npz"), TF, P("si_post.txt"),
+            P("si_gpost.pkl"))
+        fmllr(sat, "si_post.txt", TF, tu2s, "test_trans.ark",
+              "gmm-est-fmllr-gpost")
+        TFA = transformed("test_trans.ark", TF, tu2s, "test_fmllr.ark")
+        run("gmm-latgen-faster", P(sat), P(graph), TFA, "--lattice-out",
+            P("sat_lat.ark"), "--transcription-out", P("hyp_sat.txt"),
+            *LATTICE_CLI_SEARCH)
+        wer["sat"] = wer_of("hyp_sat.txt", "sat")
+        stages["decode_fmllr"] = time.perf_counter() - t
+
+        # (3) steps/train_ubm.sh
+        t = time.perf_counter()
+        run("init-ubm", P(sat), P("sat_acc.npz"), P("ubm0.npz"),
+            "--ubm-num-gauss", str(ADAPT_CLI_UBM["num_gauss"]),
+            "--fullcov-ubm", "false")
+        feat_shards = shards(SF, "sat_feats")
+        for it in range(ADAPT_CLI_UBM["num_iters"]):
+            parts = []
+            for j, spec in enumerate(feat_shards):
+                parts.append(P(f"ubm_acc.npz.{j + 1}"))
+                run("gmm-global-acc-stats", P(f"ubm{it}.npz"), spec,
+                    parts[-1])
+            run("gmm-global-sum-accs", P("ubm_acc.npz"), *parts)
+            run("gmm-global-est", P(f"ubm{it}.npz"), P("ubm_acc.npz"),
+                P(f"ubm{it + 1}.npz"))
+        ubm = f"ubm{ADAPT_CLI_UBM['num_iters']}.npz"
+        stages["ubm"] = time.perf_counter() - t
+
+        # (4) steps/train_sgmm2.sh
+        t = time.perf_counter()
+        num_pdfs = load_gmm_system(P(sat), device="cpu").am.num_pdfs
+        # the SAT model's alignment (train_sgmm2.sh's alignment dir)
+        shutil.copyfile(P("sat_fpost.txt"), P("sg_post.txt"))
+        dim = next(iter(open_rspecifier(SF)))[1].shape[1]
+        run("sgmm2-init", P(sat), P(ubm), P("sgmm0.npz"), "--phn-dim",
+            str(dim + 1), "--spk-dim", str(SGMM_WIDTH["spk_dim"]),
+            "--num-gselect", str(SGMM_WIDTH["num_gselect"]))
+        run("sgmm2-gselect", P("sgmm0.npz"), SF, f"ark:{P('sg_gselect')}",
+            "--num-gselect", str(SGMM_WIDTH["num_gselect"]))
+        sg_likes, sg_ali = [], []
+        for it in range(ADAPT_CLI_SGMM_ITERS):
+            mdl = f"sgmm{it}.npz"
+            if it == ADAPT_CLI_SGMM_REALIGN:
+                run("sgmm2-align-compiled", P(mdl), P(sat), text, SF,
+                    f"ark:{P('sg_ali2')}")
+                run("ali-to-post", f"ark:{P('sg_ali2')}", P("sg_post.txt"))
+            sg_ali.append("sg_ali2" if it >= ADAPT_CLI_SGMM_REALIGN
+                          else "sat_cali")
+            parts = []
+            for j, post in enumerate(shards(P("sg_post.txt"),
+                                            "sg_post.txt")):
+                parts.append(P(f"sg_acc.npz.{j + 1}"))
+                run("sgmm2-acc-stats", P(mdl), P(sat), SF, post, parts[-1])
+            run("sgmm2-sum-accs", P("sg_acc.npz"), *parts)
+            shutil.copyfile(P("sg_acc.npz"), P(f"sg_acc{it}.npz"))
+            z = np.load(P("sg_acc.npz"))
+            sg_likes.append(float(z["tot_like"]) / float(z["tot_frames"]))
+            if it == ADAPT_CLI_SGMM_ITERS - 1:
+                run("sgmm2-acc-stats", P(mdl), P(sat), SF, P("sg_post.txt"),
+                    P("sg_acc_all.npz"))
+                checks["sgmm shards"] = npz_rel(
+                    P("sg_acc.npz"), P("sg_acc_all.npz"), 1e-6,
+                    "sharded SGMM2 statistics")
+                with open(P("sg_post.txt.1")) as f, \
+                        open(P("sg_post_cpu.txt"), "w") as g:
+                    g.writelines(ln for k, ln in enumerate(f)
+                                 if k < ADAPT_CLI_CPU_UTTS)
+                t_cpu = time.perf_counter()
+                for side, extra in (("card", []), ("cpu", ["--device",
+                                                           "cpu"])):
+                    run("sgmm2-acc-stats", P(mdl), P(sat), SF,
+                        P("sg_post_cpu.txt"), P(f"sg_acc_{side}.npz"),
+                        *extra)
+                stages["sgmm card vs cpu"] = time.perf_counter() - t_cpu
+                checks["card vs cpu"] = npz_rel(
+                    P("sg_acc_card.npz"), P("sg_acc_cpu.npz"),
+                    ADAPT_CLI_REL["a_f64"], "card vs CPU SGMM2 statistics",
+                    {"S_centered": np.broadcast_to(
+                        sgmm_scatter_bound(SF, P("sg_post_cpu.txt")),
+                        np.load(P("sg_acc_cpu.npz"))["S_centered"].shape)})
+            split = ["--split-substates", str(SGMM_SUBSTATES_PER_PDF
+                                              * num_pdfs)] \
+                if it == ADAPT_CLI_SGMM_ITERS // 2 else []
+            run("sgmm2-est", P(mdl), P("sg_acc.npz"), P(f"sgmm{it + 1}.npz"),
+                "--update-flags",
+                ADAPT_CLI_SGMM_FLAGS[it % len(ADAPT_CLI_SGMM_FLAGS)], *split)
+        sgmm = f"sgmm{ADAPT_CLI_SGMM_ITERS}.npz"
+        stages["sgmm"] = time.perf_counter() - t
+        flags = [ADAPT_CLI_SGMM_FLAGS[i % len(ADAPT_CLI_SGMM_FLAGS)]
+                 for i in range(ADAPT_CLI_SGMM_ITERS)]
+
+        # (5) steps/decode_sgmm2.sh
+        t = time.perf_counter()
+        run("sgmm2-latgen-faster", P(sgmm), P(sat), P(graph), TFA,
+            "--lattice-out", P("sg_lat.ark"), "--transcription-out",
+            P("hyp_sgmm.txt"), *LATTICE_CLI_SEARCH)
+        wer["sgmm2"] = wer_of("hyp_sgmm.txt", "sgmm2")
+        run("sgmm2-rescore-lattice", P(sgmm), P(sat), P("sg_lat.ark"), TFA,
+            P("sg_rlat.ark"))
+        best = [run("lattice-best-path", P(lat), "--acoustic-scale",
+                    "0.1")[0] for lat in ("sg_lat.ark", "sg_rlat.ark")]
+        stages["decode_sgmm2"] = time.perf_counter() - t
+        gather, qaffine = tg.launches, q.launches
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        for n in ("sat_feats.ark", sat, "sat_si.npz", "sat_acc.npz",
+                  "sat_trans.ark", "sat_graph.npz", "si_lat.ark",
+                  "si_gpost.pkl", ubm, sgmm, "sg_acc.npz", "sg_lat.ark"):
+            sizes[n] = os.path.getsize(P(n))
+        sat_g = load_gmm_system(P(sat), device="cpu").am.total_gauss
+        sg_info = run("sgmm2-info", P(sgmm))[0].strip().splitlines()
+        sgmm_ok = wer["sgmm2"] <= wer["sat"] + ADAPT_CLI_SGMM_SLACK and \
+            wer["sgmm2"] < ADAPT_CLI_SGMM_BAR
+        save_sgmm_cli_witness(P, sg_likes, flags, sg_ali, SF, utts)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    total = time.perf_counter() - t0
+    n_calls = sum(calls.values())
+    log(f"  SAT, decode_fmllr, UBM, SGMM2 and decode_sgmm2 through "
+        f"{n_calls} CLI calls in {total:.3f} s | card: {card}")
+    log("  seconds by stage: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stages.items()))
+    log("  seconds by command kind (calls): " + ", ".join(
+        f"{k} {v:.3f} ({calls[k]})" for k, v in kinds.items()))
+    log("  file sizes (bytes): " + ", ".join(
+        f"{k} {v}" for k, v in sizes.items()))
+    log(f"  SAT: {leaves} leaves, {sat_g} gaussians, "
+        f"{ADAPT_CLI_SAT_ITERS} iterations; SI pass {lines['si']}; "
+        f"adapted {lines['sat']}")
+    log(f"  SGMM2: {'; '.join(sg_info)}; loglike per frame by iteration "
+        f"{', '.join(f'{x:.4f}' for x in sg_likes)} (flags "
+        f"{', '.join(flags)}); {lines['sgmm2']}")
+    log(f"  PARITY.md:36 at width: SGMM2 {wer['sgmm2']:.2f} against SAT "
+        f"{wer['sat']:.2f} + {ADAPT_CLI_SGMM_SLACK} "
+        f"({'met' if sgmm_ok else 'missed'}; reported, ROADMAP §3 B 8: "
+        f"JAX's own updates lower the SGMM2's loglike at width, phase 28's "
+        f"library SGMM2 misses it too), < {ADAPT_CLI_SGMM_BAR} asserted")
+    log(f"  shards' sums vs one accumulation: SAT "
+        f"{checks['sat shards']:.3e}, SGMM2 {checks['sgmm shards']:.3e} "
+        f"(limit 1e-6); sgmm2-acc-stats on {ADAPT_CLI_CPU_UTTS} utterances "
+        f"card vs --device cpu {checks['card vs cpu']:.3e} (limit "
+        f"{ADAPT_CLI_REL['a_f64']}); rescored best paths "
+        f"{'kept' if best[0] == best[1] else 'changed'}; peak "
+        f"{peak:.2f} GiB; launches: gather {gather}, qaffine {qaffine}")
+    fails = [msg for msg, ok in (
+        (f"SAT WER {wer['sat']} > SI {wer['si']}", wer["sat"] <= wer["si"]),
+        (f"SAT WER {wer['sat']} > {LADDER_BARS['tri']}",
+         wer["sat"] <= LADDER_BARS["tri"]),
+        (f"SGMM2 WER {wer['sgmm2']} >= {ADAPT_CLI_SGMM_BAR}",
+         wer["sgmm2"] < ADAPT_CLI_SGMM_BAR),
+        ("rescored best paths changed", best[0] == best[1]),
+        (f"gather launched {gather} times", gather == 0),
+        (f"qaffine launched {qaffine} times", qaffine == 0)) if not ok]
+    if fails:
+        raise AssertionError(f"phase 41: {fails}")
+    return {"wer": wer, "stages": stages, "kinds": kinds, "seconds": total,
+            "checks": checks, "peak_gib": peak, "launches": {
+                "gather": gather, "qaffine": qaffine}}
 
 
 # the recipe witnesses: each saves a phase's own inputs, replayed through
@@ -12729,7 +13671,8 @@ def side_phases() -> int:
     """The second process (`SIDE_FLAG`): the bench graph's chain (phases
     7, 8, 10, 13, 14, 34, 36, 18, 30 a and c), the CLI's GMM recipe at the
     ladder's width (37), its decode and scoring back half (38) and the
-    neural recipes on its files (39), sre10 through files (40), then the
+    neural recipes on its files (39), the adaptation and SGMM2 chain on
+    phase 37's files (41), the triphone ladder small (19), then the
     SMALL_PHASES; the launch counts and its end go to SIDE_RESULTS."""
     import torch
     from kaldi_tpu_torch.device import card_info, resolve_device
@@ -12739,59 +13682,57 @@ def side_phases() -> int:
     torch.set_num_threads(SIDE_THREADS)
     card = card_info()
     profile = "--profile" in sys.argv[1:]
-    log_phase("[7/40] full-width serving slice (bf16 TDNN)")
+    log_phase("[7/41] full-width serving slice (bf16 TDNN)")
     sl = phase_slice(tg, card, profile=profile)
-    log_phase("[8/40] full-width int8 serving slice")
+    log_phase("[8/41] full-width int8 serving slice")
     s8 = phase_int8_slice(q, tg, sl, card)
-    log_phase("[10/40] streaming server, full width")
+    log_phase("[10/41] streaming server, full width")
     st = phase_stream_full(tg, sl, card, profile=profile)
-    log_phase("[13/40] training, full width: the bench's AM with the port's "
+    log_phase("[13/41] training, full width: the bench's AM with the port's "
               "train step")
     tr = phase_train_full(sl, card, profile=profile)
-    log_phase("[14/40] lattice path, full width (latgen at the bench's "
+    log_phase("[14/41] lattice path, full width (latgen at the bench's "
               "point)")
     lt = phase_lattice_full(tg, sl, tr, card)
-    log_phase("[34/40] decoder tools at the bench graph's width: the "
+    log_phase("[34/41] decoder tools at the bench graph's width: the "
               "verifiers over its tier tables, decode_batched with phase 13's "
               "AM, the self-built triphone graph")
     tl = phase_tools_full(tg, sl, tr, card)
-    log_phase("[36/40] the bench decode through files: compute-fbank-feats "
+    log_phase("[36/41] the bench decode through files: compute-fbank-feats "
               "-> compute-cmvn-stats / apply-cmvn -> nnet-am-compute with "
               "phase 13's AM -> decode-faster-mapped on the bench graph -> "
               "compute-wer")
     cb = phase_cli_bench(tg, sl, tr, tl, card)
-    log_phase("[18/40] GMM path, full width: monophone training, the dense "
+    log_phase("[18/41] GMM path, full width: monophone training, the dense "
               "decoder's serving lines")
     phase_gmm_full(tr, card, profile=profile)
-    log_phase("[30/40] (a, c) rescoring at width: bench.py's 1.13M-n-gram "
+    log_phase("[30/41] (a, c) rescoring at width: bench.py's 1.13M-n-gram "
               "trigram over phase 14's lattices with the truncation audit; "
               "features on the bench's test waves")
     phase_rescore_bench(card, lt)
-    log_phase("[37/40] Kaldi's train_mono.sh -> train_deltas.sh -> "
+    log_phase("[37/41] Kaldi's train_mono.sh -> train_deltas.sh -> "
               "mkgraph.sh -> decode through the CLI's files at the triphone "
               "ladder's width")
     lc = phase_ladder_cli(card)
-    log_phase("[38/40] Kaldi's decode.sh -> score.sh -> "
+    log_phase("[38/41] Kaldi's decode.sh -> score.sh -> "
               "lmrescore_const_arpa.sh -> confidences, posteriors, KWS -> "
               "decode_fmllr.sh through the CLI's files on phase 37's")
     lt38 = phase_lattice_cli(card, lc)
-    log_phase("[39/40] Kaldi's nnet2, nnet3 and DBN recipes "
+    log_phase("[39/41] Kaldi's nnet2, nnet3 and DBN recipes "
               "(train_multisplice_accel2.sh, train_tdnn.sh, pretrain_dbn.sh "
               "-> train.sh -> decode.sh) through the CLI's files on phase "
               "37's")
     nc = phase_nnet_cli(card, lc)
-    log_phase("[40/40] egs/sre10 v1's run.sh through the CLI's files on "
-              "phase 26's corpus: compute-mfcc-feats -> add-deltas -> "
-              "compute-vad -> select-voiced-frames -> train-ubm --full -> "
-              "train-ivector-extractor -> ivector-extract -> mean, "
-              "centring, length -> ivector-compute-plda -> "
-              "ivector-plda-scoring / ivector-compute-dot-products -> "
-              "compute-eer; logistic regression")
-    sc = phase_sre_cli(card)
+    log_phase("[41/41] Kaldi's train_sat.sh -> decode_fmllr.sh -> "
+              "train_ubm.sh -> train_sgmm2.sh -> decode_sgmm2.sh through "
+              "the CLI's files on phase 37's")
+    ac = phase_adapt_cli(card, lc)
+    log_phase("[19/41] triphone ladder, small: card vs CPU")
+    phase_ladder_small()
     for k, what, fn in SMALL_PHASES:
         if k == 31:
             socket.setdefaulttimeout(SOCKET_TIMEOUT_S)
-        log_phase(f"[{k}/40] {what}")
+        log_phase(f"[{k}/41] {what}")
         globals()[fn]()
     with open(SIDE_RESULTS, "w") as f:
         json.dump({"slice": sl["launches"], "int8": s8["launches"],
@@ -12804,7 +13745,7 @@ def side_phases() -> int:
                    "ladder_cli": lc["launches"],
                    "lattice_cli": lt38["launches"],
                    "nnet_cli": nc["launches"],
-                   "sre_cli": sc["launches"], "ended": time.time()}, f)
+                   "adapt_cli": ac["launches"], "ended": time.time()}, f)
     log(f"the second process's phases in "
         f"{time.perf_counter() - T_START:.1f} s")
     return 0
@@ -12861,7 +13802,7 @@ def main() -> int:
 
     resolve_device("cuda")                # also turns TF32 off
     card = card_info()
-    log_phase(f"[1/40] card: {card} | torch {torch.__version__} CUDA "
+    log_phase(f"[1/41] card: {card} | torch {torch.__version__} CUDA "
               f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
               f"{torch.cuda.device_count()}")
 
@@ -12871,7 +13812,7 @@ def main() -> int:
         native = ex.submit(build_native)
         libs = cuda_build.build()
         native = native.result()
-    log_phase(f"[2/40] build: {len(libs)} kernels (one nvcc each) and "
+    log_phase(f"[2/41] build: {len(libs)} kernels (one nvcc each) and "
               f"{len(native)} g++ libraries, all at once, in "
               f"{time.perf_counter() - t:.3f} s")
     for name, so in libs.items():
@@ -12880,52 +13821,58 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]
         log(f"  {os.path.relpath(so, ROOT)}: {' | '.join(regs)}")
 
-    log_phase("[3/40] table-gather kernel vs plain version")
+    log_phase("[3/41] table-gather kernel vs plain version")
     k = phase_kernel(tg)
-    log_phase("[4/40] qaffine kernel vs plain version")
+    log_phase("[4/41] qaffine kernel vs plain version")
     qk = phase_qaffine(q)
     side = start_side_phases()            # beside the phases below
     try:
-        log_phase("[16/40] online path, full width "
+        log_phase("[16/41] online path, full width "
                   "(scripts/bench_streaming.py's configuration)")
         on = phase_online_full(tg, card, profile="--profile" in sys.argv[1:])
-        log_phase("[20/40] triphone ladder, full width: mono -> tri -> "
+        log_phase("[20/41] triphone ladder, full width: mono -> tri -> "
                   "LDA+MLLT -> TDNN, and SAT")
         ld = phase_ladder_full(card, profile="--profile" in sys.argv[1:])
-        log_phase("[22/40] discriminative path, full width: the rm-like "
+        log_phase("[22/41] discriminative path, full width: the rm-like "
                   "pyramid with bMMI and fMMI, then bMMI and TDNN sMBR on the "
                   "ladder's models")
         dk = phase_disc_full(card, ld, profile="--profile" in sys.argv[1:])
-        log_phase("[24/40] nnet3 and nnet1 families at the ladder's width: "
+        log_phase("[24/41] nnet3 and nnet1 families at the ladder's width: "
                   "nnet3 TDNN and LSTM, the wide LSTM, the DBN")
         nn = phase_nnet_full(card, ld, profile="--profile" in sys.argv[1:])
-        log_phase("[26/40] speaker recognition at sre10's width (2048 "
+        log_phase("[26/41] speaker recognition at sre10's width (2048 "
                   "gaussians, 600-dim i-vectors, 60-dim features): v1 and v2, "
                   "then logistic regression")
         sr = phase_sre_full(card, ld)
-        log_phase("[28/40] adaptation and SGMM2 at the ladder's width: raw, "
+        log_phase("[28/41] adaptation and SGMM2 at the ladder's width: raw, "
                   "basis, regression-tree and global fMLLR, MLLR, LVTLN, "
                   "HLDA; SGMM2 at egs/rm's sgmm2_4a widths, bMMI, SGMM fMLLR")
         ad = phase_adapt_sgmm_full(card, ld)
-        log_phase("[30/40] (b) search at width: the ladder's lattices "
+        log_phase("[30/41] (b) search at width: the ladder's lattices "
                   "through rescoring, scoring, MBR, ctm, KWS and "
                   "decode_biglm")
         rs = phase_rescore_ladder(card, ld)
         socket.setdefaulttimeout(SOCKET_TIMEOUT_S)
-        log_phase("[32/40] network serving at phase 16's configuration: its "
+        log_phase("[32/41] network serving at phase 16's configuration: its "
                   "AM and HCLG through the port's files, the TCP server over "
                   "6 concurrent connections (also through µ-law and ADPCM), "
                   "the threaded decoder, the online GMM decoder over phase "
                   "20's tri, the CLI")
         sv = phase_serving_full(tg, card, on, ld)
-        log_phase("[35/40] the CLI's first five slices, small: every "
+        log_phase("[40/41] egs/sre10 v1's run.sh through the CLI's files on "
+                  "phase 26's corpus: compute-mfcc-feats -> add-deltas -> "
+                  "compute-vad -> select-voiced-frames -> train-ubm --full -> "
+                  "train-ivector-extractor -> ivector-extract -> mean, "
+                  "centring, length -> ivector-compute-plda -> "
+                  "ivector-plda-scoring / ivector-compute-dot-products -> "
+                  "compute-eer; logistic regression")
+        sc = phase_sre_cli(card)
+        log_phase("[35/41] the CLI's five slices, small: every "
                   "device subcommand and the first slice's host ones on the "
                   "card and with --device cpu, recipe-yesno-files on the "
                   "card, --fused vs the generic pipeline, train-nnet3's "
                   "round trip, the card probes")
         phase_cli_small()
-        log_phase("[19/40] triphone ladder, small: card vs CPU")
-        phase_ladder_small()
         main_end = time.perf_counter() - T_START
         sd = finish_side_phases(side)
         side_end = sd["ended"] - T_START_WALL
@@ -12954,7 +13901,8 @@ def main() -> int:
         f"36's decode-faster-mapped, {sd['ladder_cli']['gather']} in phase "
         f"37's CLI recipe, {sd['lattice_cli']['gather']} in phase 38's, "
         f"{sd['nnet_cli']['gather']} in phase 39's, "
-        f"{sd['sre_cli']['gather']} in phase 40's; "
+        f"{sc['launches']['gather']} in phase 40's, "
+        f"{sd['adapt_cli']['gather']} in phase 41's; "
         f"qaffine {sd['int8']} "
         f"on the int8 slice, "
         f"{sr['qaffine_launches']} on the speaker-recognition path's, 0 on "
@@ -12963,9 +13911,10 @@ def main() -> int:
         f"32-36 assert it), {sd['ladder_cli']['qaffine']} in phase 37's, "
         f"{sd['lattice_cli']['qaffine']} in phase 38's, "
         f"{sd['nnet_cli']['qaffine']} in phase 39's, "
-        f"{sd['sre_cli']['qaffine']} in phase 40's")
+        f"{sc['launches']['qaffine']} in phase 40's, "
+        f"{sd['adapt_cli']['qaffine']} in phase 41's")
     faulthandler.cancel_dump_traceback_later()
-    log(f"all 40 phases in {time.perf_counter() - T_START:.1f} s")
+    log(f"all 41 phases in {time.perf_counter() - T_START:.1f} s")
     log(card)
     log(json.dumps({"kernels": [{
         "name": "batched_table_gather", "route": "cuda",
@@ -13008,7 +13957,8 @@ def main() -> int:
         "ladder_cli_launches": sd["ladder_cli"]["gather"],
         "lattice_cli_launches": sd["lattice_cli"]["gather"],
         "nnet_cli_launches": sd["nnet_cli"]["gather"],
-        "sre_cli_launches": sd["sre_cli"]["gather"]}, {
+        "sre_cli_launches": sc["launches"]["gather"],
+        "adapt_cli_launches": sd["adapt_cli"]["gather"]}, {
         "name": "qaffine", "route": "cuda",
         "source": "kaldi_tpu_torch/csrc/qaffine.cu",
         "replaces": "kaldi_tpu/nnet/quantized.py:46",
@@ -13027,7 +13977,8 @@ def main() -> int:
         "ladder_cli_launches": sd["ladder_cli"]["qaffine"],
         "lattice_cli_launches": sd["lattice_cli"]["qaffine"],
         "nnet_cli_launches": sd["nnet_cli"]["qaffine"],
-        "sre_cli_launches": sd["sre_cli"]["qaffine"]}]}))
+        "sre_cli_launches": sc["launches"]["qaffine"],
+        "adapt_cli_launches": sd["adapt_cli"]["qaffine"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -35,6 +35,7 @@ lattices, posteriors and KWS indexes) write JAX's bytes.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import sys
@@ -44,7 +45,7 @@ import numpy as np
 import torch
 
 from kaldi_tpu_torch import (cli_adapt, cli_fst, cli_gmm_extra, cli_misc,
-                             cli_nnet, cli_online_extra, cli_tail)
+                             cli_nnet, cli_online_extra, cli_sgmm, cli_tail)
 
 
 def _expand_config_args(argv):
@@ -5371,6 +5372,918 @@ def cmd_post_to_tacc(args):
     print(f"post-to-tacc: total {acc.sum():.1f}", file=sys.stderr)
 
 
+# ------------------------------------------- adaptation (slice 5b)
+
+def cmd_train_sat(args):
+    """Speaker-adapted (fMLLR) tied-triphone training, fused, on the
+    device (ref: steps/train_sat.sh). Writes the model plus per-speaker
+    transforms."""
+    from kaldi_tpu_torch.io.kaldi_io import open_wspecifier
+    from kaldi_tpu_torch.io.model_io import load_gmm_system, save_gmm_system
+    from kaldi_tpu_torch.steps.sat import SatTrainOpts, train_sat
+    dev = _device(args)
+    ali_model = load_gmm_system(args.model, device=dev)
+    utt2spk = _read_utt2spk(args.utt2spk)
+    utts3 = _load_train_utts(args.text, args.rspecifier)
+    utts = [(u, f, w, utt2spk.get(u, u)) for (u, f, w) in utts3]
+    sat = train_sat(ali_model.lang, utts, ali_model, SatTrainOpts(
+        num_iters=args.num_iters, totgauss=args.totgauss,
+        num_leaves=args.num_leaves,
+        realign_iters=tuple(range(1, args.num_iters)),
+        fmllr_min_count=args.fmllr_min_count))
+    save_gmm_system(args.model_out, sat.model)
+    with open_wspecifier(args.trans_out) as out:
+        for spk, W in sorted(sat.transforms.items()):
+            out.write(spk, np.asarray(W, np.float32))
+    print(f"train-sat: {sat.model.am.num_pdfs} pdfs, "
+          f"{sat.model.am.total_gauss} gauss, "
+          f"{len(sat.transforms)} speaker transforms", file=sys.stderr)
+
+
+def _fmllr_stats_by_spk(model, rspecifier, post_in, utt2spk_path,
+                        name=None):
+    """Per-speaker FmllrStats from posteriors, the gaussian posteriors on
+    the model's device; `name` reports an utterance without features."""
+    from kaldi_tpu_torch.hmm.posterior import read_post_ark
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.transform.fmllr import FmllrStats
+    utt2spk = _read_utt2spk(utt2spk_path)
+    feats = dict(open_rspecifier(rspecifier))
+    by_spk: dict = {}
+    for utt, post in read_post_ark(post_in):
+        if utt not in feats:
+            if name:
+                print(f"{name}: no feats for {utt}", file=sys.stderr)
+            continue
+        spk = utt2spk.get(utt, utt)
+        st = by_spk.setdefault(spk, FmllrStats(feats[utt].shape[1]))
+        st.accumulate_from_posteriors(
+            model.am, feats[utt], _post_to_pdf_post(post, model.trans_model))
+    return by_spk
+
+
+def cmd_gmm_est_fmllr(args):
+    """Per-speaker fMLLR transforms from weighted posteriors
+    (ref: gmmbin/gmm-est-fmllr.cc, transform/fmllr-diag-gmm.h:61); the
+    gaussian posteriors on the device, the solve host f64."""
+    from kaldi_tpu_torch.io.kaldi_io import open_wspecifier
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    from kaldi_tpu_torch.transform.fmllr import estimate_fmllr
+    model = load_gmm_system(args.model, device=_device(args))
+    by_spk = _fmllr_stats_by_spk(model, args.rspecifier, args.post_in,
+                                 args.utt2spk, name="gmm-est-fmllr")
+    n = 0
+    with open_wspecifier(args.wspecifier) as out:
+        for spk, st in sorted(by_spk.items()):
+            W, impr, count = estimate_fmllr(st, min_count=args.min_count)
+            # below min-count the identity, written anyway so every
+            # speaker decodes (ref: fmllr-diag-gmm.cc:161)
+            out.write(spk, np.asarray(W, np.float32))
+            print(f"gmm-est-fmllr: {spk} auxf impr/frame "
+                  f"{impr / max(count, 1.0):.4f} over {count:.0f} frames",
+                  file=sys.stderr)
+            n += 1
+    print(f"gmm-est-fmllr: wrote {n} transforms", file=sys.stderr)
+
+
+def cmd_gmm_est_map(args):
+    """MAP (tau-prior) re-estimation from accs, host f64
+    (ref: gmmbin/gmm-est-map.cc, gmm/mle-diag-gmm.h:225)."""
+    from kaldi_tpu_torch.gmm.estimation import map_diag_gmm_update
+    from kaldi_tpu_torch.io.model_io import (load_gmm_accs, load_gmm_system,
+                                             save_gmm_system)
+    model = load_gmm_system(args.model, device="cpu")
+    acc, _tc = load_gmm_accs(args.accs)
+    for i, a in enumerate(acc.accs):
+        model.am.pdfs[i] = map_diag_gmm_update(
+            model.am.pdfs[i], a, mean_tau=args.mean_tau,
+            weight_tau=args.weight_tau, variance_tau=args.variance_tau,
+            update_weights=args.update_weights,
+            update_vars=args.update_vars)
+    model.am.invalidate()
+    save_gmm_system(args.model_out, model)
+    print(f"gmm-est-map: tau {args.mean_tau}, avg loglike/frame "
+          f"{_avg_like(acc)}", file=sys.stderr)
+
+
+def _save_lvtln(path, lv):
+    """JAX's LVTLN file: the class matrices `A` and f64 `warps`."""
+    with open(path, "wb") as f:
+        np.savez(f, A=_to_host(lv.A), warps=np.asarray(lv.warps, np.float64))
+
+
+def _load_lvtln(path, device="cpu"):
+    from kaldi_tpu_torch.transform.lvtln import LinearVtln
+    z = np.load(path)
+    lv = LinearVtln(z["A"].shape[1], [float(w) for w in z["warps"]],
+                    device=device)
+    lv.A = torch.tensor(z["A"], dtype=torch.float64, device=lv.device)
+    return lv
+
+
+def cmd_gmm_init_lvtln(args):
+    """Identity-initialised LVTLN classes, one per warp factor
+    (ref: gmmbin/gmm-init-lvtln.cc)."""
+    from kaldi_tpu_torch.transform.lvtln import LinearVtln
+    warps = [float(w) for w in args.warps.split(":")]
+    _save_lvtln(args.lvtln_out, LinearVtln(args.dim, warps, device="cpu"))
+    print(f"gmm-init-lvtln: {len(warps)} classes, dim {args.dim}",
+          file=sys.stderr)
+
+
+def cmd_gmm_train_lvtln_special(args):
+    """Train one LVTLN class from (unwarped, warped) feature pairs, the
+    least-squares solve on the device
+    (ref: gmmbin/gmm-train-lvtln-special.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    lv = _load_lvtln(args.lvtln, _device(args))
+    orig = dict(open_rspecifier(args.rspecifier_orig))
+    warp = dict(open_rspecifier(args.rspecifier_warped))
+    keys = sorted(set(orig) & set(warp))
+    X = np.concatenate([orig[k][: len(warp[k])] for k in keys]) \
+        .astype(np.float64)
+    Y = np.concatenate([warp[k][: len(orig[k])] for k in keys]) \
+        .astype(np.float64)
+    lv.train_class(args.class_idx, X, Y)
+    _save_lvtln(args.lvtln_out, lv)
+    print(f"gmm-train-lvtln-special: class {args.class_idx} from "
+          f"{len(X)} frames", file=sys.stderr)
+
+
+def _write_lvtln_choices(name, lv, by_spk, wspecifier):
+    """Each speaker's LVTLN class and transform (the selection on the
+    LVTLN's device)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_wspecifier
+    n = 0
+    with open_wspecifier(wspecifier) as out:
+        for spk, st in sorted(by_spk.items()):
+            c, W, _auxfs = lv.select_class(st)
+            out.write(spk, np.asarray(W, np.float32))
+            print(f"{name}: {spk} class {c} warp {lv.warp_of(c)}",
+                  file=sys.stderr)
+            n += 1
+    print(f"{name}: {n} speakers", file=sys.stderr)
+
+
+def cmd_gmm_est_lvtln_trans(args):
+    """Per-speaker LVTLN class selection + bias; writes transforms and
+    the chosen warp factors (ref: gmmbin/gmm-est-lvtln-trans.cc)."""
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    dev = _device(args)
+    model = load_gmm_system(args.model, device=dev)
+    lv = _load_lvtln(args.lvtln, dev)
+    by_spk = _fmllr_stats_by_spk(model, args.rspecifier, args.post_in,
+                                 args.utt2spk)
+    _write_lvtln_choices("gmm-est-lvtln-trans", lv, by_spk, args.wspecifier)
+
+
+def cmd_gmm_adapt_map(args):
+    """Per-speaker MAP-adapted models written to a directory, the
+    gaussian posteriors on the device (ref: gmmbin/gmm-adapt-map.cc)."""
+    from kaldi_tpu_torch.gmm.estimation import (AccumAmDiagGmm,
+                                                map_diag_gmm_update)
+    from kaldi_tpu_torch.io.model_io import save_gmm_system
+    model, feats, posts = _model_feats_posts(args)
+    am, tm = model.am, model.trans_model
+    utt2spk = _read_utt2spk(args.utt2spk)
+    by_spk: dict = {}
+    for utt, post in posts:
+        if utt not in feats:
+            continue
+        spk = utt2spk.get(utt, utt)
+        acc = by_spk.setdefault(spk, AccumAmDiagGmm(am))
+        acc.accumulate_from_posteriors(am, feats[utt],
+                                       _post_to_pdf_post(post, tm))
+    os.makedirs(args.out_dir, exist_ok=True)
+    pdfs = am.pdfs
+    for spk, acc in sorted(by_spk.items()):
+        am.pdfs = [map_diag_gmm_update(pdfs[p], acc.accs[p],
+                                       mean_tau=args.mean_tau)
+                   for p in range(am.num_pdfs)]
+        am.invalidate()
+        save_gmm_system(os.path.join(args.out_dir, f"{spk}.npz"), model)
+    print(f"gmm-adapt-map: {len(by_spk)} speakers -> {args.out_dir}",
+          file=sys.stderr)
+
+
+def _save_regtree(path, tree):
+    """JAX's regression-tree file: the tree pickled at the highest
+    protocol under the JAX package's class name, in an npz `__host__`."""
+    import io as _io
+    import pickle
+
+    from kaldi_tpu_torch.io.model_io import JaxNamePickler
+    buf = _io.BytesIO()
+    JaxNamePickler(buf, protocol=pickle.HIGHEST_PROTOCOL).dump(tree)
+    with open(path, "wb") as f:
+        np.savez(f, __host__=np.frombuffer(buf.getvalue(), np.uint8))
+
+
+def _load_regtree(path, device="cpu"):
+    """A regression-tree file (either package's) -> the port's tree on
+    `device`."""
+    from kaldi_tpu_torch.device import resolve_device
+    from kaldi_tpu_torch.io.model_io import _loads
+    tree = _loads(np.load(path)["__host__"].tobytes())
+    tree.device = resolve_device(device)
+    return tree
+
+
+def cmd_gmm_make_regtree(args):
+    """Gaussian regression tree for regtree-(f)MLLR, JAX's host 2-means
+    (ref: gmmbin/gmm-make-regtree.cc)."""
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    from kaldi_tpu_torch.transform.regtree import RegressionTree
+    model = load_gmm_system(args.model, device="cpu")
+    tree = RegressionTree(model.am, num_base_classes=args.max_leaves,
+                          seed=args.seed, device="cpu")
+    _save_regtree(args.tree_out, tree)
+    print(f"gmm-make-regtree: {len(tree.leaves)} base classes",
+          file=sys.stderr)
+
+
+def _stack_by_leaf(tree, xf, leaves):
+    """Per-gaussian transforms -> one per leaf, stacked [L*D, D+1] in
+    leaf order (the apply side regroups)."""
+    return np.concatenate(
+        [xf[int(np.flatnonzero(tree.gauss2leaf == lf)[0])] for lf in leaves],
+        axis=0)
+
+
+def cmd_gmm_est_regtree_fmllr(args):
+    """Per-speaker regression-tree fMLLR: one transform per base class
+    with occupancy backoff up the tree, statistics on the device
+    (ref: gmmbin/gmm-est-regtree-fmllr.cc)."""
+    from kaldi_tpu_torch.hmm.posterior import read_post_ark
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, open_wspecifier
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    from kaldi_tpu_torch.transform.regtree import (RegtreeStats,
+                                                   estimate_regtree_fmllr)
+    dev = _device(args)
+    model = load_gmm_system(args.model, device=dev)
+    tm = model.trans_model
+    tree = _load_regtree(args.regtree, dev)
+    utt2spk = _read_utt2spk(args.utt2spk)
+    feats = dict(open_rspecifier(args.rspecifier))
+    by_spk: dict = {}
+    D = model.am.dim
+    for utt, post in read_post_ark(args.post_in):
+        if utt not in feats:
+            continue
+        spk = utt2spk.get(utt, utt)
+        acc = by_spk.setdefault(spk, RegtreeStats(tree, D))
+        acc.accumulate(model.am, feats[utt].astype(np.float64),
+                       _post_to_pdf_post(post, tm))
+    n = 0
+    with open_wspecifier(args.wspecifier) as out:
+        for spk, acc in sorted(by_spk.items()):
+            xf = estimate_regtree_fmllr(acc, min_count=args.min_count)
+            leaves = sorted({int(tree.gauss2leaf[g]) for g in xf})
+            out.write(spk, _stack_by_leaf(tree, xf, leaves)
+                      .astype(np.float32))
+            n += 1
+    print(f"gmm-est-regtree-fmllr: {n} speakers", file=sys.stderr)
+
+
+def cmd_gmm_transform_means(args):
+    """Left-multiply every Gaussian mean by a linear/affine transform,
+    host f64 (ref: gmmbin/gmm-transform-means.cc)."""
+    from kaldi_tpu_torch.gmm.diag_gmm import DiagGmm
+    from kaldi_tpu_torch.io.kaldi_io import read_ark
+    from kaldi_tpu_torch.io.model_io import load_gmm_system, save_gmm_system
+    model = load_gmm_system(args.model, device="cpu")
+    mats = dict(read_ark(args.transform))
+    if len(mats) != 1:
+        raise SystemExit("gmm-transform-means: transform ark must hold "
+                         "exactly one matrix")
+    (M,) = mats.values()
+    M = np.asarray(M, np.float64)
+    D = model.am.dim
+    if M.shape == (D, D + 1):
+        A, b = M[:, :D], M[:, D]
+    elif M.shape == (D, D):
+        A, b = M, np.zeros(D)
+    else:
+        raise SystemExit(f"gmm-transform-means: transform shape "
+                         f"{M.shape} does not match dim {D}")
+    for pdf in range(model.am.num_pdfs):
+        g = model.am.pdfs[pdf]
+        model.am.pdfs[pdf] = DiagGmm(g.weights, g.means @ A.T + b, g.vars)
+    model.am.invalidate()
+    save_gmm_system(args.model_out, model)
+    print(f"gmm-transform-means: {model.am.num_pdfs} pdfs",
+          file=sys.stderr)
+
+
+def _basis_accus(model, by_spk):
+    """BasisFmllrAccus over the speakers' statistics, on the model's
+    device."""
+    from kaldi_tpu_torch.transform.basis_fmllr import BasisFmllrAccus
+    accus = BasisFmllrAccus(model.am.dim, device=model.am.device)
+    for _spk, st in sorted(by_spk.items()):
+        accus.accumulate_from_speaker(st)
+    return accus
+
+
+def cmd_gmm_basis_fmllr_training(args):
+    """Estimate an fMLLR basis from training speakers' gradient scatter
+    on the device (ref: gmmbin/gmm-basis-fmllr-training.cc,
+    transform/basis-fmllr-diag-gmm.h:63)."""
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    from kaldi_tpu_torch.transform.basis_fmllr import estimate_fmllr_basis
+    model = load_gmm_system(args.model, device=_device(args))
+    by_spk = _fmllr_stats_by_spk(model, args.rspecifier, args.post_in,
+                                 args.utt2spk)
+    basis = _to_host(estimate_fmllr_basis(_basis_accus(model, by_spk),
+                                          args.basis_size))
+    with open(args.basis_out, "wb") as f:
+        np.savez(f, basis=basis)
+    print(f"gmm-basis-fmllr-training: basis {basis.shape[0]} x "
+          f"{basis.shape[1]}x{basis.shape[2]} from {len(by_spk)} "
+          f"speakers", file=sys.stderr)
+
+
+def cmd_gmm_est_basis_fmllr(args):
+    """Per-speaker basis-fMLLR coefficients, the ascent on the device
+    (ref: gmmbin/gmm-est-basis-fmllr.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_wspecifier
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    from kaldi_tpu_torch.transform.basis_fmllr import (
+        compute_basis_fmllr_transform)
+    dev = _device(args)
+    model = load_gmm_system(args.model, device=dev)
+    basis = torch.as_tensor(np.load(args.basis)["basis"],
+                            dtype=torch.float64, device=dev)
+    by_spk = _fmllr_stats_by_spk(model, args.rspecifier, args.post_in,
+                                 args.utt2spk)
+    n = 0
+    with open_wspecifier(args.wspecifier) as out:
+        for spk, st in sorted(by_spk.items()):
+            W, n_coef, impr = compute_basis_fmllr_transform(st, basis)
+            out.write(spk, _to_host(W).astype(np.float32))
+            print(f"gmm-est-basis-fmllr: {spk} coeffs {n_coef} auxf "
+                  f"impr/frame {impr:.4f}", file=sys.stderr)
+            n += 1
+    print(f"gmm-est-basis-fmllr: wrote {n} transforms", file=sys.stderr)
+
+
+# ------------------------------------------------------- fMPE (slice 5b)
+
+def _save_fmpe(path, fmpe):
+    """JAX's fMPE file: `M`, the UBM's weights / means / vars, int64 dim,
+    f64 post_scale and learning_rate, the context windows as JSON bytes."""
+    with open(path, "wb") as f:
+        np.savez(f, M=fmpe.M, weights=fmpe.gmm.weights,
+                 means=fmpe.gmm.means, vars=fmpe.gmm.vars,
+                 dim=np.int64(fmpe.dim),
+                 post_scale=np.float64(fmpe.opts.post_scale),
+                 learning_rate=np.float64(fmpe.opts.learning_rate),
+                 context_windows=np.frombuffer(json.dumps(
+                     [list(w) for w in fmpe.opts.context_windows]).encode(),
+                     dtype=np.uint8))
+
+
+def _load_fmpe(path):
+    from kaldi_tpu_torch.gmm.diag_gmm import DiagGmm
+    from kaldi_tpu_torch.transform.fmpe import Fmpe, FmpeOptions
+    z = np.load(path)
+    opts = FmpeOptions(
+        context_windows=tuple(tuple(w) for w in json.loads(
+            z["context_windows"].tobytes().decode())),
+        post_scale=float(z["post_scale"]),
+        learning_rate=float(z["learning_rate"]))
+    f = Fmpe(DiagGmm(z["weights"], z["means"], z["vars"]), int(z["dim"]),
+             opts)
+    f.M = z["M"].copy()
+    return f
+
+
+def _save_fmpe_accs(path, acc, frames):
+    with open(path, "wb") as f:
+        np.savez(f, acc=acc, frames=np.float64(frames))
+
+
+def _fmpe_acc(model, fmpe, rspecifier, post_in):
+    """The fMPE differential dF/dM summed over a post file's utterances,
+    host f64 as in JAX (`Fmpe`'s posteriors are the UBM's on the host)
+    -> (acc, frames)."""
+    from kaldi_tpu_torch.hmm.posterior import read_post_ark
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    feats = dict(open_rspecifier(rspecifier))
+    acc = np.zeros_like(fmpe.M)
+    frames = 0
+    for utt, post in read_post_ark(post_in):
+        if utt not in feats:
+            continue
+        x = np.asarray(feats[utt], np.float64)
+        x_out = fmpe.apply(x)
+        dF = fmpe.direct_differential(
+            model.am, x_out, _post_to_pdf_post(post, model.trans_model))
+        acc += dF.T @ fmpe._h(x)
+        frames += len(x)
+    return acc, frames
+
+
+def cmd_fmpe_copy(args):
+    """(ref: featbin/fmpe-copy.cc)"""
+    _save_fmpe(args.fmpe_out, _load_fmpe(args.fmpe))
+    print("fmpe-copy: done", file=sys.stderr)
+
+
+def cmd_fmpe_init(args):
+    """Zero-initialised fMPE transform over a diag UBM
+    (ref: featbin/fmpe-init.cc)."""
+    from kaldi_tpu_torch.io.model_io import load_ubm
+    from kaldi_tpu_torch.transform.fmpe import Fmpe, FmpeOptions
+    ubm = load_ubm(args.ubm)
+    f = Fmpe(ubm, ubm.dim, FmpeOptions(
+        post_scale=args.post_scale, learning_rate=args.learning_rate))
+    _save_fmpe(args.fmpe_out, f)
+    print(f"fmpe-init: {ubm.num_gauss} gauss, dim {ubm.dim}",
+          file=sys.stderr)
+
+
+def cmd_fmpe_acc_stats(args):
+    """Accumulate the fMPE differential dF/dM from signed pdf posteriors
+    (ref: featbin/fmpe-acc-stats.cc)."""
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    acc, frames = _fmpe_acc(load_gmm_system(args.model, device="cpu"),
+                            _load_fmpe(args.fmpe), args.rspecifier,
+                            args.post_in)
+    _save_fmpe_accs(args.accs_out, acc, frames)
+    print(f"fmpe-acc-stats: {frames} frames", file=sys.stderr)
+
+
+def cmd_fmpe_sum_accs(args):
+    """(ref: featbin/fmpe-sum-accs.cc)"""
+    acc, frames = None, 0.0
+    for p in args.accs_in:
+        z = np.load(p)
+        acc = z["acc"] if acc is None else acc + z["acc"]
+        frames += float(z["frames"])
+    _save_fmpe_accs(args.accs_out, acc, frames)
+    print(f"fmpe-sum-accs: {len(args.accs_in)} files", file=sys.stderr)
+
+
+def cmd_fmpe_est(args):
+    """SGD step on M from accumulated differentials
+    (ref: featbin/fmpe-est.cc)."""
+    fmpe = _load_fmpe(args.fmpe)
+    z = np.load(args.accs)
+    fmpe.M += (fmpe.opts.learning_rate * z["acc"]
+               / max(float(z["frames"]), 1.0))
+    _save_fmpe(args.fmpe_out, fmpe)
+    print(f"fmpe-est: |M| {np.abs(fmpe.M).max():.4f}", file=sys.stderr)
+
+
+def cmd_fmpe_apply_transform(args):
+    """(ref: featbin/fmpe-apply-transform.cc)"""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, open_wspecifier
+    fmpe = _load_fmpe(args.fmpe)
+    n = 0
+    with open_wspecifier(args.wspecifier) as out:
+        for k, v in open_rspecifier(args.rspecifier):
+            out.write(k, fmpe.apply(v.astype(np.float64))
+                      .astype(np.float32))
+            n += 1
+    print(f"fmpe-apply-transform: {n} utts", file=sys.stderr)
+
+
+# ------------------------------------------------------- SGMM2 (slice 5b)
+
+def cmd_train_sgmm2(args):
+    """SGMM2 system from a trained GMM system's alignments, fused, on the
+    device (ref: steps/train_sgmm2.sh)."""
+    from kaldi_tpu_torch.io.model_io import load_gmm_system, save_sgmm2
+    from kaldi_tpu_torch.steps.sgmm_steps import (SgmmTrainOpts,
+                                                  train_sgmm2_system)
+    gmm = load_gmm_system(args.model, device=_device(args))
+    utts = _load_train_utts(args.text, args.rspecifier)
+    sgmm_am, likes = train_sgmm2_system(gmm, utts, SgmmTrainOpts(
+        ubm_gauss=args.ubm_gauss, phn_dim=args.phn_dim,
+        spk_dim=args.spk_dim, num_iters=args.num_iters,
+        num_gselect=args.num_gselect,
+        total_substates=args.total_substates))
+    save_sgmm2(args.sgmm_out, sgmm_am)
+    print(f"train-sgmm2: {sgmm_am.sgmm.num_states} states, "
+          f"{sgmm_am.sgmm.num_gauss} gauss, phn-dim "
+          f"{sgmm_am.sgmm.phn_dim}, final loglike/frame "
+          f"{likes[-1]:.4f}", file=sys.stderr)
+
+
+def cmd_sgmm2_info(args):
+    """(ref: sgmm2bin/sgmm2-info.cc)"""
+    from kaldi_tpu_torch.io.model_io import load_sgmm2
+    s = load_sgmm2(args.model, device="cpu").sgmm
+    print(f"number of states {s.num_states}")
+    print(f"number of gaussians {s.num_gauss}")
+    print(f"feature dimension {s.dim}")
+    print(f"phone-space dimension {s.phn_dim}")
+    print(f"speaker-space dimension {s.spk_dim}")
+    print(f"number of substates {int(s.offsets[-1])}")
+
+
+def _sgmm_loglikes(am, items):
+    """[(key, feats)] -> ([B, T, J] f32 SGMM loglikes on the model's
+    device, the padding masked; [B] int32 frame counts)."""
+    feats, nf = _pad_batch(items)
+    ll = am.loglikes_np(feats)
+    for b in range(len(items)):
+        ll[b, nf[b]:] = -1e10
+    return ll, nf
+
+
+def cmd_sgmm2_latgen_faster(args):
+    """Lattice-generating decode with an SGMM2 acoustic model on the
+    device; the graph's words come from the companion GMM system
+    (ref: sgmm2bin/sgmm2-latgen-faster.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import (load_gmm_system, load_hclg,
+                                             load_sgmm2)
+    dev = _device(args)
+    sgmm_am = load_sgmm2(args.model, device=dev)
+    gmm = load_gmm_system(args.gmm_model, device="cpu")
+    packed = load_hclg(args.graph)
+    items = list(open_rspecifier(args.rspecifier))
+    ll, nf = _sgmm_loglikes(sgmm_am, items)
+    _latgen_from_loglikes(packed, [k for (k, _f) in items], ll, nf, args,
+                          dev, sym=gmm.lang.words.sym)
+
+
+def cmd_sgmm2_gselect(args):
+    """Per-frame Gaussian preselection indices, scored on the device
+    (ref: sgmm2bin/sgmm2-gselect.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, open_wspecifier
+    from kaldi_tpu_torch.io.model_io import load_sgmm2
+    am = load_sgmm2(args.model, device=_device(args))
+    n = 0
+    with open_wspecifier(args.wspecifier) as out:
+        for utt, feats in open_rspecifier(args.rspecifier):
+            gsel = am.sgmm.gselect(feats.astype(np.float64),
+                                   args.num_gselect)
+            out.write(utt, _to_host(gsel).astype(np.float32))
+            n += 1
+    print(f"sgmm2-gselect: {n} utts", file=sys.stderr)
+
+
+def cmd_sgmm2_acc_stats(args):
+    """SGMM2 EM stats from per-frame posteriors, on the device
+    (ref: sgmm2bin/sgmm2-acc-stats.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier
+    from kaldi_tpu_torch.io.model_io import load_sgmm2, save_sgmm2_accs
+    from kaldi_tpu_torch.sgmm.estimate import Sgmm2Accs
+    am = load_sgmm2(args.model, device=_device(args))
+    feats = dict(open_rspecifier(args.rspecifier))
+    xs, post = [], []
+    for utt, pdf_post in cli_sgmm._pdf_posts(args.gmm_model, args.post_in):
+        if utt not in feats:
+            continue
+        xs.append(feats[utt].astype(np.float64))
+        post += pdf_post[:len(xs[-1])] + [[]] * (len(xs[-1]) - len(pdf_post))
+    accs = Sgmm2Accs(am.sgmm)
+    if xs:
+        # one pass over the utterances' frames together: the sums JAX
+        # makes utterance by utterance, in one loop over the states
+        accs.accumulate(am.sgmm, np.concatenate(xs), post,
+                        num_gselect=am.num_gselect)
+    n = len(xs)
+    save_sgmm2_accs(args.accs_out, accs)
+    print(f"sgmm2-acc-stats: {n} utts, avg loglike/frame "
+          f"{accs.tot_like / max(accs.tot_frames, 1.0):.4f}",
+          file=sys.stderr)
+
+
+def cmd_sgmm2_sum_accs(args):
+    """(ref: sgmm2bin/sgmm2-sum-accs.cc) Host f64 sums of JAX's arrays."""
+    from kaldi_tpu_torch.io.model_io import load_sgmm2_accs, save_sgmm2_accs
+    total = None
+    for p in args.accs_in:
+        a = load_sgmm2_accs(p, device="cpu")
+        if total is None:
+            total = a
+            continue
+        for name in ("gamma", "y", "Y", "Q", "_S2", "_Sx", "_tot_like",
+                     "_tot_frames"):
+            getattr(total, name).add_(getattr(a, name))
+    save_sgmm2_accs(args.accs_out, total)
+    print(f"sgmm2-sum-accs: {len(args.accs_in)} files", file=sys.stderr)
+
+
+def cmd_sgmm2_est(args):
+    """ML M-step on the device (ref: sgmm2bin/sgmm2-est.cc)."""
+    from kaldi_tpu_torch.io.model_io import (load_sgmm2, load_sgmm2_accs,
+                                             save_sgmm2)
+    from kaldi_tpu_torch.sgmm.estimate import update_sgmm2
+    dev = _device(args)
+    am = load_sgmm2(args.model, device=dev)
+    accs = load_sgmm2_accs(args.accs, device=dev)
+    sgmm = update_sgmm2(am.sgmm, accs, update_flags=args.update_flags)
+    if args.split_substates:
+        sgmm.split_substates(args.split_substates,
+                             state_occs=accs.state_occs())
+    am.sgmm = sgmm
+    save_sgmm2(args.model_out, am)
+    print(f"sgmm2-est: flags {args.update_flags}, avg loglike/frame "
+          f"{accs.tot_like / max(accs.tot_frames, 1.0):.4f}",
+          file=sys.stderr)
+
+
+def cmd_sgmm2_est_ebw(args):
+    """Discriminative EBW M-step from num/den stats, on the device
+    (ref: sgmm2bin/sgmm2-est-ebw.cc, estimate-am-sgmm2-ebw.h)."""
+    from kaldi_tpu_torch.io.model_io import (load_sgmm2, load_sgmm2_accs,
+                                             save_sgmm2)
+    from kaldi_tpu_torch.sgmm.ebw import EbwSgmm2Options, update_sgmm2_ebw
+    dev = _device(args)
+    am = load_sgmm2(args.model, device=dev)
+    num = load_sgmm2_accs(args.num_accs, device=dev)
+    den = load_sgmm2_accs(args.den_accs, device=dev)
+    impr = update_sgmm2_ebw(am.sgmm, num, den, EbwSgmm2Options(),
+                            update_flags=args.update_flags)
+    save_sgmm2(args.model_out, am)
+    print("sgmm2-est-ebw: auxf impr " +
+          " ".join(f"{k}={v:.3f}" for k, v in impr.items()),
+          file=sys.stderr)
+
+
+def cmd_sgmm2_align(args):
+    """Forced alignment with SGMM2 acoustics over per-utterance training
+    graphs, loglikes and Viterbi on the device
+    (ref: sgmm2bin/sgmm2-align-compiled.cc)."""
+    from kaldi_tpu_torch.decoder.viterbi import viterbi_align
+    from kaldi_tpu_torch.io.model_io import load_gmm_system, load_sgmm2
+    dev = _device(args)
+    am = load_sgmm2(args.model, device=dev)
+    gmm = load_gmm_system(args.gmm_model, device="cpu")
+    utts = _load_train_utts(args.text, args.rspecifier)
+    batch = _training_graphs(gmm, [w for (_u, _f, w) in utts])
+    feats, nf = _pad_batch([(u, f) for (u, f, _w) in utts])
+    results = viterbi_align(batch, am.loglikes_np(feats), nf,
+                            args.acoustic_scale, device=dev)
+    n_ok = _write_alignments("sgmm2-align", args.wspecifier,
+                             [u for (u, _f, _w) in utts], results)
+    print(f"sgmm2-align: aligned {n_ok}/{len(utts)}", file=sys.stderr)
+
+
+def cmd_sgmm2_est_spkvecs(args):
+    """Per-speaker vector estimation on the device
+    (ref: sgmm2bin/sgmm2-est-spkvecs.cc)."""
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, open_wspecifier
+    from kaldi_tpu_torch.io.model_io import load_sgmm2
+    from kaldi_tpu_torch.sgmm.estimate import estimate_speaker_vector
+    am = load_sgmm2(args.model, device=_device(args))
+    utt2spk = _read_utt2spk(args.utt2spk)
+    feats = dict(open_rspecifier(args.rspecifier))
+    by_spk: dict = {}
+    for utt, pdf_post in cli_sgmm._pdf_posts(args.gmm_model, args.post_in):
+        if utt not in feats:
+            continue
+        by_spk.setdefault(utt2spk.get(utt, utt), []).append(
+            (feats[utt].astype(np.float64), pdf_post))
+    n = 0
+    with open_wspecifier(args.wspecifier) as out:
+        for spk, pieces in sorted(by_spk.items()):
+            f = np.concatenate([x for (x, _p) in pieces])
+            post = [fr for (_x, p) in pieces for fr in p]
+            st = estimate_speaker_vector(am.sgmm, f, post,
+                                         num_gselect=am.num_gselect)
+            out.write(spk, _to_host(st.v).astype(np.float32))
+            n += 1
+    print(f"sgmm2-est-spkvecs: {n} speakers", file=sys.stderr)
+
+
+def _register_adapt(sub):
+    """The fifth slice's (5b) subcommands of this module: adaptation,
+    fMPE and SGMM2 (kaldi_tpu/cli.py main)."""
+    q = sub.add_parser("gmm-transform-means")
+    q.add_argument("transform")
+    q.add_argument("model")
+    q.add_argument("model_out")
+    q.set_defaults(func=cmd_gmm_transform_means)
+
+    q = sub.add_parser("train-sat")
+    q.add_argument("model", help="alignment system")
+    q.add_argument("text")
+    q.add_argument("rspecifier")
+    q.add_argument("utt2spk")
+    q.add_argument("model_out")
+    q.add_argument("trans_out", help="per-speaker fMLLR transform ark")
+    q.add_argument("--num-iters", type=int, default=15)
+    q.add_argument("--totgauss", type=int, default=200)
+    q.add_argument("--num-leaves", type=int, default=50)
+    q.add_argument("--fmllr-min-count", type=float, default=100.0)
+    q.set_defaults(func=cmd_train_sat)
+
+    q = sub.add_parser("gmm-est-fmllr")
+    q.add_argument("model")
+    q.add_argument("rspecifier")
+    q.add_argument("post_in")
+    q.add_argument("wspecifier")
+    q.add_argument("--utt2spk", default="")
+    q.add_argument("--min-count", type=float, default=500.0)
+    q.set_defaults(func=cmd_gmm_est_fmllr)
+
+    q = sub.add_parser("gmm-est-map")
+    q.add_argument("model")
+    q.add_argument("accs")
+    q.add_argument("model_out")
+    q.add_argument("--mean-tau", type=float, default=10.0)
+    q.add_argument("--weight-tau", type=float, default=10.0)
+    q.add_argument("--variance-tau", type=float, default=50.0)
+    q.add_argument("--update-weights", action="store_true")
+    q.add_argument("--update-vars", action="store_true")
+    q.set_defaults(func=cmd_gmm_est_map)
+
+    q = sub.add_parser("fmpe-init")
+    q.add_argument("ubm")
+    q.add_argument("fmpe_out")
+    q.add_argument("--post-scale", type=float, default=5.0)
+    q.add_argument("--learning-rate", type=float, default=0.005)
+    q.set_defaults(func=cmd_fmpe_init)
+
+    q = sub.add_parser("fmpe-acc-stats")
+    q.add_argument("model")
+    q.add_argument("fmpe")
+    q.add_argument("rspecifier")
+    q.add_argument("post_in")
+    q.add_argument("accs_out")
+    q.set_defaults(func=cmd_fmpe_acc_stats)
+
+    q = sub.add_parser("fmpe-sum-accs")
+    q.add_argument("accs_out")
+    q.add_argument("accs_in", nargs="+")
+    q.set_defaults(func=cmd_fmpe_sum_accs)
+
+    q = sub.add_parser("fmpe-est")
+    q.add_argument("fmpe")
+    q.add_argument("accs")
+    q.add_argument("fmpe_out")
+    q.set_defaults(func=cmd_fmpe_est)
+
+    q = sub.add_parser("fmpe-apply-transform")
+    q.add_argument("fmpe")
+    q.add_argument("rspecifier")
+    q.add_argument("wspecifier")
+    q.set_defaults(func=cmd_fmpe_apply_transform)
+
+    q = sub.add_parser("fmpe-copy")
+    q.add_argument("fmpe")
+    q.add_argument("fmpe_out")
+    q.set_defaults(func=cmd_fmpe_copy)
+
+    q = sub.add_parser("gmm-init-lvtln")
+    q.add_argument("lvtln_out")
+    q.add_argument("--dim", type=int, default=39)
+    q.add_argument("--warps", default="0.9:0.95:1.0:1.05:1.1")
+    q.set_defaults(func=cmd_gmm_init_lvtln)
+
+    q = sub.add_parser("gmm-train-lvtln-special")
+    q.add_argument("class_idx", type=int)
+    q.add_argument("lvtln")
+    q.add_argument("rspecifier_orig")
+    q.add_argument("rspecifier_warped")
+    q.add_argument("lvtln_out")
+    q.set_defaults(func=cmd_gmm_train_lvtln_special)
+
+    q = sub.add_parser("gmm-est-lvtln-trans")
+    q.add_argument("model")
+    q.add_argument("lvtln")
+    q.add_argument("rspecifier")
+    q.add_argument("post_in")
+    q.add_argument("wspecifier")
+    q.add_argument("--utt2spk", default="")
+    q.set_defaults(func=cmd_gmm_est_lvtln_trans)
+
+    q = sub.add_parser("gmm-adapt-map")
+    q.add_argument("model")
+    q.add_argument("rspecifier")
+    q.add_argument("post_in")
+    q.add_argument("out_dir")
+    q.add_argument("--utt2spk", default="")
+    q.add_argument("--mean-tau", type=float, default=10.0)
+    q.set_defaults(func=cmd_gmm_adapt_map)
+
+    q = sub.add_parser("gmm-make-regtree")
+    q.add_argument("model")
+    q.add_argument("tree_out")
+    q.add_argument("--max-leaves", type=int, default=4)
+    q.add_argument("--seed", type=int, default=0)
+    q.set_defaults(func=cmd_gmm_make_regtree)
+
+    q = sub.add_parser("gmm-est-regtree-fmllr")
+    q.add_argument("model")
+    q.add_argument("regtree")
+    q.add_argument("rspecifier")
+    q.add_argument("post_in")
+    q.add_argument("wspecifier")
+    q.add_argument("--utt2spk", default="")
+    q.add_argument("--min-count", type=float, default=200.0)
+    q.set_defaults(func=cmd_gmm_est_regtree_fmllr)
+
+    q = sub.add_parser("gmm-basis-fmllr-training")
+    q.add_argument("model")
+    q.add_argument("rspecifier")
+    q.add_argument("post_in")
+    q.add_argument("basis_out")
+    q.add_argument("--utt2spk", default="")
+    q.add_argument("--basis-size", type=int, default=50)
+    q.set_defaults(func=cmd_gmm_basis_fmllr_training)
+
+    q = sub.add_parser("gmm-est-basis-fmllr")
+    q.add_argument("model")
+    q.add_argument("basis")
+    q.add_argument("rspecifier")
+    q.add_argument("post_in")
+    q.add_argument("wspecifier")
+    q.add_argument("--utt2spk", default="")
+    q.set_defaults(func=cmd_gmm_est_basis_fmllr)
+
+    q = sub.add_parser("train-sgmm2")
+    q.add_argument("model", help="trained GMM system (alignment model)")
+    q.add_argument("text")
+    q.add_argument("rspecifier")
+    q.add_argument("sgmm_out")
+    q.add_argument("--ubm-gauss", type=int, default=16)
+    q.add_argument("--phn-dim", type=int, default=10)
+    q.add_argument("--spk-dim", type=int, default=0)
+    q.add_argument("--num-iters", type=int, default=8)
+    q.add_argument("--num-gselect", type=int, default=8)
+    q.add_argument("--total-substates", type=int, default=None)
+    q.set_defaults(func=cmd_train_sgmm2)
+
+    q = sub.add_parser("sgmm2-info")
+    q.add_argument("model")
+    q.set_defaults(func=cmd_sgmm2_info)
+
+    q = sub.add_parser("sgmm2-latgen-faster")
+    q.add_argument("model", help="sgmm2 model file")
+    q.add_argument("gmm_model", help="companion GMM system (graph/words)")
+    q.add_argument("graph")
+    q.add_argument("rspecifier")
+    q.add_argument("--lattice-out", default="")
+    q.add_argument("--transcription-out", default="")
+    q.add_argument("--determinize-lattice", action="store_true")
+    q.add_argument("--beam", type=float, default=16.0)
+    q.add_argument("--lattice-beam", type=float, default=8.0)
+    q.add_argument("--max-active", type=int, default=512)
+    q.add_argument("--acoustic-scale", type=float, default=0.1)
+    q.set_defaults(func=cmd_sgmm2_latgen_faster)
+
+    q = sub.add_parser("sgmm2-gselect")
+    q.add_argument("model")
+    q.add_argument("rspecifier")
+    q.add_argument("wspecifier")
+    q.add_argument("--num-gselect", type=int, default=10)
+    q.set_defaults(func=cmd_sgmm2_gselect)
+
+    q = sub.add_parser("sgmm2-acc-stats")
+    q.add_argument("model")
+    q.add_argument("gmm_model")
+    q.add_argument("rspecifier")
+    q.add_argument("post_in")
+    q.add_argument("accs_out")
+    q.set_defaults(func=cmd_sgmm2_acc_stats)
+
+    q = sub.add_parser("sgmm2-sum-accs")
+    q.add_argument("accs_out")
+    q.add_argument("accs_in", nargs="+")
+    q.set_defaults(func=cmd_sgmm2_sum_accs)
+
+    q = sub.add_parser("sgmm2-est")
+    q.add_argument("model")
+    q.add_argument("accs")
+    q.add_argument("model_out")
+    q.add_argument("--update-flags", default="vMwSc")
+    q.add_argument("--split-substates", type=int, default=0)
+    q.set_defaults(func=cmd_sgmm2_est)
+
+    q = sub.add_parser("sgmm2-est-ebw")
+    q.add_argument("model")
+    q.add_argument("num_accs")
+    q.add_argument("den_accs")
+    q.add_argument("model_out")
+    q.add_argument("--update-flags", default="vMc")
+    q.set_defaults(func=cmd_sgmm2_est_ebw)
+
+    q = sub.add_parser("sgmm2-align")
+    q.add_argument("model")
+    q.add_argument("gmm_model")
+    q.add_argument("text")
+    q.add_argument("rspecifier")
+    q.add_argument("wspecifier")
+    q.add_argument("--acoustic-scale", type=float, default=0.1)
+    q.set_defaults(func=cmd_sgmm2_align)
+
+    q = sub.add_parser("sgmm2-est-spkvecs")
+    q.add_argument("model")
+    q.add_argument("gmm_model")
+    q.add_argument("rspecifier")
+    q.add_argument("post_in")
+    q.add_argument("wspecifier")
+    q.add_argument("--utt2spk", default="")
+    q.set_defaults(func=cmd_sgmm2_est_spkvecs)
+
+
 # Reference binary names that resolve to a canonical subcommand: the
 # ported ones of kaldi_tpu/cli.py's `_ALIASES`. Options after the alias
 # pass straight through to the canonical command.
@@ -5439,6 +6352,37 @@ _ALIASES: dict = {
     "online-wav-gmm-decode-faster": ["online2-wav-gmm-latgen-faster"],
     # the reference's mic-driven decoder; audio arrives from wav.scp
     "online-gmm-decode-faster": ["online2-wav-gmm-latgen-faster"],
+    # adaptation: the -gpost variants take the same posteriors
+    "gmm-est-fmllr-gpost": ["gmm-est-fmllr"],
+    "gmm-est-basis-fmllr-gpost": ["gmm-est-basis-fmllr"],
+    "gmm-transform-means-global": ["gmm-transform-means"],
+    # SGMM2 variants, and the legacy SGMM (v1), which is AmSgmm2 without
+    # the speaker weights: the same commands, model files tagged 'sgmm'
+    "sgmm2-latgen-faster-parallel": ["sgmm2-latgen-faster"],
+    "sgmm2-align-compiled": ["sgmm2-align"],
+    "sgmm2-est-fmllr-gpost": ["sgmm2-est-fmllr"],
+    "sgmm2-est-spkvecs-gpost": ["sgmm2-est-spkvecs"],
+    "sgmm-init": ["sgmm2-init", "--kind", "sgmm"],
+    "sgmm-info": ["sgmm2-info"],
+    "sgmm-copy": ["sgmm2-copy"],
+    "sgmm-gselect": ["sgmm2-gselect"],
+    "sgmm-acc-stats": ["sgmm2-acc-stats"],
+    "sgmm-acc-stats-gpost": ["sgmm2-acc-stats-gpost"],
+    "sgmm-acc-stats2": ["sgmm2-acc-stats2"],
+    "sgmm-est": ["sgmm2-est"],
+    "sgmm-est-ebw": ["sgmm2-est-ebw"],
+    "sgmm-sum-accs": ["sgmm2-sum-accs"],
+    "sgmm-align-compiled": ["sgmm2-align"],
+    "sgmm-latgen-faster": ["sgmm2-latgen-faster"],
+    "sgmm-latgen-simple": ["sgmm2-latgen-faster"],
+    "sgmm-decode-faster": ["sgmm2-latgen-faster"],
+    "sgmm-est-spkvecs": ["sgmm2-est-spkvecs"],
+    "sgmm-est-spkvecs-gpost": ["sgmm2-est-spkvecs"],
+    "sgmm-post-to-gpost": ["sgmm2-post-to-gpost"],
+    "sgmm-rescore-lattice": ["sgmm2-rescore-lattice"],
+    "sgmm-est-fmllr": ["sgmm2-est-fmllr"],
+    "sgmm-est-fmllr-gpost": ["sgmm2-est-fmllr"],
+    "sgmm-comp-prexform": ["sgmm2-comp-prexform"],
 }
 
 # the fifth slice's (5a) subcommands that build a device object: the UBM
@@ -5450,9 +6394,19 @@ SPEAKER_DEVICE_COMMANDS = (
     "logistic-regression-train", "train-lda-mllt",
     "online2-wav-dump-features", "online2-wav-gmm-latgen-faster")
 
+# the fifth slice's (5b) subcommands here that build a device object:
+# SAT, the fMLLR, LVTLN, MAP, regression-tree and basis statistics and
+# solves, and the SGMM2 scoring, statistics, updates, alignment and search
+ADAPT_DEVICE_COMMANDS = (
+    "train-sat", "gmm-est-fmllr", "gmm-train-lvtln-special",
+    "gmm-est-lvtln-trans", "gmm-adapt-map", "gmm-est-regtree-fmllr",
+    "gmm-basis-fmllr-training", "gmm-est-basis-fmllr", "train-sgmm2",
+    "sgmm2-latgen-faster", "sgmm2-gselect", "sgmm2-acc-stats", "sgmm2-est",
+    "sgmm2-est-ebw", "sgmm2-align", "sgmm2-est-spkvecs")
+
 # the subcommands that build a device object (`--device`): this module's,
-# cli_gmm_extra.py's and those of cli_nnet.py and cli_tail.py that run a
-# network
+# cli_gmm_extra.py's, cli_adapt.py's and cli_sgmm.py's, and those of
+# cli_nnet.py and cli_tail.py that run a network
 DEVICE_COMMANDS = (
     "compute-mfcc-feats", "compute-fbank-feats", "compute-spectrogram-feats",
     "compute-plp-feats", "compute-pitch-feats",
@@ -5472,7 +6426,8 @@ DEVICE_COMMANDS = (
     "nnet3-latgen-faster", "nnet-train-simple", "nnet-combine-fast",
     "nnet-adjust-priors", "nnet-latgen-faster") + (
         cli_nnet.DEVICE_COMMANDS + cli_tail.DEVICE_COMMANDS
-        + SPEAKER_DEVICE_COMMANDS)
+        + SPEAKER_DEVICE_COMMANDS + ADAPT_DEVICE_COMMANDS
+        + cli_adapt.DEVICE_COMMANDS + cli_sgmm.DEVICE_COMMANDS)
 
 
 def _register(sub):
@@ -6806,6 +7761,7 @@ def _register(sub):
     q.set_defaults(func=cmd_recipe_yesno)
     _register_nnet(sub)
     _register_speaker(sub)
+    _register_adapt(sub)
 
 
 def _register_speaker(sub):
@@ -7272,23 +8228,31 @@ def _register_nnet(sub):
     q.set_defaults(func=cmd_nnet_am_copy)
 
 
+@functools.lru_cache(maxsize=1)
+def _parser() -> argparse.ArgumentParser:
+    """The CLI's parser, built once per process: its ~470 subparsers take
+    about 0.15 s to build, which a recipe's hundreds of in-process calls
+    would otherwise pay each time."""
+    p = argparse.ArgumentParser(prog="kaldi_tpu_torch.cli",
+                                description=__doc__.splitlines()[0])
+    sub = p.add_subparsers(dest="cmd", required=True)
+    _register(sub)
+    for module in (cli_nnet, cli_misc, cli_fst, cli_gmm_extra,
+                   cli_online_extra, cli_tail, cli_adapt, cli_sgmm):
+        module.register(sub)
+    for name in DEVICE_COMMANDS:
+        sub.choices[name].add_argument("--device", default="cuda",
+                                       help="torch device (default: cuda)")
+    return p
+
+
 def main(argv=None) -> int:
     argv = _expand_config_args(argv if argv is not None else sys.argv[1:])
     for _hop in range(4):   # aliases may chain (e.g. *-simple -> *-faster)
         if not (argv and argv[0] in _ALIASES):
             break
         argv = _ALIASES[argv[0]] + argv[1:]
-    p = argparse.ArgumentParser(prog="kaldi_tpu_torch.cli",
-                                description=__doc__.splitlines()[0])
-    sub = p.add_subparsers(dest="cmd", required=True)
-    _register(sub)
-    for module in (cli_nnet, cli_misc, cli_fst, cli_gmm_extra,
-                   cli_online_extra, cli_tail, cli_adapt):
-        module.register(sub)
-    for name in DEVICE_COMMANDS:
-        sub.choices[name].add_argument("--device", default="cuda",
-                                       help="torch device (default: cuda)")
-    args = p.parse_args(argv)
+    args = _parser().parse_args(argv)
     rc = args.func(args)
     if rc:
         sys.exit(rc)

@@ -3,7 +3,8 @@
 Counterpart of kaldi_tpu/cli_gmm_extra.py, holding the ported ones:
 global-GMM gselect-to-post and two-feature stats, UBM clustering from an
 acoustic model, flat and transition-only model init, accumulator
-algebra (diff, rescale) and gaussian-level posteriors. All are host
+algebra (diff, rescale), gaussian-level posteriors and the fMPE
+derivatives (feature, statistics and transform). All are host
 numpy, as in JAX (the UBMs and the per-pdf DiagGmms score on the host),
 writing JAX's files; `gmm-init-model-flat` builds its AM for `--device`
 (default: cuda), as `gmm-init-mono` does. Registered into the main
@@ -435,6 +436,81 @@ def cmd_fgmm_global_mixdown(args):
     print(f"fgmm-global-mixdown: -> {len(w)} components", file=sys.stderr)
 
 
+# ------------------------------------------------------- fMPE derivatives
+
+def cmd_gmm_get_feat_deriv(args):
+    """Per-frame feature derivative of the (signed-posterior) objective,
+    host f64 as in JAX (ref: gmmbin/gmm-get-feat-deriv.cc)."""
+    from kaldi_tpu_torch.cli import _post_to_pdf_post
+    from kaldi_tpu_torch.hmm.posterior import read_post_ark
+    from kaldi_tpu_torch.io.kaldi_io import open_rspecifier, open_wspecifier
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    model = load_gmm_system(args.model, device="cpu")
+    feats = dict(open_rspecifier(args.rspecifier))
+    n = 0
+    with open_wspecifier(args.wspecifier) as out:
+        for utt, post in read_post_ark(args.post_in):
+            if utt not in feats:
+                continue
+            x = np.asarray(feats[utt], np.float64)
+            pdf_post = _post_to_pdf_post(post, model.trans_model)
+            deriv = np.zeros_like(x)
+            for t, frame in enumerate(pdf_post):
+                for pdf, w in frame:
+                    g = model.am.pdfs[pdf]
+                    cp = g.posteriors(x[t][None])[0]
+                    deriv[t] += w * (cp[:, None] * (g.means - x[t])
+                                     / g.vars).sum(0)
+            out.write(utt, deriv.astype(np.float32))
+            n += 1
+    print(f"gmm-get-feat-deriv: {n} utts", file=sys.stderr)
+
+
+def cmd_gmm_fmpe_acc_stats(args):
+    """fMPE transform stats straight from pre-fMPE features: apply the
+    transform, take the direct differential, project onto the
+    context-expanded posteriors (ref: gmmbin/gmm-fmpe-acc-stats.cc)."""
+    from kaldi_tpu_torch.cli import _fmpe_acc, _load_fmpe, _save_fmpe_accs
+    from kaldi_tpu_torch.io.model_io import load_gmm_system
+    acc, frames = _fmpe_acc(load_gmm_system(args.model, device="cpu"),
+                            _load_fmpe(args.fmpe), args.rspecifier,
+                            args.post_in)
+    _save_fmpe_accs(args.accs_out, acc, frames)
+    print(f"gmm-fmpe-acc-stats: {frames} frames", file=sys.stderr)
+
+
+def cmd_gmm_get_stats_deriv(args):
+    """Model derivative for indirect fMPE/fMMI: d(objective)/d(mean,var)
+    from num/den/ml stats, host f64 (ref: gmmbin/gmm-get-stats-deriv.cc,
+    transform/fmpe.h ComputeModelDiff). Writes per-pdf mean/var
+    derivative arrays."""
+    from kaldi_tpu_torch.io.model_io import load_gmm_accs, load_gmm_system
+    model = load_gmm_system(args.model, device="cpu")
+    num, _t1 = load_gmm_accs(args.num_stats)
+    den, _t2 = load_gmm_accs(args.den_stats)
+    ml, _t3 = load_gmm_accs(args.ml_stats)
+    blobs = {}
+    for j, (pdf, an, ad, am_) in enumerate(
+            zip(model.am.pdfs, num.accs, den.accs, ml.accs)):
+        occ_d = an.occ - ad.occ                       # discriminative gamma
+        x_d = an.mean_acc - ad.mean_acc
+        x2_d = an.var_acc - ad.var_acc
+        mu, var = pdf.means, pdf.vars
+        # dF/dmu = (x_d - gamma_d mu) / var (diag-covariance MMI)
+        dmu = (x_d - occ_d[:, None] * mu) / var
+        # dF/dvar = (x2_d - 2 mu x_d + gamma_d mu^2 - gamma_d var) / 2var^2
+        dvar = (x2_d - 2 * mu * x_d + occ_d[:, None] * mu ** 2
+                - occ_d[:, None] * var) / (2 * var ** 2)
+        blobs[f"dmu{j}"] = dmu
+        blobs[f"dvar{j}"] = dvar
+        blobs[f"ml_occ{j}"] = am_.occ
+    blobs["num_pdfs"] = np.int64(model.am.num_pdfs)
+    with open(args.deriv_out, "wb") as f:
+        np.savez(f, **blobs)
+    print(f"gmm-get-stats-deriv: {model.am.num_pdfs} pdfs",
+          file=sys.stderr)
+
+
 def register(sub):
     def add(name, func, *arg_specs):
         q = sub.add_parser(name)
@@ -487,3 +563,11 @@ def register(sub):
     add("gmm-acc-stats-twofeats", cmd_gmm_acc_stats_twofeats,
         a("model"), a("rspecifier1"), a("rspecifier2"), a("post_in"),
         a("accs_out"))
+    add("gmm-get-feat-deriv", cmd_gmm_get_feat_deriv,
+        a("model"), a("rspecifier"), a("post_in"), a("wspecifier"))
+    add("gmm-fmpe-acc-stats", cmd_gmm_fmpe_acc_stats,
+        a("model"), a("fmpe"), a("rspecifier"), a("post_in"),
+        a("accs_out"))
+    add("gmm-get-stats-deriv", cmd_gmm_get_stats_deriv,
+        a("model"), a("num_stats"), a("den_stats"), a("ml_stats"),
+        a("deriv_out"))

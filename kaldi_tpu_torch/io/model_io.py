@@ -51,6 +51,7 @@ HOST_CLASSES = {
     ("tree.event_map", "SplitEventMap"),
     ("tree.clustering", "GaussStats"),
     ("nnet1.lstm", "LstmConfig"), ("nnet1.kl_hmm", "KlHmm"),
+    ("transform.regtree", "RegressionTree"),
 }
 #: what arrays, numpy scalars and sets pickle through
 SAFE_GLOBALS = {

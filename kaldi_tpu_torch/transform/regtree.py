@@ -74,6 +74,17 @@ class RegressionTree:
         for leaf in self.leaves:
             self.gauss2leaf[members[leaf]] = leaf
 
+    def __getstate__(self) -> dict:
+        """JAX's fields only: a pickled tree (gmm-make-regtree's file) is
+        JAX's, with no device in it."""
+        return {k: v for k, v in self.__dict__.items() if k != "device"}
+
+    def __setstate__(self, state: dict):
+        """A tree read from a file lives on the CPU until its user moves it
+        (`tree.device = ...`)."""
+        self.__dict__.update(state)
+        self.device = torch.device("cpu")
+
     @property
     def num_nodes(self) -> int:
         return len(self.parent)

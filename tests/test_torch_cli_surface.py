@@ -1,11 +1,10 @@
 """The port's CLI surface against JAX's: tests/test_cli_surface.py's
 argparse probe (it needs no /root/reference) run on `kaldi_tpu.cli.main`
-and `kaldi_tpu_torch.cli.main`. The port's subcommands and aliases are a
-subset of JAX's, and what the port still lacks is exactly the list below
-(65 subcommands and 28 of JAX's 80 `_ALIASES`); each CLI slice that
-ports subcommands takes them off it (the first slice took 78 subcommands
-and 5 aliases, the second 97 and 19, the third 75 and 9, the fourth 92
-and 16, the fifth (5a) took 49 and 3).
+and `kaldi_tpu_torch.cli.main`. The port's subcommands and aliases are
+JAX's, all of them: the list of what the port still lacks is empty (the
+first CLI slice took 78 subcommands and 5 aliases off it, the second 97
+and 19, the third 75 and 9, the fourth 92 and 16, the fifth 49 and 3
+(5a) and 65 and 28 (5b)).
 """
 
 import argparse
@@ -13,32 +12,7 @@ import importlib
 
 import pytest
 
-NOT_YET_PORTED = set("""
-fmpe-acc-stats fmpe-apply-transform fmpe-copy fmpe-est fmpe-init fmpe-sum-accs
-gmm-acc-hlda gmm-adapt-map gmm-basis-fmllr-accs gmm-basis-fmllr-accs-gpost
-gmm-basis-fmllr-training gmm-decode-faster-regtree-fmllr
-gmm-decode-faster-regtree-mllr gmm-decode-nbest gmm-est-basis-fmllr
-gmm-est-basis-fmllr-gpost gmm-est-fmllr gmm-est-fmllr-global
-gmm-est-fmllr-gpost gmm-est-hlda gmm-est-lvtln-trans gmm-est-map
-gmm-est-regtree-fmllr gmm-est-regtree-fmllr-ali gmm-est-regtree-mllr
-gmm-fmpe-acc-stats gmm-get-feat-deriv gmm-get-stats-deriv gmm-global-est-fmllr
-gmm-global-est-lvtln-trans gmm-init-lvtln gmm-latgen-faster-regtree-fmllr
-gmm-latgen-map gmm-latgen-tracking gmm-make-regtree gmm-train-lvtln-special
-gmm-transform-means gmm-transform-means-global latgen-tracking-mapped
-sgmm-acc-fmllrbasis-ali sgmm-acc-stats sgmm-acc-stats-ali sgmm-acc-stats-gpost
-sgmm-acc-stats2 sgmm-align-compiled sgmm-calc-distances sgmm-comp-prexform
-sgmm-copy sgmm-decode-faster sgmm-est sgmm-est-ebw sgmm-est-fmllr
-sgmm-est-fmllr-gpost sgmm-est-fmllrbasis sgmm-est-multi sgmm-est-spkvecs
-sgmm-est-spkvecs-gpost sgmm-gselect sgmm-info sgmm-init
-sgmm-init-from-tree-stats sgmm-latgen-faster sgmm-latgen-simple sgmm-mixup
-sgmm-normalize sgmm-post-to-gpost sgmm-rescore-lattice sgmm-sum-accs
-sgmm-write-ubm sgmm2-acc-stats sgmm2-acc-stats-gpost sgmm2-acc-stats2
-sgmm2-align sgmm2-align-compiled sgmm2-comp-prexform sgmm2-copy sgmm2-est
-sgmm2-est-ebw sgmm2-est-fmllr sgmm2-est-fmllr-gpost sgmm2-est-spkvecs
-sgmm2-est-spkvecs-gpost sgmm2-gselect sgmm2-info sgmm2-init sgmm2-latgen-faster
-sgmm2-latgen-faster-parallel sgmm2-post-to-gpost sgmm2-project
-sgmm2-rescore-lattice sgmm2-sum-accs train-sat train-sgmm2
-""".split())
+NOT_YET_PORTED: set = set()
 
 
 def _commands(module: str) -> tuple[set, set]:
@@ -52,7 +26,8 @@ def test_port_cli_is_a_subset_of_jax_and_the_rest_is_listed():
     ts, ta = _commands("kaldi_tpu_torch.cli")
     assert ts <= js and ta <= ja, sorted((ts - js) | (ta - ja))
     assert (js | ja) - (ts | ta) == NOT_YET_PORTED
-    assert len(NOT_YET_PORTED & js) == 65 and len(NOT_YET_PORTED & ja) == 28
+    assert len(NOT_YET_PORTED & js) == 0 and len(NOT_YET_PORTED & ja) == 0
+    assert ts == js and ta == ja
 
 
 def _parsers(module: str) -> dict:

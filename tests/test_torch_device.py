@@ -855,7 +855,7 @@ def test_cli_fourth_slice_device_commands_take_device():
     cased = {argv(lambda *n: "", "")[0]
              for _n, argv, _k, _a in cs.NNET_CLI_CASES}
     assert cased == device - set(_cli_device_commands_before_slice_4()) \
-        - set(cli.SPEAKER_DEVICE_COMMANDS)
+        - set(cli.SPEAKER_DEVICE_COMMANDS) - set(_slice_5b_device_commands())
     parsers = _parsers("kaldi_tpu_torch.cli")
     for name in ("nnet3-info", "nnet3-copy", "nnet3-average", "nnet3-init",
                  "nnet-am-init", "nnet-am-info", "nnet-am-copy",
@@ -900,6 +900,43 @@ def test_cli_fifth_slice_device_commands_take_device():
         assert all(a.dest != "device" for a in parsers[name]._actions)
 
 
+def _slice_5b_device_commands():
+    from kaldi_tpu_torch import cli, cli_adapt, cli_sgmm
+    return (cli.ADAPT_DEVICE_COMMANDS + cli_adapt.DEVICE_COMMANDS
+            + cli_sgmm.DEVICE_COMMANDS)
+
+
+def test_cli_fifth_slice_b_device_commands_take_device():
+    """The fifth CLI slice's (5b) commands that build a device object
+    (SAT, the fMLLR, LVTLN, MAP, regression-tree, HLDA and basis
+    statistics and solves, the adapted, n-best and tracking decodes, the
+    SGMM2 scoring, statistics, updates, alignment and search) are among
+    those checked below, and each is a card-vs-CPU case of chip_smoke's
+    phase 35; the host ones (MAP update from accumulators, mean
+    transforms, LVTLN init, the regression tree, global-GMM fMLLR, fMPE,
+    the SGMM file tools) take none."""
+    from test_torch_cli_surface import _parsers
+    device = set(_cli_device_commands())
+    slice5b = set(_slice_5b_device_commands())
+    assert len(slice5b) == len(_slice_5b_device_commands()) == 43
+    assert slice5b <= device
+    import chip_smoke as cs
+    assert {argv(lambda *n: "", "")[0]
+            for _n, argv, _k, _a in cs.ADAPT_CLI_CASES} == slice5b
+    parsers = _parsers("kaldi_tpu_torch.cli")
+    for name in ("gmm-est-map", "gmm-transform-means", "gmm-init-lvtln",
+                 "gmm-make-regtree", "gmm-est-fmllr-global",
+                 "gmm-global-est-fmllr", "fmpe-init", "fmpe-acc-stats",
+                 "fmpe-sum-accs", "fmpe-est", "fmpe-apply-transform",
+                 "fmpe-copy", "gmm-get-feat-deriv", "gmm-fmpe-acc-stats",
+                 "gmm-get-stats-deriv", "sgmm2-copy", "sgmm2-info",
+                 "sgmm-write-ubm", "sgmm-normalize",
+                 "sgmm-init-from-tree-stats", "sgmm2-project",
+                 "sgmm2-sum-accs"):
+        assert name not in device
+        assert all(a.dest != "device" for a in parsers[name]._actions)
+
+
 @pytest.mark.parametrize("name", _cli_device_commands())
 def test_cli_device_command_defaults_to_cuda_and_raises_without_a_card(
         name, tmp_path):
@@ -913,8 +950,8 @@ def test_cli_device_command_defaults_to_cuda_and_raises_without_a_card(
     assert len(dev) == 1 and dev[0].default == "cuda"
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default builds there")
-    argv = [name] + [str(tmp_path / a.dest) for a in parser._actions
-                     if not a.option_strings]
+    argv = [name] + [("0" if a.type is int else str(tmp_path / a.dest))
+                     for a in parser._actions if not a.option_strings]
     for a in parser._actions:       # a required option (--backoff-symbol)
         if a.option_strings and a.required:
             argv += [a.option_strings[0], "0"]

@@ -16,7 +16,8 @@ third slice's lattice decode with a lattice and a posterior subcommand
 and `kws-search` on its lattices, the fourth slice's egs, nnet2 init and
 SGD, an nnet diagnostic, nnet3 LDA statistics and an MCE scale, the
 fifth slice's extractor init, i-vectors and global MLLT statistics
-(cli_adapt), and a small triphone run
+(cli_adapt), its fMLLR, global fMLLR, fMPE and SGMM2 commands with a
+legacy alias (cli, cli_adapt, cli_sgmm), and a small triphone run
 (train_deltas from a monophone, its HCLG through the flat pipeline on the
 port's native graph ops, a decode) and two bMMI and two fMMI iterations
 from that triphone model run on the CPU; then two NG-SGD steps of a tiny
@@ -136,7 +137,7 @@ for n in ("kaldi_tpu_torch.cuda_build", "kaldi_tpu_torch.nnet.quantized",
           "kaldi_tpu_torch.cli_online_extra", "kaldi_tpu_torch.cli_misc",
           "kaldi_tpu_torch.cli_nnet", "kaldi_tpu_torch.cli_fst",
           "kaldi_tpu_torch.cli_gmm_extra", "kaldi_tpu_torch.cli_tail",
-          "kaldi_tpu_torch.cli_adapt",
+          "kaldi_tpu_torch.cli_adapt", "kaldi_tpu_torch.cli_sgmm",
           "kaldi_tpu_torch.fst.text_io", "kaldi_tpu_torch.fst.special",
           "kaldi_tpu_torch.fst.factor", "kaldi_tpu_torch.hmm.hmm_utils",
           "kaldi_tpu_torch.tree.synth", "kaldi_tpu_torch.decoder.simple",
@@ -312,6 +313,28 @@ with tempfile.TemporaryDirectory() as w, \
             ["ivector-extract", f"{w}/ext.npz", tf, f"ark:{w}/iv.ark",
              "--num-gselect", "2", "--device", "cpu"],
             ["gmm-acc-mllt-global", f"{w}/ubm.npz", tf, f"{w}/macc.npz"]):
+        assert cli.main(argv) == 0, argv
+    # the fifth slice (5b): fMLLR from posteriors (cli), global fMLLR
+    # (cli_adapt), fMPE, an SGMM2's init, statistics and update, and a
+    # legacy alias (cli_sgmm)
+    cpu = ["--device", "cpu"]
+    for argv in (
+            ["ali-to-post", f"ark:{w}/nali.ark", f"{w}/apost.txt"],
+            ["gmm-est-fmllr", f"{w}/mono.npz", tf, f"{w}/apost.txt",
+             f"ark:{w}/fm.ark", *cpu],
+            ["gmm-est-fmllr-global", f"{w}/ubm.npz", tf, f"ark:{w}/fg.ark"],
+            ["init-ubm", f"{w}/mono.npz", f"{w}/acc.npz", f"{w}/dubm.npz",
+             "--ubm-num-gauss", "4", "--fullcov-ubm", "false"],
+            ["fmpe-init", f"{w}/dubm.npz", f"{w}/fmpe.npz"],
+            ["fmpe-apply-transform", f"{w}/fmpe.npz", tf,
+             f"ark:{w}/fmpe.ark"],
+            ["sgmm2-init", f"{w}/mono.npz", f"{w}/ubm.npz", f"{w}/sgmm.npz",
+             "--phn-dim", "4", "--num-gselect", "2", *cpu],
+            ["sgmm2-acc-stats", f"{w}/sgmm.npz", f"{w}/mono.npz", tf,
+             f"{w}/apost.txt", f"{w}/sacc.npz", *cpu],
+            ["sgmm2-est", f"{w}/sgmm.npz", f"{w}/sacc.npz",
+             f"{w}/sgmm1.npz", *cpu],
+            ["sgmm-info", f"{w}/sgmm1.npz"]):
         assert cli.main(argv) == 0, argv
 from kaldi_tpu_torch.decoder.graph_pack import pack_graphs
 from kaldi_tpu_torch.fst.graph import TrainingGraphCompiler
