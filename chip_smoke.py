@@ -441,6 +441,21 @@ Phases (any failure raises and the script exits non-zero):
      width card == --device cpu within 1e-9, the rescored lattices keep
      their best paths; seconds by stage and command kind, file sizes,
      peak memory, each WER; neither kernel launches.
+ 42. the multi-device slice (`phase_parallel`, kaldi_tpu_torch/parallel):
+     (a) one rank over NCCL, mesh (1, 1): `decode_sharded` over 2 of the
+     bench's utterances, `decode_frontier_sharded` on 300 frames of one,
+     the sharded server (4 streams x 2 s) and 5 f32 mesh train steps,
+     each equal to its single-device run on the card; (b) two ranks on the
+     one card over gloo with CUDA tensors (NCCL refuses two ranks on one
+     card), spawned by the port's `launch_local` (`PARALLEL_FLAG`; they
+     build the graph and decoder during (a), then wait for its end): the
+     frontier-sharded decode at D = 2 on 2 of the bench's utterances over
+     the 1.05M-state HCLG at beam 13, max_active 7000, expand_budget
+     16384, the utterance-sharded decode of the 8 (4 per rank) and 5 f32
+     data-parallel steps on phase 13's batch, each against the single
+     card (words and tids equal, costs within 1e-2; training held with the
+     single card to an f64 run, PARALLEL_F32_FACTOR); gathered bytes and ms per frame, ms per train
+     step beside the single-rank figures; qaffine does not launch.
 
 Phases 20, 22 (b), 24 (c), 28 (b) and 41 save the inputs of the recipe
 witnesses (chiprun_out/sat_witness.pkl and csr_witness.pkl, then
@@ -454,7 +469,7 @@ Two processes share the card. Most phases that take nothing from phase
 bench graph's chain (7, 8, 10, 13, 14, 34, 36, 18, 30 a and c), 37, 38,
 39, 41, 19, then the small card-vs-CPU phases (5, 6, 9, 11, 12, 15, 17, 21, 23,
 25, 27, 29, 31, 33); this one runs 1-4, then 16, 20, 22, 24, 26, 28, 30 b,
-32, 40 and 35 beside it, and prints the second's log after phase 35's, with
+32, 40, 35 and 42 beside it, and prints the second's log after phase 35's, with
 both processes' ends on its clock. Each phase's start goes to stderr with
 the seconds since its process began; a run still going at 1000 s dumps
 every thread's stack there.
@@ -13441,6 +13456,375 @@ def phase_adapt_cli(card: str, lc: dict) -> dict:
 # JAX on the CPU by tests/test_torch_<name>_witness.py
 
 
+# phase 42: the multi-device slice (kaldi_tpu_torch/parallel) on the card
+PARALLEL_FLAG = "--parallel-rank"
+PARALLEL_SEARCH = dict(beam=13.0, max_active=7000, acoustic_scale=0.1,
+                       expand_budget=16384, eps_budget=2048)   # phase 7's
+PARALLEL_TDNN = dict(feat_dim=40, num_pdfs=2048, hidden_dim=1024,
+                     pnorm_output_dim=256, nonlinearity="relu")  # the bench's
+PARALLEL_FRONTIER_UTTS = 2     # of the bench's 8 test utterances
+PARALLEL_TRAIN_STEPS = 5
+# (a) checks equality at these cuts of the bench's shapes (b) runs whole:
+# decode_sharded on 2 utterances, the frontier on the first 300 frames of
+# one, the server on 4 streams x 2 s
+PARALLEL_A_UTTS, PARALLEL_A_FRAMES = 2, 300
+PARALLEL_STREAMS, PARALLEL_STREAM_SAMPLES = 4, 32000
+PARALLEL_RANK_TIMEOUT_S = 300
+# a mesh's f32 train steps against the single card's: both are held to an
+# f64 run of the same steps, the mesh's error per leaf within
+# PARALLEL_F32_FACTOR times the single card's own plus a floor of 8 f32
+# ulps of the leaf's largest entry (a leaf the single run happens to get
+# nearly exact), the losses within 1e-5 of the single card's. Summing a
+# gradient over ranks adds its terms in another order, which moves a leaf
+# as much as the single card's own order moves it from exact arithmetic
+# (at the bench's 15,616 frames per step, up to 4.5e-5 of a leaf's largest
+# entry after 5 steps, measured on the card: 1e-5 of it was the first
+# limit tried).
+PARALLEL_F32_FACTOR = 4.0
+
+
+def parallel_setup() -> dict:
+    """The bench's configuration as phases 7 and 13 build it: the 60k-word
+    / 1.05M-state HCLG, the relu TDNN (2048 pdfs, random weights from seed
+    0) behind `Recognizer` at phase 7's search, the loglikes of the 8 test
+    utterances x 10 s (bf16 TDNN), and phase 13's training batch (16 x
+    10 s, fbank + CMVN)."""
+    import torch
+    from kaldi_tpu_torch.decoder.biggraph import BigGraphConfig, make_big_hclg
+    from kaldi_tpu_torch.decoder.csr_beam import CsrBeamOpts
+    from kaldi_tpu_torch.decoder.simulate import fbank_targets, make_corpus
+    from kaldi_tpu_torch.nnet.tdnn import Tdnn, TdnnConfig
+    from kaldi_tpu_torch.ops.features import cmvn, fbank
+    from kaldi_tpu_torch.params import random_tdnn_params
+    from kaldi_tpu_torch.recognize import SERVING_FBANK, Recognizer
+
+    graph, _ = make_big_hclg(BigGraphConfig())
+    cfg = TdnnConfig(**PARALLEL_TDNN)
+    tree = random_tdnn_params(cfg, np.random.default_rng(0))
+    rec = Recognizer(Tdnn(cfg).load_jax_params(tree), graph,
+                     CsrBeamOpts(**PARALLEL_SEARCH), device="cuda")
+    waves, _segs, _refs = make_corpus(graph, 8, 1000,
+                                      np.random.default_rng(0), noise=0.25)
+    train_waves, segs, _refs = make_corpus(graph, TRAIN_UTTS + TEST_UTTS, 1000,
+                                           np.random.default_rng(0),
+                                           noise=0.25)
+    with torch.no_grad():
+        ll = rec.loglikes(waves).float().cpu().numpy()
+        feats = cmvn(fbank(torch.as_tensor(train_waves[:TRAIN_UTTS],
+                                           device="cuda"), SERVING_FBANK))
+    Tf = feats.shape[1]
+    tgt = np.stack([fbank_targets(s, Tf) for s in segs[:TRAIN_UTTS]])
+    tgt = tgt[:, cfg.left_context:Tf - cfg.right_context]
+    return {"cfg": cfg, "tree": tree, "dec": rec.decoder, "waves": waves,
+            "ll": ll, "nf": np.full(ll.shape[0], ll.shape[1], np.int32),
+            "feats": feats.cpu().numpy(), "tgt": tgt}
+
+
+def parallel_train(ps: dict, mesh, dtype=None) -> dict:
+    """PARALLEL_TRAIN_STEPS steps of phase 13's optimizer from the seeded
+    init over phase 13's batch, in f32 (or `dtype`: float64 gives the
+    reference that the f32 runs are held to), on `mesh` or on this card
+    alone when None. -> losses, params on the host, ms per step (host
+    clock around a synchronize)."""
+    import torch
+    from kaldi_tpu_torch.nnet.tdnn import Tdnn
+    from kaldi_tpu_torch.nnet.train import (NnetTrainOpts, make_optimizer,
+                                            make_train_step)
+    from kaldi_tpu_torch.params import tdnn_params_from_jax
+    dtype = dtype or torch.float32
+    params = {k: v.to("cuda", dtype) for k, v in
+              tdnn_params_from_jax(ps["tree"]).items()}
+    tgt = torch.as_tensor(ps["tgt"], device="cuda")
+    batch = (torch.as_tensor(ps["feats"], device="cuda", dtype=dtype), tgt,
+             torch.ones(tgt.shape, device="cuda", dtype=dtype))
+    opt = make_optimizer(NnetTrainOpts(initial_lr=0.1, final_lr=0.02,
+                                       max_grad_norm=5.0),
+                         PARALLEL_TRAIN_STEPS)
+    state = opt.init(params)
+    step = make_train_step(Tdnn(ps["cfg"], device="cuda"), opt, mesh=mesh)
+    losses, secs = [], []
+    for _ in range(PARALLEL_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, loss, _acc = step(params, state, *batch)
+        losses.append(float(loss))
+        secs.append(time.perf_counter() - t)
+    return {"losses": losses, "ms": 1e3 * float(np.median(secs[1:])),
+            "params": {k: v.cpu().numpy() for k, v in params.items()}}
+
+
+def train_close(name: str, got: dict, single: dict, exact: dict):
+    """-> (worst leaf error / its limit, that leaf, worst relative loss
+    difference); raises past either limit (see PARALLEL_F32_FACTOR)."""
+    worst, leaf = 0.0, ""
+    for k, x in exact["params"].items():
+        floor = 8 * float(np.finfo(np.float32).eps) * float(np.abs(x).max())
+        mine = float(np.abs(got["params"][k] - x).max())
+        limit = PARALLEL_F32_FACTOR * float(
+            np.abs(single["params"][k] - x).max()) + floor
+        if mine / limit >= worst:
+            worst, leaf = mine / limit, k
+    loss = max(abs(g - w) / abs(w) for g, w in zip(got["losses"],
+                                                   single["losses"]))
+    if worst > 1.0 or loss > 1e-5:
+        raise AssertionError(f"{name}: leaf {leaf}'s error {worst:.3f} of its "
+                             f"limit, losses {loss:.3e} apart (limit 1e-5)")
+    return worst, leaf, loss
+
+
+def timed(fn):
+    """(fn(), host seconds) with the card synchronised before and after."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def parallel_refs(ps: dict) -> dict:
+    """The single-card runs both legs are held to: the CsrBeamDecoder's
+    decode of the 8 utterances, the f32 train steps and their f64 twin."""
+    import torch
+    single, secs = timed(lambda: ps["dec"].decode(ps["ll"], ps["nf"]))
+    return {"single": single, "single_s": secs,
+            "train": parallel_train(ps, None),
+            "exact": parallel_train(ps, None, torch.float64)}
+
+
+def parallel_leg_nccl(ps: dict, refs: dict, tg, q, card: str) -> dict:
+    """Phase 42 (a): one rank over NCCL, mesh (1, 1): decode_sharded,
+    decode_frontier_sharded, the mesh train step and the sharded server
+    each equal their single-device runs on the card."""
+    import torch.distributed as dist
+    from kaldi_tpu_torch.nnet.am_nnet import AmNnet
+    from kaldi_tpu_torch.nnet.tdnn import Tdnn
+    from kaldi_tpu_torch.online.serving import FusedStreamingServer
+    from kaldi_tpu_torch.parallel import (decode_frontier_sharded,
+                                          decode_sharded, make_mesh)
+    from kaldi_tpu_torch.recognize import SERVING_FBANK
+    dec, U = ps["dec"], PARALLEL_A_UTTS
+    ll, nf = ps["ll"][:U], ps["nf"][:U]
+    ll1 = np.ascontiguousarray(ps["ll"][:1, :PARALLEL_A_FRAMES])
+    nf1 = np.array([PARALLEL_A_FRAMES], np.int32)
+    single1 = dec.decode(ll1, nf1)
+    am = AmNnet(Tdnn(ps["cfg"]).load_jax_params(ps["tree"]),
+                priors=np.random.default_rng(2).dirichlet(
+                    np.ones(ps["cfg"].num_pdfs)))
+    waves = [w[:PARALLEL_STREAM_SAMPLES]
+             for w in ps["waves"][:PARALLEL_STREAMS]]
+    kw = dict(n_streams=PARALLEL_STREAMS, chunk_samples=2560, t_max=1024)
+    srv_single, _secs = _stream_all(FusedStreamingServer(am, dec,
+                                                         SERVING_FBANK, **kw),
+                                    waves, [2560] * len(waves))
+    mesh = make_mesh(1, 1, device="cuda")
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"(a): backend {dist.get_backend()}")
+        tg.launches = q.launches = 0       # count the mesh path only
+        sharded, sharded_s = timed(lambda: decode_sharded(dec, ll, nf, mesh))
+        fs, fs_s = timed(lambda: decode_frontier_sharded(dec, ll1, nf1, mesh))
+        srv = FusedStreamingServer(am, dec, SERVING_FBANK, **kw, mesh=mesh)
+        srv_mesh, _secs = _stream_all(srv, waves, [2560] * len(waves))
+        train = parallel_train(ps, mesh)
+        launches, q_launches = tg.launches, q.launches
+    finally:
+        dist.destroy_process_group()
+    _same_results("(a) decode_sharded", sharded, refs["single"][:U],
+                  "mesh (1, 1)")
+    _same_results("(a) frontier", fs, single1, "mesh (1, 1)")
+    _same_results("(a) server", srv_mesh, srv_single, "mesh (1, 1)")
+    worst, leaf, losses = train_close("(a) train", train, refs["train"],
+                                      refs["exact"])
+    frames = PARALLEL_A_FRAMES
+    if launches < 2 * frames or q_launches:
+        raise AssertionError(f"(a): {launches} gather launches for "
+                             f"{frames} frontier frames, qaffine "
+                             f"{q_launches}")
+    single_ms = 1e3 * refs["single_s"] / ps["ll"].shape[1]
+    line = (f"  (a) one rank over NCCL, mesh (1, 1): decode_sharded over {U} "
+        f"of the bench's 10 s utterances == CsrBeamDecoder ({sharded_s:.3f} "
+        f"s; the single decode of all 8 {refs['single_s']:.3f} s, "
+        f"{single_ms:.4f} ms per frame); decode_frontier_sharded on the "
+        f"first {frames} frames of one == it, {1e3 * fs_s / frames:.4f} "
+        f"ms/frame; the sharded server, "
+        f"{PARALLEL_STREAMS} streams x {PARALLEL_STREAM_SAMPLES / 16000:.0f} "
+        f"s == the unsharded one; {PARALLEL_TRAIN_STEPS} f32 mesh train "
+        f"steps == single (against an f64 run: worst leaf {leaf} at "
+        f"{worst:.3f} of its limit; losses {losses:.3e} apart; "
+        f"{train['ms']:.3f} vs {refs['train']['ms']:.3f} ms/step); gather "
+        f"launches {launches}, qaffine {q_launches} | card: {card}")
+    log(line)
+    return {"launches": launches, "fs_ms": 1e3 * fs_s / frames,
+            "train_ms": train["ms"], "line": line}
+
+
+def parallel_rank() -> int:
+    """Phase 42 (b), one rank (`PARALLEL_FLAG <dir>`, started by
+    launch_local): two ranks share the card over gloo with CUDA tensors
+    (NCCL refuses two ranks on one card). Reads the inputs the parent
+    wrote to <dir>/inputs.npz, writes its results to <dir>/rank.<r>.json
+    (rank 0 also its train params, <dir>/params.npz)."""
+    import torch
+    import torch.distributed as dist
+    from kaldi_tpu_torch import cuda_build
+    from kaldi_tpu_torch.decoder.biggraph import BigGraphConfig, make_big_hclg
+    from kaldi_tpu_torch.decoder.csr_beam import CsrBeamDecoder, CsrBeamOpts
+    from kaldi_tpu_torch.device import resolve_device
+    from kaldi_tpu_torch.nnet import quantized as q
+    from kaldi_tpu_torch.nnet.tdnn import TdnnConfig
+    from kaldi_tpu_torch.ops import table_gather as tg
+    from kaldi_tpu_torch.parallel import (decode_frontier_sharded,
+                                          decode_sharded, init_distributed,
+                                          make_mesh)
+    from kaldi_tpu_torch.params import random_tdnn_params
+    out_dir = sys.argv[sys.argv.index(PARALLEL_FLAG) + 1]
+    rank, _world = init_distributed(device="cuda", backend="gloo")
+    resolve_device("cuda")
+    torch.set_num_threads(2)
+    # phase 2 built the kernels: a rank never builds (two would race)
+    if not all(os.path.exists(cuda_build.library_path(n))
+               for n in cuda_build.sources()):
+        raise AssertionError("the kernels are not built (phase 2)")
+    graph, _ = make_big_hclg(BigGraphConfig())
+    dec = CsrBeamDecoder(graph, CsrBeamOpts(**PARALLEL_SEARCH), device="cuda")
+    m21 = make_mesh(2, 1, device="cuda")
+    m12 = make_mesh(1, 2, device="cuda")
+    # set up while the parent runs (a); measure after it, alone
+    go, deadline = os.path.join(out_dir, "go"), time.time() + \
+        PARALLEL_RANK_TIMEOUT_S
+    while not os.path.exists(go):
+        if time.time() > deadline:
+            raise TimeoutError("the parent never wrote its go file")
+        time.sleep(0.05)
+    inputs = np.load(os.path.join(out_dir, "inputs.npz"))
+    ll, nf = inputs["ll"], inputs["nf"]
+    cfg = TdnnConfig(**PARALLEL_TDNN)
+    ps = {"cfg": cfg, "feats": inputs["feats"], "tgt": inputs["tgt"],
+          "tree": random_tdnn_params(cfg, np.random.default_rng(0))}
+    U = PARALLEL_FRONTIER_UTTS
+    dist.barrier()
+    tg.launches = q.launches = 0           # count the mesh path only
+    sharded, sharded_s = timed(lambda: decode_sharded(dec, ll, nf, m21))
+    fs, fs_s = timed(lambda: decode_frontier_sharded(dec, ll[:U], nf[:U], m12,
+                                                     axis="model"))
+    res = {"rank": rank, "sharded": sharded, "sharded_s": sharded_s,
+           "frontier": fs, "frontier_s": fs_s,
+           "overflow": dec.last_overflow.tolist(),
+           "gathered_bytes": dec.last_gathered_bytes,
+           "rounds": dec.last_exchange_rounds, "frames": int(nf[:U].sum())}
+    train = parallel_train(ps, m21)
+    res.update(launches=tg.launches, qaffine=q.launches,
+               train_ms=train["ms"], losses=train["losses"])
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "params.npz"), **train["params"])
+    with open(os.path.join(out_dir, f"rank.{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def parallel_gang(d: str):
+    """Start phase 42 (b)'s two ranks on the card over gloo through the
+    port's launch_local, in a thread: they build the bench graph and
+    decoder while the parent runs (a), then wait for <d>/go. -> the
+    future of their exit codes."""
+    from concurrent.futures import ThreadPoolExecutor
+    from kaldi_tpu_torch.parallel.launch import free_port, launch_local
+    ex = ThreadPoolExecutor(1)
+    gang = ex.submit(
+        launch_local,
+        [sys.executable, os.path.abspath(__file__), PARALLEL_FLAG, d], 2,
+        os.path.join(d, "logs"), coordinator_port=free_port(),
+        timeout=PARALLEL_RANK_TIMEOUT_S)
+    ex.shutdown(wait=False)
+    return gang
+
+
+def parallel_leg_gloo(d: str, codes: list, refs: dict, card: str) -> dict:
+    """Phase 42 (b), read from the ranks' files in `d`: the
+    frontier-sharded decode at D = 2 on 2 utterances, decode_sharded over
+    the 8 (4 per rank) and 5 f32 data-parallel train steps, each against
+    the single card."""
+    if codes != [0, 0]:
+        for i in range(2):
+            with open(os.path.join(d, "logs", f"worker.{i}.log")) as f:
+                log(f.read()[-6000:])
+        raise AssertionError(f"(b): rank exit codes {codes}")
+    ranks = []
+    for i in range(2):
+        with open(os.path.join(d, f"rank.{i}.json")) as f:
+            ranks.append(json.load(f))
+    with np.load(os.path.join(d, "params.npz")) as z:
+        params = {k: z[k] for k in z.files}
+    r0, r1 = ranks
+    for key in ("sharded", "frontier", "overflow", "losses"):
+        if r0[key] != r1[key]:
+            raise AssertionError(f"(b): the ranks' {key} differ")
+    U = PARALLEL_FRONTIER_UTTS
+    _same_results("(b) decode_sharded", r0["sharded"], refs["single"],
+                  "2 ranks")
+    _same_results("(b) frontier", r0["frontier"], refs["single"][:U], "D = 2")
+    worst, leaf, losses = train_close(
+        "(b) train", {"params": params, "losses": r0["losses"]},
+        refs["train"], refs["exact"])
+    if any(r["qaffine"] for r in ranks) or any(
+            r["launches"] < 2 * r["frames"] for r in ranks):
+        raise AssertionError(f"(b): launches {[r['launches'] for r in ranks]}"
+                             f", qaffine {[r['qaffine'] for r in ranks]}")
+    frames = r0["frames"]
+    line = (f"  (b) two ranks on the one card over gloo (CUDA tensors), spawned "
+        f"by launch_local (set up during (a)): "
+        f"decode_frontier_sharded at D = 2 on {U} x 10 s == CsrBeamDecoder on "
+        f"the card (words, tids, cost within 1e-2; overflow "
+        f"{r0['overflow']}), {r0['rounds']} exchanges, "
+        f"{r0['gathered_bytes'] / r0['rounds']:.0f} gathered bytes per frame "
+        f"per rank, {1e3 * r0['frontier_s'] / frames:.4f} ms/frame; "
+        f"decode_sharded over 8 x 10 s (4 per rank) == the single decode "
+        f"({r0['sharded_s']:.3f} s); {PARALLEL_TRAIN_STEPS} f32 "
+        f"data-parallel steps of the bench's TDNN on its batch == the single "
+        f"card (against an f64 run: worst leaf {leaf} at {worst:.3f} of its "
+        f"limit; losses {losses:.3e} apart): {r0['train_ms']:.3f} ms/step; "
+        f"gather launches {[r['launches'] for r in ranks]} | card: {card}")
+    log(line)
+    return {"launches": sum(r["launches"] for r in ranks),
+            "gathered_bytes_per_frame": r0["gathered_bytes"] / r0["rounds"],
+            "fs_ms": 1e3 * r0["frontier_s"] / frames,
+            "train_ms": r0["train_ms"], "line": line}
+
+
+def phase_parallel(tg, q, card: str) -> dict:
+    """Phase 42: (b)'s ranks start and set up, the single-card references
+    and (a) run, then (b) measures."""
+    import shutil
+    d = build_scratch()
+    try:
+        gang = parallel_gang(d)
+        try:
+            ps = parallel_setup()
+            np.savez(os.path.join(d, "inputs.npz"), ll=ps["ll"], nf=ps["nf"],
+                     feats=ps["feats"], tgt=ps["tgt"])
+            refs = parallel_refs(ps)
+            a = parallel_leg_nccl(ps, refs, tg, q, card)
+        finally:
+            # the ranks go on (and end) whatever happened above
+            open(os.path.join(d, "go"), "w").close()
+            codes = gang.result()
+        b = parallel_leg_gloo(d, codes, refs, card)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    line = (f"  per frame of the frontier-sharded decode: {a['fs_ms']:.4f} ms on "
+        f"one rank, {b['fs_ms']:.4f} ms on two over gloo "
+        f"({b['gathered_bytes_per_frame']:.0f} bytes gathered per rank); per "
+        f"f32 train step: {refs['train']['ms']:.3f} ms on the card alone, "
+        f"{a['train_ms']:.3f} ms on one NCCL rank, {b['train_ms']:.3f} ms on "
+        f"two gloo ranks | card: {card}")
+    log(line)
+    return {"launches": a["launches"] + b["launches"], "a": a, "b": b,
+            "lines": [a["line"], b["line"], line]}
+
+
 def save_witness(path: str, data: dict) -> None:
     import pickle
     os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -13682,57 +14066,57 @@ def side_phases() -> int:
     torch.set_num_threads(SIDE_THREADS)
     card = card_info()
     profile = "--profile" in sys.argv[1:]
-    log_phase("[7/41] full-width serving slice (bf16 TDNN)")
+    log_phase("[7/42] full-width serving slice (bf16 TDNN)")
     sl = phase_slice(tg, card, profile=profile)
-    log_phase("[8/41] full-width int8 serving slice")
+    log_phase("[8/42] full-width int8 serving slice")
     s8 = phase_int8_slice(q, tg, sl, card)
-    log_phase("[10/41] streaming server, full width")
+    log_phase("[10/42] streaming server, full width")
     st = phase_stream_full(tg, sl, card, profile=profile)
-    log_phase("[13/41] training, full width: the bench's AM with the port's "
+    log_phase("[13/42] training, full width: the bench's AM with the port's "
               "train step")
     tr = phase_train_full(sl, card, profile=profile)
-    log_phase("[14/41] lattice path, full width (latgen at the bench's "
+    log_phase("[14/42] lattice path, full width (latgen at the bench's "
               "point)")
     lt = phase_lattice_full(tg, sl, tr, card)
-    log_phase("[34/41] decoder tools at the bench graph's width: the "
+    log_phase("[34/42] decoder tools at the bench graph's width: the "
               "verifiers over its tier tables, decode_batched with phase 13's "
               "AM, the self-built triphone graph")
     tl = phase_tools_full(tg, sl, tr, card)
-    log_phase("[36/41] the bench decode through files: compute-fbank-feats "
+    log_phase("[36/42] the bench decode through files: compute-fbank-feats "
               "-> compute-cmvn-stats / apply-cmvn -> nnet-am-compute with "
               "phase 13's AM -> decode-faster-mapped on the bench graph -> "
               "compute-wer")
     cb = phase_cli_bench(tg, sl, tr, tl, card)
-    log_phase("[18/41] GMM path, full width: monophone training, the dense "
+    log_phase("[18/42] GMM path, full width: monophone training, the dense "
               "decoder's serving lines")
     phase_gmm_full(tr, card, profile=profile)
-    log_phase("[30/41] (a, c) rescoring at width: bench.py's 1.13M-n-gram "
+    log_phase("[30/42] (a, c) rescoring at width: bench.py's 1.13M-n-gram "
               "trigram over phase 14's lattices with the truncation audit; "
               "features on the bench's test waves")
     phase_rescore_bench(card, lt)
-    log_phase("[37/41] Kaldi's train_mono.sh -> train_deltas.sh -> "
+    log_phase("[37/42] Kaldi's train_mono.sh -> train_deltas.sh -> "
               "mkgraph.sh -> decode through the CLI's files at the triphone "
               "ladder's width")
     lc = phase_ladder_cli(card)
-    log_phase("[38/41] Kaldi's decode.sh -> score.sh -> "
+    log_phase("[38/42] Kaldi's decode.sh -> score.sh -> "
               "lmrescore_const_arpa.sh -> confidences, posteriors, KWS -> "
               "decode_fmllr.sh through the CLI's files on phase 37's")
     lt38 = phase_lattice_cli(card, lc)
-    log_phase("[39/41] Kaldi's nnet2, nnet3 and DBN recipes "
+    log_phase("[39/42] Kaldi's nnet2, nnet3 and DBN recipes "
               "(train_multisplice_accel2.sh, train_tdnn.sh, pretrain_dbn.sh "
               "-> train.sh -> decode.sh) through the CLI's files on phase "
               "37's")
     nc = phase_nnet_cli(card, lc)
-    log_phase("[41/41] Kaldi's train_sat.sh -> decode_fmllr.sh -> "
+    log_phase("[41/42] Kaldi's train_sat.sh -> decode_fmllr.sh -> "
               "train_ubm.sh -> train_sgmm2.sh -> decode_sgmm2.sh through "
               "the CLI's files on phase 37's")
     ac = phase_adapt_cli(card, lc)
-    log_phase("[19/41] triphone ladder, small: card vs CPU")
+    log_phase("[19/42] triphone ladder, small: card vs CPU")
     phase_ladder_small()
     for k, what, fn in SMALL_PHASES:
         if k == 31:
             socket.setdefaulttimeout(SOCKET_TIMEOUT_S)
-        log_phase(f"[{k}/41] {what}")
+        log_phase(f"[{k}/42] {what}")
         globals()[fn]()
     with open(SIDE_RESULTS, "w") as f:
         json.dump({"slice": sl["launches"], "int8": s8["launches"],
@@ -13795,6 +14179,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     if SIDE_FLAG in sys.argv[1:]:
         return side_phases()
+    if PARALLEL_FLAG in sys.argv[1:]:
+        return parallel_rank()
     from kaldi_tpu_torch import cuda_build
     from kaldi_tpu_torch.device import card_info, resolve_device
     from kaldi_tpu_torch.nnet import quantized as q
@@ -13802,7 +14188,7 @@ def main() -> int:
 
     resolve_device("cuda")                # also turns TF32 off
     card = card_info()
-    log_phase(f"[1/41] card: {card} | torch {torch.__version__} CUDA "
+    log_phase(f"[1/42] card: {card} | torch {torch.__version__} CUDA "
               f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
               f"{torch.cuda.device_count()}")
 
@@ -13812,7 +14198,7 @@ def main() -> int:
         native = ex.submit(build_native)
         libs = cuda_build.build()
         native = native.result()
-    log_phase(f"[2/41] build: {len(libs)} kernels (one nvcc each) and "
+    log_phase(f"[2/42] build: {len(libs)} kernels (one nvcc each) and "
               f"{len(native)} g++ libraries, all at once, in "
               f"{time.perf_counter() - t:.3f} s")
     for name, so in libs.items():
@@ -13821,45 +14207,45 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]
         log(f"  {os.path.relpath(so, ROOT)}: {' | '.join(regs)}")
 
-    log_phase("[3/41] table-gather kernel vs plain version")
+    log_phase("[3/42] table-gather kernel vs plain version")
     k = phase_kernel(tg)
-    log_phase("[4/41] qaffine kernel vs plain version")
+    log_phase("[4/42] qaffine kernel vs plain version")
     qk = phase_qaffine(q)
     side = start_side_phases()            # beside the phases below
     try:
-        log_phase("[16/41] online path, full width "
+        log_phase("[16/42] online path, full width "
                   "(scripts/bench_streaming.py's configuration)")
         on = phase_online_full(tg, card, profile="--profile" in sys.argv[1:])
-        log_phase("[20/41] triphone ladder, full width: mono -> tri -> "
+        log_phase("[20/42] triphone ladder, full width: mono -> tri -> "
                   "LDA+MLLT -> TDNN, and SAT")
         ld = phase_ladder_full(card, profile="--profile" in sys.argv[1:])
-        log_phase("[22/41] discriminative path, full width: the rm-like "
+        log_phase("[22/42] discriminative path, full width: the rm-like "
                   "pyramid with bMMI and fMMI, then bMMI and TDNN sMBR on the "
                   "ladder's models")
         dk = phase_disc_full(card, ld, profile="--profile" in sys.argv[1:])
-        log_phase("[24/41] nnet3 and nnet1 families at the ladder's width: "
+        log_phase("[24/42] nnet3 and nnet1 families at the ladder's width: "
                   "nnet3 TDNN and LSTM, the wide LSTM, the DBN")
         nn = phase_nnet_full(card, ld, profile="--profile" in sys.argv[1:])
-        log_phase("[26/41] speaker recognition at sre10's width (2048 "
+        log_phase("[26/42] speaker recognition at sre10's width (2048 "
                   "gaussians, 600-dim i-vectors, 60-dim features): v1 and v2, "
                   "then logistic regression")
         sr = phase_sre_full(card, ld)
-        log_phase("[28/41] adaptation and SGMM2 at the ladder's width: raw, "
+        log_phase("[28/42] adaptation and SGMM2 at the ladder's width: raw, "
                   "basis, regression-tree and global fMLLR, MLLR, LVTLN, "
                   "HLDA; SGMM2 at egs/rm's sgmm2_4a widths, bMMI, SGMM fMLLR")
         ad = phase_adapt_sgmm_full(card, ld)
-        log_phase("[30/41] (b) search at width: the ladder's lattices "
+        log_phase("[30/42] (b) search at width: the ladder's lattices "
                   "through rescoring, scoring, MBR, ctm, KWS and "
                   "decode_biglm")
         rs = phase_rescore_ladder(card, ld)
         socket.setdefaulttimeout(SOCKET_TIMEOUT_S)
-        log_phase("[32/41] network serving at phase 16's configuration: its "
+        log_phase("[32/42] network serving at phase 16's configuration: its "
                   "AM and HCLG through the port's files, the TCP server over "
                   "6 concurrent connections (also through µ-law and ADPCM), "
                   "the threaded decoder, the online GMM decoder over phase "
                   "20's tri, the CLI")
         sv = phase_serving_full(tg, card, on, ld)
-        log_phase("[40/41] egs/sre10 v1's run.sh through the CLI's files on "
+        log_phase("[40/42] egs/sre10 v1's run.sh through the CLI's files on "
                   "phase 26's corpus: compute-mfcc-feats -> add-deltas -> "
                   "compute-vad -> select-voiced-frames -> train-ubm --full -> "
                   "train-ivector-extractor -> ivector-extract -> mean, "
@@ -13867,15 +14253,23 @@ def main() -> int:
                   "ivector-plda-scoring / ivector-compute-dot-products -> "
                   "compute-eer; logistic regression")
         sc = phase_sre_cli(card)
-        log_phase("[35/41] the CLI's five slices, small: every "
+        log_phase("[35/42] the CLI's five slices, small: every "
                   "device subcommand and the first slice's host ones on the "
                   "card and with --device cpu, recipe-yesno-files on the "
                   "card, --fused vs the generic pipeline, train-nnet3's "
                   "round trip, the card probes")
         phase_cli_small()
+        log_phase("[42/42] the multi-device slice: (a) one rank over NCCL, "
+                  "mesh (1, 1); (b) two ranks on the one card over gloo: the "
+                  "frontier-sharded decode at the bench's width, the "
+                  "utterance-sharded decode, data-parallel training")
+        pl = phase_parallel(tg, q, card)
         main_end = time.perf_counter() - T_START
         sd = finish_side_phases(side)
         side_end = sd["ended"] - T_START_WALL
+        log("phase 42's lines again (the second process's log came between):")
+        for line in pl["lines"]:
+            log(line)
         log(f"this process's phases ended at {main_end:.1f} s, the second "
             f"process's at {side_end:.1f} s (both on this one's clock): "
             f"{abs(main_end - side_end):.1f} s apart")
@@ -13902,7 +14296,9 @@ def main() -> int:
         f"37's CLI recipe, {sd['lattice_cli']['gather']} in phase 38's, "
         f"{sd['nnet_cli']['gather']} in phase 39's, "
         f"{sc['launches']['gather']} in phase 40's, "
-        f"{sd['adapt_cli']['gather']} in phase 41's; "
+        f"{sd['adapt_cli']['gather']} in phase 41's, {pl['launches']} on "
+        f"the multi-device path (phase 42: {pl['a']['launches']} over NCCL, "
+        f"{pl['b']['launches']} in the two gloo ranks); "
         f"qaffine {sd['int8']} "
         f"on the int8 slice, "
         f"{sr['qaffine_launches']} on the speaker-recognition path's, 0 on "
@@ -13912,9 +14308,10 @@ def main() -> int:
         f"{sd['lattice_cli']['qaffine']} in phase 38's, "
         f"{sd['nnet_cli']['qaffine']} in phase 39's, "
         f"{sc['launches']['qaffine']} in phase 40's, "
-        f"{sd['adapt_cli']['qaffine']} in phase 41's")
+        f"{sd['adapt_cli']['qaffine']} in phase 41's, 0 in phase 42's (it "
+        f"asserts it)")
     faulthandler.cancel_dump_traceback_later()
-    log(f"all 41 phases in {time.perf_counter() - T_START:.1f} s")
+    log(f"all 42 phases in {time.perf_counter() - T_START:.1f} s")
     log(card)
     log(json.dumps({"kernels": [{
         "name": "batched_table_gather", "route": "cuda",
@@ -13958,7 +14355,8 @@ def main() -> int:
         "lattice_cli_launches": sd["lattice_cli"]["gather"],
         "nnet_cli_launches": sd["nnet_cli"]["gather"],
         "sre_cli_launches": sc["launches"]["gather"],
-        "adapt_cli_launches": sd["adapt_cli"]["gather"]}, {
+        "adapt_cli_launches": sd["adapt_cli"]["gather"],
+        "parallel_launches": pl["launches"]}, {
         "name": "qaffine", "route": "cuda",
         "source": "kaldi_tpu_torch/csrc/qaffine.cu",
         "replaces": "kaldi_tpu/nnet/quantized.py:46",
@@ -13978,7 +14376,8 @@ def main() -> int:
         "lattice_cli_launches": sd["lattice_cli"]["qaffine"],
         "nnet_cli_launches": sd["nnet_cli"]["qaffine"],
         "sre_cli_launches": sc["launches"]["qaffine"],
-        "adapt_cli_launches": sd["adapt_cli"]["qaffine"]}]}))
+        "adapt_cli_launches": sd["adapt_cli"]["qaffine"],
+        "parallel_launches": 0}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

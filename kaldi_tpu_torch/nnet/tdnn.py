@@ -137,7 +137,8 @@ class Tdnn(nn.Module):
 
     def forward(self, feats: torch.Tensor, pad_context: bool = True,
                 compute_dtype: torch.dtype | None = None,
-                num_layers: int | None = None) -> torch.Tensor:
+                num_layers: int | None = None,
+                logits_gather=None) -> torch.Tensor:
         """pad_context=True clamps at utterance edges (output T == input T);
         False uses valid frames only.
 
@@ -150,7 +151,12 @@ class Tdnn(nn.Module):
         the weights' `.to`, as JAX's `astype` does.
 
         num_layers runs only the first k hidden layers before the final
-        affine (layer-wise pretraining, `train_progressive`)."""
+        affine (layer-wise pretraining, `train_progressive`).
+
+        logits_gather, when given, maps the final affine's output to the
+        logits before the log-softmax: the model-parallel train step holds
+        a column shard of the final affine and all-gathers its logits over
+        the mesh's 'model' axis (nnet/train.py)."""
         cfg = self.config
         ctxs = cfg.splice_indexes[:num_layers]
         layers = list(self.layers)[:num_layers]
@@ -160,6 +166,8 @@ class Tdnn(nn.Module):
             for ctx, layer in zip(ctxs, layers):
                 x = self._nonlin(torch.matmul(sp(x, ctx), layer.w) + layer.b)
             logits = torch.matmul(x, self.final.w) + self.final.b
+            if logits_gather is not None:
+                logits = logits_gather(logits)
             return torch.log_softmax(logits, dim=-1)
         for ctx, layer in zip(ctxs, layers):
             w = layer.w.to(compute_dtype)
@@ -184,6 +192,8 @@ class Tdnn(nn.Module):
         logits = torch.matmul(x.to(compute_dtype),
                               self.final.w.to(compute_dtype)
                               ).to(torch.float32) + self.final.b
+        if logits_gather is not None:
+            logits = logits_gather(logits)
         return torch.log_softmax(logits, dim=-1)
 
     def apply_logits(self, feats: torch.Tensor,

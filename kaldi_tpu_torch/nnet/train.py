@@ -7,8 +7,17 @@ tensor named as `Tdnn.state_dict()` names it, a step returns new params
 and a new optimizer state, and the module only supplies the forward
 (`torch.func.functional_call`). The products and their gradients are
 `torch.matmul` under autograd; the JAX package computes them outside any
-Pallas kernel too. One device only: `mesh=` raises (the multi-device
-port is its own item).
+Pallas kernel too.
+
+With `mesh=` (a parallel.mesh DeviceMesh) the step is SPMD: every rank
+passes the same global batch and the same replicated params; each rank
+takes its rows over 'data' and, with 'model' > 1, its column shard of the
+final affine, whose logits are all-gathered over 'model' before the
+log-softmax. The loss keeps JAX's global normaliser (the weight sum of the
+whole batch), the gradients are summed over the world before the
+optimizer (clip included) sees them, and params, optimizer state, loss and
+accuracy come back replicated and global, as JAX's one-program step gives
+them.
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from kaldi_tpu_torch.device import resolve_device
@@ -97,13 +107,90 @@ def _grad_step(loss_fn, optimizer, params, opt_state):
     return params, opt_state, loss.detach(), aux.detach()
 
 
+class _GatherModel(torch.autograd.Function):
+    """All-gather over the 'model' group along the last dim, in rank order.
+    Every rank of the group computes the same loss from the gathered
+    logits, so their gradients are equal: the backward takes this rank's
+    slice, and the partial gradients of the layers below are summed with
+    the others in the step's all-reduce."""
+
+    @staticmethod
+    def forward(ctx, x, group, index: int, size: int):
+        parts = [torch.empty_like(x) for _ in range(size)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        ctx.index, ctx.width = index, x.shape[-1]
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(-1, ctx.index * ctx.width, ctx.width), None, None, None
+
+
+def _mesh_step(model: Tdnn, optimizer, mesh, compute_dtype):
+    """The SPMD train step over `mesh` (see the module docstring)."""
+    from kaldi_tpu_torch.parallel.mesh import (axis_index, axis_size,
+                                               check_mesh, local_shard,
+                                               rank_rows, tdnn_param_sharding)
+    check_mesh(mesh)
+    data_group = mesh.get_group("data")
+    M = axis_size(mesh, "model")
+    kw = {"pad_context": False}
+    if compute_dtype is not None:
+        kw["compute_dtype"] = compute_dtype
+    if M > 1:
+        model_group, mi = mesh.get_group("model"), axis_index(mesh, "model")
+        kw["logits_gather"] = lambda x: _GatherModel.apply(x, model_group,
+                                                           mi, M)
+
+    def step(params, opt_state, feats, targets, weights):
+        rows = rank_rows(mesh, targets.shape[0])
+        feats, targets, weights = feats[rows], targets[rows], weights[rows]
+        # JAX's normaliser: max(sum of the GLOBAL batch's weights, 1)
+        tot_w = torch.sum(weights)
+        dist.all_reduce(tot_w, group=data_group)
+        tot_w = torch.clamp(tot_w, min=1.0)
+        place = tdnn_param_sharding(mesh, params)
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        with torch.enable_grad():
+            local = {k: local_shard(v, mesh, place[k])
+                     for k, v in leaves.items()}
+            log_post = functional_call(model, local, (feats,), kw)
+            ll = torch.gather(log_post, -1, targets.long()[..., None])[..., 0]
+            loss = -torch.sum(ll * weights) / tot_w
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True,
+                                        materialize_grads=True)
+        with torch.no_grad():
+            hit = (torch.argmax(log_post, dim=-1) == targets).to(weights.dtype)
+            stats = torch.stack([loss, torch.sum(hit * weights) / tot_w])
+            # the sum over 'data' of the rows' gradients and, over 'model',
+            # of the final shards' (disjoint) and the hidden layers'
+            # partial ones: one all-reduce over the world
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(flat)
+            grads = [f.view_as(g) for f, g in
+                     zip(flat.split([g.numel() for g in grads]), grads)]
+            dist.all_reduce(stats, group=data_group)
+            updates, opt_state = optimizer.update(
+                dict(zip(leaves, grads)), opt_state, params)
+            params = optim.apply_updates(params, updates)
+        return params, opt_state, stats[0], stats[1]
+
+    return step
+
+
 def make_train_step(model: Tdnn, optimizer: optim.GradientTransformation,
                     mesh=None, compute_dtype=None):
     """-> step(params, opt_state, feats, targets, weights) -> (params,
     opt_state, loss, acc). It runs where its tensors are; loss and acc
-    come back as device scalars (no host sync)."""
+    come back as device scalars (no host sync).
+
+    With a mesh the step is SPMD over it (every rank passes the global
+    batch; see the module docstring): the batch shards over 'data', the
+    final affine over 'model'."""
     if mesh is not None:
-        raise NotImplementedError("multi-device training is not ported yet")
+        return _mesh_step(model, optimizer, mesh, compute_dtype)
 
     def step(params, opt_state, feats, targets, weights):
         return _grad_step(
@@ -114,13 +201,28 @@ def make_train_step(model: Tdnn, optimizer: optim.GradientTransformation,
     return step
 
 
+def shard_params(params: dict, mesh):
+    """-> (this rank's shard of each param, their placements): the slices
+    JAX's `shard_params` puts on this rank's device under
+    `tdnn_param_sharding` (the final affine's columns over 'model', the
+    rest replicated). The mesh step takes the replicated params and takes
+    these shards itself."""
+    from kaldi_tpu_torch.parallel.mesh import local_shard, tdnn_param_sharding
+    place = tdnn_param_sharding(mesh, params)
+    return {k: local_shard(v, mesh, place[k]) for k, v in params.items()}, \
+        place
+
+
 def train_epochs(model: Tdnn, params, egs, opts: NnetTrainOpts = NnetTrainOpts(),
                  mesh=None, rng: np.random.RandomState | None = None,
                  log_every: int = 50, callback=None, device="cuda"):
     """In-memory trainer over numpy egs {feats [N, chunk+ctx, D], targets
     [N, chunk], weights [N, chunk]}: the same permutations and the same
     full-minibatch tail padding as JAX's, so the batches are equal.
-    -> (params on `device`, history of (epoch, k, loss, acc))."""
+    With a mesh every rank makes this call with the same egs and rng and
+    trains its shard of each batch (`make_train_step`), `device` being
+    this rank's. -> (params on `device`, history of (epoch, k, loss,
+    acc)), replicated."""
     dev = resolve_device(device)
     rng = rng or np.random.RandomState(0)
     N = egs["feats"].shape[0]

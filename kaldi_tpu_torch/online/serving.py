@@ -23,9 +23,15 @@ counters (v0, nf, nd, d0, total) exactly as the JAX server computes them.
 With keep_loglikes=True the server also keeps each stream's unscaled
 log-likelihoods in a device ring, written at each slot's d0 like the
 arena, and `get_lattice` runs the offline latgen (lat.generate) over
-them. Not in this port yet: `mesh` (stream sharding over devices); asking
-for it raises NotImplementedError. `mesh_axis` (the mesh axis the streams
-would be sharded over) is accepted, as JAX's server takes it.
+them.
+
+With `mesh=` (a parallel.mesh DeviceMesh) the streams shard over
+`mesh_axis`, SPMD: every rank makes the same calls, so the host
+bookkeeping (free list, staging, counters) is the same on every rank;
+slot s lives on the rank at coordinate s // (n_streams / D) of the axis,
+whose device carry and `step()` cover only its own slots. `best_path`
+and `get_lattice` of slot s run on its owner and are broadcast over the
+axis, so every rank returns the same answer.
 """
 
 from __future__ import annotations
@@ -39,6 +45,8 @@ from kaldi_tpu_torch.decoder.hostpack import fetch_host
 from kaldi_tpu_torch.lat.generate import decode_to_lattices
 from kaldi_tpu_torch.ops.features import FbankOpts, fbank
 from kaldi_tpu_torch.ops.window import num_frames
+from kaldi_tpu_torch.parallel.mesh import (axis_index, axis_size,
+                                           broadcast_object, check_mesh)
 
 
 class FusedStreamingServer:
@@ -62,9 +70,6 @@ class FusedStreamingServer:
                  t_max: int = 1024, computer=fbank,
                  keep_loglikes: bool = False, mesh=None,
                  mesh_axis: str = "data"):
-        if mesh is not None:
-            raise NotImplementedError("stream sharding over a device mesh is "
-                                      "not ported yet")
         if not isinstance(dec, CsrBeamDecoder):
             raise TypeError(f"dec must be a CsrBeamDecoder, got {type(dec)}")
         fo = feat_opts.frame_opts
@@ -84,6 +89,14 @@ class FusedStreamingServer:
         self.feat_opts = feat_opts
         self.computer = computer
         self.N = n_streams
+        self._mesh, self._axis = mesh, mesh_axis
+        D = 1 if mesh is None else axis_size(check_mesh(mesh), mesh_axis)
+        if n_streams % D:
+            raise ValueError(f"n_streams {n_streams} does not split over "
+                             f"{mesh_axis}={D}")
+        self._nl = n_streams // D        # slots on this rank's device
+        self._coord = 0 if mesh is None else axis_index(mesh, mesh_axis)
+        self._lo = self._coord * self._nl  # its first slot
         self.C = chunk_samples
         self.F = chunk_samples // self.shift
         self.lead = -(-(self.wsize - self.shift) // self.shift)
@@ -107,10 +120,10 @@ class FusedStreamingServer:
         self._log_prior = torch.as_tensor(
             np.log(np.maximum(np.asarray(am.priors), 1e-20)),
             dtype=torch.float32, device=self.device)
-        self._rounds = self._rounds_for(self.N)
+        self._rounds = self._rounds_for(self._nl)
         self._self_prev = torch.arange(
             self.K, dtype=torch.int32,
-            device=self.device)[None, :].expand(self.N, self.K)
+            device=self.device)[None, :].expand(self._nl, self.K)
         self._init_frontier()
         self._reset_all()
 
@@ -143,7 +156,7 @@ class FusedStreamingServer:
                               for r in (fetch_host(recs) if recs else [])]
 
     def _reset_all(self):
-        N, D, K, dev = self.N, self._feat_dim, self.K, self.device
+        N, D, K, dev = self._nl, self._feat_dim, self.K, self.device
         rows = self.t_max + self.ndmax
         self._buf = torch.zeros((N, self.BUF), dtype=torch.float32,
                                 device=dev)
@@ -163,6 +176,7 @@ class FusedStreamingServer:
         self._llar = torch.zeros((N, rows if self._keep_ll else 1,
                                   self.am.num_pdfs), dtype=torch.float32,
                                  device=dev)
+        N = self.N                      # the host's bookkeeping: every slot
         self._free = list(range(N))
         self._stage = [np.zeros(0, np.float32) for _ in range(N)]
         self._samples = np.zeros(N, np.int64)
@@ -177,10 +191,10 @@ class FusedStreamingServer:
     @torch.no_grad()
     def _dispatch(self, chunks: torch.Tensor, ctrl: torch.Tensor,
                   n_frames: int):
-        """One lockstep step on the device. ctrl [7, N] int64 rows: active,
-        reset, nf, v0, nd, d0, total. n_frames = max(nd)."""
-        N, C, F, M, Mw, D = self.N, self.C, self.F, self.M, self.Mw, \
-            self._feat_dim
+        """One lockstep step of this device's N slots. ctrl [7, N] int64
+        rows: active, reset, nf, v0, nd, d0, total. n_frames = max(nd)."""
+        N, C, F, M, Mw, D = chunks.shape[0], self.C, self.F, self.M, \
+            self.Mw, self._feat_dim
         dev = self.device
         active, reset = ctrl[0].bool(), ctrl[1].bool()
         nf, v0, nd, d0, total = ctrl[2], ctrl[3], ctrl[4], ctrl[5], ctrl[6]
@@ -339,9 +353,10 @@ class FusedStreamingServer:
             return []
         ctrl[1] = self._pending_reset
         self._pending_reset[:] = False
-        self._dispatch(torch.as_tensor(chunks, device=self.device),
-                       torch.as_tensor(ctrl, device=self.device),
-                       int(nd.max()))
+        mine = slice(self._lo, self._lo + self._nl)
+        self._dispatch(torch.as_tensor(chunks[mine], device=self.device),
+                       torch.as_tensor(ctrl[:, mine], device=self.device),
+                       int(nd[mine].max()))
         return advanced
 
     def drain(self, s: int):
@@ -356,13 +371,27 @@ class FusedStreamingServer:
 
     # ------------------------------------------------------------ results
 
-    @torch.no_grad()
+    def _on_owner(self, s: int, fn):
+        """fn(local index of s) on the rank that holds slot s, its result
+        broadcast over the mesh axis (just fn without a mesh)."""
+        owner = s // self._nl
+        res = fn(s - self._lo) if owner == self._coord else None
+        if self._mesh is None:
+            return res
+        return broadcast_object(res, owner, self._mesh, self._axis)
+
     def best_path(self, s: int, use_final_probs: bool = True):
         """-> (words, tids, cost) of slot s, or None if no token is alive.
         The traceback walks the arena on the device; its result comes to
         the host in one copy, and the start state's closure records finish
         the walk there."""
-        n = int(self._decoded[s])
+        return self._on_owner(
+            s, lambda i: self._best_path(i, int(self._decoded[s]),
+                                         use_final_probs))
+
+    @torch.no_grad()
+    def _best_path(self, s: int, n: int, use_final_probs: bool):
+        """best_path of this device's slot s, n frames decoded."""
         dev, R = self.device, self.R
         st0, sc0 = self._st[s], self._sc[s]
         costs = sc0 + self.dec.tabs.final[st0.long()]
@@ -409,6 +438,10 @@ class FusedStreamingServer:
         n = int(self._decoded[s])
         if n == 0:
             return None
-        ll = self._llar[s, :n].cpu().numpy()
-        return decode_to_lattices(self.dec, ll[None], np.array([n], np.int32),
-                                  lattice_beam)[0]
+
+        def lattice(i):
+            ll = self._llar[i, :n].cpu().numpy()
+            return decode_to_lattices(self.dec, ll[None],
+                                      np.array([n], np.int32),
+                                      lattice_beam)[0]
+        return self._on_owner(s, lattice)

@@ -60,9 +60,9 @@ def train_tdnn(
     seed: int = 0,
 ) -> TdnnTrainResult:
     """Align with `gmm_model`, train a TDNN on its device, and set the
-    priors from the alignment counts."""
-    if mesh is not None:
-        raise NotImplementedError("multi-device training is not ported yet")
+    priors from the alignment counts. With a mesh (parallel.mesh) every
+    rank makes this call and the training is data/model parallel over it
+    (`train_epochs`)."""
     dev = gmm_model.am.device
     aligned = align_with_gmm(gmm_model, utts)
     num_pdfs = gmm_model.am.num_pdfs
@@ -78,7 +78,7 @@ def train_tdnn(
     model = Tdnn(config, device=dev)
     params = model.init(torch.Generator().manual_seed(seed))
     params, history = train_epochs(model, params, egs, train_opts,
-                                   device=dev)
+                                   mesh=mesh, device=dev)
     model.load_state_dict(params)
     am = AmNnet(model)
     # priors from alignment counts (ref: nnet-adjust-priors uses avg post;

@@ -21,7 +21,9 @@ against its exact oracle, pitch, resampling and convolution within their
 bounds) and the file layer and network serving (every model file kind
 through the port's save and load on the card, the decode sessions'
 partials and finals, the threaded and the online GMM decoders, a TCP
-server over concurrent connections) on a CUDA device.
+server over concurrent connections) and the multi-device path on a
+one-rank NCCL mesh (the sharded decodes and the mesh train step equal
+their single-device runs) on a CUDA device.
 Each test skips without a card. This file imports no jax, so it runs on
 a machine that has only torch:
 
@@ -935,3 +937,62 @@ def test_cli_sre_slice_card_equal_cpu(card, tmp_path):
         cs.CLI_CASES = cases
     assert set(res) == {n for n, _a, _k, _o in cs.SRE_CLI_CASES}
     assert "ivector-extract" in res
+
+
+def test_one_rank_nccl_mesh_equals_single_device(card):
+    """A (1, 1) mesh over NCCL on the card: decode_sharded and the
+    frontier-sharded decode give the CsrBeamDecoder's words, tids and
+    costs (the gather kernel runs on the frontier path), and three mesh
+    train steps give the plain step's params and losses."""
+    import torch.distributed as dist
+    from kaldi_tpu_torch.nnet.tdnn import Tdnn
+    from kaldi_tpu_torch.nnet.train import (NnetTrainOpts, make_optimizer,
+                                            make_train_step)
+    from kaldi_tpu_torch.parallel import (decode_frontier_sharded,
+                                          decode_sharded, make_mesh)
+    from kaldi_tpu_torch.params import tdnn_params_from_jax
+    g, _ = make_big_hclg(BigGraphConfig(vocab=200, avg_bigram_succ=12,
+                                        num_pdfs=48, seed=3))
+    dec = CsrBeamDecoder(g, CsrBeamOpts(
+        beam=1e9, max_active=128, acoustic_scale=0.1, expand_budget=4096,
+        eps_budget=512, hub_threshold=64), device=card)
+    ll = (np.random.RandomState(11).randn(4, 40, 48) * 3).astype(np.float32)
+    nf = np.array([40, 30, 40, 25], np.int32)
+    want = dec.decode(ll, nf)
+    cfg = TdnnConfig(feat_dim=8, num_pdfs=32, hidden_dim=32,
+                     pnorm_output_dim=16,
+                     splice_indexes=((-1, 0, 1), (-1, 1), (0,)))
+    tree = random_tdnn_params(cfg, np.random.default_rng(0))
+    rng = np.random.RandomState(7)
+    batch = [torch.as_tensor(a, device=card) for a in (
+        rng.randn(16, 8, 8).astype(np.float32),
+        rng.randint(0, 32, (16, 4)).astype(np.int32),
+        np.ones((16, 4), np.float32))]
+    mesh = make_mesh(1, 1)
+    try:
+        assert dist.get_backend() == "nccl"
+        assert decode_sharded(dec, ll, nf, mesh) == want
+        launches = tg.launches
+        got = decode_frontier_sharded(dec, ll, nf, mesh)
+        assert tg.launches - launches >= 2 * int(nf.sum())
+        for a, b in zip(got, want):
+            assert a[0] == b[0] and a[1] == b[1]
+            assert abs(a[2] - b[2]) < 1e-2
+        runs = []
+        for m in (None, mesh):
+            params = {k: v.to(card) for k, v in
+                      tdnn_params_from_jax(tree).items()}
+            opt = make_optimizer(NnetTrainOpts(initial_lr=0.1), 3)
+            state, step = opt.init(params), make_train_step(Tdnn(cfg), opt,
+                                                            mesh=m)
+            losses = []
+            for _ in range(3):
+                params, state, loss, _acc = step(params, state, *batch)
+                losses.append(float(loss))
+            runs.append((losses, params))
+        np.testing.assert_allclose(runs[1][0], runs[0][0], rtol=1e-6)
+        for k, v in runs[0][1].items():
+            torch.testing.assert_close(runs[1][1][k], v, rtol=1e-6,
+                                       atol=1e-6)
+    finally:
+        dist.destroy_process_group()

@@ -52,7 +52,9 @@ layer's loaders of device objects (`load_gmm_system`, `load_am_nnet`,
 the server's `fused_session_factory` default to "cuda" too; the serving
 classes (`DecodeSession`, `FusedDecodeSession`, `AudioServer`,
 `ThreadedSingleUtteranceDecoder`, `SingleUtteranceGmmDecoder`) take no
-device. Inference builds no autograd graph."""
+device. The multi-device `make_mesh` and `global_mesh` default to
+"cuda" too; `init_distributed` does, but with one process it is a no-op
+that needs no card. Inference builds no autograd graph."""
 
 import inspect
 
@@ -144,6 +146,9 @@ from kaldi_tpu_torch.lm import const_arpa, synth
 from kaldi_tpu_torch.ops import pitch, resample, signal
 from kaldi_tpu_torch.steps import score
 
+from kaldi_tpu_torch.parallel.launch import global_mesh, init_distributed
+from kaldi_tpu_torch.parallel.mesh import make_mesh
+
 ENTRY_POINTS = {"Recognizer": Recognizer.__init__,
                 "CsrBeamDecoder": CsrBeamDecoder.__init__,
                 "ChunkedCsrBeamDecoder": ChunkedCsrBeamDecoder.__init__,
@@ -200,7 +205,8 @@ ENTRY_POINTS = {"Recognizer": Recognizer.__init__,
                 "sgmm2_from_jax": sgmm2_from_jax,
                 "regression_tree_from_jax": regression_tree_from_jax,
                 "linear_vtln_from_jax": linear_vtln_from_jax,
-                "fmllr_raw_accs_from_jax": fmllr_raw_accs_from_jax}
+                "fmllr_raw_accs_from_jax": fmllr_raw_accs_from_jax,
+                "make_mesh": make_mesh, "global_mesh": global_mesh}
 # the adaptation and SGMM2 steps run where their model, statistics or basis
 # are (PR 13)
 ADAPT_STEPS = [train_sgmm2_system, train_sgmm2_bmmi, train_sgmm2,
@@ -302,6 +308,15 @@ def test_entry_point_defaults_to_cuda(name):
     default = inspect.signature(ENTRY_POINTS[name]).parameters["device"] \
         .default
     assert default == "cuda"
+
+
+def test_one_process_init_distributed_is_a_noop():
+    """init_distributed defaults to "cuda" too, but with one process it is
+    a no-op (JAX's is): it makes no group and needs no card."""
+    assert inspect.signature(init_distributed).parameters["device"].default \
+        == "cuda"
+    assert init_distributed(num_processes=1) == (0, 1)
+    assert not torch.distributed.is_initialized()
 
 
 def test_server_takes_no_device():
@@ -418,7 +433,9 @@ def test_default_device_raises_without_a_card(name):
              "linear_vtln_from_jax": lambda: linear_vtln_from_jax(
                  LinearVtln(3, [1.0], "cpu")),
              "fmllr_raw_accs_from_jax": lambda: fmllr_raw_accs_from_jax(
-                 _jax_like_raw_accs())}[name]
+                 _jax_like_raw_accs()),
+             "make_mesh": lambda: make_mesh(1, 1),
+             "global_mesh": lambda: global_mesh(1, 1)}[name]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build()
 

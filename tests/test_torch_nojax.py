@@ -30,7 +30,9 @@ then a small const-ARPA rescoring, an MBR decode, a KWS search and a
 pitch track; then the file layer (a triphone GMM system with its tree and
 an AmNnet through model files, an ark by the native reader), the codecs,
 a localhost `AudioServer` over the fused CSR session, the threaded
-decoder and the online GMM decoder. (kaldi_tpu/decoder/__init__.py imports the
+decoder and the online GMM decoder; then the multi-device modules
+(`host_shard`, a one-process `init_distributed`, a frontier-sharded
+decode on a one-rank mesh). (kaldi_tpu/decoder/__init__.py imports the
 jax decoders, so reaching into kaldi_tpu.decoder from the port would fail
 here.)
 """
@@ -146,7 +148,10 @@ for n in ("kaldi_tpu_torch.cuda_build", "kaldi_tpu_torch.nnet.quantized",
           "kaldi_tpu_torch.utils.gpsr", "kaldi_tpu_torch.utils.data_dir",
           "kaldi_tpu_torch.utils.jobs", "kaldi_tpu_torch.utils.experiment",
           "kaldi_tpu_torch.utils.profiling",
-          "kaldi_tpu_torch.scripts.mkgraph_scale"):
+          "kaldi_tpu_torch.scripts.mkgraph_scale",
+          "kaldi_tpu_torch.parallel", "kaldi_tpu_torch.parallel.mesh",
+          "kaldi_tpu_torch.parallel.launch",
+          "kaldi_tpu_torch.parallel.frontier_decode"):
     assert n in names, n
 import chip_smoke
 import chip_probes  # noqa: F401
@@ -507,6 +512,16 @@ bat = decode_batched(cdec, utts, lambda x: x, batch_size=2, device="cpu")
 assert bat["a"][0] == res[0][0] and bat["b"][0] == res[1][0], (bat, res)
 assert simple_decode(cdec.graph, ll[0])[0] == list(res[0][0])
 check_finite({"w": torch.ones(2)})
+import torch.distributed as dist
+from kaldi_tpu_torch.parallel import (decode_frontier_sharded, host_shard,
+                                      init_distributed, make_mesh)
+assert init_distributed(num_processes=1, device="cpu") == (0, 1)
+assert not dist.is_initialized()
+assert host_shard(["u2", "u0", "u1"], 1, 2) == ["u1"]
+mesh = make_mesh(1, 1, device="cpu")
+fs = decode_frontier_sharded(cdec, ll, np.array([10, 6], np.int32), mesh)
+assert [r[0] for r in fs] == [r[0] for r in res], (fs, res)
+dist.destroy_process_group()
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
        or m.startswith("kaldi_tpu.")]
 assert not bad, bad

@@ -211,7 +211,9 @@ def test_runs_on_its_decoders_device(fx):
 
 @pytest.mark.parametrize("kw", [dict(mesh=object())])
 def test_unported_options_raise(fx, kw):
-    with pytest.raises(NotImplementedError):
+    """A mesh that is not a parallel.mesh DeviceMesh is refused (the
+    sharded server: tests/test_torch_parallel_serving.py)."""
+    with pytest.raises(TypeError):
         FusedStreamingServer(fx["am"], fx["dec"], fx["fb"], **SERVE, **kw)
 
 

@@ -9,7 +9,9 @@ carried across by `params.mono_model_from_jax`.
   JAX's draws): the loss falls, the priors are JAX's alignment-count
   priors, the hybrid aligns every utterance, and one seed trains one
   net.
-- `mesh=` raises, as the train step's does.
+- a `mesh=` that is not a parallel.mesh DeviceMesh is refused, as the
+  train step refuses it (training on a mesh:
+  tests/test_torch_parallel_train.py).
 """
 
 import numpy as np
@@ -104,6 +106,8 @@ def test_train_tdnn_trains_on_gmm_alignments(yesno):
 
 
 def test_train_tdnn_mesh_raises(yesno):
-    with pytest.raises(NotImplementedError):
+    """A mesh that is not a parallel.mesh DeviceMesh is refused (mesh
+    training: tests/test_torch_parallel_train.py)."""
+    with pytest.raises(TypeError):
         ttdnn.train_tdnn(yesno["tm"], yesno["utts"][:2], config=CONFIG,
                          mesh=object())

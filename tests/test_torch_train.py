@@ -226,7 +226,9 @@ def test_train_step_returns_new_tensors_and_rejects_a_mesh():
     assert not any(torch.equal(new[k], before[k]) for k in ("final.w",))
     assert loss.dim() == 0 and acc.dim() == 0 and not loss.requires_grad
     assert not any(v.requires_grad for v in new.values())
-    with pytest.raises(NotImplementedError):
+    # a mesh is a parallel.mesh DeviceMesh (tests/test_torch_parallel_train.py
+    # runs the mesh step); anything else is rejected
+    with pytest.raises(TypeError):
         ttrain.make_train_step(model, opt, mesh=object())
 
 
