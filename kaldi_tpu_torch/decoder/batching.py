@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from kaldi_tpu_torch.device import resolve_device
+from kaldi_tpu_torch.utils.profiling import span
 
 
 def bucket_boundaries(lengths, max_buckets: int = 6,
@@ -45,26 +46,32 @@ def decode_batched(decoder, utts, score_fn, batch_size: int = 16,
     Utterances are grouped into geometric length buckets; each bucket is
     decoded in fixed-size batches padded to the bucket's boundary, so the
     whole dataset touches at most max_buckets × 1 compiled shapes.
+
+    The call is one span, `batching.decode_batched` (counts `utts` and
+    `batches`): the request that the decoder's spans under it belong to.
     """
     dev = resolve_device(device)
     out: dict = {}
     if not utts:
         return out
     D = utts[0][1].shape[1]
-    for bound, chunk in bucket_batches(utts, batch_size, max_buckets):
-        B = len(chunk)
-        # pad the batch itself to batch_size to keep ONE shape/bucket
-        feats = np.zeros((batch_size, bound, D), np.float32)
-        nf = np.zeros(batch_size, np.int32)
-        for b, (_k, f) in enumerate(chunk):
-            feats[b, : f.shape[0]] = f
-            nf[b] = f.shape[0]
-        if B < batch_size:
-            nf[B:] = 1   # dummy rows decode 1 frame, discarded
-        ll = score_fn(torch.from_numpy(feats).to(dev))
-        res = decoder.decode(ll, nf)
-        for b, (k, _f) in enumerate(chunk):
-            out[k] = res[b]
+    with span("batching.decode_batched", utts=len(utts)) as sp:
+        batches = bucket_batches(utts, batch_size, max_buckets)
+        sp.counts["batches"] = len(batches)
+        for bound, chunk in batches:
+            B = len(chunk)
+            # pad the batch itself to batch_size to keep ONE shape/bucket
+            feats = np.zeros((batch_size, bound, D), np.float32)
+            nf = np.zeros(batch_size, np.int32)
+            for b, (_k, f) in enumerate(chunk):
+                feats[b, : f.shape[0]] = f
+                nf[b] = f.shape[0]
+            if B < batch_size:
+                nf[B:] = 1   # dummy rows decode 1 frame, discarded
+            ll = score_fn(torch.from_numpy(feats).to(dev))
+            res = decoder.decode(ll, nf)
+            for b, (k, _f) in enumerate(chunk):
+                out[k] = res[b]
     return out
 
 

@@ -47,6 +47,7 @@ from kaldi_tpu_torch.decoder.hostpack import (device_mask, fetch_host,
                                               parse_label_seqs)
 from kaldi_tpu_torch.device import resolve_device
 from kaldi_tpu_torch.ops.table_gather import batched_table_gather
+from kaldi_tpu_torch.utils.profiling import span
 
 BIG = np.float32(1e10)
 BIG_BITS = int(np.array(1e10, np.float32).view(np.int32))  # f32 bit pattern
@@ -127,168 +128,172 @@ def build_tier_tables(csr: SplitCsr, hub_threshold: int,
 
     force_triple pins the tier-B fallback layout (3 arcs x 5 lanes) even
     when the quad layout applies."""
-    dev = resolve_device(device)
-    S = csr.num_states
-    e_deg = np.diff(csr.estart).astype(np.int64)
-    z_deg = np.diff(csr.zstart).astype(np.int64)
-    cost_bits = csr.e_cost.view(np.int32)
-    z_cost_bits = csr.z_cost.view(np.int32)
+    with span("csr_beam.build_tier_tables", states=int(csr.num_states),
+              arcs=len(csr.e_nxt) + len(csr.z_nxt)):
+        dev = resolve_device(device)
+        S = csr.num_states
+        e_deg = np.diff(csr.estart).astype(np.int64)
+        z_deg = np.diff(csr.zstart).astype(np.int64)
+        cost_bits = csr.e_cost.view(np.int32)
+        z_cost_bits = csr.z_cost.view(np.int32)
 
-    is_hub = e_deg > hub_threshold
-    tier_a = (~is_hub) & (e_deg <= 2)
-    tier_b = (~is_hub) & (e_deg > 2)
+        is_hub = e_deg > hub_threshold
+        tier_a = (~is_hub) & (e_deg <= 2)
+        tier_b = (~is_hub) & (e_deg > 2)
 
-    # --- srow: tier A arcs inline + tier B CSR offsets
-    srow = np.zeros((S, 16), np.int32)
-    srow[:, 0] = BIG_BITS
-    srow[:, 5] = BIG_BITS
-    for j in (0, 1):
-        has = tier_a & (e_deg > j)
-        a = csr.estart[:-1][has] + j
-        base = 5 * j
-        srow[has, base + 0] = cost_bits[a]
-        srow[has, base + 1] = csr.e_nxt[a]
-        srow[has, base + 2] = csr.e_pdf[a]
-        srow[has, base + 3] = csr.e_tid[a]
-        srow[has, base + 4] = csr.e_ol[a]
-    # tier B packed arc rows. QUAD when every tier-B pdf/tid/olabel fits
-    # 16 bits: 4 arcs x (cost bits, nxt, pdf | tid << 16, olabel);
-    # TRIPLE otherwise: 3 arcs x 5 lanes. Padding arcs are dead (cost = BIG).
-    b_deg = np.where(tier_b, e_deg, 0)
-    b_start = np.zeros(S + 1, np.int64)
-    np.cumsum(b_deg, out=b_start[1:])
-    AB = int(b_start[-1])
-    if AB:
-        bs = np.flatnonzero(tier_b)
-        reps = e_deg[bs]
-        offs = np.repeat(csr.estart[:-1][bs].astype(np.int64), reps)
-        within = np.arange(AB) - np.repeat(b_start[bs], reps)
-        src_idx = offs + within
-        fits16 = (int(csr.e_pdf[src_idx].max(initial=0)) < (1 << 16)
-                  and int(csr.e_tid[src_idx].max(initial=0)) < (1 << 16)
-                  and int(csr.e_ol[src_idx].max(initial=0)) < (1 << 16))
-        apr = 4 if (fits16 and not force_triple) else 3
-    else:
-        apr = 3
-    b_rows = -(-b_deg // apr)
-    r_start = np.zeros(S + 1, np.int64)
-    np.cumsum(b_rows, out=r_start[1:])
-    ABR = int(r_start[-1])
-    if ABR:
-        # at least 2 rows: a [1, 16] table is the EMPTY-tier dummy
-        # sentinel (have_b = shape[0] > 1), and a real tier-B fitting
-        # exactly one packed row must not be mistaken for it — the
-        # padding row is dead (cost = BIG)
-        brow = np.zeros((max(ABR, 2), 16), np.int32)
-        for k in range(apr):
-            brow[:, (4 if apr == 4 else 5) * k] = BIG_BITS
-        rowi = np.repeat(r_start[bs], reps) + within // apr
-        if apr == 4:
-            colb = 4 * (within % 4)
-            pt = (csr.e_pdf[src_idx].astype(np.uint32)
-                  | (csr.e_tid[src_idx].astype(np.uint32) << np.uint32(16)))
-            for c, vals in enumerate((cost_bits[src_idx],
-                                      csr.e_nxt[src_idx],
-                                      pt.view(np.int32),
-                                      csr.e_ol[src_idx])):
-                brow[rowi, colb + c] = vals
+        # --- srow: tier A arcs inline + tier B CSR offsets
+        srow = np.zeros((S, 16), np.int32)
+        srow[:, 0] = BIG_BITS
+        srow[:, 5] = BIG_BITS
+        for j in (0, 1):
+            has = tier_a & (e_deg > j)
+            a = csr.estart[:-1][has] + j
+            base = 5 * j
+            srow[has, base + 0] = cost_bits[a]
+            srow[has, base + 1] = csr.e_nxt[a]
+            srow[has, base + 2] = csr.e_pdf[a]
+            srow[has, base + 3] = csr.e_tid[a]
+            srow[has, base + 4] = csr.e_ol[a]
+        # tier B packed arc rows. QUAD when every tier-B pdf/tid/olabel fits
+        # 16 bits: 4 arcs x (cost bits, nxt, pdf | tid << 16, olabel);
+        # TRIPLE otherwise: 3 arcs x 5 lanes. Padding arcs are dead
+        # (cost = BIG).
+        b_deg = np.where(tier_b, e_deg, 0)
+        b_start = np.zeros(S + 1, np.int64)
+        np.cumsum(b_deg, out=b_start[1:])
+        AB = int(b_start[-1])
+        if AB:
+            bs = np.flatnonzero(tier_b)
+            reps = e_deg[bs]
+            offs = np.repeat(csr.estart[:-1][bs].astype(np.int64), reps)
+            within = np.arange(AB) - np.repeat(b_start[bs], reps)
+            src_idx = offs + within
+            fits16 = (int(csr.e_pdf[src_idx].max(initial=0)) < (1 << 16)
+                      and int(csr.e_tid[src_idx].max(initial=0)) < (1 << 16)
+                      and int(csr.e_ol[src_idx].max(initial=0)) < (1 << 16))
+            apr = 4 if (fits16 and not force_triple) else 3
         else:
-            colb = 5 * (within % 3)
-            for c, vals in enumerate((cost_bits[src_idx],
-                                      csr.e_nxt[src_idx],
-                                      csr.e_pdf[src_idx],
-                                      csr.e_tid[src_idx],
-                                      csr.e_ol[src_idx])):
-                brow[rowi, colb + c] = vals
-    else:
-        brow = np.zeros((1, 16), np.int32)
-        for k in range(apr):
-            brow[0, (4 if apr == 4 else 5) * k] = BIG_BITS
-    srow[:, 10] = r_start[:-1]
-    srow[:, 11] = b_deg
-
-    # --- zrow: eps arcs (tier A inline; tier B CSR for deg > 2)
-    zrow = np.zeros((S, 8), np.int32)
-    zrow[:, 0] = BIG_BITS
-    zrow[:, 3] = BIG_BITS
-    z_a = z_deg <= 2
-    for j in (0, 1):
-        has = z_a & (z_deg > j)
-        a = csr.zstart[:-1][has] + j
-        base = 3 * j
-        zrow[has, base + 0] = z_cost_bits[a]
-        zrow[has, base + 1] = csr.z_nxt[a]
-        zrow[has, base + 2] = csr.z_ol[a]
-    zb_deg = np.where(z_a, 0, z_deg)
-    zb_start = np.zeros(S + 1, np.int64)
-    np.cumsum(zb_deg, out=zb_start[1:])
-    AZB = int(zb_start[-1])
-    if AZB:
-        zs = np.flatnonzero(~z_a)
-        reps = z_deg[zs]
-        offs = np.repeat(csr.zstart[:-1][zs].astype(np.int64), reps)
-        within = np.arange(AZB) - np.repeat(zb_start[zs], reps)
-        zi = offs + within
-        zbrow = _pack_rows([z_cost_bits[zi], csr.z_nxt[zi],
-                            csr.z_ol[zi]], 8)
-    else:
-        zbrow = np.zeros((1, 8), np.int32)
-        zbrow[0, 0] = BIG_BITS
-    zrow[:, 6] = zb_start[:-1]
-    zrow[:, 7] = zb_deg
-
-    def t(a):
-        return torch.as_tensor(a, device=dev)
-
-    # --- hub tier: dense pdf-grouped arcs
-    hubs = np.flatnonzero(is_hub)
-    hub_bounds = [0]
-    rows_parts = []
-    cost_parts = []
-    pdf_parts = []
-    for h in hubs:
-        a0, a1 = int(csr.estart[h]), int(csr.estart[h + 1])
-        order = np.argsort(csr.e_pdf[a0:a1], kind="stable") + a0
-        rows_parts.append(_pack_rows(
-            [cost_bits[order], csr.e_nxt[order], csr.e_pdf[order],
-             csr.e_tid[order], csr.e_ol[order]], 8))
-        cost_parts.append(csr.e_cost[order])
-        pdf_parts.append(csr.e_pdf[order])
-        hub_bounds.append(hub_bounds[-1] + (a1 - a0))
-    if hubs.size:
-        hub_rows = np.concatenate(rows_parts)
-        hub_cost = np.concatenate(cost_parts)
-        hub_pdf = np.concatenate(pdf_parts)
-        gpdf, ginv = np.unique(hub_pdf, return_inverse=True)
-        G = len(gpdf)
-        if G <= 128:
-            Gpad = 128
-            onehot = np.zeros((len(hub_pdf), Gpad), np.float32)
-            onehot[np.arange(len(hub_pdf)), ginv] = 1.0
-            gp = np.zeros(Gpad, np.int32)
-            gp[:G] = gpdf
-            hub_onehot = t(onehot)
-            hub_gpdf = t(gp)
-            hub_pdf_dev = None
+            apr = 3
+        b_rows = -(-b_deg // apr)
+        r_start = np.zeros(S + 1, np.int64)
+        np.cumsum(b_rows, out=r_start[1:])
+        ABR = int(r_start[-1])
+        if ABR:
+            # at least 2 rows: a [1, 16] table is the EMPTY-tier dummy
+            # sentinel (have_b = shape[0] > 1), and a real tier-B fitting
+            # exactly one packed row must not be mistaken for it — the
+            # padding row is dead (cost = BIG)
+            brow = np.zeros((max(ABR, 2), 16), np.int32)
+            for k in range(apr):
+                brow[:, (4 if apr == 4 else 5) * k] = BIG_BITS
+            rowi = np.repeat(r_start[bs], reps) + within // apr
+            if apr == 4:
+                colb = 4 * (within % 4)
+                pt = (csr.e_pdf[src_idx].astype(np.uint32)
+                      | (csr.e_tid[src_idx].astype(np.uint32)
+                         << np.uint32(16)))
+                for c, vals in enumerate((cost_bits[src_idx],
+                                          csr.e_nxt[src_idx],
+                                          pt.view(np.int32),
+                                          csr.e_ol[src_idx])):
+                    brow[rowi, colb + c] = vals
+            else:
+                colb = 5 * (within % 3)
+                for c, vals in enumerate((cost_bits[src_idx],
+                                          csr.e_nxt[src_idx],
+                                          csr.e_pdf[src_idx],
+                                          csr.e_tid[src_idx],
+                                          csr.e_ol[src_idx])):
+                    brow[rowi, colb + c] = vals
         else:
-            hub_onehot = None
-            hub_gpdf = None
-            hub_pdf_dev = t(hub_pdf.astype(np.int32))
-        tables_hub = (hubs, tuple(hub_bounds), t(hub_rows), t(hub_cost),
-                      hub_onehot, hub_gpdf, hub_pdf_dev)
-    else:
-        tables_hub = (hubs, (0,), torch.zeros((1, 8), dtype=torch.int32,
-                                              device=dev),
-                      torch.full((1,), float(BIG), dtype=torch.float32,
-                                 device=dev), None, None, None)
+            brow = np.zeros((1, 16), np.int32)
+            for k in range(apr):
+                brow[0, (4 if apr == 4 else 5) * k] = BIG_BITS
+        srow[:, 10] = r_start[:-1]
+        srow[:, 11] = b_deg
 
-    return TierTables(
-        srow=t(srow), zrow=t(zrow), brow=t(brow), zbrow=t(zbrow),
-        final=t(csr.final),
-        hub_states=tables_hub[0], hub_bounds=tables_hub[1],
-        hub_rows=tables_hub[2], hub_cost=tables_hub[3],
-        hub_onehot=tables_hub[4], hub_gpdf=tables_hub[5],
-        hub_pdf=tables_hub[6], b_apr=apr)
+        # --- zrow: eps arcs (tier A inline; tier B CSR for deg > 2)
+        zrow = np.zeros((S, 8), np.int32)
+        zrow[:, 0] = BIG_BITS
+        zrow[:, 3] = BIG_BITS
+        z_a = z_deg <= 2
+        for j in (0, 1):
+            has = z_a & (z_deg > j)
+            a = csr.zstart[:-1][has] + j
+            base = 3 * j
+            zrow[has, base + 0] = z_cost_bits[a]
+            zrow[has, base + 1] = csr.z_nxt[a]
+            zrow[has, base + 2] = csr.z_ol[a]
+        zb_deg = np.where(z_a, 0, z_deg)
+        zb_start = np.zeros(S + 1, np.int64)
+        np.cumsum(zb_deg, out=zb_start[1:])
+        AZB = int(zb_start[-1])
+        if AZB:
+            zs = np.flatnonzero(~z_a)
+            reps = z_deg[zs]
+            offs = np.repeat(csr.zstart[:-1][zs].astype(np.int64), reps)
+            within = np.arange(AZB) - np.repeat(zb_start[zs], reps)
+            zi = offs + within
+            zbrow = _pack_rows([z_cost_bits[zi], csr.z_nxt[zi],
+                                csr.z_ol[zi]], 8)
+        else:
+            zbrow = np.zeros((1, 8), np.int32)
+            zbrow[0, 0] = BIG_BITS
+        zrow[:, 6] = zb_start[:-1]
+        zrow[:, 7] = zb_deg
+
+        def t(a):
+            return torch.as_tensor(a, device=dev)
+
+        # --- hub tier: dense pdf-grouped arcs
+        hubs = np.flatnonzero(is_hub)
+        hub_bounds = [0]
+        rows_parts = []
+        cost_parts = []
+        pdf_parts = []
+        for h in hubs:
+            a0, a1 = int(csr.estart[h]), int(csr.estart[h + 1])
+            order = np.argsort(csr.e_pdf[a0:a1], kind="stable") + a0
+            rows_parts.append(_pack_rows(
+                [cost_bits[order], csr.e_nxt[order], csr.e_pdf[order],
+                 csr.e_tid[order], csr.e_ol[order]], 8))
+            cost_parts.append(csr.e_cost[order])
+            pdf_parts.append(csr.e_pdf[order])
+            hub_bounds.append(hub_bounds[-1] + (a1 - a0))
+        if hubs.size:
+            hub_rows = np.concatenate(rows_parts)
+            hub_cost = np.concatenate(cost_parts)
+            hub_pdf = np.concatenate(pdf_parts)
+            gpdf, ginv = np.unique(hub_pdf, return_inverse=True)
+            G = len(gpdf)
+            if G <= 128:
+                Gpad = 128
+                onehot = np.zeros((len(hub_pdf), Gpad), np.float32)
+                onehot[np.arange(len(hub_pdf)), ginv] = 1.0
+                gp = np.zeros(Gpad, np.int32)
+                gp[:G] = gpdf
+                hub_onehot = t(onehot)
+                hub_gpdf = t(gp)
+                hub_pdf_dev = None
+            else:
+                hub_onehot = None
+                hub_gpdf = None
+                hub_pdf_dev = t(hub_pdf.astype(np.int32))
+            tables_hub = (hubs, tuple(hub_bounds), t(hub_rows), t(hub_cost),
+                          hub_onehot, hub_gpdf, hub_pdf_dev)
+        else:
+            tables_hub = (hubs, (0,), torch.zeros((1, 8), dtype=torch.int32,
+                                                  device=dev),
+                          torch.full((1,), float(BIG), dtype=torch.float32,
+                                     device=dev), None, None, None)
+
+        return TierTables(
+            srow=t(srow), zrow=t(zrow), brow=t(brow), zbrow=t(zbrow),
+            final=t(csr.final),
+            hub_states=tables_hub[0], hub_bounds=tables_hub[1],
+            hub_rows=tables_hub[2], hub_cost=tables_hub[3],
+            hub_onehot=tables_hub[4], hub_gpdf=tables_hub[5],
+            hub_pdf=tables_hub[6], b_apr=apr)
 
 
 def _bits_to_f32(x: torch.Tensor) -> torch.Tensor:
@@ -653,19 +658,21 @@ def _frame_loop(rounds, tok_state, tok_score, ll_tb, mask_tb, recs, il_emit,
     ovf_t = torch.empty((Tf, B), dtype=torch.int32, device=dev)
     sat_t = torch.empty((Tf, B), dtype=torch.bool, device=dev)
     nact_t = torch.empty((Tf, B), dtype=torch.int32, device=dev)
-    for j in range(Tf):
-        mask_f = mask_tb[j]
-        m = mask_f[:, None]
-        st, sc, rec, il, ovf = emit_round(tok_state, tok_score, ll_tb[j])
-        torch.where(m, rec, self_prev, out=recs[t0 + j, 0])
-        torch.where(m, il, zero, out=il_emit[t0 + j])
-        for r in range(1, R):
-            st, sc, rec, _il, ovf_z = eps_round(st, sc)
-            torch.where(m, rec, self_prev, out=recs[t0 + j, r])
-            ovf = ovf + ovf_z
-        _frame_stats(sc, mask_f, ovf, zero, ovf_t[j], sat_t[j], nact_t[j])
-        tok_state = torch.where(m, st, tok_state)
-        tok_score = torch.where(m, sc, tok_score)
+    with span("csr_beam.frame_loop", batch=B, frames=Tf):
+        for j in range(Tf):
+            mask_f = mask_tb[j]
+            m = mask_f[:, None]
+            st, sc, rec, il, ovf = emit_round(tok_state, tok_score, ll_tb[j])
+            torch.where(m, rec, self_prev, out=recs[t0 + j, 0])
+            torch.where(m, il, zero, out=il_emit[t0 + j])
+            for r in range(1, R):
+                st, sc, rec, _il, ovf_z = eps_round(st, sc)
+                torch.where(m, rec, self_prev, out=recs[t0 + j, r])
+                ovf = ovf + ovf_z
+            _frame_stats(sc, mask_f, ovf, zero, ovf_t[j], sat_t[j],
+                         nact_t[j])
+            tok_state = torch.where(m, st, tok_state)
+            tok_score = torch.where(m, sc, tok_score)
     return tok_state, tok_score, ovf_t, sat_t, nact_t
 
 
@@ -817,38 +824,40 @@ def _csr_decode_rec(ll, frame_mask, tabs: TierTables, hub_state_arr,
     else:
         fst = torch.empty((B, T, R, Kc), dtype=torch.int32, device=dev)
         fsc = torch.empty((B, T, R, Kc), dtype=rec_dtype, device=dev)
-    for f in range(T):
-        mask_f = mask_tb[f]
-        m = mask_f[:, None]
-        st, sc, _rec, _il, ovf = emit_round(tok_state, tok_score, ll_tb[f])
-        full = [(st, sc)]
-        for _ in range(1, R):
-            st, sc, _rec, _il, ovf_z = eps_round(st, sc)
-            full.append((st, sc))
-            ovf = ovf + ovf_z
-        trunc = zero
-        for r, (s, c) in enumerate(full):
-            s_c, c_c, b_c, tr, n_alive = compact_rec(
-                torch.where(m, s, tok_state), torch.where(m, c, tok_score))
-            fbest[:, f, r] = b_c
-            trunc = trunc + torch.where(mask_f, tr, zero)
-            if flat:
-                w = torch.where(mask_f, torch.clamp(n_alive, max=Kc), zero)
-                fovf |= mask_f & (cursor > CAPB - Kc)
-                safe = torch.where(mask_f, torch.clamp(cursor, max=CAPB - Kc),
-                                   CAPB)
-                idx = safe[:, None] + window
-                fbst.scatter_(1, idx, s_c)
-                fbsc.scatter_(1, idx, c_c)
-                cursor = cursor + w
-                counts[:, f, r] = w
-            else:
-                fst[:, f, r] = s_c
-                fsc[:, f, r] = c_c
-        trunc_t[f] = trunc
-        _frame_stats(sc, mask_f, ovf, zero, ovf_t[f], sat_t[f], nact_t[f])
-        tok_state = torch.where(m, st, tok_state)
-        tok_score = torch.where(m, sc, tok_score)
+    with span("csr_beam.frame_loop", batch=B, frames=T):
+        for f in range(T):
+            mask_f = mask_tb[f]
+            m = mask_f[:, None]
+            st, sc, _rec, _il, ovf = emit_round(tok_state, tok_score, ll_tb[f])
+            full = [(st, sc)]
+            for _ in range(1, R):
+                st, sc, _rec, _il, ovf_z = eps_round(st, sc)
+                full.append((st, sc))
+                ovf = ovf + ovf_z
+            trunc = zero
+            for r, (s, c) in enumerate(full):
+                s_c, c_c, b_c, tr, n_alive = compact_rec(
+                    torch.where(m, s, tok_state), torch.where(m, c, tok_score))
+                fbest[:, f, r] = b_c
+                trunc = trunc + torch.where(mask_f, tr, zero)
+                if flat:
+                    w = torch.where(mask_f, torch.clamp(n_alive, max=Kc), zero)
+                    fovf |= mask_f & (cursor > CAPB - Kc)
+                    safe = torch.where(mask_f,
+                                       torch.clamp(cursor, max=CAPB - Kc),
+                                       CAPB)
+                    idx = safe[:, None] + window
+                    fbst.scatter_(1, idx, s_c)
+                    fbsc.scatter_(1, idx, c_c)
+                    cursor = cursor + w
+                    counts[:, f, r] = w
+                else:
+                    fst[:, f, r] = s_c
+                    fsc[:, f, r] = c_c
+            trunc_t[f] = trunc
+            _frame_stats(sc, mask_f, ovf, zero, ovf_t[f], sat_t[f], nact_t[f])
+            tok_state = torch.where(m, st, tok_state)
+            tok_score = torch.where(m, sc, tok_score)
 
     best_slot, best_cost = _best_final(tok_state, tok_score, tabs.final)
     if init_full:

@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from kaldi_tpu_torch.utils.profiling import span
+
 BIG = np.float32(1e10)
 
 _NP_DTYPE = {torch.float32: np.float32, torch.float16: np.float16,
@@ -30,27 +32,35 @@ def fetch_host(tensors: list[torch.Tensor]) -> list[np.ndarray]:
     """Copy a list of device tensors (f32, f16, int32, int64, uint8, bool;
     any shapes, mixed) to the host with ONE transfer: each is viewed as
     bytes, padded to a multiple of 8, and the parts are concatenated on
-    the device. -> numpy arrays with the original shapes and dtypes."""
-    parts, spans = [], []
-    pos = 0
-    for x in tensors:
-        flat = x.reshape(-1)
-        if flat.dtype == torch.bool:
-            flat = flat.to(torch.uint8)
-        raw = flat.contiguous().view(torch.uint8)
-        n = raw.numel()
-        pad = -n % 8
-        parts.append(raw)
-        if pad:
-            parts.append(torch.zeros(pad, dtype=torch.uint8, device=x.device))
-        spans.append((pos, n))
-        pos += n + pad
-    buf = torch.cat(parts).cpu().numpy() if parts else np.zeros(0, np.uint8)
-    out = []
-    for x, (p, n) in zip(tensors, spans):
-        chunk = buf[p: p + n].view(_NP_DTYPE[x.dtype])
-        out.append(chunk.reshape(tuple(x.shape)))
-    return out
+    the device. -> numpy arrays with the original shapes and dtypes.
+
+    Its span (`hostpack.fetch_host`, counting the buffer's `bytes`) holds
+    the pack, the wait for the card to finish the work the outputs need,
+    and the copy."""
+    with span("hostpack.fetch_host") as sp:
+        parts, spans = [], []
+        pos = 0
+        for x in tensors:
+            flat = x.reshape(-1)
+            if flat.dtype == torch.bool:
+                flat = flat.to(torch.uint8)
+            raw = flat.contiguous().view(torch.uint8)
+            n = raw.numel()
+            pad = -n % 8
+            parts.append(raw)
+            if pad:
+                parts.append(torch.zeros(pad, dtype=torch.uint8,
+                                         device=x.device))
+            spans.append((pos, n))
+            pos += n + pad
+        sp.counts["bytes"] = pos
+        buf = (torch.cat(parts).cpu().numpy() if parts
+               else np.zeros(0, np.uint8))
+        out = []
+        for x, (p, n) in zip(tensors, spans):
+            chunk = buf[p: p + n].view(_NP_DTYPE[x.dtype])
+            out.append(chunk.reshape(tuple(x.shape)))
+        return out
 
 
 def parse_label_seqs(ols, ils, init_ols, cost, num_frames):

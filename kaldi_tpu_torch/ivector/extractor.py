@@ -46,6 +46,7 @@ from kaldi_tpu_torch.device import resolve_device
 from kaldi_tpu_torch.gmm.am_gmm import _augment
 from kaldi_tpu_torch.gmm.diag_gmm import DiagGmm
 from kaldi_tpu_torch.gmm.full_gmm import FullGmm
+from kaldi_tpu_torch.utils.profiling import span
 
 # utterances per E-step batch: [B, K, K] f64 is 184 MB at K = 600
 BATCH = 64
@@ -207,7 +208,9 @@ class IvectorExtractor:
         """Zeroth/first-order stats of many utterances on `device`: ->
         (gamma [N, I], X [N, I, D]) f64 tensors there. The posteriors are
         `frame_posteriors`' (gselect and min-post pruning) unless `posts`
-        gives each utterance's [T, I] (the v2 recipe's)."""
+        gives each utterance's [T, I] (the v2 recipe's). Each chunk's f64
+        concatenation and copy to `device` is one span, `ivector.upload`
+        (counts its `bytes`)."""
         dev = resolve_device(device)
         diag = torch.as_tensor(self._gselect_gmm().packed(), device=dev)
         I, D = self.means.shape
@@ -222,16 +225,19 @@ class IvectorExtractor:
                                frames + len(feats_list[end]) <= budget):
                 frames += len(feats_list[end])
                 end += 1
-            x = torch.as_tensor(np.concatenate(
-                [np.asarray(f, np.float64) for f in feats_list[start:end]]),
-                device=dev)
-            if posts is None:
+            with span("ivector.upload") as sp:
+                x = torch.as_tensor(np.concatenate(
+                    [np.asarray(f, np.float64)
+                     for f in feats_list[start:end]]), device=dev)
+                p = None if posts is None else torch.as_tensor(
+                    np.concatenate([np.asarray(q, np.float64)
+                                    for q in posts[start:end]]),
+                    dtype=torch.float64, device=dev)
+                sp.counts["bytes"] = x.nbytes + (0 if p is None
+                                                 else p.nbytes)
+            if p is None:
                 p = _gselect_posteriors(x.float(), diag, num_gselect,
                                         min_post)
-            else:
-                p = torch.as_tensor(np.concatenate(
-                    [np.asarray(q, np.float64) for q in posts[start:end]]),
-                    dtype=torch.float64, device=dev)
             t = 0
             for n in range(start, end):
                 T = len(feats_list[n])

@@ -32,6 +32,7 @@ from torch.func import functional_call
 from kaldi_tpu_torch.device import resolve_device
 from kaldi_tpu_torch.nnet import optim
 from kaldi_tpu_torch.nnet.tdnn import Tdnn
+from kaldi_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,17 +95,21 @@ def make_optimizer(opts: NnetTrainOpts, num_steps: int
 def _grad_step(loss_fn, optimizer, params, opt_state):
     """One step of `optimizer` on loss_fn(params) -> (loss, aux). A param
     the loss does not read (a layer past a progressive stage) gets a zero
-    gradient, as under jax.grad."""
-    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-    with torch.enable_grad():
-        loss, aux = loss_fn(leaves)
-        grads = torch.autograd.grad(loss, list(leaves.values()),
-                                    allow_unused=True, materialize_grads=True)
-    with torch.no_grad():
-        updates, opt_state = optimizer.update(
-            dict(zip(leaves, grads)), opt_state, params)
-        params = optim.apply_updates(params, updates)
-    return params, opt_state, loss.detach(), aux.detach()
+    gradient, as under jax.grad. Spans: `train.step` (the whole step) and,
+    inside it, `train.update` (the optimizer and the update)."""
+    with span("train.step"):
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        with torch.enable_grad():
+            loss, aux = loss_fn(leaves)
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True,
+                                        materialize_grads=True)
+        with torch.no_grad(), span("train.update"):
+            updates, opt_state = optimizer.update(
+                dict(zip(leaves, grads)), opt_state, params)
+            params = optim.apply_updates(params, updates)
+        return params, opt_state, loss.detach(), aux.detach()
 
 
 class _GatherModel(torch.autograd.Function):

@@ -38,6 +38,7 @@ from kaldi_tpu_torch.ivector.vad import (VadOpts, compute_vad,
                                          select_voiced_frames)
 from kaldi_tpu_torch.steps.ubm import (DiagUbmTrainOpts, FullUbmTrainOpts,
                                        train_diag_ubm, train_full_ubm)
+from kaldi_tpu_torch.utils.profiling import span
 
 log = logging.getLogger("kaldi_tpu_torch.sre")
 
@@ -92,8 +93,13 @@ class SreSystem:
         return _voiced(feats, self.opts)
 
     def stats(self, feats_list) -> tuple[torch.Tensor, torch.Tensor]:
-        """Voiced frames' stats of many utterances on the device."""
-        fl = [self.voiced(f) for f in feats_list]
+        """Voiced frames' stats of many utterances on the device. The
+        voiced selection is one span, `sre.vad` (counts `frames_in`,
+        `frames_kept`)."""
+        with span("sre.vad") as sp:
+            fl = [self.voiced(f) for f in feats_list]
+            sp.counts.update(frames_in=sum(len(f) for f in feats_list),
+                             frames_kept=sum(len(f) for f in fl))
         posts = (None if self.post_fn is None
                  else [np.asarray(self.post_fn(f)) for f in fl])
         return self.extractor.batch_stats(fl, self.opts.num_gselect,

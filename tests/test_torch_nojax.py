@@ -498,7 +498,9 @@ from kaldi_tpu_torch.decoder.batching import decode_batched
 from kaldi_tpu_torch.decoder.simple import simple_decode
 from kaldi_tpu_torch.decoder.verify import (check_packed_graph,
                                             check_tier_tables)
-from kaldi_tpu_torch.utils.profiling import check_finite
+from kaldi_tpu_torch.utils.profiling import (PROFILER, RECORDER,
+                                             SpanRecorder, check_finite,
+                                             dropped, span, spans)
 hub40 = chip_smoke.star_hub_graph(40)
 cdec = CsrBeamDecoder(hub40, CsrBeamOpts(beam=1e9, max_active=32,
                                          expand_budget=256, hub_threshold=8),
@@ -512,6 +514,15 @@ bat = decode_batched(cdec, utts, lambda x: x, batch_size=2, device="cpu")
 assert bat["a"][0] == res[0][0] and bat["b"][0] == res[1][0], (bat, res)
 assert simple_decode(cdec.graph, ll[0])[0] == list(res[0][0])
 check_finite({"w": torch.ones(2)})
+root = [s for s in spans() if s.name == "batching.decode_batched"][-1]
+loops = [s for s in spans() if s.name == "csr_beam.frame_loop"
+         and s.request == root.id]
+assert len(loops) == 1 and loops[0].counts["frames"] >= 10, loops
+with span("nojax.check", n=1):
+    pass
+assert spans()[-1].name == "nojax.check" and dropped() == 0
+assert PROFILER.counts["csr_beam.frame_loop"] >= 2
+assert isinstance(RECORDER, SpanRecorder)
 import torch.distributed as dist
 from kaldi_tpu_torch.parallel import (decode_frontier_sharded, host_shard,
                                       init_distributed, make_mesh)
